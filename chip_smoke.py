@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path on one CUDA card, end to end.
+"""Drive paddle_tpu_torch's serving and training paths on one CUDA card,
+end to end.
 
     python3 chip_smoke.py
 
@@ -11,13 +12,18 @@ over):
 2. build   -- nvcc compiles every ``paddle_tpu_torch/csrc/*.cu`` for
    sm_90a into ``paddle_tpu_torch/build/``, one process per source, all
    started together; ptxas's register and shared-memory lines are printed.
-3. kernels -- each kernel of the path against its plain PyTorch version
-   at the shapes the served path gives it (flash attention: q, k, v the
-   permuted [32,12,128,64] views transpose2 leaves behind, a [32,1,1,128]
-   padding bias), in float32 and bfloat16, plus a causal and a ragged
-   (T = 100) case.  Times by CUDA events, beside the least time the card
-   could take (the bound) and one PyTorch library call computing the same
-   function (timed here only, never called by the port).
+3. kernels -- each kernel of the two paths against its plain PyTorch
+   version at the shapes the paths give it, with the tolerance printed.
+   Flash attention forward and backward: q, k, v (and dO) the permuted
+   [32,12,128,64] views transpose2 leaves behind, a [32,1,1,128] padding
+   bias, float32 and bfloat16, plus a causal and a ragged (T = 100) case
+   and one with the bias the BERT program builds, (m - 10000) * 10000;
+   the forward's softmax statistics (row max and sum) too.  Fused Adam:
+   ``torch.equal`` to the per-param ``adam`` lowering over the BERT-base
+   bucket (99 parameters, 51,790,850 values).  Times by CUDA events,
+   beside the least time the card could take (the bound) and one PyTorch
+   library call computing the same function where there is one (timed
+   here only, never called by the port).
 4. serve   -- the static BERT program at BERT-base width (vocab 30522,
    hidden 768, 12 heads, 12 layers, seq 128, dropout 0.1, padding mask),
    random weights from a seed, frozen, ``fuse_attention`` applied, served
@@ -29,13 +35,28 @@ over):
    scaled so that the first layers' attention is far from uniform, and a
    uniform-attention twin that must disagree, show that this comparison
    sees the scores.
+4b. train -- the static BERT training program at the same width with
+   dropout 0, padding mask on, Adam lr 1e-3, batch 32: random weights as
+   in phase 4, ``fuse_attention`` (12 rewrites, train rules) and
+   ``fuse_optimizer`` (one ``fused_adam``) applied, one warm-up step and
+   10 timed steps through ``Executor.run(CompiledProgram)``.  The launch
+   counts are set to 0 just before the timed steps and read just after:
+   per step 24 flash-attention forward launches (12 in the forward ops,
+   12 recomputed inside ``generic_grad``'s vjp), 12 backward calls and 1
+   fused-Adam launch.  Then 2 steps at 4 rows on the card and on the host
+   from the same weights and state: losses within rtol 1e-4, first-step
+   gradients of the embedding and of every layer's query and key weights
+   within 1e-3 of the largest such gradient; a host twin whose attention
+   backward drops dQ and dK must miss that tolerance.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
-   32 rows, the device's idle share, and device time by kernel class.
+   32 rows and of one training step at 32 rows, the device's idle share,
+   and device time by kernel class.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -49,6 +70,11 @@ BERT_BASE = dict(vocab=30522, hidden=768, heads=12, seq=128, layers=12,
 MAX_BATCH = 32
 N_REQUESTS = 16
 ROW_CHOICES = (1, 3, 5, 8, 13, 21, 32)
+TRAIN = dict(BERT_BASE, dropout=0.0, lr=1e-3, train=True)
+TRAIN_ROWS = 32
+TRAIN_STEPS = 10
+HOST_ROWS = 4          # the card-vs-host training check's batch
+DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
@@ -106,20 +132,24 @@ def phase_build():
                 _p(f"    {line.strip()}")
 
 
-def _attention_inputs(b, h, t, d, dtype, seed, masked=True):
+def _attention_inputs(b, h, t, d, dtype, seed, masked=True,
+                      program_bias=False):
     """q, k, v as permuted [B,H,T,D] views of [B,T,H,D] tensors (what
-    transpose2 hands the fused op) and a [B,1,1,T] (m - 1) * 10000
-    padding bias."""
+    transpose2 hands the fused op) and a [B,1,1,T] padding bias:
+    (m - 1) * 10000, or with ``program_bias`` (m - 10000) * 10000, the
+    bias the static BERT program builds (``scale`` with its bias before
+    the scale), about -1e8, where float32 keeps only multiples of 8."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = [torch.randn(b, t, h, d, generator=g, device="cuda")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    qkv = [torch.randn(b, t, h, d, generator=g, device=DEVICE)
            .to(dtype).permute(0, 2, 1, 3) for _ in range(3)]
     mask = None
     if masked:
-        lengths = torch.randint(1, t + 1, (b,), generator=g, device="cuda")
-        m = (torch.arange(t, device="cuda")[None, :]
+        lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEVICE)
+        m = (torch.arange(t, device=DEVICE)[None, :]
              < lengths[:, None]).float()
-        mask = ((m - 1.0) * 10000.0).reshape(b, 1, 1, t)
+        shift = 10000.0 if program_bias else 1.0
+        mask = ((m - shift) * 10000.0).reshape(b, 1, 1, t)
     return qkv, mask
 
 
@@ -140,13 +170,14 @@ def _flash_bound(q, k, v, mask):
 
 
 def phase_kernels():
-    """Flash attention against its plain version; returns the float32
-    row of the kernels line (the served program runs in float32) with
-    the bfloat16 numbers beside it."""
+    """Flash attention forward against its plain version; returns its
+    rows by case (the kernels line takes float32, the dtype of both
+    programs, with bfloat16 beside it)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels
-    from paddle_tpu_torch.ops.attention import _reference_attention
+    from paddle_tpu_torch.ops.attention import _reference_attention, \
+        _reference_stats
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -160,10 +191,13 @@ def phase_kernels():
              ("bf16", torch.bfloat16, t, False, True, True),
              ("fp32 causal", torch.float32, t, True, False, False),
              ("bf16 causal", torch.bfloat16, t, True, True, False),
-             ("fp32 ragged T=100", torch.float32, 100, False, True, False)]
+             ("fp32 ragged T=100", torch.float32, 100, False, True, False),
+             ("fp32 program bias", torch.float32, t, False, "program",
+              False)]
     for label, dtype, tt, causal, masked, timed in cases:
         (q, k, v), mask = _attention_inputs(b, h, tt, d, dtype, SEED,
-                                            masked)
+                                            bool(masked),
+                                            masked == "program")
         out = flash(q, k, v, mask, scale, causal)
         ref = _reference_attention(q, k, v, mask, scale, causal)
         torch.cuda.synchronize()
@@ -175,6 +209,16 @@ def phase_kernels():
         if not ok or not np.isfinite(err):
             raise SystemExit(f"chip_smoke: flash_attention_fwd {label} "
                              f"disagrees with its plain version")
+        # the softmax statistics the backward reads (training path only)
+        _, m, l = flash(q, k, v, mask, scale, causal, return_stats=True)
+        for name, got, want in zip(("row max", "row sum"), (m, l),
+                                   _reference_stats(q, k, mask, scale,
+                                                    causal)):
+            s_err = (got - want).abs().max().item()
+            _p(f"  {name}: max |err| = {s_err:.3e} (atol=rtol=1e-4)")
+            if not torch.allclose(got, want, atol=1e-4, rtol=1e-4):
+                raise SystemExit(f"chip_smoke: flash_attention_fwd {label} "
+                                 f"{name} disagrees with its plain version")
         if not timed:
             continue
         lib_mask = mask.to(dtype) if mask is not None else None
@@ -191,6 +235,213 @@ def phase_kernels():
            f"library (scaled_dot_product_attention) {library_ms:.4f} ms | "
            f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
     return rows
+
+
+def _flash_bwd_bound(q, mask):
+    """Least time for dQ, dK, dV on this card: the larger of the bytes
+    (q, k, v, o, dO and the row statistics read once, dq, dk, dv written
+    once, the bias read once) over HBM bandwidth and the five products
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K: 5 · 2·B·H·T²·D) over the peak rate."""
+    b, h, t, d = q.shape
+    nbytes = 8 * q.numel() * q.element_size() + 2 * b * h * t * 4 \
+        + (mask.numel() * 4 if mask is not None else 0)
+    flops = 5 * 2.0 * b * h * t * t * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[str(q.dtype).removeprefix("torch.")] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def phase_kernels_bwd():
+    """The flash-attention backward kernel against
+    ``_reference_attention_bwd`` on the same o and statistics (those of
+    the forward kernel); returns its rows by case.  The library call is
+    the backward of ``scaled_dot_product_attention`` on the same inputs
+    (autograd of one forward, timed alone)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.attention import _reference_attention_bwd
+
+    fwd, bwd = cuda_kernels.flash_attention_fwd, \
+        cuda_kernels.flash_attention_bwd
+    b, h, t, d = MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"], \
+        BERT_BASE["hidden"] // BERT_BASE["heads"]
+    scale = d ** -0.5
+    # float32: FMA chains against cuBLAS sums; bfloat16: one rounding of
+    # each output
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+    rows = {}
+    cases = [("fp32", torch.float32, t, False, True, True),
+             ("bf16", torch.bfloat16, t, False, True, True),
+             ("fp32 causal", torch.float32, t, True, False, False),
+             ("fp32 ragged T=100", torch.float32, 100, False, True, False),
+             ("fp32 program bias", torch.float32, t, False, "program",
+              False)]
+    for label, dtype, tt, causal, masked, timed in cases:
+        (q, k, v), mask = _attention_inputs(b, h, tt, d, dtype, SEED,
+                                            bool(masked),
+                                            masked == "program")
+        (do, _, _), _ = _attention_inputs(b, h, tt, d, dtype, SEED + 1,
+                                          masked=False)
+        o, m, l = fwd(q, k, v, mask, scale, causal, return_stats=True)
+        got = bwd(q, k, v, mask, scale, causal, o, m, l, do)
+        want = _reference_attention_bwd(q, k, v, mask, scale, o, m, l, do,
+                                        causal)
+        torch.cuda.synchronize()
+        atol, rtol = tol[dtype]
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        ok = all(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol)
+                 for g, w in zip(got, want))
+        _p(f"flash_attention_bwd {label} [{b},{h},{tt},{d}]: max |err| of "
+           f"dq, dk, dv vs plain = {err:.3e} (atol={atol}, rtol={rtol})")
+        if not ok or not np.isfinite(err):
+            raise SystemExit(f"chip_smoke: flash_attention_bwd {label} "
+                             f"disagrees with its plain version")
+        if not timed:
+            continue
+        ms = _ms(lambda: bwd(q, k, v, mask, scale, causal, o, m, l, do),
+                 100)
+        plain_ms = _ms(lambda: _reference_attention_bwd(
+            q, k, v, mask, scale, o, m, l, do, causal), 20)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask.to(dtype) if mask is not None
+                else None, scale=scale)
+        library_ms = _ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 100)
+        bound_ms, bound_by = _flash_bwd_bound(q, mask)
+        rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms}
+        _p(f"  kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library "
+           f"(scaled_dot_product_attention backward) {library_ms:.4f} ms | "
+           f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return rows
+
+
+def _bert_param_shapes():
+    """The shapes of the BERT program's 99 parameters: the embedding,
+    per layer the query, key, value and relu fc (weight, bias), the
+    classifier fc."""
+    v, hd = BERT_BASE["vocab"], BERT_BASE["hidden"]
+    per_layer = [(hd, hd), (hd,)] * 4
+    return [(v, hd)] + per_layer * BERT_BASE["layers"] + [(hd, 2), (2,)]
+
+
+def phase_kernels_adam():
+    """``fused_adam`` over the BERT-base bucket: the op lowering (flatten,
+    broadcast lr_t, kernel, unflatten) against the per-param ``adam``
+    lowering, ``torch.equal`` on every output; returns its row.  The
+    library call is ``torch._fused_adam_`` over the same 99 tensors: it
+    computes ``p - lr/bc1 · m'/(sqrt(v')/sqrt(bc2) + eps')``, with
+    ``bc = 1 - beta^t``, which with ``eps' = eps/sqrt(bc2)`` is this
+    update, ``p - lr·sqrt(bc2)/bc1 · m'/(sqrt(v') + eps)``, up to
+    rounding."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.optimizer_ops import _adam_moments
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shapes = _bert_param_shapes()
+    n = sum(math.prod(s) for s in shapes)
+
+    def draw(shape, std):
+        return std * torch.randn(shape, generator=g, device=dev)
+
+    ins = {"Param": [draw(s, 0.05) for s in shapes],
+           "Grad": [draw(s, 1e-3) for s in shapes],
+           "Moment1": [draw(s, 1e-4) for s in shapes],
+           "Moment2": [draw(s, 1e-4).square() for s in shapes],
+           "Beta1Pow": [torch.full((1,), 0.9 ** 3, device=dev)
+                        for _ in shapes],
+           "Beta2Pow": [torch.full((1,), 0.999 ** 3, device=dev)
+                        for _ in shapes],
+           "LearningRate": [torch.full((1,), TRAIN["lr"], device=dev)]}
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    ctx = LoweringContext(dev)
+    fused_op = get_op("fused_adam").fn
+    before = cuda_kernels.fused_adam.launches
+    fused = fused_op(ins, attrs, ctx)
+    if cuda_kernels.fused_adam.launches != before + 1:
+        raise SystemExit("chip_smoke: the fused_adam op did not launch its "
+                         "kernel on the BERT-base bucket")
+    equal, err = True, 0.0
+    for i in range(len(shapes)):
+        one = get_op("adam").fn({s: [v[0] if s == "LearningRate" else v[i]]
+                                 for s, v in ins.items()}, attrs, ctx)
+        for slot, outs in one.items():
+            equal &= torch.equal(fused[slot][i], outs[0])
+            err = max(err, (fused[slot][i] - outs[0]).abs().max().item())
+    _p(f"fused_adam BERT-base bucket ({len(shapes)} params, {n} values): "
+       f"torch.equal to the per-param adam = {equal} (max |err| "
+       f"{err:.3e}; tolerance: bit-identical)")
+    if not equal:
+        raise SystemExit("chip_smoke: fused_adam is not bit-identical to "
+                         "the per-param adam lowering")
+
+    # the kernel alone over the flat bucket the lowering hands it
+    flat = [torch.cat([x.reshape(-1) for x in ins[s]])
+            for s in ("Param", "Grad", "Moment1", "Moment2")]
+    b1, b2, eps = attrs["beta1"], attrs["beta2"], attrs["epsilon"]
+    step = 3                                  # Beta1Pow = beta1 ** 3
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    lrt = torch.full((n,), TRAIN["lr"] * math.sqrt(bc2) / bc1, device=dev)
+    ms = _ms(lambda: cuda_kernels.fused_adam(*flat, lrt, b1, b2, eps), 20)
+
+    def plain():
+        m_new, v_new = _adam_moments(flat[2], flat[3], flat[1], b1, b2)
+        return flat[0] - lrt * m_new / (torch.sqrt(v_new) + eps)
+
+    plain_ms = _ms(plain, 10)
+    op_ms = _ms(lambda: fused_op(ins, attrs, ctx), 10)
+
+    # the library: torch's fused Adam over the same 99 tensors, in place
+    lib = [[x.clone() for x in ins[s]]
+           for s in ("Param", "Grad", "Moment1", "Moment2")]
+    steps = [torch.full((), float(step), device=dev) for _ in shapes]
+
+    def library():
+        torch._fused_adam_(*lib, [], steps, lr=TRAIN["lr"], beta1=b1,
+                           beta2=b2, weight_decay=0.0,
+                           eps=eps / math.sqrt(bc2), amsgrad=False,
+                           maximize=False)
+
+    # the same function to float32 precision: torch rounds the betas to
+    # float32 on the card, so its (1 - beta2) is off by 1.3e-5 relative,
+    # and where sqrt(v') is near eps the update carries that error; the
+    # parameters are compared by their updates, within a few float32
+    # roundings of the parameters themselves
+    library()
+    lib_err = 0.0
+    for got, slot in zip((lib[0], lib[2], lib[3]),
+                         ("ParamOut", "Moment1Out", "Moment2Out")):
+        for a, want, old in zip(got, fused[slot], ins["Param"]):
+            lib_err = max(lib_err, (a - want).abs().max().item())
+            atol = 1e-6 * want.abs().max().item()
+            if slot == "ParamOut":
+                a, want = a - old, want - old
+            if not torch.allclose(a, want, rtol=1e-4, atol=atol):
+                raise SystemExit(f"chip_smoke: torch._fused_adam_ does not "
+                                 f"compute fused_adam's {slot}")
+    library_ms = _ms(library, 10)
+    nbytes = 8 * 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12.0 * n / FLOPS_PER_S["float32"] * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+    _p(f"  kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | op lowering "
+       f"{op_ms:.4f} ms (flatten, lr_t broadcast and unflatten "
+       f"{op_ms - ms:.4f} ms) | library (torch._fused_adam_, eps/sqrt(bc2), "
+       f"max |diff| from the op {lib_err:.3e}, rtol=1e-4) {library_ms:.4f} "
+       f"ms | bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "op_ms": op_ms, "values": n}
 
 
 def _served_weights(params, layers, seed):
@@ -394,10 +645,199 @@ def phase_serve(card):
     return launches, (program, frozen, scope, logits)
 
 
+def _train_feed(rng, rows):
+    """ids, labels and a padding mask whose rows attend to random
+    prefixes, drawn from ``rng``."""
+    seq = BERT_BASE["seq"]
+    lengths = rng.randint(1, seq + 1, rows)
+    return {"ids": rng.randint(0, BERT_BASE["vocab"], (rows, seq))
+            .astype("int64"),
+            "labels": rng.randint(0, 2, (rows, 1)).astype("int64"),
+            "attn_mask": (np.arange(seq)[None, :] < lengths[:, None])
+            .astype("float32")}
+
+
+@contextlib.contextmanager
+def _attention_blind_to_qk():
+    """The fused attention op with Q and K cut out of autodiff: its
+    backward gives dQ = dK = 0, the gradients of a backward kernel that
+    dropped them.  The forward is unchanged."""
+    from paddle_tpu_torch.ops import attention
+    plain = attention.flash_attention
+
+    def blind(q, k, v, *args, **kwargs):
+        return plain(q.detach(), k.detach(), v, *args, **kwargs)
+
+    attention.flash_attention = blind
+    try:
+        yield
+    finally:
+        attention.flash_attention = plain
+
+
+def _train_card_vs_host(main, loss, init, params, layers, card):
+    """Two steps at HOST_ROWS rows on the card and on the host from the
+    same weights and optimizer state, through the same rewritten program.
+    The losses agree within rtol 1e-4.  The first step's gradients of the
+    embedding and of every layer's query and key weights agree within
+    1e-3 of the largest magnitude among them (the embedding against its
+    own): deeper in this program, which has no residual and no LayerNorm,
+    the query and key gradients shrink by orders of magnitude layer by
+    layer until they are float32 rounding noise, which no tolerance
+    relative to themselves can hold, while the first layers carry most of
+    the gradient.  A host twin whose attention backward drops dQ and dK
+    must miss the tolerance."""
+    from paddle_tpu_torch import fluid, interop
+
+    feed = _train_feed(np.random.RandomState(SEED + 2), HOST_ROWS)
+    emb = params[0].name
+    qk = [params[1 + 8 * l + j].name for l in range(layers) for j in (0, 2)]
+    fetch = [loss.name] + [n + "@GRAD" for n in [emb] + qk]
+
+    def two_steps(place):
+        scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        first = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        second = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return ([float(first[0]), float(second[0])],
+                dict(zip([emb] + qk, first[1:])))
+
+    t0 = time.perf_counter()
+    card_loss, card_g = two_steps(fluid.CUDAPlace(0))
+    host_loss, host_g = two_steps(fluid.CPUPlace())
+    with _attention_blind_to_qk():
+        twin_loss, twin_g = two_steps(fluid.CPUPlace())
+    _p(f"train: card vs host, {HOST_ROWS} rows x 2 steps, in "
+       f"{time.perf_counter() - t0:.1f} s: losses card {card_loss}, host "
+       f"{host_loss} (rtol=1e-4)  [{card}]")
+    if not np.allclose(card_loss, host_loss, rtol=1e-4, atol=0.0):
+        raise SystemExit("chip_smoke: the card's training losses disagree "
+                         "with the host's")
+
+    def misses(grads):
+        """Names whose gradient misses the tolerance against the card."""
+        scale = max(float(np.abs(host_g[n]).max()) for n in qk)
+        bad = []
+        for n in [emb] + qk:
+            atol = 1e-3 * (float(np.abs(host_g[emb]).max()) if n == emb
+                           else scale)
+            if not np.allclose(card_g[n], grads[n], rtol=0.0, atol=atol):
+                bad.append(n)
+        return bad
+
+    errs = [float(np.abs(card_g[n] - host_g[n]).max()) for n in [emb] + qk]
+    _p(f"train: first-step grads, max |card - host|: embedding "
+       f"{errs[0]:.3e} (max |g| {np.abs(host_g[emb]).max():.3e}); query "
+       f"and key weights per layer {[f'{e:.2e}' for e in errs[1:]]} "
+       f"against 1e-3 x {max(np.abs(host_g[n]).max() for n in qk):.3e}")
+    for label, grads in (("card", card_g), ("host", host_g),
+                         ("twin (dQ = dK = 0)", twin_g)):
+        norms = [float(np.linalg.norm(grads[n])) for n in qk[0::2]]
+        _p(f"train: query-weight grad norm per layer, {label}: "
+           f"{[f'{x:.3e}' for x in norms]}")
+    bad = misses(host_g)
+    if bad:
+        raise SystemExit(f"chip_smoke: the card's gradients of {bad} "
+                         f"disagree with the host's")
+    twin_bad = misses(twin_g)
+    _p(f"train: the twin misses the tolerance at {len(twin_bad)} of "
+       f"{1 + len(qk)} gradients (must be at least the first layer's); "
+       f"twin losses {twin_loss}")
+    if qk[0] not in twin_bad or qk[1] not in twin_bad:
+        raise SystemExit("chip_smoke: the card-vs-host gradient check "
+                         "cannot tell dQ and dK from zero")
+
+
+def phase_train(card):
+    """The training path; returns the launch count of each kernel per
+    the timed steps and what the profile phase needs."""
+    import torch
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.models.static_graphs import \
+        build_bert_train_program
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    layers = TRAIN["layers"]
+    t0 = time.perf_counter()
+    main, startup, loss = build_bert_train_program(**TRAIN)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    params = main.all_parameters()
+    weights, _ = _served_weights(params, layers, SEED)
+    interop.scope_from_numpy(weights, scope, fluid.CUDAPlace(0))
+    init = interop.scope_to_numpy(
+        scope, [n for n, v in main.global_block().vars.items()
+                if v.persistable])
+    bs = fluid.BuildStrategy()
+    bs.fuse_attention = bs.fuse_optimizer = True
+    program = fluid.CompiledProgram(main, bs)
+    counters = [trace.metrics().counter(f"kernel_tier.{n}.rewrites")
+                for n in ("fuse_attention", "fuse_optimizer")]
+    before = [c.value for c in counters]
+    program._apply_ir_passes([loss.name])
+    rewrites = [c.value - b for c, b in zip(counters, before)]
+    types = [op.type for op in main.global_block().ops]
+    _p(f"train: BERT-base width training program ({len(params)} "
+       f"parameters, dropout 0, Adam lr {TRAIN['lr']}), built, startup run "
+       f"and weights from seed {SEED} loaded in "
+       f"{time.perf_counter() - t0:.1f} s; fuse_attention rewrites = "
+       f"{rewrites[0]}, fuse_optimizer rewrites = {rewrites[1]}; ops: "
+       f"{types.count('fused_multihead_attention')} fused attention, "
+       f"{types.count('fused_adam')} fused_adam, {types.count('softmax')} "
+       f"softmax, {types.count('adam')} adam, {len(types)} in all")
+    if rewrites != [layers, 1] or types.count("fused_adam") != 1 \
+            or "softmax" in types or "adam" in types:
+        raise SystemExit("chip_smoke: the training program was not "
+                         "rewritten onto the kernels")
+
+    feed = _train_feed(np.random.RandomState(SEED), TRAIN_ROWS)
+
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    step()
+    torch.cuda.synchronize()
+    counted = [cuda_kernels.flash_attention_fwd,
+               cuda_kernels.flash_attention_bwd, cuda_kernels.fused_adam]
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    tokens = TRAIN_ROWS * BERT_BASE["seq"] * TRAIN_STEPS
+    _p(f"train: {TRAIN_STEPS} steps at {TRAIN_ROWS} rows in {wall:.3f} s: "
+       f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step, {tokens / wall:.0f} "
+       f"tokens/s; losses {[round(x, 4) for x in losses]}  [{card}]")
+    want = {"flash_attention_fwd": 2 * layers * TRAIN_STEPS,
+            "flash_attention_bwd": layers * TRAIN_STEPS,
+            "fused_adam": TRAIN_STEPS}
+    _p(f"train: launches in the timed steps {launches}, expected {want} "
+       f"(per step: {2 * layers} forward = {layers} forward ops + {layers} "
+       f"recomputed in generic_grad's vjp, {layers} backward, 1 fused "
+       f"Adam)")
+    if launches != want:
+        raise SystemExit("chip_smoke: the training step did not run "
+                         "through every kernel as expected")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: a training loss is not finite")
+    _train_card_vs_host(main, loss, init, params, layers, card)
+    return launches, (program, main, scope, loss, feed)
+
+
 _CLASSES = (("flash_fwd", "flash_attention_fwd (csrc)"),
+            ("flash_bwd", "flash_attention_bwd (csrc)"),
+            ("fused_adam", "fused_adam (csrc)"),
             ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
-            ("cutlass", "matmul (cuBLAS)"), ("memcpy", "host copies"),
-            ("memset", "host copies"), ("index", "embedding gather"),
+            ("cutlass", "matmul (cuBLAS)"), ("catarray", "flatten copies"),
+            ("memcpy", "host copies"), ("memset", "host copies"),
+            ("index", "embedding gather/scatter"),
             ("reduce", "reductions"), ("softmax", "softmax"),
             ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
@@ -433,16 +873,59 @@ def _product_flops(program, rows):
     return total
 
 
-def phase_profile(served, card, iters=20):
-    """Where one dispatched batch's time goes: ``Executor.run`` of the
-    served program on the card plus the host copy of the logits, at 1, 8
-    and 32 rows.  Host ms is the mean wall time with no profiler
-    attached; device busy ms is the union of the kernels' intervals from
-    ``torch.profiler``, and the idle share is ``1 - busy / window`` over
-    the profiled window (the profiler slows the host, so it is an upper
-    bound of the unprofiled share)."""
+def _profile(fn, iters):
+    """(host ms per call with no profiler attached, device busy ms per
+    call, profiled idle share, kernels per call, device ms per call by
+    kernel class) over ``iters`` calls after 3 warm-up calls."""
     import torch
     from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - w0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise SystemExit("chip_smoke: the profiler saw no kernel on the "
+                         "card")
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kern])
+    by_class = {}
+    for e in kern:
+        c = _kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + \
+            (e.time_range.end - e.time_range.start) / iters / 1e3
+    return (host_ms, busy_us / iters / 1e3, 1.0 - busy_us / window_us,
+            len(kern) / iters, by_class)
+
+
+def _print_classes(by_class, unit):
+    for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        _p(f"    {c:28s} {ms:.4f} ms/{unit}")
+
+
+def phase_profile(served, trained, card, iters=20, train_iters=5):
+    """Where the time goes: one dispatched batch (``Executor.run`` of the
+    served program on the card plus the host copy of the logits) at 1, 8
+    and 32 rows, and one training step (``Executor.run`` of the rewritten
+    training program, loss fetched to the host) at 32 rows.  Host ms is
+    the mean wall time with no profiler attached; device busy ms is the
+    union of the kernels' intervals from ``torch.profiler``, and the idle
+    share is ``1 - busy / window`` over the profiled window (the profiler
+    slows the host, so it is an upper bound of the unprofiled share)."""
     from paddle_tpu_torch import fluid
 
     program, frozen, scope, logits = served
@@ -460,44 +943,43 @@ def phase_profile(served, card, iters=20):
             return exe.run(program, feed=feed, fetch_list=[logits],
                            scope=scope, return_numpy=False)[0].cpu()
 
-        for _ in range(3):
-            batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            batch()
-        host_ms = (time.perf_counter() - t0) / iters * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            w0 = time.perf_counter()
-            for _ in range(iters):
-                batch()
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - w0) * 1e6
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kern:
-            raise SystemExit("chip_smoke: the profiler saw no kernel on "
-                             "the card")
-        busy_us = _union_us([(e.time_range.start, e.time_range.end)
-                             for e in kern])
-        by_class = {}
-        for e in kern:
-            c = _kernel_class(e.name)
-            by_class[c] = by_class.get(c, 0.0) + \
-                (e.time_range.end - e.time_range.start) / iters / 1e3
+        host_ms, busy_ms, idle, n_kern, by_class = _profile(batch, iters)
         cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
         gflop = _product_flops(frozen, n) / 1e9
         _p(f"profile: rows={n}: host {host_ms:.3f} ms/batch "
            f"({n / host_ms * 1e3:.1f} rows/s), device busy "
-           f"{busy_us / iters / 1e3:.3f} ms/batch, idle share "
-           f"{1.0 - busy_us / window_us:.4f}, {len(kern) / iters:.0f} "
+           f"{busy_ms:.3f} ms/batch, idle share {idle:.4f}, {n_kern:.0f} "
            f"kernels/batch; fc products {gflop:.2f} GFLOP at "
            f"{gflop / cublas_ms if cublas_ms else float('nan'):.1f} "
            f"TFLOP/s  [{card}]")
-        for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-            _p(f"    {c:28s} {ms:.4f} ms/batch")
+        _print_classes(by_class, "batch")
+
+    program, main, scope, loss, feed = trained
+
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0].cpu()
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(step, train_iters)
+    cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
+    # each fc product runs forward, again inside generic_grad's vjp, and
+    # twice more for its two gradients
+    gflop = 4 * _product_flops(main, TRAIN_ROWS) / 1e9
+    tokens = TRAIN_ROWS * seq
+    _p(f"profile: train step, rows={TRAIN_ROWS}: host {host_ms:.3f} "
+       f"ms/step ({tokens / host_ms * 1e3:.0f} tokens/s), device busy "
+       f"{busy_ms:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+       f"kernels/step; fc products {gflop:.2f} GFLOP at "
+       f"{gflop / cublas_ms if cublas_ms else float('nan'):.1f} TFLOP/s  "
+       f"[{card}]")
+    _print_classes(by_class, "step")
+
+
+def _kernel_row(name, source, replaces, launches, row, **extra):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, **{k: row[k] for k in keys}, **extra)
 
 
 def main():
@@ -506,23 +988,37 @@ def main():
 
     kind, count, card = phase_device()
     phase_build()
-    rows = phase_kernels()
-    launches, served = phase_serve(card)
-    phase_profile(served, card)
-    fp32 = rows["fp32"]
-    kernels = [dict(
-        name="flash_attention_fwd", route="cuda",
-        source="paddle_tpu_torch/csrc/flash_attention.cu",
-        replaces="paddle_tpu/ops/pallas_kernels.py:41",
-        launches=launches["flash_attention_fwd"],
-        max_abs_err=fp32["max_abs_err"], ms=fp32["ms"],
-        plain_ms=fp32["plain_ms"], bound_ms=fp32["bound_ms"],
-        bound_by=fp32["bound_by"], library_ms=fp32["library_ms"],
-        max_err=fp32["max_abs_err"], bound_us=fp32["bound_ms"] * 1e3,
-        dtype="float32", shape=[MAX_BATCH, BERT_BASE["heads"],
-                                BERT_BASE["seq"],
-                                BERT_BASE["hidden"] // BERT_BASE["heads"]],
-        bf16=rows["bf16"])]
+    fwd_rows = phase_kernels()
+    bwd_rows = phase_kernels_bwd()
+    adam_row = phase_kernels_adam()
+    serve_launches, served = phase_serve(card)
+    train_launches, trained = phase_train(card)
+    phase_profile(served, trained, card)
+    shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
+             BERT_BASE["hidden"] // BERT_BASE["heads"]]
+    # the forward runs on both paths: "launches" stays the served path's
+    # count, as in the first slice's line, and "train_launches" is the
+    # training path's; the other kernels run on the training path only
+    fp32 = fwd_rows["fp32"]
+    kernels = [
+        _kernel_row("flash_attention_fwd",
+                    "paddle_tpu_torch/csrc/flash_attention.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:41",
+                    serve_launches["flash_attention_fwd"], fp32,
+                    train_launches=train_launches["flash_attention_fwd"],
+                    max_err=fp32["max_abs_err"],
+                    bound_us=fp32["bound_ms"] * 1e3,
+                    dtype="float32", shape=shape, bf16=fwd_rows["bf16"]),
+        _kernel_row("flash_attention_bwd",
+                    "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:41",
+                    train_launches["flash_attention_bwd"], bwd_rows["fp32"],
+                    dtype="float32", shape=shape, bf16=bwd_rows["bf16"]),
+        _kernel_row("fused_adam", "paddle_tpu_torch/csrc/fused_adam.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:647",
+                    train_launches["fused_adam"], adam_row,
+                    dtype="float32", values=adam_row["values"],
+                    op_ms=adam_row["op_ms"], library="torch._fused_adam_")]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

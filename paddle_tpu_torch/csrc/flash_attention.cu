@@ -3,7 +3,16 @@
 // Replaces paddle_tpu/ops/pallas_kernels.py:41 flash_attention_tpu (the
 // forward half; the TPU version wraps jax's Pallas flash kernel).
 // Computes  O = softmax(scale * Q K^T + bias) V  over [B, H, T, D], with an
-// optional causal mask (key j visible to query i iff j <= i).
+// optional causal mask (key j visible to query i iff j <= i), and, when the
+// caller passes pointers, each row's softmax statistics for the backward
+// kernels (flash_attention_bwd.cu): the row max m of the scores and the sum
+// l of exp(score - m), float32 [B, H, Tq] each.  They are kept apart, not
+// folded into one log-sum-exp m + log l: the static BERT program's padding
+// bias is about -1e8, where float32 holds only multiples of 8, so m + log l
+// would round the log away.  The score of each (query, key) pair is rounded
+// exactly as the backward kernels round it: the same FMA chain over d, then
+// scale and bias each applied with one rounding (__fmul_rn, __fadd_rn, no
+// contraction), so exp(score - m) / l there reproduces this kernel's P.
 //
 // What bounds it on this card.  At the serving slice's shapes (B=32,
 // H=12, T=128, D=64) the work is 4*B*H*T^2*D = 1.61 GFLOP against 50.3 MB
@@ -53,6 +62,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* row_max;    // m, may be null
+  float* row_sum;    // l, may be null
   const float* bias;
   // element strides: [q_b, q_h, q_t, k_b, k_h, k_t, v_b, v_h, v_t,
   //                   o_b, o_h, o_t, bias_b, bias_h, bias_q, bias_k]
@@ -157,8 +168,9 @@ flash_fwd_kernel(const Params p) {
     for (int i = 0; i < KEYS_PER_THREAD; ++i) {
       const int kj = n0 + t + THREADS_PER_ROW * i;
       const bool valid = kj < p.Tk && (!p.causal || kj <= qi);
-      float x = s[i] * p.scale;
-      if (bias_row != nullptr && kj < p.Tk) x += bias_row[kj * p.s[15]];
+      float x = __fmul_rn(s[i], p.scale);
+      if (bias_row != nullptr && kj < p.Tk)
+        x = __fadd_rn(x, bias_row[kj * p.s[15]]);
       s[i] = valid ? x : -INFINITY;
       tile_max = fmaxf(tile_max, s[i]);
     }
@@ -210,6 +222,10 @@ flash_fwd_kernel(const Params p) {
       const int col = t + THREADS_PER_ROW * c;
       if (col < D) store(orow + col, acc[c] * inv);
     }
+    if (p.row_max != nullptr && t == 0) {
+      p.row_max[(size_t)bh * p.Tq + qi] = m_i;
+      p.row_sum[(size_t)bh * p.Tq + qi] = l_i;
+    }
   }
 }
 
@@ -238,19 +254,23 @@ cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 16 element strides, see
-// Params::s.  bias may be null.  Returns a cudaError_t (0 = launched).
+// Params::s.  row_max and row_sum (both or neither) and bias may be null.
+// Returns a cudaError_t (0 = launched).
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                           void* o, const float* bias, const int64_t* strides,
+                           void* o, float* row_max, float* row_sum,
+                           const float* bias, const int64_t* strides,
                            int B, int H, int Tq, int Tk, int D, float scale,
                            int causal, int dtype, void* stream) {
   if (D <= 0 || D > 128 || D % 8 != 0 || B <= 0 || H <= 0 || Tq <= 0 ||
-      Tk <= 0)
+      Tk <= 0 || (row_max == nullptr) != (row_sum == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.row_max = row_max;
+  p.row_sum = row_sum;
   p.bias = bias;
   for (int i = 0; i < 16; ++i) p.s[i] = strides[i];
   p.B = B;

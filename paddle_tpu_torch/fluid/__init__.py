@@ -1,7 +1,8 @@
 """paddle_tpu_torch.fluid — the fluid front end over PyTorch.
 
-Counterpart of ``paddle_tpu.fluid``, the static-graph serving slice:
-Program / layers / Executor / CompiledProgram / passes / Scope.
+Counterpart of ``paddle_tpu.fluid``, the static-graph slices: Program /
+layers / backward / optimizer (Adam) / Executor / CompiledProgram /
+passes / Scope.
 """
 from .. import ops as _ops  # registers all lowering rules
 
@@ -19,5 +20,8 @@ from . import layers
 from .layers.tensor import data
 from . import unique_name
 from .compiler import CompiledProgram, BuildStrategy
+from . import backward
+from .backward import append_backward
+from . import optimizer
 from . import passes
 from . import trace

@@ -12,15 +12,20 @@ from typing import Optional
 
 
 class BuildStrategy:
-    """The rewrite knobs this slice ports (details/build_strategy.h).
+    """The rewrite knobs the ported slices use (details/build_strategy.h).
     The freeze preset's passes run in ``serving.freeze_program``; the
-    other knobs of the reference come with the slices that need them."""
+    other knobs of the reference come with the slices that need them.
+    The ``kernel_tier`` umbrella waits for the paged-attention and
+    sparse-embedding passes it also turns on in the reference."""
 
     def __init__(self):
         # kernel tier (fluid/passes/kernel_tier.py): fuse_attention rewrites
-        # the naive attention chain onto fused_multihead_attention, whose
-        # lowering is the hand-written flash-attention kernel on the card
+        # the naive attention chain (and its grad chain) onto
+        # fused_multihead_attention, whose lowering is the hand-written
+        # flash-attention kernel on the card; fuse_optimizer buckets the
+        # adam updates into one fused_adam, one launch of its kernel
         self.fuse_attention = False
+        self.fuse_optimizer = False
 
 
 class CompiledProgram:

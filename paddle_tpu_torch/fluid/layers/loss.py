@@ -1,0 +1,22 @@
+"""Loss layers (counterpart of ``paddle_tpu/fluid/layers/loss.py``, the
+subset the ported slices build)."""
+from __future__ import annotations
+
+from ..layer_helper import LayerHelper
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_variable_for_type_inference(dtype=logits.dtype,
+                                                        stop_gradient=True)
+    loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, softmax
+    return loss

@@ -1,5 +1,5 @@
 """fluid.layers op builders (counterpart of
-``paddle_tpu/fluid/layers/nn.py``, the subset this slice builds).  Each
+``paddle_tpu/fluid/layers/nn.py``, the subset the ported slices build).  Each
 builder appends the same op type, slots and attrs as the TPU package."""
 from __future__ import annotations
 
@@ -54,6 +54,10 @@ def _reduce_layer(op_type, x, dim=None, keep_dim=False, name=None):
 
 def reduce_mean(x, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_mean", x, dim, keep_dim, name)
+
+
+def mean(x, name=None):
+    return _single_out("mean", x)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,

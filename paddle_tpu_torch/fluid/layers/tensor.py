@@ -1,10 +1,12 @@
 """Tensor layer functions (counterpart of
-``paddle_tpu/fluid/layers/tensor.py``, the subset this slice builds)."""
+``paddle_tpu/fluid/layers/tensor.py``, the subset the ported slices
+build)."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..framework import Variable, default_main_program
+from ..framework import (Variable, default_main_program,
+                         default_startup_program, unique_name)
 from ..layer_helper import LayerHelper
 
 
@@ -34,3 +36,32 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=False):
         shape = [-1] + shape
     return block.create_var(name=name, shape=shape, dtype=dtype,
                             is_data=True, stop_gradient=True)
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value)})
+    out.stop_gradient = True
+    out.shape = tuple(shape)
+    return out
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A var of the main program whose value the startup program fills
+    (the optimizers' learning rate and accumulators)."""
+    name = name or unique_name("global_var")
+    block = default_main_program().global_block()
+    var = block.create_var(name=name, shape=shape, dtype=dtype,
+                           persistable=persistable)
+    var.stop_gradient = True
+    sb = default_startup_program().global_block()
+    sb.create_var(name=name, shape=shape, dtype=dtype, persistable=persistable)
+    sb.append_op("fill_constant", outputs={"Out": [name]},
+                 attrs={"shape": list(shape), "dtype": dtype,
+                        "value": float(value)})
+    return var

@@ -1,21 +1,21 @@
 """paddle_tpu_torch.fluid.passes — the Program-IR pass framework
 (counterpart of ``paddle_tpu/fluid/passes``, the freeze preset and the
-``fuse_attention`` kernel-tier pass)."""
+``fuse_attention`` and ``fuse_optimizer`` kernel-tier passes)."""
 from .core import (Pass, PassContext, PassRegistry, PassPipeline,
                    register_pass, create_pass, get_pass_names)
 from .pattern import Pattern, PVar, POp, Match, PatternRewritePass
 from . import builtin  # registers the built-in pass catalog
 from . import inference as inference_preset  # registers fold_batch_norm
-from . import kernel_tier  # registers fuse_attention
+from . import kernel_tier  # registers fuse_attention, fuse_optimizer
 from .builtin import passes_for_build_strategy
 from .inference import (FoldBatchNormPass, inference_passes,
                         INFERENCE_PASS_NAMES)
-from .kernel_tier import FuseAttentionPass
+from .kernel_tier import FuseAttentionPass, FuseOptimizerPass
 
 __all__ = [
     "Pass", "PassContext", "PassRegistry", "PassPipeline",
     "register_pass", "create_pass", "get_pass_names",
     "Pattern", "PVar", "POp", "Match", "PatternRewritePass",
     "passes_for_build_strategy", "FoldBatchNormPass", "inference_passes",
-    "INFERENCE_PASS_NAMES", "FuseAttentionPass",
+    "INFERENCE_PASS_NAMES", "FuseAttentionPass", "FuseOptimizerPass",
 ]

@@ -336,9 +336,10 @@ class PruneIdentityPass(Pass):
 # ---------------------------------------------------------------------------
 
 def passes_for_build_strategy(build_strategy) -> List[Pass]:
-    """The pass list a BuildStrategy's knobs select: ``fuse_attention``
-    when it is on."""
+    """The pass list a BuildStrategy's knobs select, in the reference's
+    order: ``fuse_attention``, then ``fuse_optimizer``."""
     from . import kernel_tier as _kt  # noqa: F401 — registers the tier
-    if build_strategy.fuse_attention:
-        return [create_pass("fuse_attention")]
-    return []
+    names = [name for name, on in (
+        ("fuse_attention", build_strategy.fuse_attention),
+        ("fuse_optimizer", build_strategy.fuse_optimizer)) if on]
+    return [create_pass(name) for name in names]

@@ -1,32 +1,41 @@
-"""The kernel tier as a compiler pass: ``fuse_attention``.
+"""The kernel tier as compiler passes: ``fuse_attention`` and
+``fuse_optimizer``.
 
-Counterpart of ``FuseAttentionPass`` in
-``paddle_tpu/fluid/passes/kernel_tier.py``.  The naive attention chain
+Counterpart of ``FuseAttentionPass`` and ``FuseOptimizerPass`` in
+``paddle_tpu/fluid/passes/kernel_tier.py``.
 
-    matmul(Q, Kᵀ) → [scale] → [+mask] → softmax → [dropout] → matmul(·, V)
+* ``fuse_attention`` — the naive attention chain
 
-rewrites to ONE ``fused_multihead_attention`` op, whose lowering on the
-card is the hand-written flash-attention kernel (ops/attention.py).  An
-absorbed dropout op's rate, seed and implementation are stamped into the
-fused op.  Each rewrite counts ``kernel_tier.fuse_attention.rewrites``.
+      matmul(Q, Kᵀ) → [scale] → [+mask] → softmax → [dropout] → matmul(·, V)
 
-The rewrite declines, silently, when the IR shapes of Q, K, V and the
-output are not 4-d ``[B, H, T, D]`` — so a wrong shape inference would
-keep the kernel off the path; the tests hold the rewrite count to the
-layer count.  The training variants (which also fuse the paired
-``generic_grad`` chain) and the paged-attention, sparse-embedding and
-optimizer passes come with later slices.
+  and, in a training program, its paired ``generic_grad`` chain rewrite
+  to ONE ``fused_multihead_attention`` op (+ one fused ``generic_grad``).
+  On the card the op's lowering is the hand-written flash-attention
+  forward kernel, and its grad the backward kernel (ops/attention.py).
+  An absorbed dropout op's rate, seed and implementation are stamped
+  into the fused op.  The rewrite declines, silently, when the IR shapes
+  of Q, K, V and the output are not 4-d ``[B, H, T, D]`` — so a wrong
+  shape inference would keep the kernel off the path; the tests hold the
+  rewrite count to the layer count.
+* ``fuse_optimizer`` — a run of same-(dtype, attrs, lr) ``adam`` ops
+  buckets into one ``fused_adam`` op: one launch of the hand-written
+  kernel over a flattened buffer, element for element the same
+  arithmetic as the per-param updates.
+
+Each rewrite counts ``kernel_tier.<pass>.rewrites``.  The paged-attention
+and sparse-embedding passes, and the other optimizer families, come with
+later slices.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from .. import trace
 from ..framework import Operator, _op_reads
 from .core import Pass, PassContext, register_pass
 from .pattern import Pattern, PatternRewritePass, writer_index as _widx
 
-__all__ = ["FuseAttentionPass"]
+__all__ = ["FuseAttentionPass", "FuseOptimizerPass"]
 
 
 def _consumers(block, name: str) -> List[Operator]:
@@ -59,6 +68,14 @@ def _splice(block, new_op: Operator, anchor: Operator, dead) -> None:
         block._remove_op(block.ops.index(op))
 
 
+def _count_rewrite(pass_name: str) -> None:
+    trace.metrics().counter(f"kernel_tier.{pass_name}.rewrites").inc()
+
+
+# ---------------------------------------------------------------------------
+# fuse_attention
+# ---------------------------------------------------------------------------
+
 def _falsy(v) -> bool:
     return not v
 
@@ -70,23 +87,26 @@ def _truthy(v) -> bool:
 @register_pass
 class FuseAttentionPass(PatternRewritePass):
     """matmul(Q,Kᵀ) → [scale] → [+mask] → softmax → [dropout] → matmul(·,V)
-    ⇒ ``fused_multihead_attention``.  A rule per optional-op combination,
-    longer chains before their own sub-chains, so a complete chain
-    always wins."""
+    ⇒ ``fused_multihead_attention`` (forward AND the paired generic_grad
+    chain in training programs).  Patterns are generated for every
+    optional-op combination, training variants first and longer chains
+    before their own sub-chains, so a complete chain always wins."""
 
     name = "fuse_attention"
 
     def __init__(self, **options):
         super().__init__(**options)
-        for with_drop in (True, False):
-            for with_mask in (True, False):
-                for with_scale in (True, False):
-                    self.rules.append(
-                        self._rule(with_scale, with_mask, with_drop))
+        for train in (True, False):
+            for with_drop in (True, False):
+                for with_mask in (True, False):
+                    for with_scale in (True, False):
+                        self.rules.append(self._rule(
+                            train, with_scale, with_mask, with_drop))
 
-    def _rule(self, with_scale, with_mask, with_drop):
-        p = Pattern(f"attention_fwd_s{int(with_scale)}m{int(with_mask)}"
-                    f"d{int(with_drop)}")
+    # -- pattern construction ----------------------------------------------
+    def _rule(self, train, with_scale, with_mask, with_drop):
+        p = Pattern(f"attention_{'train' if train else 'fwd'}"
+                    f"_s{int(with_scale)}m{int(with_mask)}d{int(with_drop)}")
         q, k, v, out = p.vars("q k v out")
         scores = [p.var("s0")]            # score-var chain, program order
         p.op("matmul", ins={"X": [q], "Y": [k]}, outs={"Out": [scores[-1]]},
@@ -98,8 +118,9 @@ class FuseAttentionPass(PatternRewritePass):
                  attrs={"bias": _falsy})
         if with_mask:
             scores.append(p.var("s2"))
-            # only the trailing-broadcast, unscaled spelling is what the
-            # fused lowering's `s + mask` computes
+            # only the trailing-broadcast, unscaled spelling: a Paddle
+            # leading-dim axis or a post-add scale multiplier is not what
+            # the fused lowering's `s + mask` computes
             p.op("elementwise_add",
                  ins={"X": [scores[-2]], "Y": [p.var("mask")]},
                  outs={"Out": [scores[-1]]},
@@ -117,27 +138,68 @@ class FuseAttentionPass(PatternRewritePass):
              outs={"Out": [out]},
              attrs={"transpose_X": _falsy, "transpose_Y": _falsy,
                     "alpha": lambda a: a is None or float(a) == 1.0})
+        if train:
+            # grads in reverse forward order (append_backward layout)
+            p.op("generic_grad",
+                 ins={"I_X": [probs[-1]], "I_Y": [v], "G_Out": [p.var("go")]},
+                 outs={"GI_X": [p.var("gp")], "GI_Y": [p.var("gv")]},
+                 attrs={"fwd_type": "matmul"})
+            g_cur = p.var("gp")
+            if with_drop:
+                p.op("generic_grad",
+                     ins={"I_X": [probs[-2]], "G_Out": [g_cur]},
+                     outs={"GI_X": [p.var("gp0")]},
+                     attrs={"fwd_type": "dropout"})
+                g_cur = p.var("gp0")
+            p.op("generic_grad", ins={"I_X": [scores[-1]], "G_Out": [g_cur]},
+                 outs={"GI_X": [p.var("gsm")]},
+                 attrs={"fwd_type": "softmax"})
+            g_cur = p.var("gsm")
+            if with_mask:
+                p.op("generic_grad",
+                     ins={"I_X": [scores[-2]], "G_Out": [g_cur]},
+                     outs={"GI_X": [p.var("gadd")]},
+                     attrs={"fwd_type": "elementwise_add"})
+                g_cur = p.var("gadd")
+            if with_scale:
+                p.op("generic_grad",
+                     ins={"I_X": [scores[0]], "G_Out": [g_cur]},
+                     outs={"GI_X": [p.var("gsc")]},
+                     attrs={"fwd_type": "scale"})
+                g_cur = p.var("gsc")
+            p.op("generic_grad",
+                 ins={"I_X": [q], "I_Y": [k], "G_Out": [g_cur]},
+                 outs={"GI_X": [p.var("gq")], "GI_Y": [p.var("gk")]},
+                 attrs={"fwd_type": "matmul"})
 
-        def rewrite(m, ctx, _flags=(with_scale, with_mask, with_drop)):
+        def rewrite(m, ctx, _flags=(train, with_scale, with_mask,
+                                    with_drop)):
             return self._rewrite(m, ctx, *_flags)
 
         return (p, rewrite)
 
-    def _rewrite(self, m, ctx, with_scale, with_mask, with_drop) -> bool:
+    # -- rewrite ------------------------------------------------------------
+    def _rewrite(self, m, ctx, train, with_scale, with_mask,
+                 with_drop) -> bool:
         block = m.block
-        fwd_ops = m.ops
+        n_fwd = 3 + int(with_scale) + int(with_mask) + int(with_drop)
+        fwd_ops, grad_ops = m.ops[:n_fwd], m.ops[n_fwd:]
         mm2 = fwd_ops[-1]
         drop_op = fwd_ops[-2] if with_drop else None
-        # the chain must run on [B, H, T, T] scores: unknown or other
-        # shapes stay on the op-by-op path (never mis-fuse an mlp's
-        # matmul→softmax→matmul into an attention kernel)
+        # the naive chain operates on [B, H, T, T] scores — require the
+        # 4-d shape the fused op's lowering assumes.  Unknown shapes stay
+        # on the op-by-op path (conservative: never mis-fuse an mlp's
+        # matmul→softmax→matmul into an attention kernel).
         for name in (m.var("q"), m.var("k"), m.var("v"), m.var("out")):
             if _ndim(block, name) != 4:
                 return False
+        # internal edges: every intermediate score/prob var dies with the
+        # rewrite, so it must have no consumer outside the matched ops
         inter = [m.binding[n] for n in
                  ("s0", "s1", "s2", "p0", "p1") if n in m.binding]
+        allowed = fwd_ops + grad_ops
         for t in inter:
-            if not _internal_edge(block, ctx, t, fwd_ops):
+            if not _internal_edge(block, ctx, t, allowed):
                 return False
         if len(_widx(block, m.var("out"))) != 1:
             return False
@@ -148,6 +210,22 @@ class FuseAttentionPass(PatternRewritePass):
             mask_out = (drop_op.outputs.get("Mask") or [None])[0]
             if mask_out and _consumers(block, mask_out):
                 return False
+        if train:
+            # grad chain intermediates are internal too, and the mask must
+            # not itself require a gradient (the fused op cannot emit one)
+            ginter = [m.binding[n] for n in
+                      ("gp", "gp0", "gsm", "gadd", "gsc") if n in m.binding]
+            for t in ginter:
+                if not _internal_edge(block, ctx, t, allowed):
+                    return False
+            for n in ("gq", "gk", "gv"):
+                if len(_widx(block, m.var(n))) != 1:
+                    return False
+            if with_mask:
+                add_g = next(o for o in grad_ops
+                             if o.attrs.get("fwd_type") == "elementwise_add")
+                if add_g.outputs.get("GI_Y"):
+                    return False
 
         scale = float(fwd_ops[0].attrs.get("alpha", 1.0) or 1.0)
         if with_scale:
@@ -163,10 +241,119 @@ class FuseAttentionPass(PatternRewritePass):
                     "dropout_implementation", "downgrade_in_infer"),
                 dropout_is_test=bool(drop_op.attrs.get("is_test", False)))
         ins = {"Q": [m.var("q")], "K": [m.var("k")], "V": [m.var("v")]}
+        in_slots = ["Q", "K", "V"]
         if with_mask:
             ins["Mask"] = [m.var("mask")]
+            in_slots.append("Mask")
         fused = Operator(block, "fused_multihead_attention", ins,
                          {"Out": [m.var("out")]}, attrs)
+        if train:
+            g_ins = {"I_" + s: list(ins[s]) for s in in_slots}
+            g_ins["G_Out"] = [m.var("go")]
+            fused_g = Operator(
+                block, "generic_grad", g_ins,
+                {"GI_Q": [m.var("gq")], "GI_K": [m.var("gk")],
+                 "GI_V": [m.var("gv")]},
+                {"fwd_type": "fused_multihead_attention",
+                 "fwd_attrs": dict(attrs), "in_slots": list(in_slots),
+                 "grad_slots": ["Q", "K", "V"], "op_role": 1})
+            _splice(block, fused_g, grad_ops[0], grad_ops)
         _splice(block, fused, mm2, fwd_ops)
-        trace.metrics().counter(f"kernel_tier.{self.name}.rewrites").inc()
+        _count_rewrite(self.name)
         return True
+
+
+# ---------------------------------------------------------------------------
+# fuse_optimizer
+# ---------------------------------------------------------------------------
+
+# the update families this port lowers, with their fused op; momentum and
+# lamb join with their slices
+_FUSABLE_UPDATES: Dict[str, Dict] = {
+    "adam": {"fused": "fused_adam",
+             "ins": frozenset({"Param", "Grad", "Moment1", "Moment2",
+                               "Beta1Pow", "Beta2Pow", "LearningRate"}),
+             "outs": ("ParamOut", "Moment1Out", "Moment2Out",
+                      "Beta1PowOut", "Beta2PowOut")},
+}
+
+_SHARED_SLOTS = ("LearningRate",)
+
+
+@register_pass
+class FuseOptimizerPass(Pass):
+    """Bucket consecutive same-family per-param update ops into one fused
+    update op (fuse_adam_op_pass semantics).  The bucket key is (op type,
+    param dtype, the lr var, the full attr set), so a bucket is always
+    homogeneous: one flattened buffer, one launch.  The reference also
+    keys by a sharding plan's PartitionSpec; the port has no sharding
+    plan yet."""
+
+    name = "fuse_optimizer"
+
+    # -- bucket keying ------------------------------------------------------
+    def _key(self, block, op) -> Optional[tuple]:
+        spec = _FUSABLE_UPDATES.get(op.type)
+        if spec is None:
+            return None
+        if set(op.inputs) != spec["ins"]:
+            return None            # SkipUpdate or exotic wiring: leave it
+        if any(len(names) != 1 for names in op.inputs.values()):
+            return None
+        v = block._find_var_recursive(op.inputs["Param"][0])
+        dtype = v.dtype if v is not None else None
+        attr_sig = tuple(sorted((k, repr(val)) for k, val in op.attrs.items()
+                                if k not in ("op_role", "op_seed")))
+        return (op.type, str(dtype), op.inputs["LearningRate"][0], attr_sig)
+
+    # -- rewriting ----------------------------------------------------------
+    def _fuse_run(self, block, seg, out_ops) -> int:
+        """Fuse one same-key run; returns the number of ops removed."""
+        if len(seg) < 2:
+            out_ops.extend(seg)
+            return 0
+        spec = _FUSABLE_UPDATES[seg[0].type]
+        # per-param vars must be pairwise disjoint (params shared between
+        # two update ops would race inside one fused op)
+        per_param = [n for op in seg for slot, names in op.inputs.items()
+                     if slot not in _SHARED_SLOTS for n in names]
+        if len(set(per_param)) != len(per_param):
+            out_ops.extend(seg)
+            return 0
+        ins = {slot: [op.inputs[slot][0] for op in seg]
+               for slot in seg[0].inputs if slot not in _SHARED_SLOTS}
+        ins["LearningRate"] = list(seg[0].inputs["LearningRate"])
+        outs = {slot: [op.outputs[slot][0] for op in seg]
+                for slot in spec["outs"]}
+        out_ops.append(Operator(
+            block, spec["fused"], ins, outs, dict(seg[0].attrs)))
+        _count_rewrite(self.name)
+        return len(seg) - 1
+
+    def apply_block(self, block, ctx: PassContext) -> Dict[str, int]:
+        out_ops: list = []
+        seg: list = []
+        seg_key = None
+        removed = 0
+
+        def flush():
+            nonlocal removed
+            if seg:
+                removed += self._fuse_run(block, seg, out_ops)
+                seg.clear()
+
+        for op in block.ops:
+            key = self._key(block, op)
+            if key is not None:
+                if seg and key != seg_key:
+                    flush()
+                seg_key = key
+                seg.append(op)
+            else:
+                flush()
+                out_ops.append(op)
+        flush()
+        if removed:
+            block.ops = out_ops
+            block.program._bump_version()
+        return {"ops_removed": removed}

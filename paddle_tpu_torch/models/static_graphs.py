@@ -1,5 +1,5 @@
 """Static-graph demo programs (counterpart of
-``paddle_tpu/models/static_graphs.py``).
+``paddle_tpu/models/static_graphs.py``, the BERT program).
 
 The BERT builder spells attention exactly the way plain fluid layers
 emit it (matmul → scale → +mask → softmax → dropout → matmul), the chain
@@ -43,25 +43,26 @@ def build_bert_train_program(vocab=64, hidden=32, heads=4, seq=16,
                              layers=2, dropout=0.0, with_mask=True,
                              lr=1e-3, train=False):
     """BERT-shaped classifier over ``layers`` naive attention blocks.
-    Returns (main, startup, logits).  Feeds: ids [B, seq] int64 and (with
-    ``with_mask``) attn_mask [B, seq] float 1/0.
+    Feeds: ids [B, seq] int64, labels [B, 1] int64 (with ``train``) and,
+    with ``with_mask``, attn_mask [B, seq] float 1/0.
 
-    The reference builder goes on to a loss and ``AdamOptimizer``; the
-    backward pass and the optimizers come with the training slice, so
-    ``train=True`` is refused until then.  ``lr`` is kept for the
-    signature's sake."""
-    if train:
-        raise NotImplementedError(
-            "training programs need backward.py and optimizer.py, which "
-            "are not ported yet; build with train=False")
+    ``train=True`` builds what the reference builder builds: the mean
+    softmax cross-entropy of the logits against the labels, its backward
+    and ``AdamOptimizer(lr).minimize``; returns (main, startup, loss).
+    ``train=False`` stops at the logits; returns (main, startup,
+    logits)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         ids = fluid.data("ids", [-1, seq], dtype="int64")
+        if train:
+            labels = fluid.data("labels", [-1, 1], dtype="int64")
         mask = None
         if with_mask:
             am = fluid.data("attn_mask", [-1, seq])
             am = L.reshape(am, [0, 1, 1, seq])
-            # (m - 1) * 10000: zeros where attended, -1e4 where padded
+            # the reference builder's spelling: the bias comes before the
+            # scale, so this is (m - 10000) * 10000, about -1e8 at every
+            # key and 1e4 lower where padded
             mask = L.scale(am, scale=10000.0, bias=-10000.0,
                            bias_after_scale=False)
         h = L.embedding(ids, size=[vocab, hidden])
@@ -71,12 +72,17 @@ def build_bert_train_program(vocab=64, hidden=32, heads=4, seq=16,
             h = L.fc(h, hidden, num_flatten_dims=2, act="relu")
         pooled = L.reduce_mean(h, dim=[1])
         logits = L.fc(pooled, 2)
-    return main, startup, logits
+        if not train:
+            return main, startup, logits
+        loss = L.mean(L.softmax_with_cross_entropy(logits, labels))
+        fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    return main, startup, loss
 
 
 def bert_demo_feed(rng, batch=8, seq=16, vocab=64, with_mask=True):
-    """Random ids (and a padding mask whose first column is always 1)
-    from a ``numpy.random.RandomState``."""
+    """Random ids, labels for the training program's loss, and a padding
+    mask whose first column is always 1, from a
+    ``numpy.random.RandomState``."""
     feed = {"ids": rng.randint(0, vocab, (batch, seq)).astype("int64"),
             "labels": rng.randint(0, 2, (batch, 1)).astype("int64")}
     if with_mask:

@@ -11,7 +11,10 @@ Dispatch (``flash_attention``):
   plain version ``_reference_attention``;
 * a CUDA tensor launches the hand-written Hopper kernel
   (ops/cuda_kernels.py, csrc/flash_attention.cu) or raises — there is no
-  fallback;
+  fallback.  Where autograd records (inside ``generic_grad``'s
+  ``torch.func.vjp``), the launch goes through ``_FlashAttention``: its
+  forward also writes each row's softmax statistics (max and sum), and
+  its backward is the hand-written backward kernel;
 * the two cases the TPU package also keeps off its kernel take the plain
   version on every device: live attention dropout (training) and
   ``prob_scale`` (downgrade_in_infer at test time).
@@ -29,15 +32,13 @@ from .nn_ops import bernoulli_keep
 from .registry import register_op
 
 
-def _reference_attention(q, k, v, mask, scale, causal,
-                         dropout_rate=0.0, dropout_gen=None,
-                         dropout_upscale=True, prob_scale=None):
-    """Plain PyTorch version, line for line the TPU package's
-    ``_reference_attention``: fp32 scores, causal masking with the fp32
-    minimum, probabilities cast to q's dtype before the product with V,
-    dropout on the probabilities."""
+def _scores(q, k, mask, scale, causal):
+    """fp32 ``scale·QKᵀ + mask``, causal positions at the fp32 minimum.
+    The products are ``torch.matmul``, as the ``matmul`` lowering spells
+    them, so the fused op and its autodiff on the host are bit-identical
+    to the unfused chain."""
     acc = torch.float32
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if causal:
         t = s.shape[-1]
         causal_mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
@@ -45,6 +46,17 @@ def _reference_attention(q, k, v, mask, scale, causal,
         s = torch.where(causal_mask, s, torch.finfo(acc).min)
     if mask is not None:
         s = s + mask.to(acc)
+    return s
+
+
+def _reference_attention(q, k, v, mask, scale, causal,
+                         dropout_rate=0.0, dropout_gen=None,
+                         dropout_upscale=True, prob_scale=None):
+    """Plain PyTorch version, line for line the TPU package's
+    ``_reference_attention``: fp32 scores, causal masking with the fp32
+    minimum, probabilities cast to q's dtype before the product with V,
+    dropout on the probabilities."""
+    s = _scores(q, k, mask, scale, causal)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     if dropout_rate:
         keep = bernoulli_keep(dropout_gen, p.shape, 1.0 - dropout_rate,
@@ -54,7 +66,82 @@ def _reference_attention(q, k, v, mask, scale, causal,
         p = torch.where(keep, kept, zero).to(p.dtype)
     elif prob_scale is not None:
         p = (p * prob_scale).to(p.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return torch.matmul(p, v)
+
+
+def _reference_stats(q, k, mask, scale, causal):
+    """Each row's softmax statistics, ``(m, l)`` float32 ``[B, H, Tq]``:
+    the max of the scores and the sum of ``exp(score - m)``, the plain
+    version of the forward kernel's ``return_stats`` outputs.  The two
+    stay apart (no folded log-sum-exp): the static BERT program's padding
+    bias is near -1e8, where float32 would round ``m + log l`` to
+    ``m``."""
+    s = _scores(q, k, mask, scale, causal)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
+
+
+def _reference_attention_bwd(q, k, v, mask, scale, o, m, l, do,
+                             causal=False):
+    """(dQ, dK, dV) of ``softmax(scale·QKᵀ + mask)·V`` from the saved
+    output and softmax statistics: the plain version of the backward
+    kernel, the same recurrence in float32.  ``P = exp(S - m) / l``,
+    ``Δ = rowsum(dO∘O)``, ``dS = P∘(dO·Vᵀ - Δ)``; ``dV = Pᵀ·dO``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  The mask gets no
+    gradient."""
+    acc = torch.float32
+    p = torch.exp(_scores(q, k, mask, scale, causal) - m[..., None]) \
+        / l[..., None]
+    do32 = do.to(acc)
+    delta = (do32 * o.to(acc)).sum(-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    ds = p * (torch.matmul(do32, v.to(acc).transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k.to(acc)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The backward kernel's launch as a dispatcher op.  Under torch.func.vjp
+# the tensors a Function saves come back to its backward wrapped by
+# functorch, and a wrapped tensor has no data pointer; a dispatcher op
+# unwraps its arguments before its implementation runs.
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? mask, float scale, "
+           "bool causal, Tensor o, Tensor m, Tensor l, Tensor do) -> "
+           "(Tensor, Tensor, Tensor)")
+def _flash_attention_bwd(q, k, v, mask, scale, causal, o, m, l, do):
+    return cuda_kernels.flash_attention_bwd(q, k, v, mask, scale, causal, o,
+                                            m, l, do)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The card's attention under autograd: the forward kernel, which
+    also writes the row softmax statistics, and the backward kernel.
+    Forward and ``setup_context`` are separate so ``torch.func.vjp`` (the
+    ``generic_grad`` lowering) can call it."""
+
+    @staticmethod
+    def forward(q, k, v, mask, scale, causal):
+        return cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal,
+                                                return_stats=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, scale, causal = inputs
+        o, m, l = output
+        ctx.save_for_backward(q, k, v, mask, o, m, l)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.mark_non_differentiable(m, l)
+
+    @staticmethod
+    def backward(ctx, do, _dm, _dl):
+        q, k, v, mask, o, m, l = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = _flash_attention_bwd(q, k, v, mask, ctx.scale,
+                                          ctx.causal, o, m, l, do)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, scale=None, causal=False,
@@ -65,13 +152,15 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False,
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     drop_active = bool(dropout_rate) and dropout_gen is not None
     if q.device.type == "cuda" and not drop_active and prob_scale is None:
+        if torch.is_grad_enabled():
+            return _FlashAttention.apply(q, k, v, mask, scale, causal)[0]
         return cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal)
     return _reference_attention(q, k, v, mask, scale, causal,
                                 dropout_rate if drop_active else 0.0,
                                 dropout_gen, dropout_upscale, prob_scale)
 
 
-@register_op("fused_multihead_attention")
+@register_op("fused_multihead_attention", nondiff_inputs=("Mask",))
 def _fused_mha(ins, attrs, ctx):
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     mask = ins["Mask"][0] if ins.get("Mask") else None

@@ -10,7 +10,7 @@ A wrapper takes CUDA tensors only.  It checks device, dtype, shape and
 strides, allocates the output with ``torch.empty``, launches on PyTorch's
 current stream, raises if the launch was refused, and then adds one to
 its ``launches`` count — the count ``chip_smoke.py`` reads to show that
-the served path went through the kernel.
+the served and trained paths went through the kernel.
 """
 from __future__ import annotations
 
@@ -35,12 +35,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C entry points of each source: name -> (argtypes, restype)
 _P, _I, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
+_F, _I64 = ctypes.c_float, ctypes.c_int64
+_ERR = {"pt_cuda_error_string": ([_I], ctypes.c_char_p)}
 _SIGNATURES = {
     "flash_attention": {
         "pt_flash_attention_fwd": (
-            [_P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, ctypes.c_float,
-             _I, _I, _P], _I),
-        "pt_cuda_error_string": ([_I], ctypes.c_char_p),
+            [_P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _F, _I,
+             _I, _P], _I),
+        **_ERR,
+    },
+    "flash_attention_bwd": {
+        "pt_flash_attention_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I,
+             _I, _I, _I, _F, _I, _I, _P], _I),
+        **_ERR,
+    },
+    "fused_adam": {
+        "pt_fused_adam": ([_P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _F, _F,
+                           _F, _F, _P], _I),
+        **_ERR,
     },
 }
 
@@ -129,70 +142,186 @@ def _check_launch(lib, err: int, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# flash attention (csrc/flash_attention.cu)
+# flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_fwd(q, k, v, bias, scale: float, causal: bool):
+def _check_bhtd(what, named, ref):
+    """Every tensor of ``named`` on ref's CUDA device, of ref's dtype, 4-d
+    ``[B,H,T,D]`` with D contiguous."""
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{ref.device}, got {t.device}")
+        if t.dtype != ref.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, q is "
+                             f"{ref.dtype}")
+        if t.ndim != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be 4-d [B,H,T,D] with D "
+                             f"contiguous, got shape {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+
+
+def _flash_shapes(what, q, k, v, causal):
+    """(B, H, Tq, Tk, D) after the checks both kernels share."""
+    _check_bhtd(what, (("q", q), ("k", k), ("v", v)), q)
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"{what}: dtype {q.dtype} not supported "
+                         f"(float32, bfloat16)")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} disagree")
+    if D > 128 or D % 8 != 0:
+        raise ValueError(f"{what}: head dim {D} not supported "
+                         f"(D <= 128, D % 8 == 0)")
+    if causal and Tq != Tk:
+        raise ValueError(f"{what}: causal needs Tq == Tk")
+    return B, H, Tq, Tk, D
+
+
+def _bias_arg(what, bias, q, full):
+    """The bias as a float32 view broadcast to ``full`` (stride 0 on the
+    broadcast dims, never expanded in memory) and its four strides."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    if torch.broadcast_shapes(tuple(bias.shape), full) != full:
+        raise ValueError(f"{what}: bias {tuple(bias.shape)} does not "
+                         f"broadcast to {full}")
+    bias = bias.to(device=q.device, dtype=torch.float32)
+    bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    bias = bias.expand(full)
+    return bias, bias.stride()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_attention_fwd(q, k, v, bias, scale: float, causal: bool,
+                        return_stats: bool = False):
     """``softmax(scale·QKᵀ + bias)·V`` on the Hopper kernel.
 
     q ``[B,H,Tq,D]``, k/v ``[B,H,Tk,D]``, CUDA, float32 or bfloat16, last
     dim contiguous (other strides free).  ``bias`` (or None) broadcasts to
     ``[B,H,Tq,Tk]``; it is read as float32 through its strides, never
-    expanded in memory.  ``causal`` needs Tq == Tk."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} must be a CUDA "
-                             f"tensor on {q.device}, got {t.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"flash_attention_fwd: {name} is {t.dtype}, "
-                             f"q is {q.dtype}")
-        if t.ndim != 4 or t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_fwd: {name} must be 4-d "
-                             f"[B,H,T,D] with D contiguous, got shape "
-                             f"{tuple(t.shape)} strides {t.stride()}")
-    if q.dtype not in _FLASH_DTYPES:
-        raise ValueError(f"flash_attention_fwd: dtype {q.dtype} not "
-                         f"supported (float32, bfloat16)")
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if D > 128 or D % 8 != 0:
-        raise ValueError(f"flash_attention_fwd: head dim {D} not supported "
-                         f"(D <= 128, D % 8 == 0)")
-    if causal and Tq != Tk:
-        raise ValueError("flash_attention_fwd: causal needs Tq == Tk")
+    expanded in memory.  ``causal`` needs Tq == Tk.  With
+    ``return_stats`` the kernel also writes each row's softmax
+    statistics for the backward, the max ``m`` of the scores and the sum
+    ``l`` of ``exp(score - m)``, float32 ``[B,H,Tq]`` each, and the call
+    returns ``(o, m, l)``."""
+    what = "flash_attention_fwd"
+    B, H, Tq, Tk, D = _flash_shapes(what, q, k, v, causal)
     o = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    stats = [torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+             for _ in range(2)] if return_stats else [None, None]
     if B * H * Tq * Tk == 0:
-        return o
-    full = (B, H, Tq, Tk)
-    if bias is not None:
-        if torch.broadcast_shapes(tuple(bias.shape), full) != full:
-            raise ValueError(f"flash_attention_fwd: bias {tuple(bias.shape)}"
-                             f" does not broadcast to {full}")
-        bias = bias.to(device=q.device, dtype=torch.float32)
-        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
-        bias = bias.expand(full)          # stride 0 on broadcast dims
-        bias_strides = bias.stride()
-    else:
-        bias_strides = (0, 0, 0, 0)
+        return (o, *stats) if return_stats else o
+    bias, bias_strides = _bias_arg(what, bias, q, (B, H, Tq, Tk))
     strides = (ctypes.c_int64 * 16)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *bias_strides)
     lib = _lib("flash_attention")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in stats),
             bias.data_ptr() if bias is not None else None, strides,
             B, H, Tq, Tk, D, float(scale), int(bool(causal)),
-            _FLASH_DTYPES[q.dtype], stream)
-    _check_launch(lib, err, "flash_attention_fwd")
+            _FLASH_DTYPES[q.dtype], _stream(q.device))
+    _check_launch(lib, err, what)
     flash_attention_fwd.launches += 1
-    return o
+    return (o, *stats) if return_stats else o
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, bias, scale: float, causal: bool, o, m, l,
+                        do):
+    """dQ, dK, dV of ``softmax(scale·QKᵀ + bias)·V`` on the Hopper
+    backward kernels, from the forward's output ``o`` and its softmax
+    statistics ``m`` and ``l`` (float32 ``[B,H,Tq]``, see
+    ``flash_attention_fwd``).  q, k, v, bias and causal as in
+    ``flash_attention_fwd``; ``o`` and ``do`` are ``[B,H,Tq,D]`` of q's
+    dtype with D contiguous.  Returns contiguous ``(dq, dk, dv)``.  One
+    call is three launches on the current stream (Δ = rowsum(dO∘O),
+    dK/dV, dQ) and counts one."""
+    what = "flash_attention_bwd"
+    B, H, Tq, Tk, D = _flash_shapes(what, q, k, v, causal)
+    _check_bhtd(what, (("o", o), ("do", do)), q)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, H, Tq, D):
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
+                             f"{(B, H, Tq, D)}")
+    for name, t in (("m", m), ("l", l)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (B, H, Tq) or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"{(B, H, Tq)} tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    dq, dk, dv = (torch.empty(t.shape, dtype=q.dtype, device=q.device)
+                  for t in (q, k, v))
+    if B * H * Tq * Tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    bias, bias_strides = _bias_arg(what, bias, q, (B, H, Tq, Tk))
+    strides = (ctypes.c_int64 * 28)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+        *dv.stride()[:3], *bias_strides)
+    lib = _lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.pt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            bias.data_ptr() if bias is not None else None, strides,
+            B, H, Tq, Tk, D, float(scale), int(bool(causal)),
+            _FLASH_DTYPES[q.dtype], _stream(q.device))
+    _check_launch(lib, err, what)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused Adam (csrc/fused_adam.cu)
+# ---------------------------------------------------------------------------
+
+def fused_adam(p, g, m, v, lrt, beta1: float, beta2: float, eps: float):
+    """One Adam step over a flattened bucket on the Hopper kernel: p, g,
+    m, v and the per-element bias-corrected ``lrt``, CUDA float32,
+    contiguous, all of one shape.  Returns new ``(p, m, v)``; each
+    multiply, add, square root and division is rounded once, as the
+    per-param ``adam`` lowering's separate torch ops round them."""
+    what = "fused_adam"
+    for name, t in (("p", p), ("g", g), ("m", m), ("v", v), ("lrt", lrt)):
+        if t.device.type != "cuda" or t.device != p.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{p.device}, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.shape != p.shape or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
+                             f"aligned float32 of shape {tuple(p.shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    po, mo, vo = (torch.empty_like(p) for _ in range(3))
+    lib = _lib("fused_adam")
+    with torch.cuda.device(p.device):
+        err = lib.pt_fused_adam(
+            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            lrt.data_ptr(), po.data_ptr(), mo.data_ptr(), vo.data_ptr(),
+            p.numel(),
+            float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
+            float(eps), _stream(p.device))
+    _check_launch(lib, err, what)
+    fused_adam.launches += 1
+    return po, mo, vo
+
+
+fused_adam.launches = 0

@@ -1,0 +1,95 @@
+"""Loss lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``, the op
+the training slice runs).
+
+``softmax_with_cross_entropy`` keeps its integer ``Label`` in a nondiff
+slot and carries a custom grad, ``softmax - onehot(label)``, which is
+what the fused reference kernel computes, instead of differentiating
+through the log-softmax composition.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import register_op
+
+
+def _xent_norm(logits, axis):
+    """(shifted logits, log-sum-exp), both at least float32: the
+    streaming log-softmax pieces with float32 accumulation."""
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    lmax = logits.detach().amax(dim=axis, keepdim=True).to(acc)
+    shifted = logits.to(acc) - lmax
+    lse = torch.log(torch.exp(shifted).sum(dim=axis, keepdim=True))
+    return shifted, lse
+
+
+def _to_last_axis(logits, label, axis):
+    """Move the class axis to -1; returns (logits, label, restore_fn)."""
+    ax = axis if axis >= 0 else logits.ndim + axis
+    if ax == logits.ndim - 1:
+        return logits, label, lambda t: t
+    lg = torch.movedim(logits, ax, -1)
+    lb = torch.movedim(label, ax, -1) if label.ndim == logits.ndim \
+        else label
+    return lg, lb, lambda t: torch.movedim(t, -1, ax)
+
+
+def _hard_label(label, logits):
+    lbl = label.long()
+    if lbl.ndim == logits.ndim:
+        lbl = lbl.squeeze(-1)
+    return lbl
+
+
+def _softmax_xent_fwd(ins, attrs, ctx):
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    logits, label, restore = _to_last_axis(logits, label,
+                                           attrs.get("axis", -1))
+    shifted, lse = _xent_norm(logits, -1)
+    softmax = torch.exp(shifted - lse).to(logits.dtype)
+    if attrs.get("soft_label", False):
+        loss = torch.sum(label.to(shifted.dtype) * (lse - shifted), dim=-1,
+                         keepdim=True)
+    else:
+        lbl = _hard_label(label, logits)
+        picked = torch.gather(shifted, -1, lbl.clamp(min=0)[..., None])
+        loss = lse - picked
+        ignore = attrs.get("ignore_index", -100)
+        loss = torch.where(lbl[..., None] == ignore,
+                           torch.zeros((), dtype=loss.dtype,
+                                       device=loss.device), loss)
+    return {"Softmax": [restore(softmax)], "Loss": [restore(loss)]}
+
+
+def _softmax_xent_grad(ins, outs, out_grads, attrs, ctx):
+    """d(loss)/d(logits) = (softmax - onehot(label)) · g, softmax
+    recomputed from the logits."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    gloss = out_grads.get("Loss")
+    if gloss is None:
+        return {"Logits": [torch.zeros_like(logits)]}
+    dtype = logits.dtype
+    logits, label, restore = _to_last_axis(logits, label,
+                                           attrs.get("axis", -1))
+    ax = attrs.get("axis", -1)
+    ax = ax if ax >= 0 else logits.ndim + ax
+    if ax != logits.ndim - 1:
+        gloss = torch.movedim(gloss, ax, -1)
+    shifted, lse = _xent_norm(logits, -1)
+    softmax = torch.exp(shifted - lse)
+    gloss = gloss.to(softmax.dtype)
+    if attrs.get("soft_label", False):
+        grad = (softmax - label.to(softmax.dtype)) * gloss
+    else:
+        lbl = _hard_label(label, logits)
+        classes = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = (classes == lbl[..., None]).to(softmax.dtype)
+        ignore = attrs.get("ignore_index", -100)
+        mask = (lbl != ignore)[..., None].to(softmax.dtype)
+        grad = (softmax - onehot) * gloss * mask
+    return {"Logits": [restore(grad).to(dtype)]}
+
+
+register_op("softmax_with_cross_entropy", _softmax_xent_fwd,
+            nondiff_inputs=("Label",), nondiff_outputs=("Softmax",),
+            custom_grad=_softmax_xent_grad)

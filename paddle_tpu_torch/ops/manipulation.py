@@ -18,7 +18,7 @@ def _xshape(x):
     return torch.zeros((0,), dtype=x.dtype, device=x.device)
 
 
-@register_op("reshape2")
+@register_op("reshape2", nondiff_inputs=("Shape", "ShapeTensor"))
 def _reshape2(ins, attrs, ctx):
     x = _x(ins)
     if ins.get("Shape"):
@@ -37,7 +37,7 @@ def _transpose2(ins, attrs, ctx):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", differentiable=False)
 def _fill_constant(ins, attrs, ctx):
     shape = attrs.get("shape", [])
     if ins.get("ShapeTensor"):
@@ -47,7 +47,7 @@ def _fill_constant(ins, attrs, ctx):
                                dtype=dtype, device=ctx.device)]}
 
 
-@register_op("lookup_table_v2")
+@register_op("lookup_table_v2", nondiff_inputs=("Ids",))
 def _lookup_table_v2(ins, attrs, ctx):
     """Embedding (operators/lookup_table_v2_op): rows of W gathered by
     int64 ids; rows at ``padding_idx`` read as zero."""

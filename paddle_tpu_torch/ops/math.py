@@ -38,6 +38,15 @@ def _elementwise_add(ins, attrs, ctx):
     return {"Out": [out]}
 
 
+@register_op("sum")  # fluid sum op: variadic add (used for grad fan-in)
+def _sum(ins, attrs, ctx):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
 @register_op("relu")
 def _relu(ins, attrs, ctx):
     return {"Out": [torch.relu(_x(ins))]}

@@ -22,7 +22,7 @@ def _softmax(ins, attrs, ctx):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
-@register_op("dropout", stateful_rng=True)
+@register_op("dropout", stateful_rng=True, nondiff_outputs=("Mask",))
 def _dropout(ins, attrs, ctx):
     x = ins["X"][0]
     p = attrs.get("dropout_prob", 0.5)

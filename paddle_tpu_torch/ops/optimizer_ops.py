@@ -1,0 +1,114 @@
+"""Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
+Adam and its bucketed form; the other updates come with their slices).
+
+Each op consumes (param, grad, states...) and returns new values; the
+executor writes the outputs back to the scope under the same names.  All
+are non-differentiable.
+
+``fused_adam`` is what the ``fuse_optimizer`` pass makes of a run of
+``adam`` ops: one op per bucket whose elementwise core runs over a single
+flattened buffer — on the card, the hand-written kernel
+(``cuda_kernels.fused_adam``).  It is element for element the same
+arithmetic as the per-param op, each multiply, add, square root and
+division rounded once, so the rewrite is bit-identical to the per-param
+updates on either device.  Each param's bias-corrected ``lr_t`` is
+broadcast over its segment outside the kernel, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda_kernels
+from .registry import register_op
+
+
+def _p(ins, slot):
+    return ins[slot][0]
+
+
+def _adam_moments(m, v, g, b1, b2):
+    m_new = b1 * m + (1 - b1) * g
+    v_new = b2 * v + (1 - b2) * (g * g)
+    return m_new, v_new
+
+
+def _lr_t(lr, b1p, b2p):
+    # reference adam_op.h: lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)
+    return lr * torch.sqrt(1 - b2p) / (1 - b1p)
+
+
+@register_op("adam", differentiable=False)
+def _adam(ins, attrs, ctx):
+    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    m, v = _p(ins, "Moment1"), _p(ins, "Moment2")
+    b1p = _p(ins, "Beta1Pow").reshape(())
+    b2p = _p(ins, "Beta2Pow").reshape(())
+    lr = _p(ins, "LearningRate").reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_new, v_new = _adam_moments(m, v, g, b1, b2)
+    p_new = p - _lr_t(lr, b1p, b2p) * m_new / (torch.sqrt(v_new) + eps)
+    return {"ParamOut": [p_new], "Moment1Out": [m_new],
+            "Moment2Out": [v_new],
+            "Beta1PowOut": [(b1p * b1).reshape(1)],
+            "Beta2PowOut": [(b2p * b2).reshape(1)]}
+
+
+# ---------------------------------------------------------------------------
+# bucketed updates (fuse_optimizer): concatenation changes layout, never
+# values
+# ---------------------------------------------------------------------------
+
+def _flat(xs, dtype):
+    return torch.cat([x.reshape(-1).to(dtype) for x in xs])
+
+
+def _unflat(buf, templates, sizes):
+    out, off = [], 0
+    for t, s in zip(templates, sizes):
+        out.append(buf[off:off + s].reshape(t.shape))
+        off += s
+    return out
+
+
+def _flat_kernel_ok(p_f):
+    """The reference's gate for its kernel: float32 and at least 1024
+    elements.  A CUDA bucket that fails it takes the plain version, as
+    the reference keeps such a bucket off its kernel."""
+    return (p_f.device.type == "cuda" and p_f.dtype == torch.float32
+            and p_f.numel() >= 1024)
+
+
+@register_op("fused_adam", differentiable=False)
+def _fused_adam(ins, attrs, ctx):
+    ps, gs = ins["Param"], ins["Grad"]
+    ms, vs = ins["Moment1"], ins["Moment2"]
+    b1ps, b2ps = ins["Beta1Pow"], ins["Beta2Pow"]
+    lr = _p(ins, "LearningRate").reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    sizes = [p.numel() for p in ps]
+    cdt = ps[0].dtype
+    # per-param bias-corrected lr, broadcast over each segment
+    lrts = [_lr_t(lr, p1.reshape(()), p2.reshape(())).to(cdt)
+            for p1, p2 in zip(b1ps, b2ps)]
+    p_f, g_f = _flat(ps, cdt), _flat(gs, cdt)
+    m_f, v_f = _flat(ms, cdt), _flat(vs, cdt)
+    lrt_f = torch.cat([t.expand(s) for t, s in zip(lrts, sizes)])
+    if _flat_kernel_ok(p_f):
+        # the kernel takes any length, so the reference's padding to
+        # [rows, 1024] lanes is not copied here
+        p_new, m_new, v_new = cuda_kernels.fused_adam(
+            p_f, g_f, m_f, v_f, lrt_f, b1, b2, eps)
+    else:
+        m_new, v_new = _adam_moments(m_f, v_f, g_f, b1, b2)
+        p_new = p_f - lrt_f * m_new / (torch.sqrt(v_new) + eps)
+    return {"ParamOut": _unflat(p_new, ps, sizes),
+            "Moment1Out": _unflat(m_new, ms, sizes),
+            "Moment2Out": _unflat(v_new, vs, sizes),
+            "Beta1PowOut": [(p1.reshape(()) * b1).reshape(1)
+                            for p1 in b1ps],
+            "Beta2PowOut": [(p2.reshape(()) * b2).reshape(1)
+                            for p2 in b2ps]}

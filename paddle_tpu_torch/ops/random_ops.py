@@ -25,7 +25,7 @@ def _dtype(attrs):
     return torch_dtype(d if d not in (None, -1) else "float32")
 
 
-@register_op("uniform_random", stateful_rng=True)
+@register_op("uniform_random", stateful_rng=True, differentiable=False)
 def _uniform_random(ins, attrs, ctx):
     gen = ctx.key_for(attrs.get("op_seed", attrs.get("seed", 0) or 0))
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
@@ -34,7 +34,7 @@ def _uniform_random(ins, attrs, ctx):
     return {"Out": [(u * (hi - lo) + lo).to(_dtype(attrs))]}
 
 
-@register_op("gaussian_random", stateful_rng=True)
+@register_op("gaussian_random", stateful_rng=True, differentiable=False)
 def _gaussian_random(ins, attrs, ctx):
     gen = ctx.key_for(attrs.get("op_seed", attrs.get("seed", 0) or 0))
     n = torch.randn(_shape(ins, attrs), generator=gen, device=ctx.device,

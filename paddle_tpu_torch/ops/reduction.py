@@ -14,18 +14,29 @@ def _axes(attrs, ndim):
     return tuple(d % ndim for d in dim)
 
 
+def _refuse_padded_batch(op_type, x, axes, ctx):
+    """The TPU package masks padded rows out of batch reductions; until
+    the port does, averaging them in silently would be wrong."""
+    if x.ndim and 0 in axes and ctx.batch_padding_applies(x.shape[0]):
+        raise NotImplementedError(
+            f"{op_type} over the padded batch axis under shape bucketing "
+            f"is not ported yet; run programs that reduce over the batch "
+            f"without bucket padding")
+
+
 @register_op("reduce_mean")
 def _reduce_mean(ins, attrs, ctx):
     x = ins["X"][0]
     axes = _axes(attrs, x.ndim)
-    if x.ndim and 0 in axes and ctx.batch_padding_applies(x.shape[0]):
-        # the TPU package masks padded rows out of batch reductions;
-        # until the port does, averaging them in silently would be wrong
-        raise NotImplementedError(
-            "reduce_mean over the padded batch axis under shape bucketing "
-            "is not ported yet; serve programs that reduce over the batch "
-            "without bucket padding")
+    _refuse_padded_batch("reduce_mean", x, axes, ctx)
     if not axes:
         return {"Out": [x.clone()]}
     return {"Out": [torch.mean(x, dim=axes,
                                keepdim=attrs.get("keep_dim", False))]}
+
+
+@register_op("mean")
+def _mean(ins, attrs, ctx):
+    x = ins["X"][0]
+    _refuse_padded_batch("mean", x, tuple(range(x.ndim)), ctx)
+    return {"Out": [torch.mean(x)]}

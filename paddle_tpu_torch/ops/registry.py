@@ -3,14 +3,16 @@
 Counterpart of ``paddle_tpu/ops/registry.py``.  An op is a plain function
 ``fn(inputs, attrs, ctx) -> outputs`` over named variadic slots
 (``Dict[slot, List[torch.Tensor]]``).  The executor calls the rules one by
-one, eagerly; shape inference calls the same rules on ``meta`` tensors.
+one, eagerly; shape inference calls the same rules on ``meta`` tensors;
+``generic_grad`` (fluid/backward.py) differentiates them with
+``torch.func.vjp`` unless the op carries a ``custom_grad``.
 Ids stay int64 (the TPU package narrows them to int32 through
 ``wide_int``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -21,7 +23,14 @@ LoweringFn = Callable[..., Dict[str, Any]]
 class OpDef:
     type: str
     fn: LoweringFn                       # fn(ins, attrs, ctx) -> outs
+    # slots that are never differentiated (int indices, seeds, masks...)
+    nondiff_inputs: Sequence[str] = ()
+    # outputs that carry no cotangent (int outputs, saved state)
+    nondiff_outputs: Sequence[str] = ()
+    differentiable: bool = True          # False: a leaf of the grad sweep
     stateful_rng: bool = False           # draws random numbers (dropout, *_random)
+    # (ins, outs, out_grads, attrs, ctx) -> in_grads, in place of the vjp
+    custom_grad: Optional[Callable] = None
 
 
 _OP_REGISTRY: Dict[str, OpDef] = {}

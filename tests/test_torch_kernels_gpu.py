@@ -8,14 +8,22 @@ tests).  On the card: ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py`
 Tolerances: float32 atol=rtol=1e-4 (the online softmax sums in another
 order than the plain version's full-row softmax); bfloat16 atol=2e-2
 (the plain version rounds the probabilities to bfloat16 before the
-product with V, the kernel keeps them in float32).
+product with V, the kernel keeps them in float32).  The softmax
+statistics against ``_reference_stats``: atol=rtol=1e-4.  The backward
+kernel against ``_reference_attention_bwd`` on the same o, m and l: float32
+atol=rtol=1e-4 (FMA chains against cuBLAS sums), bfloat16 atol=2e-2,
+rtol=1e-2 (one bfloat16 rounding of each output).  ``fused_adam``
+against the per-param ``adam`` lowering: ``torch.equal``.
 """
+import math
+
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import cuda_kernels
 from paddle_tpu_torch.ops.attention import _reference_attention, \
-    flash_attention
+    _reference_attention_bwd, _reference_stats, flash_attention
+from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 
 pytestmark = pytest.mark.gpu
 
@@ -33,9 +41,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(device, b, h, t, d, dtype, seed=0, masked=True):
+def _inputs(device, b, h, t, d, dtype, seed=0, masked=True,
+            program_bias=False):
     """q, k, v as the permuted [B,H,T,D] views transpose2 leaves behind,
-    and a [B,1,1,T] padding bias of (m - 1) * 10000."""
+    and a [B,1,1,T] padding bias of (m - 1) * 10000, or with
+    ``program_bias`` (m - 10000) * 10000, the bias the static BERT program
+    builds (about -1e8, where float32 keeps only multiples of 8)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     qkv = [torch.randn(b, t, h, d, generator=g).to(device, dtype)
            .permute(0, 2, 1, 3) for _ in range(3)]
@@ -43,12 +54,15 @@ def _inputs(device, b, h, t, d, dtype, seed=0, masked=True):
     if masked:
         lengths = torch.randint(1, t + 1, (b,), generator=g)
         m = (torch.arange(t)[None, :] < lengths[:, None]).float()
-        mask = ((m - 1.0) * 10000.0).reshape(b, 1, 1, t).to(device)
+        shift = 10000.0 if program_bias else 1.0
+        mask = ((m - shift) * 10000.0).reshape(b, 1, 1, t).to(device)
     return qkv, mask
 
 
-def _check(device, b, h, t, d, dtype, causal=False, masked=True):
-    (q, k, v), mask = _inputs(device, b, h, t, d, dtype, masked=masked)
+def _check(device, b, h, t, d, dtype, causal=False, masked=True,
+           program_bias=False):
+    (q, k, v), mask = _inputs(device, b, h, t, d, dtype, masked=masked,
+                              program_bias=program_bias)
     scale = d ** -0.5
     before = cuda_kernels.flash_attention_fwd.launches
     out = cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal)
@@ -96,3 +110,97 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="not supported"):
         cuda_kernels.flash_attention_fwd(q.half(), k.half(), v.half(),
                                          None, 1.0, False)
+
+
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+
+
+def _check_bwd(device, b, h, t, d, dtype, causal=False, masked=True,
+               program_bias=False):
+    (q, k, v), mask = _inputs(device, b, h, t, d, dtype, masked=masked,
+                              program_bias=program_bias)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    do = torch.randn(b, t, h, d, generator=g).to(device, dtype) \
+        .permute(0, 2, 1, 3)
+    scale = d ** -0.5
+    o, m, l = cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal,
+                                               return_stats=True)
+    for got_, want_ in zip((m, l), _reference_stats(q, k, mask, scale,
+                                                    causal)):
+        torch.testing.assert_close(got_, want_, atol=1e-4, rtol=1e-4)
+    before = cuda_kernels.flash_attention_bwd.launches
+    got = cuda_kernels.flash_attention_bwd(q, k, v, mask, scale, causal, o,
+                                           m, l, do)
+    torch.cuda.synchronize()
+    assert cuda_kernels.flash_attention_bwd.launches == before + 1
+    want = _reference_attention_bwd(q, k, v, mask, scale, o, m, l, do,
+                                    causal)
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape and g_.dtype == dtype
+        torch.testing.assert_close(g_.float(), w.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_training_shape(cuda, dtype):
+    _check_bwd(cuda, 32, 12, 128, 64, dtype)
+
+
+@pytest.mark.parametrize("t,d,causal", [(100, 64, False), (128, 64, True),
+                                        (65, 32, False), (130, 128, True),
+                                        (1, 64, False)])
+def test_backward_ragged_causal_and_head_dims(cuda, t, d, causal):
+    _check_bwd(cuda, 2, 3, t, d, torch.float32, causal=causal)
+
+
+def test_program_bias_regime(cuda):
+    """The forward, its statistics and the backward at the training shape
+    under the bias the static BERT program hands them."""
+    _check(cuda, 32, 12, 128, 64, torch.float32, program_bias=True)
+    _check_bwd(cuda, 32, 12, 128, 64, torch.float32, program_bias=True)
+
+
+def test_autograd_function_runs_both_kernels(cuda):
+    (q, k, v), mask = _inputs(cuda, 2, 4, 64, 64, torch.float32)
+    f0 = cuda_kernels.flash_attention_fwd.launches
+    b0 = cuda_kernels.flash_attention_bwd.launches
+    with torch.no_grad():
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: flash_attention(a, b, c, mask, scale=0.125),
+            q, k, v)
+        vjp(torch.ones_like(q))
+    assert cuda_kernels.flash_attention_fwd.launches == f0 + 1
+    assert cuda_kernels.flash_attention_bwd.launches == b0 + 1
+
+
+@pytest.mark.parametrize("sizes", [[(1024, 768), (768,), (30, 7)],
+                                   [(300,), (200,)]],
+                         ids=["kernel", "below_gate"])
+def test_fused_adam_equals_per_param_adam(cuda, sizes):
+    """Bit-identical to the per-param lowering on the card; a bucket
+    below 1024 elements takes the plain version, as the reference keeps
+    it off its kernel."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ins = {s: [] for s in ("Param", "Grad", "Moment1", "Moment2",
+                           "Beta1Pow", "Beta2Pow")}
+    for i, shape in enumerate(sizes):
+        for s, scale in (("Param", 1.0), ("Grad", 1e-2), ("Moment1", 1e-3)):
+            ins[s].append(scale * torch.randn(shape, generator=g))
+        ins["Moment2"].append(1e-5 * torch.rand(shape, generator=g))
+        ins["Beta1Pow"].append(torch.tensor([0.9 ** (i + 2)]))
+        ins["Beta2Pow"].append(torch.tensor([0.999 ** (i + 2)]))
+    ins["LearningRate"] = [torch.tensor([1e-3])]
+    ins = {s: [t.to(cuda) for t in v] for s, v in ins.items()}
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    before = cuda_kernels.fused_adam.launches
+    fused = get_op("fused_adam").fn(ins, attrs, LoweringContext(cuda))
+    torch.cuda.synchronize()
+    on_kernel = sum(math.prod(s) for s in sizes) >= 1024
+    assert cuda_kernels.fused_adam.launches == before + int(on_kernel)
+    for i in range(len(sizes)):
+        one = get_op("adam").fn(
+            {s: [v[0] if s == "LearningRate" else v[i]]
+             for s, v in ins.items()}, attrs, LoweringContext(cuda))
+        for slot, outs in one.items():
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)

@@ -184,3 +184,224 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros((1, 1, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.flash_attention_fwd(q, q, q, None, 1.0, False)
+
+
+# ---------------------------------------------------------------------------
+# the training slice: loss, fan-in, generic_grad, Adam
+# ---------------------------------------------------------------------------
+
+def _labels(n, classes):
+    return R.randint(0, classes, (n, 1)).astype("int64")
+
+
+def _adam_ins(shapes):
+    ins = {"Param": [], "Grad": [], "Moment1": [], "Moment2": [],
+           "Beta1Pow": [], "Beta2Pow": []}
+    for i, shape in enumerate(shapes):
+        ins["Param"].append(_f(*shape))
+        ins["Grad"].append(_f(*shape))
+        ins["Moment1"].append(0.1 * _f(*shape))
+        ins["Moment2"].append(np.abs(0.01 * _f(*shape)))
+        ins["Beta1Pow"].append(np.array([0.9 ** (i + 1)], "float32"))
+        ins["Beta2Pow"].append(np.array([0.999 ** (i + 1)], "float32"))
+    ins["LearningRate"] = [np.array([1e-3], "float32")]
+    return ins
+
+
+_ADAM_ATTRS = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+               "multi_precision": False}
+
+TRAIN_CASES = {
+    "sum": ("sum", {"X": [_f(3, 4), _f(3, 4), _f(3, 4)]}, {}),
+    "mean": ("mean", {"X": [_f(3, 5, 2)]}, {}),
+    "softmax_with_cross_entropy": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_f(6, 5)], "Label": [_labels(6, 5)]},
+        {"soft_label": False, "ignore_index": -100, "axis": -1}),
+    "softmax_with_cross_entropy_soft_label": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_f(6, 5)],
+         "Label": [np.abs(_f(6, 5)) / np.abs(_f(6, 5)).sum(-1,
+                                                            keepdims=True)]},
+        {"soft_label": True, "axis": -1}),
+    "softmax_with_cross_entropy_axis0": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_f(5, 6)], "Label": [_labels(6, 5).T.copy()]},
+        {"soft_label": False, "ignore_index": -100, "axis": 0}),
+    "adam": ("adam", {k: v[:1] if k != "LearningRate" else v
+                      for k, v in _adam_ins([(4, 3)]).items()},
+             _ADAM_ATTRS),
+    "generic_grad_mul": (
+        "generic_grad",
+        {"I_X": [_f(2, 5, 8)], "I_Y": [_f(8, 6)], "G_Out": [_f(2, 5, 6)]},
+        {"fwd_type": "mul", "fwd_attrs": {"x_num_col_dims": 2,
+                                          "y_num_col_dims": 1},
+         "in_slots": ["X", "Y"], "grad_slots": ["X", "Y"]}),
+    "generic_grad_reshape2": (
+        "generic_grad", {"I_X": [_f(2, 3, 8)], "G_Out": [_f(2, 3, 2, 4)]},
+        {"fwd_type": "reshape2", "fwd_attrs": {"shape": [0, 0, 2, 4]},
+         "in_slots": ["X"], "grad_slots": ["X"]}),
+    "generic_grad_lookup_table_v2": (
+        "generic_grad",
+        {"I_W": [_f(10, 6)],
+         "I_Ids": [R.randint(0, 10, (3, 5)).astype("int64")],
+         "G_Out": [_f(3, 5, 6)]},
+        {"fwd_type": "lookup_table_v2", "fwd_attrs": {"padding_idx": -1},
+         "in_slots": ["W", "Ids"], "grad_slots": ["W"]}),
+    "generic_grad_softmax_with_cross_entropy": (
+        "generic_grad",
+        {"I_Logits": [_f(6, 5)], "I_Label": [_labels(6, 5)],
+         "G_Loss": [_f(6, 1)]},
+        {"fwd_type": "softmax_with_cross_entropy",
+         "fwd_attrs": {"soft_label": False, "ignore_index": -100,
+                       "axis": -1},
+         "in_slots": ["Logits", "Label"], "grad_slots": ["Logits"]}),
+    "generic_grad_softmax_with_cross_entropy_soft_axis0": (
+        "generic_grad",
+        {"I_Logits": [_f(5, 6)],
+         "I_Label": [np.abs(_f(5, 6)) / np.abs(_f(5, 6)).sum(0,
+                                                             keepdims=True)],
+         "G_Loss": [_f(1, 6)]},
+        {"fwd_type": "softmax_with_cross_entropy",
+         "fwd_attrs": {"soft_label": True, "axis": 0},
+         "in_slots": ["Logits", "Label"], "grad_slots": ["Logits"]}),
+    "generic_grad_fused_multihead_attention": (
+        "generic_grad",
+        {**{"I_" + s: v for s, v in _attention_inputs().items()},
+         "G_Out": [_f(2, 3, 6, 8)]},
+        {"fwd_type": "fused_multihead_attention",
+         "fwd_attrs": {"scale": 8 ** -0.5, "causal": False},
+         "in_slots": ["Q", "K", "V", "Mask"],
+         "grad_slots": ["Q", "K", "V"]}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_training_op_matches_reference(case):
+    op_type, ins, attrs = TRAIN_CASES[case]
+    _check(op_type, ins, attrs)
+
+
+def test_fused_adam_plain_matches_reference():
+    """The port's plain bucket (a CPU tensor never takes the kernel)
+    against the reference's ``_fused_adam`` on its jnp branch, rtol 1e-6:
+    the same arithmetic, rounded alike."""
+    ins = _adam_ins([(16, 8), (8,), (40, 32), (3,)])
+    for slot, pairs in _run_both("fused_adam", ins, _ADAM_ATTRS).items():
+        for j, t in pairs:
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
+                                       atol=0, err_msg=slot)
+
+
+def test_fused_adam_bit_identical_to_per_param_adam():
+    ins = _adam_ins([(16, 8), (8,), (40, 32), (3,)])
+    t_ins = {s: [torch.from_numpy(a) for a in v] for s, v in ins.items()}
+    fused = treg.get_op("fused_adam").fn(t_ins, dict(_ADAM_ATTRS),
+                                         treg.LoweringContext())
+    for i in range(4):
+        one = treg.get_op("adam").fn(
+            {s: [v[0] if s == "LearningRate" else v[i]]
+             for s, v in t_ins.items()},
+            dict(_ADAM_ATTRS), treg.LoweringContext())
+        for slot, outs in one.items():
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's plain version and the autograd.Function wiring
+# ---------------------------------------------------------------------------
+
+def _qkv_mask(causal, b=2, h=3, t=7, d=8):
+    q, k, v = (torch.from_numpy(_f(b, h, t, d)) for _ in range(3))
+    mask = None if causal else \
+        torch.from_numpy(_attention_inputs(b, h, t, d)["Mask"][0])
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["mask", "causal"])
+def test_reference_attention_bwd_matches_jax_vjp(causal):
+    import jax
+    from paddle_tpu.ops.attention import _reference_attention as j_attention
+    from paddle_tpu_torch.ops.attention import (_reference_attention_bwd,
+                                                _reference_stats)
+    q, k, v, mask = _qkv_mask(causal)
+    do = torch.from_numpy(_f(*q.shape))
+    scale = 8 ** -0.5
+    o = _reference_attention(q, k, v, mask, scale, causal)
+    m, l = _reference_stats(q, k, mask, scale, causal)
+    got = _reference_attention_bwd(q, k, v, mask, scale, o, m, l, do, causal)
+    jm = None if mask is None else jnp.asarray(mask.numpy())
+    _, vjp = jax.vjp(lambda a, b, c: j_attention(a, b, c, jm, scale, causal),
+                     *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do.numpy()))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q.numpy()),
+                   jnp.asarray(k.numpy())) * scale
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones(s.shape[-2:], bool)), s,
+                      jnp.finfo(jnp.float32).min)
+    else:
+        s = s + jm
+    lse = m.double() + torch.log(l.double())
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["mask", "causal"])
+def test_flash_function_wiring_under_vjp(monkeypatch, causal):
+    """``_FlashAttention`` with the plain forward (+ stats) and backward
+    plugged in where the kernels go: ``torch.func.vjp`` through it inside
+    ``torch.no_grad()`` (as ``generic_grad`` runs) equals autodiff of
+    ``_reference_attention``, and each stand-in ran once on plain tensors
+    (``data_ptr`` works on every tensor argument, as the ctypes launch
+    needs)."""
+    from paddle_tpu_torch.ops import attention, cuda_kernels
+    calls = []
+
+    def fwd(q, k, v, bias, scale, causal_, return_stats=False):
+        calls.append(("fwd", [t.data_ptr() for t in (q, k, v, bias)
+                              if t is not None]))
+        o = attention._reference_attention(q, k, v, bias, scale, causal_)
+        return (o, *attention._reference_stats(q, k, bias, scale, causal_))
+
+    def bwd(q, k, v, bias, scale, causal_, o, m, l, do):
+        calls.append(("bwd", [t.data_ptr() for t in (q, k, v, bias, o, m, l,
+                                                     do) if t is not None]))
+        return attention._reference_attention_bwd(q, k, v, bias, scale, o,
+                                                  m, l, do, causal_)
+
+    monkeypatch.setattr(cuda_kernels, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(cuda_kernels, "flash_attention_bwd", bwd)
+    q, k, v, mask = _qkv_mask(causal)
+    do = torch.from_numpy(_f(*q.shape))
+    scale = 8 ** -0.5
+    with torch.no_grad():
+        out, vjp = torch.func.vjp(
+            lambda a, b, c: attention._FlashAttention.apply(
+                a, b, c, mask, scale, causal)[0], q, k, v)
+        got = vjp(do)
+    assert [c[0] for c in calls] == ["fwd", "bwd"]
+    want_out, want_vjp = torch.func.vjp(
+        lambda a, b, c: _reference_attention(a, b, c, mask, scale, causal),
+        q, k, v)
+    want = want_vjp(do)
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    from paddle_tpu_torch.ops import cuda_kernels
+    q = torch.zeros((1, 1, 4, 8))
+    m = torch.zeros((1, 1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.flash_attention_bwd(q, q, q, None, 1.0, False, q, m, m,
+                                         q)
+    p = torch.zeros((2, 1024))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.fused_adam(p, p, p, p, p, 0.9, 0.999, 1e-8)
