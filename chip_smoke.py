@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving and training paths on one CUDA card,
-end to end.
+end to end: the static BERT program and the wide&deep CTR program.
 
     python3 chip_smoke.py
 
@@ -20,10 +20,18 @@ over):
    and one with the bias the BERT program builds, (m - 10000) * 10000;
    the forward's softmax statistics (row max and sum) too.  Fused Adam:
    ``torch.equal`` to the per-param ``adam`` lowering over the BERT-base
-   bucket (99 parameters, 51,790,850 values).  Times by CUDA events,
-   beside the least time the card could take (the bound) and one PyTorch
-   library call computing the same function where there is one (timed
-   here only, never called by the port).
+   bucket (99 parameters, 51,790,850 values).  The CTR kernels at the
+   training path's shapes, [4096, 5] ids into a [1e6, D] table for D = 16
+   and 128, with uniform ids, Zipf(1.1) ids and a Length-masked AVERAGE
+   weight with a padding id: the gather-pool forward within 1e-6 of its
+   plain version and bit-exact on dyadic values; the scatter-add gradient
+   bit-identical across two launches and to the host's ``index_add_``.
+   Fused Momentum: ``torch.equal`` to the per-param ``momentum`` lowering
+   over the CTR bucket (32 parameters, 416,013,807 values), plain,
+   Nesterov and l2_decay.  Times by CUDA events, beside the least time
+   the card could take (the bound) and one PyTorch library call
+   computing the same function where there is one (timed here only,
+   never called by the port).
 4. serve   -- the static BERT program at BERT-base width (vocab 30522,
    hidden 768, 12 heads, 12 layers, seq 128, dropout 0.1, padding mask),
    random weights from a seed, frozen, ``fuse_attention`` applied, served
@@ -48,9 +56,27 @@ over):
    gradients of the embedding and of every layer's query and key weights
    within 1e-3 of the largest such gradient; a host twin whose attention
    backward drops dQ and dK must miss that tolerance.
+4c. serve CTR -- the wide&deep CTR program at Criteo width (26 slots,
+   dim 16, 5 ids per slot, 1,000,000 rows per table, 13 dense features),
+   random weights from a seed, frozen at the logit,
+   ``fuse_sparse_embedding`` applied (26 rewrites), served by
+   ``ServingEngine(max_batch=512)``: 16 requests of 1 to 500 rows with
+   Zipf ids; 26 gather-pool launches per dispatched batch.  Two requests
+   rerun on the host agree within 1e-5 of the largest logit; a twin
+   that pools only each slot's first id must miss by 10 times that.
+4d. train CTR -- the same program with its loss and Momentum (lr 0.05,
+   mu 0.9), ``fuse_sparse_embedding`` and ``fuse_optimizer`` (26 rewrites,
+   one ``fused_momentum``), batch 4096: one warm-up step and 10 timed
+   steps, exactly 260 forward, 260 gradient and 10 Momentum launches.
+   Then 2 steps on the card and on the host from one state at vocab
+   100,000 (everything else at full width): losses within rtol 1e-5,
+   first-step dW of every slot and every parameter and velocity after
+   2 steps within 1e-6 of their largest entry; a twin whose gradient
+   keeps only the last of each repeated id must miss on every slot.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
-   and device time by kernel class.
+   and device time by kernel class; the same for the CTR program at 1,
+   64 and 512 rows served and 4096 rows trained.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -74,6 +100,16 @@ TRAIN = dict(BERT_BASE, dropout=0.0, lr=1e-3, train=True)
 TRAIN_ROWS = 32
 TRAIN_STEPS = 10
 HOST_ROWS = 4          # the card-vs-host training check's batch
+# the wide&deep CTR program at the width of the repo's CTR bench
+# (bench.py main_ctr: 26 slots, dim 16, batch 4096, 5 ids per slot, as
+# DLRM's Criteo-Kaggle setting) with 1,000,000 rows per slot's table
+CTR = dict(slots=26, vocab=1_000_000, dim=16, seq=5)
+CTR_MAX_BATCH = 512
+CTR_ROW_CHOICES = (1, 16, 64, 100, 256, 500)   # a page's ad candidates
+CTR_TRAIN = dict(CTR, train=True, optimizer="momentum", lr=0.05)
+CTR_TRAIN_ROWS = 4096
+CTR_HOST_VOCAB = 100_000   # the card-vs-host training check's one cut
+ZIPF_A = 1.1
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -439,6 +475,308 @@ def phase_kernels_adam():
        f"{op_ms - ms:.4f} ms) | library (torch._fused_adam_, eps/sqrt(bc2), "
        f"max |diff| from the op {lib_err:.3e}, rtol=1e-4) {library_ms:.4f} "
        f"ms | bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "op_ms": op_ms, "values": n}
+
+
+# ---------------------------------------------------------------------------
+# the CTR path's kernels (phase 3)
+# ---------------------------------------------------------------------------
+
+def _zipf_ids(rng, shape, vocab, perm):
+    """Zipf(1.1) ids through a seeded permutation of the vocab: a few hot
+    ids, a long tail, and the hot ids scattered over the table."""
+    return perm[(rng.zipf(ZIPF_A, shape) - 1) % vocab].astype(np.int64)
+
+
+def _emb_inputs(d, case, dyadic=False):
+    """w [V, d], ids [B, S] int64, wgt [B, S] and g [B, d] on DEVICE for
+    one case at the training path's shapes: ``uniform`` ids, ``zipf``
+    ids, or ``length_avg``: uniform ids, a third of the rows with the
+    padding id 7 at position 2, and a Length-masked AVERAGE weight.  The
+    first two have no weight (None), as the path's unmasked SUM slots.
+    With ``dyadic``, w and g are small multiples of 1/8 and the weights
+    0 or 1/4, so every sum is exact."""
+    import torch
+    b, s, v = CTR_TRAIN_ROWS, CTR["seq"], CTR["vocab"]
+    rng = np.random.default_rng(SEED + d)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + d)
+    if dyadic:
+        w = torch.randint(-64, 64, (v, d), generator=gen,
+                          device=DEVICE).float() / 8
+        g = torch.randint(-64, 64, (b, d), generator=gen,
+                          device=DEVICE).float() / 8
+    else:
+        w = torch.randn((v, d), generator=gen, device=DEVICE)
+        g = torch.randn((b, d), generator=gen, device=DEVICE)
+    if case == "zipf":
+        ids = _zipf_ids(rng, (b, s), v, rng.permutation(v))
+    else:
+        ids = rng.integers(0, v, (b, s))
+    wgt = None
+    if case == "length_avg":
+        ids[rng.random(b) < 1 / 3, 2] = 7
+        length = rng.integers(0, s + 1, b)
+        keep = (np.arange(s)[None, :] < length[:, None]) & (ids != 7)
+        denom = 4.0 if dyadic else np.maximum(length, 1)[:, None]
+        wgt = torch.from_numpy((keep / denom).astype(np.float32)).to(DEVICE)
+    return w, torch.from_numpy(ids).to(DEVICE), wgt, g
+
+
+def _emb_bounds(ids, wgt, d, vocab):
+    """Least times of the two embedding kernels on this card, each the
+    larger of its bytes over HBM bandwidth and its 2·B·S·D operations
+    over the float32 peak.  Forward: ids and weights (where there are
+    any) read once, each distinct table row this batch names read once,
+    the output written once.  Gradient: ids, weights and g read once,
+    the dense dW written once."""
+    import torch
+    n, b = ids.numel(), ids.shape[0]
+    rows = torch.unique(ids).numel()
+    per_id = 8 + (0 if wgt is None else 4)
+    t_ops = 2.0 * n * d / FLOPS_PER_S["float32"] * 1e3
+    out = []
+    for nbytes in (n * per_id + rows * d * 4 + b * d * 4,
+                   n * per_id + b * d * 4 + vocab * d * 4):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def phase_kernels_ctr():
+    """The embedding gather-pool and scatter-add gradient kernels at the
+    training path's shapes, [4096, 5] ids into a [1e6, D] table, D = 16
+    (the program's) and 128, for uniform ids, Zipf ids and a
+    Length-masked AVERAGE weight with a padding id.  Forward: within
+    rtol = atol = 1e-6 of the plain version on the card, and
+    ``torch.equal`` to it on dyadic values.  Gradient: two launches
+    ``torch.equal``, and ``torch.equal`` to the plain version computed on
+    the host, whose ``index_add_`` adds in (i, j) order.  The library
+    calls, timed here only: ``embedding_bag(mode="sum",
+    per_sample_weights=wgt)`` and the weight gradient of it.  Wall ms
+    per back-to-back call by CUDA events for every case; for the Zipf
+    cases, the path's, also the device ms per call from the profiler
+    (the forward's call is host-bound).  Returns the rows by (D,
+    case)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.ctr_ops import _reference_embedding_pool, \
+        _reference_embedding_pool_grad
+
+    fwd, grad = cuda_kernels.embedding_pool_fwd, \
+        cuda_kernels.embedding_pool_grad
+    v = CTR["vocab"]
+    rows = {}
+    for d in (CTR["dim"], 128):
+        for case in ("uniform", "zipf", "length_avg"):
+            label = f"D={d} {case}"
+            w, ids, wgt, g = _emb_inputs(d, case)
+            out = fwd(w, ids, wgt)
+            ref = _reference_embedding_pool(w, ids, wgt)
+            lib_out = F.embedding_bag(ids, w, mode="sum",
+                                      per_sample_weights=wgt)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lib_err = (lib_out - out).abs().max().item()
+            dy = _emb_inputs(d, case, dyadic=True)
+            exact = torch.equal(fwd(*dy[:3]), _reference_embedding_pool(
+                *dy[:3]))
+            _p(f"embedding_pool_fwd {label} [{CTR_TRAIN_ROWS},"
+               f"{CTR['seq']}] ids into [{v},{d}]: max |err| vs plain = "
+               f"{err:.3e} (rtol=atol=1e-6); dyadic values bit-exact = "
+               f"{exact}; library max |diff| {lib_err:.3e}")
+            if not torch.allclose(out, ref, rtol=1e-6, atol=1e-6) \
+                    or not exact:
+                raise SystemExit(f"chip_smoke: embedding_pool_fwd {label} "
+                                 f"disagrees with its plain version")
+            if not torch.allclose(lib_out, out, rtol=1e-5, atol=1e-5):
+                raise SystemExit("chip_smoke: embedding_bag does not "
+                                 "compute embedding_pool_fwd's function")
+
+            dw = grad(g, ids, wgt, v)
+            again = grad(g, ids, wgt, v)
+            host = _reference_embedding_pool_grad(
+                g.cpu(), ids.cpu(), None if wgt is None else wgt.cpu(), v)
+            same = torch.equal(dw, again)
+            host_equal = torch.equal(dw.cpu(), host)
+            g_err = (dw.cpu() - host).abs().max().item()
+            wl = w.detach().requires_grad_()
+            with torch.enable_grad():
+                lib_fwd = F.embedding_bag(ids, wl, mode="sum",
+                                          per_sample_weights=wgt)
+            lib_dw, = torch.autograd.grad(lib_fwd, wl, g, retain_graph=True)
+            lib_g_err = (lib_dw - dw).abs().max().item()
+            _p(f"embedding_pool_grad {label}: two launches torch.equal = "
+               f"{same}; torch.equal to the host's index_add_ = "
+               f"{host_equal} (max |err| {g_err:.3e}); library max |diff| "
+               f"{lib_g_err:.3e}")
+            if not (same and host_equal):
+                raise SystemExit(f"chip_smoke: embedding_pool_grad {label} "
+                                 f"is not deterministic or disagrees with "
+                                 f"the host")
+            # atomics add a hot id's thousands of terms in any order
+            if not torch.allclose(lib_dw, dw, rtol=1e-5,
+                                  atol=1e-5 * dw.abs().max().item()):
+                raise SystemExit("chip_smoke: the embedding_bag gradient "
+                                 "does not compute embedding_pool_grad's "
+                                 "function")
+            del host, again, lib_dw
+            (f_bound, f_by), (g_bound, g_by) = _emb_bounds(ids, wgt, d, v)
+            calls = {
+                "forward": (lambda: fwd(w, ids, wgt),
+                            lambda: _reference_embedding_pool(w, ids, wgt),
+                            lambda: F.embedding_bag(
+                                ids, w, mode="sum", per_sample_weights=wgt)),
+                "gradient": (lambda: grad(g, ids, wgt, v),
+                             lambda: _reference_embedding_pool_grad(
+                                 g, ids, wgt, v),
+                             lambda: torch.autograd.grad(
+                                 lib_fwd, wl, g, retain_graph=True))}
+            timed = {}
+            for name, (kernel, plain, library) in calls.items():
+                # wall ms per back-to-back call (the forward's is its
+                # wrapper's host time); where the kernels line reads this
+                # case, device ms per call from the profiler
+                r = {"call_ms": _ms(kernel, 50),
+                     "plain_call_ms": _ms(plain, 20),
+                     "library_call_ms": _ms(library, 20)}
+                if case == "zipf":
+                    r.update(ms=_profile(kernel, 20)[1],
+                             plain_ms=_profile(plain, 20)[1],
+                             library_ms=_profile(library, 20)[1])
+                timed[name] = r
+                dev = (f"; device: kernel {r['ms']:.4f} ms | plain "
+                       f"{r['plain_ms']:.4f} ms | library "
+                       f"{r['library_ms']:.4f} ms" if "ms" in r else "")
+                _p(f"  {name}, wall per call: kernel {r['call_ms']:.4f} ms "
+                   f"| plain {r['plain_call_ms']:.4f} ms | library "
+                   f"{r['library_call_ms']:.4f} ms{dev} | bound "
+                   f"{(f_bound if name == 'forward' else g_bound) * 1e3:.2f}"
+                   f" us ({f_by if name == 'forward' else g_by})")
+            rows[(d, case)] = (
+                dict(timed["forward"], max_abs_err=err, bound_ms=f_bound,
+                     bound_by=f_by),
+                dict(timed["gradient"], max_abs_err=g_err, bound_ms=g_bound,
+                     bound_by=g_by))
+            del w, g, wl, lib_fwd, out, ref, lib_out, dw, dy
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _ctr_param_shapes():
+    """The shapes of the Criteo-width CTR program's 32 parameters: the 26
+    tables, then the relu tower fc, the wide fc and the head fc (weight,
+    bias)."""
+    s, v, d = CTR["slots"], CTR["vocab"], CTR["dim"]
+    return [(v, d)] * s + [(s * d + 13, 32), (32,), (13, 1), (1,),
+                           (32, 1), (1,)]
+
+
+MOMENTUM_CASES = {
+    "plain": {"mu": 0.9, "use_nesterov": False},
+    "nesterov": {"mu": 0.9, "use_nesterov": True},
+    "l2_decay": {"mu": 0.9, "use_nesterov": False,
+                 "regularization_method": "l2_decay",
+                 "regularization_coeff": 1e-4},
+}
+
+
+def phase_kernels_momentum():
+    """``fused_momentum`` over the CTR bucket (32 parameters, 416,013,807
+    values), plain, Nesterov and l2_decay: the op lowering (flatten,
+    kernel, unflatten) against the per-param ``momentum`` lowering,
+    ``torch.equal`` on every output; returns the plain case's row.  The
+    library call is ``torch._fused_sgd_`` over the same 32 tensors
+    (``dampening=0``, ``weight_decay=0``), held to rtol 1e-6 (atol 1e-6
+    of each tensor's largest value): its FMAs may round differently."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.optimizer_ops import _momentum_update
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shapes = _ctr_param_shapes()
+    n = sum(math.prod(s) for s in shapes)
+    lr = CTR_TRAIN["lr"]
+    ins = {s: [std * torch.randn(shape, generator=gen, device=dev)
+               for shape in shapes]
+           for s, std in (("Param", 1.0), ("Grad", 1e-2),
+                          ("Velocity", 1e-2))}
+    ins["LearningRate"] = [torch.full((1,), lr, device=dev)]
+    ctx = LoweringContext(dev)
+    fused_op, per_param = get_op("fused_momentum").fn, get_op("momentum").fn
+    err = 0.0
+    for label, attrs in MOMENTUM_CASES.items():
+        before = cuda_kernels.fused_momentum.launches
+        fused = fused_op(ins, attrs, ctx)
+        if cuda_kernels.fused_momentum.launches != before + 1:
+            raise SystemExit("chip_smoke: the fused_momentum op did not "
+                             "launch its kernel on the CTR bucket")
+        equal = True
+        for i in range(len(shapes)):
+            one = per_param({s: [v[0] if s == "LearningRate" else v[i]]
+                             for s, v in ins.items()}, attrs, ctx)
+            for slot, outs in one.items():
+                equal &= torch.equal(fused[slot][i], outs[0])
+                err = max(err, (fused[slot][i] - outs[0]).abs().max().item())
+        _p(f"fused_momentum {label}, CTR bucket ({len(shapes)} params, {n} "
+           f"values): torch.equal to the per-param momentum = {equal} "
+           f"(tolerance: bit-identical)")
+        if not equal:
+            raise SystemExit(f"chip_smoke: fused_momentum ({label}) is not "
+                             f"bit-identical to the per-param lowering")
+        if label == "plain":
+            plain_out = fused
+        else:
+            del fused
+
+    # the library: torch's fused SGD with momentum, in place
+    lib = [[x.clone() for x in ins[s]] for s in ("Param", "Grad",
+                                                 "Velocity")]
+
+    def library():
+        torch._fused_sgd_(*lib, weight_decay=0.0, momentum=0.9, lr=lr,
+                          dampening=0.0, nesterov=False, maximize=False,
+                          is_first_step=False)
+
+    library()
+    lib_err = 0.0
+    for got, slot in ((lib[0], "ParamOut"), (lib[2], "VelocityOut")):
+        for a, want in zip(got, plain_out[slot]):
+            lib_err = max(lib_err, (a - want).abs().max().item())
+            atol = 1e-6 * want.abs().max().item()
+            if not torch.allclose(a, want, rtol=1e-6, atol=atol):
+                raise SystemExit(f"chip_smoke: torch._fused_sgd_ does not "
+                                 f"compute fused_momentum's {slot}")
+    del plain_out
+    library_ms = _ms(library, 10)
+    del lib
+    # the kernel alone over the flat bucket the lowering hands it
+    flat = [torch.cat([x.reshape(-1) for x in ins[s]])
+            for s in ("Param", "Grad", "Velocity")]
+    lr_t = ins["LearningRate"][0]
+    ms = _ms(lambda: cuda_kernels.fused_momentum(*flat, lr_t, 0.9, 0.0,
+                                                 False), 20)
+    plain_ms = _ms(lambda: _momentum_update(*flat, lr_t.reshape(()), 0.9,
+                                            0.0, False), 10)
+    del flat
+    torch.cuda.empty_cache()
+    op_ms = _ms(lambda: fused_op(ins, MOMENTUM_CASES["plain"], ctx), 5)
+    t_bytes = 5 * 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * n / FLOPS_PER_S["float32"] * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+    _p(f"  kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | op lowering "
+       f"{op_ms:.4f} ms (flatten and unflatten {op_ms - ms:.4f} ms) | "
+       f"library (torch._fused_sgd_, max |diff| from the op {lib_err:.3e}, "
+       f"rtol=1e-6) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+       f"({bound_by})")
+    del ins
+    torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "op_ms": op_ms, "values": n}
@@ -831,7 +1169,370 @@ def phase_train(card):
     return launches, (program, main, scope, loss, feed)
 
 
-_CLASSES = (("flash_fwd", "flash_attention_fwd (csrc)"),
+# ---------------------------------------------------------------------------
+# the CTR path: serve (phase 4c) and train (phase 4d)
+# ---------------------------------------------------------------------------
+
+def _ctr_weights(params, seed):
+    """Random weights for the CTR program, drawn with numpy from
+    ``seed``, one array per parameter in builder order: the tables at
+    unit scale, each fc weight ``gain / sqrt(fan_in)`` (sqrt(2) for the
+    relu tower, 1 for the wide and head fc), biases 0.1.  Logits come
+    out of order 1, so the sigmoid is far from saturated."""
+    slots = sum(p.name.startswith("embedding") for p in params)
+    if len(params) != slots + 6:
+        raise SystemExit("chip_smoke: the CTR program's parameters are not "
+                         "in the order this script draws them")
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, p in enumerate(params):
+        shape = tuple(p.shape)
+        if len(shape) == 1:
+            out.append(np.full(shape, 0.1, np.float32))
+        elif i < slots:
+            out.append(rng.standard_normal(shape, dtype=np.float32))
+        else:
+            gain = math.sqrt(2.0) if i == slots else 1.0
+            w = rng.standard_normal(shape, dtype=np.float32)
+            out.append(w * np.float32(gain / math.sqrt(shape[0])))
+    return out
+
+
+def _ctr_feed(rng, rows, vocab, perm, labels=False):
+    """Dense features N(0, 1), Zipf ids per slot and, with ``labels``,
+    0/1 labels."""
+    feed = {"dense": rng.standard_normal((rows, 13), dtype=np.float32)}
+    if labels:
+        feed["label"] = rng.integers(0, 2, (rows, 1)).astype(np.float32)
+    for i in range(CTR["slots"]):
+        feed[f"ids_{i}"] = _zipf_ids(rng, (rows, CTR["seq"]), vocab, perm)
+    return feed
+
+
+@contextlib.contextmanager
+def _pool_first_id_only():
+    """The plain gather-pool with every position but the first weighted
+    0: the answer of a kernel that pooled nothing, the host twin of the
+    served check."""
+    import torch
+    from paddle_tpu_torch.ops import ctr_ops
+    plain = ctr_ops._reference_embedding_pool
+
+    def first_only(w, ids, wgt, padding_idx=-1):
+        first = (torch.arange(ids.shape[1], device=w.device) == 0).to(
+            w.dtype).expand(ids.shape)
+        return plain(w, ids, first if wgt is None else wgt * first,
+                     padding_idx)
+
+    ctr_ops._reference_embedding_pool = first_only
+    try:
+        yield
+    finally:
+        ctr_ops._reference_embedding_pool = plain
+
+
+@contextlib.contextmanager
+def _grad_last_write_wins():
+    """The plain gradient with ``index_copy_`` in place of
+    ``index_add_``: of each repeated id only the last position counts,
+    the gradient of a scatter that dropped its collisions.  The host
+    twin of the training check."""
+    import torch
+    from paddle_tpu_torch.ops import ctr_ops
+    plain = ctr_ops._reference_embedding_pool_grad
+
+    def last_wins(g, ids, wgt, vocab):
+        dw = torch.zeros((vocab, g.shape[-1]), dtype=g.dtype,
+                         device=g.device)
+        return dw.index_copy_(0, ids.reshape(-1).long(),
+                              ctr_ops._emb_grad_rows(g, ids, wgt))
+
+    ctr_ops._reference_embedding_pool_grad = last_wins
+    try:
+        yield
+    finally:
+        ctr_ops._reference_embedding_pool_grad = plain
+
+
+def phase_serve_ctr(card):
+    """The served CTR path; returns the forward kernel's launch count,
+    the weights (for the training phase) and what the profile phase
+    needs of the served program."""
+    import torch
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.models.static_graphs import \
+        build_ctr_train_program
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.serving import ServingEngine, freeze_program
+
+    slots, vocab = CTR["slots"], CTR["vocab"]
+    feeds = ["dense"] + [f"ids_{i}" for i in range(slots)]
+    t0 = time.perf_counter()
+    main, startup, logit = build_ctr_train_program(**CTR, train=False)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    params = main.all_parameters()
+    arrays = _ctr_weights(params, SEED)
+    interop.scope_from_numpy({p.name: a for p, a in zip(params, arrays)},
+                             scope, fluid.CUDAPlace(0))
+    n_params = sum(a.size for a in arrays)
+    frozen = freeze_program(main, feeds, [logit], scope=scope)
+    bs = fluid.BuildStrategy()
+    bs.fuse_sparse_embedding = True
+    program = fluid.CompiledProgram(frozen, bs)
+    _p(f"serve CTR: wide&deep program, {slots} slots x [{vocab},"
+       f"{CTR['dim']}] tables, {len(params)} parameters ({n_params} "
+       f"values), startup run on the card, weights drawn from seed {SEED} "
+       f"loaded, in {time.perf_counter() - t0:.1f} s")
+
+    rewrites = trace.metrics().counter(
+        "kernel_tier.fuse_sparse_embedding.rewrites")
+    r0 = rewrites.value
+    eng = ServingEngine(program, scope=scope, max_batch=CTR_MAX_BATCH)
+    try:
+        warm = eng.warmup()
+        n_rewrites = rewrites.value - r0
+        types = [op.type for op in frozen.global_block().ops]
+        _p(f"serve CTR: fuse_sparse_embedding rewrites = {n_rewrites}, "
+           f"fused ops = {types.count('fused_embedding_pool')} (slots = "
+           f"{slots}); warmup of buckets {warm['buckets']} took "
+           f"{warm['seconds']:.2f} s")
+        if n_rewrites != slots or types.count("fused_embedding_pool") \
+                != slots or "lookup_table_v2" in types:
+            raise SystemExit("chip_smoke: fuse_sparse_embedding did not "
+                             "rewrite every slot")
+        rng = np.random.default_rng(SEED)
+        perm = rng.permutation(vocab)
+        requests = [_ctr_feed(rng, int(n), vocab, perm)
+                    for n in rng.choice(CTR_ROW_CHOICES, N_REQUESTS)]
+        torch.cuda.synchronize()
+        cuda_kernels.embedding_pool_fwd.launches = 0
+        b0 = eng.batches
+        t0 = time.perf_counter()
+        futures = [eng.submit(r) for r in requests]
+        answers = [f.result(timeout=600)[logit.name] for f in futures]
+        wall = time.perf_counter() - t0
+        launches = cuda_kernels.embedding_pool_fwd.launches
+        batches = eng.batches - b0
+    finally:
+        eng.close()
+
+    rows = [len(r["dense"]) for r in requests]
+    for n, a in zip(rows, answers):
+        if a.shape != (n, 1) or not np.isfinite(a).all():
+            raise SystemExit(f"chip_smoke: a {n}-row CTR request was "
+                             f"answered with shape {a.shape} or non-finite "
+                             f"values")
+    lat = np.array([f.timing["latency_us"] for f in futures]) / 1e3
+    _p(f"serve CTR: {len(answers)} requests answered ({sum(rows)} rows: "
+       f"{rows}) in {batches} batches; request latency p50 "
+       f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} "
+       f"ms; {sum(rows) / wall:.1f} rows/s over {wall:.3f} s  [{card}]")
+    _p(f"serve CTR: embedding_pool_fwd launches = {launches}, {slots} x "
+       f"batches = {slots * batches}")
+    if batches < 1 or launches != slots * batches:
+        raise SystemExit("chip_smoke: the served CTR path did not launch "
+                         "the gather-pool kernel once per slot per batch")
+
+    # the host: the card's weights on the CPU, plain versions; the twin
+    # pools only the first id of each slot
+    cpu_scope = interop.scope_from_numpy(
+        interop.scope_to_numpy(scope, [p.name for p in params]),
+        fluid.Scope(), fluid.CPUPlace())
+    host = fluid.Executor(fluid.CPUPlace())
+    by_rows = np.argsort(rows, kind="stable")
+    for i in (by_rows[0], by_rows[len(by_rows) // 2]):
+        want = host.run(program, feed=requests[i], fetch_list=[logit],
+                        scope=cpu_scope)[0]
+        with _pool_first_id_only():
+            twin = host.run(program, feed=requests[i], fetch_list=[logit],
+                            scope=cpu_scope)[0]
+        tol = 1e-5 * float(np.abs(want).max())
+        err = float(np.abs(answers[i] - want).max())
+        off = float(np.abs(answers[i] - twin).max())
+        _p(f"serve CTR: request {i} ({rows[i]} rows) card vs host max "
+           f"|err| = {err:.3e} against 1e-5 x max |logit| = {tol:.3e}; "
+           f"the first-id-only twin misses by {off:.3e} (must be at least "
+           f"10x the tolerance)")
+        if err > tol:
+            raise SystemExit("chip_smoke: the card's CTR answers disagree "
+                             "with the host's")
+        if off < 10 * tol:
+            raise SystemExit("chip_smoke: the CTR card-vs-host check cannot "
+                             "tell the answers from a pool of one id")
+    del cpu_scope
+    return launches, arrays, (program, frozen, scope, logit)
+
+
+def _ctr_train_card_vs_host(bs, card):
+    """Two steps at CTR_TRAIN_ROWS rows on the card and on the host from
+    one state, with the tables cut to CTR_HOST_VOCAB rows (the one cut:
+    the host's copy of the bucket stays under 2 GB), everything else at
+    full width and Zipf ids, so many ids repeat.  The losses agree within
+    rtol 1e-5; the first step's dense dW of every slot within 1e-6 of
+    its largest entry; every parameter and velocity after 2 steps within
+    1e-6 of its largest entry.  A host twin whose gradient keeps only the
+    last of each repeated id must miss the dW check on every slot."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.models.static_graphs import \
+        build_ctr_train_program
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_ctr_train_program(
+        **dict(CTR_TRAIN, vocab=CTR_HOST_VOCAB))
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    params = main.all_parameters()
+    interop.scope_from_numpy(
+        {p.name: a for p, a in zip(params, _ctr_weights(params, SEED + 1))},
+        scope, fluid.CUDAPlace(0))
+    state = [n for n, v in main.global_block().vars.items() if v.persistable]
+    init = interop.scope_to_numpy(scope, state)
+    fluid.CompiledProgram(main, bs)._apply_ir_passes([loss.name])
+    rng = np.random.default_rng(SEED + 2)
+    feed = _ctr_feed(rng, CTR_TRAIN_ROWS, CTR_HOST_VOCAB,
+                     rng.permutation(CTR_HOST_VOCAB), labels=True)
+    tables = [p.name for p in params if p.name.startswith("embedding")]
+    fetch = [loss.name] + [t + "@GRAD" for t in tables]
+
+    def two_steps(place):
+        s = interop.scope_from_numpy(init, fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        first = exe.run(main, feed=feed, fetch_list=fetch, scope=s)
+        second = exe.run(main, feed=feed, fetch_list=[loss], scope=s)
+        return ([float(first[0]), float(second[0])],
+                dict(zip(tables, first[1:])), interop.scope_to_numpy(s, state))
+
+    card_loss, card_g, card_state = two_steps(fluid.CUDAPlace(0))
+    host_loss, host_g, host_state = two_steps(fluid.CPUPlace())
+    with _grad_last_write_wins():
+        _, twin_g, _ = two_steps(fluid.CPUPlace())
+    _p(f"train CTR: card vs host at vocab {CTR_HOST_VOCAB}, "
+       f"{CTR_TRAIN_ROWS} rows x 2 steps, in {time.perf_counter() - t0:.1f} "
+       f"s: losses card {card_loss}, host {host_loss} (rtol=1e-5)  [{card}]")
+    if not np.allclose(card_loss, host_loss, rtol=1e-5, atol=0.0):
+        raise SystemExit("chip_smoke: the card's CTR training losses "
+                         "disagree with the host's")
+
+    def worst(got, want):
+        """max over names of max |got - want| / max |want|."""
+        return max(float(np.abs(got[n] - want[n]).max())
+                   / max(float(np.abs(want[n]).max()), 1e-30) for n in want)
+
+    g_err = worst(card_g, host_g)
+    misses = sum(worst({n: twin_g[n]}, {n: card_g[n]}) > 1e-6
+                 for n in tables)
+    s_err = worst({n: card_state[n] for n in state if "@" not in n},
+                  {n: host_state[n] for n in state if "@" not in n})
+    _p(f"train CTR: first-step dW, max over slots of max |card - host| / "
+       f"max |dW| = {g_err:.3e} (tolerance 1e-6); parameters and "
+       f"velocities after 2 steps, the same = {s_err:.3e} (1e-6); the "
+       f"last-write-wins twin misses the dW check on {misses} of "
+       f"{len(tables)} slots (must be all)")
+    if g_err > 1e-6 or s_err > 1e-6:
+        raise SystemExit("chip_smoke: the card's CTR gradients or state "
+                         "disagree with the host's")
+    if misses != len(tables):
+        raise SystemExit("chip_smoke: the CTR gradient check cannot tell "
+                         "an index_add_ from an index_copy_")
+
+
+def phase_train_ctr(arrays, card):
+    """The CTR training path; returns the launch count of each kernel
+    over the timed steps and what the profile phase needs."""
+    import torch
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.models.static_graphs import \
+        build_ctr_train_program
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    slots, vocab = CTR["slots"], CTR["vocab"]
+    t0 = time.perf_counter()
+    main, startup, loss = build_ctr_train_program(**CTR_TRAIN)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    params = main.all_parameters()
+    interop.scope_from_numpy({p.name: a for p, a in zip(params, arrays)},
+                             scope, fluid.CUDAPlace(0))
+    bs = fluid.BuildStrategy()
+    bs.fuse_sparse_embedding = bs.fuse_optimizer = True
+    program = fluid.CompiledProgram(main, bs)
+    counters = [trace.metrics().counter(f"kernel_tier.{n}.rewrites")
+                for n in ("fuse_sparse_embedding", "fuse_optimizer")]
+    before = [c.value for c in counters]
+    program._apply_ir_passes([loss.name])
+    rewrites = [c.value - b for c, b in zip(counters, before)]
+    types = [op.type for op in main.global_block().ops]
+    _p(f"train CTR: Criteo-width program ({len(params)} parameters, "
+       f"Momentum lr {CTR_TRAIN['lr']} mu 0.9), built, startup run and "
+       f"weights from seed {SEED} loaded in {time.perf_counter() - t0:.1f} "
+       f"s; fuse_sparse_embedding rewrites = {rewrites[0]}, fuse_optimizer "
+       f"rewrites = {rewrites[1]}; ops: "
+       f"{types.count('fused_embedding_pool')} fused_embedding_pool, "
+       f"{types.count('fused_momentum')} fused_momentum, "
+       f"{types.count('lookup_table_v2')} lookup_table_v2, "
+       f"{types.count('momentum')} momentum, {len(types)} in all")
+    if rewrites != [slots, 1] or types.count("fused_momentum") != 1 \
+            or types.count("fused_embedding_pool") != slots \
+            or {"lookup_table_v2", "sequence_pool", "momentum"} & set(types):
+        raise SystemExit("chip_smoke: the CTR training program was not "
+                         "rewritten onto the kernels")
+
+    rng = np.random.default_rng(SEED)
+    feed = _ctr_feed(rng, CTR_TRAIN_ROWS, vocab, rng.permutation(vocab),
+                     labels=True)
+
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    step()
+    torch.cuda.synchronize()
+    counted = [cuda_kernels.embedding_pool_fwd,
+               cuda_kernels.embedding_pool_grad, cuda_kernels.fused_momentum]
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _p(f"train CTR: {TRAIN_STEPS} steps at {CTR_TRAIN_ROWS} rows in "
+       f"{wall:.3f} s: {wall / TRAIN_STEPS * 1e3:.2f} ms/step, "
+       f"{CTR_TRAIN_ROWS * TRAIN_STEPS / wall:.0f} rows/s; peak device "
+       f"memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses]}  "
+       f"[{card}]")
+    want = {"embedding_pool_fwd": slots * TRAIN_STEPS,
+            "embedding_pool_grad": slots * TRAIN_STEPS,
+            "fused_momentum": TRAIN_STEPS}
+    _p(f"train CTR: launches in the timed steps {launches}, expected "
+       f"{want} (per step: {slots} forward, {slots} gradient, 1 fused "
+       f"Momentum)")
+    if launches != want:
+        raise SystemExit("chip_smoke: the CTR training step did not run "
+                         "through every kernel as expected")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: a CTR training loss is not finite")
+    _ctr_train_card_vs_host(bs, card)
+    return launches, (program, main, scope, loss, feed)
+
+
+_CLASSES = (("embedding_pool_fwd", "embedding_pool_fwd (csrc)"),
+            ("embedding_pool_grad_rows",
+             "embedding_pool_grad rows, the dense dW write (csrc)"),
+            ("embedding_pool_grad_prep", "embedding_pool_grad sort (CUB)"),
+            ("radixsort", "embedding_pool_grad sort (CUB)"),
+            ("fused_momentum", "fused_momentum (csrc)"),
+            ("flash_fwd", "flash_attention_fwd (csrc)"),
             ("flash_bwd", "flash_attention_bwd (csrc)"),
             ("fused_adam", "fused_adam (csrc)"),
             ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
@@ -975,6 +1676,44 @@ def phase_profile(served, trained, card, iters=20, train_iters=5):
     _print_classes(by_class, "step")
 
 
+def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
+    """Where the CTR path's time goes, as ``phase_profile`` measures it:
+    one dispatched batch of the served program at 1, 64 and 512 rows and
+    one training step at CTR_TRAIN_ROWS rows."""
+    from paddle_tpu_torch import fluid
+
+    program, frozen, scope, logit = served
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    rng = np.random.default_rng(SEED + 3)
+    perm = rng.permutation(CTR["vocab"])
+    for n in (1, 64, CTR_MAX_BATCH):
+        feed = _ctr_feed(rng, n, CTR["vocab"], perm)
+
+        def batch():
+            return exe.run(program, feed=feed, fetch_list=[logit],
+                           scope=scope, return_numpy=False)[0].cpu()
+
+        host_ms, busy_ms, idle, n_kern, by_class = _profile(batch, iters)
+        _p(f"profile CTR: rows={n}: host {host_ms:.3f} ms/batch "
+           f"({n / host_ms * 1e3:.1f} rows/s), device busy {busy_ms:.3f} "
+           f"ms/batch, idle share {idle:.4f}, {n_kern:.0f} kernels/batch  "
+           f"[{card}]")
+        _print_classes(by_class, "batch")
+
+    program, main, scope, loss, feed = trained
+
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0].cpu()
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(step, train_iters)
+    _p(f"profile CTR: train step, rows={CTR_TRAIN_ROWS}: host {host_ms:.3f} "
+       f"ms/step ({CTR_TRAIN_ROWS / host_ms * 1e3:.0f} rows/s), device busy "
+       f"{busy_ms:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+       f"kernels/step  [{card}]")
+    _print_classes(by_class, "step")
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -982,18 +1721,34 @@ def _kernel_row(name, source, replaces, launches, row, **extra):
                 launches=launches, **{k: row[k] for k in keys}, **extra)
 
 
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _p(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch  # noqa: F401
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     kind, count, card = phase_device()
-    phase_build()
-    fwd_rows = phase_kernels()
-    bwd_rows = phase_kernels_bwd()
-    adam_row = phase_kernels_adam()
-    serve_launches, served = phase_serve(card)
-    train_launches, trained = phase_train(card)
-    phase_profile(served, trained, card)
+    _timed("2 build", phase_build)
+    fwd_rows = _timed("3 flash forward", phase_kernels)
+    bwd_rows = _timed("3 flash backward", phase_kernels_bwd)
+    adam_row = _timed("3 fused Adam", phase_kernels_adam)
+    ctr_rows = _timed("3 embedding kernels", phase_kernels_ctr)
+    momentum_row = _timed("3 fused Momentum", phase_kernels_momentum)
+    serve_launches, served = _timed("4 serve", phase_serve, card)
+    train_launches, trained = _timed("4b train", phase_train, card)
+    ctr_serve_launches, arrays, ctr_served = _timed(
+        "4c serve CTR", phase_serve_ctr, card)
+    ctr_launches, ctr_trained = _timed("4d train CTR", phase_train_ctr,
+                                       arrays, card)
+    del arrays
+    _timed("5 profile", phase_profile, served, trained, card)
+    _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
+           card)
     shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
              BERT_BASE["hidden"] // BERT_BASE["heads"]]
     # the forward runs on both paths: "launches" stays the served path's
@@ -1019,6 +1774,37 @@ def main():
                     train_launches["fused_adam"], adam_row,
                     dtype="float32", values=adam_row["values"],
                     op_ms=adam_row["op_ms"], library="torch._fused_adam_")]
+    # the CTR rows: the path's D = 16 and Zipf ids; the forward's
+    # "launches" is the served count, "train_launches" the training one's
+    fwd16, grad16 = ctr_rows[(CTR["dim"], "zipf")]
+    emb_shape = [CTR_TRAIN_ROWS, CTR["seq"], CTR["vocab"], CTR["dim"]]
+    kernels += [
+        _kernel_row("embedding_pool_fwd",
+                    "paddle_tpu_torch/csrc/embedding_pool.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:455",
+                    ctr_serve_launches, fwd16,
+                    train_launches=ctr_launches["embedding_pool_fwd"],
+                    call_ms=fwd16["call_ms"],
+                    also_replaces="paddle_tpu/ops/pallas_kernels.py:506",
+                    dtype="float32", shape=emb_shape, ids="zipf",
+                    library="embedding_bag",
+                    d128=ctr_rows[(128, "zipf")][0]),
+        _kernel_row("embedding_pool_grad",
+                    "paddle_tpu_torch/csrc/embedding_pool_grad.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:550",
+                    ctr_launches["embedding_pool_grad"], grad16,
+                    call_ms=grad16["call_ms"],
+                    also_replaces="paddle_tpu/ops/pallas_kernels.py:603",
+                    dtype="float32", shape=emb_shape, ids="zipf",
+                    library="embedding_bag weight gradient",
+                    d128=ctr_rows[(128, "zipf")][1]),
+        _kernel_row("fused_momentum",
+                    "paddle_tpu_torch/csrc/fused_momentum.cu",
+                    "paddle_tpu/ops/pallas_kernels.py:678",
+                    ctr_launches["fused_momentum"], momentum_row,
+                    dtype="float32", values=momentum_row["values"],
+                    op_ms=momentum_row["op_ms"],
+                    library="torch._fused_sgd_")]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -51,12 +51,12 @@ def _generic_grad(ins, attrs, ctx):
     fwd_ins = {s: list(ins.get("I_" + s, [])) for s in in_slots}
 
     if fwd_def.custom_grad is not None:
-        fwd_outs = fwd_def.fn(fwd_ins, fwd_attrs, ctx)
-        out_grads = {}
-        for s in fwd_outs:
-            gs = ins.get("G_" + s)
-            out_grads[s] = gs[0] if gs else None
-        in_grads = fwd_def.custom_grad(fwd_ins, fwd_outs, out_grads,
+        # no custom grad reads the forward's outputs, so the forward is
+        # not run again (on the TPU, XLA drops that recompute as dead code;
+        # here it would launch the forward kernel a second time)
+        out_grads = {s[2:]: gs[0] for s, gs in ins.items()
+                     if s.startswith("G_") and gs}
+        in_grads = fwd_def.custom_grad(fwd_ins, None, out_grads,
                                        fwd_attrs, ctx)
         return {"GI_" + s: v for s, v in in_grads.items() if s in grad_slots}
 

@@ -56,6 +56,10 @@ def reduce_mean(x, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_mean", x, dim, keep_dim, name)
 
 
+def reduce_sum(x, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", x, dim, keep_dim, name)
+
+
 def mean(x, name=None):
     return _single_out("mean", x)
 

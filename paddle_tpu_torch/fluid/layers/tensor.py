@@ -65,3 +65,11 @@ def create_global_var(shape, value, dtype, persistable=False,
                  attrs={"shape": list(shape), "dtype": dtype,
                         "value": float(value)})
     return var
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out

@@ -1,6 +1,7 @@
 """Optimizers: minimize = append_backward + per-param update ops
-(counterpart of ``paddle_tpu/fluid/optimizer.py``, static mode, Adam;
-the other optimizers come with their slices).
+(counterpart of ``paddle_tpu/fluid/optimizer.py``, static mode, Momentum
+and Adam; the other optimizers and ``multi_precision`` come with their
+slices).
 
 The accumulator and learning-rate var names are the reference's
 (``<Optimizer>_<acc>_<param>``, ``learning_rate_<n>``), so
@@ -71,6 +72,28 @@ class Optimizer:
             params_grads = self.backward(loss, parameter_list, no_grad_set)
             ops = self.apply_gradients(params_grads)
         return ops, params_grads
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, params):
+        for p in params:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, param, grad):
+        v = self._get_accumulator("velocity", param)
+        return self.helper.append_op(
+            "momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [v],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [param], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "multi_precision": False})
 
 
 class AdamOptimizer(Optimizer):

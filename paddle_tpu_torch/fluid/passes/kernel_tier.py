@@ -1,8 +1,8 @@
-"""The kernel tier as compiler passes: ``fuse_attention`` and
-``fuse_optimizer``.
+"""The kernel tier as compiler passes: ``fuse_attention``,
+``fuse_sparse_embedding`` and ``fuse_optimizer``.
 
-Counterpart of ``FuseAttentionPass`` and ``FuseOptimizerPass`` in
-``paddle_tpu/fluid/passes/kernel_tier.py``.
+Counterpart of ``FuseAttentionPass``, ``FuseSparseEmbeddingPass`` and
+``FuseOptimizerPass`` in ``paddle_tpu/fluid/passes/kernel_tier.py``.
 
 * ``fuse_attention`` — the naive attention chain
 
@@ -17,14 +17,20 @@ Counterpart of ``FuseAttentionPass`` and ``FuseOptimizerPass`` in
   of Q, K, V and the output are not 4-d ``[B, H, T, D]`` — so a wrong
   shape inference would keep the kernel off the path; the tests hold the
   rewrite count to the layer count.
-* ``fuse_optimizer`` — a run of same-(dtype, attrs, lr) ``adam`` ops
-  buckets into one ``fused_adam`` op: one launch of the hand-written
-  kernel over a flattened buffer, element for element the same
-  arithmetic as the per-param updates.
+* ``fuse_sparse_embedding`` — ``lookup_table[_v2]`` followed by
+  ``sequence_pool`` (SUM/AVERAGE) or ``reduce_sum(dim=[1])``, and in a
+  training program the pair of ``generic_grad`` ops behind them, rewrite
+  to ONE ``fused_embedding_pool`` op (+ one fused ``generic_grad``):
+  on the card the hand-written gather-pool kernel and, for its grad,
+  the deterministic scatter-add kernel (ops/ctr_ops.py).  The gathered
+  ``[B, S, D]`` intermediate must have no other consumer.
+* ``fuse_optimizer`` — a run of same-(type, dtype, attrs, lr) ``adam`` or
+  ``momentum`` ops buckets into one ``fused_adam`` / ``fused_momentum``
+  op: one launch of the hand-written kernel over a flattened buffer,
+  element for element the same arithmetic as the per-param updates.
 
 Each rewrite counts ``kernel_tier.<pass>.rewrites``.  The paged-attention
-and sparse-embedding passes, and the other optimizer families, come with
-later slices.
+pass and the other optimizer families come with later slices.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from ..framework import Operator, _op_reads
 from .core import Pass, PassContext, register_pass
 from .pattern import Pattern, PatternRewritePass, writer_index as _widx
 
-__all__ = ["FuseAttentionPass", "FuseOptimizerPass"]
+__all__ = ["FuseAttentionPass", "FuseSparseEmbeddingPass",
+           "FuseOptimizerPass"]
 
 
 def _consumers(block, name: str) -> List[Operator]:
@@ -264,17 +271,123 @@ class FuseAttentionPass(PatternRewritePass):
 
 
 # ---------------------------------------------------------------------------
+# fuse_sparse_embedding
+# ---------------------------------------------------------------------------
+
+_LOOKUPS = ("lookup_table_v2", "lookup_table")
+
+
+@register_pass
+class FuseSparseEmbeddingPass(PatternRewritePass):
+    """``lookup_table[_v2]`` + (``sequence_pool``(SUM/AVERAGE) |
+    ``reduce_sum(dim=[1])``) ⇒ ``fused_embedding_pool`` — the PaddleBox
+    fused_embedding_seq_pool path.  Training programs collapse the two
+    generic_grad ops into one whose backward is the fused scatter-add."""
+
+    name = "fuse_sparse_embedding"
+
+    def __init__(self, **options):
+        super().__init__(**options)
+        for train in (True, False):
+            for pool_kind in ("sequence_pool", "reduce_sum"):
+                self.rules.append(self._rule(train, pool_kind))
+
+    def _rule(self, train, pool_kind):
+        p = Pattern(f"emb_pool_{pool_kind}_{'train' if train else 'fwd'}")
+        w, ids, e, out = p.vars("w ids e out")
+        p.op(_LOOKUPS, ins={"W": [w], "Ids": [ids]}, outs={"Out": [e]})
+        if pool_kind == "sequence_pool":
+            p.op("sequence_pool", ins={"X": [e]}, outs={"Out": [out]},
+                 attrs={"pooltype": lambda t: str(t).upper()
+                        in ("SUM", "AVERAGE")})
+        else:
+            p.op("reduce_sum", ins={"X": [e]}, outs={"Out": [out]},
+                 attrs={"dim": lambda d: list(d or ()) == [1],
+                        "keep_dim": _falsy, "reduce_all": _falsy})
+        if train:
+            p.op("generic_grad", ins={"I_X": [e], "G_Out": [p.var("g")]},
+                 outs={"GI_X": [p.var("ge")]},
+                 attrs={"fwd_type": pool_kind})
+            p.op("generic_grad", ins={"I_W": [w], "G_Out": [p.var("ge")]},
+                 outs={"GI_W": [p.var("gw")]},
+                 attrs={"fwd_type": lambda t: t in _LOOKUPS})
+
+        def rewrite(m, ctx, _flags=(train, pool_kind)):
+            return self._rewrite(m, ctx, *_flags)
+
+        return (p, rewrite)
+
+    def _rewrite(self, m, ctx, train, pool_kind) -> bool:
+        block = m.block
+        lookup, pool = m.ops[0], m.ops[1]
+        grad_ops = m.ops[2:]
+        # the gathered [B, S, D] intermediate dies with the rewrite
+        if not _internal_edge(block, ctx, m.var("e"), m.ops):
+            return False
+        nd = _ndim(block, m.var("e"))
+        if nd is not None and nd != 3:
+            return False
+        if nd is None and pool_kind == "reduce_sum":
+            return False          # reduce_sum(dim=1) is only a pool on 3-d
+        if len(_widx(block, m.var("out"))) != 1:
+            return False
+        # side outputs of the pooled op (MaxIndex) must be unconsumed
+        for slot, names in pool.outputs.items():
+            if slot == "Out":
+                continue
+            for n in names:
+                if _consumers(block, n):
+                    return False
+        if train:
+            if not _internal_edge(block, ctx, m.var("ge"), m.ops):
+                return False
+            if len(_widx(block, m.var("gw"))) != 1:
+                return False
+
+        attrs = {"pooltype": str(pool.attrs.get("pooltype", "SUM")).upper()
+                 if pool_kind == "sequence_pool" else "SUM",
+                 "padding_idx": lookup.attrs.get("padding_idx", -1),
+                 "squeeze_ids": lookup.type == "lookup_table",
+                 "op_role": lookup.attrs.get("op_role", 0)}
+        ins = {"W": [m.var("w")], "Ids": [m.var("ids")]}
+        in_slots = ["W", "Ids"]
+        length = (pool.inputs.get("Length") or [None])[0] \
+            if pool_kind == "sequence_pool" else None
+        if length is not None:
+            ins["Length"] = [length]
+            in_slots.append("Length")
+        fused = Operator(block, "fused_embedding_pool", ins,
+                         {"Out": [m.var("out")]}, attrs)
+        if train:
+            g_ins = {"I_" + s: list(ins[s]) for s in in_slots}
+            g_ins["G_Out"] = [m.var("g")]
+            fused_g = Operator(
+                block, "generic_grad", g_ins, {"GI_W": [m.var("gw")]},
+                {"fwd_type": "fused_embedding_pool",
+                 "fwd_attrs": dict(attrs), "in_slots": list(in_slots),
+                 "grad_slots": ["W"], "op_role": 1})
+            _splice(block, fused_g, grad_ops[0], grad_ops)
+        _splice(block, fused, pool, [lookup, pool])
+        _count_rewrite(self.name)
+        return True
+
+
+# ---------------------------------------------------------------------------
 # fuse_optimizer
 # ---------------------------------------------------------------------------
 
-# the update families this port lowers, with their fused op; momentum and
-# lamb join with their slices
+# the update families this port lowers, with their fused op; lamb joins
+# with its slice
 _FUSABLE_UPDATES: Dict[str, Dict] = {
     "adam": {"fused": "fused_adam",
              "ins": frozenset({"Param", "Grad", "Moment1", "Moment2",
                                "Beta1Pow", "Beta2Pow", "LearningRate"}),
              "outs": ("ParamOut", "Moment1Out", "Moment2Out",
                       "Beta1PowOut", "Beta2PowOut")},
+    "momentum": {"fused": "fused_momentum",
+                 "ins": frozenset({"Param", "Grad", "Velocity",
+                                   "LearningRate"}),
+                 "outs": ("ParamOut", "VelocityOut")},
 }
 
 _SHARED_SLOTS = ("LearningRate",)
@@ -283,11 +396,11 @@ _SHARED_SLOTS = ("LearningRate",)
 @register_pass
 class FuseOptimizerPass(Pass):
     """Bucket consecutive same-family per-param update ops into one fused
-    update op (fuse_adam_op_pass semantics).  The bucket key is (op type,
-    param dtype, the lr var, the full attr set), so a bucket is always
-    homogeneous: one flattened buffer, one launch.  The reference also
-    keys by a sharding plan's PartitionSpec; the port has no sharding
-    plan yet."""
+    update op (fuse_adam_op_pass / fuse_momentum_op_pass semantics).  The
+    bucket key is (op type, param dtype, the lr var, the full attr set),
+    so a bucket is always homogeneous: one flattened buffer, one launch.
+    The reference also keys by a sharding plan's PartitionSpec; the port
+    has no sharding plan yet."""
 
     name = "fuse_optimizer"
 

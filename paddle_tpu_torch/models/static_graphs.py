@@ -1,11 +1,15 @@
 """Static-graph demo programs (counterpart of
-``paddle_tpu/models/static_graphs.py``, the BERT program).
+``paddle_tpu/models/static_graphs.py``: the BERT and wide&deep CTR
+programs).
 
 The BERT builder spells attention exactly the way plain fluid layers
 emit it (matmul → scale → +mask → softmax → dropout → matmul), the chain
-the ``fuse_attention`` pass rewrites onto the flash-attention kernel.  It
-creates the same parameters, in the same order and so under the same
-names, as the reference builder.
+the ``fuse_attention`` pass rewrites onto the flash-attention kernel.
+The CTR builder spells each sparse slot as ``lookup_table_v2 →
+sequence_pool(sum)``, the chain ``fuse_sparse_embedding`` rewrites onto
+the embedding gather-pool and scatter-add kernels.  Each builder creates
+the same parameters, in the same order and so under the same names, as
+the reference builder.
 """
 from __future__ import annotations
 
@@ -79,6 +83,44 @@ def build_bert_train_program(vocab=64, hidden=32, heads=4, seq=16,
     return main, startup, loss
 
 
+def build_ctr_train_program(slots=4, vocab=128, dim=16, seq=5, lr=0.05,
+                            optimizer="adam", train=False):
+    """Wide&deep CTR net in the classic PaddleBox spelling: one
+    lookup_table_v2 → sequence_pool(sum) chain per slot, concat with the
+    dense features, an fc tower and a wide fc head.  Feeds: ids_<i>
+    [B, seq] int64 per slot, dense [B, 13] and (with ``train``) label
+    [B, 1] float 0/1.
+
+    ``train=True`` builds what the reference builder builds: the mean
+    sigmoid cross-entropy of the logit against the label, its backward
+    and ``MomentumOptimizer(lr, 0.9)`` (``optimizer="momentum"``) or
+    ``AdamOptimizer(lr)``; returns (main, startup, loss).  ``train=False``
+    stops at the logit, ``fc(h, 1) + wide``; returns (main, startup,
+    logit)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        dense = fluid.data("dense", [-1, 13])
+        if train:
+            label = fluid.data("label", [-1, 1])
+        pooled = []
+        for i in range(slots):
+            ids = fluid.data(f"ids_{i}", [-1, seq], dtype="int64")
+            emb = L.embedding(ids, size=[vocab, dim])
+            pooled.append(L.sequence_pool(emb, "sum"))
+        deep = L.concat(pooled + [dense], axis=1)
+        h = L.fc(deep, 32, act="relu")
+        wide = L.fc(dense, 1)
+        logit = L.fc(h, 1) + wide
+        if not train:
+            return main, startup, logit
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+        if optimizer == "momentum":
+            fluid.optimizer.MomentumOptimizer(lr, 0.9).minimize(loss)
+        else:
+            fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    return main, startup, loss
+
+
 def bert_demo_feed(rng, batch=8, seq=16, vocab=64, with_mask=True):
     """Random ids, labels for the training program's loss, and a padding
     mask whose first column is always 1, from a
@@ -89,4 +131,15 @@ def bert_demo_feed(rng, batch=8, seq=16, vocab=64, with_mask=True):
         m = (rng.rand(batch, seq) > 0.2).astype("float32")
         m[:, 0] = 1.0                  # never mask everything out
         feed["attn_mask"] = m
+    return feed
+
+
+def ctr_demo_feed(rng, batch=16, slots=4, vocab=128, seq=5):
+    """Dense features, 0/1 labels and uniform ids per slot, from a
+    ``numpy.random.RandomState``, drawn in the reference's order."""
+    feed = {"dense": rng.randn(batch, 13).astype("float32"),
+            "label": rng.randint(0, 2, (batch, 1)).astype("float32")}
+    for i in range(slots):
+        feed[f"ids_{i}"] = rng.randint(
+            0, vocab, (batch, seq)).astype("int64")
     return feed

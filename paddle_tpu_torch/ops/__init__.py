@@ -12,7 +12,8 @@ from . import reduction       # noqa: F401  reductions
 from . import nn_ops          # noqa: F401  softmax/dropout
 from . import misc_ops        # noqa: F401  fused compositions
 from . import random_ops      # noqa: F401  initializer RNG ops
-from . import loss_ops        # noqa: F401  softmax_with_cross_entropy
-from . import optimizer_ops   # noqa: F401  adam/fused_adam
+from . import loss_ops        # noqa: F401  cross-entropy losses
+from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
+from . import ctr_ops         # noqa: F401  fused_embedding_pool
 from . import attention       # noqa: F401  fused attention
 from . import cuda_kernels    # noqa: F401  hand-written CUDA kernels

@@ -1,0 +1,131 @@
+"""CTR ops (counterpart of ``paddle_tpu/ops/ctr_ops.py``, the fused
+sparse embedding; the rest of that module comes with the op-catalog
+slice).
+
+``fused_embedding_pool`` is what the ``fuse_sparse_embedding`` pass
+(fluid/passes/kernel_tier.py) makes of a ``lookup_table[_v2]`` →
+``sequence_pool`` / ``reduce_sum`` chain: ``out[i] = Σ_j W[ids[i,j]] ·
+wgt[i,j]``, where one ``[B, S]`` weight folds ``padding_idx``, the
+``Length`` mask and AVERAGE's divisor; a SUM pool with neither mask has
+no weight (``None``: every weight 1), so such a slot runs its kernel
+and nothing else.  Its custom gradient is one
+weighted scatter-add, ``dW[ids[i,j]] += g[i] · wgt[i,j]`` in (i, j)
+order, into a dense ``[V, D]`` dW.
+
+Dispatch, forward and gradient alike:
+
+* a CPU tensor (and a ``meta`` tensor during shape inference) takes the
+  plain version (``_reference_embedding_pool``,
+  ``_reference_embedding_pool_grad``).  It keeps the unfused chain's
+  elementwise structure (gather, zero the padding rows, ``sum(rows ·
+  wgt, dim=1)``; ``index_add_`` of ``g · wgt``), so the rewrite is
+  bit-identical to the unrewritten program on the host for SUM pooling;
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``cuda_kernels.embedding_pool_fwd`` / ``embedding_pool_grad``) or
+  raises.  The only shapes kept off the kernel are those that are no
+  pool at all: W not 2-d, or no ids per row.  The reference's lane
+  (D % 128) and VMEM gates are the TPU's layout, not the op's meaning,
+  and are not carried over.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda_kernels
+from .registry import register_op
+
+
+def _emb_pool_prep(ins, attrs):
+    """(w, ids, wgt): the per-(row, position) contribution weight folds
+    padding_idx zeroing, the Length mask and mean-pool division into one
+    ``[B, S]`` tensor of W's dtype; None where every weight is 1 (SUM
+    with neither mask), which x · 1 = x makes the same sums."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if attrs.get("squeeze_ids") and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])   # lookup_table's [.., 1] ids
+    b, s = ids.shape
+    pool = str(attrs.get("pooltype", "SUM")).upper()
+    padding_idx = attrs.get("padding_idx", -1)
+    length = ins["Length"][0] if ins.get("Length") else None
+    wgt = None
+    if length is not None:
+        pos = torch.arange(s, device=ids.device)
+        wgt = (pos[None, :] < length.reshape(-1, 1)).to(w.dtype)
+    if padding_idx is not None and padding_idx >= 0:
+        keep = (ids != padding_idx).to(w.dtype)
+        wgt = keep if wgt is None else wgt * keep
+    if pool == "AVERAGE":
+        if length is not None:
+            denom = torch.clamp(length.reshape(-1, 1).to(w.dtype), min=1)
+        else:
+            denom = torch.full((b, 1), float(s), dtype=w.dtype,
+                               device=w.device)
+        if wgt is None:
+            wgt = torch.ones((b, s), dtype=w.dtype, device=w.device)
+        wgt = wgt / denom
+    return w, ids, wgt
+
+
+def _on_kernel(w, ids):
+    """A CUDA table whose op is a pool: 2-d W, ids per row."""
+    return w.device.type == "cuda" and w.ndim == 2 and ids.shape[1] > 0
+
+
+def _reference_embedding_pool(w, ids, wgt, padding_idx=-1):
+    """Plain version of the forward kernel, the unfused chain's
+    elementwise structure: gather, zero the padding rows, ``sum(rows ·
+    wgt, dim=1)`` (``sum(rows, dim=1)`` for a None wgt)."""
+    gathered = w.index_select(0, ids.reshape(-1).long()).reshape(
+        tuple(ids.shape) + tuple(w.shape[1:]))
+    if padding_idx is not None and padding_idx >= 0:
+        gathered = gathered.masked_fill((ids == padding_idx)[..., None],
+                                        0.0)
+    if wgt is None:
+        return torch.sum(gathered, dim=1)
+    return torch.sum(gathered * wgt[..., None], dim=1)
+
+
+def _emb_grad_rows(g, ids, wgt):
+    """The ``[B·S, D]`` per-position terms ``g[i] · wgt[i,j]`` of the
+    gradient, in (i, j) order (``g[i]`` itself for a None wgt)."""
+    d = g.shape[-1]
+    if wgt is None:
+        rows = g[:, None, :].expand(ids.shape[0], ids.shape[1], d)
+    else:
+        rows = g[:, None, :] * wgt[:, :, None]          # [B, S, D]
+    return rows.reshape(-1, d)
+
+
+def _reference_embedding_pool_grad(g, ids, wgt, vocab):
+    """Plain version of the gradient kernel: ``g · wgt`` per position,
+    then ``index_add_`` into a zero ``[vocab, D]`` dW (on the CPU it adds
+    in index order, which is (i, j) order)."""
+    d = g.shape[-1]
+    rows = _emb_grad_rows(g, ids, wgt)
+    dw = torch.zeros((vocab, d), dtype=g.dtype, device=g.device)
+    return dw.index_add_(0, ids.reshape(-1).long(), rows)
+
+
+def _fused_embedding_pool_grad(ins, outs, out_grads, attrs, ctx):
+    """dW by one weighted scatter-add, never materialising the
+    ``[B, S, D]`` per-position cotangent on the card."""
+    w, ids, wgt = _emb_pool_prep(ins, attrs)
+    g = out_grads.get("Out")
+    if g is None:
+        return {"W": [torch.zeros_like(w)]}
+    g = g.to(w.dtype)
+    if _on_kernel(w, ids):
+        return {"W": [cuda_kernels.embedding_pool_grad(
+            g.contiguous(), ids.long(), wgt, w.shape[0])]}
+    return {"W": [_reference_embedding_pool_grad(g, ids, wgt, w.shape[0])]}
+
+
+@register_op("fused_embedding_pool", nondiff_inputs=("Ids", "Length"),
+             custom_grad=_fused_embedding_pool_grad)
+def _fused_embedding_pool(ins, attrs, ctx):
+    w, ids, wgt = _emb_pool_prep(ins, attrs)
+    if _on_kernel(w, ids):
+        return {"Out": [cuda_kernels.embedding_pool_fwd(w, ids.long(),
+                                                        wgt)]}
+    return {"Out": [_reference_embedding_pool(
+        w, ids, wgt, attrs.get("padding_idx", -1))]}

@@ -55,6 +55,24 @@ _SIGNATURES = {
                            _F, _F, _P], _I),
         **_ERR,
     },
+    "embedding_pool": {
+        "pt_embedding_pool_fwd": ([_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                   _P], _I),
+        **_ERR,
+    },
+    "embedding_pool_grad": {
+        "pt_embedding_pool_grad_temp_bytes": (
+            [_I, _I, ctypes.POINTER(ctypes.c_size_t)], _I),
+        "pt_embedding_pool_grad": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, ctypes.c_size_t, _I, _I, _I, _I, _I,
+                                    _P], _I),
+        **_ERR,
+    },
+    "fused_momentum": {
+        "pt_fused_momentum": ([_P, _P, _P, _P, _P, _P, _I64, _F, _F, _I,
+                               _P], _I),
+        **_ERR,
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -325,3 +343,171 @@ def fused_adam(p, g, m, v, lrt, beta1: float, beta2: float, eps: float):
 
 
 fused_adam.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused sparse embedding (csrc/embedding_pool.cu, csrc/embedding_pool_grad.cu)
+# ---------------------------------------------------------------------------
+
+def _check_cuda(what, named, ref, dtype):
+    """Every tensor of ``named`` on ref's CUDA device, of ``dtype``,
+    contiguous."""
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{ref.device}, got {t.device}")
+        if t.dtype != dtype:
+            hint = (" (the kernels take float32; bfloat16 comes with the "
+                    "AMP slice)" if dtype == torch.float32 else "")
+            raise ValueError(f"{what}: {name} is {t.dtype}, the kernel "
+                             f"takes {dtype}{hint}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous, got "
+                             f"strides {t.stride()} for shape "
+                             f"{tuple(t.shape)}")
+
+
+def _ptr(t):
+    """A tensor's device address, or NULL for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _check_ids_wgt(what, ids, wgt, ref):
+    """ids int64 ``[B, S]`` and wgt float32 ``[B, S]`` or None (every
+    weight 1), contiguous, on ref's device; returns (B, S)."""
+    if ids.ndim != 2:
+        raise ValueError(f"{what}: ids must be 2-d [B, S], got shape "
+                         f"{tuple(ids.shape)}")
+    _check_cuda(what, (("ids", ids),), ref, torch.int64)
+    if wgt is not None:
+        _check_cuda(what, (("wgt", wgt),), ref, torch.float32)
+    if wgt is not None and wgt.shape != ids.shape:
+        raise ValueError(f"{what}: wgt {tuple(wgt.shape)} is not ids' "
+                         f"shape {tuple(ids.shape)}")
+    b, s = ids.shape
+    if b * s >= 2 ** 31:
+        raise ValueError(f"{what}: {b * s} ids; the kernel indexes "
+                         f"positions with 32-bit ints")
+    return b, s
+
+
+def embedding_pool_fwd(w, ids, wgt):
+    """``out[i] = Σ_j w[ids[i,j]] · wgt[i,j]`` on the Hopper kernel, the
+    products and sums rounded one by one in j order.  w ``[V, D]``
+    float32, ids ``[B, S]`` int64 (as fed), wgt ``[B, S]`` float32 or
+    None for all ones, all CUDA and contiguous.  An id outside ``[0, V)`` traps on the device.
+    Returns ``[B, D]`` float32."""
+    what = "embedding_pool_fwd"
+    if w.ndim != 2:
+        raise ValueError(f"{what}: w must be 2-d [V, D], got shape "
+                         f"{tuple(w.shape)}")
+    _check_cuda(what, (("w", w),), w, torch.float32)
+    b, s = _check_ids_wgt(what, ids, wgt, w)
+    v, d = w.shape
+    out = torch.empty((b, d), dtype=w.dtype, device=w.device)
+    if out.numel() == 0:
+        return out.zero_()
+    lib = _lib("embedding_pool")
+    with torch.cuda.device(w.device):
+        err = lib.pt_embedding_pool_fwd(
+            w.data_ptr(), ids.data_ptr(), _ptr(wgt), out.data_ptr(),
+            b, s, v, d, _stream(w.device))
+    _check_launch(lib, err, what)
+    embedding_pool_fwd.launches += 1
+    return out
+
+
+embedding_pool_fwd.launches = 0
+
+
+def embedding_pool_grad(g, ids, wgt, vocab: int):
+    """``dW[r] = Σ over (i, j) with ids[i,j] = r, in (i, j) order, of
+    g[i] · wgt[i,j]`` on the Hopper kernels: a dense ``[vocab, D]``
+    float32 dW, every row written once, untouched rows 0.  g ``[B, D]``
+    float32, ids ``[B, S]`` int64, wgt ``[B, S]`` float32 or None for all
+    ones, all CUDA and contiguous.  Deterministic: one call is a stable radix sort of the
+    positions by id (CUB), then hand-written kernels that form each
+    position's product in sorted order and sum each row's products in
+    that order; it counts one launch."""
+    what = "embedding_pool_grad"
+    if g.ndim != 2:
+        raise ValueError(f"{what}: g must be 2-d [B, D], got shape "
+                         f"{tuple(g.shape)}")
+    _check_cuda(what, (("g", g),), g, torch.float32)
+    b, s = _check_ids_wgt(what, ids, wgt, g)
+    d = g.shape[1]
+    vocab = int(vocab)
+    if g.shape[0] != b:
+        raise ValueError(f"{what}: g has {g.shape[0]} rows, ids {b}")
+    if not 0 < vocab < 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"{what}: vocab {vocab}, D {d}: the kernel takes "
+                         f"0 < vocab < 2**31")
+    dw = torch.empty((vocab, d), dtype=g.dtype, device=g.device)
+    if d == 0:
+        return dw
+    n = b * s
+    end_bit = max(1, (vocab - 1).bit_length())
+    lib = _lib("embedding_pool_grad")
+    temp_bytes = ctypes.c_size_t(0)
+    _check_launch(lib, lib.pt_embedding_pool_grad_temp_bytes(
+        n, end_bit, ctypes.byref(temp_bytes)), what)
+    keys_in, vals_in, keys_out, vals_out = (
+        torch.empty((max(n, 1),), dtype=torch.int32, device=g.device)
+        for _ in range(4))
+    prod = torch.empty((max(n, 1), d), dtype=torch.float32, device=g.device)
+    temp = torch.empty((max(temp_bytes.value, 1),), dtype=torch.uint8,
+                       device=g.device)
+    with torch.cuda.device(g.device):
+        err = lib.pt_embedding_pool_grad(
+            g.data_ptr(), ids.data_ptr(), _ptr(wgt), dw.data_ptr(),
+            keys_in.data_ptr(), vals_in.data_ptr(), keys_out.data_ptr(),
+            vals_out.data_ptr(), prod.data_ptr(), temp.data_ptr(),
+            temp_bytes.value, n, s, vocab, d, end_bit, _stream(g.device))
+    _check_launch(lib, err, what)
+    embedding_pool_grad.launches += 1
+    return dw
+
+
+embedding_pool_grad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused Momentum (csrc/fused_momentum.cu)
+# ---------------------------------------------------------------------------
+
+def fused_momentum(p, g, v, lr, mu: float, l2: float, nesterov: bool):
+    """One Momentum step over a flattened bucket on the Hopper kernel:
+    p, g, v CUDA float32, contiguous, of one shape; ``lr`` a float32
+    one-value CUDA tensor, read by the kernel where it lies.
+    ``v' = mu·v + g`` (``g + l2·p`` first when ``l2``), then
+    ``p' = p - lr·v'`` or, with ``nesterov``, ``p - lr·(g + mu·v')``.
+    Returns new ``(p, v)``, each product and sum rounded once, as the
+    per-param ``momentum`` lowering's separate torch ops round them."""
+    what = "fused_momentum"
+    _check_cuda(what, (("p", p), ("g", g), ("v", v), ("lr", lr)), p,
+                torch.float32)
+    for name, t in (("g", g), ("v", v)):
+        if t.shape != p.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not p's "
+                             f"shape {tuple(p.shape)}")
+    for name, t in (("p", p), ("g", g), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if lr.numel() != 1:
+        raise ValueError(f"{what}: lr must hold one value, got shape "
+                         f"{tuple(lr.shape)}")
+    po, vo = torch.empty_like(p), torch.empty_like(p)
+    if p.numel() == 0:
+        return po, vo
+    lib = _lib("fused_momentum")
+    with torch.cuda.device(p.device):
+        err = lib.pt_fused_momentum(
+            p.data_ptr(), g.data_ptr(), v.data_ptr(), lr.data_ptr(),
+            po.data_ptr(), vo.data_ptr(), p.numel(), float(mu), float(l2),
+            int(bool(nesterov)), _stream(p.device))
+    _check_launch(lib, err, what)
+    fused_momentum.launches += 1
+    return po, vo
+
+
+fused_momentum.launches = 0

@@ -1,5 +1,5 @@
-"""Loss lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``, the op
-the training slice runs).
+"""Loss lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``, the ops
+the training slices run).
 
 ``softmax_with_cross_entropy`` keeps its integer ``Label`` in a nondiff
 slot and carries a custom grad, ``softmax - onehot(label)``, which is
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .reduction import _refuse_padded_batch
 from .registry import register_op
 
 
@@ -93,3 +94,23 @@ def _softmax_xent_grad(ins, outs, out_grads, attrs, ctx):
 register_op("softmax_with_cross_entropy", _softmax_xent_fwd,
             nondiff_inputs=("Label",), nondiff_outputs=("Softmax",),
             custom_grad=_softmax_xent_grad)
+
+
+@register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=("Label",))
+def _sce(ins, attrs, ctx):
+    """Elementwise ``max(x, 0) - x·label + log1p(exp(-|x|))``, zero where
+    the label is ``ignore_index``; with ``normalize``, divided by the
+    count of the other labels.  Under shape bucketing the reference folds
+    the padded batch rows out of that mask; the port refuses a padded
+    batch instead (``_refuse_padded_batch``), as its batch reductions
+    do."""
+    x, label = ins["X"][0], ins["Label"][0]
+    _refuse_padded_batch("sigmoid_cross_entropy_with_logits", x, (0,), ctx)
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.clamp(x, min=0.0) - x * label \
+        + torch.log1p(torch.exp(-torch.abs(x)))
+    mask = (label != ignore).to(x.dtype)
+    loss = loss * mask
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(torch.sum(mask), min=1.0)
+    return {"Out": [loss]}

@@ -1,5 +1,5 @@
 """Tensor manipulation and creation lowerings (counterpart of
-``paddle_tpu/ops/manipulation.py``, the ops this slice runs)."""
+``paddle_tpu/ops/manipulation.py``, the ops the ported slices run)."""
 from __future__ import annotations
 
 import torch
@@ -37,6 +37,13 @@ def _transpose2(ins, attrs, ctx):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
+@register_op("concat")
+def _concat(ins, attrs, ctx):
+    axis = int(ins["AxisTensor"][0]) if ins.get("AxisTensor") \
+        else attrs.get("axis", 0)
+    return {"Out": [torch.cat(list(ins["X"]), dim=axis)]}
+
+
 @register_op("fill_constant", differentiable=False)
 def _fill_constant(ins, attrs, ctx):
     shape = attrs.get("shape", [])
@@ -58,3 +65,13 @@ def _lookup_table_v2(ins, attrs, ctx):
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
     return {"Out": [out]}
+
+
+@register_op("lookup_table", nondiff_inputs=("Ids",))
+def _lookup_table(ins, attrs, ctx):
+    """lookup_table v1: as v2, but ids carry a trailing dim of 1, which
+    is squeezed (lookup_table_op's [.., 1] ids)."""
+    ids = _x(ins, "Ids")
+    if ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    return _lookup_table_v2({"W": ins["W"], "Ids": [ids]}, attrs, ctx)

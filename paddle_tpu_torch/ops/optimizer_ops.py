@@ -1,5 +1,6 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
-Adam and its bucketed form; the other updates come with their slices).
+Adam, Momentum and their bucketed forms; the other updates come with
+their slices).
 
 Each op consumes (param, grad, states...) and returns new values; the
 executor writes the outputs back to the scope under the same names.  All
@@ -13,6 +14,9 @@ arithmetic as the per-param op, each multiply, add, square root and
 division rounded once, so the rewrite is bit-identical to the per-param
 updates on either device.  Each param's bias-corrected ``lr_t`` is
 broadcast over its segment outside the kernel, as in the reference.
+``fused_momentum`` is the same for a run of ``momentum`` ops, on
+``cuda_kernels.fused_momentum``; its learning rate stays a ``[1]`` tensor
+on the card, which the kernel reads, so a step never waits on the host.
 """
 from __future__ import annotations
 
@@ -35,6 +39,31 @@ def _adam_moments(m, v, g, b1, b2):
 def _lr_t(lr, b1p, b2p):
     # reference adam_op.h: lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)
     return lr * torch.sqrt(1 - b2p) / (1 - b1p)
+
+
+def _momentum_update(p, g, v, lr, mu, l2, nesterov):
+    if l2:
+        g = g + l2 * p
+    v_new = mu * v + g
+    if nesterov:
+        return p - lr * (g + mu * v_new), v_new
+    return p - lr * v_new, v_new
+
+
+def _l2_coeff(attrs):
+    rd = attrs.get("regularization_coeff", 0.0)
+    return rd if attrs.get("regularization_method", "") == "l2_decay" \
+        else 0.0
+
+
+@register_op("momentum", differentiable=False)
+def _momentum(ins, attrs, ctx):
+    p, g, v = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "Velocity")
+    lr = _p(ins, "LearningRate").reshape(())
+    p_new, v_new = _momentum_update(p, g, v, lr, attrs.get("mu", 0.9),
+                                    _l2_coeff(attrs),
+                                    attrs.get("use_nesterov", False))
+    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
 
 
 @register_op("adam", differentiable=False)
@@ -73,11 +102,10 @@ def _unflat(buf, templates, sizes):
 
 
 def _flat_kernel_ok(p_f):
-    """The reference's gate for its kernel: float32 and at least 1024
-    elements.  A CUDA bucket that fails it takes the plain version, as
-    the reference keeps such a bucket off its kernel."""
-    return (p_f.device.type == "cuda" and p_f.dtype == torch.float32
-            and p_f.numel() >= 1024)
+    """A CUDA bucket takes its kernel, of any length: the reference's
+    1024-element floor is its [rows, 1024] lane padding, which is not
+    copied.  The wrapper raises on a dtype the kernel does not take."""
+    return p_f.device.type == "cuda"
 
 
 @register_op("fused_adam", differentiable=False)
@@ -98,8 +126,6 @@ def _fused_adam(ins, attrs, ctx):
     m_f, v_f = _flat(ms, cdt), _flat(vs, cdt)
     lrt_f = torch.cat([t.expand(s) for t, s in zip(lrts, sizes)])
     if _flat_kernel_ok(p_f):
-        # the kernel takes any length, so the reference's padding to
-        # [rows, 1024] lanes is not copied here
         p_new, m_new, v_new = cuda_kernels.fused_adam(
             p_f, g_f, m_f, v_f, lrt_f, b1, b2, eps)
     else:
@@ -112,3 +138,23 @@ def _fused_adam(ins, attrs, ctx):
                             for p1 in b1ps],
             "Beta2PowOut": [(p2.reshape(()) * b2).reshape(1)
                             for p2 in b2ps]}
+
+
+@register_op("fused_momentum", differentiable=False)
+def _fused_momentum(ins, attrs, ctx):
+    ps, gs, vs = ins["Param"], ins["Grad"], ins["Velocity"]
+    lr = _p(ins, "LearningRate")
+    mu = attrs.get("mu", 0.9)
+    l2 = _l2_coeff(attrs)
+    nesterov = attrs.get("use_nesterov", False)
+    sizes = [p.numel() for p in ps]
+    cdt = ps[0].dtype
+    p_f, g_f, v_f = _flat(ps, cdt), _flat(gs, cdt), _flat(vs, cdt)
+    if _flat_kernel_ok(p_f):
+        p_new, v_new = cuda_kernels.fused_momentum(
+            p_f, g_f, v_f, lr.reshape(1), mu, l2, nesterov)
+    else:
+        p_new, v_new = _momentum_update(p_f, g_f, v_f, lr.reshape(()), mu,
+                                        l2, nesterov)
+    return {"ParamOut": _unflat(p_new, ps, sizes),
+            "VelocityOut": _unflat(v_new, vs, sizes)}

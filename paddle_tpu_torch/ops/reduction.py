@@ -1,5 +1,10 @@
 """Reduction lowerings (counterpart of ``paddle_tpu/ops/reduction.py``,
-the ops this slice runs)."""
+the ops the ported slices run).
+
+Under shape bucketing the reference masks the padded batch rows out of a
+reduction over axis 0; the port refuses such a reduction instead
+(``_refuse_padded_batch``), so padded rows are never summed or averaged
+in silently."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +27,17 @@ def _refuse_padded_batch(op_type, x, axes, ctx):
             f"{op_type} over the padded batch axis under shape bucketing "
             f"is not ported yet; run programs that reduce over the batch "
             f"without bucket padding")
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ins, attrs, ctx):
+    x = ins["X"][0]
+    axes = _axes(attrs, x.ndim)
+    _refuse_padded_batch("reduce_sum", x, axes, ctx)
+    if not axes:
+        return {"Out": [x.clone()]}
+    return {"Out": [torch.sum(x, dim=axes,
+                              keepdim=attrs.get("keep_dim", False))]}
 
 
 @register_op("reduce_mean")

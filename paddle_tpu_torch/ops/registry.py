@@ -29,7 +29,8 @@ class OpDef:
     nondiff_outputs: Sequence[str] = ()
     differentiable: bool = True          # False: a leaf of the grad sweep
     stateful_rng: bool = False           # draws random numbers (dropout, *_random)
-    # (ins, outs, out_grads, attrs, ctx) -> in_grads, in place of the vjp
+    # (ins, outs, out_grads, attrs, ctx) -> in_grads, in place of the vjp;
+    # ``generic_grad`` passes outs=None (the forward is not rerun)
     custom_grad: Optional[Callable] = None
 
 

@@ -13,16 +13,25 @@ statistics against ``_reference_stats``: atol=rtol=1e-4.  The backward
 kernel against ``_reference_attention_bwd`` on the same o, m and l: float32
 atol=rtol=1e-4 (FMA chains against cuBLAS sums), bfloat16 atol=2e-2,
 rtol=1e-2 (one bfloat16 rounding of each output).  ``fused_adam``
-against the per-param ``adam`` lowering: ``torch.equal``.
+against the per-param ``adam`` lowering: ``torch.equal``.  The embedding
+gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
+(the kernel sums in j order, torch's reduction in its own), and
+``torch.equal`` on dyadic values, whose sums are exact.  The scatter-add
+gradient kernel: two launches ``torch.equal``, and ``torch.equal`` to the
+plain version computed on the host, whose ``index_add_`` adds in index
+order.  ``fused_momentum`` against the per-param ``momentum`` lowering:
+``torch.equal``.
 """
-import math
 
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import cuda_kernels
 from paddle_tpu_torch.ops.attention import _reference_attention, \
     _reference_attention_bwd, _reference_stats, flash_attention
+from paddle_tpu_torch.ops.ctr_ops import _reference_embedding_pool, \
+    _reference_embedding_pool_grad
 from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 
 pytestmark = pytest.mark.gpu
@@ -176,11 +185,11 @@ def test_autograd_function_runs_both_kernels(cuda):
 
 @pytest.mark.parametrize("sizes", [[(1024, 768), (768,), (30, 7)],
                                    [(300,), (200,)]],
-                         ids=["kernel", "below_gate"])
+                         ids=["kernel", "small"])
 def test_fused_adam_equals_per_param_adam(cuda, sizes):
-    """Bit-identical to the per-param lowering on the card; a bucket
-    below 1024 elements takes the plain version, as the reference keeps
-    it off its kernel."""
+    """Bit-identical to the per-param lowering on the card, on the
+    kernel at any length: a bucket under 1024 elements, which the
+    reference keeps off its kernel, launches it too."""
     g = torch.Generator(device="cpu").manual_seed(0)
     ins = {s: [] for s in ("Param", "Grad", "Moment1", "Moment2",
                            "Beta1Pow", "Beta2Pow")}
@@ -196,10 +205,176 @@ def test_fused_adam_equals_per_param_adam(cuda, sizes):
     before = cuda_kernels.fused_adam.launches
     fused = get_op("fused_adam").fn(ins, attrs, LoweringContext(cuda))
     torch.cuda.synchronize()
-    on_kernel = sum(math.prod(s) for s in sizes) >= 1024
-    assert cuda_kernels.fused_adam.launches == before + int(on_kernel)
+    assert cuda_kernels.fused_adam.launches == before + 1
     for i in range(len(sizes)):
         one = get_op("adam").fn(
+            {s: [v[0] if s == "LearningRate" else v[i]]
+             for s, v in ins.items()}, attrs, LoweringContext(cuda))
+        for slot, outs in one.items():
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
+# ---------------------------------------------------------------------------
+# the CTR kernels: embedding gather-pool, its scatter-add gradient, Momentum
+# ---------------------------------------------------------------------------
+
+def _ctr_inputs(device, d, dist, weights, b=4096, s=5, v=200_000,
+                dyadic=False, seed=0):
+    """w [v, d], ids [b, s] (uniform, or Zipf(1.1) through a seeded
+    permutation, so many ids repeat), wgt [b, s] (ones, or a Length mask
+    with AVERAGE's divisor and padding id 7), g [b, d]."""
+    rng = np.random.default_rng(seed)
+    if dyadic:      # small multiples of 1/8: every sum below is exact
+        w = rng.integers(-64, 64, (v, d)).astype(np.float32) / 8
+        g = rng.integers(-64, 64, (b, d)).astype(np.float32) / 8
+    else:
+        w = rng.standard_normal((v, d), dtype=np.float32)
+        g = rng.standard_normal((b, d), dtype=np.float32)
+    if dist == "zipf":
+        perm = rng.permutation(v)
+        ids = perm[(rng.zipf(1.1, (b, s)) - 1) % v]
+    else:
+        ids = rng.integers(0, v, (b, s))
+    ids = ids.astype(np.int64)
+    if weights == "length_avg":
+        ids[:, 2] = 7
+        length = rng.integers(0, s + 1, b)
+        keep = (np.arange(s)[None, :] < length[:, None]) & (ids != 7)
+        denom = 2.0 if dyadic else np.maximum(length, 1)[:, None]
+        wgt = (keep / denom).astype(np.float32)
+    else:
+        wgt = np.ones((b, s), np.float32)
+    return [torch.from_numpy(x).to(device) for x in (w, ids, wgt, g)]
+
+
+CTR_CASES = [(d, dist, wts) for d in (16, 128) for dist in ("uniform", "zipf")
+             for wts in ("ones", "length_avg")]
+
+
+@pytest.mark.parametrize("d,dist,weights", CTR_CASES,
+                         ids=[f"D{d}-{a}-{b}" for d, a, b in CTR_CASES])
+def test_embedding_pool_fwd_matches_plain(cuda, d, dist, weights):
+    w, ids, wgt, _ = _ctr_inputs(cuda, d, dist, weights)
+    before = cuda_kernels.embedding_pool_fwd.launches
+    out = cuda_kernels.embedding_pool_fwd(w, ids, wgt)
+    torch.cuda.synchronize()
+    assert cuda_kernels.embedding_pool_fwd.launches == before + 1
+    torch.testing.assert_close(out, _reference_embedding_pool(w, ids, wgt),
+                               rtol=1e-6, atol=1e-6)
+    w, ids, wgt, _ = _ctr_inputs(cuda, d, dist, weights, dyadic=True)
+    assert torch.equal(cuda_kernels.embedding_pool_fwd(w, ids, wgt),
+                       _reference_embedding_pool(w, ids, wgt))
+
+
+@pytest.mark.parametrize("d,dist,weights", CTR_CASES,
+                         ids=[f"D{d}-{a}-{b}" for d, a, b in CTR_CASES])
+def test_embedding_pool_grad_is_deterministic_and_matches_host(cuda, d, dist,
+                                                               weights):
+    w, ids, wgt, g = _ctr_inputs(cuda, d, dist, weights)
+    v = w.shape[0]
+    before = cuda_kernels.embedding_pool_grad.launches
+    first = cuda_kernels.embedding_pool_grad(g, ids, wgt, v)
+    second = cuda_kernels.embedding_pool_grad(g, ids, wgt, v)
+    torch.cuda.synchronize()
+    assert cuda_kernels.embedding_pool_grad.launches == before + 2
+    assert torch.equal(first, second)
+    host = _reference_embedding_pool_grad(g.cpu(), ids.cpu(), wgt.cpu(), v)
+    assert torch.equal(first.cpu(), host)
+
+
+@pytest.mark.parametrize("d", (16, 128))
+def test_embedding_kernels_take_no_weight_as_all_ones(cuda, d):
+    """A None wgt, what an unmasked SUM slot passes, is bit for bit a wgt
+    of ones in both kernels, and the gradient still equals the host's."""
+    w, ids, wgt, g = _ctr_inputs(cuda, d, "zipf", "ones")
+    v = w.shape[0]
+    fwd, grad = cuda_kernels.embedding_pool_fwd, \
+        cuda_kernels.embedding_pool_grad
+    out = fwd(w, ids, None)
+    assert torch.equal(out, fwd(w, ids, wgt))
+    torch.testing.assert_close(out, _reference_embedding_pool(w, ids, None),
+                               rtol=1e-6, atol=1e-6)
+    dw = grad(g, ids, None, v)
+    assert torch.equal(dw, grad(g, ids, wgt, v))
+    assert torch.equal(dw.cpu(), _reference_embedding_pool_grad(
+        g.cpu(), ids.cpu(), None, v))
+
+
+def test_ctr_ops_launch_the_kernels_for_cuda_tensors(cuda):
+    from paddle_tpu_torch.ops.registry import get_op
+    w, ids, wgt, g = _ctr_inputs(cuda, 16, "zipf", "ones", b=64, v=1000)
+    op = get_op("fused_embedding_pool")
+    ctx = LoweringContext(cuda)
+    f0 = cuda_kernels.embedding_pool_fwd.launches
+    g0 = cuda_kernels.embedding_pool_grad.launches
+    ins = {"W": [w], "Ids": [ids[..., None]]}
+    attrs = {"pooltype": "SUM", "squeeze_ids": True}
+    out = op.fn(ins, attrs, ctx)["Out"][0]
+    dw = op.custom_grad(ins, None, {"Out": g[:64]}, attrs, ctx)["W"][0]
+    torch.cuda.synchronize()
+    assert cuda_kernels.embedding_pool_fwd.launches == f0 + 1
+    assert cuda_kernels.embedding_pool_grad.launches == g0 + 1
+    assert out.shape == (64, 16) and dw.shape == (1000, 16)
+
+
+def test_ctr_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w, ids, wgt, g = _ctr_inputs(cuda, 16, "uniform", "ones", b=8, v=100)
+    fwd, grad = cuda_kernels.embedding_pool_fwd, \
+        cuda_kernels.embedding_pool_grad
+    with pytest.raises(ValueError, match="bfloat16 comes with the AMP"):
+        fwd(w.bfloat16(), ids, wgt)
+    with pytest.raises(ValueError, match="2-d"):
+        fwd(w, ids.reshape(-1), wgt.reshape(-1))
+    with pytest.raises(ValueError, match="2-d"):
+        grad(g, ids.reshape(-1), wgt.reshape(-1), 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(w.t().contiguous().t(), ids, wgt)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(w, ids.t().contiguous().t(), wgt)
+    with pytest.raises(ValueError, match="contiguous"):
+        grad(torch.cat([g, g], 1)[:, :16], ids, wgt, 100)
+    with pytest.raises(ValueError, match="int64"):
+        grad(g, ids.int(), wgt, 100)
+    p = torch.zeros(2048, device=cuda)
+    lr = torch.full((1,), 0.1, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 comes with the AMP"):
+        cuda_kernels.fused_momentum(p.bfloat16(), p.bfloat16(),
+                                    p.bfloat16(), lr, 0.9, 0.0, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.fused_momentum(p[::2], p[::2], p[::2], lr, 0.9, 0.0,
+                                    False)
+
+
+MOMENTUM_ATTRS = {
+    "plain": {"mu": 0.9, "use_nesterov": False},
+    "nesterov": {"mu": 0.9, "use_nesterov": True},
+    "l2_decay": {"mu": 0.9, "use_nesterov": False,
+                 "regularization_method": "l2_decay",
+                 "regularization_coeff": 1e-4},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
+@pytest.mark.parametrize("sizes", [[(1024, 768), (768,), (30, 7)],
+                                   [(300,), (200,)]],
+                         ids=["kernel", "small"])
+def test_fused_momentum_equals_per_param_momentum(cuda, sizes, kind):
+    """Bit-identical to the per-param lowering on the card, on the
+    kernel at any length: a bucket under 1024 elements, which the
+    reference keeps off its kernel, launches it too."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ins = {s: [scale * torch.randn(shape, generator=g).to(cuda)
+               for shape in sizes]
+           for s, scale in (("Param", 1.0), ("Grad", 1e-2),
+                            ("Velocity", 1e-2))}
+    ins["LearningRate"] = [torch.tensor([0.05], device=cuda)]
+    attrs = MOMENTUM_ATTRS[kind]
+    before = cuda_kernels.fused_momentum.launches
+    fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(cuda))
+    torch.cuda.synchronize()
+    assert cuda_kernels.fused_momentum.launches == before + 1
+    for i in range(len(sizes)):
+        one = get_op("momentum").fn(
             {s: [v[0] if s == "LearningRate" else v[i]]
              for s, v in ins.items()}, attrs, LoweringContext(cuda))
         for slot, outs in one.items():
