@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving and training paths on one CUDA card,
-end to end: the static BERT program and the wide&deep CTR program.
+end to end: the static BERT program, the wide&deep CTR program and the
+flagship dygraph ``BertForPretraining`` step.
 
     python3 chip_smoke.py
 
@@ -32,6 +33,16 @@ over):
    the card could take (the bound) and one PyTorch library call
    computing the same function where there is one (timed here only,
    never called by the port).
+3e. dropout -- the five dropout kernels (``csrc/fused_dropout.cu``:
+   dropout, its mask, dropout-add, act-dropout and its backward) against
+   their plain Philox versions at [8192, 768] and [8192, 3072], float32
+   and bfloat16, rates 0.1 and 0.5, upscale and downgrade, gelu and
+   relu: masks, dropout and dropout-add ``torch.equal``, act-dropout
+   within ACT_TOL, the kept fraction within 6 sigma of 1 - rate, the
+   backwards (through the ops' autograd Functions) equal to g · Mask ·
+   scale (· act'(x)), a twin of seed + 1 must miss.  Device ms per call
+   from the profiler, beside the bound, the plain version's and
+   ``torch.nn.functional.dropout``'s.
 4. serve   -- the static BERT program at BERT-base width (vocab 30522,
    hidden 768, 12 heads, 12 layers, seq 128, dropout 0.1, padding mask),
    random weights from a seed, frozen, ``fuse_attention`` applied, served
@@ -73,10 +84,26 @@ over):
    first-step dW of every slot and every parameter and velocity after
    2 steps within 1e-6 of their largest entry; a twin whose gradient
    keeps only the last of each repeated id must miss on every slot.
+4e. train dygraph -- ``BertForPretraining`` at BERT-base width
+   (``bench.py``'s full configuration: vocab 30522, hidden 768, 12
+   layers of 12 heads, FFN 3072, seq 128, batch 64, dropout and attention
+   dropout 0.1, Adam lr 1e-4, bf16 autocast), built under the card's
+   dygraph tracer from seeded initializers, trained by
+   ``torch.func.grad_and_value(functional_loss(...))`` and
+   ``make_fused_adam``: one warm-up step, 10 timed steps, each kernel's
+   launches exactly DY_LAUNCHES a step.  The bf16 first step's loss
+   within BF16_LOSS_RTOL of a float32 step's from the same weights and
+   seeds.  Float32 at 4 rows, dropout live: 2 steps on the card and on
+   the host from the same weights, seeds and Adam state, losses within
+   rtol 1e-4 and first-step gradients within 1e-3 of their group's
+   largest; a host twin whose masks use seed + 1 must miss; one tape
+   step (``loss.backward()``) on the card within 1e-5 of the functional
+   gradients.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
-   64 and 512 rows served and 4096 rows trained.
+   64 and 512 rows served and 4096 rows trained, and for one dygraph
+   BERT step.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -110,6 +137,19 @@ CTR_TRAIN = dict(CTR, train=True, optimizer="momentum", lr=0.05)
 CTR_TRAIN_ROWS = 4096
 CTR_HOST_VOCAB = 100_000   # the card-vs-host training check's one cut
 ZIPF_A = 1.1
+# the flagship dygraph step at bench.py:1171's full width (nothing cut):
+# BertForPretraining with its dropout 0.1 defaults, batch 64 of seq 128,
+# Adam lr 1e-4, bf16 autocast
+DY = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
+          intermediate_size=3072, max_position=128)
+DY_BATCH, DY_SEQ, DY_LR, DY_STEPS = 64, 128, 1e-4, 10
+DY_HOST_ROWS = 4       # the card-vs-host check's batch
+DROPOUT_ROWS = DY_BATCH * DY_SEQ
+# kernel launches per dygraph step, predicted from the model's structure
+DY_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+               "fused_dropout": 50, "dropout_mask": 13,
+               "fused_dropout_add": 24, "fused_act_dropout": 12,
+               "fused_act_dropout_bwd": 12}
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -780,6 +820,227 @@ def phase_kernels_momentum():
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "op_ms": op_ms, "values": n}
+
+
+# ---------------------------------------------------------------------------
+# the dropout kernels (phase 3e)
+# ---------------------------------------------------------------------------
+
+# the ops per element the kernels do in float32 (Philox's integer rounds
+# are not counted: the card's peak table has no integer rate); gelu's erff
+# and expf counted as about 20 and 10
+_DROPOUT_FLOPS = {"fused_dropout": 1, "dropout_mask": 0,
+                  "fused_dropout_add": 2, "fused_act_dropout": 26,
+                  "fused_act_dropout_bwd": 40}
+
+
+def _dropout_bound(name, n, element_size):
+    """Least time on this card: the larger of the bytes (each input read
+    once, the output written once; the mask kernel reads nothing and
+    writes one byte an element) over HBM bandwidth and the float32 ops
+    over the float32 peak."""
+    streams = {"fused_dropout": 2, "fused_dropout_add": 3,
+               "fused_act_dropout": 2, "fused_act_dropout_bwd": 3}
+    nbytes = n if name == "dropout_mask" else streams[name] * n * element_size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = _DROPOUT_FLOPS[name] * n / FLOPS_PER_S["float32"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def _dropout_checks(label, dtype, rate, upscale, shape, seed):
+    """dropout, its mask and dropout-add against the plain Philox
+    versions: ``torch.equal``; the kept fraction within 6 sigma; the
+    backwards (through the ops' autograd Functions, so the launches are
+    the path's) equal to ``g · Mask · scale`` and, for the residual,
+    ``g``; a twin whose seed is one more must give another mask.
+    Returns the max |err| (0 when equal)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x, r, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate,
+                                                                 upscale)
+    out = cuda_kernels.fused_dropout(x, seed, thr, scale)
+    mask = cuda_kernels.dropout_mask(x, seed, thr)
+    add = cuda_kernels.fused_dropout_add(x, r, seed, thr, scale)
+    keep = nn_ops._reference_keep(x.shape, k0, k1, thr, dev)
+    plain = nn_ops._reference_dropout(x, k0, k1, thr, scale)
+    plain_add = nn_ops._reference_dropout_add(x, r, k0, k1, thr, scale)
+    xs = [t.detach().requires_grad_() for t in (x, x, r)]
+    with torch.enable_grad():
+        dx, = torch.autograd.grad(nn_ops._Dropout.apply(xs[0], k0, k1, thr,
+                                                        scale), xs[0], g)
+        dxa, dr = torch.autograd.grad(nn_ops._DropoutAdd.apply(
+            xs[1], xs[2], k0, k1, thr, scale), xs[1:], g)
+    want_dx = (g.float() * mask.float() * scale).to(dtype)
+    twin = cuda_kernels.dropout_mask(x, seed + 1, thr)
+    torch.cuda.synchronize()
+    n = x.numel()
+    kept = int(mask.sum())
+    sigma = math.sqrt(n * rate * (1 - rate))
+    checks = {"mask": torch.equal(mask, keep.to(torch.uint8)),
+              "dropout": torch.equal(out, plain),
+              "dropout-add": torch.equal(add, plain_add),
+              "fraction": abs(kept - n * (1 - rate)) < 6 * sigma,
+              "backward": torch.equal(dx, want_dx)
+              and torch.equal(dxa, want_dx) and torch.equal(dr, g),
+              "twin misses": not torch.equal(twin, mask)}
+    err = max((out.float() - plain.float()).abs().max().item(),
+              (add.float() - plain_add.float()).abs().max().item())
+    _p(f"dropout {label} {list(shape)} rate {rate} "
+       f"{'upscale' if upscale else 'downgrade'}: kept {kept / n:.5f} "
+       f"(1 - rate {1 - rate}, 6 sigma {6 * sigma / n:.5f}); "
+       + ", ".join(f"{k} {v}" for k, v in checks.items())
+       + " (masks, outputs and backwards torch.equal)")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the dropout kernels {label} rate "
+                         f"{rate} disagree with their plain versions")
+    return err
+
+
+# act-dropout against its plain version: float32 a few ulp (erff and
+# expf against torch's erf and exp), bfloat16 one ulp of the output
+ACT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
+
+
+def _act_dropout_checks(label, dtype, act, rate, shape, seed):
+    """act-dropout forward and backward against the plain versions
+    within ACT_TOL, zeros where the mask drops, the backward through the
+    op's autograd Function equal to the backward kernel; returns the max
+    |err| of forward and backward."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
+    out = cuda_kernels.fused_act_dropout(x, seed, thr, scale, act)
+    dx = cuda_kernels.fused_act_dropout_bwd(x, g, seed, thr, scale, act)
+    want = nn_ops._reference_act_dropout(x, k0, k1, thr, scale, act)
+    want_dx = nn_ops._reference_act_dropout_bwd(x, g, k0, k1, thr, scale,
+                                                act)
+    xg = x.detach().requires_grad_()
+    with torch.enable_grad():
+        dx_fn, = torch.autograd.grad(nn_ops._ActDropout.apply(
+            xg, k0, k1, thr, scale, act), xg, g)
+    keep = nn_ops._reference_keep(x.shape, k0, k1, thr, dev)
+    twin = cuda_kernels.fused_act_dropout(x, seed + 1, thr, scale, act)
+    torch.cuda.synchronize()
+    rtol, atol = ACT_TOL[str(dtype).removeprefix("torch.")]
+    checks = {
+        "forward": torch.allclose(out.float(), want.float(), rtol=rtol,
+                                  atol=atol),
+        "backward": torch.allclose(dx.float(), want_dx.float(), rtol=rtol,
+                                   atol=atol),
+        "dropped are 0": not (torch.any(out[~keep]) or torch.any(dx[~keep])),
+        "autograd = kernel": torch.equal(dx_fn, dx),
+        "twin misses": not torch.equal(twin != 0, out != 0)}
+    err = max((out.float() - want.float()).abs().max().item(),
+              (dx.float() - want_dx.float()).abs().max().item())
+    _p(f"act-dropout {label} {act} {list(shape)} rate {rate}: max |err| "
+       f"vs plain {err:.3e} (rtol={rtol}, atol={atol}); "
+       + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the act-dropout kernels {label} "
+                         f"{act} disagree with their plain versions")
+    return err
+
+
+def phase_kernels_dropout():
+    """The five dropout kernels against their plain Philox versions at
+    the dygraph step's shapes, [8192, 768] (dropout, mask, dropout-add)
+    and [8192, 3072] (act-dropout), float32 and bfloat16, rates 0.1 and
+    0.5, upscale and downgrade, gelu and relu.  Times: device ms per call
+    from the profiler (these kernels take tens of microseconds, less
+    than their wrappers' host time), beside the bound, the plain
+    version's and, for dropout, ``torch.nn.functional.dropout``'s (timed
+    here only).  Returns the rows by kernel name, float32, with the
+    bfloat16 row beside."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
+
+    errs = {}
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for rate, upscale in ((0.1, True), (0.1, False), (0.5, True),
+                              (0.5, False)):
+            e = _dropout_checks(label, dtype, rate, upscale,
+                                (DROPOUT_ROWS, DY["hidden_size"]),
+                                SEED + 11)
+            errs[label] = max(errs.get(label, 0.0), e)
+        for act, rate in (("gelu", 0.1), ("relu", 0.1), ("gelu", 0.5)):
+            e = _act_dropout_checks(label, dtype, act, rate,
+                                    (DROPOUT_ROWS, DY["intermediate_size"]),
+                                    SEED + 12)
+            errs["act " + label] = max(errs.get("act " + label, 0.0), e)
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    seed, rate = SEED + 13, 0.1
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        x, r = (torch.randn(DROPOUT_ROWS, DY["hidden_size"], generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        xa, ga = (torch.randn(DROPOUT_ROWS, DY["intermediate_size"],
+                              generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        calls = {
+            "fused_dropout": (
+                lambda: cuda_kernels.fused_dropout(x, seed, thr, scale),
+                lambda: nn_ops._reference_dropout(x, k0, k1, thr, scale),
+                lambda: F.dropout(x, rate, training=True), x),
+            "dropout_mask": (
+                lambda: cuda_kernels.dropout_mask(x, seed, thr),
+                lambda: nn_ops._reference_keep(x.shape, k0, k1, thr,
+                                               dev).to(torch.uint8),
+                None, x),
+            "fused_dropout_add": (
+                lambda: cuda_kernels.fused_dropout_add(x, r, seed, thr,
+                                                       scale),
+                lambda: nn_ops._reference_dropout_add(x, r, k0, k1, thr,
+                                                      scale), None, x),
+            "fused_act_dropout": (
+                lambda: cuda_kernels.fused_act_dropout(xa, seed, thr, scale,
+                                                       "gelu"),
+                lambda: nn_ops._reference_act_dropout(xa, k0, k1, thr, scale,
+                                                      "gelu"), None, xa),
+            "fused_act_dropout_bwd": (
+                lambda: cuda_kernels.fused_act_dropout_bwd(
+                    xa, ga, seed, thr, scale, "gelu"),
+                lambda: nn_ops._reference_act_dropout_bwd(
+                    xa, ga, k0, k1, thr, scale, "gelu"), None, xa)}
+        for name, (kernel, plain, library, t) in calls.items():
+            ms = _profile(kernel, 20)[1]
+            plain_ms = _profile(plain, 5)[1]
+            library_ms = _profile(library, 20)[1] if library else None
+            bound_ms, bound_by = _dropout_bound(name, t.numel(),
+                                                t.element_size())
+            err = errs["act " + label] if "act" in name else errs[label]
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "shape": list(t.shape)}
+            if label == "fp32":
+                rows[name] = dict(row, dtype="float32")
+            else:
+                rows[name]["bf16"] = row
+            lib = (f" | library (F.dropout) {library_ms:.4f} ms"
+                   if library else "")
+            _p(f"  {name} {label} {list(t.shape)}: kernel {ms:.4f} ms | "
+               f"plain {plain_ms:.4f} ms{lib} | bound "
+               f"{bound_ms * 1e3:.2f} us ({bound_by})")
+        del x, r, xa, ga
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _served_weights(params, layers, seed):
@@ -1526,6 +1787,345 @@ def phase_train_ctr(arrays, card):
     return launches, (program, main, scope, loss, feed)
 
 
+# ---------------------------------------------------------------------------
+# the flagship dygraph BERT pretraining step (phase 4e)
+# ---------------------------------------------------------------------------
+
+def _dy_inputs(rows):
+    """ids, MLM labels and NSP labels as bench.py draws them (numpy
+    RandomState(0), every position labelled), the first ``rows`` rows,
+    as int64 tensors on the card."""
+    import torch
+    rng = np.random.RandomState(SEED)
+    shape = (DY_BATCH, DY_SEQ)
+    drawn = (rng.randint(0, DY["vocab_size"], shape),
+             rng.randint(0, DY["vocab_size"], shape),
+             rng.randint(0, 2, (DY_BATCH,)))
+    return [torch.from_numpy(a[:rows].astype("int64")).to(DEVICE)
+            for a in drawn]
+
+
+def _dy_group(name):
+    """A gradient's group for the card-vs-host tolerance: the embeddings,
+    each encoder layer, the pooler, the MLM head, the NSP head."""
+    parts = name.split(".")
+    if parts[0] != "bert":
+        return parts[0]
+    return ".".join(parts[:4] if parts[1] == "encoder" else parts[:2])
+
+
+def _dy_steps(model, tracer, inputs, steps, amp=False):
+    """``steps`` functional steps (grad program, then fused Adam) from the
+    model's own weights, the tracer's seeds reset to a fixed point first
+    so two runs draw the same masks; returns the losses and the first
+    step's gradients by parameter name (host numpy)."""
+    import torch
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+    from paddle_tpu_torch.optimizer.fused import make_fused_adam
+
+    tracer._seed, tracer._seed_ctr = SEED + 7, 0
+    tracer._amp_enabled = amp
+
+    def loss_fn(i, m, n):
+        return model.loss(*model(i), m, n)
+
+    pv, lfn = functional_loss(model, loss_fn)
+    grad_fn = torch.func.grad_and_value(lfn)
+    state, _, update = make_fused_adam(pv, lr=DY_LR)
+    params, losses, first = pv, [], None
+    for _ in range(steps):
+        grads, loss = grad_fn(params, *inputs)
+        losses.append(float(loss))
+        if first is None:
+            names = [n for n, _ in model.named_parameters()]
+            first = {n: g.detach().cpu().numpy()
+                     for n, g in zip(names, grads)}
+        state, params = update(state, grads)
+    return losses, first
+
+
+@contextlib.contextmanager
+def _masks_seed_plus_one():
+    """The host's plain Philox masks drawn with every op's seed one
+    more: the masks of another seed, everything else unchanged."""
+    from paddle_tpu_torch.ops import nn_ops
+    plain = nn_ops._reference_keep
+
+    def shifted(shape, k0, k1, threshold, device):
+        return plain(shape, (k0 + 1) & 0xFFFFFFFF, k1, threshold, device)
+
+    nn_ops._reference_keep = shifted
+    try:
+        yield
+    finally:
+        nn_ops._reference_keep = plain
+
+
+def _dy_card_vs_host(model, tracer, init, card):
+    """Float32 (autocast off), dropout 0.1 live, DY_HOST_ROWS rows: two
+    steps on the card and on the host from the same weights, seeds and
+    Adam state (the host's plain Philox draws the card's masks): losses
+    within rtol 1e-4, first-step gradients within 1e-3 of the largest of
+    their group.  A host twin whose masks use seed + 1 must miss.  One
+    tape step (``loss.backward()``) on the card gives the functional
+    path's gradients within 1e-5 of the largest of their group."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    t0 = time.perf_counter()
+    inputs = _dy_inputs(DY_HOST_ROWS)
+    card_loss, card_g = _dy_steps(model, tracer, inputs, 2)
+    host_inputs = [t.cpu() for t in inputs]
+    with dybase.guard(fluid.CPUPlace()):
+        host_tracer = dybase._dygraph_tracer()
+        host = BertForPretraining(**DY)
+        host.train()
+        interop.layer_from_numpy(host, init)
+        host_loss, host_g = _dy_steps(host, host_tracer, host_inputs, 2)
+        with _masks_seed_plus_one():
+            twin_loss, twin_g = _dy_steps(host, host_tracer, host_inputs, 1)
+    _p(f"dygraph: card vs host, float32, dropout 0.1 live, {DY_HOST_ROWS} "
+       f"rows x 2 steps, in {time.perf_counter() - t0:.1f} s: losses card "
+       f"{card_loss}, host {host_loss} (rtol=1e-4); twin (masks of seed "
+       f"+ 1) {twin_loss}  [{card}]")
+    if not np.allclose(card_loss, host_loss, rtol=1e-4, atol=0.0):
+        raise SystemExit("chip_smoke: the dygraph step's losses on the card "
+                         "disagree with the host's")
+
+    def misses(grads, want, rel):
+        scale = {}
+        for n, g in want.items():
+            grp = _dy_group(n)
+            scale[grp] = max(scale.get(grp, 0.0), float(np.abs(g).max()))
+        bad, worst = [], {}
+        for n, g in want.items():
+            grp = _dy_group(n)
+            err = float(np.abs(grads[n] - g).max())
+            worst[grp] = max(worst.get(grp, 0.0), err / scale[grp])
+            if err > rel * scale[grp]:
+                bad.append(n)
+        return bad, worst
+
+    bad, worst = misses(card_g, host_g, 1e-3)
+    _p("dygraph: first-step grads, max |card - host| / largest of group: "
+       + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if bad:
+        raise SystemExit(f"chip_smoke: the card's dygraph gradients of "
+                         f"{bad[:5]} disagree with the host's")
+    twin_bad, _ = misses(twin_g, host_g, 1e-3)
+    _p(f"dygraph: the seed + 1 twin misses at {len(twin_bad)} of "
+       f"{len(host_g)} gradients (must miss)")
+    if not twin_bad:
+        raise SystemExit("chip_smoke: the card-vs-host dygraph check cannot "
+                         "tell the masks of another seed")
+
+    # the tape path on the card from the same seeds
+    tracer._seed, tracer._seed_ctr = SEED + 7, 0
+    model.clear_gradients()
+    loss = model.loss(*model(dybase.to_variable(inputs[0])),
+                      dybase.to_variable(inputs[1]),
+                      dybase.to_variable(inputs[2]))
+    loss.backward()
+    tape_g = {n: p.gradient_var.detach().cpu().numpy()
+              for n, p in model.named_parameters()}
+    model.clear_gradients()
+    bad, worst = misses(tape_g, card_g, 1e-5)
+    _p(f"dygraph: tape step (loss.backward()) loss {float(loss)} against "
+       f"the functional {card_loss[0]}; grads, max |tape - functional| / "
+       f"largest of group: {max(worst.values()):.2e} (tolerance 1e-5)")
+    if bad or not np.isclose(float(loss), card_loss[0], rtol=1e-6):
+        raise SystemExit(f"chip_smoke: the tape path's gradients of "
+                         f"{bad[:5]} disagree with the functional path's")
+    _dy_tape_cost(model, tracer, inputs, card)
+
+
+def _dy_tape_cost(model, tracer, inputs, card, reps=3):
+    """Wall ms of one gradient by the tape (forward with the tape on,
+    then ``loss.backward()``: ``generic_grad`` reruns each op's forward
+    inside its vjp) and by the functional path (``torch.func``'s one
+    autograd pass), float32 at the check's rows, in turns."""
+    import torch
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+
+    def loss_fn(i, m, n):
+        return model.loss(*model(i), m, n)
+
+    pv, lfn = functional_loss(model, loss_fn)
+    grad_fn = torch.func.grad(lfn)
+    variables = [dybase.to_variable(t) for t in inputs]
+
+    def tape():
+        loss_fn(*variables).backward()
+        model.clear_gradients()
+
+    times = {"tape": [], "functional": []}
+    for _ in range(reps):
+        for name, fn in (("tape", tape),
+                         ("functional", lambda: grad_fn(pv, *inputs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    _p(f"dygraph: one gradient at {DY_HOST_ROWS} rows, float32, wall ms "
+       f"by turns: tape {[round(t, 2) for t in times['tape']]}, functional "
+       f"{[round(t, 2) for t in times['functional']]}  [{card}]")
+
+
+# bf16 keeps 8 significant bits: each matmul input and gray op output is
+# rounded to 2^-9 relative.  The loss at these weights is a mean over
+# 8,192 tokens of a log-softmax near log(30522), and the roundings are of
+# random sign; 2^-6 is 8 times one rounding of the loss itself.
+BF16_LOSS_RTOL = 2 ** -6
+
+
+def phase_train_dygraph(card):
+    """The flagship step: ``BertForPretraining`` at BERT-base width
+    under the card's dygraph tracer, ``functional_loss``, the grad
+    program ``torch.func.grad_and_value`` and ``make_fused_adam``'s
+    update, bf16 autocast on, batch 64 of seq 128, dropout 0.1.  One
+    warm-up step, then DY_STEPS timed steps with the launch counts set to
+    0 before and read after: each must be its prediction.  The bf16
+    warm-up step's loss against a float32 step from the same weights and
+    seeds; then ``_dy_card_vs_host``.  Returns the launches and what the
+    profile phase needs."""
+    import torch
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.optimizer.fused import make_fused_adam
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    dybase.enable_dygraph()               # the card: CUDAPlace(0)
+    tracer = _dygraph_tracer()
+    model = BertForPretraining(**DY)
+    model.train()
+    init = model.state_dict()
+    n_params = sum(a.size for a in init.values())
+
+    def loss_fn(i, m, n):
+        return model.loss(*model(i), m, n)
+
+    pv, lfn = functional_loss(model, loss_fn)
+    grad_fn = torch.func.grad_and_value(lfn)
+    state, _, update = make_fused_adam(pv, lr=DY_LR)
+    inputs = _dy_inputs(DY_BATCH)
+    box = {"state": state, "params": update.params_of(state)}
+
+    def step():
+        grads, loss = grad_fn(box["params"], *inputs)
+        box["state"], box["params"] = update(box["state"], grads)
+        return loss
+
+    _p(f"dygraph: BertForPretraining at BERT-base width ({n_params} "
+       f"parameters, {len(pv)} tensors; vocab {DY['vocab_size']}, hidden "
+       f"{DY['hidden_size']}, {DY['num_layers']} layers, "
+       f"{DY['num_heads']} heads, FFN {DY['intermediate_size']}, dropout "
+       f"0.1), built on the card in {time.perf_counter() - t0:.1f} s")
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = True
+    t0 = time.perf_counter()
+    bf16_loss = float(step())
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    # the same first step in float32 from the same weights and seeds
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = False
+    _, f32_loss = grad_fn(update.params_of(state), *inputs)
+    f32_loss = float(f32_loss)
+    tracer._amp_enabled = True
+    _p(f"dygraph: warm-up step {warm:.2f} s; first-step loss bf16 "
+       f"{bf16_loss}, float32 {f32_loss} (rtol {BF16_LOSS_RTOL})")
+    if not (np.isfinite(bf16_loss) and np.isclose(
+            bf16_loss, f32_loss, rtol=BF16_LOSS_RTOL, atol=0.0)):
+        raise SystemExit("chip_smoke: the bf16 dygraph step's loss is not "
+                         "finite or not near the float32 step's")
+
+    counted = [cuda_kernels.flash_attention_fwd,
+               cuda_kernels.flash_attention_bwd, cuda_kernels.fused_dropout,
+               cuda_kernels.dropout_mask, cuda_kernels.fused_dropout_add,
+               cuda_kernels.fused_act_dropout,
+               cuda_kernels.fused_act_dropout_bwd]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(DY_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = DY_BATCH * DY_SEQ * DY_STEPS
+    _p(f"dygraph: {DY_STEPS} steps at {DY_BATCH} x {DY_SEQ} in {wall:.3f} "
+       f"s: {wall / DY_STEPS * 1e3:.2f} ms/step, {tokens / wall:.0f} "
+       f"tokens/s, peak memory {peak:.2f} GiB; losses "
+       f"{[round(x, 4) for x in losses]}  [{card}]")
+    want = {k: v * DY_STEPS for k, v in DY_LAUNCHES.items()}
+    _p(f"dygraph: launches in the timed steps {launches}, expected {want} "
+       f"(per step: flash 12 forward, 12 backward; dropout 13 forward = 12 "
+       f"attention-output + 1 embedding, 37 backward = 13 dropouts + 24 "
+       f"dropout-adds' x; 13 masks; 24 dropout-adds; 12 act-dropout "
+       f"forward, 12 backward)")
+    if launches != want:
+        raise SystemExit("chip_smoke: the dygraph step did not run through "
+                         "every kernel as predicted")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: a dygraph training loss is not finite")
+    # the first three steps from the initial weights and the same seeds,
+    # bf16 and float32, side by side (printed, not held: past the first
+    # step the two trajectories part)
+    traj = {amp: _dy_steps(model, tracer, inputs, 3, amp=amp)[0]
+            for amp in (True, False)}
+    _p(f"dygraph: first 3 steps from the initial weights, losses bf16 "
+       f"{traj[True]}, float32 {traj[False]}")
+    _dy_card_vs_host(model, tracer, init, card)
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = True
+    return launches, step
+
+
+def _dy_product_flops():
+    """2·M·K·N of the step's cuBLAS products (forward, and twice that
+    for the two gradients of each): per token, each layer's q, k, v,
+    output and two FFN products, the MLM transform and decoder, the
+    pooler and NSP head on the first token.  Attention's products are in
+    the flash kernels."""
+    h, f, v = DY["hidden_size"], DY["intermediate_size"], DY["vocab_size"]
+    tokens = DY_BATCH * DY_SEQ
+    per_token = DY["num_layers"] * (4 * h * h + 2 * h * f) + h * h + h * v
+    return 3 * 2.0 * (tokens * per_token + DY_BATCH * (h * h + 2 * h))
+
+
+def phase_profile_dygraph(step, card, iters=5):
+    """Where the dygraph step's time goes, as ``phase_profile`` measures
+    it: host ms unprofiled, device busy ms, the idle share and device ms
+    by kernel class of one step (grad program and fused Adam)."""
+    import torch
+
+    def one():
+        return step().cpu()
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(one, iters)
+    cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
+    gflop = _dy_product_flops() / 1e9
+    tokens = DY_BATCH * DY_SEQ
+    _p(f"profile: dygraph BERT step, {DY_BATCH} x {DY_SEQ}, bf16: host "
+       f"{host_ms:.3f} ms/step ({tokens / host_ms * 1e3:.0f} tokens/s), "
+       f"device busy {busy_ms:.3f} ms/step, idle share {idle:.4f}, "
+       f"{n_kern:.0f} kernels/step; products {gflop:.1f} GFLOP at "
+       f"{gflop / cublas_ms if cublas_ms else float('nan'):.1f} TFLOP/s  "
+       f"[{card}]")
+    _print_classes(by_class, "step")
+    torch.cuda.synchronize()
+
+
 _CLASSES = (("embedding_pool_fwd", "embedding_pool_fwd (csrc)"),
             ("embedding_pool_grad_rows",
              "embedding_pool_grad rows, the dense dW write (csrc)"),
@@ -1535,7 +2135,10 @@ _CLASSES = (("embedding_pool_fwd", "embedding_pool_fwd (csrc)"),
             ("flash_fwd", "flash_attention_fwd (csrc)"),
             ("flash_bwd", "flash_attention_bwd (csrc)"),
             ("fused_adam", "fused_adam (csrc)"),
+            ("dropout_mask_kernel", "dropout mask (csrc)"),
+            ("dropout_kernel", "dropout family (csrc)"),
             ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
+            ("nvjet", "matmul (cuBLAS)"),
             ("cutlass", "matmul (cuBLAS)"), ("catarray", "flatten copies"),
             ("memcpy", "host copies"), ("memset", "host copies"),
             ("index", "embedding gather/scatter"),
@@ -1739,6 +2342,7 @@ def main():
     adam_row = _timed("3 fused Adam", phase_kernels_adam)
     ctr_rows = _timed("3 embedding kernels", phase_kernels_ctr)
     momentum_row = _timed("3 fused Momentum", phase_kernels_momentum)
+    dropout_rows = _timed("3e dropout kernels", phase_kernels_dropout)
     serve_launches, served = _timed("4 serve", phase_serve, card)
     train_launches, trained = _timed("4b train", phase_train, card)
     ctr_serve_launches, arrays, ctr_served = _timed(
@@ -1746,9 +2350,12 @@ def main():
     ctr_launches, ctr_trained = _timed("4d train CTR", phase_train_ctr,
                                        arrays, card)
     del arrays
+    dy_launches, dy_step = _timed("4e train dygraph BERT",
+                                  phase_train_dygraph, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
+    _timed("5 profile dygraph", phase_profile_dygraph, dy_step, card)
     shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
              BERT_BASE["hidden"] // BERT_BASE["heads"]]
     # the forward runs on both paths: "launches" stays the served path's
@@ -1761,6 +2368,7 @@ def main():
                     "paddle_tpu/ops/pallas_kernels.py:41",
                     serve_launches["flash_attention_fwd"], fp32,
                     train_launches=train_launches["flash_attention_fwd"],
+                    dygraph_launches=dy_launches["flash_attention_fwd"],
                     max_err=fp32["max_abs_err"],
                     bound_us=fp32["bound_ms"] * 1e3,
                     dtype="float32", shape=shape, bf16=fwd_rows["bf16"]),
@@ -1768,6 +2376,7 @@ def main():
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                     "paddle_tpu/ops/pallas_kernels.py:41",
                     train_launches["flash_attention_bwd"], bwd_rows["fp32"],
+                    dygraph_launches=dy_launches["flash_attention_bwd"],
                     dtype="float32", shape=shape, bf16=bwd_rows["bf16"]),
         _kernel_row("fused_adam", "paddle_tpu_torch/csrc/fused_adam.cu",
                     "paddle_tpu/ops/pallas_kernels.py:647",
@@ -1805,6 +2414,27 @@ def main():
                     dtype="float32", values=momentum_row["values"],
                     op_ms=momentum_row["op_ms"],
                     library="torch._fused_sgd_")]
+    # the dropout rows: the dygraph step's shapes in float32 (its
+    # embedding dropout's dtype) with bfloat16 (the encoder's) beside;
+    # launches per the 10 timed dygraph steps
+    src = "paddle_tpu/ops/pallas_kernels.py"
+    replaces = {
+        "fused_dropout": (":175", ":693 fused_dropout_tpu; :203 and :271, "
+                          "the backward of dropout and of dropout-add's x"),
+        "dropout_mask": (":706", None),
+        "fused_dropout_add": (":246", ":280 fused_dropout_add_tpu"),
+        "fused_act_dropout": (":348", ":392 fused_act_dropout_tpu"),
+        "fused_act_dropout_bwd": (":370", None)}
+    for name, (site, also) in replaces.items():
+        extra = {"also_replaces": src + also} if also else {}
+        if name == "fused_dropout":
+            extra["library"] = "torch.nn.functional.dropout"
+        row = dropout_rows[name]
+        kernels.append(_kernel_row(
+            name, "paddle_tpu_torch/csrc/fused_dropout.cu", src + site,
+            dy_launches[name], row,
+            dtype=row["dtype"], shape=row["shape"], bf16=row["bf16"],
+            **extra))
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

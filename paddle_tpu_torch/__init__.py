@@ -10,9 +10,12 @@ path is a kernel written by hand for ``sm_90a`` (``csrc/``).
 Entry points run on the card unless the caller asks for the host:
 ``fluid.Executor()`` is ``fluid.Executor(fluid.CUDAPlace(0))``.
 
-Ported so far: the static serving path — build a Program with
-``fluid.layers``, ``serving.freeze_program``, ``fuse_attention``, and
-``serving.ServingEngine`` (see ROADMAP.md for what comes next).
+Ported so far: the static BERT and CTR programs, served
+(``serving.freeze_program``, the kernel-tier passes,
+``serving.ServingEngine``) and trained (``Executor.run``), and dygraph
+training of ``models.bert.BertForPretraining`` (``dygraph``,
+``dygraph.functional``, ``optimizer.fused``); see ROADMAP.md for what
+comes next.
 """
 from . import fluid
 from . import serving

@@ -449,6 +449,15 @@ def prune_ops(block, ops, targets=None, keep_state_writes=True,
     return kept
 
 
+# the dtype layers give parameters created without one
+# (paddle.set_default_dtype's contract; set_default_dtype is not ported)
+_DEFAULT_DTYPE = "float32"
+
+
+def get_default_dtype() -> str:
+    return _DEFAULT_DTYPE
+
+
 # ---------------------------------------------------------------------------
 # default program machinery
 # ---------------------------------------------------------------------------
@@ -476,3 +485,22 @@ def program_guard(main_program: Program,
         yield
     finally:
         _main_program, _startup_program = prev_main, prev_startup
+
+
+# ---------------------------------------------------------------------------
+# dygraph mode: the active tracer (dygraph/base.py), None in static mode
+# ---------------------------------------------------------------------------
+_dygraph_tracer_ = None
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer_ is not None
+
+
+def _set_dygraph_tracer(tracer):
+    global _dygraph_tracer_
+    _dygraph_tracer_ = tracer
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_

@@ -7,8 +7,9 @@ from . import sequence_lod
 from .tensor import (data, _to_variable, fill_constant, create_global_var,
                      concat)
 from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
-                 matmul, relu, reduce_mean, reduce_sum, mean, elementwise_op,
-                 elementwise_add)
+                 matmul, relu, gelu, tanh, reduce_mean, reduce_sum, mean,
+                 elementwise_op, elementwise_add, fused_dropout_add,
+                 fused_act_dropout, layer_norm, cast, squeeze, slice)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits)
 from .sequence_lod import sequence_pool

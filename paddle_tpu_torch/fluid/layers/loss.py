@@ -2,6 +2,7 @@
 subset the ported slices build)."""
 from __future__ import annotations
 
+from ..framework import in_dygraph_mode
 from ..layer_helper import LayerHelper
 
 
@@ -12,11 +13,13 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     softmax = helper.create_variable_for_type_inference(dtype=logits.dtype,
                                                         stop_gradient=True)
     loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
-    helper.append_op("softmax_with_cross_entropy",
-                     inputs={"Logits": [logits], "Label": [label]},
-                     outputs={"Softmax": [softmax], "Loss": [loss]},
-                     attrs={"soft_label": soft_label,
-                            "ignore_index": ignore_index, "axis": axis})
+    op = helper.append_op("softmax_with_cross_entropy",
+                          inputs={"Logits": [logits], "Label": [label]},
+                          outputs={"Softmax": [softmax], "Loss": [loss]},
+                          attrs={"soft_label": soft_label,
+                                 "ignore_index": ignore_index, "axis": axis})
+    if in_dygraph_mode():
+        softmax, loss = op["Softmax"][0], op["Loss"][0]
     if return_softmax:
         return loss, softmax
     return loss

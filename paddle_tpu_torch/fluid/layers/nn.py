@@ -1,12 +1,20 @@
 """fluid.layers op builders (counterpart of
 ``paddle_tpu/fluid/layers/nn.py``, the subset the ported slices build).  Each
-builder appends the same op type, slots and attrs as the TPU package."""
+builder appends the same op type, slots and attrs as the TPU package; under
+a dygraph tracer it runs the op eagerly and returns its output VarBase."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..framework import in_dygraph_mode
 from ..layer_helper import LayerHelper
 from .tensor import _to_variable
+
+
+def _out(op, slot, var):
+    """The layer's result: the traced output in dygraph mode, the
+    declared Variable in static mode."""
+    return op[slot][0] if in_dygraph_mode() else var
 
 
 def _single_out(op_type, x, attrs=None, dtype=None, out_slot="Out",
@@ -15,23 +23,32 @@ def _single_out(op_type, x, attrs=None, dtype=None, out_slot="Out",
     out = helper.create_variable_for_type_inference(
         dtype=dtype or getattr(x, "dtype", "float32"),
         stop_gradient=stop_gradient)
-    helper.append_op(op_type, inputs={in_slot: [x]},
-                     outputs={out_slot: [out]}, attrs=attrs or {})
-    return out
+    op = helper.append_op(op_type, inputs={in_slot: [x]},
+                          outputs={out_slot: [out]}, attrs=attrs or {})
+    return _out(op, out_slot, out)
 
 
 def relu(x, name=None):
     return _single_out("relu", x)
 
 
+def gelu(x, approximate=False, name=None):
+    return _single_out("gelu", x, {"approximate": approximate})
+
+
+def tanh(x, name=None):
+    return _single_out("tanh", x)
+
+
 def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, name=name)
-    y = _to_variable(None, y, getattr(x, "dtype", None))
+    if not in_dygraph_mode():
+        y = _to_variable(None, y, getattr(x, "dtype", None))
     out = helper.create_variable_for_type_inference(
         dtype=getattr(x, "dtype", "float32"))
-    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
+    op = helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                          outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(_out(op, "Out", out), act)
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
@@ -46,10 +63,10 @@ def _reduce_layer(op_type, x, dim=None, keep_dim=False, name=None):
         dim = [dim] if isinstance(dim, int) else list(dim)
         reduce_all = False
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
-                     attrs={"dim": dim, "keep_dim": keep_dim,
-                            "reduce_all": reduce_all})
-    return out
+    op = helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                          attrs={"dim": dim, "keep_dim": keep_dim,
+                                 "reduce_all": reduce_all})
+    return _out(op, "Out", out)
 
 
 def reduce_mean(x, dim=None, keep_dim=False, name=None):
@@ -109,12 +126,23 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op("matmul", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]},
-                     attrs={"transpose_X": transpose_x,
-                            "transpose_Y": transpose_y,
-                            "alpha": float(alpha)})
-    return out
+    op = helper.append_op("matmul", inputs={"X": [x], "Y": [y]},
+                          outputs={"Out": [out]},
+                          attrs={"transpose_X": transpose_x,
+                                 "transpose_Y": transpose_y,
+                                 "alpha": float(alpha)})
+    return _out(op, "Out", out)
+
+
+def _dropout_attrs(helper, dropout_prob, is_test, seed,
+                   dropout_implementation):
+    """A static op draws its op_seed from the program; a traced one keeps
+    ``seed or 0`` and takes its randomness from the tracer's per-op seed
+    (dygraph/base.py)."""
+    return {"dropout_prob": dropout_prob, "is_test": is_test,
+            "dropout_implementation": dropout_implementation,
+            "op_seed": seed or (0 if in_dygraph_mode()
+                                else helper.main_program.next_op_seed())}
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
@@ -123,12 +151,98 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     mask = helper.create_variable_for_type_inference(dtype="uint8",
                                                      stop_gradient=True)
-    attrs = {"dropout_prob": dropout_prob, "is_test": is_test,
-             "dropout_implementation": dropout_implementation,
-             "op_seed": seed or helper.main_program.next_op_seed()}
-    helper.append_op("dropout", inputs={"X": [x]},
-                     outputs={"Out": [out], "Mask": [mask]}, attrs=attrs)
-    return out
+    attrs = _dropout_attrs(helper, dropout_prob, is_test, seed,
+                           dropout_implementation)
+    op = helper.append_op("dropout", inputs={"X": [x]},
+                          outputs={"Out": [out], "Mask": [mask]},
+                          attrs=attrs)
+    return _out(op, "Out", out)
+
+
+def fused_dropout_add(x, residual, dropout_prob, is_test=False, seed=None,
+                      name=None, dropout_implementation="upscale_in_train"):
+    """dropout(x) + residual as one op (one kernel on the card), the mask
+    regenerated in the backward."""
+    helper = LayerHelper("fused_dropout_add", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("fused_dropout_add",
+                          inputs={"X": [x], "Residual": [residual]},
+                          outputs={"Out": [out]},
+                          attrs=_dropout_attrs(helper, dropout_prob, is_test,
+                                               seed, dropout_implementation))
+    return _out(op, "Out", out)
+
+
+def fused_act_dropout(x, act="gelu", dropout_prob=0.0, is_test=False,
+                      seed=None, name=None,
+                      dropout_implementation="upscale_in_train"):
+    """dropout(act(x)) as one op; its backward fuses act'(x) with the
+    regenerated mask."""
+    helper = LayerHelper("fused_act_dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    attrs = _dropout_attrs(helper, dropout_prob, is_test, seed,
+                           dropout_implementation)
+    attrs["act"] = act
+    op = helper.append_op("fused_act_dropout", inputs={"X": [x]},
+                          outputs={"Out": [out]}, attrs=attrs)
+    return _out(op, "Out", out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("layer_norm", name=name)
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, norm_shape, input.dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, norm_shape, input.dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    m = helper.create_variable_for_type_inference(dtype="float32",
+                                                  stop_gradient=True)
+    v = helper.create_variable_for_type_inference(dtype="float32",
+                                                  stop_gradient=True)
+    op = helper.append_op("layer_norm", inputs=inputs,
+                          outputs={"Y": [out], "Mean": [m], "Variance": [v]},
+                          attrs={"epsilon": epsilon,
+                                 "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(_out(op, "Y", out), act)
+
+
+def cast(x, dtype):
+    from ..framework import convert_dtype
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    op = helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                          attrs={"out_dtype": dtype})
+    return _out(op, "Out", out)
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    op = helper.append_op("squeeze2", inputs={"X": [input]},
+                          outputs={"Out": [out], "XShape": [xshape]},
+                          attrs={"axes": list(axes)})
+    return _out(op, "Out", out)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("slice", inputs={"Input": [input]},
+                          outputs={"Out": [out]},
+                          attrs={"axes": list(axes), "starts": list(starts),
+                                 "ends": list(ends)})
+    return _out(op, "Out", out)
 
 
 def softmax(input, axis=-1, use_cudnn=False, name=None):
@@ -140,10 +254,10 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
                                                        stop_gradient=True)
-    helper.append_op("reshape2", inputs={"X": [x]},
-                     outputs={"Out": [out], "XShape": [xshape]},
-                     attrs={"shape": list(shape)})
-    return helper.append_activation(out, act)
+    op = helper.append_op("reshape2", inputs={"X": [x]},
+                          outputs={"Out": [out], "XShape": [xshape]},
+                          attrs={"shape": list(shape)})
+    return helper.append_activation(_out(op, "Out", out), act)
 
 
 def transpose(x, perm, name=None):
@@ -151,16 +265,16 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
                                                        stop_gradient=True)
-    helper.append_op("transpose2", inputs={"X": [x]},
-                     outputs={"Out": [out], "XShape": [xshape]},
-                     attrs={"axis": list(perm)})
-    return out
+    op = helper.append_op("transpose2", inputs={"X": [x]},
+                          outputs={"Out": [out], "XShape": [xshape]},
+                          attrs={"axis": list(perm)})
+    return _out(op, "Out", out)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     helper = LayerHelper("scale", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op("scale", inputs={"X": [x]}, outputs={"Out": [out]},
-                     attrs={"scale": float(scale), "bias": float(bias),
-                            "bias_after_scale": bias_after_scale})
-    return helper.append_activation(out, act)
+    op = helper.append_op("scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                          attrs={"scale": float(scale), "bias": float(bias),
+                                 "bias_after_scale": bias_after_scale})
+    return helper.append_activation(_out(op, "Out", out), act)

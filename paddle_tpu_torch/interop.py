@@ -2,7 +2,8 @@
 
 The two packages draw different random numbers from the same seed, so a
 comparison carries the reference's parameter values into the port's
-scope instead of re-running the port's initializers.
+scope (static programs) or layer (dygraph models) instead of re-running
+the port's initializers.
 """
 from __future__ import annotations
 
@@ -32,3 +33,23 @@ def scope_to_numpy(scope: Scope, names: Iterable[str]) -> Dict[str, np.ndarray]:
         if v is not None:
             out[n] = v.detach().cpu().numpy()
     return out
+
+
+def layer_from_numpy(layer, state: Dict[str, np.ndarray]):
+    """Set a dygraph Layer's parameters from ``state``, a
+    ``Layer.state_dict()`` of the same model (numpy arrays by structured
+    name), each on its own device and dtype.  Refuses a name the layer
+    lacks, a name ``state`` lacks, and a shape that differs."""
+    mine = dict(layer._named_leaves())
+    missing = [n for n in mine if n not in state]
+    extra = [n for n in state if n not in mine]
+    if missing or extra:
+        raise KeyError(f"state_dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, v in mine.items():
+        a = np.asarray(state[name])
+        if tuple(a.shape) != v.shape:
+            raise ValueError(f"{name}: shape {tuple(a.shape)} is not the "
+                             f"layer's {v.shape}")
+        v.set_value(a)
+    return layer

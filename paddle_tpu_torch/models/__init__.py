@@ -1,3 +1,3 @@
-"""Model programs (counterpart of ``paddle_tpu.models``; the static BERT
-demo program so far)."""
+"""Models (counterpart of ``paddle_tpu.models``): the static BERT and CTR
+demo programs (static_graphs.py) and the dygraph BERT family (bert.py)."""
 from .static_graphs import build_bert_train_program, bert_demo_feed

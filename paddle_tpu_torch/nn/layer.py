@@ -1,0 +1,152 @@
+"""paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``, the
+activations and the transformer encoder stack BERT runs).
+
+The encoder layer always emits the fused epilogues: ``fused_dropout_add``
+for each residual and ``fused_act_dropout`` for the FFN's gelu or relu.
+The reference's ``PADDLE_TPU_UNFUSED_EPILOGUE`` switch, an ablation knob
+of its MFU sweep, is not ported: an environment variable would take
+training off the kernels.
+"""
+from __future__ import annotations
+
+import copy
+import math
+
+from ..dygraph.layers import Layer, LayerList
+from ..dygraph.nn import Linear, LayerNorm
+from ..fluid import layers as L
+from ..fluid.framework import _dygraph_tracer
+
+
+def _act_layer(fname):
+    class _Act(Layer):
+        def forward(self, x):
+            return getattr(L.nn, fname)(x)
+    _Act.__name__ = fname.title().replace("_", "")
+    return _Act
+
+
+ReLU = _act_layer("relu")
+GELU = _act_layer("gelu")
+Tanh = _act_layer("tanh")
+
+
+class MultiHeadAttention(Layer):
+    """Self- or cross-attention over the ``fused_multihead_attention`` op
+    (the Hopper flash-attention kernels on the card); the dropout is on
+    the attention output, before the output projection, as in the
+    reference."""
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, weight_attr,
+                             bias_attr)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, weight_attr,
+                             bias_attr)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        key = query if key is None else key
+        value = key if value is None else value
+        b, tq = query.shape[0], query.shape[1]
+        h, d = self.num_heads, self.head_dim
+
+        def heads(x, t):
+            return L.transpose(L.reshape(x, [b, t, h, d]), [0, 2, 1, 3])
+
+        q = heads(self.q_proj(query), tq)
+        k = heads(self.k_proj(key), key.shape[1])
+        v = heads(self.v_proj(value), value.shape[1])
+        ins = {"Q": [q], "K": [k], "V": [v]}
+        if attn_mask is not None:
+            ins["Mask"] = [attn_mask]
+        out = _dygraph_tracer().trace_op(
+            "fused_multihead_attention", ins, {"Out": [None]},
+            {"scale": 1.0 / math.sqrt(d)})["Out"][0]
+        out = L.reshape(L.transpose(out, [0, 2, 1, 3]), [b, tq, h * d])
+        if self.dropout:
+            out = L.dropout(out, self.dropout, is_test=not self.training,
+                            dropout_implementation="upscale_in_train")
+        return self.out_proj(out)
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            attn_dropout or dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self._dropout = dropout
+        self._act_dropout = act_dropout if act_dropout is not None \
+            else dropout
+        self._act = activation
+        self._pre_norm = normalize_before
+
+    def _drop_add(self, x, residual):
+        """The residual epilogue, one fused op (one kernel on the card)."""
+        if self._dropout:
+            return L.fused_dropout_add(x, residual, self._dropout,
+                                       is_test=not self.training)
+        return residual + x
+
+    def _mlp_mid(self, x):
+        if self._act in ("gelu", "relu"):
+            return L.fused_act_dropout(
+                x, act=self._act, dropout_prob=(
+                    self._act_dropout if self.training else 0.0),
+                is_test=not self.training)
+        a = getattr(L.nn, self._act)(x)
+        if self._act_dropout and self.training:
+            a = L.dropout(a, self._act_dropout, is_test=False,
+                          dropout_implementation="upscale_in_train")
+        return a
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self._pre_norm:
+            src = self.norm1(src)
+        src = self.self_attn(src, src, src, src_mask)
+        src = self._drop_add(src, residual)
+        if not self._pre_norm:
+            src = self.norm1(src)
+        residual = src
+        if self._pre_norm:
+            src = self.norm2(src)
+        src = self.linear2(self._mlp_mid(self.linear1(src)))
+        src = self._drop_add(src, residual)
+        if not self._pre_norm:
+            src = self.norm2(src)
+        return src
+
+
+class TransformerEncoder(Layer):
+    """``num_layers`` deep copies of ``encoder_layer`` (so every layer
+    starts from the same weights, as in the reference)."""
+
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([encoder_layer] + [
+            copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None):
+        out = src
+        for layer in self.layers:
+            out = layer(out, src_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out

@@ -9,7 +9,7 @@ from .registry import register_op, get_op, has_op, all_ops, LoweringContext
 from . import math            # noqa: F401  elementwise/activation/matmul
 from . import manipulation    # noqa: F401  reshape/transpose/creation
 from . import reduction       # noqa: F401  reductions
-from . import nn_ops          # noqa: F401  softmax/dropout
+from . import nn_ops          # noqa: F401  softmax/dropout family/layer_norm
 from . import misc_ops        # noqa: F401  fused compositions
 from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses

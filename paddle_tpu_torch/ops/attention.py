@@ -28,7 +28,8 @@ import math
 import torch
 
 from . import cuda_kernels
-from .nn_ops import bernoulli_keep
+from .nn_ops import _key_words, _reference_dropout, _scale_for, \
+    _threshold_for
 from .registry import register_op
 
 
@@ -50,20 +51,20 @@ def _scores(q, k, mask, scale, causal):
 
 
 def _reference_attention(q, k, v, mask, scale, causal,
-                         dropout_rate=0.0, dropout_gen=None,
+                         dropout_rate=0.0, dropout_key=None,
                          dropout_upscale=True, prob_scale=None):
     """Plain PyTorch version, line for line the TPU package's
     ``_reference_attention``: fp32 scores, causal masking with the fp32
     minimum, probabilities cast to q's dtype before the product with V,
-    dropout on the probabilities."""
+    dropout on the probabilities (the ``dropout`` op's Philox mask under
+    the key words ``dropout_key``, so the fused op drops what the chain
+    it replaced dropped)."""
     s = _scores(q, k, mask, scale, causal)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     if dropout_rate:
-        keep = bernoulli_keep(dropout_gen, p.shape, 1.0 - dropout_rate,
-                              p.device)
-        zero = torch.zeros((), dtype=p.dtype, device=p.device)
-        kept = p / (1.0 - dropout_rate) if dropout_upscale else p
-        p = torch.where(keep, kept, zero).to(p.dtype)
+        p = _reference_dropout(p, *dropout_key,
+                               _threshold_for(dropout_rate),
+                               _scale_for(dropout_rate, dropout_upscale))
     elif prob_scale is not None:
         p = (p * prob_scale).to(p.dtype)
     return torch.matmul(p, v)
@@ -139,25 +140,29 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, mask, o, m, l = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dq, dk, dv = _flash_attention_bwd(q, k, v, mask, ctx.scale,
-                                          ctx.causal, o, m, l, do)
+        # under torch.func.grad the saved tensors still require grad at
+        # the transform's level; launching with grad on would send the
+        # custom op back into autograd, which it has no rule for
+        with torch.no_grad():
+            dq, dk, dv = _flash_attention_bwd(q, k, v, mask, ctx.scale,
+                                              ctx.causal, o, m, l, do)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, scale=None, causal=False,
-                    dropout_rate=0.0, dropout_gen=None,
+                    dropout_rate=0.0, dropout_key=None,
                     dropout_upscale=True, prob_scale=None):
     """``softmax(scale·QKᵀ + mask)·V`` on the kernel for CUDA tensors,
     on the plain version otherwise (see the module docstring)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    drop_active = bool(dropout_rate) and dropout_gen is not None
+    drop_active = bool(dropout_rate) and dropout_key is not None
     if q.device.type == "cuda" and not drop_active and prob_scale is None:
         if torch.is_grad_enabled():
             return _FlashAttention.apply(q, k, v, mask, scale, causal)[0]
         return cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal)
     return _reference_attention(q, k, v, mask, scale, causal,
                                 dropout_rate if drop_active else 0.0,
-                                dropout_gen, dropout_upscale, prob_scale)
+                                dropout_key, dropout_upscale, prob_scale)
 
 
 @register_op("fused_multihead_attention", nondiff_inputs=("Mask",))
@@ -168,7 +173,7 @@ def _fused_mha(ins, attrs, ctx):
     # dropout op; in serving, ctx.is_test (the frozen program's hint)
     # turns it off and keeps the op on the kernel
     rate = float(attrs.get("dropout_rate", 0.0) or 0.0)
-    dropout_gen = None
+    dropout_key = None
     prob_scale = None
     upscale = attrs.get("dropout_implementation",
                         "downgrade_in_infer") == "upscale_in_train"
@@ -177,10 +182,11 @@ def _fused_mha(ins, attrs, ctx):
             if not upscale:
                 prob_scale = 1.0 - rate
         else:
-            dropout_gen = ctx.key_for(attrs.get("dropout_seed", 0))
+            dropout_key = _key_words(ctx.seed_for(
+                attrs.get("dropout_seed", 0)))
     out = flash_attention(q, k, v, mask,
                           scale=attrs.get("scale", None),
                           causal=attrs.get("causal", False),
-                          dropout_rate=rate, dropout_gen=dropout_gen,
+                          dropout_rate=rate, dropout_key=dropout_key,
                           dropout_upscale=upscale, prob_scale=prob_scale)
     return {"Out": [out]}

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C entry points of each source: name -> (argtypes, restype)
 _P, _I, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
-_F, _I64 = ctypes.c_float, ctypes.c_int64
+_F, _I64, _U = ctypes.c_float, ctypes.c_int64, ctypes.c_uint32
 _ERR = {"pt_cuda_error_string": ([_I], ctypes.c_char_p)}
 _SIGNATURES = {
     "flash_attention": {
@@ -71,6 +71,15 @@ _SIGNATURES = {
     "fused_momentum": {
         "pt_fused_momentum": ([_P, _P, _P, _P, _P, _P, _I64, _F, _F, _I,
                                _P], _I),
+        **_ERR,
+    },
+    "fused_dropout": {
+        "pt_dropout": ([_P, _P, _I64, _U, _U, _U, _F, _I, _P], _I),
+        "pt_dropout_mask": ([_P, _I64, _U, _U, _U, _P], _I),
+        "pt_dropout_add": ([_P, _P, _P, _I64, _U, _U, _U, _F, _I, _P], _I),
+        "pt_act_dropout": ([_P, _P, _I64, _U, _U, _U, _F, _I, _I, _P], _I),
+        "pt_act_dropout_bwd": ([_P, _P, _P, _I64, _U, _U, _U, _F, _I, _I,
+                                _P], _I),
         **_ERR,
     },
 }
@@ -511,3 +520,164 @@ def fused_momentum(p, g, v, lr, mu: float, l2: float, nesterov: bool):
 
 
 fused_momentum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dropout, its mask, dropout-add, act-dropout and its backward
+# (csrc/fused_dropout.cu)
+# ---------------------------------------------------------------------------
+_DROPOUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ACTS = {"gelu": 0, "relu": 1}
+
+
+def _check_dropout(what, named, ref):
+    """Every tensor of ``named`` on ref's CUDA device, of ref's dtype
+    (float32 or bfloat16) and shape, contiguous."""
+    if ref.dtype not in _DROPOUT_DTYPES:
+        raise ValueError(f"{what}: dtype {ref.dtype} not supported "
+                         f"(float32, bfloat16)")
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{ref.device}, got {t.device}")
+        if t.dtype != ref.dtype or t.shape != ref.shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {ref.dtype} "
+                             f"of shape {tuple(ref.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def _key_args(seed: int, threshold: int):
+    """The seed's two 32-bit key words and the threshold, range-checked
+    for the kernel's uint32 arguments."""
+    if not 0 <= seed < 2 ** 64 or not 0 <= threshold < 2 ** 32:
+        raise ValueError(f"seed {seed} must be a 64-bit and threshold "
+                         f"{threshold} a 32-bit unsigned value")
+    return seed & 0xFFFFFFFF, seed >> 32, threshold
+
+
+def fused_dropout(x, seed: int, threshold: int, scale: float):
+    """``where(bits >= threshold, x·scale, 0)`` on the Hopper kernel, the
+    bits Philox4x32-10 of (seed, flat index) as ``ops/nn_ops.py``
+    describes; x CUDA float32 or bfloat16, contiguous; the product in
+    float32, rounded once.  The backward of dropout is this on the
+    cotangent."""
+    what = "fused_dropout"
+    _check_dropout(what, (("x", x),), x)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _lib("fused_dropout")
+    with torch.cuda.device(x.device):
+        err = lib.pt_dropout(x.data_ptr(), out.data_ptr(), x.numel(),
+                             *_key_args(seed, threshold), float(scale),
+                             _DROPOUT_DTYPES[x.dtype], _stream(x.device))
+    _check_launch(lib, err, what)
+    fused_dropout.launches += 1
+    return out
+
+
+fused_dropout.launches = 0
+
+
+def dropout_mask(x, seed: int, threshold: int):
+    """The uint8 keep mask (``bits >= threshold``) of x's shape from the
+    same bits as ``fused_dropout``; x (CUDA) gives the shape and device
+    and is not read."""
+    what = "dropout_mask"
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: x must be a CUDA tensor, got {x.device}")
+    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.numel() == 0:
+        return mask
+    k0, k1, thr = _key_args(seed, threshold)
+    lib = _lib("fused_dropout")
+    with torch.cuda.device(x.device):
+        err = lib.pt_dropout_mask(mask.data_ptr(), x.numel(), k0, k1, thr,
+                                  _stream(x.device))
+    _check_launch(lib, err, what)
+    dropout_mask.launches += 1
+    return mask
+
+
+dropout_mask.launches = 0
+
+
+def fused_dropout_add(x, r, seed: int, threshold: int, scale: float):
+    """``where(bits >= threshold, x·scale, 0) + r`` on the Hopper kernel,
+    in float32, rounded once; x and r CUDA, of one dtype (float32 or
+    bfloat16) and shape, contiguous."""
+    what = "fused_dropout_add"
+    _check_dropout(what, (("x", x), ("r", r)), x)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _lib("fused_dropout")
+    with torch.cuda.device(x.device):
+        err = lib.pt_dropout_add(x.data_ptr(), r.data_ptr(), out.data_ptr(),
+                                 x.numel(), *_key_args(seed, threshold),
+                                 float(scale), _DROPOUT_DTYPES[x.dtype],
+                                 _stream(x.device))
+    _check_launch(lib, err, what)
+    fused_dropout_add.launches += 1
+    return out
+
+
+fused_dropout_add.launches = 0
+
+
+def _act_code(what, act):
+    if act not in _ACTS:
+        raise ValueError(f"{what}: act {act!r} not supported (gelu, relu)")
+    return _ACTS[act]
+
+
+def fused_act_dropout(x, seed: int, threshold: int, scale: float, act: str):
+    """``where(bits >= threshold, act(x)·scale, 0)`` on the Hopper kernel,
+    act ``gelu`` (exact erf) or ``relu``, in float32, rounded once; x CUDA
+    float32 or bfloat16, contiguous."""
+    what = "fused_act_dropout"
+    _check_dropout(what, (("x", x),), x)
+    code = _act_code(what, act)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _lib("fused_dropout")
+    with torch.cuda.device(x.device):
+        err = lib.pt_act_dropout(x.data_ptr(), out.data_ptr(), x.numel(),
+                                 *_key_args(seed, threshold), float(scale),
+                                 code, _DROPOUT_DTYPES[x.dtype],
+                                 _stream(x.device))
+    _check_launch(lib, err, what)
+    fused_act_dropout.launches += 1
+    return out
+
+
+fused_act_dropout.launches = 0
+
+
+def fused_act_dropout_bwd(x, g, seed: int, threshold: int, scale: float,
+                          act: str):
+    """``where(bits >= threshold, g·scale, 0) · act'(x)`` on the Hopper
+    kernel, the mask regenerated from the seed; x and g CUDA, of one
+    dtype and shape, contiguous."""
+    what = "fused_act_dropout_bwd"
+    _check_dropout(what, (("x", x), ("g", g)), x)
+    code = _act_code(what, act)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    lib = _lib("fused_dropout")
+    with torch.cuda.device(x.device):
+        err = lib.pt_act_dropout_bwd(x.data_ptr(), g.data_ptr(),
+                                     dx.data_ptr(), x.numel(),
+                                     *_key_args(seed, threshold),
+                                     float(scale), code,
+                                     _DROPOUT_DTYPES[x.dtype],
+                                     _stream(x.device))
+    _check_launch(lib, err, what)
+    fused_act_dropout_bwd.launches += 1
+    return dx
+
+
+fused_act_dropout_bwd.launches = 0

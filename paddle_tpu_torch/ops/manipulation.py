@@ -37,6 +37,41 @@ def _transpose2(ins, attrs, ctx):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
+@register_op("squeeze2")
+def _squeeze2(ins, attrs, ctx):
+    """Drop the listed dims of size 1 (every size-1 dim when none is
+    listed); a listed dim of another size stays."""
+    x = _x(ins)
+    axes = [a % x.ndim for a in attrs.get("axes", [])] \
+        or [i for i, d in enumerate(x.shape) if d == 1]
+    out = x.reshape([d for i, d in enumerate(x.shape)
+                     if not (i in axes and d == 1)])
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("slice", nondiff_inputs=("StartsTensor", "EndsTensor"))
+def _slice(ins, attrs, ctx):
+    """Static starts/ends per axis, clamped to the dim, negatives from the
+    end; ``decrease_axis`` dims squeezed."""
+    x = _x(ins, "Input")
+    index = [slice(None)] * x.ndim
+    for ax, s, e in zip(attrs["axes"], attrs.get("starts", []),
+                        attrs.get("ends", [])):
+        dim = x.shape[ax]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        index[ax] = slice(s, e)
+    out = x[tuple(index)]
+    for ax in sorted(attrs.get("decrease_axis", []) or [], reverse=True):
+        out = out.squeeze(ax)
+    return {"Out": [out]}
+
+
+@register_op("cast")
+def _cast(ins, attrs, ctx):
+    return {"Out": [_x(ins).to(torch_dtype(attrs["out_dtype"]))]}
+
+
 @register_op("concat")
 def _concat(ins, attrs, ctx):
     axis = int(ins["AxisTensor"][0]) if ins.get("AxisTensor") \

@@ -52,6 +52,18 @@ def _relu(ins, attrs, ctx):
     return {"Out": [torch.relu(_x(ins))]}
 
 
+@register_op("gelu")
+def _gelu(ins, attrs, ctx):
+    approximate = "tanh" if attrs.get("approximate", False) else "none"
+    return {"Out": [torch.nn.functional.gelu(_x(ins),
+                                             approximate=approximate)]}
+
+
+@register_op("tanh")
+def _tanh(ins, attrs, ctx):
+    return {"Out": [torch.tanh(_x(ins))]}
+
+
 @register_op("scale")
 def _scale(ins, attrs, ctx):
     x = _x(ins)

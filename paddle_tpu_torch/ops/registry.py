@@ -69,8 +69,8 @@ _MASK64 = (1 << 64) - 1
 
 
 def _mix(a: int, b: int) -> int:
-    """SplitMix64 finaliser over the pair: a seed for ``torch.Generator``
-    that changes with either input."""
+    """SplitMix64 finaliser over the pair: a 64-bit seed that changes
+    with either input."""
     z = (int(a) * 0x9E3779B97F4A7C15 + int(b) + 0x632BE59BD9B4E019) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
@@ -82,8 +82,8 @@ class LoweringContext:
 
     ``device`` is where ops that create tensors from nothing (fill and
     random ops) put them.  ``base_seed`` plays the TPU package's step
-    key: random ops derive their generator from (base_seed, op_seed), so
-    one op draws the same numbers wherever it is lowered in a step.
+    key: random ops derive their seed from (base_seed, op_seed), so one
+    op draws the same numbers wherever it is lowered in a step.
     ``is_test`` switches dropout to its inference behaviour.  Under shape
     bucketing ``batch_padded`` is the padded leading dim and
     ``batch_valid`` the true row count.
@@ -109,13 +109,18 @@ class LoweringContext:
                 and self.batch_valid != dim0
                 and self.cur_op_batch_major is not False)
 
+    def seed_for(self, op_seed: int) -> int:
+        """The 64-bit seed of one op's random numbers, mixed from
+        (base_seed, op_seed): the dropout kernels' Philox key.  A host
+        integer, so a launch never waits on the card for it."""
+        return _mix(0 if self.base_seed is None else self.base_seed,
+                    int(op_seed))
+
     def key_for(self, op_seed: int) -> Optional[torch.Generator]:
-        """A generator on ``device`` seeded from (base_seed, op_seed);
+        """A generator on ``device`` seeded with ``seed_for(op_seed)``;
         None on the meta device, where nothing is drawn."""
         if self.device.type == "meta":
             return None
-        seed = _mix(0 if self.base_seed is None else self.base_seed,
-                    int(op_seed))
         g = torch.Generator(device=self.device)
-        g.manual_seed(seed)
+        g.manual_seed(self.seed_for(op_seed))
         return g

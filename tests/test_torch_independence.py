@@ -55,6 +55,8 @@ def test_import_leaves_jax_and_reference_out():
     assert report["bad"] == []
     assert "paddle_tpu_torch.ops.cuda_kernels" in report["modules"]
     assert "paddle_tpu_torch.serving.engine" in report["modules"]
+    assert "paddle_tpu_torch.dygraph.base" in report["modules"]
+    assert "paddle_tpu_torch.models.bert" in report["modules"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

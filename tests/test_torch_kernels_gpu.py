@@ -20,7 +20,13 @@ gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
 gradient kernel: two launches ``torch.equal``, and ``torch.equal`` to the
 plain version computed on the host, whose ``index_add_`` adds in index
 order.  ``fused_momentum`` against the per-param ``momentum`` lowering:
-``torch.equal``.
+``torch.equal``.  The dropout kernels against their plain Philox
+versions (ops/nn_ops.py): masks, dropout and dropout-add ``torch.equal``
+(the same float32 products and sums, each rounded once); act-dropout
+forward and backward within 1e-6 relative and absolute in float32 (the
+kernel's erff and expf against torch's erf and exp, a few ulp) and one
+bfloat16 ulp (rtol 2^-7) in bfloat16, where such a difference can round
+to the neighbouring value.
 """
 
 import numpy as np
@@ -379,3 +385,127 @@ def test_fused_momentum_equals_per_param_momentum(cuda, sizes, kind):
              for s, v in ins.items()}, attrs, LoweringContext(cuda))
         for slot, outs in one.items():
             assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
+# ---------------------------------------------------------------------------
+# the dropout kernels (csrc/fused_dropout.cu) against their plain versions
+# ---------------------------------------------------------------------------
+ACT_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
+
+
+def _dropout_inputs(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(cuda, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate,upscale", [(0.1, True), (0.5, False)])
+@pytest.mark.parametrize("shape", [(64, 768), (7, 13)])
+def test_dropout_and_dropout_add_equal_plain(cuda, dtype, rate, upscale,
+                                             shape):
+    from paddle_tpu_torch.ops import nn_ops
+    x, r, _ = _dropout_inputs(cuda, shape, dtype)
+    seed = 0x1234_5678_9ABC_DEF0
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate,
+                                                                 upscale)
+    before = [f.launches for f in (cuda_kernels.fused_dropout,
+                                   cuda_kernels.dropout_mask,
+                                   cuda_kernels.fused_dropout_add)]
+    out = cuda_kernels.fused_dropout(x, seed, thr, scale)
+    mask = cuda_kernels.dropout_mask(x, seed, thr)
+    add = cuda_kernels.fused_dropout_add(x, r, seed, thr, scale)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (cuda_kernels.fused_dropout,
+                                 cuda_kernels.dropout_mask,
+                                 cuda_kernels.fused_dropout_add)] == \
+        [b + 1 for b in before]
+    keep = nn_ops._reference_keep(x.shape, k0, k1, thr, x.device)
+    assert torch.equal(mask, keep.to(torch.uint8))
+    assert torch.equal(out, nn_ops._reference_dropout(x, k0, k1, thr,
+                                                      scale))
+    assert torch.equal(add, nn_ops._reference_dropout_add(x, r, k0, k1, thr,
+                                                          scale))
+    twin = cuda_kernels.dropout_mask(x, seed + 1, thr)
+    assert not torch.equal(twin, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_act_dropout_forward_and_backward_match_plain(cuda, dtype, act):
+    from paddle_tpu_torch.ops import nn_ops
+    x, g, _ = _dropout_inputs(cuda, (33, 3072), dtype, seed=1)
+    seed, rate = 987654321, 0.1
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
+    out = cuda_kernels.fused_act_dropout(x, seed, thr, scale, act)
+    dx = cuda_kernels.fused_act_dropout_bwd(x, g, seed, thr, scale, act)
+    torch.cuda.synchronize()
+    want = nn_ops._reference_act_dropout(x, k0, k1, thr, scale, act)
+    want_dx = nn_ops._reference_act_dropout_bwd(x, g, k0, k1, thr, scale,
+                                                act)
+    torch.testing.assert_close(out.float(), want.float(), **ACT_TOL[dtype])
+    torch.testing.assert_close(dx.float(), want_dx.float(),
+                               **ACT_TOL[dtype])
+    # zeros exactly where the mask drops
+    keep = nn_ops._reference_keep(x.shape, k0, k1, thr, x.device)
+    assert not torch.any(out[~keep]) and not torch.any(dx[~keep])
+
+
+def test_dropout_ops_launch_the_kernels_under_func_grad(cuda):
+    """The three ops on CUDA tensors under torch.func.grad: one forward
+    launch each (and the dropout op's mask), backward launches of the
+    dropout kernel for dropout and dropout-add and of the act-dropout
+    backward kernel; the gradients are the plain ones."""
+    from paddle_tpu_torch.ops import nn_ops
+    x, r, w = _dropout_inputs(cuda, (16, 768), torch.float32, seed=2)
+    ctx = LoweringContext(cuda, base_seed=5)
+    attrs = {"dropout_prob": 0.1, "op_seed": 3,
+             "dropout_implementation": "upscale_in_train"}
+    counted = (cuda_kernels.fused_dropout, cuda_kernels.dropout_mask,
+               cuda_kernels.fused_dropout_add, cuda_kernels.fused_act_dropout,
+               cuda_kernels.fused_act_dropout_bwd)
+    before = [f.launches for f in counted]
+
+    def loss(x, r):
+        a = get_op("dropout").fn({"X": [x]}, attrs, ctx)["Out"][0]
+        b = get_op("fused_dropout_add").fn({"X": [a], "Residual": [r]},
+                                           attrs, ctx)["Out"][0]
+        c = get_op("fused_act_dropout").fn({"X": [b]}, dict(attrs,
+                                                           act="gelu"),
+                                           ctx)["Out"][0]
+        return (c * w).sum()
+
+    gx, gr = torch.func.grad(loss, argnums=(0, 1))(x, r)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == \
+        [3, 1, 1, 1, 1]
+    k0, k1 = nn_ops._key_words(ctx.seed_for(3))
+    thr, scale = nn_ops._threshold_for(0.1), nn_ops._scale_for(0.1, True)
+    keep = nn_ops._reference_keep(x.shape, k0, k1, thr, x.device).float()
+    b = nn_ops._reference_dropout_add(
+        nn_ops._reference_dropout(x, k0, k1, thr, scale), r, k0, k1, thr,
+        scale)
+    want_gr = nn_ops._reference_act_dropout_bwd(b, w, k0, k1, thr, scale,
+                                                "gelu")
+    torch.testing.assert_close(gr, want_gr, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gx, want_gr * keep * scale * keep * scale,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_dropout_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="not supported"):
+        cuda_kernels.fused_dropout(x.half(), 1, 5, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.fused_dropout(x.t(), 1, 5, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_kernels.fused_dropout_add(x, x[:2], 1, 5, 1.0)
+    with pytest.raises(ValueError, match="act"):
+        cuda_kernels.fused_act_dropout(x, 1, 5, 1.0, "tanh")
+    with pytest.raises(ValueError, match="64-bit"):
+        cuda_kernels.fused_dropout(x, 2 ** 64, 5, 1.0)
