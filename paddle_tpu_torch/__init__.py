@@ -14,8 +14,9 @@ Ported so far: the static BERT and CTR programs, served
 (``serving.freeze_program``, the kernel-tier passes,
 ``serving.ServingEngine``) and trained (``Executor.run``), and dygraph
 training of ``models.bert.BertForPretraining`` (``dygraph``,
-``dygraph.functional``, ``optimizer.fused``); see ROADMAP.md for what
-comes next.
+``dygraph.functional``, ``optimizer.fused``), and autoregressive decode
+over a block-paged KV cache (``serving.DecodeEngine``); see ROADMAP.md
+for what comes next.
 """
 from . import fluid
 from . import serving

@@ -15,19 +15,24 @@ class BuildStrategy:
     """The rewrite knobs the ported slices use (details/build_strategy.h).
     The freeze preset's passes run in ``serving.freeze_program``; the
     other knobs of the reference come with the slices that need them.
-    The ``kernel_tier`` umbrella waits for the paged-attention pass it
-    also turns on in the reference."""
+    ``kernel_tier`` is the umbrella that turns on all four kernel-tier
+    passes."""
 
     def __init__(self):
         # kernel tier (fluid/passes/kernel_tier.py): fuse_attention rewrites
         # the naive attention chain (and its grad chain) onto
         # fused_multihead_attention, whose lowering is the hand-written
-        # flash-attention kernel on the card; fuse_sparse_embedding
-        # rewrites each lookup_table -> sequence_pool chain (and its grad
-        # pair) onto fused_embedding_pool, the gather-pool and scatter-add
-        # kernels; fuse_optimizer buckets the adam or momentum updates
-        # into one fused_adam / fused_momentum, one launch of its kernel
+        # flash-attention kernel on the card; fuse_paged_attention
+        # rewrites the decode step's paged attend chain onto
+        # paged_attention, the paged-attention kernel;
+        # fuse_sparse_embedding rewrites each lookup_table -> sequence_pool
+        # chain (and its grad pair) onto fused_embedding_pool, the
+        # gather-pool and scatter-add kernels; fuse_optimizer buckets the
+        # adam or momentum updates into one fused_adam / fused_momentum,
+        # one launch of its kernel
+        self.kernel_tier = False
         self.fuse_attention = False
+        self.fuse_paged_attention = False
         self.fuse_sparse_embedding = False
         self.fuse_optimizer = False
 

@@ -8,8 +8,12 @@ runs ``op->Run(scope, place)``.  What stays the same: feeds in, fetches
 out, persistable state kept in a ``Scope``, pruning to the fetch set, the
 ``is_test`` hint reaching every lowering, and shape bucketing (pad the
 leading batch dim of every feed up to a bucket edge, slice the fetches
-back to the true row count).  A per-(program version, feed names, fetch
-names) run plan caches the pruned op list.  CUDA graphs come later.
+back to the true row count), and state carried between runs: the scope's
+persistables and the vars a program declares in
+``program._hints["carry_vars"]`` (the decode plane's KV caches), which are
+read from the scope, written back after every run, never batch-sliced
+and never pruned.  A per-(program version, feed names, fetch names) run
+plan caches the pruned op list.  CUDA graphs come later.
 """
 from __future__ import annotations
 
@@ -49,6 +53,10 @@ def _batch_major_hint(block, op):
         return None
     if v.persistable:
         return False
+    if names[0] in (block.program._hints.get("carry_vars") or ()):
+        # declared carried state (the decode KV pools): its leading dim is
+        # the state's own extent, never the step's batch
+        return False
     if v.shape is None:
         return None
     return len(v.shape) >= 1 and v.shape[0] == -1
@@ -79,6 +87,16 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
                 if val is not None:
                     env[name] = val
     return env
+
+
+def _read_before_write(block, name) -> bool:
+    """Does some op read ``name`` before any op writes it?"""
+    for op in block.ops:
+        if name in op.input_arg_names:
+            return True
+        if name in op.output_arg_names:
+            return False
+    return False
 
 
 class _RunPlan:
@@ -194,6 +212,24 @@ class Executor:
         # state too: their updates survive pruning and are written back
         scope_state = {n for op in block.ops for n in op.output_arg_names
                        if n not in persist and scope.find_var(n) is not None}
+        # declared carried state (program._hints["carry_vars"], the decode
+        # KV caches and pools) is written back whether or not the scope
+        # held it when this plan was built, so a plan built before the
+        # state was seeded never prunes its write
+        carry = set(program._hints.get("carry_vars") or ())
+        if carry:
+            scope_state |= {n for op in block.ops
+                            for n in op.output_arg_names if n in carry}
+            missing = [n for n in sorted(carry)
+                       if n in block.vars and block.vars[n].is_data
+                       and n not in feed_names and scope.find_var(n) is None
+                       and _read_before_write(block, n)]
+            if missing:
+                raise ValueError(
+                    f"carry_vars {missing} are declared data vars but "
+                    f"neither fed nor seeded in the scope: seed the "
+                    f"initial carried state with scope.set_var(name, "
+                    f"value) before the first run")
         run_ops = prune_ops(block, block.ops, targets=list(fetch_names),
                             extra_state=scope_state, feeds=set(feed_names))
         produced = set(feed_names)
@@ -218,8 +254,11 @@ class Executor:
         vars and vars with a known static leading dim are never
         batch-major, even when dim 0 equals the bucket size."""
         blk = program.global_block()
+        carry = set(program._hints.get("carry_vars") or ())
 
         def _not_batch(n):
+            if n in carry:      # carried state: dim 0 is its own extent
+                return True
             v = blk._find_var_recursive(n)
             return v is not None and (
                 v.persistable or (v.shape is not None

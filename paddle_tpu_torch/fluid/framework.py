@@ -91,16 +91,24 @@ class Variable:
         self.trainable = trainable
         self.op: Optional[Operator] = None   # defining op (set by append_op)
 
-    # graph-building sugar; only the elementwise op this slice lowers
-    def __add__(self, o):
+    # graph-building sugar; only the elementwise ops the slices lower
+    def _binary(self, op_type, other, reverse=False):
         from . import layers
-        return layers.elementwise_add(
-            self, layers.tensor._to_variable(self.block, o, self.dtype))
+        other = layers.tensor._to_variable(self.block, other, self.dtype)
+        x, y = (other, self) if reverse else (self, other)
+        return layers.elementwise_op(op_type, x, y)
+
+    def __add__(self, o):
+        return self._binary("elementwise_add", o)
 
     def __radd__(self, o):
-        from . import layers
-        return layers.elementwise_add(
-            layers.tensor._to_variable(self.block, o, self.dtype), self)
+        return self._binary("elementwise_add", o, True)
+
+    def __mul__(self, o):
+        return self._binary("elementwise_mul", o)
+
+    def __rmul__(self, o):
+        return self._binary("elementwise_mul", o, True)
 
     @property
     def ndim(self):

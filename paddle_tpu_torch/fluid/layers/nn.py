@@ -235,6 +235,30 @@ def squeeze(input, axes, name=None):
     return _out(op, "Out", out)
 
 
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    op = helper.append_op("unsqueeze2", inputs={"X": [input]},
+                          outputs={"Out": [out], "XShape": [xshape]},
+                          attrs={"axes": list(axes)})
+    return _out(op, "Out", out)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    return _single_out("one_hot", input, {"depth": depth}, dtype="float32",
+                       stop_gradient=True)
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                          outputs={"Out": [out]})
+    return _out(op, "Out", out)
+
+
 def slice(input, axes, starts, ends):
     helper = LayerHelper("slice")
     out = helper.create_variable_for_type_inference(dtype=input.dtype)

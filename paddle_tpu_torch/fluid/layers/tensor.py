@@ -6,7 +6,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..framework import (Variable, default_main_program,
-                         default_startup_program, unique_name)
+                         default_startup_program, in_dygraph_mode,
+                         unique_name)
 from ..layer_helper import LayerHelper
 
 
@@ -48,6 +49,33 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     out.stop_gradient = True
     out.shape = tuple(shape)
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    op = helper.append_op(
+        "fill_constant_batch_size_like",
+        inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value),
+               "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def assign(input, output=None):
+    """Copy ``input`` into ``output`` (a new var when None); naming an
+    existing var as ``output`` is how a program writes carried state."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        input = _to_variable(None, input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(
+            dtype=getattr(input, "dtype", "float32"))
+    op = helper.append_op("assign", inputs={"X": [input]},
+                          outputs={"Out": [output]})
+    return op["Out"][0] if in_dygraph_mode() else output
 
 
 def create_global_var(shape, value, dtype, persistable=False,

@@ -337,11 +337,15 @@ class PruneIdentityPass(Pass):
 
 def passes_for_build_strategy(build_strategy) -> List[Pass]:
     """The pass list a BuildStrategy's knobs select, in the reference's
-    order: ``fuse_attention``, ``fuse_sparse_embedding``, then
-    ``fuse_optimizer``."""
+    order: ``fuse_attention``, ``fuse_paged_attention``,
+    ``fuse_sparse_embedding``, then ``fuse_optimizer``.  ``kernel_tier``
+    turns on all four."""
     from . import kernel_tier as _kt  # noqa: F401 — registers the tier
+    bs = build_strategy
+    tier = bool(bs.kernel_tier)
     names = [name for name, on in (
-        ("fuse_attention", build_strategy.fuse_attention),
-        ("fuse_sparse_embedding", build_strategy.fuse_sparse_embedding),
-        ("fuse_optimizer", build_strategy.fuse_optimizer)) if on]
+        ("fuse_attention", bs.fuse_attention),
+        ("fuse_paged_attention", bs.fuse_paged_attention),
+        ("fuse_sparse_embedding", bs.fuse_sparse_embedding),
+        ("fuse_optimizer", bs.fuse_optimizer)) if tier or on]
     return [create_pass(name) for name in names]

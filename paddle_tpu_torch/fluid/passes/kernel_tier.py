@@ -1,8 +1,10 @@
 """The kernel tier as compiler passes: ``fuse_attention``,
-``fuse_sparse_embedding`` and ``fuse_optimizer``.
+``fuse_paged_attention``, ``fuse_sparse_embedding`` and
+``fuse_optimizer``.
 
-Counterpart of ``FuseAttentionPass``, ``FuseSparseEmbeddingPass`` and
-``FuseOptimizerPass`` in ``paddle_tpu/fluid/passes/kernel_tier.py``.
+Counterpart of ``FuseAttentionPass``, ``FusePagedAttentionPass``,
+``FuseSparseEmbeddingPass`` and ``FuseOptimizerPass`` in
+``paddle_tpu/fluid/passes/kernel_tier.py``.
 
 * ``fuse_attention`` — the naive attention chain
 
@@ -17,6 +19,13 @@ Counterpart of ``FuseAttentionPass``, ``FuseSparseEmbeddingPass`` and
   of Q, K, V and the output are not 4-d ``[B, H, T, D]`` — so a wrong
   shape inference would keep the kernel off the path; the tests hold the
   rewrite count to the layer count.
+* ``fuse_paged_attention`` — the decode step's attention over block-paged
+  K/V pools, gather → reshape → mul+reduce_sum → scale → masked add →
+  softmax → mul+reduce_sum (serving/decode.py), rewrites to ONE
+  ``paged_attention`` op: on the card the hand-written paged-attention
+  kernel (ops/attention.py).  Only the exact-zero mask spelling
+  ``valid·N + (-N)`` matches, and every intermediate must die with the
+  rewrite.
 * ``fuse_sparse_embedding`` — ``lookup_table[_v2]`` followed by
   ``sequence_pool`` (SUM/AVERAGE) or ``reduce_sum(dim=[1])``, and in a
   training program the pair of ``generic_grad`` ops behind them, rewrite
@@ -29,8 +38,8 @@ Counterpart of ``FuseAttentionPass``, ``FuseSparseEmbeddingPass`` and
   op: one launch of the hand-written kernel over a flattened buffer,
   element for element the same arithmetic as the per-param updates.
 
-Each rewrite counts ``kernel_tier.<pass>.rewrites``.  The paged-attention
-pass and the other optimizer families come with later slices.
+Each rewrite counts ``kernel_tier.<pass>.rewrites``.  The other
+optimizer families come with later slices.
 """
 from __future__ import annotations
 
@@ -41,8 +50,8 @@ from ..framework import Operator, _op_reads
 from .core import Pass, PassContext, register_pass
 from .pattern import Pattern, PatternRewritePass, writer_index as _widx
 
-__all__ = ["FuseAttentionPass", "FuseSparseEmbeddingPass",
-           "FuseOptimizerPass"]
+__all__ = ["FuseAttentionPass", "FusePagedAttentionPass",
+           "FuseSparseEmbeddingPass", "FuseOptimizerPass"]
 
 
 def _consumers(block, name: str) -> List[Operator]:
@@ -266,6 +275,131 @@ class FuseAttentionPass(PatternRewritePass):
                  "grad_slots": ["Q", "K", "V"], "op_role": 1})
             _splice(block, fused_g, grad_ops[0], grad_ops)
         _splice(block, fused, mm2, fwd_ops)
+        _count_rewrite(self.name)
+        return True
+
+
+# ---------------------------------------------------------------------------
+# fuse_paged_attention
+# ---------------------------------------------------------------------------
+
+@register_pass
+class FusePagedAttentionPass(PatternRewritePass):
+    """gather(KPool, pt) → reshape → gather(VPool, pt) → reshape →
+    mul+reduce_sum(dim=[2]) scores → scale → s·valid + scale(valid, N,
+    -N) → softmax → mul+reduce_sum(dim=[1]) context ⇒ one
+    ``paged_attention`` op (serving/decode.py paged decode/verify
+    programs emit exactly this chain, once per unrolled step).
+
+    The matched spelling is load-bearing: the op's plain version
+    (ops/attention.py ``_paged_reference``) reproduces each unfused
+    lowering bit for bit, so the rewrite is bit-transparent on the host;
+    on the card the op is the hand-written paged-attention kernel.  The
+    mask arithmetic is only recognised in the exact-zero form
+    (``bias == -scale`` on the valid-scale op) — anything else is not
+    the decode contract and stays unfused.  The program's
+    ``kv_page_size`` hint is stamped on the op as ``page_size``."""
+
+    name = "fuse_paged_attention"
+
+    def __init__(self, **options):
+        super().__init__(**options)
+        self.rules.append(self._rule())
+
+    def _rule(self):
+        p = Pattern("paged_attention_decode")
+        kp, vp, idx, q, valid, out = p.vars("kp vp idx q valid out")
+        p.op("gather", ins={"X": [kp], "Index": [idx]},
+             outs={"Out": [p.var("kgf")]})
+        p.op("reshape2", ins={"X": [p.var("kgf")]},
+             outs={"Out": [p.var("kg")]})
+        p.op("gather", ins={"X": [vp], "Index": [idx]},
+             outs={"Out": [p.var("vgf")]})
+        p.op("reshape2", ins={"X": [p.var("vgf")]},
+             outs={"Out": [p.var("vg")]})
+        p.op("unsqueeze2", ins={"X": [q]}, outs={"Out": [p.var("qe")]},
+             attrs={"axes": lambda a: list(a or ()) == [1]})
+        p.op("elementwise_mul",
+             ins={"X": [p.var("kg")], "Y": [p.var("qe")]},
+             outs={"Out": [p.var("m1")]},
+             attrs={"axis": lambda a: a in (None, -1)})
+        p.op("reduce_sum", ins={"X": [p.var("m1")]},
+             outs={"Out": [p.var("s0")]},
+             attrs={"dim": lambda d: list(d or ()) == [2],
+                    "keep_dim": _falsy, "reduce_all": _falsy})
+        p.op("scale", ins={"X": [p.var("s0")]}, outs={"Out": [p.var("s1")]},
+             attrs={"bias": _falsy,
+                    "bias_after_scale": lambda b: b in (None, True)})
+        p.op("elementwise_mul", ins={"X": [p.var("s1")], "Y": [valid]},
+             outs={"Out": [p.var("sm")]},
+             attrs={"axis": lambda a: a in (None, -1)})
+        p.op("scale", ins={"X": [valid]}, outs={"Out": [p.var("vb")]},
+             attrs={"bias_after_scale": lambda b: b in (None, True)})
+        p.op("elementwise_add",
+             ins={"X": [p.var("sm")], "Y": [p.var("vb")]},
+             outs={"Out": [p.var("s2")]},
+             attrs={"axis": lambda a: a in (None, -1)})
+        p.op("softmax", ins={"X": [p.var("s2")]},
+             outs={"Out": [p.var("p0")]},
+             attrs={"axis": lambda a: a in (None, -1, 1)})
+        p.op("unsqueeze2", ins={"X": [p.var("p0")]},
+             outs={"Out": [p.var("pe")]},
+             attrs={"axes": lambda a: list(a or ()) == [2]})
+        p.op("elementwise_mul",
+             ins={"X": [p.var("vg")], "Y": [p.var("pe")]},
+             outs={"Out": [p.var("m2")]},
+             attrs={"axis": lambda a: a in (None, -1)})
+        p.op("reduce_sum", ins={"X": [p.var("m2")]},
+             outs={"Out": [out]},
+             attrs={"dim": lambda d: list(d or ()) == [1],
+                    "keep_dim": _falsy, "reduce_all": _falsy})
+        return (p, self._rewrite)
+
+    def _rewrite(self, m, ctx) -> bool:
+        block = m.block
+        ops = m.ops
+        # shape guards: flat [R, d] pools, [B, S, d] gathered caches,
+        # [B, d] query, [B, S] mask — a coincidental gather→softmax
+        # chain with other ranks is not the decode contract
+        for name, nd in ((m.var("kp"), 2), (m.var("vp"), 2),
+                         (m.var("kg"), 3), (m.var("vg"), 3),
+                         (m.var("q"), 2), (m.var("valid"), 2),
+                         (m.var("out"), 2)):
+            if _ndim(block, name) != nd:
+                return False
+        # the mask must be the exact-zero spelling: valid*N + (-N)
+        vb_op = ops[9]
+        neg = float(vb_op.attrs.get("scale", 1.0))
+        if float(vb_op.attrs.get("bias", 0.0) or 0.0) != -neg:
+            return False
+        # every intermediate dies with the rewrite
+        inter = [m.binding[n] for n in
+                 ("kgf", "kg", "vgf", "vg", "qe", "m1", "s0", "s1",
+                  "sm", "vb", "s2", "p0", "pe", "m2")]
+        for t in inter:
+            if not _internal_edge(block, ctx, t, ops):
+                return False
+        if len(_widx(block, m.var("out"))) != 1:
+            return False
+        # reshape2/unsqueeze2 XShape side outputs must be unconsumed
+        for op in ops:
+            for slot, names in op.outputs.items():
+                if slot == "Out":
+                    continue
+                for n in names:
+                    if _consumers(block, n):
+                        return False
+        scale = float(ops[7].attrs.get("scale", 1.0))
+        ps = int(block.program._hints.get("kv_page_size", 1) or 1)
+        fused = Operator(
+            block, "paged_attention",
+            {"Q": [m.var("q")], "KPool": [m.var("kp")],
+             "VPool": [m.var("vp")], "Index": [m.var("idx")],
+             "Valid": [m.var("valid")]},
+            {"Out": [m.var("out")]},
+            {"scale": scale, "neg": neg, "page_size": ps,
+             "op_role": ops[0].attrs.get("op_role", 0)})
+        _splice(block, fused, ops[-1], ops)
         _count_rewrite(self.name)
         return True
 

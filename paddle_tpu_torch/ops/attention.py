@@ -20,6 +20,18 @@ Dispatch (``flash_attention``):
   ``prob_scale`` (downgrade_in_infer at test time).
 
 There is no sequence-length crossover: the kernel runs at every length.
+
+``paged_attention`` is the decode step's attention over block-paged K/V
+pools (serving/decode.py); the ``fuse_paged_attention`` pass produces it
+from the demo paged program's gather → mul+reduce_sum → scale → masked
+add → softmax → mul+reduce_sum chain.  A CPU (or ``meta``) tensor takes
+the plain version ``_paged_reference``; a CUDA tensor launches the
+hand-written kernel (csrc/paged_attention.cu) or raises.  The
+reference's TPU gate (head dim a multiple of 128, both pools inside an
+8 MB VMEM budget) and its ``page_size → 1`` downgrade encode the TPU's
+layout, not the op's meaning, and have no counterpart: the kernel reads
+the page table per position, so the ``page_size`` attr is carried for
+the IR's sake and read by nothing.
 """
 from __future__ import annotations
 
@@ -189,4 +201,50 @@ def _fused_mha(ins, attrs, ctx):
                           causal=attrs.get("causal", False),
                           dropout_rate=rate, dropout_key=dropout_key,
                           dropout_upscale=upscale, prob_scale=prob_scale)
+    return {"Out": [out]}
+
+
+def _paged_reference(q, kp, vp, idx, valid, scale, neg):
+    """Plain PyTorch version, op for op the unfused decode chain as the
+    port lowers it (``index_select`` for gather, the same reduce axes,
+    ``x * scale + 0.0`` for scale, the masked add ``s·valid +
+    (valid·neg - neg)``, ``softmax``), so the rewrite is bit-transparent
+    on the host.  q ``[B, d]``, pools ``[R, d]``, idx ``B·S`` pool rows,
+    valid ``[B, S]``."""
+    b = q.shape[0]
+    s_len = valid.shape[1]
+    d = kp.shape[-1]
+    ii = idx.reshape(-1).long()
+    kg = kp.index_select(0, ii).reshape(b, s_len, d)
+    vg = vp.index_select(0, ii).reshape(b, s_len, d)
+    s = torch.sum(kg * q.reshape(b, 1, d), dim=(2,))
+    s = s * scale + 0.0
+    s = s * valid + (valid * neg + (-neg))
+    p = torch.softmax(s, dim=-1)
+    return torch.sum(vg * p.reshape(b, s_len, 1), dim=(1,))
+
+
+def paged_attention(q, kp, vp, idx, valid, scale, neg=1e30):
+    """Decode attention over paged pools: the kernel for CUDA tensors,
+    the plain version otherwise (see the module docstring)."""
+    if q.device.type == "cuda":
+        # the page table is int32 (as the reference casts it); a wider
+        # index is narrowed, never the path of the decode programs
+        b, s_len = valid.shape
+        return cuda_kernels.paged_attention(
+            q, kp, vp, idx.reshape(b, s_len).to(torch.int32), valid, scale,
+            neg)
+    return _paged_reference(q, kp, vp, idx, valid, scale, neg)
+
+
+@register_op("paged_attention", nondiff_inputs=("Index", "Valid"))
+def _paged_attention(ins, attrs, ctx):
+    """Decode-step attention over a block-paged KV pool.  Q ``[B, d]``;
+    KPool/VPool ``[R, d]`` flat page pools; Index ``[B·S]`` (or
+    ``[B, S]``) int32 pool row per logical position; Valid ``[B, S]``
+    float 0/1 mask."""
+    out = paged_attention(ins["Q"][0], ins["KPool"][0], ins["VPool"][0],
+                          ins["Index"][0], ins["Valid"][0],
+                          float(attrs.get("scale", 1.0)),
+                          float(attrs.get("neg", 1e30)))
     return {"Out": [out]}

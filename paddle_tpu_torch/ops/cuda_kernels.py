@@ -73,6 +73,11 @@ _SIGNATURES = {
                                _P], _I),
         **_ERR,
     },
+    "paged_attention": {
+        "pt_paged_attention": ([_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _F,
+                                _F, _P], _I),
+        **_ERR,
+    },
     "fused_dropout": {
         "pt_dropout": ([_P, _P, _I64, _U, _U, _U, _F, _I, _P], _I),
         "pt_dropout_mask": ([_P, _I64, _U, _U, _U, _P], _I),
@@ -681,3 +686,57 @@ def fused_act_dropout_bwd(x, g, seed: int, threshold: int, scale: float,
 
 
 fused_act_dropout_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (csrc/paged_attention.cu)
+# ---------------------------------------------------------------------------
+def paged_attention(q, k_pool, v_pool, idx, valid, scale: float, neg: float):
+    """``softmax_j(s_bj) · VPool[idx[b,j]]`` summed over j, with
+    ``s_bj = (q_b · KPool[idx[b,j]])·scale·valid + (valid·neg - neg)``
+    (exactly ``-neg`` at a masked position), on the Hopper kernel.  q
+    ``[B, d]``, the pools ``[R, d]``, all float32; idx int32 with B·S
+    entries (``[B·S]`` or ``[B, S]``); valid float32 ``[B, S]``; all
+    CUDA and contiguous.  An index outside ``[0, R)`` traps on the
+    device.  Returns ``[B, d]`` float32."""
+    what = "paged_attention"
+    if q.ndim != 2 or k_pool.ndim != 2 or v_pool.ndim != 2 \
+            or valid.ndim != 2:
+        raise ValueError(f"{what}: q [B, d], pools [R, d] and valid [B, S] "
+                         f"must be 2-d, got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}, "
+                         f"{tuple(valid.shape)}")
+    _check_cuda(what, (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                       ("valid", valid)), q, torch.float32)
+    _check_cuda(what, (("idx", idx),), q, torch.int32)
+    b, d = q.shape
+    r = k_pool.shape[0]
+    s = valid.shape[1]
+    if k_pool.shape != v_pool.shape or k_pool.shape[1] != d:
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)} and "
+                         f"{tuple(v_pool.shape)} must both be [R, {d}]")
+    if valid.shape[0] != b or idx.numel() != b * s:
+        raise ValueError(f"{what}: valid {tuple(valid.shape)} and idx "
+                         f"{tuple(idx.shape)} must cover [{b}, S]")
+    if s == 0 or r == 0:
+        raise ValueError(f"{what}: attention over S = {s} positions of a "
+                         f"pool of R = {r} rows is empty")
+    if max(b, s, d) >= 2 ** 31 or b * s >= 2 ** 31:
+        raise ValueError(f"{what}: B = {b}, S = {s}, d = {d}: the kernel "
+                         f"counts them with 32-bit ints")
+    out = torch.empty((b, d), dtype=torch.float32, device=q.device)
+    if b == 0 or d == 0:
+        return out
+    lib = _lib("paged_attention")
+    with torch.cuda.device(q.device):
+        err = lib.pt_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            idx.data_ptr(), valid.data_ptr(), out.data_ptr(), b, s, r, d,
+            float(scale), float(neg),
+            _stream(q.device))
+    _check_launch(lib, err, what)
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -49,6 +49,17 @@ def _squeeze2(ins, attrs, ctx):
     return {"Out": [out], "XShape": [_xshape(x)]}
 
 
+@register_op("unsqueeze2")
+def _unsqueeze2(ins, attrs, ctx):
+    """Insert a dim of size 1 at each listed axis, in ascending order (a
+    negative axis counts from the end of the growing output)."""
+    x = _x(ins)
+    out = x
+    for ax in sorted(attrs["axes"]):
+        out = out.unsqueeze(ax if ax >= 0 else ax + out.ndim + 1)
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
 @register_op("slice", nondiff_inputs=("StartsTensor", "EndsTensor"))
 def _slice(ins, attrs, ctx):
     """Static starts/ends per axis, clamped to the dim, negatives from the
@@ -77,6 +88,60 @@ def _concat(ins, attrs, ctx):
     axis = int(ins["AxisTensor"][0]) if ins.get("AxisTensor") \
         else attrs.get("axis", 0)
     return {"Out": [torch.cat(list(ins["X"]), dim=axis)]}
+
+
+@register_op("gather", nondiff_inputs=("Index",))
+def _gather(ins, attrs, ctx):
+    """Rows (or slices along ``axis``) of X at the int32/int64 Index,
+    exact copies."""
+    x, idx = _x(ins), _x(ins, "Index")
+    axis = int(attrs.get("axis", 0))
+    axis = axis % x.ndim
+    flat = idx.reshape(-1).long()
+    out = x.index_select(axis, flat)
+    shape = x.shape[:axis] + idx.shape + x.shape[axis + 1:]
+    return {"Out": [out.reshape(shape)]}
+
+
+@register_op("assign")
+def _assign(ins, attrs, ctx):
+    return {"Out": [_x(ins)]}
+
+
+def _one_hot_of(x, depth):
+    """float32 one-hot of integer ``x`` over ``depth`` classes; an index
+    outside ``[0, depth)`` gives a row of zeros (as ``jax.nn.one_hot``).
+    Spelled as a comparison so it also runs on ``meta`` tensors."""
+    classes = torch.arange(int(depth), device=x.device)
+    return (x.long().unsqueeze(-1) == classes).to(torch.float32)
+
+
+@register_op("one_hot", nondiff_inputs=("X",), differentiable=False)
+def _one_hot(ins, attrs, ctx):
+    """one_hot (v1): a trailing dim of 1 on X is replaced by the depth."""
+    x = _x(ins)
+    if x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    return {"Out": [_one_hot_of(x, attrs["depth"])]}
+
+
+@register_op("one_hot_v2", nondiff_inputs=("X",), differentiable=False)
+def _one_hot_v2(ins, attrs, ctx):
+    return {"Out": [_one_hot_of(_x(ins), attrs["depth"])]}
+
+
+@register_op("fill_constant_batch_size_like", differentiable=False)
+def _fill_constant_bsl(ins, attrs, ctx):
+    """A constant tensor of ``shape`` whose ``output_dim_idx`` dim is
+    Input's ``input_dim_idx`` dim, on the run's device."""
+    ref = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0),
+                               dtype=torch_dtype(attrs.get("dtype",
+                                                           "float32")),
+                               device=ref.device)]}
 
 
 @register_op("fill_constant", differentiable=False)

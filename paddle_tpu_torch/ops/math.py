@@ -38,6 +38,16 @@ def _elementwise_add(ins, attrs, ctx):
     return {"Out": [out]}
 
 
+@register_op("elementwise_mul")
+def _elementwise_mul(ins, attrs, ctx):
+    x, y = _bcast(_x(ins), _x(ins, "Y"), attrs.get("axis", -1))
+    out = x * y
+    scale = attrs.get("scale", None)
+    if scale is not None and scale != 1.0:
+        out = out * scale
+    return {"Out": [out]}
+
+
 @register_op("sum")  # fluid sum op: variadic add (used for grad fan-in)
 def _sum(ins, attrs, ctx):
     xs = ins["X"]
@@ -101,3 +111,10 @@ def _mul(ins, attrs, ctx):
     x2 = x.reshape(math.prod(xs[:xn]), -1)
     y2 = y.reshape(math.prod(ys[:yn]), -1)
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])]}
+
+
+# comparisons (operators/controlflow/compare_op.cc): numpy broadcasting,
+# a bool result; only the one the decode programs use is ported
+@register_op("less_than", differentiable=False)
+def _less_than(ins, attrs, ctx):
+    return {"Out": [torch.lt(_x(ins), _x(ins, "Y"))]}

@@ -16,9 +16,13 @@ each batch to a bucket edge and slices the fetches back to the true row
 count: padding rows never reach an answer.  ``warmup()`` runs every
 bucket once.
 
+The shared pieces the decode engine (serving/decode.py) rides are here
+too: ``BaseFuture``, ``FamilyInstruments`` (per-engine counters, gauges
+and histograms) and ``PagePoolExhaustedError``.
+
 Not ported yet: the async step runner, deadlines, pause/resume,
-auto-tuning, trace ids and the metrics instruments, the AOT backend and
-mesh/sharded serving.
+auto-tuning, trace ids and this engine's own metrics instruments, the
+AOT backend and mesh/sharded serving.
 """
 from __future__ import annotations
 
@@ -30,12 +34,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..fluid import compile_cache, core
+from ..fluid import compile_cache, core, trace
 from ..fluid.core import global_scope
 from ..fluid.executor import Executor
 
 __all__ = ["ServingEngine", "ServingFuture", "ServingError",
-           "QueueFullError", "EngineClosedError"]
+           "QueueFullError", "EngineClosedError", "PagePoolExhaustedError",
+           "BaseFuture", "FamilyInstruments"]
 
 
 class ServingError(RuntimeError):
@@ -51,17 +56,23 @@ class EngineClosedError(ServingError):
     """submit() after close()."""
 
 
-class ServingFuture:
-    """One request's pending result: ``result(timeout)`` blocks until the
-    batch holding this request completes, then returns
-    ``{fetch_name: ndarray of this request's rows}``.  ``timing`` is set
-    at demux: ``{"queue_us", "device_us", "latency_us"}``."""
+class PagePoolExhaustedError(QueueFullError):
+    """The decode KV page pool cannot hold the request (serving/decode.py
+    block-paged mode): a typed queue-full rejection at admission — the
+    paged answer to overload is backpressure, never an out-of-memory on
+    the card."""
 
-    __slots__ = ("rows", "timing", "_event", "_result", "_exc")
 
-    def __init__(self, rows: int):
-        self.rows = rows
-        self.timing: Optional[Dict[str, float]] = None
+class BaseFuture:
+    """The pending-result machinery every serving-plane future rides
+    (ServingFuture here, decode.DecodeFuture): one event, one
+    result-or-exception cell, timeout-raising reads."""
+
+    __slots__ = ("_event", "_result", "_exc")
+
+    _pending_msg = "request still pending"
+
+    def __init__(self):
         self._event = threading.Event()
         self._result = None
         self._exc: Optional[BaseException] = None
@@ -71,7 +82,7 @@ class ServingFuture:
 
     def result(self, timeout: Optional[float] = None):
         if not self._event.wait(timeout):
-            raise TimeoutError("serving request still pending")
+            raise TimeoutError(self._pending_msg)
         if self._exc is not None:
             raise self._exc
         return self._result
@@ -83,6 +94,62 @@ class ServingFuture:
     def _reject(self, exc: BaseException) -> None:
         self._exc = exc
         self._event.set()
+
+
+class ServingFuture(BaseFuture):
+    """One request's pending result: ``result(timeout)`` blocks until the
+    batch holding this request completes, then returns
+    ``{fetch_name: ndarray of this request's rows}``.  ``timing`` is set
+    at demux: ``{"queue_us", "device_us", "latency_us"}``."""
+
+    __slots__ = ("rows", "timing")
+
+    _pending_msg = "serving request still pending"
+
+    def __init__(self, rows: int):
+        super().__init__()
+        self.rows = rows
+        self.timing: Optional[Dict[str, float]] = None
+
+
+class FamilyInstruments:
+    """Per-engine instrument bundle over one metric family.  A named
+    engine writes its own ``<family>.<name>.*`` instruments and also the
+    plain ``<family>.*`` aggregate; an unnamed one writes the aggregate
+    only.  Reads come from the engine's own family."""
+
+    def __init__(self, family: str, counters, histograms, gauges,
+                 name: Optional[str] = None):
+        m = trace.metrics()
+        self.name = name or None
+        self._c = {}
+        self._h = {}
+        self._g = {}
+        for table, kinds, make in ((self._c, counters, m.counter),
+                                   (self._h, histograms, m.histogram),
+                                   (self._g, gauges, m.gauge)):
+            for b in kinds:
+                insts = [make(f"{family}.{name}.{b}")] if name else []
+                insts.append(make(f"{family}.{b}"))
+                table[b] = insts
+
+    def count(self, base: str, n: int = 1) -> None:
+        for inst in self._c[base]:
+            inst.inc(n)
+
+    def observe(self, base: str, v: float) -> None:
+        for inst in self._h[base]:
+            inst.observe(v)
+
+    def set_gauge(self, base: str, v: float) -> None:
+        for g in self._g[base]:
+            g.set(v)
+
+    def counter_value(self, base: str) -> int:
+        return self._c[base][0].value
+
+    def hist_stats(self, base: str):
+        return self._h[base][0].stats()
 
 
 class _Request:

@@ -26,7 +26,9 @@ versions (ops/nn_ops.py): masks, dropout and dropout-add ``torch.equal``
 forward and backward within 1e-6 relative and absolute in float32 (the
 kernel's erff and expf against torch's erf and exp, a few ulp) and one
 bfloat16 ulp (rtol 2^-7) in bfloat16, where such a difference can round
-to the neighbouring value.
+to the neighbouring value.  The paged-attention kernel against
+``_paged_reference``: within 1e-5 of the largest |out| (an online softmax
+sums in another order than the plain full-row softmax).
 """
 
 import numpy as np
@@ -509,3 +511,85 @@ def test_dropout_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         cuda_kernels.fused_act_dropout(x, 1, 5, 1.0, "tanh")
     with pytest.raises(ValueError, match="64-bit"):
         cuda_kernels.fused_dropout(x, 2 ** 64, 5, 1.0)
+
+
+def _paged_case(device, b, s, r, d, ps, mask, seed=0):
+    """q, pools, a page table over a random page permutation (page 0
+    left out) and a float32 mask: ``ragged`` prefix lengths,
+    ``non-prefix`` random positions, ``all-masked`` ragged with row 0
+    empty, or ``full``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, d, generator=g)
+    kp, vp = torch.randn(r, d, generator=g), torch.randn(r, d, generator=g)
+    pages = (torch.randperm(r // ps - 1, generator=g) + 1)[:b * (s // ps)]
+    idx = (pages.reshape(b, s // ps, 1) * ps
+           + torch.arange(ps)).reshape(b, s).int()
+    if mask == "full":
+        valid = torch.ones(b, s)
+    elif mask == "non-prefix":
+        valid = (torch.rand(b, s, generator=g) < 0.4).float()
+        valid[:, -1] = 1.0
+    else:
+        lengths = torch.randint(1, s + 1, (b, 1), generator=g)
+        valid = (torch.arange(s)[None, :] < lengths).float()
+        if mask == "all-masked":
+            valid[0] = 0.0
+    return [t.to(device) for t in (q, kp, vp, idx, valid)]
+
+
+@pytest.mark.parametrize("d", (64, 100, 768))
+@pytest.mark.parametrize("mask", ("full", "ragged", "non-prefix",
+                                  "all-masked"))
+def test_paged_attention_matches_plain(cuda, d, mask):
+    """The paged-attention kernel against ``_paged_reference`` within
+    1e-5 of the largest |out| (float32 online softmax against the plain
+    full-row softmax: another summation order), at any head width; a
+    page table rolled by one page must miss."""
+    from paddle_tpu_torch.ops.attention import _paged_reference
+    q, kp, vp, idx, valid = _paged_case(cuda, 5, 64, 16 * 40, d, 16, mask)
+    scale = d ** -0.5
+    out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, scale, 1e30)
+    ref = _paged_reference(q, kp, vp, idx, valid, scale, 1e30)
+    torch.cuda.synchronize()
+    tol = 1e-5 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+    if mask in ("ragged", "non-prefix"):
+        twin = cuda_kernels.paged_attention(
+            q, kp, vp, torch.roll(idx, 16, 1).contiguous(), valid, scale,
+            1e30)
+        assert (twin - ref).abs().max().item() > 10 * tol
+
+
+def test_paged_attention_op_launches_the_kernel(cuda):
+    """The ``paged_attention`` op on CUDA tensors launches the kernel,
+    with the flat ``[B·S]`` index the fused decode program feeds it."""
+    from paddle_tpu_torch.ops.attention import _paged_reference
+    q, kp, vp, idx, valid = _paged_case(cuda, 3, 32, 16 * 12, 768, 16,
+                                        "ragged", seed=1)
+    before = cuda_kernels.paged_attention.launches
+    out = get_op("paged_attention").fn(
+        {"Q": [q], "KPool": [kp], "VPool": [vp], "Index": [idx.reshape(-1)],
+         "Valid": [valid]}, {"scale": 0.125, "neg": 1e30, "page_size": 16},
+        LoweringContext(device=cuda))["Out"][0]
+    torch.cuda.synchronize()
+    assert cuda_kernels.paged_attention.launches == before + 1
+    ref = _paged_reference(q, kp, vp, idx, valid, 0.125, 1e30)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_paged_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, kp, vp, idx, valid = _paged_case(cuda, 2, 32, 16 * 8, 64, 16,
+                                        "ragged")
+    with pytest.raises(ValueError, match="float32"):
+        cuda_kernels.paged_attention(q.half(), kp, vp, idx, valid, 1.0, 1e30)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_kernels.paged_attention(q, kp, vp, idx.long(), valid, 1.0,
+                                     1e30)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.paged_attention(q, kp, vp, idx.t().contiguous().t(),
+                                     valid, 1.0, 1e30)
+    with pytest.raises(ValueError, match="must cover"):
+        cuda_kernels.paged_attention(q, kp, vp, idx[:, :16].contiguous(),
+                                     valid, 1.0, 1e30)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.paged_attention(q.cpu(), kp, vp, idx, valid, 1.0, 1e30)
