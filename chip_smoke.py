@@ -17,9 +17,12 @@ over):
    version at the shapes the paths give it, with the tolerance printed.
    Flash attention forward and backward: q, k, v (and dO) the permuted
    [32,12,128,64] views transpose2 leaves behind, a [32,1,1,128] padding
-   bias, float32 and bfloat16, plus a causal and a ragged (T = 100) case
-   and one with the bias the BERT program builds, (m - 10000) * 10000;
-   the forward's softmax statistics (row max and sum) too.  Fused Adam:
+   bias, float32 and bfloat16, the served batch of 1 row, plus causal
+   cases, ragged T = 100 at head dims 32, 64 and 128, head dim 40 (not a
+   multiple of the bf16 mma depth) and the bias the BERT program builds,
+   (m - 10000) * 10000, in both dtypes; the forward's softmax statistics
+   (row max and sum) too.  Their times are device ms from the profiler,
+   the library's backward that of SDPA's backward kernels alone.  Fused Adam:
    ``torch.equal`` to the per-param ``adam`` lowering over the BERT-base
    bucket (99 parameters, 51,790,850 values).  The CTR kernels at the
    training path's shapes, [4096, 5] ids into a [1e6, D] table for D = 16
@@ -43,6 +46,8 @@ over):
    scale (· act'(x)), a twin of seed + 1 must miss.  Device ms per call
    from the profiler, beside the bound, the plain version's and
    ``torch.nn.functional.dropout``'s.
+   On the serve, train and dygraph paths the flash wrappers must copy
+   no input for 16-byte alignment (their ``copies`` counts read 0).
 4. serve   -- the static BERT program at BERT-base width (vocab 30522,
    hidden 768, 12 heads, 12 layers, seq 128, dropout 0.1, padding mask),
    random weights from a seed, frozen, ``fuse_attention`` applied, served
@@ -168,6 +173,7 @@ DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+TF32_FLOPS_PER_S = 495e12
 
 
 def _p(*args):
@@ -189,6 +195,34 @@ def _ms(fn, iters, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+# the flash wrappers' copies of inputs the kernels' 16-byte cp.async
+# cannot read, per main path (0 expected: every path's q, k, v views are
+# 16-byte aligned)
+FLASH_COPIES = {}
+
+
+def _flash_copies_zero():
+    from paddle_tpu_torch.ops import cuda_kernels
+    for fn in (cuda_kernels.flash_attention_fwd,
+               cuda_kernels.flash_attention_bwd):
+        fn.copies = 0
+
+
+def _flash_copies_check(path):
+    """Record and print the flash wrappers' copy counts of ``path``'s
+    run; fail the run if any input was copied."""
+    from paddle_tpu_torch.ops import cuda_kernels
+    copies = {fn.__name__: fn.copies
+              for fn in (cuda_kernels.flash_attention_fwd,
+                         cuda_kernels.flash_attention_bwd)}
+    FLASH_COPIES[path] = copies
+    _p(f"{path}: flash input copies for 16-byte alignment {copies} "
+       f"(0 expected)")
+    if any(copies.values()):
+        raise SystemExit(f"chip_smoke: the {path} path handed the flash "
+                         f"kernels a view that had to be copied")
 
 
 def phase_device():
@@ -243,26 +277,73 @@ def _attention_inputs(b, h, t, d, dtype, seed, masked=True,
     return qkv, mask
 
 
+def _ops_ms(flops, dtype):
+    """Least ms for ``flops`` products of ``dtype`` on this card.  float32
+    takes the faster of the card's two routes at about float32 accuracy:
+    FMAs outside the tensor cores (67 TFLOP/s) and the 3xTF32 split, three
+    TF32 products per product on the tensor cores (495 TFLOP/s); so
+    float32 counts ``min(flops / 67e12, 3 · flops / 495e12)``.  The flash
+    kernels take the FMA route (``csrc/flash_common.cuh`` says why), so
+    their float32 bound lies below what their own route allows."""
+    dtype = str(dtype).removeprefix("torch.")
+    t = flops / FLOPS_PER_S[dtype]
+    if dtype == "float32":
+        t = min(t, 3 * flops / TF32_FLOPS_PER_S)
+    return t * 1e3
+
+
 def _flash_bound(q, k, v, mask):
     """Least time for the function on this card: the larger of its bytes
     (q, k, v, bias read once, o written once) over HBM bandwidth and its
-    operations (4·B·H·Tq·Tk·D) over the peak rate for its type."""
+    operations (4·B·H·Tq·Tk·D) over the peak rate for its type
+    (``_ops_ms``: float32 at the 3xTF32 rate)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) \
         * q.element_size() + (mask.numel() * 4 if mask is not None else 0)
     flops = 4.0 * b * h * tq * tk * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    dtype = str(q.dtype).removeprefix("torch.")
-    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    t_ops = _ops_ms(flops, q.dtype)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def _flash_cases(b, t, d, forward):
+    """(label, dtype, B, T, D, causal, masked, timed) of the flash phases:
+    the main paths' [B,12,T,D] in both dtypes (timed), the served batch
+    of 1 (timed), causal, ragged T at the head dims 32, 40 (not a
+    multiple of bf16's mma depth 16) and 128, and the static BERT
+    program's bias in both dtypes."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("fp32", f32, b, t, d, False, True, True),
+             ("bf16", bf16, b, t, d, False, True, True),
+             ("B=1 fp32", f32, 1, t, d, False, True, True),
+             ("B=1 bf16", bf16, 1, t, d, False, True, True),
+             ("fp32 causal", f32, b, t, d, True, False, False)]
+    if forward:
+        cases.append(("bf16 causal", bf16, b, t, d, True, True, False))
+    cases += [("fp32 ragged T=100", f32, b, 100, d, False, True, False),
+              ("fp32 ragged T=100 D=32", f32, b, 100, 32, False, True,
+               False),
+              ("bf16 ragged T=100 D=32", bf16, b, 100, 32, False, True,
+               False),
+              ("fp32 ragged T=100 D=128", f32, b, 100, 128, False, True,
+               False),
+              ("bf16 ragged T=100 D=128", bf16, b, 100, 128, False, True,
+               False),
+              ("fp32 D=40", f32, b, t, 40, False, True, False),
+              ("bf16 D=40", bf16, b, t, 40, False, True, False),
+              ("fp32 program bias", f32, b, t, d, False, "program", False),
+              ("bf16 program bias", bf16, b, t, d, False, "program", False)]
+    return cases
 
 
 def phase_kernels():
     """Flash attention forward against its plain version; returns its
     rows by case (the kernels line takes float32, the dtype of both
-    programs, with bfloat16 beside it)."""
+    programs, with bfloat16 and the served batch of 1 beside it).  Times
+    are device ms from the profiler."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels
@@ -274,18 +355,12 @@ def phase_kernels():
     flash = cuda_kernels.flash_attention_fwd
     b, h, t, d = MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"], \
         BERT_BASE["hidden"] // BERT_BASE["heads"]
-    scale = d ** -0.5
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 0.0)}
     rows = {}
-    cases = [("fp32", torch.float32, t, False, True, True),
-             ("bf16", torch.bfloat16, t, False, True, True),
-             ("fp32 causal", torch.float32, t, True, False, False),
-             ("bf16 causal", torch.bfloat16, t, True, True, False),
-             ("fp32 ragged T=100", torch.float32, 100, False, True, False),
-             ("fp32 program bias", torch.float32, t, False, "program",
-              False)]
-    for label, dtype, tt, causal, masked, timed in cases:
-        (q, k, v), mask = _attention_inputs(b, h, tt, d, dtype, SEED,
+    for label, dtype, bb, tt, dd, causal, masked, timed in _flash_cases(
+            b, t, d, forward=True):
+        scale = dd ** -0.5
+        (q, k, v), mask = _attention_inputs(bb, h, tt, dd, dtype, SEED,
                                             bool(masked),
                                             masked == "program")
         out = flash(q, k, v, mask, scale, causal)
@@ -294,7 +369,7 @@ def phase_kernels():
         err = (out.float() - ref.float()).abs().max().item()
         atol, rtol = tol[dtype]
         ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
-        _p(f"flash_attention_fwd {label} [{b},{h},{tt},{d}]: max |err| "
+        _p(f"flash_attention_fwd {label} [{bb},{h},{tt},{dd}]: max |err| "
            f"vs plain = {err:.3e} (atol={atol}, rtol={rtol})")
         if not ok or not np.isfinite(err):
             raise SystemExit(f"chip_smoke: flash_attention_fwd {label} "
@@ -312,11 +387,13 @@ def phase_kernels():
         if not timed:
             continue
         lib_mask = mask.to(dtype) if mask is not None else None
-        ms = _ms(lambda: flash(q, k, v, mask, scale, causal), 200)
-        plain_ms = _ms(lambda: _reference_attention(q, k, v, mask, scale,
-                                                    causal), 50)
-        library_ms = _ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=lib_mask, scale=scale), 200)
+        # device ms from the profiler: at a few tens of us, back-to-back
+        # CUDA events would time the ctypes wrapper's host work instead
+        ms = _profile(lambda: flash(q, k, v, mask, scale, causal), 50)[1]
+        plain_ms = _profile(lambda: _reference_attention(
+            q, k, v, mask, scale, causal), 10)[1]
+        library_ms = _profile(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask, scale=scale), 50)[1]
         bound_ms, bound_by = _flash_bound(q, k, v, mask)
         rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
@@ -331,13 +408,15 @@ def _flash_bwd_bound(q, mask):
     """Least time for dQ, dK, dV on this card: the larger of the bytes
     (q, k, v, o, dO and the row statistics read once, dq, dk, dv written
     once, the bias read once) over HBM bandwidth and the five products
-    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K: 5 · 2·B·H·T²·D) over the peak rate."""
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K: 5 · 2·B·H·T²·D) over the peak rate
+    for the type (``_ops_ms``: float32 at the 3xTF32 rate, three TF32
+    products per product, when that is the faster route)."""
     b, h, t, d = q.shape
     nbytes = 8 * q.numel() * q.element_size() + 2 * b * h * t * 4 \
         + (mask.numel() * 4 if mask is not None else 0)
     flops = 5 * 2.0 * b * h * t * t * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S[str(q.dtype).removeprefix("torch.")] * 1e3
+    t_ops = _ops_ms(flops, q.dtype)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -347,7 +426,8 @@ def phase_kernels_bwd():
     ``_reference_attention_bwd`` on the same o and statistics (those of
     the forward kernel); returns its rows by case.  The library call is
     the backward of ``scaled_dot_product_attention`` on the same inputs
-    (autograd of one forward, timed alone)."""
+    (autograd of one forward; its backward kernels' device time).  Every
+    time is device ms from the profiler."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels
@@ -357,22 +437,17 @@ def phase_kernels_bwd():
         cuda_kernels.flash_attention_bwd
     b, h, t, d = MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"], \
         BERT_BASE["hidden"] // BERT_BASE["heads"]
-    scale = d ** -0.5
     # float32: FMA chains against cuBLAS sums; bfloat16: one rounding of
     # each output
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
     rows = {}
-    cases = [("fp32", torch.float32, t, False, True, True),
-             ("bf16", torch.bfloat16, t, False, True, True),
-             ("fp32 causal", torch.float32, t, True, False, False),
-             ("fp32 ragged T=100", torch.float32, 100, False, True, False),
-             ("fp32 program bias", torch.float32, t, False, "program",
-              False)]
-    for label, dtype, tt, causal, masked, timed in cases:
-        (q, k, v), mask = _attention_inputs(b, h, tt, d, dtype, SEED,
+    for label, dtype, bb, tt, dd, causal, masked, timed in _flash_cases(
+            b, t, d, forward=False):
+        scale = dd ** -0.5
+        (q, k, v), mask = _attention_inputs(bb, h, tt, dd, dtype, SEED,
                                             bool(masked),
                                             masked == "program")
-        (do, _, _), _ = _attention_inputs(b, h, tt, d, dtype, SEED + 1,
+        (do, _, _), _ = _attention_inputs(bb, h, tt, dd, dtype, SEED + 1,
                                           masked=False)
         o, m, l = fwd(q, k, v, mask, scale, causal, return_stats=True)
         got = bwd(q, k, v, mask, scale, causal, o, m, l, do)
@@ -384,31 +459,37 @@ def phase_kernels_bwd():
                   for g, w in zip(got, want))
         ok = all(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol)
                  for g, w in zip(got, want))
-        _p(f"flash_attention_bwd {label} [{b},{h},{tt},{d}]: max |err| of "
+        _p(f"flash_attention_bwd {label} [{bb},{h},{tt},{dd}]: max |err| of "
            f"dq, dk, dv vs plain = {err:.3e} (atol={atol}, rtol={rtol})")
         if not ok or not np.isfinite(err):
             raise SystemExit(f"chip_smoke: flash_attention_bwd {label} "
                              f"disagrees with its plain version")
         if not timed:
             continue
-        ms = _ms(lambda: bwd(q, k, v, mask, scale, causal, o, m, l, do),
-                 100)
-        plain_ms = _ms(lambda: _reference_attention_bwd(
-            q, k, v, mask, scale, o, m, l, do, causal), 20)
+        ms = _profile(lambda: bwd(q, k, v, mask, scale, causal, o, m, l,
+                                  do), 50)[1]
+        plain_ms = _profile(lambda: _reference_attention_bwd(
+            q, k, v, mask, scale, o, m, l, do, causal), 10)[1]
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         with torch.enable_grad():
             out = F.scaled_dot_product_attention(
                 *leaves, attn_mask=mask.to(dtype) if mask is not None
                 else None, scale=scale)
-        library_ms = _ms(lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), 100)
+        # the device time of SDPA's backward kernels alone (the forward
+        # ran once, above)
+        library_ms = _profile(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 50)[1]
         bound_ms, bound_by = _flash_bwd_bound(q, mask)
+        split = _flash_bwd_split(lambda: bwd(q, k, v, mask, scale, causal,
+                                             o, m, l, do), 50)
         rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": library_ms}
+                       "library_ms": library_ms, "split_ms": split}
         _p(f"  kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library "
            f"(scaled_dot_product_attention backward) {library_ms:.4f} ms | "
            f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        _p("  kernel by launch: " + " | ".join(
+            f"{n} {t:.4f} ms" for n, t in split.items()))
     return rows
 
 
@@ -1127,7 +1208,8 @@ def phase_serve(card):
     layers = BERT_BASE["layers"]
     feeds = ["ids", "attn_mask"]
     t0 = time.perf_counter()
-    main, startup, logits = build_bert_train_program(**BERT_BASE)
+    main, startup, logits = build_bert_train_program(**BERT_BASE,
+                                                     train=False)
     startup.random_seed = SEED
     scope = fluid.Scope()
     fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
@@ -1174,6 +1256,7 @@ def phase_serve(card):
         counted = [cuda_kernels.flash_attention_fwd]
         for fn in counted:
             fn.launches = 0
+        _flash_copies_zero()
         b0 = eng.batches
         t0 = time.perf_counter()
         futures = [eng.submit(r) for r in requests]
@@ -1200,6 +1283,7 @@ def phase_serve(card):
     if batches < 1 or flash_n != layers * batches:
         raise SystemExit("chip_smoke: the served path did not launch the "
                          "flash-attention kernel once per layer per batch")
+    _flash_copies_check("serve")
 
     # the host: the card's weights on the CPU, plain versions, CPU
     # summation order.  Three programs answer each sampled request: the
@@ -1418,6 +1502,7 @@ def phase_train(card):
                cuda_kernels.flash_attention_bwd, cuda_kernels.fused_adam]
     for fn in counted:
         fn.launches = 0
+    _flash_copies_zero()
     t0 = time.perf_counter()
     losses = [step() for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
@@ -1438,6 +1523,7 @@ def phase_train(card):
     if launches != want:
         raise SystemExit("chip_smoke: the training step did not run "
                          "through every kernel as expected")
+    _flash_copies_check("train")
     if not np.isfinite(losses).all():
         raise SystemExit("chip_smoke: a training loss is not finite")
     _train_card_vs_host(main, loss, init, params, layers, card)
@@ -2069,6 +2155,7 @@ def phase_train_dygraph(card):
     torch.cuda.reset_peak_memory_stats()
     for fn in counted:
         fn.launches = 0
+    _flash_copies_zero()
     t0 = time.perf_counter()
     losses = [step() for _ in range(DY_STEPS)]
     torch.cuda.synchronize()
@@ -2090,6 +2177,7 @@ def phase_train_dygraph(card):
     if launches != want:
         raise SystemExit("chip_smoke: the dygraph step did not run through "
                          "every kernel as predicted")
+    _flash_copies_check("dygraph")
     if not np.isfinite(losses).all():
         raise SystemExit("chip_smoke: a dygraph training loss is not finite")
     # the first three steps from the initial weights and the same seeds,
@@ -2664,6 +2752,31 @@ def _profile(fn, iters):
             len(kern) / iters, by_class)
 
 
+def _flash_bwd_split(fn, iters):
+    """Device ms per call of each of the backward's three kernels (Δ,
+    dK/dV, dQ) over ``iters`` profiled calls after 3 warm-up calls."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        name = re.search(r"flash_bwd_(\w+?)_kernel", e.name)
+        if e.device_type == DeviceType.CUDA and name:
+            key = name.group(1)
+            split[key] = split.get(key, 0.0) + \
+                (e.time_range.end - e.time_range.start) / iters / 1e3
+    return split
+
+
 def _print_classes(by_class, unit):
     for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         _p(f"    {c:28s} {ms:.4f} ms/{unit}")
@@ -2824,13 +2937,21 @@ def main():
                     dygraph_launches=dy_launches["flash_attention_fwd"],
                     max_err=fp32["max_abs_err"],
                     bound_us=fp32["bound_ms"] * 1e3,
-                    dtype="float32", shape=shape, bf16=fwd_rows["bf16"]),
+                    dtype="float32", shape=shape, bf16=fwd_rows["bf16"],
+                    b1={"float32": fwd_rows["B=1 fp32"],
+                        "bfloat16": fwd_rows["B=1 bf16"]},
+                    copies={p: c["flash_attention_fwd"]
+                            for p, c in FLASH_COPIES.items()}),
         _kernel_row("flash_attention_bwd",
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                     "paddle_tpu/ops/pallas_kernels.py:41",
                     train_launches["flash_attention_bwd"], bwd_rows["fp32"],
                     dygraph_launches=dy_launches["flash_attention_bwd"],
-                    dtype="float32", shape=shape, bf16=bwd_rows["bf16"]),
+                    dtype="float32", shape=shape, bf16=bwd_rows["bf16"],
+                    b1={"float32": bwd_rows["B=1 fp32"],
+                        "bfloat16": bwd_rows["B=1 bf16"]},
+                    copies={p: c["flash_attention_bwd"]
+                            for p, c in FLASH_COPIES.items()}),
         _kernel_row("fused_adam", "paddle_tpu_torch/csrc/fused_adam.cu",
                     "paddle_tpu/ops/pallas_kernels.py:647",
                     train_launches["fused_adam"], adam_row,

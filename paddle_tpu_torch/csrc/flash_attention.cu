@@ -6,56 +6,47 @@
 // optional causal mask (key j visible to query i iff j <= i), and, when the
 // caller passes pointers, each row's softmax statistics for the backward
 // kernels (flash_attention_bwd.cu): the row max m of the scores and the sum
-// l of exp(score - m), float32 [B, H, Tq] each.  They are kept apart, not
-// folded into one log-sum-exp m + log l: the static BERT program's padding
-// bias is about -1e8, where float32 holds only multiples of 8, so m + log l
-// would round the log away.  The score of each (query, key) pair is rounded
-// exactly as the backward kernels round it: the same FMA chain over d, then
-// scale and bias each applied with one rounding (__fmul_rn, __fadd_rn, no
-// contraction), so exp(score - m) / l there reproduces this kernel's P.
+// l of exp(score - m), float32 [B, H, Tq] each, kept apart (no folded
+// log-sum-exp; flash_common.cuh says why).  The scores come from the score
+// function the backward kernels share (flash_common.cuh: score_tile).
 //
 // What bounds it on this card.  At the serving slice's shapes (B=32,
 // H=12, T=128, D=64) the work is 4*B*H*T^2*D = 1.61 GFLOP against 50.3 MB
-// of q/k/v/o in fp32 (25.2 MB in bf16).  In fp32 the operations bound it:
-// 67 TFLOP/s of fp32 FMA outside the tensor cores gives ~24 us, above the
-// 15 us the bytes need at 3.35 TB/s.  In bf16 the bytes bound it (~7.5 us).
+// of q/k/v/o in float32 (25.2 MB in bfloat16).  In bfloat16 the bytes
+// bound it (7.5 us at 3.35 TB/s; the tensor cores need 1.6 us).  Float32
+// runs as CUDA-core FMAs (flash_common.cuh says why not 3xTF32): 1.61
+// GFLOP at 67 TFLOP/s, 24 us, above the 15 us its bytes need.
 //
 // What the design does about it.  The [T, T] score matrix never reaches
-// device memory: each block keeps a 64-row query tile resident in shared
-// memory and streams 64-row K/V tiles past it, folding each tile into an
-// fp32 accumulator with an online softmax (running max m, running sum l),
-// so q, k, v and o cross device memory once and the 128x128 scores of the
-// slice live only in registers and shared memory.  The products are fp32
-// FMAs on CUDA cores (bf16 inputs are widened on load); wgmma, TMA and warp
-// specialisation are left for a later kernel.
-//
-// What limits this design in practice: every FMA of the score and PV
-// loops reads one operand from shared memory, so shared-memory bandwidth
-// caps the loops near a quarter of the FMA rate.  On an H100 SXM at 700 W
-// it runs at about a sixth of the fp32 bound above (PERF.md).  Register
-// tiling (several rows x several keys per thread) is the next step.
+// device memory: a block of 4 warps keeps a 64-row query tile in shared
+// memory, 16 rows a warp, and streams K/V tiles (64 rows; 32 in float32)
+// past it through a two-stage cp.async ring, so the next tile is in flight
+// while the current one is multiplied.  Q·K^T and P·V are warp-level products
+// (flash_common.cuh: mma.sync in bfloat16, register-tiled FMAs in
+// float32); the online softmax (running max m, running sum l) stays in
+// registers, each row reduced across the 4 lanes that hold it by
+// shuffles.  P goes to bfloat16 for P·V in bfloat16, as the plain version
+// casts P to q's dtype.  The bias values of a tile are loaded before its
+// products, so their latency hides behind them.  When the
+// 64-row grid would leave the card under-filled (fewer than 2 blocks per
+// SM, e.g. a served batch of 1 row of 12 heads), the block is one warp of
+// 16 query rows instead.  The Q operand is read from shared memory again
+// for every K/V tile, which keeps the registers for the output rows.
 //
 // Layout: q, k, v, o are [B, H, T, D] with D contiguous; the B, H and T
 // strides of each are arguments, so the permuted views transpose2 leaves
-// behind reach the kernel without a copy.  The fp32 bias is read through
-// four strides (0 on a broadcast dim), so a [B,1,1,Tk] padding mask is
-// never expanded in memory.  D <= 128, D % 8 == 0; any Tq, Tk (ragged
-// tiles are masked here).  The kernel allocates nothing and launches on
-// the caller's stream.
+// behind reach the kernel without a copy (the base pointers and the
+// strides of q, k, v must be 16-byte multiples, which the wrapper checks).
+// The fp32 bias is read through four strides (0 on a broadcast dim), so a
+// [B,1,1,Tk] padding mask is never expanded in memory.  D <= 128, D % 8
+// == 0; any Tq, Tk (ragged tiles are masked here).  The kernel allocates
+// nothing and launches on the caller's stream.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;                 // query rows per block
-constexpr int BLOCK_N = 64;                 // key rows per K/V tile
-constexpr int THREADS_PER_ROW = 4;          // threads sharing one query row
-constexpr int NUM_THREADS = BLOCK_M * THREADS_PER_ROW;   // 256
-constexpr int KEYS_PER_THREAD = BLOCK_N / THREADS_PER_ROW;  // 16
-constexpr int P_LD = BLOCK_N + 1;           // padded row of the P tile
+using flash::Elem;
 
 struct Params {
   const void* q;
@@ -73,180 +64,194 @@ struct Params {
   int causal;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Shared memory, in floats: Q, K, V tiles of 64 x (D + 1) and the 64 x 65
-// probability tile.  The +1 pads rows so the 8 rows a warp touches at one
-// column fall in distinct banks.
-inline size_t smem_bytes(int D) {
-  return sizeof(float) * (size_t)(3 * BLOCK_M * (D + 1) + BLOCK_M * P_LD);
+// key rows of a K/V tile: flash::kv_rows for 4-warp blocks, where shared
+// memory bounds the blocks an SM holds; 64 for one-warp blocks, which run
+// on a card with SMs to spare and take half the tiles so
+template <typename T, int WARPS>
+__host__ __device__ constexpr int kv_tile() {
+  return WARPS == 1 ? 64 : flash::kv_rows<T>();
 }
 
-// DMAX bounds D at compile time (32, 64 or 128) so each thread's slice of
-// the output row, columns t, t+4, t+8, ..., lives in registers.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(NUM_THREADS)
+template <typename T, int DMAX, int WARPS>
+constexpr size_t smem_bytes() {
+  constexpr int BN = kv_tile<T, WARPS>();
+  // the Q tile and two stages of K and V tiles
+  return sizeof(T) * (size_t)(DMAX + Elem<T>::PAD) *
+         (16 * WARPS + 2 * 2 * BN);
+}
+
+template <typename T, int DMAX, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;
-  float* Qs = smem;
-  float* Ks = Qs + BLOCK_M * ld;
-  float* Vs = Ks + BLOCK_N * ld;
-  float* Ps = Vs + BLOCK_N * ld;
+  constexpr int BM = 16 * WARPS;            // query rows per block
+  constexpr int BN = kv_tile<T, WARPS>();   // key rows per K/V tile
+  constexpr int NTHREADS = WARPS * 32;
+  constexpr int LD = DMAX + Elem<T>::PAD;
+  constexpr int NTD = DMAX / 8;             // n-tiles of an output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* kv_s = q_s + BM * LD;                  // stage i: K, then V
 
-  const int tid = threadIdx.x;
-  const int r = tid / THREADS_PER_ROW;      // query row within the tile
-  const int t = tid % THREADS_PER_ROW;      // lane within the row's group
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int D = p.D;
+  const int DK = flash::depth<T>(D);
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int m0 = blockIdx.y * BLOCK_M;
-  const int qi = m0 + r;
+  const int m0 = blockIdx.y * BM;
+  const int q0 = m0 + warp * 16;            // the warp's first query row
 
   const T* q = static_cast<const T*>(p.q) + b * p.s[0] + h * p.s[1];
   const T* k = static_cast<const T*>(p.k) + b * p.s[3] + h * p.s[4];
   const T* v = static_cast<const T*>(p.v) + b * p.s[6] + h * p.s[7];
   T* o = static_cast<T*>(p.o) + b * p.s[9] + h * p.s[10];
-  const float* bias_row = nullptr;
-  if (p.bias != nullptr) {
-    const int qb = qi < p.Tq ? qi : p.Tq - 1;   // stay in bounds past Tq
-    bias_row = p.bias + b * p.s[12] + h * p.s[13] + qb * p.s[14];
-  }
-
-  // Q tile -> shared memory, zero past Tq.  Consecutive threads read
-  // consecutive columns of a row: coalesced.
-  for (int idx = tid; idx < BLOCK_M * D; idx += NUM_THREADS) {
-    const int rr = idx / D;
-    const int d = idx - rr * D;
-    const int row = m0 + rr;
-    Qs[rr * ld + d] = row < p.Tq ? to_f32(q[row * p.s[2] + d]) : 0.f;
-  }
-
-  constexpr int CPT = DMAX / THREADS_PER_ROW;   // output columns per thread
-  float acc[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
-  float m_i = -INFINITY;   // running max of this row's scores
-  float l_i = 0.f;         // running sum of exp(score - m_i)
+  flash::ScoreArgs sa;
+  sa.bias = p.bias != nullptr ? p.bias + b * p.s[12] + h * p.s[13] : nullptr;
+  sa.bias_q = p.s[14];
+  sa.bias_k = p.s[15];
+  sa.scale = p.scale;
+  sa.Tq = p.Tq;
+  sa.Tk = p.Tk;
+  sa.causal = p.causal;
 
   // causal: keys past the block's last query row are never visible
-  const int n_end = p.causal ? min(p.Tk, m0 + BLOCK_M) : p.Tk;
-  for (int n0 = 0; n0 < n_end; n0 += BLOCK_N) {
-    __syncthreads();   // the previous tile's K, V and P reads are done
-    for (int idx = tid; idx < BLOCK_N * D; idx += NUM_THREADS) {
-      const int rr = idx / D;
-      const int d = idx - rr * D;
-      const int row = n0 + rr;
-      const bool in = row < p.Tk;
-      Ks[rr * ld + d] = in ? to_f32(k[row * p.s[5] + d]) : 0.f;
-      Vs[rr * ld + d] = in ? to_f32(v[row * p.s[8] + d]) : 0.f;
+  const int n_end = p.causal ? min(p.Tk, m0 + BM) : p.Tk;
+  const int tiles = (n_end + BN - 1) / BN;
+
+  flash::load_tile_async<T, BM, NTHREADS>(q_s, LD, q, p.s[2], m0, p.Tq, D,
+                                          DK);
+  flash::load_tile_async<T, BN, NTHREADS>(kv_s, LD, k, p.s[5], 0, p.Tk, D,
+                                          DK);
+  flash::load_tile_async<T, BN, NTHREADS>(kv_s + BN * LD, LD, v, p.s[8], 0,
+                                          p.Tk, D, DK);
+  flash::cp_async_commit();
+
+  float acc[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // rows g and g + 8 of the warp: running max and sum
+  float m_i[2] = {-INFINITY, -INFINITY};
+  float l_i[2] = {0.f, 0.f};
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      // the stage refilled here was last read in iteration it - 1, which
+      // ended at a barrier
+      T* nxt = kv_s + ((it + 1) & 1) * 2 * BN * LD;
+      const int n1 = (it + 1) * BN;
+      flash::load_tile_async<T, BN, NTHREADS>(nxt, LD, k, p.s[5], n1, p.Tk,
+                                              D, DK);
+      flash::load_tile_async<T, BN, NTHREADS>(nxt + BN * LD, LD, v, p.s[8],
+                                              n1, p.Tk, D, DK);
+      flash::cp_async_commit();
+      flash::cp_async_wait<1>();
+    } else {
+      flash::cp_async_wait<0>();
     }
     __syncthreads();
+    const T* k_s = kv_s + (it & 1) * 2 * BN * LD;
+    const T* v_s = k_s + BN * LD;
 
-    // scores of keys t, t+4, ..., t+60 of this tile against row r
-    float s[KEYS_PER_THREAD];
+    float s[BN / 8][4];
+    flash::score_tile<T, BN / 8>(s, q_s + warp * 16 * LD, k_s, LD, DK, sa, q0,
+                                 it * BN, lane);
+
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) s[i] = 0.f;
-    const float* qrow = Qs + r * ld;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qrow[d];
-#pragma unroll
-      for (int i = 0; i < KEYS_PER_THREAD; ++i)
-        s[i] = fmaf(qv, Ks[(t + THREADS_PER_ROW * i) * ld + d], s[i]);
+    for (int j = 0; j < BN / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
-
-    float tile_max = -INFINITY;
+    float m_use[2], alpha[2];
 #pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-      const int kj = n0 + t + THREADS_PER_ROW * i;
-      const bool valid = kj < p.Tk && (!p.causal || kj <= qi);
-      float x = __fmul_rn(s[i], p.scale);
-      if (bias_row != nullptr && kj < p.Tk)
-        x = __fadd_rn(x, bias_row[kj * p.s[15]]);
-      s[i] = valid ? x : -INFINITY;
-      tile_max = fmaxf(tile_max, s[i]);
+    for (int r = 0; r < 2; ++r) {
+      // the 4 lanes of a row are adjacent
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_i[r], mx[r]);
+      // a row with nothing visible yet keeps m = -inf; exp against 0 then
+      // gives exact zeros instead of NaN from (-inf) - (-inf)
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = __expf(m_i[r] - m_use[r]);
+      m_i[r] = m_new;
     }
-    // the 4 threads of a row are adjacent lanes of one warp
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-
-    const float m_new = fmaxf(m_i, tile_max);
-    // a row with nothing visible yet keeps m = -inf; exp against 0 then
-    // gives exact zeros instead of NaN from (-inf) - (-inf)
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = __expf(m_i - m_use);
-    float psum = 0.f;
+    float psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-      s[i] = __expf(s[i] - m_use);
-      psum += s[i];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[c] *= alpha;
-
-#pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i)
-      Ps[r * P_LD + t + THREADS_PER_ROW * i] = s[i];
-    __syncthreads();
-
-    // acc[c] += sum_j P[r, j] * V[j, t + 4c]
-    const float* prow = Ps + r * P_LD;
-    for (int j = 0; j < BLOCK_N; ++j) {
-      const float pj = prow[j];
-      const float* vrow = Vs + j * ld;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = t + THREADS_PER_ROW * c;
-        if (col < D) acc[c] = fmaf(pj, vrow[col], acc[c]);
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __expf(s[j][e] - m_use[e >> 1]);
+        psum[e >> 1] += s[j][e];
       }
     }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l_i[r] = l_i[r] * alpha[r] + psum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    flash::mma_reg_a<BN / 8, NTD>(acc, s, v_s, LD, D, lane);
+    __syncthreads();   // this stage's reads are done before it is refilled
   }
 
-  if (qi < p.Tq) {
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + g + 8 * r;
+    if (qi >= p.Tq) continue;
+    const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
     T* orow = o + qi * p.s[11];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = t + THREADS_PER_ROW * c;
-      if (col < D) store(orow + col, acc[c] * inv);
+    for (int n = 0; n < NTD; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < D) {
+        flash::store(orow + col, acc[n][2 * r] * inv);
+        flash::store(orow + col + 1, acc[n][2 * r + 1] * inv);
+      }
     }
     if (p.row_max != nullptr && t == 0) {
-      p.row_max[(size_t)bh * p.Tq + qi] = m_i;
-      p.row_sum[(size_t)bh * p.Tq + qi] = l_i;
+      p.row_max[(size_t)bh * p.Tq + qi] = m_i[r];
+      p.row_sum[(size_t)bh * p.Tq + qi] = l_i[r];
     }
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int WARPS>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(p.D);
+  constexpr size_t bytes = smem_bytes<T, DMAX, WARPS>();
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_fwd_kernel<T, DMAX, WARPS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Tq + BLOCK_M - 1) / BLOCK_M);
-  flash_fwd_kernel<T, DMAX><<<grid, NUM_THREADS, bytes, stream>>>(p);
+  const dim3 grid(p.B * p.H, (p.Tq + 16 * WARPS - 1) / (16 * WARPS));
+  flash_fwd_kernel<T, DMAX, WARPS><<<grid, WARPS * 32, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// 64-row blocks unless they would give fewer than 2 blocks per SM of the
+// H100's 132; then one warp of 16 rows a block
+template <typename T, int DMAX>
+cudaError_t dispatch_rows(const Params& p, cudaStream_t stream) {
+  const int64_t blocks64 = (int64_t)p.B * p.H * ((p.Tq + 63) / 64);
+  if (blocks64 < 2 * 132) return launch<T, DMAX, 1>(p, stream);
+  return launch<T, DMAX, 4>(p, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 32>(p, stream);
-  if (p.D <= 64) return launch<T, 64>(p, stream);
-  return launch<T, 128>(p, stream);
+  if (p.D <= 32) return dispatch_rows<T, 32>(p, stream);
+  if (p.D <= 64) return dispatch_rows<T, 64>(p, stream);
+  return dispatch_rows<T, 128>(p, stream);
 }
 
 }  // namespace

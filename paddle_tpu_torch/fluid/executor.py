@@ -166,8 +166,11 @@ class Executor:
             v = scope.find_var(n)
             if v is not None:
                 env[n] = v
+        block = program.global_block()
         for k, v in feed.items():
-            env[k] = self._to_device(v)
+            var = block._find_var_recursive(k)
+            env[k] = self._to_device(v, var.dtype if var is not None
+                                     else None)
         seed = program.random_seed if program.random_seed is not None else 0
         ctx = LoweringContext(device=self.device,
                               base_seed=seed * 1_000_003 + self._step,
@@ -193,10 +196,18 @@ class Executor:
         return fetches
 
     # -- internals ----------------------------------------------------------
-    def _to_device(self, v):
-        if isinstance(v, torch.Tensor):
-            return v.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+    def _to_device(self, v, dtype: Optional[str] = None):
+        """The feed on the executor's device.  A floating-point feed takes
+        its var's declared floating dtype (a float64 array fed to a
+        float32 ``fluid.data`` computes in float32, as the reference does
+        with x64 off); integer ids keep their dtype."""
+        t = v if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v))
+        want = getattr(torch, dtype, None) if dtype else None
+        if isinstance(want, torch.dtype) and want.is_floating_point \
+                and t.is_floating_point():
+            return t.to(device=self.device, dtype=want)
+        return t.to(self.device)
 
     def _plan(self, program: Program, feed_names, fetch_names,
               scope: Scope) -> _RunPlan:

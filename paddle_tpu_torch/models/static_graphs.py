@@ -45,16 +45,16 @@ def _naive_attention(x, hidden, heads, mask=None, dropout=0.0):
 
 def build_bert_train_program(vocab=64, hidden=32, heads=4, seq=16,
                              layers=2, dropout=0.0, with_mask=True,
-                             lr=1e-3, train=False):
+                             lr=1e-3, train=True):
     """BERT-shaped classifier over ``layers`` naive attention blocks.
     Feeds: ids [B, seq] int64, labels [B, 1] int64 (with ``train``) and,
     with ``with_mask``, attn_mask [B, seq] float 1/0.
 
-    ``train=True`` builds what the reference builder builds: the mean
-    softmax cross-entropy of the logits against the labels, its backward
-    and ``AdamOptimizer(lr).minimize``; returns (main, startup, loss).
-    ``train=False`` stops at the logits; returns (main, startup,
-    logits)."""
+    ``train=True`` (the default) builds what the reference builder, which
+    always trains, builds: the mean softmax cross-entropy of the logits
+    against the labels, its backward and ``AdamOptimizer(lr).minimize``;
+    returns (main, startup, loss).  ``train=False`` stops at the logits,
+    the program a server freezes; returns (main, startup, logits)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         ids = fluid.data("ids", [-1, seq], dtype="int64")
@@ -84,17 +84,18 @@ def build_bert_train_program(vocab=64, hidden=32, heads=4, seq=16,
 
 
 def build_ctr_train_program(slots=4, vocab=128, dim=16, seq=5, lr=0.05,
-                            optimizer="adam", train=False):
+                            optimizer="adam", train=True):
     """Wide&deep CTR net in the classic PaddleBox spelling: one
     lookup_table_v2 → sequence_pool(sum) chain per slot, concat with the
     dense features, an fc tower and a wide fc head.  Feeds: ids_<i>
     [B, seq] int64 per slot, dense [B, 13] and (with ``train``) label
     [B, 1] float 0/1.
 
-    ``train=True`` builds what the reference builder builds: the mean
-    sigmoid cross-entropy of the logit against the label, its backward
-    and ``MomentumOptimizer(lr, 0.9)`` (``optimizer="momentum"``) or
-    ``AdamOptimizer(lr)``; returns (main, startup, loss).  ``train=False``
+    ``train=True`` (the default) builds what the reference builder, which
+    always trains, builds: the mean sigmoid cross-entropy of the logit
+    against the label, its backward and ``MomentumOptimizer(lr, 0.9)``
+    (``optimizer="momentum"``) or ``AdamOptimizer(lr)``; returns (main,
+    startup, loss).  ``train=False``
     stops at the logit, ``fc(h, 1) + wide``; returns (main, startup,
     logit)."""
     main, startup = fluid.Program(), fluid.Program()

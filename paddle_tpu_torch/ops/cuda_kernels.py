@@ -108,9 +108,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = (CSRC_DIR / f"{stem}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{stem}-{digest[:16]}.so"
+    """The library of ``{stem}.cu``, named by the hash of the source, of
+    every ``csrc/*.cuh`` header (any source may include any of them) and
+    of the flags, so an edited header is rebuilt too."""
+    h = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> list:
@@ -214,6 +219,28 @@ def _flash_shapes(what, q, k, v, causal):
     return B, H, Tq, Tk, D
 
 
+def _aligned16(t) -> bool:
+    """Whether the kernels' 16-byte ``cp.async`` copies can read ``t``: a
+    16-byte aligned base and B, H and T strides of whole 16-byte chunks
+    (a stride of a dim of size 1 is never stepped)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * size) % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+        if n > 1)
+
+
+def _aligned_inputs(fn, tensors):
+    """``tensors`` with each one the kernels cannot read by 16-byte copies
+    replaced by a contiguous copy, counted in ``fn.copies``."""
+    out = []
+    for t in tensors:
+        if not _aligned16(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            fn.copies += 1
+        out.append(t)
+    return out
+
+
 def _bias_arg(what, bias, q, full):
     """The bias as a float32 view broadcast to ``full`` (stride 0 on the
     broadcast dims, never expanded in memory) and its four strides."""
@@ -246,6 +273,7 @@ def flash_attention_fwd(q, k, v, bias, scale: float, causal: bool,
     returns ``(o, m, l)``."""
     what = "flash_attention_fwd"
     B, H, Tq, Tk, D = _flash_shapes(what, q, k, v, causal)
+    q, k, v = _aligned_inputs(flash_attention_fwd, (q, k, v))
     o = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     stats = [torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
              for _ in range(2)] if return_stats else [None, None]
@@ -269,6 +297,7 @@ def flash_attention_fwd(q, k, v, bias, scale: float, causal: bool,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.copies = 0
 
 
 def flash_attention_bwd(q, k, v, bias, scale: float, causal: bool, o, m, l,
@@ -294,6 +323,7 @@ def flash_attention_bwd(q, k, v, bias, scale: float, causal: bool, o, m, l,
             raise ValueError(f"{what}: {name} must be a contiguous float32 "
                              f"{(B, H, Tq)} tensor on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    q, k, v, o, do = _aligned_inputs(flash_attention_bwd, (q, k, v, o, do))
     dq, dk, dv = (torch.empty(t.shape, dtype=q.dtype, device=q.device)
                   for t in (q, k, v))
     if B * H * Tq * Tk == 0:
@@ -320,6 +350,7 @@ def flash_attention_bwd(q, k, v, bias, scale: float, causal: bool, o, m, l,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.copies = 0
 
 
 # ---------------------------------------------------------------------------

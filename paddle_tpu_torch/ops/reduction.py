@@ -40,9 +40,15 @@ def _reduce_sum(ins, attrs, ctx):
                               keepdim=attrs.get("keep_dim", False))]}
 
 
+def _float_for_mean(x):
+    """An integer (or bool) tensor as float32: the mean of integers is a
+    float, as ``jnp.mean`` gives it with x64 off."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
 @register_op("reduce_mean")
 def _reduce_mean(ins, attrs, ctx):
-    x = ins["X"][0]
+    x = _float_for_mean(ins["X"][0])
     axes = _axes(attrs, x.ndim)
     _refuse_padded_batch("reduce_mean", x, axes, ctx)
     if not axes:
@@ -53,6 +59,6 @@ def _reduce_mean(ins, attrs, ctx):
 
 @register_op("mean")
 def _mean(ins, attrs, ctx):
-    x = ins["X"][0]
+    x = _float_for_mean(ins["X"][0])
     _refuse_padded_batch("mean", x, tuple(range(x.ndim)), ctx)
     return {"Out": [torch.mean(x)]}

@@ -612,6 +612,7 @@ class DecodeEngine:
         self._q: "queue.Queue" = queue.Queue(maxsize=self.queue_depth)
         self._slots: List[_Slot] = []
         self._pending: "deque[_DecodeRequest]" = deque()
+        self._admitting: List[_DecodeRequest] = []
         self._cap = 0
         self._dirty = False
         self._closed = False
@@ -709,6 +710,13 @@ class DecodeEngine:
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new}) "
                 f"exceeds the model's KV window max_len="
                 f"{self.model.max_len}")
+        # an id outside the embedding table would fail the whole prefill
+        # batch (and on the card lose the process's CUDA context), so it
+        # is refused here, for this request alone
+        if prompt.min() < 0 or prompt.max() >= self.model.vocab:
+            raise DecodeRejectedError(
+                f"prompt ids must lie in [0, {self.model.vocab}), got "
+                f"{int(prompt.min())} .. {int(prompt.max())}")
         if self.paged:
             # a static impossibility is a typed rejection NOW; a transient
             # shortage is not — those requests park in the pending FIFO
@@ -761,6 +769,11 @@ class DecodeEngine:
         for r in list(self._pending):
             r.future._reject(exc)
         self._pending.clear()
+        # the batch _admit_ready was seating when the failure came
+        for r in self._admitting:
+            if not r.future.done():
+                r.future._reject(exc)
+        self._admitting = []
         self._ins.set_active(0)
         while True:
             try:
@@ -871,10 +884,15 @@ class DecodeEngine:
         return {"shared": shared, "fresh": fresh}
 
     def _admit_ready(self, ready) -> None:
+        # held until the batch is seated, so _abort reaches it if the
+        # prefill raises (paged mode's items are (request, page plan))
+        self._admitting = [p[0] for p in ready] if self.paged \
+            else list(ready)
         if self.paged:
             self._admit_paged(ready)
         else:
             self._admit(ready)
+        self._admitting = []
 
     # -- join (prefill) ------------------------------------------------------
     def _admit(self, reqs: List[_DecodeRequest]) -> None:

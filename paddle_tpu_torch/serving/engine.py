@@ -166,6 +166,10 @@ class _Request:
 _STOP = object()
 
 
+# the ops that index a table by an id feed
+_ID_LOOKUPS = ("lookup_table", "lookup_table_v2", "fused_embedding_pool")
+
+
 class _ExecutorBackend:
     """Frozen Program + Executor.  ``dispatch`` runs the batch and leaves
     the fetches on the executor's device; ``wait`` copies them to the
@@ -189,6 +193,22 @@ class _ExecutorBackend:
         self.executor.run(self.program, feed=feed,
                           fetch_list=self.fetch_names, scope=self.scope,
                           return_numpy=True)
+
+    def id_bounds(self, feed_names) -> Dict[str, int]:
+        """{feed: rows of the smallest table it indexes} for each feed that
+        is the ``Ids`` of a table lookup in the program (``lookup_table``,
+        ``lookup_table_v2``, ``fused_embedding_pool``)."""
+        block = self.program.global_block()
+        feeds = set(feed_names)
+        out: Dict[str, int] = {}
+        for op in block.ops:
+            if op.type not in _ID_LOOKUPS:
+                continue
+            ids, w = op.input("Ids")[0], op.input("W")[0]
+            rows = (block._find_var_recursive(w).shape or [-1])[0]
+            if ids in feeds and rows is not None and rows > 0:
+                out[ids] = min(out.get(ids, rows), int(rows))
+        return out
 
     def feed_specs(self):
         """(name, feature_shape, dtype) per feed, from the IR."""
@@ -254,6 +274,10 @@ class ServingEngine:
             program, self.fetch_names,
             executor if executor is not None else Executor(),
             scope or global_scope())
+        # an id outside its table would fail every request of the batch
+        # it rides in (and on the card trap in the gather kernel), so
+        # submit refuses it for its own request
+        self._id_bounds = self._backend.id_bounds(self.feed_names)
 
         # plain counts: batches is written by the batcher thread only,
         # the others under self._lock
@@ -349,8 +373,9 @@ class ServingEngine:
     def submit(self, feed: Dict[str, Any]) -> ServingFuture:
         """Admit one request.  Every feed array must share one leading
         (row) dim.  Raises :class:`QueueFullError` when the admission
-        queue is at capacity and :class:`EngineClosedError` after
-        close()."""
+        queue is at capacity, :class:`EngineClosedError` after close()
+        and ``ValueError`` for a malformed feed or an id outside the
+        table its feed indexes."""
         if self._closed:
             raise EngineClosedError("ServingEngine is closed")
         if not self._started and self._auto_start:
@@ -365,6 +390,12 @@ class ServingEngine:
                 f"request feeds must share one leading batch dim, got "
                 f"{ {n: a.shape for n, a in arrs.items()} }")
         n_rows = int(next(iter(rows)))
+        for n, height in self._id_bounds.items():
+            a = arrs[n]
+            if a.size and (a.min() < 0 or a.max() >= height):
+                raise ValueError(
+                    f"feed {n!r} holds ids outside its table's [0, "
+                    f"{height}): {int(a.min())} .. {int(a.max())}")
         # non-batch feeds cannot be concatenated: their VALUE is part of
         # the coalescing signature
         sig = tuple(sorted(

@@ -1,0 +1,207 @@
+"""Faults of paddle_tpu_torch against paddle_tpu, each held by a probe.
+
+Each test runs a case where the port once parted from the reference (a
+bad id that took down a decode engine or a whole served batch, builders
+that did not train by default, a float64 feed, an integer mean) and holds
+the port to what it does now.  Two departures are on purpose: an id
+outside its table is refused at ``submit``, for that request alone, where
+the reference answers with NaN (on the card such an id would trap in the
+gather kernel or assert in ``index_select`` and lose the process's CUDA
+context).  Also here: the kernel build's hash covers the headers, and the
+flash wrappers' 16-byte alignment rule, neither of which needs a card.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu  # noqa: F401 — registers the reference lowerings
+from paddle_tpu.fluid.framework import reset_unique_name as j_reset
+from paddle_tpu.models.static_graphs import \
+    build_bert_train_program as j_bert
+from paddle_tpu.models.static_graphs import \
+    build_ctr_train_program as j_ctr
+from paddle_tpu.ops import registry as jreg
+
+import paddle_tpu_torch.fluid as tfluid
+from paddle_tpu_torch.fluid import layers as TL
+from paddle_tpu_torch.fluid.framework import reset_unique_name as t_reset
+from paddle_tpu_torch.models.static_graphs import \
+    build_bert_train_program as t_bert
+from paddle_tpu_torch.models.static_graphs import \
+    build_ctr_train_program as t_ctr
+from paddle_tpu_torch.ops import cuda_kernels
+from paddle_tpu_torch.ops import registry as treg
+from paddle_tpu_torch.serving import ServingEngine, freeze_program
+from paddle_tpu_torch.serving import decode as tdecode
+
+HOST = tfluid.CPUPlace()
+DECODE = dict(vocab=19, d_model=8, max_len=16, seed=5, page_size=4)
+TIMEOUT = 60
+
+
+@pytest.fixture(scope="module")
+def decode_model():
+    return tdecode.build_demo_decode_model(executor=tfluid.Executor(HOST),
+                                           scope=tfluid.Scope(), **DECODE)
+
+
+# -- 1. DecodeEngine: bad ids -------------------------------------------------
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+def test_decode_refuses_out_of_vocab_ids_and_keeps_serving(decode_model,
+                                                           paged):
+    eng = tdecode.DecodeEngine(decode_model, max_batch=4, paged=paged,
+                               name=f"t_bad_ids_{paged}")
+    with eng:
+        good = eng.submit([1, 2, 3], max_new_tokens=2)
+        for bad in ([10 ** 6], [-5], [3, DECODE["vocab"]]):
+            with pytest.raises(tdecode.DecodeRejectedError, match="ids"):
+                eng.submit(bad, max_new_tokens=2)
+        assert len(good.result(timeout=TIMEOUT)["tokens"]) == 2
+        later = eng.submit([4, 5], max_new_tokens=3)
+        assert len(later.result(timeout=TIMEOUT)["tokens"]) == 3
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+def test_decode_failure_in_prefill_reaches_the_batch_being_admitted(
+        decode_model, monkeypatch, paged):
+    """A prefill that raises closes the engine; every client, the batch
+    being seated included, gets the error instead of waiting forever."""
+    eng = tdecode.DecodeEngine(decode_model, max_batch=4, paged=paged,
+                               auto_start=False, name=f"t_abort_{paged}")
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("prefill failed")
+
+    monkeypatch.setattr(eng, "_paged_prefill" if paged else "_prefill", fail)
+    futs = [eng.submit(p, max_new_tokens=2) for p in ([1, 2], [3], [4, 5])]
+    eng.start()
+    for f in futs:
+        with pytest.raises(RuntimeError, match="prefill failed"):
+            f.result(timeout=TIMEOUT)
+    eng.close()
+
+
+# -- 2. ServingEngine: one bad id in a batch ----------------------------------
+def test_served_batch_keeps_its_good_requests_when_one_id_is_bad():
+    t_reset()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        ids = tfluid.data("ids", [-1, 3], dtype="int64")
+        emb = TL.embedding(ids, size=[10, 4])
+        out = TL.sequence_pool(emb, "sum")
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(HOST)
+    exe.run(startup, scope=scope)
+    frozen = freeze_program(main, ["ids"], [out], scope=scope)
+    good = [np.array([[1, 2, 3]], "int64"), np.array([[4, 5, 9]], "int64")]
+    with ServingEngine(frozen, executor=exe, scope=scope, max_batch=8,
+                       max_wait_us=200_000) as eng:
+        first = eng.submit({"ids": good[0]})
+        with pytest.raises(ValueError, match="outside its table"):
+            eng.submit({"ids": np.array([[0, 99, 1]], "int64")})
+        with pytest.raises(ValueError, match="outside its table"):
+            eng.submit({"ids": np.array([[-1, 0, 1]], "int64")})
+        second = eng.submit({"ids": good[1]})
+        answers = [f.result(timeout=TIMEOUT)[out.name]
+                   for f in (first, second)]
+        assert eng.dispatch_errors == 0
+    w = scope.find_var(main.all_parameters()[0].name).numpy()
+    for got, req in zip(answers, good):
+        np.testing.assert_allclose(got, w[req].sum(axis=1), rtol=1e-6)
+
+
+# -- 3. the builders train by default -----------------------------------------
+def _op_types(program):
+    return [op.type for op in program.global_block().ops]
+
+
+@pytest.mark.parametrize("which", ("bert", "ctr"))
+def test_builders_train_by_default_as_the_reference_does(which):
+    j_build, t_build = {"bert": (j_bert, t_bert),
+                        "ctr": (j_ctr, t_ctr)}[which]
+    j_reset()
+    t_reset()
+    j_main, _, j_loss = j_build()
+    t_main, _, t_loss = t_build()
+    assert _op_types(t_main) == _op_types(j_main)
+    assert t_loss.name == j_loss.name
+    assert "adam" in _op_types(t_main)
+    t_reset()
+    served, _, logits = t_build(train=False)
+    assert "adam" not in _op_types(served)
+    assert logits.name != t_loss.name
+
+
+# -- 4. a float64 feed ---------------------------------------------------------
+def test_float64_feed_computes_in_the_declared_float32():
+    t_reset()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.data("x", [-1, 4])
+        y = TL.fc(x, 3)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(HOST)
+    exe.run(startup, scope=scope)
+    x64 = np.random.RandomState(0).randn(5, 4)
+    got = exe.run(main, feed={"x": x64}, fetch_list=[y], scope=scope)[0]
+    want = exe.run(main, feed={"x": x64.astype("float32")}, fetch_list=[y],
+                   scope=scope)[0]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+# -- 5. integer means ----------------------------------------------------------
+@pytest.mark.parametrize("op_type,attrs", [
+    ("mean", {}), ("reduce_mean", {"dim": [1], "keep_dim": False}),
+    ("reduce_mean", {"reduce_all": True})])
+def test_integer_mean_is_the_float_mean(op_type, attrs):
+    x = np.array([[1, 2, 4], [3, 5, 8]], "int64")
+    want = np.asarray(jreg.get_op(op_type).fn(
+        {"X": [jnp.asarray(x)]}, dict(attrs),
+        jreg.LoweringContext())["Out"][0])
+    got = treg.get_op(op_type).fn({"X": [torch.from_numpy(x)]}, dict(attrs),
+                                  treg.LoweringContext())["Out"][0]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+# -- the kernel build hash and the flash wrappers' alignment rule ----------
+def test_kernel_library_path_follows_the_headers(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(cuda_kernels, "CSRC_DIR", tmp_path)
+    first = cuda_kernels._lib_path("k")
+    assert cuda_kernels._lib_path("k") == first
+    header.write_text("// v2\n")
+    assert cuda_kernels._lib_path("k") != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert len({first, cuda_kernels._lib_path("k")}) == 2
+    assert cuda_kernels.sources() == ["k"]
+
+
+def test_flash_inputs_that_16_byte_copies_cannot_read_are_copied():
+    def permuted(t, d, dtype):   # the [B,H,T,D] views transpose2 leaves
+        return torch.zeros(2, t, 3, d, dtype=dtype).permute(0, 2, 1, 3)
+
+    aligned = [permuted(5, 64, torch.float32), permuted(7, 8, torch.bfloat16),
+               torch.zeros(2, 3, 5, 40, dtype=torch.bfloat16)]
+    assert all(cuda_kernels._aligned16(t) for t in aligned)
+    flat = torch.zeros(2 * 3 * 5 * 64 + 1)
+    shifted = flat[1:].view(2, 3, 5, 64)           # base off by 4 bytes
+    packed = torch.zeros(2, 5, 3 * 64 + 2)[..., :192].reshape(2, 5, 3, 64) \
+        .permute(0, 2, 1, 3)                         # a T stride of 194
+    assert not cuda_kernels._aligned16(shifted)
+    assert not cuda_kernels._aligned16(packed)
+
+    class Counted:
+        copies = 0
+
+    out = cuda_kernels._aligned_inputs(Counted, aligned[:1] + [shifted,
+                                                                packed])
+    assert Counted.copies == 2
+    assert out[0] is aligned[0]
+    for got, want in zip(out[1:], (shifted, packed)):
+        assert cuda_kernels._aligned16(got) and torch.equal(got, want)

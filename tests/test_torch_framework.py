@@ -32,9 +32,10 @@ def _fresh_port_names():
 
 def _both(**cfg):
     """(jax main, port main, logits name); both start from fresh name
-    counters, so their var names agree."""
+    counters, so their var names agree.  The port builds the forward
+    program (``train=False``), up to the logits."""
     jmain, _, _ = j_build(**cfg)
-    tmain, _, logits = t_build(**cfg)
+    tmain, _, logits = t_build(train=False, **cfg)
     return jmain, tmain, logits.name
 
 

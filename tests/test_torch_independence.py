@@ -91,7 +91,7 @@ def test_executor_defaults_to_the_card_and_raises_without_one(no_cuda):
 
 def test_serving_engine_defaults_to_the_card(no_cuda):
     tframework.reset_unique_name()
-    main, _, logits = build_bert_train_program(layers=1)
+    main, _, logits = build_bert_train_program(layers=1, train=False)
     frozen = freeze_program(main, ["ids", "attn_mask"], [logits],
                             scope=tfluid.Scope())
     with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):

@@ -7,12 +7,13 @@ tests).  On the card: ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py`
 
 Tolerances: float32 atol=rtol=1e-4 (the online softmax sums in another
 order than the plain version's full-row softmax); bfloat16 atol=2e-2
-(the plain version rounds the probabilities to bfloat16 before the
-product with V, the kernel keeps them in float32).  The softmax
-statistics against ``_reference_stats``: atol=rtol=1e-4.  The backward
+(both versions round the probabilities to bfloat16 before the product
+with V, the kernel before it normalises them, the plain version
+after).  The softmax statistics against ``_reference_stats``: atol=rtol=1e-4.  The backward
 kernel against ``_reference_attention_bwd`` on the same o, m and l: float32
 atol=rtol=1e-4 (FMA chains against cuBLAS sums), bfloat16 atol=2e-2,
-rtol=1e-2 (one bfloat16 rounding of each output).  ``fused_adam``
+rtol=1e-2 (one bfloat16 rounding of each output); two backward
+launches on the same inputs ``torch.equal`` (no atomics).  ``fused_adam``
 against the per-param ``adam`` lowering: ``torch.equal``.  The embedding
 gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
 (the kernel sums in j order, torch's reduction in its own), and
@@ -176,6 +177,69 @@ def test_program_bias_regime(cuda):
     under the bias the static BERT program hands them."""
     _check(cuda, 32, 12, 128, 64, torch.float32, program_bias=True)
     _check_bwd(cuda, 32, 12, 128, 64, torch.float32, program_bias=True)
+
+
+def test_program_bias_regime_bf16(cuda):
+    _check(cuda, 32, 12, 128, 64, torch.bfloat16, program_bias=True)
+    _check_bwd(cuda, 32, 12, 128, 64, torch.bfloat16, program_bias=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("t,d", [(77, 8), (100, 40), (65, 72), (130, 128)])
+def test_head_dims_off_the_mma_depth_with_ragged_lengths(cuda, t, d, dtype):
+    """D = 8 and 40 are not multiples of bf16's mma depth of 16 (the
+    kernels zero-fill the rest); 72 and 128 take the widest tiles."""
+    _check(cuda, 2, 3, t, d, dtype)
+    _check_bwd(cuda, 2, 3, t, d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_served_batch_of_one_row(cuda, dtype):
+    """B = 1 of 12 heads: the forward takes one-warp blocks of 16 rows."""
+    _check(cuda, 1, 12, 128, 64, dtype)
+    _check_bwd(cuda, 1, 12, 128, 64, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_is_bitwise_repeatable(cuda, dtype):
+    (q, k, v), mask = _inputs(cuda, 4, 12, 128, 64, dtype)
+    do = torch.randn_like(q)
+    o, m, l = cuda_kernels.flash_attention_fwd(q, k, v, mask, 0.125, False,
+                                               return_stats=True)
+    first = cuda_kernels.flash_attention_bwd(q, k, v, mask, 0.125, False, o,
+                                             m, l, do)
+    second = cuda_kernels.flash_attention_bwd(q, k, v, mask, 0.125, False,
+                                              o, m, l, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_misaligned_views_are_copied_counted_and_still_match(cuda):
+    """A view whose base or T stride is not a 16-byte multiple cannot be
+    read by 16-byte cp.async: the wrapper copies it, counts the copy and
+    the result still matches the plain version."""
+    (q, k, v), mask = _inputs(cuda, 2, 3, 40, 64, torch.float32)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    q_off = flat[1:].view(q.shape).copy_(q)               # base + 4 bytes
+    wide = torch.zeros(2, 40, 3 * 64 + 2, device=cuda)
+    k_odd = wide[..., :192].view(2, 40, 3, 64).permute(0, 2, 1, 3)
+    k_odd.copy_(k)                                        # T stride 194
+    f0 = cuda_kernels.flash_attention_fwd.copies
+    b0 = cuda_kernels.flash_attention_bwd.copies
+    o, m, l = cuda_kernels.flash_attention_fwd(q_off, k_odd, v, mask, 0.125,
+                                               False, return_stats=True)
+    assert cuda_kernels.flash_attention_fwd.copies == f0 + 2
+    torch.testing.assert_close(
+        o, _reference_attention(q, k, v, mask, 0.125, False), **TOL[q.dtype])
+    do = torch.randn_like(q)
+    got = cuda_kernels.flash_attention_bwd(q_off, k_odd, v, mask, 0.125,
+                                           False, o, m, l, do)
+    assert cuda_kernels.flash_attention_bwd.copies == b0 + 2
+    want = _reference_attention_bwd(q, k, v, mask, 0.125, o, m, l, do)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, **BWD_TOL[q.dtype])
 
 
 def test_autograd_function_runs_both_kernels(cuda):

@@ -58,7 +58,7 @@ def _fused_strategy(fluid):
 def _port_program():
     """The port's frozen program and CompiledProgram, its logits name,
     and its parameter names in creation order."""
-    main, _, logits = t_build(**SMALL)
+    main, _, logits = t_build(train=False, **SMALL)
     frozen = freeze_program(main, FEEDS, [logits], scope=tfluid.Scope())
     cp = tfluid.CompiledProgram(frozen, _fused_strategy(tfluid))
     return cp, logits.name, [p.name for p in main.all_parameters()]
