@@ -23,13 +23,16 @@ over):
    (m - 10000) * 10000, in both dtypes; the forward's softmax statistics
    (row max and sum) too.  Their times are device ms from the profiler,
    the library's backward that of SDPA's backward kernels alone.  Fused Adam:
-   ``torch.equal`` to the per-param ``adam`` lowering over the BERT-base
-   bucket (99 parameters, 51,790,850 values).  The CTR kernels at the
+   one multi-tensor launch over the BERT-base bucket's 99 parameters
+   (51,790,850 values) where they lie, ``torch.equal`` to the per-param
+   ``adam`` lowering on all five outputs over two steps, timed by the
+   profiler's device ms with the op's wall ms beside.  The CTR kernels at the
    training path's shapes, [4096, 5] ids into a [1e6, D] table for D = 16
    and 128, with uniform ids, Zipf(1.1) ids and a Length-masked AVERAGE
    weight with a padding id: the gather-pool forward within 1e-6 of its
    plain version and bit-exact on dyadic values; the scatter-add gradient
-   bit-identical across two launches and to the host's ``index_add_``.
+   bit-identical across two launches and to the host's ``index_add_``,
+   its device ms split into zero-fill, sort and segments.
    Fused Momentum: ``torch.equal`` to the per-param ``momentum`` lowering
    over the CTR bucket (32 parameters, 416,013,807 values), plain,
    Nesterov and l2_decay.  Times by CUDA events, beside the least time
@@ -503,17 +506,22 @@ def _bert_param_shapes():
 
 
 def phase_kernels_adam():
-    """``fused_adam`` over the BERT-base bucket: the op lowering (flatten,
-    broadcast lr_t, kernel, unflatten) against the per-param ``adam``
-    lowering, ``torch.equal`` on every output; returns its row.  The
-    library call is ``torch._fused_adam_`` over the same 99 tensors: it
-    computes ``p - lr/bc1 · m'/(sqrt(v')/sqrt(bc2) + eps')``, with
-    ``bc = 1 - beta^t``, which with ``eps' = eps/sqrt(bc2)`` is this
-    update, ``p - lr·sqrt(bc2)/bc1 · m'/(sqrt(v') + eps)``, up to
-    rounding."""
+    """``fused_adam`` over the BERT-base bucket: the op lowering (one
+    multi-tensor kernel call over the 99 parameters where they lie, its
+    outputs handed out as views) against the per-param ``adam``
+    lowering, ``torch.equal`` on every output, over two steps, the
+    second fed the first's outputs; returns its row.  Device ms per call
+    from the profiler for the kernel, its plain version
+    (``_plain_fused_adam`` on the card: flatten, broadcast lr_t, the
+    formula, unflatten) and the library call, ``torch._fused_adam_`` over
+    the same 99 tensors: it computes ``p - lr/bc1 · m'/(sqrt(v')/sqrt(bc2)
+    + eps')``, with ``bc = 1 - beta^t``, which with ``eps' =
+    eps/sqrt(bc2)`` is this update, ``p - lr·sqrt(bc2)/bc1 ·
+    m'/(sqrt(v') + eps)``, up to rounding.  The op's wall ms per call
+    by CUDA events beside the kernel's."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels
-    from paddle_tpu_torch.ops.optimizer_ops import _adam_moments
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
     from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 
     dev = torch.device(DEVICE)
@@ -534,46 +542,61 @@ def phase_kernels_adam():
                         for _ in shapes],
            "LearningRate": [torch.full((1,), TRAIN["lr"], device=dev)]}
     attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    b1, b2, eps = attrs["beta1"], attrs["beta2"], attrs["epsilon"]
     ctx = LoweringContext(dev)
     fused_op = get_op("fused_adam").fn
-    before = cuda_kernels.fused_adam.launches
-    fused = fused_op(ins, attrs, ctx)
-    if cuda_kernels.fused_adam.launches != before + 1:
-        raise SystemExit("chip_smoke: the fused_adam op did not launch its "
-                         "kernel on the BERT-base bucket")
-    equal, err = True, 0.0
-    for i in range(len(shapes)):
-        one = get_op("adam").fn({s: [v[0] if s == "LearningRate" else v[i]]
-                                 for s, v in ins.items()}, attrs, ctx)
-        for slot, outs in one.items():
-            equal &= torch.equal(fused[slot][i], outs[0])
-            err = max(err, (fused[slot][i] - outs[0]).abs().max().item())
-    _p(f"fused_adam BERT-base bucket ({len(shapes)} params, {n} values): "
-       f"torch.equal to the per-param adam = {equal} (max |err| "
-       f"{err:.3e}; tolerance: bit-identical)")
-    if not equal:
-        raise SystemExit("chip_smoke: fused_adam is not bit-identical to "
-                         "the per-param adam lowering")
+    state = {"ParamOut": "Param", "Moment1Out": "Moment1",
+             "Moment2Out": "Moment2", "Beta1PowOut": "Beta1Pow",
+             "Beta2PowOut": "Beta2Pow"}
+    step_ins, err = ins, 0.0
+    for step in range(2):
+        before = cuda_kernels.fused_adam.launches
+        fused = fused_op(step_ins, attrs, ctx)
+        if cuda_kernels.fused_adam.launches != before + 1:
+            raise SystemExit("chip_smoke: the fused_adam op did not launch "
+                             "its kernel once on the BERT-base bucket")
+        equal = True
+        for i in range(len(shapes)):
+            one = get_op("adam").fn(
+                {s: [v[0] if s == "LearningRate" else v[i]]
+                 for s, v in step_ins.items()}, attrs, ctx)
+            for slot, outs in one.items():
+                equal &= torch.equal(fused[slot][i], outs[0])
+                err = max(err, (fused[slot][i] - outs[0]).abs().max().item())
+        _p(f"fused_adam BERT-base bucket ({len(shapes)} params, {n} values)"
+           f", step {step + 1}: torch.equal to the per-param adam on all "
+           f"five outputs = {equal} (max |err| {err:.3e}; tolerance: "
+           f"bit-identical)")
+        if not equal:
+            raise SystemExit("chip_smoke: fused_adam is not bit-identical "
+                             "to the per-param adam lowering")
+        if step == 0:
+            first = fused
+            step_ins = dict(ins, **{s: fused[o] for o, s in state.items()})
+    del step_ins, fused
 
-    # the kernel alone over the flat bucket the lowering hands it
-    flat = [torch.cat([x.reshape(-1) for x in ins[s]])
-            for s in ("Param", "Grad", "Moment1", "Moment2")]
-    b1, b2, eps = attrs["beta1"], attrs["beta2"], attrs["epsilon"]
-    step = 3                                  # Beta1Pow = beta1 ** 3
-    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
-    lrt = torch.full((n,), TRAIN["lr"] * math.sqrt(bc2) / bc1, device=dev)
-    ms = _ms(lambda: cuda_kernels.fused_adam(*flat, lrt, b1, b2, eps), 20)
+    def kernel():
+        return cuda_kernels.fused_adam(
+            ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"],
+            ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
+            eps)
 
     def plain():
-        m_new, v_new = _adam_moments(flat[2], flat[3], flat[1], b1, b2)
-        return flat[0] - lrt * m_new / (torch.sqrt(v_new) + eps)
+        return _plain_fused_adam(
+            ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"],
+            ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
+            eps)
 
-    plain_ms = _ms(plain, 10)
+    ms = _profile(kernel, 20)[1]
+    plain_ms = _profile(plain, 10)[1]
     op_ms = _ms(lambda: fused_op(ins, attrs, ctx), 10)
+    kernel_call_ms = _ms(kernel, 10)
 
     # the library: torch's fused Adam over the same 99 tensors, in place
     lib = [[x.clone() for x in ins[s]]
            for s in ("Param", "Grad", "Moment1", "Moment2")]
+    step = 3                                  # Beta1Pow = beta1 ** 3
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
     steps = [torch.full((), float(step), device=dev) for _ in shapes]
 
     def library():
@@ -591,7 +614,7 @@ def phase_kernels_adam():
     lib_err = 0.0
     for got, slot in zip((lib[0], lib[2], lib[3]),
                          ("ParamOut", "Moment1Out", "Moment2Out")):
-        for a, want, old in zip(got, fused[slot], ins["Param"]):
+        for a, want, old in zip(got, first[slot], ins["Param"]):
             lib_err = max(lib_err, (a - want).abs().max().item())
             atol = 1e-6 * want.abs().max().item()
             if slot == "ParamOut":
@@ -599,20 +622,26 @@ def phase_kernels_adam():
             if not torch.allclose(a, want, rtol=1e-4, atol=atol):
                 raise SystemExit(f"chip_smoke: torch._fused_adam_ does not "
                                  f"compute fused_adam's {slot}")
-    library_ms = _ms(library, 10)
-    nbytes = 8 * 4 * n
+    del first
+    library_ms = _profile(library, 10)[1]
+    del lib
+    torch.cuda.empty_cache()
+    # p, g, m, v read once, p', m', v' written once: 28 bytes a value
+    nbytes = 7 * 4 * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 12.0 * n / FLOPS_PER_S["float32"] * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
-    _p(f"  kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | op lowering "
-       f"{op_ms:.4f} ms (flatten, lr_t broadcast and unflatten "
-       f"{op_ms - ms:.4f} ms) | library (torch._fused_adam_, eps/sqrt(bc2), "
-       f"max |diff| from the op {lib_err:.3e}, rtol=1e-4) {library_ms:.4f} "
-       f"ms | bound {bound_ms:.4f} ms ({bound_by})")
+    _p(f"  device per call: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+       f"library (torch._fused_adam_, eps/sqrt(bc2), max |diff| from the "
+       f"op {lib_err:.3e}, rtol=1e-4) {library_ms:.4f} ms | bound "
+       f"{bound_ms:.4f} ms ({bound_by}, 28 bytes a value); wall per call: "
+       f"op lowering {op_ms:.4f} ms | kernel wrapper {kernel_call_ms:.4f} "
+       f"ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "op_ms": op_ms, "values": n}
+            "library_ms": library_ms, "op_ms": op_ms,
+            "call_ms": kernel_call_ms, "values": n}
 
 
 # ---------------------------------------------------------------------------
@@ -778,10 +807,13 @@ def phase_kernels_ctr():
                 r = {"call_ms": _ms(kernel, 50),
                      "plain_call_ms": _ms(plain, 20),
                      "library_call_ms": _ms(library, 20)}
-                if case == "zipf":
-                    r.update(ms=_profile(kernel, 20)[1],
-                             plain_ms=_profile(plain, 20)[1],
+                if case == "zipf" or name == "gradient":
+                    prof = _profile(kernel, 20)
+                    r.update(ms=prof[1], plain_ms=_profile(plain, 20)[1],
                              library_ms=_profile(library, 20)[1])
+                if name == "gradient":
+                    # the zero-fill, sort and segments kernels apart
+                    r["split_ms"] = prof[4]
                 timed[name] = r
                 dev = (f"; device: kernel {r['ms']:.4f} ms | plain "
                        f"{r['plain_ms']:.4f} ms | library "
@@ -791,6 +823,9 @@ def phase_kernels_ctr():
                    f"{r['library_call_ms']:.4f} ms{dev} | bound "
                    f"{(f_bound if name == 'forward' else g_bound) * 1e3:.2f}"
                    f" us ({f_by if name == 'forward' else g_by})")
+                if "split_ms" in r:
+                    _p("  gradient device ms by kernel: " + " | ".join(
+                        f"{c} {t:.4f}" for c, t in r["split_ms"].items()))
             rows[(d, case)] = (
                 dict(timed["forward"], max_abs_err=err, bound_ms=f_bound,
                      bound_by=f_by),
@@ -2654,9 +2689,11 @@ def phase_profile_decode(served, card, iters=20):
 
 _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("embedding_pool_fwd", "embedding_pool_fwd (csrc)"),
-            ("embedding_pool_grad_rows",
-             "embedding_pool_grad rows, the dense dW write (csrc)"),
-            ("embedding_pool_grad_prep", "embedding_pool_grad sort (CUB)"),
+            ("embedding_pool_grad_fill",
+             "embedding_pool_grad zero-fill + tile sorts (csrc)"),
+            ("embedding_pool_grad_merge", "embedding_pool_grad merge (csrc)"),
+            ("embedding_pool_grad_segments",
+             "embedding_pool_grad segments (csrc)"),
             ("radixsort", "embedding_pool_grad sort (CUB)"),
             ("fused_momentum", "fused_momentum (csrc)"),
             ("flash_fwd", "flash_attention_fwd (csrc)"),
@@ -2956,7 +2993,8 @@ def main():
                     "paddle_tpu/ops/pallas_kernels.py:647",
                     train_launches["fused_adam"], adam_row,
                     dtype="float32", values=adam_row["values"],
-                    op_ms=adam_row["op_ms"], library="torch._fused_adam_")]
+                    op_ms=adam_row["op_ms"], call_ms=adam_row["call_ms"],
+                    bytes_per_value=28, library="torch._fused_adam_")]
     # the CTR rows: the path's D = 16 and Zipf ids; the forward's
     # "launches" is the served count, "train_launches" the training one's
     fwd16, grad16 = ctr_rows[(CTR["dim"], "zipf")]
@@ -2976,7 +3014,7 @@ def main():
                     "paddle_tpu_torch/csrc/embedding_pool_grad.cu",
                     "paddle_tpu/ops/pallas_kernels.py:550",
                     ctr_launches["embedding_pool_grad"], grad16,
-                    call_ms=grad16["call_ms"],
+                    call_ms=grad16["call_ms"], split_ms=grad16["split_ms"],
                     also_replaces="paddle_tpu/ops/pallas_kernels.py:603",
                     dtype="float32", shape=emb_shape, ids="zipf",
                     library="embedding_bag weight gradient",

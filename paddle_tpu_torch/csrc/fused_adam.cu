@@ -1,29 +1,47 @@
-// Fused Adam step over a flattened parameter bucket, for Hopper (sm_90a),
+// Fused Adam step over a bucket of parameters, for Hopper (sm_90a),
 // written by hand.
 //
 // Replaces paddle_tpu/ops/pallas_kernels.py:647 fused_adam_tpu (the
 // pallas_call at :652), the kernel of the fuse_optimizer pass's bucketed
-// update.  Five inputs and three outputs, element for element:
+// update.  Element for element:
 //
 //   m' = b1 * m + (1 - b1) * g
 //   v' = b2 * v + (1 - b2) * (g * g)
 //   p' = p - lrt * m' / (sqrt(v') + eps)
 //
-// lrt is each element's bias-corrected learning rate, broadcast over its
-// parameter's segment outside the kernel.  Contract: bit-identical to the
+// with each parameter's bias-corrected learning rate
+//
+//   lrt = lr * sqrt(1 - b2p) / (1 - b1p)
+//
+// computed here from LearningRate and the parameter's Beta1Pow and
+// Beta2Pow where they lie on the card, and the parameter's next powers
+// b1p * b1 and b2p * b2 written beside.  Contract: bit-identical to the
 // per-parameter adam lowering, which torch runs as separate kernels that
-// round every product and sum.  So every multiply, add, square root and
-// division here is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
-// __fsqrt_rn, __fdiv_rn): nvcc can contract none of them into an FMA.
+// round every product, sum, square root and quotient.  So every
+// operation here is an explicitly rounded intrinsic (__fmul_rn,
+// __fadd_rn, __fsub_rn, __fsqrt_rn, __fdiv_rn): nvcc can contract none
+// of them into an FMA.
 //
-// What bounds it on this card: bytes.  8 x 4 bytes per element (5 read, 3
-// written) and 13 flops: at BERT-base's 51.79 M-element bucket that is
-// 1.657 GB, 0.495 ms at 3.35 TB/s.  The design streams each input once in
-// 16-byte vector loads, grid-stride, with no shared memory.
+// Multi-tensor: the kernel reads p, g, m and v from each parameter's own
+// tensor through a table of segment pointers passed by value (the launch
+// copies the table with its arguments, so nothing on the host or the
+// card can change it before the kernel reads it), and writes p', m' and
+// v' into three flat output buffers in which every segment starts on a
+// 4-float boundary.  Each block takes BLOCK_ELEMS consecutive values of
+// one segment; a segment's blocks are numbered from its entry in
+// block_start.  A segment whose four inputs all start 16-byte aligned
+// moves in float4 vectors with a scalar tail of its n % 4 values; any
+// other segment (an input that is a view at an odd offset) moves one
+// float at a time.
 //
-// Layout: contiguous float32 buffers of n elements, any n (the flattened
-// bucket, unpadded; a tail of n % 4 takes a scalar loop).  The kernel allocates nothing and launches on the
-// caller's stream.
+// What bounds it on this card: bytes.  7 x 4 bytes per value (p, g, m, v
+// read; p', m', v' written) and 12 flops: at BERT-base's 51.79 M-value
+// bucket that is 1.450 GB, 0.433 ms at 3.35 TB/s.  Each thread keeps
+// VECS float4 loads of each input in flight before it computes.
+//
+// The C entry launches one kernel per chunk of at most MAX_SEGS
+// segments, as the caller cut the table; nothing is allocated, and every
+// launch is on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +49,36 @@
 namespace {
 
 constexpr int NUM_THREADS = 256;
+constexpr int VECS = 4;                                // float4s a thread
+constexpr int BLOCK_ELEMS = NUM_THREADS * 4 * VECS;    // values a block
+constexpr int MAX_SEGS = 48;   // the table stays under 4 KB of arguments
 
 struct Coeffs {
   float b1, omb1, b2, omb2, eps;
+};
+
+struct Table {
+  const float* p[MAX_SEGS];
+  const float* g[MAX_SEGS];
+  const float* m[MAX_SEGS];
+  const float* v[MAX_SEGS];
+  const float* b1p[MAX_SEGS];
+  const float* b2p[MAX_SEGS];
+  int64_t n[MAX_SEGS];
+  int64_t out[MAX_SEGS];              // the segment's offset in po, mo, vo
+  int block_start[MAX_SEGS + 1];
+  unsigned long long vec;             // bit j: segment j moves in float4s
+  int nseg;
+  int first;                          // index of segment 0 in the bucket
+};
+
+struct Outs {
+  const float* lr;
+  float* po;
+  float* mo;
+  float* vo;
+  float* pows;                        // [2, nparams]
+  int nparams;
 };
 
 __device__ __forceinline__ void adam_one(float p, float g, float m, float v,
@@ -49,56 +94,162 @@ __device__ __forceinline__ void adam_one(float p, float g, float m, float v,
 }
 
 __global__ void __launch_bounds__(NUM_THREADS)
-fused_adam_kernel(const float* __restrict__ p, const float* __restrict__ g,
-                  const float* __restrict__ m, const float* __restrict__ v,
-                  const float* __restrict__ lrt, float* __restrict__ po,
-                  float* __restrict__ mo, float* __restrict__ vo, int64_t n,
-                  Coeffs c) {
-  const int64_t stride = (int64_t)gridDim.x * NUM_THREADS;
-  const int64_t first = (int64_t)blockIdx.x * NUM_THREADS + threadIdx.x;
-  // 16-byte vectors over the first n - n % 4 elements (the buffers come
-  // from the caching allocator, so they are 16-byte aligned)
-  const int64_t n4 = n / 4;
-  for (int64_t i = first; i < n4; i += stride) {
-    const float4 p4 = reinterpret_cast<const float4*>(p)[i];
-    const float4 g4 = reinterpret_cast<const float4*>(g)[i];
-    const float4 m4 = reinterpret_cast<const float4*>(m)[i];
-    const float4 v4 = reinterpret_cast<const float4*>(v)[i];
-    const float4 l4 = reinterpret_cast<const float4*>(lrt)[i];
-    float4 pn, mn, vn;
-    adam_one(p4.x, g4.x, m4.x, v4.x, l4.x, c, &pn.x, &mn.x, &vn.x);
-    adam_one(p4.y, g4.y, m4.y, v4.y, l4.y, c, &pn.y, &mn.y, &vn.y);
-    adam_one(p4.z, g4.z, m4.z, v4.z, l4.z, c, &pn.z, &mn.z, &vn.z);
-    adam_one(p4.w, g4.w, m4.w, v4.w, l4.w, c, &pn.w, &mn.w, &vn.w);
-    reinterpret_cast<float4*>(po)[i] = pn;
-    reinterpret_cast<float4*>(mo)[i] = mn;
-    reinterpret_cast<float4*>(vo)[i] = vn;
+fused_adam_kernel(const __grid_constant__ Table t, const Outs o,
+                  const Coeffs c) {
+  // the segment of this block: the last j with block_start[j] <= block
+  const int block = blockIdx.x;
+  int lo = 0, hi = t.nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.block_start[mid] <= block)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
-  for (int64_t i = 4 * n4 + first; i < n; i += stride)
-    adam_one(p[i], g[i], m[i], v[i], lrt[i], c, po + i, mo + i, vo + i);
+  const int j = lo;
+  const int64_t n = t.n[j];
+  const int64_t begin = (int64_t)(block - t.block_start[j]) * BLOCK_ELEMS;
+  const float b1p = *t.b1p[j], b2p = *t.b2p[j];
+  // lr * sqrt(1 - b2p) / (1 - b1p), left to right, each step rounded
+  const float lrt = __fdiv_rn(
+      __fmul_rn(*o.lr, __fsqrt_rn(__fsub_rn(1.0f, b2p))),
+      __fsub_rn(1.0f, b1p));
+  if (begin == 0 && threadIdx.x == 0) {
+    o.pows[t.first + j] = __fmul_rn(b1p, c.b1);
+    o.pows[o.nparams + t.first + j] = __fmul_rn(b2p, c.b2);
+  }
+  const float* __restrict__ p = t.p[j];
+  const float* __restrict__ g = t.g[j];
+  const float* __restrict__ m = t.m[j];
+  const float* __restrict__ v = t.v[j];
+  float* __restrict__ po = o.po + t.out[j];
+  float* __restrict__ mo = o.mo + t.out[j];
+  float* __restrict__ vo = o.vo + t.out[j];
+
+  if ((t.vec >> j) & 1ull) {
+    const int64_t n4 = n / 4;
+    const int64_t first = begin / 4 + threadIdx.x;
+    float4 p4[VECS], g4[VECS], m4[VECS], v4[VECS];
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int64_t i = first + k * NUM_THREADS;
+      if (i < n4) {
+        p4[k] = reinterpret_cast<const float4*>(p)[i];
+        g4[k] = reinterpret_cast<const float4*>(g)[i];
+        m4[k] = reinterpret_cast<const float4*>(m)[i];
+        v4[k] = reinterpret_cast<const float4*>(v)[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int64_t i = first + k * NUM_THREADS;
+      if (i < n4) {
+        float4 pn, mn, vn;
+        adam_one(p4[k].x, g4[k].x, m4[k].x, v4[k].x, lrt, c, &pn.x, &mn.x,
+                 &vn.x);
+        adam_one(p4[k].y, g4[k].y, m4[k].y, v4[k].y, lrt, c, &pn.y, &mn.y,
+                 &vn.y);
+        adam_one(p4[k].z, g4[k].z, m4[k].z, v4[k].z, lrt, c, &pn.z, &mn.z,
+                 &vn.z);
+        adam_one(p4[k].w, g4[k].w, m4[k].w, v4[k].w, lrt, c, &pn.w, &mn.w,
+                 &vn.w);
+        reinterpret_cast<float4*>(po)[i] = pn;
+        reinterpret_cast<float4*>(mo)[i] = mn;
+        reinterpret_cast<float4*>(vo)[i] = vn;
+      }
+    }
+    // the n % 4 tail, by the segment's last block
+    const int64_t i = 4 * n4 + threadIdx.x;
+    if (begin + BLOCK_ELEMS >= n && i < n)
+      adam_one(p[i], g[i], m[i], v[i], lrt, c, po + i, mo + i, vo + i);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < 4 * VECS; ++k) {
+      const int64_t i = begin + k * NUM_THREADS + threadIdx.x;
+      if (i < n)
+        adam_one(p[i], g[i], m[i], v[i], lrt, c, po + i, mo + i, vo + i);
+    }
+  }
+}
+
+// One launch over segments [first, first + nseg) of the table.
+cudaError_t launch_chunk(const float* const* table, const int64_t* n,
+                         const int64_t* out, int first, int nseg,
+                         const Outs& o, const Coeffs& c, cudaStream_t st) {
+  const int k = o.nparams;
+  Table t;
+  t.nseg = nseg;
+  t.first = first;
+  t.vec = 0;
+  int64_t blocks = 0;
+  for (int j = 0; j < nseg; ++j) {
+    const int i = first + j;
+    if (n[i] < 0 || out[i] % 4 != 0) return cudaErrorInvalidValue;
+    t.p[j] = table[i];
+    t.g[j] = table[k + i];
+    t.m[j] = table[2 * k + i];
+    t.v[j] = table[3 * k + i];
+    t.b1p[j] = table[4 * k + i];
+    t.b2p[j] = table[5 * k + i];
+    t.n[j] = n[i];
+    t.out[j] = out[i];
+    t.block_start[j] = static_cast<int>(blocks);
+    // a segment of no values still takes a block: it writes the powers
+    const int64_t nb = (n[i] + BLOCK_ELEMS - 1) / BLOCK_ELEMS;
+    blocks += nb > 0 ? nb : 1;
+    const uintptr_t any = reinterpret_cast<uintptr_t>(t.p[j]) |
+                          reinterpret_cast<uintptr_t>(t.g[j]) |
+                          reinterpret_cast<uintptr_t>(t.m[j]) |
+                          reinterpret_cast<uintptr_t>(t.v[j]);
+    if (any % 16 == 0) t.vec |= 1ull << j;
+  }
+  if (blocks >= (int64_t)1 << 31) return cudaErrorInvalidValue;
+  t.block_start[nseg] = static_cast<int>(blocks);
+  fused_adam_kernel<<<static_cast<unsigned>(blocks), NUM_THREADS, 0, st>>>(
+      t, o, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// omb1 = 1 - beta1 and omb2 = 1 - beta2, each rounded once to float32 by
-// the caller, as torch rounds the Python scalar (1 - beta).  Returns a
-// cudaError_t (0 = launched).
-int pt_fused_adam(const float* p, const float* g, const float* m,
-                  const float* v, const float* lrt, float* po, float* mo,
-                  float* vo, int64_t n, float b1, float omb1, float b2,
+// One Adam step over a bucket of nparams parameters, one launch per
+// chunk.  table holds 6 * nparams pointers on the card: each parameter's
+// p, then each g, m, v, and its one-value Beta1Pow and Beta2Pow, each
+// kind nparams long; parameter i has n[i] float32 values in each of its
+// four tensors and starts at out[i] (a multiple of 4) in the flat outputs
+// po, mo, vo (16-byte aligned).  chunks: nchunks + 1 ascending parameter
+// indices from 0 to nparams, at most MAX_SEGS apart: launch c takes
+// parameters [chunks[c], chunks[c + 1]).  lr: the bucket's one-value
+// LearningRate; pows [2, nparams] receives b1p * b1 and b2p * b2.  omb1 =
+// 1 - beta1 and omb2 = 1 - beta2, each rounded once to float32 by the
+// caller, as torch rounds the Python scalar (1 - beta).  Returns a
+// cudaError_t (0 = every launch accepted).
+int pt_fused_adam(const float* const* table, const int64_t* n,
+                  const int64_t* out, const int* chunks, int nchunks,
+                  int nparams, const float* lr, float* po, float* mo,
+                  float* vo, float* pows, float b1, float omb1, float b2,
                   float omb2, float eps, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t outs = reinterpret_cast<uintptr_t>(po) |
+                         reinterpret_cast<uintptr_t>(mo) |
+                         reinterpret_cast<uintptr_t>(vo);
+  if (nchunks <= 0 || nparams <= 0 || chunks[0] != 0 ||
+      chunks[nchunks] != nparams || outs % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int ch = 0; ch < nchunks; ++ch)
+    if (chunks[ch + 1] <= chunks[ch] || chunks[ch + 1] - chunks[ch] > MAX_SEGS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const Outs o{lr, po, mo, vo, pows, nparams};
   const Coeffs c{b1, omb1, b2, omb2, eps};
-  const int64_t want = (n / 4 + NUM_THREADS - 1) / NUM_THREADS;
-  // enough blocks to fill 132 SMs several times over; the loop strides
-  const int blocks = static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1)
-                                                      : 132 * 16);
-  fused_adam_kernel<<<blocks, NUM_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      p, g, m, v, lrt, po, mo, vo, n, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const cudaError_t err = launch_chunk(table, n, out, chunks[ch],
+                                         chunks[ch + 1] - chunks[ch], o, c,
+                                         st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 const char* pt_cuda_error_string(int err) {

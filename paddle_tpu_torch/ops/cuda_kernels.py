@@ -15,6 +15,7 @@ the served and trained paths went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,8 +52,8 @@ _SIGNATURES = {
         **_ERR,
     },
     "fused_adam": {
-        "pt_fused_adam": ([_P, _P, _P, _P, _P, _P, _P, _P, _I64, _F, _F, _F,
-                           _F, _F, _P], _I),
+        "pt_fused_adam": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _F,
+                           _F, _F, _F, _P], _I),
         **_ERR,
     },
     "embedding_pool": {
@@ -61,11 +62,10 @@ _SIGNATURES = {
         **_ERR,
     },
     "embedding_pool_grad": {
-        "pt_embedding_pool_grad_temp_bytes": (
+        "pt_embedding_pool_grad_workspace_bytes": (
             [_I, _I, ctypes.POINTER(ctypes.c_size_t)], _I),
-        "pt_embedding_pool_grad": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, ctypes.c_size_t, _I, _I, _I, _I, _I,
-                                    _P], _I),
+        "pt_embedding_pool_grad": ([_P, _P, _P, _P, _P, ctypes.c_size_t, _I,
+                                    _I, _I, _I, _I, _P], _I),
         **_ERR,
     },
     "fused_momentum": {
@@ -357,34 +357,101 @@ flash_attention_bwd.copies = 0
 # fused Adam (csrc/fused_adam.cu)
 # ---------------------------------------------------------------------------
 
-def fused_adam(p, g, m, v, lrt, beta1: float, beta2: float, eps: float):
-    """One Adam step over a flattened bucket on the Hopper kernel: p, g,
-    m, v and the per-element bias-corrected ``lrt``, CUDA float32,
-    contiguous, all of one shape.  Returns new ``(p, m, v)``; each
-    multiply, add, square root and division is rounded once, as the
-    per-param ``adam`` lowering's separate torch ops round them."""
+# segments per launch: the kernel's MAX_SEGS, which keeps its table of
+# segment pointers, passed by value, under 4 KB of kernel arguments
+ADAM_SEGMENTS_PER_LAUNCH = 48
+
+
+@functools.lru_cache(maxsize=64)
+def adam_layout(sizes: tuple):
+    """The fused-Adam kernel's output layout for segments of ``sizes``
+    values: ``(offsets, total, chunks)``.  Segment i starts at
+    ``offsets[i]`` of the flat outputs, each start rounded up to 4 values
+    so that every segment's float4 stores are 16-byte aligned (the padding
+    is never read); ``total`` is the outputs' length; ``chunks`` are the
+    ``(start, stop)`` segment ranges of the launches,
+    ``ADAM_SEGMENTS_PER_LAUNCH`` at most each."""
+    offsets, off = [], 0
+    for size in sizes:
+        offsets.append(off)
+        off += -(-size // 4) * 4
+    per = ADAM_SEGMENTS_PER_LAUNCH
+    chunks = tuple((a, min(a + per, len(sizes)))
+                   for a in range(0, len(sizes), per))
+    return tuple(offsets), off, chunks
+
+
+@functools.lru_cache(maxsize=64)
+def _adam_args(sizes: tuple):
+    """The C entry's per-layout arguments, built once per bucket: sizes,
+    offsets and chunk bounds as ctypes arrays, the chunk count and the
+    outputs' length."""
+    offsets, total, chunks = adam_layout(sizes)
+    bounds = [a for a, _ in chunks] + [len(sizes)]
+    return ((ctypes.c_int64 * len(sizes))(*sizes),
+            (ctypes.c_int64 * len(sizes))(*offsets),
+            (ctypes.c_int * len(bounds))(*bounds), len(chunks), total)
+
+
+_ADAM_KINDS = ("param", "grad", "moment1", "moment2", "beta1_pow",
+               "beta2_pow")
+
+
+def fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1: float, beta2: float,
+               eps: float):
+    """One Adam step over a bucket of parameters on the Hopper kernel,
+    read where they lie: ``ps``, ``gs``, ``ms``, ``vs`` lists of CUDA
+    float32 tensors (the i-th of each of one size; a non-contiguous one is
+    copied first), ``lr`` the one-value
+    LearningRate, ``b1ps``/``b2ps`` each parameter's one-value
+    Beta1Pow/Beta2Pow, all on one device.  The kernel computes each
+    parameter's ``lr·sqrt(1 - b2p)/(1 - b1p)`` itself.  Returns ``(po,
+    mo, vo, pows)``: flat float32 outputs laid out by ``adam_layout`` of
+    the sizes, and ``pows`` ``[2, len(ps)]`` holding ``b1p·beta1`` and
+    ``b2p·beta2``.  Each operation is rounded once, as the per-param
+    ``adam`` lowering's separate torch ops round them.  One call launches
+    one kernel per ``ADAM_SEGMENTS_PER_LAUNCH`` parameters and counts
+    one."""
     what = "fused_adam"
-    for name, t in (("p", p), ("g", g), ("m", m), ("v", v), ("lrt", lrt)):
-        if t.device.type != "cuda" or t.device != p.device:
-            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
-                             f"{p.device}, got {t.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.shape != p.shape or t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
-                             f"aligned float32 of shape {tuple(p.shape)}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    po, mo, vo = (torch.empty_like(p) for _ in range(3))
+    k = len(ps)
+    if k == 0 or not all(len(x) == k for x in (gs, ms, vs, b1ps, b2ps)):
+        raise ValueError(f"{what}: {k} params need as many grads, moments "
+                         f"and beta powers, and at least one")
+    dev = lr.device
+    if dev.type != "cuda" or lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError(f"{what}: lr must be a one-value float32 CUDA "
+                         f"tensor, got {lr.dtype} {tuple(lr.shape)} on {dev}")
+    index = dev.index
+    sizes = tuple(p.numel() for p in ps)
+    ptrs, copies = [], []
+    for kind, ts in zip(_ADAM_KINDS, (ps, gs, ms, vs, b1ps, b2ps)):
+        want = sizes if kind not in ("beta1_pow", "beta2_pow") else (1,) * k
+        for i, (t, size) in enumerate(zip(ts, want)):
+            if t.get_device() != index or t.dtype != torch.float32 \
+                    or t.numel() != size:
+                raise ValueError(
+                    f"{what}: {kind} {i} must be a float32 CUDA tensor of "
+                    f"{size} values on {dev}, got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+            if not t.is_contiguous():
+                t = t.contiguous()
+                copies.append(t)     # alive until the launch is enqueued
+            ptrs.append(t.data_ptr())
+    table = (ctypes.c_void_p * (6 * k))(*ptrs)
+    n_arr, out_arr, bounds, nchunks, total = _adam_args(sizes)
+    po, mo, vo = (torch.empty((max(total, 4),), dtype=torch.float32,
+                              device=dev) for _ in range(3))
+    pows = torch.empty((2, k), dtype=torch.float32, device=dev)
     lib = _lib("fused_adam")
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(dev):
         err = lib.pt_fused_adam(
-            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            lrt.data_ptr(), po.data_ptr(), mo.data_ptr(), vo.data_ptr(),
-            p.numel(),
+            table, n_arr, out_arr, bounds, nchunks, k, lr.data_ptr(),
+            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), pows.data_ptr(),
             float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
-            float(eps), _stream(p.device))
+            float(eps), _stream(dev))
     _check_launch(lib, err, what)
     fused_adam.launches += 1
-    return po, mo, vo
+    return po, mo, vo, pows
 
 
 fused_adam.launches = 0
@@ -465,15 +532,38 @@ def embedding_pool_fwd(w, ids, wgt):
 embedding_pool_fwd.launches = 0
 
 
+# the scatter-add's workspace bytes by (n, end_bit), and its workspace by
+# (device, stream), grown when a call needs more: kernels on one stream
+# run in order, so each call may reuse what the one before it used
+_grad_ws_bytes: Dict[tuple, int] = {}
+_grad_ws: Dict[tuple, torch.Tensor] = {}
+
+
+def _grad_workspace(lib, what, n, end_bit, device, stream):
+    need = _grad_ws_bytes.get((n, end_bit))
+    if need is None:
+        nbytes = ctypes.c_size_t(0)
+        _check_launch(lib, lib.pt_embedding_pool_grad_workspace_bytes(
+            n, end_bit, ctypes.byref(nbytes)), what)
+        need = _grad_ws_bytes[(n, end_bit)] = max(nbytes.value, 1)
+    ws = _grad_ws.get((device, stream))
+    if ws is None or ws.numel() < need:
+        ws = _grad_ws[(device, stream)] = torch.empty(
+            (need,), dtype=torch.uint8, device=device)
+    return ws
+
+
 def embedding_pool_grad(g, ids, wgt, vocab: int):
     """``dW[r] = Σ over (i, j) with ids[i,j] = r, in (i, j) order, of
     g[i] · wgt[i,j]`` on the Hopper kernels: a dense ``[vocab, D]``
-    float32 dW, every row written once, untouched rows 0.  g ``[B, D]``
-    float32, ids ``[B, S]`` int64, wgt ``[B, S]`` float32 or None for all
-    ones, all CUDA and contiguous.  Deterministic: one call is a stable radix sort of the
-    positions by id (CUB), then hand-written kernels that form each
-    position's product in sorted order and sum each row's products in
-    that order; it counts one launch."""
+    float32 dW, untouched rows 0.  g ``[B, D]`` float32, ids ``[B, S]``
+    int64, wgt ``[B, S]`` float32 or None for all ones, all CUDA and
+    contiguous.  Deterministic: one call zero-fills dW while sorting
+    tiles of positions stably by id, merges the tiles into one order
+    (past 32,768 positions a device-wide CUB sort does both), and sums
+    each id's products in that order over the sorted positions only; it
+    counts one launch.  Its scratch is a workspace cached per device and
+    stream."""
     what = "embedding_pool_grad"
     if g.ndim != 2:
         raise ValueError(f"{what}: g must be 2-d [B, D], got shape "
@@ -484,30 +574,21 @@ def embedding_pool_grad(g, ids, wgt, vocab: int):
     vocab = int(vocab)
     if g.shape[0] != b:
         raise ValueError(f"{what}: g has {g.shape[0]} rows, ids {b}")
-    if not 0 < vocab < 2 ** 31 or d >= 2 ** 31:
+    if not 0 < vocab < 2 ** 31 or d > 65535 * 32:
         raise ValueError(f"{what}: vocab {vocab}, D {d}: the kernel takes "
-                         f"0 < vocab < 2**31")
+                         f"0 < vocab < 2**31 and D <= 65535 * 32")
     dw = torch.empty((vocab, d), dtype=g.dtype, device=g.device)
     if d == 0:
         return dw
     n = b * s
     end_bit = max(1, (vocab - 1).bit_length())
     lib = _lib("embedding_pool_grad")
-    temp_bytes = ctypes.c_size_t(0)
-    _check_launch(lib, lib.pt_embedding_pool_grad_temp_bytes(
-        n, end_bit, ctypes.byref(temp_bytes)), what)
-    keys_in, vals_in, keys_out, vals_out = (
-        torch.empty((max(n, 1),), dtype=torch.int32, device=g.device)
-        for _ in range(4))
-    prod = torch.empty((max(n, 1), d), dtype=torch.float32, device=g.device)
-    temp = torch.empty((max(temp_bytes.value, 1),), dtype=torch.uint8,
-                       device=g.device)
     with torch.cuda.device(g.device):
+        stream = _stream(g.device)
+        ws = _grad_workspace(lib, what, n, end_bit, g.device, stream)
         err = lib.pt_embedding_pool_grad(
             g.data_ptr(), ids.data_ptr(), _ptr(wgt), dw.data_ptr(),
-            keys_in.data_ptr(), vals_in.data_ptr(), keys_out.data_ptr(),
-            vals_out.data_ptr(), prod.data_ptr(), temp.data_ptr(),
-            temp_bytes.value, n, s, vocab, d, end_bit, _stream(g.device))
+            ws.data_ptr(), ws.numel(), n, s, vocab, d, end_bit, stream)
     _check_launch(lib, err, what)
     embedding_pool_grad.launches += 1
     return dw

@@ -7,18 +7,26 @@ executor writes the outputs back to the scope under the same names.  All
 are non-differentiable.
 
 ``fused_adam`` is what the ``fuse_optimizer`` pass makes of a run of
-``adam`` ops: one op per bucket whose elementwise core runs over a single
-flattened buffer — on the card, the hand-written kernel
-(``cuda_kernels.fused_adam``).  It is element for element the same
-arithmetic as the per-param op, each multiply, add, square root and
-division rounded once, so the rewrite is bit-identical to the per-param
-updates on either device.  Each param's bias-corrected ``lr_t`` is
-broadcast over its segment outside the kernel, as in the reference.
-``fused_momentum`` is the same for a run of ``momentum`` ops, on
-``cuda_kernels.fused_momentum``; its learning rate stays a ``[1]`` tensor
-on the card, which the kernel reads, so a step never waits on the host.
+``adam`` ops: one op per bucket.  On the card it is one call of the
+hand-written multi-tensor kernel (``cuda_kernels.fused_adam``), which
+reads every param, grad and moment where it lies, computes each param's
+bias-corrected ``lr_t`` from ``LearningRate`` and its beta powers on the
+card, and writes the new values into three flat buffers that the op
+hands out as per-param views; nothing is concatenated and no per-element
+``lr_t`` is made.  On the host the bucket is flattened and ``lr_t``
+broadcast over each segment, as in the reference.  Either way it is
+element for element the same arithmetic as the per-param op, each
+multiply, add, square root and division rounded once, so the rewrite is
+bit-identical to the per-param updates on either device.
+``fused_momentum`` is the same for a run of ``momentum`` ops over one
+flattened buffer, on ``cuda_kernels.fused_momentum``; its learning rate
+stays a ``[1]`` tensor on the card, which the kernel reads, so a step
+never waits on the host.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -108,29 +116,61 @@ def _flat_kernel_ok(p_f):
     return p_f.device.type == "cuda"
 
 
+@functools.lru_cache(maxsize=64)
+def _view_specs(shapes):
+    """(shape, strides, offset) of each param's view into a kernel output
+    laid out by ``cuda_kernels.adam_layout``."""
+    offsets = cuda_kernels.adam_layout(tuple(math.prod(s) for s in shapes))[0]
+    specs = []
+    for shape, off in zip(shapes, offsets):
+        strides, step = [], 1
+        for n in reversed(shape):
+            strides.append(step)
+            step *= n
+        specs.append((tuple(shape), tuple(reversed(strides)), off))
+    return tuple(specs)
+
+
+def _views(buf, specs):
+    return [buf.as_strided(shape, strides, off)
+            for shape, strides, off in specs]
+
+
 @register_op("fused_adam", differentiable=False)
 def _fused_adam(ins, attrs, ctx):
     ps, gs = ins["Param"], ins["Grad"]
     ms, vs = ins["Moment1"], ins["Moment2"]
     b1ps, b2ps = ins["Beta1Pow"], ins["Beta2Pow"]
-    lr = _p(ins, "LearningRate").reshape(())
+    lr = _p(ins, "LearningRate")
     b1 = attrs.get("beta1", 0.9)
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
+    if _flat_kernel_ok(ps[0]):
+        po, mo, vo, pows = cuda_kernels.fused_adam(ps, gs, ms, vs, lr, b1ps,
+                                                   b2ps, b1, b2, eps)
+        specs = _view_specs(tuple(p.shape for p in ps))
+        return {"ParamOut": _views(po, specs),
+                "Moment1Out": _views(mo, specs),
+                "Moment2Out": _views(vo, specs),
+                "Beta1PowOut": list(pows[0].unsqueeze(1).unbind()),
+                "Beta2PowOut": list(pows[1].unsqueeze(1).unbind())}
+    return _plain_fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, b1, b2, eps)
+
+
+def _plain_fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, b1, b2, eps):
+    """The kernel's plain version, what a CPU bucket runs: the bucket
+    flattened, each param's ``lr_t`` broadcast over its segment, the
+    per-param formula over the flat buffers, unflattened."""
+    lr = lr.reshape(())
     sizes = [p.numel() for p in ps]
     cdt = ps[0].dtype
-    # per-param bias-corrected lr, broadcast over each segment
     lrts = [_lr_t(lr, p1.reshape(()), p2.reshape(())).to(cdt)
             for p1, p2 in zip(b1ps, b2ps)]
     p_f, g_f = _flat(ps, cdt), _flat(gs, cdt)
     m_f, v_f = _flat(ms, cdt), _flat(vs, cdt)
     lrt_f = torch.cat([t.expand(s) for t, s in zip(lrts, sizes)])
-    if _flat_kernel_ok(p_f):
-        p_new, m_new, v_new = cuda_kernels.fused_adam(
-            p_f, g_f, m_f, v_f, lrt_f, b1, b2, eps)
-    else:
-        m_new, v_new = _adam_moments(m_f, v_f, g_f, b1, b2)
-        p_new = p_f - lrt_f * m_new / (torch.sqrt(v_new) + eps)
+    m_new, v_new = _adam_moments(m_f, v_f, g_f, b1, b2)
+    p_new = p_f - lrt_f * m_new / (torch.sqrt(v_new) + eps)
     return {"ParamOut": _unflat(p_new, ps, sizes),
             "Moment1Out": _unflat(m_new, ms, sizes),
             "Moment2Out": _unflat(v_new, vs, sizes),

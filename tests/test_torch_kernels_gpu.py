@@ -14,7 +14,8 @@ kernel against ``_reference_attention_bwd`` on the same o, m and l: float32
 atol=rtol=1e-4 (FMA chains against cuBLAS sums), bfloat16 atol=2e-2,
 rtol=1e-2 (one bfloat16 rounding of each output); two backward
 launches on the same inputs ``torch.equal`` (no atomics).  ``fused_adam``
-against the per-param ``adam`` lowering: ``torch.equal``.  The embedding
+against the per-param ``adam`` lowering: ``torch.equal``, over two steps
+(the second reads views of the first's outputs).  The embedding
 gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
 (the kernel sums in j order, torch's reduction in its own), and
 ``torch.equal`` on dyadic values, whose sums are exact.  The scatter-add
@@ -286,6 +287,84 @@ def test_fused_adam_equals_per_param_adam(cuda, sizes):
             assert torch.equal(fused[slot][i], outs[0]), (slot, i)
 
 
+def _adam_bucket(cuda, shapes, seed=0):
+    """Inputs of a fused_adam op over ``shapes``: each param's own
+    tensors (as the scope holds them), beta powers of different steps."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ins = {s: [] for s in ("Param", "Grad", "Moment1", "Moment2",
+                           "Beta1Pow", "Beta2Pow")}
+    for i, shape in enumerate(shapes):
+        for s, scale in (("Param", 1.0), ("Grad", 1e-2), ("Moment1", 1e-3)):
+            ins[s].append(scale * torch.randn(shape, generator=g))
+        ins["Moment2"].append(1e-5 * torch.rand(shape, generator=g))
+        ins["Beta1Pow"].append(torch.tensor([0.9 ** (i % 7 + 2)]))
+        ins["Beta2Pow"].append(torch.tensor([0.999 ** (i % 7 + 2)]))
+    ins["LearningRate"] = [torch.tensor([1e-3])]
+    return {s: [t.to(cuda) for t in v] for s, v in ins.items()}
+
+
+_ADAM_STATE = {"ParamOut": "Param", "Moment1Out": "Moment1",
+               "Moment2Out": "Moment2", "Beta1PowOut": "Beta1Pow",
+               "Beta2PowOut": "Beta2Pow"}
+
+
+def _bert_base_shapes():
+    """The static BERT-base program's 99 parameters (chip_smoke.py)."""
+    per_layer = [(768, 768), (768,)] * 4
+    return [(30522, 768)] + per_layer * 12 + [(768, 2), (2,)]
+
+
+ADAM_BUCKETS = {
+    "bert_base_99": _bert_base_shapes(),
+    "more_than_a_chunk": [(i % 5 + 1, 3) for i in range(
+        2 * cuda_kernels.ADAM_SEGMENTS_PER_LAUNCH + 7)],
+    "odd_sizes": [(2,), (13, 1), (7,), (1024, 3), (5,)],
+}
+
+
+@pytest.mark.parametrize("bucket", sorted(ADAM_BUCKETS))
+def test_fused_adam_two_steps_equal_per_param_adam(cuda, bucket):
+    """Two steps through the op, the second fed the first's outputs (so
+    it reads views into the kernel's flat buffers, each segment after an
+    odd-sized one too): every output ``torch.equal`` to the per-param
+    ``adam`` lowering's on the same inputs, one launch counted per call."""
+    ins = _adam_bucket(cuda, ADAM_BUCKETS[bucket])
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    ctx = LoweringContext(cuda)
+    for step in range(2):
+        before = cuda_kernels.fused_adam.launches
+        fused = get_op("fused_adam").fn(ins, attrs, ctx)
+        torch.cuda.synchronize()
+        assert cuda_kernels.fused_adam.launches == before + 1
+        for i in range(len(ins["Param"])):
+            one = get_op("adam").fn(
+                {s: [v[0] if s == "LearningRate" else v[i]]
+                 for s, v in ins.items()}, attrs, ctx)
+            for slot, outs in one.items():
+                assert fused[slot][i].shape == outs[0].shape, (step, slot, i)
+                assert torch.equal(fused[slot][i], outs[0]), (step, slot, i)
+        ins = dict(ins, **{s: fused[o] for o, s in _ADAM_STATE.items()},
+                   Grad=[1e-2 * torch.randn_like(p) for p in ins["Grad"]])
+    del ins, fused
+
+
+def test_fused_adam_kernel_reads_unaligned_views(cuda):
+    """Inputs that are views at odd offsets (not 16-byte aligned) take
+    the kernel's scalar path: still equal to the per-param lowering."""
+    ins = _adam_bucket(cuda, [(7,), (33, 2), (5,)])
+    for slot in ("Param", "Grad", "Moment1", "Moment2"):
+        ins[slot] = [torch.cat([torch.zeros(1, device=cuda), t.reshape(-1)])
+                     [1:].view(t.shape) for t in ins[slot]]
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    ctx = LoweringContext(cuda)
+    fused = get_op("fused_adam").fn(ins, attrs, ctx)
+    for i in range(3):
+        one = get_op("adam").fn({s: [v[0] if s == "LearningRate" else v[i]]
+                                 for s, v in ins.items()}, attrs, ctx)
+        for slot, outs in one.items():
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
 # ---------------------------------------------------------------------------
 # the CTR kernels: embedding gather-pool, its scatter-add gradient, Momentum
 # ---------------------------------------------------------------------------
@@ -352,6 +431,47 @@ def test_embedding_pool_grad_is_deterministic_and_matches_host(cuda, d, dist,
     assert torch.equal(first, second)
     host = _reference_embedding_pool_grad(g.cpu(), ids.cpu(), wgt.cpu(), v)
     assert torch.equal(first.cpu(), host)
+
+
+def _grad_case(cuda, case, d, seed=1):
+    """(g, ids, wgt, V) of a scatter-add edge case at [2048, 5]: every
+    position one id; only ids 0 and V - 1; Zipf ids into a V that is not
+    a multiple of 256 rows (the largest row block of the earlier
+    row-blocked kernel); and Zipf ids at [8192, 5], past the 32,768
+    positions the tile sorts take, so the device-wide sort runs."""
+    rng = np.random.default_rng(seed)
+    b, s = (8192, 5) if case == "device_sort" else (2048, 5)
+    v = 1000 if case in ("one_id", "ends") else 100_003
+    if case == "one_id":
+        ids = np.full((b, s), 417)
+    elif case == "ends":
+        ids = rng.choice([0, v - 1], (b, s))
+    else:
+        ids = rng.permutation(v)[(rng.zipf(1.1, (b, s)) - 1) % v]
+    g = rng.standard_normal((b, d), dtype=np.float32)
+    wgt = rng.random((b, s), dtype=np.float32)
+    return [torch.from_numpy(x).to(cuda)
+            for x in (g, ids.astype(np.int64), wgt)] + [v]
+
+
+GRAD_CASES = [(c, d) for c in ("one_id", "ends", "zipf_odd_vocab",
+                              "device_sort") for d in (1, 5, 16, 128)]
+
+
+@pytest.mark.parametrize("case,d", GRAD_CASES,
+                         ids=[f"{c}-D{d}" for c, d in GRAD_CASES])
+def test_embedding_pool_grad_edge_cases_match_host(cuda, case, d):
+    g, ids, wgt, v = _grad_case(cuda, case, d)
+    for w in (wgt, None):
+        before = cuda_kernels.embedding_pool_grad.launches
+        first = cuda_kernels.embedding_pool_grad(g, ids, w, v)
+        second = cuda_kernels.embedding_pool_grad(g, ids, w, v)
+        torch.cuda.synchronize()
+        assert cuda_kernels.embedding_pool_grad.launches == before + 2
+        assert torch.equal(first, second)
+        host = _reference_embedding_pool_grad(
+            g.cpu(), ids.cpu(), None if w is None else w.cpu(), v)
+        assert torch.equal(first.cpu(), host)
 
 
 @pytest.mark.parametrize("d", (16, 128))

@@ -307,6 +307,58 @@ def test_fused_adam_bit_identical_to_per_param_adam():
             assert torch.equal(fused[slot][i], outs[0]), (slot, i)
 
 
+def test_adam_layout_pads_segments_and_chunks_launches():
+    """The fused-Adam kernel's segment table, a pure function: every
+    segment starts on a 4-value boundary right after the previous one's
+    padded end, and the launches cover the segments in order, at most
+    ``ADAM_SEGMENTS_PER_LAUNCH`` (48) each."""
+    from paddle_tpu_torch.ops.cuda_kernels import (ADAM_SEGMENTS_PER_LAUNCH,
+                                                   adam_layout)
+    assert ADAM_SEGMENTS_PER_LAUNCH == 48
+    assert adam_layout((2, 13, 7, 4, 0, 1)) == (
+        (0, 4, 20, 28, 32, 32), 36, ((0, 6),))
+    assert adam_layout(()) == ((), 0, ())
+    sizes = tuple(int(x) for x in
+                  np.random.RandomState(0).randint(0, 3000, 2 * 48 + 3))
+    offsets, total, chunks = adam_layout(sizes)
+    assert chunks == ((0, 48), (48, 96), (96, 99))
+    assert adam_layout(sizes[:96])[2] == ((0, 48), (48, 96))
+    for i, (off, size) in enumerate(zip(offsets, sizes)):
+        assert off % 4 == 0
+        end = offsets[i + 1] if i + 1 < len(sizes) else total
+        assert off + size <= end < off + size + 4
+
+
+def test_fused_adam_plain_two_steps_match_reference():
+    """Odd sizes ((2,), (13, 1), (7,)) stepped twice through the port's
+    plain bucket and the reference's ``_fused_adam``, each step fed its
+    own outputs; rtol 1e-6, as the one-step test."""
+    ins = _adam_ins([(2,), (13, 1), (7,), (16, 8)])
+    j_ins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+    t_ins = {s: [torch.from_numpy(np.array(a)) for a in v]
+             for s, v in ins.items()}
+    state = {"ParamOut": "Param", "Moment1Out": "Moment1",
+             "Moment2Out": "Moment2", "Beta1PowOut": "Beta1Pow",
+             "Beta2PowOut": "Beta2Pow"}
+    for step in range(2):
+        j_out = jreg.get_op("fused_adam").fn(j_ins, dict(_ADAM_ATTRS),
+                                            jreg.LoweringContext())
+        t_out = treg.get_op("fused_adam").fn(t_ins, dict(_ADAM_ATTRS),
+                                            treg.LoweringContext())
+        for slot in state:
+            for j, t in zip(j_out[slot], t_out[slot]):
+                assert tuple(t.shape) == tuple(np.shape(j)), (step, slot)
+                np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                           rtol=1e-6, atol=0,
+                                           err_msg=f"step {step} {slot}")
+        for out_slot, in_slot in state.items():
+            j_ins[in_slot] = list(j_out[out_slot])
+            t_ins[in_slot] = list(t_out[out_slot])
+        grads = [_f(*np.shape(a)) for a in ins["Grad"]]
+        j_ins["Grad"] = [jnp.asarray(a) for a in grads]
+        t_ins["Grad"] = [torch.from_numpy(a) for a in grads]
+
+
 # ---------------------------------------------------------------------------
 # the backward kernel's plain version and the autograd.Function wiring
 # ---------------------------------------------------------------------------
@@ -402,6 +454,7 @@ def test_training_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.flash_attention_bwd(q, q, q, None, 1.0, False, q, m, m,
                                          q)
-    p = torch.zeros((2, 1024))
+    p, one = torch.zeros((2, 1024)), torch.ones(1)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_kernels.fused_adam(p, p, p, p, p, 0.9, 0.999, 1e-8)
+        cuda_kernels.fused_adam([p], [p], [p], [p], one, [one], [one], 0.9,
+                                0.999, 1e-8)
