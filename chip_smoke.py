@@ -47,8 +47,20 @@ over):
    within ACT_TOL, the kept fraction within 6 sigma of 1 - rate, the
    backwards (through the ops' autograd Functions) equal to g · Mask ·
    scale (· act'(x)), a twin of seed + 1 must miss.  Device ms per call
-   from the profiler, beside the bound, the plain version's and
-   ``torch.nn.functional.dropout``'s.
+   from the profiler, beside the bound (the largest of bytes, float32
+   ops and Philox4x32-10's integer work per group of four, 20 FMA-pipe
+   and 24 ALU-pipe operations at 64 lanes a pipe and 128 issued per
+   clock per SM, at the SM clock nvidia-smi reports), the plain version's,
+   ``torch.nn.functional.dropout``'s and, for the mask, a uint8
+   ``bernoulli_``'s (other bits).
+3f. paged attention -- the paged decode-attention kernel against its
+   plain version at 1, 8 and 32 slots of 512 positions over a
+   16,400-row pool of width 768, five masks (all valid, ragged,
+   non-prefix, an all-masked row, 300 valid), within 1e-5 of the largest
+   |out|; a twin with the page table rolled by one page must miss.
+   Device ms cold (a 64 MB buffer read before each call flushes the
+   L2) and warm, beside the bound, the plain version's and the library
+   pair's (two ``index_select`` + ``scaled_dot_product_attention``).
    On the serve, train and dygraph paths the flash wrappers must copy
    no input for 16-byte alignment (their ``copies`` counts read 0).
 4. serve   -- the static BERT program at BERT-base width (vocab 30522,
@@ -120,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -956,26 +969,68 @@ def phase_kernels_momentum():
 # the dropout kernels (phase 3e)
 # ---------------------------------------------------------------------------
 
-# the ops per element the kernels do in float32 (Philox's integer rounds
-# are not counted: the card's peak table has no integer rate); gelu's erff
-# and expf counted as about 20 and 10
+# the ops per element the kernels do in float32; gelu's erff and expf
+# counted as about 20 and 10
 _DROPOUT_FLOPS = {"fused_dropout": 1, "dropout_mask": 0,
                   "fused_dropout_add": 2, "fused_act_dropout": 26,
                   "fused_act_dropout_bwd": 40}
+# Philox4x32-10's integer work per group of four elements: ten rounds of
+# two 32x32->64 multiplies (IMAD.WIDE, on the FMA pipe) and two three-way
+# xors (LOP3, on the ALU pipe), then four threshold compares (ISETP, ALU).
+# The key schedule is the same for every group of a call, so it is not
+# counted per group; nor are the loop's counter and address arithmetic,
+# which a kernel may spend but the function does not need.
+PHILOX_FMA_PIPE_OPS = 20
+PHILOX_ALU_PIPE_OPS = 24
+# per SM and clock on compute capability 9.0: 64 results on each of the
+# FMA and ALU pipes (4 schedulers x 16 lanes), 128 lanes issued in all (4
+# schedulers x one warp instruction); times the SMs at the SM clock
+# nvidia-smi reports
+PIPE_LANES_PER_CLOCK = 64
+ISSUE_LANES_PER_CLOCK = 128
 
 
-def _dropout_bound(name, n, element_size):
-    """Least time on this card: the larger of the bytes (each input read
+def _philox_clocks_per_group():
+    """SM clocks a group of four's Philox work takes at the least: the
+    busier pipe's count at PIPE_LANES_PER_CLOCK, or the sum at
+    ISSUE_LANES_PER_CLOCK, whichever is longer."""
+    return max(PHILOX_FMA_PIPE_OPS / PIPE_LANES_PER_CLOCK,
+               PHILOX_ALU_PIPE_OPS / PIPE_LANES_PER_CLOCK,
+               (PHILOX_FMA_PIPE_OPS + PHILOX_ALU_PIPE_OPS)
+               / ISSUE_LANES_PER_CLOCK)
+
+
+def _sm_count():
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def _dropout_bound(name, n, element_size, clock_hz):
+    """Least time on this card: the largest of the bytes (each input read
     once, the output written once; the mask kernel reads nothing and
-    writes one byte an element) over HBM bandwidth and the float32 ops
-    over the float32 peak."""
+    writes one byte an element) over HBM bandwidth, the float32 ops over
+    the float32 peak, and Philox's integer work per group of four
+    (``_philox_clocks_per_group``) over the SMs at ``clock_hz``.  Returns
+    (ms, "bytes" | "operations", which of the three binds)."""
     streams = {"fused_dropout": 2, "fused_dropout_add": 3,
                "fused_act_dropout": 2, "fused_act_dropout_bwd": 3}
     nbytes = n if name == "dropout_mask" else streams[name] * n * element_size
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = _DROPOUT_FLOPS[name] * n / FLOPS_PER_S["float32"] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations")
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "float32 ops": _DROPOUT_FLOPS[name] * n
+             / FLOPS_PER_S["float32"] * 1e3,
+             "integer ops": -(-n // 4) * _philox_clocks_per_group()
+             / (_sm_count() * clock_hz) * 1e3}
+    which = max(times, key=times.get)
+    return (times[which], "bytes" if which == "bytes" else "operations",
+            which)
 
 
 def _dropout_checks(label, dtype, rate, upscale, shape, seed):
@@ -1114,6 +1169,12 @@ def phase_kernels_dropout():
 
     dev = torch.device(DEVICE)
     rows = {}
+    clock_hz = _sm_clock_hz()
+    _p(f"  Philox's integer work per group of four: "
+       f"{PHILOX_FMA_PIPE_OPS} FMA-pipe and {PHILOX_ALU_PIPE_OPS} ALU-pipe "
+       f"operations, {_philox_clocks_per_group():g} SM clocks at "
+       f"{PIPE_LANES_PER_CLOCK} lanes a pipe and {ISSUE_LANES_PER_CLOCK} "
+       f"issued per clock, SM clock {clock_hz / 1e6:.0f} MHz")
     seed, rate = SEED + 13, 0.1
     k0, k1 = nn_ops._key_words(seed)
     thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
@@ -1133,7 +1194,8 @@ def phase_kernels_dropout():
                 lambda: cuda_kernels.dropout_mask(x, seed, thr),
                 lambda: nn_ops._reference_keep(x.shape, k0, k1, thr,
                                                dev).to(torch.uint8),
-                None, x),
+                lambda: torch.empty(x.shape, dtype=torch.uint8,
+                                    device=dev).bernoulli_(1 - rate), x),
             "fused_dropout_add": (
                 lambda: cuda_kernels.fused_dropout_add(x, r, seed, thr,
                                                        scale),
@@ -1153,21 +1215,24 @@ def phase_kernels_dropout():
             ms = _profile(kernel, 20)[1]
             plain_ms = _profile(plain, 5)[1]
             library_ms = _profile(library, 20)[1] if library else None
-            bound_ms, bound_by = _dropout_bound(name, t.numel(),
-                                                t.element_size())
+            bound_ms, bound_by, binds = _dropout_bound(
+                name, t.numel(), t.element_size(), clock_hz)
             err = errs["act " + label] if "act" in name else errs[label]
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "binds": binds,
                    "library_ms": library_ms, "shape": list(t.shape)}
             if label == "fp32":
                 rows[name] = dict(row, dtype="float32")
             else:
                 rows[name]["bf16"] = row
-            lib = (f" | library (F.dropout) {library_ms:.4f} ms"
+            lib_name = ("F.dropout" if name == "fused_dropout" else
+                        "uint8 bernoulli_, other bits")
+            lib = (f" | library ({lib_name}) {library_ms:.4f} ms"
                    if library else "")
             _p(f"  {name} {label} {list(t.shape)}: kernel {ms:.4f} ms | "
                f"plain {plain_ms:.4f} ms{lib} | bound "
-               f"{bound_ms * 1e3:.2f} us ({bound_by})")
+               f"{bound_ms * 1e3:.2f} us ({binds})")
         del x, r, xa, ga
     torch.cuda.empty_cache()
     return rows
@@ -2273,8 +2338,9 @@ def _paged_inputs(b, case, seed):
     permutation (page 0, the scratch page, left out) and a float32 mask
     ``[b, S]``: every position valid (``full``), ragged prefix lengths 1
     to S (``ragged``), a random non-prefix mask with one valid position
-    at least (``non-prefix``), or ragged with row 0 all masked
-    (``all-masked row``)."""
+    at least (``non-prefix``), ragged with row 0 all masked
+    (``all-masked row``), or the first DECODE_PROFILE_POS positions of
+    every slot (``300 valid``, the decode step profile's mask)."""
     import torch
     d, s, r, ps = (PAGED["d"], PAGED["seq"], PAGED["rows"],
                    PAGED["page_size"])
@@ -2291,6 +2357,8 @@ def _paged_inputs(b, case, seed):
     pos = torch.arange(s, device=dev)[None, :]
     if case == "full":
         valid = torch.ones(b, s, device=dev)
+    elif case == "300 valid":
+        valid = (pos < DECODE_PROFILE_POS).float().expand(b, s)
     elif case == "non-prefix":
         valid = (torch.rand(b, s, generator=g, device=dev) < 0.5).float()
         valid[:, 0] = 1.0
@@ -2317,18 +2385,43 @@ def _paged_bound(b, valid):
             else "operations")
 
 
-def phase_kernels_paged():
+def _l2_flush():
+    """A call that reads a 64 MB scratch buffer, more than the card's 50
+    MB L2, so that the next kernel finds its inputs in device memory as
+    a decode step does (each step's head product alone reads 94 MB of
+    weights); it writes nothing back, so the next kernel pays for no
+    dirty lines."""
+    import torch
+    buf = torch.zeros(16 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    return buf.argmax
+
+
+def _cold_ms(fn, flush, flush_ms, iters, label=None):
+    """Device ms per call of ``fn`` with the L2 flushed before each call:
+    the profiler's ``label`` class, or the busy ms of flush and call
+    less ``flush_ms``, the flush's own busy ms per call."""
+    _, busy, _, _, by_class = _profile(lambda: (flush(), fn()), iters)
+    return by_class.get(label, 0.0) if label else busy - flush_ms
+
+
+PAGED_CASES = ("full", "ragged", "non-prefix", "all-masked row", "300 valid")
+
+
+def phase_kernels_paged(card):
     """The paged-attention kernel against its plain version
     (``_paged_reference``) at the decode path's shapes: B in PAGED
     ["slots"], S = 512 positions, pools of R = 16,400 rows of d = 768,
     float32, a random page permutation; masks all valid, ragged, non-
-    prefix and with an all-masked row.  Tolerance: 1e-5 of the largest
-    |out|.  A twin whose page table is rolled by one page must miss by
-    10 times that.  Device ms per call from the profiler, beside the
-    bound, the plain version's and the library pair's (two
+    prefix, with an all-masked row, and 300 of 512 valid.  Tolerance:
+    1e-5 of the largest |out|.  A twin whose page table is rolled by one
+    page must miss by 10 times that.  Device ms per call from the
+    profiler, cold (the L2 flushed before each call, the decode step's
+    case) and warm (back to back on the same inputs),
+    beside the bound, the plain version's and the library pair's (two
     ``index_select`` and ``scaled_dot_product_attention`` with a boolean
-    mask over the gathered rows, timed here only).  Returns the rows by
-    B for the all-valid mask."""
+    mask over the gathered rows, timed here only), all valid at every B
+    and 300 valid at the largest.  Returns the rows by B and, under
+    ``(B, "300 valid")``, the partly valid row."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels
@@ -2337,9 +2430,11 @@ def phase_kernels_paged():
     d, s = PAGED["d"], PAGED["seq"]
     scale, neg = d ** -0.5, 1e30
     kernel = cuda_kernels.paged_attention
+    flush = _l2_flush()
+    _, flush_ms, _, flush_kernels, flush_classes = _profile(flush, 50)
     rows = {}
     for b in PAGED["slots"]:
-        for case in ("full", "ragged", "non-prefix", "all-masked row"):
+        for case in PAGED_CASES:
             q, kp, vp, idx, valid = _paged_inputs(b, case, SEED + 31 + b)
             out = kernel(q, kp, vp, idx, valid, scale, neg)
             ref = _paged_reference(q, kp, vp, idx, valid, scale, neg)
@@ -2367,7 +2462,8 @@ def phase_kernels_paged():
                 raise SystemExit(f"chip_smoke: the paged_attention check "
                                  f"B={b} {case} cannot tell the right "
                                  f"pages from the wrong ones")
-            if case != "full":
+            if case != "full" and (case, b) != ("300 valid",
+                                                max(PAGED["slots"])):
                 continue
             ii = idx.reshape(-1).long()
             vb = valid.bool().reshape(b, 1, 1, s)
@@ -2378,20 +2474,38 @@ def phase_kernels_paged():
                 return F.scaled_dot_product_attention(
                     q.reshape(b, 1, 1, d), kg, vg, attn_mask=vb, scale=scale)
 
+            def call():
+                return kernel(q, kp, vp, idx, valid, scale, neg)
+
+            def plain():
+                return _paged_reference(q, kp, vp, idx, valid, scale, neg)
+
             lib_err = (library().reshape(b, d) - ref).abs().max().item()
-            ms = _profile(lambda: kernel(q, kp, vp, idx, valid, scale, neg),
-                          50)[1]
-            plain_ms = _profile(lambda: _paged_reference(
-                q, kp, vp, idx, valid, scale, neg), 10)[1]
-            library_ms = _profile(library, 50)[1]
-            bound_ms, bound_by = _paged_bound(b, valid)
-            rows[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": library_ms}
-            _p(f"  B={b}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-               f"library (2 x index_select + scaled_dot_product_attention, "
-               f"max |err| {lib_err:.1e}) {library_ms:.4f} ms | bound "
-               f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            label = "paged_attention (csrc)"
+            row = {"max_abs_err": err,
+                   "ms": _cold_ms(call, flush, flush_ms, 50, label),
+                   "warm_ms": _profile(call, 50)[1],
+                   "plain_ms": _cold_ms(plain, flush, flush_ms, 10),
+                   "plain_warm_ms": _profile(plain, 10)[1],
+                   "library_ms": _cold_ms(library, flush, flush_ms, 50),
+                   "library_warm_ms": _profile(library, 50)[1],
+                   "n_valid": int(n_valid.sum().item())}
+            row["bound_ms"], row["bound_by"] = _paged_bound(b, valid)
+            rows[b if case == "full" else (b, case)] = row
+            _p(f"  B={b} {case}: kernel cold {row['ms']:.4f} ms, warm "
+               f"{row['warm_ms']:.4f} | plain cold {row['plain_ms']:.4f}, "
+               f"warm {row['plain_warm_ms']:.4f} | library (2 x "
+               f"index_select + scaled_dot_product_attention, max |err| "
+               f"{lib_err:.1e}) cold {row['library_ms']:.4f}, warm "
+               f"{row['library_warm_ms']:.4f} | bound "
+               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
+               f"{row['n_valid']} valid positions)  [{card}]")
+    _p(f"  (cold: a 64 MB buffer read before each call; the kernel's "
+       f"cold ms is its own class, the plain and library cold ms the "
+       f"window's busy ms less the flush's alone, {flush_ms:.4f} ms in "
+       f"{flush_kernels:g} kernels a call: "
+       + ", ".join(f"{c} {ms:.4f}" for c, ms in flush_classes.items())
+       + ")")
     torch.cuda.empty_cache()
     return rows
 
@@ -2948,7 +3062,7 @@ def main():
     ctr_launches, ctr_trained = _timed("4d train CTR", phase_train_ctr,
                                        arrays, card)
     del arrays
-    paged_rows = _timed("3f paged attention", phase_kernels_paged)
+    paged_rows = _timed("3f paged attention", phase_kernels_paged, card)
     # 4f builds static programs, so it runs before 4e turns dygraph on
     decode_launches, decode_served = _timed("4f serve decode",
                                             phase_serve_decode, card)
@@ -3041,24 +3155,32 @@ def main():
         extra = {"also_replaces": src + also} if also else {}
         if name == "fused_dropout":
             extra["library"] = "torch.nn.functional.dropout"
+        elif name == "dropout_mask":
+            extra["library"] = ("torch.empty(uint8).bernoulli_(1 - rate), "
+                                "which draws other bits")
         row = dropout_rows[name]
         kernels.append(_kernel_row(
             name, "paddle_tpu_torch/csrc/fused_dropout.cu", src + site,
             dy_launches[name], row,
             dtype=row["dtype"], shape=row["shape"], bf16=row["bf16"],
             **extra))
-    # the paged row: the decode path's 32 slots, all 512 positions valid;
-    # launches from phase 4f's requests
+    # the paged row: the decode path's 32 slots, all 512 positions valid,
+    # cold (the L2 flushed before each call); launches from phase 4f's
+    # requests; warm times and the 300-valid case beside
     b = max(PAGED["slots"])
+    keys = ("ms", "warm_ms", "plain_ms", "plain_warm_ms", "bound_ms",
+            "library_ms", "library_warm_ms")
     kernels.append(_kernel_row(
         "paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
         "paddle_tpu/ops/pallas_kernels.py:117", decode_launches,
-        paged_rows[b], dtype="float32",
+        paged_rows[b], dtype="float32", timing="cold",
+        warm_ms=paged_rows[b]["warm_ms"],
         shape=[b, PAGED["seq"], PAGED["rows"], PAGED["d"]],
         library="index_select x 2 + scaled_dot_product_attention",
-        by_slots={n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "library_ms")}
-                  for n, r in paged_rows.items()}))
+        by_slots={n: {k: r[k] for k in keys}
+                  for n, r in paged_rows.items() if isinstance(n, int)},
+        valid300={k: paged_rows[(b, "300 valid")][k]
+                  for k in keys + ("max_abs_err", "n_valid")}))
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

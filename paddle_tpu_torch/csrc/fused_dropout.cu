@@ -40,14 +40,19 @@
 // TPU kernel used Abramowitz-Stegun 7.1.26 only because Mosaic has no
 // erf); its derivative is Phi(x) + x phi(x).
 //
-// What bounds these on this card: bytes.  Each element is read once per
-// input and written once; ten Philox rounds per four elements are about
-// 40 integer multiplies and xors a group, far under the integer rate at
-// these sizes.  At the BERT-base step's [8192, 768] float32 the dropout
-// moves 50.3 MB (15.0 us at 3.35 TB/s); act-dropout's [8192, 3072]
-// backward moves 302 MB (90.1 us).  The design: one thread per group of
-// four elements, grid-stride, 16-byte (float32) or 8-byte (bfloat16)
-// vector loads and stores where the pointers allow, no shared memory.
+// What bounds these on this card: bytes, but for the mask.  Each element
+// is read once per input and written once.  The generator is not free:
+// Philox4x32-10 needs, per group of four, ten rounds of two 32x32->64
+// multiplies (the FMA pipe) and two three-way xors (the ALU pipe), then
+// four compares (ALU): 24 ALU-pipe operations at 64 lanes a clock per SM,
+// 0.375 SM clocks a group.  At the BERT-base step's [8192, 768], over 132
+// SMs at 1980 MHz, that is 2.3 us: under the float32 dropout's 50.3 MB of
+// bytes (15.0 us at 3.35 TB/s) and act-dropout's [8192, 3072] backward's
+// 302 MB (90.1 us), but above the mask's 6.3 MB (1.9 us), which the
+// integer work binds (chip_smoke.py _dropout_bound).  The design: one
+// thread per group of four elements, grid-stride, 16-byte (float32) or
+// 8-byte (bfloat16) vector loads and stores where the pointers allow, no
+// shared memory.
 //
 // Layout: contiguous buffers of n elements, any n (a tail group shorter
 // than four takes the scalar path).  The kernels allocate nothing and

@@ -74,8 +74,8 @@ _SIGNATURES = {
         **_ERR,
     },
     "paged_attention": {
-        "pt_paged_attention": ([_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I, _F,
-                                _F, _P], _I),
+        "pt_paged_attention": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I64,
+                                _I, _I, _F, _F, _I, _P], _I),
         **_ERR,
     },
     "fused_dropout": {
@@ -803,6 +803,42 @@ fused_act_dropout_bwd.launches = 0
 # ---------------------------------------------------------------------------
 # paged decode attention (csrc/paged_attention.cu)
 # ---------------------------------------------------------------------------
+PAGED_CHUNK = 16          # positions: a split holds at least one chunk
+PAGED_MAX_SPLITS = 512    # the kernel's merge holds this many (m, l) pairs
+
+
+def paged_splits(b: int, s: int, n_sm: int) -> int:
+    """The paged kernel's splits per slot (its grid is ``B × n_split``):
+    as many as keep the grid within two CTAs per SM (the most that stay
+    resident together at d <= ~3,500), one wave, while every split of an
+    all-valid row still holds a whole 16-position chunk.  The kernel
+    shares each slot's kept positions out evenly over them: split t takes
+    the ranks ``[t·kept // n_split, (t + 1)·kept // n_split)``."""
+    return max(1, min(s // PAGED_CHUNK, 2 * n_sm // b, PAGED_MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the split kernel's workspace by (device, stream): the zeroed tickets
+# (one int per slot, reset by each call's merging CTA) and the partials
+# (B·n_split·(round_up(d, 4) + 2) floats), each grown when a call needs
+# more; kernels on one stream run in order, so each call may reuse them
+_paged_ws: Dict[tuple, tuple] = {}
+
+
+def _paged_workspace(device, stream, b, floats):
+    tickets, part = _paged_ws.get((device, stream), (None, None))
+    if tickets is None or tickets.numel() < b:
+        tickets = torch.zeros((b,), dtype=torch.int32, device=device)
+    if part is None or part.numel() < floats:
+        part = torch.empty((floats,), dtype=torch.float32, device=device)
+    _paged_ws[(device, stream)] = (tickets, part)
+    return tickets, part
+
+
 def paged_attention(q, k_pool, v_pool, idx, valid, scale: float, neg: float):
     """``softmax_j(s_bj) · VPool[idx[b,j]]`` summed over j, with
     ``s_bj = (q_b · KPool[idx[b,j]])·scale·valid + (valid·neg - neg)``
@@ -810,7 +846,11 @@ def paged_attention(q, k_pool, v_pool, idx, valid, scale: float, neg: float):
     ``[B, d]``, the pools ``[R, d]``, all float32; idx int32 with B·S
     entries (``[B·S]`` or ``[B, S]``); valid float32 ``[B, S]``; all
     CUDA and contiguous.  An index outside ``[0, R)`` traps on the
-    device.  Returns ``[B, d]`` float32."""
+    device.  Returns ``[B, d]`` float32.  One launch: ``B × n_split``
+    CTAs (``paged_splits``) share out each slot's kept positions and the
+    last CTA of each slot merges their partials in a fixed order, so two
+    calls give the same bits; the partials live in a workspace cached
+    per device and stream."""
     what = "paged_attention"
     if q.ndim != 2 or k_pool.ndim != 2 or v_pool.ndim != 2 \
             or valid.ndim != 2:
@@ -841,11 +881,17 @@ def paged_attention(q, k_pool, v_pool, idx, valid, scale: float, neg: float):
         return out
     lib = _lib("paged_attention")
     with torch.cuda.device(q.device):
+        n_split = paged_splits(b, s, _sm_count(q.device))
+        stream = _stream(q.device)
+        tickets = part = None
+        if n_split > 1:
+            tickets, part = _paged_workspace(
+                q.device, stream, b, b * n_split * (-(-d // 4) * 4 + 2))
         err = lib.pt_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            idx.data_ptr(), valid.data_ptr(), out.data_ptr(), b, s, r, d,
-            float(scale), float(neg),
-            _stream(q.device))
+            idx.data_ptr(), valid.data_ptr(), out.data_ptr(), _ptr(part),
+            _ptr(tickets), b, s, r, d, n_split, float(scale), float(neg),
+            q.device.index, stream)
     _check_launch(lib, err, what)
     paged_attention.launches += 1
     return out

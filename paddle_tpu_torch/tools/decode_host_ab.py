@@ -1,0 +1,96 @@
+"""The paged decode step's host cost, one checkout against another, on
+the card.
+
+    python3 paddle_tpu_torch/tools/decode_host_ab.py ROOT [ROOT ...]
+
+Each ROOT is a checkout of this repo (for an A/B on one card: parent,
+change, change, parent).  For each, in the order given and in a process
+of its own, it times the ``paged_attention`` wrapper's host cost per
+call at the decode step's shapes (pools of 16,400 rows of 768, 512
+positions a slot, 300 valid; 1, 8 and 32 slots): the seconds to enqueue
+200 calls with no sync among them, over 200, beside the wall seconds
+per call once the card has finished.  Then it runs that ROOT's
+``chip_smoke.py`` phase 4f (the decode path served, with its checks)
+and phase 5's decode profile (host and device ms of one paged step at
+1, 8 and 32 slots).  Prints the card's name and power limit; exits
+non-zero if a ROOT's run fails.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+CALLS = 200
+
+
+def _wrapper_host_us(card):
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    d, s, ps, rows = 768, 512, 16, 16400
+    kp, vp = (torch.randn(rows, d, generator=g).to(dev) for _ in range(2))
+    for b in (1, 8, 32):
+        q = torch.randn(b, d, generator=g).to(dev)
+        pages = torch.randperm(rows // ps - 1, generator=g)[:b * s // ps] + 1
+        idx = ((pages.reshape(b, s // ps, 1) * ps + torch.arange(ps))
+               .reshape(b, s).int().to(dev))
+        valid = (torch.arange(s) < 300).float().expand(b, s).contiguous()
+        valid = valid.to(dev)
+
+        def call():
+            return cuda_kernels.paged_attention(q, kp, vp, idx, valid,
+                                                d ** -0.5, 1e30)
+
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"paged_attention wrapper, {b} slots: host "
+              f"{(t1 - t0) / CALLS * 1e6:.2f} us a call to enqueue, wall "
+              f"{(t2 - t0) / CALLS * 1e6:.2f} us a call  [{card}]",
+              flush=True)
+
+
+def _child(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import chip_smoke
+    import paddle_tpu_torch
+
+    for mod in (chip_smoke, paddle_tpu_torch):
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise SystemExit(f"decode_host_ab: imported {mod.__file__}, "
+                             f"not {root}'s")
+    print(f"== {root}", flush=True)
+    _, _, card = chip_smoke.phase_device()
+    _wrapper_host_us(card)
+    _, served = chip_smoke.phase_serve_decode(card)
+    chip_smoke.phase_profile_decode(served, card)
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] == "--child":
+        _child(argv[1])
+        return 0
+    if not argv:
+        raise SystemExit(__doc__)
+    for root in map(os.path.abspath, argv):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--child", root], cwd=root, timeout=900
+                            ).returncode
+        if rc:
+            print(f"decode_host_ab: {root} exited {rc}", flush=True)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -194,8 +194,8 @@ def test_op_equals_reference(case):
 def _paged_inputs(b, s, d, ps, mask, n_pages=24, seed=0):
     """q, pools and a page table whose pages are a random permutation and
     whose rows inside each page are shuffled too (``shuffled``), so no
-    page is contiguous; masks ragged prefixes, non-prefix, or ragged with
-    row 0 all masked."""
+    page is contiguous; masks every position valid, ragged prefixes,
+    non-prefix, or ragged with row 0 all masked."""
     rng = np.random.RandomState(seed)
     r = n_pages * ps
     q = rng.randn(b, d).astype("float32")
@@ -203,7 +203,9 @@ def _paged_inputs(b, s, d, ps, mask, n_pages=24, seed=0):
     pages = rng.permutation(n_pages - 1)[:b * s // ps] + 1
     lanes = np.stack([rng.permutation(ps) for _ in range(b * s // ps)])
     idx = (pages[:, None] * ps + lanes).reshape(b, s).astype("int32")
-    if mask == "non-prefix":
+    if mask == "full":
+        valid = np.ones((b, s), "float32")
+    elif mask == "non-prefix":
         valid = (rng.rand(b, s) < 0.5).astype("float32")
         valid[:, 0] = 1.0
     else:
@@ -283,6 +285,142 @@ def test_plain_paged_attention_matches_pallas_body(pallas_interpret):
                                                            valid)),
                            d ** -0.5, 1e30).numpy()
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _paged_shares(kept, n_split):
+    """The ranks, in position order, of the kept positions that each of
+    a slot's n_split CTAs takes: the paged kernel's arithmetic."""
+    return [(t * kept // n_split, (t + 1) * kept // n_split)
+            for t in range(n_split)]
+
+
+def _split_model(q, kp, vp, idx, valid, scale, neg, n_split, p=8):
+    """A plain numpy model of the paged kernel's arithmetic, in float32:
+    a row that has a position whose mask is not 0 keeps only those
+    positions (a row with none keeps every position); the kept positions,
+    in position order, are shared out over ``n_split`` splits by
+    ``_paged_shares``; a split runs an online softmax over its positions
+    ``p`` at a time; the splits' (m, l, acc) merge in split order, a
+    split with m = -inf (nothing kept) weighing 0."""
+    f32 = np.float32
+    b, s = valid.shape
+    out = np.empty((b, q.shape[1]), f32)
+    for i in range(b):
+        kept = [j for j in range(s) if valid[i, j] != 0]
+        if neg < 1e20 or not kept:
+            kept = list(range(s))
+        parts = []
+        for lo, hi in _paged_shares(len(kept), n_split):
+            js = kept[lo:hi]
+            m, l, acc = f32(-np.inf), f32(0), np.zeros(q.shape[1], f32)
+            for k in range(0, len(js), p):
+                rows, v = idx[i, js[k:k + p]], valid[i, js[k:k + p]]
+                sc = (kp[rows] * q[i]).sum(1, dtype=f32) * f32(scale) * v \
+                    + (v * f32(neg) + f32(-neg))
+                m_new = max(m, sc.max())
+                corr, pj = np.exp(m - m_new), np.exp(sc - m_new)
+                l = l * corr + pj.sum(dtype=f32)
+                acc = acc * corr + (pj[:, None] * vp[rows]).sum(0, dtype=f32)
+                m = m_new
+            parts.append((m, l, acc))
+        mx = max(m for m, _, _ in parts)
+        fs = [f32(0) if m == -np.inf else np.exp(m - mx) for m, _, _ in parts]
+        l_all = sum((l * f for (_, l, _), f in zip(parts, fs)), f32(0))
+        o = sum((acc * f for (_, _, acc), f in zip(parts, fs)),
+                np.zeros(q.shape[1], f32))
+        out[i] = o / l_all
+    return out
+
+
+PAGED_MASKS = ("full", "ragged", "non-prefix", "all-masked row")
+
+
+@pytest.mark.parametrize("n_split", (1, 3, 16))
+@pytest.mark.parametrize("mask", PAGED_MASKS)
+def test_split_model_matches_reference_op(mask, n_split):
+    """The kernel's split-and-merge with masked positions skipped, modelled
+    in numpy, against the JAX ``paged_attention`` op within 1e-6 of the
+    largest |out| (1, 3 and S = 16 splits; XLA sums in its own order)."""
+    b, s, d, ps = 4, 16, 128, 4
+    q, kp, vp, idx, valid = _paged_inputs(b, s, d, ps, mask, seed=3)
+    want = np.asarray(jreg.get_op("paged_attention").fn(
+        {"Q": [jnp.asarray(q)], "KPool": [jnp.asarray(kp)],
+         "VPool": [jnp.asarray(vp)], "Index": [jnp.asarray(idx.reshape(-1))],
+         "Valid": [jnp.asarray(valid)]},
+        {"scale": d ** -0.5, "neg": 1e30, "page_size": ps},
+        jreg.LoweringContext())["Out"][0])
+    got = _split_model(q, kp, vp, idx, valid, d ** -0.5, 1e30, n_split)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_split", (1, 3, 16))
+@pytest.mark.parametrize("mask", ("full", "ragged", "all-masked row"))
+def test_split_model_matches_pallas_body(pallas_interpret, mask, n_split):
+    """The same model against the TPU kernel's body in interpret mode at
+    d 128, within 1e-6 of the largest |out|.  That kernel takes lengths,
+    so its masks are prefixes: every position, ragged lengths, and a
+    length of 0 for row 0 (every score -1e30, the mean of the V rows)."""
+    from paddle_tpu.ops import pallas_kernels as pk
+    pl, pltpu = pallas_interpret
+    b, s, d, ps, n_pages = 3, 16, 128, 4, 16
+    rng = np.random.RandomState(4)
+    q = rng.randn(b, d).astype("float32")
+    kp, vp = (rng.randn(n_pages * ps, d).astype("float32") for _ in range(2))
+    pages = rng.permutation(n_pages - 1)[:b * s // ps] + 1
+    idx = (pages.reshape(b, s // ps, 1) * ps
+           + np.arange(ps)).reshape(b, s).astype("int32")
+    lengths = {"full": [[16], [16], [16]], "ragged": [[5], [16], [1]],
+               "all-masked row": [[0], [9], [3]]}[mask]
+    lengths = np.array(lengths, "int32")
+    smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
+    want = np.asarray(pl.pallas_call(
+        functools.partial(pk._paged_attn_kernel, n_blocks=s // ps,
+                          page_size=ps, scale=d ** -0.5),
+        grid=(b,),
+        in_specs=[smem((1, s), lambda i: (i, 0)),
+                  smem((1, 1), lambda i: (i, 0)),
+                  pl.BlockSpec((1, d), lambda i: (i, 0)),
+                  pl.BlockSpec((n_pages * ps, d), lambda i: (0, 0)),
+                  pl.BlockSpec((n_pages * ps, d), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((1, d), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, d), jnp.float32),
+        interpret=True)(jnp.asarray(idx), jnp.asarray(lengths),
+                        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp)))
+    valid = (np.arange(s)[None, :] < lengths).astype("float32")
+    got = _split_model(q, kp, vp, idx, valid, d ** -0.5, 1e30, n_split)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_sm", (1, 8, 132))
+def test_paged_splits_cover_the_positions(n_sm):
+    """``paged_splits`` and the kernel's shares: they cover the kept
+    positions exactly, in order, none empty while there are as many kept
+    positions as splits, none longer than another by more than one; an
+    all-valid row gives every split a whole 16-position chunk at least;
+    the grid stays within 2·SMs (or B CTAs) and reaches it where S has
+    the chunks for it."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    for b in (1, 2, 5, 8, 32, 33, 100, 1000):
+        for s in (1, 15, 16, 17, 64, 300, 512, 4096, 100_000):
+            n = ck.paged_splits(b, s, n_sm)
+            assert 1 <= n <= ck.PAGED_MAX_SPLITS, (b, s, n)
+            assert b * n <= max(b, 2 * n_sm), (b, s, n)
+            if n < min(s // ck.PAGED_CHUNK, ck.PAGED_MAX_SPLITS):
+                assert b * (n + 1) > 2 * n_sm, (b, s, n)
+            for kept in {s, s // 3, 1}:
+                shares = _paged_shares(kept, n)
+                assert shares[0][0] == 0 and shares[-1][1] == kept
+                assert all(a[1] == c[0] for a, c in zip(shares, shares[1:]))
+                sizes = [hi - lo for lo, hi in shares]
+                assert max(sizes) - min(sizes) <= 1
+                if kept >= n:
+                    assert min(sizes) >= 1
+            if s >= ck.PAGED_CHUNK:
+                assert min(hi - lo for lo, hi in _paged_shares(s, n)) \
+                    >= ck.PAGED_CHUNK
+    if n_sm == 132:   # the decode path's slots at 512 positions, on an H100
+        assert [ck.paged_splits(b, 512, 132) for b in (1, 8, 32)] == \
+            [32, 32, 8]
 
 
 def test_paged_attention_on_meta_and_cpu_takes_the_plain_version():

@@ -30,7 +30,8 @@ kernel's erff and expf against torch's erf and exp, a few ulp) and one
 bfloat16 ulp (rtol 2^-7) in bfloat16, where such a difference can round
 to the neighbouring value.  The paged-attention kernel against
 ``_paged_reference``: within 1e-5 of the largest |out| (an online softmax
-sums in another order than the plain full-row softmax).
+over splits sums in another order than the plain full-row softmax), and
+two calls ``torch.equal`` (the splits merge in a fixed order).
 """
 
 import numpy as np
@@ -698,16 +699,20 @@ def test_dropout_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def _paged_case(device, b, s, r, d, ps, mask, seed=0):
-    """q, pools, a page table over a random page permutation (page 0
-    left out) and a float32 mask: ``ragged`` prefix lengths,
-    ``non-prefix`` random positions, ``all-masked`` ragged with row 0
-    empty, or ``full``."""
+    """q, pools (``r`` rows, or None for just enough pages), a page table
+    over a random page permutation (page 0 left out; S need not be a
+    whole number of pages) and a float32 mask: ``ragged`` prefix
+    lengths, ``non-prefix`` random positions, ``all-masked`` ragged with
+    row 0 empty, or ``full``."""
     g = torch.Generator(device="cpu").manual_seed(seed)
+    per_seq = -(-s // ps)
+    r = r if r is not None else ps * (b * per_seq + 1)
     q = torch.randn(b, d, generator=g)
     kp, vp = torch.randn(r, d, generator=g), torch.randn(r, d, generator=g)
-    pages = (torch.randperm(r // ps - 1, generator=g) + 1)[:b * (s // ps)]
-    idx = (pages.reshape(b, s // ps, 1) * ps
-           + torch.arange(ps)).reshape(b, s).int()
+    pages = (torch.randperm(r // ps - 1, generator=g) + 1)[:b * per_seq]
+    idx = (pages.reshape(b, per_seq, 1) * ps
+           + torch.arange(ps)).reshape(b, per_seq * ps)[:, :s]
+    idx = idx.contiguous().int()
     if mask == "full":
         valid = torch.ones(b, s)
     elif mask == "non-prefix":
@@ -721,27 +726,122 @@ def _paged_case(device, b, s, r, d, ps, mask, seed=0):
     return [t.to(device) for t in (q, kp, vp, idx, valid)]
 
 
-@pytest.mark.parametrize("d", (64, 100, 768))
-@pytest.mark.parametrize("mask", ("full", "ragged", "non-prefix",
-                                  "all-masked"))
-def test_paged_attention_matches_plain(cuda, d, mask):
-    """The paged-attention kernel against ``_paged_reference`` within
-    1e-5 of the largest |out| (float32 online softmax against the plain
-    full-row softmax: another summation order), at any head width; a
-    page table rolled by one page must miss."""
+def _paged_close(out, q, kp, vp, idx, valid, scale):
+    """max |out - plain| and the 1e-5 x max |plain| bound."""
     from paddle_tpu_torch.ops.attention import _paged_reference
-    q, kp, vp, idx, valid = _paged_case(cuda, 5, 64, 16 * 40, d, 16, mask)
-    scale = d ** -0.5
-    out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, scale, 1e30)
     ref = _paged_reference(q, kp, vp, idx, valid, scale, 1e30)
     torch.cuda.synchronize()
-    tol = 1e-5 * ref.abs().max().item()
-    assert (out - ref).abs().max().item() <= tol
-    if mask in ("ragged", "non-prefix"):
+    return (out - ref).abs().max().item(), 1e-5 * ref.abs().max().item(), ref
+
+
+@pytest.mark.parametrize("d", (64, 100, 768, 2048))
+@pytest.mark.parametrize("s", (1, 17, 64, 512))
+@pytest.mark.parametrize("b", (1, 5, 32))
+@pytest.mark.parametrize("mask", ("full", "ragged", "non-prefix",
+                                  "all-masked"))
+def test_paged_attention_matches_plain(cuda, d, s, b, mask):
+    """The paged-attention kernel against ``_paged_reference`` within
+    1e-5 of the largest |out| (float32 online softmax over splits against
+    the plain full-row softmax: another summation order), at any head
+    width, 1 to 32 slots (1 to 32 splits a slot) and S not a whole
+    number of chunks; a page table rolled by one page must miss on the
+    partly masked rows."""
+    q, kp, vp, idx, valid = _paged_case(cuda, b, s, None, d, 16, mask)
+    scale = d ** -0.5
+    out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, scale, 1e30)
+    err, tol, ref = _paged_close(out, q, kp, vp, idx, valid, scale)
+    assert err <= tol
+    n_valid = valid.sum(1)
+    mixed = (n_valid > 0) & (n_valid < s)
+    if s > 16 and mask in ("ragged", "non-prefix") and bool(mixed.any()):
         twin = cuda_kernels.paged_attention(
             q, kp, vp, torch.roll(idx, 16, 1).contiguous(), valid, scale,
             1e30)
-        assert (twin - ref).abs().max().item() > 10 * tol
+        assert (twin - ref)[mixed].abs().max().item() > 10 * tol
+
+
+@pytest.mark.parametrize("b", (1, 5))
+@pytest.mark.parametrize("mask", ("full", "non-prefix"))
+def test_paged_attention_is_deterministic(cuda, b, mask):
+    """Two calls on the same inputs are ``torch.equal``: the partials of
+    the splits merge in a fixed order whichever CTA merges them."""
+    q, kp, vp, idx, valid = _paged_case(cuda, b, 512, None, 768, 16, mask,
+                                        seed=2)
+    outs = [cuda_kernels.paged_attention(q, kp, vp, idx, valid, 0.03, 1e30)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cuda_kernels.paged_splits(b, 512, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("d", (30, 768, 20000))
+def test_paged_attention_takes_views_at_odd_offsets(cuda, d):
+    """q and the pools as views one float into their buffers, so no row
+    is 16-byte aligned (d 768 and, past the ring's widths, 20,000) or
+    d % 4 != 0 (d 30): the kernel's 4-byte copies and scalar reads,
+    within 1e-5 of the largest |out|."""
+    q, kp, vp, idx, valid = _paged_case(cuda, 5, 300, None, d, 16,
+                                        "ragged", seed=3)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        return view
+
+    qo, kpo, vpo = odd(q), odd(kp), odd(vp)
+    out = cuda_kernels.paged_attention(qo, kpo, vpo, idx, valid, 0.1, 1e30)
+    err, tol, _ = _paged_close(out, q, kp, vp, idx, valid, 0.1)
+    assert err <= tol
+
+
+@pytest.mark.parametrize("mask", ("full", "ragged", "non-prefix"))
+def test_paged_attention_shares_past_one_window(cuda, mask):
+    """32 slots of 8,192 positions: each CTA's share of a row outruns the
+    kernel's 512-position window, so its list is built window by window
+    (and, where positions are masked, a ranked round straddles windows);
+    within 1e-5 of the largest |out|."""
+    q, kp, vp, idx, valid = _paged_case(cuda, 32, 8192, None, 64, 16, mask,
+                                        seed=5)
+    out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, 0.125, 1e30)
+    err, tol, _ = _paged_close(out, q, kp, vp, idx, valid, 0.125)
+    assert err <= tol
+
+
+@pytest.mark.parametrize("d", (16384, 16388, 20000, 20001, 30000))
+@pytest.mark.parametrize("s", (16, 64))
+def test_paged_attention_widest_head(cuda, d, s):
+    """d = 16,384, the widest that acc holds in registers (16 float4
+    columns a thread, one ring stage of one position), and wider heads,
+    which walk the columns in tiles of 16,384 with no ring (d % 4 != 0 on
+    the scalar path; 30,000 is past ~28,900, where a d-wide accumulator
+    and q would no longer fit in shared memory), with one split (S 16) and four (S 64): within 1e-5 of the
+    largest |out|."""
+    q, kp, vp, idx, valid = _paged_case(cuda, 2, s, None, d, 16,
+                                        "ragged", seed=6)
+    out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, 0.01, 1e30)
+    err, tol, _ = _paged_close(out, q, kp, vp, idx, valid, 0.01)
+    assert err <= tol
+
+
+def test_paged_attention_workspace_is_cached_across_batch_sizes(cuda):
+    """One workspace per device and stream serves calls of 32, 1, 5 and
+    32 slots (it grows, never shrinks), each call right, and every
+    slot's ticket back at 0 after each call."""
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for b in (32, 1, 5, 32):
+        q, kp, vp, idx, valid = _paged_case(cuda, b, 512, None, 768, 16,
+                                            "ragged", seed=b)
+        out = cuda_kernels.paged_attention(q, kp, vp, idx, valid, 0.05, 1e30)
+        err, tol, _ = _paged_close(out, q, kp, vp, idx, valid, 0.05)
+        assert err <= tol, b
+        tickets, part = cuda_kernels._paged_ws[(cuda, stream)]
+        assert tickets.numel() >= 32 and not bool(tickets.any()), b
+        assert part.numel() >= 32 * 8 * (768 + 2)
+    assert [k for k in cuda_kernels._paged_ws if k[0] == cuda] == \
+        [(cuda, stream)]
 
 
 def test_paged_attention_op_launches_the_kernel(cuda):
