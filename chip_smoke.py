@@ -30,7 +30,9 @@ over):
    training path's shapes, [4096, 5] ids into a [1e6, D] table for D = 16
    and 128, with uniform ids, Zipf(1.1) ids and a Length-masked AVERAGE
    weight with a padding id: the gather-pool forward within 1e-6 of its
-   plain version and bit-exact on dyadic values; the scatter-add gradient
+   plain version and bit-exact on dyadic values, timed cold and warm at
+   [4096, 5], the serve batch's [512, 5] and [1, 5] beside an empty
+   kernel's device ms (the floor of any launch); the scatter-add gradient
    bit-identical across two launches and to the host's ``index_add_``,
    its device ms split into zero-fill, sort and segments.
    Fused Momentum: ``torch.equal`` to the per-param ``momentum`` lowering
@@ -52,7 +54,9 @@ over):
    and 24 ALU-pipe operations at 64 lanes a pipe and 128 issued per
    clock per SM, at the SM clock nvidia-smi reports), the plain version's,
    ``torch.nn.functional.dropout``'s and, for the mask, a uint8
-   ``bernoulli_``'s (other bits).
+   ``bernoulli_``'s (other bits); the log line also gives each as a
+   share of its recorded time (DROPOUT_RECORDED_MS); the mask also cold
+   and beside a uint8 ``fill_`` of its size.
 3f. paged attention -- the paged decode-attention kernel against its
    plain version at 1, 8 and 32 slots of 512 positions over a
    16,400-row pool of width 768, five masks (all valid, ragged,
@@ -722,6 +726,34 @@ def _emb_bounds(ids, wgt, d, vocab):
     return out
 
 
+# the gather-pool forward's batches: the training step's, the serve
+# batch's and one row
+EMB_FWD_ROWS = (CTR_TRAIN_ROWS, CTR_MAX_BATCH, 1)
+
+
+def _emb_fwd_by_rows(w, ids, flush):
+    """Device ms per call of the gather-pool forward over the first b rows
+    of ``ids`` (no weight, as the path's unmasked SUM slots) for b in
+    EMB_FWD_ROWS: its profiler class cold (``flush`` before each call)
+    and warm, beside its bound."""
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    label = "embedding_pool_fwd (csrc)"
+    v, d = w.shape
+    out = {}
+    for b in EMB_FWD_ROWS:
+        sub = ids[:b].contiguous()
+
+        def call(sub=sub):
+            return cuda_kernels.embedding_pool_fwd(w, sub, None)
+
+        bound, by = _emb_bounds(sub, None, d, v)[0]
+        out[b] = {"cold_ms": _cold_ms(call, flush, 0.0, 50, label),
+                  "warm_ms": _profile(call, 50)[4].get(label, 0.0),
+                  "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def phase_kernels_ctr():
     """The embedding gather-pool and scatter-add gradient kernels at the
     training path's shapes, [4096, 5] ids into a [1e6, D] table, D = 16
@@ -735,8 +767,10 @@ def phase_kernels_ctr():
     per_sample_weights=wgt)`` and the weight gradient of it.  Wall ms
     per back-to-back call by CUDA events for every case; for the Zipf
     cases, the path's, also the device ms per call from the profiler
-    (the forward's call is host-bound).  Returns the rows by (D,
-    case)."""
+    (the forward's call is host-bound); for the forward there also cold
+    (the L2 flushed before each call) and warm at [4096, 5], the serve
+    batch's [512, 5] and [1, 5], beside an empty kernel's device ms, the
+    floor of any launch.  Returns the rows by (D, case)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels
@@ -746,6 +780,11 @@ def phase_kernels_ctr():
     fwd, grad = cuda_kernels.embedding_pool_fwd, \
         cuda_kernels.embedding_pool_grad
     v = CTR["vocab"]
+    flush = _l2_flush()
+    # torch.cuda._sleep(0) launches a kernel that returns at once
+    floor_ms = _profile(lambda: torch.cuda._sleep(0), 50)[1]
+    _p(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) takes "
+       f"{floor_ms:.4f} device ms")
     rows = {}
     for d in (CTR["dim"], 128):
         for case in ("uniform", "zipf", "length_avg"):
@@ -839,6 +878,16 @@ def phase_kernels_ctr():
                 if "split_ms" in r:
                     _p("  gradient device ms by kernel: " + " | ".join(
                         f"{c} {t:.4f}" for c, t in r["split_ms"].items()))
+            if case == "zipf":
+                by_rows = _emb_fwd_by_rows(w, ids, flush)
+                timed["forward"].update(by_rows=by_rows,
+                                        launch_floor_ms=floor_ms)
+                for b, r in by_rows.items():
+                    _p(f"  forward D={d} [{b},{CTR['seq']}] Zipf: device "
+                       f"cold {r['cold_ms']:.4f} ms, warm "
+                       f"{r['warm_ms']:.4f} ms | bound "
+                       f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) | "
+                       f"launch floor {floor_ms:.4f} ms")
             rows[(d, case)] = (
                 dict(timed["forward"], max_abs_err=err, bound_ms=f_bound,
                      bound_by=f_by),
@@ -1139,6 +1188,16 @@ def _act_dropout_checks(label, dtype, act, rate, shape, seed):
     return err
 
 
+# the five kernels' recorded device ms at these shapes (PERF.md's kernel
+# table, before the mask's redesign; float32, bfloat16 or None): the log
+# line prints this run's time as a share of it, the kernels line never
+DROPOUT_RECORDED_MS = {"fused_dropout": (0.0162, 0.0096),
+                       "dropout_mask": (0.0078, None),
+                       "fused_dropout_add": (0.0250, 0.0112),
+                       "fused_act_dropout": (0.0755, 0.0589),
+                       "fused_act_dropout_bwd": (0.1031, 0.0671)}
+
+
 def phase_kernels_dropout():
     """The five dropout kernels against their plain Philox versions at
     the dygraph step's shapes, [8192, 768] (dropout, mask, dropout-add)
@@ -1147,7 +1206,9 @@ def phase_kernels_dropout():
     from the profiler (these kernels take tens of microseconds, less
     than their wrappers' host time), beside the bound, the plain
     version's and, for dropout, ``torch.nn.functional.dropout``'s (timed
-    here only).  Returns the rows by kernel name, float32, with the
+    here only), and in the log each as a share of its recorded time
+    (DROPOUT_RECORDED_MS); the mask also cold (the L2 flushed before
+    each call).  Returns the rows by kernel name, float32, with the
     bfloat16 row beside."""
     import torch
     import torch.nn.functional as F
@@ -1169,6 +1230,7 @@ def phase_kernels_dropout():
 
     dev = torch.device(DEVICE)
     rows = {}
+    flush = _l2_flush()
     clock_hz = _sm_clock_hz()
     _p(f"  Philox's integer work per group of four: "
        f"{PHILOX_FMA_PIPE_OPS} FMA-pipe and {PHILOX_ALU_PIPE_OPS} ALU-pipe "
@@ -1218,10 +1280,22 @@ def phase_kernels_dropout():
             bound_ms, bound_by, binds = _dropout_bound(
                 name, t.numel(), t.element_size(), clock_hz)
             err = errs["act " + label] if "act" in name else errs[label]
+            then = DROPOUT_RECORDED_MS[name][label == "bf16"]
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "binds": binds,
                    "library_ms": library_ms, "shape": list(t.shape)}
+            cold = ""
+            if name == "dropout_mask":
+                row["cold_ms"] = _cold_ms(kernel, flush, 0.0, 20,
+                                          "dropout mask (csrc)")
+                # what one launch takes to write the mask's bytes with no
+                # generator: PyTorch's fill_ of a uint8 tensor of its size
+                ones = torch.empty(x.shape, dtype=torch.uint8, device=dev)
+                row["write_floor_ms"] = _profile(lambda: ones.fill_(1),
+                                                 20)[1]
+                cold = (f" (cold {row['cold_ms']:.4f} ms; a uint8 fill_ "
+                        f"of its size {row['write_floor_ms']:.4f} ms)")
             if label == "fp32":
                 rows[name] = dict(row, dtype="float32")
             else:
@@ -1230,9 +1304,11 @@ def phase_kernels_dropout():
                         "uint8 bernoulli_, other bits")
             lib = (f" | library ({lib_name}) {library_ms:.4f} ms"
                    if library else "")
-            _p(f"  {name} {label} {list(t.shape)}: kernel {ms:.4f} ms | "
-               f"plain {plain_ms:.4f} ms{lib} | bound "
-               f"{bound_ms * 1e3:.2f} us ({binds})")
+            was = (f" | recorded {then:.4f} ms, now {ms / then:.3f} of it"
+                   if then else "")
+            _p(f"  {name} {label} {list(t.shape)}: kernel {ms:.4f} ms"
+               f"{cold} | plain {plain_ms:.4f} ms{lib} | bound "
+               f"{bound_ms * 1e3:.2f} us ({binds}){was}")
         del x, r, xa, ga
     torch.cuda.empty_cache()
     return rows
@@ -3123,6 +3199,8 @@ def main():
                     also_replaces="paddle_tpu/ops/pallas_kernels.py:506",
                     dtype="float32", shape=emb_shape, ids="zipf",
                     library="embedding_bag",
+                    by_rows=fwd16["by_rows"],
+                    launch_floor_ms=fwd16["launch_floor_ms"],
                     d128=ctr_rows[(128, "zipf")][0]),
         _kernel_row("embedding_pool_grad",
                     "paddle_tpu_torch/csrc/embedding_pool_grad.cu",
@@ -3158,6 +3236,8 @@ def main():
         elif name == "dropout_mask":
             extra["library"] = ("torch.empty(uint8).bernoulli_(1 - rate), "
                                 "which draws other bits")
+            extra["cold_ms"] = dropout_rows[name]["cold_ms"]
+            extra["write_floor_ms"] = dropout_rows[name]["write_floor_ms"]
         row = dropout_rows[name]
         kernels.append(_kernel_row(
             name, "paddle_tpu_torch/csrc/fused_dropout.cu", src + site,

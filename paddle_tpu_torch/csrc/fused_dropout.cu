@@ -49,14 +49,18 @@
 // SMs at 1980 MHz, that is 2.3 us: under the float32 dropout's 50.3 MB of
 // bytes (15.0 us at 3.35 TB/s) and act-dropout's [8192, 3072] backward's
 // 302 MB (90.1 us), but above the mask's 6.3 MB (1.9 us), which the
-// integer work binds (chip_smoke.py _dropout_bound).  The design: one
-// thread per group of four elements, grid-stride, 16-byte (float32) or
-// 8-byte (bfloat16) vector loads and stores where the pointers allow, no
-// shared memory.
+// integer work binds (chip_smoke.py _dropout_bound).  The design: every
+// thread computes the ten round keys once.  The value kernels: one thread
+// per group of four elements, grid-stride, 16-byte (float32) or 8-byte
+// (bfloat16) vector loads and stores where the pointers allow, no shared
+// memory.  The mask, whose only work is the generator's: eight groups a
+// thread as eight independent chains interleaved round by round, their
+// 32 bytes packed into two 16-byte stores, the group counter in 32 bits.
 //
 // Layout: contiguous buffers of n elements, any n (a tail group shorter
-// than four takes the scalar path).  The kernels allocate nothing and
-// launch on the caller's stream.
+// than four, or a mask tail shorter than a thread's 32 bytes, takes the
+// scalar path).  The kernels allocate nothing and launch on the caller's
+// stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +72,10 @@ namespace {
 
 constexpr int NUM_THREADS = 256;
 constexpr int MAX_BLOCKS = 132 * 16;   // several waves over 132 SMs
+constexpr int MASK_GROUPS = 8;         // Philox groups a mask thread draws
+static_assert(MASK_GROUPS % 4 == 0 && (MASK_GROUPS & (MASK_GROUPS - 1)) == 0,
+              "the mask kernel stores four groups a uint4 and keeps a "
+              "chunk's groups under one high counter word");
 
 // Random123's philox4x32 constants
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
@@ -79,35 +87,54 @@ struct Key {
   uint32_t k0, k1;
 };
 
-// Philox4x32-10 of counter (c0, c1, 0, 0) under key: ten rounds, the key
-// bumped by the Weyl constants before every round but the first.
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               Key key) {
-  uint32_t x0 = c0, x1 = c1, x2 = 0u, x3 = 0u;
-  uint32_t k0 = key.k0, k1 = key.k1;
+// the ten round keys of a key, the Weyl constants added before every
+// round but the first: the same for every group of a call, so a thread
+// computes them once
+struct RoundKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ RoundKeys round_keys(Key key) {
+  RoundKeys rk;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += PHILOX_W0;
-      k1 += PHILOX_W1;
-    }
-    const uint32_t hi0 = __umulhi(PHILOX_M0, x0), lo0 = PHILOX_M0 * x0;
-    const uint32_t hi1 = __umulhi(PHILOX_M1, x2), lo1 = PHILOX_M1 * x2;
-    const uint32_t y0 = hi1 ^ x1 ^ k0;
-    const uint32_t y2 = hi0 ^ x3 ^ k1;
-    x0 = y0;
-    x1 = lo1;
-    x2 = y2;
-    x3 = lo0;
+    rk.k0[r] = key.k0 + static_cast<uint32_t>(r) * PHILOX_W0;
+    rk.k1[r] = key.k1 + static_cast<uint32_t>(r) * PHILOX_W1;
   }
-  return make_uint4(x0, x1, x2, x3);
+  return rk;
+}
+
+// One Philox round on x under round key (k0, k1).  Each 32x32->64 product
+// is written as __umulhi and the low product, and nvcc chooses: one
+// IMAD.WIDE.U32 for the pair in the mask kernel, IMAD.HI and IMAD in the
+// value kernels (spelled as one 64-bit product, it slowed the bfloat16
+// act-dropout backward on the card; PERF.md section 6).
+__device__ __forceinline__ void philox_round(uint32_t x[4], uint32_t k0,
+                                             uint32_t k1) {
+  const uint32_t hi0 = __umulhi(PHILOX_M0, x[0]), lo0 = PHILOX_M0 * x[0];
+  const uint32_t hi1 = __umulhi(PHILOX_M1, x[2]), lo1 = PHILOX_M1 * x[2];
+  const uint32_t y0 = hi1 ^ x[1] ^ k0;
+  const uint32_t y2 = hi0 ^ x[3] ^ k1;
+  x[0] = y0;
+  x[1] = lo1;
+  x[2] = y2;
+  x[3] = lo0;
+}
+
+// Philox4x32-10 of counter (c0, c1, 0, 0)
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                               const RoundKeys& rk) {
+  uint32_t x[4] = {c0, c1, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 10; ++r) philox_round(x, rk.k0[r], rk.k1[r]);
+  return make_uint4(x[0], x[1], x[2], x[3]);
 }
 
 // the keep bits of group j's four elements
-__device__ __forceinline__ void keep4(int64_t j, Key key, uint32_t threshold,
-                                      bool keep[4]) {
+__device__ __forceinline__ void keep4(int64_t j, const RoundKeys& rk,
+                                      uint32_t threshold, bool keep[4]) {
   const uint4 b = philox4x32_10(static_cast<uint32_t>(j),
-                                static_cast<uint32_t>(j >> 32), key);
+                                static_cast<uint32_t>(j >> 32), rk);
   keep[0] = b.x >= threshold;
   keep[1] = b.y >= threshold;
   keep[2] = b.z >= threshold;
@@ -207,13 +234,14 @@ __global__ void __launch_bounds__(NUM_THREADS)
 dropout_kernel(const T* __restrict__ x, const T* __restrict__ y,
                T* __restrict__ out, int64_t n, Key key, uint32_t threshold,
                float scale, int act) {
+  const RoundKeys rk = round_keys(key);
   const int64_t groups = (n + 3) / 4;
   const int64_t stride = (int64_t)gridDim.x * NUM_THREADS;
   for (int64_t j = (int64_t)blockIdx.x * NUM_THREADS + threadIdx.x;
        j < groups; j += stride) {
     const int64_t base = 4 * j;
     bool keep[4];
-    keep4(j, key, threshold, keep);
+    keep4(j, rk, threshold, keep);
     float xv[4], yv[4], o[4];
     load4<T, VEC>(x, base, n, xv);
     if (KIND != 0 && KIND != 2) load4<T, VEC>(y, base, n, yv);
@@ -233,26 +261,59 @@ dropout_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
-template <bool VEC>
+// the mask bytes (0 or 1) of one group's four words, element 0 in the
+// lowest byte
+__device__ __forceinline__ uint32_t keep_bytes(const uint32_t x[4],
+                                               uint32_t threshold) {
+  return (x[0] >= threshold ? 0x1u : 0u) | (x[1] >= threshold ? 0x100u : 0u) |
+         (x[2] >= threshold ? 0x10000u : 0u) |
+         (x[3] >= threshold ? 0x1000000u : 0u);
+}
+
+// MASK_GROUPS groups of four a thread, 4 * MASK_GROUPS mask bytes in
+// 16-byte stores.  The thread's chunk t holds groups G·t .. G·t + G - 1
+// (G = MASK_GROUPS, a power of two); G·t is a multiple of G, so their
+// counters share the high word (G·t) >> 32 and their low words G·t + g
+// (mod 2^32) never carry into it: the counting stays in 32 bits for any
+// n.  The G Philox chains are independent and interleave round by round.
 __global__ void __launch_bounds__(NUM_THREADS)
 dropout_mask_kernel(uint8_t* __restrict__ mask, int64_t n, Key key,
                     uint32_t threshold) {
-  const int64_t groups = (n + 3) / 4;
+  constexpr int G = MASK_GROUPS;
+  constexpr int BYTES = 4 * G;
+  const RoundKeys rk = round_keys(key);
+  const int64_t chunks = (n + BYTES - 1) / BYTES;
   const int64_t stride = (int64_t)gridDim.x * NUM_THREADS;
-  for (int64_t j = (int64_t)blockIdx.x * NUM_THREADS + threadIdx.x;
-       j < groups; j += stride) {
-    const int64_t base = 4 * j;
-    bool keep[4];
-    keep4(j, key, threshold, keep);
-    if (VEC && base + 4 <= n) {
-      uchar4 m;
-      m.x = keep[0];
-      m.y = keep[1];
-      m.z = keep[2];
-      m.w = keep[3];
-      *reinterpret_cast<uchar4*>(mask + base) = m;
-    } else {
-      for (int e = 0; e < 4 && base + e < n; ++e) mask[base + e] = keep[e];
+  for (int64_t t = (int64_t)blockIdx.x * NUM_THREADS + threadIdx.x;
+       t < chunks; t += stride) {
+    const uint32_t lo = static_cast<uint32_t>(t) * G;
+    const uint32_t hi = static_cast<uint32_t>((t * G) >> 32);
+    uint32_t x[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      x[g][0] = lo + g;
+      x[g][1] = hi;
+      x[g][2] = 0u;
+      x[g][3] = 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < 10; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) philox_round(x[g], rk.k0[r], rk.k1[r]);
+    uint32_t m[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) m[g] = keep_bytes(x[g], threshold);
+    const int64_t base = t * BYTES;
+    if (base + BYTES <= n) {
+#pragma unroll
+      for (int q = 0; q < G / 4; ++q)
+        *reinterpret_cast<uint4*>(mask + base + 16 * q) =
+            make_uint4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    } else {   // the tail, shorter than a chunk
+#pragma unroll
+      for (int e = 0; e < BYTES; ++e)
+        if (base + e < n)
+          mask[base + e] = static_cast<uint8_t>(m[e / 4] >> (8 * (e % 4)));
     }
   }
 }
@@ -317,18 +378,18 @@ int pt_dropout(const void* x, void* out, int64_t n, uint32_t k0, uint32_t k1,
                    dtype, stream);
 }
 
-// mask = keep (uint8 0/1)
+// mask = keep (uint8 0/1); mask 16-byte aligned (torch.empty's are)
 int pt_dropout_mask(uint8_t* mask, int64_t n, uint32_t k0, uint32_t k1,
                     uint32_t threshold, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Key key{k0, k1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (aligned(mask, 4))
-    dropout_mask_kernel<true><<<blocks_for(n), NUM_THREADS, 0, s>>>(
-        mask, n, key, threshold);
-  else
-    dropout_mask_kernel<false><<<blocks_for(n), NUM_THREADS, 0, s>>>(
-        mask, n, key, threshold);
+  if (n <= 0 || mask == nullptr || !aligned(mask, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t want =
+      ((n + 4 * MASK_GROUPS - 1) / (4 * MASK_GROUPS) + NUM_THREADS - 1) /
+      NUM_THREADS;   // a thread a chunk, up to MAX_BLOCKS
+  const int blocks = static_cast<int>(want < MAX_BLOCKS ? want : MAX_BLOCKS);
+  dropout_mask_kernel<<<blocks, NUM_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      mask, n, Key{k0, k1}, threshold);
   return static_cast<int>(cudaGetLastError());
 }
 

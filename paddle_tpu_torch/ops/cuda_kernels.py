@@ -58,7 +58,7 @@ _SIGNATURES = {
     },
     "embedding_pool": {
         "pt_embedding_pool_fwd": ([_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                   _P], _I),
+                                   _I, _P], _I),
         **_ERR,
     },
     "embedding_pool_grad": {
@@ -523,7 +523,7 @@ def embedding_pool_fwd(w, ids, wgt):
     with torch.cuda.device(w.device):
         err = lib.pt_embedding_pool_fwd(
             w.data_ptr(), ids.data_ptr(), _ptr(wgt), out.data_ptr(),
-            b, s, v, d, _stream(w.device))
+            b, s, v, d, _sm_count(w.device), _stream(w.device))
     _check_launch(lib, err, what)
     embedding_pool_fwd.launches += 1
     return out
@@ -700,7 +700,9 @@ fused_dropout.launches = 0
 def dropout_mask(x, seed: int, threshold: int):
     """The uint8 keep mask (``bits >= threshold``) of x's shape from the
     same bits as ``fused_dropout``; x (CUDA) gives the shape and device
-    and is not read."""
+    and is not read.  The kernel stores 16 bytes at a time into the mask
+    this allocates (``torch.empty`` is 16-byte aligned; the C entry
+    refuses another)."""
     what = "dropout_mask"
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x must be a CUDA tensor, got {x.device}")

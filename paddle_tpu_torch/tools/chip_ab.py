@@ -1,19 +1,29 @@
-"""The paged decode step's host cost, one checkout against another, on
-the card.
+"""Phases of ``chip_smoke.py``, one checkout against another, on the
+card.
 
-    python3 paddle_tpu_torch/tools/decode_host_ab.py ROOT [ROOT ...]
+    python3 paddle_tpu_torch/tools/chip_ab.py [--phases P,...] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repo (for an A/B on one card: parent,
 change, change, parent).  For each, in the order given and in a process
-of its own, it times the ``paged_attention`` wrapper's host cost per
-call at the decode step's shapes (pools of 16,400 rows of 768, 512
-positions a slot, 300 valid; 1, 8 and 32 slots): the seconds to enqueue
-200 calls with no sync among them, over 200, beside the wall seconds
-per call once the card has finished.  Then it runs that ROOT's
-``chip_smoke.py`` phase 4f (the decode path served, with its checks)
-and phase 5's decode profile (host and device ms of one paged step at
-1, 8 and 32 slots).  Prints the card's name and power limit; exits
-non-zero if a ROOT's run fails.
+of its own that imports that ROOT's ``chip_smoke`` and
+``paddle_tpu_torch`` (and fails if it imported another's), it runs the
+phases named in ``--phases`` (default ``decode``), in this order:
+
+- ``ctr``: phase 3's embedding kernels (``phase_kernels_ctr``: the
+  gather-pool forward and the scatter-add gradient, checked and timed);
+- ``dropout``: phase 3e (``phase_kernels_dropout``: the five dropout
+  kernels, checked and timed);
+- ``decode``: the ``paged_attention`` wrapper's host cost per call at
+  the decode step's shapes (pools of 16,400 rows of 768, 512 positions a
+  slot, 300 valid; 1, 8 and 32 slots): the seconds to enqueue 200 calls
+  with no sync among them, over 200, beside the wall seconds per call
+  once the card has finished; then phase 4f (the decode path served,
+  with its checks) and phase 5's decode profile (host and device ms of
+  one paged step at 1, 8 and 32 slots).
+
+Each tree builds the kernels its phases launch from its own sources.
+Prints the card's name and power limit; exits non-zero if a ROOT's run
+fails.
 """
 
 import os
@@ -59,7 +69,10 @@ def _wrapper_host_us(card):
               flush=True)
 
 
-def _child(root):
+PHASES = ("ctr", "dropout", "decode")
+
+
+def _child(root, phases):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import chip_smoke
@@ -67,27 +80,37 @@ def _child(root):
 
     for mod in (chip_smoke, paddle_tpu_torch):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
-            raise SystemExit(f"decode_host_ab: imported {mod.__file__}, "
+            raise SystemExit(f"chip_ab: imported {mod.__file__}, "
                              f"not {root}'s")
     print(f"== {root}", flush=True)
     _, _, card = chip_smoke.phase_device()
-    _wrapper_host_us(card)
-    _, served = chip_smoke.phase_serve_decode(card)
-    chip_smoke.phase_profile_decode(served, card)
+    if "ctr" in phases:
+        chip_smoke.phase_kernels_ctr()
+    if "dropout" in phases:
+        chip_smoke.phase_kernels_dropout()
+    if "decode" in phases:
+        _wrapper_host_us(card)
+        _, served = chip_smoke.phase_serve_decode(card)
+        chip_smoke.phase_profile_decode(served, card)
 
 
 def main(argv):
-    if len(argv) >= 2 and argv[0] == "--child":
-        _child(argv[1])
+    if len(argv) >= 3 and argv[0] == "--child":
+        _child(argv[1], argv[2].split(","))
         return 0
-    if not argv:
-        raise SystemExit(__doc__)
+    phases = "decode"
+    if argv[:1] == ["--phases"] and len(argv) >= 2:
+        phases, argv = argv[1], argv[2:]
+    unknown = set(phases.split(",")) - set(PHASES)
+    if not argv or unknown:
+        raise SystemExit(__doc__ + (f"\nunknown phases: {sorted(unknown)}"
+                                    if unknown else ""))
     for root in map(os.path.abspath, argv):
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--child", root], cwd=root, timeout=900
+                             "--child", root, phases], cwd=root, timeout=900
                             ).returncode
         if rc:
-            print(f"decode_host_ab: {root} exited {rc}", flush=True)
+            print(f"chip_ab: {root} exited {rc}", flush=True)
             return rc
     return 0
 

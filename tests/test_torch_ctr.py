@@ -298,28 +298,33 @@ def pallas_interpret(monkeypatch):
     return pl, pltpu
 
 
-def _emb_kernel_inputs():
+def _emb_kernel_inputs(s=5, d=128):
     rng = np.random.RandomState(0)
-    w = rng.randn(64, 128).astype("float32")
-    ids = rng.randint(0, 16, (4, 5)).astype("int32")   # ids repeat
-    wgt = rng.rand(4, 5).astype("float32")
-    g = rng.randn(4, 128).astype("float32")
+    w = rng.randn(64, d).astype("float32")
+    ids = rng.randint(0, 16, (4, s)).astype("int32")   # ids repeat
+    wgt = rng.rand(4, s).astype("float32")
+    g = rng.randn(4, d).astype("float32")
     return w, ids, wgt, g
 
 
-def test_plain_gather_pool_matches_pallas_body(pallas_interpret):
+# S and D around the Hopper kernel's splits: S = 1, the CTR program's 5,
+# and 9 (past the 8 ids a thread holds at once, so a second chunk); D = 3
+# (no 16-byte loads), 16 (the program's) and 128
+@pytest.mark.parametrize("s", (1, 5, 9))
+@pytest.mark.parametrize("d", (3, 16, 128))
+def test_plain_gather_pool_matches_pallas_body(pallas_interpret, s, d):
     from paddle_tpu.ops import pallas_kernels as pk
     pl, pltpu = pallas_interpret
-    w, ids, wgt, _ = _emb_kernel_inputs()
+    w, ids, wgt, _ = _emb_kernel_inputs(s, d)
     smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
     want = pl.pallas_call(
-        functools.partial(pk._gather_pool_kernel, n_ids=5),
+        functools.partial(pk._gather_pool_kernel, n_ids=s),
         grid=(4,),
-        in_specs=[smem((1, 5), lambda i: (i, 0)),
-                  smem((1, 5), lambda i: (i, 0)),
-                  pl.BlockSpec((64, 128), lambda i: (0, 0))],
-        out_specs=pl.BlockSpec((1, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((4, 128), jnp.float32),
+        in_specs=[smem((1, s), lambda i: (i, 0)),
+                  smem((1, s), lambda i: (i, 0)),
+                  pl.BlockSpec((64, d), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((1, d), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((4, d), jnp.float32),
         interpret=True)(jnp.asarray(ids), jnp.asarray(wgt), jnp.asarray(w))
     got = _reference_embedding_pool(torch.from_numpy(w),
                                     torch.from_numpy(ids.astype("int64")),

@@ -92,6 +92,45 @@ def test_mask_depends_on_seed_and_flat_index_only():
     assert int(b.min()) >= 0 and int(b.max()) < 2 ** 32
 
 
+def _numpy_philox4x32_10(j, k0, k1):
+    """Philox4x32-10 of counters (j mod 2^32, j >> 32, 0, 0) in numpy
+    uint64 arithmetic, written from Random123's definition apart from
+    ``nn_ops``; returns the four words, each of j's shape."""
+    m = 0xFFFFFFFF
+    x = [j & m, j >> 32, np.zeros_like(j), np.zeros_like(j)]
+    k = [np.uint64(k0), np.uint64(k1)]
+    for r in range(10):
+        if r:
+            k = [(k[0] + np.uint64(0x9E3779B9)) & np.uint64(m),
+                 (k[1] + np.uint64(0xBB67AE85)) & np.uint64(m)]
+        p0 = np.uint64(0xD2511F53) * x[0]
+        p1 = np.uint64(0xCD9E8D57) * x[2]
+        x = [(p1 >> np.uint64(32)) ^ x[1] ^ k[0], p1 & np.uint64(m),
+             (p0 >> np.uint64(32)) ^ x[3] ^ k[1], p0 & np.uint64(m)]
+    return x
+
+
+# the mask kernel draws eight groups a thread into two 16-byte stores and
+# writes a shorter tail byte by byte: n off a multiple of 32 takes that
+# tail, after whole chunks from n = 33 on
+@pytest.mark.parametrize("n", [1, 3, 15, 17, 31, 33, 4097])
+@pytest.mark.parametrize("seed,rate", [(0x1234_5678_9ABC_DEF0, 0.5),
+                                       (987654321, 0.1)],
+                         ids=["two-word-key", "one-word-key"])
+def test_plain_mask_matches_numpy_philox(n, seed, rate):
+    # the numpy generator gives Random123's known answer at counter 0
+    assert tuple(int(w[0]) for w in _numpy_philox4x32_10(
+        np.zeros(1, np.uint64), 0, 0)) == KAT[0][2]
+    k0, k1 = nn_ops._key_words(seed)
+    thr = nn_ops._threshold_for(rate)
+    j = np.arange((n + 3) // 4, dtype=np.uint64)
+    words = np.stack(_numpy_philox4x32_10(j, k0, k1), axis=-1).reshape(-1)
+    want = (words[:n] >= thr).astype(np.uint8)
+    got = nn_ops._mask_launch(torch.zeros(n), k0, k1, thr)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # rate 0 and is_test: exactly the reference
 # ---------------------------------------------------------------------------

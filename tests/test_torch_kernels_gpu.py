@@ -17,8 +17,10 @@ launches on the same inputs ``torch.equal`` (no atomics).  ``fused_adam``
 against the per-param ``adam`` lowering: ``torch.equal``, over two steps
 (the second reads views of the first's outputs).  The embedding
 gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
-(the kernel sums in j order, torch's reduction in its own), and
-``torch.equal`` on dyadic values, whose sums are exact.  The scatter-add
+(the kernel sums in j order, torch's reduction in its own; past 8 ids a
+row the atol is in units of the row's sum of |term|), ``torch.equal`` to
+the j-order sum written in torch ops, and ``torch.equal`` on dyadic
+values, whose sums are exact.  The scatter-add
 gradient kernel: two launches ``torch.equal``, and ``torch.equal`` to the
 plain version computed on the host, whose ``index_add_`` adds in index
 order.  ``fused_momentum`` against the per-param ``momentum`` lowering:
@@ -403,19 +405,105 @@ CTR_CASES = [(d, dist, wts) for d in (16, 128) for dist in ("uniform", "zipf")
              for wts in ("ones", "length_avg")]
 
 
-@pytest.mark.parametrize("d,dist,weights", CTR_CASES,
-                         ids=[f"D{d}-{a}-{b}" for d, a, b in CTR_CASES])
-def test_embedding_pool_fwd_matches_plain(cuda, d, dist, weights):
-    w, ids, wgt, _ = _ctr_inputs(cuda, d, dist, weights)
-    before = cuda_kernels.embedding_pool_fwd.launches
-    out = cuda_kernels.embedding_pool_fwd(w, ids, wgt)
-    torch.cuda.synchronize()
-    assert cuda_kernels.embedding_pool_fwd.launches == before + 1
-    torch.testing.assert_close(out, _reference_embedding_pool(w, ids, wgt),
-                               rtol=1e-6, atol=1e-6)
-    w, ids, wgt, _ = _ctr_inputs(cuda, d, dist, weights, dyadic=True)
-    assert torch.equal(cuda_kernels.embedding_pool_fwd(w, ids, wgt),
-                       _reference_embedding_pool(w, ids, wgt))
+def _pool_case(device, b, s, d, dist, weights, dyadic=False, seed=0,
+               v=100_003):
+    """w [v, d], ids [b, s] (``uniform``, or ``zipf``: Zipf(1.1) through a
+    seeded permutation, so many ids repeat), a fifth of them the padding
+    id 7, and wgt: None (every weight 1), ``ones``, ``length_avg`` (a
+    Length mask with AVERAGE's divisor, padding zeroed) or ``padding``
+    (SUM with padding zeroed, the rest 1)."""
+    rng = np.random.default_rng(seed + 131 * s + d)
+    if dyadic:      # small multiples of 1/8, weights 0, 1/4 or 1: exact
+        w = rng.integers(-64, 64, (v, d)).astype(np.float32) / 8
+    else:
+        w = rng.standard_normal((v, d), dtype=np.float32)
+    if dist == "zipf":
+        ids = rng.permutation(v)[(rng.zipf(1.1, (b, s)) - 1) % v]
+    else:
+        ids = rng.integers(0, v, (b, s))
+    ids[rng.random((b, s)) < 0.2] = 7
+    keep = ids != 7
+    if weights == "none":
+        wgt = None
+    elif weights == "ones":
+        wgt = np.ones((b, s), np.float32)
+    elif weights == "padding":
+        wgt = keep.astype(np.float32)
+    else:
+        length = rng.integers(0, s + 1, b)
+        keep &= np.arange(s)[None, :] < length[:, None]
+        denom = 4.0 if dyadic else np.maximum(length, 1)[:, None]
+        wgt = (keep / denom).astype(np.float32)
+    t = [torch.from_numpy(x).to(device) for x in (w, ids.astype(np.int64))]
+    return t + [None if wgt is None else torch.from_numpy(wgt).to(device)]
+
+
+def _at_offset_one(w):
+    """w's values in a contiguous view at storage offset 1: 4 bytes off
+    16-byte alignment, so the kernel takes its 4-byte loads."""
+    buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=w.device)
+    view = buf[1:].view(w.shape)
+    view.copy_(w)
+    return view
+
+
+def _pool_in_j_order(w, ids, wgt):
+    """The kernel's contract written in torch ops: the products, then the
+    sum from 0 in j order, each rounded on its own, and the sum of |term|
+    (the scale of any other order's rounding)."""
+    acc = torch.zeros((ids.shape[0], w.shape[1]), device=w.device)
+    mag = torch.zeros_like(acc)
+    for j in range(ids.shape[1]):
+        t = w[ids[:, j]]
+        if wgt is not None:
+            t = t * wgt[:, j, None]
+        acc, mag = acc + t, mag + t.abs()
+    return acc, mag
+
+
+# Zipf ids: S around the kernel's one-pass rows (1, 5, 8) and chunks of 8
+# (9, 17); D off the 16-byte loads (1, 3, 17) and on them (16, 128); B = 1,
+# the serve batch of 512 and the training batch of 4096.  Then the
+# training shape's other inputs: uniform ids, and explicit weights of 1.
+POOL_CASES = [(s, d, b, "zipf", wts) for s in (1, 5, 8, 9, 17)
+              for d in (1, 3, 16, 17, 128) for b in (1, 512, 4096)
+              for wts in ("none", "length_avg", "padding")] + [
+    (5, d, 4096, dist, wts) for d in (16, 128)
+    for dist, wts in (("uniform", "ones"), ("uniform", "length_avg"),
+                      ("zipf", "ones"))]
+
+
+@pytest.mark.parametrize(
+    "s,d,b,dist,weights", POOL_CASES,
+    ids=[f"S{s}-D{d}-B{b}-{a}-{w}" for s, d, b, a, w in POOL_CASES])
+def test_embedding_pool_fwd_matches_plain(cuda, s, d, b, dist, weights):
+    """From an aligned table and from a view at storage offset 1:
+    ``torch.equal`` to the j-order sum, within rtol = atol = 1e-6 of the
+    plain version, and ``torch.equal`` to it on dyadic values.  Past the
+    kernel's one-pass rows (S > 8) atol is in units of the row's sum of
+    |term|: the plain version's ``torch.sum`` adds the S terms in its own
+    order, which missed a bare 1e-6 by 1.25e-6 at S = 17."""
+    fwd = cuda_kernels.embedding_pool_fwd
+    w, ids, wgt = _pool_case(cuda, b, s, d, dist, weights)
+    want = _reference_embedding_pool(w, ids, wgt)
+    in_order, mag = _pool_in_j_order(w, ids, wgt)
+    before = fwd.launches
+    for table in (w, _at_offset_one(w)):
+        out = fwd(table, ids, wgt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, in_order)
+        if s <= 8:
+            torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+        else:
+            err = (out - want).abs()
+            assert torch.all(
+                err <= 1e-6 * (want.abs() + mag.clamp(min=1.0))), \
+                err.max().item()
+    assert fwd.launches == before + 2
+    w, ids, wgt = _pool_case(cuda, b, s, d, dist, weights, dyadic=True)
+    want = _reference_embedding_pool(w, ids, wgt)
+    assert torch.equal(fwd(w, ids, wgt), want)
+    assert torch.equal(fwd(_at_offset_one(w), ids, wgt), want)
 
 
 @pytest.mark.parametrize("d,dist,weights", CTR_CASES,
@@ -618,6 +706,55 @@ def test_dropout_and_dropout_add_equal_plain(cuda, dtype, rate, upscale,
                                                           scale))
     twin = cuda_kernels.dropout_mask(x, seed + 1, thr)
     assert not torch.equal(twin, mask)
+
+
+# n around the mask kernel's 32 bytes a thread and its two 16-byte stores
+# (1, 3, 4, 15, 16, 17, 31: the byte tail alone; 32: one whole chunk; 33:
+# a chunk and a tail), past one block's chunks (4097) and the dygraph
+# step's [8192, 768]
+@pytest.mark.parametrize("n", [1, 3, 4, 15, 16, 17, 31, 32, 33, 4097,
+                               8192 * 768])
+@pytest.mark.parametrize("seed,rate", [(0x1234_5678_9ABC_DEF0, 0.5),
+                                       (987654321, 0.1)],
+                         ids=["two-word-key", "one-word-key"])
+def test_dropout_mask_equals_plain_on_card_and_host(cuda, n, seed, rate):
+    """``torch.equal`` to ``_reference_keep`` on the card and on the host;
+    a twin of seed + 1 equals the plain mask of seed + 1 and, past a
+    chunk, differs from this one."""
+    from paddle_tpu_torch.ops import nn_ops
+    x = torch.empty(n, device=cuda)
+    k0, k1 = nn_ops._key_words(seed)
+    thr = nn_ops._threshold_for(rate)
+    before = cuda_kernels.dropout_mask.launches
+    mask = cuda_kernels.dropout_mask(x, seed, thr)
+    twin = cuda_kernels.dropout_mask(x, seed + 1, thr)
+    torch.cuda.synchronize()
+    assert cuda_kernels.dropout_mask.launches == before + 2
+    assert mask.dtype == torch.uint8 and mask.shape == (n,)
+    assert torch.equal(mask, nn_ops._reference_keep(
+        (n,), k0, k1, thr, cuda).to(torch.uint8))
+    assert torch.equal(mask.cpu(), nn_ops._reference_keep(
+        (n,), k0, k1, thr, "cpu").to(torch.uint8))
+    t0, t1 = nn_ops._key_words(seed + 1)
+    assert torch.equal(twin, nn_ops._reference_keep(
+        (n,), t0, t1, thr, cuda).to(torch.uint8))
+    if n >= 16:
+        assert not torch.equal(twin, mask)
+
+
+def test_dropout_mask_entry_refuses_an_unaligned_mask(cuda):
+    """The C entry takes a 16-byte aligned mask only (the wrapper's
+    ``torch.empty`` always is) and refuses another with
+    cudaErrorInvalidValue, launching nothing."""
+    lib = cuda_kernels._lib("fused_dropout")
+    buf = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for off in (1, 4, 8):
+        assert lib.pt_dropout_mask(buf.data_ptr() + off, 32, 1, 2, 5,
+                                   stream) != 0
+    assert lib.pt_dropout_mask(buf.data_ptr(), 32, 1, 2, 5, stream) == 0
+    torch.cuda.synchronize()
+    assert not torch.any(buf[32:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
