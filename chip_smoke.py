@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving and training paths on one CUDA card,
-end to end: the static BERT program, the wide&deep CTR program and the
-flagship dygraph ``BertForPretraining`` step.
+end to end: the static BERT program, the wide&deep CTR program, the
+flagship dygraph ``BertForPretraining`` step, paged decode and the static
+book tier (MNIST LeNet).
 
     python3 chip_smoke.py
 
@@ -123,11 +124,32 @@ over):
    largest; a host twin whose masks use seed + 1 must miss; one tape
    step (``loss.backward()``) on the card within 1e-5 of the functional
    gradients.
+4g. static e2e / LeNet -- the six cases of ``tests/test_static_e2e.py``
+   on ``CUDAPlace(0)`` with their assertions (fit-a-line, LeNet 40 Adam
+   steps, batch norm's moving statistics, save and load of the
+   persistables, ``clone(for_test=True)``, Momentum with
+   ``GradientClipByGlobalNorm``).  Then MNIST LeNet at the repo's width
+   (51,806 parameters) on the seeded synthetic digits, batch 64, through
+   ``CompiledProgram`` with ``kernel_tier``: one ``fused_optimizer``
+   rewrite, 40 steps with exactly one ``fused_adam`` launch and no
+   ``adam`` lowering a step, loss < 0.5 and accuracy > 0.9.  Card
+   against host from one state (3 steps, LeNet and a batch-norm variant):
+   losses within rtol 1e-4, first-step gradients within 1e-4 of the
+   largest; host twins (conv padding all on the low side; batch norm on
+   the moving statistics in training) must miss.  The kernel tier against
+   the plain program on the card, 3 steps: bit for bit.  50 rows
+   bucketed to 64 against the unbucketed step (both variants, moving
+   statistics too): rtol 1e-4, atol 1e-5.  The clip case through the
+   kernel tier: one ``fused_momentum`` launch a step.  ``fused_adam`` at
+   LeNet's eight segments and ``fused_momentum`` at the clip case's
+   bucket, ``torch.equal`` to their plain versions, device ms beside the
+   plain, library and bound.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
-   64 and 512 rows served and 4096 rows trained, and for one dygraph
-   BERT step.
+   64 and 512 rows served and 4096 rows trained, for one dygraph BERT
+   step, for a paged decode step at 1, 8 and 32 slots, and for a
+   kernel-tier LeNet step at 64 and 512 rows.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -189,6 +211,16 @@ DECODE_HOST_POOL = 65      # its host engine's pool (2 slots x 32 pages + 1)
 DECODE_PROFILE_POS = 300   # valid positions per slot in the step profile
 # phase 3f: the paged-attention kernel at the decode path's shapes
 PAGED = dict(slots=(1, 8, 32), seq=512, rows=16_400, d=768, page_size=16)
+# phase 4g: the static book tier (tests/test_static_e2e.py), MNIST LeNet
+# at the repo's width (tests/test_static_e2e.py:38) on the reference
+# tests' seeded synthetic digits, Adam 1e-3
+LENET_BATCH, LENET_STEPS = 64, 40
+LENET_RAGGED = 50          # the ragged batch, bucketed to 64
+LENET_PROFILE_ROWS = (64, 512)
+# LeNet's eight parameters: conv 6@3x3 and 16@5x5, fc 400x120 and 120x10,
+# weights and biases
+LENET_SEGMENTS = (54, 6, 2400, 16, 48000, 120, 1200, 10)
+CLIP_STEPS = 50            # the Momentum-with-clipping case's steps
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -2877,6 +2909,695 @@ def phase_profile_decode(served, card, iters=20):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the static book tier: MNIST LeNet and tests/test_static_e2e.py (phase 4g)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _fresh_fluid_globals():
+    """Fresh default programs, global scope and name counters, as the
+    reference's tests get them from their conftest."""
+    from paddle_tpu_torch.fluid import core, framework
+
+    prev = (framework._main_program, framework._startup_program,
+            core._global_scope)
+    framework._main_program = framework.Program()
+    framework._startup_program = framework.Program()
+    core._global_scope = core.Scope()
+    framework.reset_unique_name()
+    try:
+        yield
+    finally:
+        (framework._main_program, framework._startup_program,
+         core._global_scope) = prev
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if hasattr(v, "detach") \
+        else np.asarray(v)
+
+
+def _blob_data(rng, n=LENET_BATCH):
+    """The reference tests' seeded synthetic digits
+    (tests/test_static_e2e.py:9): noise with an 8x8 bright square whose
+    offset is the label."""
+    labels = rng.randint(0, 10, n).astype("int64")
+    images = rng.randn(n, 1, 28, 28).astype("float32") * 0.3
+    for i in range(n):
+        y = labels[i]
+        images[i, 0, y:y + 8, y:y + 8] += 2.0
+    return images, labels[:, None]
+
+
+def _book_fit_a_line(fluid, place, rng):
+    x = fluid.data("x", [-1, 13])
+    y = fluid.data("y", [-1, 1])
+    pred = fluid.layers.fc(x, 1)
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+    fluid.optimizer.SGDOptimizer(0.01).minimize(loss)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    w_true = rng.randn(13, 1).astype("float32")
+    xs = rng.randn(256, 13).astype("float32")
+    ys = xs @ w_true + 0.01 * rng.randn(256, 1).astype("float32")
+    losses = [float(exe.run(feed={"x": xs, "y": ys}, fetch_list=[loss])[0])
+              for _ in range(100)]
+    return losses[-1] < losses[0] * 0.1, \
+        f"loss {losses[0]:.4f} -> {losses[-1]:.6f} (< a tenth)"
+
+
+def _book_lenet(fluid, place, rng):
+    loss, acc = _lenet(fluid)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    images, labels = _blob_data(rng)
+    for _ in range(40):
+        lv, av = exe.run(feed={"img": images, "label": labels},
+                         fetch_list=[loss, acc])
+    return float(lv) < 0.5 and float(av) > 0.9, \
+        f"40 steps: loss {float(lv):.4f} (< 0.5), accuracy {float(av):.4f} " \
+        f"(> 0.9)"
+
+
+def _book_batch_norm(fluid, place, rng):
+    x = fluid.data("x", [-1, 4, 3, 3])
+    out = fluid.layers.batch_norm(x, momentum=0.5)
+    loss = fluid.layers.mean(out)
+    fluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    scope = fluid.global_scope()
+    exe.run(feed={"x": rng.randn(8, 4, 3, 3).astype("float32") + 5.0},
+            fetch_list=[loss])
+    prog = fluid.default_main_program()
+    means = [_host(scope.find_var(v.name))
+             for v in prog.global_block().vars.values()
+             if v.persistable and "batch_norm" in v.name]
+    moved = [float(np.abs(m).mean()) for m in means if m.shape == (4,)]
+    return max(moved) > 0.5, \
+        f"moving statistics' mean |value| after one step {moved} (one > 0.5)"
+
+
+def _book_save_load(fluid, place, rng):
+    import tempfile
+
+    x = fluid.data("x", [-1, 8])
+    loss = fluid.layers.mean(fluid.layers.fc(x, 4))
+    fluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    exe.run(feed={"x": rng.randn(4, 8).astype("float32")},
+            fetch_list=[loss])
+    scope = fluid.global_scope()
+    params = {n: _host(scope.find_var(n)) for n in scope.local_var_names()}
+    with tempfile.TemporaryDirectory() as d:
+        fluid.save_persistables(exe, d)
+        for n in params:
+            scope.set_var(n, params[n] * 0 + 99.0)
+        fluid.load_persistables(exe, d)
+    same = all(np.array_equal(_host(scope.find_var(n)), want)
+               for n, want in params.items())
+    on_card = all(scope.find_var(n).device.type == place.device_kind
+                  for n in params)
+    return same and on_card, \
+        f"{len(params)} persistables restored equal, on the place: {on_card}"
+
+
+def _book_clone_for_test(fluid, place, rng):
+    x = fluid.data("x", [-1, 8])
+    loss = fluid.layers.mean(fluid.layers.fc(x, 4))
+    fluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+    types = [op.type for op in fluid.default_main_program()
+             .clone(for_test=True).global_block().ops]
+    return "generic_grad" not in types and "sgd" not in types, \
+        f"test program ops {types}"
+
+
+def _clip_case(fluid):
+    x = fluid.data("x", [-1, 10])
+    y = fluid.data("y", [-1, 1])
+    h = fluid.layers.fc(x, 16, act="tanh")
+    pred = fluid.layers.fc(h, 1)
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+    fluid.optimizer.MomentumOptimizer(
+        0.05, 0.9,
+        grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)).minimize(loss)
+    return loss
+
+
+def _clip_feed(rng):
+    xs = rng.randn(64, 10).astype("float32")
+    return {"x": xs, "y": (xs.sum(1, keepdims=True) > 0).astype("float32")}
+
+
+def _book_clip(fluid, place, rng):
+    loss = _clip_case(fluid)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    feed = _clip_feed(rng)
+    losses = [float(exe.run(feed=feed, fetch_list=[loss])[0])
+              for _ in range(50)]
+    return losses[-1] < losses[0], \
+        f"50 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+
+
+BOOK_CASES = (("fit_a_line", _book_fit_a_line),
+              ("recognize_digits_lenet", _book_lenet),
+              ("batch_norm_running_stats_update", _book_batch_norm),
+              ("save_load_persistables", _book_save_load),
+              ("program_clone_for_test_drops_grads", _book_clone_for_test),
+              ("exponential_decay_training", _book_clip))
+
+
+def _lenet(fluid, optimizer="adam", bn=False):
+    """MNIST LeNet as tests/test_static_e2e.py:38 builds it: 1x28x28, conv
+    6@3x3 pad 1 + relu + 2x2 max-pool, conv 16@5x5 + relu + 2x2 max-pool,
+    flatten to 400, fc 120 relu, fc 10, softmax cross entropy, mean,
+    accuracy, Adam 1e-3 (or SGD 0.1).  With ``bn``, conv1 has no bias and
+    a batch_norm (then the relu) follows it."""
+    img = fluid.data("img", [-1, 1, 28, 28])
+    label = fluid.data("label", [-1, 1], dtype="int64")
+    conv1 = fluid.layers.conv2d(img, 6, 3, padding=1,
+                                bias_attr=False if bn else None,
+                                act=None if bn else "relu")
+    if bn:
+        conv1 = fluid.layers.batch_norm(conv1, act="relu")
+    pool1 = fluid.layers.pool2d(conv1, 2, "max", 2)
+    conv2 = fluid.layers.conv2d(pool1, 16, 5, act="relu")
+    pool2 = fluid.layers.pool2d(conv2, 2, "max", 2)
+    fc1 = fluid.layers.fc(fluid.layers.flatten(pool2), 120, act="relu")
+    logits = fluid.layers.fc(fc1, 10)
+    loss = fluid.layers.mean(
+        fluid.layers.softmax_with_cross_entropy(logits, label))
+    acc = fluid.layers.accuracy(logits, label)
+    if optimizer == "adam":
+        fluid.optimizer.AdamOptimizer(1e-3).minimize(loss)
+    else:
+        fluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+    return loss, acc
+
+
+def _book_program(build, kernel_tier, **kw):
+    """(main, startup, fetches, CompiledProgram or main) of one build
+    under fresh names, the startup seeded; with ``kernel_tier`` the
+    passes are applied at once, seeded by the fetches."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+
+    reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        fetches = build(fluid, **kw)
+    fetches = fetches if isinstance(fetches, tuple) else (fetches,)
+    startup.random_seed = SEED
+    program = main
+    if kernel_tier:
+        bs = fluid.BuildStrategy()
+        bs.kernel_tier = True
+        program = fluid.CompiledProgram(main, bs)
+        program._apply_ir_passes([f.name for f in fetches])
+    return main, startup, fetches, program
+
+
+def _startup_state(main, startup, place):
+    """The persistables after the startup program ran on ``place``, as
+    host arrays."""
+    from paddle_tpu_torch import fluid, interop
+
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    return interop.scope_to_numpy(
+        scope, [n for n, v in main.global_block().vars.items()
+                if v.persistable])
+
+
+def _steps(program, main, fetch, init, place, feeds, bucketing=False):
+    """Run ``feeds`` from ``init`` on ``place``: (each step's fetches as
+    host arrays, the persistables after the last step)."""
+    from paddle_tpu_torch import fluid, interop
+
+    main._hints["shape_bucketing"] = bucketing
+    scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+    exe = fluid.Executor(place)
+    try:
+        outs = [exe.run(program, feed=f, fetch_list=fetch, scope=scope)
+                for f in feeds]
+    finally:
+        main._hints["shape_bucketing"] = False
+    return outs, interop.scope_to_numpy(scope, list(init))
+
+
+@contextlib.contextmanager
+def _count_lowering(op_type):
+    """Count the calls of one op's lowering (its ``OpDef.fn``)."""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    opdef = get_op(op_type)
+    fn, calls = opdef.fn, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return fn(*args)
+
+    opdef.fn = counted
+    try:
+        yield calls
+    finally:
+        opdef.fn = fn
+
+
+@contextlib.contextmanager
+def _conv_pads_all_low():
+    """A broken twin: conv2d puts all of each dim's padding on the low
+    side (the output keeps its shape, the feature maps shift)."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    orig = nn_ops._conv_pad
+
+    def low(*args):
+        return [(lo + hi, 0) for lo, hi in orig(*args)]
+
+    nn_ops._conv_pad = low
+    try:
+        yield
+    finally:
+        nn_ops._conv_pad = orig
+
+
+@contextlib.contextmanager
+def _bn_moving_stats_in_training():
+    """A broken twin: batch_norm normalizes a training step by the moving
+    statistics, as if ``use_global_stats`` were set.  (torch.var's
+    unbiased default is no twin here: over LeNet's 64 x 28 x 28 values a
+    channel it scales the variance by 1 + 2e-5, and moved the losses by
+    9e-6 in a CPU rehearsal, under the tolerance.)"""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    opdef = get_op("batch_norm")
+    fn = opdef.fn
+    opdef.fn = lambda ins, attrs, ctx: fn(
+        ins, dict(attrs, use_global_stats=True), ctx)
+    try:
+        yield
+    finally:
+        opdef.fn = fn
+
+
+def _worst(got, want):
+    """max |got - want| over the named arrays, over the largest |want|."""
+    scale = max(float(np.abs(want[n]).max()) for n in want)
+    return max(float(np.abs(got[n] - want[n]).max()) for n in want) \
+        / max(scale, 1e-30)
+
+
+def _lenet_card_vs_host(bn, twin, card):
+    """LeNet (or its batch-norm variant) on the card and on the host from
+    one state, the kernel-tier program, 3 Adam steps at LENET_BATCH rows:
+    the losses within rtol 1e-4, the first step's gradients within 1e-4
+    of the largest.  A broken host twin must miss one of the two."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, (loss, acc), program = _book_program(
+        _lenet, True, bn=bn)
+    init = _startup_state(main, startup, fluid.CUDAPlace(0))
+    grads = [p.name + "@GRAD" for p in main.all_parameters() if p.trainable]
+    images, labels = _blob_data(np.random.RandomState(SEED + 61))
+    feeds = [{"img": images, "label": labels}] * 3
+    fetch = [loss.name, acc.name] + grads
+
+    def run(place):
+        outs, _ = _steps(program, main, fetch, init, place, feeds)
+        return ([float(o[0]) for o in outs],
+                dict(zip(grads, outs[0][2:])))
+
+    card_l, card_g = run(fluid.CUDAPlace(0))
+    host_l, host_g = run(fluid.CPUPlace())
+    with twin():
+        twin_l, twin_g = run(fluid.CPUPlace())
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, host_l))
+    g_err = _worst(card_g, host_g)
+    twin_l_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, twin_l))
+    twin_g_err = _worst(twin_g, card_g)
+    name = "LeNet + batch_norm" if bn else "LeNet"
+    _p(f"static e2e: {name} card vs host, {LENET_BATCH} rows x 3 Adam "
+       f"steps from one state: losses card {card_l}, host {host_l}, max "
+       f"rel err {l_err:.3e} (rtol 1e-4); first-step gradients max |card - "
+       f"host| / max |grad| = {g_err:.3e} (1e-4); the {twin.__name__} twin: "
+       f"losses {twin_l_err:.3e}, gradients {twin_g_err:.3e} (must miss "
+       f"one)  [{card}]")
+    if l_err > 1e-4 or g_err > 1e-4:
+        raise SystemExit(f"chip_smoke: {name} on the card disagrees with "
+                         f"the host")
+    if twin_l_err <= 1e-4 and twin_g_err <= 1e-4:
+        raise SystemExit(f"chip_smoke: the {name} card-vs-host check "
+                         f"cannot see the {twin.__name__} twin")
+
+
+def _lenet_tier_vs_plain(card):
+    """The kernel-tier LeNet (one fused_adam) against the plain program
+    (eight adam ops) on the card, 3 steps from one state: losses,
+    accuracies and every persistable bit for bit (the bucketed against
+    per-param contract, ops/optimizer_ops.py)."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, (loss, acc), tier = _book_program(_lenet, True)
+    plain_main, _, (p_loss, p_acc), _ = _book_program(_lenet, False)
+    init = _startup_state(main, startup, fluid.CUDAPlace(0))
+    images, labels = _blob_data(np.random.RandomState(SEED + 62))
+    feeds = [{"img": images, "label": labels}] * 3
+    got, got_state = _steps(tier, main, [loss.name, acc.name], init,
+                            fluid.CUDAPlace(0), feeds)
+    want, want_state = _steps(plain_main, plain_main,
+                              [p_loss.name, p_acc.name], init,
+                              fluid.CUDAPlace(0), feeds)
+    same = all(np.array_equal(a, b) for x, y in zip(got, want)
+               for a, b in zip(x, y))
+    same_state = all(np.array_equal(got_state[n], want_state[n])
+                     for n in want_state)
+    _p(f"static e2e: LeNet kernel tier vs plain program on the card, 3 "
+       f"steps: losses and accuracies equal = {same}, {len(want_state)} "
+       f"persistables equal = {same_state} (tolerance: bit-identical)  "
+       f"[{card}]")
+    if not (same and same_state):
+        raise SystemExit("chip_smoke: the kernel-tier LeNet step is not "
+                         "bit-identical to the plain program's")
+
+
+def _lenet_ragged(bn, card):
+    """A ragged batch of LENET_RAGGED rows bucketed to LENET_BATCH against
+    the unbucketed step, 2 Adam steps of the kernel-tier program from one
+    state: losses, accuracies, parameters and the moving statistics
+    within rtol 1e-4, atol 1e-5."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import compile_cache
+
+    main, startup, (loss, acc), program = _book_program(
+        _lenet, True, bn=bn)
+    init = _startup_state(main, startup, fluid.CUDAPlace(0))
+    images, labels = _blob_data(np.random.RandomState(SEED + 63),
+                                LENET_RAGGED)
+    feeds = [{"img": images, "label": labels}] * 2
+    fetch = [loss.name, acc.name]
+    padded, p_state = _steps(program, main, fetch, init, fluid.CUDAPlace(0),
+                             feeds, bucketing=True)
+    plain, u_state = _steps(program, main, fetch, init, fluid.CUDAPlace(0),
+                            feeds)
+    bucket = compile_cache.bucket_for(LENET_RAGGED)
+    pairs = [(a, b) for x, y in zip(padded, plain) for a, b in zip(x, y)]
+    pairs_state = [(p_state[n], u_state[n]) for n in u_state]
+    err = max(float(np.abs(a - b).max()) for a, b in pairs)
+    s_err = max(float(np.abs(a - b).max()) for a, b in pairs_state)
+    ok = all(np.allclose(a, b, rtol=1e-4, atol=1e-5)
+             for a, b in pairs + pairs_state)
+    stats = [n for n in u_state if "batch_norm" in n and ".w_" in n]
+    name = "LeNet + batch_norm" if bn else "LeNet"
+    _p(f"static e2e: {name}, {LENET_RAGGED} rows bucketed to {bucket} vs "
+       f"unbucketed, 2 steps: losses {[float(o[0]) for o in padded]} vs "
+       f"{[float(o[0]) for o in plain]}; max |diff| over losses and "
+       f"accuracies {err:.3e}, over {len(u_state)} persistables "
+       f"({len(stats)} batch_norm vars) {s_err:.3e}; within rtol 1e-4, "
+       f"atol 1e-5: {ok}  [{card}]")
+    if bucket == LENET_RAGGED or not ok:
+        raise SystemExit(f"chip_smoke: the bucketed {name} step disagrees "
+                         f"with the unbucketed one")
+
+
+def _bucket_shapes(main, op_type):
+    """The parameter shapes of the one ``op_type`` op of ``main``, in the
+    op's order."""
+    op, = [op for op in main.global_block().ops if op.type == op_type]
+    return [tuple(main.global_block().var(n).shape)
+            for n in op.input("Param")]
+
+
+def _lenet_kernel_checks(adam_shapes, momentum_shapes, card):
+    """fused_adam at LeNet's eight segments and fused_momentum at the clip
+    case's bucket, each op on the card against its plain version on the
+    card, ``torch.equal``, with device ms per call from the profiler
+    beside the plain version's, the library call's and the bound."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.optimizer_ops import (_momentum_update,
+                                                    _plain_fused_adam)
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 64)
+    shapes = adam_shapes
+    if sorted(math.prod(s) for s in shapes) != sorted(LENET_SEGMENTS):
+        raise SystemExit("chip_smoke: LeNet's Adam segments are not the "
+                         "model's")
+    n = sum(LENET_SEGMENTS)
+
+    def draw(shape, std):
+        return std * torch.randn(shape, generator=gen, device=dev)
+
+    ins = {"Param": [draw(s, 0.1) for s in shapes],
+           "Grad": [draw(s, 1e-2) for s in shapes],
+           "Moment1": [draw(s, 1e-3) for s in shapes],
+           "Moment2": [draw(s, 1e-3).square() for s in shapes],
+           "Beta1Pow": [torch.full((1,), 0.9 ** 2, device=dev)
+                        for _ in shapes],
+           "Beta2Pow": [torch.full((1,), 0.999 ** 2, device=dev)
+                        for _ in shapes],
+           "LearningRate": [torch.full((1,), 1e-3, device=dev)]}
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    attrs = {"beta1": b1, "beta2": b2, "epsilon": eps}
+    args = [ins[s] for s in ("Param", "Grad", "Moment1", "Moment2")] + \
+        [ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
+         eps]
+    before = cuda_kernels.fused_adam.launches
+    fused = get_op("fused_adam").fn(ins, attrs, LoweringContext(dev))
+    if cuda_kernels.fused_adam.launches != before + 1:
+        raise SystemExit("chip_smoke: fused_adam did not launch its kernel "
+                         "at LeNet's segments")
+    plain = _plain_fused_adam(*args)
+    equal, err = True, 0.0
+    for slot, outs in plain.items():
+        for got, want in zip(fused[slot], outs):
+            equal &= torch.equal(got, want)
+            err = max(err, (got - want).abs().max().item())
+    ms = _profile(lambda: cuda_kernels.fused_adam(*args), 50)[1]
+    plain_ms = _profile(lambda: _plain_fused_adam(*args), 20)[1]
+    lib = [[x.clone() for x in ins[s]]
+           for s in ("Param", "Grad", "Moment1", "Moment2")]
+    steps = [torch.full((), 2.0, device=dev) for _ in shapes]
+    bc2 = 1 - b2 ** 2
+    library_ms = _profile(lambda: torch._fused_adam_(
+        *lib, [], steps, lr=1e-3, beta1=b1, beta2=b2, weight_decay=0.0,
+        eps=eps / math.sqrt(bc2), amsgrad=False, maximize=False), 20)[1]
+    t_bytes = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 12.0 * n / FLOPS_PER_S["float32"] * 1e3
+    adam = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "values": n,
+            "segments": list(LENET_SEGMENTS)}
+    _p(f"fused_adam at LeNet's 8 segments ({n} values): torch.equal to "
+       f"the plain version on the card = {equal} (max |err| {err:.3e}; "
+       f"tolerance: bit-identical); device per call: kernel {ms:.4f} ms | "
+       f"plain {plain_ms:.4f} ms | library (torch._fused_adam_) "
+       f"{library_ms:.4f} ms | bound {adam['bound_ms']:.6f} ms "
+       f"({adam['bound_by']})  [{card}]")
+    if not equal:
+        raise SystemExit("chip_smoke: fused_adam at LeNet's segments is not "
+                         "its plain version")
+
+    shapes = momentum_shapes
+    n = sum(math.prod(s) for s in shapes)
+    ins = {s: [std * torch.randn(shape, generator=gen, device=dev)
+               for shape in shapes]
+           for s, std in (("Param", 0.3), ("Grad", 1e-1),
+                          ("Velocity", 1e-2))}
+    ins["LearningRate"] = [torch.full((1,), 0.05, device=dev)]
+    attrs = {"mu": 0.9, "use_nesterov": False}
+    before = cuda_kernels.fused_momentum.launches
+    fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(dev))
+    if cuda_kernels.fused_momentum.launches != before + 1:
+        raise SystemExit("chip_smoke: fused_momentum did not launch its "
+                         "kernel at the clip case's bucket")
+    flat = [torch.cat([x.reshape(-1) for x in ins[s]])
+            for s in ("Param", "Grad", "Velocity")]
+    lr = ins["LearningRate"][0]
+    want_p, want_v = _momentum_update(*flat, lr.reshape(()), 0.9, 0.0,
+                                      False)
+    got_p = torch.cat([t.reshape(-1) for t in fused["ParamOut"]])
+    got_v = torch.cat([t.reshape(-1) for t in fused["VelocityOut"]])
+    equal = torch.equal(got_p, want_p) and torch.equal(got_v, want_v)
+    err = max((got_p - want_p).abs().max().item(),
+              (got_v - want_v).abs().max().item())
+    ms = _profile(lambda: cuda_kernels.fused_momentum(*flat, lr, 0.9, 0.0,
+                                                      False), 50)[1]
+    plain_ms = _profile(lambda: _momentum_update(*flat, lr.reshape(()), 0.9,
+                                                 0.0, False), 20)[1]
+    lib = [[x.clone() for x in ins[s]] for s in ("Param", "Grad",
+                                                 "Velocity")]
+    library_ms = _profile(lambda: torch._fused_sgd_(
+        *lib, weight_decay=0.0, momentum=0.9, lr=0.05, dampening=0.0,
+        nesterov=False, maximize=False, is_first_step=False), 20)[1]
+    t_bytes = 5 * 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * n / FLOPS_PER_S["float32"] * 1e3
+    momentum = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "values": n}
+    _p(f"fused_momentum at the clip case's bucket ({len(shapes)} params, "
+       f"{n} values): torch.equal to the plain update on the card = "
+       f"{equal} (max |err| {err:.3e}; tolerance: bit-identical); device "
+       f"per call: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library "
+       f"(torch._fused_sgd_) {library_ms:.4f} ms | bound "
+       f"{momentum['bound_ms']:.6f} ms ({momentum['bound_by']})  [{card}]")
+    if not equal:
+        raise SystemExit("chip_smoke: fused_momentum at the clip case's "
+                         "bucket is not its plain version")
+    return {"fused_adam": adam, "fused_momentum": momentum}
+
+
+def phase_static_book(card):
+    """Phase 4g: the static book tier on the card.  Returns the launches
+    of fused_adam over the kernel-tier LeNet's timed steps and of
+    fused_momentum over the clip case's, the kernel checks at their
+    shapes, and the programs phase 5 profiles."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    place = fluid.CUDAPlace(0)
+    for name, case in BOOK_CASES:
+        t0 = time.perf_counter()
+        with _fresh_fluid_globals():
+            ok, said = case(fluid, place, np.random.RandomState(42))
+        _p(f"static e2e: {name} on the card: {said}, in "
+           f"{time.perf_counter() - t0:.1f} s")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the book case {name} failed on "
+                             f"the card")
+
+    # LeNet at batch 64 through the kernel tier: the main path
+    rewrites = trace.metrics().counter("kernel_tier.fuse_optimizer.rewrites")
+    before = rewrites.value
+    main, startup, (loss, acc), program = _book_program(_lenet, True)
+    n_rewrites = rewrites.value - before
+    types = [op.type for op in main.global_block().ops]
+    n_params = sum(math.prod(p.shape) for p in main.all_parameters())
+    _p(f"static e2e: LeNet ({n_params} parameters), kernel tier: "
+       f"fuse_optimizer rewrites = {n_rewrites}; ops: "
+       f"{types.count('fused_adam')} fused_adam, {types.count('adam')} "
+       f"adam, {types.count('conv2d')} conv2d, {types.count('pool2d')} "
+       f"pool2d, {len(types)} in all")
+    if n_rewrites != 1 or types.count("fused_adam") != 1 \
+            or "adam" in types or n_params != sum(LENET_SEGMENTS):
+        raise SystemExit("chip_smoke: LeNet's Adam updates were not "
+                         "bucketed into one fused_adam")
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    images, labels = _blob_data(np.random.RandomState(42))
+    feed = {"img": images, "label": labels}
+    torch.cuda.synchronize()
+    cuda_kernels.fused_adam.launches = 0
+    with _count_lowering("adam") as adam_calls:
+        t0 = time.perf_counter()
+        outs = [exe.run(program, feed=feed, fetch_list=[loss, acc],
+                        scope=scope, return_numpy=False)
+                for _ in range(LENET_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lenet_launches = cuda_kernels.fused_adam.launches
+    lv, av = (float(x) for x in outs[-1])
+    _p(f"static e2e: LeNet, {LENET_STEPS} steps at {LENET_BATCH} rows in "
+       f"{wall:.3f} s: {wall / LENET_STEPS * 1e3:.2f} ms/step, "
+       f"{LENET_BATCH * LENET_STEPS / wall:.0f} examples/s; loss "
+       f"{lv:.4f} (< 0.5), accuracy {av:.4f} (> 0.9); fused_adam launches "
+       f"{lenet_launches} (expected {LENET_STEPS}), adam lowerings "
+       f"{adam_calls[0]} (expected 0)  [{card}]")
+    if lenet_launches != LENET_STEPS or adam_calls[0] != 0:
+        raise SystemExit("chip_smoke: the LeNet step did not run through "
+                         "fused_adam once a step")
+    if not (lv < 0.5 and av > 0.9):
+        raise SystemExit("chip_smoke: LeNet did not learn the digits on "
+                         "the card")
+
+    _lenet_card_vs_host(False, _conv_pads_all_low, card)
+    _lenet_card_vs_host(True, _bn_moving_stats_in_training, card)
+    _lenet_tier_vs_plain(card)
+    _lenet_ragged(False, card)
+    _lenet_ragged(True, card)
+
+    # the Momentum-with-clipping case through the kernel tier
+    c_main, c_startup, (c_loss,), c_program = _book_program(_clip_case,
+                                                            True)
+    c_types = [op.type for op in c_main.global_block().ops]
+    if c_types.count("fused_momentum") != 1 or "momentum" in c_types:
+        raise SystemExit("chip_smoke: the clip case's Momentum updates were "
+                         "not bucketed into one fused_momentum")
+    c_scope = fluid.Scope()
+    exe.run(c_startup, scope=c_scope)
+    c_feed = _clip_feed(np.random.RandomState(42))
+    torch.cuda.synchronize()
+    cuda_kernels.fused_momentum.launches = 0
+    c_losses = [exe.run(c_program, feed=c_feed, fetch_list=[c_loss],
+                        scope=c_scope, return_numpy=False)[0]
+                for _ in range(CLIP_STEPS)]
+    torch.cuda.synchronize()
+    clip_launches = cuda_kernels.fused_momentum.launches
+    c_first, c_last = float(c_losses[0]), float(c_losses[-1])
+    _p(f"static e2e: Momentum with GradientClipByGlobalNorm(1.0), kernel "
+       f"tier, {CLIP_STEPS} steps: {c_types.count('elementwise_mul')} "
+       f"elementwise_mul between the grads and one fused_momentum; loss "
+       f"{c_first:.4f} -> {c_last:.4f}; fused_momentum launches "
+       f"{clip_launches} (expected {CLIP_STEPS})  [{card}]")
+    if clip_launches != CLIP_STEPS or not c_last < c_first:
+        raise SystemExit("chip_smoke: the clip case did not run through "
+                         "fused_momentum once a step, or did not learn")
+    kernel_rows = _lenet_kernel_checks(_bucket_shapes(main, "fused_adam"),
+                                       _bucket_shapes(c_main,
+                                                      "fused_momentum"),
+                                       card)
+    torch.cuda.empty_cache()
+    return ({"fused_adam": lenet_launches, "fused_momentum": clip_launches},
+            kernel_rows, _lenet_profile_setups())
+
+
+def _lenet_profile_setups():
+    """The kernel-tier LeNet program, its state after the startup
+    program and a feed, at each of LENET_PROFILE_ROWS rows, built while
+    the static mode is on (phase 4e turns the dygraph tracer on)."""
+    from paddle_tpu_torch import fluid
+
+    setups = []
+    for n in LENET_PROFILE_ROWS:
+        main, startup, (loss, _), program = _book_program(_lenet, True)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        images, labels = _blob_data(np.random.RandomState(SEED + 65), n)
+        setups.append((n, exe, program, scope, loss,
+                       {"img": images, "label": labels}))
+    return setups
+
+
+def phase_profile_lenet(setups, card, iters=20):
+    """Where a kernel-tier LeNet training step's time goes, as
+    ``phase_profile`` measures it, at each of LENET_PROFILE_ROWS rows:
+    ``Executor.run`` with the loss fetched to the host."""
+    import torch
+
+    for n, exe, program, scope, loss, feed in setups:
+        def step():
+            return exe.run(program, feed=feed, fetch_list=[loss],
+                           scope=scope, return_numpy=False)[0].cpu()
+
+        host_ms, busy_ms, idle, n_kern, by_class = _profile(step, iters)
+        _p(f"profile LeNet: train step, rows={n}: host {host_ms:.3f} "
+           f"ms/step ({n / host_ms * 1e3:.0f} examples/s), device busy "
+           f"{busy_ms:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+           f"kernels/step  [{card}]")
+        _print_classes(by_class, "step")
+    torch.cuda.empty_cache()
+
+
 _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("embedding_pool_fwd", "embedding_pool_fwd (csrc)"),
             ("embedding_pool_grad_fill",
@@ -2891,6 +3612,14 @@ _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("fused_adam", "fused_adam (csrc)"),
             ("dropout_mask_kernel", "dropout mask (csrc)"),
             ("dropout_kernel", "dropout family (csrc)"),
+            ("wgrad", "convolution backward filter (cuDNN)"),
+            ("dgrad", "convolution backward data (cuDNN)"),
+            ("fprop", "convolution forward (cuDNN)"),
+            ("convolve", "convolution, other (cuDNN)"),
+            ("cudnn", "convolution, other (cuDNN)"),
+            ("nchwtonhwc", "convolution layout (cuDNN)"),
+            ("nhwctonchw", "convolution layout (cuDNN)"),
+            ("pool", "pooling"),
             ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
             ("nvjet", "matmul (cuBLAS)"),
             ("cutlass", "matmul (cuBLAS)"), ("catarray", "flatten copies"),
@@ -3142,6 +3871,8 @@ def main():
     # 4f builds static programs, so it runs before 4e turns dygraph on
     decode_launches, decode_served = _timed("4f serve decode",
                                             phase_serve_decode, card)
+    book_launches, book_kernels, book_profiled = _timed(
+        "4g static e2e / LeNet", phase_static_book, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     _timed("5 profile", phase_profile, served, trained, card)
@@ -3149,6 +3880,7 @@ def main():
            card)
     _timed("5 profile dygraph", phase_profile_dygraph, dy_step, card)
     _timed("5 profile decode", phase_profile_decode, decode_served, card)
+    _timed("5 profile LeNet", phase_profile_lenet, book_profiled, card)
     shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
              BERT_BASE["hidden"] // BERT_BASE["heads"]]
     # the forward runs on both paths: "launches" stays the served path's
@@ -3184,7 +3916,9 @@ def main():
                     train_launches["fused_adam"], adam_row,
                     dtype="float32", values=adam_row["values"],
                     op_ms=adam_row["op_ms"], call_ms=adam_row["call_ms"],
-                    bytes_per_value=28, library="torch._fused_adam_")]
+                    bytes_per_value=28, library="torch._fused_adam_",
+                    lenet_launches=book_launches["fused_adam"],
+                    lenet=book_kernels["fused_adam"])]
     # the CTR rows: the path's D = 16 and Zipf ids; the forward's
     # "launches" is the served count, "train_launches" the training one's
     fwd16, grad16 = ctr_rows[(CTR["dim"], "zipf")]
@@ -3217,7 +3951,9 @@ def main():
                     ctr_launches["fused_momentum"], momentum_row,
                     dtype="float32", values=momentum_row["values"],
                     op_ms=momentum_row["op_ms"],
-                    library="torch._fused_sgd_")]
+                    library="torch._fused_sgd_",
+                    clip_case_launches=book_launches["fused_momentum"],
+                    clip_case=book_kernels["fused_momentum"])]
     # the dropout rows: the dygraph step's shapes in float32 (its
     # embedding dropout's dtype) with bfloat16 (the encoder's) beside;
     # launches per the 10 timed dygraph steps

@@ -1,8 +1,8 @@
 """paddle_tpu_torch.fluid — the fluid front end over PyTorch.
 
 Counterpart of ``paddle_tpu.fluid``, the static-graph slices: Program /
-layers / backward / optimizer (Adam) / Executor / CompiledProgram /
-passes / Scope.
+layers / backward / optimizer (SGD, Momentum, Adam) / clip / Executor /
+CompiledProgram / passes / Scope / io.
 """
 from .. import ops as _ops  # registers all lowering rules
 
@@ -23,5 +23,8 @@ from .compiler import CompiledProgram, BuildStrategy
 from . import backward
 from .backward import append_backward
 from . import optimizer
+from . import clip
+from . import io
+from .io import save_vars, load_vars, save_persistables, load_persistables
 from . import passes
 from . import trace

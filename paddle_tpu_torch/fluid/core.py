@@ -120,6 +120,16 @@ class Scope:
     def set_var(self, name, value):
         self._vars[name] = value
 
+    def erase(self, name):
+        self._vars.pop(name, None)
+
+    def local_var_names(self):
+        return list(self._vars)
+
+    def new_scope(self) -> "Scope":
+        """A child scope: it finds its parent's vars and keeps its own."""
+        return Scope(parent=self)
+
 
 _global_scope = Scope()
 

@@ -125,13 +125,25 @@ class Executor:
             # f32 matmuls are the reference, and TF32 keeps ~3 digits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # the same bits on every run, as XLA gives them: cuDNN's
+            # default weight-gradient algorithms sum in a run-dependent
+            # order, and the port's contracts on the card (the kernel tier
+            # against the plain program, padded against unpadded steps)
+            # need identical reruns
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self._plans: "OrderedDict[tuple, _RunPlan]" = OrderedDict()
         self._step = 0
 
     # -- public API ---------------------------------------------------------
     def run(self, program=None, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
-            scope: Optional[Scope] = None, return_numpy: bool = True):
+            scope: Optional[Scope] = None, return_numpy: bool = True,
+            use_program_cache: bool = True):
+        """Run ``program`` (default: the main program) on ``feed``; return
+        the ``fetch_list`` values.  With ``use_program_cache=False`` the
+        run plan is built for this call only and the plan cache is left
+        as it was."""
         program = program or default_main_program()
         fetch_names = [_fetch_name(f) for f in _as_list(fetch_list)]
         if hasattr(program, "_apply_ir_passes"):     # CompiledProgram
@@ -160,7 +172,8 @@ class Executor:
                 else:
                     bucket = None
 
-        plan = self._plan(program, sorted(feed), fetch_names, scope)
+        plan = self._plan(program, sorted(feed), fetch_names, scope,
+                          use_program_cache)
         env: Dict[str, Any] = {}
         for n in plan.scope_reads:
             v = scope.find_var(n)
@@ -210,10 +223,10 @@ class Executor:
         return t.to(self.device)
 
     def _plan(self, program: Program, feed_names, fetch_names,
-              scope: Scope) -> _RunPlan:
+              scope: Scope, use_cache: bool = True) -> _RunPlan:
         key = (id(program), program._version, tuple(feed_names),
                tuple(fetch_names), id(scope))
-        plan = self._plans.get(key)
+        plan = self._plans.get(key) if use_cache else None
         if plan is not None and plan.program is program:
             self._plans.move_to_end(key)
             return plan
@@ -254,6 +267,8 @@ class Executor:
         written = sorted({n for op in run_ops for n in op.output_arg_names
                           if n in persist or n in scope_state})
         plan = _RunPlan(program, run_ops, scope_reads, written)
+        if not use_cache:
+            return plan
         self._plans[key] = plan
         while len(self._plans) > self._PLAN_CACHE_CAPACITY:
             self._plans.popitem(last=False)

@@ -35,3 +35,13 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                      attrs={"ignore_index": ignore_index,
                             "normalize": normalize})
     return out
+
+
+def square_error_cost(input, label):
+    """(input - label)² elementwise, as one ``mse_loss`` op."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("mse_loss",
+                          inputs={"Input": [input], "Label": [label]},
+                          outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out

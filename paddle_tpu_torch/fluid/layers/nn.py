@@ -302,3 +302,157 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                           attrs={"scale": float(scale), "bias": float(bias),
                                  "bias_after_scale": bias_after_scale})
     return helper.append_activation(_out(op, "Out", out), act)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def square(x, name=None):
+    return _single_out("square", x)
+
+
+def sqrt(x, name=None):
+    return _single_out("sqrt", x)
+
+
+def clip(x, min, max, name=None):
+    return _single_out("clip", x, {"min": float(min), "max": float(max)})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_out("clip_by_norm", x, {"max_norm": float(max_norm)})
+
+
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """conv2d with a He-normal filter [num_filters, C/groups, kh, kw] and a
+    bias added on axis 1; ``padding`` is an int, 2 or 4 ints, or
+    ``"SAME"`` / ``"VALID"``."""
+    import math
+    from ..initializer import NormalInitializer
+    helper = LayerHelper("conv2d", name=name)
+    filter_size = _pair(filter_size)
+    stride, dilation = _pair(stride), _pair(dilation)
+    padding_algorithm = "EXPLICIT"
+    if isinstance(padding, str):
+        padding_algorithm = padding.upper()
+        padding = [0, 0]
+    elif isinstance(padding, int):
+        padding = [padding, padding]
+    num_channels = input.shape[1 if data_format == "NCHW" else -1]
+    w_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        param_attr, w_shape, input.dtype,
+        default_initializer=NormalInitializer(0., math.sqrt(2.0 / fan_in)))
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op(
+        "conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": list(padding),
+               "dilations": dilation, "groups": groups,
+               "padding_algorithm": padding_algorithm,
+               "data_format": data_format})
+    out = _out(op, "Output", out)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out = helper.append_bias_op(out, b, axis=1)
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op(
+        "pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"ksize": _pair(pool_size), "pooling_type": pool_type,
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "exclusive": exclusive,
+               "ceil_mode": ceil_mode, "data_format": data_format})
+    return _out(op, "Out", out)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """batch_norm with scale 1, bias 0 and the moving mean and variance
+    (0 and 1) as persistable parameters that are not trained; the op
+    writes the moving statistics back under their own names."""
+    from ..initializer import ConstantInitializer
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1 if data_layout == "NCHW" else -1]
+    scale = helper.create_parameter(
+        param_attr, [c], input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False,
+                  initializer=ConstantInitializer(0.0)), [c], input.dtype)
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False,
+                  initializer=ConstantInitializer(1.0)), [c], input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    saved_m = helper.create_variable_for_type_inference(dtype="float32",
+                                                        stop_gradient=True)
+    saved_v = helper.create_variable_for_type_inference(dtype="float32",
+                                                        stop_gradient=True)
+    op = helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_m], "SavedVariance": [saved_v]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(_out(op, "Y", out), act)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    op = helper.append_op("flatten2", inputs={"X": [x]},
+                          outputs={"Out": [out], "XShape": [xshape]},
+                          attrs={"axis": axis})
+    return _out(op, "Out", out)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    ids = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    op = helper.append_op("top_k", inputs={"X": [input]},
+                          outputs={"Out": [out], "Indices": [ids]},
+                          attrs={"k": k})
+    if in_dygraph_mode():
+        return op["Out"][0], op["Indices"][0]
+    return out, ids

@@ -101,3 +101,13 @@ def concat(input, axis=0, name=None):
     helper.append_op("concat", inputs={"X": list(input)},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of a list of vars (one ``sum`` op)."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    op = helper.append_op("sum", inputs={"X": list(input)},
+                          outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out

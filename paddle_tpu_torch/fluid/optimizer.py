@@ -1,7 +1,7 @@
 """Optimizers: minimize = append_backward + per-param update ops
-(counterpart of ``paddle_tpu/fluid/optimizer.py``, static mode, Momentum
-and Adam; the other optimizers and ``multi_precision`` come with their
-slices).
+(counterpart of ``paddle_tpu/fluid/optimizer.py``, static mode, SGD,
+Momentum and Adam, with ``grad_clip``; the other optimizers,
+``regularization`` and ``multi_precision`` come with their slices).
 
 The accumulator and learning-rate var names are the reference's
 (``<Optimizer>_<acc>_<param>``, ``learning_rate_<n>``), so
@@ -19,9 +19,14 @@ from . import layers
 
 
 class Optimizer:
-    def __init__(self, learning_rate=0.001, parameter_list=None, name=None):
+    def __init__(self, learning_rate=0.001, parameter_list=None,
+                 regularization=None, grad_clip=None, name=None):
+        if regularization is not None:
+            raise NotImplementedError(
+                "Optimizer(regularization=) is not ported yet")
         self._learning_rate = learning_rate
         self._parameter_list = parameter_list
+        self._grad_clip = grad_clip     # a fluid.clip.GradientClip*
         self._name = name or type(self).__name__
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._lr_var: Optional[Variable] = None
@@ -60,6 +65,8 @@ class Optimizer:
 
     def apply_gradients(self, params_grads):
         params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
         self._create_global_learning_rate()
         self._create_accumulators([p for p, g in params_grads])
         return [self._append_optimize_op(p, g) for p, g in params_grads
@@ -72,6 +79,16 @@ class Optimizer:
             params_grads = self.backward(loss, parameter_list, no_grad_set)
             ops = self.apply_gradients(params_grads)
         return ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, param, grad):
+        return self.helper.append_op(
+            "sgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [param]},
+            attrs={"multi_precision": False})
 
 
 class MomentumOptimizer(Optimizer):

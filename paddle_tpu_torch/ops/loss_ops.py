@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from .reduction import _refuse_padded_batch
 from .registry import register_op
 
 
@@ -96,21 +95,58 @@ register_op("softmax_with_cross_entropy", _softmax_xent_fwd,
             custom_grad=_softmax_xent_grad)
 
 
+def _and_batch_mask(mask, x, ctx):
+    """Fold the shape-bucketing row mask (the padded tail rows) into an
+    op's own validity mask, so its counts and denominators see only the
+    true batch."""
+    bm = ctx.batch_mask(x.shape[0]) if x.ndim else None
+    if bm is None:
+        return mask
+    return mask * bm.reshape((x.shape[0],) + (1,) * (mask.ndim - 1)) \
+        .to(mask.dtype)
+
+
 @register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=("Label",))
 def _sce(ins, attrs, ctx):
     """Elementwise ``max(x, 0) - x·label + log1p(exp(-|x|))``, zero where
-    the label is ``ignore_index``; with ``normalize``, divided by the
-    count of the other labels.  Under shape bucketing the reference folds
-    the padded batch rows out of that mask; the port refuses a padded
-    batch instead (``_refuse_padded_batch``), as its batch reductions
-    do."""
+    the label is ``ignore_index`` or the row is bucket padding; with
+    ``normalize``, divided by the count of the other entries."""
     x, label = ins["X"][0], ins["Label"][0]
-    _refuse_padded_batch("sigmoid_cross_entropy_with_logits", x, (0,), ctx)
     ignore = attrs.get("ignore_index", -100)
     loss = torch.clamp(x, min=0.0) - x * label \
         + torch.log1p(torch.exp(-torch.abs(x)))
-    mask = (label != ignore).to(x.dtype)
+    mask = _and_batch_mask((label != ignore).to(x.dtype), x, ctx)
     loss = loss * mask
     if attrs.get("normalize", False):
         loss = loss / torch.clamp(torch.sum(mask), min=1.0)
     return {"Out": [loss]}
+
+
+@register_op("mse_loss", nondiff_inputs=("Label",))
+def _mse(ins, attrs, ctx):
+    x, y = ins["Input"][0], ins["Label"][0]
+    return {"Out": [torch.square(x - y)]}
+
+
+# --- metrics ---------------------------------------------------------------
+@register_op("accuracy", differentiable=False)
+def _accuracy(ins, attrs, ctx):
+    """The share of rows whose label is among the top-k ``Indices``;
+    ``Correct`` and ``Total`` are int32.  Under shape bucketing the
+    padded rows are neither correct nor counted."""
+    pred_idx = ins["Indices"][0].long()
+    label = ins["Label"][0].long()
+    if label.ndim < pred_idx.ndim:
+        label = label[..., None]
+    correct = torch.any(pred_idx == label, dim=-1)
+    bm = ctx.batch_mask(correct.shape[0]) if correct.ndim else None
+    total = correct.numel()
+    if bm is not None:
+        row = bm.reshape((correct.shape[0],) + (1,) * (correct.ndim - 1))
+        correct = correct & row
+        total = ctx.batch_valid * (total // correct.shape[0])
+    num_correct = torch.sum(correct.to(torch.float32))
+    return {"Accuracy": [num_correct / total],
+            "Correct": [num_correct.to(torch.int32)],
+            "Total": [torch.full((), total, dtype=torch.int32,
+                                 device=correct.device)]}

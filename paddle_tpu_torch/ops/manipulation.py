@@ -37,6 +37,27 @@ def _transpose2(ins, attrs, ctx):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
+def _flatten_lead(x, axis):
+    """dims [0, axis) collapse into one (1 when axis is 0)."""
+    lead = 1
+    for d in x.shape[:axis]:
+        lead *= d
+    return lead
+
+
+@register_op("flatten2")
+def _flatten2(ins, attrs, ctx):
+    x = _x(ins)
+    lead = _flatten_lead(x, attrs.get("axis", 1))
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
+@register_op("flatten")
+def _flatten(ins, attrs, ctx):
+    x = _x(ins)
+    return {"Out": [x.reshape(_flatten_lead(x, attrs.get("axis", 1)), -1)]}
+
+
 @register_op("squeeze2")
 def _squeeze2(ins, attrs, ctx):
     """Drop the listed dims of size 1 (every size-1 dim when none is

@@ -28,24 +28,22 @@ def _bcast(x, y, axis):
     return x, y.reshape(expand)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ins, attrs, ctx):
-    x, y = _bcast(_x(ins), _x(ins, "Y"), attrs.get("axis", -1))
-    out = x + y
-    scale = attrs.get("scale", None)
-    if scale is not None and scale != 1.0:
-        out = out * scale
-    return {"Out": [out]}
+def _ew(name, f):
+    def lower(ins, attrs, ctx):
+        x, y = _bcast(_x(ins), _x(ins, "Y"), attrs.get("axis", -1))
+        out = f(x, y)
+        scale = attrs.get("scale", None)
+        if scale is not None and scale != 1.0:
+            out = out * scale
+        return {"Out": [out]}
+    register_op(name, lower)
 
 
-@register_op("elementwise_mul")
-def _elementwise_mul(ins, attrs, ctx):
-    x, y = _bcast(_x(ins), _x(ins, "Y"), attrs.get("axis", -1))
-    out = x * y
-    scale = attrs.get("scale", None)
-    if scale is not None and scale != 1.0:
-        out = out * scale
-    return {"Out": [out]}
+_ew("elementwise_add", torch.add)
+_ew("elementwise_sub", torch.sub)
+_ew("elementwise_mul", torch.mul)
+_ew("elementwise_div", torch.div)
+_ew("elementwise_max", torch.maximum)
 
 
 @register_op("sum")  # fluid sum op: variadic add (used for grad fan-in)
@@ -72,6 +70,30 @@ def _gelu(ins, attrs, ctx):
 @register_op("tanh")
 def _tanh(ins, attrs, ctx):
     return {"Out": [torch.tanh(_x(ins))]}
+
+
+@register_op("sqrt")
+def _sqrt(ins, attrs, ctx):
+    return {"Out": [torch.sqrt(_x(ins))]}
+
+
+@register_op("square")
+def _square(ins, attrs, ctx):
+    return {"Out": [torch.square(_x(ins))]}
+
+
+@register_op("clip")
+def _clip(ins, attrs, ctx):
+    return {"Out": [torch.clamp(_x(ins), attrs.get("min"), attrs.get("max"))]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ins, attrs, ctx):
+    """x scaled down to ``max_norm`` when its L2 norm is larger."""
+    x = _x(ins)
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [torch.where(norm > max_norm, x * (max_norm / norm), x)]}
 
 
 @register_op("scale")

@@ -1,7 +1,10 @@
 """Neural-net lowerings (counterpart of ``paddle_tpu/ops/nn_ops.py``, the
-ops the ported slices run): softmax, layer_norm, and the dropout family —
-``dropout``, ``fused_dropout_add`` (``dropout(x) + residual``) and
-``fused_act_dropout`` (``dropout(act(x))``, gelu or relu).
+ops the ported slices run): softmax, layer_norm, conv2d, pool2d,
+batch_norm, and the dropout family — ``dropout``, ``fused_dropout_add``
+(``dropout(x) + residual``) and ``fused_act_dropout`` (``dropout(act(x))``,
+gelu or relu).  conv2d and pool2d are PyTorch library calls (cuDNN on
+the card): the reference computes them with XLA, outside any Pallas
+kernel.
 
 The random bits.  The reference draws its masks from
 ``jax.random.bernoulli`` or the TPU core's PRNG; torch can reproduce
@@ -41,6 +44,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import cuda_kernels
 from .registry import register_op
@@ -398,3 +402,164 @@ def _layer_norm(ins, attrs, ctx):
     lead = tuple(x.shape[:begin])
     return {"Y": [out.to(x.dtype)], "Mean": [m.reshape(lead)],
             "Variance": [v.reshape(lead)]}
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling and batch norm: library calls (cuDNN on the card),
+# as the reference leaves them to XLA's lax.conv_general_dilated and
+# lax.reduce_window
+# ---------------------------------------------------------------------------
+def _same_pads(sizes, ksize, strides, dilations):
+    """lax's ``SAME`` rule per spatial dim: ``ceil(in / s)`` outputs, the
+    total padding ``(out - 1)·s + (k - 1)·d + 1 - in`` (at least 0), its
+    low half ``total // 2``."""
+    pads = []
+    for n, k, s, d in zip(sizes, ksize, strides, dilations):
+        out = -(-n // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _explicit_pads(p):
+    """2 paddings (symmetric per dim) or 4 (low, high per dim)."""
+    p = list(p)
+    if len(p) == 4:
+        return [(p[0], p[1]), (p[2], p[3])]
+    if len(p) == 2:
+        return [(p[0], p[0]), (p[1], p[1])]
+    return [(p[0], p[0])] * 2
+
+
+def _conv_pad(attrs, sizes, ksize, strides, dilations):
+    """The reference's ``_conv_pad``: ``SAME``, ``VALID`` or explicit."""
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    if algo == "SAME":
+        return _same_pads(sizes, ksize, strides, dilations)
+    if algo == "VALID":
+        return [(0, 0), (0, 0)]
+    return _explicit_pads(attrs.get("paddings", [0, 0]))
+
+
+def _pad_hw(x, pads, value=0.0):
+    """Pad the last two dims of an NCHW tensor by [(lo, hi), (lo, hi)]."""
+    (hl, hh), (wl, wh) = pads
+    if hl == hh == wl == wh == 0:
+        return x
+    return F.pad(x, (wl, wh, hl, hh), value=value)
+
+
+def _to_nchw(x, nhwc):
+    return x.permute(0, 3, 1, 2) if nhwc else x
+
+
+def _from_nchw(x, nhwc):
+    return x.permute(0, 2, 3, 1) if nhwc else x
+
+
+@register_op("conv2d")
+def _conv2d(ins, attrs, ctx):
+    """``F.conv2d`` with fluid's attrs; asymmetric and ``SAME`` padding
+    (which ``F.conv2d`` refuses at stride > 1) as an explicit ``F.pad``
+    first."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    nhwc = attrs.get("data_format", "NCHW") not in ("NCHW", "AnyLayout")
+    xc = _to_nchw(x, nhwc)
+    strides = list(attrs.get("strides", [1, 1]))
+    dilations = list(attrs.get("dilations", [1, 1]))
+    pads = _conv_pad(attrs, xc.shape[2:], w.shape[2:], strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        xc, padding = _pad_hw(xc, pads), [0, 0]
+    out = F.conv2d(xc, w, stride=strides, padding=padding,
+                   dilation=dilations, groups=attrs.get("groups", 1))
+    return {"Output": [_from_nchw(out, nhwc).to(x.dtype)]}
+
+
+@register_op("pool2d")
+def _pool2d(ins, attrs, ctx):
+    """Max or average pooling as the reference's ``lax.reduce_window``:
+    padded positions are -inf for max and 0 for average.  The average
+    divides by the count of real positions only when ``exclusive`` is
+    set and the padding is explicit and nonzero; under ``SAME`` it
+    divides by the whole window, as the reference does.  The reference
+    reads no ``ceil_mode``; the port refuses it rather than give
+    floor-sized outputs under that name."""
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    if attrs.get("global_pooling", False):
+        axes = (1, 2) if nhwc else (2, 3)
+        out = (torch.amax(x, axes, keepdim=True) if ptype == "max"
+               else torch.mean(x, axes, keepdim=True))
+        return {"Out": [out]}
+    if attrs.get("ceil_mode", False):
+        raise NotImplementedError(
+            "pool2d(ceil_mode=True) is not supported: the reference ignores "
+            "ceil_mode and gives floor-sized outputs")
+    ks = list(attrs["ksize"])
+    st = list(attrs.get("strides", ks))
+    xc = _to_nchw(x, nhwc)
+    same = attrs.get("padding_algorithm", "EXPLICIT") == "SAME"
+    pads = (_same_pads(xc.shape[2:], ks, st, (1, 1)) if same
+            else _explicit_pads(attrs.get("paddings", [0, 0])))
+    if ptype == "max":
+        out = F.max_pool2d(_pad_hw(xc, pads, float("-inf")), ks, st)
+    else:
+        summed = F.avg_pool2d(_pad_hw(xc, pads), ks, st, divisor_override=1)
+        if attrs.get("exclusive", True) and not same \
+                and any(p != (0, 0) for p in pads):
+            ones = torch.ones_like(xc[:1, :1])
+            out = summed / F.avg_pool2d(_pad_hw(ones, pads), ks, st,
+                                        divisor_override=1)
+        else:
+            out = summed / (ks[0] * ks[1])
+    return {"Out": [_from_nchw(out, nhwc)]}
+
+
+def _batch_stats(xf, ctx, red_axes):
+    """Mean and population variance (``jnp.var``'s, not ``torch.var``'s
+    default) over ``red_axes``; under shape bucketing over the valid rows
+    only, so the padded rows do not drag the statistics."""
+    from .reduction import masked_batch_reduce
+    m = masked_batch_reduce(xf, ctx, red_axes, mean=True)
+    if m is None:
+        return (torch.mean(xf, dim=red_axes),
+                torch.var(xf, dim=red_axes, correction=0))
+    msq = masked_batch_reduce(torch.square(xf), ctx, red_axes, mean=True)
+    return m, msq - torch.square(m)
+
+
+@register_op("batch_norm",
+             nondiff_inputs=("Mean", "Variance"),
+             nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                              "SavedVariance"))
+def _batch_norm(ins, attrs, ctx):
+    """Batch statistics in float32 (``_batch_stats``); the moving
+    statistics come out as MeanOut and VarianceOut under the names they
+    were read from, and SavedVariance is the inverse standard deviation
+    ``rsqrt(v + eps)``."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    is_test = (attrs.get("is_test", False) or ctx.is_test
+               or attrs.get("use_global_stats", False))
+    ch_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    red_axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    shape = [1] * x.ndim
+    shape[ch_axis] = x.shape[ch_axis]
+    if is_test:
+        m, v = mean, var
+        mean_out, var_out = mean, var
+    else:
+        m, v = _batch_stats(x.to(torch.float32), ctx, red_axes)
+        mean_out = momentum * mean + (1 - momentum) * m
+        var_out = momentum * var + (1 - momentum) * v
+    inv = torch.rsqrt(v.to(torch.float32) + eps)
+    out = ((x.to(torch.float32) - m.reshape(shape)) * inv.reshape(shape)
+           * scale.reshape(shape) + bias.reshape(shape)).to(x.dtype)
+    return {"Y": [out], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [m], "SavedVariance": [inv]}

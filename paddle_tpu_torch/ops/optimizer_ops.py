@@ -1,6 +1,6 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
-Adam, Momentum and their bucketed forms; the other updates come with
-their slices).
+SGD, Adam, Momentum and the bucketed forms of the last two; the other
+updates come with their slices).
 
 Each op consumes (param, grad, states...) and returns new values; the
 executor writes the outputs back to the scope under the same names.  All
@@ -62,6 +62,13 @@ def _l2_coeff(attrs):
     rd = attrs.get("regularization_coeff", 0.0)
     return rd if attrs.get("regularization_method", "") == "l2_decay" \
         else 0.0
+
+
+@register_op("sgd", differentiable=False)
+def _sgd(ins, attrs, ctx):
+    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    lr = _p(ins, "LearningRate").reshape(())
+    return {"ParamOut": [p - lr * g]}
 
 
 @register_op("momentum", differentiable=False)

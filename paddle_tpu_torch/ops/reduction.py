@@ -1,10 +1,11 @@
 """Reduction lowerings (counterpart of ``paddle_tpu/ops/reduction.py``,
 the ops the ported slices run).
 
-Under shape bucketing the reference masks the padded batch rows out of a
-reduction over axis 0; the port refuses such a reduction instead
-(``_refuse_padded_batch``), so padded rows are never summed or averaged
-in silently."""
+Under shape bucketing (fluid/executor.py) a reduction that collapses the
+padded batch axis masks the padded rows out (``masked_batch_reduce``),
+and a mean divides by the true row count, so a padded step gives the
+unpadded step's answer.  ``top_k`` breaks ties by the lower index, as
+``jax.lax.top_k`` does."""
 from __future__ import annotations
 
 import torch
@@ -19,25 +20,41 @@ def _axes(attrs, ndim):
     return tuple(d % ndim for d in dim)
 
 
-def _refuse_padded_batch(op_type, x, axes, ctx):
-    """The TPU package masks padded rows out of batch reductions; until
-    the port does, averaging them in silently would be wrong."""
-    if x.ndim and 0 in axes and ctx.batch_padding_applies(x.shape[0]):
-        raise NotImplementedError(
-            f"{op_type} over the padded batch axis under shape bucketing "
-            f"is not ported yet; run programs that reduce over the batch "
-            f"without bucket padding")
+def masked_batch_reduce(x, ctx, axes, keepdim=False, mean=False):
+    """Sum or mean over ``axes`` with the padded batch rows left out, or
+    None when masking does not apply (bucketing off, axis 0 not reduced,
+    or x does not carry the padded batch dim).  The padded rows hold
+    whatever the network computed from zero inputs, not zeros; a mean
+    divides by the true row count times the other reduced extents."""
+    if x.ndim == 0 or 0 not in axes:
+        return None
+    mask = ctx.batch_mask(x.shape[0])
+    if mask is None:
+        return None
+    row = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    s = torch.sum(torch.where(row, x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device)),
+                  dim=axes, keepdim=keepdim)
+    if not mean:
+        return s
+    count = ctx.batch_valid
+    for d in axes:
+        if d != 0:
+            count *= x.shape[d]
+    return s / count
 
 
 @register_op("reduce_sum")
 def _reduce_sum(ins, attrs, ctx):
     x = ins["X"][0]
     axes = _axes(attrs, x.ndim)
-    _refuse_padded_batch("reduce_sum", x, axes, ctx)
+    keep = attrs.get("keep_dim", False)
     if not axes:
         return {"Out": [x.clone()]}
-    return {"Out": [torch.sum(x, dim=axes,
-                              keepdim=attrs.get("keep_dim", False))]}
+    out = masked_batch_reduce(x, ctx, axes, keep)
+    if out is None:
+        out = torch.sum(x, dim=axes, keepdim=keep)
+    return {"Out": [out]}
 
 
 def _float_for_mean(x):
@@ -50,15 +67,27 @@ def _float_for_mean(x):
 def _reduce_mean(ins, attrs, ctx):
     x = _float_for_mean(ins["X"][0])
     axes = _axes(attrs, x.ndim)
-    _refuse_padded_batch("reduce_mean", x, axes, ctx)
+    keep = attrs.get("keep_dim", False)
     if not axes:
         return {"Out": [x.clone()]}
-    return {"Out": [torch.mean(x, dim=axes,
-                               keepdim=attrs.get("keep_dim", False))]}
+    out = masked_batch_reduce(x, ctx, axes, keep, mean=True)
+    if out is None:
+        out = torch.mean(x, dim=axes, keepdim=keep)
+    return {"Out": [out]}
 
 
 @register_op("mean")
 def _mean(ins, attrs, ctx):
     x = _float_for_mean(ins["X"][0])
-    _refuse_padded_batch("mean", x, tuple(range(x.ndim)), ctx)
-    return {"Out": [torch.mean(x)]}
+    out = masked_batch_reduce(x, ctx, tuple(range(x.ndim)), mean=True)
+    return {"Out": [torch.mean(x) if out is None else out]}
+
+
+@register_op("top_k", nondiff_outputs=("Indices",))
+def _top_k(ins, attrs, ctx):
+    """The k largest along the last axis, largest first; among equal
+    values the lower index comes first (a stable descending sort)."""
+    x = ins["X"][0]
+    k = int(ins["K"][0]) if ins.get("K") else attrs["k"]
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}

@@ -102,12 +102,18 @@ class LoweringContext:
         # it batch-major (-1 leading dim), None when unknown
         self.cur_op_batch_major: Optional[bool] = None
 
-    def batch_padding_applies(self, dim0: int) -> bool:
-        """True when ``dim0`` is the padded batch axis of this run."""
-        return (self.batch_valid is not None
-                and self.batch_padded == dim0
-                and self.batch_valid != dim0
-                and self.cur_op_batch_major is not False)
+    def batch_mask(self, dim0: int) -> Optional[torch.Tensor]:
+        """Row-validity mask (bool[dim0] on ``device``) when ``dim0`` is
+        the padded batch axis under shape bucketing, else None.  The IR
+        hint (``cur_op_batch_major``) vetoes masking for persistable
+        inputs; for unknown provenance the dim0-equality heuristic
+        applies.  ``batch_valid`` is a host int, so making the mask never
+        waits on the card."""
+        if self.batch_valid is None or self.batch_padded != dim0 \
+                or self.cur_op_batch_major is False:
+            return None
+        return torch.arange(int(dim0), device=self.device) \
+            < self.batch_valid
 
     def seed_for(self, op_seed: int) -> int:
         """The 64-bit seed of one op's random numbers, mixed from

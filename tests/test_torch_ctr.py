@@ -146,16 +146,26 @@ def test_op_matches_reference(case):
      {"X": [_f(8, 1)], "Label": [np.ones((8, 1), "float32")]}, {})],
     ids=["reduce_sum", "sigmoid_xent"])
 def test_padded_batch_is_refused(op_type, ins, attrs):
-    """Under shape bucketing the reference folds the padded rows out;
-    the port refuses them rather than average them in silently.  A
-    reduction that keeps the batch axis is not refused."""
-    ctx = treg.LoweringContext()
-    ctx.batch_valid, ctx.batch_padded = 5, 8
+    """Under shape bucketing (5 valid rows padded to 8) both packages fold
+    the padded rows out of a batch reduction; the port's masked answer is
+    the reference's at the same inputs.  A reduction that keeps the
+    batch axis is not masked."""
+    ctx_t = treg.LoweringContext()
+    ctx_t.batch_valid, ctx_t.batch_padded = 5, 8
+    ctx_j = jreg.LoweringContext()
+    ctx_j.batch_valid, ctx_j.batch_padded = jnp.asarray(5, jnp.int32), 8
     t_ins = {s: [torch.from_numpy(a) for a in v] for s, v in ins.items()}
-    with pytest.raises(NotImplementedError, match="padded batch"):
-        treg.get_op(op_type).fn(t_ins, dict(attrs), ctx)
+    j_ins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+    got = treg.get_op(op_type).fn(t_ins, dict(attrs), ctx_t)["Out"][0]
+    want = jreg.get_op(op_type).fn(j_ins, dict(attrs), ctx_j)["Out"][0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    x = ins["X"][0]
+    if op_type == "reduce_sum":
+        np.testing.assert_allclose(got.numpy(), x[:5].sum(0), **TOL)
+    else:
+        assert np.all(got.numpy()[5:] == 0) and np.all(got.numpy()[:5] != 0)
     out = treg.get_op("reduce_sum").fn({"X": [torch.ones(8, 3)]},
-                                       {"dim": [1]}, ctx)["Out"][0]
+                                       {"dim": [1]}, ctx_t)["Out"][0]
     assert torch.equal(out, torch.full((8,), 3.0))
 
 

@@ -317,11 +317,21 @@ def _bert_base_shapes():
     return [(30522, 768)] + per_layer * 12 + [(768, 2), (2,)]
 
 
+# MNIST LeNet's eight parameters (conv 6@3x3, conv 16@5x5, fc 400x120, fc
+# 120x10, weights and biases): segments of 54, 6, 2400, 16, 48000, 120,
+# 1200 and 10 values, most of them off a multiple of 4
+LENET_SHAPES = [(6, 1, 3, 3), (6,), (16, 6, 5, 5), (16,), (400, 120), (120,),
+                (120, 10), (10,)]
+# the Momentum-with-clipping case's bucket (fc 10x16 and 16x1 with
+# biases), in the sorted order the optimizer appends them
+CLIP_CASE_SHAPES = [(16,), (1,), (10, 16), (16, 1)]
+
 ADAM_BUCKETS = {
     "bert_base_99": _bert_base_shapes(),
     "more_than_a_chunk": [(i % 5 + 1, 3) for i in range(
         2 * cuda_kernels.ADAM_SEGMENTS_PER_LAUNCH + 7)],
     "odd_sizes": [(2,), (13, 1), (7,), (1024, 3), (5,)],
+    "lenet_8": LENET_SHAPES,
 }
 
 
@@ -349,6 +359,57 @@ def test_fused_adam_two_steps_equal_per_param_adam(cuda, bucket):
         ins = dict(ins, **{s: fused[o] for o, s in _ADAM_STATE.items()},
                    Grad=[1e-2 * torch.randn_like(p) for p in ins["Grad"]])
     del ins, fused
+
+
+def test_fused_adam_at_lenet_segments_equals_plain(cuda):
+    """At LeNet's segments the kernel's outputs equal its plain version's
+    (``_plain_fused_adam`` on the card: the bucket flattened, lr_t
+    broadcast), bit for bit."""
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
+    ins = _adam_bucket(cuda, LENET_SHAPES, seed=3)
+    args = [ins[s] for s in ("Param", "Grad", "Moment1", "Moment2")] + \
+        [ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"],
+         0.9, 0.999, 1e-8]
+    before = cuda_kernels.fused_adam.launches
+    fused = get_op("fused_adam").fn(ins, {"beta1": 0.9, "beta2": 0.999,
+                                          "epsilon": 1e-8},
+                                    LoweringContext(cuda))
+    assert cuda_kernels.fused_adam.launches == before + 1
+    plain = _plain_fused_adam(*args)
+    for slot, outs in plain.items():
+        for i, want in enumerate(outs):
+            assert torch.equal(fused[slot][i], want), (slot, i)
+
+
+def test_fused_momentum_at_clip_case_bucket_equals_plain(cuda):
+    """At the clip case's bucket (193 values in four segments) the kernel
+    equals the plain update over the flat bucket and the per-param
+    lowering, bit for bit."""
+    from paddle_tpu_torch.ops.optimizer_ops import _momentum_update
+    g = torch.Generator(device="cpu").manual_seed(4)
+    ins = {s: [scale * torch.randn(shape, generator=g).to(cuda)
+               for shape in CLIP_CASE_SHAPES]
+           for s, scale in (("Param", 1.0), ("Grad", 1e-1),
+                            ("Velocity", 1e-2))}
+    ins["LearningRate"] = [torch.tensor([0.05], device=cuda)]
+    attrs = {"mu": 0.9, "use_nesterov": False}
+    before = cuda_kernels.fused_momentum.launches
+    fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(cuda))
+    assert cuda_kernels.fused_momentum.launches == before + 1
+    flat = [torch.cat([t.reshape(-1) for t in ins[s]])
+            for s in ("Param", "Grad", "Velocity")]
+    p_new, v_new = _momentum_update(*flat, ins["LearningRate"][0]
+                                    .reshape(()), 0.9, 0.0, False)
+    assert torch.equal(torch.cat([t.reshape(-1)
+                                  for t in fused["ParamOut"]]), p_new)
+    assert torch.equal(torch.cat([t.reshape(-1)
+                                  for t in fused["VelocityOut"]]), v_new)
+    for i in range(len(CLIP_CASE_SHAPES)):
+        one = get_op("momentum").fn(
+            {s: [v[0] if s == "LearningRate" else v[i]]
+             for s, v in ins.items()}, attrs, LoweringContext(cuda))
+        for slot, outs in one.items():
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
 
 
 def test_fused_adam_kernel_reads_unaligned_views(cuda):

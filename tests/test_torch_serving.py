@@ -143,17 +143,27 @@ def test_queue_full_and_closed_engine_reject():
 
 
 def test_batch_reduction_under_bucketing_refuses():
-    """A mean over the padded batch axis would average padding rows in;
-    the port refuses it instead of answering wrongly."""
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup):
-        x = tfluid.data("x", [-1, 4])
-        out = tfluid.layers.reduce_mean(x, dim=[0])
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    main._hints["shape_bucketing"] = True
-    feed = {"x": np.ones((3, 4), "float32")}
-    with pytest.raises(NotImplementedError, match="padded batch"):
-        exe.run(main, feed=feed, fetch_list=[out])
-    main._hints["shape_bucketing"] = False
-    np.testing.assert_allclose(
-        exe.run(main, feed=feed, fetch_list=[out])[0], np.ones(4))
+    """A mean over the padded batch axis leaves the padding rows out: 3
+    rows padded to a bucket of 4 give the unpadded answer and the
+    reference's answer under the same bucketing."""
+    x_np = np.random.RandomState(4).randn(3, 4).astype("float32")
+    answers = {}
+    for name, pkg, exe in (
+            ("port", tfluid, tfluid.Executor(tfluid.CPUPlace())),
+            ("reference", jfluid, jfluid.Executor())):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            x = pkg.data("x", [-1, 4])
+            out = pkg.layers.reduce_mean(x, dim=[0])
+        main._hints["shape_bucketing"] = True
+        answers[name] = np.asarray(
+            exe.run(main, feed={"x": x_np}, fetch_list=[out])[0])
+        if pkg is tfluid:
+            main._hints["shape_bucketing"] = False
+            answers["unpadded"] = exe.run(main, feed={"x": x_np},
+                                          fetch_list=[out])[0]
+    np.testing.assert_allclose(answers["port"], x_np.mean(0), rtol=1e-6)
+    np.testing.assert_allclose(answers["port"], answers["unpadded"],
+                               rtol=1e-6)
+    np.testing.assert_allclose(answers["port"], answers["reference"],
+                               rtol=1e-6)
