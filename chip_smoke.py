@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving and training paths on one CUDA card,
 end to end: the static BERT program, the wide&deep CTR program, the
-flagship dygraph ``BertForPretraining`` step, paged decode and the static
-book tier (MNIST LeNet).
+flagship dygraph ``BertForPretraining`` step, paged decode, the static
+book tier (MNIST LeNet) and the dygraph ResNet-50 step.
 
     python3 chip_smoke.py
 
@@ -144,12 +144,37 @@ over):
    LeNet's eight segments and ``fused_momentum`` at the clip case's
    bucket, ``torch.equal`` to their plain versions, device ms beside the
    plain, library and bound.
+4h. train dygraph ResNet-50 -- ``vision.models.resnet50`` at
+   ``bench.py:449``'s full width (1000 classes, NHWC, batch 128 of
+   224x224x3 images and labels from seed 0, bf16 autocast), through both
+   of the repo's entry points: (a) ``functional_loss`` +
+   ``torch.func.grad_and_value`` and SGD with momentum 0.9, lr 0.1, on
+   the values (``bench.py:134``'s step), RESNET_STEPS steps on one fixed
+   batch whose losses must be finite and fall; (b) the eager loop,
+   ``loss.backward()``, ``MomentumOptimizer(0.1, 0.9).minimize`` and
+   ``clear_gradients``; then one eval forward on the moving statistics.
+   Host ms a step, images/s and peak memory for each; no hand-written
+   kernel runs on this path (every count stays 0: convolutions and
+   pooling are cuDNN's, the fc cuBLAS's, and (b) updates each of the 161
+   parameters with its own ``momentum`` op, as the reference does).  Card
+   against host at RESNET_HOST (depth 50, 64x64, batch 4, 10 classes,
+   float32, one state carried by ``interop.layer_from_numpy``): the
+   losses within rtol 1e-4, the first-step gradients as a whole (cosine
+   >= 0.99, norms within 2%) and the fc layer's within 1e-3 of their
+   largest (the largest error over the largest gradient is printed
+   beside: float32 moves the first layers' gradients of a 50-layer
+   batch-norm net by about 1e-2 of the largest between two summation
+   orders), the moving statistics after one eager step within 1e-4 of
+   each buffer's largest, eval logits (initial weights, the step's
+   moving statistics) within 1e-4 of the largest; a host twin whose batch
+   norm normalizes training by the moving statistics must miss.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
    64 and 512 rows served and 4096 rows trained, for one dygraph BERT
    step, for a paged decode step at 1, 8 and 32 slots, and for a
-   kernel-tier LeNet step at 64 and 512 rows.
+   kernel-tier LeNet step at 64 and 512 rows; and for the ResNet-50
+   step (a), step (b) and the eval forward at 128 rows.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -221,6 +246,15 @@ LENET_PROFILE_ROWS = (64, 512)
 # weights and biases
 LENET_SEGMENTS = (54, 6, 2400, 16, 48000, 120, 1200, 10)
 CLIP_STEPS = 50            # the Momentum-with-clipping case's steps
+# phase 4h: bench.py:449 main_resnet's ResNet-50 step (BASELINE.md config
+# 2) at its full width, nothing cut: 1000 classes, NHWC, batch 128 of
+# 224x224x3 synthetic images, bf16 autocast, SGD with momentum 0.9 at
+# lr 0.1; the card-vs-host check at a reduced size (RESNET_HOST)
+RESNET = dict(num_classes=1000, data_format="NHWC")
+RESNET_BATCH, RESNET_SIZE, RESNET_LR, RESNET_MU = 128, 224, 0.1, 0.9
+RESNET_STEPS = 10          # functional steps on one fixed batch
+RESNET_TAPE_STEPS = 3      # eager steps (loss.backward() + minimize)
+RESNET_HOST = dict(depth=50, num_classes=10, size=64, batch=4)
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -2437,6 +2471,353 @@ def phase_profile_dygraph(step, card, iters=5):
 
 
 # ---------------------------------------------------------------------------
+# the dygraph ResNet-50 step (4h) and its profile
+# ---------------------------------------------------------------------------
+
+def _resnet_loss(model):
+    from paddle_tpu_torch.fluid import layers as L
+
+    def loss_fn(images, labels):
+        return L.nn.mean(L.softmax_with_cross_entropy(model(images), labels))
+    return loss_fn
+
+
+def _resnet_batch(batch, size, classes, device, seed=SEED):
+    """bench.py's synthetic batch: NHWC images ``randn`` and labels
+    ``randint`` from ``RandomState(seed)``, as tensors on ``device``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    images = rng.randn(batch, size, size, 3).astype("float32")
+    labels = rng.randint(0, classes, (batch, 1)).astype("int64")
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def _functional_resnet_step(model):
+    """bench.py:134's step on the port: the grad program of
+    ``functional_loss`` by ``torch.func.grad_and_value``, then SGD with
+    momentum on the values (``v = mu v + g``, ``p = p - lr v``).  Returns
+    ``step(images, labels) -> (loss, grads)``; the values live in a box
+    and are written back into the model after each step."""
+    import torch
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+
+    lr, mu = RESNET_LR, RESNET_MU
+    pv, lfn = functional_loss(model, _resnet_loss(model))
+    grad_fn = torch.func.grad_and_value(lfn)
+    box = {"p": pv, "v": [torch.zeros_like(p, dtype=torch.float32)
+                          for p in pv]}
+
+    def step(images, labels):
+        grads, loss = grad_fn(box["p"], images, labels)
+        box["v"] = torch._foreach_add(torch._foreach_mul(box["v"], mu),
+                                      [g.float() for g in grads])
+        box["p"] = [(p.float() - lr * v).to(p.dtype)
+                    for p, v in zip(box["p"], box["v"])]
+        for param, value in zip(model.parameters(), box["p"]):
+            param._value = value
+        return loss, grads
+    return step
+
+
+def _eager_resnet_step(model):
+    """The user's eager loop: ``loss.backward()``, a fluid
+    ``MomentumOptimizer(parameter_list=...).minimize(loss)`` (one
+    ``momentum`` op a parameter), ``model.clear_gradients()``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    opt = fluid.optimizer.MomentumOptimizer(
+        RESNET_LR, RESNET_MU, parameter_list=model.parameters())
+    loss_fn = _resnet_loss(model)
+
+    def step(images, labels):
+        loss = loss_fn(dybase.to_variable(images),
+                       dybase.to_variable(labels))
+        loss.backward()
+        opt.minimize(loss)
+        model.clear_gradients()
+        return loss.value()
+    return step
+
+
+def _cosine(a, b):
+    a = np.concatenate([x.ravel() for x in a]).astype(np.float64)
+    b = np.concatenate([x.ravel() for x in b]).astype(np.float64)
+    return (float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))),
+            float(np.linalg.norm(a) / np.linalg.norm(b)))
+
+
+def _resnet_run(place, init, twin=None):
+    """At RESNET_HOST from ``init``: one functional step's loss and
+    gradients, one eager step's loss and moving statistics, then eval
+    logits from the initial weights and those statistics.  ``twin``, a
+    context manager, is held around all of it."""
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision.models import ResNet
+
+    h = RESNET_HOST
+    twin = twin or contextlib.nullcontext
+    with dybase.guard(place), twin():
+        tracer = dybase._dygraph_tracer()
+        model = ResNet(h["depth"], num_classes=h["num_classes"],
+                       data_format="NHWC")
+        interop.layer_from_numpy(model, init)
+        model.train()
+        images, labels = _resnet_batch(h["batch"], h["size"],
+                                       h["num_classes"], tracer.device,
+                                       seed=SEED + 41)
+        loss_a, grads = _functional_resnet_step(model)(images, labels)
+        out = {"loss_a": float(loss_a),
+               "grads": [g.detach().cpu().numpy() for g in grads]}
+        interop.layer_from_numpy(model, init)
+        out["loss_b"] = float(_eager_resnet_step(model)(images, labels))
+        names = [n for n, _ in model.named_parameters()]
+        stats = {n: v for n, v in model.state_dict().items()
+                 if n not in names}
+        out["stats"] = stats
+        interop.layer_from_numpy(model, dict(init, **stats))
+        model.eval()
+        with dybase.no_grad():
+            out["logits"] = model(dybase.to_variable(images)).numpy()
+        out["names"] = names
+    return out
+
+
+def _resnet_card_vs_host(card):
+    """RESNET_HOST on the card and on the host from one state, float32:
+    losses (a) and (b) within rtol 1e-4; the first-step gradients as a
+    whole (cosine >= 0.99, norms within 2%) and the fc layer's within
+    1e-3 of their largest; the moving statistics after the eager step
+    within 1e-4 of each buffer's largest; eval logits within 1e-4 of the
+    largest.  A host twin whose batch norm normalizes training by the
+    moving statistics must miss."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision.models import ResNet
+
+    t0 = time.perf_counter()
+    h = RESNET_HOST
+    np.random.seed(SEED + 40)
+    with dybase.guard(fluid.CUDAPlace(0)):
+        init = ResNet(h["depth"], num_classes=h["num_classes"],
+                      data_format="NHWC").state_dict()
+    card_r = _resnet_run(fluid.CUDAPlace(0), init)
+    host_r = _resnet_run(fluid.CPUPlace(), init)
+    twin_r = _resnet_run(fluid.CPUPlace(), init,
+                         twin=_bn_moving_stats_in_training)
+
+    def margins(got, want):
+        """Each check's error over its tolerance (under 1 passes)."""
+        loss = max(abs(got[k] - want[k]) / abs(want[k])
+                   for k in ("loss_a", "loss_b")) / 1e-4
+        cos, norm = _cosine(got["grads"], want["grads"])
+        fc = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+                 for g, w, n in zip(got["grads"], want["grads"],
+                                    want["names"]) if n.startswith("fc."))
+        stats = max(float(np.abs(got["stats"][n] - w).max())
+                    / float(np.abs(w).max())
+                    for n, w in want["stats"].items()) / 1e-4
+        logits = float(np.abs(got["logits"] - want["logits"]).max()) \
+            / float(np.abs(want["logits"]).max()) / 1e-4
+        largest = max(float(np.abs(w).max()) for w in want["grads"])
+        worst = max(float(np.abs(g - w).max()) for g, w in
+                    zip(got["grads"], want["grads"])) / largest
+        return {"losses": loss, "gradient cosine": (1 - cos) / 0.01,
+                "gradient norms": abs(norm - 1) / 0.02, "fc": fc / 1e-3,
+                "moving statistics": stats, "eval logits": logits}, \
+            {"cosine": cos, "norm ratio": norm,
+             "max |err| / largest gradient": worst}
+
+    ok, ok_info = margins(card_r, host_r)
+    miss, miss_info = margins(twin_r, host_r)
+    fmt = ", ".join
+    _p(f"resnet: card vs host, depth {h['depth']}, {h['size']}x{h['size']}, "
+       f"batch {h['batch']}, {h['num_classes']} classes, float32, in "
+       f"{time.perf_counter() - t0:.1f} s: losses card "
+       f"{[card_r['loss_a'], card_r['loss_b']]}, host "
+       f"{[host_r['loss_a'], host_r['loss_b']]}, twin "
+       f"{[twin_r['loss_a'], twin_r['loss_b']]}  [{card}]")
+    _p("resnet: card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()) + "; "
+       + fmt(f"{k} {v:.6g}" for k, v in ok_info.items()))
+    _p("resnet: the batch norm on moving statistics twin, error / "
+       "tolerance (must miss, over 1): "
+       + fmt(f"{k} {v:.3e}" for k, v in miss.items()) + "; "
+       + fmt(f"{k} {v:.6g}" for k, v in miss_info.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: ResNet-50 on the card disagrees with "
+                         "the host")
+    if max(miss.values()) <= 1:
+        raise SystemExit("chip_smoke: the ResNet-50 card-vs-host check "
+                         "cannot see the twin")
+    return ok, miss
+
+
+def _counted_kernels():
+    from paddle_tpu_torch.ops import cuda_kernels
+    return [getattr(cuda_kernels, n) for n in (
+        "flash_attention_fwd", "flash_attention_bwd", "fused_adam",
+        "embedding_pool_fwd", "embedding_pool_grad", "fused_momentum",
+        "fused_dropout", "dropout_mask", "fused_dropout_add",
+        "fused_act_dropout", "fused_act_dropout_bwd", "paged_attention")]
+
+
+def phase_train_resnet(card):
+    """The ResNet-50 step at RESNET's full width through (a) and (b),
+    then the eval forward, each with its host ms, images/s and peak
+    memory; (a)'s losses on one fixed batch must be finite and fall;
+    no hand-written kernel launches; then ``_resnet_card_vs_host``.
+    Returns what the profile phase needs."""
+    import torch
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.vision.models import resnet50
+
+    # a dygraph user gets torch's cuDNN defaults (the tracer sets only
+    # TF32 off); phase 4g's executor set deterministic algorithms
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    dybase.enable_dygraph()               # the card: CUDAPlace(0)
+    tracer = _dygraph_tracer()
+    tracer._amp_enabled = True
+    model = resnet50(**RESNET)
+    model.train()
+    n_params = sum(p.value().numel() for p in model.parameters())
+    images, labels = _resnet_batch(RESNET_BATCH, RESNET_SIZE,
+                                   RESNET["num_classes"], tracer.device)
+    _p(f"resnet: resnet50(num_classes={RESNET['num_classes']}, "
+       f"data_format={RESNET['data_format']!r}), {n_params} parameters in "
+       f"{len(model.parameters())} tensors, {len(model.buffers())} "
+       f"buffers, built on the card in {time.perf_counter() - t0:.1f} s; "
+       f"batch {RESNET_BATCH} of {RESNET_SIZE}x{RESNET_SIZE}x3, bf16 "
+       f"autocast, SGD momentum {RESNET_MU} lr {RESNET_LR}; cuDNN "
+       f"deterministic={torch.backends.cudnn.deterministic}, "
+       f"benchmark={torch.backends.cudnn.benchmark}, TF32 "
+       f"{torch.backends.cudnn.allow_tf32}")
+    counted = _counted_kernels()
+    stats0 = [b._value.clone() for b in model.buffers()]
+    fstep = _functional_resnet_step(model)
+
+    def timed(label, fn, steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = [fn() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = wall / steps * 1e3
+        _p(f"resnet {label}: {steps} x {RESNET_BATCH} images in {wall:.3f} "
+           f"s: {ms:.2f} ms/step, {RESNET_BATCH / ms * 1e3:.1f} images/s, "
+           f"peak memory {peak:.2f} GiB  [{card}]")
+        return out
+
+    t = time.perf_counter()
+    first = float(fstep(images, labels)[0])
+    torch.cuda.synchronize()
+    _p(f"resnet (a): warm-up step {time.perf_counter() - t:.2f} s, loss "
+       f"{first}")
+    for fn in counted:
+        fn.launches = 0
+    losses = [float(loss) for loss, _ in timed(
+        "(a) functional step", lambda: fstep(images, labels),
+        RESNET_STEPS)]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    _p(f"resnet (a): losses {[round(x, 4) for x in [first] + losses]}; "
+       f"hand-written kernel launches {launches} (none expected)")
+    if not np.isfinite(losses).all() or not losses[-1] < first:
+        raise SystemExit("chip_smoke: the ResNet-50 functional steps' "
+                         "losses are not finite or do not fall")
+    if any(launches.values()):
+        raise SystemExit("chip_smoke: the ResNet-50 path launched a "
+                         "hand-written kernel")
+    if not all(torch.equal(b._value, s)
+               for b, s in zip(model.buffers(), stats0)):
+        raise SystemExit("chip_smoke: a functional step moved a buffer")
+
+    estep = _eager_resnet_step(model)
+    t = time.perf_counter()
+    loss_b0 = float(estep(images, labels))
+    torch.cuda.synchronize()
+    _p(f"resnet (b): warm-up step {time.perf_counter() - t:.2f} s, loss "
+       f"{loss_b0}")
+    for fn in counted:
+        fn.launches = 0
+    tape = [float(x) for x in timed(
+        "(b) loss.backward() + minimize", lambda: estep(images, labels),
+        RESNET_TAPE_STEPS)]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    moved = sum(not torch.equal(b._value, s)
+                for b, s in zip(model.buffers(), stats0))
+    _p(f"resnet (b): losses {[round(x, 4) for x in [loss_b0] + tape]}; "
+       f"{moved} of {len(stats0)} moving statistics moved; hand-written "
+       f"kernel launches {launches} (none expected)")
+    if not np.isfinite(tape).all() or moved != len(stats0) \
+            or any(launches.values()):
+        raise SystemExit("chip_smoke: the ResNet-50 eager steps failed")
+
+    model.eval()
+
+    def evaluate():
+        with dybase.no_grad():
+            return model(dybase.to_variable(images)).value()
+
+    logits = timed("eval forward", evaluate, 1)[0]
+    if tuple(logits.shape) != (RESNET_BATCH, RESNET["num_classes"]) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit("chip_smoke: the ResNet-50 eval logits are not "
+                         "finite or not of their shape")
+    model.train()
+    _resnet_card_vs_host(card)
+    tracer._amp_enabled = True
+    return model, fstep, estep, evaluate, (images, labels)
+
+
+def _resnet_flops_per_image():
+    """2·MACs of ResNet-50's convolutions and fc at RESNET_SIZE² (4.1e9
+    MACs at 224, the published count), forward only."""
+    return 2 * 4.1e9 * (RESNET_SIZE / 224) ** 2
+
+
+def phase_profile_resnet(trained, card, iters=3):
+    """Where the ResNet-50 step's time goes, as ``phase_profile``
+    measures it: (a), (b) and the eval forward at RESNET_BATCH rows, with
+    each one's peak memory; the "copies and casts" class is where a
+    layout copy of an NHWC activation would show."""
+    import torch
+
+    model, fstep, estep, evaluate, (images, labels) = trained
+    gflop = _resnet_flops_per_image() * RESNET_BATCH / 1e9
+    model.train()
+    for label, fn, flops in (
+            ("(a) functional step", lambda: fstep(images, labels)[0].cpu(),
+             3 * gflop),
+            ("(b) loss.backward() + minimize",
+             lambda: estep(images, labels).cpu(), 3 * gflop),
+            ("eval forward", lambda: evaluate().cpu(), gflop)):
+        if label == "eval forward":
+            model.eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host_ms, busy_ms, idle, n_kern, by_class = _profile(fn, iters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _p(f"profile: ResNet-50 {label}, {RESNET_BATCH} x {RESNET_SIZE}^2, "
+           f"bf16: host {host_ms:.3f} ms/step ({RESNET_BATCH / host_ms * 1e3:.1f} "
+           f"images/s), device busy {busy_ms:.3f} ms/step, idle share "
+           f"{idle:.4f}, {n_kern:.0f} kernels/step, peak memory {peak:.2f} "
+           f"GiB; {flops:.0f} GFLOP of convolutions and fc at "
+           f"{flops / busy_ms if busy_ms else float('nan'):.1f} TFLOP/s "
+           f"of busy time  [{card}]")
+        _print_classes(by_class, "step")
+    model.train()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the decode path: paged attention (3f), decode serving (4f), its profile
 # ---------------------------------------------------------------------------
 
@@ -3624,6 +4005,7 @@ _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("nvjet", "matmul (cuBLAS)"),
             ("cutlass", "matmul (cuBLAS)"), ("catarray", "flatten copies"),
             ("memcpy", "host copies"), ("memset", "host copies"),
+            ("direct_copy", "copies and casts"),
             ("index", "embedding gather/scatter"),
             ("reduce", "reductions"), ("softmax", "softmax"),
             ("elementwise", "elementwise"), ("vectorized", "elementwise"))
@@ -3875,12 +4257,14 @@ def main():
         "4g static e2e / LeNet", phase_static_book, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
+    resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
     _timed("5 profile dygraph", phase_profile_dygraph, dy_step, card)
     _timed("5 profile decode", phase_profile_decode, decode_served, card)
     _timed("5 profile LeNet", phase_profile_lenet, book_profiled, card)
+    _timed("5 profile ResNet-50", phase_profile_resnet, resnet, card)
     shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
              BERT_BASE["hidden"] // BERT_BASE["heads"]]
     # the forward runs on both paths: "launches" stays the served path's

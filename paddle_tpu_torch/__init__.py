@@ -14,9 +14,11 @@ Ported so far: the static BERT and CTR programs, served
 (``serving.freeze_program``, the kernel-tier passes,
 ``serving.ServingEngine``) and trained (``Executor.run``), and dygraph
 training of ``models.bert.BertForPretraining`` (``dygraph``,
-``dygraph.functional``, ``optimizer.fused``), and autoregressive decode
-over a block-paged KV cache (``serving.DecodeEngine``); see ROADMAP.md
-for what comes next.
+``dygraph.functional``, ``optimizer.fused``) and of
+``vision.models.resnet50`` (functionally, or by ``loss.backward()`` and
+``fluid.optimizer``'s ``minimize``), and autoregressive decode over a
+block-paged KV cache (``serving.DecodeEngine``); see ROADMAP.md for what
+comes next.
 """
 from . import fluid
 from . import serving

@@ -5,9 +5,11 @@ python/paddle/fluid/dygraph/layers.py).
 Parameters and sublayers register through attribute assignment, in
 assignment order, so ``named_parameters`` and ``state_dict`` name and
 order them as the reference does (``bert.encoder.layers.0.linear1.weight``
-and so on).  ``state_dict`` gives host numpy arrays; ``set_state_dict``
-puts values back on each parameter's own device and dtype.  Buffers
-(``register_buffer``) come with the first ported layer that has one.
+and so on).  Buffers (``register_buffer``: a batch norm's moving
+statistics) are state that is not trained; ``state_dict`` carries them
+after each layer's parameters, as the reference's does.  ``state_dict``
+gives host numpy arrays; ``set_state_dict`` puts values back on each
+tensor's own device and dtype.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from ..fluid.framework import unique_name, _dygraph_tracer
-from .base import ParamBase
+from .base import ParamBase, VarBase, to_variable
 
 
 class Layer:
@@ -27,6 +29,7 @@ class Layer:
         self._dtype = dtype
         self._parameters: "OrderedDict[str, ParamBase]" = OrderedDict()
         self._sub_layers: "OrderedDict[str, Layer]" = OrderedDict()
+        self._buffers: "OrderedDict[str, VarBase]" = OrderedDict()
         self.training = True
 
     # -- registration through the attribute protocol ------------------------
@@ -47,6 +50,18 @@ class Layer:
         object.__setattr__(self, name, sublayer)
         return sublayer
 
+    def register_buffer(self, name, tensor, persistable=True):
+        """State that is not trained, under ``name``: a VarBase that stops
+        gradients (anything else goes through ``to_variable`` first)."""
+        if tensor is not None and not isinstance(tensor, VarBase):
+            tensor = to_variable(tensor)
+        if tensor is not None:
+            tensor.persistable = persistable
+            tensor.stop_gradient = True
+        self._buffers[name] = tensor
+        object.__setattr__(self, name, tensor)
+        return tensor
+
     # -- traversal ----------------------------------------------------------
     def parameters(self, include_sublayers=True) -> List[ParamBase]:
         out = list(self._parameters.values())
@@ -60,6 +75,12 @@ class Layer:
             yield f"{prefix}{name}", p
         for lname, sub in self._sub_layers.items():
             yield from sub.named_parameters(prefix=f"{prefix}{lname}.")
+
+    def buffers(self) -> List[VarBase]:
+        out = list(self._buffers.values())
+        for sub in self._sub_layers.values():
+            out.extend(sub.buffers())
+        return out
 
     # -- modes --------------------------------------------------------------
     def train(self):
@@ -86,14 +107,17 @@ class Layer:
         dest = destination if destination is not None else OrderedDict()
         for name, p in self._parameters.items():
             dest[prefix + name] = p.numpy()
+        for name, b in self._buffers.items():
+            if b is not None:
+                dest[prefix + name] = b.numpy()
         if include_sublayers:
             for lname, sub in self._sub_layers.items():
                 sub.state_dict(dest, True, prefix=f"{prefix}{lname}.")
         return dest
 
     def set_state_dict(self, state_dict, include_sublayers=True):
-        """Set each parameter named in ``state_dict``; names it lacks
-        keep their values."""
+        """Set each parameter and buffer named in ``state_dict``; names it
+        lacks keep their values."""
         for name, value in self._named_leaves():
             if name in state_dict:
                 value.set_value(np.asarray(state_dict[name]))
@@ -103,6 +127,9 @@ class Layer:
     def _named_leaves(self, prefix=""):
         for name, p in self._parameters.items():
             yield prefix + name, p
+        for name, b in self._buffers.items():
+            if b is not None:
+                yield prefix + name, b
         for lname, sub in self._sub_layers.items():
             yield from sub._named_leaves(prefix=f"{prefix}{lname}.")
 

@@ -394,6 +394,18 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
     return _out(op, "Out", out)
 
 
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None,
+                    data_format="NCHW"):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("adaptive_pool2d", inputs={"X": [input]},
+                          outputs={"Out": [out]},
+                          attrs={"ksize": _pair(pool_size),
+                                 "pooling_type": pool_type,
+                                 "data_format": data_format})
+    return _out(op, "Out", out)
+
+
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                param_attr=None, bias_attr=None, data_layout="NCHW",
                in_place=False, name=None, moving_mean_name=None,

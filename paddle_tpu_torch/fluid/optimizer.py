@@ -1,21 +1,43 @@
 """Optimizers: minimize = append_backward + per-param update ops
-(counterpart of ``paddle_tpu/fluid/optimizer.py``, static mode, SGD,
-Momentum and Adam, with ``grad_clip``; the other optimizers,
-``regularization`` and ``multi_precision`` come with their slices).
+(counterpart of ``paddle_tpu/fluid/optimizer.py``: SGD, Momentum and
+Adam, with ``grad_clip``, in static and in dygraph mode; the other
+optimizers, ``regularization`` and ``multi_precision`` come with their
+slices).
 
-The accumulator and learning-rate var names are the reference's
-(``<Optimizer>_<acc>_<param>``, ``learning_rate_<n>``), so
+In static mode the accumulator and learning-rate var names are the
+reference's (``<Optimizer>_<acc>_<param>``, ``learning_rate_<n>``), so
 ``interop.scope_from_numpy`` carries the whole optimizer state across
-packages by name.
+packages by name.  In dygraph mode ``minimize`` takes the tape's
+gradients of ``parameter_list`` and runs each parameter's update op
+eagerly, one op a parameter, as the reference does.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import torch
+
 from .backward import append_backward
-from .framework import Variable, program_guard, unique_name
+from .framework import (Variable, in_dygraph_mode, program_guard,
+                        unique_name, _dygraph_tracer)
 from .layer_helper import LayerHelper
 from . import layers
+
+
+class _EagerOptHelper:
+    """LayerHelper stand-in for dygraph ``minimize``: runs an optimizer
+    op's lowering eagerly and writes each output into the VarBase passed
+    in that output slot (the in-place update), in that VarBase's dtype."""
+
+    def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        from ..ops.registry import get_op
+        ins = {s: [v._value for v in vs]
+               for s, vs in (inputs or {}).items() if vs}
+        outs = get_op(type).fn(ins, attrs or {}, _dygraph_tracer()._ctx())
+        for slot, vbs in (outputs or {}).items():
+            for vb, t in zip(vbs, outs.get(slot) or []):
+                vb._value = t.to(vb._value.dtype)
+        return outs
 
 
 class Optimizer:
@@ -42,6 +64,17 @@ class Optimizer:
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, shape=None,
                          dtype=None):
+        if in_dygraph_mode():
+            from ..dygraph.base import VarBase
+            from .framework import torch_dtype
+            accs = self._accumulators.setdefault(name, {})
+            if param.name not in accs:
+                accs[param.name] = VarBase(torch.full(
+                    tuple(shape or param.shape), fill_value,
+                    dtype=torch_dtype(dtype) if dtype is not None
+                    else param._value.dtype,
+                    device=param._value.device), stop_gradient=True)
+            return accs[param.name]
         key = f"{self._name}_{name}_{param.name}"
         acc = layers.create_global_var(
             shape or list(param.shape), fill_value, dtype or param.dtype,
@@ -74,11 +107,88 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        if in_dygraph_mode():
+            return self._minimize_dygraph(loss, parameter_list)
         # ops append to the loss's program even outside its program_guard
         with program_guard(loss.block.program, startup_program):
             params_grads = self.backward(loss, parameter_list, no_grad_set)
             ops = self.apply_gradients(params_grads)
         return ops, params_grads
+
+    def _minimize_dygraph(self, loss, parameter_list=None):
+        """The tape's gradients of the parameter list (``loss.backward()``
+        first only when no parameter has one), clipped, then each
+        subclass's ``_append_optimize_op`` run eagerly through
+        ``_EagerOptHelper``, which writes ParamOut and the accumulators'
+        outputs back into their VarBases.  Returns ``(None,
+        params_grads)``."""
+        from ..dygraph.base import VarBase
+
+        params = list(parameter_list or self._parameter_list or [])
+        if not params:
+            raise ValueError(
+                "fluid Optimizer.minimize in dygraph mode needs parameters: "
+                "construct the optimizer with parameter_list=layer"
+                ".parameters()")
+        if all(p.gradient_var is None for p in params):
+            loss.backward()
+        params_grads = [(p, VarBase(p.gradient_var, stop_gradient=True))
+                        for p in params
+                        if p.gradient_var is not None
+                        and getattr(p, "trainable", True)]
+        regularized = [p.name for p, _ in params_grads
+                       if getattr(p, "regularizer", None) is not None]
+        if regularized:
+            raise NotImplementedError(
+                f"ParamAttr(regularizer=) is not ported yet (parameters "
+                f"{regularized[:3]})")
+        # the raw gradients are clipped, as in apply_gradients
+        if self._grad_clip is not None:
+            params_grads = self._clip_eager(params_grads)
+        lr = self._learning_rate
+        lr = float(getattr(lr, "_value", lr))
+        saved_helper, saved_lr = self.helper, self._lr_var
+        self.helper = _EagerOptHelper()
+        self._lr_var = VarBase(torch.tensor([lr], dtype=torch.float32,
+                                            device=params[0]._value.device),
+                               stop_gradient=True)
+        try:
+            self._create_accumulators([p for p, _ in params_grads])
+            for p, g in params_grads:
+                self._append_optimize_op(p, g)
+        finally:
+            self.helper, self._lr_var = saved_helper, saved_lr
+        return None, params_grads
+
+    def _clip_eager(self, params_grads):
+        """``grad_clip`` on the tape's gradients, by the reference's
+        eager formulas."""
+        from ..dygraph.base import VarBase
+        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                           GradientClipByValue)
+        gc = self._grad_clip
+        gs = [g._value for _, g in params_grads]
+        if isinstance(gc, GradientClipByGlobalNorm):
+            norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+            scale = gc.clip_norm / torch.clamp(norm, min=gc.clip_norm)
+            gs = [g * scale for g in gs]
+        elif isinstance(gc, GradientClipByNorm):
+            out = []
+            for g in gs:
+                n = torch.sqrt(torch.sum(torch.square(g)))
+                out.append(torch.where(n > gc.clip_norm,
+                                       g * (gc.clip_norm / n), g))
+            gs = out
+        elif isinstance(gc, GradientClipByValue):
+            gs = [torch.clamp(g, gc.min, gc.max) for g in gs]
+        else:
+            return params_grads
+        return [(p, VarBase(g, stop_gradient=True))
+                for (p, _), g in zip(params_grads, gs)]
+
+    def clear_gradients(self):
+        for p in (self._parameter_list or []):
+            p.clear_gradient()
 
 
 class SGDOptimizer(Optimizer):

@@ -36,7 +36,7 @@ def scope_to_numpy(scope: Scope, names: Iterable[str]) -> Dict[str, np.ndarray]:
 
 
 def layer_from_numpy(layer, state: Dict[str, np.ndarray]):
-    """Set a dygraph Layer's parameters from ``state``, a
+    """Set a dygraph Layer's parameters and buffers from ``state``, a
     ``Layer.state_dict()`` of the same model (numpy arrays by structured
     name), each on its own device and dtype.  Refuses a name the layer
     lacks, a name ``state`` lacks, and a shape that differs."""

@@ -1,5 +1,6 @@
-"""paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``, the
-activations and the transformer encoder stack BERT runs).
+"""paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``: the
+activations, the flatten, pooling and batch-norm layers ResNet runs, and
+the transformer encoder stack BERT runs).
 
 The encoder layer always emits the fused epilogues: ``fused_dropout_add``
 for each residual and ``fused_act_dropout`` for the FFN's gelu or relu.
@@ -13,9 +14,10 @@ import copy
 import math
 
 from ..dygraph.layers import Layer, LayerList
-from ..dygraph.nn import Linear, LayerNorm
+from ..dygraph.nn import Linear, LayerNorm, BatchNorm
 from ..fluid import layers as L
 from ..fluid.framework import _dygraph_tracer
+from ..fluid.layer_helper import emit_op
 
 
 def _act_layer(fname):
@@ -29,6 +31,66 @@ def _act_layer(fname):
 ReLU = _act_layer("relu")
 GELU = _act_layer("gelu")
 Tanh = _act_layer("tanh")
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self._start, self._stop = start_axis, stop_axis
+
+    def forward(self, x):
+        return emit_op(
+            "flatten", "flatten_contiguous_range", {"X": [x]}, ("Out",),
+            {"start_axis": self._start, "stop_axis": self._stop})["Out"][0]
+
+
+class MaxPool2D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 data_format="NCHW"):
+        super().__init__()
+        self._k, self._s, self._p = kernel_size, stride or kernel_size, padding
+        self._fmt = data_format
+
+    def forward(self, x):
+        return L.pool2d(x, self._k, "max", self._s, self._p,
+                        data_format=self._fmt)
+
+
+class AvgPool2D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 data_format="NCHW"):
+        super().__init__()
+        self._k, self._s, self._p = kernel_size, stride or kernel_size, padding
+        self._fmt = data_format
+
+    def forward(self, x):
+        return L.pool2d(x, self._k, "avg", self._s, self._p,
+                        data_format=self._fmt)
+
+
+class AdaptiveAvgPool2D(Layer):
+    """A global average pool when the output is 1x1, else
+    ``adaptive_pool2d``'s uniform bins."""
+
+    def __init__(self, output_size, data_format="NCHW"):
+        super().__init__()
+        self._size = output_size
+        self._fmt = data_format
+
+    def forward(self, x):
+        if self._size in (1, (1, 1), [1, 1]):
+            return L.pool2d(x, global_pooling=True, pool_type="avg",
+                            data_format=self._fmt)
+        return L.adaptive_pool2d(x, self._size, "avg",
+                                 data_format=self._fmt)
+
+
+class BatchNorm2D(BatchNorm):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(num_features, momentum=momentum, epsilon=epsilon,
+                         param_attr=weight_attr, bias_attr=bias_attr,
+                         data_layout=data_format)
 
 
 class MultiHeadAttention(Layer):

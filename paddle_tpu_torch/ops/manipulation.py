@@ -52,6 +52,19 @@ def _flatten2(ins, attrs, ctx):
     return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
 
 
+@register_op("flatten_contiguous_range")
+def _flatten_range(ins, attrs, ctx):
+    """Dims ``start_axis`` to ``stop_axis`` (negatives from the end)
+    collapse into one, as the reference's reshape to
+    ``shape[:start] + (-1,) + shape[stop + 1:]``."""
+    x = _x(ins)
+    nd = x.ndim
+    start = attrs.get("start_axis", 1) % nd
+    stop = attrs.get("stop_axis", -1) % nd
+    shape = tuple(x.shape[:start]) + (-1,) + tuple(x.shape[stop + 1:])
+    return {"Out": [x.reshape(shape)], "XShape": [_xshape(x)]}
+
+
 @register_op("flatten")
 def _flatten(ins, attrs, ctx):
     x = _x(ins)

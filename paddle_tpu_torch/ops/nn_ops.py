@@ -518,6 +518,30 @@ def _pool2d(ins, attrs, ctx):
     return {"Out": [_from_nchw(out, nhwc)]}
 
 
+@register_op("adaptive_pool2d")
+def _adaptive_pool2d(ins, attrs, ctx):
+    """Average or max over uniform bins: ``ksize`` (the output size) must
+    divide the spatial dims, which the reference asserts and the port
+    refuses with a ``ValueError``."""
+    x = ins["X"][0]
+    oh, ow = attrs["ksize"] if "ksize" in attrs else attrs["output_size"]
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    if nhwc:
+        n, h, w, c = x.shape
+    else:
+        n, c, h, w = x.shape
+    if h % oh or w % ow:
+        raise ValueError(f"adaptive_pool2d needs divisible dims: "
+                         f"{h}x{w} into {oh}x{ow} bins")
+    if nhwc:
+        bins, red = x.reshape(n, oh, h // oh, ow, w // ow, c), (2, 4)
+    else:
+        bins, red = x.reshape(n, c, oh, h // oh, ow, w // ow), (3, 5)
+    if attrs.get("pooling_type", "avg") == "avg":
+        return {"Out": [torch.mean(bins, red)]}
+    return {"Out": [torch.amax(bins, red)]}
+
+
 def _batch_stats(xf, ctx, red_axes):
     """Mean and population variance (``jnp.var``'s, not ``torch.var``'s
     default) over ``red_axes``; under shape bucketing over the valid rows

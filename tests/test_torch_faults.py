@@ -2,8 +2,8 @@
 
 Each test runs a case where the port once parted from the reference (a
 bad id that took down a decode engine or a whole served batch, builders
-that did not train by default, a float64 feed, an integer mean) and holds
-the port to what it does now.  Two departures are on purpose: an id
+that did not train by default, a float64 feed, an integer mean, a dygraph
+``minimize`` that raised) and holds the port to what it does now.  Two departures are on purpose: an id
 outside its table is refused at ``submit``, for that request alone, where
 the reference answers with NaN (on the card such an id would trap in the
 gather kernel or assert in ``index_select`` and lose the process's CUDA
@@ -17,6 +17,10 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu  # noqa: F401 — registers the reference lowerings
+from paddle_tpu.dygraph import base as jdy
+from paddle_tpu.dygraph import nn as jnn
+from paddle_tpu.fluid import layers as JL
+from paddle_tpu.fluid import optimizer as jopt
 from paddle_tpu.fluid.framework import reset_unique_name as j_reset
 from paddle_tpu.models.static_graphs import \
     build_bert_train_program as j_bert
@@ -25,6 +29,9 @@ from paddle_tpu.models.static_graphs import \
 from paddle_tpu.ops import registry as jreg
 
 import paddle_tpu_torch.fluid as tfluid
+from paddle_tpu_torch import interop
+from paddle_tpu_torch.dygraph import base as tdy
+from paddle_tpu_torch.dygraph import nn as tnn
 from paddle_tpu_torch.fluid import layers as TL
 from paddle_tpu_torch.fluid.framework import reset_unique_name as t_reset
 from paddle_tpu_torch.models.static_graphs import \
@@ -205,3 +212,36 @@ def test_flash_inputs_that_16_byte_copies_cannot_read_are_copied():
     assert out[0] is aligned[0]
     for got, want in zip(out[1:], (shifted, packed)):
         assert cuda_kernels._aligned16(got) and torch.equal(got, want)
+
+
+def test_dygraph_adam_minimize_moves_the_weights_as_the_reference():
+    """``AdamOptimizer(parameter_list=...).minimize(loss)`` under a
+    dygraph guard: the port once went to ``loss.block.program`` and
+    raised ``AttributeError: 'VarBase' object has no attribute 'block'``;
+    the reference takes its dygraph branch and moves the weights.  One
+    step on a Linear layer from the reference's weights: the weights and
+    both moments within rtol 1e-5."""
+    x = np.random.RandomState(4).randn(6, 5).astype("float32")
+    with jdy.guard():
+        j_layer = jnn.Linear(5, 3)
+        state = j_layer.state_dict()
+        opt = jopt.AdamOptimizer(0.01, parameter_list=j_layer.parameters())
+        opt.minimize(JL.nn.mean(j_layer(jdy.to_variable(jnp.asarray(x)))))
+        want = j_layer.state_dict()
+        want_m = {n: np.asarray(v._value) for n, v in
+                  opt._accumulators["moment1"].items()}
+    with tdy.guard(HOST):
+        t_layer = tnn.Linear(5, 3)
+        interop.layer_from_numpy(t_layer, state)
+        opt = tfluid.optimizer.AdamOptimizer(
+            0.01, parameter_list=t_layer.parameters())
+        opt.minimize(TL.nn.mean(t_layer(tdy.to_variable(x))))
+        got = t_layer.state_dict()
+        got_m = {n: v.numpy() for n, v in
+                 opt._accumulators["moment1"].items()}
+    for name in state:
+        assert not np.allclose(got[name], state[name])
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-5,
+                                   atol=1e-7)
+    for g, w in zip(got_m.values(), want_m.values()):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-8)

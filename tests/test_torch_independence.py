@@ -59,6 +59,7 @@ def test_import_leaves_jax_and_reference_out():
     assert "paddle_tpu_torch.models.bert" in report["modules"]
     assert "paddle_tpu_torch.serving.decode" in report["modules"]
     assert "paddle_tpu_torch.fluid.layers.control_flow" in report["modules"]
+    assert "paddle_tpu_torch.vision.models" in report["modules"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

@@ -1075,3 +1075,59 @@ def test_paged_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                      valid, 1.0, 1e30)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.paged_attention(q.cpu(), kp, vp, idx, valid, 1.0, 1e30)
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+def test_resnet18_forward_and_functional_step_card_against_host(cuda, fmt):
+    """ResNet-18 at 64x64, batch 4, float32, from one state on the card
+    and on the host: eval logits within 1e-4 of the largest, the training
+    loss within rtol 1e-4, the first-step gradients as a whole (cosine
+    >= 0.99, norms within 2%; float32 moves the first layers' gradients
+    by 1e-2 of the largest between two summation orders) and the fc
+    layer's within 1e-3 of their largest."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.vision.models import resnet18
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 3, 64, 64).astype("float32")
+    if fmt == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    y = rng.randint(0, 10, (4, 1)).astype("int64")
+    out = {}
+    state = None
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with dybase.guard(place):
+            np.random.seed(0)
+            model = resnet18(num_classes=10, data_format=fmt)
+            if state is None:
+                state = model.state_dict()
+            interop.layer_from_numpy(model, state)
+            device = dybase._dygraph_tracer().device
+            xs, ys = (torch.from_numpy(a).to(device) for a in (x, y))
+            model.eval()
+            logits = model(dybase.to_variable(xs)).numpy()
+            model.train()
+
+            def loss_fn(i, l):
+                return L.nn.mean(L.softmax_with_cross_entropy(model(i), l))
+
+            pv, lfn = functional_loss(model, loss_fn)
+            grads, loss = torch.func.grad_and_value(lfn)(pv, xs, ys)
+            out[device.type] = (logits, float(loss),
+                                [g.cpu().double().numpy() for g in grads])
+    names = [n for n, _ in model.named_parameters()]
+    (cl, closs, cg), (hl, hloss, hg) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(cl, hl, rtol=0.0,
+                               atol=1e-4 * float(np.abs(hl).max()))
+    np.testing.assert_allclose(closs, hloss, rtol=1e-4)
+    a = np.concatenate([g.ravel() for g in cg])
+    b = np.concatenate([g.ravel() for g in hg])
+    assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.99
+    assert abs(np.linalg.norm(a) / np.linalg.norm(b) - 1) <= 0.02
+    for g, h, n in zip(cg, hg, names):
+        if n.startswith("fc."):
+            np.testing.assert_allclose(g, h, rtol=0.0,
+                                       atol=1e-3 * float(np.abs(h).max()))
