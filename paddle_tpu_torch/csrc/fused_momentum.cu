@@ -1,10 +1,10 @@
-// Fused Momentum step over a flattened parameter bucket, for Hopper
-// (sm_90a), written by hand.
+// Fused Momentum step over a bucket of parameters, for Hopper (sm_90a),
+// written by hand.
 //
 // Replaces paddle_tpu/ops/pallas_kernels.py:678 fused_momentum_tpu (the
 // pallas_call at :682, kernel _fused_momentum_kernel :663), the kernel of
-// the fuse_optimizer pass's bucketed momentum update.  Three inputs, the
-// learning rate and two outputs, element for element:
+// the fuse_optimizer pass's bucketed momentum update.  Element for
+// element:
 //
 //   g' = g + l2 * p                 (only when l2 != 0: l2_decay)
 //   v' = mu * v + g'
@@ -17,14 +17,31 @@
 // product and sum; so each is an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn, __fsub_rn) and nvcc contracts none of them into an FMA.
 //
-// What bounds it on this card: bytes.  5 x 4 bytes per element (p, g, v
-// read, p', v' written): at the CTR program's 416,013,807-value bucket that
-// is 8.32 GB, 2.48 ms at 3.35 TB/s.  The design streams each input once in
-// 16-byte vector loads, grid-stride, with no shared memory.
+// Multi-tensor: the TPU kernel takes the bucket flattened into one padded
+// buffer; on this card the three concatenations that would make it move
+// as many bytes again as the update itself and hold three bucket-sized
+// buffers live.  So the kernel reads p, g and v from each parameter's own
+// tensor through a table of segment pointers passed by value (the launch
+// copies the table with its arguments, so nothing on the host or the card
+// can change it before the kernel reads it), and writes p' and v' into two
+// flat output buffers in which every segment starts on a 4-float
+// boundary; the op hands them out as per-parameter views.  Each block
+// takes BLOCK_ELEMS consecutive values of one segment and finds that
+// segment by a binary search over block_start.  A segment whose three
+// inputs all start 16-byte aligned moves in float4 vectors with a scalar
+// tail of its n % 4 values, taken by its last block; any other segment (an
+// input that is a view at an odd offset) moves one float at a time.
 //
-// Layout: contiguous float32 buffers of n elements, any n (the flattened
-// bucket, unpadded; a tail of n % 4 takes a scalar loop).  The kernel
-// allocates nothing and launches on the caller's stream.
+// What bounds it on this card: bytes.  5 x 4 bytes per value (p, g, v
+// read; p', v' written) and 4 to 8 flops: at the CTR program's
+// 416,013,807-value bucket that is 8.32 GB, 2.48 ms at 3.35 TB/s.  Each
+// thread keeps VECS float4 loads of each input in flight before it
+// computes, so that enough bytes are on their way to cover the memory's
+// latency.
+//
+// The C entry launches one kernel per chunk of at most MAX_SEGS segments,
+// as the caller cut the table; nothing is allocated, and every launch is
+// on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,10 +49,30 @@
 namespace {
 
 constexpr int NUM_THREADS = 256;
+constexpr int VECS = 4;                                // float4s a thread
+constexpr int BLOCK_ELEMS = NUM_THREADS * 4 * VECS;    // values a block
+constexpr int MAX_SEGS = 48;   // the table stays under 4 KB of arguments
 
 struct Coeffs {
   float mu, l2;
   int nesterov;
+};
+
+struct Table {
+  const float* p[MAX_SEGS];
+  const float* g[MAX_SEGS];
+  const float* v[MAX_SEGS];
+  int64_t n[MAX_SEGS];
+  int64_t out[MAX_SEGS];              // the segment's offset in po, vo
+  int block_start[MAX_SEGS + 1];
+  unsigned long long vec;             // bit j: segment j moves in float4s
+  int nseg;
+};
+
+struct Outs {
+  const float* lr;
+  float* po;
+  float* vo;
 };
 
 __device__ __forceinline__ void momentum_one(float p, float g, float v,
@@ -50,52 +87,137 @@ __device__ __forceinline__ void momentum_one(float p, float g, float v,
 }
 
 __global__ void __launch_bounds__(NUM_THREADS)
-fused_momentum_kernel(const float* __restrict__ p, const float* __restrict__ g,
-                      const float* __restrict__ v,
-                      const float* __restrict__ lr_ptr, float* __restrict__ po,
-                      float* __restrict__ vo, int64_t n, Coeffs c) {
-  const float lr = *lr_ptr;
-  const int64_t stride = (int64_t)gridDim.x * NUM_THREADS;
-  const int64_t first = (int64_t)blockIdx.x * NUM_THREADS + threadIdx.x;
-  // 16-byte vectors over the first n - n % 4 elements (the buffers come
-  // from the caching allocator, so they are 16-byte aligned)
-  const int64_t n4 = n / 4;
-  for (int64_t i = first; i < n4; i += stride) {
-    const float4 p4 = reinterpret_cast<const float4*>(p)[i];
-    const float4 g4 = reinterpret_cast<const float4*>(g)[i];
-    const float4 v4 = reinterpret_cast<const float4*>(v)[i];
-    float4 pn, vn;
-    momentum_one(p4.x, g4.x, v4.x, lr, c, &pn.x, &vn.x);
-    momentum_one(p4.y, g4.y, v4.y, lr, c, &pn.y, &vn.y);
-    momentum_one(p4.z, g4.z, v4.z, lr, c, &pn.z, &vn.z);
-    momentum_one(p4.w, g4.w, v4.w, lr, c, &pn.w, &vn.w);
-    reinterpret_cast<float4*>(po)[i] = pn;
-    reinterpret_cast<float4*>(vo)[i] = vn;
+fused_momentum_kernel(const __grid_constant__ Table t, const Outs o,
+                      const Coeffs c) {
+  // the segment of this block: the last j with block_start[j] <= block
+  const int block = blockIdx.x;
+  int lo = 0, hi = t.nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.block_start[mid] <= block)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
-  for (int64_t i = 4 * n4 + first; i < n; i += stride)
-    momentum_one(p[i], g[i], v[i], lr, c, po + i, vo + i);
+  const int j = lo;
+  const int64_t n = t.n[j];
+  const int64_t begin = (int64_t)(block - t.block_start[j]) * BLOCK_ELEMS;
+  const float lr = *o.lr;
+  const float* __restrict__ p = t.p[j];
+  const float* __restrict__ g = t.g[j];
+  const float* __restrict__ v = t.v[j];
+  float* __restrict__ po = o.po + t.out[j];
+  float* __restrict__ vo = o.vo + t.out[j];
+
+  if ((t.vec >> j) & 1ull) {
+    const int64_t n4 = n / 4;
+    const int64_t first = begin / 4 + threadIdx.x;
+    float4 p4[VECS], g4[VECS], v4[VECS];
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int64_t i = first + k * NUM_THREADS;
+      if (i < n4) {
+        p4[k] = reinterpret_cast<const float4*>(p)[i];
+        g4[k] = reinterpret_cast<const float4*>(g)[i];
+        v4[k] = reinterpret_cast<const float4*>(v)[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int64_t i = first + k * NUM_THREADS;
+      if (i < n4) {
+        float4 pn, vn;
+        momentum_one(p4[k].x, g4[k].x, v4[k].x, lr, c, &pn.x, &vn.x);
+        momentum_one(p4[k].y, g4[k].y, v4[k].y, lr, c, &pn.y, &vn.y);
+        momentum_one(p4[k].z, g4[k].z, v4[k].z, lr, c, &pn.z, &vn.z);
+        momentum_one(p4[k].w, g4[k].w, v4[k].w, lr, c, &pn.w, &vn.w);
+        reinterpret_cast<float4*>(po)[i] = pn;
+        reinterpret_cast<float4*>(vo)[i] = vn;
+      }
+    }
+    // the n % 4 tail, by the segment's last block
+    const int64_t i = 4 * n4 + threadIdx.x;
+    if (begin + BLOCK_ELEMS >= n && i < n)
+      momentum_one(p[i], g[i], v[i], lr, c, po + i, vo + i);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < 4 * VECS; ++k) {
+      const int64_t i = begin + k * NUM_THREADS + threadIdx.x;
+      if (i < n) momentum_one(p[i], g[i], v[i], lr, c, po + i, vo + i);
+    }
+  }
+}
+
+// One launch over segments [first, first + nseg) of the table.
+cudaError_t launch_chunk(const float* const* table, const int64_t* n,
+                         const int64_t* out, int first, int nseg, int nparams,
+                         const Outs& o, const Coeffs& c, cudaStream_t st) {
+  const int k = nparams;
+  Table t;
+  t.nseg = nseg;
+  t.vec = 0;
+  int64_t blocks = 0;
+  for (int j = 0; j < nseg; ++j) {
+    const int i = first + j;
+    if (n[i] < 0 || out[i] % 4 != 0) return cudaErrorInvalidValue;
+    t.p[j] = table[i];
+    t.g[j] = table[k + i];
+    t.v[j] = table[2 * k + i];
+    t.n[j] = n[i];
+    t.out[j] = out[i];
+    t.block_start[j] = static_cast<int>(blocks);
+    // a segment of no values still takes a block, which writes nothing:
+    // the grid is never empty
+    const int64_t nb = (n[i] + BLOCK_ELEMS - 1) / BLOCK_ELEMS;
+    blocks += nb > 0 ? nb : 1;
+    const uintptr_t any = reinterpret_cast<uintptr_t>(t.p[j]) |
+                          reinterpret_cast<uintptr_t>(t.g[j]) |
+                          reinterpret_cast<uintptr_t>(t.v[j]);
+    if (any % 16 == 0) t.vec |= 1ull << j;
+  }
+  if (blocks >= (int64_t)1 << 31) return cudaErrorInvalidValue;
+  t.block_start[nseg] = static_cast<int>(blocks);
+  fused_momentum_kernel<<<static_cast<unsigned>(blocks), NUM_THREADS, 0,
+                          st>>>(t, o, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// mu and l2 rounded once to float32 by the caller, as torch rounds a
-// Python scalar operand of a float32 tensor op.  Returns a cudaError_t
-// (0 = launched).
-int pt_fused_momentum(const float* p, const float* g, const float* v,
-                      const float* lr, float* po, float* vo, int64_t n,
+// One Momentum step over a bucket of nparams parameters, one launch per
+// chunk.  table holds 3 * nparams pointers on the card: each parameter's
+// p, then each g, then each v, each kind nparams long; parameter i has
+// n[i] float32 values in each of its three tensors and starts at out[i]
+// (a multiple of 4) in the flat outputs po and vo (16-byte aligned).
+// chunks: nchunks + 1 ascending parameter indices from 0 to nparams, at
+// most MAX_SEGS apart: launch c takes parameters [chunks[c], chunks[c +
+// 1]).  lr: the bucket's one-value LearningRate.  mu and l2 rounded once
+// to float32 by the caller, as torch rounds a Python scalar operand of a
+// float32 tensor op.  Returns a cudaError_t (0 = every launch accepted).
+int pt_fused_momentum(const float* const* table, const int64_t* n,
+                      const int64_t* out, const int* chunks, int nchunks,
+                      int nparams, const float* lr, float* po, float* vo,
                       float mu, float l2, int nesterov, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t outs =
+      reinterpret_cast<uintptr_t>(po) | reinterpret_cast<uintptr_t>(vo);
+  if (nchunks <= 0 || nparams <= 0 || chunks[0] != 0 ||
+      chunks[nchunks] != nparams || outs % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int ch = 0; ch < nchunks; ++ch)
+    if (chunks[ch + 1] <= chunks[ch] || chunks[ch + 1] - chunks[ch] > MAX_SEGS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const Outs o{lr, po, vo};
   const Coeffs c{mu, l2, nesterov};
-  const int64_t want = (n / 4 + NUM_THREADS - 1) / NUM_THREADS;
-  // enough blocks to fill 132 SMs several times over; the loop strides
-  const int blocks = static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1)
-                                                      : 132 * 16);
-  fused_momentum_kernel<<<blocks, NUM_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      p, g, v, lr, po, vo, n, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const cudaError_t err =
+        launch_chunk(table, n, out, chunks[ch], chunks[ch + 1] - chunks[ch],
+                     nparams, o, c, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 const char* pt_cuda_error_string(int err) {

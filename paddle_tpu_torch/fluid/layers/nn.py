@@ -344,8 +344,10 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
            act=None, name=None, data_format="NCHW"):
     """conv2d with a He-normal filter [num_filters, C/groups, kh, kw] and a
-    bias added on axis 1; ``padding`` is an int, 2 or 4 ints, or
-    ``"SAME"`` / ``"VALID"``."""
+    bias added on the channel axis (1 for NCHW, the last for NHWC, as the
+    dygraph ``Conv2D`` adds it; the reference's static layer adds it on
+    axis 1 in either layout, which fails for NHWC); ``padding`` is an
+    int, 2 or 4 ints, or ``"SAME"`` / ``"VALID"``."""
     import math
     from ..initializer import NormalInitializer
     helper = LayerHelper("conv2d", name=name)
@@ -375,7 +377,8 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
                                     is_bias=True)
-        out = helper.append_bias_op(out, b, axis=1)
+        out = helper.append_bias_op(
+            out, b, axis=1 if data_format == "NCHW" else -1)
     return helper.append_activation(out, act)
 
 

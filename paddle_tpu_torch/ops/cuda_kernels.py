@@ -69,8 +69,8 @@ _SIGNATURES = {
         **_ERR,
     },
     "fused_momentum": {
-        "pt_fused_momentum": ([_P, _P, _P, _P, _P, _P, _I64, _F, _F, _I,
-                               _P], _I),
+        "pt_fused_momentum": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _F, _F,
+                               _I, _P], _I),
         **_ERR,
     },
     "paged_attention": {
@@ -354,47 +354,76 @@ flash_attention_bwd.copies = 0
 
 
 # ---------------------------------------------------------------------------
-# fused Adam (csrc/fused_adam.cu)
+# the multi-tensor optimizer kernels: fused Adam (csrc/fused_adam.cu) and
+# fused Momentum (csrc/fused_momentum.cu)
 # ---------------------------------------------------------------------------
 
-# segments per launch: the kernel's MAX_SEGS, which keeps its table of
-# segment pointers, passed by value, under 4 KB of kernel arguments
-ADAM_SEGMENTS_PER_LAUNCH = 48
+# segments per launch: the kernels' MAX_SEGS, which keeps each one's table
+# of segment pointers, passed by value, under 4 KB of kernel arguments
+BUCKET_SEGMENTS_PER_LAUNCH = 48
 
 
 @functools.lru_cache(maxsize=64)
-def adam_layout(sizes: tuple):
-    """The fused-Adam kernel's output layout for segments of ``sizes``
+def bucket_layout(sizes: tuple):
+    """The multi-tensor kernels' output layout for segments of ``sizes``
     values: ``(offsets, total, chunks)``.  Segment i starts at
     ``offsets[i]`` of the flat outputs, each start rounded up to 4 values
     so that every segment's float4 stores are 16-byte aligned (the padding
     is never read); ``total`` is the outputs' length; ``chunks`` are the
     ``(start, stop)`` segment ranges of the launches,
-    ``ADAM_SEGMENTS_PER_LAUNCH`` at most each."""
+    ``BUCKET_SEGMENTS_PER_LAUNCH`` at most each."""
     offsets, off = [], 0
     for size in sizes:
         offsets.append(off)
         off += -(-size // 4) * 4
-    per = ADAM_SEGMENTS_PER_LAUNCH
+    per = BUCKET_SEGMENTS_PER_LAUNCH
     chunks = tuple((a, min(a + per, len(sizes)))
                    for a in range(0, len(sizes), per))
     return tuple(offsets), off, chunks
 
 
 @functools.lru_cache(maxsize=64)
-def _adam_args(sizes: tuple):
-    """The C entry's per-layout arguments, built once per bucket: sizes,
+def _bucket_args(sizes: tuple):
+    """The C entries' per-layout arguments, built once per bucket: sizes,
     offsets and chunk bounds as ctypes arrays, the chunk count and the
     outputs' length."""
-    offsets, total, chunks = adam_layout(sizes)
+    offsets, total, chunks = bucket_layout(sizes)
     bounds = [a for a, _ in chunks] + [len(sizes)]
     return ((ctypes.c_int64 * len(sizes))(*sizes),
             (ctypes.c_int64 * len(sizes))(*offsets),
             (ctypes.c_int * len(bounds))(*bounds), len(chunks), total)
 
 
-_ADAM_KINDS = ("param", "grad", "moment1", "moment2", "beta1_pow",
-               "beta2_pow")
+def _bucket_ptrs(what, lr, kinds):
+    """The device address of every tensor of ``kinds``, ``(kind, tensors,
+    sizes)`` triples, in order, for a multi-tensor kernel's table.  Every
+    tensor must hold its size's values (checked first, so that a mismatch
+    is named as such) and be float32 on the device of ``lr``, the
+    bucket's one-value float32 CUDA LearningRate.  A non-contiguous
+    tensor is replaced by a contiguous copy; the copies are returned
+    beside the addresses, to be kept alive until the launch is
+    enqueued."""
+    for kind, ts, sizes in kinds:
+        for i, (t, size) in enumerate(zip(ts, sizes)):
+            if t.numel() != size:
+                raise ValueError(f"{what}: {kind} {i} holds {t.numel()} "
+                                 f"values, {size} expected")
+    dev = lr.device
+    if dev.type != "cuda" or lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError(f"{what}: lr must be a one-value float32 CUDA "
+                         f"tensor, got {lr.dtype} {tuple(lr.shape)} on {dev}")
+    ptrs, copies = [], []
+    for kind, ts, _ in kinds:
+        for i, t in enumerate(ts):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{what}: {kind} {i} must be a float32 CUDA "
+                                 f"tensor on {dev}, got {t.dtype} on "
+                                 f"{t.device}")
+            if not t.is_contiguous():
+                t = t.contiguous()
+                copies.append(t)
+            ptrs.append(t.data_ptr())
+    return ptrs, copies
 
 
 def fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1: float, beta2: float,
@@ -406,39 +435,26 @@ def fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1: float, beta2: float,
     LearningRate, ``b1ps``/``b2ps`` each parameter's one-value
     Beta1Pow/Beta2Pow, all on one device.  The kernel computes each
     parameter's ``lr·sqrt(1 - b2p)/(1 - b1p)`` itself.  Returns ``(po,
-    mo, vo, pows)``: flat float32 outputs laid out by ``adam_layout`` of
+    mo, vo, pows)``: flat float32 outputs laid out by ``bucket_layout`` of
     the sizes, and ``pows`` ``[2, len(ps)]`` holding ``b1p·beta1`` and
     ``b2p·beta2``.  Each operation is rounded once, as the per-param
     ``adam`` lowering's separate torch ops round them.  One call launches
-    one kernel per ``ADAM_SEGMENTS_PER_LAUNCH`` parameters and counts
+    one kernel per ``BUCKET_SEGMENTS_PER_LAUNCH`` parameters and counts
     one."""
     what = "fused_adam"
     k = len(ps)
     if k == 0 or not all(len(x) == k for x in (gs, ms, vs, b1ps, b2ps)):
         raise ValueError(f"{what}: {k} params need as many grads, moments "
                          f"and beta powers, and at least one")
-    dev = lr.device
-    if dev.type != "cuda" or lr.dtype != torch.float32 or lr.numel() != 1:
-        raise ValueError(f"{what}: lr must be a one-value float32 CUDA "
-                         f"tensor, got {lr.dtype} {tuple(lr.shape)} on {dev}")
-    index = dev.index
     sizes = tuple(p.numel() for p in ps)
-    ptrs, copies = [], []
-    for kind, ts in zip(_ADAM_KINDS, (ps, gs, ms, vs, b1ps, b2ps)):
-        want = sizes if kind not in ("beta1_pow", "beta2_pow") else (1,) * k
-        for i, (t, size) in enumerate(zip(ts, want)):
-            if t.get_device() != index or t.dtype != torch.float32 \
-                    or t.numel() != size:
-                raise ValueError(
-                    f"{what}: {kind} {i} must be a float32 CUDA tensor of "
-                    f"{size} values on {dev}, got {t.dtype} "
-                    f"{tuple(t.shape)} on {t.device}")
-            if not t.is_contiguous():
-                t = t.contiguous()
-                copies.append(t)     # alive until the launch is enqueued
-            ptrs.append(t.data_ptr())
+    ptrs, copies = _bucket_ptrs(
+        what, lr, [(kind, ts, sizes) for kind, ts in (
+            ("param", ps), ("grad", gs), ("moment1", ms), ("moment2", vs))]
+        + [(kind, ts, (1,) * k) for kind, ts in (
+            ("beta1_pow", b1ps), ("beta2_pow", b2ps))])
+    dev = lr.device
     table = (ctypes.c_void_p * (6 * k))(*ptrs)
-    n_arr, out_arr, bounds, nchunks, total = _adam_args(sizes)
+    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
     po, mo, vo = (torch.empty((max(total, 4),), dtype=torch.float32,
                               device=dev) for _ in range(3))
     pows = torch.empty((2, k), dtype=torch.float32, device=dev)
@@ -601,36 +617,37 @@ embedding_pool_grad.launches = 0
 # fused Momentum (csrc/fused_momentum.cu)
 # ---------------------------------------------------------------------------
 
-def fused_momentum(p, g, v, lr, mu: float, l2: float, nesterov: bool):
-    """One Momentum step over a flattened bucket on the Hopper kernel:
-    p, g, v CUDA float32, contiguous, of one shape; ``lr`` a float32
-    one-value CUDA tensor, read by the kernel where it lies.
-    ``v' = mu·v + g`` (``g + l2·p`` first when ``l2``), then
-    ``p' = p - lr·v'`` or, with ``nesterov``, ``p - lr·(g + mu·v')``.
-    Returns new ``(p, v)``, each product and sum rounded once, as the
-    per-param ``momentum`` lowering's separate torch ops round them."""
+def fused_momentum(ps, gs, vs, lr, mu: float, l2: float, nesterov: bool):
+    """One Momentum step over a bucket of parameters on the Hopper kernel,
+    read where they lie: ``ps``, ``gs``, ``vs`` lists of CUDA float32
+    tensors (the i-th of each of one size; a non-contiguous one is copied
+    first), ``lr`` the one-value LearningRate, read by the kernel where it
+    lies, all on one device.  ``v' = mu·v + g`` (``g + l2·p`` first when
+    ``l2``), then ``p' = p - lr·v'`` or, with ``nesterov``, ``p - lr·(g +
+    mu·v')``.  Returns ``(po, vo)``: flat float32 outputs laid out by
+    ``bucket_layout`` of the sizes.  Each product and sum is rounded
+    once, as the per-param ``momentum`` lowering's separate torch ops
+    round them.  One call launches one kernel per
+    ``BUCKET_SEGMENTS_PER_LAUNCH`` parameters and counts one."""
     what = "fused_momentum"
-    _check_cuda(what, (("p", p), ("g", g), ("v", v), ("lr", lr)), p,
-                torch.float32)
-    for name, t in (("g", g), ("v", v)):
-        if t.shape != p.shape:
-            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not p's "
-                             f"shape {tuple(p.shape)}")
-    for name, t in (("p", p), ("g", g), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    if lr.numel() != 1:
-        raise ValueError(f"{what}: lr must hold one value, got shape "
-                         f"{tuple(lr.shape)}")
-    po, vo = torch.empty_like(p), torch.empty_like(p)
-    if p.numel() == 0:
-        return po, vo
+    k = len(ps)
+    if k == 0 or len(gs) != k or len(vs) != k:
+        raise ValueError(f"{what}: {k} params need as many grads and "
+                         f"velocities, and at least one")
+    sizes = tuple(p.numel() for p in ps)
+    ptrs, copies = _bucket_ptrs(what, lr, [
+        ("param", ps, sizes), ("grad", gs, sizes), ("velocity", vs, sizes)])
+    dev = lr.device
+    table = (ctypes.c_void_p * (3 * k))(*ptrs)
+    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
+    po, vo = (torch.empty((max(total, 4),), dtype=torch.float32, device=dev)
+              for _ in range(2))
     lib = _lib("fused_momentum")
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(dev):
         err = lib.pt_fused_momentum(
-            p.data_ptr(), g.data_ptr(), v.data_ptr(), lr.data_ptr(),
-            po.data_ptr(), vo.data_ptr(), p.numel(), float(mu), float(l2),
-            int(bool(nesterov)), _stream(p.device))
+            table, n_arr, out_arr, bounds, nchunks, k, lr.data_ptr(),
+            po.data_ptr(), vo.data_ptr(), float(mu), float(l2),
+            int(bool(nesterov)), _stream(dev))
     _check_launch(lib, err, what)
     fused_momentum.launches += 1
     return po, vo

@@ -18,10 +18,12 @@ broadcast over each segment, as in the reference.  Either way it is
 element for element the same arithmetic as the per-param op, each
 multiply, add, square root and division rounded once, so the rewrite is
 bit-identical to the per-param updates on either device.
-``fused_momentum`` is the same for a run of ``momentum`` ops over one
-flattened buffer, on ``cuda_kernels.fused_momentum``; its learning rate
-stays a ``[1]`` tensor on the card, which the kernel reads, so a step
-never waits on the host.
+``fused_momentum`` is the same for a run of ``momentum`` ops, on
+``cuda_kernels.fused_momentum``: on the card one multi-tensor kernel call
+that reads every param, grad and velocity where it lies and writes two
+flat buffers handed out as views; on the host the bucket flattened.  Its
+learning rate stays a ``[1]`` tensor on the card, which the kernel
+reads, so a step never waits on the host.
 """
 from __future__ import annotations
 
@@ -116,18 +118,20 @@ def _unflat(buf, templates, sizes):
     return out
 
 
-def _flat_kernel_ok(p_f):
-    """A CUDA bucket takes its kernel, of any length: the reference's
-    1024-element floor is its [rows, 1024] lane padding, which is not
-    copied.  The wrapper raises on a dtype the kernel does not take."""
-    return p_f.device.type == "cuda"
+def _flat_kernel_ok(p):
+    """A CUDA bucket (``p`` its first param) takes its kernel, of any
+    length: the reference's 1024-element floor is its [rows, 1024] lane
+    padding, which is not copied.  The wrapper raises on a dtype the
+    kernel does not take."""
+    return p.device.type == "cuda"
 
 
 @functools.lru_cache(maxsize=64)
 def _view_specs(shapes):
     """(shape, strides, offset) of each param's view into a kernel output
-    laid out by ``cuda_kernels.adam_layout``."""
-    offsets = cuda_kernels.adam_layout(tuple(math.prod(s) for s in shapes))[0]
+    laid out by ``cuda_kernels.bucket_layout``."""
+    offsets = cuda_kernels.bucket_layout(
+        tuple(math.prod(s) for s in shapes))[0]
     specs = []
     for shape, off in zip(shapes, offsets):
         strides, step = [], 1
@@ -189,19 +193,31 @@ def _plain_fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, b1, b2, eps):
 
 @register_op("fused_momentum", differentiable=False)
 def _fused_momentum(ins, attrs, ctx):
-    ps, gs, vs = ins["Param"], ins["Grad"], ins["Velocity"]
+    ps, vs = ins["Param"], ins["Velocity"]
+    # a grad of another dtype is widened to its param's, as the reference's
+    # _bucket_params does
+    gs = [g.to(p.dtype) for g, p in zip(ins["Grad"], ps)]
     lr = _p(ins, "LearningRate")
     mu = attrs.get("mu", 0.9)
     l2 = _l2_coeff(attrs)
     nesterov = attrs.get("use_nesterov", False)
+    if _flat_kernel_ok(ps[0]):
+        po, vo = cuda_kernels.fused_momentum(ps, gs, vs, lr.reshape(1), mu,
+                                             l2, nesterov)
+        specs = _view_specs(tuple(p.shape for p in ps))
+        return {"ParamOut": _views(po, specs),
+                "VelocityOut": _views(vo, specs)}
+    return _plain_fused_momentum(ps, gs, vs, lr, mu, l2, nesterov)
+
+
+def _plain_fused_momentum(ps, gs, vs, lr, mu, l2, nesterov):
+    """The kernel's plain version, what a CPU bucket runs: the bucket
+    flattened, the per-param formula over the flat buffers,
+    unflattened."""
     sizes = [p.numel() for p in ps]
     cdt = ps[0].dtype
     p_f, g_f, v_f = _flat(ps, cdt), _flat(gs, cdt), _flat(vs, cdt)
-    if _flat_kernel_ok(p_f):
-        p_new, v_new = cuda_kernels.fused_momentum(
-            p_f, g_f, v_f, lr.reshape(1), mu, l2, nesterov)
-    else:
-        p_new, v_new = _momentum_update(p_f, g_f, v_f, lr.reshape(()), mu,
-                                        l2, nesterov)
+    p_new, v_new = _momentum_update(p_f, g_f, v_f, lr.reshape(()), mu, l2,
+                                    nesterov)
     return {"ParamOut": _unflat(p_new, ps, sizes),
             "VelocityOut": _unflat(v_new, vs, sizes)}

@@ -13,6 +13,11 @@ phases named in ``--phases`` (default ``decode``), in this order:
   gather-pool forward and the scatter-add gradient, checked and timed);
 - ``dropout``: phase 3e (``phase_kernels_dropout``: the five dropout
   kernels, checked and timed);
+- ``momentum``: phase 3's fused Momentum (``phase_kernels_momentum``:
+  the CTR bucket's op checked against the per-param lowering, the
+  kernel, the op and the library call timed), then the CTR path served
+  and trained (phases 4c and 4d: launches, step ms, peak device memory)
+  and phase 5's CTR profile (device busy ms by kernel class);
 - ``decode``: the ``paged_attention`` wrapper's host cost per call at
   the decode step's shapes (pools of 16,400 rows of 768, 512 positions a
   slot, 300 valid; 1, 8 and 32 slots): the seconds to enqueue 200 calls
@@ -69,7 +74,7 @@ def _wrapper_host_us(card):
               flush=True)
 
 
-PHASES = ("ctr", "dropout", "decode")
+PHASES = ("ctr", "dropout", "momentum", "decode")
 
 
 def _child(root, phases):
@@ -88,6 +93,12 @@ def _child(root, phases):
         chip_smoke.phase_kernels_ctr()
     if "dropout" in phases:
         chip_smoke.phase_kernels_dropout()
+    if "momentum" in phases:
+        chip_smoke.phase_kernels_momentum()
+        _, arrays, served = chip_smoke.phase_serve_ctr(card)
+        _, trained = chip_smoke.phase_train_ctr(arrays, card)
+        del arrays
+        chip_smoke.phase_profile_ctr(served, trained, card)
     if "decode" in phases:
         _wrapper_host_us(card)
         _, served = chip_smoke.phase_serve_decode(card)

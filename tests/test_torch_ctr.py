@@ -289,6 +289,31 @@ def test_momentum_and_fused_momentum_match_reference(kind):
             assert torch.equal(fused[slot][i], per[slot][0]), (slot, i)
 
 
+@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
+def test_fused_momentum_widens_grads_and_reads_strided_params(kind):
+    """A float16 grad is widened to its param's float32, that segment
+    only, and a non-contiguous param (a transposed view) is read by its
+    values, as the reference's fused_momentum reads them."""
+    attrs = MOMENTUM_ATTRS[kind]
+    ins = _momentum_ins([(6, 5), (7,), (3, 4)], seed=9)
+    ins["Grad"][1] = ins["Grad"][1].astype("float16")
+    j_ins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+    want = jreg.get_op("fused_momentum").fn(j_ins, dict(attrs),
+                                            jreg.LoweringContext())
+    t_ins = {s: [torch.from_numpy(a.copy()) for a in v]
+             for s, v in ins.items()}
+    t_ins["Param"][0] = torch.from_numpy(ins["Param"][0].T.copy()).T
+    assert not t_ins["Param"][0].is_contiguous()
+    assert t_ins["Grad"][1].dtype == torch.float16
+    got = treg.get_op("fused_momentum").fn(t_ins, dict(attrs),
+                                           treg.LoweringContext())
+    for slot in ("ParamOut", "VelocityOut"):
+        for i, (j, t) in enumerate(zip(want[slot], got[slot])):
+            assert t.dtype == torch.float32 and t.shape == j.shape
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL,
+                                       err_msg=f"{slot} {i}")
+
+
 # ---------------------------------------------------------------------------
 # the plain versions against the reference's Pallas kernel bodies
 # ---------------------------------------------------------------------------
@@ -635,11 +660,30 @@ def test_ctr_kernel_wrappers_refuse_cpu_tensors():
     from paddle_tpu_torch.ops import cuda_kernels
     w, wgt = torch.zeros(10, 4), torch.ones(2, 3)
     ids = torch.zeros(2, 3, dtype=torch.int64)
-    p, lr = torch.zeros(2048), torch.ones(1)
+    ps, lr = [torch.zeros(2048), torch.zeros(3, 5)], torch.ones(1)
     for call in (lambda: cuda_kernels.embedding_pool_fwd(w, ids, wgt),
                  lambda: cuda_kernels.embedding_pool_grad(
                      torch.zeros(2, 4), ids, wgt, 10),
-                 lambda: cuda_kernels.fused_momentum(p, p, p, lr, 0.9, 0.0,
-                                                     False)):
+                 lambda: cuda_kernels.fused_momentum(ps, ps, ps, lr, 0.9,
+                                                     0.0, False)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
+
+
+def test_fused_momentum_wrapper_refuses_malformed_buckets():
+    """Lists of unequal length, an empty bucket and a grad or velocity
+    whose size is not its param's are refused before anything is built
+    (the sizes before the device)."""
+    from paddle_tpu_torch.ops import cuda_kernels
+    ps, lr = [torch.zeros(8), torch.zeros(3, 5)], torch.ones(1)
+    short = ps[:1]
+    for args, match in (((ps, short, ps), "as many grads"),
+                        ((ps, ps, short), "as many grads"),
+                        (([], [], []), "at least one"),
+                        ((ps, [ps[0], torch.zeros(14)], ps),
+                         "grad 1 holds 14 values, 15 expected"),
+                        ((ps, ps, [torch.zeros(9), ps[1]]),
+                         "velocity 0 holds 9 values, 8 expected")):
+        with pytest.raises(ValueError, match=match):
+            cuda_kernels.fused_momentum(*args, lr, 0.9, 0.0, False)
+    assert cuda_kernels._libs.get("fused_momentum") is None

@@ -24,7 +24,9 @@ values, whose sums are exact.  The scatter-add
 gradient kernel: two launches ``torch.equal``, and ``torch.equal`` to the
 plain version computed on the host, whose ``index_add_`` adds in index
 order.  ``fused_momentum`` against the per-param ``momentum`` lowering:
-``torch.equal``.  The dropout kernels against their plain Philox
+``torch.equal``, at any bucket (views at odd offsets, segments of no
+values, more segments than one launch takes), with one kernel a call
+and no copy.  The dropout kernels against their plain Philox
 versions (ops/nn_ops.py): masks, dropout and dropout-add ``torch.equal``
 (the same float32 products and sums, each rounded once); act-dropout
 forward and backward within 1e-6 relative and absolute in float32 (the
@@ -329,7 +331,7 @@ CLIP_CASE_SHAPES = [(16,), (1,), (10, 16), (16, 1)]
 ADAM_BUCKETS = {
     "bert_base_99": _bert_base_shapes(),
     "more_than_a_chunk": [(i % 5 + 1, 3) for i in range(
-        2 * cuda_kernels.ADAM_SEGMENTS_PER_LAUNCH + 7)],
+        2 * cuda_kernels.BUCKET_SEGMENTS_PER_LAUNCH + 7)],
     "odd_sizes": [(2,), (13, 1), (7,), (1024, 3), (5,)],
     "lenet_8": LENET_SHAPES,
 }
@@ -677,14 +679,15 @@ def test_ctr_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         grad(torch.cat([g, g], 1)[:, :16], ids, wgt, 100)
     with pytest.raises(ValueError, match="int64"):
         grad(g, ids.int(), wgt, 100)
-    p = torch.zeros(2048, device=cuda)
+    ps = [torch.zeros(2048, device=cuda), torch.zeros(5, device=cuda)]
     lr = torch.full((1,), 0.1, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16 comes with the AMP"):
-        cuda_kernels.fused_momentum(p.bfloat16(), p.bfloat16(),
-                                    p.bfloat16(), lr, 0.9, 0.0, False)
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_kernels.fused_momentum(p[::2], p[::2], p[::2], lr, 0.9, 0.0,
-                                    False)
+    momentum = cuda_kernels.fused_momentum
+    with pytest.raises(ValueError, match="param 0 must be a float32"):
+        momentum([p.bfloat16() for p in ps], ps, ps, lr, 0.9, 0.0, False)
+    with pytest.raises(ValueError, match="velocity 1 must be a float32 CUDA"):
+        momentum(ps, ps, [ps[0], ps[1].cpu()], lr, 0.9, 0.0, False)
+    with pytest.raises(ValueError, match="lr must be a one-value"):
+        momentum(ps, ps, ps, torch.zeros(2, device=cuda), 0.9, 0.0, False)
 
 
 MOMENTUM_ATTRS = {
@@ -696,31 +699,93 @@ MOMENTUM_ATTRS = {
 }
 
 
-@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
-@pytest.mark.parametrize("sizes", [[(1024, 768), (768,), (30, 7)],
-                                   [(300,), (200,)]],
-                         ids=["kernel", "small"])
-def test_fused_momentum_equals_per_param_momentum(cuda, sizes, kind):
-    """Bit-identical to the per-param lowering on the card, on the
-    kernel at any length: a bucket under 1024 elements, which the
-    reference keeps off its kernel, launches it too."""
-    g = torch.Generator(device="cpu").manual_seed(0)
+MOMENTUM_BUCKETS = {
+    "kernel": [(1024, 768), (768,), (30, 7)],
+    "small": [(300,), (200,)],
+    # two launches, counted as one call
+    "more_than_a_chunk": [(i % 5 + 1, 3) for i in range(
+        2 * cuda_kernels.BUCKET_SEGMENTS_PER_LAUNCH + 7)],
+    "zero_size": [(0,), (5,), (0, 3), (9,), (0,)],
+    "odd_sizes": [(2,), (13, 1), (7,), (1024, 3), (5,), (4097,)],
+    "clip_case": CLIP_CASE_SHAPES,
+}
+
+
+def _momentum_bucket(cuda, shapes, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     ins = {s: [scale * torch.randn(shape, generator=g).to(cuda)
-               for shape in sizes]
+               for shape in shapes]
            for s, scale in (("Param", 1.0), ("Grad", 1e-2),
                             ("Velocity", 1e-2))}
     ins["LearningRate"] = [torch.tensor([0.05], device=cuda)]
+    return ins
+
+
+def _assert_momentum_per_param(cuda, ins, attrs, fused):
+    for i in range(len(ins["Param"])):
+        one = get_op("momentum").fn(
+            {s: [v[0] if s == "LearningRate" else v[i]]
+             for s, v in ins.items()}, attrs, LoweringContext(cuda))
+        for slot, outs in one.items():
+            assert fused[slot][i].shape == outs[0].shape, (slot, i)
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
+@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
+@pytest.mark.parametrize("sizes", sorted(MOMENTUM_BUCKETS))
+def test_fused_momentum_equals_per_param_momentum(cuda, sizes, kind):
+    """Bit-identical to the per-param lowering on the card, one kernel
+    call counted whatever the bucket: any length (a bucket under 1024
+    values, which the reference keeps off its kernel, launches it too),
+    more segments than one launch takes, segments of no values and
+    sizes off a multiple of 4."""
+    ins = _momentum_bucket(cuda, MOMENTUM_BUCKETS[sizes])
     attrs = MOMENTUM_ATTRS[kind]
     before = cuda_kernels.fused_momentum.launches
     fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(cuda))
     torch.cuda.synchronize()
     assert cuda_kernels.fused_momentum.launches == before + 1
-    for i in range(len(sizes)):
-        one = get_op("momentum").fn(
-            {s: [v[0] if s == "LearningRate" else v[i]]
-             for s, v in ins.items()}, attrs, LoweringContext(cuda))
-        for slot, outs in one.items():
-            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+    _assert_momentum_per_param(cuda, ins, attrs, fused)
+
+
+@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
+def test_fused_momentum_kernel_reads_unaligned_and_strided_inputs(cuda,
+                                                                   kind):
+    """Inputs that are views at an odd float offset (not 16-byte aligned)
+    take the kernel's scalar path, a transposed (non-contiguous) param is
+    copied by the wrapper first: still equal to the per-param lowering."""
+    ins = _momentum_bucket(cuda, [(7,), (33, 2), (5,), (64, 8)], seed=2)
+    for slot in ("Param", "Grad", "Velocity"):
+        ins[slot][:3] = [torch.cat([torch.zeros(1, device=cuda),
+                                    t.reshape(-1)])[1:].view(t.shape)
+                         for t in ins[slot][:3]]
+    ins["Param"][3] = ins["Param"][3].t().contiguous().t()
+    assert ins["Param"][0].data_ptr() % 16 != 0
+    assert not ins["Param"][3].is_contiguous()
+    attrs = MOMENTUM_ATTRS[kind]
+    fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(cuda))
+    _assert_momentum_per_param(cuda, ins, attrs, fused)
+
+
+def test_fused_momentum_op_launches_no_copy(cuda):
+    """On the card the op reads the bucket where it lies: the profiler
+    sees one kernel a call, the fused Momentum kernel, and no
+    concatenation or other copy."""
+    from torch.autograd import DeviceType
+    ins = _momentum_bucket(cuda, MOMENTUM_BUCKETS["odd_sizes"])
+    attrs = MOMENTUM_ATTRS["plain"]
+    op = get_op("fused_momentum").fn
+    op(ins, attrs, LoweringContext(cuda))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            op(ins, attrs, LoweringContext(cuda))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("fused_momentum_kernel" in n
+                                   for n in names), names
 
 
 # ---------------------------------------------------------------------------

@@ -308,21 +308,22 @@ def test_fused_adam_bit_identical_to_per_param_adam():
 
 
 def test_adam_layout_pads_segments_and_chunks_launches():
-    """The fused-Adam kernel's segment table, a pure function: every
-    segment starts on a 4-value boundary right after the previous one's
-    padded end, and the launches cover the segments in order, at most
-    ``ADAM_SEGMENTS_PER_LAUNCH`` (48) each."""
-    from paddle_tpu_torch.ops.cuda_kernels import (ADAM_SEGMENTS_PER_LAUNCH,
-                                                   adam_layout)
-    assert ADAM_SEGMENTS_PER_LAUNCH == 48
-    assert adam_layout((2, 13, 7, 4, 0, 1)) == (
+    """The multi-tensor kernels' (fused Adam's and fused Momentum's)
+    segment table, a pure function: every segment starts on a 4-value
+    boundary right after the previous one's padded end, and the launches
+    cover the segments in order, at most ``BUCKET_SEGMENTS_PER_LAUNCH``
+    (48) each."""
+    from paddle_tpu_torch.ops.cuda_kernels import (
+        BUCKET_SEGMENTS_PER_LAUNCH, bucket_layout)
+    assert BUCKET_SEGMENTS_PER_LAUNCH == 48
+    assert bucket_layout((2, 13, 7, 4, 0, 1)) == (
         (0, 4, 20, 28, 32, 32), 36, ((0, 6),))
-    assert adam_layout(()) == ((), 0, ())
+    assert bucket_layout(()) == ((), 0, ())
     sizes = tuple(int(x) for x in
                   np.random.RandomState(0).randint(0, 3000, 2 * 48 + 3))
-    offsets, total, chunks = adam_layout(sizes)
+    offsets, total, chunks = bucket_layout(sizes)
     assert chunks == ((0, 48), (48, 96), (96, 99))
-    assert adam_layout(sizes[:96])[2] == ((0, 48), (48, 96))
+    assert bucket_layout(sizes[:96])[2] == ((0, 48), (48, 96))
     for i, (off, size) in enumerate(zip(offsets, sizes)):
         assert off % 4 == 0
         end = offsets[i + 1] if i + 1 < len(sizes) else total

@@ -335,3 +335,71 @@ def test_persistable_input_is_never_masked():
     got = treg.get_op("reduce_mean").fn({"X": [x]}, {"dim": [0]},
                                         ctx)["Out"][0]
     torch.testing.assert_close(got, x.mean(0))
+
+
+# ---------------------------------------------------------------------------
+# a static NHWC conv2d with a bias, then batch_norm, built and run
+# ---------------------------------------------------------------------------
+
+def _conv_bn_program(pkg, layout, x_shape):
+    """conv2d 5@3x3 (pad 1, with a bias) then batch_norm in ``layout``,
+    every parameter named; returns (main, startup, conv out, bn out)."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = pkg.data("x", [-1, *x_shape])
+        conv = pkg.layers.conv2d(x, 5, 3, padding=1, param_attr="conv_w",
+                                 bias_attr="conv_b", data_format=layout)
+        bn = pkg.layers.batch_norm(conv, param_attr="bn_s", bias_attr="bn_b",
+                                   moving_mean_name="bn_m",
+                                   moving_variance_name="bn_v",
+                                   data_layout=layout)
+    return main, startup, conv, bn
+
+
+def test_static_nhwc_conv2d_bias_then_batch_norm():
+    """The port's NHWC conv2d adds its bias on the channel axis (the last)
+    and gives its output a static shape, so a following NHWC batch_norm
+    builds; the program runs and agrees with the reference's NCHW program
+    on the same weights and input, transposed.  (The reference's static
+    layer adds the bias on axis 1 whatever the layout, and its NHWC
+    program fails; its dygraph Conv2D uses the channel axis.)"""
+    import paddle_tpu.fluid as jfluid
+    from paddle_tpu.fluid.core import Scope as JScope, scope_guard
+
+    import paddle_tpu_torch.fluid as tfluid
+    from paddle_tpu_torch import interop
+
+    rng = np.random.RandomState(31)
+    x = rng.randn(2, 3, 6, 7).astype("float32")
+    weights = {"conv_w": 0.3 * rng.randn(5, 3, 3, 3).astype("float32"),
+               "conv_b": rng.randn(5).astype("float32"),
+               "bn_s": (1 + 0.1 * rng.randn(5)).astype("float32"),
+               "bn_b": (0.1 * rng.randn(5)).astype("float32"),
+               "bn_m": (0.1 * rng.randn(5)).astype("float32"),
+               "bn_v": (np.abs(rng.randn(5)) + 0.5).astype("float32")}
+
+    main, startup, conv, bn = _conv_bn_program(jfluid, "NCHW", (3, 6, 7))
+    exe = jfluid.Executor()
+    with scope_guard(JScope()):
+        exe.run(startup)
+        scope = jfluid.global_scope()
+        for name, a in weights.items():
+            scope.set_var(name, jnp.asarray(a))
+        want = [np.asarray(o) for o in exe.run(
+            main, feed={"x": x}, fetch_list=[conv, bn, "bn_m", "bn_v"])]
+
+    main, startup, conv, bn = _conv_bn_program(tfluid, "NHWC", (6, 7, 3))
+    assert tuple(conv.shape) == (-1, 6, 7, 5)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    interop.scope_from_numpy(weights, scope, tfluid.CPUPlace())
+    got = exe.run(main, feed={"x": x.transpose(0, 2, 3, 1)},
+                  fetch_list=[conv, bn, "bn_m", "bn_v"], scope=scope)
+    for i, name in enumerate(("conv2d", "batch_norm")):
+        np.testing.assert_allclose(np.asarray(got[i]).transpose(0, 3, 1, 2),
+                                   want[i], rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    for i, name in ((2, "bn_m"), (3, "bn_v")):
+        np.testing.assert_allclose(np.asarray(got[i]), want[i], rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
