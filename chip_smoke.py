@@ -2,7 +2,8 @@
 """Drive paddle_tpu_torch's serving and training paths on one CUDA card,
 end to end: the static BERT program, the wide&deep CTR program, the
 flagship dygraph ``BertForPretraining`` step, paged decode, the static
-book tier (MNIST LeNet) and the dygraph ResNet-50 step.
+book tier (MNIST LeNet), the dygraph ResNet-50 step, the Transformer NMT
+step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated).
 
     python3 chip_smoke.py
 
@@ -43,7 +44,12 @@ over):
    kernel's beside the op's, beside the least time
    the card could take (the bound) and one PyTorch library call
    computing the same function where there is one (timed here only,
-   never called by the port).
+   never called by the port).  Flash attention at the NMT step's shapes
+   (NMT_FLASH_CASES, [32,16,T,64]): the decoder's causal ``[1,1,64,64]``
+   bias of -1e9 (read with stride 0 over B and H), the encoder's
+   unmasked 64 tokens and a cross-attention of 64 queries over 96 keys,
+   forward (and its statistics) and backward, float32 and bfloat16, each
+   timed beside its bound and SDPA's.
 3e. dropout -- the five dropout kernels (``csrc/fused_dropout.cu``:
    dropout, its mask, dropout-add, act-dropout and its backward) against
    their plain Philox versions at [8192, 768] and [8192, 3072], float32
@@ -59,7 +65,10 @@ over):
    ``torch.nn.functional.dropout``'s and, for the mask, a uint8
    ``bernoulli_``'s (other bits); the log line also gives each as a
    share of its recorded time (DROPOUT_RECORDED_MS); the mask also cold
-   and beside a uint8 ``fill_`` of its size.
+   and beside a uint8 ``fill_`` of its size.  Then the NMT step's shapes
+   in bfloat16: dropout, its mask and dropout-add at [2048, 1024], relu
+   act-dropout and its backward at [2048, 4096], the same checks, each
+   timed.
 3f. paged attention -- the paged decode-attention kernel against its
    plain version at 1, 8 and 32 slots of 512 positions over a
    16,400-row pool of width 768, five masks (all valid, ragged,
@@ -170,13 +179,48 @@ over):
    each buffer's largest, eval logits (initial weights, the step's
    moving statistics) within 1e-4 of the largest; a host twin whose batch
    norm normalizes training by the moving statistics must miss.
+4i. train Transformer NMT -- ``models.TransformerModel`` at
+   ``bench.py:479 main_nmt``'s full width (vocab 32000, d_model 1024, 16
+   heads, 6 + 6 layers, FFN 4096, batch 32 of 64 tokens, dropout 0.1,
+   max_len 65, 274,693,376 parameters, bf16 autocast, ids from
+   ``RandomState(0)`` as the bench draws them): ``functional_loss`` +
+   ``torch.func.grad_and_value`` and the update ``v - 1e-4 g``; the
+   first step's bf16 loss within BF16_LOSS_RTOL of a float32 step's; 3
+   warm-up and 20 timed steps, the launch counts exactly NMT_LAUNCHES a
+   step (per step 18 flash forward and 18 backward, ``pt_dropout`` 66 =
+   18 attention-output dropouts + 18 of their backwards + 30 dropout-adds'
+   x, 18 masks, 30 dropout-adds, 12 relu act-dropouts forward and 12
+   backward); tokens/s with bench.py's 3 x 422,576,128 FLOP a token, ms
+   a step, peak memory; one eval forward (18 flash forward launches,
+   nothing else).  Card against host at NMT_HOST (vocab 1000, d_model
+   128, 4 heads, 2 + 2 layers, FFN 256, source 24 and target 16 tokens,
+   batch 4, float32, every parameter drawn from a seed, dropout 0.1 live
+   from fixed tracer seeds): losses within rtol 1e-4, eval logits within
+   1e-4 of the largest, the whole gradient's cosine at least 0.9999 and
+   its norm within 1e-3; a host twin whose decoder drops the causal mask
+   must miss.
+4j. train MobileNetV2 -- ``vision.models.mobilenet_v2`` at full width
+   (scale 1.0, 1000 classes, NCHW, batch 128 of 224x224x3, bf16
+   autocast), phase 4h's functional step (SGD momentum 0.9, lr 0.1): one
+   warm-up and 3 timed steps (images/s, peak memory; no hand-written
+   kernel launches: the depthwise convolutions are PyTorch's library
+   kernels),
+   one eval forward.  Card against host at 64x64, batch 4, 10 classes,
+   float32: the loss within rtol 1e-4, the whole gradient's cosine at
+   least 0.99 and norms within 2%, eval logits within 1e-4 of the
+   largest; a host twin whose depthwise convolutions read their filters
+   transposed must miss.  VGG16 (224², batch 2) and MobileNetV1 (64²,
+   batch 4), 1000 classes: eval logits card against host within 1e-4 of
+   the largest.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
    64 and 512 rows served and 4096 rows trained, for one dygraph BERT
    step, for a paged decode step at 1, 8 and 32 slots, and for a
-   kernel-tier LeNet step at 64 and 512 rows; and for the ResNet-50
-   step (a), step (b) and the eval forward at 128 rows.
+   kernel-tier LeNet step at 64 and 512 rows; for the ResNet-50
+   step (a), step (b) and the eval forward at 128 rows; for one NMT step
+   (with the host ms each forward's causal mask takes to reach the card)
+   and one MobileNetV2 step.
 6. report  -- one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +301,45 @@ RESNET_BATCH, RESNET_SIZE, RESNET_LR, RESNET_MU = 128, 224, 0.1, 0.9
 RESNET_STEPS = 10          # functional steps on one fixed batch
 RESNET_TAPE_STEPS = 3      # eager steps (loss.backward() + minimize)
 RESNET_HOST = dict(depth=50, num_classes=10, size=64, batch=4)
+# phase 4i: bench.py:479 main_nmt's Transformer NMT step (BASELINE.md
+# config 4) at its full width, nothing cut: vocab 32000, d_model 1024, 16
+# heads of 64, 6 + 6 layers, FFN 4096, batch 32 of 64 tokens, dropout 0.1,
+# max_len 65, bf16 autocast, the update v - 1e-4 g, 3 warm-up and 20
+# timed steps; the card-vs-host check at NMT_HOST (source 24 and target
+# 16 tokens: Tq != Tk in the cross-attention), float32, dropout live
+NMT = dict(src_vocab=32000, tgt_vocab=32000, d_model=1024, nhead=16,
+           num_encoder_layers=6, num_decoder_layers=6, dim_feedforward=4096,
+           dropout=0.1, max_len=65)
+NMT_BATCH, NMT_SEQ, NMT_LR, NMT_WARMUP, NMT_STEPS = 32, 64, 1e-4, 3, 20
+NMT_ROWS = NMT_BATCH * NMT_SEQ
+# kernel launches per NMT training step, from the model's structure: 18
+# attentions (6 encoder self-attentions, 6 decoder self-attentions under
+# the causal bias, 6 cross-attentions), each one flash forward and one
+# backward, and one dropout (mask and all) on its output; 30 residual
+# dropout-adds (2 an encoder layer, 3 a decoder layer), whose backward
+# runs ``pt_dropout`` for x; 12 relu FFNs, act-dropout and its backward;
+# so ``pt_dropout`` 18 forward + 18 + 30 backward.  No embedding dropout.
+NMT_LAUNCHES = {"flash_attention_fwd": 18, "flash_attention_bwd": 18,
+                "fused_dropout": 66, "dropout_mask": 18,
+                "fused_dropout_add": 30, "fused_act_dropout": 12,
+                "fused_act_dropout_bwd": 12}
+NMT_HOST = dict(NMT, src_vocab=1000, tgt_vocab=1000, d_model=128, nhead=4,
+                num_encoder_layers=2, num_decoder_layers=2,
+                dim_feedforward=256, max_len=25)
+NMT_HOST_BATCH, NMT_HOST_SRC, NMT_HOST_TGT = 4, 24, 16
+# phase 3's NMT attention cases: (label, Tq, Tk, bias) at [32,16,T,64]
+NMT_FLASH_CASES = (("decoder causal bias", 64, 64, "causal"),
+                   ("encoder", 64, 64, None),
+                   ("cross Tq=64 Tk=96", 64, 96, None))
+# phase 4j: MobileNetV2 at the model zoo's full width (scale 1.0, 1000
+# classes), NCHW as the reference builds it, batch 128 of 224x224x3, bf16
+# autocast, trained as phase 4h trains ResNet-50 (the functional step,
+# SGD momentum 0.9 at lr 0.1), 3 timed steps; the card-vs-host checks at
+# MOBILENET_HOST (float32), and VGG16 and MobileNetV1 eval logits
+MOBILENET = dict(scale=1.0, num_classes=1000)
+MOBILENET_BATCH, MOBILENET_SIZE, MOBILENET_STEPS = 128, 224, 3
+MOBILENET_HOST = dict(num_classes=10, size=64, batch=4)
+EVAL_HOST = (("vgg16", 224, 2), ("mobilenet_v1", 64, 4))
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -492,17 +575,18 @@ def phase_kernels():
     return rows
 
 
-def _flash_bwd_bound(q, mask):
+def _flash_bwd_bound(q, k, mask):
     """Least time for dQ, dK, dV on this card: the larger of the bytes
     (q, k, v, o, dO and the row statistics read once, dq, dk, dv written
     once, the bias read once) over HBM bandwidth and the five products
-    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K: 5 · 2·B·H·T²·D) over the peak rate
-    for the type (``_ops_ms``: float32 at the 3xTF32 rate, three TF32
-    products per product, when that is the faster route)."""
-    b, h, t, d = q.shape
-    nbytes = 8 * q.numel() * q.element_size() + 2 * b * h * t * 4 \
-        + (mask.numel() * 4 if mask is not None else 0)
-    flops = 5 * 2.0 * b * h * t * t * d
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K: 5 · 2·B·H·Tq·Tk·D) over the peak
+    rate for the type (``_ops_ms``: float32 at the 3xTF32 rate, three
+    TF32 products per product, when that is the faster route)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+        + 2 * b * h * tq * 4 + (mask.numel() * 4 if mask is not None else 0)
+    flops = 5 * 2.0 * b * h * tq * tk * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = _ops_ms(flops, q.dtype)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -567,7 +651,7 @@ def phase_kernels_bwd():
         # ran once, above)
         library_ms = _profile(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 50)[1]
-        bound_ms, bound_by = _flash_bwd_bound(q, mask)
+        bound_ms, bound_by = _flash_bwd_bound(q, k, mask)
         split = _flash_bwd_split(lambda: bwd(q, k, v, mask, scale, causal,
                                              o, m, l, do), 50)
         rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1270,6 +1354,46 @@ def _act_dropout_checks(label, dtype, act, rate, shape, seed):
     return err
 
 
+def _dropout_calls(x, r, xa, ga, seed, rate, act):
+    """name -> (kernel, plain version, library call or None, the input
+    whose size sets the bound) of the five dropout kernels: dropout, its
+    mask and dropout-add on ``x`` (and ``r``), act-dropout and its
+    backward on ``xa`` (and ``ga``), at ``rate`` upscaled."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
+
+    dev = x.device
+    k0, k1 = nn_ops._key_words(seed)
+    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
+    return {
+        "fused_dropout": (
+            lambda: cuda_kernels.fused_dropout(x, seed, thr, scale),
+            lambda: nn_ops._reference_dropout(x, k0, k1, thr, scale),
+            lambda: F.dropout(x, rate, training=True), x),
+        "dropout_mask": (
+            lambda: cuda_kernels.dropout_mask(x, seed, thr),
+            lambda: nn_ops._reference_keep(x.shape, k0, k1, thr,
+                                           dev).to(torch.uint8),
+            lambda: torch.empty(x.shape, dtype=torch.uint8,
+                                device=dev).bernoulli_(1 - rate), x),
+        "fused_dropout_add": (
+            lambda: cuda_kernels.fused_dropout_add(x, r, seed, thr, scale),
+            lambda: nn_ops._reference_dropout_add(x, r, k0, k1, thr,
+                                                  scale), None, x),
+        "fused_act_dropout": (
+            lambda: cuda_kernels.fused_act_dropout(xa, seed, thr, scale,
+                                                   act),
+            lambda: nn_ops._reference_act_dropout(xa, k0, k1, thr, scale,
+                                                  act), None, xa),
+        "fused_act_dropout_bwd": (
+            lambda: cuda_kernels.fused_act_dropout_bwd(xa, ga, seed, thr,
+                                                       scale, act),
+            lambda: nn_ops._reference_act_dropout_bwd(xa, ga, k0, k1, thr,
+                                                      scale, act),
+            None, xa)}
+
+
 # the five kernels' recorded device ms at these shapes (PERF.md's kernel
 # table, before the mask's redesign; float32, bfloat16 or None): the log
 # line prints this run's time as a share of it, the kernels line never
@@ -1293,8 +1417,6 @@ def phase_kernels_dropout():
     each call).  Returns the rows by kernel name, float32, with the
     bfloat16 row beside."""
     import torch
-    import torch.nn.functional as F
-    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
 
     errs = {}
     for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
@@ -1320,8 +1442,6 @@ def phase_kernels_dropout():
        f"{PIPE_LANES_PER_CLOCK} lanes a pipe and {ISSUE_LANES_PER_CLOCK} "
        f"issued per clock, SM clock {clock_hz / 1e6:.0f} MHz")
     seed, rate = SEED + 13, 0.1
-    k0, k1 = nn_ops._key_words(seed)
-    thr, scale = nn_ops._threshold_for(rate), nn_ops._scale_for(rate, True)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         x, r = (torch.randn(DROPOUT_ROWS, DY["hidden_size"], generator=gen,
@@ -1329,32 +1449,7 @@ def phase_kernels_dropout():
         xa, ga = (torch.randn(DROPOUT_ROWS, DY["intermediate_size"],
                               generator=gen, device=dev).to(dtype)
                   for _ in range(2))
-        calls = {
-            "fused_dropout": (
-                lambda: cuda_kernels.fused_dropout(x, seed, thr, scale),
-                lambda: nn_ops._reference_dropout(x, k0, k1, thr, scale),
-                lambda: F.dropout(x, rate, training=True), x),
-            "dropout_mask": (
-                lambda: cuda_kernels.dropout_mask(x, seed, thr),
-                lambda: nn_ops._reference_keep(x.shape, k0, k1, thr,
-                                               dev).to(torch.uint8),
-                lambda: torch.empty(x.shape, dtype=torch.uint8,
-                                    device=dev).bernoulli_(1 - rate), x),
-            "fused_dropout_add": (
-                lambda: cuda_kernels.fused_dropout_add(x, r, seed, thr,
-                                                       scale),
-                lambda: nn_ops._reference_dropout_add(x, r, k0, k1, thr,
-                                                      scale), None, x),
-            "fused_act_dropout": (
-                lambda: cuda_kernels.fused_act_dropout(xa, seed, thr, scale,
-                                                       "gelu"),
-                lambda: nn_ops._reference_act_dropout(xa, k0, k1, thr, scale,
-                                                      "gelu"), None, xa),
-            "fused_act_dropout_bwd": (
-                lambda: cuda_kernels.fused_act_dropout_bwd(
-                    xa, ga, seed, thr, scale, "gelu"),
-                lambda: nn_ops._reference_act_dropout_bwd(
-                    xa, ga, k0, k1, thr, scale, "gelu"), None, xa)}
+        calls = _dropout_calls(x, r, xa, ga, seed, rate, "gelu")
         for name, (kernel, plain, library, t) in calls.items():
             ms = _profile(kernel, 20)[1]
             plain_ms = _profile(plain, 5)[1]
@@ -2557,6 +2652,24 @@ def _eager_resnet_step(model):
     return step
 
 
+def _timed_steps(label, fn, steps, batch, card):
+    """``steps`` calls of ``fn`` of ``batch`` images each: wall ms a step,
+    images/s and peak memory printed; returns the calls' results."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = [fn() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = wall / steps * 1e3
+    _p(f"{label}: {steps} x {batch} images in {wall:.3f} s: {ms:.2f} "
+       f"ms/step, {batch / ms * 1e3:.1f} images/s, peak memory {peak:.2f} "
+       f"GiB  [{card}]")
+    return out
+
+
 def _cosine(a, b):
     a = np.concatenate([x.ravel() for x in a]).astype(np.float64)
     b = np.concatenate([x.ravel() for x in b]).astype(np.float64)
@@ -2719,18 +2832,7 @@ def phase_train_resnet(card):
     fstep = _functional_resnet_step(model)
 
     def timed(label, fn, steps):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        out = [fn() for _ in range(steps)]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = wall / steps * 1e3
-        _p(f"resnet {label}: {steps} x {RESNET_BATCH} images in {wall:.3f} "
-           f"s: {ms:.2f} ms/step, {RESNET_BATCH / ms * 1e3:.1f} images/s, "
-           f"peak memory {peak:.2f} GiB  [{card}]")
-        return out
+        return _timed_steps("resnet " + label, fn, steps, RESNET_BATCH, card)
 
     t = time.perf_counter()
     first = float(fstep(images, labels)[0])
@@ -2830,6 +2932,740 @@ def phase_profile_resnet(trained, card, iters=3):
            f"of busy time  [{card}]")
         _print_classes(by_class, "step")
     model.train()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the NMT path: its attention and dropout shapes (phase 3), the Transformer
+# NMT step (4i) and its profile
+# ---------------------------------------------------------------------------
+
+def _nmt_attention_inputs(tq, tk, dtype, bias, seed):
+    """q and dO ``[B,H,Tq,D]``, k and v ``[B,H,Tk,D]`` at the NMT step's
+    batch and heads, permuted views of ``[B,T,H,D]`` tensors as the
+    model's heads are, and the bias: None, or with "causal" the decoder's
+    ``[1,1,Tq,Tk]`` additive mask of -1e9 above the diagonal, in
+    ``dtype`` as autocast hands it to the op (the wrappers read it as
+    float32, broadcast over B and H with stride 0)."""
+    import torch
+    b, h = NMT_BATCH, NMT["nhead"]
+    d = NMT["d_model"] // h
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, do = (torch.randn(b, tq, h, d, generator=g, device=DEVICE)
+             .to(dtype).permute(0, 2, 1, 3) for _ in range(2))
+    k, v = (torch.randn(b, tk, h, d, generator=g, device=DEVICE)
+            .to(dtype).permute(0, 2, 1, 3) for _ in range(2))
+    mask = None
+    if bias == "causal":
+        mask = torch.triu(torch.full((tq, tk), -1e9, device=DEVICE),
+                          1)[None, None].to(dtype)
+    return q, k, v, do, mask
+
+
+def phase_kernels_flash_nmt():
+    """The flash kernels at the NMT step's attention shapes
+    (NMT_FLASH_CASES: the decoder's causal bias, the encoder, a
+    cross-attention with Tq != Tk), forward, its statistics and backward,
+    float32 and bfloat16, against the plain versions at phase 3's
+    tolerances; each timed by the profiler's device ms beside its bound,
+    the plain version's and SDPA's forward or backward.  Returns rows by
+    direction, case and dtype."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.attention import _reference_attention, \
+        _reference_attention_bwd, _reference_stats
+
+    fwd, bwd = cuda_kernels.flash_attention_fwd, \
+        cuda_kernels.flash_attention_bwd
+    tol = {"forward": {torch.float32: (1e-4, 1e-4),
+                       torch.bfloat16: (2e-2, 0.0)},
+           "backward": {torch.float32: (1e-4, 1e-4),
+                        torch.bfloat16: (2e-2, 1e-2)}}
+    rows = {"forward": {}, "backward": {}}
+    for label, tq, tk, bias in NMT_FLASH_CASES:
+        for dtype, dname in ((torch.float32, "fp32"),
+                             (torch.bfloat16, "bf16")):
+            q, k, v, do, mask = _nmt_attention_inputs(tq, tk, dtype, bias,
+                                                      SEED + 21)
+            scale = q.shape[-1] ** -0.5
+            out = fwd(q, k, v, mask, scale, False)
+            o, m, l = fwd(q, k, v, mask, scale, False, return_stats=True)
+            got = bwd(q, k, v, mask, scale, False, o, m, l, do)
+            pairs = {
+                "forward": [(out, _reference_attention(q, k, v, mask, scale,
+                                                       False))],
+                "backward": list(zip(got, _reference_attention_bwd(
+                    q, k, v, mask, scale, o, m, l, do)))}
+            stats = list(zip((m, l), _reference_stats(q, k, mask, scale,
+                                                      False)))
+            torch.cuda.synchronize()
+            shape = f"q [{NMT_BATCH},{q.shape[1]},{tq},{q.shape[-1]}], " \
+                    f"k/v Tk={tk}"
+            errs = {}
+            for direction, prs in pairs.items():
+                atol, rtol = tol[direction][dtype]
+                errs[direction] = max((g.float() - w.float()).abs().max()
+                                      .item() for g, w in prs)
+                ok = all(torch.allclose(g.float(), w.float(), atol=atol,
+                                        rtol=rtol) for g, w in prs)
+                if direction == "forward":
+                    ok = ok and all(torch.allclose(g, w, atol=1e-4,
+                                                   rtol=1e-4)
+                                    for g, w in stats)
+                _p(f"flash_attention {direction} NMT {label} {dname} "
+                   f"{shape}: max |err| vs plain = {errs[direction]:.3e} "
+                   f"(atol={atol}, rtol={rtol}; statistics 1e-4)")
+                if not ok or not np.isfinite(errs[direction]):
+                    raise SystemExit(f"chip_smoke: flash_attention "
+                                     f"{direction} NMT {label} {dname} "
+                                     f"disagrees with its plain version")
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            with torch.enable_grad():
+                lib_out = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, scale=scale)
+            timed = {
+                "forward": (
+                    lambda: fwd(q, k, v, mask, scale, False),
+                    lambda: _reference_attention(q, k, v, mask, scale,
+                                                 False),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale),
+                    _flash_bound(q, k, v, mask)),
+                "backward": (
+                    lambda: bwd(q, k, v, mask, scale, False, o, m, l, do),
+                    lambda: _reference_attention_bwd(q, k, v, mask, scale,
+                                                     o, m, l, do),
+                    lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                retain_graph=True),
+                    _flash_bwd_bound(q, k, mask))}
+            for direction, (kernel, plain, library, bound) in timed.items():
+                row = {"max_abs_err": errs[direction],
+                       "ms": _profile(kernel, 50)[1],
+                       "plain_ms": _profile(plain, 10)[1],
+                       "library_ms": _profile(library, 50)[1],
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "q": list(q.shape), "kv": list(k.shape),
+                       "bias": "[1,1,Tq,Tk] -1e9 causal" if bias else None}
+                rows[direction].setdefault(label, {})[dname] = row
+                _p(f"  {direction} {dname}: kernel {row['ms']:.4f} ms | "
+                   f"plain {row['plain_ms']:.4f} ms | library "
+                   f"(scaled_dot_product_attention) "
+                   f"{row['library_ms']:.4f} ms | bound "
+                   f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+            del lib_out, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_dropout_nmt():
+    """The dropout kernels at the NMT step's shapes in bfloat16 (its
+    layers' dtype under autocast), rate 0.1 upscaled: dropout, its mask
+    and dropout-add at [2048, 1024], relu act-dropout and its backward at
+    [2048, 4096]; phase 3e's checks, then device ms beside the bound, the
+    plain version's and, for dropout, ``F.dropout``'s.  Returns the rows
+    by kernel name."""
+    import torch
+
+    err = _dropout_checks("bf16 NMT", torch.bfloat16, 0.1, True,
+                          (NMT_ROWS, NMT["d_model"]), SEED + 14)
+    act_err = _act_dropout_checks("bf16 NMT", torch.bfloat16, "relu", 0.1,
+                                  (NMT_ROWS, NMT["dim_feedforward"]),
+                                  SEED + 15)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    x, r = (torch.randn(NMT_ROWS, NMT["d_model"], generator=gen,
+                        device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    xa, ga = (torch.randn(NMT_ROWS, NMT["dim_feedforward"], generator=gen,
+                          device=DEVICE).to(torch.bfloat16)
+              for _ in range(2))
+    clock_hz = _sm_clock_hz()
+    rows = {}
+    for name, (kernel, plain, library, t) in _dropout_calls(
+            x, r, xa, ga, SEED + 16, 0.1, "relu").items():
+        bound_ms, bound_by, binds = _dropout_bound(
+            name, t.numel(), t.element_size(), clock_hz)
+        rows[name] = row = {
+            "max_abs_err": act_err if "act" in name else err,
+            "ms": _profile(kernel, 20)[1], "plain_ms": _profile(plain, 5)[1],
+            "library_ms": (_profile(library, 20)[1]
+                           if name == "fused_dropout" else None),
+            "bound_ms": bound_ms, "bound_by": bound_by, "binds": binds,
+            "dtype": "bfloat16", "shape": list(t.shape),
+            "act": "relu" if "act" in name else None}
+        lib = (f" | library (F.dropout) {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else "")
+        _p(f"  {name} bf16 NMT {list(t.shape)}: kernel {row['ms']:.4f} ms | "
+           f"plain {row['plain_ms']:.4f} ms{lib} | bound "
+           f"{bound_ms * 1e3:.2f} us ({binds})")
+    del x, r, xa, ga
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _nmt_ids(batch, src_t, tgt_t, vocab, device, seed=SEED):
+    """Source, target-in and target-out ids as bench.py draws them (three
+    ``randint`` of ``RandomState(seed)``), int64 tensors on ``device``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    drawn = (rng.randint(0, vocab, (batch, src_t)),
+             rng.randint(0, vocab, (batch, tgt_t)),
+             rng.randint(0, vocab, (batch, tgt_t)))
+    return [torch.from_numpy(a.astype("int64")).to(device) for a in drawn]
+
+
+def _nmt_loss(model, vocab):
+    """bench.py's loss: mean token cross-entropy of the logits."""
+    from paddle_tpu_torch.fluid import layers as L
+
+    def loss_fn(src, tgt_in, tgt_out):
+        logits = model(src, tgt_in)
+        return L.mean(L.softmax_with_cross_entropy(
+            L.reshape(logits, [-1, vocab]), L.reshape(tgt_out, [-1, 1])))
+    return loss_fn
+
+
+def _nmt_fwd_flops_per_token():
+    """bench.py main_nmt's forward FLOP a token: per encoder layer the q,
+    k, v, output and FFN products and the attention's two products, per
+    decoder layer those of two attentions, and the output projection
+    (422,576,128 at NMT's width; a step counts 3 times this a token)."""
+    d, f, seq = NMT["d_model"], NMT["dim_feedforward"], NMT_SEQ
+    enc = 2 * (4 * d * d + 2 * d * f) + 2 * 2 * seq * d
+    dec = 2 * (8 * d * d + 2 * d * f) + 2 * (2 * 2 * seq * d)
+    return NMT["num_encoder_layers"] * (enc + dec) \
+        + 2 * d * NMT["tgt_vocab"]
+
+
+def _nmt_grad(model):
+    """(param values, ``grad(values, src, tgt_in, tgt_out) -> (grads,
+    loss)``) of bench.py's loss by ``torch.func.grad_and_value``."""
+    import torch
+    from paddle_tpu_torch.dygraph.functional import functional_loss
+
+    pv, lfn = functional_loss(model, _nmt_loss(model, model.out_proj.weight
+                                               .shape[1]))
+    return pv, torch.func.grad_and_value(lfn)
+
+
+@contextlib.contextmanager
+def _nmt_without_causal_mask():
+    """A broken twin: ``TransformerModel.forward`` hands the decoder no
+    ``tgt_mask``, so its self-attention sees the future."""
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.models import transformer
+
+    orig = transformer.TransformerModel.forward
+
+    def forward(self, src_ids, tgt_ids):
+        scale = math.sqrt(self.d_model)
+        src = self.pos(L.scale(self.src_emb(src_ids), scale=scale))
+        tgt = self.pos(L.scale(self.tgt_emb(tgt_ids), scale=scale))
+        return self.out_proj(self.transformer(src, tgt))
+
+    transformer.TransformerModel.forward = forward
+    try:
+        yield
+    finally:
+        transformer.TransformerModel.forward = orig
+
+
+def _nmt_seeded_state(state, seed):
+    """Every parameter of ``state`` drawn anew from ``seed`` (matrices
+    N(0, 1 / rows), LayerNorm scales 1 + N(0, 0.1²), biases N(0, 0.02²)),
+    so that no two layers are equal; the sinusoid table kept."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, v in state.items():
+        if name.endswith(".pe"):
+            out[name] = v
+        elif v.ndim == 2:
+            out[name] = rng.randn(*v.shape) / np.sqrt(v.shape[0])
+        elif "norm" in name and name.endswith("weight"):
+            out[name] = 1 + 0.1 * rng.randn(*v.shape)
+        else:
+            out[name] = 0.02 * rng.randn(*v.shape)
+        out[name] = np.asarray(out[name], "float32")
+    return out
+
+
+def _nmt_run(place, state, twin=None):
+    """At NMT_HOST from ``state``, float32, dropout 0.1 live from fixed
+    tracer seeds: one functional step's loss and gradients, then the
+    eval logits.  ``twin``, a context manager, is held around it all."""
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import TransformerModel
+
+    twin = twin or contextlib.nullcontext
+    with dybase.guard(place), twin():
+        tracer = dybase._dygraph_tracer()
+        tracer._amp_enabled = False
+        model = TransformerModel(**NMT_HOST)
+        interop.layer_from_numpy(model, state)
+        model.train()
+        ids = _nmt_ids(NMT_HOST_BATCH, NMT_HOST_SRC, NMT_HOST_TGT,
+                       NMT_HOST["tgt_vocab"], tracer.device, seed=SEED + 42)
+        pv, grad_fn = _nmt_grad(model)
+        tracer._seed, tracer._seed_ctr = SEED + 9, 0
+        grads, loss = grad_fn(pv, *ids)
+        out = {"loss": float(loss),
+               "grads": [g.detach().cpu().numpy() for g in grads]}
+        model.eval()
+        with dybase.no_grad():
+            out["logits"] = model(dybase.to_variable(ids[0]),
+                                  dybase.to_variable(ids[1])).numpy()
+    return out
+
+
+def _nmt_card_vs_host(card):
+    """NMT_HOST on the card and on the host from one seeded state,
+    float32, dropout 0.1 live (the host's plain Philox draws the card's
+    masks): losses within rtol 1e-4, the eval logits within 1e-4 of the
+    largest, the whole first-step gradient's cosine at least 0.9999 and
+    its norm within 1e-3.  A host twin whose decoder drops the causal
+    mask must miss."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import TransformerModel
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED + 40)
+    with dybase.guard(fluid.CPUPlace()):
+        state = _nmt_seeded_state(TransformerModel(**NMT_HOST).state_dict(),
+                                  SEED + 43)
+    card_r = _nmt_run(fluid.CUDAPlace(0), state)
+    host_r = _nmt_run(fluid.CPUPlace(), state)
+    twin_r = _nmt_run(fluid.CPUPlace(), state, twin=_nmt_without_causal_mask)
+
+    def margins(got, want):
+        """Each check's error over its tolerance (under 1 passes)."""
+        cos, norm = _cosine(got["grads"], want["grads"])
+        return {"loss": abs(got["loss"] - want["loss"])
+                / abs(want["loss"]) / 1e-4,
+                "eval logits": float(np.abs(got["logits"] - want["logits"])
+                                     .max())
+                / float(np.abs(want["logits"]).max()) / 1e-4,
+                "gradient cosine": (1 - cos) / 1e-4,
+                "gradient norm": abs(norm - 1) / 1e-3}
+
+    ok, miss = margins(card_r, host_r), margins(twin_r, host_r)
+    fmt = ", ".join
+    _p(f"nmt: card vs host at vocab {NMT_HOST['tgt_vocab']}, d_model "
+       f"{NMT_HOST['d_model']}, {NMT_HOST['nhead']} heads, "
+       f"{NMT_HOST['num_encoder_layers']} + {NMT_HOST['num_decoder_layers']}"
+       f" layers, FFN {NMT_HOST['dim_feedforward']}, source {NMT_HOST_SRC} "
+       f"and target {NMT_HOST_TGT} tokens, batch {NMT_HOST_BATCH}, float32, "
+       f"dropout 0.1 live, in {time.perf_counter() - t0:.1f} s: losses card "
+       f"{card_r['loss']}, host {host_r['loss']}, no-mask twin "
+       f"{twin_r['loss']}  [{card}]")
+    _p("nmt: card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()))
+    _p("nmt: the no-causal-mask twin, error / tolerance (must miss, over "
+       "1): " + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: the NMT step on the card disagrees "
+                         "with the host")
+    if max(miss.values()) <= 1:
+        raise SystemExit("chip_smoke: the NMT card-vs-host check cannot "
+                         "see the causal mask")
+    return ok, miss
+
+
+def phase_train_nmt(card):
+    """bench.py's NMT step at NMT's full width under the card's dygraph
+    tracer, bf16 autocast: ``functional_loss``, the grad program
+    ``torch.func.grad_and_value`` and the update ``v - 1e-4 g`` (plain
+    torch: the reference's is no kernel).  The first step's bf16 loss
+    against a float32 step from the same weights and seeds; NMT_WARMUP
+    warm-up steps, then NMT_STEPS timed steps with the launch counts set
+    to 0 before and read after, each NMT_LAUNCHES a step; tokens/s (and
+    bench.py's FLOP count), step ms, peak memory; then one eval forward
+    (dropout off: 18 flash forward launches and nothing else) on the
+    trained values; then ``_nmt_card_vs_host``.  Returns the launches
+    and what the profile phase needs."""
+    import torch
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models import TransformerModel
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    dybase.enable_dygraph()               # the card: CUDAPlace(0)
+    tracer = _dygraph_tracer()
+    model = TransformerModel(**NMT)
+    model.train()
+    n_params = sum(p.value().numel() for p in model.parameters())
+    ids = _nmt_ids(NMT_BATCH, NMT_SEQ, NMT_SEQ, NMT["tgt_vocab"],
+                   tracer.device)
+    pv, grad_fn = _nmt_grad(model)
+    box = {"v": pv}
+
+    def step():
+        grads, loss = grad_fn(box["v"], *ids)
+        box["v"] = torch._foreach_add(box["v"], grads, alpha=-NMT_LR)
+        return loss
+
+    fwd_tok = _nmt_fwd_flops_per_token()
+    flops_tok = 3 * fwd_tok
+    _p(f"nmt: TransformerModel({', '.join(f'{k}={v}' for k, v in NMT.items())}"
+       f"), {n_params} parameters in {len(pv)} tensors, built on the card "
+       f"in {time.perf_counter() - t0:.1f} s; batch {NMT_BATCH} of "
+       f"{NMT_SEQ} tokens, bf16 autocast, update v - {NMT_LR} g; 3 x "
+       f"{fwd_tok} FLOP a token, {flops_tok * NMT_ROWS / 1e12:.3f} TFLOP "
+       f"a step (bench.py's count)")
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = True
+    t = time.perf_counter()
+    bf16_loss = float(step())
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = False
+    f32_loss = float(grad_fn(pv, *ids)[1])
+    tracer._amp_enabled = True
+    _p(f"nmt: first step {warm:.2f} s; its loss bf16 {bf16_loss}, float32 "
+       f"{f32_loss} (rtol {BF16_LOSS_RTOL})")
+    if not (np.isfinite(bf16_loss) and np.isclose(
+            bf16_loss, f32_loss, rtol=BF16_LOSS_RTOL, atol=0.0)):
+        raise SystemExit("chip_smoke: the bf16 NMT step's loss is not "
+                         "finite or not near the float32 step's")
+    for _ in range(NMT_WARMUP - 1):
+        step()
+
+    counted = _counted_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    _flash_copies_zero()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(NMT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok_s = NMT_ROWS * NMT_STEPS / wall
+    _p(f"nmt: {NMT_STEPS} steps at {NMT_BATCH} x {NMT_SEQ} in {wall:.3f} s: "
+       f"{wall / NMT_STEPS * 1e3:.2f} ms/step, {tok_s:.0f} tokens/s, "
+       f"{tok_s * flops_tok / 1e12:.2f} TFLOP/s by bench.py's count, peak "
+       f"memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses]}  "
+       f"[{card}]")
+    want = {fn.__name__: NMT_LAUNCHES.get(fn.__name__, 0) * NMT_STEPS
+            for fn in counted}
+    _p(f"nmt: launches in the timed steps {launches}, expected {want} (per "
+       f"step {NMT_LAUNCHES})")
+    if launches != want:
+        raise SystemExit("chip_smoke: the NMT step did not run through "
+                         "every kernel as predicted")
+    _flash_copies_check("nmt")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: an NMT training loss is not finite")
+
+    for param, value in zip(model.parameters(), box["v"]):
+        param._value = value
+    model.eval()
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with dybase.no_grad():
+        logits = model(dybase.to_variable(ids[0]),
+                       dybase.to_variable(ids[1])).value()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    eval_launches = {fn.__name__: fn.launches for fn in counted}
+    eval_want = {fn.__name__: 18 if fn.__name__ == "flash_attention_fwd"
+                 else 0 for fn in counted}
+    _p(f"nmt: eval forward on the trained values {eval_ms:.2f} ms, logits "
+       f"{tuple(logits.shape)} {logits.dtype}; launches {eval_launches}")
+    if tuple(logits.shape) != (NMT_BATCH, NMT_SEQ, NMT["tgt_vocab"]) \
+            or not bool(torch.isfinite(logits).all()) \
+            or eval_launches != eval_want:
+        raise SystemExit("chip_smoke: the NMT eval forward failed")
+    model.train()
+    _nmt_card_vs_host(card)
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    tracer._amp_enabled = True
+    return launches, step
+
+
+def phase_profile_nmt(step, card, iters=5):
+    """Where the NMT step's time goes, as ``phase_profile`` measures it
+    (host ms unprofiled, device busy ms, the idle share, device ms by
+    kernel class), and the host ms each forward's causal mask takes to
+    reach the card (``to_variable`` of a numpy array: a copy from pageable
+    memory, which the host waits on)."""
+    import torch
+    from paddle_tpu_torch.models import transformer
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(
+        lambda: step().cpu(), iters)
+    cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
+    tflop = 3 * _nmt_fwd_flops_per_token() * NMT_ROWS / 1e12
+    _p(f"profile: NMT step, {NMT_BATCH} x {NMT_SEQ}, bf16: host "
+       f"{host_ms:.3f} ms/step ({NMT_ROWS / host_ms * 1e3:.0f} tokens/s), "
+       f"device busy {busy_ms:.3f} ms/step, idle share {idle:.4f}, "
+       f"{n_kern:.0f} kernels/step; bench.py's {tflop:.3f} TFLOP at "
+       f"{tflop / busy_ms * 1e3:.1f} TFLOP/s of busy time, cuBLAS "
+       f"{cublas_ms:.3f} ms  [{card}]")
+    _print_classes(by_class, "step")
+    _print_top_kernels("step", iters)
+    orig, spent = transformer.to_variable, []
+
+    def timed_to_variable(value, *args, **kwargs):
+        t = time.perf_counter()
+        out = orig(value, *args, **kwargs)
+        spent.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    transformer.to_variable = timed_to_variable
+    try:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        transformer.to_variable = orig
+    _p(f"profile: NMT causal mask to the card, host ms a forward "
+       f"{[round(x, 4) for x in spent]}  [{card}]")
+    return {"host_ms": host_ms, "busy_ms": busy_ms, "idle": idle,
+            "mask_host_ms": spent}
+
+
+# ---------------------------------------------------------------------------
+# the vision tail: MobileNetV2 training (4j), VGG16 and MobileNetV1
+# ---------------------------------------------------------------------------
+
+def _nchw_batch(batch, size, classes, device, seed=SEED):
+    """NCHW images ``randn`` and labels ``randint`` from
+    ``RandomState(seed)``, as tensors on ``device``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    images = rng.randn(batch, 3, size, size).astype("float32")
+    labels = rng.randint(0, classes, (batch, 1)).astype("int64")
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+@contextlib.contextmanager
+def _depthwise_filters_transposed():
+    """A broken twin: every grouped convolution (the depthwise ones)
+    reads its filter with kh and kw swapped."""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    opdef = get_op("conv2d")
+    fn = opdef.fn
+
+    def swapped(ins, attrs, ctx):
+        if attrs.get("groups", 1) == 1:
+            return fn(ins, attrs, ctx)
+        return fn(dict(ins, Filter=[ins["Filter"][0].transpose(-1, -2)]),
+                  attrs, ctx)
+
+    opdef.fn = swapped
+    try:
+        yield
+    finally:
+        opdef.fn = fn
+
+
+def _mobilenet_run(place, init, twin=None):
+    """At MOBILENET_HOST from ``init``, float32: one functional step's
+    loss and gradients, then eval logits from the initial weights."""
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    h = MOBILENET_HOST
+    twin = twin or contextlib.nullcontext
+    with dybase.guard(place), twin():
+        tracer = dybase._dygraph_tracer()
+        model = mobilenet_v2(num_classes=h["num_classes"])
+        interop.layer_from_numpy(model, init)
+        model.train()
+        images, labels = _nchw_batch(h["batch"], h["size"], h["num_classes"],
+                                     tracer.device, seed=SEED + 44)
+        loss, grads = _functional_resnet_step(model)(images, labels)
+        out = {"loss": float(loss),
+               "grads": [g.detach().cpu().numpy() for g in grads]}
+        interop.layer_from_numpy(model, init)
+        model.eval()
+        with dybase.no_grad():
+            out["logits"] = model(dybase.to_variable(images)).numpy()
+    return out
+
+
+def _mobilenet_card_vs_host(card):
+    """MOBILENET_HOST on the card and on the host from one state, float32:
+    the loss within rtol 1e-4, the first-step gradient as a whole (cosine
+    >= 0.99, norms within 2%: phase 4h's limits), eval logits within 1e-4
+    of the largest.  A host twin whose depthwise convolutions read their
+    filters transposed must miss."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    t0 = time.perf_counter()
+    h = MOBILENET_HOST
+    np.random.seed(SEED + 46)
+    with dybase.guard(fluid.CUDAPlace(0)):
+        init = mobilenet_v2(num_classes=h["num_classes"]).state_dict()
+    runs = {"card": _mobilenet_run(fluid.CUDAPlace(0), init),
+            "host": _mobilenet_run(fluid.CPUPlace(), init),
+            "twin": _mobilenet_run(fluid.CPUPlace(), init,
+                                   twin=_depthwise_filters_transposed)}
+
+    def margins(got, want):
+        cos, norm = _cosine(got["grads"], want["grads"])
+        return {"loss": abs(got["loss"] - want["loss"])
+                / abs(want["loss"]) / 1e-4,
+                "gradient cosine": (1 - cos) / 0.01,
+                "gradient norms": abs(norm - 1) / 0.02,
+                "eval logits": float(np.abs(got["logits"] - want["logits"])
+                                     .max())
+                / float(np.abs(want["logits"]).max()) / 1e-4}
+
+    ok = margins(runs["card"], runs["host"])
+    miss = margins(runs["twin"], runs["host"])
+    fmt = ", ".join
+    _p(f"mobilenet: card vs host, MobileNetV2 {h['size']}x{h['size']}, "
+       f"batch {h['batch']}, {h['num_classes']} classes, float32, in "
+       f"{time.perf_counter() - t0:.1f} s: losses "
+       + fmt(f"{k} {r['loss']}" for k, r in runs.items()) + f"  [{card}]")
+    _p("mobilenet: card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()))
+    _p("mobilenet: the transposed-depthwise-filter twin, error / tolerance "
+       "(must miss, over 1): " + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: MobileNetV2 on the card disagrees "
+                         "with the host")
+    if max(miss.values()) <= 1:
+        raise SystemExit("chip_smoke: the MobileNetV2 card-vs-host check "
+                         "cannot see the depthwise convolutions")
+
+
+def _eval_card_vs_host(card):
+    """EVAL_HOST's models (VGG16 at 224², batch 2; MobileNetV1 at 64²,
+    batch 4; 1000 classes) built on the card, their weights carried to
+    the host: eval logits within 1e-4 of the largest, float32."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision import models
+
+    for name, size, batch in EVAL_HOST:
+        t0 = time.perf_counter()
+        np.random.seed(SEED + 47)
+        logits, state = {}, None
+        for key, place in (("card", fluid.CUDAPlace(0)),
+                           ("host", fluid.CPUPlace())):
+            with dybase.guard(place):
+                model = getattr(models, name)(num_classes=1000)
+                if state is None:
+                    state = model.state_dict()
+                interop.layer_from_numpy(model, state)
+                model.eval()
+                images, _ = _nchw_batch(batch, size, 1000,
+                                        dybase._dygraph_tracer().device,
+                                        seed=SEED + 48)
+                with dybase.no_grad():
+                    logits[key] = model(dybase.to_variable(images)).numpy()
+            del model
+        err = float(np.abs(logits["card"] - logits["host"]).max()) \
+            / float(np.abs(logits["host"]).max())
+        _p(f"{name}: eval logits at {size}x{size}, batch {batch}, float32, "
+           f"card vs host: max |err| / largest {err:.3e} (tolerance 1e-4), "
+           f"in {time.perf_counter() - t0:.1f} s  [{card}]")
+        if not err <= 1e-4:
+            raise SystemExit(f"chip_smoke: {name}'s eval logits on the card "
+                             f"disagree with the host's")
+
+
+def phase_train_mobilenet(card):
+    """MobileNetV2 at MOBILENET's full width, NCHW, bf16 autocast, the
+    functional step of phase 4h on one fixed batch of MOBILENET_BATCH:
+    one warm-up step, MOBILENET_STEPS timed steps (host ms, images/s,
+    peak memory; finite losses; no hand-written kernel launches: the
+    depthwise convolutions are PyTorch's library kernels, relu6 and batch
+    norm PyTorch ops), then one eval forward; then ``_mobilenet_card_vs_host``
+    and ``_eval_card_vs_host``.  Returns what the profile phase needs."""
+    import torch
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    dybase.enable_dygraph()               # the card: CUDAPlace(0)
+    tracer = _dygraph_tracer()
+    tracer._amp_enabled = True
+    model = mobilenet_v2(**MOBILENET)
+    model.train()
+    n_params = sum(p.value().numel() for p in model.parameters())
+    images, labels = _nchw_batch(MOBILENET_BATCH, MOBILENET_SIZE,
+                                 MOBILENET["num_classes"], tracer.device)
+    _p(f"mobilenet: mobilenet_v2({', '.join(f'{k}={v}' for k, v in MOBILENET.items())}), "
+       f"{n_params} parameters in {len(model.parameters())} tensors, "
+       f"{len(model.buffers())} buffers, built on the card in "
+       f"{time.perf_counter() - t0:.1f} s; batch {MOBILENET_BATCH} of "
+       f"{MOBILENET_SIZE}x{MOBILENET_SIZE}x3 NCHW, bf16 autocast, SGD "
+       f"momentum {RESNET_MU} lr {RESNET_LR}")
+    counted = _counted_kernels()
+    fstep = _functional_resnet_step(model)
+    t = time.perf_counter()
+    first = float(fstep(images, labels)[0])
+    torch.cuda.synchronize()
+    _p(f"mobilenet: warm-up step {time.perf_counter() - t:.2f} s, loss "
+       f"{first}")
+    for fn in counted:
+        fn.launches = 0
+    losses = [float(loss) for loss, _ in _timed_steps(
+        "mobilenet functional step", lambda: fstep(images, labels),
+        MOBILENET_STEPS, MOBILENET_BATCH, card)]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    _p(f"mobilenet: losses {[round(x, 4) for x in [first] + losses]}; "
+       f"hand-written kernel launches {launches} (none expected)")
+    if not np.isfinite(losses).all() or any(launches.values()):
+        raise SystemExit("chip_smoke: the MobileNetV2 steps failed")
+    model.eval()
+
+    def evaluate():
+        with dybase.no_grad():
+            return model(dybase.to_variable(images)).value()
+
+    logits = _timed_steps("mobilenet eval forward", evaluate, 1,
+                          MOBILENET_BATCH, card)[0]
+    if tuple(logits.shape) != (MOBILENET_BATCH, MOBILENET["num_classes"]) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit("chip_smoke: the MobileNetV2 eval logits are not "
+                         "finite or not of their shape")
+    model.train()
+    _mobilenet_card_vs_host(card)
+    _eval_card_vs_host(card)
+    tracer._amp_enabled = True
+    return model, fstep, (images, labels)
+
+
+def phase_profile_mobilenet(trained, card, iters=3):
+    """Where the MobileNetV2 step's time goes, as ``phase_profile``
+    measures it, with its peak memory."""
+    import torch
+
+    model, fstep, (images, labels) = trained
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(
+        lambda: fstep(images, labels)[0].cpu(), iters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _p(f"profile: MobileNetV2 functional step, {MOBILENET_BATCH} x "
+       f"{MOBILENET_SIZE}^2, bf16: host {host_ms:.3f} ms/step "
+       f"({MOBILENET_BATCH / host_ms * 1e3:.1f} images/s), device busy "
+       f"{busy_ms:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+       f"kernels/step, peak memory {peak:.2f} GiB  [{card}]")
+    _print_classes(by_class, "step")
+    _print_top_kernels("step", iters)
     torch.cuda.empty_cache()
 
 
@@ -4007,6 +4843,7 @@ _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("fused_adam", "fused_adam (csrc)"),
             ("dropout_mask_kernel", "dropout mask (csrc)"),
             ("dropout_kernel", "dropout family (csrc)"),
+            ("conv_depthwise", "depthwise convolution (PyTorch)"),
             ("wgrad", "convolution backward filter (cuDNN)"),
             ("dgrad", "convolution backward data (cuDNN)"),
             ("fprop", "convolution forward (cuDNN)"),
@@ -4056,10 +4893,16 @@ def _product_flops(program, rows):
     return total
 
 
+# the last ``_profile`` window's kernels by name: [device ms per call,
+# launches in the window]
+PROFILE_BY_NAME = {}
+
+
 def _profile(fn, iters):
     """(host ms per call with no profiler attached, device busy ms per
     call, profiled idle share, kernels per call, device ms per call by
-    kernel class) over ``iters`` calls after 3 warm-up calls."""
+    kernel class) over ``iters`` calls after 3 warm-up calls; the
+    window's kernels by name are left in PROFILE_BY_NAME."""
     import torch
     from torch.autograd import DeviceType
 
@@ -4074,9 +4917,10 @@ def _profile(fn, iters):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # now and then a profiled window comes back with no device events at
-    # all (seen once on the card, in phase 3e's timings); such a window
-    # is measured again, up to twice, and a third empty one fails the run
-    for attempt in range(3):
+    # all (seen on the card in phase 3e's timings, once twice in a row);
+    # such a window is measured again, up to four times, and a fifth
+    # empty one fails the run
+    for attempt in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             torch.cuda.synchronize()
             w0 = time.perf_counter()
@@ -4096,10 +4940,14 @@ def _profile(fn, iters):
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kern])
     by_class = {}
+    PROFILE_BY_NAME.clear()
     for e in kern:
         c = _kernel_class(e.name)
-        by_class[c] = by_class.get(c, 0.0) + \
-            (e.time_range.end - e.time_range.start) / iters / 1e3
+        ms = (e.time_range.end - e.time_range.start) / iters / 1e3
+        by_class[c] = by_class.get(c, 0.0) + ms
+        calls = PROFILE_BY_NAME.setdefault(e.name, [0.0, 0])
+        calls[0] += ms
+        calls[1] += 1
     return (host_ms, busy_us / iters / 1e3, 1.0 - busy_us / window_us,
             len(kern) / iters, by_class)
 
@@ -4132,6 +4980,15 @@ def _flash_bwd_split(fn, iters):
 def _print_classes(by_class, unit):
     for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         _p(f"    {c:28s} {ms:.4f} ms/{unit}")
+
+
+def _print_top_kernels(unit, iters, n=10):
+    """The last profiled window's ``n`` longest kernels by name: device ms
+    per ``unit`` and launches per ``unit``."""
+    top = sorted(PROFILE_BY_NAME.items(), key=lambda kv: -kv[1][0])[:n]
+    for name, (ms, count) in top:
+        _p(f"      {ms:.4f} ms/{unit}, {count / iters:g} launches/{unit}: "
+           f"{name[:150]}")
 
 
 def phase_profile(served, trained, card, iters=20, train_iters=5):
@@ -4252,10 +5109,14 @@ def main():
     _timed("2 build", phase_build)
     fwd_rows = _timed("3 flash forward", phase_kernels)
     bwd_rows = _timed("3 flash backward", phase_kernels_bwd)
+    nmt_flash_rows = _timed("3 flash at the NMT shapes",
+                            phase_kernels_flash_nmt)
     adam_row = _timed("3 fused Adam", phase_kernels_adam)
     ctr_rows = _timed("3 embedding kernels", phase_kernels_ctr)
     momentum_row = _timed("3 fused Momentum", phase_kernels_momentum)
     dropout_rows = _timed("3e dropout kernels", phase_kernels_dropout)
+    nmt_dropout_rows = _timed("3e dropout kernels at the NMT shapes",
+                              phase_kernels_dropout_nmt)
     serve_launches, served = _timed("4 serve", phase_serve, card)
     train_launches, trained = _timed("4b train", phase_train, card)
     ctr_serve_launches, arrays, ctr_served = _timed(
@@ -4272,6 +5133,9 @@ def main():
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
+    nmt_launches, nmt_step = _timed("4i train Transformer NMT",
+                                    phase_train_nmt, card)
+    mobilenet = _timed("4j train MobileNetV2", phase_train_mobilenet, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
@@ -4279,6 +5143,8 @@ def main():
     _timed("5 profile decode", phase_profile_decode, decode_served, card)
     _timed("5 profile LeNet", phase_profile_lenet, book_profiled, card)
     _timed("5 profile ResNet-50", phase_profile_resnet, resnet, card)
+    _timed("5 profile NMT", phase_profile_nmt, nmt_step, card)
+    _timed("5 profile MobileNetV2", phase_profile_mobilenet, mobilenet, card)
     shape = [MAX_BATCH, BERT_BASE["heads"], BERT_BASE["seq"],
              BERT_BASE["hidden"] // BERT_BASE["heads"]]
     # the forward runs on both paths: "launches" stays the served path's
@@ -4395,6 +5261,17 @@ def main():
                   for n, r in paged_rows.items() if isinstance(n, int)},
         valid300={k: paged_rows[(b, "300 valid")][k]
                   for k in keys + ("max_abs_err", "n_valid")}))
+    # the NMT step's launches over its NMT_STEPS timed steps, and the
+    # flash and dropout kernels at its shapes
+    for row in kernels:
+        row["nmt_launches"] = nmt_launches[row["name"]]
+    for row in kernels[:2]:
+        row["nmt"] = nmt_flash_rows[
+            "forward" if row["name"] == "flash_attention_fwd"
+            else "backward"]
+    for row in kernels:
+        if row["name"] in nmt_dropout_rows:
+            row["nmt"] = nmt_dropout_rows[row["name"]]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

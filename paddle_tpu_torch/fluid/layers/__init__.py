@@ -9,8 +9,8 @@ from . import control_flow
 from .tensor import (data, _to_variable, fill_constant, create_global_var,
                      concat, assign, fill_constant_batch_size_like, sums)
 from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
-                 matmul, relu, gelu, tanh, reduce_mean, reduce_sum, mean,
-                 elementwise_op, elementwise_add, elementwise_sub,
+                 matmul, relu, relu6, gelu, tanh, reduce_mean, reduce_sum,
+                 mean, elementwise_op, elementwise_add, elementwise_sub,
                  elementwise_mul, elementwise_div, elementwise_max, square,
                  sqrt, clip, clip_by_norm, fused_dropout_add,
                  fused_act_dropout, layer_norm, cast, squeeze, slice,

@@ -32,6 +32,13 @@ def relu(x, name=None):
     return _single_out("relu", x)
 
 
+def relu6(x, name=None, **attrs):
+    """``clip(x, 0, threshold)``; ``threshold`` (default 6) among
+    ``attrs``, as the reference's generated layer function takes it."""
+    attrs.pop("inplace", None)
+    return _single_out("relu6", x, attrs)
+
+
 def gelu(x, approximate=False, name=None):
     return _single_out("gelu", x, {"approximate": approximate})
 

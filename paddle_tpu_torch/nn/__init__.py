@@ -4,8 +4,9 @@ batch-norm and flatten layers ResNet uses)."""
 from ..dygraph.layers import Layer, Sequential, LayerList, ParameterList
 from ..dygraph.nn import (Linear, Conv2D, Pool2D, BatchNorm, Embedding,
                           LayerNorm, Dropout)
-from .layer import (ReLU, GELU, Tanh, Flatten, MaxPool2D, AvgPool2D,
+from .layer import (ReLU, ReLU6, GELU, Tanh, Flatten, MaxPool2D, AvgPool2D,
                     AdaptiveAvgPool2D, BatchNorm2D, MultiHeadAttention,
-                    TransformerEncoderLayer, TransformerEncoder)
+                    TransformerEncoderLayer, TransformerEncoder,
+                    TransformerDecoderLayer, TransformerDecoder, Transformer)
 
 Conv2d = Conv2D  # historical alias

@@ -1,9 +1,11 @@
 """paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``: the
-activations, the flatten, pooling and batch-norm layers ResNet runs, and
-the transformer encoder stack BERT runs).
+activations, the flatten, pooling and batch-norm layers the vision models
+run, the transformer encoder stack BERT runs and the encoder-decoder
+``Transformer`` NMT runs).
 
-The encoder layer always emits the fused epilogues: ``fused_dropout_add``
-for each residual and ``fused_act_dropout`` for the FFN's gelu or relu.
+The encoder and decoder layers always emit the fused epilogues:
+``fused_dropout_add`` for each residual and ``fused_act_dropout`` for the
+FFN's gelu or relu.
 The reference's ``PADDLE_TPU_UNFUSED_EPILOGUE`` switch, an ablation knob
 of its MFU sweep, is not ported: an environment variable would take
 training off the kernels.
@@ -29,6 +31,7 @@ def _act_layer(fname):
 
 
 ReLU = _act_layer("relu")
+ReLU6 = _act_layer("relu6")
 GELU = _act_layer("gelu")
 Tanh = _act_layer("tanh")
 
@@ -212,3 +215,99 @@ class TransformerEncoder(Layer):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+class TransformerDecoderLayer(Layer):
+    """Self-attention under ``tgt_mask``, cross-attention over ``memory``
+    under ``memory_mask``, then the FFN; each sublayer ends in the
+    encoder layer's fused residual epilogue."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            attn_dropout or dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead,
+                                             attn_dropout or dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self._dropout = dropout
+        self._act_dropout = act_dropout if act_dropout is not None \
+            else dropout
+        self._act = activation
+        self._pre_norm = normalize_before
+
+    _drop_add = TransformerEncoderLayer._drop_add
+    _mlp_mid = TransformerEncoderLayer._mlp_mid
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self._pre_norm:
+            tgt = self.norm1(tgt)
+        tgt = self._drop_add(self.self_attn(tgt, tgt, tgt, tgt_mask),
+                             residual)
+        if not self._pre_norm:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self._pre_norm:
+            tgt = self.norm2(tgt)
+        tgt = self._drop_add(
+            self.cross_attn(tgt, memory, memory, memory_mask), residual)
+        if not self._pre_norm:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self._pre_norm:
+            tgt = self.norm3(tgt)
+        tgt = self._drop_add(self.linear2(self._mlp_mid(self.linear1(tgt))),
+                             residual)
+        if not self._pre_norm:
+            tgt = self.norm3(tgt)
+        return tgt
+
+
+class TransformerDecoder(Layer):
+    """``num_layers`` deep copies of ``decoder_layer``, as the encoder."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([decoder_layer] + [
+            copy.deepcopy(decoder_layer) for _ in range(num_layers - 1)])
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        out = tgt
+        for layer in self.layers:
+            out = layer(out, memory, tgt_mask, memory_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out
+
+
+class Transformer(Layer):
+    """The encoder and decoder stacks: ``memory = encoder(src,
+    src_mask)``, then ``decoder(tgt, memory, tgt_mask, memory_mask)``."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", normalize_before=False):
+        super().__init__()
+        enc = TransformerEncoderLayer(d_model, nhead, dim_feedforward,
+                                      dropout, activation,
+                                      normalize_before=normalize_before)
+        dec = TransformerDecoderLayer(d_model, nhead, dim_feedforward,
+                                      dropout, activation,
+                                      normalize_before=normalize_before)
+        self.encoder = TransformerEncoder(enc, num_encoder_layers)
+        self.decoder = TransformerDecoder(dec, num_decoder_layers)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)

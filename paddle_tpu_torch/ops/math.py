@@ -60,6 +60,17 @@ def _relu(ins, attrs, ctx):
     return {"Out": [torch.relu(_x(ins))]}
 
 
+@register_op("relu6")
+def _relu6(ins, attrs, ctx):
+    """``clip(x, 0, threshold)`` as the reference spells it,
+    ``minimum(maximum(x, 0), threshold)``: at either bound the gradient
+    is split in half between the two sides, as jax's is."""
+    x = _x(ins)
+    lo = x.new_zeros(())
+    hi = x.new_full((), attrs.get("threshold", 6.0))
+    return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
+
+
 @register_op("gelu")
 def _gelu(ins, attrs, ctx):
     approximate = "tanh" if attrs.get("approximate", False) else "none"

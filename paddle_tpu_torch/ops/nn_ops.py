@@ -477,6 +477,19 @@ def _conv2d(ins, attrs, ctx):
     return {"Output": [_from_nchw(out, nhwc).to(x.dtype)]}
 
 
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ins, attrs, ctx):
+    """``conv2d`` with ``groups`` defaulting to the input's channels
+    (``F.conv2d`` with groups: on the card PyTorch's library picks cuDNN
+    or its own depthwise kernels; the reference has no kernel of its own
+    for it either); a filter of ``C · m`` outputs is a channel multiplier
+    of ``m``."""
+    x = ins["Input"][0]
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    groups = attrs.get("groups", x.shape[-1] if nhwc else x.shape[1])
+    return _conv2d(ins, dict(attrs, groups=groups), ctx)
+
+
 @register_op("pool2d")
 def _pool2d(ins, attrs, ctx):
     """Max or average pooling as the reference's ``lax.reduce_window``:

@@ -1,4 +1,4 @@
 """paddle.vision (counterpart of ``paddle_tpu/vision``: the model zoo's
-LeNet and ResNets; datasets, transforms, the vision ops, VGG and
-MobileNet come with their slices, ROADMAP.md)."""
+LeNet, ResNets, VGG and MobileNets; datasets, transforms and the vision
+ops come with their slices, ROADMAP.md)."""
 from . import models

@@ -261,6 +261,75 @@ def test_autograd_function_runs_both_kernels(cuda):
     assert cuda_kernels.flash_attention_bwd.launches == b0 + 1
 
 
+def _check_tq_tk(device, b, h, tq, tk, d, dtype, bias):
+    """The forward, its statistics and the backward at q ``[B,H,Tq,D]``
+    against k, v ``[B,H,Tk,D]`` (permuted views, as the model's heads
+    are), with ``bias`` None, "causal" (the NMT decoder's ``[1,1,T,T]``
+    additive mask of -1e9 above the diagonal, broadcast over B and H
+    with stride 0) or "padding" (a ``[B,1,1,Tk]`` key-padding bias)."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    q, do = (torch.randn(b, tq, h, d, generator=g).to(device, dtype)
+             .permute(0, 2, 1, 3) for _ in range(2))
+    k, v = (torch.randn(b, tk, h, d, generator=g).to(device, dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    mask = None
+    if bias == "causal":
+        mask = torch.triu(torch.full((tq, tk), -1e9), 1)[None, None] \
+            .to(device)
+    elif bias == "padding":
+        lengths = torch.randint(1, tk + 1, (b,), generator=g)
+        keep = (torch.arange(tk)[None, :] < lengths[:, None]).float()
+        mask = ((keep - 1) * 10000.0).reshape(b, 1, 1, tk).to(device)
+    scale = d ** -0.5
+    f0 = cuda_kernels.flash_attention_fwd.launches
+    out = cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, False)
+    ref = _reference_attention(q, k, v, mask, scale, False)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    o, m, l = cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, False,
+                                               return_stats=True)
+    for got_, want_ in zip((m, l), _reference_stats(q, k, mask, scale,
+                                                    False)):
+        torch.testing.assert_close(got_, want_, atol=1e-4, rtol=1e-4)
+    got = cuda_kernels.flash_attention_bwd(q, k, v, mask, scale, False, o,
+                                           m, l, do)
+    torch.cuda.synchronize()
+    assert cuda_kernels.flash_attention_fwd.launches == f0 + 2
+    want = _reference_attention_bwd(q, k, v, mask, scale, o, m, l, do)
+    for g_, w, shape in zip(got, want, (q.shape, k.shape, v.shape)):
+        assert g_.shape == w.shape == shape and g_.dtype == dtype
+        torch.testing.assert_close(g_.float(), w.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tq,tk,bias", [
+    (64, 64, "causal"), (33, 33, "causal"), (64, 96, None),
+    (16, 24, None), (100, 37, None), (40, 97, "padding"), (1, 70, None)],
+    ids=["nmt causal", "causal ragged", "nmt cross", "host-check cross",
+         "keys shorter", "cross padded", "one query"])
+def test_cross_attention_and_causal_bias(cuda, tq, tk, bias, dtype):
+    """The NMT paths: the decoder's causal bias and cross-attention with
+    Tq != Tk (the dK/dV tiles run over Tk, the dQ tiles over Tq) at 16
+    heads of 64."""
+    _check_tq_tk(cuda, 4, 16, tq, tk, 64, dtype, bias)
+
+
+def test_causal_bias_row_zero_backward_is_exact(cuda):
+    """Row 0 of the -1e9 causal bias leaves one key: its probability is 1
+    and its dQ is 0 (dS = P (dP - Δ) with P = 1 and Δ = dP); the saved
+    row max and sum keep it so (a folded log-sum-exp would not)."""
+    (q, k, v), _ = _inputs(cuda, 2, 16, 64, 64, torch.float32, masked=False)
+    mask = torch.triu(torch.full((64, 64), -1e9), 1)[None, None].to(cuda)
+    do = torch.randn_like(q)
+    o, m, l = cuda_kernels.flash_attention_fwd(q, k, v, mask, 0.125, False,
+                                               return_stats=True)
+    dq, _, _ = cuda_kernels.flash_attention_bwd(q, k, v, mask, 0.125, False,
+                                                o, m, l, do)
+    torch.testing.assert_close(o[:, :, 0], v[:, :, 0], atol=1e-6, rtol=0.0)
+    assert torch.equal(l[:, :, 0], torch.ones_like(l[:, :, 0]))
+    assert float(dq[:, :, 0].abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("sizes", [[(1024, 768), (768,), (30, 7)],
                                    [(300,), (200,)]],
                          ids=["kernel", "small"])
