@@ -3,7 +3,8 @@
 end to end: the static BERT program, the wide&deep CTR program, the
 flagship dygraph ``BertForPretraining`` step, paged decode, the static
 book tier (MNIST LeNet), the dygraph ResNet-50 step, the Transformer NMT
-step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated).
+step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated), and the
+BoxPS CTR trainer (``bench.py:547 main_ctr``).
 
     python3 chip_smoke.py
 
@@ -212,6 +213,37 @@ over):
    transposed must miss.  VGG16 (224², batch 2) and MobileNetV1 (64²,
    batch 4), 1000 classes: eval logits card against host within 1e-4 of
    the largest.
+4k. train CTR through BoxPS -- ``bench.py:547 main_ctr`` at its full
+   width (26 slots, dim 16, 13 dense features, batch 4096, 3 warm-up and
+   20 timed steps, ids from ``RandomState(0)`` over a 2^40 feasign space
+   as ``bench.py:617`` draws them): one ``begin_pass`` over all 23
+   batches (about 2,449,408 unique ids, a 2^22-row cache of 256 MiB on
+   the card, its staging time printed), the program through
+   ``CompiledProgram`` with ``fuse_elewise_add_act_ops`` and
+   ``constant_folding`` (``ops_per_step`` 42 -> 38, as the reference),
+   steps through ``AsyncStepRunner(...).submit(f).lazy(0)``; the loss
+   over the leg's batches must fall.  Then the bf16 leg through
+   ``BuildStrategy.amp`` (``amp.ops_cast`` AMP_CASTS_REFERENCE, 38 ops;
+   its first loss within rtol 0.05, atol 0.05 of an fp32 step's from
+   one state).  Host ms a step, examples/s, peak memory and a profiled
+   step (busy ms, idle share, classes) of each leg; neither launches a
+   hand-written kernel.  ``end_pass``: the host store's rows equal the
+   card's trained cache.  The kernel-tier leg (``bench.py:677``):
+   ``build_ctr_train_program(slots=26, dim=16)`` with Adam at batch
+   256, exactly 26 gather-pool, 26 scatter-add and 1 fused-Adam launches
+   a step, losses within BOX_TIER_RTOL of the unrewritten program's; then
+   its three kernels on the leg's own ids, tables and Adam bucket against
+   their plain versions (forward rtol=atol=1e-6, gradient and Adam
+   ``torch.equal``).  Card against host at BOX_HOST (batch 256, 3 steps,
+   ids from a 2048-value space so that each repeats about three times a
+   batch, one box state): losses within rtol 1e-5, trained rows within
+   1e-6 of the largest, a twin feeding ``slots_of(ids) + 1`` must miss,
+   and the same model over a dense ``embedding`` holding the cache agrees
+   with the box program within rtol 1e-5.  The dataset route: MultiSlot
+   files written from a seed (ids from a 4096-value space) into a
+   temporary directory, ``InMemoryDataset``, two passes sharing ids
+   through ``train_from_dataset`` pass by pass and through
+   ``train_passes``: bit for bit.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -221,7 +253,10 @@ over):
    step (a), step (b) and the eval forward at 128 rows; for one NMT step
    (with the host ms each forward's causal mask takes to reach the card)
    and one MobileNetV2 step.
-6. report  -- one ``{"kernels": [...]}`` line, then the last line
+6. report  -- one ``{"kernels": [...]}`` line (each kernel's
+   ``boxps_launches`` are phase 4k's kernel-tier leg's, its
+   ``boxps_legs_launches`` those of 4k's fp32 and bf16 legs), then the last
+   line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -340,6 +375,17 @@ MOBILENET = dict(scale=1.0, num_classes=1000)
 MOBILENET_BATCH, MOBILENET_SIZE, MOBILENET_STEPS = 128, 224, 3
 MOBILENET_HOST = dict(num_classes=10, size=64, batch=4)
 EVAL_HOST = (("vgg16", 224, 2), ("mobilenet_v1", 64, 4))
+# phase 4k: bench.py:547 main_ctr at its full width (:564), nothing cut
+BOX = dict(slots=26, dim=16, batch=4096, steps=20, warmup=3)
+BOX_ID_SPACE = 2 ** 40         # bench.py:617's feasign draws
+AMP_CASTS_REFERENCE = 32       # the reference's amp.ops_cast on this program
+# the card-vs-host check's one cut; its ids, and the dataset route's, come
+# from a small feasign space so that ids repeat many times a batch and the
+# cache gradient sums them
+BOX_HOST = dict(batch=256, steps=3, ids=2048)
+BOX_TIER_BATCH, BOX_TIER_WARMUP, BOX_TIER_STEPS = 256, 2, 10  # bench.py:677
+BOX_TIER_RTOL = 1e-4           # kernel tier against the unrewritten losses
+BOX_DATASET = dict(passes=2, records=512, batch=256, ids=4096)
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -4818,7 +4864,7 @@ def phase_profile_lenet(setups, card, iters=20):
     for n, exe, program, scope, loss, feed in setups:
         def step():
             return exe.run(program, feed=feed, fetch_list=[loss],
-                           scope=scope, return_numpy=False)[0].cpu()
+                           scope=scope, return_numpy=False)[0].numpy()
 
         host_ms, busy_ms, idle, n_kern, by_class = _profile(step, iters)
         _p(f"profile LeNet: train step, rows={n}: host {host_ms:.3f} "
@@ -4836,7 +4882,8 @@ _CLASSES = (("paged_attention", "paged_attention (csrc)"),
             ("embedding_pool_grad_merge", "embedding_pool_grad merge (csrc)"),
             ("embedding_pool_grad_segments",
              "embedding_pool_grad segments (csrc)"),
-            ("radixsort", "embedding_pool_grad sort (CUB)"),
+            ("radixsort", "CUB radix sort (embedding_pool_grad's past "
+                          "32,768 positions; torch.sort)"),
             ("fused_momentum", "fused_momentum (csrc)"),
             ("flash_fwd", "flash_attention_fwd (csrc)"),
             ("flash_bwd", "flash_attention_bwd (csrc)"),
@@ -5015,7 +5062,7 @@ def phase_profile(served, trained, card, iters=20, train_iters=5):
 
         def batch():
             return exe.run(program, feed=feed, fetch_list=[logits],
-                           scope=scope, return_numpy=False)[0].cpu()
+                           scope=scope, return_numpy=False)[0].numpy()
 
         host_ms, busy_ms, idle, n_kern, by_class = _profile(batch, iters)
         cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
@@ -5032,7 +5079,7 @@ def phase_profile(served, trained, card, iters=20, train_iters=5):
 
     def step():
         return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)[0].cpu()
+                       return_numpy=False)[0].numpy()
 
     host_ms, busy_ms, idle, n_kern, by_class = _profile(step, train_iters)
     cublas_ms = by_class.get("matmul (cuBLAS)", 0.0)
@@ -5047,6 +5094,635 @@ def phase_profile(served, trained, card, iters=20, train_iters=5):
        f"{gflop / cublas_ms if cublas_ms else float('nan'):.1f} TFLOP/s  "
        f"[{card}]")
     _print_classes(by_class, "step")
+
+
+# ---------------------------------------------------------------------------
+# phase 4k: bench.py:547 main_ctr, the BoxPS CTR trainer
+# ---------------------------------------------------------------------------
+def _bench_ctr_program(fluid, table, slots=BOX["slots"], dim=BOX["dim"],
+                       embed="box", vocab=None):
+    """bench.py:571-589's program: pull_box_sparse over the pass cache
+    ``<table>@HBMCACHE``, reshape, concat with the 13 dense features, fc
+    256 relu, fc 128 relu, a wide fc, the sigmoid cross-entropy mean and
+    SGD(0.01).  ``embed="dense"`` builds the same model over a dense
+    ``[vocab, dim]`` embedding named ``table`` (the box-against-dense
+    check); the parameters take the same names in both."""
+    from paddle_tpu_torch.distributed.ps.box import get_box_wrapper
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+
+    reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    box = None
+    with fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [-1, slots], dtype="int64")
+        dense = fluid.data("dense", [-1, 13])
+        label = fluid.data("label", [-1, 1])
+        if embed == "box":
+            box = get_box_wrapper(table, dim=dim, init_kind="gaussian",
+                                  init_scale=0.01)
+            emb = fluid.layers.pull_box_sparse(ids, dim, table_name=table)
+        else:
+            emb = fluid.layers.embedding(
+                ids, [vocab, dim], param_attr=fluid.ParamAttr(name=table))
+        flat = fluid.layers.reshape(emb, [-1, slots * dim])
+        deep = fluid.layers.concat([flat, dense], axis=1)
+        h = fluid.layers.fc(deep, 256, act="relu")
+        h = fluid.layers.fc(h, 128, act="relu")
+        wide = fluid.layers.fc(dense, 1)
+        logit = fluid.layers.fc(h, 1) + wide
+        loss = fluid.layers.mean(
+            fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        fluid.optimizer.SGDOptimizer(0.01).minimize(loss)
+    return main, startup, loss, box
+
+
+def _bench_strategies(fluid):
+    """bench.py:604-605 and :655-656: the fp32 leg's fusion and folding,
+    the bf16 leg's AMP."""
+    bs = fluid.BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    bs.constant_folding = True
+    bs.auto_tune = bool(fluid.core.get_flag("auto_tune"))
+    bs2 = fluid.BuildStrategy()
+    bs2.amp = True
+    return bs, bs2
+
+
+def _box_feeds(box, all_ids, rng):
+    """bench.py:622-627: cache slots of each batch's raw ids, dense
+    features and labels drawn after the ids from the same RandomState."""
+    _, batch, slots = all_ids.shape
+    return [{"ids": box.slots_of(b.reshape(-1)).reshape(batch, slots),
+             "dense": rng.randn(batch, 13).astype("float32"),
+             "label": rng.randint(0, 2, (batch, 1)).astype("float32")}
+            for b in all_ids]
+
+
+def _ops_counted(main, loss):
+    """bench.py:599-603's ops_per_step before the passes: the step's
+    fetch-reachable ops, state writes kept."""
+    from paddle_tpu_torch.fluid.framework import prune_ops
+    gb = main.global_block()
+    return len(prune_ops(gb, [op for op in gb.ops
+                              if op.type not in ("feed", "fetch")],
+                         targets=[loss.name], keep_state_writes=True))
+
+
+def _box_leg(label, runner, feeds, start, base, card):
+    """bench.py's timed_run over ``runner.submit(f).lazy(0)``: BOX's
+    warm-up steps, then its timed steps, the float() of the last lazy
+    loss the only wait; returns (losses, host ms a step, examples/s, peak
+    GiB above ``base``, the bytes earlier phases still hold)."""
+    import torch
+    n = len(feeds)
+    lazies = [runner.submit(feeds[(start + i) % n]).lazy(0)
+              for i in range(BOX["warmup"])]
+    float(lazies[-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(BOX["steps"]):
+        lazies.append(runner.submit(
+            feeds[(start + BOX["warmup"] + i) % n]).lazy(0))
+    float(lazies[-1])
+    wall = time.perf_counter() - t0
+    runner.drain()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    losses = [float(x) for x in lazies]
+    ms = wall / BOX["steps"] * 1e3
+    ex_s = BOX["steps"] * BOX["batch"] / wall
+    _p(f"BoxPS CTR {label}: {BOX['steps']} timed steps of {BOX['batch']} "
+       f"examples in {wall:.3f} s: {ms:.3f} host ms/step, {ex_s:.1f} "
+       f"examples/s, peak device memory {peak:.3f} GiB above the "
+       f"{base / 2 ** 30:.3f} GiB earlier phases hold; losses "
+       f"{[round(x, 5) for x in losses]}  [{card}]")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: BoxPS CTR {label} losses are not "
+                         f"finite")
+    return losses, ms, ex_s, peak
+
+
+def _box_profile(label, exe, program, feed, loss, card):
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss],
+                       return_numpy=False)[0].numpy()
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(step, 5)
+    _p(f"profile BoxPS CTR {label}: host {host_ms:.3f} ms/step "
+       f"({BOX['batch'] / host_ms * 1e3:.0f} examples/s), device busy "
+       f"{busy_ms:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+       f"kernels/step  [{card}]")
+    _print_classes(by_class, "step")
+    return dict(host_ms=host_ms, busy_ms=busy_ms, idle=idle,
+                kernels=n_kern, by_class=by_class)
+
+
+def _box_kernel_tier_leg(card):
+    """bench.py:677's kernel-tier leg (``_kernel_tier_variant``, :351):
+    ``build_ctr_train_program(slots=26, dim=16)`` (Adam) and
+    ``ctr_demo_feed(RandomState(1), batch=256)``, unrewritten and through
+    ``kernel_tier``, BOX_TIER_WARMUP + BOX_TIER_STEPS steps each from one
+    init.  Returns the tier run's launches over its timed steps; the
+    launch counts of the plain run must read 0, the tier's exactly 26
+    gather-pool forwards, 26 scatter-add gradients and 1 fused_adam a
+    step; the losses within BOX_TIER_RTOL.  Then, after those counts are
+    read, ``_box_tier_kernel_checks`` holds the three kernels against
+    their plain versions on the leg's own inputs."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+    from paddle_tpu_torch.models.static_graphs import (
+        build_ctr_train_program, ctr_demo_feed)
+
+    slots = BOX["slots"]
+    feed = ctr_demo_feed(np.random.RandomState(1), batch=BOX_TIER_BATCH,
+                         slots=slots)
+    counted = _counted_kernels()
+
+    def run(tier):
+        reset_unique_name()
+        main, startup, loss = build_ctr_train_program(slots=slots,
+                                                      dim=BOX["dim"])
+        startup.random_seed = SEED
+        prog = main
+        if tier:
+            bs = fluid.BuildStrategy()
+            bs.kernel_tier = True
+            prog = fluid.CompiledProgram(main, build_strategy=bs)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        for _ in range(BOX_TIER_WARMUP):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = [exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)[0]
+                for _ in range(BOX_TIER_STEPS)]
+        losses = [float(x) for x in outs]
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        ops = int(trace.metrics().gauge("executor.ops_per_step").value)
+        return losses, ops, launches, wall, main, scope
+
+    base_losses, base_ops, base_launches, base_wall, _, _ = run(False)
+    losses, ops, launches, wall, main, scope = run(True)
+    want = {fn.__name__: 0 for fn in counted}
+    want.update(embedding_pool_fwd=slots * BOX_TIER_STEPS,
+                embedding_pool_grad=slots * BOX_TIER_STEPS,
+                fused_adam=BOX_TIER_STEPS)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    _p(f"BoxPS CTR kernel-tier leg ({slots} slots, dim {BOX['dim']}, "
+       f"[{BOX_TIER_BATCH}, 5] ids into [128, 16], Adam): unrewritten "
+       f"{base_ops} ops/step, {base_wall / BOX_TIER_STEPS * 1e3:.3f} ms/step; "
+       f"kernel tier {ops} ops/step, {wall / BOX_TIER_STEPS * 1e3:.3f} "
+       f"ms/step; launches in its {BOX_TIER_STEPS} timed steps "
+       f"{ {k: v for k, v in launches.items() if v} } (per step {slots} "
+       f"gather-pool, {slots} scatter-add, 1 fused_adam), unrewritten run "
+       f"{sum(base_launches.values())}; losses tier {losses[-1]:.6f}, "
+       f"unrewritten {base_losses[-1]:.6f}, max relative difference "
+       f"{err:.3e} (rtol {BOX_TIER_RTOL})  [{card}]")
+    if launches != want or any(base_launches.values()):
+        raise SystemExit("chip_smoke: the kernel-tier CTR leg did not run "
+                         "through its kernels exactly as expected")
+    if err > BOX_TIER_RTOL or not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: the kernel-tier CTR leg's losses "
+                         "disagree with the unrewritten program's")
+    checks = _box_tier_kernel_checks(main, scope, feed, card)
+    return launches, dict(ops=ops, base_ops=base_ops,
+                          ms=wall / BOX_TIER_STEPS * 1e3,
+                          base_ms=base_wall / BOX_TIER_STEPS * 1e3,
+                          loss_rel_err=err, **checks)
+
+
+def _box_tier_kernel_checks(main, scope, feed, card):
+    """The kernel-tier leg's three kernels on the leg's own inputs, each
+    against its plain version: per slot, the gather-pool forward over the
+    slot's [256, 5] ids into its trained [128, 16] table, prepared as the
+    lowering prepares them (rtol=atol=1e-6, as phase 3), and the
+    scatter-add gradient of a seeded [256, 16] cotangent (``torch.equal``
+    to the host's ``index_add_``, as phase 3); ``fused_adam`` over the
+    program's parameter bucket as the run left it (parameters, moments,
+    beta powers and lr from the scope, a seeded gradient), the op
+    ``torch.equal`` to ``_plain_fused_adam``.  Made after the leg's
+    launch counts were read, so they count in no path."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.ctr_ops import (
+        _emb_pool_prep, _reference_embedding_pool,
+        _reference_embedding_pool_grad)
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    gb = main.global_block()
+    pools = [op for op in gb.ops if op.type == "fused_embedding_pool"]
+    adams = [op for op in gb.ops if op.type == "fused_adam"]
+    if len(pools) != BOX["slots"] or len(adams) != 1:
+        raise SystemExit("chip_smoke: the kernel-tier CTR program does not "
+                         "hold 26 fused pools and one fused_adam")
+    fwd_err, fwd_ok, grad_equal, grad_err = 0.0, True, True, 0.0
+    for op in pools:
+        w, ids, wgt = _emb_pool_prep(
+            {"W": [scope.find_var(op.input("W")[0])],
+             "Ids": [torch.as_tensor(feed[op.input("Ids")[0]],
+                                     device=dev)]}, op.attrs)
+        ids = ids.long()
+        out = cuda_kernels.embedding_pool_fwd(w, ids, wgt)
+        ref = _reference_embedding_pool(w, ids, wgt,
+                                        op.attr("padding_idx", -1))
+        fwd_ok &= torch.allclose(out, ref, rtol=1e-6, atol=1e-6)
+        fwd_err = max(fwd_err, (out - ref).abs().max().item())
+        g = torch.randn((ids.shape[0], w.shape[1]), generator=gen,
+                        device=dev)
+        dw = cuda_kernels.embedding_pool_grad(g, ids, wgt, w.shape[0])
+        host = _reference_embedding_pool_grad(
+            g.cpu(), ids.cpu(), None if wgt is None else wgt.cpu(),
+            w.shape[0])
+        grad_equal &= torch.equal(dw.cpu(), host)
+        grad_err = max(grad_err, (dw.cpu() - host).abs().max().item())
+    op, = adams
+    ins = {slot: [scope.find_var(n) for n in op.input(slot)]
+           for slot in ("Param", "Moment1", "Moment2", "Beta1Pow",
+                        "Beta2Pow", "LearningRate")}
+    ins["Grad"] = [1e-2 * torch.randn(p.shape, generator=gen, device=dev)
+                   for p in ins["Param"]]
+    b1, b2, eps = (op.attr("beta1"), op.attr("beta2"), op.attr("epsilon"))
+    before = cuda_kernels.fused_adam.launches
+    fused = get_op("fused_adam").fn(ins, op.attrs, LoweringContext(dev))
+    launched = cuda_kernels.fused_adam.launches - before
+    plain = _plain_fused_adam(
+        ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"],
+        ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
+        eps)
+    adam_equal, adam_err = True, 0.0
+    for slot, outs in plain.items():
+        for got, want in zip(fused[slot], outs):
+            adam_equal &= torch.equal(got, want)
+            adam_err = max(adam_err, (got - want).abs().max().item())
+    n = sum(p.numel() for p in ins["Param"])
+    _p(f"BoxPS CTR kernel-tier leg's kernels on its own inputs: "
+       f"embedding_pool_fwd over {len(pools)} slots' [{BOX_TIER_BATCH}, 5] "
+       f"ids into their trained tables, max |err| vs plain {fwd_err:.3e} "
+       f"(rtol=atol=1e-6); embedding_pool_grad torch.equal to the host's "
+       f"index_add_ = {grad_equal} (max |err| {grad_err:.3e}); fused_adam "
+       f"over the program's {len(ins['Param'])} parameters ({n} values), "
+       f"{launched} launch, torch.equal to its plain version = "
+       f"{adam_equal} (max |err| {adam_err:.3e})  [{card}]")
+    if not fwd_ok:
+        raise SystemExit("chip_smoke: embedding_pool_fwd disagrees with its "
+                         "plain version on the kernel-tier CTR leg's inputs")
+    if not grad_equal:
+        raise SystemExit("chip_smoke: embedding_pool_grad disagrees with "
+                         "the host on the kernel-tier CTR leg's inputs")
+    if launched != 1 or not adam_equal:
+        raise SystemExit("chip_smoke: fused_adam disagrees with its plain "
+                         "version on the kernel-tier CTR leg's bucket")
+    return dict(pool_fwd_max_abs_err=fwd_err, pool_grad_max_abs_err=grad_err,
+                adam_max_abs_err=adam_err)
+
+
+def _box_state_names(main):
+    """The program's persistable state but the pass cache: the
+    parameters and the learning rate."""
+    return [n for n, v in main.global_block().vars.items()
+            if v.persistable and not n.endswith("@HBMCACHE")]
+
+
+def _worst_rel(got, want):
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _box_card_vs_host(card):
+    """At BOX_HOST (26 slots, dim 16, batch 256, 3 steps, ids from a
+    2048-value space, so each repeats about three times a batch and the
+    cache gradient sums them) from one state (the fc weights of one
+    startup, the cache staged once from a seed):
+    the card's losses within rtol 1e-5 of the host's and its trained
+    cache rows within 1e-6 of their largest; a twin on the card that
+    feeds ``slots_of(ids) + 1`` (the same shapes, the wrong rows) must
+    miss; and the same model over a dense ``embedding`` table holding
+    the cache on the card agrees with the box program within rtol 1e-5
+    (tests/test_box_ps.py:146) and 1e-6 of the largest row."""
+    from paddle_tpu_torch import fluid, interop
+
+    t0 = time.perf_counter()
+    bs, _ = _bench_strategies(fluid)
+    main, startup, loss, box = _bench_ctr_program(fluid, "box_host_check")
+    fluid.CompiledProgram(main, build_strategy=bs)._apply_ir_passes(
+        [loss.name])
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    init = interop.scope_to_numpy(scope, _box_state_names(main))
+    rng = np.random.RandomState(SEED + 5)
+    all_ids = rng.randint(0, BOX_HOST["ids"], (BOX_HOST["steps"],
+                                               BOX_HOST["batch"],
+                                               BOX["slots"]),
+                          dtype=np.int64)
+    repeats = min(np.unique(b, return_counts=True)[1].max() for b in all_ids)
+    if repeats < 2:
+        raise SystemExit("chip_smoke: the BoxPS card-vs-host ids do not "
+                         "repeat within a batch")
+    cache = box.begin_pass(all_ids)
+    n = box.pass_size
+    feeds = _box_feeds(box, all_ids, rng)
+    cname = "box_host_check@HBMCACHE"
+
+    def steps(program, place, feeds, table=cname):
+        """Losses and trained rows of the table (the box cache, or the
+        dense embedding that holds the same values) from one state."""
+        s = interop.scope_from_numpy(dict(init, **{table: cache}),
+                                     fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        losses = [float(exe.run(program, feed=f, fetch_list=[loss.name],
+                                scope=s)[0]) for f in feeds]
+        return losses, interop.scope_to_numpy(s, [table])[table][:n]
+
+    card_l, card_c = steps(main, fluid.CUDAPlace(0), feeds)
+    host_l, host_c = steps(main, fluid.CPUPlace(), feeds)
+    twin = [dict(f, ids=(f["ids"] + 1) % len(cache)) for f in feeds]
+    twin_l, twin_c = steps(main, fluid.CUDAPlace(0), twin)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, host_l))
+    rows_err = _worst_rel(card_c, host_c)
+    twin_loss = max(abs(a - b) / abs(b) for a, b in zip(twin_l, host_l))
+    twin_rows = _worst_rel(twin_c, host_c)
+    dmain, _, dloss, _ = _bench_ctr_program(
+        fluid, "dense_emb", embed="dense", vocab=len(cache))
+    fluid.CompiledProgram(dmain, build_strategy=bs)._apply_ir_passes(
+        [dloss.name])
+    dense_l, dense_c = steps(dmain, fluid.CUDAPlace(0), feeds,
+                             table="dense_emb")
+    dense_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, dense_l))
+    dense_rows = _worst_rel(card_c, dense_c)
+    _p(f"BoxPS CTR card vs host at {BOX_HOST['batch']} x {BOX['slots']} "
+       f"slots, dim {BOX['dim']}, {BOX_HOST['steps']} steps, {all_ids.size} "
+       f"ids over {n} unique in a {len(cache)}-row cache (every batch "
+       f"holds some id {repeats} times or more), in "
+       f"{time.perf_counter() - t0:.1f} s: "
+       f"losses card {card_l}, host {host_l}, max relative difference "
+       f"{loss_err:.3e} (rtol 1e-5); trained rows max |card - host| / max "
+       f"|row| {rows_err:.3e} (1e-6); the slots + 1 twin {twin_loss:.3e} "
+       f"(losses), {twin_rows:.3e} (rows), must miss; the dense-embedding "
+       f"model on the card {dense_err:.3e} (losses, rtol 1e-5), "
+       f"{dense_rows:.3e} (rows, 1e-6)  [{card}]")
+    box.abandon_pass()
+    if loss_err > 1e-5 or rows_err > 1e-6:
+        raise SystemExit("chip_smoke: the card's BoxPS CTR steps disagree "
+                         "with the host's")
+    if twin_loss <= 1e-5 and twin_rows <= 1e-6:
+        raise SystemExit("chip_smoke: the BoxPS card-vs-host check cannot "
+                         "tell the right cache rows from the wrong ones")
+    if dense_err > 1e-5 or dense_rows > 1e-6:
+        raise SystemExit("chip_smoke: the box program disagrees with the "
+                         "same model over a dense embedding")
+    return dict(loss_rel_err=loss_err, rows_rel_err=rows_err,
+                twin_loss_rel=twin_loss, twin_rows_rel=twin_rows,
+                dense_loss_rel_err=dense_err, dense_rows_rel_err=dense_rows)
+
+
+def _write_multislot(path, ids, dense, labels):
+    """MultiSlot text (tests/test_box_ps.py:60-73): per record the id
+    slot's count and ids, the 13 dense values, the label."""
+    with open(path, "w") as f:
+        for r, d, y in zip(ids, dense, labels):
+            f.write(" ".join([str(len(r))] + [str(int(v)) for v in r]
+                             + ["13"] + ["%r" % float(v) for v in d]
+                             + ["1", "%r" % float(y)]) + "\n")
+
+
+def _box_dataset_route(card):
+    """The dataset-driven trainer on the card: BOX_DATASET["passes"]
+    passes of MultiSlot files written from a seed into a temporary
+    directory (half of each later pass's ids shared with the pass before),
+    loaded by ``InMemoryDataset`` and trained (the BoxPS program, batch
+    BOX_DATASET["batch"]; ids from a BOX_DATASET["ids"]-value space, so
+    they repeat within a batch) by ``exe.train_from_dataset`` one pass at a
+    time
+    (begin_pass and end_pass around each) and by ``exe.train_passes``
+    (pass N+1 staged while pass N trains) from one state: every loss and
+    every host row bit for bit."""
+    import tempfile
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.distributed.ps.box import get_box_wrapper
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 9)
+    slots, recs = BOX["slots"], BOX_DATASET["records"]
+    place = fluid.CUDAPlace(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        passes, prev = [], None
+        for p in range(BOX_DATASET["passes"]):
+            ids = rng.randint(0, BOX_DATASET["ids"], (recs, slots),
+                              dtype=np.int64)
+            if prev is not None:
+                ids[: recs // 2] = prev[rng.permutation(recs)[: recs // 2]]
+            prev = ids
+            paths = []
+            for k in range(2):
+                path = os.path.join(tmp, f"pass{p}-part{k}")
+                part = slice(k * recs // 2, (k + 1) * recs // 2)
+                _write_multislot(path, ids[part],
+                                 rng.randn(recs // 2, 13),
+                                 rng.randint(0, 2, recs // 2))
+                paths.append(path)
+            passes.append(paths)
+
+        def run(table, piped):
+            main, startup, loss, _ = _bench_ctr_program(fluid, table)
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            interop.scope_from_numpy(init, fluid.global_scope(), place)
+            gb = main.global_block()
+            dss = []
+            for paths in passes:
+                ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+                ds.set_batch_size(BOX_DATASET["batch"])
+                ds.set_use_var([gb.var("ids"), gb.var("dense"),
+                                gb.var("label")])
+                ds.set_filelist(paths)
+                ds.load_into_memory()
+                dss.append(ds)
+            if piped:
+                res = exe.train_passes(main, dss, fetch_list=[loss],
+                                       print_period=1)
+            else:
+                res = [exe.train_from_dataset(main, ds, fetch_list=[loss],
+                                              print_period=1)
+                       for ds in dss]
+            losses = [float(np.asarray(o[0]).ravel()[0])
+                      for r in res for o in r]
+            box = get_box_wrapper(table)
+            host = interop.box_to_numpy(box)
+            return losses, host, box
+
+        main, startup, _, _ = _bench_ctr_program(fluid, "box_ds_init")
+        s = fluid.Scope()
+        fluid.Executor(place).run(startup, scope=s)
+        init = interop.scope_to_numpy(s, _box_state_names(main))
+        serial_l, serial_h, _ = run("box_ds_serial", False)
+        piped_l, piped_h, box = run("box_ds_piped", True)
+    same = (serial_l == piped_l
+            and np.array_equal(serial_h["host_ids"], piped_h["host_ids"])
+            and np.array_equal(serial_h["host_vals"], piped_h["host_vals"]))
+    n_steps = BOX_DATASET["passes"] * recs // BOX_DATASET["batch"]
+    _p(f"BoxPS CTR dataset route: {BOX_DATASET['passes']} passes of {recs} "
+       f"MultiSlot records (half of pass 2's ids from pass 1), batch "
+       f"{BOX_DATASET['batch']}, in {time.perf_counter() - t0:.1f} s: "
+       f"train_from_dataset losses {serial_l}, train_passes {piped_l}; "
+       f"{len(piped_h['host_ids'])} host rows; bit for bit: {same}  "
+       f"[{card}]")
+    if not same or len(piped_l) != n_steps or box.pass_size != 0:
+        raise SystemExit("chip_smoke: train_passes on the card is not bit "
+                         "for bit the serial begin/end pass loop")
+    return dict(steps=n_steps, host_rows=len(piped_h["host_ids"]))
+
+
+def phase_train_boxps(card):
+    """bench.py:547 main_ctr on the card at its full width: the BoxPS fp32
+    leg, the bf16 leg, the kernel-tier leg, the card-vs-host and
+    box-vs-dense checks and the dataset-driven trainer.  Returns the
+    kernel-tier leg's launches over its timed steps, the fp32 and bf16
+    legs' launches (each must read 0) and what the summary and PERF.md
+    read."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed.ps.box import reset_box_wrappers
+    from paddle_tpu_torch.fluid import trace
+
+    m = trace.metrics()
+    counted = _counted_kernels()
+    out = {}
+    reset_box_wrappers()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with _fresh_fluid_globals():
+        main, startup, loss, box = _bench_ctr_program(fluid, "bench_box")
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        scope = fluid.global_scope()
+        ops_before = _ops_counted(main, loss)
+        bs, bs2 = _bench_strategies(fluid)
+        train_prog = fluid.CompiledProgram(main, build_strategy=bs)
+        rng = np.random.RandomState(0)
+        n_batches = BOX["steps"] + BOX["warmup"]
+        all_ids = rng.randint(0, BOX_ID_SPACE,
+                              (n_batches, BOX["batch"], BOX["slots"]),
+                              dtype=np.int64)
+        t0 = time.perf_counter()
+        cache = box.begin_pass(all_ids)
+        staging_s = time.perf_counter() - t0
+        cname = "bench_box@HBMCACHE"
+        scope.set_var(cname, cache)
+        feeds = _box_feeds(box, all_ids, rng)
+        _p(f"BoxPS CTR: begin_pass over {all_ids.size} ids of a 2^40 space "
+           f"in {staging_s:.3f} s (host): {box.pass_size} unique ids, "
+           f"{box.cache_rows} cache rows x {BOX['dim']} float32 = "
+           f"{cache.nbytes / 2 ** 20:.1f} MiB on the card")
+        out.update(staging_s=staging_s, unique_ids=box.pass_size,
+                   cache_rows=box.cache_rows, cache_mib=cache.nbytes / 2 ** 20)
+        if box.cache_rows != 1 << int(np.ceil(np.log2(box.pass_size))):
+            raise SystemExit("chip_smoke: the BoxPS cache is not the pass's "
+                             "unique ids padded to a power of two")
+        del cache
+
+        # the fp32 leg: the BoxPS legs launch no hand-written kernel.
+        # Its labels are random, so a step's loss moves with its batch;
+        # what must fall is the loss over all the leg's batches, read by
+        # the forward program before and after the leg
+        test_prog = main.clone(for_test=True)
+
+        def dataset_loss():
+            return float(np.mean([
+                float(exe.run(test_prog, feed=f, fetch_list=[loss])[0])
+                for f in feeds]))
+
+        before = dataset_loss()
+        for fn in counted:
+            fn.launches = 0
+        runner = fluid.AsyncStepRunner(exe, train_prog, [loss])
+        fp32_l, fp32_ms, fp32_ex, fp32_peak = _box_leg(
+            "fp32 leg", runner, feeds, 0, base, card)
+        ops_after = int(m.gauge("executor.ops_per_step").value)
+        after = dataset_loss()
+        _p(f"BoxPS CTR: ops_per_step {ops_before} -> {ops_after} "
+           f"(bench.py:650; the reference's 42 -> 38); the loss over the "
+           f"leg's {len(feeds)} batches falls {before:.6f} -> {after:.6f}")
+        if (ops_before, ops_after) != (42, 38) or not after < before:
+            raise SystemExit("chip_smoke: the BoxPS fp32 leg did not run "
+                             "the reference's fused program, or did not "
+                             "train")
+        out["fp32"] = dict(ms=fp32_ms, examples_s=fp32_ex, peak_gib=fp32_peak,
+                           profile=_box_profile("fp32 leg", exe, train_prog,
+                                                feeds[0], loss, card))
+
+        # the bf16 leg's first step against an fp32 step from one state
+        state = [n for n, v in main.global_block().vars.items()
+                 if v.persistable and scope.find_var(n) is not None]
+        snap = {n: scope.find_var(n).clone() for n in state}
+        l32 = float(exe.run(train_prog, feed=feeds[n_batches % len(feeds)],
+                            fetch_list=[loss])[0])
+        for n in state:
+            scope.set_var(n, snap[n])
+        del snap
+        c0 = m.counter("amp.ops_cast").value
+        amp_prog = fluid.CompiledProgram(main, build_strategy=bs2)
+        amp_runner = fluid.AsyncStepRunner(exe, amp_prog, [loss])
+        bf16_l, bf16_ms, bf16_ex, bf16_peak = _box_leg(
+            "bf16 leg", amp_runner, feeds, n_batches, base, card)
+        casts = m.counter("amp.ops_cast").value - c0
+        amp_ops = int(m.gauge("executor.ops_per_step").value)
+        boxps_launches = {fn.__name__: fn.launches for fn in counted}
+        _p(f"BoxPS CTR bf16 leg: amp.ops_cast {casts} (the reference's "
+           f"{AMP_CASTS_REFERENCE}), ops_per_step {amp_ops}; first loss "
+           f"{bf16_l[0]:.6f} against fp32 {l32:.6f} from one state (rtol "
+           f"0.05, atol 0.05); amp speed-up {bf16_ex / fp32_ex:.3f}; "
+           f"hand-written kernel launches in both legs "
+           f"{sum(boxps_launches.values())} (must be 0)")
+        if casts != AMP_CASTS_REFERENCE or amp_ops != 38 \
+                or not np.isclose(bf16_l[0], l32, rtol=0.05, atol=0.05):
+            raise SystemExit("chip_smoke: the BoxPS bf16 leg parts from "
+                             "the reference's")
+        if any(boxps_launches.values()):
+            raise SystemExit("chip_smoke: a BoxPS leg launched a "
+                             "hand-written kernel the reference's does not")
+        out["bf16"] = dict(ms=bf16_ms, examples_s=bf16_ex, peak_gib=bf16_peak,
+                           first_loss=bf16_l[0], fp32_loss=l32,
+                           profile=_box_profile("bf16 leg", exe, amp_prog,
+                                                feeds[0], loss, card))
+        out.update(ops_before=ops_before, ops_after=ops_after,
+                   amp_casts=casts)
+
+        # end_pass: the host store holds exactly the card's trained rows
+        cache_t = scope.find_var(cname)
+        uniq = box.pass_ids.copy()
+        trained = cache_t[: len(uniq)].cpu().numpy()
+        t0 = time.perf_counter()
+        box.end_pass(cache_t)
+        end_s = time.perf_counter() - t0
+        host = box.host.pull(uniq)
+        same = np.array_equal(host, trained)
+        _p(f"BoxPS CTR: end_pass in {end_s:.3f} s (host); host rows "
+           f"{box.host_rows()}, equal to the card's trained cache: {same}; "
+           f"pass closed: {box.pass_size == 0}")
+        if not same or box.pass_size != 0:
+            raise SystemExit("chip_smoke: end_pass did not write the card's "
+                             "trained rows back")
+        out["end_pass_s"] = end_s
+        del cache_t, trained, host
+        scope.erase(cname)
+        torch.cuda.empty_cache()
+
+        tier_launches, out["tier"] = _box_kernel_tier_leg(card)
+        out["host_check"] = _box_card_vs_host(card)
+        out["dataset"] = _box_dataset_route(card)
+    reset_box_wrappers()
+    return tier_launches, boxps_launches, out
 
 
 def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
@@ -5064,7 +5740,7 @@ def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
 
         def batch():
             return exe.run(program, feed=feed, fetch_list=[logit],
-                           scope=scope, return_numpy=False)[0].cpu()
+                           scope=scope, return_numpy=False)[0].numpy()
 
         host_ms, busy_ms, idle, n_kern, by_class = _profile(batch, iters)
         _p(f"profile CTR: rows={n}: host {host_ms:.3f} ms/batch "
@@ -5077,7 +5753,7 @@ def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
 
     def step():
         return exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)[0].cpu()
+                       return_numpy=False)[0].numpy()
 
     host_ms, busy_ms, idle, n_kern, by_class = _profile(step, train_iters)
     _p(f"profile CTR: train step, rows={CTR_TRAIN_ROWS}: host {host_ms:.3f} "
@@ -5130,6 +5806,9 @@ def main():
                                             phase_serve_decode, card)
     book_launches, book_kernels, book_profiled = _timed(
         "4g static e2e / LeNet", phase_static_book, card)
+    # 4k builds static programs too: before 4e turns dygraph on
+    box_launches, box_legs_launches, box = _timed(
+        "4k train CTR through BoxPS", phase_train_boxps, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -5272,6 +5951,11 @@ def main():
     for row in kernels:
         if row["name"] in nmt_dropout_rows:
             row["nmt"] = nmt_dropout_rows[row["name"]]
+    # the BoxPS slice (phase 4k): its kernel-tier leg's launches over its
+    # timed steps, and those of its fp32 and bf16 legs
+    for row in kernels:
+        row["boxps_launches"] = box_launches[row["name"]]
+        row["boxps_legs_launches"] = box_legs_launches[row["name"]]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -3,8 +3,10 @@
 
 A BuildStrategy's rewrite knobs select Program-IR passes that
 CompiledProgram applies once, at the first run, before the executor
-builds its run plan.  Data parallelism, sharding, AMP and auto-tuning are
-not ported yet.
+builds its run plan (``passes.passes_for_build_strategy``, the
+build_strategy.cc AppendPass analog).  Data parallelism and the
+knobs whose passes are not ported (``fuse_all_reduce_ops``, ``sharding``,
+``auto_tune``) raise ``NotImplementedError`` at pass application when set.
 """
 from __future__ import annotations
 
@@ -12,29 +14,46 @@ from typing import Optional
 
 
 class BuildStrategy:
-    """The rewrite knobs the ported slices use (details/build_strategy.h).
-    The freeze preset's passes run in ``serving.freeze_program``; the
-    other knobs of the reference come with the slices that need them.
-    ``kernel_tier`` is the umbrella that turns on all four kernel-tier
-    passes."""
+    """The rewrite knobs (details/build_strategy.h), with the reference's
+    names and defaults.  Each selects a registered pass."""
 
     def __init__(self):
-        # kernel tier (fluid/passes/kernel_tier.py): fuse_attention rewrites
-        # the naive attention chain (and its grad chain) onto
+        # True -> constant_fold + prune_identity + dce (the 1.x
+        # memory_optimize contract: shrink the op stream)
+        self.memory_optimize = None
+        self.constant_folding = False          # -> constant_fold
+        self.fuse_elewise_add_act_ops = False  # -> fuse_elewise_add_act
+        self.fuse_bn_act_ops = False           # -> fuse_bn_act
+        # kernel tier (fluid/passes/kernel_tier.py): fuse_attention
+        # rewrites the naive attention chain (and its grad chain) onto
         # fused_multihead_attention, whose lowering is the hand-written
         # flash-attention kernel on the card; fuse_paged_attention
         # rewrites the decode step's paged attend chain onto
-        # paged_attention, the paged-attention kernel;
-        # fuse_sparse_embedding rewrites each lookup_table -> sequence_pool
-        # chain (and its grad pair) onto fused_embedding_pool, the
-        # gather-pool and scatter-add kernels; fuse_optimizer buckets the
-        # adam or momentum updates into one fused_adam / fused_momentum,
-        # one launch of its kernel
+        # paged_attention; fuse_sparse_embedding rewrites each
+        # lookup_table -> sequence_pool chain (and its grad pair) onto
+        # fused_embedding_pool, the gather-pool and scatter-add kernels;
+        # fuse_optimizer buckets the adam or momentum updates into one
+        # fused_adam / fused_momentum launch.  kernel_tier turns on all
+        # four; fuse_all_optimizer_ops is the legacy alias of
+        # fuse_optimizer
         self.kernel_tier = False
         self.fuse_attention = False
         self.fuse_paged_attention = False
         self.fuse_sparse_embedding = False
         self.fuse_optimizer = False
+        self.fuse_all_optimizer_ops = False
+        self.enable_dce = False                # -> dce (fetch-seeded)
+        # bf16 mixed precision as passes (passes/amp.py): amp -> amp_bf16
+        # then prune_redundant_casts unless that is turned off
+        self.amp = False
+        self.amp_dtype = "bfloat16"
+        self.amp_custom_white_list = None
+        self.amp_custom_black_list = None
+        self.prune_redundant_casts = True
+        # not ported: set true, pass application raises
+        self.fuse_all_reduce_ops = False
+        self.sharding = None
+        self.auto_tune = False
 
 
 class CompiledProgram:
@@ -53,9 +72,9 @@ class CompiledProgram:
         list (the DCE seed and the rewrite protection set)."""
         if self._ir_passes_applied:
             return None
-        self._ir_passes_applied = True
         from . import passes
         plist = passes.passes_for_build_strategy(self._build_strategy)
+        self._ir_passes_applied = True
         if not plist:
             return None
         return passes.PassPipeline(plist).apply(self._program,

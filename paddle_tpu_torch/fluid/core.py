@@ -75,6 +75,17 @@ _FLAGS: Dict[str, object] = {
         "FLAGS_serving_max_wait_us", "2000")),
     "serving_queue_depth": int(_os.environ.get(
         "FLAGS_serving_queue_depth", "256")),
+    # async step window (fluid/async_pipeline.py): dispatched steps that
+    # may be outstanding before submit() waits on the oldest; steps per
+    # dispatch above 1 need a captured multi-step executable, not ported
+    "max_inflight_steps": int(_os.environ.get(
+        "FLAGS_max_inflight_steps", "2")),
+    "steps_per_dispatch": int(_os.environ.get(
+        "FLAGS_steps_per_dispatch", "1")),
+    # profile-guided self-tuning: read by bench-style scripts and stamped
+    # on BuildStrategy.auto_tune; the tuner itself is not ported
+    "auto_tune": _os.environ.get(
+        "FLAGS_auto_tune", "").strip().lower() in ("1", "true", "yes", "on"),
 }
 
 

@@ -14,20 +14,31 @@ persistables and the vars a program declares in
 read from the scope, written back after every run, never batch-sliced
 and never pruned.  A per-(program version, feed names, fetch names) run
 plan caches the pruned op list.  CUDA graphs come later.
+
+A scope value that is not a tensor (a numpy array seeded with
+``scope.set_var``, such as a BoxPS pass cache) moves to the executor's
+device on the first run that reads it and is written back as that
+tensor, so later runs never copy it again.  ``return_numpy=False``
+returns lazy :class:`~.async_pipeline.FetchHandle` s; ``run_async`` keeps
+a bounded window of them (``AsyncStepRunner``); ``train_from_dataset``
+and ``train_passes`` drive a dataset through it (distributed/trainer.py).
+The ``executor.ops_per_step`` gauge holds the op count of the last run's
+plan.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import compile_cache
 from . import core
+from . import trace
 from .core import Scope, global_scope
 from .framework import Block, Program, Variable, default_main_program, \
-    prune_ops
+    prune_ops, torch_dtype
 from ..ops.registry import get_op, LoweringContext
 
 
@@ -72,13 +83,22 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
             continue
         opdef = get_op(op.type)
         ins = {}
+        amp_cast = op.attrs.get("__amp_cast__")
         for slot, names in op.inputs.items():
             missing = [n for n in names if n not in env]
             if missing:
                 raise KeyError(
                     f"op '{op.type}' input {slot}={missing}: not fed, not "
                     f"in the scope and not produced by an earlier op")
-            ins[slot] = [env[n] for n in names]
+            vals = [env[n] for n in names]
+            if amp_cast and slot in amp_cast:
+                # a cast that prune_redundant_casts folded into this op
+                # (passes/amp.py): applied here, inline, on every device
+                dts = amp_cast[slot]
+                vals = [v if j >= len(dts) or dts[j] is None
+                        else v.to(torch_dtype(dts[j]))
+                        for j, v in enumerate(vals)]
+            ins[slot] = vals
         if ctx.batch_valid is not None:
             ctx.cur_op_batch_major = _batch_major_hint(block, op)
         outs = opdef.fn(ins, op.attrs, ctx)
@@ -108,6 +128,7 @@ class _RunPlan:
         self.run_ops = run_ops
         self.scope_reads = scope_reads
         self.written_names = written_names
+        self.n_ops = sum(op.type not in ("feed", "fetch") for op in run_ops)
 
 
 class Executor:
@@ -134,6 +155,9 @@ class Executor:
             torch.backends.cudnn.benchmark = False
         self._plans: "OrderedDict[tuple, _RunPlan]" = OrderedDict()
         self._step = 0
+        # run_async's windows, one per (program, fetches, scope, window)
+        self._async_runners: "OrderedDict[tuple, Any]" = OrderedDict()
+        self._last_trainer_stats = None
 
     # -- public API ---------------------------------------------------------
     def run(self, program=None, feed: Optional[Dict[str, Any]] = None,
@@ -174,12 +198,15 @@ class Executor:
 
         plan = self._plan(program, sorted(feed), fetch_names, scope,
                           use_program_cache)
+        trace.metrics().gauge("executor.ops_per_step").set(plan.n_ops)
+        block = program.global_block()
         env: Dict[str, Any] = {}
         for n in plan.scope_reads:
             v = scope.find_var(n)
+            if v is not None and not isinstance(v, torch.Tensor):
+                v = self._seed_scope_value(scope, block, n, v)
             if v is not None:
                 env[n] = v
-        block = program.global_block()
         for k, v in feed.items():
             var = block._find_var_recursive(k)
             env[k] = self._to_device(v, var.dtype if var is not None
@@ -206,9 +233,101 @@ class Executor:
                                              bucket, n_valid)
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]
-        return fetches
+        return self._lazy_fetches(fetch_names, fetches)
+
+    def _lazy_fetches(self, fetch_names, fetches):
+        """FetchHandles over the fetched tensors, each with one CUDA
+        event recorded after this run's work (None on the host)."""
+        from .async_pipeline import FetchHandle
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return [FetchHandle(f, name=n, event=event)
+                for n, f in zip(fetch_names, fetches)]
+
+    # -- async window and the dataset path ----------------------------------
+    def run_async(self, program=None, feed: Optional[Dict[str, Any]] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None,
+                  max_inflight: Optional[int] = None,
+                  steps_per_dispatch: Optional[int] = None):
+        """Async analog of :meth:`run`: submit the step into a bounded
+        in-flight window (``FLAGS_max_inflight_steps``) and return a
+        StepFuture of FetchHandles at once.  One runner is kept per
+        (program, fetch set, scope, window); :meth:`drain_async` waits on
+        all of them."""
+        from .async_pipeline import AsyncStepRunner
+        program = program or default_main_program()
+        fetch_names = tuple(_fetch_name(f) for f in _as_list(fetch_list))
+        key = (id(program), fetch_names, id(scope), max_inflight,
+               steps_per_dispatch)
+        runner = self._async_runners.get(key)
+        if runner is None:
+            runner = self._async_runners[key] = AsyncStepRunner(
+                self, program, _as_list(fetch_list), scope=scope,
+                max_inflight=max_inflight,
+                steps_per_dispatch=steps_per_dispatch)
+            while len(self._async_runners) > self._PLAN_CACHE_CAPACITY:
+                _, old = self._async_runners.popitem(last=False)
+                old.drain()
+        else:
+            self._async_runners.move_to_end(key)
+        return runner.submit(feed or {})
+
+    def drain_async(self):
+        """Wait on every in-flight step of every run_async window and
+        raise any dispatch error nobody read."""
+        for runner in list(self._async_runners.values()):
+            runner.drain()
+
+    def close(self):
+        """Drain the open run_async windows (their unread dispatch errors
+        are dropped: close is cleanup) and forget the run plans."""
+        for runner in list(self._async_runners.values()):
+            try:
+                runner.drain()
+            except Exception:       # noqa: BLE001 — cleanup
+                pass
+        self._async_runners.clear()
+        self._plans.clear()
+
+    def train_from_dataset(self, program, dataset, scope=None, thread=0,
+                           debug=False, fetch_list=None, fetch_info=None,
+                           print_period=100):
+        """Train on every batch of ``dataset`` (executor.cc:166
+        RunFromDataset); a program with a BoxPS plan runs one pass."""
+        from ..distributed.trainer import run_from_dataset
+        return run_from_dataset(self, program, dataset, fetch_list,
+                                print_period, train=True)
+
+    def infer_from_dataset(self, program, dataset, scope=None, thread=0,
+                           debug=False, fetch_list=None, fetch_info=None,
+                           print_period=100):
+        from ..distributed.trainer import run_from_dataset
+        return run_from_dataset(self, program, dataset, fetch_list,
+                                print_period, train=False)
+
+    def train_passes(self, program, datasets, fetch_list=None,
+                     print_period=100):
+        """Multi-pass BoxPS training, pass N+1's host staging and pass N's
+        writeback overlapped with training (distributed/trainer.py)."""
+        from ..distributed.trainer import train_passes
+        return train_passes(self, program, datasets, fetch_list,
+                            print_period, train=True)
 
     # -- internals ----------------------------------------------------------
+    def _seed_scope_value(self, scope: Scope, block, name, value):
+        """A scope value that is not a tensor, on this executor's device
+        in its var's dtype, written back into the scope that held it, so
+        the copy happens once."""
+        var = block._find_var_recursive(name)
+        t = self._to_device(value, var.dtype if var is not None else None)
+        s = scope
+        while s is not None and name not in s._vars:
+            s = s.parent
+        (s or scope).set_var(name, t)
+        return t
     def _to_device(self, v, dtype: Optional[str] = None):
         """The feed on the executor's device.  A floating-point feed takes
         its var's declared floating dtype (a float64 array fed to a

@@ -15,7 +15,7 @@ from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  sqrt, clip, clip_by_norm, fused_dropout_add,
                  fused_act_dropout, layer_norm, cast, squeeze, slice,
                  unsqueeze, one_hot, gather, conv2d, pool2d, adaptive_pool2d,
-                 batch_norm, flatten, topk)
+                 batch_norm, flatten, topk, pull_box_sparse)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost)
 from .metric_op import accuracy

@@ -130,6 +130,58 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def pull_box_sparse(input, size, table_name="default_box", dtype="float32"):
+    """layers.pull_box_sparse (pull_box_sparse_op.cc): embedding lookups
+    served by the BoxPS tier (distributed/ps/box.py).  The host table may
+    be larger than the card; the op gathers from the pass's device cache,
+    the parameter ``<table_name>@HBMCACHE``, whose rows ``begin_pass``
+    stages and ``end_pass`` writes back.  The ids the program sees are
+    cache slots: the trainer's box plan (``program._hints["box_plan"]``)
+    translates raw feasign ids per batch."""
+    from ..framework import default_main_program
+
+    helper = LayerHelper("pull_box_sparse")
+    inputs = list(input) if isinstance(input, (list, tuple)) else [input]
+    main = default_main_program()
+    gb = main.global_block()
+    cache_name = f"{table_name}@HBMCACHE"
+    # checked before the program changes: a half-appended op would leave
+    # the graph broken
+    prior = main._hints.get("box_plan")
+    if prior is not None:
+        if prior["table"] != table_name:
+            raise ValueError(
+                "one box table per program (the reference BoxWrapper is a "
+                f"singleton); got a second table '{table_name}' vs "
+                f"'{prior['table']}'")
+        if prior["dim"] != int(size):
+            raise ValueError(
+                f"box table '{table_name}' used with size {size} but was "
+                f"first declared with size {prior['dim']}")
+    if gb.has_var(cache_name):
+        w = gb.var(cache_name)
+    else:
+        # no startup init op on purpose: begin_pass seeds the scope value
+        w = gb.create_parameter(name=cache_name, shape=(-1, int(size)),
+                                dtype=dtype)
+    outs = [helper.create_variable_for_type_inference(dtype=dtype)
+            for _ in inputs]
+    helper.append_op("pull_box_sparse",
+                     inputs={"W": [w], "Ids": inputs},
+                     outputs={"Out": outs},
+                     attrs={"size": int(size)})
+    plan = main._hints.setdefault(
+        "box_plan", {"table": table_name, "cache": cache_name,
+                     "dim": int(size), "ids": []})
+    for v in inputs:
+        n = v.name if hasattr(v, "name") else str(v)
+        if n not in plan["ids"]:
+            plan["ids"].append(n)
+    if isinstance(input, (list, tuple)):
+        return outs
+    return outs[0]
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)

@@ -1,6 +1,7 @@
 """Optimizers: minimize = append_backward + per-param update ops
 (counterpart of ``paddle_tpu/fluid/optimizer.py``: SGD, Momentum and
-Adam, with ``grad_clip``, in static and in dygraph mode; the other
+Adam, with ``grad_clip``, in static and in dygraph mode, and the
+``BoxPSOptimizer`` facade; the other
 optimizers, ``regularization`` and ``multi_precision`` come with their
 slices).
 
@@ -254,3 +255,40 @@ class AdamOptimizer(Optimizer):
             attrs={"beta1": self._beta1, "beta2": self._beta2,
                    "epsilon": self._epsilon, "multi_precision": False})
 
+
+
+class BoxPSOptimizer:
+    """The BoxPS pipeline optimizer facade (reference optimizer.py:5194).
+    The reference splits the program at ``cut_list`` into host and device
+    sections with per-section thread pools; here the device section is
+    the executor's step and the host sections are the BoxPS pass
+    machinery (``Executor.train_passes``' double-buffered begin and end
+    pass, the trainer's feed prefetcher).  ``cut_list`` is recorded as
+    the ``boxps_pipeline`` hint, as the reference records it; the
+    section knobs have nothing to set here and raise
+    ``NotImplementedError`` unless left at their defaults.  ``minimize``
+    delegates to the inner optimizer."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0):
+        given = {"place_list": (place_list, None),
+                 "concurrency_list": (concurrency_list, None),
+                 "queue_size": (queue_size, 30),
+                 "sync_steps": (sync_steps, 1),
+                 "start_cpu_core_id": (start_cpu_core_id, 0)}
+        unported = [k for k, (v, d) in given.items() if v != d]
+        if unported:
+            raise NotImplementedError(
+                f"BoxPSOptimizer({', '.join(unported)}=...): the port runs "
+                f"no per-section thread pools, so these knobs have nothing "
+                f"to set; leave them at their defaults")
+        self._optimizer = optimizer
+        self._cut_list = cut_list or []
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        prog = loss.block.program
+        prog._hints["boxps_pipeline"] = {"cuts": len(self._cut_list)}
+        return self._optimizer.minimize(loss, startup_program,
+                                        parameter_list, no_grad_set)

@@ -1,10 +1,9 @@
-"""The pass catalog of the freeze preset: DCE, constant folding, add+act
-and bn+act fusion, identity pruning.
+"""The pass catalog: DCE, constant folding, add+act and bn+act fusion
+(with their training rules, which also fuse the paired ``generic_grad``
+ops), identity pruning, and the BuildStrategy -> pipeline wiring.
 
-Counterpart of ``paddle_tpu/fluid/passes/builtin.py``.  The fusions keep
-their forward rules; the rules that also fuse the paired ``generic_grad``
-ops of training programs come with the training slice, as do the
-all-reduce coalescing and sharding passes.
+Counterpart of ``paddle_tpu/fluid/passes/builtin.py``.  The all-reduce
+coalescing and sharding passes come with the parallelism slice.
 """
 from __future__ import annotations
 
@@ -155,7 +154,8 @@ class ConstantFoldPass(Pass):
 # ---------------------------------------------------------------------------
 
 class _FusionPass(PatternRewritePass):
-    """Shared machinery for pairwise producer -> activation fusion."""
+    """Shared machinery for pairwise producer->activation fusion with
+    optional grad-pair fusion (training programs)."""
 
     def _check_edge(self, m, ctx, t: str, extra_consumers) -> bool:
         """The fused-away intermediate ``t`` must be an internal edge:
@@ -180,39 +180,99 @@ class _FusionPass(PatternRewritePass):
 @register_pass
 class FuseElewiseAddActPass(_FusionPass):
     """elementwise_add + {relu,sigmoid,tanh} -> fused_elemwise_activation
-    (fuse_elewise_add_act_pass.cc)."""
+    (fuse_elewise_add_act_pass.cc).  In training programs the pair of
+    generic_grad ops collapses into one generic_grad over the fused op."""
 
     name = "fuse_elewise_add_act"
 
     def __init__(self, **options):
         super().__init__(**options)
-        pf = Pattern("elewise_add_act_fwd")
-        x, y, t, out = pf.vars("x y t out")
-        pf.op("elementwise_add", ins={"X": [x], "Y": [y]},
+        pt = Pattern("elewise_add_act_train")
+        x, y, t, out, g, tg = pt.vars("x y t out g tg")
+        pt.op("elementwise_add", ins={"X": [x], "Y": [y]},
               outs={"Out": [t]})
-        pf.op(ACTS, ins={"X": [t]}, outs={"Out": [out]})
-        self.rules = [(pf, self._rewrite_fwd)]
+        pt.op(ACTS, ins={"X": [t]}, outs={"Out": [out]})
+        pt.op("generic_grad", ins={"I_X": [t], "G_Out": [g]},
+              outs={"GI_X": [tg]})
+        pt.op("generic_grad", ins={"G_Out": [tg]})
+        pf = Pattern("elewise_add_act_fwd")
+        x2, y2, t2, out2 = pf.vars("x y t out")
+        pf.op("elementwise_add", ins={"X": [x2], "Y": [y2]},
+              outs={"Out": [t2]})
+        pf.op(ACTS, ins={"X": [t2]}, outs={"Out": [out2]})
+        self.rules = [(pt, self._rewrite_train), (pf, self._rewrite_fwd)]
 
-    def _rewrite_fwd(self, m, ctx) -> bool:
+    def _fused_ops(self, m, with_grads: bool):
         block = m.block
         add, act = m.ops[0], m.ops[1]
-        if not self._check_edge(m, ctx, m.var("t"), [act]):
-            return False
-        if len(_writer_idxs(block, m.var("out"))) != 1:
-            return False
-        if not _no_hazard_between(block, m.index(0), m.index(1),
-                                  reads=add.input_arg_names,
-                                  writes=[m.var("t")]):
-            return False
+        t, out = m.var("t"), m.var("out")
         attrs = {"functor_list": ["elementwise_add", act.type],
                  "axis": add.attrs.get("axis", -1),
                  "op_role": add.attrs.get("op_role", 0)}
-        inter = unique_name(m.var("t") + "@fuse_inter")
+        inter = unique_name(t + "@fuse_inter")
         fused = Operator(block, "fused_elemwise_activation",
                          {"X": list(add.inputs["X"]),
                           "Y": list(add.inputs["Y"])},
-                         {"Out": [m.var("out")], "IntermediateOut": [inter]},
+                         {"Out": [out], "IntermediateOut": [inter]},
                          attrs)
+        if not with_grads:
+            return fused, None
+        act_g, add_g = m.ops[2], m.ops[3]
+        g_ins = {"I_X": list(add.inputs["X"]),
+                 "I_Y": list(add.inputs["Y"]),
+                 "G_Out": list(act_g.inputs["G_Out"])}
+        g_outs = {k: list(v) for k, v in add_g.outputs.items()}
+        fused_g = Operator(block, "generic_grad", g_ins, g_outs,
+                           {"fwd_type": "fused_elemwise_activation",
+                            "fwd_attrs": dict(attrs),
+                            "in_slots": ["X", "Y"],
+                            "grad_slots": list(
+                                add_g.attrs.get("grad_slots", [])),
+                            "op_role": 1})
+        return fused, fused_g
+
+    def _common_ok(self, m, ctx, consumers_of_t) -> bool:
+        block = m.block
+        add, act = m.ops[0], m.ops[1]
+        if not self._check_edge(m, ctx, m.var("t"), consumers_of_t):
+            return False
+        if len(_writer_idxs(block, m.var("out"))) != 1:
+            return False
+        return _no_hazard_between(
+            block, m.index(0), m.index(1),
+            reads=add.input_arg_names, writes=[m.var("t")])
+
+    def _rewrite_fwd(self, m, ctx) -> bool:
+        if not self._common_ok(m, ctx, m.ops[1:2]):
+            return False
+        fused, _ = self._fused_ops(m, with_grads=False)
+        self._splice(m.block, fused, m.ops[1], m.ops[:2])
+        return True
+
+    def _rewrite_train(self, m, ctx) -> bool:
+        block = m.block
+        add, act, act_g, add_g = m.ops
+        if act_g.attrs.get("fwd_type") != act.type:
+            return False
+        if add_g.attrs.get("fwd_type") != "elementwise_add":
+            return False
+        if (add_g.inputs.get("I_X") != add.inputs.get("X")
+                or add_g.inputs.get("I_Y") != add.inputs.get("Y")):
+            return False
+        if not self._common_ok(m, ctx, [act, act_g]):
+            return False
+        tg = m.var("tg")
+        if (len(_writer_idxs(block, tg)) != 1
+                or not self._check_edge(m, ctx, tg, [add_g])):
+            return False
+        if not _no_hazard_between(
+                block, m.index(2), m.index(3),
+                reads=list(add.inputs["X"]) + list(add.inputs["Y"])
+                + list(act_g.inputs["G_Out"]),
+                writes=add_g.output_arg_names):
+            return False
+        fused, fused_g = self._fused_ops(m, with_grads=True)
+        self._splice(block, fused_g, act_g, [act_g, add_g])
         self._splice(block, fused, act, [add, act])
         return True
 
@@ -220,38 +280,92 @@ class FuseElewiseAddActPass(_FusionPass):
 @register_pass
 class FuseBnActPass(_FusionPass):
     """batch_norm + activation -> fused_bn_activation
-    (fuse_bn_act_pass.cc)."""
+    (fuse_bn_act_pass.cc), with the same training-aware grad-pair fusion
+    as fuse_elewise_add_act."""
 
     name = "fuse_bn_act"
 
     def __init__(self, **options):
         super().__init__(**options)
+        pt = Pattern("bn_act_train")
+        x, t, out, g, tg = pt.vars("x t out g tg")
+        pt.op("batch_norm", ins={"X": [x]}, outs={"Y": [t]})
+        pt.op(ACTS, ins={"X": [t]}, outs={"Out": [out]})
+        pt.op("generic_grad", ins={"I_X": [t], "G_Out": [g]},
+              outs={"GI_X": [tg]})
+        pt.op("generic_grad", ins={"G_Y": [tg]})
         pf = Pattern("bn_act_fwd")
-        x, t, out = pf.vars("x t out")
-        pf.op("batch_norm", ins={"X": [x]}, outs={"Y": [t]})
-        pf.op(ACTS, ins={"X": [t]}, outs={"Out": [out]})
-        self.rules = [(pf, self._rewrite_fwd)]
+        x2, t2, out2 = pf.vars("x t out")
+        pf.op("batch_norm", ins={"X": [x2]}, outs={"Y": [t2]})
+        pf.op(ACTS, ins={"X": [t2]}, outs={"Out": [out2]})
+        self.rules = [(pt, self._rewrite_train), (pf, self._rewrite_fwd)]
 
-    def _rewrite_fwd(self, m, ctx) -> bool:
+    def _fused_op(self, m) -> Operator:
         block = m.block
         bn, act = m.ops[0], m.ops[1]
+        outs = {k: list(v) for k, v in bn.outputs.items()}
+        outs["Y"] = [m.var("out")]
+        return Operator(block, "fused_bn_activation",
+                        {k: list(v) for k, v in bn.inputs.items()}, outs,
+                        dict(bn.attrs, act_type=act.type))
+
+    def _common_ok(self, m, ctx, consumers_of_t) -> bool:
+        block = m.block
+        bn = m.ops[0]
         if bn.attrs.get("use_global_stats"):
             return False
-        if not self._check_edge(m, ctx, m.var("t"), [act]):
+        if not self._check_edge(m, ctx, m.var("t"), consumers_of_t):
             return False
         if len(_writer_idxs(block, m.var("out"))) != 1:
             return False
         # moving bn down to the act position carries its state writes
+        # (MeanOut/VarianceOut write the Mean/Variance vars in place)
         other_outs = [n for n in bn.output_arg_names if n != m.var("t")]
-        if not _no_hazard_between(block, m.index(0), m.index(1),
-                                  reads=bn.input_arg_names,
-                                  writes=[m.var("t")] + other_outs):
+        return _no_hazard_between(
+            block, m.index(0), m.index(1),
+            reads=bn.input_arg_names,
+            writes=[m.var("t")] + other_outs)
+
+    def _rewrite_fwd(self, m, ctx) -> bool:
+        if not self._common_ok(m, ctx, m.ops[1:2]):
             return False
-        outs = {k: list(v) for k, v in bn.outputs.items()}
-        outs["Y"] = [m.var("out")]
-        fused = Operator(block, "fused_bn_activation",
-                         {k: list(v) for k, v in bn.inputs.items()}, outs,
-                         dict(bn.attrs, act_type=act.type))
+        self._splice(m.block, self._fused_op(m), m.ops[1], m.ops[:2])
+        return True
+
+    def _rewrite_train(self, m, ctx) -> bool:
+        block = m.block
+        bn, act, act_g, bn_g = m.ops
+        if act_g.attrs.get("fwd_type") != act.type:
+            return False
+        if bn_g.attrs.get("fwd_type") != "batch_norm":
+            return False
+        if bn_g.inputs.get("I_X") != bn.inputs.get("X"):
+            return False
+        if not self._common_ok(m, ctx, [act, act_g]):
+            return False
+        tg = m.var("tg")
+        if not self._check_edge(m, ctx, tg, [bn_g]):
+            return False
+        grad_reads = [n for slot, ns in bn_g.inputs.items()
+                      if slot != "G_Y" for n in ns]
+        if not _no_hazard_between(
+                block, m.index(2), m.index(3),
+                reads=grad_reads + list(act_g.inputs["G_Out"]),
+                writes=bn_g.output_arg_names):
+            return False
+        fused = self._fused_op(m)
+        g_ins = {k: list(v) for k, v in bn_g.inputs.items()
+                 if k != "G_Y"}
+        g_ins["G_Y"] = list(act_g.inputs["G_Out"])
+        fused_g = Operator(
+            block, "generic_grad", g_ins,
+            {k: list(v) for k, v in bn_g.outputs.items()},
+            {"fwd_type": "fused_bn_activation",
+             "fwd_attrs": dict(fused.attrs),
+             "in_slots": list(bn_g.attrs.get("in_slots", [])),
+             "grad_slots": list(bn_g.attrs.get("grad_slots", [])),
+             "op_role": 1})
+        self._splice(block, fused_g, act_g, [act_g, bn_g])
         self._splice(block, fused, act, [bn, act])
         return True
 
@@ -335,17 +449,62 @@ class PruneIdentityPass(Pass):
 # BuildStrategy -> pipeline wiring (build_strategy.cc AppendPass analog)
 # ---------------------------------------------------------------------------
 
+# knobs whose passes are not ported: set true, they raise at pass
+# application instead of running a different program
+_UNPORTED_KNOBS = (
+    ("fuse_all_reduce_ops", "coalesce_allreduce, the parallelism slice "
+                            "(ROADMAP queue A item 10)"),
+    ("sharding", "shard_collectives, the parallelism slice (ROADMAP "
+                 "queue A item 10)"),
+    ("auto_tune", "the profile-guided tuner (ROADMAP queue A item 9)"),
+)
+
+
 def passes_for_build_strategy(build_strategy) -> List[Pass]:
     """The pass list a BuildStrategy's knobs select, in the reference's
-    order: ``fuse_attention``, ``fuse_paged_attention``,
-    ``fuse_sparse_embedding``, then ``fuse_optimizer``.  ``kernel_tier``
-    turns on all four."""
+    canonical order: fold -> fuse -> kernel tier -> prune_identity -> amp
+    -> dce.  The kernel tier runs after the pairwise fusions (they never
+    overlap its chains) and before AMP; AMP runs before DCE, which sweeps
+    the cast orphans the redundancy pruner leaves.  ``kernel_tier`` turns
+    on all four kernel-tier passes; ``memory_optimize`` turns on folding,
+    identity pruning and DCE."""
+    from . import amp as _amp  # noqa: F401 — registers the AMP passes
     from . import kernel_tier as _kt  # noqa: F401 — registers the tier
     bs = build_strategy
-    tier = bool(bs.kernel_tier)
-    names = [name for name, on in (
-        ("fuse_attention", bs.fuse_attention),
-        ("fuse_paged_attention", bs.fuse_paged_attention),
-        ("fuse_sparse_embedding", bs.fuse_sparse_embedding),
-        ("fuse_optimizer", bs.fuse_optimizer)) if tier or on]
-    return [create_pass(name) for name in names]
+    for knob, what in _UNPORTED_KNOBS:
+        if getattr(bs, knob, None):
+            raise NotImplementedError(
+                f"BuildStrategy.{knob} needs {what}, which is not ported "
+                f"yet")
+    mem = bool(getattr(bs, "memory_optimize", None))
+    tier = bool(getattr(bs, "kernel_tier", False))
+    specs = []
+    if getattr(bs, "constant_folding", False) or mem:
+        specs.append(("constant_fold", {}))
+    if getattr(bs, "fuse_elewise_add_act_ops", False):
+        specs.append(("fuse_elewise_add_act", {}))
+    if getattr(bs, "fuse_bn_act_ops", False):
+        specs.append(("fuse_bn_act", {}))
+    if tier or getattr(bs, "fuse_attention", False):
+        specs.append(("fuse_attention", {}))
+    if tier or getattr(bs, "fuse_paged_attention", False):
+        specs.append(("fuse_paged_attention", {}))
+    if tier or getattr(bs, "fuse_sparse_embedding", False):
+        specs.append(("fuse_sparse_embedding", {}))
+    if tier or getattr(bs, "fuse_optimizer", False) \
+            or getattr(bs, "fuse_all_optimizer_ops", False):
+        specs.append(("fuse_optimizer", {}))
+    if mem:
+        specs.append(("prune_identity", {}))
+    if getattr(bs, "amp", False):
+        specs.append(("amp_bf16", {
+            "dtype": getattr(bs, "amp_dtype", "bfloat16") or "bfloat16",
+            "custom_white_list": getattr(bs, "amp_custom_white_list",
+                                         None),
+            "custom_black_list": getattr(bs, "amp_custom_black_list",
+                                         None)}))
+        if getattr(bs, "prune_redundant_casts", True):
+            specs.append(("prune_redundant_casts", {}))
+    if getattr(bs, "enable_dce", False) or mem:
+        specs.append(("dce", {}))
+    return [create_pass(name, **kw) for name, kw in specs]

@@ -3,7 +3,10 @@
 The two packages draw different random numbers from the same seed, so a
 comparison carries the reference's parameter values into the port's
 scope (static programs) or layer (dygraph models) instead of re-running
-the port's initializers.
+the port's initializers.  A BoxPS table's host rows and pass state cross
+the same way (``box_from_numpy``); its numpy initializer draws the same
+rows from the same seed in both packages, so a pass staged by each from
+one seed is equal too.
 """
 from __future__ import annotations
 
@@ -53,3 +56,32 @@ def layer_from_numpy(layer, state: Dict[str, np.ndarray]):
                              f"layer's {v.shape}")
         v.set_value(a)
     return layer
+
+
+def box_from_numpy(box, host_ids, host_vals, pass_ids=None, cache_rows=0,
+                   rng_state=None):
+    """Carry a BoxPS wrapper's state into ``box`` (a port
+    ``BoxPSWrapper``), as numpy: the host store's rows (``host_ids``,
+    ``host_vals``), mid-pass the pass's sorted unique ids and padded cache
+    row count, and the host initializer's ``RandomState`` state, so rows
+    created later draw what the source would have drawn.  The cache value
+    itself goes into the scope (:func:`scope_from_numpy`)."""
+    ids = np.asarray(host_ids, np.int64).reshape(-1)
+    if len(ids):
+        box.host.set_row_state(
+            {"ids": ids, "vals": np.asarray(host_vals, np.float32)})
+    if rng_state is not None:
+        box.host.init.rng.set_state(rng_state)
+    if pass_ids is not None:
+        box._pass_ids = np.asarray(pass_ids, np.int64).copy()
+        box._cache_rows = int(cache_rows)
+    return box
+
+
+def box_to_numpy(box) -> Dict[str, np.ndarray]:
+    """The inverse view: ``{"host_ids", "host_vals", "pass_ids"}`` of a
+    BoxPS wrapper (``pass_ids`` None between passes)."""
+    box.wait_writeback()
+    ids = box.host.all_ids()
+    return {"host_ids": ids, "host_vals": box.host.pull(ids),
+            "pass_ids": box.pass_ids}

@@ -1,6 +1,7 @@
 """CTR ops (counterpart of ``paddle_tpu/ops/ctr_ops.py``, the fused
-sparse embedding; the rest of that module comes with the op-catalog
-slice).
+sparse embedding and the parameter-server pulls and pushes the BoxPS
+tier runs, ``pull_box_sparse`` among them; the rest of that module comes
+with the op-catalog slice).
 
 ``fused_embedding_pool`` is what the ``fuse_sparse_embedding`` pass
 (fluid/passes/kernel_tier.py) makes of a ``lookup_table[_v2]`` →
@@ -129,3 +130,83 @@ def _fused_embedding_pool(ins, attrs, ctx):
                                                         wgt)]}
     return {"Out": [_reference_embedding_pool(
         w, ids, wgt, attrs.get("padding_idx", -1))]}
+
+
+# --- sparse PS pull/push (the device halves) --------------------------------
+def _scatter_rows(g, ids, shape):
+    """``dW[ids[k]] += g[k]`` into a zero ``shape`` table, summed in a
+    fixed order on every device: a stable sort of the ids, one segment
+    sum per unique id in (i, j) order, one write per unique row.  The
+    same bits on every run, as the reference's pipelined-equals-serial
+    pass contract needs; PyTorch's own accumulation into repeated rows
+    (``index_put_``/``index_add_``) is not run-to-run stable on the
+    host's threads or with the card's atomics."""
+    d = shape[-1]
+    flat = ids.reshape(-1).long()
+    rows = g.reshape(-1, d)
+    sorted_ids, perm = torch.sort(flat, stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
+    sums = torch.segment_reduce(rows.index_select(0, perm), "sum",
+                                lengths=counts, axis=0)
+    dw = torch.zeros(shape, dtype=g.dtype, device=g.device)
+    dw[uniq] = sums
+    return dw
+
+
+class _GatherRows(torch.autograd.Function):
+    """``W[ids]`` whose gradient is :func:`_scatter_rows`.  Forward and
+    ``setup_context`` apart, so ``torch.func.vjp`` (generic_grad) runs
+    it."""
+
+    @staticmethod
+    def forward(w, ids):
+        return w[ids]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w, ids = inputs
+        ctx.save_for_backward(ids)
+        ctx.w_shape = tuple(w.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        return _scatter_rows(g, ids, ctx.w_shape), None
+
+
+def _rows_of(w, ids_list):
+    """One gather of W's rows per id tensor; the ids the program sees are
+    cache slots, kept int64."""
+    return [_GatherRows.apply(w, ids.long()) for ids in ids_list]
+
+
+@register_op("pull_box_sparse", nondiff_inputs=("Ids",))
+def _pull_box_sparse(ins, attrs, ctx):
+    """pull_box_sparse_op.cc device half: the rows of the pass's device
+    cache (distributed/ps/box.py) for each id tensor.  Its gradient is
+    ``generic_grad``'s vjp, a scatter-add into a dense zero cache
+    (:func:`_scatter_rows`)."""
+    return {"Out": _rows_of(ins["W"][0], ins["Ids"])}
+
+
+@register_op("push_box_sparse", differentiable=False)
+def _push_box_sparse(ins, attrs, ctx):
+    """Grad side of pull_box_sparse: scatter-add each Grad into a zero
+    table of W's shape and dtype; returns that dense delta."""
+    w = ins["W"][0]
+    delta = torch.zeros_like(w)
+    for ids, g in zip(ins["Ids"], ins["Grad"]):
+        delta = delta + _scatter_rows(g.to(w.dtype), ids, w.shape)
+    return {"Out": [delta]}
+
+
+@register_op("pull_sparse", nondiff_inputs=("Ids",))
+def _pull_sparse(ins, attrs, ctx):
+    return {"Out": _rows_of(ins["W"][0], ins["Ids"])}
+
+
+@register_op("push_dense", differentiable=False)
+def _push_dense(ins, attrs, ctx):
+    """push_dense_op: the device half is the identity; the trainer ships
+    the gradients to the parameter server after the step."""
+    return {"Out": list(ins["Ids"]) if ins.get("Ids") else [ins["X"][0]]}

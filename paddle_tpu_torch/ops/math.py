@@ -83,6 +83,11 @@ def _tanh(ins, attrs, ctx):
     return {"Out": [torch.tanh(_x(ins))]}
 
 
+@register_op("sigmoid")
+def _sigmoid(ins, attrs, ctx):
+    return {"Out": [torch.sigmoid(_x(ins))]}
+
+
 @register_op("sqrt")
 def _sqrt(ins, attrs, ctx):
     return {"Out": [torch.sqrt(_x(ins))]}

@@ -1,5 +1,6 @@
-"""Fused compositions (counterpart of ``paddle_tpu/ops/misc_ops.py``, the
-op this slice runs)."""
+"""Fused compositions (counterpart of ``paddle_tpu/ops/misc_ops.py`` and
+``paddle_tpu/ops/fused_extra_ops.py``): the two ops the pairwise fusion
+passes make, each the plain composition of its parts."""
 from __future__ import annotations
 
 import torch
@@ -30,3 +31,17 @@ def _fused_elemwise_activation(ins, attrs, ctx):
                 cur if cur is not None else x)
         inter = cur if inter is None else inter
     return {"Out": [cur], "IntermediateOut": [inter]}
+
+
+@register_op("fused_bn_activation",
+             nondiff_inputs=("Mean", "Variance"),
+             nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                              "SavedVariance"))
+def _fused_bn_activation(ins, attrs, ctx):
+    """fused_bn_activation_op.cc, what the ``fuse_bn_act`` pass makes of
+    batch_norm + act: ``batch_norm``'s lowering, then ``act_type`` on Y."""
+    from .registry import get_op
+    outs = get_op("batch_norm").fn(ins, attrs, ctx)
+    act = attrs.get("act_type", "relu")
+    outs["Y"] = [_UNARY[act](outs["Y"][0])]
+    return outs

@@ -926,7 +926,7 @@ class DecodeEngine:
         logits, k_init, v_init = model.executor.run(
             prog, feed=feed, fetch_list=[logits_n, k_n, v_n],
             scope=self._scope, return_numpy=False)
-        logits = logits.cpu().numpy()
+        logits, k_init, v_init = logits.numpy(), k_init.raw, v_init.raw
         self._ins.count("prefills")
         self._ins.observe("step_seconds", time.perf_counter() - t0)
         return logits, k_init, v_init

@@ -187,7 +187,7 @@ class _ExecutorBackend:
                                  scope=self.scope, return_numpy=False)
 
     def wait(self, fetches) -> List[np.ndarray]:
-        return [f.detach().cpu().numpy() for f in fetches]
+        return [f.numpy() for f in fetches]
 
     def warmup_run(self, feed) -> None:
         self.executor.run(self.program, feed=feed,

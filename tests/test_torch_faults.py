@@ -3,7 +3,8 @@
 Each test runs a case where the port once parted from the reference (a
 bad id that took down a decode engine or a whole served batch, builders
 that did not train by default, a float64 feed, an integer mean, a dygraph
-``minimize`` that raised) and holds the port to what it does now.  Two departures are on purpose: an id
+``minimize`` that raised, a BuildStrategy that dropped its pass knobs)
+and holds the port to what it does now.  Two departures are on purpose: an id
 outside its table is refused at ``submit``, for that request alone, where
 the reference answers with NaN (on the card such an id would trap in the
 gather kernel or assert in ``index_select`` and lose the process's CUDA
@@ -17,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu  # noqa: F401 — registers the reference lowerings
+import paddle_tpu.fluid as jfluid
 from paddle_tpu.dygraph import base as jdy
 from paddle_tpu.dygraph import nn as jnn
 from paddle_tpu.fluid import layers as JL
@@ -245,3 +247,88 @@ def test_dygraph_adam_minimize_moves_the_weights_as_the_reference():
                                    atol=1e-7)
     for g, w in zip(got_m.values(), want_m.values()):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-8)
+
+
+# -- 6. BuildStrategy's pass knobs ----------------------------------------------
+def _bench_ctr_ops_after_passes(fluid, reset, embed, run_place=None):
+    """bench.py:571-589's CTR program (6 slots, dim 8) through
+    ``fuse_elewise_add_act_ops`` + ``constant_folding``: the op count of
+    one step.  ``embed`` is "box" (``pull_box_sparse``, as the bench
+    builds it) or "dense" (an ``embedding`` table in its place).  With
+    ``run_place``, (the count of the executor's run plan after one step,
+    its ``ops_per_step`` gauge); without, the pruned program's count after
+    the passes."""
+    from paddle_tpu_torch.fluid import trace as ttrace
+    reset()
+    slots, dim = 6, 8
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [-1, slots], dtype="int64")
+        dense = fluid.data("dense", [-1, 13])
+        label = fluid.data("label", [-1, 1])
+        if embed == "box":
+            emb = fluid.layers.pull_box_sparse(ids, dim,
+                                               table_name="faults_box")
+        else:
+            emb = fluid.layers.embedding(ids, [64, dim])
+        flat = fluid.layers.reshape(emb, [-1, slots * dim])
+        deep = fluid.layers.concat([flat, dense], axis=1)
+        h = fluid.layers.fc(deep, 256, act="relu")
+        h = fluid.layers.fc(h, 128, act="relu")
+        wide = fluid.layers.fc(dense, 1)
+        logit = fluid.layers.fc(h, 1) + wide
+        loss = fluid.layers.mean(
+            fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        fluid.optimizer.SGDOptimizer(0.01).minimize(loss)
+    bs = fluid.BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    bs.constant_folding = True
+    prog = fluid.CompiledProgram(main, build_strategy=bs)
+    if run_place is None:
+        from paddle_tpu.fluid.framework import prune_ops
+        prog._apply_ir_passes([loss.name])
+        gb = main.global_block()
+        return len(prune_ops(gb, list(gb.ops), targets=[loss.name],
+                             keep_state_writes=True))
+    scope = fluid.Scope()
+    exe = fluid.Executor(run_place)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    if embed == "box":
+        scope.set_var("faults_box@HBMCACHE",
+                      rng.randn(64, dim).astype("float32"))
+    exe.run(prog, feed={"ids": rng.randint(0, 64, (4, slots)),
+                        "dense": rng.randn(4, 13).astype("float32"),
+                        "label": np.ones((4, 1), "float32")},
+            fetch_list=[loss], scope=scope)
+    return (len(next(reversed(exe._plans.values())).run_ops),
+            int(ttrace.metrics().gauge("executor.ops_per_step").value))
+
+
+@pytest.mark.parametrize("embed", ("box", "dense"))
+def test_build_strategy_runs_the_reference_passes(embed):
+    """bench.py sets ``fuse_elewise_add_act_ops`` and ``constant_folding``
+    on its CTR program; the reference runs both passes and its step has
+    38 ops (two ``fused_elemwise_activation`` forwards and two fused grad
+    pairs out of 42).  The port's BuildStrategy once lacked both knobs,
+    took the assignments silently and ran all 42 ops.  Now it selects the
+    reference's passes in the reference's order, and the knobs whose
+    passes are not ported raise instead of being dropped."""
+    want = _bench_ctr_ops_after_passes(jfluid, j_reset, embed)
+    got, gauge = _bench_ctr_ops_after_passes(tfluid, t_reset, embed, HOST)
+    assert got == want == 38
+    assert gauge == got
+    for knob in ("fuse_all_reduce_ops", "sharding", "auto_tune"):
+        bs = tfluid.BuildStrategy()
+        setattr(bs, knob, True)
+        with pytest.raises(NotImplementedError, match=knob):
+            tfluid.passes.passes_for_build_strategy(bs)
+    bs = tfluid.BuildStrategy()
+    bs.memory_optimize = True
+    bs.amp = True
+    bs.fuse_bn_act_ops = True
+    bs.fuse_all_optimizer_ops = True
+    names = [p.name for p in tfluid.passes.passes_for_build_strategy(bs)]
+    assert names == ["constant_fold", "fuse_bn_act", "fuse_optimizer",
+                     "prune_identity", "amp_bf16", "prune_redundant_casts",
+                     "dce"]

@@ -60,6 +60,10 @@ def test_import_leaves_jax_and_reference_out():
     assert "paddle_tpu_torch.serving.decode" in report["modules"]
     assert "paddle_tpu_torch.fluid.layers.control_flow" in report["modules"]
     assert "paddle_tpu_torch.vision.models" in report["modules"]
+    for m in ("distributed.ps.box", "distributed.ps.table",
+              "distributed.trainer", "native", "fluid.dataset",
+              "fluid.async_pipeline", "fluid.passes.amp", "utils.prefetch"):
+        assert "paddle_tpu_torch." + m in report["modules"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
