@@ -3,8 +3,9 @@
 end to end: the static BERT program, the wide&deep CTR program, the
 flagship dygraph ``BertForPretraining`` step, paged decode, the static
 book tier (MNIST LeNet), the dygraph ResNet-50 step, the Transformer NMT
-step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated), and the
-BoxPS CTR trainer (``bench.py:547 main_ctr``).
+step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated), the BoxPS
+CTR trainer (``bench.py:547 main_ctr``), and the 2.0 dygraph loop: the
+PTB LSTM language model and the dygraph WideDeep and DeepFM.
 
     python3 chip_smoke.py
 
@@ -69,7 +70,9 @@ over):
    and beside a uint8 ``fill_`` of its size.  Then the NMT step's shapes
    in bfloat16: dropout, its mask and dropout-add at [2048, 1024], relu
    act-dropout and its backward at [2048, 4096], the same checks, each
-   timed.
+   timed.  Then the PTB step's shape, [20, 35, 1500] at rate 0.65, in
+   float32 and bfloat16 under both implementations, the same checks,
+   and dropout and its mask timed under ``downgrade_in_infer``.
 3f. paged attention -- the paged decode-attention kernel against its
    plain version at 1, 8 and 32 slots of 512 positions over a
    16,400-row pool of width 768, five masks (all valid, ragged,
@@ -244,6 +247,33 @@ over):
    temporary directory, ``InMemoryDataset``, two passes sharing ids
    through ``train_from_dataset`` pass by pass and through
    ``train_passes``: bit for bit.
+4l. the 2.0 dygraph loop -- ``models.PtbLm`` at PTB's full width
+   (Zaremba, Sutskever and Vinyals' "large" LSTM LM: vocab 10,000, hidden
+   1,500, 2 layers, 35 steps, batch 20, dropout 0.65, 66,034,000
+   parameters uniform in +-0.04), the users' eager loop on the tape:
+   ``loss.backward(); opt.step(); opt.clear_grad()`` through
+   ``optimizer.SGD`` over ``PiecewiseDecay`` with
+   ``ClipGradByGlobalNorm(10)``; 3 warm-up and 20 timed steps, exactly
+   PTB_LAUNCHES a step (3 dropout forwards, their 3 backwards and 3
+   masks), ms a step, tokens/s, peak memory, a profiled step (busy ms,
+   idle share).  The same under bf16 ``amp.auto_cast`` with
+   ``amp.GradScaler`` (the identity: no scale, no finite check), its
+   first loss within BF16_LOSS_RTOL of a float32 forward's from one
+   state and seeds.  An eval forward (no dropout launch) and its
+   perplexity; ``save_dygraph`` / ``load_dygraph`` / ``set_dict`` into a
+   fresh model: eval logits bit for bit.  One LSTM layer at the PTB
+   width through ``rnn_scan``'s step loop and through cuDNN's fused
+   LSTM (the route not taken), timed.  Card against host at PTB_HOST
+   (vocab 1000, hidden 128, batch 4, dropout live, 3 steps): losses
+   rtol 1e-4, first-step gradients' cosine 0.9999 and norm 1e-3; a host
+   twin whose LSTM swaps its input and forget gates must miss.  Then
+   dygraph ``WideDeep`` and ``DeepFM`` at DYCTR's width (26 slots of
+   1,000,000 ids, dim 16, 13 dense features, batch 4096; the sigmoid
+   output's squared error, ``optimizer.Adam`` over a ``LinearWarmup``):
+   3 warm-up and 10 timed steps with no hand-written kernel launch,
+   examples/s, peak memory, a profiled step; card against host at 26 x
+   1000, batch 256, the same bounds, a twin fed ids without their slot
+   offsets must miss.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -255,7 +285,9 @@ over):
    and one MobileNetV2 step.
 6. report  -- one ``{"kernels": [...]}`` line (each kernel's
    ``boxps_launches`` are phase 4k's kernel-tier leg's, its
-   ``boxps_legs_launches`` those of 4k's fp32 and bf16 legs), then the last
+   ``boxps_legs_launches`` those of 4k's fp32 and bf16 legs, its
+   ``ptb_launches`` those of 4l's timed float32 PTB steps, and the
+   dropout rows' ``ptb`` their times at the PTB shape), then the last
    line
    ``{"ok": true, "device": {...}}``.
 """
@@ -267,6 +299,7 @@ import math
 import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 
@@ -386,6 +419,39 @@ BOX_HOST = dict(batch=256, steps=3, ids=2048)
 BOX_TIER_BATCH, BOX_TIER_WARMUP, BOX_TIER_STEPS = 256, 2, 10  # bench.py:677
 BOX_TIER_RTOL = 1e-4           # kernel tier against the unrewritten losses
 BOX_DATASET = dict(passes=2, records=512, batch=256, ids=4096)
+# phase 4l: the PTB LSTM language model at the "large" width of Zaremba,
+# Sutskever and Vinyals 2014 (arXiv:1409.2329, section 4; Paddle's
+# ptb_lm "large" config), nothing cut: vocab 10,000, hidden 1,500, 2
+# layers, 35 steps unrolled, batch 20, dropout 0.65 (the dygraph
+# Dropout's downgrade_in_infer), weights uniform in +-0.04, SGD at lr 1.0
+# (decayed by 1/1.15 after a boundary) with the gradients clipped to a
+# global norm of 10
+PTB = dict(vocab_size=10000, hidden_size=1500, num_layers=2, dropout=0.65)
+PTB_PARAMS = 66_034_000
+PTB_BATCH, PTB_T, PTB_INIT, PTB_CLIP = 20, 35, 0.04, 10.0
+PTB_LR_BOUNDS, PTB_LR_VALUES = [12], [1.0, 1.0 / 1.15]
+PTB_WARMUP, PTB_STEPS = 3, 20
+# per step: three dropouts (on the embedding, between the layers, before
+# the output), each one pt_dropout forward, one pt_dropout backward (the
+# op's own gradient: the tape reruns no dropout) and one mask
+PTB_LAUNCHES = {"fused_dropout": 6, "dropout_mask": 3}
+PTB_HOST = dict(PTB, vocab_size=1000, hidden_size=128)
+# the card-vs-host check's weights are uniform in +-0.3: at +-0.04 every
+# gate sits near sigmoid(0) and an LSTM with two gates swapped computes
+# nearly the same loss
+PTB_HOST_BATCH, PTB_HOST_STEPS, PTB_HOST_INIT = 4, 3, 0.3
+# phase 4l's dygraph CTR models (models/ctr.py) at the CTR cells' width,
+# DLRM's Criteo-Kaggle one: 26 slots of 1,000,000 ids, dim 16, 13 dense
+# features, the reference's default towers, batch 4096 (bench.py:547
+# main_ctr's), Adam 1e-3 over a 5-step LinearWarmup
+DYCTR = dict(num_slots=26, vocab_per_slot=1_000_000, embed_dim=16,
+             dense_dim=13)
+DYCTR_HIDDEN = {"WideDeep": (400, 400, 400), "DeepFM": (400, 400)}
+DYCTR_BATCH, DYCTR_WARMUP, DYCTR_STEPS = 4096, 3, 10
+DYCTR_LR, DYCTR_WARMUP_STEPS = 1e-3, 5
+DYCTR_HOST = dict(DYCTR, vocab_per_slot=1000)
+DYCTR_HOST_BATCH, DYCTR_HOST_STEPS = 256, 3
+ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -5763,6 +5829,650 @@ def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
     _print_classes(by_class, "step")
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the 2.0 dygraph loop -- the PTB LSTM LM and the dygraph CTR
+# models
+# ---------------------------------------------------------------------------
+
+def _ptb_ids(batch, vocab, device, seed):
+    """Input ids and next-token labels [batch, PTB_T], int64 on
+    ``device``, from one ``RandomState(seed)`` draw of PTB_T + 1 tokens a
+    row."""
+    import torch
+    rng = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rng.randint(0, vocab, (batch, PTB_T + 1))
+                              .astype("int64")).to(device)
+    return tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
+
+
+def _ptb_flops_per_token(cfg):
+    """Forward FLOP a token: each layer's input and recurrent products
+    (2 · H · 4H each) and the output product (2 · H · V)."""
+    h, v = cfg["hidden_size"], cfg["vocab_size"]
+    return cfg["num_layers"] * 2 * (2 * h * 4 * h) + 2 * h * v
+
+
+def _ptb_optimizer(model):
+    """The users' optimizer: SGD over PiecewiseDecay, the gradients
+    clipped to a global norm of PTB_CLIP."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    sched = optimizer.PiecewiseDecay(PTB_LR_BOUNDS, PTB_LR_VALUES)
+    return sched, optimizer.SGD(learning_rate=sched,
+                                parameters=model.parameters(),
+                                grad_clip=ClipGradByGlobalNorm(PTB_CLIP))
+
+
+def _ptb_step(model, sched, opt, ids, lbl, scaler=None):
+    """One step of the users' eager loop (``scaler``: under bf16
+    ``auto_cast`` through ``GradScaler``); returns the loss."""
+    from paddle_tpu_torch import amp
+
+    def step():
+        if scaler is None:
+            loss = model.loss(model(ids), lbl)
+            loss.backward()
+            opt.step()
+        else:
+            with amp.auto_cast():
+                loss = model.loss(model(ids), lbl)
+            scaler.scale(loss).backward()
+            scaler.minimize(opt, loss)
+        opt.clear_grad()
+        sched.step()
+        return loss
+    return step
+
+
+def _ptb_timed(label, step, card):
+    """PTB_WARMUP warm-up steps, then PTB_STEPS timed ones with the launch
+    counts set to 0 before and read after (exactly PTB_LAUNCHES a step);
+    ms a step, tokens/s, peak memory.  Returns the launches and the
+    numbers."""
+    import torch
+
+    first = float(step())
+    for _ in range(PTB_WARMUP - 1):
+        step()
+    counted = _counted_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(PTB_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = PTB_BATCH * PTB_T
+    fwd = _ptb_flops_per_token(PTB) * tokens
+    out = {"ms": wall / PTB_STEPS * 1e3,
+           "tokens_s": tokens * PTB_STEPS / wall, "peak_gib": peak,
+           "first_loss": first, "losses": losses}
+    _p(f"ptb {label}: {PTB_STEPS} steps of {PTB_BATCH} x {PTB_T} tokens in "
+       f"{wall:.3f} s: {out['ms']:.2f} ms/step, {out['tokens_s']:.0f} "
+       f"tokens/s, {3 * fwd * PTB_STEPS / wall / 1e12:.3f} TFLOP/s by the "
+       f"3 x forward count ({3 * fwd / 1e9:.1f} GFLOP a step; the tape "
+       f"runs {4 * fwd / 1e9:.1f}), peak memory {peak:.2f} GiB; first loss "
+       f"{first:.4f}, losses {[round(x, 4) for x in losses]}  [{card}]")
+    want = {fn.__name__: PTB_LAUNCHES.get(fn.__name__, 0) * PTB_STEPS
+            for fn in counted}
+    _p(f"ptb {label}: launches in the timed steps {launches}, expected "
+       f"{want} (per step {PTB_LAUNCHES})")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: the PTB {label} step did not run "
+                         f"through the dropout kernels as predicted")
+    if not np.isfinite(losses).all() or not losses[-1] < first:
+        raise SystemExit(f"chip_smoke: the PTB {label} losses are not "
+                         f"finite or did not fall")
+    return launches, out
+
+
+@contextlib.contextmanager
+def _lstm_gates_swapped():
+    """A broken twin: ``rnn_scan``'s LSTM reads its input and forget gates
+    in each other's places."""
+    import torch
+    from paddle_tpu_torch.fluid.layers import rnn
+
+    orig = rnn._scan_one_direction
+
+    def swapped(mode, wi, wh, bi, bh, *args, **kwargs):
+        if mode == "LSTM":
+            wi, wh, bi, bh = (torch.cat([w.chunk(4)[i] for i in (1, 0, 2, 3)])
+                              for w in (wi, wh, bi, bh))
+        return orig(mode, wi, wh, bi, bh, *args, **kwargs)
+
+    rnn._scan_one_direction = swapped
+    try:
+        yield
+    finally:
+        rnn._scan_one_direction = orig
+
+
+def _ptb_run(place, state, twin=None):
+    """At PTB_HOST from ``state``, float32, dropout live from fixed tracer
+    seeds: PTB_HOST_STEPS steps of the users' loop, each loss, and the
+    first step's gradients."""
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import PtbLm
+
+    twin = twin or contextlib.nullcontext
+    with dybase.guard(place), twin():
+        tracer = dybase._dygraph_tracer()
+        model = PtbLm(**PTB_HOST)
+        interop.layer_from_numpy(model, state)
+        ids, lbl = _ptb_ids(PTB_HOST_BATCH, PTB_HOST["vocab_size"],
+                            tracer.device, SEED + 55)
+        ids, lbl = dybase.to_variable(ids), dybase.to_variable(lbl)
+        sched, opt = _ptb_optimizer(model)
+        tracer._seed, tracer._seed_ctr = SEED + 56, 0
+        losses, grads = [], None
+        for _ in range(PTB_HOST_STEPS):
+            loss = model.loss(model(ids), lbl)
+            loss.backward()
+            if grads is None:
+                grads = [p.gradient() for p in model.parameters()]
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss))
+    return {"losses": losses, "grads": grads}
+
+
+def _margins(got, want):
+    """Each card-vs-host check's error over its tolerance (under 1
+    passes): every step's loss to rtol 1e-4, the whole first-step
+    gradient's cosine to 1e-4 of 1 and its norm to 1e-3."""
+    cos, norm = _cosine(got["grads"], want["grads"])
+    out = {f"loss {i}": abs(g - w) / abs(w) / 1e-4
+           for i, (g, w) in enumerate(zip(got["losses"], want["losses"]))}
+    out.update({"gradient cosine": (1 - cos) / 1e-4,
+                "gradient norm": abs(norm - 1) / 1e-3})
+    return out
+
+
+def _card_vs_host_report(label, ok, miss, detail, card):
+    fmt = ", ".join
+    _p(f"{label}: card vs host {detail}  [{card}]")
+    _p(f"{label}: card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()))
+    _p(f"{label}: the twin, error / tolerance (must miss, over 1): "
+       + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit(f"chip_smoke: {label} on the card disagrees with "
+                         f"the host")
+    if max(miss.values()) <= 1:
+        raise SystemExit(f"chip_smoke: the {label} card-vs-host check "
+                         f"cannot see its twin's fault")
+
+
+def _ptb_card_vs_host(card):
+    """PTB_HOST on the card and on the host from one state (uniform in
+    +-PTB_HOST_INIT from a seed), float32, dropout live (the host's plain
+    Philox draws the card's masks): _margins; a host twin whose LSTM
+    swaps its input and forget gates must miss."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import PtbLm
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 54)
+    with dybase.guard(fluid.CPUPlace()):
+        shapes = {k: v.shape for k, v in PtbLm(**PTB_HOST).state_dict()
+                  .items()}
+    state = {k: rng.uniform(-PTB_HOST_INIT, PTB_HOST_INIT, s)
+             .astype("float32")
+             for k, s in shapes.items()}
+    card_r = _ptb_run(fluid.CUDAPlace(0), state)
+    host_r = _ptb_run(fluid.CPUPlace(), state)
+    twin_r = _ptb_run(fluid.CPUPlace(), state, twin=_lstm_gates_swapped)
+    ok, miss = _margins(card_r, host_r), _margins(twin_r, host_r)
+    _card_vs_host_report(
+        "ptb", ok, miss,
+        f"at vocab {PTB_HOST['vocab_size']}, hidden "
+        f"{PTB_HOST['hidden_size']}, {PTB_HOST['num_layers']} layers, "
+        f"{PTB_T} steps, batch {PTB_HOST_BATCH}, dropout "
+        f"{PTB_HOST['dropout']} live, {PTB_HOST_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s: losses card {card_r['losses']}, "
+        f"host {host_r['losses']}, gate-swapped twin {twin_r['losses']}",
+        card)
+    return ok, miss
+
+
+def _lstm_routes(card):
+    """One LSTM layer at the PTB width, [20, 35, 1500] float32, forward
+    and backward: ``rnn_scan``'s step loop (the route kept) against
+    cuDNN's fused LSTM (``torch._VF.lstm``, the route not taken), device
+    ms by CUDA events, outputs compared."""
+    import torch
+    from paddle_tpu_torch.fluid.layers import rnn
+
+    h = PTB["hidden_size"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 57)
+
+    def u(*shape):
+        return (torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1) \
+            * PTB_INIT
+
+    x = u(PTB_BATCH, PTB_T, h).requires_grad_()
+    ws = [u(4 * h, h).requires_grad_(), u(4 * h, h).requires_grad_(),
+          u(4 * h).requires_grad_(), u(4 * h).requires_grad_()]
+    h0 = torch.zeros(1, PTB_BATCH, h, device=DEVICE)
+    g = u(PTB_BATCH, PTB_T, h)
+
+    def scan():
+        out = rnn._rnn_scan({"Input": [x], "WeightList": ws,
+                             "PreState": [h0, h0]},
+                            {"mode": "LSTM", "num_layers": 1}, None)
+        return out["Out"][0]
+
+    def cudnn():
+        # the four weights are separate tensors, as rnn_scan takes them:
+        # cuDNN copies them into one buffer each call, and warns so
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch._VF.lstm(x, (h0, h0), ws, True, 1, 0.0, True,
+                                  False, True)[0]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.backward(fn(), g)
+
+    with torch.enable_grad():
+        err = float((scan() - cudnn()).detach().abs().max())
+        rows = {"scan_fwd_ms": _ms(scan, 5), "cudnn_fwd_ms": _ms(cudnn, 5),
+                "scan_fwd_bwd_ms": _ms(fwd_bwd(scan), 5),
+                "cudnn_fwd_bwd_ms": _ms(fwd_bwd(cudnn), 5),
+                "max_abs_err": err}
+    _p(f"ptb: one LSTM layer [{PTB_BATCH}, {PTB_T}, {h}] float32: rnn_scan's "
+       f"step loop {rows['scan_fwd_ms']:.3f} ms forward, "
+       f"{rows['scan_fwd_bwd_ms']:.3f} ms forward + backward; cuDNN's "
+       f"fused LSTM (the route not taken) {rows['cudnn_fwd_ms']:.3f} and "
+       f"{rows['cudnn_fwd_bwd_ms']:.3f} ms; outputs within {err:.2e}  "
+       f"[{card}]")
+    if not err < 1e-5:
+        raise SystemExit("chip_smoke: rnn_scan disagrees with cuDNN's LSTM")
+    return rows
+
+
+def phase_kernels_dropout_ptb():
+    """The dropout kernels at the PTB step's shape, [20, 35, 1500], rate
+    0.65, float32 (the path's dtype: autocast leaves the LSTMs' inputs in
+    float32) and bfloat16, ``downgrade_in_infer`` (the path's: kept
+    values unscaled) and ``upscale_in_train``: phase 3e's checks, then
+    dropout and its mask under ``downgrade_in_infer`` timed by the
+    profiler's device ms beside the bound, the plain version's and the
+    library call's.  Returns the rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels, nn_ops
+
+    shape = (PTB_BATCH, PTB_T, PTB["hidden_size"])
+    rate = PTB["dropout"]
+    err = 0.0
+    for dtype, label in ((torch.float32, "fp32 PTB"),
+                         (torch.bfloat16, "bf16 PTB")):
+        for upscale in (False, True):
+            err = max(err, _dropout_checks(label, dtype, rate, upscale,
+                                           shape, SEED + 58))
+    seed = SEED + 59
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    k0, k1 = nn_ops._key_words(seed)
+    thr = nn_ops._threshold_for(rate)
+    calls = {
+        "fused_dropout": (
+            lambda: cuda_kernels.fused_dropout(x, seed, thr, 1.0),
+            lambda: nn_ops._reference_dropout(x, k0, k1, thr, 1.0),
+            lambda: F.dropout(x, rate, training=True)),
+        "dropout_mask": (
+            lambda: cuda_kernels.dropout_mask(x, seed, thr),
+            lambda: nn_ops._reference_keep(x.shape, k0, k1, thr,
+                                           x.device).to(torch.uint8),
+            lambda: torch.empty(x.shape, dtype=torch.uint8,
+                                device=x.device).bernoulli_(1 - rate))}
+    clock_hz = _sm_clock_hz()
+    rows = {}
+    for name, (kernel, plain, library) in calls.items():
+        bound_ms, bound_by, binds = _dropout_bound(
+            name, x.numel(), x.element_size(), clock_hz)
+        rows[name] = row = {
+            "max_abs_err": err, "ms": _profile(kernel, 20)[1],
+            "plain_ms": _profile(plain, 5)[1],
+            "library_ms": _profile(library, 20)[1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "binds": binds,
+            "dtype": "float32", "shape": list(shape), "rate": rate,
+            "implementation": "downgrade_in_infer"}
+        _p(f"  {name} fp32 PTB {list(shape)} downgrade_in_infer: kernel "
+           f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | library "
+           f"{row['library_ms']:.4f} ms | bound {bound_ms * 1e3:.2f} us "
+           f"({binds})")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dyctr_batch(cfg, batch, device, seed, offsets=True):
+    """Ids [batch, slots] (offset by slot unless ``offsets`` is False),
+    dense features [batch, dense_dim] and 0/1 labels [batch, 1] from
+    ``RandomState(seed)``, as tensors on ``device``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg["vocab_per_slot"], (batch, cfg["num_slots"]))
+    if offsets:
+        ids = ids + np.arange(cfg["num_slots"]) * cfg["vocab_per_slot"]
+    dense = rng.randn(batch, cfg["dense_dim"]).astype("float32")
+    label = rng.randint(0, 2, (batch, 1)).astype("float32")
+    return [torch.from_numpy(a).to(device)
+            for a in (ids.astype("int64"), dense, label)]
+
+
+def _dyctr_optimizer(model):
+    """``optimizer.Adam`` over a ``LinearWarmup`` to DYCTR_LR."""
+    from paddle_tpu_torch import optimizer
+
+    sched = optimizer.LinearWarmup(DYCTR_LR, DYCTR_WARMUP_STEPS, 0.0,
+                                   DYCTR_LR)
+    return sched, optimizer.Adam(learning_rate=sched,
+                                 parameters=model.parameters())
+
+
+def _dyctr_loss(model, sparse, dense, label):
+    """The mean squared error of the sigmoid output against the label, as
+    ``tests/ps_ctr_trainer.py`` trains WideDeep."""
+    from paddle_tpu_torch.fluid import layers as L
+    return L.mean(L.square(model(sparse, dense) - label))
+
+
+def _dyctr_step(model, batch):
+    """One step of the dygraph CTR loop on ``batch``; returns the loss."""
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    sparse, dense, label = (dybase.to_variable(t) for t in batch)
+    sched, opt = _dyctr_optimizer(model)
+
+    def step():
+        loss = _dyctr_loss(model, sparse, dense, label)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+    return step
+
+
+def _dyctr_state(shapes, seed):
+    """A state of ``shapes`` from ``seed``: embedding rows N(0, 0.1²),
+    matrices N(0, 1 / rows), biases N(0, 0.02²)."""
+    rng = np.random.RandomState(seed)
+
+    def draw(name, shape):
+        if name.startswith("embed"):
+            return 0.1 * rng.randn(*shape)
+        if len(shape) == 2:
+            return rng.randn(*shape) / np.sqrt(shape[0])
+        return 0.02 * rng.randn(*shape)
+    return {k: draw(k, s).astype("float32") for k, s in shapes.items()}
+
+
+def _dyctr_run(place, cls, state, twin_ids=False):
+    """At DYCTR_HOST from ``state``: DYCTR_HOST_STEPS steps, each loss and
+    the first step's gradients; ``twin_ids`` feeds the ids without their
+    slot offsets."""
+    from paddle_tpu_torch import interop, models
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    with dybase.guard(place):
+        tracer = dybase._dygraph_tracer()
+        model = getattr(models, cls)(hidden=DYCTR_HIDDEN[cls], **DYCTR_HOST)
+        interop.layer_from_numpy(model, state)
+        sparse, dense, label = (dybase.to_variable(t) for t in _dyctr_batch(
+            DYCTR_HOST, DYCTR_HOST_BATCH, tracer.device, SEED + 61,
+            offsets=not twin_ids))
+        sched, opt = _dyctr_optimizer(model)
+        losses, grads = [], None
+        for _ in range(DYCTR_HOST_STEPS):
+            loss = _dyctr_loss(model, sparse, dense, label)
+            loss.backward()
+            if grads is None:
+                grads = [p.gradient() for p in model.parameters()]
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss))
+    return {"losses": losses, "grads": grads}
+
+
+def _dyctr_card_vs_host(cls, card):
+    """DYCTR_HOST on the card and on the host from one seeded state:
+    _margins; a host twin fed ids without their slot offsets (every slot
+    reads slot 0's rows) must miss."""
+    from paddle_tpu_torch import fluid, models
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    t0 = time.perf_counter()
+    with dybase.guard(fluid.CPUPlace()):
+        shapes = {k: v.shape for k, v in getattr(models, cls)(
+            hidden=DYCTR_HIDDEN[cls], **DYCTR_HOST).state_dict().items()}
+    state = _dyctr_state(shapes, SEED + 60)
+    card_r = _dyctr_run(fluid.CUDAPlace(0), cls, state)
+    host_r = _dyctr_run(fluid.CPUPlace(), cls, state)
+    twin_r = _dyctr_run(fluid.CPUPlace(), cls, state, twin_ids=True)
+    ok, miss = _margins(card_r, host_r), _margins(twin_r, host_r)
+    _card_vs_host_report(
+        cls, ok, miss,
+        f"at {DYCTR_HOST['num_slots']} slots x "
+        f"{DYCTR_HOST['vocab_per_slot']}, dim {DYCTR_HOST['embed_dim']}, "
+        f"batch {DYCTR_HOST_BATCH}, {DYCTR_HOST_STEPS} Adam steps in "
+        f"{time.perf_counter() - t0:.1f} s: losses card "
+        f"{card_r['losses']}, host {host_r['losses']}, unoffset-ids twin "
+        f"{twin_r['losses']}", card)
+    return ok, miss
+
+
+def _dyctr_leg(cls, card):
+    """``cls`` at DYCTR's full width on the card: DYCTR_WARMUP warm-up
+    and DYCTR_STEPS timed steps (no hand-written kernel launches: the
+    dygraph ``Embedding`` is a gather and its gradient dense),
+    examples/s, peak memory, and a profiled step."""
+    import torch
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    t0 = time.perf_counter()
+    tracer = dybase._dygraph_tracer()
+    model = getattr(models, cls)(hidden=DYCTR_HIDDEN[cls], **DYCTR)
+    n_params = sum(p.value().numel() for p in model.parameters())
+    batch = _dyctr_batch(DYCTR, DYCTR_BATCH, tracer.device, SEED + 62)
+    step = _dyctr_step(model, batch)
+    table = DYCTR["num_slots"] * DYCTR["vocab_per_slot"] * DYCTR["embed_dim"]
+    _p(f"{cls}: {n_params} parameters ({table} in the table, "
+       f"{table * 4 / 2 ** 30:.2f} GiB float32), towers "
+       f"{DYCTR_HIDDEN[cls]}, built on the card in "
+       f"{time.perf_counter() - t0:.1f} s; batch {DYCTR_BATCH}, Adam "
+       f"{DYCTR_LR} over LinearWarmup({DYCTR_WARMUP_STEPS})")
+    first = float(step())
+    for _ in range(DYCTR_WARMUP - 1):
+        step()
+    counted = _counted_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(DYCTR_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(step, 3)
+    out = {"ms": wall / DYCTR_STEPS * 1e3,
+           "examples_s": DYCTR_BATCH * DYCTR_STEPS / wall, "peak_gib": peak,
+           "host_ms": host_ms, "busy_ms": busy_ms, "idle": idle,
+           "launches": launches}
+    _p(f"{cls}: {DYCTR_STEPS} steps in {wall:.3f} s: {out['ms']:.2f} "
+       f"ms/step, {out['examples_s']:.0f} examples/s, peak memory "
+       f"{peak:.2f} GiB; first loss {first:.5f}, losses "
+       f"{[round(x, 5) for x in losses]}; launches {launches}  [{card}]")
+    _p(f"profile: {cls} step, batch {DYCTR_BATCH}: host {host_ms:.3f} "
+       f"ms/step, device busy {busy_ms:.3f} ms/step, idle share "
+       f"{idle:.4f}, {n_kern:.0f} kernels/step  [{card}]")
+    _print_classes(by_class, "step")
+    _print_top_kernels("step", 3)
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: the dygraph {cls} step launched a "
+                         f"hand-written kernel")
+    if not np.isfinite(losses).all() or not losses[-1] < first:
+        raise SystemExit(f"chip_smoke: the {cls} losses are not finite or "
+                         f"did not fall")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_ptb_ctr(card):
+    """Phase 4l, the 2.0 dygraph loop on the card.  (a) PtbLm at PTB's
+    full width (66,034,000 parameters, uniform in +-PTB_INIT), the users'
+    loop: ``loss.backward(); opt.step(); opt.clear_grad()`` through
+    ``optimizer.SGD`` over a ``PiecewiseDecay`` with
+    ``ClipGradByGlobalNorm``; (b) the same under bf16 ``auto_cast`` and
+    ``GradScaler`` (the identity in bf16), its first loss within
+    BF16_LOSS_RTOL of a float32 forward's from one state and seeds; each
+    leg PTB_WARMUP + PTB_STEPS steps, PTB_LAUNCHES a step, and profiled;
+    an eval forward (no dropout launch) and its perplexity; (e) the
+    model through ``save_dygraph`` / ``load_dygraph`` / ``set_dict`` into
+    a fresh one: its eval logits bit for bit; the route not taken for
+    the LSTM; (d) card against host.  (c) dygraph WideDeep and DeepFM at
+    DYCTR's width, and (d) for each.  Returns the fp32 leg's launches
+    and the numbers."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    # a tracer of its own on the card; the earlier phases' steps, which
+    # phase 5 profiles, keep theirs
+    with dybase.guard(fluid.CUDAPlace(0)):
+        return _train_ptb_ctr(card)
+
+
+def _train_ptb_ctr(card):
+    import tempfile
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.dygraph.checkpoint import (load_dygraph,
+                                                     save_dygraph)
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models import PtbLm
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    tracer = _dygraph_tracer()
+    tracer._amp_enabled = False
+    model = PtbLm(**PTB)
+    gen = torch.Generator(device=tracer.device).manual_seed(SEED + 50)
+    for p in model.parameters():
+        p.value().uniform_(-PTB_INIT, PTB_INIT, generator=gen)
+    n_params = sum(p.value().numel() for p in model.parameters())
+    ids, lbl = (dybase.to_variable(t) for t in _ptb_ids(
+        PTB_BATCH, PTB["vocab_size"], tracer.device, SEED + 51))
+    _p(f"ptb: PtbLm({', '.join(f'{k}={v}' for k, v in PTB.items())}), "
+       f"{n_params} parameters, uniform in +-{PTB_INIT}, built on the card "
+       f"in {time.perf_counter() - t0:.1f} s; batch {PTB_BATCH} x {PTB_T}; "
+       f"SGD over PiecewiseDecay({PTB_LR_BOUNDS}, {PTB_LR_VALUES}), "
+       f"ClipGradByGlobalNorm({PTB_CLIP})")
+    if n_params != PTB_PARAMS:
+        raise SystemExit(f"chip_smoke: PtbLm has {n_params} parameters, "
+                         f"not {PTB_PARAMS}")
+    sched, opt = _ptb_optimizer(model)
+    step = _ptb_step(model, sched, opt, ids, lbl)
+    tracer._seed, tracer._seed_ctr = SEED + 52, 0
+    launches, fp32 = _ptb_timed("fp32", step, card)
+    prof = _profile(step, 3)
+    fp32["profile"] = prof[:4]
+    _p(f"profile: PTB fp32 step: host {prof[0]:.3f} ms/step, device busy "
+       f"{prof[1]:.3f} ms/step, idle share {prof[2]:.4f}, {prof[3]:.0f} "
+       f"kernels/step  [{card}]")
+    _print_classes(prof[4], "step")
+    _print_top_kernels("step", 3)
+
+    # (b) bf16 autocast and GradScaler
+    with dybase.no_grad():
+        tracer._seed, tracer._seed_ctr = SEED + 53, 0
+        f32_loss = float(model.loss(model(ids), lbl))
+        tracer._seed, tracer._seed_ctr = SEED + 53, 0
+        with amp.auto_cast():
+            bf16_loss = float(model.loss(model(ids), lbl))
+    _p(f"ptb bf16: first loss {bf16_loss}, float32 {f32_loss} from one "
+       f"state and seeds (rtol {BF16_LOSS_RTOL})")
+    if not (np.isfinite(bf16_loss) and np.isclose(
+            bf16_loss, f32_loss, rtol=BF16_LOSS_RTOL, atol=0.0)):
+        raise SystemExit("chip_smoke: the bf16 PTB loss is not finite or "
+                         "not near the float32 one")
+    scaler = amp.GradScaler()
+    amp_step = _ptb_step(model, sched, opt, ids, lbl, scaler=scaler)
+    bf16_launches, bf16 = _ptb_timed("bf16", amp_step, card)
+    if scaler.is_enable() or scaler.get_scale() != 1.0:
+        raise SystemExit("chip_smoke: GradScaler scaled a bf16 run")
+    prof = _profile(amp_step, 3)
+    bf16["profile"] = prof[:4]
+    _p(f"profile: PTB bf16 step: host {prof[0]:.3f} ms/step, device busy "
+       f"{prof[1]:.3f} ms/step, idle share {prof[2]:.4f}, {prof[3]:.0f} "
+       f"kernels/step  [{card}]")
+    _print_classes(prof[4], "step")
+
+    # eval, then (e) the round trip
+    counted = _counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    model.eval()
+    with dybase.no_grad():
+        logits = model(ids)
+        ppl = model.perplexity(logits, lbl)
+    eval_launches = {fn.__name__: fn.launches for fn in counted}
+    _p(f"ptb: eval forward, logits {logits.shape}, perplexity {ppl:.2f}; "
+       f"launches {eval_launches}")
+    if any(eval_launches.values()) or not np.isfinite(ppl):
+        raise SystemExit("chip_smoke: the PTB eval forward failed")
+    t = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = save_dygraph(model.state_dict(), os.path.join(d, "ptb"))
+        size = os.path.getsize(path)
+        params, _ = load_dygraph(os.path.join(d, "ptb"))
+    fresh = PtbLm(**PTB)
+    fresh.set_dict(params)
+    fresh.eval()
+    with dybase.no_grad():
+        again = fresh(ids)
+    same = torch.equal(again.value(), logits.value())
+    _p(f"ptb: save_dygraph / load_dygraph / set_dict round trip of "
+       f"{size} bytes in {time.perf_counter() - t:.2f} s: eval logits bit "
+       f"for bit {same}")
+    if not same:
+        raise SystemExit("chip_smoke: the PTB round trip changed the "
+                         "model's logits")
+    del fresh, params, logits, again
+    model.train()
+    routes = _lstm_routes(card)
+    ptb_ok = _ptb_card_vs_host(card)
+    del model, opt, step, amp_step
+    torch.cuda.empty_cache()
+
+    # (c) and (d): the dygraph CTR models
+    ctr = {}
+    for cls in ("WideDeep", "DeepFM"):
+        ctr[cls] = _dyctr_leg(cls, card)
+        ctr[cls]["card_vs_host"] = _dyctr_card_vs_host(cls, card)
+    return launches, {"fp32": fp32, "bf16": bf16,
+                      "bf16_launches": bf16_launches, "routes": routes,
+                      "card_vs_host": ptb_ok, "ctr": ctr}
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5793,6 +6503,8 @@ def main():
     dropout_rows = _timed("3e dropout kernels", phase_kernels_dropout)
     nmt_dropout_rows = _timed("3e dropout kernels at the NMT shapes",
                               phase_kernels_dropout_nmt)
+    ptb_dropout_rows = _timed("3e dropout kernels at the PTB shape",
+                              phase_kernels_dropout_ptb)
     serve_launches, served = _timed("4 serve", phase_serve, card)
     train_launches, trained = _timed("4b train", phase_train, card)
     ctr_serve_launches, arrays, ctr_served = _timed(
@@ -5815,6 +6527,8 @@ def main():
     nmt_launches, nmt_step = _timed("4i train Transformer NMT",
                                     phase_train_nmt, card)
     mobilenet = _timed("4j train MobileNetV2", phase_train_mobilenet, card)
+    ptb_launches, _ = _timed("4l train PTB LM and dygraph CTR",
+                             phase_train_ptb_ctr, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
@@ -5956,6 +6670,12 @@ def main():
     for row in kernels:
         row["boxps_launches"] = box_launches[row["name"]]
         row["boxps_legs_launches"] = box_legs_launches[row["name"]]
+    # the 2.0 dygraph loop (phase 4l): the PTB step's launches over its
+    # PTB_STEPS timed float32 steps, and the dropout kernels at its shape
+    for row in kernels:
+        row["ptb_launches"] = ptb_launches[row["name"]]
+        if row["name"] in ptb_dropout_rows:
+            row["ptb"] = ptb_dropout_rows[row["name"]]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -17,8 +17,11 @@ training of ``models.bert.BertForPretraining`` (``dygraph``,
 ``dygraph.functional``, ``optimizer.fused``) and of
 ``vision.models.resnet50`` (functionally, or by ``loss.backward()`` and
 ``fluid.optimizer``'s ``minimize``), and autoregressive decode over a
-block-paged KV cache (``serving.DecodeEngine``); see ROADMAP.md for what
-comes next.
+block-paged KV cache (``serving.DecodeEngine``), the BoxPS CTR trainer,
+and the 2.0 dygraph loop (``optimizer``'s schedulers and eager
+optimizers, ``amp.auto_cast`` and ``GradScaler``, ``save_dygraph``) over
+the recurrent layers and the PTB, skip-gram and dygraph CTR models; see
+ROADMAP.md for what comes next.
 """
 from . import fluid
 from . import serving

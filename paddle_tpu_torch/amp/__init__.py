@@ -1,3 +1,6 @@
-"""Mixed precision (counterpart of ``paddle_tpu/amp``): the op lists the
-dygraph tracer's bf16 autocast reads."""
+"""Mixed precision (counterpart of ``paddle_tpu/amp``): ``auto_cast`` over
+the dygraph tracer's autocast, ``GradScaler``, and the op lists the
+autocast and the static ``amp_bf16`` pass read."""
+from .auto_cast import auto_cast, amp_guard
+from .grad_scaler import GradScaler, AmpScaler
 from .lists import WHITE_OPS, BLACK_OPS

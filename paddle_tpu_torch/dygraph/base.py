@@ -19,7 +19,8 @@ nothing else, because ``torch.func.grad`` honours ``torch.no_grad()``
 and would return no gradient under it.
 
 Not ported yet: ``grad()`` (the partial-grad engine) and its tape
-replay, ``__partial_grad__``, and the initializers this port lacks.
+replay, ``__partial_grad__``, ``VarBase``'s operators past ``+``,
+``-`` and ``*``, and the initializers this port lacks.
 """
 from __future__ import annotations
 
@@ -88,6 +89,10 @@ class VarBase:
     def detach(self):
         return VarBase(self._value.detach(), stop_gradient=True)
 
+    def clone(self):
+        """A new VarBase over the same value, off the tape."""
+        return VarBase(self._value, stop_gradient=self.stop_gradient)
+
     def astype(self, dtype):
         return VarBase(self._value.to(torch_dtype(dtype)),
                        stop_gradient=self.stop_gradient)
@@ -121,7 +126,7 @@ class VarBase:
                 else torch.ones_like(self._value))
         tracer.engine_execute(self, seed, retain_graph=retain_graph)
 
-    # --- operators (those the ported paths use) ----------------------------
+    # --- operators (the arithmetic the ported models use) ------------------
     def _binary(self, op_type, other, reverse=False):
         if not isinstance(other, VarBase):
             other = VarBase(torch.as_tensor(other, dtype=self._value.dtype,
@@ -137,6 +142,19 @@ class VarBase:
 
     def __radd__(self, o):
         return self._binary("elementwise_add", o, True)
+
+    def __sub__(self, o):
+        return self._binary("elementwise_sub", o)
+
+    def __rsub__(self, o):
+        return self._binary("elementwise_sub", o, True)
+
+    def __mul__(self, o):
+        return self._binary("elementwise_mul", o)
+
+    def __rmul__(self, o):
+        return self._binary("elementwise_mul", o, True)
+
 
     def __float__(self):
         return float(self._value.detach().reshape(()))

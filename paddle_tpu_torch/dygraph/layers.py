@@ -8,8 +8,9 @@ order them as the reference does (``bert.encoder.layers.0.linear1.weight``
 and so on).  Buffers (``register_buffer``: a batch norm's moving
 statistics) are state that is not trained; ``state_dict`` carries them
 after each layer's parameters, as the reference's does.  ``state_dict``
-gives host numpy arrays; ``set_state_dict`` puts values back on each
-tensor's own device and dtype.
+gives host numpy arrays; ``set_state_dict`` (also ``set_dict`` and
+``load_dict``) puts values back on each tensor's own device and dtype.  ``__call__`` runs the
+forward pre-hooks, ``forward`` and the post-hooks.
 """
 from __future__ import annotations
 
@@ -22,6 +23,22 @@ from ..fluid.framework import unique_name, _dygraph_tracer
 from .base import ParamBase, VarBase, to_variable
 
 
+class _HookRemoveHelper:
+    """The handle ``register_forward_*_hook`` returns: ``remove()``
+    detaches the hook."""
+
+    _next_id = 0
+
+    def __init__(self, hooks, hook):
+        self._hooks = hooks
+        self._id = _HookRemoveHelper._next_id
+        _HookRemoveHelper._next_id += 1
+        hooks[self._id] = hook
+
+    def remove(self):
+        self._hooks.pop(self._id, None)
+
+
 class Layer:
     def __init__(self, name_scope=None, dtype="float32"):
         self._full_name = unique_name(name_scope or
@@ -30,6 +47,8 @@ class Layer:
         self._parameters: "OrderedDict[str, ParamBase]" = OrderedDict()
         self._sub_layers: "OrderedDict[str, Layer]" = OrderedDict()
         self._buffers: "OrderedDict[str, VarBase]" = OrderedDict()
+        self._forward_pre_hooks: "OrderedDict[int, object]" = OrderedDict()
+        self._forward_post_hooks: "OrderedDict[int, object]" = OrderedDict()
         self.training = True
 
     # -- registration through the attribute protocol ------------------------
@@ -62,6 +81,16 @@ class Layer:
         object.__setattr__(self, name, tensor)
         return tensor
 
+    def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
+                         default_initializer=None):
+        """A parameter named under this layer's full name, made as
+        ``LayerHelper.create_parameter`` makes it (not registered: assign
+        it to an attribute)."""
+        from ..fluid.layer_helper import LayerHelper
+        helper = LayerHelper(self.full_name())
+        return helper.create_parameter(attr, shape, dtype or self._dtype,
+                                       is_bias, default_initializer)
+
     # -- traversal ----------------------------------------------------------
     def parameters(self, include_sublayers=True) -> List[ParamBase]:
         out = list(self._parameters.values())
@@ -75,6 +104,22 @@ class Layer:
             yield f"{prefix}{name}", p
         for lname, sub in self._sub_layers.items():
             yield from sub.named_parameters(prefix=f"{prefix}{lname}.")
+
+    def sublayers(self, include_self=False) -> List["Layer"]:
+        """Every layer below this one, depth first in registration
+        order."""
+        out = [self] if include_self else []
+        for sub in self._sub_layers.values():
+            out.append(sub)
+            out.extend(sub.sublayers())
+        return out
+
+    def named_sublayers(self, prefix="", include_self=False):
+        if include_self:
+            yield prefix.rstrip("."), self
+        for name, sub in self._sub_layers.items():
+            yield f"{prefix}{name}", sub
+            yield from sub.named_sublayers(prefix=f"{prefix}{name}.")
 
     def buffers(self) -> List[VarBase]:
         out = list(self._buffers.values())
@@ -123,6 +168,7 @@ class Layer:
                 value.set_value(np.asarray(state_dict[name]))
 
     set_dict = set_state_dict
+    load_dict = set_state_dict
 
     def _named_leaves(self, prefix=""):
         for name, p in self._parameters.items():
@@ -140,8 +186,27 @@ class Layer:
         for p in self.parameters():
             p.clear_gradient()
 
+    # -- call, with the forward hooks ---------------------------------------
     def __call__(self, *args, **kwargs):
-        return self.forward(*args, **kwargs)
+        """``forward`` between the hooks: a pre-hook ``hook(layer, args)``
+        may return new args (a tuple, or one value), a post-hook
+        ``hook(layer, args, outputs)`` new outputs."""
+        for hook in list(self._forward_pre_hooks.values()):
+            out = hook(self, args)
+            if out is not None:
+                args = out if isinstance(out, tuple) else (out,)
+        outputs = self.forward(*args, **kwargs)
+        for hook in list(self._forward_post_hooks.values()):
+            out = hook(self, args, outputs)
+            if out is not None:
+                outputs = out
+        return outputs
+
+    def register_forward_pre_hook(self, hook):
+        return _HookRemoveHelper(self._forward_pre_hooks, hook)
+
+    def register_forward_post_hook(self, hook):
+        return _HookRemoveHelper(self._forward_post_hooks, hook)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError

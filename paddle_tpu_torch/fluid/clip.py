@@ -1,9 +1,12 @@
 """Gradient clipping (counterpart of ``paddle_tpu/fluid/clip.py``):
 ``GradientClipByValue``, ``GradientClipByNorm`` and
 ``GradientClipByGlobalNorm``, each a callable over ``[(param, grad)]``
-that appends the clipping ops and returns the clipped pairs, and their
-2.0 names."""
+that appends the clipping ops and returns the clipped pairs, their
+eager formulas over gradient tensors (``clip_eager``), and their 2.0
+names."""
 from __future__ import annotations
+
+import torch
 
 from . import layers
 
@@ -50,6 +53,26 @@ class GradientClipByGlobalNorm(GradientClipBase):
             max_norm, layers.elementwise_max(global_norm, max_norm))
         return [(p, layers.elementwise_mul(g, scale) if g is not None else g)
                 for p, g in params_grads]
+
+
+def clip_eager(clip, grads):
+    """``clip``'s formula applied eagerly to a list of gradient tensors
+    (the dygraph optimizers' path), in the given order; the global norm
+    sums the squares parameter by parameter in that order."""
+    if isinstance(clip, GradientClipByGlobalNorm):
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        scale = clip.clip_norm / torch.clamp(norm, min=clip.clip_norm)
+        return [g * scale for g in grads]
+    if isinstance(clip, GradientClipByNorm):
+        out = []
+        for g in grads:
+            n = torch.sqrt(torch.sum(torch.square(g)))
+            out.append(torch.where(n > clip.clip_norm,
+                                   g * (clip.clip_norm / n), g))
+        return out
+    if isinstance(clip, GradientClipByValue):
+        return [torch.clamp(g, clip.min, clip.max) for g in grads]
+    return None
 
 
 # legacy API names

@@ -5,11 +5,14 @@ from . import loss
 from . import metric_op
 from . import sequence_lod
 from . import control_flow
+from . import rnn
 
 from .tensor import (data, _to_variable, fill_constant, create_global_var,
-                     concat, assign, fill_constant_batch_size_like, sums)
+                     concat, assign, fill_constant_batch_size_like, sums,
+                     ones_like, zeros_like)
 from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
-                 matmul, relu, relu6, gelu, tanh, reduce_mean, reduce_sum,
+                 matmul, relu, relu6, gelu, tanh, sigmoid, reduce_mean,
+                 reduce_sum, split, stack,
                  mean, elementwise_op, elementwise_add, elementwise_sub,
                  elementwise_mul, elementwise_div, elementwise_max, square,
                  sqrt, clip, clip_by_norm, fused_dropout_add,

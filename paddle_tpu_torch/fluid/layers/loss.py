@@ -29,12 +29,12 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                                       name=None, normalize=False):
     helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op("sigmoid_cross_entropy_with_logits",
-                     inputs={"X": [x], "Label": [label]},
-                     outputs={"Out": [out]},
-                     attrs={"ignore_index": ignore_index,
-                            "normalize": normalize})
-    return out
+    op = helper.append_op("sigmoid_cross_entropy_with_logits",
+                          inputs={"X": [x], "Label": [label]},
+                          outputs={"Out": [out]},
+                          attrs={"ignore_index": ignore_index,
+                                 "normalize": normalize})
+    return op["Out"][0] if in_dygraph_mode() else out
 
 
 def square_error_cost(input, label):

@@ -47,6 +47,10 @@ def tanh(x, name=None):
     return _single_out("tanh", x)
 
 
+def sigmoid(x, name=None):
+    return _single_out("sigmoid", x)
+
+
 def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, name=name)
     if not in_dygraph_mode():
@@ -316,6 +320,31 @@ def gather(input, index, overwrite=True):
     op = helper.append_op("gather", inputs={"X": [input], "Index": [index]},
                           outputs={"Out": [out]})
     return _out(op, "Out", out)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``input`` cut along ``dim`` into ``num_or_sections`` equal parts,
+    or parts of the listed sizes; a list of outputs."""
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n, sections = num_or_sections, []
+    else:
+        n, sections = len(num_or_sections), list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(n)]
+    op = helper.append_op("split", inputs={"X": [input]},
+                          outputs={"Out": outs},
+                          attrs={"axis": dim, "num": n, "sections": sections})
+    return list(op["Out"]) if in_dygraph_mode() else outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    op = helper.append_op("stack", inputs={"X": list(x)},
+                          outputs={"Y": [out]}, attrs={"axis": axis})
+    return _out(op, "Y", out)
 
 
 def slice(input, axes, starts, ends):

@@ -98,9 +98,29 @@ def create_global_var(shape, value, dtype, persistable=False,
 def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
-    helper.append_op("concat", inputs={"X": list(input)},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return out
+    op = helper.append_op("concat", inputs={"X": list(input)},
+                          outputs={"Out": [out]}, attrs={"axis": axis})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def zeros_like(x, out=None):
+    """Zeros in ``x``'s shape and dtype (one ``fill_zeros_like`` op)."""
+    helper = LayerHelper("fill_zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("fill_zeros_like", inputs={"X": [x]},
+                          outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def ones_like(x, out=None):
+    """Ones in ``x``'s shape and dtype (one ``fill_any_like`` op)."""
+    helper = LayerHelper("fill_any_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("fill_any_like", inputs={"X": [x]},
+                          outputs={"Out": [out]}, attrs={"value": 1.0})
+    return op["Out"][0] if in_dygraph_mode() else out
 
 
 def sums(input, out=None):

@@ -1,9 +1,9 @@
 """Optimizers: minimize = append_backward + per-param update ops
 (counterpart of ``paddle_tpu/fluid/optimizer.py``: SGD, Momentum and
-Adam, with ``grad_clip``, in static and in dygraph mode, and the
-``BoxPSOptimizer`` facade; the other
-optimizers, ``regularization`` and ``multi_precision`` come with their
-slices).
+Adam, with ``grad_clip``, in static and in dygraph mode, where the
+learning rate may be a 1.x decay, and the ``BoxPSOptimizer`` facade; the
+other optimizers, ``regularization`` and ``multi_precision`` come with
+their slices).
 
 In static mode the accumulator and learning-rate var names are the
 reference's (``<Optimizer>_<acc>_<param>``, ``learning_rate_<n>``), so
@@ -147,6 +147,9 @@ class Optimizer:
         if self._grad_clip is not None:
             params_grads = self._clip_eager(params_grads)
         lr = self._learning_rate
+        # a 1.x decay (dygraph/learning_rate_scheduler.py) is a callable
+        # read at every step, as in the reference
+        lr = lr() if callable(lr) else lr
         lr = float(getattr(lr, "_value", lr))
         saved_helper, saved_lr = self.helper, self._lr_var
         self.helper = _EagerOptHelper()
@@ -165,24 +168,9 @@ class Optimizer:
         """``grad_clip`` on the tape's gradients, by the reference's
         eager formulas."""
         from ..dygraph.base import VarBase
-        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
-                           GradientClipByValue)
-        gc = self._grad_clip
-        gs = [g._value for _, g in params_grads]
-        if isinstance(gc, GradientClipByGlobalNorm):
-            norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
-            scale = gc.clip_norm / torch.clamp(norm, min=gc.clip_norm)
-            gs = [g * scale for g in gs]
-        elif isinstance(gc, GradientClipByNorm):
-            out = []
-            for g in gs:
-                n = torch.sqrt(torch.sum(torch.square(g)))
-                out.append(torch.where(n > gc.clip_norm,
-                                       g * (gc.clip_norm / n), g))
-            gs = out
-        elif isinstance(gc, GradientClipByValue):
-            gs = [torch.clamp(g, gc.min, gc.max) for g in gs]
-        else:
+        from .clip import clip_eager
+        gs = clip_eager(self._grad_clip, [g._value for _, g in params_grads])
+        if gs is None:
             return params_grads
         return [(p, VarBase(g, stop_gradient=True))
                 for (p, _), g in zip(params_grads, gs)]

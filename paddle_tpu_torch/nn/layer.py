@@ -1,7 +1,9 @@
 """paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``: the
 activations, the flatten, pooling and batch-norm layers the vision models
-run, the transformer encoder stack BERT runs and the encoder-decoder
-``Transformer`` NMT runs).
+run, the transformer encoder stack BERT runs, the encoder-decoder
+``Transformer`` NMT runs, and the recurrent layers: ``LSTM``, ``GRU`` and
+``SimpleRNN`` over the ``rnn_scan`` op, the three cells, and ``RNN`` and
+``BiRNN``, which take a cell over time step by step).
 
 The encoder and decoder layers always emit the fused epilogues:
 ``fused_dropout_add`` for each residual and ``fused_act_dropout`` for the
@@ -15,11 +17,13 @@ from __future__ import annotations
 import copy
 import math
 
+import torch
+
 from ..dygraph.layers import Layer, LayerList
 from ..dygraph.nn import Linear, LayerNorm, BatchNorm
 from ..fluid import layers as L
 from ..fluid.framework import _dygraph_tracer
-from ..fluid.layer_helper import emit_op
+from ..fluid.layer_helper import LayerHelper, emit_op
 
 
 def _act_layer(fname):
@@ -311,3 +315,218 @@ class Transformer(Layer):
                 memory_mask=None):
         memory = self.encoder(src, src_mask)
         return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+
+# --- RNN ---------------------------------------------------------------------
+def _zero_state(shape, like):
+    """A float32 zero state on ``like``'s device, off the tape."""
+    from ..dygraph.base import VarBase
+    return VarBase(torch.zeros(shape, dtype=torch.float32,
+                               device=like._value.device),
+                   stop_gradient=True)
+
+
+class _RNNBase(Layer):
+    """A whole-sequence RNN: one ``rnn_scan`` op (fluid/layers/rnn.py)
+    over all layers and directions.  ``direction="bidirect"`` adds a
+    reverse pass a layer and concatenates both directions' outputs (the
+    cuDNN layout).  ``dropout`` is taken and not applied between the
+    stacked layers, as in the reference."""
+    MODE = "LSTM"
+    GATES = 4
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 direction="forward", dropout=0.0, time_major=False,
+                 weight_ih_attr=None, weight_hh_attr=None, bias_ih_attr=None,
+                 bias_hh_attr=None):
+        super().__init__()
+        helper = LayerHelper(self.MODE.lower())
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.time_major = time_major
+        self.ndir = 2 if direction in ("bidirect", "bidirectional") else 1
+        self._weights = []
+        g = self.GATES
+        for layer in range(num_layers):
+            in_d = input_size if layer == 0 else hidden_size * self.ndir
+            for d in range(self.ndir):
+                wi = helper.create_parameter(weight_ih_attr,
+                                             [g * hidden_size, in_d], None)
+                wh = helper.create_parameter(weight_hh_attr,
+                                             [g * hidden_size, hidden_size],
+                                             None)
+                bi = helper.create_parameter(bias_ih_attr, [g * hidden_size],
+                                             None, is_bias=True)
+                bh = helper.create_parameter(bias_hh_attr, [g * hidden_size],
+                                             None, is_bias=True)
+                for i, w in enumerate((wi, wh, bi, bh)):
+                    self.add_parameter(f"l{layer}d{d}_{i}", w)
+                self._weights += [wi, wh, bi, bh]
+
+    def forward(self, inputs, initial_states=None):
+        if self.time_major:
+            inputs = L.transpose(inputs, [1, 0, 2])
+        if initial_states is None:
+            z = _zero_state((self.num_layers * self.ndir, inputs.shape[0],
+                             self.hidden_size), inputs)
+            states = [z, z.clone()] if self.MODE == "LSTM" else [z]
+        else:
+            states = (list(initial_states)
+                      if isinstance(initial_states, (list, tuple))
+                      else [initial_states])
+        outs = _dygraph_tracer().trace_op(
+            "rnn_scan",
+            {"Input": [inputs], "WeightList": self._weights,
+             "PreState": states},
+            {"Out": [None]},
+            {"mode": self.MODE, "num_layers": self.num_layers,
+             "bidirectional": self.ndir == 2})
+        out = outs["Out"][0]
+        if self.time_major:
+            out = L.transpose(out, [1, 0, 2])
+        st = outs["State"]
+        if self.MODE == "LSTM":
+            return out, (st[0], st[1])
+        return out, st[0]
+
+
+class LSTM(_RNNBase):
+    MODE = "LSTM"
+    GATES = 4
+
+
+class GRU(_RNNBase):
+    MODE = "GRU"
+    GATES = 3
+
+
+class SimpleRNN(_RNNBase):
+    GATES = 1
+
+    # the reference's positional order: activation before direction
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 activation="tanh", direction="forward", time_major=False,
+                 dropout=0.0, **kw):
+        self.MODE = "RNN_RELU" if activation == "relu" else "RNN_TANH"
+        super().__init__(input_size, hidden_size, num_layers, direction,
+                         dropout, time_major, **kw)
+
+
+# --- cells and the runners that take any cell over time ----------------------
+class _CellBase(Layer):
+    GATES = 1
+
+    def __init__(self, input_size, hidden_size, weight_ih_attr=None,
+                 weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None):
+        super().__init__()
+        helper = LayerHelper(type(self).__name__.lower())
+        g = self.GATES
+        self.input_size, self.hidden_size = input_size, hidden_size
+        self.weight_ih = helper.create_parameter(
+            weight_ih_attr, [g * hidden_size, input_size], None)
+        self.weight_hh = helper.create_parameter(
+            weight_hh_attr, [g * hidden_size, hidden_size], None)
+        self.bias_ih = helper.create_parameter(
+            bias_ih_attr, [g * hidden_size], None, is_bias=True)
+        self.bias_hh = helper.create_parameter(
+            bias_hh_attr, [g * hidden_size], None, is_bias=True)
+
+    def get_initial_states(self, batch_ref):
+        z = _zero_state((batch_ref.shape[0], self.hidden_size), batch_ref)
+        return (z, z.clone()) if isinstance(self, LSTMCell) else z
+
+    def _gates(self, x, h):
+        gi = L.matmul(x, self.weight_ih, transpose_y=True) + self.bias_ih
+        gh = L.matmul(h, self.weight_hh, transpose_y=True) + self.bias_hh
+        return gi, gh
+
+
+class SimpleRNNCell(_CellBase):
+    GATES = 1
+
+    def __init__(self, input_size, hidden_size, activation="tanh", **kw):
+        super().__init__(input_size, hidden_size, **kw)
+        self._act = activation
+
+    def forward(self, inputs, states=None):
+        h = states if states is not None \
+            else self.get_initial_states(inputs)
+        gi, gh = self._gates(inputs, h)
+        out = L.relu(gi + gh) if self._act == "relu" else L.tanh(gi + gh)
+        return out, out
+
+
+class LSTMCell(_CellBase):
+    GATES = 4
+
+    def forward(self, inputs, states=None):
+        h, c = states if states is not None \
+            else self.get_initial_states(inputs)
+        gi, gh = self._gates(inputs, h)
+        i, f, gg, o = L.split(gi + gh, 4, dim=-1)
+        c2 = L.sigmoid(f) * c + L.sigmoid(i) * L.tanh(gg)
+        h2 = L.sigmoid(o) * L.tanh(c2)
+        return h2, (h2, c2)
+
+
+class GRUCell(_CellBase):
+    GATES = 3
+
+    def forward(self, inputs, states=None):
+        h = states if states is not None \
+            else self.get_initial_states(inputs)
+        gi, gh = self._gates(inputs, h)
+        ir, iu, ic = L.split(gi, 3, dim=-1)
+        hr, hu, hc = L.split(gh, 3, dim=-1)
+        r = L.sigmoid(ir + hr)
+        u = L.sigmoid(iu + hu)
+        c = L.tanh(ic + r * hc)
+        h2 = u * h + (1.0 - u) * c
+        return h2, h2
+
+
+class RNN(Layer):
+    """Any cell over time, one step at a time (the fused ``LSTM``,
+    ``GRU`` and ``SimpleRNN`` run the whole sequence in one op)."""
+
+    def __init__(self, cell, is_reverse=False, time_major=False):
+        super().__init__()
+        self.cell = cell
+        self.is_reverse = is_reverse
+        self.time_major = time_major
+
+    def forward(self, inputs, initial_states=None):
+        if self.time_major:
+            inputs = L.transpose(inputs, [1, 0, 2])
+        steps = inputs.shape[1]
+        states = initial_states if initial_states is not None \
+            else self.cell.get_initial_states(inputs)
+        order = range(steps - 1, -1, -1) if self.is_reverse \
+            else range(steps)
+        outs = [None] * steps
+        for t in order:
+            xt = L.squeeze(L.slice(inputs, axes=[1], starts=[t],
+                                   ends=[t + 1]), [1])
+            outs[t], states = self.cell(xt, states)
+        out = L.stack(outs, axis=1)
+        if self.time_major:
+            out = L.transpose(out, [1, 0, 2])
+        return out, states
+
+
+class BiRNN(Layer):
+    """A forward and a reverse cell, their outputs concatenated."""
+
+    def __init__(self, cell_fw, cell_bw, time_major=False):
+        super().__init__()
+        self.rnn_fw = RNN(cell_fw, is_reverse=False, time_major=time_major)
+        self.rnn_bw = RNN(cell_bw, is_reverse=True, time_major=time_major)
+
+    def forward(self, inputs, initial_states=None):
+        fw_states, bw_states = (initial_states if initial_states is not None
+                                else (None, None))
+        out_f, st_f = self.rnn_fw(inputs, fw_states)
+        out_b, st_b = self.rnn_bw(inputs, bw_states)
+        # both runners give batch-first outputs: features are axis 2
+        return L.concat([out_f, out_b], axis=2), (st_f, st_b)

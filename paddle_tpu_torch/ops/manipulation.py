@@ -124,6 +124,44 @@ def _concat(ins, attrs, ctx):
     return {"Out": [torch.cat(list(ins["X"]), dim=axis)]}
 
 
+@register_op("split")
+def _split(ins, attrs, ctx):
+    """``num`` equal parts, or ``sections`` (one of them -1: the rest)
+    along ``axis``."""
+    x = _x(ins)
+    axis = attrs.get("axis", 0)
+    sections = list(attrs.get("sections", []))
+    if not sections:
+        num = attrs.get("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: dim {x.shape[axis]} of axis {axis} "
+                             f"is not divisible into {num} parts")
+        sections = [x.shape[axis] // num] * num
+    rest = x.shape[axis] - sum(s for s in sections if s >= 0)
+    sections = [rest if s < 0 else s for s in sections]
+    return {"Out": list(torch.split(x, sections, dim=axis))}
+
+
+@register_op("stack")
+def _stack(ins, attrs, ctx):
+    return {"Y": [torch.stack(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
+@register_op("fill_any_like")
+def _fill_any_like(ins, attrs, ctx):
+    """``value`` in X's shape, in ``dtype`` (X's when unset or -1)."""
+    x = _x(ins)
+    dt = attrs.get("dtype", None)
+    dtype = torch_dtype(dt) if dt not in (None, -1) else x.dtype
+    return {"Out": [torch.full_like(x, attrs.get("value", 0.0),
+                                    dtype=dtype)]}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ins, attrs, ctx):
+    return {"Out": [torch.zeros_like(_x(ins))]}
+
+
 @register_op("gather", nondiff_inputs=("Index",))
 def _gather(ins, attrs, ctx):
     """Rows (or slices along ``axis``) of X at the int32/int64 Index,

@@ -1,6 +1,7 @@
-"""Fused compositions (counterpart of ``paddle_tpu/ops/misc_ops.py`` and
-``paddle_tpu/ops/fused_extra_ops.py``): the two ops the pairwise fusion
-passes make, each the plain composition of its parts."""
+"""Fused compositions and optimizer variants (counterpart of
+``paddle_tpu/ops/misc_ops.py`` and ``paddle_tpu/ops/fused_extra_ops.py``):
+the two ops the pairwise fusion passes make, each the plain composition
+of its parts, and the ``adamax`` update."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,23 @@ _UNARY = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
           "identity": lambda v: v, "": lambda v: v}
 _BINARY = {"elementwise_add": torch.add, "elementwise_mul": torch.mul,
            "elementwise_sub": torch.sub}
+
+
+@register_op("adamax", differentiable=False)
+def _adamax(ins, attrs, ctx):
+    """Adam under the infinity norm: ``u = max(b2·u, |g|)``, the step
+    bias-corrected by ``Beta1Pow`` (which the caller advances)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m, u = ins["Moment"][0], ins["InfNorm"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    b1p = ins["Beta1Pow"][0].reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m2 = b1 * m + (1 - b1) * g
+    u2 = torch.maximum(b2 * u, torch.abs(g))
+    p2 = p - (lr / (1 - b1p)) * m2 / (u2 + eps)
+    return {"ParamOut": [p2], "MomentOut": [m2], "InfNormOut": [u2]}
 
 
 @register_op("fused_elemwise_activation")

@@ -32,9 +32,11 @@ apart, so ``torch.func.grad`` and ``torch.func.vjp`` can use it) that
 saves the seed (and ``x`` for act-dropout) and whose backward is the
 kernel again: dropout's and dropout-add's ``dx`` is the dropout kernel
 applied to ``g``, the residual's cotangent is ``g``, act-dropout's is its
-backward kernel.  The backward launches under ``torch.no_grad()``: under
-``torch.func`` the saved tensors are wrapped, and an op whose inputs
-require grad would otherwise re-enter autograd.  The cases the reference
+backward kernel.  The ``dropout`` op also carries that gradient as its
+``custom_grad``, so the tape and a static backward launch the kernel on
+the cotangent and run no forward again.  The backward launches under
+``torch.no_grad()``: under ``torch.func`` the saved tensors are wrapped,
+and an op whose inputs require grad would otherwise re-enter autograd.  The cases the reference
 also keeps off its kernels stay plain on every device: ``is_test``,
 ``rate <= 0``, ``rate >= 1``, and a residual whose shape differs from x.
 """
@@ -321,7 +323,33 @@ def _dropout_common(attrs, ctx):
     return p, is_test, upscale
 
 
-@register_op("dropout", stateful_rng=True, nondiff_outputs=("Mask",))
+def _dropout_grad(ins, outs, out_grads, attrs, ctx):
+    """dX without running the forward again: the dropout kernel on the
+    cotangent, its mask regenerated from the op's seed (what
+    ``_Dropout.backward`` launches), or the cotangent scaled as the
+    forward's plain cases scale X.  A vjp over the lowering would launch
+    the forward kernel and the mask once more in every backward."""
+    x = ins["X"][0]
+    g = out_grads.get("Out")
+    if g is None:
+        return {"X": [torch.zeros_like(x)]}
+    g = g.to(x.dtype)
+    p = attrs.get("dropout_prob", 0.5)
+    upscale = (attrs.get("dropout_implementation", "downgrade_in_infer")
+               == "upscale_in_train")
+    if attrs.get("is_test", False) or ctx.is_test:
+        return {"X": [g if upscale else g * (1.0 - p)]}
+    if p <= 0.0:
+        return {"X": [g]}
+    if p >= 1.0:
+        return {"X": [torch.zeros_like(g)]}
+    k0, k1 = _op_key(attrs, ctx)
+    return {"X": [_dropout_launch(g.contiguous(), k0, k1, _threshold_for(p),
+                                  _scale_for(p, upscale))]}
+
+
+@register_op("dropout", stateful_rng=True, nondiff_outputs=("Mask",),
+             custom_grad=_dropout_grad)
 def _dropout(ins, attrs, ctx):
     x = ins["X"][0]
     p = attrs.get("dropout_prob", 0.5)

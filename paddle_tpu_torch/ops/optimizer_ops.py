@@ -1,10 +1,15 @@
-"""Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
-SGD, Adam, Momentum and the bucketed forms of the last two; the other
-updates come with their slices).
+"""Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``:
+SGD, Momentum, Adam, AdamW, Adagrad, RMSProp, Lamb and Adadelta, and the
+bucketed forms of Adam and Momentum; Adamax is in ``misc_ops.py``, as in
+the reference).
 
 Each op consumes (param, grad, states...) and returns new values; the
 executor writes the outputs back to the scope under the same names.  All
-are non-differentiable.
+are non-differentiable.  SGD, Momentum, Adam, AdamW and Lamb take a
+``MasterParam``, as the reference's do: the update then computes on that
+float32 master, with the gradient widened to it, and ``ParamOut`` is the
+new master rounded to the parameter's dtype (``MasterParamOut`` the
+master itself).
 
 ``fused_adam`` is what the ``fuse_optimizer`` pass makes of a run of
 ``adam`` ops: one op per bucket.  On the card it is one call of the
@@ -40,6 +45,33 @@ def _p(ins, slot):
     return ins[slot][0]
 
 
+def _mp_param(ins):
+    """(param to update, grad, master or None): with a ``MasterParam``
+    the update runs on the float32 master and the gradient is widened to
+    it, so nothing accumulates in a low precision."""
+    master = ins.get("MasterParam", [None])[0]
+    p = master if master is not None else _p(ins, "Param")
+    g = _p(ins, "Grad")
+    if master is not None and g.dtype != master.dtype:
+        g = g.to(master.dtype)
+    return p, g, master
+
+
+def _mp_outs(outs, ins, master_new):
+    """``ParamOut`` the new master in the parameter's dtype,
+    ``MasterParamOut`` the master."""
+    outs["ParamOut"] = [master_new.to(_p(ins, "Param").dtype)]
+    outs["MasterParamOut"] = [master_new]
+    return outs
+
+
+def _param_outs(outs, ins, p_new, master):
+    if master is not None:
+        return _mp_outs(outs, ins, p_new)
+    outs["ParamOut"] = [p_new]
+    return outs
+
+
 def _adam_moments(m, v, g, b1, b2):
     m_new = b1 * m + (1 - b1) * g
     v_new = b2 * v + (1 - b2) * (g * g)
@@ -68,24 +100,25 @@ def _l2_coeff(attrs):
 
 @register_op("sgd", differentiable=False)
 def _sgd(ins, attrs, ctx):
-    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    p, g, master = _mp_param(ins)
     lr = _p(ins, "LearningRate").reshape(())
-    return {"ParamOut": [p - lr * g]}
+    return _param_outs({}, ins, p - lr * g, master)
 
 
 @register_op("momentum", differentiable=False)
 def _momentum(ins, attrs, ctx):
-    p, g, v = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "Velocity")
+    p, g, master = _mp_param(ins)
+    v = _p(ins, "Velocity")
     lr = _p(ins, "LearningRate").reshape(())
     p_new, v_new = _momentum_update(p, g, v, lr, attrs.get("mu", 0.9),
                                     _l2_coeff(attrs),
                                     attrs.get("use_nesterov", False))
-    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
+    return _param_outs({"VelocityOut": [v_new]}, ins, p_new, master)
 
 
 @register_op("adam", differentiable=False)
 def _adam(ins, attrs, ctx):
-    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    p, g, master = _mp_param(ins)
     m, v = _p(ins, "Moment1"), _p(ins, "Moment2")
     b1p = _p(ins, "Beta1Pow").reshape(())
     b2p = _p(ins, "Beta2Pow").reshape(())
@@ -95,10 +128,95 @@ def _adam(ins, attrs, ctx):
     eps = attrs.get("epsilon", 1e-8)
     m_new, v_new = _adam_moments(m, v, g, b1, b2)
     p_new = p - _lr_t(lr, b1p, b2p) * m_new / (torch.sqrt(v_new) + eps)
-    return {"ParamOut": [p_new], "Moment1Out": [m_new],
-            "Moment2Out": [v_new],
-            "Beta1PowOut": [(b1p * b1).reshape(1)],
-            "Beta2PowOut": [(b2p * b2).reshape(1)]}
+    return _param_outs({"Moment1Out": [m_new], "Moment2Out": [v_new],
+                        "Beta1PowOut": [(b1p * b1).reshape(1)],
+                        "Beta2PowOut": [(b2p * b2).reshape(1)]},
+                       ins, p_new, master)
+
+
+@register_op("adamw", differentiable=False)
+def _adamw(ins, attrs, ctx):
+    """Adam, then the decoupled weight decay ``lr · coeff · p`` taken
+    against the parameter (or master) before the update."""
+    p, _, master = _mp_param(ins)
+    coeff = attrs.get("coeff", 0.01)
+    lr = _p(ins, "LearningRate").reshape(())
+    out = _adam(ins, attrs, ctx)
+    if not attrs.get("with_decay", True):
+        return out
+    if master is not None:
+        return _mp_outs(out, ins, out["MasterParamOut"][0] - lr * coeff * p)
+    out["ParamOut"] = [out["ParamOut"][0] - lr * coeff * p]
+    return out
+
+
+@register_op("adagrad", differentiable=False)
+def _adagrad(ins, attrs, ctx):
+    p, g, mom = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "Moment")
+    lr = _p(ins, "LearningRate").reshape(())
+    eps = attrs.get("epsilon", 1e-6)
+    mom_new = mom + g * g
+    return {"ParamOut": [p - lr * g / (torch.sqrt(mom_new) + eps)],
+            "MomentOut": [mom_new]}
+
+
+@register_op("rmsprop", differentiable=False)
+def _rmsprop(ins, attrs, ctx):
+    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    ms, mom = _p(ins, "MeanSquare"), _p(ins, "Moment")
+    lr = _p(ins, "LearningRate").reshape(())
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mu = attrs.get("momentum", 0.0)
+    ms_new = rho * ms + (1 - rho) * (g * g)
+    if attrs.get("centered", False):
+        mg_new = rho * _p(ins, "MeanGrad") + (1 - rho) * g
+        mom_new = mu * mom + lr * g / torch.sqrt(ms_new - mg_new * mg_new
+                                                 + eps)
+        return {"ParamOut": [p - mom_new], "MeanSquareOut": [ms_new],
+                "MomentOut": [mom_new], "MeanGradOut": [mg_new]}
+    mom_new = mu * mom + lr * g / torch.sqrt(ms_new + eps)
+    return {"ParamOut": [p - mom_new], "MeanSquareOut": [ms_new],
+            "MomentOut": [mom_new]}
+
+
+@register_op("lamb", differentiable=False)
+def _lamb(ins, attrs, ctx):
+    """Adam's moments, the update direction ``r`` with weight decay, and
+    the layer's trust ratio ``|p| / |r|`` (1 where either norm is 0)."""
+    p, g, master = _mp_param(ins)
+    m, v = _p(ins, "Moment1"), _p(ins, "Moment2")
+    b1p = _p(ins, "Beta1Pow").reshape(())
+    b2p = _p(ins, "Beta2Pow").reshape(())
+    lr = _p(ins, "LearningRate").reshape(())
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    m_new, v_new = _adam_moments(m, v, g, b1, b2)
+    r = (m_new / (1 - b1p)) / (torch.sqrt(v_new / (1 - b2p)) + eps) + wd * p
+    p_norm = torch.sqrt(torch.sum(p * p))
+    r_norm = torch.sqrt(torch.sum(r * r))
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        torch.ones_like(p_norm))
+    return _param_outs({"Moment1Out": [m_new], "Moment2Out": [v_new],
+                        "Beta1PowOut": [(b1p * b1).reshape(1)],
+                        "Beta2PowOut": [(b2p * b2).reshape(1)]},
+                       ins, p - lr * ratio * r, master)
+
+
+@register_op("adadelta", differentiable=False)
+def _adadelta(ins, attrs, ctx):
+    """The ratio of the running RMS of updates to that of gradients."""
+    p, g = _p(ins, "Param"), _p(ins, "Grad")
+    avg_sq_g = _p(ins, "AvgSquaredGrad")
+    avg_sq_u = _p(ins, "AvgSquaredUpdate")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    new_g = rho * avg_sq_g + (1 - rho) * g * g
+    update = -torch.sqrt(avg_sq_u + eps) / torch.sqrt(new_g + eps) * g
+    new_u = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": [p + update], "AvgSquaredGradOut": [new_g],
+            "AvgSquaredUpdateOut": [new_u]}
 
 
 # ---------------------------------------------------------------------------

@@ -332,3 +332,27 @@ def test_build_strategy_runs_the_reference_passes(embed):
     assert names == ["constant_fold", "fuse_bn_act", "fuse_optimizer",
                      "prune_identity", "amp_bf16", "prune_redundant_casts",
                      "dce"]
+
+
+DYGRAPH_LAYER_CASES = {
+    "concat": lambda L, a, b: L.concat([a, b], axis=1),
+    "sigmoid_cross_entropy_with_logits":
+        lambda L, a, b: L.sigmoid_cross_entropy_with_logits(a, b * 0 + 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DYGRAPH_LAYER_CASES))
+def test_dygraph_layer_returns_its_output_as_the_reference(case):
+    """``fluid.layers.concat`` and ``sigmoid_cross_entropy_with_logits``
+    returned the static output, None, under a dygraph tracer; WideDeep,
+    DeepFM and SkipGram call both eagerly."""
+    rng = np.random.RandomState(0)
+    a, b = (rng.randn(3, 4).astype("float32") for _ in range(2))
+    with jdy.guard():
+        want = np.asarray(DYGRAPH_LAYER_CASES[case](
+            JL, jdy.to_variable(a), jdy.to_variable(b)).numpy())
+    with tdy.guard(tfluid.CPUPlace()):
+        got = DYGRAPH_LAYER_CASES[case](TL, tdy.to_variable(a),
+                                        tdy.to_variable(b))
+        assert got is not None
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)

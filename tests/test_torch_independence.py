@@ -62,7 +62,11 @@ def test_import_leaves_jax_and_reference_out():
     assert "paddle_tpu_torch.vision.models" in report["modules"]
     for m in ("distributed.ps.box", "distributed.ps.table",
               "distributed.trainer", "native", "fluid.dataset",
-              "fluid.async_pipeline", "fluid.passes.amp", "utils.prefetch"):
+              "fluid.async_pipeline", "fluid.passes.amp", "utils.prefetch",
+              "optimizer.lr", "dygraph.learning_rate_scheduler",
+              "dygraph.checkpoint", "dygraph.rnn", "amp.auto_cast",
+              "amp.grad_scaler", "fluid.layers.rnn", "models.language",
+              "models.ctr"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -1293,3 +1293,71 @@ def test_box_cache_gradient_is_the_same_bits_every_run(cuda, rows, ids):
         0, idx.reshape(-1).cpu(), cot.reshape(-1, 16).cpu())
     err = (a.cpu() - host).abs().max().item()
     assert err <= 1e-6 * host.abs().max().item(), err
+
+
+# the PTB LM step's shape (chip_smoke phase 4l): [20, 35, 1500], rate 0.65
+PTB_SHAPE, PTB_RATE = (20, 35, 1500), 0.65
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("impl", ["downgrade_in_infer", "upscale_in_train"])
+def test_dropout_kernels_at_the_ptb_shape_equal_plain(cuda, dtype, impl):
+    """dropout, its mask and its backward (the dropout op's own gradient,
+    the forward kernel on the cotangent) at the PTB step's shape:
+    ``torch.equal`` to the plain Philox versions, kept values unscaled
+    under ``downgrade_in_infer``, the kept share within 6 sigma."""
+    from paddle_tpu_torch.ops import nn_ops
+    x, g, _ = _dropout_inputs(cuda, PTB_SHAPE, dtype, seed=3)
+    seed = 0x0F1E_2D3C_4B5A_6978
+    k0, k1 = nn_ops._key_words(seed)
+    upscale = impl == "upscale_in_train"
+    thr = nn_ops._threshold_for(PTB_RATE)
+    scale = nn_ops._scale_for(PTB_RATE, upscale)
+    counted = (cuda_kernels.fused_dropout, cuda_kernels.dropout_mask)
+    before = [f.launches for f in counted]
+    ctx = LoweringContext(cuda, base_seed=7)
+    attrs = {"dropout_prob": PTB_RATE, "op_seed": 0,
+             "dropout_implementation": impl}
+    outs = get_op("dropout").fn({"X": [x]}, attrs, ctx)
+    dx = get_op("dropout").custom_grad({"X": [x]}, None, {"Out": g},
+                                       attrs, ctx)["X"][0]
+    torch.cuda.synchronize()
+    assert [f.launches for f in counted] == [before[0] + 2, before[1] + 1]
+    o0, o1 = nn_ops._key_words(ctx.seed_for(0))
+    keep = nn_ops._reference_keep(x.shape, o0, o1, thr, x.device)
+    out, mask = outs["Out"][0], outs["Mask"][0]
+    assert torch.equal(mask, keep.to(torch.uint8))
+    assert torch.equal(out, nn_ops._reference_dropout(x, o0, o1, thr, scale))
+    assert torch.equal(dx, nn_ops._reference_dropout(g, o0, o1, thr, scale))
+    if not upscale:
+        assert torch.equal(out[keep], x[keep])
+    n = x.numel()
+    kept = int(mask.sum())
+    assert abs(kept - n * (1 - PTB_RATE)) < 6 * (n * PTB_RATE
+                                                 * (1 - PTB_RATE)) ** 0.5
+    # the kernel straight, as phase 3e calls it
+    assert torch.equal(cuda_kernels.fused_dropout(x, seed, thr, scale),
+                       nn_ops._reference_dropout(x, k0, k1, thr, scale))
+
+
+def test_ptb_step_on_the_tape_launches_each_dropout_kernel_once(cuda):
+    """A small PtbLm training step on the card's tape: three dropout
+    forwards, three masks and three backwards, none of the forwards run
+    again by the backward."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import PtbLm
+    counted = (cuda_kernels.fused_dropout, cuda_kernels.dropout_mask)
+    with dybase.guard(fluid.CUDAPlace(0)):
+        model = PtbLm(vocab_size=100, hidden_size=32, num_layers=2,
+                      dropout=0.65)
+        ids = torch.randint(0, 100, (4, 35), device=cuda)
+        before = [f.launches for f in counted]
+        loss = model.loss(model(dybase.to_variable(ids)),
+                          dybase.to_variable(ids))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counted, before)] == [6, 3]
+        assert all(torch.isfinite(p.gradient_var).all()
+                   for p in model.parameters())
