@@ -451,6 +451,36 @@ DYCTR_BATCH, DYCTR_WARMUP, DYCTR_STEPS = 4096, 3, 10
 DYCTR_LR, DYCTR_WARMUP_STEPS = 1e-3, 5
 DYCTR_HOST = dict(DYCTR, vocab_per_slot=1000)
 DYCTR_HOST_BATCH, DYCTR_HOST_STEPS = 256, 3
+# phase 4m: the 2.0 API surface on the card.  (a) and (b): MNIST LeNet
+# as tests/test_static_e2e.py:38 builds it, as a Layer, through
+# Model.fit's static and dygraph adapters: 2 epochs of 1,024 synthetic
+# digits at batch 64, Adam 1e-3, both from one set of weights; the
+# dygraph trajectory within HAPI_LENET_RTOL of the static one a batch
+HAPI_LENET_IMAGES, HAPI_LENET_BATCH, HAPI_LENET_EPOCHS = 1024, 64, 2
+HAPI_LENET_RTOL = 1e-3
+# (c) NMT at NMT's full width (config 4, nothing cut, dropout 0.1, bf16
+# amp_level O1, paddle.optimizer.Adam 1e-4) through Model.fit's dygraph
+# adapter on the tape: HAPI_NMT_WARMUP steps, then HAPI_NMT_STEPS timed
+HAPI_NMT_WARMUP, HAPI_NMT_STEPS, HAPI_NMT_LR = 3, 20, 1e-4
+# launches per Model.fit step, from the code: on the tape each op's
+# backward is generic_grad, a vjp that reruns the op's forward unless the
+# op has a custom_grad.  fused_multihead_attention has none: its flash
+# forward launches twice (the eager forward and the vjp's rerun) and its
+# backward once, for each of the 18 attentions.  The dropout op on each
+# attention output has one: pt_dropout forward and mask, then
+# pt_dropout on the cotangent.  The 30 dropout-adds and 12 act-dropouts
+# have none: their forward kernel launches twice, and their backward
+# runs pt_dropout (dx of a dropout-add) or pt_act_dropout_bwd
+HAPI_NMT_LAUNCHES = {"flash_attention_fwd": 36, "flash_attention_bwd": 18,
+                     "fused_dropout": 66, "dropout_mask": 18,
+                     "fused_dropout_add": 60, "fused_act_dropout": 24,
+                     "fused_act_dropout_bwd": 12}
+# the card-vs-path check: the first train_batch (dropout 0, bf16 O1)
+# against phase 4i's functional step from the same weights and batch
+HAPI_NMT_LOSS_RTOL, HAPI_NMT_COSINE = 1e-4, 0.9999
+# (d) paddle.grad's gradient penalty over a small MLP
+HAPI_GP = dict(rows=64, d_in=32, hidden=64, seed=61)
+HAPI_GP_RTOL = 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
@@ -6473,6 +6503,417 @@ def _train_ptb_ctr(card):
                       "card_vs_host": ptb_ok, "ctr": ctr}
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the 2.0 API surface, hapi.Model.fit through both adapters and
+# paddle.grad
+# ---------------------------------------------------------------------------
+def _hapi_lenet():
+    """tests/test_static_e2e.py:38's LeNet as a Layer, which runs in a
+    program and on the tape alike: conv 6@3x3 pad 1 + relu + 2x2 max-pool,
+    conv 16@5x5 + relu + 2x2 max-pool, flatten, fc 120 relu, fc 10."""
+    from paddle_tpu_torch import nn
+    return nn.Sequential(
+        nn.Conv2D(1, 6, 3, padding=1), nn.ReLU(), nn.MaxPool2D(2, 2),
+        nn.Conv2D(6, 16, 5), nn.ReLU(), nn.MaxPool2D(2, 2), nn.Flatten(),
+        nn.Linear(400, 120), nn.ReLU(), nn.Linear(120, 10))
+
+
+def _hapi_digits():
+    images, labels = _blob_data(np.random.RandomState(SEED + 70),
+                                HAPI_LENET_IMAGES)
+    return [(x, y) for x, y in zip(images, labels)]
+
+
+class _StepLosses:
+    """A hapi callback that keeps each batch's loss and the host clock
+    at its end (each ``train_batch`` reads its loss, so the step is done
+    by then)."""
+
+    def __init__(self):
+        self.losses = []
+        self.ends = []
+
+    def set_model(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_train_batch_end(self, step, logs=None):
+        self.losses.append(float(logs["loss"][0]))
+        self.ends.append(time.perf_counter())
+
+
+def _hapi_fit_lenet(static, init, data, card, twin=False):
+    """LeNet through Model.fit (static or dygraph adapter) from ``init``
+    (arrays in parameter order): per-batch losses, steps/s, launches,
+    and the model."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import hapi, interop, nn, optimizer as opt
+
+    net = _hapi_lenet()
+    model = paddle.Model(
+        net, inputs=[hapi.Input([-1, 1, 28, 28], "float32", "img")],
+        labels=[hapi.Input([-1, 1], "int64", "label")])
+    model.prepare(optimizer=opt.Adam(1e-3, parameters=model.parameters()),
+                  loss=nn.CrossEntropyLoss(),
+                  metrics=[paddle.metric.Accuracy()])
+    init = list(init)
+    if twin:        # conv1's filters 0 and 1 swapped
+        init[0] = init[0][[1, 0] + list(range(2, init[0].shape[0]))]
+    interop.model_from_numpy(model, init)
+    counted = _counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    rec = _StepLosses()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(data, batch_size=HAPI_LENET_BATCH, epochs=HAPI_LENET_EPOCHS,
+              verbose=0, shuffle=False, callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    # the last epoch's steps/s: the first batch builds the programs
+    per_epoch = len(rec.ends) // HAPI_LENET_EPOCHS
+    last = rec.ends[-per_epoch - 1:]
+    rates = (len(rec.losses) / wall, (len(last) - 1) / (last[-1] - last[0]))
+    return rec.losses, rates, launches, model
+
+
+def _hapi_lenet_legs(card):
+    """(a) the static adapter, with evaluate and save/load bit for bit,
+    and (b) the dygraph adapter from the same weights, its trajectory
+    held to (a)'s, with a swapped-filters twin that must miss."""
+    import tempfile
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid.framework import (_dygraph_tracer,
+                                                  _set_dygraph_tracer)
+
+    data = _hapi_digits()
+    rng = np.random.RandomState(SEED + 71)
+    with dybase.guard(fluid.CPUPlace()):
+        shapes = [p.shape for p in _hapi_lenet().parameters()]
+    init = [(rng.randn(*s) * 0.1).astype("float32") for s in shapes]
+    prev = _dygraph_tracer()
+    _set_dygraph_tracer(None)           # a program: the static adapter
+    try:
+        with _fresh_fluid_globals():
+            t0 = time.perf_counter()
+            s_losses, s_rate, s_launch, model = _hapi_fit_lenet(
+                True, init, data, card)
+            ev = model.evaluate(data, batch_size=HAPI_LENET_BATCH,
+                                verbose=0)
+            x = np.stack([d[0] for d in data[:HAPI_LENET_BATCH]])
+            before = model.predict_batch([x])[0]
+            with tempfile.TemporaryDirectory() as d:
+                model.save(os.path.join(d, "lenet"))
+                state = model._adapter.state_dict()
+                model._adapter.set_state_dict(
+                    {k: np.zeros_like(v) for k, v in state.items()})
+                zeroed = model.predict_batch([x])[0]
+                model.load(os.path.join(d, "lenet"))
+            after = model.predict_batch([x])[0]
+            s_wall = time.perf_counter() - t0
+    finally:
+        _set_dygraph_tracer(prev)
+    steps = len(s_losses)
+    _p(f"hapi: (a) LeNet through Model.fit, static adapter: {steps} steps "
+       f"of {HAPI_LENET_BATCH} in {HAPI_LENET_EPOCHS} epochs, "
+       f"{s_rate[0]:.1f} steps/s over the fit (the programs' build at the "
+       f"first batch included), {s_rate[1]:.1f} over its last epoch; "
+       f"losses first {s_losses[0]:.5f}, last "
+       f"{s_losses[-1]:.5f}; evaluate {ev}; launches {s_launch}; "
+       f"{s_wall:.1f} s with evaluate and save/load  [{card}]")
+    _p("hapi: (a) fused_adam launches 0 a step, where phase 4g's kernel "
+       "tier has 1: Model's static adapter runs the plain train program "
+       "(it applies BuildStrategy passes only for amp_level, as the "
+       "reference's does), so no fuse_optimizer pass makes the op")
+    if not (np.isfinite(s_losses).all() and s_losses[-1] < s_losses[0]):
+        raise SystemExit("chip_smoke: the static hapi LeNet did not train")
+    if not np.array_equal(before, after) or np.array_equal(before, zeroed):
+        raise SystemExit("chip_smoke: the static hapi save/load did not "
+                         "give the predictions back bit for bit")
+    if any(s_launch.values()):
+        raise SystemExit("chip_smoke: the static hapi LeNet launched a "
+                         "kernel none of its ops has")
+    with dybase.guard(fluid.CUDAPlace(0)):
+        d_losses, d_rate, d_launch, _ = _hapi_fit_lenet(False, init, data,
+                                                        card)
+        t_losses, _, _, _ = _hapi_fit_lenet(False, init, data, card,
+                                            twin=True)
+
+    def worst(got):
+        return float(np.max(np.abs(np.subtract(got, s_losses))
+                            / np.abs(s_losses))) / HAPI_LENET_RTOL
+
+    ok, miss = worst(d_losses), worst(t_losses)
+    _p(f"hapi: (b) the same LeNet through the dygraph adapter: "
+       f"{d_rate[0]:.1f} steps/s over the fit, {d_rate[1]:.1f} over its "
+       f"last epoch, launches {d_launch}; its {steps} losses "
+       f"against the static adapter's, worst error / tolerance (rtol "
+       f"{HAPI_LENET_RTOL}) {ok:.3e}; the swapped-filters twin's "
+       f"{miss:.3e} (must be over 10)  [{card}]")
+    if ok > 1 or miss <= 10:
+        raise SystemExit("chip_smoke: the dygraph hapi LeNet's trajectory "
+                         "does not hold to the static adapter's, or the "
+                         "twin cannot be told apart")
+    return s_launch, {"static_steps_per_s": s_rate[1],
+                      "dygraph_steps_per_s": d_rate[1],
+                      "trajectory_margin": ok, "twin_margin": miss}
+
+
+class _GradTap:
+    """An optimizer stand-in for the card-vs-path check: ``step`` keeps
+    each parameter's gradient (float32, on the host) and updates
+    nothing."""
+
+    def __init__(self, params):
+        self._params = params
+        self.grads = None
+
+    def step(self):
+        self.grads = [p._grad.float().cpu().numpy() for p in self._params]
+
+    def clear_grad(self):
+        for p in self._params:
+            p.clear_gradient()
+
+
+def _hapi_nmt_check(card):
+    """The first train_batch through Model (dropout 0, bf16 O1) against
+    phase 4i's functional step from the same weights and batch: the
+    loss within HAPI_NMT_LOSS_RTOL, the whole gradient's cosine above
+    HAPI_NMT_COSINE; a twin whose labels are each shifted one id
+    (``(label + 1) % vocab``) must miss.  (Labels rolled one position
+    along the sequence are no twin: each row keeps its multiset of
+    labels, and at random weights the gradient barely moves.)"""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models import TransformerModel
+
+    tracer = _dygraph_tracer()
+    np.random.seed(SEED + 72)
+    net = TransformerModel(**dict(NMT, dropout=0.0))
+    ids = _nmt_ids(NMT_BATCH, NMT_SEQ, NMT_SEQ, NMT["tgt_vocab"],
+                   tracer.device)
+    pv, grad_fn = _nmt_grad(net)
+    tracer._amp_enabled = True
+    grads, loss = grad_fn(pv, *ids)
+    tracer._amp_enabled = False
+    want_loss = float(loss)
+    want = [g.float().cpu().numpy() for g in grads]
+    del grads, loss
+    tap = _GradTap(net.parameters())
+    model = paddle.Model(net)
+    model.prepare(optimizer=tap, loss=nn.CrossEntropyLoss(),
+                  amp_level="O1")
+    src, tgt_in, tgt_out = ids
+    got_loss = model.train_batch([src, tgt_in], [tgt_out[..., None]])[0]
+    got = tap.grads
+    twin_loss = model.train_batch(
+        [src, tgt_in], [((tgt_out + 1) % NMT["tgt_vocab"])[..., None]])[0]
+    twin = tap.grads
+    cos, norm = _cosine(got, want)
+    tcos, tnorm = _cosine(twin, want)
+    ok = {"loss": abs(got_loss - want_loss) / abs(want_loss)
+          / HAPI_NMT_LOSS_RTOL,
+          "gradient cosine": (1 - cos) / (1 - HAPI_NMT_COSINE)}
+    miss = {"loss": abs(twin_loss - want_loss) / abs(want_loss)
+            / HAPI_NMT_LOSS_RTOL,
+            "gradient cosine": (1 - tcos) / (1 - HAPI_NMT_COSINE)}
+    _p(f"hapi: (c) NMT check, first train_batch (dropout 0, bf16 O1) "
+       f"against phase 4i's functional step: losses {got_loss} and "
+       f"{want_loss}, gradient cosine {cos:.7f}, norm ratio {norm:.6f}; "
+       f"error / tolerance {ok}; the shifted-ids twin's (loss "
+       f"{twin_loss}, cosine {tcos:.5f}) {miss}  [{card}]")
+    del net, model, pv, grad_fn, want, got, twin
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: the NMT train_batch on the tape "
+                         "disagrees with the functional step")
+    if max(miss.values()) <= 10:
+        raise SystemExit("chip_smoke: the NMT hapi check cannot see "
+                         "shifted label ids")
+    return ok, miss
+
+
+def _hapi_nmt_leg(card):
+    """(c) NMT at NMT's full width through Model.fit's dygraph adapter,
+    dropout 0.1, bf16 O1, paddle.optimizer.Adam: HAPI_NMT_WARMUP steps,
+    then HAPI_NMT_STEPS timed ones with the launch counts set to 0 before
+    and read after; tokens/s, host ms a step, peak memory; then the
+    profiler's busy ms and idle share of train_batch."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer as opt
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models import TransformerModel
+
+    tracer = _dygraph_tracer()
+    np.random.seed(SEED)
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    t0 = time.perf_counter()
+    net = TransformerModel(**NMT)
+    model = paddle.Model(net)
+    model.prepare(optimizer=opt.Adam(HAPI_NMT_LR,
+                                     parameters=net.parameters()),
+                  loss=nn.CrossEntropyLoss(), amp_level="O1")
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    v = NMT["tgt_vocab"]
+    src, tgt_in, tgt_out = (rng.randint(0, v, (NMT_BATCH, NMT_SEQ))
+                            .astype("int64") for _ in range(3))
+    batch = list(zip(src, tgt_in, tgt_out[..., None]))
+    data = batch * (HAPI_NMT_WARMUP + HAPI_NMT_STEPS)
+    counted = _counted_kernels()
+    clock = {}
+
+    class _Clock(_StepLosses):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == HAPI_NMT_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counted:
+                    fn.launches = 0
+                _flash_copies_zero()
+                clock["t0"] = time.perf_counter()
+
+        def on_train_end(self, logs=None):
+            torch.cuda.synchronize()
+            clock["wall"] = time.perf_counter() - clock["t0"]
+            clock["launches"] = {fn.__name__: fn.launches
+                                 for fn in counted}
+            clock["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    rec = _Clock()
+    model.fit(data, batch_size=NMT_BATCH, epochs=1, verbose=0,
+              shuffle=False, callbacks=[rec])
+    wall = clock["wall"]
+    losses = rec.losses
+    host_ms = wall / HAPI_NMT_STEPS * 1e3
+    tok_s = NMT_ROWS * HAPI_NMT_STEPS / wall
+    _p(f"hapi: (c) NMT through Model.fit on the tape, "
+       f"TransformerModel({', '.join(f'{k}={x}' for k, x in NMT.items())})"
+       f" built in {build_s:.1f} s, batch {NMT_BATCH} of {NMT_SEQ} tokens, "
+       f"bf16 O1, Adam {HAPI_NMT_LR}: {HAPI_NMT_STEPS} timed steps in "
+       f"{wall:.3f} s, {host_ms:.2f} ms/step, {tok_s:.0f} tokens/s, peak "
+       f"memory {clock['peak']:.2f} GiB; losses "
+       f"{[round(x, 4) for x in losses]}  [{card}]")
+    want = {fn.__name__: HAPI_NMT_LAUNCHES.get(fn.__name__, 0)
+            * HAPI_NMT_STEPS for fn in counted}
+    _p(f"hapi: (c) launches in the timed steps {clock['launches']}, "
+       f"expected {want} (per step {HAPI_NMT_LAUNCHES})")
+    if clock["launches"] != want:
+        raise SystemExit("chip_smoke: the NMT Model.fit step did not run "
+                         "through every kernel as predicted")
+    _flash_copies_check("hapi nmt")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise SystemExit("chip_smoke: the NMT Model.fit losses are not "
+                         "finite or did not fall")
+    ins = [paddle.to_tensor(src), paddle.to_tensor(tgt_in)]
+    lbs = [paddle.to_tensor(tgt_out[..., None])]
+    p_host, busy, idle, n_kern, by_class = _profile(
+        lambda: model.train_batch(ins, lbs), 3)
+    _p(f"profile: NMT Model.fit step: host {p_host:.3f} ms/step, device "
+       f"busy {busy:.3f} ms/step, idle share {idle:.4f}, {n_kern:.0f} "
+       f"kernels/step  [{card}]")
+    _print_classes(by_class, "step")
+    return clock["launches"], {
+        "tokens_per_s": tok_s, "host_ms": host_ms, "busy_ms": busy,
+        "idle": idle, "peak_gib": clock["peak"], "build_s": build_s}
+
+
+def _hapi_grad_penalty(place, detach=False):
+    """A gradient penalty over a small tanh MLP through paddle.grad
+    (create_graph) and backward(): the parameters' gradients, as numpy;
+    ``detach`` takes the penalty on a detached gradient instead."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid import layers as L
+
+    rng = np.random.RandomState(SEED + HAPI_GP["seed"])
+    n, d, h = HAPI_GP["rows"], HAPI_GP["d_in"], HAPI_GP["hidden"]
+    arrays = (rng.randn(n, d), rng.randn(d, h) / np.sqrt(d),
+              0.1 * rng.randn(h), rng.randn(h, 1) / np.sqrt(h))
+    with dybase.guard(place):
+        x, w1, b1, w2 = (dybase.to_variable(a.astype("float32"))
+                         for a in arrays)
+        for v in (x, w1, b1, w2):
+            v.stop_gradient = False
+        y = L.reduce_sum(L.matmul(L.tanh(L.elementwise_add(
+            L.matmul(x, w1), b1)), w2))
+        (g,) = paddle.grad([y], [x], create_graph=not detach)
+        norm = L.sqrt(L.reduce_sum(L.square(g), dim=1))
+        L.reduce_mean(L.square(norm - 1.0)).backward()
+        return [np.zeros(a.shape, "float32") if v.gradient_var is None
+                else v.gradient_var.cpu().numpy()
+                for v, a in zip((w1, b1, w2), arrays[1:])], arrays
+
+
+def _torch_grad_penalty(arrays, device):
+    """The same penalty's parameter gradients by torch.autograd.grad's
+    double backward."""
+    import torch
+    x, w1, b1, w2 = (torch.tensor(a, dtype=torch.float32, device=device,
+                                  requires_grad=True) for a in arrays)
+    y = torch.sum(torch.tanh(x @ w1 + b1) @ w2)
+    (g,) = torch.autograd.grad(y, x, create_graph=True)
+    pen = torch.mean((torch.sqrt(torch.sum(g * g, dim=1)) - 1.0) ** 2)
+    return [t.cpu().numpy() for t in
+            torch.autograd.grad(pen, [w1, b1, w2])]
+
+
+def _hapi_grad_leg(card):
+    """(d) paddle.grad on the card: the gradient penalty's parameter
+    gradients within HAPI_GP_RTOL of torch's double backward (each
+    tensor's worst error over its largest value); the detached twin must
+    miss."""
+    from paddle_tpu_torch import fluid
+
+    place = fluid.CUDAPlace(0)
+    got, arrays = _hapi_grad_penalty(place)
+    twin, _ = _hapi_grad_penalty(place, detach=True)
+    want = _torch_grad_penalty(arrays, place.torch_device())
+
+    def err(a):
+        return max(float(np.abs(g - w).max() / np.abs(w).max())
+                   for g, w in zip(a, want)) / HAPI_GP_RTOL
+
+    ok, miss = err(got), err(twin)
+    _p(f"hapi: (d) paddle.grad gradient penalty on the card ({arrays[0].shape}"
+       f" rows, hidden {HAPI_GP['hidden']}): parameter gradients against "
+       f"torch.autograd.grad's double backward, worst error / tolerance "
+       f"(rtol {HAPI_GP_RTOL}) {ok:.3e}; the detached twin's {miss:.3e}  "
+       f"[{card}]")
+    if ok > 1 or miss <= 10:
+        raise SystemExit("chip_smoke: paddle.grad's double backward on the "
+                         "card disagrees with torch's, or the twin cannot "
+                         "be told apart")
+    return ok, miss
+
+
+def phase_hapi(card):
+    """Phase 4m: (a) LeNet through Model.fit's static adapter, (b) its
+    dygraph adapter, (c) NMT at full width through the dygraph adapter
+    (after the card-vs-path check), (d) paddle.grad's double backward.
+    Returns the launches of (c)'s timed steps and (a)'s fit, and the
+    numbers."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    lenet_launches, lenet = _hapi_lenet_legs(card)
+    with dybase.guard(fluid.CUDAPlace(0)):
+        check = _hapi_nmt_check(card)
+        nmt_launches, nmt = _hapi_nmt_leg(card)
+    grad = _hapi_grad_leg(card)
+    return {"nmt_fit": nmt_launches, "lenet_static_fit": lenet_launches,
+            "numbers": dict(lenet=lenet, nmt=nmt, check=check, grad=grad)}
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6529,6 +6970,7 @@ def main():
     mobilenet = _timed("4j train MobileNetV2", phase_train_mobilenet, card)
     ptb_launches, _ = _timed("4l train PTB LM and dygraph CTR",
                              phase_train_ptb_ctr, card)
+    hapi = _timed("4m hapi Model.fit and paddle.grad", phase_hapi, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
@@ -6676,6 +7118,12 @@ def main():
         row["ptb_launches"] = ptb_launches[row["name"]]
         if row["name"] in ptb_dropout_rows:
             row["ptb"] = ptb_dropout_rows[row["name"]]
+    # the 2.0 surface (phase 4m): launches over the NMT Model.fit's
+    # HAPI_NMT_STEPS timed steps and over the static LeNet fit
+    for row in kernels:
+        row["hapi_launches"] = {
+            "nmt_fit": hapi["nmt_fit"][row["name"]],
+            "lenet_static_fit": hapi["lenet_static_fit"][row["name"]]}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

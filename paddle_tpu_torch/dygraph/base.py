@@ -18,9 +18,13 @@ tape off, for ``torch.func.grad``: ``no_grad_ctx`` stops the tape and
 nothing else, because ``torch.func.grad`` honours ``torch.no_grad()``
 and would return no gradient under it.
 
-Not ported yet: ``grad()`` (the partial-grad engine) and its tape
-replay, ``__partial_grad__``, ``VarBase``'s operators past ``+``,
-``-`` and ``*``, and the initializers this port lacks.
+``grad()`` is the partial-grad engine: it replays the tape entries
+that feed its outputs as one pure function (``_tape_replay_fn``, each
+entry under its own recorded seed) and differentiates that with
+``torch.func.vjp``; with ``create_graph`` it records one
+``__partial_grad__`` op whose lowering is that vjp, so the tape's own
+``generic_grad`` differentiates it again (a gradient penalty's double
+backward).
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import torch
 
 from ..fluid import core
 from ..fluid.framework import (convert_dtype, torch_dtype, unique_name,
-                               _set_dygraph_tracer, _dygraph_tracer)
-from ..ops.registry import get_op, LoweringContext, _mix
+                               _set_dygraph_tracer, _dygraph_tracer,
+                               _current_expected_place)
+from ..ops.registry import get_op, register_op, LoweringContext, _mix
 
 
 def _device():
@@ -155,6 +160,74 @@ class VarBase:
     def __rmul__(self, o):
         return self._binary("elementwise_mul", o, True)
 
+    def __truediv__(self, o):
+        return self._binary("elementwise_div", o)
+
+    def __rtruediv__(self, o):
+        return self._binary("elementwise_div", o, True)
+
+    def __pow__(self, o):
+        return self._binary("elementwise_pow", o)
+
+    def __rpow__(self, o):
+        return self._binary("elementwise_pow", o, True)
+
+    def __floordiv__(self, o):
+        return self._binary("elementwise_floordiv", o)
+
+    def __rfloordiv__(self, o):
+        return self._binary("elementwise_floordiv", o, True)
+
+    def __mod__(self, o):
+        return self._binary("elementwise_mod", o)
+
+    def __rmod__(self, o):
+        return self._binary("elementwise_mod", o, True)
+
+    def __gt__(self, o):
+        return self._binary("greater_than", o)
+
+    def __lt__(self, o):
+        return self._binary("less_than", o)
+
+    def __ge__(self, o):
+        return self._binary("greater_equal", o)
+
+    def __le__(self, o):
+        return self._binary("less_equal", o)
+
+    def __bool__(self):
+        """A one-value tensor's truth; anything larger is ambiguous."""
+        if self._value.numel() != 1:
+            raise ValueError(
+                "The truth value of a multi-element VarBase is ambiguous; "
+                "use .any()/.all() reductions")
+        return bool(self._value.reshape(()))
+
+    def __matmul__(self, o):
+        return _dygraph_tracer().trace_op(
+            "matmul", {"X": [self], "Y": [o]}, {"Out": [None]}, {})["Out"][0]
+
+    def __neg__(self):
+        return _dygraph_tracer().trace_op(
+            "scale", {"X": [self]}, {"Out": [None]},
+            {"scale": -1.0})["Out"][0]
+
+    def __getitem__(self, idx):
+        """A view of the value, off the tape, as the reference's."""
+        return VarBase(self._value[idx], stop_gradient=self.stop_gradient)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def reshape(self, shape):
+        return _dygraph_tracer().trace_op(
+            "reshape", {"X": [self]}, {"Out": [None]},
+            {"shape": list(shape)})["Out"][0]
 
     def __float__(self):
         return float(self._value.detach().reshape(()))
@@ -188,10 +261,12 @@ class _TapeEntry:
 
 class Tracer:
     """imperative/tracer.cc: eager dispatch and tape recording on one
-    place (``CUDAPlace(0)`` unless the caller asks for another)."""
+    place (``CUDAPlace(0)`` unless the caller, or ``paddle.set_device``,
+    names another)."""
 
     def __init__(self, place: Optional[core.Place] = None):
-        self.place = place if place is not None else core.CUDAPlace(0)
+        self.place = place if place is not None \
+            else _current_expected_place()
         self.device = self.place.torch_device()
         if self.device.type == "cuda":
             # full-precision fp32 products on the card, as the Executor
@@ -211,6 +286,12 @@ class Tracer:
         counter that every traced op and every parameter advances."""
         self._seed_ctr += 1
         return _mix(self._seed, self._seed_ctr)
+
+    def next_key(self) -> int:
+        """The reference's next folded PRNG key.  The port has no key:
+        this is the next 64-bit op seed, the one ``LoweringContext``
+        takes as ``base_seed`` (``next_seed``)."""
+        return self.next_seed()
 
     def _ctx(self, base_seed=None):
         return LoweringContext(
@@ -354,8 +435,25 @@ def materialize_initializer(init, shape, dtype, seed: int, device):
             init = I.UniformInitializer(-lim, lim)
         else:
             init = I.NormalInitializer(0.0, float(np.sqrt(2.0 / (fi + fo))))
+    if isinstance(init, I.MSRAInitializer):
+        fi = init.fan_in or I._fans(shape)[0]
+        if init.uniform:
+            lim = float(np.sqrt(6.0 / fi))
+            init = I.UniformInitializer(-lim, lim)
+        else:
+            init = I.NormalInitializer(0.0, float(np.sqrt(2.0 / fi)))
     if isinstance(init, I.ConstantInitializer):
         return torch.full(shape, init.value, dtype=dtype, device=device)
+    if isinstance(init, (I.NumpyArrayInitializer, I.BilinearInitializer)):
+        return torch.from_numpy(np.array(init.array(shape), "float64")) \
+            .reshape(shape).to(device=device, dtype=dtype)
+    if isinstance(init, I.TruncatedNormalInitializer):
+        from ..ops.registry import get_op
+        out = get_op("truncated_gaussian_random").fn(
+            {}, {"shape": list(shape), "mean": init.loc, "std": init.scale,
+                 "dtype": convert_dtype(dtype), "op_seed": 1},
+            LoweringContext(device=device, base_seed=seed))["Out"][0]
+        return out
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if isinstance(init, I.UniformInitializer):
@@ -365,6 +463,179 @@ def materialize_initializer(init, shape, dtype, seed: int, device):
         n = torch.randn(shape, generator=gen, device=device)
         return (n * init.scale + init.loc).to(dtype)
     raise TypeError(f"unsupported initializer {init!r} in dygraph")
+
+
+# ---------------------------------------------------------------------------
+# the partial-grad engine (imperative/partial_grad_engine.cc)
+# ---------------------------------------------------------------------------
+def _src_root(v):
+    """The VarBase an autocast copy came from (itself if none)."""
+    while getattr(v, "_src", None) is not None:
+        v = v._src
+    return v
+
+
+def _tape_replay_fn(tape, inputs, outputs, train_mode, device,
+                    no_grad_ids=()):
+    """A pure function ``input values -> output values`` that re-executes
+    the tape entries, each under its own recorded seed, so a dropout
+    draws the forward's mask again.  A bound input's value wins over its
+    producer (a gradient with respect to an intermediate would otherwise
+    be zero), and values whose root is in ``no_grad_ids`` are detached:
+    the reference's partial-grad engine holds ``no_grad_vars`` constant
+    even in mid-graph."""
+    bound = {id(v) for v in inputs}
+    no_grad_ids = set(no_grad_ids)
+
+    def replay(*input_vals):
+        env = {id(v): val for v, val in zip(inputs, input_vals)}
+
+        def look(v):
+            u = v
+            while u is not None:
+                if id(u) in env:
+                    val = env[id(u)]
+                    return val if val.dtype == v._value.dtype \
+                        else val.to(v._value.dtype)
+                u = getattr(u, "_src", None)
+            return v._value
+
+        for entry in tape:
+            ins = {s: [look(v) for v in vs] for s, vs in entry.ins.items()}
+            ctx = LoweringContext(device=device, base_seed=entry.key,
+                                  is_test=not train_mode)
+            outs = get_op(entry.op_type).fn(ins, entry.attrs, ctx)
+            for s, vs in entry.outs.items():
+                for v, a in zip(vs, outs.get(s, [])):
+                    if id(v) in bound:
+                        continue
+                    if id(v) in no_grad_ids \
+                            or id(_src_root(v)) in no_grad_ids:
+                        a = a.detach()
+                    env[id(v)] = a
+        return tuple(look(o) for o in outputs)
+
+    return replay
+
+
+def _slice_tape(tape, outputs):
+    """Only the entries that are ancestors of ``outputs``: ``grad`` does
+    not replay the whole tape (a loop calling it each step would do
+    quadratic work)."""
+    anc = {id(_src_root(o)) for o in outputs} | {id(o) for o in outputs}
+    keep = []
+    for entry in reversed(tape):
+        if any(id(v) in anc or id(_src_root(v)) in anc
+               for vs in entry.outs.values() for v in vs):
+            keep.append(entry)
+            for vs in entry.ins.values():
+                for v in vs:
+                    anc.add(id(v))
+                    anc.add(id(_src_root(v)))
+    keep.reverse()
+    return keep
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+         create_graph=False, only_inputs=True, allow_unused=False,
+         no_grad_vars=None):
+    """paddle.grad: d(outputs)/d(inputs), leaving every ``.grad``
+    untouched.  The kept tape is replayed as a pure function and
+    differentiated with ``torch.func.vjp``.  With ``create_graph`` the
+    gradient is itself recorded as one ``__partial_grad__`` op, whose
+    inputs are ``inputs`` and every leaf parameter the tape consumed
+    (``Params``), so a later backward reaches those too.  As in the
+    reference, ``retain_graph`` defaults to ``create_graph`` and frees
+    only the replayed entries."""
+    tracer = _dygraph_tracer()
+    if tracer is None:
+        raise RuntimeError("paddle.grad() outside dygraph mode")
+    outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
+        else [outputs]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    no_grad_ids = {id(_src_root(v)) for v in (no_grad_vars or [])}
+    if any(id(_src_root(v)) in no_grad_ids for v in inputs):
+        raise ValueError("a variable cannot be in both inputs and "
+                         "no_grad_vars")
+    tape = _slice_tape(list(tracer._tape), outputs)
+
+    # an input is used when a kept entry (an ancestor of the outputs)
+    # consumed it, or when it is one of their outputs
+    consumed = {id(_src_root(u))
+                for entry in tape for vs in entry.ins.values() for u in vs}
+    produced = {id(w) for entry in tape
+                for vs in entry.outs.values() for w in vs}
+    used = [id(_src_root(v)) in consumed or id(v) in produced
+            for v in inputs]
+    if not allow_unused and not all(used):
+        bad = [i for i, u in enumerate(used) if not u]
+        raise RuntimeError(
+            f"inputs at positions {bad} are unreachable from outputs; "
+            f"pass allow_unused=True to get None for them")
+
+    if grad_outputs is None:
+        seeds = [torch.ones_like(o._value) for o in outputs]
+    else:
+        gos = list(grad_outputs) if isinstance(grad_outputs,
+                                               (list, tuple)) \
+            else [grad_outputs]
+        if len(gos) != len(outputs):
+            raise ValueError(
+                f"grad_outputs has {len(gos)} entries but outputs has "
+                f"{len(outputs)}; their lengths must match")
+        seeds = [torch.ones_like(o._value) if g is None else g._value
+                 for o, g in zip(outputs, gos)]
+
+    if create_graph:
+        # every differentiable leaf the tape consumed rides through the
+        # op as an input, or d(grad)/d(that leaf) would be zero; leaves
+        # only (binding an intermediate would cut the chain to inputs),
+        # and no_grad_vars stay out: they are constants
+        seen = {id(v) for v in inputs}
+        params = []
+        for entry in tape:
+            for vs in entry.ins.values():
+                for v in vs:
+                    r = _src_root(v)
+                    if (not r.stop_gradient and id(r) not in seen
+                            and id(r) not in produced
+                            and id(r) not in no_grad_ids):
+                        seen.add(id(r))
+                        params.append(r)
+        replay = _tape_replay_fn(tape, inputs + params, outputs,
+                                 tracer._train_mode, tracer.device,
+                                 no_grad_ids)
+        result = list(tracer.trace_op(
+            "__partial_grad__", {"X": inputs, "Params": params},
+            {"Out": [None] * len(inputs)},
+            {"__replay__": replay, "__seeds__": seeds,
+             "__n_inputs__": len(inputs)})["Out"])
+    else:
+        replay = _tape_replay_fn(tape, inputs, outputs, tracer._train_mode,
+                                 tracer.device, no_grad_ids)
+        _, vjp = torch.func.vjp(replay, *[v._value for v in inputs])
+        result = [VarBase(g, stop_gradient=True)
+                  for g in vjp(tuple(seeds))]
+
+    if retain_graph is None:
+        retain_graph = create_graph
+    if not retain_graph:
+        # free only what this call replayed: unrelated graphs on the same
+        # tape, and the __partial_grad__ entry just recorded, survive
+        dead = {id(e) for e in tape}
+        tracer._tape = [e for e in tracer._tape if id(e) not in dead]
+    return [r if u else None for r, u in zip(result, used)] \
+        if allow_unused else result
+
+
+@register_op("__partial_grad__")
+def _partial_grad(ins, attrs, ctx):
+    """The vjp of the recorded replay at X and Params: the first
+    ``__n_inputs__`` cotangents."""
+    n = attrs.get("__n_inputs__", len(ins["X"]))
+    bind = list(ins["X"]) + list(ins.get("Params", []))
+    _, vjp = torch.func.vjp(attrs["__replay__"], *bind)
+    return {"Out": list(vjp(tuple(attrs["__seeds__"])))[:n]}
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +659,14 @@ def disable_dygraph():
     _set_dygraph_tracer(None)
 
 
-def to_variable(value, name=None, zero_copy=None):
-    """A VarBase on the tracer's device; one already is returned as is."""
+def to_variable(value, name=None, zero_copy=None, place=None):
+    """A VarBase on ``place``'s device, the tracer's when None; one
+    already is returned as is."""
     if isinstance(value, VarBase):
         return value
+    if place is not None:
+        value = torch.as_tensor(np.asarray(value) if not isinstance(
+            value, torch.Tensor) else value).to(place.torch_device())
     return VarBase(value, name=name, stop_gradient=True)
 
 
@@ -412,6 +687,8 @@ def no_grad_ctx():
 
 
 def no_grad(fn=None):
+    """A context that stops the tape, or, given a function, that
+    function run under it."""
     if fn is None:
         return no_grad_ctx()
 

@@ -232,7 +232,10 @@ class Executor:
             fetches = self._slice_true_batch(program, fetch_names, fetches,
                                              bucket, n_valid)
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            # numpy has no bfloat16: such a fetch (an AMP program's
+            # activations) comes back float32, as VarBase.numpy() gives it
+            return [(f.float() if f.dtype == torch.bfloat16 else f)
+                    .detach().cpu().numpy() for f in fetches]
         return self._lazy_fetches(fetch_names, fetches)
 
     def _lazy_fetches(self, fetch_names, fetches):

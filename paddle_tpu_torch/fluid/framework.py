@@ -91,7 +91,7 @@ class Variable:
         self.trainable = trainable
         self.op: Optional[Operator] = None   # defining op (set by append_op)
 
-    # graph-building sugar; only the elementwise ops the slices lower
+    # graph-building sugar: each operator appends its elementwise op
     def _binary(self, op_type, other, reverse=False):
         from . import layers
         other = layers.tensor._to_variable(self.block, other, self.dtype)
@@ -109,6 +109,44 @@ class Variable:
 
     def __rmul__(self, o):
         return self._binary("elementwise_mul", o, True)
+
+    def __sub__(self, o):
+        return self._binary("elementwise_sub", o)
+
+    def __rsub__(self, o):
+        return self._binary("elementwise_sub", o, True)
+
+    def __truediv__(self, o):
+        return self._binary("elementwise_div", o)
+
+    def __rtruediv__(self, o):
+        return self._binary("elementwise_div", o, True)
+
+    def __pow__(self, o):
+        return self._binary("elementwise_pow", o)
+
+    def __rpow__(self, o):
+        return self._binary("elementwise_pow", o, True)
+
+    def __floordiv__(self, o):
+        return self._binary("elementwise_floordiv", o)
+
+    def __rfloordiv__(self, o):
+        return self._binary("elementwise_floordiv", o, True)
+
+    def __mod__(self, o):
+        return self._binary("elementwise_mod", o)
+
+    def __rmod__(self, o):
+        return self._binary("elementwise_mod", o, True)
+
+    def __neg__(self):
+        from . import layers
+        return layers.scale(self, scale=-1.0)
+
+    def __matmul__(self, o):
+        from . import layers
+        return layers.matmul(self, o)
 
     @property
     def ndim(self):
@@ -458,8 +496,21 @@ def prune_ops(block, ops, targets=None, keep_state_writes=True,
 
 
 # the dtype layers give parameters created without one
-# (paddle.set_default_dtype's contract; set_default_dtype is not ported)
 _DEFAULT_DTYPE = "float32"
+_FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
+def set_default_dtype(d) -> None:
+    """The dtype layers use for parameters created without one."""
+    global _DEFAULT_DTYPE
+    try:
+        name = convert_dtype(d)
+    except (TypeError, ValueError):
+        name = str(d)
+    if name not in _FLOAT_DTYPES:
+        raise TypeError(
+            f"set_default_dtype only supports {_FLOAT_DTYPES}, got {name!r}")
+    _DEFAULT_DTYPE = name
 
 
 def get_default_dtype() -> str:
@@ -493,6 +544,24 @@ def program_guard(main_program: Program,
         yield
     finally:
         _main_program, _startup_program = prev_main, prev_startup
+
+
+# ---------------------------------------------------------------------------
+# the place entry points default to: the card unless paddle.set_device
+# named another
+# ---------------------------------------------------------------------------
+_expected_place = None
+
+
+def _set_expected_place(place) -> None:
+    global _expected_place
+    _expected_place = place
+
+
+def _current_expected_place():
+    from . import core
+    return _expected_place if _expected_place is not None \
+        else core.CUDAPlace(0)
 
 
 # ---------------------------------------------------------------------------

@@ -82,11 +82,85 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(param, block)
 
 
+class TruncatedNormalInitializer(Initializer):
+    """N(loc, scale²) cut at two standard deviations."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, param, block=None):
+        block = block or default_startup_program().global_block()
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": [param.name]},
+            attrs={"shape": list(param.shape), "dtype": param.dtype,
+                   "mean": self.loc, "std": self.scale,
+                   "op_seed": self.seed or block.program.next_op_seed()})
+
+
+class MSRAInitializer(Initializer):
+    """Kaiming (He) initialization over the fan-in (or ``fan_in``)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0,
+                 negative_slope=0.0, nonlinearity="relu"):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, param, block=None):
+        fi = self.fan_in or _fans(param.shape)[0]
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(param, block)
+        else:
+            NormalInitializer(0.0, math.sqrt(2.0 / fi), self.seed)(param,
+                                                                   block)
+
+
+def _assign_value(param, values, block):
+    block = block or default_startup_program().global_block()
+    block.append_op(
+        "assign_value", outputs={"Out": [param.name]},
+        attrs={"shape": list(param.shape), "dtype": param.dtype,
+               "fp32_values": np.asarray(values, "float64").reshape(-1)
+               .tolist()})
+
+
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling kernel of a transposed convolution."""
+
+    @staticmethod
+    def array(shape):
+        f = math.ceil(shape[3] / 2)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        w = np.zeros(shape, dtype="float32")
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            w[np.unravel_index(i, shape)] = \
+                (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        return w
+
+    def __call__(self, param, block=None):
+        _assign_value(param, self.array(param.shape), block)
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def array(self, shape=None):
+        return self.value
+
+    def __call__(self, param, block=None):
+        _assign_value(param, self.value, block)
+
+
 # fluid public aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer
 
 
 def _to_initializer(x, default=None):
@@ -97,3 +171,20 @@ def _to_initializer(x, default=None):
     if isinstance(x, (int, float)):
         return ConstantInitializer(float(x))
     raise TypeError(f"cannot convert {x!r} to an Initializer")
+
+
+_global_weight_initializer = None
+_global_bias_initializer = None
+
+
+def set_global_initializer(weight_init, bias_init=None):
+    """The initializers of parameters created without one (a parameter's
+    own ``attr.initializer`` still wins); None resets."""
+    global _global_weight_initializer, _global_bias_initializer
+    _global_weight_initializer = weight_init
+    _global_bias_initializer = bias_init
+
+
+def _global_initializer(is_bias):
+    return _global_bias_initializer if is_bias \
+        else _global_weight_initializer

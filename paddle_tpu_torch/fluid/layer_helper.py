@@ -13,7 +13,8 @@ from __future__ import annotations
 from .framework import (default_main_program, default_startup_program,
                         unique_name, in_dygraph_mode, _dygraph_tracer,
                         get_default_dtype)
-from .initializer import _to_initializer, ConstantInitializer, XavierInitializer
+from .initializer import (_to_initializer, _global_initializer,
+                          ConstantInitializer, XavierInitializer)
 from .param_attr import ParamAttr
 
 
@@ -47,8 +48,9 @@ class LayerHelper:
             f"{self.kwargs.get('name') or self.layer_type}.w"
             if not is_bias else
             f"{self.kwargs.get('name') or self.layer_type}.b")
-        init = attr.initializer or default_initializer or (
-            ConstantInitializer(0.0) if is_bias else XavierInitializer())
+        init = attr.initializer or default_initializer or \
+            _global_initializer(is_bias) or (
+                ConstantInitializer(0.0) if is_bias else XavierInitializer())
         init = _to_initializer(init)
         if in_dygraph_mode():
             return _dygraph_tracer().create_parameter(

@@ -1,7 +1,6 @@
-"""Comparison layers (counterpart of the comparison half of
-``paddle_tpu/fluid/layers/control_flow.py``; only ``less_than``, which
-the decode programs build).  ``cond``, ``while_loop`` and the tensor
-arrays are not ported yet."""
+"""Comparison and logical layers (counterpart of that half of
+``paddle_tpu/fluid/layers/control_flow.py``).  ``cond``, ``while_loop``
+and the tensor arrays are not ported yet."""
 from __future__ import annotations
 
 from ..framework import in_dygraph_mode
@@ -19,4 +18,16 @@ def _cmp(op_type, x, y, out=None):
                                                         stop_gradient=True)
     op = helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
                           outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def equal(x, y, cond=None):
+    return _cmp("equal", x, y, cond)
+
+
+def is_empty(x, name=None):
+    helper = LayerHelper("is_empty")
+    out = helper.create_variable_for_type_inference(dtype="bool")
+    op = helper.append_op("is_empty", inputs={"X": [x]},
+                          outputs={"Out": [out]}, attrs={})
     return op["Out"][0] if in_dygraph_mode() else out

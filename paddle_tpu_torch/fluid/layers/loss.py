@@ -45,3 +45,40 @@ def square_error_cost(input, label):
                           inputs={"Input": [input], "Label": [label]},
                           outputs={"Out": [out]})
     return op["Out"][0] if in_dygraph_mode() else out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("log_loss",
+                          inputs={"Predicted": [input], "Labels": [label]},
+                          outputs={"Loss": [out]},
+                          attrs={"epsilon": epsilon})
+    return op["Loss"][0] if in_dygraph_mode() else out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    res = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    stop_gradient=True)
+    op = helper.append_op("huber_loss",
+                          inputs={"X": [input], "Y": [label]},
+                          outputs={"Out": [out], "Residual": [res]},
+                          attrs={"delta": float(delta)})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("kldiv_loss",
+                          inputs={"X": [x], "Target": [target]},
+                          outputs={"Loss": [out]},
+                          attrs={"reduction": reduction})
+    return op["Loss"][0] if in_dygraph_mode() else out
+
+
+def mse_loss(input, label):
+    from . import nn
+    return nn.reduce_mean(square_error_cost(input, label))

@@ -4,6 +4,8 @@ builder appends the same op type, slots and attrs as the TPU package; under
 a dygraph tracer it runs the op eagerly and returns its output VarBase."""
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 
 from ..framework import in_dygraph_mode
@@ -105,10 +107,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     in_dim = int(np.prod(inp.shape[num_flatten_dims:]))
     w = helper.create_parameter(param_attr, [in_dim, size], inp.dtype)
     pre_bias = helper.create_variable_for_type_inference(dtype=inp.dtype)
-    helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
+    op = helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
+                          outputs={"Out": [pre_bias]},
+                          attrs={"x_num_col_dims": num_flatten_dims,
+                                 "y_num_col_dims": 1})
+    # under a tracer the bias adds to the traced product
+    pre_bias = _out(op, "Out", pre_bias)
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [size], pre_bias.dtype,
                                     is_bias=True)
@@ -126,12 +130,12 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     out = helper.create_variable_for_type_inference(dtype=dtype)
     padding_idx = -1 if padding_idx is None else (
         padding_idx if padding_idx >= 0 else size[0] + padding_idx)
-    helper.append_op("lookup_table_v2",
-                     inputs={"W": [w], "Ids": [input]},
-                     outputs={"Out": [out]},
-                     attrs={"padding_idx": padding_idx,
-                            "is_sparse": is_sparse})
-    return out
+    op = helper.append_op("lookup_table_v2",
+                          inputs={"W": [w], "Ids": [input]},
+                          outputs={"Out": [out]},
+                          attrs={"padding_idx": padding_idx,
+                                 "is_sparse": is_sparse})
+    return _out(op, "Out", out)
 
 
 def pull_box_sparse(input, size, table_name="default_box", dtype="float32"):
@@ -559,3 +563,140 @@ def topk(input, k, name=None):
     if in_dygraph_mode():
         return op["Out"][0], op["Indices"][0]
     return out, ids
+
+
+
+# ---------------------------------------------------------------------------
+# the 2.0 surface's builders (paddle.tensor, nn.functional): the generated
+# unary, elementwise and reduce families, and the layout ops
+# ---------------------------------------------------------------------------
+_this = sys.modules[__name__]
+_UNARY = [
+    "logsigmoid", "tanh_shrink", "erf", "exp", "log", "log2", "log10",
+    "log1p", "rsqrt", "abs", "ceil", "floor", "round", "reciprocal", "sign",
+    "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "softplus",
+    "softsign", "softshrink", "hard_shrink", "hard_sigmoid", "hard_swish",
+    "swish", "mish", "selu", "elu", "leaky_relu", "thresholded_relu",
+    "stanh", "silu", "logsumexp",
+]
+for _name in _UNARY:
+    def _mk(op_type):
+        def f(x, name=None, **attrs):
+            attrs.pop("inplace", None)
+            return _single_out(op_type, x, attrs)
+        f.__name__ = op_type
+        return f
+    setattr(_this, _name, _mk(_name))
+
+for _name in ["elementwise_min", "elementwise_pow", "elementwise_mod",
+              "elementwise_floordiv"]:
+    def _mk2(op_type):
+        def f(x, y, axis=-1, act=None, name=None):
+            return elementwise_op(op_type, x, y, axis, act, name)
+        f.__name__ = op_type
+        return f
+    setattr(_this, _name, _mk2(_name))
+
+for _name in ["reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+              "reduce_any"]:
+    def _mkr(op_type):
+        def f(x, dim=None, keep_dim=False, name=None):
+            return _reduce_layer(op_type, x, dim, keep_dim, name)
+        f.__name__ = op_type
+        return f
+    setattr(_this, _name, _mkr(_name))
+
+
+def log_softmax(input, axis=-1):
+    return _single_out("log_softmax", input, {"axis": axis})
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    """The matrix-flattening ``mul`` op (mul_op.cc), not an elementwise
+    product."""
+    helper = LayerHelper("mul")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                          outputs={"Out": [out]},
+                          attrs={"x_num_col_dims": x_num_col_dims,
+                                 "y_num_col_dims": y_num_col_dims})
+    return _out(op, "Out", out)
+
+
+def _two_in(op_type, x, y, slots=("X", "Y"), attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op(op_type, inputs={slots[0]: [x], slots[1]: [y]},
+                          outputs={"Out": [out]}, attrs=attrs or {})
+    return _out(op, "Out", out)
+
+
+def gather_nd(input, index, name=None):
+    return _two_in("gather_nd", input, index, ("X", "Index"), name=name)
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("scatter",
+                          inputs={"X": [input], "Ids": [index],
+                                  "Updates": [updates]},
+                          outputs={"Out": [out]},
+                          attrs={"overwrite": overwrite})
+    return _out(op, "Out", out)
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num or x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(dtype=x.dtype)
+            for _ in range(num)]
+    op = helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                          attrs={"axis": axis, "num": num})
+    return list(op["Y"]) if in_dygraph_mode() else outs
+
+
+def expand(x, expand_times, name=None):
+    return _single_out("expand", x, {"expand_times": list(expand_times)})
+
+
+def expand_as(x, target_tensor, name=None):
+    return _two_in("expand_as_v2", x, target_tensor, name=name)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single_out("pad", x, {"paddings": list(paddings),
+                                  "pad_value": float(pad_value)})
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    op = helper.append_op("l2_normalize", inputs={"X": [x]},
+                          outputs={"Out": [out], "Norm": [norm]},
+                          attrs={"axis": axis, "epsilon": epsilon})
+    return _out(op, "Out", out)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    op = helper.append_op("label_smooth", inputs=inputs,
+                          outputs={"Out": [out]},
+                          attrs={"epsilon": float(epsilon)})
+    return _out(op, "Out", out)
+
+
+def where(condition, x, y):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("where", inputs={"Condition": [condition],
+                                           "X": [x], "Y": [y]},
+                          outputs={"Out": [out]})
+    return _out(op, "Out", out)

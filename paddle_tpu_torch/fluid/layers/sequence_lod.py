@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.registry import register_op
+from ..framework import in_dygraph_mode
 from ..layer_helper import LayerHelper
 
 
@@ -66,7 +67,7 @@ def sequence_pool(input, pool_type="sum", length=None, is_test=False):
     inputs = {"X": [input]}
     if length is not None:
         inputs["Length"] = [length]
-    helper.append_op("sequence_pool", inputs=inputs,
-                     outputs={"Out": [out], "MaxIndex": [mi]},
-                     attrs={"pooltype": pool_type.upper()})
-    return out
+    op = helper.append_op("sequence_pool", inputs=inputs,
+                          outputs={"Out": [out], "MaxIndex": [mi]},
+                          attrs={"pooltype": pool_type.upper()})
+    return op["Out"][0] if in_dygraph_mode() else out

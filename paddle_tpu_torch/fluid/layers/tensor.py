@@ -12,20 +12,31 @@ from ..layer_helper import LayerHelper
 
 
 def _to_variable(block, x, dtype=None):
-    """Promote a python scalar to a graph constant (``fill_constant``)."""
+    """Promote a python scalar or numpy array to a constant: a VarBase
+    under a tracer, else a ``fill_constant`` (one value) or
+    ``assign_value`` (an array) in the main program."""
     if isinstance(x, Variable):
         return x
+    if in_dygraph_mode():
+        from ...dygraph.base import to_variable
+        return to_variable(np.asarray(x, dtype=dtype or "float32"))
     arr = np.asarray(x, dtype=dtype or "float32")
-    if arr.size != 1:
-        raise NotImplementedError(
-            "array constants (assign_value) are not ported yet; only "
-            "scalars become graph constants")
     helper = LayerHelper("constant")
     out = helper.create_variable_for_type_inference(dtype=str(arr.dtype))
     out.stop_gradient = True
-    helper.append_op("fill_constant", outputs={"Out": [out]},
-                     attrs={"shape": [1], "value": float(arr.flat[0]),
-                            "dtype": str(arr.dtype)})
+    if arr.ndim == 0:
+        arr = arr.reshape(1)
+    if arr.size == 1:
+        helper.append_op("fill_constant", outputs={"Out": [out]},
+                         attrs={"shape": list(arr.shape),
+                                "value": float(arr.flat[0]),
+                                "dtype": str(arr.dtype)})
+    else:
+        helper.append_op("assign_value", outputs={"Out": [out]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": str(arr.dtype),
+                                "fp32_values":
+                                    arr.astype("float64").flatten().tolist()})
     return out
 
 
@@ -43,11 +54,15 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     helper = LayerHelper("fill_constant", name=name)
     if out is None:
         out = helper.create_variable_for_type_inference(dtype=dtype)
-    helper.append_op("fill_constant", outputs={"Out": [out]},
-                     attrs={"shape": list(shape), "dtype": dtype,
-                            "value": float(value)})
+    op = helper.append_op("fill_constant", outputs={"Out": [out]},
+                          attrs={"shape": list(shape), "dtype": dtype,
+                                 "value": float(value)})
+    # under a tracer the traced VarBase is the result; its shape is its
+    # value's
+    out = op["Out"][0] if in_dygraph_mode() else out
     out.stop_gradient = True
-    out.shape = tuple(shape)
+    if not in_dygraph_mode():
+        out.shape = tuple(shape)
     return out
 
 
@@ -130,4 +145,86 @@ def sums(input, out=None):
         out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
     op = helper.append_op("sum", inputs={"X": list(input)},
                           outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def zeros(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def _arg(op_type, x, axis):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    op = helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                          attrs={"axis": axis})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def argmax(x, axis=0):
+    return _arg("arg_max", x, axis)
+
+
+def argmin(x, axis=0):
+    return _arg("arg_min", x, axis)
+
+
+def argsort(x, axis=-1, descending=False):
+    """(sorted values, int64 indices) along ``axis``."""
+    helper = LayerHelper("argsort")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    ids = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    op = helper.append_op("argsort", inputs={"X": [x]},
+                          outputs={"Out": [out], "Indices": [ids]},
+                          attrs={"axis": axis, "descending": descending})
+    if in_dygraph_mode():
+        return op["Out"][0], op["Indices"][0]
+    return out, ids
+
+
+def linspace(start, stop, num, dtype="float32"):
+    helper = LayerHelper("linspace")
+    ins = {"Start": [_to_variable(None, start, dtype)],
+           "Stop": [_to_variable(None, stop, dtype)],
+           "Num": [_to_variable(None, int(num), "int32")]}
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    op = helper.append_op("linspace", inputs=ins, outputs={"Out": [out]},
+                          attrs={"dtype": dtype})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def range(start, end, step, dtype="float32"):
+    helper = LayerHelper("range")
+    ins = {"Start": [_to_variable(None, start, dtype)],
+           "End": [_to_variable(None, end, dtype)],
+           "Step": [_to_variable(None, step, dtype)]}
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    op = helper.append_op("range", inputs=ins, outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def increment(x, value=1.0, in_place=True):
+    """x + value; in a program, into x itself unless ``in_place`` is
+    False."""
+    helper = LayerHelper("increment")
+    out = x if in_place and not in_dygraph_mode() else \
+        helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("increment", inputs={"X": [x]},
+                          outputs={"Out": [out]},
+                          attrs={"step": float(value)})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
+def eye(num_rows, num_columns=None, dtype="float32"):
+    helper = LayerHelper("eye")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    op = helper.append_op("eye", outputs={"Out": [out]},
+                          attrs={"num_rows": num_rows,
+                                 "num_columns": num_columns or num_rows,
+                                 "dtype": dtype})
     return op["Out"][0] if in_dygraph_mode() else out

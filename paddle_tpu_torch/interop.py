@@ -2,8 +2,8 @@
 
 The two packages draw different random numbers from the same seed, so a
 comparison carries the reference's parameter values into the port's
-scope (static programs) or layer (dygraph models) instead of re-running
-the port's initializers.  A BoxPS table's host rows and pass state cross
+scope (static programs), layer (dygraph models) or ``hapi.Model``
+(either adapter) instead of re-running the port's initializers.  A BoxPS table's host rows and pass state cross
 the same way (``box_from_numpy``); its numpy initializer draws the same
 rows from the same seed in both packages, so a pass staged by each from
 one seed is equal too.
@@ -85,3 +85,34 @@ def box_to_numpy(box) -> Dict[str, np.ndarray]:
     ids = box.host.all_ids()
     return {"host_ids": ids, "host_vals": box.host.pull(ids),
             "pass_ids": box.pass_ids}
+
+
+def model_from_numpy(model, state):
+    """Set a ``hapi.Model``'s parameters from ``state``: a list of arrays
+    in ``model.parameters()``'s order, or a dict by name (a dygraph
+    Model's ``Layer.state_dict()`` names; a static Model's program
+    parameter names).  The optimizer's accumulators are not carried: a
+    carried model trains from step 0."""
+    params = model.parameters()
+    if isinstance(state, (list, tuple)):
+        if len(state) != len(params):
+            raise ValueError(f"{len(state)} arrays for {len(params)} "
+                             f"parameters")
+        for p, a in zip(params, state):
+            if tuple(np.shape(a)) != tuple(p.shape):
+                raise ValueError(f"{p.name}: shape {np.shape(a)} is not "
+                                 f"the parameter's {tuple(p.shape)}")
+        if model._adapter is None:
+            for p, a in zip(params, state):
+                p.set_value(np.asarray(a))
+            return model
+        state = {p.name: a for p, a in zip(params, state)}
+    if model._adapter is None:
+        layer_from_numpy(model.network, state)
+    else:
+        names = {p.name for p in params}
+        extra = [n for n in state if n not in names]
+        if extra:
+            raise KeyError(f"not parameters of the model: {extra}")
+        model._adapter.set_state_dict(state)
+    return model

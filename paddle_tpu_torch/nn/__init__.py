@@ -1,16 +1,28 @@
-"""paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn``: the transformer
-stacks and activations BERT and NMT use, the convolution, pooling,
-batch-norm and flatten layers of the vision models, the recurrent layers
-and cells, and the gradient clips under their 2.0 names)."""
+"""paddle.nn 2.0 namespace (counterpart of ``paddle_tpu/nn``): the layer
+classes ported so far, ``functional``, ``initializer``, the gradient
+clips under their 2.0 names, and ``utils``.  The classes still to port
+are listed, each with its ROADMAP queue A item, in
+``tests/test_torch_namespace.py``."""
 from ..dygraph.layers import Layer, Sequential, LayerList, ParameterList
 from ..dygraph.nn import (Linear, Conv2D, Pool2D, BatchNorm, Embedding,
                           LayerNorm, Dropout)
-from ..fluid.clip import ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm
-from .layer import (ReLU, ReLU6, GELU, Tanh, Flatten, MaxPool2D, AvgPool2D,
-                    AdaptiveAvgPool2D, BatchNorm2D, MultiHeadAttention,
+from . import functional
+from .layer import (ReLU, GELU, Sigmoid, Tanh, Softmax, LeakyReLU, SiLU,
+                    ELU, SELU, Softplus, Softsign, Softshrink, Hardshrink,
+                    Tanhshrink, Hardsigmoid, Swish, ReLU6, LogSigmoid,
+                    Hardtanh, PReLU, GLU, Mish, Hardswish,
+                    MaxPool2D, AvgPool2D, AdaptiveAvgPool2D, BatchNorm2D,
+                    CrossEntropyLoss, MSELoss, L1Loss, BCELoss, NLLLoss,
+                    KLDivLoss, SmoothL1Loss, MultiHeadAttention,
                     TransformerEncoderLayer, TransformerEncoder,
                     TransformerDecoderLayer, TransformerDecoder, Transformer,
-                    LSTM, GRU, SimpleRNN, SimpleRNNCell, LSTMCell, GRUCell,
-                    RNN, BiRNN)
+                    LSTM, GRU, SimpleRNN, RNN, BiRNN, SimpleRNNCell,
+                    LSTMCell, GRUCell, Flatten)
 
 Conv2d = Conv2D  # historical alias
+
+from . import initializer   # noqa: E402,F401
+from . import clip          # noqa: E402,F401
+from .clip import (ClipGradByValue, ClipGradByNorm,  # noqa: E402,F401
+                   ClipGradByGlobalNorm)
+from . import utils         # noqa: E402,F401

@@ -1,9 +1,10 @@
 """paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``: the
-activations, the flatten, pooling and batch-norm layers the vision models
-run, the transformer encoder stack BERT runs, the encoder-decoder
-``Transformer`` NMT runs, and the recurrent layers: ``LSTM``, ``GRU`` and
-``SimpleRNN`` over the ``rnn_scan`` op, the three cells, and ``RNN`` and
-``BiRNN``, which take a cell over time step by step).
+activations, the losses ``Model.prepare`` takes, the flatten, pooling
+and batch-norm layers the vision models run, the transformer encoder
+stack BERT runs, the encoder-decoder ``Transformer`` NMT runs, and the
+recurrent layers: ``LSTM``, ``GRU`` and ``SimpleRNN`` over the
+``rnn_scan`` op, the three cells, and ``RNN`` and ``BiRNN``, which take
+a cell over time step by step).
 
 The encoder and decoder layers always emit the fused epilogues:
 ``fused_dropout_add`` for each residual and ``fused_act_dropout`` for the
@@ -23,6 +24,7 @@ from ..dygraph.layers import Layer, LayerList
 from ..dygraph.nn import Linear, LayerNorm, BatchNorm
 from ..fluid import layers as L
 from ..fluid.framework import _dygraph_tracer
+from ..fluid.initializer import ConstantInitializer
 from ..fluid.layer_helper import LayerHelper, emit_op
 
 
@@ -38,6 +40,71 @@ ReLU = _act_layer("relu")
 ReLU6 = _act_layer("relu6")
 GELU = _act_layer("gelu")
 Tanh = _act_layer("tanh")
+Sigmoid = _act_layer("sigmoid")
+SiLU = _act_layer("silu")
+Mish = _act_layer("mish")
+Hardswish = _act_layer("hard_swish")
+ELU = _act_layer("elu")
+SELU = _act_layer("selu")
+Softplus = _act_layer("softplus")
+Softsign = _act_layer("softsign")
+Softshrink = _act_layer("softshrink")
+Hardshrink = _act_layer("hard_shrink")
+Tanhshrink = _act_layer("tanh_shrink")
+Hardsigmoid = _act_layer("hard_sigmoid")
+Swish = _act_layer("swish")
+LogSigmoid = _act_layer("logsigmoid")
+
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01):
+        super().__init__()
+        self._slope = negative_slope
+
+    def forward(self, x):
+        return L.nn.leaky_relu(x, alpha=self._slope)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0):
+        super().__init__()
+        self._min, self._max = min, max
+
+    def forward(self, x):
+        from . import functional as F
+        return F.hardtanh(x, self._min, self._max)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None):
+        super().__init__()
+        helper = LayerHelper("prelu")
+        self.weight = helper.create_parameter(
+            weight_attr, [num_parameters], None,
+            default_initializer=ConstantInitializer(init))
+
+    def forward(self, x):
+        from . import functional as F
+        return F.prelu(x, self.weight)
+
+
+class GLU(Layer):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        from . import functional as F
+        return F.glu(x, self._axis)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return L.softmax(x, axis=self._axis)
 
 
 class Flatten(Layer):
@@ -98,6 +165,94 @@ class BatchNorm2D(BatchNorm):
         super().__init__(num_features, momentum=momentum, epsilon=epsilon,
                          param_attr=weight_attr, bias_attr=bias_attr,
                          data_layout=data_format)
+
+
+# --- losses ------------------------------------------------------------------
+def _reduced(loss, reduction):
+    if reduction == "mean":
+        return L.nn.mean(loss)
+    if reduction == "sum":
+        return L.nn.reduce_sum(loss)
+    return loss
+
+
+class CrossEntropyLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1):
+        super().__init__()
+        self._ignore = ignore_index
+        self._reduction = reduction
+        self._soft = soft_label
+
+    def forward(self, input, label):
+        return _reduced(L.softmax_with_cross_entropy(
+            input, label, soft_label=self._soft,
+            ignore_index=self._ignore), self._reduction)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return _reduced(L.square_error_cost(input, label), self._reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return _reduced(L.nn.abs(input - label), self._reduction)
+
+
+class BCELoss(Layer):
+    """Dygraph only, as the reference's: it traces its op."""
+
+    def __init__(self, weight=None, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        loss = _dygraph_tracer().trace_op(
+            "bce_loss", {"X": [input], "Label": [label]}, {"Out": [None]},
+            {})["Out"][0]
+        return _reduced(loss, self._reduction)
+
+
+class NLLLoss(Layer):
+    """Dygraph only, as the reference's: it traces its op."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean"):
+        super().__init__()
+        self._ignore, self._reduction = ignore_index, reduction
+
+    def forward(self, input, label):
+        return _dygraph_tracer().trace_op(
+            "nll_loss", {"X": [input], "Label": [label]}, {"Out": [None]},
+            {"ignore_index": self._ignore,
+             "reduction": self._reduction})["Out"][0]
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return L.kldiv_loss(input, label, self._reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0):
+        super().__init__()
+        self._delta, self._reduction = delta, reduction
+
+    def forward(self, input, label):
+        return _reduced(L.huber_loss(input, label, self._delta),
+                        self._reduction)
 
 
 class MultiHeadAttention(Layer):

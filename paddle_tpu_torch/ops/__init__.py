@@ -11,6 +11,8 @@ from . import manipulation    # noqa: F401  reshape/transpose/creation
 from . import reduction       # noqa: F401  reductions
 from . import nn_ops          # noqa: F401  softmax/dropout family/layer_norm
 from . import misc_ops        # noqa: F401  fused compositions
+from . import catalog_tail_ops  # noqa: F401  equal_all
+from . import plumbing_ops    # noqa: F401  is_empty
 from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms

@@ -150,3 +150,88 @@ def _accuracy(ins, attrs, ctx):
             "Correct": [num_correct.to(torch.int32)],
             "Total": [torch.full((), total, dtype=torch.int32,
                                  device=correct.device)]}
+
+
+# --------------------------------------------------------------------------
+# the 2.0 losses (nn.functional, nn.layer's loss classes)
+# --------------------------------------------------------------------------
+@register_op("bce_loss", nondiff_inputs=("Label",))
+def _bce(ins, attrs, ctx):
+    x, label = ins["X"][0], ins["Label"][0]
+    xc = torch.minimum(torch.maximum(x, x.new_full((), 1e-12)),
+                       x.new_full((), 1.0 - 1e-7))
+    return {"Out": [-(label * torch.log(xc)
+                      + (1 - label) * torch.log1p(-xc))]}
+
+
+@register_op("log_loss", nondiff_inputs=("Labels",))
+def _log_loss(ins, attrs, ctx):
+    p, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(p + eps)
+                     - (1 - label) * torch.log(1 - p + eps)]}
+
+
+@register_op("huber_loss", nondiff_inputs=("Y",))
+def _huber(ins, attrs, ctx):
+    x, y = ins["X"][0], ins["Y"][0]
+    d = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    return {"Out": [torch.where(ar <= d, 0.5 * r * r, d * (ar - 0.5 * d))],
+            "Residual": [r]}
+
+
+@register_op("kldiv_loss", nondiff_inputs=("Target",))
+def _kldiv(ins, attrs, ctx):
+    """``t (log t - x)`` where t > 0; the reductions leave the padded
+    rows of a bucketed batch out, and ``batchmean`` divides by the true
+    row count."""
+    from .reduction import masked_batch_reduce
+    x, t = ins["X"][0], ins["Target"][0]
+    loss = torch.where(t > 0, t * (torch.log(t) - x), torch.zeros_like(x))
+    red = attrs.get("reduction", "mean")
+    every = tuple(range(loss.ndim))
+    if red == "mean":
+        m = masked_batch_reduce(loss, ctx, every, mean=True)
+        loss = torch.mean(loss) if m is None else m
+    elif red == "sum":
+        m = masked_batch_reduce(loss, ctx, every)
+        loss = torch.sum(loss) if m is None else m
+    elif red == "batchmean":
+        m = masked_batch_reduce(loss, ctx, every)
+        loss = torch.sum(loss) / x.shape[0] if m is None \
+            else m / ctx.batch_valid
+    return {"Loss": [loss]}
+
+
+@register_op("nll_loss", nondiff_inputs=("Label", "Weight"))
+def _nll(ins, attrs, ctx):
+    """The picked log-probabilities, weighted, with ``ignore_index``
+    masked; "mean" divides by the weights' sum over the kept rows."""
+    x, label = ins["X"][0], ins["Label"][0].long()
+    w = ins["Weight"][0] if ins.get("Weight") \
+        else torch.ones((x.shape[1],), dtype=x.dtype, device=x.device)
+    picked = torch.take_along_dim(x, label[:, None], dim=1).squeeze(1)
+    wl = w.index_select(0, torch.clamp(label, min=0))
+    mask = _and_batch_mask(
+        (label != attrs.get("ignore_index", -100)).to(x.dtype), x, ctx)
+    loss = -picked * wl * mask
+    total_w = torch.sum(wl * mask)
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        out = torch.sum(loss) / torch.clamp(total_w, min=1e-12)
+    elif red == "sum":
+        out = torch.sum(loss)
+    else:
+        out = loss
+    return {"Out": [out], "Total_weight": [total_w]}
+
+
+@register_op("label_smooth", nondiff_inputs=("PriorDist",))
+def _label_smooth(ins, attrs, ctx):
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist"):
+        return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0]]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}

@@ -247,3 +247,252 @@ def _lookup_table(ins, attrs, ctx):
     if ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     return _lookup_table_v2({"W": ins["W"], "Ids": [ids]}, attrs, ctx)
+
+
+# --------------------------------------------------------------------------
+# the 2.0 surface (paddle.tensor): indexing, broadcasting, creation
+# --------------------------------------------------------------------------
+register_op("reshape", lambda ins, a, c: {"Out": [_x(ins).reshape(
+    [_x(ins).shape[i] if d == 0 else d for i, d in enumerate(a["shape"])])]})
+
+
+@register_op("unstack")
+def _unstack(ins, attrs, ctx):
+    x = _x(ins)
+    return {"Y": list(torch.unbind(x, dim=attrs.get("axis", 0)))}
+
+
+@register_op("unbind")
+def _unbind(ins, attrs, ctx):
+    return {"Out": list(torch.unbind(_x(ins), dim=attrs.get("axis", 0)))}
+
+
+@register_op("strided_slice")
+def _strided_slice(ins, attrs, ctx):
+    x = _x(ins, "Input")
+    idx = [slice(None)] * x.ndim
+    for ax, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                            attrs["strides"]):
+        if st < 0:
+            raise NotImplementedError("strided_slice with a negative "
+                                      "stride")
+        idx[ax] = slice(s, e, st)
+    return {"Out": [x[tuple(idx)]]}
+
+
+def _index_tuple(idx):
+    """The last axis of an index tensor as a tuple of int64 index
+    tensors (gather_nd / scatter_nd_add addressing)."""
+    return tuple(idx.long().movedim(-1, 0))
+
+
+@register_op("gather_nd", nondiff_inputs=("Index",))
+def _gather_nd(ins, attrs, ctx):
+    return {"Out": [_x(ins)[_index_tuple(_x(ins, "Index"))]]}
+
+
+@register_op("scatter", nondiff_inputs=("Ids",))
+def _scatter(ins, attrs, ctx):
+    x, ids, upd = _x(ins), _x(ins, "Ids").long().reshape(-1), \
+        _x(ins, "Updates")
+    if attrs.get("overwrite", True):
+        return {"Out": [x.index_put((ids,), upd)]}
+    zeroed = x.index_put((ids,), torch.zeros_like(upd))
+    return {"Out": [zeroed.index_put((ids,), upd, accumulate=True)]}
+
+
+@register_op("scatter_nd_add", nondiff_inputs=("Index",))
+def _scatter_nd_add(ins, attrs, ctx):
+    x, idx, upd = _x(ins), _x(ins, "Index"), _x(ins, "Updates")
+    return {"Out": [x.index_put(_index_tuple(idx), upd, accumulate=True)]}
+
+
+@register_op("index_select", nondiff_inputs=("Index",))
+def _index_select(ins, attrs, ctx):
+    return {"Out": [_x(ins).index_select(attrs.get("dim", 0),
+                                         _x(ins, "Index").long())]}
+
+
+@register_op("index_sample", nondiff_inputs=("Index",))
+def _index_sample(ins, attrs, ctx):
+    return {"Out": [torch.take_along_dim(_x(ins), _x(ins, "Index").long(),
+                                         dim=1)]}
+
+
+@register_op("masked_select", differentiable=False)
+def _masked_select(ins, attrs, ctx):
+    """A dynamic output shape: eager only, as in the reference."""
+    return {"Y": [_x(ins)[_x(ins, "Mask").bool()]]}
+
+
+@register_op("where", nondiff_inputs=("Condition",))
+def _where(ins, attrs, ctx):
+    return {"Out": [torch.where(_x(ins, "Condition").bool(), _x(ins),
+                                _x(ins, "Y"))]}
+
+
+register_op("where_index", lambda ins, a, c:
+            {"Out": [torch.nonzero(_x(ins, "Condition"))]},
+            differentiable=False)
+
+
+@register_op("expand")
+def _expand(ins, attrs, ctx):
+    return {"Out": [_x(ins).repeat(*attrs["expand_times"])]}
+
+
+def _broadcast(x, shape):
+    xs = (1,) * (len(shape) - x.ndim) + tuple(x.shape)
+    shape = [xs[i] if d == -1 else d for i, d in enumerate(shape)]
+    return x.reshape(xs).expand(shape)
+
+
+@register_op("expand_v2")
+def _expand_v2(ins, attrs, ctx):
+    """-1 keeps the input's dim; new leading dims broadcast."""
+    return {"Out": [_broadcast(_x(ins), list(attrs["shape"]))]}
+
+
+@register_op("expand_as_v2")
+def _expand_as_v2(ins, attrs, ctx):
+    shape = attrs.get("target_shape") or list(ins["Y"][0].shape)
+    return {"Out": [_broadcast(_x(ins), list(shape))]}
+
+
+@register_op("tile")
+def _tile(ins, attrs, ctx):
+    return {"Out": [torch.tile(_x(ins), tuple(attrs["repeat_times"]))]}
+
+
+@register_op("flip")
+def _flip(ins, attrs, ctx):
+    return {"Out": [torch.flip(_x(ins), tuple(attrs["axis"]))]}
+
+
+@register_op("reverse")
+def _reverse(ins, attrs, ctx):
+    return {"Out": [torch.flip(_x(ins), tuple(attrs["axis"]))]}
+
+
+@register_op("roll")
+def _roll(ins, attrs, ctx):
+    """With no axis the flattened tensor rolls, as ``jnp.roll``."""
+    axis = attrs.get("axis", None)
+    shifts = attrs["shifts"]
+    if not axis:
+        x = _x(ins)
+        return {"Out": [torch.roll(x.reshape(-1), sum(shifts))
+                        .reshape(x.shape)]}
+    return {"Out": [torch.roll(_x(ins), tuple(shifts), tuple(axis))]}
+
+
+@register_op("pad")
+def _pad(ins, attrs, ctx):
+    """``paddings`` is (before, after) per axis from the first;
+    ``F.pad`` takes them from the last."""
+    x = _x(ins)
+    p = attrs["paddings"]
+    flat = []
+    for i in reversed(range(x.ndim)):
+        flat += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(
+        x, flat, value=attrs.get("pad_value", 0.0))]}
+
+
+@register_op("assign_value", differentiable=False)
+def _assign_value(ins, attrs, ctx):
+    for key in ("fp32_values", "int32_values", "int64_values",
+                "bool_values"):
+        if attrs.get(key):
+            vals = attrs[key]
+            break
+    else:
+        vals = []
+    dtype = torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.tensor(vals, dtype=torch.float64
+                                 if key == "fp32_values" else None,
+                                 device=ctx.device)
+                    .reshape(attrs["shape"]).to(dtype)]}
+
+
+register_op("shape", lambda ins, a, c: {"Out": [torch.tensor(
+    list(ins["Input"][0].shape), dtype=torch.int32, device=c.device)]},
+    differentiable=False)
+
+
+@register_op("eye", differentiable=False)
+def _eye(ins, attrs, ctx):
+    n = attrs["num_rows"]
+    m = attrs.get("num_columns") or n
+    return {"Out": [torch.eye(n, m if m > 0 else n, device=ctx.device,
+                              dtype=torch_dtype(attrs.get("dtype",
+                                                          "float32")))]}
+
+
+def _host_scalar(t):
+    """A one-value tensor's value on the host (the op's output shape
+    depends on it, so the host must wait for it)."""
+    return t.reshape(()).item()
+
+
+@register_op("linspace", differentiable=False)
+def _linspace(ins, attrs, ctx):
+    start, stop, num = ins["Start"][0], ins["Stop"][0], ins["Num"][0]
+    return {"Out": [torch.linspace(
+        _host_scalar(start), _host_scalar(stop), int(_host_scalar(num)),
+        dtype=torch_dtype(attrs.get("dtype", "float32")),
+        device=start.device)]}
+
+
+@register_op("range", differentiable=False)
+def _range(ins, attrs, ctx):
+    s, e, st = ins["Start"][0], ins["End"][0], ins["Step"][0]
+    return {"Out": [torch.arange(_host_scalar(s), _host_scalar(e),
+                                 _host_scalar(st), dtype=s.dtype,
+                                 device=s.device)]}
+
+
+@register_op("increment")
+def _increment(ins, attrs, ctx):
+    return {"Out": [_x(ins) + attrs.get("step", 1.0)]}
+
+
+@register_op("diag_v2", differentiable=False)
+def _diag_v2(ins, attrs, ctx):
+    x = _x(ins)
+    k = attrs.get("offset", 0)
+    out = torch.diag(x, k)
+    pad = attrs.get("padding_value", 0)
+    if x.ndim == 1 and pad:
+        mask = torch.diag(torch.ones_like(x, dtype=torch.bool), k)
+        out = torch.where(mask, out, torch.full((), pad, dtype=out.dtype,
+                                                device=out.device))
+    return {"Out": [out]}
+
+
+@register_op("meshgrid")
+def _meshgrid(ins, attrs, ctx):
+    return {"Out": list(torch.meshgrid(*ins["X"], indexing="ij"))}
+
+
+@register_op("tril_triu")
+def _tril_triu(ins, attrs, ctx):
+    f = torch.tril if attrs.get("lower", True) else torch.triu
+    return {"Out": [f(_x(ins), attrs.get("diagonal", 0))]}
+
+
+@register_op("shard_index", differentiable=False)
+def _shard_index(ins, attrs, ctx):
+    x = _x(ins)
+    size = (attrs["index_num"] + attrs["nshards"] - 1) // attrs["nshards"]
+    mask = torch.div(x, size, rounding_mode="floor") == attrs["shard_id"]
+    return {"Out": [torch.where(mask, torch.remainder(x, size),
+                                torch.full_like(x, attrs.get(
+                                    "ignore_value", -1)))]}
+
+
+register_op("transpose", lambda ins, a, c:
+            {"Out": [_x(ins).permute(*a["axis"])]})
+register_op("rank", lambda ins, a, c: {"Out": [torch.tensor(
+    ins["Input"][0].ndim, dtype=torch.int32, device=c.device)]},
+    differentiable=False)

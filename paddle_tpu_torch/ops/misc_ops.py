@@ -63,3 +63,63 @@ def _fused_bn_activation(ins, attrs, ctx):
     act = attrs.get("act_type", "relu")
     outs["Y"] = [_UNARY[act](outs["Y"][0])]
     return outs
+
+
+# the 2.0 surface (paddle.tensor's tail)
+@register_op("unique", differentiable=False)
+def _unique(ins, attrs, ctx):
+    """unique_op.cc with a static shape: the sorted unique values padded
+    with 0 to the input's length, the inverse index (int32) and the
+    count of unique values."""
+    x = ins["X"][0].reshape(-1)
+    u, inverse = torch.unique(x, sorted=True, return_inverse=True)
+    out = torch.zeros_like(x)
+    out[:u.numel()] = u
+    return {"Out": [out], "Index": [inverse.to(torch.int32)],
+            "UniqueCount": [torch.tensor([u.numel()], dtype=torch.int32,
+                                         device=x.device)]}
+
+
+@register_op("multiplex", nondiff_inputs=("Ids",))
+def _multiplex(ins, attrs, ctx):
+    """Row r of the output is row r of candidate ``X[Ids[r]]``."""
+    ids = ins["Ids"][0].long().reshape(-1)
+    stacked = torch.stack(ins["X"], dim=0)
+    return {"Out": [stacked[ids, torch.arange(ids.shape[0],
+                                              device=ids.device)]]}
+
+
+@register_op("scatter_nd", nondiff_inputs=("Index", "Shape"))
+def _scatter_nd(ins, attrs, ctx):
+    idx, upd = ins["Index"][0], ins["Updates"][0]
+    shape = [int(v) for v in ins["Shape"][0].tolist()] \
+        if ins.get("Shape") else list(attrs["shape"])
+    out = torch.zeros(shape, dtype=upd.dtype, device=upd.device)
+    return {"Out": [out.index_put(tuple(idx.long().movedim(-1, 0)), upd,
+                                  accumulate=True)]}
+
+
+@register_op("histogram", differentiable=False)
+def _histogram(ins, attrs, ctx):
+    """``bins`` equal bins over [min, max] (the data's range when both
+    are 0), the last bin closed; int64 counts."""
+    x = ins["X"][0].reshape(-1).float()
+    lo, hi = attrs.get("min", 0), attrs.get("max", 0)
+    if lo == 0 and hi == 0:
+        lo, hi = x.min().item(), x.max().item()
+    return {"Out": [torch.histc(x, bins=attrs.get("bins", 100), min=lo,
+                                max=hi).long()]}
+
+
+@register_op("crop_tensor", nondiff_inputs=("Shape", "Offsets"))
+def _crop_tensor(ins, attrs, ctx):
+    """The window of ``shape`` (-1 keeps a dim) at ``offsets``."""
+    x = ins["X"][0]
+    shape = [int(s) for s in ins["Shape"][0].reshape(-1).tolist()] \
+        if ins.get("Shape") else list(attrs.get("shape"))
+    offsets = [int(o) for o in ins["Offsets"][0].reshape(-1).tolist()] \
+        if ins.get("Offsets") else list(attrs.get("offsets",
+                                                  [0] * x.ndim))
+    shape = [x.shape[i] if s == -1 else s for i, s in enumerate(shape)]
+    return {"Out": [x[tuple(slice(o, o + s)
+                            for o, s in zip(offsets, shape))]]}

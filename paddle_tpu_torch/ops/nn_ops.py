@@ -628,3 +628,43 @@ def _batch_norm(ins, attrs, ctx):
            * scale.reshape(shape) + bias.reshape(shape)).to(x.dtype)
     return {"Y": [out], "MeanOut": [mean_out], "VarianceOut": [var_out],
             "SavedMean": [m], "SavedVariance": [inv]}
+
+
+# ---------------------------------------------------------------------------
+# the 2.0 surface (nn.functional): log-softmax and the normalizations
+# ---------------------------------------------------------------------------
+@register_op("log_softmax")
+def _log_softmax(ins, attrs, ctx):
+    return {"Out": [torch.log_softmax(ins["X"][0],
+                                      dim=attrs.get("axis", -1))]}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ins, attrs, ctx):
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register_op("lrn")
+def _lrn(ins, attrs, ctx):
+    """Across-channel local response normalization of NCHW x: the
+    squares summed over a window of ``n`` channels."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    k, alpha, beta = (attrs.get("k", 2.0), attrs.get("alpha", 1e-4),
+                      attrs.get("beta", 0.75))
+    pad = n // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, pad, pad))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
+
+
+@register_op("maxout")
+def _maxout(ins, attrs, ctx):
+    x = ins["X"][0]
+    g = attrs["groups"]
+    n, c, h, w = x.shape
+    return {"Out": [x.reshape(n, c // g, g, h, w).amax(dim=2)]}

@@ -91,3 +91,87 @@ def _top_k(ins, attrs, ctx):
     k = int(ins["K"][0]) if ins.get("K") else attrs["k"]
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
+
+
+# --------------------------------------------------------------------------
+# the 2.0 surface (paddle.tensor): the other reductions, arg-reductions
+# and the sort
+# --------------------------------------------------------------------------
+def _identity(fill, dtype):
+    """The reduction's identity element: padded rows become it."""
+    if fill == "one":
+        return 1
+    if dtype == torch.bool:
+        return fill == "max"
+    info = torch.finfo(dtype) if dtype.is_floating_point \
+        else torch.iinfo(dtype)
+    return info.min if fill == "min" else info.max
+
+
+def _extremum(name, f, fill):
+    def lower(ins, attrs, ctx):
+        x = ins["X"][0]
+        axes = _axes(attrs, x.ndim)
+        keep = attrs.get("keep_dim", False)
+        if x.ndim and 0 in axes:
+            mask = ctx.batch_mask(x.shape[0])
+            if mask is not None:
+                row = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                x = torch.where(row, x, torch.full(
+                    (), _identity(fill, x.dtype), dtype=x.dtype,
+                    device=x.device))
+        return {"Out": [f(x, axes, keep)]}
+    register_op(name, lower)
+
+
+def _amax(x, axes, keep):
+    return torch.amax(x, dim=axes, keepdim=keep)
+
+
+def _amin(x, axes, keep):
+    return torch.amin(x, dim=axes, keepdim=keep)
+
+
+def _prod(x, axes, keep):
+    for d in sorted(axes, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keep)
+    return x
+
+
+_extremum("reduce_max", _amax, "min")
+_extremum("reduce_min", _amin, "max")
+_extremum("reduce_prod", _prod, "one")
+register_op("reduce_all", lambda ins, a, c: {"Out": [torch.all(
+    ins["X"][0].bool(), dim=_axes(a, ins["X"][0].ndim),
+    keepdim=a.get("keep_dim", False))]}, differentiable=False)
+register_op("reduce_any", lambda ins, a, c: {"Out": [torch.any(
+    ins["X"][0].bool(), dim=_axes(a, ins["X"][0].ndim),
+    keepdim=a.get("keep_dim", False))]}, differentiable=False)
+
+
+def _arg(name, f):
+    def lower(ins, attrs, ctx):
+        x = ins["X"][0]
+        if attrs.get("flatten", False):
+            return {"Out": [f(x.reshape(-1), 0)]}
+        axis = attrs.get("axis", -1)
+        out = f(x, axis)
+        if attrs.get("keepdims", False):
+            out = out.unsqueeze(axis)
+        return {"Out": [out]}
+    register_op(name, lower, differentiable=False)
+
+
+_arg("arg_max", lambda x, d: torch.argmax(x, dim=d))
+_arg("arg_min", lambda x, d: torch.argmin(x, dim=d))
+
+
+@register_op("argsort", nondiff_outputs=("Indices",))
+def _argsort(ins, attrs, ctx):
+    """A stable sort of x (descending: of -x), as ``jnp.argsort``."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    key = -x if attrs.get("descending", False) else x
+    idx = torch.sort(key, dim=axis, stable=True)[1]
+    return {"Out": [torch.take_along_dim(x, idx, dim=axis)],
+            "Indices": [idx]}

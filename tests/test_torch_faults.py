@@ -334,25 +334,63 @@ def test_build_strategy_runs_the_reference_passes(embed):
                      "dce"]
 
 
+_W_FC = np.random.RandomState(1).randn(4, 5).astype("float32")
+_B_FC = np.random.RandomState(2).randn(5).astype("float32")
+_W_EMB = np.random.RandomState(3).randn(10, 4).astype("float32")
+_IDS = np.random.RandomState(4).randint(0, 10, (3, 2)).astype("int64")
+
+
+def _attr(M, value):
+    """Parameters carried across as values (the packages' initializers
+    draw different numbers from one seed)."""
+    return M.ParamAttr(initializer=M.NumpyArrayInitializer(value))
+
+
 DYGRAPH_LAYER_CASES = {
-    "concat": lambda L, a, b: L.concat([a, b], axis=1),
+    "concat": lambda M, a, b: M.layers.concat([a, b], axis=1),
     "sigmoid_cross_entropy_with_logits":
-        lambda L, a, b: L.sigmoid_cross_entropy_with_logits(a, b * 0 + 1),
+        lambda M, a, b: M.layers.sigmoid_cross_entropy_with_logits(
+            a, b * 0 + 1),
+    "fc": lambda M, a, b: M.layers.fc(a, 5, param_attr=_attr(M, _W_FC),
+                                      bias_attr=_attr(M, _B_FC)),
+    "embedding": lambda M, a, b: M.layers.embedding(
+        M.to_variable(_IDS), [10, 4], param_attr=_attr(M, _W_EMB)),
+    "fill_constant": lambda M, a, b: M.layers.fill_constant(
+        [3, 4], "float32", 2.5),
+    "sequence_pool": lambda M, a, b: M.layers.sequence_pool(
+        M.layers.reshape(a, [3, 2, 2]), "sum"),
 }
+
+
+def _package(fluid, layers, dygraph):
+    import types
+    from importlib import import_module
+    init = import_module(fluid.__name__ + ".initializer")
+    return types.SimpleNamespace(
+        layers=layers, ParamAttr=fluid.ParamAttr,
+        NumpyArrayInitializer=init.NumpyArrayInitializer,
+        to_variable=dygraph.to_variable)
 
 
 @pytest.mark.parametrize("case", sorted(DYGRAPH_LAYER_CASES))
 def test_dygraph_layer_returns_its_output_as_the_reference(case):
     """``fluid.layers.concat`` and ``sigmoid_cross_entropy_with_logits``
     returned the static output, None, under a dygraph tracer; WideDeep,
-    DeepFM and SkipGram call both eagerly."""
+    DeepFM and SkipGram call both eagerly.  ``fc`` (whose product must
+    also be the traced one its bias adds to), ``embedding``,
+    ``fill_constant`` (the traced VarBase, stop_gradient set) and
+    ``sequence_pool`` dropped the traced output the same way."""
     rng = np.random.RandomState(0)
     a, b = (rng.randn(3, 4).astype("float32") for _ in range(2))
     with jdy.guard():
-        want = np.asarray(DYGRAPH_LAYER_CASES[case](
-            JL, jdy.to_variable(a), jdy.to_variable(b)).numpy())
+        jm = _package(jfluid, JL, jdy)
+        out = DYGRAPH_LAYER_CASES[case](jm, jdy.to_variable(a),
+                                        jdy.to_variable(b))
+        want, want_sg = np.asarray(out.numpy()), out.stop_gradient
     with tdy.guard(tfluid.CPUPlace()):
-        got = DYGRAPH_LAYER_CASES[case](TL, tdy.to_variable(a),
+        tm = _package(tfluid, TL, tdy)
+        got = DYGRAPH_LAYER_CASES[case](tm, tdy.to_variable(a),
                                         tdy.to_variable(b))
         assert got is not None
+        assert got.stop_gradient == want_sg
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)

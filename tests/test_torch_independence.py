@@ -66,7 +66,15 @@ def test_import_leaves_jax_and_reference_out():
               "optimizer.lr", "dygraph.learning_rate_scheduler",
               "dygraph.checkpoint", "dygraph.rnn", "amp.auto_cast",
               "amp.grad_scaler", "fluid.layers.rnn", "models.language",
-              "models.ctr"):
+              "models.ctr", "tensor", "nn.functional", "nn.layer",
+              "nn.initializer", "nn.initializer.assign",
+              "nn.initializer.constant", "nn.initializer.kaiming",
+              "nn.initializer.normal", "nn.initializer.uniform",
+              "nn.initializer.xavier", "nn.clip", "nn.utils",
+              "nn.utils.weight_norm_hook", "fluid.reader", "fluid.metrics",
+              "fluid.layers.extras", "metric", "metric.metrics", "hapi",
+              "hapi.model", "hapi.callbacks", "hapi.progressbar",
+              "hapi.flops", "ops.catalog_tail_ops", "ops.plumbing_ops"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 
@@ -112,3 +120,25 @@ def test_cuda_place_needs_a_device_for_scope_values(no_cuda):
     with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
         interop.scope_from_numpy({"w": np.zeros(2, "float32")},
                                  tfluid.Scope(), tfluid.CUDAPlace(0))
+
+
+def test_2_0_entry_points_default_to_the_card(no_cuda, monkeypatch):
+    """``disable_static`` (a tracer), ``to_tensor`` under it, a static
+    ``Model``'s Executor and a ``DataLoader`` batch placed on the card
+    all take CUDAPlace(0) by default and raise without a card; none
+    gives way to the host."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import hapi, nn
+    from paddle_tpu_torch.fluid.reader import DataLoader
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        paddle.disable_static()
+    monkeypatch.setattr(tframework, "_dygraph_tracer_", None)
+    monkeypatch.setattr(tframework, "_main_program", tfluid.Program())
+    monkeypatch.setattr(tframework, "_startup_program", tfluid.Program())
+    model = paddle.Model(nn.Linear(4, 2), inputs=[hapi.Input([-1, 4])])
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        model.predict_batch([np.zeros((1, 4), "float32")])
+    loader = DataLoader([np.zeros(4, "float32")] * 2, batch_size=2,
+                        places=tfluid.CUDAPlace(0))
+    with pytest.raises(RuntimeError, match=r"CPUPlace\(\)"):
+        next(iter(loader))

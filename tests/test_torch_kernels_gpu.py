@@ -1361,3 +1361,75 @@ def test_ptb_step_on_the_tape_launches_each_dropout_kernel_once(cuda):
         assert [f.launches - b for f, b in zip(counted, before)] == [6, 3]
         assert all(torch.isfinite(p.gradient_var).all()
                    for p in model.parameters())
+
+
+# --- the 2.0 surface on the card (phase 4m's paths at a small width) -------
+# kernel launches per Model.fit step of Transformer NMT (6 + 6 layers,
+# dropout live, bf16 O1) on the tape, as PERF.md states them and
+# chip_smoke.HAPI_NMT_LAUNCHES holds them: the width does not change them
+HAPI_NMT_LAUNCHES = {"flash_attention_fwd": 36, "flash_attention_bwd": 18,
+                     "fused_dropout": 66, "dropout_mask": 18,
+                     "fused_dropout_add": 60, "fused_act_dropout": 24,
+                     "fused_act_dropout_bwd": 12}
+
+
+def test_nmt_model_fit_step_launches_as_stated(cuda):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid, nn, optimizer
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models import TransformerModel
+    names = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
+             "fused_dropout", "dropout_mask", "fused_dropout_add",
+             "fused_act_dropout", "fused_act_dropout_bwd")
+    rng = np.random.RandomState(0)
+    src, tgt_in, tgt_out = (rng.randint(0, 512, (4, 16)).astype("int64")
+                            for _ in range(3))
+    data = list(zip(src, tgt_in, tgt_out[..., None]))
+    with dybase.guard(fluid.CUDAPlace(0)):
+        np.random.seed(0)
+        net = TransformerModel(src_vocab=512, tgt_vocab=512, d_model=128,
+                               nhead=2, dim_feedforward=256, dropout=0.1,
+                               max_len=17)
+        model = paddle.Model(net)
+        model.prepare(optimizer=optimizer.Adam(
+            1e-4, parameters=net.parameters()),
+            loss=nn.CrossEntropyLoss(), amp_level="O1")
+        model.fit(data, batch_size=4, epochs=1, verbose=0, shuffle=False)
+        for n in names:
+            getattr(cuda_kernels, n).launches = 0
+        model.fit(data, batch_size=4, epochs=1, verbose=0, shuffle=False)
+        torch.cuda.synchronize()
+    got = {n: getattr(cuda_kernels, n).launches for n in names}
+    assert got == {n: HAPI_NMT_LAUNCHES.get(n, 0) for n in names}
+
+
+def test_paddle_grad_double_backward_equals_torch(cuda):
+    """A gradient penalty through paddle.grad(create_graph=True) and
+    backward(): the parameters' gradients equal torch.autograd.grad's
+    double backward of the same function within 1e-5 relative."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid import layers as L
+    rng = np.random.RandomState(1)
+    arrays = [rng.randn(16, 8), rng.randn(8, 12) / 3, 0.1 * rng.randn(12),
+              rng.randn(12, 1) / 3]
+    with dybase.guard(fluid.CUDAPlace(0)):
+        x, w1, b1, w2 = (dybase.to_variable(a.astype("float32"))
+                         for a in arrays)
+        for v in (x, w1, b1, w2):
+            v.stop_gradient = False
+        y = L.reduce_sum(L.matmul(L.tanh(L.elementwise_add(
+            L.matmul(x, w1), b1)), w2))
+        (g,) = paddle.grad([y], [x], create_graph=True)
+        norm = L.sqrt(L.reduce_sum(L.square(g), dim=1))
+        L.reduce_mean(L.square(norm - 1.0)).backward()
+        got = [v.gradient_var for v in (w1, b1, w2)]
+    tx, tw1, tb1, tw2 = (torch.tensor(a, dtype=torch.float32, device="cuda",
+                                      requires_grad=True) for a in arrays)
+    ty = torch.sum(torch.tanh(tx @ tw1 + tb1) @ tw2)
+    (tg,) = torch.autograd.grad(ty, tx, create_graph=True)
+    pen = torch.mean((torch.sqrt(torch.sum(tg * tg, dim=1)) - 1.0) ** 2)
+    want = torch.autograd.grad(pen, [tw1, tb1, tw2])
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-5
