@@ -4,8 +4,11 @@ end to end: the static BERT program, the wide&deep CTR program, the
 flagship dygraph ``BertForPretraining`` step, paged decode, the static
 book tier (MNIST LeNet), the dygraph ResNet-50 step, the Transformer NMT
 step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated), the BoxPS
-CTR trainer (``bench.py:547 main_ctr``), and the 2.0 dygraph loop: the
-PTB LSTM language model and the dygraph WideDeep and DeepFM.
+CTR trainer (``bench.py:547 main_ctr``), the 2.0 dygraph loop (the
+PTB LSTM language model and the dygraph WideDeep and DeepFM), ``hapi``'s
+``Model.fit`` and the static training surface (the BERT recipe of the
+Paddle 1.8 era, fp32 master weights, the fluid optimizers and control
+flow).
 
     python3 chip_smoke.py
 
@@ -274,6 +277,30 @@ over):
    examples/s, peak memory, a profiled step; card against host at 26 x
    1000, batch 256, the same bounds, a twin fed ids without their slot
    offsets must miss.
+4n. the static training surface -- (a) the BERT recipe of the Paddle
+   1.8 era at BERT-base width (32 rows, dropout 0): linear warmup (3
+   steps) then linear decay to step 13 from base 1e-4, built with
+   ``Switch`` over ``autoincreased_step_counter``, ``L2Decay(0.01)``,
+   ``GradientClipByGlobalNorm(1.0)`` and Adam, through fuse_attention
+   and fuse_optimizer (two ``conditional_block``, one ``fused_adam``);
+   3 + 10 steps, the launches of the timed steps against
+   RECIPE_LAUNCHES, the host syncs a step (torch's sync debug mode and
+   ``control_flow.host_reads``), each step's rate against the float32
+   closed form (1e-7 relative; the Switch's arms swapped must miss), a
+   profiled step; card against host at 2 layers and 4 rows over 3
+   steps (rtol 1e-4; a swapped-arms host twin must miss).  (b) LAMB on
+   it: one ``fused_lamb``, card against host.  (c) 24 bfloat16 FFN
+   weights of BERT-base (56,623,104 values) under Adam and Momentum with
+   ``multi_precision=True``, 5 steps fused and unfused: every master,
+   moment or velocity and bf16 parameter ``torch.equal``; each master
+   kernel ``torch.equal`` to its plain version and timed beside its
+   bound (28 and 20 bytes a value) and ``torch._fused_adam_`` /
+   ``torch._fused_sgd_`` over the fp32 masters.  (d) the 19 optimizer
+   classes that append ops on LeNet (3 steps), a ``while_loop`` of 20
+   trips of a [64, 768] x [768, 768] product and a normalisation,
+   ``cond`` and ``switch_case``, a ``StaticRNN`` over 35 steps and the
+   eight schedules (30 runs, rtol 1e-6: the card's pow, exp and cos
+   differ from the host's by an ulp), card against host.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -286,8 +313,10 @@ over):
 6. report  -- one ``{"kernels": [...]}`` line (each kernel's
    ``boxps_launches`` are phase 4k's kernel-tier leg's, its
    ``boxps_legs_launches`` those of 4k's fp32 and bf16 legs, its
-   ``ptb_launches`` those of 4l's timed float32 PTB steps, and the
-   dropout rows' ``ptb`` their times at the PTB shape), then the last
+   ``ptb_launches`` those of 4l's timed float32 PTB steps, the dropout
+   rows' ``ptb`` their times at the PTB shape, ``recipe_launches`` those
+   of 4n's timed recipe steps, and the rows ``fused_adam_master`` and
+   ``fused_momentum_master``, launched by 4n (c)), then the last
    line
    ``{"ok": true, "device": {...}}``.
 """
@@ -2932,7 +2961,8 @@ def _counted_kernels():
         "flash_attention_fwd", "flash_attention_bwd", "fused_adam",
         "embedding_pool_fwd", "embedding_pool_grad", "fused_momentum",
         "fused_dropout", "dropout_mask", "fused_dropout_add",
-        "fused_act_dropout", "fused_act_dropout_bwd", "paged_attention")]
+        "fused_act_dropout", "fused_act_dropout_bwd", "paged_attention",
+        "fused_adam_master", "fused_momentum_master")]
 
 
 def phase_train_resnet(card):
@@ -6914,6 +6944,699 @@ def phase_hapi(card):
             "numbers": dict(lenet=lenet, nmt=nmt, check=check, grad=grad)}
 
 
+# ---------------------------------------------------------------------------
+# the static training surface (phase 4n)
+# ---------------------------------------------------------------------------
+
+# the BERT recipe of the Paddle 1.8 era: linear warmup, then linear decay,
+# by a Switch over the step counter; L2 decay, global-norm clip, Adam
+RECIPE = dict(BERT_BASE, warmup=3, total=13, base_lr=1e-4, decay=0.01)
+RECIPE_ROWS = 32
+RECIPE_WARM, RECIPE_TIMED = 3, 10
+RECIPE_HOST = dict(layers=2, rows=4, steps=3)    # the card-vs-host check
+RECIPE_LR_RTOL = 1e-7
+RECIPE_LOSS_RTOL = 1e-4
+# launches a step, predicted in PERF.md section 6 (PR 17) before the first
+# chip call: phase 4b's, the schedule and the regularization adding none
+RECIPE_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                   "fused_adam": 1}
+# the FFN weights of BERT-base: 12 x [768, 3072] and 12 x [3072, 768]
+MASTER_SHAPES = [(768, 3072), (3072, 768)] * 12
+MASTER_ROWS, MASTER_STEPS = 64, 5
+STATIC_OPT_RTOL = 1e-5
+LOOP = dict(rows=64, width=768, trips=20)
+STATIC_RNN = dict(batch=20, steps=35, width=200)
+SCHEDULE_RTOL = 1e-6
+
+
+def _recipe_program(fluid, vocab, hidden, heads, seq, layers, warmup,
+                    total, base_lr, decay, optimizer="adam", swap=False):
+    """The recipe in fluid's spelling over the BERT body of
+    ``models/static_graphs``; ``swap`` swaps the Switch's arms (a twin).
+    Returns (loss, lr)."""
+    from paddle_tpu_torch.models import static_graphs as sg
+
+    L = fluid.layers
+    ids = fluid.data("ids", [-1, seq], dtype="int64")
+    labels = fluid.data("labels", [-1, 1], dtype="int64")
+    am = L.reshape(fluid.data("attn_mask", [-1, seq]), [0, 1, 1, seq])
+    mask = L.scale(am, scale=10000.0, bias=-10000.0, bias_after_scale=False)
+    lr = L.create_global_var([1], 0.0, "float32", persistable=True,
+                             name="scheduled_learning_rate")
+    step = L.cast(L.autoincreased_step_counter(begin=1), "float32")
+
+    def warm():
+        L.assign(step * (base_lr / warmup), lr)
+
+    def cool():
+        L.assign((1.0 - step / total) * base_lr, lr)
+
+    with L.Switch() as sw:
+        with sw.case(L.less_than(step, L.fill_constant([1], "float32",
+                                                       warmup))):
+            (cool if swap else warm)()
+        with sw.default():
+            (warm if swap else cool)()
+    h = L.embedding(ids, size=[vocab, hidden])
+    for _ in range(layers):
+        h = sg._naive_attention(h, hidden, heads, mask=mask)
+        h = L.fc(h, hidden, num_flatten_dims=2, act="relu")
+    logits = L.fc(L.reduce_mean(h, dim=[1]), 2)
+    loss = L.mean(L.softmax_with_cross_entropy(logits, labels))
+    opt = fluid.optimizer.LambOptimizer if optimizer == "lamb" \
+        else fluid.optimizer.AdamOptimizer
+    opt(lr, regularization=fluid.regularizer.L2Decay(decay),
+        grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)).minimize(loss)
+    return loss, lr
+
+
+def _recipe_lr(step, swap=False):
+    """The schedule's closed form in float32, in the program's op order
+    (``swap``: the twin's arms)."""
+    f = np.float32
+    s, w = f(step), RECIPE["warmup"]
+    warm = s * f(RECIPE["base_lr"] / w)
+    cool = (f(1.0) - s / f(RECIPE["total"])) * f(RECIPE["base_lr"])
+    return (cool if swap else warm) if s < f(w) else (warm if swap
+                                                      else cool)
+
+
+def _recipe_built(optimizer="adam", swap=False, **over):
+    """(main, startup, loss, lr, CompiledProgram) of the recipe under
+    fresh names, fuse_attention and fuse_optimizer applied."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+
+    cfg = {k: v for k, v in RECIPE.items() if k != "dropout"}
+    cfg.update(over)
+    reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        loss, lr = _recipe_program(fluid, optimizer=optimizer, swap=swap,
+                                   **{k: cfg[k] for k in (
+                                       "vocab", "hidden", "heads", "seq",
+                                       "layers", "warmup", "total",
+                                       "base_lr", "decay")})
+    startup.random_seed = SEED
+    bs = fluid.BuildStrategy()
+    bs.fuse_attention = bs.fuse_optimizer = True
+    program = fluid.CompiledProgram(main, bs)
+    program._apply_ir_passes([loss.name, lr.name])
+    return main, startup, loss, lr, program
+
+
+def _recipe_card_vs_host(optimizer, card):
+    """HOST rows, HOST layers, full width otherwise, ``steps`` steps from
+    one init on the card and on the host through the same rewritten
+    program: the losses within RECIPE_LOSS_RTOL; a host twin with the
+    Switch's arms swapped must miss.  Returns the worst margins."""
+    from paddle_tpu_torch import fluid
+
+    layers, rows, steps = (RECIPE_HOST[k] for k in ("layers", "rows",
+                                                     "steps"))
+    feed = _train_feed(np.random.RandomState(SEED + 5), rows)
+    main, startup, loss, lr, program = _recipe_built(optimizer,
+                                                     layers=layers)
+    fused = "fused_lamb" if optimizer == "lamb" else "fused_adam"
+    types = [op.type for op in main.global_block().ops]
+    if types.count(fused) != 1 or optimizer in types:
+        raise SystemExit(f"chip_smoke: fuse_optimizer did not make one "
+                         f"{fused} of the recipe's {optimizer} updates")
+    init = _startup_state(main, startup, fluid.CPUPlace())
+    t0 = time.perf_counter()
+    card, _ = _steps(program, main, [loss], init, fluid.CUDAPlace(0),
+                     [feed] * steps)
+    host, _ = _steps(program, main, [loss], init, fluid.CPUPlace(),
+                     [feed] * steps)
+    tmain, _, tloss, _, tprog = _recipe_built(optimizer, swap=True,
+                                              layers=layers)
+    twin, _ = _steps(tprog, tmain, [tloss], init, fluid.CPUPlace(),
+                     [feed] * steps)
+    card, host, twin = ([float(o[0]) for o in x] for x in (card, host,
+                                                            twin))
+    margin = max(abs(c - h) / (RECIPE_LOSS_RTOL * abs(h))
+                 for c, h in zip(card, host))
+    twin_margin = max(abs(c - t) / (RECIPE_LOSS_RTOL * abs(t))
+                      for c, t in zip(card, twin))
+    _p(f"4n {optimizer}: card vs host, {layers} layers x {rows} rows x "
+       f"{steps} steps in {time.perf_counter() - t0:.1f} s: losses card "
+       f"{card}, host {host} (rtol {RECIPE_LOSS_RTOL}): worst |diff| "
+       f"{margin:.3f} of the tolerance; the swapped-arms twin {twin} "
+       f"misses by {twin_margin:.1f} times it  [{card}]")
+    if margin > 1.0 or not np.isfinite(card).all():
+        raise SystemExit(f"chip_smoke: the recipe's {optimizer} losses on "
+                         f"the card disagree with the host's")
+    if twin_margin <= 1.0:
+        raise SystemExit("chip_smoke: the recipe's card-vs-host check "
+                         "cannot tell the Switch's arms apart")
+    return margin, twin_margin
+
+
+def _count_syncs(fn):
+    """(fn's value, the CUDA host syncs it made), counted by torch's
+    sync debug mode, which warns at every synchronizing call."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    return out, len(syncs), sorted({str(w.message)[:90] for w in syncs})
+
+
+def _recipe_leg(card):
+    """(a): the recipe at BERT-base width, RECIPE_ROWS rows, 3 + 10
+    steps.  Returns (launches over the timed steps, the row of numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import trace
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    t0 = time.perf_counter()
+    main, startup, loss, lr, program = _recipe_built()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    types = [op.type for op in main.global_block().ops]
+    _p(f"4n recipe: BERT-base width ({len(main.all_parameters())} "
+       f"parameters, 12 layers, dropout 0), warmup {RECIPE['warmup']}, "
+       f"total {RECIPE['total']}, base lr {RECIPE['base_lr']}, L2Decay "
+       f"{RECIPE['decay']}, global-norm clip 1.0, Adam; built and started "
+       f"in {time.perf_counter() - t0:.1f} s; ops: "
+       f"{types.count('conditional_block')} conditional_block, "
+       f"{types.count('fused_multihead_attention')} fused attention, "
+       f"{types.count('fused_adam')} fused_adam, {types.count('adam')} "
+       f"adam, {len(types)} in all")
+    if types.count("fused_adam") != 1 or "adam" in types \
+            or types.count("conditional_block") != 2 \
+            or types.count("fused_multihead_attention") != RECIPE["layers"]:
+        raise SystemExit("chip_smoke: the recipe was not rewritten onto "
+                         "the kernels as expected")
+    feed = _train_feed(np.random.RandomState(SEED), RECIPE_ROWS)
+
+    def step():
+        return exe.run(program, feed=feed, fetch_list=[loss, lr],
+                       scope=scope, return_numpy=False)
+
+    got = [step() for _ in range(RECIPE_WARM)]
+    torch.cuda.synchronize()
+    counted = _counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    _flash_copies_zero()
+    reads = trace.metrics().counter("control_flow.host_reads")
+    reads0 = reads.value
+
+    def timed():
+        out = [step() for _ in range(RECIPE_TIMED)]
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    timed_out, syncs, kinds = _count_syncs(timed)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    host_reads = reads.value - reads0
+    got += timed_out
+    losses = [float(o[0]) for o in got]
+    lrs = [float(o[1]) for o in got]
+    want = {n: RECIPE_LAUNCHES.get(n, 0) * RECIPE_TIMED
+            for n in launches}
+    _p(f"4n recipe: {RECIPE_TIMED} timed steps at {RECIPE_ROWS} rows in "
+       f"{wall:.3f} s ({wall / RECIPE_TIMED * 1e3:.2f} ms a step, with "
+       f"the sync counting on); losses {[round(x, 5) for x in losses]}; "
+       f"launches {launches}, expected {want}; host syncs a step "
+       f"{syncs / RECIPE_TIMED} {kinds}, control-flow host reads "
+       f"{host_reads}  [{card}]")
+    if launches != want:
+        raise SystemExit("chip_smoke: the recipe's step did not run "
+                         "through the kernels as predicted")
+    _flash_copies_check("recipe")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: a recipe loss is not finite")
+    closed = [float(_recipe_lr(k + 1)) for k in range(len(lrs))]
+    twin = [float(_recipe_lr(k + 1, swap=True)) for k in range(len(lrs))]
+    # the last step's rate is exactly 0 (step = total)
+    err = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(lrs, closed))
+    twin_miss = max(abs(g - t) / (RECIPE_LR_RTOL * max(abs(t), 1e-30))
+                    for g, t in zip(lrs, twin))
+    _p(f"4n recipe: learning rate per step {lrs}; closed form (float32, "
+       f"the program's op order) {closed}: worst relative error {err:.3e} "
+       f"(tolerance {RECIPE_LR_RTOL}); the swapped-arms twin misses by "
+       f"{twin_miss:.3e} times the tolerance")
+    if err > RECIPE_LR_RTOL or twin_miss < 10:
+        raise SystemExit("chip_smoke: the recipe's learning rate is not "
+                         "the schedule's closed form")
+    host_ms, busy_ms, idle, kernels, by_class = _profile(step, 5)
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:6]
+    _p(f"4n recipe step, profiled: host {host_ms:.3f} ms, busy "
+       f"{busy_ms:.3f} ms, idle {idle:.4f}, {kernels:.0f} kernels a step; "
+       f"{', '.join(f'{c} {ms:.4f}' for c, ms in top)} (phase 4b at a "
+       f"constant rate, PERF.md: 179.1 host, 32.6 busy ms)  [{card}]")
+    return launches, {"host_ms": host_ms, "busy_ms": busy_ms, "idle": idle,
+                      "kernels": kernels, "syncs_per_step":
+                      syncs / RECIPE_TIMED, "host_reads": host_reads,
+                      "lr_err": err, "lr_twin_miss": twin_miss,
+                      "step_ms": wall / RECIPE_TIMED * 1e3}
+
+
+def _master_program(fluid, opt_cls):
+    """bfloat16 FFN weights made by ``create_parameter(dtype=
+    "bfloat16")`` in the reference's spelling (tests/test_kernel_tier.py:
+    320-352), chained over a float32 input, the mean square as loss,
+    under ``opt_cls(multi_precision=True)``."""
+    L = fluid.layers
+    x = fluid.data("x", [-1, MASTER_SHAPES[0][0]])
+    gb = fluid.default_main_program().global_block()
+    sb = fluid.default_startup_program().global_block()
+    h = x
+    for i, shape in enumerate(MASTER_SHAPES):
+        name = f"ffn_w{i}_lo"
+        gb.create_parameter(name, list(shape), dtype="bfloat16")
+        sb.create_var(name=name, shape=list(shape), dtype="bfloat16",
+                      persistable=True)
+        sb.append_op("fill_constant", outputs={"Out": [name]},
+                     attrs={"shape": list(shape), "dtype": "bfloat16",
+                            "value": 0.0})
+        h = L.matmul(h, gb.vars[name])
+    loss = L.mean(L.square(h))
+    kw = {"momentum": 0.9} if opt_cls == "MomentumOptimizer" else {}
+    getattr(fluid.optimizer, opt_cls)(1e-3, multi_precision=True,
+                                      **kw).minimize(loss)
+    return loss
+
+
+def _master_runs(opt_cls, card):
+    """(c) for one optimizer: MASTER_STEPS steps fused and unfused from
+    one init; every master, moment or velocity and bf16 parameter
+    ``torch.equal`` between them.  Returns the fused run's launches and
+    its last step's op inputs (for the kernel checks)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+    from paddle_tpu_torch.ops import cuda_kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    init = None
+    states, launches = [], None
+    for fuse in (False, True):
+        reset_unique_name()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            loss = _master_program(fluid, opt_cls)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        if init is None:
+            # weights scaled so the chain keeps its scale; each master the
+            # exact widening of its bf16 parameter, as the startup's cast
+            init = {}
+            for i, shape in enumerate(MASTER_SHAPES):
+                w = (torch.randn(shape, generator=g, device=DEVICE)
+                     / math.sqrt(shape[0])).to(torch.bfloat16)
+                init[f"ffn_w{i}_lo"] = w
+        master_of = {}
+        for n in main.global_block().vars:
+            if "_master_weight_" in n:
+                master_of[n] = n.split("_master_weight_")[1]
+        for n, w in init.items():
+            scope.set_var(n, w.clone())
+        for m, p in master_of.items():
+            scope.set_var(m, init[p].float())
+        program = main
+        if fuse:
+            bs = fluid.BuildStrategy()
+            bs.fuse_optimizer = True
+            program = fluid.CompiledProgram(main, bs)
+            program._apply_ir_passes([loss.name])
+            fused = [op for op in main.global_block().ops
+                     if op.type.startswith("fused_")]
+            if len(fused) != 1 or len(fused[0].inputs["MasterParam"]) != \
+                    len(MASTER_SHAPES):
+                raise SystemExit(f"chip_smoke: fuse_optimizer did not make "
+                                 f"one bucket of the {opt_cls} masters")
+            for fn in (cuda_kernels.fused_adam_master,
+                       cuda_kernels.fused_momentum_master):
+                fn.launches = 0
+        rng = np.random.RandomState(SEED + 7)
+        for _ in range(MASTER_STEPS):
+            exe.run(program, feed={"x": rng.randn(
+                MASTER_ROWS, MASTER_SHAPES[0][0]).astype("float32")},
+                fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        if fuse:
+            launches = {n: getattr(cuda_kernels, n).launches
+                        for n in ("fused_adam_master",
+                                  "fused_momentum_master")}
+        states.append({n: scope.find_var(n).clone() for n, v in
+                       main.global_block().vars.items()
+                       if v.persistable and scope.find_var(n) is not None})
+    off, on = states
+    equal = sorted(off) == sorted(on) and all(
+        off[n].dtype == on[n].dtype and torch.equal(off[n], on[n])
+        for n in off)
+    moved = sum(not torch.equal(on[n], init[n]) for n in init)
+    _p(f"4n masters, {opt_cls}(multi_precision=True): {len(MASTER_SHAPES)} "
+       f"bf16 FFN weights ({sum(math.prod(s) for s in MASTER_SHAPES)} "
+       f"values), {MASTER_STEPS} steps fused and unfused: every master, "
+       f"moment or velocity and bf16 parameter torch.equal = {equal}; "
+       f"{moved} of {len(init)} bf16 parameters moved; fused launches "
+       f"{launches}  [{card}]")
+    if not equal or moved == 0:
+        raise SystemExit(f"chip_smoke: the fused {opt_cls} master path is "
+                         f"not bit-identical to the per-param ops")
+    return launches, on
+
+
+def _master_kernel_row(kind, state, card):
+    """A master kernel at the (c) bucket: against its plain version on
+    the same inputs (``torch.equal``), timed beside its bound (28 or 20
+    bytes a value) and the library call over the fp32 masters."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam, \
+        _plain_fused_momentum
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    names = [f"ffn_w{i}_lo" for i in range(len(MASTER_SHAPES))]
+    opt = "AdamOptimizer" if kind == "adam" else "MomentumOptimizer"
+    masters = [state[f"{opt}_master_weight_{n}"] for n in names]
+    lows = [state[n] for n in names]
+    grads = [(1e-3 * torch.randn(m.shape, generator=g, device=DEVICE))
+             .to(torch.bfloat16) for m in masters]
+    lr = torch.full((1,), 1e-3, device=DEVICE)
+    n = sum(m.numel() for m in masters)
+    if kind == "adam":
+        m1s = [state[f"{opt}_moment1_{x}"] for x in names]
+        vs = [state[f"{opt}_moment2_{x}"] for x in names]
+        b1ps = [state[f"{opt}_beta1_pow_{x}"] for x in names]
+        b2ps = [state[f"{opt}_beta2_pow_{x}"] for x in names]
+
+        def kernel():
+            return cuda_kernels.fused_adam_master(
+                masters, grads, m1s, vs, lr, b1ps, b2ps, 0.9, 0.999, 1e-8,
+                torch.bfloat16)
+
+        def plain():
+            return _plain_fused_adam(masters, grads, m1s, vs, lr, b1ps, b2ps,
+                                     0.9, 0.999, 1e-8, lo=lows)
+
+        po, mo, vo, plo, _ = kernel()
+        want = plain()
+        got = {"MasterParamOut": po, "Moment1Out": mo, "Moment2Out": vo,
+               "ParamOut": plo}
+        lib = [[x.clone() for x in masters], [x.float() for x in grads],
+               [x.clone() for x in m1s], [x.clone() for x in vs]]
+        step = round(math.log(float(b1ps[0])) / math.log(0.9))
+        bc2 = 1 - 0.999 ** step
+        steps = [torch.full((), float(step), device=DEVICE) for _ in lib[0]]
+
+        def library():
+            torch._fused_adam_(*lib, [], steps, lr=1e-3, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0,
+                               eps=1e-8 / math.sqrt(bc2), amsgrad=False,
+                               maximize=False)
+        per_value, flops, libname = 28, 12.0, "torch._fused_adam_"
+    else:
+        vs = [state[f"{opt}_velocity_{x}"] for x in names]
+
+        def kernel():
+            return cuda_kernels.fused_momentum_master(
+                masters, grads, vs, lr, 0.9, 0.0, False, torch.bfloat16)
+
+        def plain():
+            return _plain_fused_momentum(masters, grads, vs, lr, 0.9, 0.0,
+                                         False, lo=lows)
+
+        po, vo, plo = kernel()
+        want = plain()
+        got = {"MasterParamOut": po, "VelocityOut": vo, "ParamOut": plo}
+        lib = [[x.clone() for x in masters], [x.float() for x in grads],
+               [x.clone() for x in vs]]
+
+        def library():
+            torch._fused_sgd_(*lib, weight_decay=0.0, momentum=0.9, lr=1e-3,
+                              dampening=0.0, nesterov=False, maximize=False,
+                              is_first_step=False)
+        per_value, flops, libname = 20, 4.0, "torch._fused_sgd_"
+    from paddle_tpu_torch.ops.optimizer_ops import _view_specs, _views
+    specs = _view_specs(tuple(m.shape for m in masters))
+    err, equal = 0.0, True
+    for slot, buf in got.items():
+        for a, b in zip(_views(buf, specs), want[slot]):
+            equal &= torch.equal(a, b)
+            err = max(err, (a.float() - b.float()).abs().max().item())
+    name = f"fused_{kind}_master"
+    _p(f"  {name} at the (c) bucket ({len(masters)} params, {n} values, "
+       f"bf16 grads and params): torch.equal to its plain version on "
+       f"every output = {equal} (max |err| {err:.3e}; tolerance: "
+       f"bit-identical)")
+    if not equal:
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                         f"version")
+    ms = _profile(kernel, 20)[1]
+    plain_ms = _profile(plain, 10)[1]
+    library_ms = _profile(library, 10)[1]
+    # the wrapper's wall time a call by CUDA events, beside the profiler's
+    # device time: a cross-check of the kernel's time against its bound
+    call_ms = _ms(kernel, 20)
+    t_bytes = per_value * n / HBM_BYTES_PER_S * 1e3
+    t_ops = flops * n / FLOPS_PER_S["float32"] * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+    _p(f"  {name} device per call: kernel {ms:.4f} ms "
+       f"({per_value * n / ms / 1e9:.2f} TB/s at {per_value} bytes a "
+       f"value) | plain {plain_ms:.4f} ms | library ({libname} over the "
+       f"fp32 masters, fp32 grads) {library_ms:.4f} ms | bound "
+       f"{bound_ms:.4f} ms ({bound_by}); the wrapper's wall per call "
+       f"(CUDA events) {call_ms:.4f} ms  [{card}]")
+    del lib
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "values": n, "call_ms": call_ms,
+            "bytes_per_value": per_value, "library": libname}
+
+
+# (d): the optimizer classes that append ops, on LeNet at phase 4g's width
+STATIC_OPTIMIZERS = {
+    "SGD": lambda O: O.SGDOptimizer(0.1),
+    "Momentum": lambda O: O.MomentumOptimizer(0.1, 0.9, use_nesterov=True),
+    "LarsMomentum": lambda O: O.LarsMomentumOptimizer(0.1, 0.9),
+    "Adam": lambda O: O.AdamOptimizer(1e-3),
+    "AdamW": lambda O: O.AdamWOptimizer(1e-3, weight_decay=0.1),
+    "Adagrad": lambda O: O.AdagradOptimizer(0.01),
+    "RMSProp": lambda O: O.RMSPropOptimizer(1e-3, momentum=0.5,
+                                            centered=True),
+    "Lamb": lambda O: O.LambOptimizer(1e-3),
+    "Ftrl": lambda O: O.FtrlOptimizer(0.01, l1=0.001, l2=0.001),
+    "Dpsgd": lambda O: O.DpsgdOptimizer(0.1, clip=1.0, sigma=0.0),
+    "Adamax": lambda O: O.AdamaxOptimizer(1e-3),
+    "Adadelta": lambda O: O.AdadeltaOptimizer(1.0),
+    "DecayedAdagrad": lambda O: O.DecayedAdagradOptimizer(0.01),
+    "DGCMomentum": lambda O: O.DGCMomentumOptimizer(
+        0.1, 0.9, rampup_begin_step=1, sparsity=[0.5]),
+    "GradientMerge": lambda O: O.GradientMergeOptimizer(
+        O.AdamOptimizer(1e-3), k_steps=2),
+    "Lookahead": lambda O: O.LookaheadOptimizer(O.SGDOptimizer(0.1),
+                                                alpha=0.5, k=2),
+    "ModelAverage": "sgd + ModelAverage",
+    "Recompute": lambda O: O.RecomputeOptimizer(O.AdamOptimizer(1e-3)),
+    "Pipeline": lambda O: O.PipelineOptimizer(
+        O.MomentumOptimizer(0.1, 0.9), num_microbatches=2),
+}
+
+
+def _lenet_with(fluid, name):
+    """LeNet (phase 4g's) under the optimizer ``name``."""
+    L = fluid.layers
+    img = fluid.data("img", [-1, 1, 28, 28])
+    label = fluid.data("label", [-1, 1], dtype="int64")
+    conv1 = L.conv2d(img, 6, 3, padding=1, act="relu")
+    pool1 = L.pool2d(conv1, 2, "max", 2)
+    conv2 = L.conv2d(pool1, 16, 5, act="relu")
+    pool2 = L.pool2d(conv2, 2, "max", 2)
+    fc1 = L.fc(L.flatten(pool2), 120, act="relu")
+    loss = L.mean(L.softmax_with_cross_entropy(L.fc(fc1, 10), label))
+    O = fluid.optimizer
+    make = STATIC_OPTIMIZERS[name]
+    if name == "ModelAverage":
+        O.SGDOptimizer(0.1).minimize(loss)
+        O.ModelAverage(0.5, min_average_window=2, max_average_window=3)
+    else:
+        make(O).minimize(loss)
+    return loss
+
+
+def _card_vs_host(label, build, feeds, rtol, card, init=None):
+    """Build under fresh names, the startup's state on the host as the
+    shared init, the runs on the card and on the host: every fetch
+    within ``rtol`` relative to the host's largest |value| of it.
+    Returns the worst error over ``rtol``."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, fetches, program = _book_program(build, False)
+    init = _startup_state(main, startup, fluid.CPUPlace()) if init is None \
+        else init
+    card_out, _ = _steps(program, main, list(fetches), init,
+                         fluid.CUDAPlace(0), feeds)
+    host_out, _ = _steps(program, main, list(fetches), init,
+                         fluid.CPUPlace(), feeds)
+    worst = 0.0
+    for c, h in zip(card_out, host_out):
+        for a, b in zip(c, h):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            scale = max(float(np.abs(b).max()), 1e-30)
+            worst = max(worst, float(np.abs(a - b).max()) / (rtol * scale))
+    if worst > 1.0 or not all(np.isfinite(np.asarray(x, np.float64)).all()
+                              for c in card_out for x in c):
+        raise SystemExit(f"chip_smoke: {label} on the card disagrees with "
+                         f"the host (worst {worst:.3f} of rtol {rtol})")
+    return worst
+
+
+def _loop_program(fluid):
+    L = fluid.layers
+    x = fluid.data("x", [LOOP["rows"], LOOP["width"]])
+    w = L.create_parameter([LOOP["width"], LOOP["width"]], "float32",
+                           name="loop_w")
+    i = L.fill_constant([1], "int64", 0)
+    n = L.fill_constant([1], "int64", LOOP["trips"])
+
+    def body(i, x):
+        y = L.matmul(x, w)
+        y = y / L.reshape(L.sqrt(L.reduce_sum(L.square(y))), [1])
+        return [L.increment(i, 1, in_place=False), y]
+
+    i, x = L.while_loop(lambda i, x: L.less_than(i, n), body, [i, x])
+    return x, i
+
+
+def _branch_program(fluid):
+    """A cond and a switch_case over a fed index, on the loop's width."""
+    L = fluid.layers
+    x = fluid.data("x", [LOOP["rows"], LOOP["width"]])
+    idx = fluid.data("idx", [1], dtype="int64")
+    pred = L.less_than(L.reshape(L.reduce_sum(x), [1]),
+                       L.fill_constant([1], "float32", 0.0))
+    a = L.cond(pred, lambda: L.tanh(x), lambda: L.scale(x, scale=0.5))
+    b = L.switch_case(idx, {0: lambda: L.exp(L.scale(x, scale=0.1)),
+                            2: lambda: L.sigmoid(x)},
+                      default=lambda: L.square(x))
+    return a, b
+
+
+def _rnn_program(fluid):
+    L = fluid.layers
+    b, t, d = (STATIC_RNN[k] for k in ("batch", "steps", "width"))
+    x = fluid.data("x", [b, t, d])
+    rnn = L.StaticRNN()
+    with rnn.step():
+        xt = rnn.step_input(x)
+        hp = rnn.memory(shape=[-1, d], batch_ref=x)
+        h = L.tanh(L.elementwise_add(L.fc(xt, d, bias_attr=False),
+                                     L.fc(hp, d)))
+        rnn.update_memory(hp, h)
+        rnn.step_output(h)
+    return (rnn(),)
+
+
+SCHEDULE_BUILDERS = {
+    "exponential_decay": lambda L: L.exponential_decay(0.1, 7, 0.5, True),
+    "natural_exp_decay": lambda L: L.natural_exp_decay(0.1, 5, 0.3),
+    "inverse_time_decay": lambda L: L.inverse_time_decay(0.1, 4, 0.5,
+                                                         True),
+    "polynomial_decay": lambda L: L.polynomial_decay(0.1, 20, 0.001, 2.0,
+                                                     cycle=True),
+    "piecewise_decay": lambda L: L.piecewise_decay(
+        [5, 12, 20], [0.1, 0.05, 0.01, 0.001]),
+    "noam_decay": lambda L: L.noam_decay(512, 8),
+    "cosine_decay": lambda L: L.cosine_decay(0.1, 3, 10),
+    "linear_lr_warmup": lambda L: L.linear_lr_warmup(0.1, 6, 0.0, 0.1),
+}
+
+
+def _surface_leg(card):
+    """(d): the optimizer classes on LeNet, the control flow at the
+    loop's width and the eight schedules, card against host."""
+    from paddle_tpu_torch.fluid import trace
+
+    rng = np.random.RandomState(SEED + 3)
+    img, lbl = _blob_data(rng, LENET_BATCH)
+    feeds = [{"img": img, "label": lbl}] * 3
+    worst = {}
+    for name in STATIC_OPTIMIZERS:
+        worst[name] = _card_vs_host(
+            f"LeNet under {name}", lambda fluid, n=name: _lenet_with(fluid,
+                                                                     n),
+            feeds, STATIC_OPT_RTOL, card)
+    _p(f"4n optimizers on LeNet, batch {LENET_BATCH}, 3 steps card vs "
+       f"host (rtol {STATIC_OPT_RTOL} of each fetch's largest |value|): "
+       + ", ".join(f"{n} {w:.3f}" for n, w in worst.items()) + f"  [{card}]")
+    x = rng.randn(LOOP["rows"], LOOP["width"]).astype("float32")
+    reads = trace.metrics().counter("control_flow.host_reads")
+    before = reads.value
+    loop = _card_vs_host("while_loop", _loop_program, [{"x": x}], 1e-4,
+                         card)
+    trips = (reads.value - before) // 2
+    branches = [_card_vs_host(f"cond + switch_case, index {k}",
+                              _branch_program,
+                              [{"x": x * s, "idx": np.array([k], "int64")}],
+                              1e-5, card)
+                for k, s in ((0, 1.0), (2, -1.0), (7, 1.0))]
+    seq = rng.randn(STATIC_RNN["batch"], STATIC_RNN["steps"],
+                    STATIC_RNN["width"]).astype("float32")
+    rnn = _card_vs_host("StaticRNN", _rnn_program, [{"x": seq}], 1e-4, card)
+    _p(f"4n control flow card vs host: while_loop ({LOOP['trips']} trips "
+       f"of a [{LOOP['rows']}, {LOOP['width']}] x [{LOOP['width']}, "
+       f"{LOOP['width']}] product and a normalisation; {trips} host reads "
+       f"a run, rtol 1e-4) {loop:.3f}; cond + switch_case (rtol 1e-5) "
+       f"{[round(b, 3) for b in branches]}; StaticRNN ({STATIC_RNN['steps']}"
+       f" steps, width {STATIC_RNN['width']}, rtol 1e-4) {rnn:.3f}")
+    # the card's pow, exp and cos round differently from the host's by
+    # an ulp (PR 17's first chip run: polynomial_decay's pow 1.017 times
+    # 1e-7); the closed form's 1e-7 is the recipe leg's check
+    sched = {}
+    for name, make in SCHEDULE_BUILDERS.items():
+        sched[name] = _card_vs_host(
+            name, lambda fluid, m=make: (m(fluid.layers),), [{}] * 30,
+            SCHEDULE_RTOL, card)
+    _p(f"4n schedules, 30 runs card vs host (rtol {SCHEDULE_RTOL}): "
+       + ", ".join(f"{n} {w:.3f}" for n, w in sched.items()))
+    return {"optimizers": worst, "while_loop": loop, "branches": branches,
+            "static_rnn": rnn, "schedules": sched,
+            "while_host_reads": trips}
+
+
+def phase_static_training(card):
+    """Phase 4n: the static training surface.  (a) the BERT recipe at
+    BERT-base width through the kernel tier, (b) LAMB on it, (c) fp32
+    master weights through the two kernels' master paths, (d) the
+    optimizer classes, the control flow and the schedules.  Returns the
+    recipe's launches over its timed steps, the master rows and the
+    master legs' launches."""
+    launches, recipe = _recipe_leg(card)
+    recipe["card_vs_host"] = _recipe_card_vs_host("adam", card)
+    recipe["lamb_card_vs_host"] = _recipe_card_vs_host("lamb", card)
+    rows, master_launches = {}, {}
+    for kind, opt in (("adam", "AdamOptimizer"),
+                      ("momentum", "MomentumOptimizer")):
+        got, state = _master_runs(opt, card)
+        master_launches[f"fused_{kind}_master"] = \
+            got[f"fused_{kind}_master"]
+        if got[f"fused_{kind}_master"] != MASTER_STEPS:
+            raise SystemExit(f"chip_smoke: fused_{kind}_master launched "
+                             f"{got} times in {MASTER_STEPS} steps")
+        rows[f"fused_{kind}_master"] = _master_kernel_row(kind, state, card)
+        del state
+    recipe["surface"] = _surface_leg(card)
+    return launches, rows, master_launches, recipe
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6959,7 +7682,9 @@ def main():
                                             phase_serve_decode, card)
     book_launches, book_kernels, book_profiled = _timed(
         "4g static e2e / LeNet", phase_static_book, card)
-    # 4k builds static programs too: before 4e turns dygraph on
+    # 4n and 4k build static programs too: before 4e turns dygraph on
+    recipe_launches, master_rows, master_launches, _ = _timed(
+        "4n static training surface", phase_static_training, card)
     box_launches, box_legs_launches, box = _timed(
         "4k train CTR through BoxPS", phase_train_boxps, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
@@ -7124,6 +7849,21 @@ def main():
         row["hapi_launches"] = {
             "nmt_fit": hapi["nmt_fit"][row["name"]],
             "lenet_static_fit": hapi["lenet_static_fit"][row["name"]]}
+    # the static training surface (phase 4n): the recipe's launches over
+    # its timed steps on every row; the two master paths' rows, launched
+    # once a step by (c)'s fused runs
+    for row in kernels:
+        row["recipe_launches"] = recipe_launches[row["name"]]
+    for opt, line in (("adam", ":647"), ("momentum", ":678")):
+        name = f"fused_{opt}_master"
+        row = master_rows[name]
+        kernels.append(_kernel_row(
+            name, f"paddle_tpu_torch/csrc/fused_{opt}.cu",
+            "paddle_tpu/ops/pallas_kernels.py" + line,
+            master_launches[name], row, dtype="bfloat16 params, float32 "
+            "masters", values=row["values"],
+            bytes_per_value=row["bytes_per_value"], library=row["library"],
+            call_ms=row["call_ms"], recipe_launches=recipe_launches[name]))
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -37,6 +37,7 @@ from . import utils
 from . import tensor
 from .tensor import *  # noqa: F401,F403
 from . import optimizer
+from . import regularizer
 from . import metric
 from . import vision
 from . import models

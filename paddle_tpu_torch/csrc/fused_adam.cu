@@ -39,10 +39,25 @@
 // bucket that is 1.450 GB, 0.433 ms at 3.35 TB/s.  Each thread keeps
 // VECS float4 loads of each input in flight before it computes.
 //
+// The master path (the bucket's update ops carry fp32 master weights):
+// the table's p are the float32 masters, each gradient is read in its
+// own dtype (float32, bfloat16 or float16, per segment) and widened in
+// registers, and the kernel writes the new master, m' and v' and, in the
+// same pass, the parameter rounded to bfloat16 or float16
+// (__float2bfloat16_rn, __float2half_rn: round to nearest even, as
+// torch's Tensor.to rounds) into a fourth flat buffer.  Bit for bit the
+// per-parameter adam lowering with MasterParam, which widens the
+// gradient, updates the master and rounds.  Bytes a value stay at 28 for
+// a 16-bit gradient and parameter (4 + 2 + 4 + 4 read, 4 + 4 + 4 + 2
+// written), so its bound at a given bucket is the float32 path's.  A
+// 16-bit gradient moves in 8-byte vectors when it starts 8-byte aligned.
+//
 // The C entry launches one kernel per chunk of at most MAX_SEGS
 // segments, as the caller cut the table; nothing is allocated, and every
 // launch is on the caller's stream.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,9 +72,12 @@ struct Coeffs {
   float b1, omb1, b2, omb2, eps;
 };
 
+// dtype codes of a gradient and of the rounded parameter
+constexpr int F32 = 0, BF16 = 1, F16 = 2;
+
 struct Table {
-  const float* p[MAX_SEGS];
-  const float* g[MAX_SEGS];
+  const float* p[MAX_SEGS];           // the params, or the fp32 masters
+  const void* g[MAX_SEGS];            // of dtype gdt[j]
   const float* m[MAX_SEGS];
   const float* v[MAX_SEGS];
   const float* b1p[MAX_SEGS];
@@ -68,6 +86,7 @@ struct Table {
   int64_t out[MAX_SEGS];              // the segment's offset in po, mo, vo
   int block_start[MAX_SEGS + 1];
   unsigned long long vec;             // bit j: segment j moves in float4s
+  unsigned char gdt[MAX_SEGS];        // F32, BF16 or F16
   int nseg;
   int first;                          // index of segment 0 in the bucket
 };
@@ -78,8 +97,59 @@ struct Outs {
   float* mo;
   float* vo;
   float* pows;                        // [2, nparams]
+  void* plo;                          // the rounded params (master path)
   int nparams;
 };
+
+__device__ __forceinline__ float load_g(const void* g, int dt, int64_t i) {
+  if (dt == BF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  if (dt == F16) return __half2float(static_cast<const __half*>(g)[i]);
+  return static_cast<const float*>(g)[i];
+}
+
+// the four values [4 i4, 4 i4 + 4) of a gradient, widened
+__device__ __forceinline__ float4 load_g4(const void* g, int dt,
+                                          int64_t i4) {
+  if (dt == F32) return reinterpret_cast<const float4*>(g)[i4];
+  const uint2 raw = reinterpret_cast<const uint2*>(g)[i4];
+  float2 a, b;
+  if (dt == BF16) {
+    a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  } else {
+    a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+    b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  }
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <int LO>
+__device__ __forceinline__ void store_lo(void* plo, int64_t i, float v) {
+  if (LO == BF16)
+    static_cast<__nv_bfloat16*>(plo)[i] = __float2bfloat16_rn(v);
+  else if (LO == F16)
+    static_cast<__half*>(plo)[i] = __float2half_rn(v);
+}
+
+template <int LO>
+__device__ __forceinline__ void store_lo4(void* plo, int64_t i4, float4 v) {
+  uint2 raw;
+  if (LO == BF16) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    raw.x = *reinterpret_cast<const unsigned*>(&a);
+    raw.y = *reinterpret_cast<const unsigned*>(&b);
+  } else if (LO == F16) {
+    const __half2 a = __floats2half2_rn(v.x, v.y);
+    const __half2 b = __floats2half2_rn(v.z, v.w);
+    raw.x = *reinterpret_cast<const unsigned*>(&a);
+    raw.y = *reinterpret_cast<const unsigned*>(&b);
+  } else {
+    return;
+  }
+  reinterpret_cast<uint2*>(plo)[i4] = raw;
+}
 
 __device__ __forceinline__ void adam_one(float p, float g, float m, float v,
                                          float lrt, const Coeffs& c,
@@ -93,6 +163,9 @@ __device__ __forceinline__ void adam_one(float p, float g, float m, float v,
   *vo = v_new;
 }
 
+// LO: the rounded parameter's dtype on the master path, F32 (nothing
+// rounded, no fourth output) on the float32 path
+template <int LO>
 __global__ void __launch_bounds__(NUM_THREADS)
 fused_adam_kernel(const __grid_constant__ Table t, const Outs o,
                   const Coeffs c) {
@@ -119,12 +192,16 @@ fused_adam_kernel(const __grid_constant__ Table t, const Outs o,
     o.pows[o.nparams + t.first + j] = __fmul_rn(b2p, c.b2);
   }
   const float* __restrict__ p = t.p[j];
-  const float* __restrict__ g = t.g[j];
+  const void* __restrict__ g = t.g[j];
+  const int gdt = t.gdt[j];
   const float* __restrict__ m = t.m[j];
   const float* __restrict__ v = t.v[j];
   float* __restrict__ po = o.po + t.out[j];
   float* __restrict__ mo = o.mo + t.out[j];
   float* __restrict__ vo = o.vo + t.out[j];
+  void* plo = LO == F32 ? nullptr
+                        : static_cast<void*>(static_cast<char*>(o.plo) +
+                                             2 * t.out[j]);
 
   if ((t.vec >> j) & 1ull) {
     const int64_t n4 = n / 4;
@@ -135,7 +212,7 @@ fused_adam_kernel(const __grid_constant__ Table t, const Outs o,
       const int64_t i = first + k * NUM_THREADS;
       if (i < n4) {
         p4[k] = reinterpret_cast<const float4*>(p)[i];
-        g4[k] = reinterpret_cast<const float4*>(g)[i];
+        g4[k] = load_g4(g, gdt, i);
         m4[k] = reinterpret_cast<const float4*>(m)[i];
         v4[k] = reinterpret_cast<const float4*>(v)[i];
       }
@@ -156,26 +233,36 @@ fused_adam_kernel(const __grid_constant__ Table t, const Outs o,
         reinterpret_cast<float4*>(po)[i] = pn;
         reinterpret_cast<float4*>(mo)[i] = mn;
         reinterpret_cast<float4*>(vo)[i] = vn;
+        store_lo4<LO>(plo, i, pn);
       }
     }
     // the n % 4 tail, by the segment's last block
     const int64_t i = 4 * n4 + threadIdx.x;
-    if (begin + BLOCK_ELEMS >= n && i < n)
-      adam_one(p[i], g[i], m[i], v[i], lrt, c, po + i, mo + i, vo + i);
+    if (begin + BLOCK_ELEMS >= n && i < n) {
+      adam_one(p[i], load_g(g, gdt, i), m[i], v[i], lrt, c, po + i, mo + i,
+               vo + i);
+      store_lo<LO>(plo, i, po[i]);
+    }
   } else {
 #pragma unroll 4
     for (int k = 0; k < 4 * VECS; ++k) {
       const int64_t i = begin + k * NUM_THREADS + threadIdx.x;
-      if (i < n)
-        adam_one(p[i], g[i], m[i], v[i], lrt, c, po + i, mo + i, vo + i);
+      if (i < n) {
+        float pn;
+        adam_one(p[i], load_g(g, gdt, i), m[i], v[i], lrt, c, &pn, mo + i,
+                 vo + i);
+        po[i] = pn;
+        store_lo<LO>(plo, i, pn);
+      }
     }
   }
 }
 
 // One launch over segments [first, first + nseg) of the table.
-cudaError_t launch_chunk(const float* const* table, const int64_t* n,
-                         const int64_t* out, int first, int nseg,
-                         const Outs& o, const Coeffs& c, cudaStream_t st) {
+cudaError_t launch_chunk(const void* const* table, const int64_t* n,
+                         const int64_t* out, const unsigned char* gdt,
+                         int lo, int first, int nseg, const Outs& o,
+                         const Coeffs& c, cudaStream_t st) {
   const int k = o.nparams;
   Table t;
   t.nseg = nseg;
@@ -185,12 +272,14 @@ cudaError_t launch_chunk(const float* const* table, const int64_t* n,
   for (int j = 0; j < nseg; ++j) {
     const int i = first + j;
     if (n[i] < 0 || out[i] % 4 != 0) return cudaErrorInvalidValue;
-    t.p[j] = table[i];
+    t.p[j] = static_cast<const float*>(table[i]);
     t.g[j] = table[k + i];
-    t.m[j] = table[2 * k + i];
-    t.v[j] = table[3 * k + i];
-    t.b1p[j] = table[4 * k + i];
-    t.b2p[j] = table[5 * k + i];
+    t.m[j] = static_cast<const float*>(table[2 * k + i]);
+    t.v[j] = static_cast<const float*>(table[3 * k + i]);
+    t.b1p[j] = static_cast<const float*>(table[4 * k + i]);
+    t.b2p[j] = static_cast<const float*>(table[5 * k + i]);
+    t.gdt[j] = gdt ? gdt[i] : F32;
+    if (t.gdt[j] > F16) return cudaErrorInvalidValue;
     t.n[j] = n[i];
     t.out[j] = out[i];
     t.block_start[j] = static_cast<int>(blocks);
@@ -198,15 +287,21 @@ cudaError_t launch_chunk(const float* const* table, const int64_t* n,
     const int64_t nb = (n[i] + BLOCK_ELEMS - 1) / BLOCK_ELEMS;
     blocks += nb > 0 ? nb : 1;
     const uintptr_t any = reinterpret_cast<uintptr_t>(t.p[j]) |
-                          reinterpret_cast<uintptr_t>(t.g[j]) |
                           reinterpret_cast<uintptr_t>(t.m[j]) |
                           reinterpret_cast<uintptr_t>(t.v[j]);
-    if (any % 16 == 0) t.vec |= 1ull << j;
+    const uintptr_t ga = reinterpret_cast<uintptr_t>(t.g[j]);
+    if (any % 16 == 0 && ga % (t.gdt[j] == F32 ? 16 : 8) == 0)
+      t.vec |= 1ull << j;
   }
   if (blocks >= (int64_t)1 << 31) return cudaErrorInvalidValue;
   t.block_start[nseg] = static_cast<int>(blocks);
-  fused_adam_kernel<<<static_cast<unsigned>(blocks), NUM_THREADS, 0, st>>>(
-      t, o, c);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  if (lo == BF16)
+    fused_adam_kernel<BF16><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
+  else if (lo == F16)
+    fused_adam_kernel<F16><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
+  else
+    fused_adam_kernel<F32><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
   return cudaGetLastError();
 }
 
@@ -216,37 +311,44 @@ extern "C" {
 
 // One Adam step over a bucket of nparams parameters, one launch per
 // chunk.  table holds 6 * nparams pointers on the card: each parameter's
-// p, then each g, m, v, and its one-value Beta1Pow and Beta2Pow, each
-// kind nparams long; parameter i has n[i] float32 values in each of its
-// four tensors and starts at out[i] (a multiple of 4) in the flat outputs
-// po, mo, vo (16-byte aligned).  chunks: nchunks + 1 ascending parameter
+// p (its fp32 master on the master path), then each g, m, v, and its
+// one-value Beta1Pow and Beta2Pow, each kind nparams long; parameter i
+// has n[i] values in each of its four tensors, float32 but for g, whose
+// dtype code gdt[i] gives (0 float32, 1 bfloat16, 2 float16; gdt null:
+// all float32), and starts at out[i] (a multiple of 4) in the flat
+// outputs po, mo, vo (16-byte aligned).  lo: 0, or the master path's
+// rounded-parameter dtype code (1 bfloat16, 2 float16), written into plo
+// at the same offsets.  chunks: nchunks + 1 ascending parameter
 // indices from 0 to nparams, at most MAX_SEGS apart: launch c takes
 // parameters [chunks[c], chunks[c + 1]).  lr: the bucket's one-value
 // LearningRate; pows [2, nparams] receives b1p * b1 and b2p * b2.  omb1 =
 // 1 - beta1 and omb2 = 1 - beta2, each rounded once to float32 by the
 // caller, as torch rounds the Python scalar (1 - beta).  Returns a
 // cudaError_t (0 = every launch accepted).
-int pt_fused_adam(const float* const* table, const int64_t* n,
-                  const int64_t* out, const int* chunks, int nchunks,
-                  int nparams, const float* lr, float* po, float* mo,
-                  float* vo, float* pows, float b1, float omb1, float b2,
-                  float omb2, float eps, void* stream) {
+int pt_fused_adam(const void* const* table, const int64_t* n,
+                  const int64_t* out, const unsigned char* gdt,
+                  const int* chunks, int nchunks, int nparams,
+                  const float* lr, float* po, float* mo, float* vo,
+                  float* pows, void* plo, int lo, float b1, float omb1,
+                  float b2, float omb2, float eps, void* stream) {
   const uintptr_t outs = reinterpret_cast<uintptr_t>(po) |
                          reinterpret_cast<uintptr_t>(mo) |
                          reinterpret_cast<uintptr_t>(vo);
   if (nchunks <= 0 || nparams <= 0 || chunks[0] != 0 ||
-      chunks[nchunks] != nparams || outs % 16 != 0)
+      chunks[nchunks] != nparams || outs % 16 != 0 || lo < F32 ||
+      lo > F16 || (lo != F32 && (plo == nullptr ||
+                                 reinterpret_cast<uintptr_t>(plo) % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int ch = 0; ch < nchunks; ++ch)
     if (chunks[ch + 1] <= chunks[ch] || chunks[ch + 1] - chunks[ch] > MAX_SEGS)
       return static_cast<int>(cudaErrorInvalidValue);
-  const Outs o{lr, po, mo, vo, pows, nparams};
+  const Outs o{lr, po, mo, vo, pows, plo, nparams};
   const Coeffs c{b1, omb1, b2, omb2, eps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int ch = 0; ch < nchunks; ++ch) {
-    const cudaError_t err = launch_chunk(table, n, out, chunks[ch],
-                                         chunks[ch + 1] - chunks[ch], o, c,
-                                         st);
+    const cudaError_t err =
+        launch_chunk(table, n, out, gdt, lo, chunks[ch],
+                     chunks[ch + 1] - chunks[ch], o, c, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

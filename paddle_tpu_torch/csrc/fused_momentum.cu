@@ -39,10 +39,23 @@
 // computes, so that enough bytes are on their way to cover the memory's
 // latency.
 //
+// The master path (the bucket's update ops carry fp32 master weights):
+// the table's p are the float32 masters, each gradient is read in its
+// own dtype (float32, bfloat16 or float16, per segment) and widened in
+// registers, and the kernel writes the new master and v' and, in the
+// same pass, the parameter rounded to bfloat16 or float16
+// (__float2bfloat16_rn, __float2half_rn: round to nearest even, as
+// torch's Tensor.to rounds) into a third flat buffer.  Bit for bit the
+// per-parameter momentum lowering with MasterParam.  Bytes a value stay
+// at 20 for a 16-bit gradient and parameter (4 + 2 + 4 read, 4 + 4 + 2
+// written), so its bound at a given bucket is the float32 path's.
+//
 // The C entry launches one kernel per chunk of at most MAX_SEGS segments,
 // as the caller cut the table; nothing is allocated, and every launch is
 // on the caller's stream.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,14 +71,18 @@ struct Coeffs {
   int nesterov;
 };
 
+// dtype codes of a gradient and of the rounded parameter
+constexpr int F32 = 0, BF16 = 1, F16 = 2;
+
 struct Table {
-  const float* p[MAX_SEGS];
-  const float* g[MAX_SEGS];
+  const float* p[MAX_SEGS];           // the params, or the fp32 masters
+  const void* g[MAX_SEGS];            // of dtype gdt[j]
   const float* v[MAX_SEGS];
   int64_t n[MAX_SEGS];
   int64_t out[MAX_SEGS];              // the segment's offset in po, vo
   int block_start[MAX_SEGS + 1];
   unsigned long long vec;             // bit j: segment j moves in float4s
+  unsigned char gdt[MAX_SEGS];        // F32, BF16 or F16
   int nseg;
 };
 
@@ -73,7 +90,58 @@ struct Outs {
   const float* lr;
   float* po;
   float* vo;
+  void* plo;                          // the rounded params (master path)
 };
+
+__device__ __forceinline__ float load_g(const void* g, int dt, int64_t i) {
+  if (dt == BF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  if (dt == F16) return __half2float(static_cast<const __half*>(g)[i]);
+  return static_cast<const float*>(g)[i];
+}
+
+// the four values [4 i4, 4 i4 + 4) of a gradient, widened
+__device__ __forceinline__ float4 load_g4(const void* g, int dt,
+                                          int64_t i4) {
+  if (dt == F32) return reinterpret_cast<const float4*>(g)[i4];
+  const uint2 raw = reinterpret_cast<const uint2*>(g)[i4];
+  float2 a, b;
+  if (dt == BF16) {
+    a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  } else {
+    a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+    b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  }
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <int LO>
+__device__ __forceinline__ void store_lo(void* plo, int64_t i, float v) {
+  if (LO == BF16)
+    static_cast<__nv_bfloat16*>(plo)[i] = __float2bfloat16_rn(v);
+  else if (LO == F16)
+    static_cast<__half*>(plo)[i] = __float2half_rn(v);
+}
+
+template <int LO>
+__device__ __forceinline__ void store_lo4(void* plo, int64_t i4, float4 v) {
+  uint2 raw;
+  if (LO == BF16) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    raw.x = *reinterpret_cast<const unsigned*>(&a);
+    raw.y = *reinterpret_cast<const unsigned*>(&b);
+  } else if (LO == F16) {
+    const __half2 a = __floats2half2_rn(v.x, v.y);
+    const __half2 b = __floats2half2_rn(v.z, v.w);
+    raw.x = *reinterpret_cast<const unsigned*>(&a);
+    raw.y = *reinterpret_cast<const unsigned*>(&b);
+  } else {
+    return;
+  }
+  reinterpret_cast<uint2*>(plo)[i4] = raw;
+}
 
 __device__ __forceinline__ void momentum_one(float p, float g, float v,
                                              float lr, const Coeffs& c,
@@ -86,6 +154,9 @@ __device__ __forceinline__ void momentum_one(float p, float g, float v,
   *vo = v_new;
 }
 
+// LO: the rounded parameter's dtype on the master path, F32 (nothing
+// rounded, no third output) on the float32 path
+template <int LO>
 __global__ void __launch_bounds__(NUM_THREADS)
 fused_momentum_kernel(const __grid_constant__ Table t, const Outs o,
                       const Coeffs c) {
@@ -104,10 +175,14 @@ fused_momentum_kernel(const __grid_constant__ Table t, const Outs o,
   const int64_t begin = (int64_t)(block - t.block_start[j]) * BLOCK_ELEMS;
   const float lr = *o.lr;
   const float* __restrict__ p = t.p[j];
-  const float* __restrict__ g = t.g[j];
+  const void* __restrict__ g = t.g[j];
+  const int gdt = t.gdt[j];
   const float* __restrict__ v = t.v[j];
   float* __restrict__ po = o.po + t.out[j];
   float* __restrict__ vo = o.vo + t.out[j];
+  void* plo = LO == F32 ? nullptr
+                        : static_cast<void*>(static_cast<char*>(o.plo) +
+                                             2 * t.out[j]);
 
   if ((t.vec >> j) & 1ull) {
     const int64_t n4 = n / 4;
@@ -118,7 +193,7 @@ fused_momentum_kernel(const __grid_constant__ Table t, const Outs o,
       const int64_t i = first + k * NUM_THREADS;
       if (i < n4) {
         p4[k] = reinterpret_cast<const float4*>(p)[i];
-        g4[k] = reinterpret_cast<const float4*>(g)[i];
+        g4[k] = load_g4(g, gdt, i);
         v4[k] = reinterpret_cast<const float4*>(v)[i];
       }
     }
@@ -133,24 +208,35 @@ fused_momentum_kernel(const __grid_constant__ Table t, const Outs o,
         momentum_one(p4[k].w, g4[k].w, v4[k].w, lr, c, &pn.w, &vn.w);
         reinterpret_cast<float4*>(po)[i] = pn;
         reinterpret_cast<float4*>(vo)[i] = vn;
+        store_lo4<LO>(plo, i, pn);
       }
     }
     // the n % 4 tail, by the segment's last block
     const int64_t i = 4 * n4 + threadIdx.x;
-    if (begin + BLOCK_ELEMS >= n && i < n)
-      momentum_one(p[i], g[i], v[i], lr, c, po + i, vo + i);
+    if (begin + BLOCK_ELEMS >= n && i < n) {
+      float pn;
+      momentum_one(p[i], load_g(g, gdt, i), v[i], lr, c, &pn, vo + i);
+      po[i] = pn;
+      store_lo<LO>(plo, i, pn);
+    }
   } else {
 #pragma unroll 4
     for (int k = 0; k < 4 * VECS; ++k) {
       const int64_t i = begin + k * NUM_THREADS + threadIdx.x;
-      if (i < n) momentum_one(p[i], g[i], v[i], lr, c, po + i, vo + i);
+      if (i < n) {
+        float pn;
+        momentum_one(p[i], load_g(g, gdt, i), v[i], lr, c, &pn, vo + i);
+        po[i] = pn;
+        store_lo<LO>(plo, i, pn);
+      }
     }
   }
 }
 
 // One launch over segments [first, first + nseg) of the table.
-cudaError_t launch_chunk(const float* const* table, const int64_t* n,
-                         const int64_t* out, int first, int nseg, int nparams,
+cudaError_t launch_chunk(const void* const* table, const int64_t* n,
+                         const int64_t* out, const unsigned char* gdt,
+                         int lo, int first, int nseg, int nparams,
                          const Outs& o, const Coeffs& c, cudaStream_t st) {
   const int k = nparams;
   Table t;
@@ -160,9 +246,11 @@ cudaError_t launch_chunk(const float* const* table, const int64_t* n,
   for (int j = 0; j < nseg; ++j) {
     const int i = first + j;
     if (n[i] < 0 || out[i] % 4 != 0) return cudaErrorInvalidValue;
-    t.p[j] = table[i];
+    t.p[j] = static_cast<const float*>(table[i]);
     t.g[j] = table[k + i];
-    t.v[j] = table[2 * k + i];
+    t.v[j] = static_cast<const float*>(table[2 * k + i]);
+    t.gdt[j] = gdt ? gdt[i] : F32;
+    if (t.gdt[j] > F16) return cudaErrorInvalidValue;
     t.n[j] = n[i];
     t.out[j] = out[i];
     t.block_start[j] = static_cast<int>(blocks);
@@ -171,14 +259,20 @@ cudaError_t launch_chunk(const float* const* table, const int64_t* n,
     const int64_t nb = (n[i] + BLOCK_ELEMS - 1) / BLOCK_ELEMS;
     blocks += nb > 0 ? nb : 1;
     const uintptr_t any = reinterpret_cast<uintptr_t>(t.p[j]) |
-                          reinterpret_cast<uintptr_t>(t.g[j]) |
                           reinterpret_cast<uintptr_t>(t.v[j]);
-    if (any % 16 == 0) t.vec |= 1ull << j;
+    const uintptr_t ga = reinterpret_cast<uintptr_t>(t.g[j]);
+    if (any % 16 == 0 && ga % (t.gdt[j] == F32 ? 16 : 8) == 0)
+      t.vec |= 1ull << j;
   }
   if (blocks >= (int64_t)1 << 31) return cudaErrorInvalidValue;
   t.block_start[nseg] = static_cast<int>(blocks);
-  fused_momentum_kernel<<<static_cast<unsigned>(blocks), NUM_THREADS, 0,
-                          st>>>(t, o, c);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  if (lo == BF16)
+    fused_momentum_kernel<BF16><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
+  else if (lo == F16)
+    fused_momentum_kernel<F16><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
+  else
+    fused_momentum_kernel<F32><<<nb, NUM_THREADS, 0, st>>>(t, o, c);
   return cudaGetLastError();
 }
 
@@ -188,33 +282,41 @@ extern "C" {
 
 // One Momentum step over a bucket of nparams parameters, one launch per
 // chunk.  table holds 3 * nparams pointers on the card: each parameter's
-// p, then each g, then each v, each kind nparams long; parameter i has
-// n[i] float32 values in each of its three tensors and starts at out[i]
-// (a multiple of 4) in the flat outputs po and vo (16-byte aligned).
+// p (its fp32 master on the master path), then each g, then each v, each
+// kind nparams long; parameter i has n[i] values in each of its three
+// tensors, float32 but for g, whose dtype code gdt[i] gives (0 float32,
+// 1 bfloat16, 2 float16; gdt null: all float32), and starts at out[i] (a
+// multiple of 4) in the flat outputs po and vo (16-byte aligned).  lo: 0,
+// or the master path's rounded-parameter dtype code (1 bfloat16, 2
+// float16), written into plo at the same offsets.
 // chunks: nchunks + 1 ascending parameter indices from 0 to nparams, at
 // most MAX_SEGS apart: launch c takes parameters [chunks[c], chunks[c +
 // 1]).  lr: the bucket's one-value LearningRate.  mu and l2 rounded once
 // to float32 by the caller, as torch rounds a Python scalar operand of a
 // float32 tensor op.  Returns a cudaError_t (0 = every launch accepted).
-int pt_fused_momentum(const float* const* table, const int64_t* n,
-                      const int64_t* out, const int* chunks, int nchunks,
-                      int nparams, const float* lr, float* po, float* vo,
-                      float mu, float l2, int nesterov, void* stream) {
+int pt_fused_momentum(const void* const* table, const int64_t* n,
+                      const int64_t* out, const unsigned char* gdt,
+                      const int* chunks, int nchunks, int nparams,
+                      const float* lr, float* po, float* vo, void* plo,
+                      int lo, float mu, float l2, int nesterov,
+                      void* stream) {
   const uintptr_t outs =
       reinterpret_cast<uintptr_t>(po) | reinterpret_cast<uintptr_t>(vo);
   if (nchunks <= 0 || nparams <= 0 || chunks[0] != 0 ||
-      chunks[nchunks] != nparams || outs % 16 != 0)
+      chunks[nchunks] != nparams || outs % 16 != 0 || lo < F32 ||
+      lo > F16 || (lo != F32 && (plo == nullptr ||
+                                 reinterpret_cast<uintptr_t>(plo) % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int ch = 0; ch < nchunks; ++ch)
     if (chunks[ch + 1] <= chunks[ch] || chunks[ch + 1] - chunks[ch] > MAX_SEGS)
       return static_cast<int>(cudaErrorInvalidValue);
-  const Outs o{lr, po, vo};
+  const Outs o{lr, po, vo, plo};
   const Coeffs c{mu, l2, nesterov};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int ch = 0; ch < nchunks; ++ch) {
     const cudaError_t err =
-        launch_chunk(table, n, out, chunks[ch], chunks[ch + 1] - chunks[ch],
-                     nparams, o, c, st);
+        launch_chunk(table, n, out, gdt, lo, chunks[ch],
+                     chunks[ch + 1] - chunks[ch], nparams, o, c, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

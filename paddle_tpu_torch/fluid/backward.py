@@ -132,9 +132,13 @@ def _relevant_to(block: Block, loss_name: str) -> Set[str]:
 
 
 def append_backward(loss: Variable, parameter_list=None,
-                    no_grad_set: Optional[Set[str]] = None) -> List:
+                    no_grad_set: Optional[Set[str]] = None,
+                    callbacks=None, checkpoints=None) -> List:
     """Append grad ops computing d(loss)/d(param) for every trainable
-    param; returns [(param, grad_var)] like the reference."""
+    param; returns [(param, grad_var)] like the reference.
+    ``callbacks`` and ``checkpoints`` are accepted and, as in the
+    reference, do not change the ops: the executor runs no recompute
+    segments (``RecomputeOptimizer`` records them as a program hint)."""
     block = loss.block
     program = block.program
     no_grad = set(no_grad_set or ())
@@ -244,3 +248,15 @@ def _sum_partials(block: Block, name: str, grads: Dict[str, List[str]]) -> str:
         block.var(final).stop_gradient = True
     grads[name] = [final]
     return final
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradients of ``targets[0]`` with respect to each of
+    ``inputs`` (fluid ``calc_gradient``): the backward is appended, and
+    each input's ``@GRAD`` var returned, or None where the target does
+    not depend on it."""
+    t = targets[0] if isinstance(targets, (list, tuple)) else targets
+    append_backward(t, parameter_list=None, no_grad_set=no_grad_set)
+    ins = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    return [t.block.var(_grad_name(v.name))
+            if t.block.has_var(_grad_name(v.name)) else None for v in ins]

@@ -56,6 +56,18 @@ class BuildStrategy:
         self.auto_tune = False
 
 
+class ExecutionStrategy:
+    """The reference's execution knobs, kept for the programs that set
+    them; the eager executor has no thread pool or scope drops to
+    tune."""
+
+    def __init__(self):
+        self.num_threads = 0
+        self.num_iteration_per_drop_scope = 1
+        self.num_iteration_per_run = 1
+        self.allow_op_delay = False
+
+
 class CompiledProgram:
     def __init__(self, program_or_graph,
                  build_strategy: Optional[BuildStrategy] = None):

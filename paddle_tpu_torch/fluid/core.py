@@ -7,6 +7,8 @@ the executor ran them on.
 """
 from __future__ import annotations
 
+import contextlib
+
 import os as _os
 from typing import Dict, Optional
 
@@ -147,3 +149,14 @@ _global_scope = Scope()
 
 def global_scope() -> Scope:
     return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    """Make ``scope`` the global scope inside the block."""
+    global _global_scope
+    prev, _global_scope = _global_scope, scope
+    try:
+        yield
+    finally:
+        _global_scope = prev

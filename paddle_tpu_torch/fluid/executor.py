@@ -38,7 +38,7 @@ from . import core
 from . import trace
 from .core import Scope, global_scope
 from .framework import Block, Program, Variable, default_main_program, \
-    prune_ops, torch_dtype
+    prune_ops, torch_dtype, _op_reads
 from ..ops.registry import get_op, LoweringContext
 
 
@@ -77,15 +77,21 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
                   ops=None):
     """Run the ops (default: the whole block) by invoking each lowering
     rule on the tensors in ``env``; outputs are written back into it."""
+    from .control_flow_impl import CONTROL_FLOW_OPS, run_control_flow_op
     op_list = block.ops if ops is None else ops
     for op in op_list:
         if op.type in ("feed", "fetch"):
+            continue
+        if op.type in CONTROL_FLOW_OPS:
+            run_control_flow_op(op, block, env, ctx)
             continue
         opdef = get_op(op.type)
         ins = {}
         amp_cast = op.attrs.get("__amp_cast__")
         for slot, names in op.inputs.items():
             missing = [n for n in names if n not in env]
+            if missing and op.type == "write_to_array" and slot == "Array":
+                continue              # the array's first write starts it
             if missing:
                 raise KeyError(
                     f"op '{op.type}' input {slot}={missing}: not fed, not "
@@ -101,7 +107,16 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
             ins[slot] = vals
         if ctx.batch_valid is not None:
             ctx.cur_op_batch_major = _batch_major_hint(block, op)
-        outs = opdef.fn(ins, op.attrs, ctx)
+        attrs = op.attrs
+        if op.type == "recurrent":     # StaticRNN runs its step sub-block
+            attrs = dict(attrs, __program__=block.program)
+        if "SkipUpdate" in ins:        # GradientMerge's k-step gate
+            from ..ops.optimizer_ops import apply_skip_update
+            outs = apply_skip_update(ins, opdef.fn(
+                {k: v for k, v in ins.items() if k != "SkipUpdate"},
+                attrs, ctx))
+        else:
+            outs = opdef.fn(ins, attrs, ctx)
         for slot, names in op.outputs.items():
             for name, val in zip(names, outs.get(slot, [])):
                 if val is not None:
@@ -112,7 +127,7 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
 def _read_before_write(block, name) -> bool:
     """Does some op read ``name`` before any op writes it?"""
     for op in block.ops:
-        if name in op.input_arg_names:
+        if name in _op_reads(block, op):
             return True
         if name in op.output_arg_names:
             return False
@@ -381,7 +396,8 @@ class Executor:
         produced = set(feed_names)
         scope_reads = []
         for op in run_ops:
-            for n in op.input_arg_names:
+            # a control-flow op's sub-blocks read what they capture
+            for n in _op_reads(block, op):
                 if n not in produced:
                     scope_reads.append(n)
                     produced.add(n)

@@ -271,6 +271,9 @@ class Block:
                 out[k] = [x.name if isinstance(x, Variable) else x for x in v]
             return out
         op = Operator(self, type, norm(inputs), norm(outputs), attrs)
+        if _current_device is not None and "op_device" not in op.attrs:
+            # device_guard's annotation, the pipeline stage of the op
+            op.attrs["op_device"] = _current_device
         self.ops.append(op)
         self.program._bump_version()
         for names in op.outputs.values():
@@ -332,6 +335,20 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new sub-block (a control-flow body) under ``parent_idx``
+        (default: the current block); it becomes the current block, so
+        the layers called next append their ops to it."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def next_op_seed(self) -> int:
         base = self.random_seed if self.random_seed is not None else 0
@@ -515,6 +532,42 @@ def set_default_dtype(d) -> None:
 
 def get_default_dtype() -> str:
     return _DEFAULT_DTYPE
+
+
+# ---------------------------------------------------------------------------
+# device_guard: the ops appended inside carry an ``op_device`` attr, the
+# pipeline stage a pipelining executor would place them on (the port's
+# executor runs every op on its own device)
+# ---------------------------------------------------------------------------
+_current_device = None
+
+
+class device_guard:
+    """``with fluid.device_guard("gpu:1"):`` annotates the ops appended
+    inside with their pipeline stage's device."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self._prev = None
+
+    def __enter__(self):
+        global _current_device
+        self._prev, _current_device = _current_device, self.device
+        return self
+
+    def __exit__(self, *a):
+        global _current_device
+        _current_device = self._prev
+        return False
+
+
+def cuda_places(device_ids=None):
+    """A ``CUDAPlace`` for each card torch sees (or each of
+    ``device_ids``)."""
+    from .core import CUDAPlace
+    if device_ids is None:
+        device_ids = range(max(torch.cuda.device_count(), 1))
+    return [CUDAPlace(int(i)) for i in device_ids]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """fluid.layers namespace: the op builders the ported slices and the 2.0
-surface (paddle.tensor, nn.functional) use."""
+surface (paddle.tensor, nn.functional) use, the control flow and the
+in-graph learning-rate schedules."""
 from . import tensor
 from . import nn
 from . import loss
@@ -37,8 +38,20 @@ from .loss import (softmax_with_cross_entropy,
                    log_loss, huber_loss, kldiv_loss, mse_loss)
 from .metric_op import accuracy
 from .sequence_lod import sequence_pool
-from .control_flow import less_than, equal, is_empty
+from .control_flow import (cond, while_loop, array_write, array_read,
+                           array_length, create_array, less_than,
+                           greater_than, equal,
+                           increment as cf_increment, Switch,
+                           Print, Assert, is_empty, case,
+                           switch_case, IfElse, StaticRNN, DynamicRNN,
+                           reorder_lod_tensor_by_rank, logical_and,
+                           logical_or, logical_not)
 from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      strided_slice, shape, rank, unique, scatter_nd_add,
                      scatter_nd, multiplex, shard_index, reverse, dice_loss,
-                     create_parameter)
+                     create_parameter, autoincreased_step_counter)
+from . import learning_rate_scheduler
+from .learning_rate_scheduler import (
+    exponential_decay, natural_exp_decay, inverse_time_decay,
+    polynomial_decay, piecewise_decay, noam_decay, cosine_decay,
+    linear_lr_warmup)

@@ -118,3 +118,18 @@ def create_parameter(shape, dtype, name=None, attr=None,
     return helper.create_parameter(attr, list(shape), dtype,
                                    is_bias=is_bias,
                                    default_initializer=default_initializer)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """The global step counter, a persistable int64 var that an
+    ``increment`` op advances by ``step`` every run.  As in the
+    reference, each call appends its own ``increment``: two schedules
+    that each call it advance the counter twice a run."""
+    from .tensor import create_global_var
+    counter = create_global_var([1], float(begin - step), "int64",
+                                persistable=True,
+                                name=counter_name or "@step_counter@")
+    LayerHelper("increment").append_op(
+        "increment", inputs={"X": [counter]}, outputs={"Out": [counter]},
+        attrs={"step": float(step)})
+    return counter

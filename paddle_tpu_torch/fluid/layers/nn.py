@@ -30,8 +30,9 @@ def _single_out(op_type, x, attrs=None, dtype=None, out_slot="Out",
     return _out(op, out_slot, out)
 
 
-def relu(x, name=None):
-    return _single_out("relu", x)
+def relu(x, name=None, **attrs):
+    attrs.pop("inplace", None)
+    return _single_out("relu", x, attrs)
 
 
 def relu6(x, name=None, **attrs):
@@ -41,12 +42,16 @@ def relu6(x, name=None, **attrs):
     return _single_out("relu6", x, attrs)
 
 
-def gelu(x, approximate=False, name=None):
-    return _single_out("gelu", x, {"approximate": approximate})
+def gelu(x, name=None, **attrs):
+    """``approximate`` (default False) among ``attrs``, as the
+    reference's generated layer function takes it."""
+    attrs.pop("inplace", None)
+    return _single_out("gelu", x, attrs)
 
 
-def tanh(x, name=None):
-    return _single_out("tanh", x)
+def tanh(x, name=None, **attrs):
+    attrs.pop("inplace", None)
+    return _single_out("tanh", x, attrs)
 
 
 def sigmoid(x, name=None):
@@ -412,12 +417,14 @@ def elementwise_max(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_max", x, y, axis, act, name)
 
 
-def square(x, name=None):
-    return _single_out("square", x)
+def square(x, name=None, **attrs):
+    attrs.pop("inplace", None)
+    return _single_out("square", x, attrs)
 
 
-def sqrt(x, name=None):
-    return _single_out("sqrt", x)
+def sqrt(x, name=None, **attrs):
+    attrs.pop("inplace", None)
+    return _single_out("sqrt", x, attrs)
 
 
 def clip(x, min, max, name=None):

@@ -33,13 +33,15 @@ Counterpart of ``FuseAttentionPass``, ``FusePagedAttentionPass``,
   on the card the hand-written gather-pool kernel and, for its grad,
   the deterministic scatter-add kernel (ops/ctr_ops.py).  The gathered
   ``[B, S, D]`` intermediate must have no other consumer.
-* ``fuse_optimizer`` — a run of same-(type, dtype, attrs, lr) ``adam`` or
-  ``momentum`` ops buckets into one ``fused_adam`` / ``fused_momentum``
-  op: one launch of the hand-written kernel over a flattened buffer,
-  element for element the same arithmetic as the per-param updates.
+* ``fuse_optimizer`` — a run of same-(type, dtype, masters, attrs, lr)
+  ``adam``, ``momentum`` or ``lamb`` ops buckets into one
+  ``fused_adam`` / ``fused_momentum`` / ``fused_lamb`` op: for Adam and
+  Momentum one launch of the hand-written kernel over the bucket (its
+  master path when the ops carry fp32 masters), element for element the
+  same arithmetic as the per-param updates; LAMB's is a plain op, as
+  the reference has no kernel for it.
 
-Each rewrite counts ``kernel_tier.<pass>.rewrites``.  The other
-optimizer families come with later slices.
+Each rewrite counts ``kernel_tier.<pass>.rewrites``.
 """
 from __future__ import annotations
 
@@ -510,14 +512,13 @@ class FuseSparseEmbeddingPass(PatternRewritePass):
 # fuse_optimizer
 # ---------------------------------------------------------------------------
 
-# the update families this port lowers, with their fused op; lamb joins
-# with its slice
+_ADAM_INS = frozenset({"Param", "Grad", "Moment1", "Moment2", "Beta1Pow",
+                       "Beta2Pow", "LearningRate"})
+_ADAM_OUTS = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+              "Beta2PowOut")
 _FUSABLE_UPDATES: Dict[str, Dict] = {
-    "adam": {"fused": "fused_adam",
-             "ins": frozenset({"Param", "Grad", "Moment1", "Moment2",
-                               "Beta1Pow", "Beta2Pow", "LearningRate"}),
-             "outs": ("ParamOut", "Moment1Out", "Moment2Out",
-                      "Beta1PowOut", "Beta2PowOut")},
+    "adam": {"fused": "fused_adam", "ins": _ADAM_INS, "outs": _ADAM_OUTS},
+    "lamb": {"fused": "fused_lamb", "ins": _ADAM_INS, "outs": _ADAM_OUTS},
     "momentum": {"fused": "fused_momentum",
                  "ins": frozenset({"Param", "Grad", "Velocity",
                                    "LearningRate"}),
@@ -530,20 +531,28 @@ _SHARED_SLOTS = ("LearningRate",)
 @register_pass
 class FuseOptimizerPass(Pass):
     """Bucket consecutive same-family per-param update ops into one fused
-    update op (fuse_adam_op_pass / fuse_momentum_op_pass semantics).  The
-    bucket key is (op type, param dtype, the lr var, the full attr set),
-    so a bucket is always homogeneous: one flattened buffer, one launch.
-    The reference also keys by a sharding plan's PartitionSpec; the port
-    has no sharding plan yet."""
+    update op (fuse_adam_op_pass / fuse_momentum_op_pass semantics), at
+    most ``bucket_size`` ops a bucket.  The bucket key is (op type, param
+    dtype, whether the ops carry fp32 masters, the lr var, the full attr
+    set), so a bucket is always homogeneous: one launch.  A bucket with
+    masters carries ``MasterParam`` and ``MasterParamOut``.  The
+    reference also keys by a sharding plan's PartitionSpec; the port has
+    no sharding plan yet."""
 
     name = "fuse_optimizer"
+
+    def __init__(self, bucket_size: int = 1024, **options):
+        super().__init__(**options)
+        self.bucket_size = max(int(bucket_size), 2)
 
     # -- bucket keying ------------------------------------------------------
     def _key(self, block, op) -> Optional[tuple]:
         spec = _FUSABLE_UPDATES.get(op.type)
         if spec is None:
             return None
-        if set(op.inputs) != spec["ins"]:
+        has_master = "MasterParam" in op.inputs
+        if set(op.inputs) != spec["ins"] | (
+                {"MasterParam"} if has_master else set()):
             return None            # SkipUpdate or exotic wiring: leave it
         if any(len(names) != 1 for names in op.inputs.values()):
             return None
@@ -551,11 +560,13 @@ class FuseOptimizerPass(Pass):
         dtype = v.dtype if v is not None else None
         attr_sig = tuple(sorted((k, repr(val)) for k, val in op.attrs.items()
                                 if k not in ("op_role", "op_seed")))
-        return (op.type, str(dtype), op.inputs["LearningRate"][0], attr_sig)
+        return (op.type, str(dtype), has_master,
+                op.inputs["LearningRate"][0], attr_sig)
 
     # -- rewriting ----------------------------------------------------------
     def _fuse_run(self, block, seg, out_ops) -> int:
-        """Fuse one same-key run; returns the number of ops removed."""
+        """Fuse one same-key run, ``bucket_size`` ops a bucket; returns
+        the number of ops removed."""
         if len(seg) < 2:
             out_ops.extend(seg)
             return 0
@@ -567,15 +578,24 @@ class FuseOptimizerPass(Pass):
         if len(set(per_param)) != len(per_param):
             out_ops.extend(seg)
             return 0
-        ins = {slot: [op.inputs[slot][0] for op in seg]
-               for slot in seg[0].inputs if slot not in _SHARED_SLOTS}
-        ins["LearningRate"] = list(seg[0].inputs["LearningRate"])
-        outs = {slot: [op.outputs[slot][0] for op in seg]
-                for slot in spec["outs"]}
-        out_ops.append(Operator(
-            block, spec["fused"], ins, outs, dict(seg[0].attrs)))
-        _count_rewrite(self.name)
-        return len(seg) - 1
+        removed = 0
+        out_slots = list(spec["outs"]) + (
+            ["MasterParamOut"] if "MasterParam" in seg[0].inputs else [])
+        for lo in range(0, len(seg), self.bucket_size):
+            chunk = seg[lo:lo + self.bucket_size]
+            if len(chunk) < 2:
+                out_ops.extend(chunk)
+                continue
+            ins = {slot: [op.inputs[slot][0] for op in chunk]
+                   for slot in chunk[0].inputs if slot not in _SHARED_SLOTS}
+            ins["LearningRate"] = list(chunk[0].inputs["LearningRate"])
+            outs = {slot: [op.outputs[slot][0] for op in chunk]
+                    for slot in out_slots}
+            out_ops.append(Operator(
+                block, spec["fused"], ins, outs, dict(chunk[0].attrs)))
+            removed += len(chunk) - 1
+            _count_rewrite(self.name)
+        return removed
 
     def apply_block(self, block, ctx: PassContext) -> Dict[str, int]:
         out_ops: list = []

@@ -255,14 +255,18 @@ def _static_optimizer(opt):
         return opt
     name = type(opt).__name__
     lr = opt.get_lr() if hasattr(opt, "get_lr") else 0.001
+    # Momentum reads the eager optimizer's _mu, which holds its momentum;
+    # the reference reads _momentum, which its eager Momentum lacks, and
+    # so runs at 0.9 whatever was asked (ROADMAP queue C)
     table = {"SGD": lambda: fopt.SGDOptimizer(lr),
              "Momentum": lambda: fopt.MomentumOptimizer(
                  lr, getattr(opt, "_mu", 0.9)),
-             "Adam": lambda: fopt.AdamOptimizer(lr)}
-    if name in ("AdamW", "Adagrad", "RMSProp"):
-        raise NotImplementedError(
-            f"a static {name}: fluid's {name}Optimizer is not ported yet "
-            f"(ROADMAP queue A item 4)")
+             "Adam": lambda: fopt.AdamOptimizer(lr),
+             "AdamW": lambda: fopt.AdamWOptimizer(
+                 lr, weight_decay=getattr(opt, "_weight_decay", 0.01)
+                 or 0.01),
+             "Adagrad": lambda: fopt.AdagradOptimizer(lr),
+             "RMSProp": lambda: fopt.RMSPropOptimizer(lr)}
     if name not in table:
         raise ValueError(f"no static mapping for optimizer {name}; pass a "
                          f"fluid.optimizer.* instance in static mode")

@@ -23,8 +23,16 @@ def scope_from_numpy(arrays: Dict[str, np.ndarray], scope: Scope,
     """Set each array as a tensor on ``place`` under its name."""
     device = place.torch_device()
     for name, a in arrays.items():
-        scope.set_var(name, torch.from_numpy(np.array(a)).to(device))
+        scope.set_var(name, _tensor(np.array(a)).to(device))
     return scope
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (ml_dtypes', which
+    torch cannot read) through its bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def scope_to_numpy(scope: Scope, names: Iterable[str]) -> Dict[str, np.ndarray]:

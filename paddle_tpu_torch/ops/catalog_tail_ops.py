@@ -1,5 +1,6 @@
 """Catalog-tail lowerings (counterpart of
-``paddle_tpu/ops/catalog_tail_ops.py``, the op paddle.tensor reaches)."""
+``paddle_tpu/ops/catalog_tail_ops.py``: the op paddle.tensor reaches and
+``recurrent``, StaticRNN's step loop)."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,33 @@ def _equal_all(ins, attrs, ctx):
     if x.shape != y.shape:
         return {"Out": [torch.tensor(False, device=x.device)]}
     return {"Out": [torch.all(torch.eq(x, y))]}
+
+
+@register_op("recurrent", differentiable=False)
+def _recurrent(ins, attrs, ctx):
+    """StaticRNN's step loop (recurrent_op.cc): run the step sub-block
+    once per time step, feeding each sequence input's step ``[:, t]``
+    and threading the memories; the step outputs are stacked on axis 1.
+    The executor binds the program as ``__program__``."""
+    from ..fluid.executor import run_block_ops
+    sub = attrs["__program__"].blocks[attrs["sub_block"]]
+    seq_ins = dict(zip(attrs.get("inputs", []), ins.get("Inputs", [])))
+    states = dict(zip(attrs.get("ex_states", []),
+                      ins.get("InitStates", [])))
+    params = dict(zip(attrs.get("parameters", []),
+                      ins.get("Parameters", [])))
+    state_names = attrs.get("states", [])
+    out_names = attrs.get("outputs", [])
+    steps = next(iter(seq_ins.values())).shape[1] if seq_ins \
+        else attrs["len"]
+    collected = {n: [] for n in out_names}
+    for t in range(steps):
+        env = dict(params)
+        for n, v in seq_ins.items():
+            env[n] = v[:, t]
+        env.update(states)
+        run_block_ops(sub, env, ctx)
+        states = {ex: env[cur] for ex, cur in zip(states, state_names)}
+        for n in out_names:
+            collected[n].append(env[n])
+    return {"Out": [torch.stack(collected[n], dim=1) for n in out_names]}

@@ -52,8 +52,8 @@ _SIGNATURES = {
         **_ERR,
     },
     "fused_adam": {
-        "pt_fused_adam": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _F,
-                           _F, _F, _F, _P], _I),
+        "pt_fused_adam": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                           _P, _I, _F, _F, _F, _F, _F, _P], _I),
         **_ERR,
     },
     "embedding_pool": {
@@ -69,8 +69,8 @@ _SIGNATURES = {
         **_ERR,
     },
     "fused_momentum": {
-        "pt_fused_momentum": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _F, _F,
-                               _I, _P], _I),
+        "pt_fused_momentum": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                               _I, _F, _F, _I, _P], _I),
         **_ERR,
     },
     "paged_attention": {
@@ -394,16 +394,21 @@ def _bucket_args(sizes: tuple):
             (ctypes.c_int * len(bounds))(*bounds), len(chunks), total)
 
 
+# dtype codes of the kernels' gradients and rounded parameters
+_GRAD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LOW_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
+
+
 def _bucket_ptrs(what, lr, kinds):
     """The device address of every tensor of ``kinds``, ``(kind, tensors,
-    sizes)`` triples, in order, for a multi-tensor kernel's table.  Every
-    tensor must hold its size's values (checked first, so that a mismatch
-    is named as such) and be float32 on the device of ``lr``, the
-    bucket's one-value float32 CUDA LearningRate.  A non-contiguous
-    tensor is replaced by a contiguous copy; the copies are returned
-    beside the addresses, to be kept alive until the launch is
-    enqueued."""
-    for kind, ts, sizes in kinds:
+    sizes, dtypes)`` quadruples, in order, for a multi-tensor kernel's
+    table.  Every tensor must hold its size's values (checked first, so
+    that a mismatch is named as such) and be of one of ``dtypes`` on the
+    device of ``lr``, the bucket's one-value float32 CUDA LearningRate.
+    A non-contiguous tensor is replaced by a contiguous copy; the copies
+    are returned beside the addresses, to be kept alive until the launch
+    is enqueued."""
+    for kind, ts, sizes, _ in kinds:
         for i, (t, size) in enumerate(zip(ts, sizes)):
             if t.numel() != size:
                 raise ValueError(f"{what}: {kind} {i} holds {t.numel()} "
@@ -413,17 +418,67 @@ def _bucket_ptrs(what, lr, kinds):
         raise ValueError(f"{what}: lr must be a one-value float32 CUDA "
                          f"tensor, got {lr.dtype} {tuple(lr.shape)} on {dev}")
     ptrs, copies = [], []
-    for kind, ts, _ in kinds:
+    for kind, ts, _, dtypes in kinds:
         for i, t in enumerate(ts):
-            if t.device != dev or t.dtype != torch.float32:
-                raise ValueError(f"{what}: {kind} {i} must be a float32 CUDA "
-                                 f"tensor on {dev}, got {t.dtype} on "
+            if t.device != dev or t.dtype not in dtypes:
+                names = " or ".join(str(d).removeprefix("torch.")
+                                    for d in dtypes)
+                raise ValueError(f"{what}: {kind} {i} must be a {names} "
+                                 f"CUDA tensor on {dev}, got {t.dtype} on "
                                  f"{t.device}")
             if not t.is_contiguous():
                 t = t.contiguous()
                 copies.append(t)
             ptrs.append(t.data_ptr())
     return ptrs, copies
+
+
+_F32 = (torch.float32,)
+
+
+def _low_code(what, low_dtype):
+    if low_dtype not in _LOW_DTYPES:
+        raise ValueError(f"{what}: the parameters must be bfloat16 or "
+                         f"float16, got {low_dtype}")
+    return _LOW_DTYPES[low_dtype]
+
+
+def _adam_launch(what, ps, gs, ms, vs, lr, b1ps, b2ps, beta1, beta2, eps,
+                 low_dtype):
+    """One call of ``pt_fused_adam``: the float32 path (``low_dtype``
+    None) or the master path."""
+    k = len(ps)
+    if k == 0 or not all(len(x) == k for x in (gs, ms, vs, b1ps, b2ps)):
+        raise ValueError(f"{what}: {k} params need as many grads, moments "
+                         f"and beta powers, and at least one")
+    lo = 0 if low_dtype is None else _low_code(what, low_dtype)
+    sizes = tuple(p.numel() for p in ps)
+    ptrs, copies = _bucket_ptrs(
+        what, lr, [("param" if lo == 0 else "master", ps, sizes, _F32),
+                   ("grad", gs, sizes,
+                    _F32 if lo == 0 else tuple(_GRAD_DTYPES)),
+                   ("moment1", ms, sizes, _F32),
+                   ("moment2", vs, sizes, _F32)]
+        + [(kind, ts, (1,) * k, _F32) for kind, ts in (
+            ("beta1_pow", b1ps), ("beta2_pow", b2ps))])
+    dev = lr.device
+    table = (ctypes.c_void_p * (6 * k))(*ptrs)
+    gdt = (ctypes.c_uint8 * k)(*(_GRAD_DTYPES[g.dtype] for g in gs))
+    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
+    po, mo, vo = (torch.empty((max(total, 4),), dtype=torch.float32,
+                              device=dev) for _ in range(3))
+    plo = None if lo == 0 else torch.empty((max(total, 4),),
+                                           dtype=low_dtype, device=dev)
+    pows = torch.empty((2, k), dtype=torch.float32, device=dev)
+    lib = _lib("fused_adam")
+    with torch.cuda.device(dev):
+        err = lib.pt_fused_adam(
+            table, n_arr, out_arr, gdt, bounds, nchunks, k, lr.data_ptr(),
+            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), pows.data_ptr(),
+            _ptr(plo), lo, float(beta1), float(1 - beta1), float(beta2),
+            float(1 - beta2), float(eps), _stream(dev))
+    _check_launch(lib, err, what)
+    return po, mo, vo, plo, pows
 
 
 def fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1: float, beta2: float,
@@ -441,36 +496,32 @@ def fused_adam(ps, gs, ms, vs, lr, b1ps, b2ps, beta1: float, beta2: float,
     ``adam`` lowering's separate torch ops round them.  One call launches
     one kernel per ``BUCKET_SEGMENTS_PER_LAUNCH`` parameters and counts
     one."""
-    what = "fused_adam"
-    k = len(ps)
-    if k == 0 or not all(len(x) == k for x in (gs, ms, vs, b1ps, b2ps)):
-        raise ValueError(f"{what}: {k} params need as many grads, moments "
-                         f"and beta powers, and at least one")
-    sizes = tuple(p.numel() for p in ps)
-    ptrs, copies = _bucket_ptrs(
-        what, lr, [(kind, ts, sizes) for kind, ts in (
-            ("param", ps), ("grad", gs), ("moment1", ms), ("moment2", vs))]
-        + [(kind, ts, (1,) * k) for kind, ts in (
-            ("beta1_pow", b1ps), ("beta2_pow", b2ps))])
-    dev = lr.device
-    table = (ctypes.c_void_p * (6 * k))(*ptrs)
-    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
-    po, mo, vo = (torch.empty((max(total, 4),), dtype=torch.float32,
-                              device=dev) for _ in range(3))
-    pows = torch.empty((2, k), dtype=torch.float32, device=dev)
-    lib = _lib("fused_adam")
-    with torch.cuda.device(dev):
-        err = lib.pt_fused_adam(
-            table, n_arr, out_arr, bounds, nchunks, k, lr.data_ptr(),
-            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), pows.data_ptr(),
-            float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
-            float(eps), _stream(dev))
-    _check_launch(lib, err, what)
+    po, mo, vo, _, pows = _adam_launch(
+        "fused_adam", ps, gs, ms, vs, lr, b1ps, b2ps, beta1, beta2, eps,
+        None)
     fused_adam.launches += 1
     return po, mo, vo, pows
 
 
 fused_adam.launches = 0
+
+
+def fused_adam_master(masters, gs, ms, vs, lr, b1ps, b2ps, beta1: float,
+                      beta2: float, eps: float, low_dtype):
+    """``fused_adam``'s master path, on the same kernel: ``masters`` the
+    float32 master weights, ``gs`` the gradients in their own dtype
+    (float32, bfloat16 or float16; the kernel widens them), the rest as in
+    ``fused_adam``.  Returns ``(po, mo, vo, plo, pows)``: the new masters,
+    moments, the new masters rounded to ``low_dtype`` (bfloat16 or
+    float16, to nearest even) in ``plo``, and the powers.  Bit for bit the
+    per-param ``adam`` op with ``MasterParam``.  Counts one a call."""
+    out = _adam_launch("fused_adam_master", masters, gs, ms, vs, lr, b1ps,
+                       b2ps, beta1, beta2, eps, low_dtype)
+    fused_adam_master.launches += 1
+    return out
+
+
+fused_adam_master.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -617,6 +668,37 @@ embedding_pool_grad.launches = 0
 # fused Momentum (csrc/fused_momentum.cu)
 # ---------------------------------------------------------------------------
 
+def _momentum_launch(what, ps, gs, vs, lr, mu, l2, nesterov, low_dtype):
+    """One call of ``pt_fused_momentum``: the float32 path
+    (``low_dtype`` None) or the master path."""
+    k = len(ps)
+    if k == 0 or len(gs) != k or len(vs) != k:
+        raise ValueError(f"{what}: {k} params need as many grads and "
+                         f"velocities, and at least one")
+    lo = 0 if low_dtype is None else _low_code(what, low_dtype)
+    sizes = tuple(p.numel() for p in ps)
+    ptrs, copies = _bucket_ptrs(what, lr, [
+        ("param" if lo == 0 else "master", ps, sizes, _F32),
+        ("grad", gs, sizes, _F32 if lo == 0 else tuple(_GRAD_DTYPES)),
+        ("velocity", vs, sizes, _F32)])
+    dev = lr.device
+    table = (ctypes.c_void_p * (3 * k))(*ptrs)
+    gdt = (ctypes.c_uint8 * k)(*(_GRAD_DTYPES[g.dtype] for g in gs))
+    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
+    po, vo = (torch.empty((max(total, 4),), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    plo = None if lo == 0 else torch.empty((max(total, 4),),
+                                           dtype=low_dtype, device=dev)
+    lib = _lib("fused_momentum")
+    with torch.cuda.device(dev):
+        err = lib.pt_fused_momentum(
+            table, n_arr, out_arr, gdt, bounds, nchunks, k, lr.data_ptr(),
+            po.data_ptr(), vo.data_ptr(), _ptr(plo), lo, float(mu),
+            float(l2), int(bool(nesterov)), _stream(dev))
+    _check_launch(lib, err, what)
+    return po, vo, plo
+
+
 def fused_momentum(ps, gs, vs, lr, mu: float, l2: float, nesterov: bool):
     """One Momentum step over a bucket of parameters on the Hopper kernel,
     read where they lie: ``ps``, ``gs``, ``vs`` lists of CUDA float32
@@ -629,31 +711,30 @@ def fused_momentum(ps, gs, vs, lr, mu: float, l2: float, nesterov: bool):
     once, as the per-param ``momentum`` lowering's separate torch ops
     round them.  One call launches one kernel per
     ``BUCKET_SEGMENTS_PER_LAUNCH`` parameters and counts one."""
-    what = "fused_momentum"
-    k = len(ps)
-    if k == 0 or len(gs) != k or len(vs) != k:
-        raise ValueError(f"{what}: {k} params need as many grads and "
-                         f"velocities, and at least one")
-    sizes = tuple(p.numel() for p in ps)
-    ptrs, copies = _bucket_ptrs(what, lr, [
-        ("param", ps, sizes), ("grad", gs, sizes), ("velocity", vs, sizes)])
-    dev = lr.device
-    table = (ctypes.c_void_p * (3 * k))(*ptrs)
-    n_arr, out_arr, bounds, nchunks, total = _bucket_args(sizes)
-    po, vo = (torch.empty((max(total, 4),), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    lib = _lib("fused_momentum")
-    with torch.cuda.device(dev):
-        err = lib.pt_fused_momentum(
-            table, n_arr, out_arr, bounds, nchunks, k, lr.data_ptr(),
-            po.data_ptr(), vo.data_ptr(), float(mu), float(l2),
-            int(bool(nesterov)), _stream(dev))
-    _check_launch(lib, err, what)
+    po, vo, _ = _momentum_launch("fused_momentum", ps, gs, vs, lr, mu, l2,
+                                 nesterov, None)
     fused_momentum.launches += 1
     return po, vo
 
 
 fused_momentum.launches = 0
+
+
+def fused_momentum_master(masters, gs, vs, lr, mu: float, l2: float,
+                          nesterov: bool, low_dtype):
+    """``fused_momentum``'s master path, on the same kernel: ``masters``
+    the float32 master weights, ``gs`` the gradients in their own dtype
+    (float32, bfloat16 or float16; the kernel widens them).  Returns
+    ``(po, vo, plo)``: the new masters, velocities and the new masters
+    rounded to ``low_dtype`` (to nearest even).  Bit for bit the
+    per-param ``momentum`` op with ``MasterParam``.  Counts one a call."""
+    out = _momentum_launch("fused_momentum_master", masters, gs, vs, lr, mu,
+                           l2, nesterov, low_dtype)
+    fused_momentum_master.launches += 1
+    return out
+
+
+fused_momentum_master.launches = 0
 
 
 # ---------------------------------------------------------------------------

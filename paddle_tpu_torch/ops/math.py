@@ -126,6 +126,18 @@ def _scale(ins, attrs, ctx):
 # torch.matmul accumulates half-precision inputs in fp32 and returns
 # their own dtype: the contract the TPU package spells out with
 # preferred_element_type
+
+
+def _mm(x, y):
+    """x @ y in the operands' common dtype, returned in x's, as the
+    TPU package's matmuls promote mixed operands (a float32 activation
+    times a bfloat16 parameter) and cast the product to x's dtype."""
+    if x.dtype == y.dtype:
+        return torch.matmul(x, y)
+    common = torch.promote_types(x.dtype, y.dtype)
+    return torch.matmul(x.to(common), y.to(common)).to(x.dtype)
+
+
 @register_op("matmul")
 def _matmul(ins, attrs, ctx):
     x, y = _x(ins), _x(ins, "Y")
@@ -133,7 +145,7 @@ def _matmul(ins, attrs, ctx):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.ndim > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = _mm(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -148,7 +160,7 @@ def _mul(ins, attrs, ctx):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xn]), -1)
     y2 = y.reshape(math.prod(ys[:yn]), -1)
-    return {"Out": [torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])]}
+    return {"Out": [_mm(x2, y2).reshape(xs[:xn] + ys[yn:])]}
 
 
 # comparisons (operators/controlflow/compare_op.cc): numpy broadcasting,
@@ -274,7 +286,7 @@ def _matmul_v2(ins, attrs, ctx):
         x = x.transpose(-1, -2)
     if attrs.get("trans_y", False):
         y = y.transpose(-1, -2)
-    return {"Out": [torch.matmul(x, y)]}
+    return {"Out": [_mm(x, y)]}
 
 
 @register_op("dot")

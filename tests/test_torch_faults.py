@@ -394,3 +394,27 @@ def test_dygraph_layer_returns_its_output_as_the_reference(case):
         assert got is not None
         assert got.stop_gradient == want_sg
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("op", ["matmul", "matmul_v2", "mul"])
+def test_mixed_dtype_products_promote_as_the_reference(op):
+    """A float32 activation times a bfloat16 parameter (a multi-precision
+    program's ``matmul``): the reference promotes the operands and casts
+    the product to the activation's dtype; the port raised."""
+    import jax.numpy as jnp
+    import torch
+    from paddle_tpu.ops.registry import get_op as j_get_op
+    from paddle_tpu_torch.ops.registry import get_op as t_get_op
+    from paddle_tpu_torch.ops.registry import LoweringContext
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 4).astype("float32")
+    w = rng.randn(4, 5).astype("float32")
+    w_bf16 = torch.from_numpy(w).to(torch.bfloat16)
+    got = t_get_op(op).fn({"X": [torch.from_numpy(x)], "Y": [w_bf16]}, {},
+                          LoweringContext())["Out"][0]
+    want = j_get_op(op).fn({"X": [jnp.asarray(x)],
+                            "Y": [jnp.asarray(w_bf16.float().numpy(),
+                                              jnp.bfloat16)]}, {},
+                           None)["Out"][0]
+    assert got.dtype == torch.float32 and str(want.dtype) == "float32"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)

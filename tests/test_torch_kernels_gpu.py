@@ -1433,3 +1433,132 @@ def test_paddle_grad_double_backward_equals_torch(cuda):
     want = torch.autograd.grad(pen, [tw1, tb1, tw2])
     for a, b in zip(got, want):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-5
+
+
+# --- the master paths of fused Adam and fused Momentum ---------------------------
+MASTER_BUCKETS = {
+    "one": [(1000, 3)],
+    "odd_sizes": [(2,), (13, 1), (7,), (1024, 3), (5,), (4097,)],
+    "more_than_a_chunk": [(i % 5 + 1, 3) for i in range(
+        2 * cuda_kernels.BUCKET_SEGMENTS_PER_LAUNCH + 7)],
+}
+
+
+def _master_bucket(cuda, shapes, opt, low=torch.bfloat16, seed=0,
+                   unaligned=False):
+    """A bucket with fp32 masters: bfloat16 (or ``low``) params, the
+    masters their exact widening plus a residue the params cannot hold,
+    grads in the params' dtype, float32 moments or velocities.  With
+    ``unaligned`` the first grads are views at an odd 16-bit offset (the
+    kernel's scalar path)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ins = {"Param": [], "MasterParam": [], "Grad": []}
+    if opt == "adam":
+        ins.update(Moment1=[], Moment2=[], Beta1Pow=[], Beta2Pow=[])
+    else:
+        ins["Velocity"] = []
+    for i, shape in enumerate(shapes):
+        master = torch.randn(shape, generator=g)
+        ins["Param"].append(master.to(low))
+        ins["MasterParam"].append(master + 1e-4 * torch.randn(
+            shape, generator=g))
+        ins["Grad"].append((1e-2 * torch.randn(shape, generator=g)).to(low))
+        if opt == "adam":
+            ins["Moment1"].append(1e-3 * torch.randn(shape, generator=g))
+            ins["Moment2"].append(1e-5 * torch.rand(shape, generator=g))
+            ins["Beta1Pow"].append(torch.tensor([0.9 ** (i % 7 + 2)]))
+            ins["Beta2Pow"].append(torch.tensor([0.999 ** (i % 7 + 2)]))
+        else:
+            ins["Velocity"].append(1e-2 * torch.randn(shape, generator=g))
+    ins["LearningRate"] = [torch.tensor([1e-3 if opt == "adam" else 0.05])]
+    ins = {s: [t.to(cuda) for t in v] for s, v in ins.items()}
+    if unaligned:
+        ins["Grad"][:3] = [torch.cat([torch.zeros(1, dtype=t.dtype,
+                                                  device=cuda),
+                                      t.reshape(-1)])[1:].view(t.shape)
+                           for t in ins["Grad"][:3]]
+    return ins
+
+
+def _assert_per_param(cuda, op, ins, attrs, fused):
+    ctx = LoweringContext(cuda)
+    for i in range(len(ins["Param"])):
+        one = get_op(op).fn({s: [v[0] if s == "LearningRate" else v[i]]
+                             for s, v in ins.items()}, attrs, ctx)
+        assert sorted(one) == sorted(fused)
+        for slot, outs in one.items():
+            assert fused[slot][i].dtype == outs[0].dtype, (slot, i)
+            assert torch.equal(fused[slot][i], outs[0]), (slot, i)
+
+
+def _assert_plain(fused, plain):
+    for slot, outs in plain.items():
+        for a, b in zip(fused[slot], outs):
+            assert torch.equal(a, b.to(a.device)), slot
+
+
+ADAM_ATTRS = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+
+
+@pytest.mark.parametrize("low", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("bucket", sorted(MASTER_BUCKETS))
+def test_fused_adam_master_equals_per_param_and_plain(cuda, bucket, low):
+    """The master path on the card: every output ``torch.equal`` to the
+    per-param ``adam`` op with ``MasterParam`` and to the plain version
+    on the host (widen, update the master, round), one launch counted on
+    ``fused_adam_master`` and none on ``fused_adam``."""
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
+    ins = _master_bucket(cuda, MASTER_BUCKETS[bucket], "adam", low)
+    before = (cuda_kernels.fused_adam_master.launches,
+              cuda_kernels.fused_adam.launches)
+    fused = get_op("fused_adam").fn(ins, ADAM_ATTRS, LoweringContext(cuda))
+    torch.cuda.synchronize()
+    assert (cuda_kernels.fused_adam_master.launches,
+            cuda_kernels.fused_adam.launches) == (before[0] + 1, before[1])
+    _assert_per_param(cuda, "adam", ins, ADAM_ATTRS, fused)
+    host = {s: [t.cpu() for t in v] for s, v in ins.items()}
+    _assert_plain(fused, _plain_fused_adam(
+        host["MasterParam"], host["Grad"], host["Moment1"],
+        host["Moment2"], host["LearningRate"][0], host["Beta1Pow"],
+        host["Beta2Pow"], 0.9, 0.999, 1e-8, lo=host["Param"]))
+
+
+@pytest.mark.parametrize("kind", sorted(MOMENTUM_ATTRS))
+@pytest.mark.parametrize("bucket", sorted(MASTER_BUCKETS))
+def test_fused_momentum_master_equals_per_param_and_plain(cuda, bucket,
+                                                          kind):
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_momentum, \
+        _l2_coeff
+    ins = _master_bucket(cuda, MASTER_BUCKETS[bucket], "momentum")
+    attrs = MOMENTUM_ATTRS[kind]
+    before = (cuda_kernels.fused_momentum_master.launches,
+              cuda_kernels.fused_momentum.launches)
+    fused = get_op("fused_momentum").fn(ins, attrs, LoweringContext(cuda))
+    torch.cuda.synchronize()
+    assert (cuda_kernels.fused_momentum_master.launches,
+            cuda_kernels.fused_momentum.launches) == (before[0] + 1,
+                                                      before[1])
+    _assert_per_param(cuda, "momentum", ins, attrs, fused)
+    host = {s: [t.cpu() for t in v] for s, v in ins.items()}
+    _assert_plain(fused, _plain_fused_momentum(
+        host["MasterParam"], host["Grad"], host["Velocity"],
+        host["LearningRate"][0], attrs.get("mu", 0.9), _l2_coeff(attrs),
+        attrs.get("use_nesterov", False), lo=host["Param"]))
+
+
+@pytest.mark.parametrize("opt", ["adam", "momentum"])
+def test_fused_master_reads_unaligned_and_float32_grads(cuda, opt):
+    """Grads that are views at an odd 16-bit offset take the scalar
+    path; a bucket whose grads are float32 (a bf16 param's grad widened
+    upstream) reads them as they are: both equal to the per-param op."""
+    attrs = ADAM_ATTRS if opt == "adam" else MOMENTUM_ATTRS["plain"]
+    for unaligned in (True, False):
+        ins = _master_bucket(cuda, [(7,), (33, 2), (5,), (64, 8)], opt,
+                             seed=2, unaligned=unaligned)
+        if unaligned:
+            assert ins["Grad"][0].data_ptr() % 8 != 0
+        else:
+            ins["Grad"] = [g.float() for g in ins["Grad"]]
+        fused = get_op(f"fused_{opt}").fn(ins, attrs, LoweringContext(cuda))
+        _assert_per_param(cuda, opt, ins, attrs, fused)

@@ -632,13 +632,21 @@ def test_clear_gradients_and_minimize_without_backward():
 
 
 def test_eager_minimize_refuses_a_parameter_regularizer():
-    class Decay:
-        _coeff = 1e-4
-
+    """Since the regularizers landed the eager ``minimize`` no longer
+    refuses ``ParamAttr(regularizer=)``: it adds the decay to that
+    parameter's gradient, ``p - lr (g + coeff p)``, and leaves the
+    other parameter's step plain."""
+    from paddle_tpu_torch.fluid.regularizer import L2Decay
     with tdy.guard(HOST):
         layer = tnn.Linear(3, 2, param_attr=tfluid.ParamAttr(
-            regularizer=Decay()))
+            regularizer=L2Decay(0.5)))
+        w0, b0 = (p.numpy() for p in layer.parameters())
         loss = TL.nn.mean(layer(tdy.to_variable(_f(4, 3))))
         opt = topt.SGDOptimizer(0.1, parameter_list=layer.parameters())
-        with pytest.raises(NotImplementedError, match="regularizer"):
-            opt.minimize(loss)
+        _, pg = opt.minimize(loss)
+        gw, gb = (p.gradient_var.detach().cpu().numpy()
+                  for p in layer.parameters())
+        w1, b1 = (p.numpy() for p in layer.parameters())
+    np.testing.assert_allclose(w1, w0 - 0.1 * (gw + 0.5 * w0), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(b1, b0 - 0.1 * gb, rtol=1e-6, atol=1e-7)
