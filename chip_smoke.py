@@ -6,9 +6,10 @@ book tier (MNIST LeNet), the dygraph ResNet-50 step, the Transformer NMT
 step and MobileNetV2 (with VGG16 and MobileNetV1 evaluated), the BoxPS
 CTR trainer (``bench.py:547 main_ctr``), the 2.0 dygraph loop (the
 PTB LSTM language model and the dygraph WideDeep and DeepFM), ``hapi``'s
-``Model.fit`` and the static training surface (the BERT recipe of the
+``Model.fit``, the static training surface (the BERT recipe of the
 Paddle 1.8 era, fp32 master weights, the fluid optimizers and control
-flow).
+flow) and the dygraph-to-static tier (``paddle.jit.to_static``,
+``jit.save`` / ``jit.load``, static AMP's loss scaling).
 
     python3 chip_smoke.py
 
@@ -301,6 +302,38 @@ over):
    ``cond`` and ``switch_case``, a ``StaticRNN`` over 35 steps and the
    eight schedules (30 runs, rtol 1e-6: the card's pow, exp and cos
    differ from the host's by an ulp), card against host.
+4o. the dygraph-to-static tier -- (a) ``BertForPretraining`` at
+   ``bench.py:1171``'s width (batch 64 x 128, dropout 0.1, bf16
+   ``auto_cast``), its loss under ``paddle.jit.to_static``, trained by
+   the 2.0 eager loop (``loss.backward()``, ``optimizer.Adam.step()``,
+   ``clear_grad()``), 3 + 10 steps: one ``run_program`` tape entry a
+   step, DY_LAUNCHES a step (phase 4e's; fused Adam 0), tokens/s, peak
+   memory, a profiled step; card against host in float32 at 4 rows,
+   dropout live, 2 steps (losses rtol 1e-4, first-step gradients 1e-3 of
+   their group's largest; a seed + 1 masks twin must miss); to_static
+   against the eager tape at dropout 0 (1e-5).  (b) a to_static
+   function with a tensor ``while`` (20 trips of a [64, 768] x
+   [768, 768] product and a normalisation), a tensor ``if`` and a
+   ``for`` over a tensor range: card against host (1e-4 of the
+   largest; a 19-trip twin must miss), ``dy2static.host_reads`` a call
+   as predicted.  (c) ResNet-50 at batch 32 of 224², bf16, 3 to_static
+   steps: the moving statistics written back as plain tensors, after
+   one step within D2S_BN_RTOL of the eager loop's (the statistics not
+   written back must miss).  (d) BERT-base's ``BertModel`` in eval
+   (float32, 32 x 128) through ``paddle.jit.save`` and
+   ``paddle.jit.load``: the exported graph holds the flash custom op
+   once a layer, a call launches the flash forward 12 times, within
+   1e-3 of the largest of the eager forward's (rolled ids must miss), a
+   profiled call.  (e) the static BERT program at BERT-base width, 32
+   rows, dropout 0, under ``amp.decorate(Adam, init_loss_scaling=2**15,
+   use_dynamic_loss_scaling=True, decr_ratio=0.5)`` through
+   fuse_attention (which no longer matches after the folded casts, as
+   in the reference) and fuse_optimizer, 3 + 10 steps: one fused Adam a
+   step, a profiled step; an overflowing step (an infinite mask value)
+   sets FoundInfinite and zeroes every gradient; card against host at 2
+   layers and 4 rows over 4 overflowing and 2 good steps: the (scale,
+   good, bad) trajectory equal exactly (a decr_ratio 0.8 twin must
+   differ).  (e) runs with the static phases, before 4e.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -315,9 +348,10 @@ over):
    ``boxps_legs_launches`` those of 4k's fp32 and bf16 legs, its
    ``ptb_launches`` those of 4l's timed float32 PTB steps, the dropout
    rows' ``ptb`` their times at the PTB shape, ``recipe_launches`` those
-   of 4n's timed recipe steps, and the rows ``fused_adam_master`` and
-   ``fused_momentum_master``, launched by 4n (c)), then the last
-   line
+   of 4n's timed recipe steps, ``to_static_launches`` those of 4o (a)'s
+   timed steps, of one 4o (d) call and of 4o (e)'s timed steps, and the
+   rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
+   4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2485,6 +2519,23 @@ def _masks_seed_plus_one():
         nn_ops._reference_keep = plain
 
 
+def _group_misses(grads, want, rel):
+    """(the gradients off by more than ``rel`` of their group's largest,
+    each group's worst |got - want| over its largest)."""
+    scale = {}
+    for n, g in want.items():
+        grp = _dy_group(n)
+        scale[grp] = max(scale.get(grp, 0.0), float(np.abs(g).max()))
+    bad, worst = [], {}
+    for n, g in want.items():
+        grp = _dy_group(n)
+        err = float(np.abs(grads[n] - g).max())
+        worst[grp] = max(worst.get(grp, 0.0), err / scale[grp])
+        if err > rel * scale[grp]:
+            bad.append(n)
+    return bad, worst
+
+
 def _dy_card_vs_host(model, tracer, init, card):
     """Float32 (autocast off), dropout 0.1 live, DY_HOST_ROWS rows: two
     steps on the card and on the host from the same weights, seeds and
@@ -2516,21 +2567,7 @@ def _dy_card_vs_host(model, tracer, init, card):
     if not np.allclose(card_loss, host_loss, rtol=1e-4, atol=0.0):
         raise SystemExit("chip_smoke: the dygraph step's losses on the card "
                          "disagree with the host's")
-
-    def misses(grads, want, rel):
-        scale = {}
-        for n, g in want.items():
-            grp = _dy_group(n)
-            scale[grp] = max(scale.get(grp, 0.0), float(np.abs(g).max()))
-        bad, worst = [], {}
-        for n, g in want.items():
-            grp = _dy_group(n)
-            err = float(np.abs(grads[n] - g).max())
-            worst[grp] = max(worst.get(grp, 0.0), err / scale[grp])
-            if err > rel * scale[grp]:
-                bad.append(n)
-        return bad, worst
-
+    misses = _group_misses
     bad, worst = misses(card_g, host_g, 1e-3)
     _p("dygraph: first-step grads, max |card - host| / largest of group: "
        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
@@ -7637,6 +7674,676 @@ def phase_static_training(card):
     return launches, rows, master_launches, recipe
 
 
+# ---------------------------------------------------------------------------
+# the dygraph-to-static tier (phase 4o)
+# ---------------------------------------------------------------------------
+
+D2S_WARM, D2S_STEPS = 3, 10
+# (b): a tensor while of 20 trips of a [64, 768] x [768, 768] product and
+# a normalisation, a tensor if, a for over a tensor range of 5
+D2S_LOOP = dict(rows=64, width=768, trips=20, range=5)
+D2S_LOOP_RTOL = 1e-4
+# (c): ResNet-50 (config 2) at batch 32 of 224², bf16
+D2S_RESNET_BATCH, D2S_RESNET_STEPS = 32, 3
+# bf16 activations feed the statistics: one bf16 rounding (2^-9 relative)
+# of a mean over 32 x 112² values at most moves them by that share
+D2S_BN_RTOL = 1e-3
+# (d): BERT-base's BertModel in eval, float32, 32 x 128, jit.save / load
+D2S_SERVE_ROWS, D2S_SERVE_RTOL = 32, 1e-3
+# (e): the static BERT program at BERT-base width under decorate
+D2S_AMP = dict(rows=32, lr=1e-4, init_scale=2.0 ** 15, decr_ratio=0.5)
+D2S_AMP_HOST = dict(layers=2, rows=4, poisoned=4, good=2)
+D2S_AMP_LOSS_RTOL = 0.05       # the reference's own bf16 bound
+# fuse_attention does not match after decorate's folded casts, in either
+# package (tests/test_torch_static_amp.py): fused Adam is the one kernel
+D2S_AMP_LAUNCHES = {"fused_adam": 1}
+
+
+def _d2s_loss(model, ids, mlm, nsp):
+    return model.loss(*model(ids), mlm, nsp)
+
+
+def _d2s_steps(model, tracer, inputs, steps, to_static=True):
+    """``steps`` steps of the 2.0 eager loop (``loss.backward()``, a
+    fresh ``paddle.optimizer.Adam``'s ``step()``, ``clear_grad()``) from
+    the model's own weights, the tracer's seeds reset so two runs draw
+    the same masks: the losses and the first step's gradients by name."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    loss_fn = paddle.jit.to_static(_d2s_loss) if to_static else _d2s_loss
+    tracer._seed, tracer._seed_ctr = SEED + 7, 0
+    opt = paddle.optimizer.Adam(learning_rate=DY_LR,
+                                parameters=model.parameters())
+    variables = [dybase.to_variable(t) for t in inputs]
+    losses, first = [], None
+    for _ in range(steps):
+        loss = loss_fn(model, *variables)
+        loss.backward()
+        if first is None:
+            first = {n: p.gradient_var.detach().cpu().numpy()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses, first
+
+
+def _d2s_card_vs_host(model, tracer, init, card):
+    """(a)'s checks.  Float32, dropout 0.1 live, DY_HOST_ROWS rows, two
+    steps on the card and on the host from the same weights, seeds and
+    Adam state: losses within rtol 1e-4, first-step gradients within 1e-3
+    of their group's largest; a host twin whose masks use seed + 1 must
+    miss.  Then, dropout 0, the to_static step's loss and gradients on
+    the card within 1e-5 of the eager tape's from the same state; the
+    tape step of the dropout-0.1 model is that check's twin."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    t0 = time.perf_counter()
+    inputs = _dy_inputs(DY_HOST_ROWS)
+    model.set_state_dict(init)
+    card_loss, card_g = _d2s_steps(model, tracer, inputs, 2)
+    host_inputs = [t.cpu() for t in inputs]
+    with dybase.guard(fluid.CPUPlace()):
+        host_tracer = dybase._dygraph_tracer()
+        host = BertForPretraining(**DY)
+        host.train()
+        interop.layer_from_numpy(host, init)
+        host_loss, host_g = _d2s_steps(host, host_tracer, host_inputs, 2)
+        interop.layer_from_numpy(host, init)
+        with _masks_seed_plus_one():
+            twin_loss, twin_g = _d2s_steps(host, host_tracer, host_inputs,
+                                           1)
+    loss_margin = max(abs(c - h) / (1e-4 * abs(h))
+                      for c, h in zip(card_loss, host_loss))
+    twin_loss_margin = abs(twin_loss[0] - host_loss[0]) / (
+        1e-4 * abs(host_loss[0]))
+    bad, worst = _group_misses(card_g, host_g, 1e-3)
+    twin_bad, twin_worst = _group_misses(twin_g, host_g, 1e-3)
+    twin_margin = max(twin_worst.values()) / 1e-3
+    _p(f"4o (a): card vs host, float32, dropout 0.1 live, {DY_HOST_ROWS} "
+       f"rows x 2 to_static steps in {time.perf_counter() - t0:.1f} s: "
+       f"losses card {card_loss}, host {host_loss}: worst {loss_margin:.3f}"
+       f" of rtol 1e-4; first-step grads, worst |card - host| / largest of "
+       f"group {max(worst.values()):.2e} (tolerance 1e-3); the seed + 1 "
+       f"twin: loss {twin_loss[0]} ({twin_loss_margin:.1f} times the "
+       f"loss tolerance), grads miss at {len(twin_bad)} of "
+       f"{len(host_g)}, worst {twin_margin:.1f} times the tolerance  "
+       f"[{card}]")
+    if loss_margin > 1.0 or bad:
+        raise SystemExit(f"chip_smoke: the to_static step's losses or the "
+                         f"gradients of {bad[:5]} on the card disagree with "
+                         f"the host's")
+    if twin_margin < 10.0:
+        raise SystemExit("chip_smoke: the to_static card-vs-host check "
+                         "cannot tell the masks of another seed")
+
+    # dropout 0: to_static against the eager tape on the card
+    np.random.seed(SEED)
+    m0 = BertForPretraining(**DY, dropout=0.0, attn_dropout=0.0)
+    m0.train()
+    m0.set_state_dict(init)
+    static_loss, static_g = _d2s_steps(m0, tracer, inputs, 1)
+    m0.set_state_dict(init)
+    tape_loss, tape_g = _d2s_steps(m0, tracer, inputs, 1, to_static=False)
+    model.set_state_dict(init)
+    twin_tape_loss, twin_tape_g = _d2s_steps(model, tracer, inputs, 1,
+                                             to_static=False)
+    del m0
+    bad, worst = _group_misses(static_g, tape_g, 1e-5)
+    _, twin_worst = _group_misses(twin_tape_g, tape_g, 1e-5)
+    rel = abs(static_loss[0] - tape_loss[0]) / abs(tape_loss[0])
+    _p(f"4o (a): dropout 0, to_static vs the eager tape on the card: loss "
+       f"{static_loss[0]} vs {tape_loss[0]} (relative {rel:.2e}), grads "
+       f"worst {max(worst.values()):.2e} of their group's largest "
+       f"(tolerance 1e-5); twin (the tape at dropout 0.1) worst "
+       f"{max(twin_worst.values()):.2e}, "
+       f"{max(twin_worst.values()) / 1e-5:.1f} times the tolerance  "
+       f"[{card}]")
+    if bad or rel > 1e-5:
+        raise SystemExit(f"chip_smoke: the to_static gradients of "
+                         f"{bad[:5]} disagree with the eager tape's")
+    if max(twin_worst.values()) < 10 * 1e-5:
+        raise SystemExit("chip_smoke: the to_static-vs-tape check cannot "
+                         "tell dropout 0.1 from 0")
+    return {"loss_margin": loss_margin, "grad_worst": max(worst.values()),
+            "twin_margin": twin_margin}
+
+
+def _d2s_train_leg(card):
+    """(a): BertForPretraining at bench.py:1171's width, its loss under
+    ``paddle.jit.to_static``, the 2.0 eager loop (``loss.backward()``,
+    ``paddle.optimizer.Adam.step()``, ``clear_grad()``) under bf16
+    ``auto_cast``, D2S_WARM + D2S_STEPS steps: one ``run_program`` tape
+    entry a step, DY_LAUNCHES a step (fused Adam 0: the eager Adam runs
+    an ``adam`` op a parameter).  Returns the launches over the timed
+    steps and the numbers."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    tracer = _dygraph_tracer()
+    model = BertForPretraining(**DY)
+    model.train()
+    init = model.state_dict()
+    loss_fn = paddle.jit.to_static(_d2s_loss)
+    opt = paddle.optimizer.Adam(learning_rate=DY_LR,
+                                parameters=model.parameters())
+    inputs = [dybase.to_variable(t) for t in _dy_inputs(DY_BATCH)]
+    tapes = []
+
+    def step():
+        loss = loss_fn(model, *inputs)
+        tapes.append([e.op_type for e in tracer._tape])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.value()
+
+    _p(f"4o (a): BertForPretraining at BERT-base width (dropout 0.1), its "
+       f"loss under paddle.jit.to_static, built in "
+       f"{time.perf_counter() - t0:.1f} s")
+    tracer._seed, tracer._seed_ctr = SEED + 5, 0
+    with paddle.amp.auto_cast():
+        for _ in range(D2S_WARM):
+            step()
+        torch.cuda.synchronize()
+        counted = _counted_kernels()
+        for fn in counted:
+            fn.launches = 0
+        _flash_copies_zero()
+        tapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(D2S_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(x) for x in losses]
+        host_ms, busy_ms, idle, kernels, by_class = _profile(step, 5)
+    tokens = DY_BATCH * DY_SEQ * D2S_STEPS
+    want = {n: DY_LAUNCHES.get(n, 0) * D2S_STEPS for n in launches}
+    entries = sorted({tuple(t) for t in tapes})
+    _p(f"4o (a): {D2S_STEPS} steps at {DY_BATCH} x {DY_SEQ}, bf16, in "
+       f"{wall:.3f} s: {wall / D2S_STEPS * 1e3:.2f} ms/step, "
+       f"{tokens / wall:.0f} tokens/s, peak memory {peak:.2f} GiB; losses "
+       f"{[round(x, 4) for x in losses]}; tape entries a step before "
+       f"backward {entries}; launches {launches}, expected {want}  [{card}]")
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:6]
+    _p(f"4o (a) step, profiled: host {host_ms:.3f} ms, busy {busy_ms:.3f} "
+       f"ms, idle {idle:.4f}, {kernels:.0f} kernels a step; "
+       f"{', '.join(f'{c} {ms:.4f}' for c, ms in top)} (phase 4e's "
+       f"functional step, PERF.md: 172.1 host, 51.4 busy ms)  [{card}]")
+    if entries != [("run_program",)]:
+        raise SystemExit("chip_smoke: the to_static step is not one "
+                         "run_program tape entry")
+    if launches != want:
+        raise SystemExit("chip_smoke: the to_static step did not run "
+                         "through the kernels as predicted")
+    _flash_copies_check("to_static")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: a to_static training loss is not "
+                         "finite")
+    check = _d2s_card_vs_host(model, tracer, init, card)
+    return launches, dict(check, host_ms=host_ms, busy_ms=busy_ms,
+                          idle=idle, kernels=kernels, peak_gib=peak,
+                          tokens_per_s=tokens / wall,
+                          step_ms=wall / D2S_STEPS * 1e3)
+
+
+def _d2s_control(L, x, w, n, m):
+    """(b)'s function: a tensor while (``n`` trips of a product and a
+    normalisation), a tensor if, a for over a tensor range."""
+    i = 0.0
+    while i < n:
+        y = L.matmul(x, w)
+        x = y / L.sqrt(L.reduce_sum(L.square(y)))
+        i = i + 1.0
+    if L.reduce_mean(x) > 0:
+        z = x * 2.0
+    else:
+        z = x - 1.0
+    acc = z * 0.0
+    for k in range(m):
+        acc = acc + z
+    return acc, i
+
+
+def _d2s_control_run(place, trips):
+    """(b)'s outputs and host reads on ``place``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.fluid import layers as L, trace
+
+    rows, width = D2S_LOOP["rows"], D2S_LOOP["width"]
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(rows, width).astype("float32")
+    w = (rng.randn(width, width) / np.sqrt(width)).astype("float32")
+    reads = trace.metrics().counter("dy2static.host_reads")
+    with dybase.guard(place):
+        fn = paddle.jit.to_static(_d2s_control)
+        args = [dybase.to_variable(a) for a in (
+            x, w, np.float32(trips), np.int32(D2S_LOOP["range"]))]
+        fn(L, *args)                     # the first call probes the else
+        r0 = reads.value
+        acc, i = fn(L, *args)
+        return acc.numpy(), float(i.numpy()), reads.value - r0
+
+
+def _d2s_control_leg(card):
+    """(b): the card against the host, a twin of one trip fewer that
+    must miss; host reads a call predicted: trips + 1 for the while, 1
+    for the if, range + 1 for the for."""
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    trips = D2S_LOOP["trips"]
+    card_acc, card_i, card_reads = _d2s_control_run(fluid.CUDAPlace(0),
+                                                    trips)
+    host_acc, host_i, host_reads = _d2s_control_run(fluid.CPUPlace(), trips)
+    twin_acc, _, _ = _d2s_control_run(fluid.CPUPlace(), trips - 1)
+    scale = float(np.abs(host_acc).max())
+    err = float(np.abs(card_acc - host_acc).max()) / scale
+    twin = float(np.abs(twin_acc - host_acc).max()) / scale
+    want_reads = trips + 1 + 1 + D2S_LOOP["range"] + 1
+    _p(f"4o (b): tensor while ({trips} trips of [{D2S_LOOP['rows']}, "
+       f"{D2S_LOOP['width']}] x [{D2S_LOOP['width']}, {D2S_LOOP['width']}]"
+       f" and a normalisation), tensor if, for over a tensor range of "
+       f"{D2S_LOOP['range']}, in {time.perf_counter() - t0:.1f} s: card vs "
+       f"host worst |diff| / largest {err:.2e} (tolerance {D2S_LOOP_RTOL}),"
+       f" trips card {card_i}, host {host_i}; the {trips - 1}-trip twin "
+       f"{twin:.2e} ({twin / D2S_LOOP_RTOL:.0f} times the tolerance); "
+       f"host reads a call card {card_reads}, host {host_reads}, predicted "
+       f"{want_reads}  [{card}]")
+    if err > D2S_LOOP_RTOL or card_i != trips or host_i != trips:
+        raise SystemExit("chip_smoke: to_static control flow on the card "
+                         "disagrees with the host")
+    if twin < 10 * D2S_LOOP_RTOL:
+        raise SystemExit("chip_smoke: the control-flow check cannot tell "
+                         "one trip fewer")
+    if card_reads != want_reads or host_reads != want_reads:
+        raise SystemExit("chip_smoke: dy2static.host_reads is not as "
+                         "predicted")
+    return {"err": err, "twin": twin, "host_reads": card_reads}
+
+
+def _d2s_resnet_loss(model, images, labels):
+    from paddle_tpu_torch.fluid import layers as L
+    return L.nn.mean(L.softmax_with_cross_entropy(model(images), labels))
+
+
+def _plain_tensor(t):
+    import torch
+    return type(t) is torch.Tensor and \
+        not torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def _d2s_resnet_leg(card):
+    """(c): ResNet-50 at batch 32 of 224², bf16, its loss under
+    to_static, SGD with momentum.  One step from the initial state by
+    to_static and one by the eager tape: every moving statistic written
+    back a plain tensor, within D2S_BN_RTOL of its largest of the eager
+    loop's; the statistics not written back (the initial ones) are the
+    twin.  Then D2S_RESNET_STEPS timed to_static steps; no hand-written
+    kernel launches."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.fluid.framework import _dygraph_tracer
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    tracer = _dygraph_tracer()
+    model = resnet50(**RESNET)
+    model.train()
+    init = model.state_dict()
+    images, labels = (dybase.to_variable(t) for t in _resnet_batch(
+        D2S_RESNET_BATCH, RESNET_SIZE, RESNET["num_classes"],
+        tracer.device))
+    loss_fn = paddle.jit.to_static(_d2s_resnet_loss)
+
+    def one_step(fn, opt):
+        loss = fn(model, images, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.value()
+
+    def optimizer():
+        return paddle.optimizer.Momentum(
+            learning_rate=RESNET_LR, momentum=RESNET_MU,
+            parameters=model.parameters())
+
+    before = [b.numpy() for b in model.buffers()]
+    with paddle.amp.auto_cast():
+        one_step(loss_fn, optimizer())
+        stats = [b.numpy() for b in model.buffers()]
+        plain = all(_plain_tensor(b.value()) for b in model.buffers())
+        model.set_state_dict(init)
+        one_step(_d2s_resnet_loss, optimizer())
+        eager = [b.numpy() for b in model.buffers()]
+
+        def worst(got):
+            return max(float(np.abs(g - e).max()) / float(np.abs(e).max())
+                       for g, e in zip(got, eager))
+        err, twin = worst(stats), worst(before)
+        model.set_state_dict(init)
+        counted = _counted_kernels()
+        for fn in counted:
+            fn.launches = 0
+        opt = optimizer()
+        _timed_steps(f"4o (c) ResNet-50 to_static, bf16",
+                     lambda: one_step(loss_fn, opt), D2S_RESNET_STEPS,
+                     D2S_RESNET_BATCH, card)
+        launches = {fn.__name__: fn.launches for fn in counted}
+    model.eval()
+    model(images)                        # an eval forward reads them
+    model.train()
+    _p(f"4o (c): ResNet-50, batch {D2S_RESNET_BATCH} of {RESNET_SIZE}², "
+       f"bf16, in {time.perf_counter() - t0:.1f} s: {len(eager)} moving "
+       f"statistics written back as plain tensors: {plain}; one to_static "
+       f"step against one eager step from the same state, worst |diff| / "
+       f"largest {err:.2e} (tolerance {D2S_BN_RTOL}); the statistics not "
+       f"written back miss by {twin / D2S_BN_RTOL:.0f} times it; launches "
+       f"{ {k: v for k, v in launches.items() if v} } (none predicted)  "
+       f"[{card}]")
+    if not plain or err > D2S_BN_RTOL:
+        raise SystemExit("chip_smoke: to_static's moving statistics are "
+                         "not the eager loop's plain tensors")
+    if twin < 10 * D2S_BN_RTOL:
+        raise SystemExit("chip_smoke: the statistics check cannot tell "
+                         "statistics not written back")
+    if any(launches.values()):
+        raise SystemExit("chip_smoke: ResNet-50 launched a hand-written "
+                         "kernel")
+    return {"err": err, "twin": twin}
+
+
+def _d2s_serve_leg(card):
+    """(d): BERT-base's BertModel in eval, float32, D2S_SERVE_ROWS x 128,
+    through ``paddle.jit.save`` and ``paddle.jit.load`` in one process:
+    the exported graph holds the flash op once a layer, a call of the
+    loaded artifact launches the flash forward once a layer and nothing
+    else, its outputs within D2S_SERVE_RTOL of the largest of the eager
+    forward's; the eager forward on the ids rolled by one position is
+    the twin.  Returns the launches of one call and the numbers."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.dygraph import base as dybase
+    from paddle_tpu_torch.models.bert import BertModel
+
+    t0 = time.perf_counter()
+    np.random.seed(SEED)
+    model = BertModel(**DY)
+    model.eval()
+    ids_np = np.random.RandomState(SEED + 13).randint(
+        0, DY["vocab_size"], (D2S_SERVE_ROWS, DY_SEQ)).astype("int64")
+    ids = dybase.to_variable(ids_np)
+    want = [o.numpy() for o in model(ids)]
+    twin = [o.numpy() for o in model(dybase.to_variable(
+        np.roll(ids_np, 1, axis=1)))]
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        paddle.jit.save(model, d, input_spec=[ids_np])
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        served = paddle.jit.load(d)
+        load_s = time.perf_counter() - t1
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+    ops = [str(n.target) for n in served._exported.graph.nodes
+           if n.op == "call_function"]
+    in_graph = ops.count("paddle_tpu_torch.flash_attention_fwd.default")
+    counted = _counted_kernels()
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    _flash_copies_zero()
+    got = [o.numpy() for o in served(ids)]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    _flash_copies_check("jit.load")
+    scale = max(float(np.abs(w).max()) for w in want)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / scale
+    miss = max(float(np.abs(t - w).max())
+               for t, w in zip(twin, want)) / scale
+    host_ms, busy_ms, idle, kernels, by_class = _profile(
+        lambda: served(ids), 10)
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:5]
+    want_launches = {n: (DY["num_layers"] if n == "flash_attention_fwd"
+                         else 0) for n in launches}
+    _p(f"4o (d): BertModel (BERT-base) eval, float32, {D2S_SERVE_ROWS} x "
+       f"{DY_SEQ}: jit.save {save_s:.1f} s ({size / 2 ** 20:.0f} MiB "
+       f"written), jit.load {load_s:.1f} s; the exported graph holds "
+       f"{in_graph} paddle_tpu_torch::flash_attention_fwd; a call launches "
+       f"{ {k: v for k, v in launches.items() if v} }; worst |served - "
+       f"eager| / largest {err:.2e} (tolerance {D2S_SERVE_RTOL}); the "
+       f"rolled-ids twin {miss / D2S_SERVE_RTOL:.0f} times it; a call: host"
+       f" {host_ms:.3f} ms ({D2S_SERVE_ROWS / host_ms * 1e3:.1f} rows/s), "
+       f"busy {busy_ms:.3f} ms, idle {idle:.4f}, {kernels:.0f} kernels; "
+       f"{', '.join(f'{c} {ms:.4f}' for c, ms in top)} (total "
+       f"{time.perf_counter() - t0:.1f} s)  [{card}]")
+    if in_graph != DY["num_layers"] or launches != want_launches:
+        raise SystemExit("chip_smoke: the loaded artifact does not run "
+                         "through the flash kernel once a layer")
+    if err > D2S_SERVE_RTOL:
+        raise SystemExit("chip_smoke: the loaded artifact disagrees with "
+                         "the eager forward")
+    if miss < 10 * D2S_SERVE_RTOL:
+        raise SystemExit("chip_smoke: the deployment check cannot tell "
+                         "rolled ids")
+    return launches, {"err": err, "host_ms": host_ms, "busy_ms": busy_ms,
+                      "idle": idle, "save_s": save_s, "load_s": load_s}
+
+
+def phase_dy2static(card):
+    """Phase 4o (a) to (d), the dygraph-to-static tier on the card's
+    tracer.  Returns the launches of (a)'s timed steps and of one (d)
+    call, and the numbers."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    with dybase.guard(fluid.CUDAPlace(0)):
+        train_launches, train = _d2s_train_leg(card)
+        control = _d2s_control_leg(card)
+        resnet = _d2s_resnet_leg(card)
+        serve_launches, serve = _d2s_serve_leg(card)
+    return {"train": train_launches, "jit_load": serve_launches,
+            "numbers": dict(train=train, control=control, resnet=resnet,
+                            serve=serve)}
+
+
+def _d2s_amp_built(layers=BERT_BASE["layers"], decr_ratio=None):
+    """(main, startup, loss, scaling vars, CompiledProgram): the static
+    BERT program (BERT-base width, ``layers`` layers, dropout 0) under
+    ``decorate(Adam, init_loss_scaling=2**15, use_dynamic_loss_scaling
+    =True, decr_ratio)``, fuse_attention and fuse_optimizer applied."""
+    from paddle_tpu_torch import amp, fluid
+    from paddle_tpu_torch.fluid.framework import reset_unique_name
+    from paddle_tpu_torch.models import static_graphs as sg
+
+    b = BERT_BASE
+    reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        ids = fluid.data("ids", [-1, b["seq"]], dtype="int64")
+        labels = fluid.data("labels", [-1, 1], dtype="int64")
+        am = L.reshape(fluid.data("attn_mask", [-1, b["seq"]]),
+                       [0, 1, 1, b["seq"]])
+        mask = L.scale(am, scale=10000.0, bias=-10000.0,
+                       bias_after_scale=False)
+        h = L.embedding(ids, size=[b["vocab"], b["hidden"]])
+        for _ in range(layers):
+            h = sg._naive_attention(h, b["hidden"], b["heads"], mask=mask)
+            h = L.fc(h, b["hidden"], num_flatten_dims=2, act="relu")
+        logits = L.fc(L.reduce_mean(h, dim=[1]), 2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, labels))
+        opt = amp.decorate(
+            fluid.optimizer.AdamOptimizer(D2S_AMP["lr"]),
+            init_loss_scaling=D2S_AMP["init_scale"],
+            use_dynamic_loss_scaling=True,
+            decr_ratio=decr_ratio or D2S_AMP["decr_ratio"])
+        opt.minimize(loss)
+    startup.random_seed = SEED
+    scaling = [main.global_block().var(n)
+               for n in ("loss_scaling", "good_steps", "bad_steps")]
+    bs = fluid.BuildStrategy()
+    bs.fuse_attention = bs.fuse_optimizer = True
+    program = fluid.CompiledProgram(main, bs)
+    program._apply_ir_passes([loss.name])
+    return main, startup, loss, scaling, program
+
+
+def _poisoned_feed(feed):
+    """One infinite value in the attention mask: its bias makes a row of
+    scores infinite, and every gradient overflows."""
+    feed = dict(feed, attn_mask=feed["attn_mask"].copy())
+    feed["attn_mask"].flat[0] = np.inf
+    return feed
+
+
+def _d2s_amp_host_check(card):
+    """D2S_AMP_HOST's layers and rows: D2S_AMP_HOST["poisoned"]
+    overflowing steps then good ones, on the card and on the host from
+    one init: the (scale, good steps, bad steps) trajectory equal exactly,
+    the good steps' losses within D2S_AMP_LOSS_RTOL; a host twin built
+    with decr_ratio 0.8 must differ."""
+    from paddle_tpu_torch import fluid
+
+    h = D2S_AMP_HOST
+    feed = _train_feed(np.random.RandomState(SEED + 5), h["rows"])
+    feeds = [_poisoned_feed(feed)] * h["poisoned"] + [feed] * h["good"]
+    main, startup, loss, scaling, program = _d2s_amp_built(h["layers"])
+    init = _startup_state(main, startup, fluid.CPUPlace())
+    runs = {}
+    for name, place in (("card", fluid.CUDAPlace(0)),
+                        ("host", fluid.CPUPlace())):
+        runs[name], _ = _steps(program, main, [loss] + scaling, init, place,
+                               feeds)
+    tmain, _, tloss, tscaling, tprog = _d2s_amp_built(h["layers"], 0.8)
+    runs["twin"], _ = _steps(tprog, tmain, [tloss] + tscaling, init,
+                             fluid.CPUPlace(), feeds)
+    traj = {k: [[float(np.ravel(_host(v))[0]) for v in out[1:]]
+                for out in outs] for k, outs in runs.items()}
+    losses = {k: [float(np.ravel(_host(out[0]))[0]) for out in outs]
+              for k, outs in runs.items()}
+    good = slice(h["poisoned"], None)
+    margin = max(abs(c - o) / (D2S_AMP_LOSS_RTOL * abs(o)) for c, o in zip(
+        losses["card"][good], losses["host"][good]))
+    _p(f"4o (e): card vs host at {h['layers']} layers x {h['rows']} rows, "
+       f"{h['poisoned']} overflowing steps then {h['good']}: (scale, good, "
+       f"bad) card {traj['card']}, host {traj['host']}; good steps' losses "
+       f"card {losses['card'][good]}, host {losses['host'][good]} (worst "
+       f"{margin:.3f} of rtol {D2S_AMP_LOSS_RTOL}); the decr_ratio 0.8 "
+       f"twin {traj['twin']}  [{card}]")
+    if traj["card"] != traj["host"] or margin > 1.0:
+        raise SystemExit("chip_smoke: static AMP's loss scaling on the card "
+                         "is not the host's")
+    if traj["twin"] == traj["host"]:
+        raise SystemExit("chip_smoke: the loss-scaling check cannot tell "
+                         "decr_ratio 0.8")
+    s = D2S_AMP["init_scale"]
+    if [t[0] for t in traj["card"][:2]] != [s, s * D2S_AMP["decr_ratio"]]:
+        raise SystemExit("chip_smoke: the scale did not halve after two "
+                         "bad steps")
+    return {"trajectory": traj["card"], "loss_margin": margin}
+
+
+def phase_static_amp(card):
+    """Phase 4o (e): static AMP with dynamic loss scaling on the static
+    BERT program at BERT-base width, D2S_AMP["rows"] rows, dropout 0,
+    through fuse_attention and fuse_optimizer, D2S_WARM + D2S_STEPS
+    steps; an overflowing step at full width sets FoundInfinite and zeroes
+    every gradient; then ``_d2s_amp_host_check``.  Returns the launches
+    over the timed steps and the numbers."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, loss, scaling, program = _d2s_amp_built()
+    ops = main.global_block().ops
+    types = [op.type for op in ops]
+    count = {t: types.count(t) for t in (
+        "fused_multihead_attention", "fused_adam", "adam",
+        "check_finite_and_unscale", "update_loss_scaling")}
+    _p(f"4o (e): the static BERT program at BERT-base width under "
+       f"decorate(Adam({D2S_AMP['lr']}), init_loss_scaling="
+       f"{D2S_AMP['init_scale']}, use_dynamic_loss_scaling=True, "
+       f"decr_ratio={D2S_AMP['decr_ratio']}), fuse_attention + "
+       f"fuse_optimizer, built in {time.perf_counter() - t0:.1f} s: "
+       f"{count}, {len(types)} ops")
+    if count != {"fused_multihead_attention": 0, "fused_adam": 1, "adam": 0,
+                 "check_finite_and_unscale": 1, "update_loss_scaling": 1}:
+        raise SystemExit("chip_smoke: the decorated program was not "
+                         "rewritten as predicted")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _train_feed(np.random.RandomState(SEED), D2S_AMP["rows"])
+
+    def step(f=feed, fetch=(loss, *scaling)):
+        return exe.run(program, feed=f, fetch_list=list(fetch), scope=scope,
+                       return_numpy=False)
+
+    got = [step() for _ in range(D2S_WARM)]
+    torch.cuda.synchronize()
+    counted = _counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(D2S_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    got += timed
+    losses = [float(_host(o[0]).ravel()[0]) for o in got]
+    goods = [float(_host(o[2]).ravel()[0]) for o in got]
+    want = {n: D2S_AMP_LAUNCHES.get(n, 0) * D2S_STEPS for n in launches}
+    host_ms, busy_ms, idle, kernels, by_class = _profile(step, 5)
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:6]
+    tokens = D2S_AMP["rows"] * BERT_BASE["seq"]
+    _p(f"4o (e): {D2S_STEPS} timed steps at {D2S_AMP['rows']} rows in "
+       f"{wall:.3f} s ({wall / D2S_STEPS * 1e3:.2f} ms a step, "
+       f"{tokens * D2S_STEPS / wall:.0f} tokens/s); losses "
+       f"{[round(x, 5) for x in losses]}; good steps {goods}; launches "
+       f"{launches}, expected {want}; profiled: host {host_ms:.3f} ms, busy "
+       f"{busy_ms:.3f} ms, idle {idle:.4f}, {kernels:.0f} kernels a step; "
+       f"{', '.join(f'{c} {ms:.4f}' for c, ms in top)}  [{card}]")
+    if launches != want:
+        raise SystemExit("chip_smoke: the decorated step did not run "
+                         "through the kernels as predicted")
+    if not np.isfinite(losses).all() or goods != list(
+            map(float, range(1, len(goods) + 1))):
+        raise SystemExit("chip_smoke: a decorated step overflowed or lost "
+                         "a good step")
+    upd = next(op for op in ops if op.type == "update_loss_scaling")
+    grads = upd.outputs["Out"]
+    found = upd.inputs["FoundInfinite"][0]
+    over = step(_poisoned_feed(feed), [found, *scaling] + grads)
+    zero = all(not np.any(_host(g)) for g in over[4:])
+    _p(f"4o (e): an overflowing step at full width: FoundInfinite "
+       f"{bool(_host(over[0]).ravel()[0])}, all {len(grads)} gradients "
+       f"zero: {zero}, (scale, good, bad) "
+       f"{[float(_host(v).ravel()[0]) for v in over[1:4]]}")
+    if not bool(_host(over[0]).ravel()[0]) or not zero:
+        raise SystemExit("chip_smoke: an overflowing step was not caught")
+    check = _d2s_amp_host_check(card)
+    return launches, dict(check, host_ms=host_ms, busy_ms=busy_ms,
+                          idle=idle, kernels=kernels,
+                          step_ms=wall / D2S_STEPS * 1e3)
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7685,6 +8392,7 @@ def main():
     # 4n and 4k build static programs too: before 4e turns dygraph on
     recipe_launches, master_rows, master_launches, _ = _timed(
         "4n static training surface", phase_static_training, card)
+    amp_launches, _ = _timed("4o (e) static AMP", phase_static_amp, card)
     box_launches, box_legs_launches, box = _timed(
         "4k train CTR through BoxPS", phase_train_boxps, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
@@ -7696,6 +8404,7 @@ def main():
     ptb_launches, _ = _timed("4l train PTB LM and dygraph CTR",
                              phase_train_ptb_ctr, card)
     hapi = _timed("4m hapi Model.fit and paddle.grad", phase_hapi, card)
+    d2s = _timed("4o dygraph-to-static", phase_dy2static, card)
     _timed("5 profile", phase_profile, served, trained, card)
     _timed("5 profile CTR", phase_profile_ctr, ctr_served, ctr_trained,
            card)
@@ -7854,6 +8563,14 @@ def main():
     # once a step by (c)'s fused runs
     for row in kernels:
         row["recipe_launches"] = recipe_launches[row["name"]]
+    # the dygraph-to-static tier (phase 4o): launches over (a)'s timed
+    # to_static steps, of one call of (d)'s loaded artifact and over (e)'s
+    # timed decorated steps
+    for row in kernels:
+        row["to_static_launches"] = {
+            "train": d2s["train"][row["name"]],
+            "jit_load": d2s["jit_load"][row["name"]],
+            "static_amp": amp_launches[row["name"]]}
     for opt, line in (("adam", ":647"), ("momentum", ":678")):
         name = f"fused_{opt}_master"
         row = master_rows[name]
@@ -7863,7 +8580,11 @@ def main():
             master_launches[name], row, dtype="bfloat16 params, float32 "
             "masters", values=row["values"],
             bytes_per_value=row["bytes_per_value"], library=row["library"],
-            call_ms=row["call_ms"], recipe_launches=recipe_launches[name]))
+            call_ms=row["call_ms"], recipe_launches=recipe_launches[name],
+            to_static_launches={
+                "train": d2s["train"][name],
+                "jit_load": d2s["jit_load"][name],
+                "static_amp": amp_launches[name]}))
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -46,6 +46,7 @@ from . import serving
 from . import interop
 from . import dygraph
 from . import hapi
+from . import jit
 from .hapi import Model, callbacks
 from .hapi.flops import flops
 from .dygraph.base import to_variable, no_grad, grad

@@ -1,7 +1,8 @@
 """Dygraph (eager imperative) mode (counterpart of ``paddle_tpu/dygraph``:
 the tracer and its tape, ``Layer`` and its containers, the layer classes
 the ported models call, ``functionalize``, ``save_dygraph`` and
-``load_dygraph``, the 1.x learning-rate decays and the 1.x cells)."""
+``load_dygraph``, ``declarative`` and ``TracedLayer``, the 1.x
+learning-rate decays and the 1.x cells)."""
 from .base import (VarBase, ParamBase, Tracer, guard, enable_dygraph,
                    disable_dygraph, to_variable, no_grad)
 from .layers import Layer, Sequential, LayerList, ParameterList
@@ -10,6 +11,7 @@ from .nn import (Linear, Embedding, LayerNorm, Dropout, Conv2D, Pool2D,
                  BatchNorm)
 from .functional import functionalize, functional_loss
 from .checkpoint import save_dygraph, load_dygraph
+from .jit import TracedLayer, declarative
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import (NoamDecay, PiecewiseDecay,
                                       NaturalExpDecay, ExponentialDecay,

@@ -309,7 +309,8 @@ class Tracer:
                 continue
             vals = vals if isinstance(vals, (list, tuple)) else [vals]
             ins_vb[slot] = [v for v in vals if v is not None]
-        if self._amp_enabled:
+        if self._amp_enabled and op_type != "run_program":
+            # a run_program's own ops autocast as they run
             ins_vb = self._autocast(op_type, ins_vb)
         ins_t = {s: [v._value for v in vs] for s, vs in ins_vb.items()}
         if opdef.stateful_rng and "op_seed" not in attrs:

@@ -54,8 +54,8 @@ def _generic_grad(ins, attrs, ctx):
         # no custom grad reads the forward's outputs, so the forward is
         # not run again (on the TPU, XLA drops that recompute as dead code;
         # here it would launch the forward kernel a second time)
-        out_grads = {s[2:]: gs[0] for s, gs in ins.items()
-                     if s.startswith("G_") and gs}
+        out_grads = {s[2:]: list(gs) if fwd_def.grad_lists else gs[0]
+                     for s, gs in ins.items() if s.startswith("G_") and gs}
         in_grads = fwd_def.custom_grad(fwd_ins, None, out_grads,
                                        fwd_attrs, ctx)
         return {"GI_" + s: v for s, v in in_grads.items() if s in grad_slots}

@@ -11,7 +11,11 @@ Dispatch (``flash_attention``):
   plain version ``_reference_attention``;
 * a CUDA tensor launches the hand-written Hopper kernel
   (ops/cuda_kernels.py, csrc/flash_attention.cu) or raises — there is no
-  fallback.  Where autograd records (inside ``generic_grad``'s
+  fallback.  With grad off the call goes through the dispatcher op
+  ``paddle_tpu_torch::flash_attention_fwd`` (``flash_attention_fwd_op``:
+  the kernel on CUDA, the plain version on the host, a fake for
+  ``torch.export``), the op an exported graph holds.  Where autograd
+  records (inside ``generic_grad``'s
   ``torch.func.vjp``), the launch goes through ``_FlashAttention``: its
   forward also writes each row's softmax statistics (max and sum), and
   its backward is the hand-written backward kernel;
@@ -128,6 +132,29 @@ def _flash_attention_bwd(q, k, v, mask, scale, causal, o, m, l, do):
                                             m, l, do)
 
 
+# The forward kernel's launch as a dispatcher op, the one an exported
+# eval forward (``paddle.jit.save``'s ``torch.export``) holds: export
+# traces on fake tensors, which have no data pointer for a ctypes launch.
+# Its fake gives the output's shape, its default (host) implementation
+# is the plain version, and its CUDA implementation launches the kernel.
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? mask, float scale, "
+           "bool causal) -> Tensor")
+def flash_attention_fwd_op(q, k, v, mask, scale, causal):
+    return _reference_attention(q, k, v, mask, scale, causal)
+
+
+@flash_attention_fwd_op.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, mask, scale, causal):
+    return cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal)
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, mask, scale, causal):
+    return q.new_empty((*q.shape[:-1], v.shape[-1]))
+
+
 class _FlashAttention(torch.autograd.Function):
     """The card's attention under autograd: the forward kernel, which
     also writes the row softmax statistics, and the backward kernel.
@@ -168,10 +195,12 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False,
     on the plain version otherwise (see the module docstring)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     drop_active = bool(dropout_rate) and dropout_key is not None
-    if q.device.type == "cuda" and not drop_active and prob_scale is None:
-        if torch.is_grad_enabled():
+    if not drop_active and prob_scale is None:
+        if not torch.is_grad_enabled():
+            return flash_attention_fwd_op(q, k, v, mask, float(scale),
+                                          bool(causal))
+        if q.device.type == "cuda":
             return _FlashAttention.apply(q, k, v, mask, scale, causal)[0]
-        return cuda_kernels.flash_attention_fwd(q, k, v, mask, scale, causal)
     return _reference_attention(q, k, v, mask, scale, causal,
                                 dropout_rate if drop_active else 0.0,
                                 dropout_key, dropout_upscale, prob_scale)

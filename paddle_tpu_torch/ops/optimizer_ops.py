@@ -1,9 +1,10 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/optimizer_ops.py``:
 SGD, Momentum, Adam, AdamW, Adagrad, RMSProp, Lamb, Adadelta, LARS
 momentum, FTRL, DP-SGD, decayed Adagrad, DGC momentum, ModelAverage's
-``average_accumulates``, GradientMerge's ``SkipUpdate`` gate, and the
-bucketed forms of Adam, Momentum and LAMB; Adamax is in ``misc_ops.py``,
-as in the reference).
+``average_accumulates``, GradientMerge's ``SkipUpdate`` gate, the
+bucketed forms of Adam, Momentum and LAMB, and static AMP's loss-scaling
+pair, ``check_finite_and_unscale`` and ``update_loss_scaling``; Adamax
+is in ``misc_ops.py``, as in the reference).
 
 Each op consumes (param, grad, states...) and returns new values; the
 executor writes the outputs back to the scope under the same names.  All
@@ -490,6 +491,57 @@ def _decayed_adagrad(ins, attrs, ctx):
     new_m = decay * m + (1 - decay) * g * g
     return {"ParamOut": [p - lr * g / (torch.sqrt(new_m) + eps)],
             "MomentOut": [new_m]}
+
+
+# ---------------------------------------------------------------------------
+# AMP dynamic loss scaling (operators/amp/*)
+# ---------------------------------------------------------------------------
+@register_op("check_finite_and_unscale", differentiable=False)
+def _check_finite_and_unscale(ins, attrs, ctx):
+    """Each X divided by Scale (in the two dtypes' common type, as the
+    reference promotes), and whether any value of any X was not finite,
+    a ``[1]`` bool left on the card."""
+    scale = _p(ins, "Scale").reshape(())
+    outs = []
+    found_inf = torch.zeros((), dtype=torch.bool, device=scale.device)
+    for x in ins["X"]:
+        found_inf = found_inf | ~torch.isfinite(x).all()
+        outs.append(x.to(torch.promote_types(x.dtype, scale.dtype))
+                    / scale)
+    return {"Out": outs, "FoundInfinite": [found_inf.reshape(1)]}
+
+
+@register_op("update_loss_scaling", differentiable=False)
+def _update_loss_scaling(ins, attrs, ctx):
+    """The dynamic loss scale's step: after ``incr_every_n_steps`` good
+    steps in a row the scale grows by ``incr_ratio``; after
+    ``decr_every_n_nan_or_inf`` bad ones it shrinks by ``decr_ratio``
+    (never under 1); a bad step zeroes every X.  All on the card, no
+    host read."""
+    found_inf = _p(ins, "FoundInfinite").reshape(())
+    scale = _p(ins, "PrevLossScaling").reshape(())
+    good = _p(ins, "InGoodSteps").reshape(())
+    bad = _p(ins, "InBadSteps").reshape(())
+    incr_every = attrs.get("incr_every_n_steps", 1000)
+    decr_every = attrs.get("decr_every_n_nan_or_inf", 2)
+    incr_ratio = attrs.get("incr_ratio", 2.0)
+    decr_ratio = attrs.get("decr_ratio", 0.5)
+
+    zero_good, zero_bad = torch.zeros_like(good), torch.zeros_like(bad)
+    good_new = torch.where(found_inf, zero_good, good + 1)
+    bad_new = torch.where(found_inf, bad + 1, zero_bad)
+    grow = good_new >= incr_every
+    scale_up = torch.where(grow, scale * incr_ratio, scale)
+    good_new = torch.where(grow, zero_good, good_new)
+    shrink = bad_new >= decr_every
+    scale_dn = torch.where(shrink, torch.clamp_min(scale * decr_ratio, 1.0),
+                           scale_up)
+    bad_new = torch.where(shrink, zero_bad, bad_new)
+    outs = [torch.where(found_inf, torch.zeros_like(x), x)
+            for x in ins["X"]]
+    return {"Out": outs, "LossScaling": [scale_dn.reshape(1)],
+            "OutGoodSteps": [good_new.reshape(1)],
+            "OutBadSteps": [bad_new.reshape(1)]}
 
 
 @register_op("dgc_momentum", differentiable=False)

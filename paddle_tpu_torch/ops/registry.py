@@ -32,6 +32,9 @@ class OpDef:
     # (ins, outs, out_grads, attrs, ctx) -> in_grads, in place of the vjp;
     # ``generic_grad`` passes outs=None (the forward is not rerun)
     custom_grad: Optional[Callable] = None
+    # custom_grad gets each output slot's whole list of cotangents (by
+    # default the slot's first, for the single-output ops)
+    grad_lists: bool = False
 
 
 _OP_REGISTRY: Dict[str, OpDef] = {}

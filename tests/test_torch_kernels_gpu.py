@@ -116,6 +116,32 @@ def test_causal(cuda, dtype):
     _check(cuda, 2, 4, 100, 64, dtype, causal=True, masked=False)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,masked", [(False, True), (True, False)],
+                         ids=["padding", "causal"])
+def test_flash_custom_op_is_the_kernel(cuda, dtype, causal, masked):
+    """``paddle_tpu_torch::flash_attention_fwd`` (what an exported graph
+    holds) on CUDA tensors: ``torch.equal`` to the wrapper's launch, one
+    launch counted; its fake gives the real output's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from paddle_tpu_torch.ops.attention import flash_attention_fwd_op
+    (q, k, v), mask = _inputs(cuda, 2, 4, 128, 64, dtype, masked=masked)
+    before = cuda_kernels.flash_attention_fwd.launches
+    got = flash_attention_fwd_op(q, k, v, mask, 0.125, causal)
+    assert cuda_kernels.flash_attention_fwd.launches == before + 1
+    want = cuda_kernels.flash_attention_fwd(q, k, v, mask, 0.125, causal)
+    assert torch.equal(got, want)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = flash_attention_fwd_op(*[mode.from_tensor(t) for t in
+                                        (q, k, v)],
+                                      mode.from_tensor(mask) if masked
+                                      else None, 0.125, causal)
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+    assert fake.device == got.device
+    assert cuda_kernels.flash_attention_fwd.launches == before + 2
+
+
 def test_dispatch_launches_the_kernel_for_cuda_tensors(cuda):
     (q, k, v), mask = _inputs(cuda, 2, 2, 16, 64, torch.float32)
     before = cuda_kernels.flash_attention_fwd.launches

@@ -1,6 +1,6 @@
 """The port's API surface against the reference's: the top-level,
 ``nn``, ``nn.functional``, ``tensor``, ``metric``, ``fluid``,
-``fluid.layers``, ``fluid.optimizer`` and ``regularizer`` names of
+``fluid.layers``, ``fluid.optimizer``, ``regularizer`` and ``jit`` names of
 ``paddle_tpu_torch`` against those of ``paddle_tpu``.
 
 The names the port lacks are exactly the frozen lists below, each with
@@ -38,7 +38,6 @@ MISSING = {
     "top-level": {
         "TPUPlace": 0, "XPUPlace": 0,
         "CUDAPinnedPlace": 12,
-        "jit": 5,
         "inference": 6,
         "DataParallel": 10, "distributed": 10, "parallel": 10,
         "compat": 12, "contrib": 12, "dataset": 12, "distribution": 12,
@@ -137,6 +136,7 @@ MISSING = {
     },
     "fluid.optimizer": {},
     "regularizer": {},
+    "jit": {},
 }
 
 
@@ -149,7 +149,7 @@ import importlib
 root = importlib.import_module(sys.argv[1])
 spaces = {"top-level": root}
 for space in ("nn", "nn.functional", "tensor", "metric", "fluid",
-              "fluid.layers", "fluid.optimizer", "regularizer"):
+              "fluid.layers", "fluid.optimizer", "regularizer", "jit"):
     spaces[space] = importlib.import_module(sys.argv[1] + "." + space)
 no_modules = ("fluid", "fluid.layers", "fluid.optimizer", "regularizer")
 print(json.dumps({k: sorted(
@@ -180,7 +180,7 @@ def surfaces():
 
 
 SPACES = ("top-level", "nn", "nn.functional", "tensor", "metric", "fluid",
-          "fluid.layers", "fluid.optimizer", "regularizer")
+          "fluid.layers", "fluid.optimizer", "regularizer", "jit")
 
 
 @pytest.mark.parametrize("space", SPACES)
@@ -340,3 +340,23 @@ def test_the_static_training_surface():
                  "load_params", "embedding", "one_hot", "regularizer"):
         assert hasattr(fluid, name), name
     assert tpaddle.regularizer.L2Decay is fluid.regularizer.L2Decay
+
+
+def test_the_dygraph_to_static_surface():
+    """The names a 2.0 program deploys through, and the op types the
+    slice registers: every op type the port registers is one of the
+    reference's."""
+    import paddle_tpu.ops as jops
+    from paddle_tpu_torch.ops import all_ops
+    assert tpaddle.jit.to_static is tpaddle.dygraph.declarative
+    assert tpaddle.dygraph.TracedLayer is tpaddle.jit.TracedLayer
+    for name in ("save", "load", "TranslatedLayer", "ProgramTranslator",
+                 "not_to_static", "dy2static"):
+        assert hasattr(tpaddle.jit, name), name
+    for name in ("decorate", "rewrite_program_bf16", "CustomOpLists",
+                 "AutoMixedPrecisionLists"):
+        assert hasattr(tpaddle.amp, name), name
+    ported = set(all_ops())
+    assert {"run_program", "check_finite_and_unscale",
+            "update_loss_scaling"} <= ported
+    assert ported <= set(jops.builtin_ops())
