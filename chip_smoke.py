@@ -334,6 +334,36 @@ over):
    layers and 4 rows over 4 overflowing and 2 good steps: the (scale,
    good, bad) trajectory equal exactly (a decr_ratio 0.8 twin must
    differ).  (e) runs with the static phases, before 4e.
+4p. deployment -- the inference artifacts, in a temporary directory
+   the phase removes.  (a) phase 4's served BERT-base program (frozen,
+   12 ``fuse_attention`` rewrites) through ``fluid.io.
+   save_inference_model`` with a combined params file and a fresh
+   ``AnalysisPredictor`` on the card: 12 fused ops in the loaded
+   program, 12 flash-forward launches a run at 1, 8 and 32 rows, the
+   logits equal to the in-memory program's bit for bit (two layers'
+   query weights swapped must miss by 10x 1e-5 of the largest logit);
+   then ``set_precision(Bfloat16)``: every weight in bf16, 12 flash
+   launches a run, within DEPLOY_BF16_TOL of float32 in relative L2
+   (the swapped twin in bf16 must miss it; at these weights bf16 moves
+   the logits as far as the twin does, so no 10x margin).  (b) ``save_aot_model``
+   of (a)'s predictor at bucket edges (1, 8, 32), ``load_aot_model`` on
+   the card: every exported graph holds ``paddle_tpu_torch::
+   flash_attention_fwd`` 12 times, a call launches it 12 times, outputs
+   within 1e-5 of the largest of (a)'s logits (the swapped twin must
+   miss by 10x); ``ServingEngine`` over the artifact answers 48 requests
+   of 1 to 32 rows, each equal bit for bit to its rows through the
+   bucket program its batch rode in (the twin artifact's answers must
+   miss by 10x 1e-5), and each against one artifact call on its rows
+   (their own bucket's program) within 1e-5 or reported.  (c) phase 4c's CTR program
+   (26 ``fused_embedding_pool`` ops in ``__model__``) through both, 26
+   gather-pool launches a run or call at 1, 64 and 512 rows, within
+   1e-5 of the largest logit of the in-memory program phase 4c served
+   (two slots' tables swapped must miss by 10x).  (d) the reference's
+   ``tests/fixtures/ref_fc_model`` (per-var params) on the card against
+   the host (a rolled-bias twin must miss), re-exported with
+   ``params_filename`` and loaded back bit for bit.  Host ms, busy ms
+   and rows/s per batch size; the save's seconds and bytes, the
+   artifact's bytes (weights once) and load seconds; latency p50/p99.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -349,7 +379,8 @@ over):
    ``ptb_launches`` those of 4l's timed float32 PTB steps, the dropout
    rows' ``ptb`` their times at the PTB shape, ``recipe_launches`` those
    of 4n's timed recipe steps, ``to_static_launches`` those of 4o (a)'s
-   timed steps, of one 4o (d) call and of 4o (e)'s timed steps, and the
+   timed steps, of one 4o (d) call and of 4o (e)'s timed steps,
+   ``deploy_launches`` those of phase 4p's counted runs, and the
    rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
    4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -360,7 +391,9 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -544,6 +577,13 @@ HAPI_NMT_LOSS_RTOL, HAPI_NMT_COSINE = 1e-4, 0.9999
 # (d) paddle.grad's gradient penalty over a small MLP
 HAPI_GP = dict(rows=64, d_in=32, hidden=64, seed=61)
 HAPI_GP_RTOL = 1e-5
+DEPLOY_BERT_ROWS = (1, 8, 32)      # 4p: the BERT runs and bucket edges
+DEPLOY_CTR_ROWS = (1, 64, 512)     # 4p: the CTR runs and bucket edges
+DEPLOY_REQUESTS = 48               # 4p: requests to the engine over (b)
+DEPLOY_TOL = 1e-5                  # 4p: of the largest logit
+# 4p: bf16 against float32, relative L2 (the first chip run: 0.0739
+# unpadded, 0.1939 padded, where bf16 also loses the padding mask)
+DEPLOY_BF16_TOL = {"full-length": 0.1, "padded": 0.25}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"        # where phase 3 makes its inputs
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
@@ -8344,6 +8384,525 @@ def phase_static_amp(card):
                           step_ms=wall / D2S_STEPS * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: the deployment path
+# ---------------------------------------------------------------------------
+
+def _counts_zero():
+    for fn in _counted_kernels():
+        fn.launches = 0
+
+
+def _counts():
+    return {fn.__name__: fn.launches for fn in _counted_kernels()}
+
+
+def _counted_run(label, fn, want):
+    """Run ``fn`` with every count set to 0 just before and read just
+    after; fail unless the launches are ``want`` ({name: n}; None: the
+    caller checks that count) and every other counted kernel's 0.
+    Returns (fn's result, the counts)."""
+    import torch
+    torch.cuda.synchronize()
+    _counts_zero()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _counts()
+    bad = {k: v for k, v in counts.items()
+           if (v != 0 if k not in want else
+               want[k] is not None and v != want[k])}
+    if bad:
+        raise SystemExit(f"chip_smoke: {label} launched {bad}, expected "
+                         f"{want} and no other counted kernel")
+    return out, counts
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _serve_predictor(pred, feed):
+    for n in pred.get_input_names():
+        pred.get_input_handle(n).copy_from_cpu(feed[n])
+    pred.run()
+    return pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+
+
+def _bert_request(rng, rows):
+    seq = BERT_BASE["seq"]
+    lengths = rng.randint(1, seq + 1, rows)
+    return {"ids": rng.randint(0, BERT_BASE["vocab"], (rows, seq))
+            .astype("int64"),
+            "attn_mask": (np.arange(seq)[None, :] < lengths[:, None])
+            .astype("float32")}
+
+
+@contextlib.contextmanager
+def _swapped(values, a, b):
+    """``values[a]`` and ``values[b]`` swapped (a scope's vars by name, or
+    an artifact's weight list by index) for the block's duration."""
+    values_get = values.find_var if hasattr(values, "find_var") \
+        else values.__getitem__
+    values_set = values.set_var if hasattr(values, "set_var") \
+        else values.__setitem__
+    va, vb = values_get(a), values_get(b)
+    values_set(a, vb)
+    values_set(b, va)
+    try:
+        yield
+    finally:
+        values_set(a, va)
+        values_set(b, vb)
+
+
+def _twin_misses(label, got, twin, tol):
+    off = float(np.abs(got - twin).max())
+    _p(f"deploy: {label} twin misses by {off:.3e} (must be at least 10 x "
+       f"{tol:.3e})")
+    if off < 10 * tol:
+        raise SystemExit(f"chip_smoke: the {label} check cannot tell the "
+                         f"answers from its twin's")
+
+
+def _predictor_profile(label, fn, rows, card, iters=20):
+    host_ms, busy_ms, idle, kernels, by_class = _profile(fn, iters)
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:4]
+    _p(f"deploy: {label} at {rows} rows: host {host_ms:.3f} ms, busy "
+       f"{busy_ms:.3f} ms, idle {idle:.4f}, {kernels:.0f} kernels, "
+       f"{rows / host_ms * 1e3:.1f} rows/s; "
+       + ", ".join(f"{c} {ms:.4f}" for c, ms in top) + f"  [{card}]")
+    return dict(host_ms=host_ms, busy_ms=busy_ms, idle=idle,
+                kernels=kernels, rows_per_s=rows / host_ms * 1e3)
+
+
+def _artifact_at(art, feed, edge):
+    """``feed``'s rows through the artifact's ``edge``-row program (the
+    bucket a larger batch would take), sliced back."""
+    import torch
+    names = art.get_input_names()
+    n = len(feed[names[0]])
+    args = [art._arg(k, feed[k], edge, n) for k in names]
+    args.append(torch.tensor(n, dtype=torch.int32, device=art.device))
+    outs = art._call(edge, args)
+    return dict(zip(art.get_output_names(),
+                    [o[:n].float().cpu().numpy() for o in outs]))
+
+
+def _deploy_bert(served, card, tmp):
+    """(a) and (b); returns {run: launches} and the measurements."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import (AnalysisConfig, create_predictor,
+                                            load_aot_model, save_aot_model)
+    from paddle_tpu_torch.inference.predictor import PrecisionType
+    from paddle_tpu_torch.serving import ServingEngine
+
+    _, frozen, scope, logits = served
+    layers = BERT_BASE["layers"]
+    feeds = ["ids", "attn_mask"]
+    params = frozen.all_parameters()
+    if len(params) != 1 + 8 * layers + 2:
+        raise SystemExit("chip_smoke: the BERT program's parameters are "
+                         "not in the order this phase reads them")
+    q0, q1 = params[1].name, params[9].name      # layers 0 and 1's query
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    model_dir = os.path.join(tmp, "bert")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(model_dir, feeds, [logits], exe,
+                                      main_program=frozen,
+                                      params_filename="params")
+    save_s = time.perf_counter() - t0
+    save_bytes = _dir_bytes(model_dir)
+    _p(f"deploy: BERT-base save_inference_model {save_s:.2f} s, "
+       f"{save_bytes} bytes (__model__ "
+       f"{os.path.getsize(os.path.join(model_dir, '__model__'))}, "
+       f"combined params "
+       f"{os.path.getsize(os.path.join(model_dir, 'params'))}, params.npz "
+       f"{os.path.getsize(os.path.join(model_dir, 'params.npz'))})")
+    flash = {"flash_attention_fwd": layers}
+    rng = np.random.RandomState(SEED + 20)
+    feed_at = {n: _bert_request(rng, n) for n in DEPLOY_BERT_ROWS}
+    want = {n: exe.run(frozen, feed=f, fetch_list=[logits], scope=scope)[0]
+            for n, f in feed_at.items()}
+    launches, out = {}, {"save_s": save_s, "save_bytes": save_bytes}
+
+    pscope = fluid.Scope()
+    with fluid.scope_guard(pscope):
+        t0 = time.perf_counter()
+        pred = create_predictor(AnalysisConfig(
+            model_dir, params_file=os.path.join(model_dir, "params")))
+        out["load_s"] = time.perf_counter() - t0
+        fused = [op.type for op in pred._program.global_block().ops] \
+            .count("fused_multihead_attention")
+        _p(f"deploy: AnalysisPredictor loaded on {pred._exe.device} in "
+           f"{out['load_s']:.2f} s, {fused} fused_multihead_attention ops")
+        if fused != layers:
+            raise SystemExit("chip_smoke: the loaded BERT program lost its "
+                             "fused attention ops")
+        got = {}
+        for n, f in feed_at.items():
+            got[n], c = _counted_run(f"the BERT predictor at {n} rows",
+                                     lambda: _serve_predictor(pred, f),
+                                     flash)
+            launches[f"bert_predictor_{n}"] = c
+            exact = np.array_equal(got[n], want[n])
+            _p(f"deploy: BERT predictor at {n} rows: flash launches "
+               f"{c['flash_attention_fwd']}, logits equal to the in-memory "
+               f"program's bit for bit: {exact}")
+            if got[n].shape != (n, 2) or not exact:
+                raise SystemExit("chip_smoke: the loaded BERT program "
+                                 "answers otherwise than the in-memory one")
+        tol8 = DEPLOY_TOL * float(np.abs(want[8]).max())
+        with _swapped(pscope, q0, q1):
+            _twin_misses("BERT predictor (query weights of layers 0 and 1 "
+                         "swapped)", got[8], _serve_predictor(pred, feed_at[8]),
+                         tol8)
+        out["predictor"] = {n: _predictor_profile(
+            "BERT predictor", lambda f=f: _serve_predictor(pred, f), n, card)
+            for n, f in feed_at.items()}
+        # bf16 rounds the program's padding bias, (m - 10000) * 10000, to
+        # one value for m = 0 and 1: the bf16 check also runs unpadded rows
+        full32 = dict(feed_at[32], attn_mask=np.ones_like(
+            feed_at[32]["attn_mask"]))
+        got_full32 = _serve_predictor(pred, full32)
+
+        # (b) the artifact, exported from the predictor's scope
+        aot_dir = os.path.join(tmp, "bert_aot")
+        t0 = time.perf_counter()
+        meta = save_aot_model(aot_dir, pred, feed_at[8],
+                              bucket_edges=DEPLOY_BERT_ROWS)
+        out["export_s"] = time.perf_counter() - t0
+    out["aot_bytes"] = _dir_bytes(aot_dir)
+    w_bytes = os.path.getsize(os.path.join(aot_dir, meta["weights_file"]))
+    t0 = time.perf_counter()
+    art = load_aot_model(aot_dir)
+    for e in DEPLOY_BERT_ROWS:
+        art._module(e)
+    out["aot_load_s"] = time.perf_counter() - t0
+    _p(f"deploy: save_aot_model (edges {DEPLOY_BERT_ROWS} and the 8-row "
+       f"example) {out['export_s']:.2f} s, {out['aot_bytes']} bytes on "
+       f"disk ({w_bytes} of them the weights, once); load_aot_model on "
+       f"{art.device} {out['aot_load_s']:.2f} s")
+    for e in DEPLOY_BERT_ROWS:
+        held = [str(nd.target) for nd in art._module(e).graph.nodes
+                if nd.op == "call_function"].count(
+            "paddle_tpu_torch.flash_attention_fwd.default")
+        if held != layers:
+            raise SystemExit(f"chip_smoke: the {e}-row exported graph holds "
+                             f"the flash op {held} times, not {layers}")
+    _p(f"deploy: each exported graph holds paddle_tpu_torch::"
+       f"flash_attention_fwd {layers} times")
+    i0, i1 = meta["param_names"].index(q0), meta["param_names"].index(q1)
+    worst = 0.0
+    for n, f in feed_at.items():
+        a, c = _counted_run(f"the BERT artifact at {n} rows",
+                            lambda: art(f)[logits.name], flash)
+        launches[f"bert_aot_{n}"] = c
+        err = float(np.abs(a - got[n]).max())
+        tol = DEPLOY_TOL * float(np.abs(got[n]).max())
+        worst = max(worst, err / tol)
+        _p(f"deploy: BERT artifact at {n} rows: flash launches "
+           f"{c['flash_attention_fwd']}, max |err| against the predictor "
+           f"{err:.3e} (tolerance {tol:.3e}; exact: {err == 0.0})")
+        if err > tol:
+            raise SystemExit("chip_smoke: the BERT artifact disagrees with "
+                             "the predictor")
+    with _swapped(art._weights, i0, i1):
+        twin8 = art(feed_at[8])[logits.name]
+    _twin_misses("BERT artifact (query weights swapped)", got[8], twin8, tol8)
+    out["aot"] = {n: _predictor_profile(
+        "BERT artifact", lambda f=f: art(f), n, card)
+        for n, f in feed_at.items()}
+
+    # bf16 in a scope of its own: the cast replaces the scope's weights
+    with fluid.scope_guard(fluid.Scope()):
+        cfg = AnalysisConfig(model_dir,
+                             params_file=os.path.join(model_dir, "params"))
+        cfg.set_precision(PrecisionType.Bfloat16)
+        p16 = create_predictor(cfg)
+        bscope = fluid.global_scope()
+        held = {str(bscope.find_var(v.name).dtype)
+                for v in p16._program.global_block().vars.values()
+                if v.persistable and bscope.find_var(v.name) is not None}
+        if held != {"torch.bfloat16"}:
+            raise SystemExit(f"chip_smoke: the bf16 predictor holds {held}")
+
+        def rel(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        errs = {}
+        for label, f, ref in (("padded", feed_at[32], got[32]),
+                              ("full-length", full32, got_full32)):
+            g16, c = _counted_run(f"the bf16 BERT predictor ({label})",
+                                  lambda: _serve_predictor(p16, f), flash)
+            launches[f"bert_bf16_{label}"] = c
+            errs[label] = rel(g16, ref)
+        with _swapped(bscope, q0, q1):
+            errs["twin"] = rel(_serve_predictor(p16, full32), got_full32)
+        tol = DEPLOY_BF16_TOL["full-length"]
+        _p(f"deploy: bf16 predictor (every weight bfloat16, 12 flash "
+           f"launches a run) at 32 rows, relative L2 error against "
+           f"float32: padded requests {errs['padded']:.4f}, full-length "
+           f"{errs['full-length']:.4f} (tolerances {DEPLOY_BF16_TOL}); the "
+           f"query-swapped twin, full-length, {errs['twin']:.4f} "
+           f"({errs['twin'] / tol:.2f} x the tolerance: must miss it)")
+        if errs["padded"] > DEPLOY_BF16_TOL["padded"] \
+                or errs["full-length"] > tol or errs["twin"] <= tol:
+            raise SystemExit("chip_smoke: the bf16 predictor strays past "
+                             "its tolerance, or nearer its twin")
+        out["bf16_err"] = errs
+        out["bf16"] = _predictor_profile(
+            "bf16 BERT predictor", lambda: _serve_predictor(p16, feed_at[32]),
+            32, card)
+        del p16
+
+    # the engine over the artifact
+    reqs = [_bert_request(rng, int(n))
+            for n in rng.randint(1, MAX_BATCH + 1, DEPLOY_REQUESTS)]
+    eng = ServingEngine(art, max_batch=MAX_BATCH)
+    try:
+        eng.warmup()
+        b0 = eng.batches
+
+        def burst():
+            t0 = time.perf_counter()
+            futs = [eng.submit(r) for r in reqs]
+            answers = [f.result(timeout=600)[logits.name] for f in futs]
+            return futs, answers, time.perf_counter() - t0
+        (futs, answers, wall), c = _counted_run(
+            "the engine over the BERT artifact", burst,
+            {"flash_attention_fwd": None})
+        batches = eng.batches - b0
+    finally:
+        eng.close()
+    launches["bert_engine"] = c
+    if c["flash_attention_fwd"] != layers * batches:
+        raise SystemExit("chip_smoke: the engine over the artifact did not "
+                         "launch flash once a layer a batch")
+    rows = [len(r["ids"]) for r in reqs]
+    # each answer against its rows through the bucket program its batch
+    # rode in (the same bits: no row reads another) and through their own
+    # bucket's.  A program of another batch shape may run other cuBLAS
+    # kernels, and the program's padding bias, (m - 10000) * 10000, keeps
+    # float32 scores only to steps of 8, where a last-bit difference can
+    # move a score by 8: the own-bucket comparison is reported, the exact
+    # one carries the check
+    worst_engine, over, exact = 0.0, [], 0
+    with _swapped(art._weights, i0, i1):
+        twins = [art(reqs[i])[logits.name] for i in range(3)]
+    for i, (r, a) in enumerate(zip(reqs, answers)):
+        n = len(r["ids"])
+        if a.shape != (n, 2):
+            raise SystemExit(f"chip_smoke: the engine answered request {i} "
+                             f"with shape {a.shape}")
+        one = art(r)[logits.name]
+        tol = DEPLOY_TOL * float(np.abs(one).max())
+        err = float(np.abs(a - one).max())
+        worst_engine = max(worst_engine, err / tol)
+        if err > tol:
+            over.append((i, n, round(err / tol, 2)))
+        if not any(np.array_equal(a, _artifact_at(art, r, e)[logits.name])
+                   for e in DEPLOY_BERT_ROWS if e >= n):
+            raise SystemExit(f"chip_smoke: the engine's answer to request "
+                             f"{i} is no bucket program's on its rows")
+        exact += 1
+        if i < 3:
+            _twin_misses(f"engine request {i}", a, twins[i], tol)
+    _p(f"deploy: engine answers: {exact} of {len(reqs)} equal bit for bit "
+       f"to their rows through a bucket program; against one artifact call "
+       f"on their rows (their own bucket) worst {worst_engine:.3f} of "
+       f"1e-5 of the largest logit, over it {over}")
+    lat = np.array([f.timing["latency_us"] for f in futs]) / 1e3
+    out["engine"] = dict(requests=len(reqs), rows=sum(rows), batches=batches,
+                         rows_per_s=sum(rows) / wall,
+                         p50_ms=float(np.percentile(lat, 50)),
+                         p99_ms=float(np.percentile(lat, 99)),
+                         worst_err_over_tol=worst_engine, over=over)
+    _p(f"deploy: ServingEngine over the artifact answered {len(reqs)} "
+       f"requests ({sum(rows)} rows) in {batches} batches, flash launches "
+       f"{c['flash_attention_fwd']} = {layers} x {batches}; p50 "
+       f"{out['engine']['p50_ms']:.2f} ms, p99 "
+       f"{out['engine']['p99_ms']:.2f} ms, {sum(rows) / wall:.1f} rows/s  "
+       f"[{card}]")
+    out["aot_worst_err_over_tol"] = worst
+    del art
+    return launches, out
+
+
+def _deploy_ctr(ctr_served, card, tmp):
+    """(c); returns {run: launches} and the measurements."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.proto import framework_pb2
+    from paddle_tpu_torch.inference import (AnalysisConfig, create_predictor,
+                                            load_aot_model, save_aot_model)
+
+    _, frozen, scope, logit = ctr_served
+    slots, vocab = CTR["slots"], CTR["vocab"]
+    feeds = ["dense"] + [f"ids_{i}" for i in range(slots)]
+    tables = {op.input("Ids")[0]: op.input("W")[0]
+              for op in frozen.global_block().ops
+              if op.type == "fused_embedding_pool"}
+    t0_, t1_ = tables["ids_0"], tables["ids_1"]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    model_dir = os.path.join(tmp, "ctr")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(model_dir, feeds, [logit], exe,
+                                      main_program=frozen,
+                                      params_filename="params")
+    out = {"save_s": time.perf_counter() - t0,
+           "save_bytes": _dir_bytes(model_dir)}
+    with open(os.path.join(model_dir, "__model__"), "rb") as f:
+        desc = framework_pb2.ProgramDesc.FromString(f.read())
+    in_model = [op.type for op in desc.blocks[0].ops].count(
+        "fused_embedding_pool")
+    _p(f"deploy: CTR save_inference_model {out['save_s']:.2f} s, "
+       f"{out['save_bytes']} bytes; __model__ holds {in_model} "
+       f"fused_embedding_pool ops")
+    if in_model != slots:
+        raise SystemExit("chip_smoke: the saved CTR program lost its fused "
+                         "gather-pool ops")
+    pool = {"embedding_pool_fwd": slots}
+    rng = np.random.default_rng(SEED + 20)
+    perm = rng.permutation(vocab)
+    feed_at = {n: _ctr_feed(rng, n, vocab, perm) for n in DEPLOY_CTR_ROWS}
+    want = {n: exe.run(frozen, feed=f, fetch_list=[logit], scope=scope)[0]
+            for n, f in feed_at.items()}
+    launches = {}
+    pscope = fluid.Scope()
+    with fluid.scope_guard(pscope):
+        t0 = time.perf_counter()
+        pred = create_predictor(AnalysisConfig(
+            model_dir, params_file=os.path.join(model_dir, "params")))
+        out["load_s"] = time.perf_counter() - t0
+        got = {}
+        for n, f in feed_at.items():
+            got[n], c = _counted_run(f"the CTR predictor at {n} rows",
+                                     lambda: _serve_predictor(pred, f), pool)
+            launches[f"ctr_predictor_{n}"] = c
+            tol = DEPLOY_TOL * float(np.abs(want[n]).max())
+            err = float(np.abs(got[n] - want[n]).max())
+            _p(f"deploy: CTR predictor at {n} rows: gather-pool launches "
+               f"{c['embedding_pool_fwd']}, max |err| against phase 4c's "
+               f"program {err:.3e} (tolerance {tol:.3e})")
+            if got[n].shape != (n, 1) or err > tol:
+                raise SystemExit("chip_smoke: the CTR predictor disagrees "
+                                 "with the served program")
+        n = DEPLOY_CTR_ROWS[-1]
+        tol = DEPLOY_TOL * float(np.abs(want[n]).max())
+        with _swapped(pscope, t0_, t1_):
+            _twin_misses("CTR predictor (slots 0 and 1's tables swapped)",
+                         got[n], _serve_predictor(pred, feed_at[n]), tol)
+        out["predictor"] = {n: _predictor_profile(
+            "CTR predictor", lambda f=f: _serve_predictor(pred, f), n, card)
+            for n, f in feed_at.items()}
+        aot_dir = os.path.join(tmp, "ctr_aot")
+        t0 = time.perf_counter()
+        meta = save_aot_model(aot_dir, pred, feed_at[64],
+                              bucket_edges=DEPLOY_CTR_ROWS)
+        out["export_s"] = time.perf_counter() - t0
+        del pred
+    out["aot_bytes"] = _dir_bytes(aot_dir)
+    t0 = time.perf_counter()
+    art = load_aot_model(aot_dir)
+    for e in DEPLOY_CTR_ROWS:
+        art._module(e)
+    out["aot_load_s"] = time.perf_counter() - t0
+    _p(f"deploy: CTR save_aot_model {out['export_s']:.2f} s, "
+       f"{out['aot_bytes']} bytes on disk, load {out['aot_load_s']:.2f} s")
+    for e in DEPLOY_CTR_ROWS:
+        held = [str(nd.target) for nd in art._module(e).graph.nodes
+                if nd.op == "call_function"].count(
+            "paddle_tpu_torch.embedding_pool_fwd.default")
+        if held != slots:
+            raise SystemExit(f"chip_smoke: the {e}-row CTR graph holds the "
+                             f"gather-pool op {held} times, not {slots}")
+    for n, f in feed_at.items():
+        a, c = _counted_run(f"the CTR artifact at {n} rows",
+                            lambda: art(f)[logit.name], pool)
+        launches[f"ctr_aot_{n}"] = c
+        tol = DEPLOY_TOL * float(np.abs(want[n]).max())
+        err = float(np.abs(a - want[n]).max())
+        _p(f"deploy: CTR artifact at {n} rows: gather-pool launches "
+           f"{c['embedding_pool_fwd']}, max |err| against phase 4c's "
+           f"program {err:.3e} (tolerance {tol:.3e}; exact: {err == 0.0})")
+        if err > tol:
+            raise SystemExit("chip_smoke: the CTR artifact disagrees")
+    names = meta["param_names"]
+    n = DEPLOY_CTR_ROWS[-1]
+    with _swapped(art._weights, names.index(t0_), names.index(t1_)):
+        twin = art(feed_at[n])[logit.name]
+    _twin_misses("CTR artifact (tables swapped)", got[n], twin,
+                 DEPLOY_TOL * float(np.abs(want[n]).max()))
+    out["aot"] = {n: _predictor_profile(
+        "CTR artifact", lambda f=f: art(f), n, card)
+        for n, f in feed_at.items()}
+    del art
+    return launches, out
+
+
+def _deploy_fixture(card, tmp):
+    """(d): the reference's own saved model on the card."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+
+    src = os.path.join(ROOT, "tests", "fixtures", "ref_fc_model")
+    x = np.random.RandomState(SEED + 3).randn(6, 4).astype("float32")
+    with fluid.scope_guard(fluid.Scope()):
+        cfg = AnalysisConfig(src)
+        cfg.disable_gpu()
+        host_pred = create_predictor(cfg)
+        want = _serve_predictor(host_pred, {"x": x})
+        b = fluid.global_scope().find_var("b")
+        fluid.global_scope().set_var("b", b.roll(1))
+        twin = _serve_predictor(host_pred, {"x": x})
+    with fluid.scope_guard(fluid.Scope()):
+        pred = create_predictor(AnalysisConfig(src))
+        got, c = _counted_run("the fixture's predictor",
+                              lambda: _serve_predictor(pred, {"x": x}), {})
+        tol = DEPLOY_TOL * float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        _p(f"deploy: ref_fc_model (feed -> mul -> elementwise_add -> "
+           f"softmax -> fetch, per-var params) on {pred._exe.device}: max "
+           f"|err| against the host {err:.3e} (tolerance {tol:.3e})")
+        if got.shape != (6, 3) or err > tol:
+            raise SystemExit("chip_smoke: the reference's model serves "
+                             "otherwise on the card")
+        _twin_misses("fixture (bias rolled)", got, twin, tol)
+        again = os.path.join(tmp, "fixture")
+        block = pred._program.global_block()
+        fluid.io.save_inference_model(
+            again, pred.get_input_names(),
+            [block.var(n) for n in pred.get_output_names()], pred._exe,
+            main_program=pred._program, params_filename="params")
+    with fluid.scope_guard(fluid.Scope()):
+        back = create_predictor(AnalysisConfig(
+            again, params_file=os.path.join(again, "params")))
+        reloaded = _serve_predictor(back, {"x": x})
+    _p(f"deploy: re-exported with params_filename and loaded back: equal "
+       f"bit for bit {np.array_equal(reloaded, got)}")
+    if not np.array_equal(reloaded, got):
+        raise SystemExit("chip_smoke: the re-exported fixture answers "
+                         "otherwise")
+    return {"fixture": c}, {"err": err}
+
+
+def phase_deploy(served, ctr_served, card):
+    """Phase 4p; returns {run: {kernel: launches}} and the measurements."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        launches, out = {}, {}
+        for key, (l, o) in (("bert", _deploy_bert(served, card, tmp)),
+                            ("ctr", _deploy_ctr(ctr_served, card, tmp)),
+                            ("fixture", _deploy_fixture(card, tmp))):
+            launches.update(l)
+            out[key] = o
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -8393,6 +8952,9 @@ def main():
     recipe_launches, master_rows, master_launches, _ = _timed(
         "4n static training surface", phase_static_training, card)
     amp_launches, _ = _timed("4o (e) static AMP", phase_static_amp, card)
+    # 4p saves and loads static programs: before 4e turns dygraph on
+    deploy_launches, _ = _timed("4p deployment", phase_deploy, served,
+                                ctr_served, card)
     box_launches, box_legs_launches, box = _timed(
         "4k train CTR through BoxPS", phase_train_boxps, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
@@ -8585,6 +9147,10 @@ def main():
                 "train": d2s["train"][name],
                 "jit_load": d2s["jit_load"][name],
                 "static_amp": amp_launches[name]}))
+    # the deployment path (phase 4p): each counted run's launches
+    for row in kernels:
+        row["deploy_launches"] = {run: c[row["name"]]
+                                  for run, c in deploy_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

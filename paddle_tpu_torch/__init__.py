@@ -15,7 +15,10 @@ tracer, ``to_tensor`` and ``Model`` take the card unless
 Ported so far: the static BERT and CTR programs, served and trained;
 dygraph training of BERT, ResNet, Transformer NMT, MobileNet, the PTB
 LSTM and the dygraph CTR models; decode over a block-paged KV cache; the
-BoxPS CTR trainer; the 2.0 dygraph loop; and the 2.0 API surface:
+BoxPS CTR trainer; the 2.0 dygraph loop; the inference deployment path
+(``fluid.io.save_inference_model``, ``inference.create_predictor`` and
+the ``torch.export`` artifact of ``inference.save_aot_model``); and the
+2.0 API surface:
 ``paddle.tensor``, ``nn.functional``, ``nn``'s activations and losses,
 ``nn.initializer``, ``grad`` (first and second order), ``metric`` and
 ``hapi.Model`` through both adapters.  The reference's top-level names
@@ -43,6 +46,7 @@ from . import vision
 from . import models
 from . import amp
 from . import serving
+from . import inference
 from . import interop
 from . import dygraph
 from . import hapi

@@ -78,6 +78,10 @@ class Variable:
     """A named tensor in a Block (VarDesc analog).  Shape/dtype are
     advisory IR metadata; -1 marks a dynamic (batch) dim."""
 
+    # "feed" / "fetch" for the FEED_MINIBATCH / FETCH_LIST holder vars a
+    # saved inference model carries (fluid/io.py), None for a tensor
+    proto_var_type: Optional[str] = None
+
     def __init__(self, block: "Block", name: str, shape=None, dtype="float32",
                  persistable: bool = False, stop_gradient: bool = False,
                  is_data: bool = False, trainable: bool = True):
@@ -361,6 +365,53 @@ class Program:
 
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    @property
+    def desc(self):
+        """ProgramDesc message snapshot (reference Program.desc is a live
+        C++ wrapper; here the message is regenerated from the IR on
+        access — ``program.desc.SerializeToString()`` is the
+        ``__model__`` bytes)."""
+        from . import proto_serde
+        return proto_serde.program_to_proto(self)
+
+    def to_string(self, throw_on_error=True, with_details=False):
+        """Debug string (reference framework.py:4655 Program.to_string):
+        the ProgramDesc in protobuf's text format.  With
+        throw_on_error=False a serialization failure becomes part of the
+        debug output instead of raising (the reference contract)."""
+        from .proto import framework_pb2
+        try:
+            return framework_pb2.text_format(self.desc)
+        except ValueError:
+            if throw_on_error:
+                raise
+            return f"<Program: not fully serializable " \
+                   f"({len(self.blocks)} blocks)>"
+
+    def __str__(self):
+        return self.to_string(True, False)
+
+    @staticmethod
+    def parse_from_string(binary_str: bytes) -> "Program":
+        """Deserialize a Program from ProgramDesc bytes (reference
+        framework.py:4657; parameters come back as persistable vars —
+        values live in the scope, not the IR)."""
+        from . import proto_serde
+        return proto_serde.program_from_proto_bytes(binary_str)
+
+    def _prune(self, targets) -> "Program":
+        """Program pruned to the ops that ``targets`` (vars or names)
+        depend on (reference Program._prune -> framework/prune.cc)."""
+        import copy
+        names = [t.name if isinstance(t, Variable) else str(t)
+                 for t in (targets if isinstance(targets, (list, tuple))
+                           else [targets])]
+        p = copy.deepcopy(self)
+        b = p.global_block()
+        b.ops = prune_ops(b, b.ops, targets=names, keep_state_writes=False)
+        p._bump_version()
+        return p
 
     def clone(self, for_test: bool = False) -> "Program":
         """Structural clone; with for_test=True marks inference mode

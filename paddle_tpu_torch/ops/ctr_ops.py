@@ -27,6 +27,12 @@ Dispatch, forward and gradient alike:
   pool at all: W not 2-d, or no ids per row.  The reference's lane
   (D % 128) and VMEM gates are the TPU's layout, not the op's meaning,
   and are not carried over.
+
+With grad off (serving, and every ``Executor.run``), the forward goes
+through the dispatcher op ``paddle_tpu_torch::embedding_pool_fwd``, whose
+host implementation is the plain version and whose CUDA implementation
+launches the kernel: an exported graph (``torch.export``, the AOT
+artifact of inference/aot.py) holds the op and so the kernel.
 """
 from __future__ import annotations
 
@@ -86,6 +92,29 @@ def _reference_embedding_pool(w, ids, wgt, padding_idx=-1):
     return torch.sum(gathered * wgt[..., None], dim=1)
 
 
+# The forward kernel's launch as a dispatcher op, as the flash forward's
+# (ops/attention.py): export traces on fake tensors, which have no data
+# pointer for a ctypes launch.  Its fake gives the output's shape, its
+# default (host) implementation is the plain version, looked up at call
+# time, and its CUDA implementation launches the kernel.
+@torch.library.custom_op(
+    "paddle_tpu_torch::embedding_pool_fwd", mutates_args=(),
+    schema="(Tensor w, Tensor ids, Tensor? wgt, int padding_idx) -> Tensor")
+def embedding_pool_fwd_op(w, ids, wgt, padding_idx):
+    return _reference_embedding_pool(w, ids, wgt, padding_idx)
+
+
+@embedding_pool_fwd_op.register_kernel("cuda")
+def _embedding_pool_fwd_cuda(w, ids, wgt, padding_idx):
+    # padding_idx is folded into wgt by _emb_pool_prep
+    return cuda_kernels.embedding_pool_fwd(w, ids, wgt)
+
+
+@embedding_pool_fwd_op.register_fake
+def _embedding_pool_fwd_fake(w, ids, wgt, padding_idx):
+    return w.new_empty((ids.shape[0], w.shape[1]))
+
+
 def _emb_grad_rows(g, ids, wgt):
     """The ``[B·S, D]`` per-position terms ``g[i] · wgt[i,j]`` of the
     gradient, in (i, j) order (``g[i]`` itself for a None wgt)."""
@@ -125,6 +154,10 @@ def _fused_embedding_pool_grad(ins, outs, out_grads, attrs, ctx):
              custom_grad=_fused_embedding_pool_grad)
 def _fused_embedding_pool(ins, attrs, ctx):
     w, ids, wgt = _emb_pool_prep(ins, attrs)
+    if not torch.is_grad_enabled() and w.ndim == 2 and ids.shape[1] > 0:
+        pad = attrs.get("padding_idx", -1)
+        return {"Out": [embedding_pool_fwd_op(
+            w, ids.long(), wgt, -1 if pad is None else int(pad))]}
     if _on_kernel(w, ids):
         return {"Out": [cuda_kernels.embedding_pool_fwd(w, ids.long(),
                                                         wgt)]}

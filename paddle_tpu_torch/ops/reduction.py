@@ -37,10 +37,10 @@ def masked_batch_reduce(x, ctx, axes, keepdim=False, mean=False):
                   dim=axes, keepdim=keepdim)
     if not mean:
         return s
-    count = ctx.batch_valid
-    for d in axes:
+    count = ctx.batch_valid         # a host int, or a 0-d tensor in an
+    for d in axes:                  # exported graph (inference/aot.py)
         if d != 0:
-            count *= x.shape[d]
+            count = count * x.shape[d]
     return s / count
 
 

@@ -20,9 +20,13 @@ The shared pieces the decode engine (serving/decode.py) rides are here
 too: ``BaseFuture``, ``FamilyInstruments`` (per-engine counters, gauges
 and histograms) and ``PagePoolExhaustedError``.
 
+``program`` may also be an ``inference.AotPredictor`` (the
+``torch.export`` artifact of inference/aot.py): the engine then batches
+requests onto its bucket programs, which pad and slice internally.
+
 Not ported yet: the async step runner, deadlines, pause/resume,
-auto-tuning, trace ids and this engine's own metrics instruments, the
-AOT backend and mesh/sharded serving.
+auto-tuning, trace ids and this engine's own metrics instruments, and
+mesh/sharded serving.
 """
 from __future__ import annotations
 
@@ -170,6 +174,23 @@ _STOP = object()
 _ID_LOOKUPS = ("lookup_table", "lookup_table_v2", "fused_embedding_pool")
 
 
+def id_bounds(program, feed_names) -> Dict[str, int]:
+    """{feed: rows of the smallest table it indexes} for each feed that is
+    the ``Ids`` of a table lookup in ``program`` (``lookup_table``,
+    ``lookup_table_v2``, ``fused_embedding_pool``)."""
+    block = program.global_block()
+    feeds = set(feed_names)
+    out: Dict[str, int] = {}
+    for op in block.ops:
+        if op.type not in _ID_LOOKUPS:
+            continue
+        ids, w = op.input("Ids")[0], op.input("W")[0]
+        rows = (block._find_var_recursive(w).shape or [-1])[0]
+        if ids in feeds and rows is not None and rows > 0:
+            out[ids] = min(out.get(ids, rows), int(rows))
+    return out
+
+
 class _ExecutorBackend:
     """Frozen Program + Executor.  ``dispatch`` runs the batch and leaves
     the fetches on the executor's device; ``wait`` copies them to the
@@ -195,20 +216,7 @@ class _ExecutorBackend:
                           return_numpy=True)
 
     def id_bounds(self, feed_names) -> Dict[str, int]:
-        """{feed: rows of the smallest table it indexes} for each feed that
-        is the ``Ids`` of a table lookup in the program (``lookup_table``,
-        ``lookup_table_v2``, ``fused_embedding_pool``)."""
-        block = self.program.global_block()
-        feeds = set(feed_names)
-        out: Dict[str, int] = {}
-        for op in block.ops:
-            if op.type not in _ID_LOOKUPS:
-                continue
-            ids, w = op.input("Ids")[0], op.input("W")[0]
-            rows = (block._find_var_recursive(w).shape or [-1])[0]
-            if ids in feeds and rows is not None and rows > 0:
-                out[ids] = min(out.get(ids, rows), int(rows))
-        return out
+        return id_bounds(self.program, feed_names)
 
     def feed_specs(self):
         """(name, feature_shape, dtype) per feed, from the IR."""
@@ -222,6 +230,38 @@ class _ExecutorBackend:
         return out
 
 
+class _AotBackend:
+    """AotPredictor-backed dispatch: the bucketed artifact pads and slices
+    internally; ``dispatch`` leaves the outputs on the device, so the
+    collector's host copy is what waits for the kernels."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+
+    def dispatch(self, feed):
+        return self.predictor.call_lazy(feed)
+
+    def wait(self, outs) -> List[np.ndarray]:
+        from ..inference.aot import _host
+        return [_host(o) for o in outs]
+
+    def warmup_run(self, feed) -> None:
+        self.wait(self.predictor.call_lazy(feed))
+
+    def id_bounds(self, feed_names) -> Dict[str, int]:
+        bounds = self.predictor._meta.get("id_bounds") or {}
+        return {n: int(h) for n, h in bounds.items() if n in feed_names}
+
+    def feed_specs(self):
+        meta = self.predictor._meta
+        return [(n, [int(d) for d in meta["input_shapes"].get(n, [])[1:]],
+                 meta["input_dtypes"].get(n, "float32"))
+                for n in meta["feed_names"]]
+
+    def bucket_edges(self):
+        return self.predictor._meta.get("buckets")
+
+
 class ServingEngine:
     """Continuous-batching server over a frozen Program::
 
@@ -232,8 +272,10 @@ class ServingEngine:
             out = fut.result(timeout=1.0)            # {"logits": rows}
 
     ``program`` may be a ``CompiledProgram`` (its passes apply at the
-    first run).  The executor defaults to ``Executor()`` on the card;
-    pass ``executor=Executor(CPUPlace())`` to serve on the host.  Knobs
+    first run) or an ``inference.AotPredictor`` (its bucket edges are the
+    engine's, and ``max_batch`` is held to the largest).  The executor
+    defaults to ``Executor()`` on the card; pass
+    ``executor=Executor(CPUPlace())`` to serve on the host.  Knobs
     default to their ``FLAGS_serving_*`` flags.
     """
 
@@ -254,26 +296,49 @@ class ServingEngine:
                                                   2000))
         self.queue_depth = int(queue_depth
                                or core.get_flag("serving_queue_depth", 256))
-        hints = program._hints
-        self.feed_names = list(feed_names or hints.get("feed_names") or [])
-        self.fetch_names = list(fetch_names or hints.get("fetch_names")
-                                or [])
-        if not self.fetch_names:
-            raise ValueError(
-                "ServingEngine needs fetch_names — freeze the program "
-                "first (serving.freeze_program) or pass them explicitly")
-        self.bucket_edges = compile_cache.normalize_edges(
-            bucket_edges or hints.get("bucket_edges")
-            or compile_cache.pow2_edges(self.max_batch))
-        # per-program opt-in to executor-side bucketing
-        hints["shape_bucketing"] = True
-        hints["bucket_edges"] = self.bucket_edges
-        hints["feed_names"] = list(self.feed_names)
-        hints["fetch_names"] = list(self.fetch_names)
-        self._backend = _ExecutorBackend(
-            program, self.fetch_names,
-            executor if executor is not None else Executor(),
-            scope or global_scope())
+        if hasattr(program, "call_lazy"):           # AotPredictor
+            self._backend = _AotBackend(program)
+            self.feed_names = list(feed_names
+                                   or program.get_input_names())
+            self.fetch_names = list(fetch_names
+                                    or program.get_output_names())
+            edges = bucket_edges or self._backend.bucket_edges()
+            if not edges:
+                # a single-shape artifact: the one servable batch size is
+                # the example's
+                shapes = program._meta.get("input_shapes") or {}
+                dims = {int(s[0]) for s in shapes.values() if s}
+                if len(dims) != 1:
+                    raise ValueError(
+                        "this AOT artifact has no bucketed programs and no "
+                        "common batch dim — re-export with "
+                        "save_aot_model(..., bucket_edges=[...])")
+                edges = [next(iter(dims))]
+            self.bucket_edges = compile_cache.normalize_edges(edges)
+            self.max_batch = min(self.max_batch, max(self.bucket_edges))
+        else:
+            hints = program._hints
+            self.feed_names = list(feed_names or hints.get("feed_names")
+                                   or [])
+            self.fetch_names = list(fetch_names or hints.get("fetch_names")
+                                    or [])
+            if not self.fetch_names:
+                raise ValueError(
+                    "ServingEngine needs fetch_names — freeze the program "
+                    "first (serving.freeze_program) or pass them "
+                    "explicitly")
+            self.bucket_edges = compile_cache.normalize_edges(
+                bucket_edges or hints.get("bucket_edges")
+                or compile_cache.pow2_edges(self.max_batch))
+            # per-program opt-in to executor-side bucketing
+            hints["shape_bucketing"] = True
+            hints["bucket_edges"] = self.bucket_edges
+            hints["feed_names"] = list(self.feed_names)
+            hints["fetch_names"] = list(self.fetch_names)
+            self._backend = _ExecutorBackend(
+                program, self.fetch_names,
+                executor if executor is not None else Executor(),
+                scope or global_scope())
         # an id outside its table would fail every request of the batch
         # it rides in (and on the card trap in the gather kernel), so
         # submit refuses it for its own request

@@ -2,8 +2,10 @@
 
 The port and ``chip_smoke.py`` import torch and numpy only; importing
 every module of the package (and ``chip_smoke`` as a module) in a fresh
-interpreter leaves ``jax`` and ``paddle_tpu`` out of ``sys.modules``, and
-no source file names them in an import.  Entry points default to the
+interpreter leaves ``jax``, ``paddle_tpu``, ``google.protobuf`` and
+``ml_dtypes`` out of ``sys.modules`` (the card's machine has neither of
+the last two), and no source file names them (or any ``google``
+package) in an import.  Entry points default to the
 card and raise, naming ``fluid.CPUPlace()``, where torch sees no CUDA
 device.
 """
@@ -25,7 +27,7 @@ from paddle_tpu_torch.serving import ServingEngine, freeze_program
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "paddle_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "google", "ml_dtypes")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -36,7 +38,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
+             or n.startswith("google.protobuf"))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
 
@@ -74,7 +77,11 @@ def test_import_leaves_jax_and_reference_out():
               "nn.utils.weight_norm_hook", "fluid.reader", "fluid.metrics",
               "fluid.layers.extras", "metric", "metric.metrics", "hapi",
               "hapi.model", "hapi.callbacks", "hapi.progressbar",
-              "hapi.flops", "ops.catalog_tail_ops", "ops.plumbing_ops"):
+              "hapi.flops", "ops.catalog_tail_ops", "ops.plumbing_ops",
+              "fluid.proto", "fluid.proto.framework_pb2",
+              "fluid.proto_serde", "fluid.op_version_registry",
+              "utils.op_version", "inference", "inference.predictor",
+              "inference.aot"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -20,7 +20,9 @@ gather-pool kernel against ``_reference_embedding_pool``: rtol=atol=1e-6
 (the kernel sums in j order, torch's reduction in its own; past 8 ids a
 row the atol is in units of the row's sum of |term|), ``torch.equal`` to
 the j-order sum written in torch ops, and ``torch.equal`` on dyadic
-values, whose sums are exact.  The scatter-add
+values, whose sums are exact; its dispatcher op
+(``paddle_tpu_torch::embedding_pool_fwd``) ``torch.equal`` to the
+wrapper, also through a ``torch.export`` round trip.  The scatter-add
 gradient kernel: two launches ``torch.equal``, and ``torch.equal`` to the
 plain version computed on the host, whose ``index_add_`` adds in index
 order.  ``fused_momentum`` against the per-param ``momentum`` lowering:
@@ -662,6 +664,52 @@ def test_embedding_pool_fwd_matches_plain(cuda, s, d, b, dist, weights):
     want = _reference_embedding_pool(w, ids, wgt)
     assert torch.equal(fwd(w, ids, wgt), want)
     assert torch.equal(fwd(_at_offset_one(w), ids, wgt), want)
+
+
+@pytest.mark.parametrize("weights", ["none", "length_avg", "padding"])
+def test_embedding_pool_custom_op_is_the_kernel(cuda, weights, tmp_path):
+    """``paddle_tpu_torch::embedding_pool_fwd`` (what an exported CTR
+    graph holds) on CUDA tensors at the serve batch's [512, 5] into a
+    [100003, 16] table: ``torch.equal`` to the wrapper's launch, within
+    rtol = atol = 1e-6 of the plain version, one launch counted; its fake
+    gives the real output's shape, dtype and device; and a
+    ``torch.export`` of a one-op graph, saved and loaded, holds the op
+    and launches the kernel, ``torch.equal`` again."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from paddle_tpu_torch.ops.ctr_ops import embedding_pool_fwd_op
+    fwd = cuda_kernels.embedding_pool_fwd
+    w, ids, wgt = _pool_case(cuda, 512, 5, 16, "zipf", weights)
+    before = fwd.launches
+    got = embedding_pool_fwd_op(w, ids, wgt, 7 if weights != "none" else -1)
+    assert fwd.launches == before + 1
+    assert torch.equal(got, fwd(w, ids, wgt))
+    torch.testing.assert_close(got, _reference_embedding_pool(w, ids, wgt),
+                               rtol=1e-6, atol=1e-6)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = embedding_pool_fwd_op(
+            mode.from_tensor(w), mode.from_tensor(ids),
+            None if wgt is None else mode.from_tensor(wgt), -1)
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+    assert fake.device == got.device
+
+    class OneOp(torch.nn.Module):
+        def forward(self, w, ids, *wgt):
+            return embedding_pool_fwd_op(w, ids, wgt[0] if wgt else None, -1)
+
+    args = (w, ids) + (() if wgt is None else (wgt,))
+    with torch.no_grad():
+        ep = torch.export.export(OneOp(), args, strict=False)
+    path = str(tmp_path / "one_op.pt2")
+    torch.export.save(ep, path)
+    loaded = torch.export.load(path)
+    held = [str(n.target) for n in loaded.graph.nodes
+            if n.op == "call_function"]
+    assert "paddle_tpu_torch.embedding_pool_fwd.default" in held
+    before = fwd.launches
+    out = loaded.module()(*args)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("d,dist,weights", CTR_CASES,
