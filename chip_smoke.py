@@ -8,8 +8,11 @@ CTR trainer (``bench.py:547 main_ctr``), the 2.0 dygraph loop (the
 PTB LSTM language model and the dygraph WideDeep and DeepFM), ``hapi``'s
 ``Model.fit``, the static training surface (the BERT recipe of the
 Paddle 1.8 era, fp32 master weights, the fluid optimizers and control
-flow) and the dygraph-to-static tier (``paddle.jit.to_static``,
-``jit.save`` / ``jit.load``, static AMP's loss scaling).
+flow), the dygraph-to-static tier (``paddle.jit.to_static``,
+``jit.save`` / ``jit.load``, static AMP's loss scaling), the deployment
+path, and the rest of the serving surface (speculative paged decode, the
+serving engine's deadlines, pause, instruments, spans, flight recorder
+and metrics export).
 
     python3 chip_smoke.py
 
@@ -364,6 +367,31 @@ over):
    ``params_filename`` and loaded back bit for bit.  Host ms, busy ms
    and rows/s per batch size; the save's seconds and bytes, the
    artifact's bytes (weights once) and load seconds; latency p50/p99.
+4q. speculative decode and the SLO surface -- after 4f, on its model and
+   traffic (DECODE width, 48 requests).  (a) ``DecodeEngine(paged=True,
+   prefix_cache=True, max_batch=32, draft_model=model, spec_k=4)``, the
+   target drafting for itself, and a plain paged engine, both at the one
+   decode bucket 32: every token equal to 4f's output, every logit equal
+   to the plain engine's bit for bit (a float32 product and the paged
+   kernel's split depend on the batch, so only steps of one size agree
+   bitwise; against 4f's buckets within 1e-4 of the largest logit), every
+   proposal accepted, 4 paged-kernel launches a verify round and 4
+   ``fuse_paged_attention`` rewrites in the verify program; one verify
+   round profiled at 32 slots.  (b) a half-width draft (d_model 384, seed
+   + 1) at 4f's buckets: tokens equal to 4f's, the accept rate printed.
+   Card against host: 2 requests through a host speculative engine (16
+   tokens, identical tokens, logits 1e-4); a twin reading each verify
+   block's logits one position late must miss by 10x.  (c) phase 4's
+   BERT-base program under ``ServingEngine(name="chip_slo",
+   max_inflight=2)``: 48 requests of 1 to 32 rows equal bit for bit to
+   the same batches with ``max_inflight=1``; histogram counts equal the
+   requests and batches; one ``serving::batch`` span a batch in the
+   exported trace; every request's ``trace_id`` in the flight recorder;
+   8 requests with ``deadline_ms=50`` held by ``pause()`` all rejected
+   with ``DeadlineExceededError``; ``stats_payload()`` holds the engine
+   and the decode block's ``spec_*`` keys; ``prometheus_text()`` parses
+   back; a BERT batch's host ms at 1 and 32 rows with the flight
+   recorder on and off.  No HTTP server is started.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -380,7 +408,8 @@ over):
    rows' ``ptb`` their times at the PTB shape, ``recipe_launches`` those
    of 4n's timed recipe steps, ``to_static_launches`` those of 4o (a)'s
    timed steps, of one 4o (d) call and of 4o (e)'s timed steps,
-   ``deploy_launches`` those of phase 4p's counted runs, and the
+   ``deploy_launches`` those of phase 4p's counted runs,
+   ``speculative_launches`` those of each of phase 4q's legs, and the
    rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
    4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -581,6 +610,13 @@ DEPLOY_BERT_ROWS = (1, 8, 32)      # 4p: the BERT runs and bucket edges
 DEPLOY_CTR_ROWS = (1, 64, 512)     # 4p: the CTR runs and bucket edges
 DEPLOY_REQUESTS = 48               # 4p: requests to the engine over (b)
 DEPLOY_TOL = 1e-5                  # 4p: of the largest logit
+DECODE_SPEC_K = 4                  # 4q: verify blocks a round
+DECODE_DRAFT = dict(DECODE, d_model=384)   # 4q (b): the half-width draft
+DECODE_DRAFT_REQUESTS = DECODE_REQUESTS    # 4q (b): of 4f's traffic
+SLO_REQUESTS = 48                  # 4q (c): requests of ROW_CHOICES rows
+SLO_PAUSED = 8                     # 4q (c): requests held past a deadline
+SLO_DEADLINE_MS = 50.0
+SLO_RECORDER_ITERS = 20            # 4q (c): runs a flight-recorder block
 # 4p: bf16 against float32, relative L2 (the first chip run: 0.0739
 # unpadded, 0.1939 padded, where bf16 also loses the padding mask)
 DEPLOY_BF16_TOL = {"full-length": 0.1, "padded": 0.25}
@@ -4103,32 +4139,50 @@ def phase_kernels_paged(card):
 def _decode_model(executor, scope):
     """The demo decode model at DECODE width, as a user plugs a model
     into ``DecodeModel``: the demo's decode and prefill programs as they
-    are, and a paged builder that applies ``fuse_paged_attention`` (the
-    BuildStrategy knob's pass list) to the demo's paged program, so each
-    step's attention is one ``paged_attention`` op.  Returns the model
-    and a list that counts the paged programs built."""
+    are, and paged and verify builders that apply ``fuse_paged_attention``
+    (the BuildStrategy knob's pass list) to the demo's paged program and
+    to its speculative verify program, so each step's, and each verify
+    block's, attention is one ``paged_attention`` op.  Returns the model
+    and a dict that lists the programs built: ``"paged"`` their pool rows,
+    ``"verify"`` (pool rows, k, the pass's rewrites, paged_attention ops,
+    softmax ops) of each."""
     from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import trace
     from paddle_tpu_torch.fluid.passes import (PassPipeline,
                                                passes_for_build_strategy)
     from paddle_tpu_torch.serving import decode
 
     demo = decode.build_demo_decode_model(seed=SEED, executor=executor,
                                           scope=scope, **DECODE)
-    built = []
+    built = {"paged": [], "verify": []}
+    bs = fluid.BuildStrategy()
+    bs.fuse_paged_attention = True
+    rewrites = trace.metrics().counter(
+        "kernel_tier.fuse_paged_attention.rewrites")
 
     def paged_builder(pool_rows):
         prog, logits_name = demo.paged_program(pool_rows)
-        bs = fluid.BuildStrategy()
-        bs.fuse_paged_attention = True
         PassPipeline(passes_for_build_strategy(bs)).apply(
             prog, targets=[logits_name])
-        built.append(pool_rows)
+        built["paged"].append(pool_rows)
         return prog, logits_name
+
+    def verify_builder(pool_rows, k):
+        prog, names = demo.verify_program(pool_rows, k)
+        r0 = rewrites.value
+        PassPipeline(passes_for_build_strategy(bs)).apply(prog,
+                                                          targets=names)
+        types = [op.type for op in prog.global_block().ops]
+        built["verify"].append((pool_rows, k, rewrites.value - r0,
+                                types.count("paged_attention"),
+                                types.count("softmax")))
+        return prog, names
 
     model = decode.DecodeModel(
         executor, scope, demo.decode_program, demo.logits_name,
         demo.vocab, demo.d_model, demo.max_len, demo.prefill_program,
-        paged_builder=paged_builder, page_size=demo.page_size)
+        paged_builder=paged_builder, verify_builder=verify_builder,
+        page_size=demo.page_size)
     return model, built
 
 
@@ -4237,7 +4291,7 @@ def phase_serve_decode(card):
     t0 = time.perf_counter()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
-    model, built = _decode_model(exe, scope)
+    model, built_all = _decode_model(exe, scope)
     for name in ("dec_wq", "dec_wk"):
         scope.find_var(name).mul_(DECODE_QK_GAIN)
     arrays = interop.scope_to_numpy(
@@ -4263,6 +4317,7 @@ def phase_serve_decode(card):
     prog, _ = model.paged_program(eng._pool_rows)
     types = [op.type for op in prog.global_block().ops]
     n_rewrites = rewrites.value - r0
+    built = built_all["paged"]
     _p(f"serve decode: pool {eng.pool_pages} pages x {eng.page_size} rows "
        f"x {DECODE['d_model']} (k and v {eng._pool_rows * DECODE['d_model'] * 4 / 1e6:.1f} "
        f"MB each); paged programs built {len(built)}, fuse_paged_attention "
@@ -4346,7 +4401,482 @@ def phase_serve_decode(card):
     if not missed:
         raise SystemExit("chip_smoke: the decode card-vs-host check cannot "
                          "tell the right pages from the wrong ones")
-    return launches, (model, eng)
+    return launches, (model, eng), {"out": out, "arrays": arrays,
+                                    "built": built_all, "wall": wall,
+                                    "stats": st}
+
+
+def _zero_counts():
+    for fn in _counted_kernels():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {fn.__name__: fn.launches for fn in _counted_kernels()}
+
+
+def _spec_serve(eng, prompts, budgets):
+    """Phase 4f's traffic through ``eng`` (made with ``auto_start=False``):
+    half the requests queued before its loop starts, so they are admitted
+    together, and the rest after the first tokens.  Returns (results,
+    wall s, stats)."""
+    half = len(prompts) // 2
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts[:half], budgets[:half])]
+    with eng:
+        while eng.stats()["tokens"] == 0 and not any(f.done()
+                                                     for f in futs):
+            time.sleep(0.001)
+        futs += [eng.submit(p, max_new_tokens=n)
+                 for p, n in zip(prompts[half:], budgets[half:])]
+        out = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+    if not all(f.trace_id and f.trace_id.startswith("dec-") for f in futs):
+        raise SystemExit("chip_smoke: a decode future has no trace_id")
+    return out, wall, st
+
+
+def _logit_agreement(out, ref):
+    """(every request's logits bit for bit, requests bit for bit, max
+    |logit err|, max |logit|) of two decode results whose tokens agree."""
+    same = [np.array_equal(a["logits"], b["logits"])
+            for a, b in zip(out, ref)]
+    err = max(float(np.abs(a["logits"] - b["logits"]).max())
+              for a, b in zip(out, ref))
+    scale = max(float(np.abs(b["logits"]).max()) for b in ref)
+    return all(same), sum(same), err, scale
+
+
+def _spec_report(label, out, ref, wall, st, counts, card):
+    """Print a speculative leg's throughput, TTFT, rounds, accept rate and
+    whether its tokens equal phase 4f's; returns that."""
+    sp = st["paged"]
+    tokens = sum(len(r["tokens"]) for r in ref)
+    toks_ok = all(np.array_equal(a["tokens"], b["tokens"])
+                  for a, b in zip(out, ref))
+    ttft, step = st["ttft_seconds"], st["step_seconds"]
+    _p(f"{label}: {len(out)} requests, {tokens} tokens in {wall:.3f} s = "
+       f"{tokens / wall:.1f} tokens/s; TTFT p50 {ttft['p50'] * 1e3:.2f} ms, "
+       f"p99 {ttft['p99'] * 1e3:.2f} ms; verify rounds {st['steps']}, "
+       f"round p50 {step['p50'] * 1e3:.2f} ms (histogram estimates), "
+       f"prefills {st['prefills']}, prefix hits {sp['prefix_hits']} pages; "
+       f"proposed {sp['spec_proposed']}, accepted {sp['spec_accepted']}, "
+       f"accept rate {sp['spec_accept_rate']}  [{card}]")
+    _p(f"{label}: tokens {'identical to' if toks_ok else 'DIFFER from'} "
+       f"phase 4f's paged output for all {len(out)} requests; launches "
+       f"{counts}")
+    return toks_ok
+
+
+def _shifted_verify_executor():
+    """A host executor whose verify runs hand back each block's logits
+    one position late: block j gets block j + 1's (the last block the
+    first's), the off-by-one a verify that mislabels its windows makes."""
+    from paddle_tpu_torch import fluid
+
+    class Shifted(fluid.Executor):
+        def run(self, program=None, feed=None, **kw):
+            out = super().run(program, feed=feed, **kw)
+            if feed and "toks" in feed:
+                out = list(out[1:]) + list(out[:1])
+            return out
+
+    return Shifted(fluid.CPUPlace())
+
+
+def _host_spec_decode(arrays, prompts, twin=False):
+    """Decode ``prompts`` (DECODE_HOST_NEW tokens each) on the host with
+    the card's weights through a self-drafting speculative engine: the
+    fused model on ``CPUPlace``, the plain versions, a DECODE_HOST_POOL-
+    page pool.  The ``twin`` reads each verify block's logits one position
+    late."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.serving import decode
+
+    host = _shifted_verify_executor() if twin \
+        else fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    model, _ = _decode_model(host, scope)
+    interop.scope_from_numpy(arrays, scope, fluid.CPUPlace())
+    eng = decode.DecodeEngine(model, max_batch=len(prompts),
+                              collect_logits=True, paged=True,
+                              prefix_cache=True, draft_model=model,
+                              spec_k=DECODE_SPEC_K,
+                              pool_pages=DECODE_HOST_POOL)
+    with eng:
+        futs = [eng.submit(p, max_new_tokens=DECODE_HOST_NEW)
+                for p in prompts]
+        return [f.result(timeout=900) for f in futs]
+
+
+def _verify_round_profile(model, eng, card, iters=20):
+    """One verify program at DECODE_MAX_BATCH slots, each holding
+    DECODE_PROFILE_POS valid positions on its own pages, as phase 5's
+    decode profile runs the plain step."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    prog, names = model.verify_program(eng._pool_rows, DECODE_SPEC_K)
+    scope = fluid.Scope(parent=model.scope)
+    dev = model.executor.device
+    for name in (model.k_pool_name, model.v_pool_name):
+        scope.set_var(name, torch.randn(eng._pool_rows, model.d_model,
+                                        device=dev))
+    ps, s, n, k = model.page_size, model.max_len, DECODE_MAX_BATCH, \
+        DECODE_SPEC_K
+    per_seq = s // ps
+    rng = np.random.RandomState(SEED + 71)
+    pages = rng.permutation(eng.pool_pages - 1)[:n * per_seq] + 1
+    pt = (pages.reshape(n, per_seq, 1) * ps
+          + np.arange(ps)).reshape(n, s).astype(np.int32)
+    scope.set_var(model.pt_name, torch.from_numpy(pt).to(dev))
+    pos = DECODE_PROFILE_POS
+    feed = {"toks": rng.randint(0, model.vocab, (n, k)).astype(np.int64),
+            "widx": pt[:, pos:pos + k].astype(np.int64),
+            "pos": np.full((n, 1), float(pos), np.float32),
+            "arange": np.arange(s, dtype=np.float32)[None, :]}
+
+    def step():
+        return model.executor.run(prog, feed=feed, fetch_list=names,
+                                  scope=scope, return_numpy=True)
+
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(step, iters)
+    pool_mb = eng._pool_rows * model.d_model * 4 / 1e6
+    _p(f"speculative: one verify round of {k} blocks at {n} slots, "
+       f"position {pos}: host {host_ms:.3f} ms, device busy {busy_ms:.3f} "
+       f"ms, idle share {idle:.4f}, {n_kern:.0f} kernels; each block "
+       f"rewrites both pools ({2 * pool_mb:.1f} MB), a round moves at least "
+       f"{2 * 2 * k * pool_mb:.1f} MB of pool traffic  [{card}]")
+    _print_classes(by_class, "round")
+    return host_ms, busy_ms
+
+
+def _bert_request(rng, n):
+    """One request of ``n`` rows to phase 4's program: random ids, each
+    row attending to a random prefix."""
+    seq = BERT_BASE["seq"]
+    lengths = rng.randint(1, seq + 1, n)
+    return {"ids": rng.randint(0, BERT_BASE["vocab"], (n, seq))
+            .astype("int64"),
+            "attn_mask": (np.arange(seq)[None, :] < lengths[:, None])
+            .astype("float32")}
+
+
+def _slo_requests():
+    rng = np.random.RandomState(SEED + 61)
+    return [_bert_request(rng, n)
+            for n in rng.choice(ROW_CHOICES, SLO_REQUESTS)]
+
+
+def _slo_run(program, scope, logits, requests, window, name):
+    """Every request queued before the batcher starts and a formation
+    deadline no batch reaches, so the batches form alike in every run:
+    FIFO, up to MAX_BATCH rows each, the tail at close().  Returns the
+    engine, the futures and the answers."""
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(program, scope=scope, max_batch=MAX_BATCH,
+                        max_wait_us=10_000_000, max_inflight=window,
+                        auto_start=False, name=name)
+    futs = [eng.submit(r) for r in requests]
+    torch.cuda.synchronize()
+    _zero_counts()
+    eng.start()
+    eng.close()                     # drains: every batch answered
+    counts = _read_counts()
+    return eng, futs, [f.result(timeout=0)[logits.name] for f in futs], \
+        counts
+
+
+def _recorder_cost(program, scope, logits, card):
+    """Host ms of one BERT batch (``Executor.run`` with the logits fetched
+    to the host) at 1 and MAX_BATCH rows with the flight recorder on and
+    off, in alternating blocks of SLO_RECORDER_ITERS runs."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import flight_recorder
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    rng = np.random.RandomState(SEED + 62)
+    out = {}
+    try:
+        for rows in (1, MAX_BATCH):
+            feed = _bert_request(rng, rows)
+            for _ in range(3):
+                exe.run(program, feed=feed, fetch_list=[logits], scope=scope)
+            ms = {True: [], False: []}
+            for on in (True, False, True, False):
+                flight_recorder.configure(enabled=on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SLO_RECORDER_ITERS):
+                    exe.run(program, feed=feed, fetch_list=[logits],
+                            scope=scope)
+                ms[on].append((time.perf_counter() - t0)
+                              / SLO_RECORDER_ITERS * 1e3)
+            out[rows] = ms
+            _p(f"slo: BERT batch of {rows} rows, host ms a run with the "
+               f"flight recorder on {[round(v, 3) for v in ms[True]]}, off "
+               f"{[round(v, 3) for v in ms[False]]} ({SLO_RECORDER_ITERS} "
+               f"runs a block, blocks alternated)  [{card}]")
+    finally:
+        flight_recorder.configure(enabled=True)
+    return out
+
+
+def _phase_slo(served, card):
+    """(c) The SLO surface on the card: phase 4's BERT-base program under
+    a named engine with a window of 2, against a window of 1."""
+    import tempfile
+    from paddle_tpu_torch.fluid import flight_recorder, metrics_export, trace
+    from paddle_tpu_torch.serving import DeadlineExceededError, \
+        ServingEngine
+
+    program, _, scope, logits = served
+    requests = _slo_requests()
+    rows = [len(r["ids"]) for r in requests]
+    flight_recorder.reset()
+    trace.reset()
+    trace.enable()
+    try:
+        eng, futs, answers, counts = _slo_run(program, scope, logits,
+                                              requests, 2, "chip_slo")
+    finally:
+        trace.disable()
+    with tempfile.TemporaryDirectory() as d:
+        doc = json.load(open(trace.export_chrome_trace(
+            os.path.join(d, "slo_trace.json"))))
+    trace.reset()
+    ref_eng, _, ref_answers, _ = _slo_run(program, scope, logits, requests,
+                                          1, "chip_slo_window1")
+    st, ref_st = eng.stats(), ref_eng.stats()
+    same = all(np.array_equal(a, b) for a, b in zip(answers, ref_answers))
+    good = all(a.shape == (n, 2) and np.isfinite(a).all()
+               for a, n in zip(answers, rows))
+    lat = np.array([f.timing["latency_us"] for f in futs]) / 1e3
+    spans = [e for e in doc["traceEvents"] if e.get("name") ==
+             "serving::batch"]
+    req_ids = {e["args"]["trace_id"] for e in doc["traceEvents"]
+               if e.get("name") == "serving::request"}
+    recs = {r["trace_id"] for r in flight_recorder.recorder().snapshot()
+            if r.get("kind") == "request" and r.get("outcome") == "ok"}
+    ids = [f.trace_id for f in futs]
+    _p(f"slo: {len(requests)} requests ({sum(rows)} rows) through "
+       f"ServingEngine(name='chip_slo', max_inflight=2): {st['batches']} "
+       f"batches (window 1: {ref_st['batches']}), answers "
+       f"{'bit for bit' if same else 'NOT bit for bit'} against the window "
+       f"of 1; latency p50 {np.percentile(lat, 50):.2f} ms, p99 "
+       f"{np.percentile(lat, 99):.2f} ms (a queued burst); histogram counts "
+       f"latency {st['latency_seconds']['count']}, queue "
+       f"{st['queue_seconds']['count']}, device "
+       f"{st['device_seconds']['count']}, batch size "
+       f"{st['batch_size']['count']}; serving::batch spans {len(spans)}; "
+       f"trace ids in the flight recorder {len(set(ids) & recs)} of "
+       f"{len(ids)}, in serving::request spans {len(set(ids) & req_ids)}; "
+       f"launches {counts}  [{card}]")
+    ok = (same and good and st["batches"] == ref_st["batches"] >= 2
+          and st["latency_seconds"]["count"] == len(requests)
+          and st["queue_seconds"]["count"] == len(requests)
+          and st["device_seconds"]["count"] == st["batches"]
+          and st["batch_size"]["count"] == st["batches"]
+          and len(spans) == st["batches"]
+          and set(ids) <= recs and set(ids) <= req_ids
+          and counts["flash_attention_fwd"]
+          == BERT_BASE["layers"] * st["batches"]
+          and trace.metrics().gauge("executor.inflight_steps").value == 0)
+    if not ok:
+        raise SystemExit("chip_smoke: the SLO engine's answers, instruments, "
+                         "spans or flight-recorder records are not right")
+
+    # deadlines while paused
+    eng = ServingEngine(program, scope=scope, max_batch=MAX_BATCH,
+                        max_wait_us=0, name="chip_slo_paused")
+    one = _bert_request(np.random.RandomState(SEED + 63), 1)
+    with eng:
+        eng.pause()
+        held = [eng.submit(one, deadline_ms=SLO_DEADLINE_MS)
+                for _ in range(SLO_PAUSED)]
+        time.sleep(3 * SLO_DEADLINE_MS / 1e3)
+        paused = eng.paused()
+        eng.resume()
+        errs = [f.exception(timeout=60) for f in held]
+        after = eng.infer(one, timeout=60)[logits.name]
+        pst = eng.stats()
+    timed_out = sum(isinstance(e, DeadlineExceededError) for e in errs)
+    _p(f"slo: {SLO_PAUSED} requests with deadline_ms={SLO_DEADLINE_MS} "
+       f"while paused (paused() = {paused}): {timed_out} rejected with "
+       f"DeadlineExceededError, timeouts = {pst['timeouts']}; one request "
+       f"after resume answered {after.shape}")
+    if timed_out != SLO_PAUSED or pst["timeouts"] != SLO_PAUSED \
+            or not paused or after.shape != (1, 2):
+        raise SystemExit("chip_smoke: deadlines under pause did not reject")
+
+    # the export plane, without a server
+    payload = metrics_export.stats_payload()
+    dec = payload.get("decode", {})
+    text = metrics_export.prometheus_text()
+    fams = metrics_export.parse_prometheus_text(text)
+    n_inst = len(trace.metrics().items())
+    counters = {metrics_export.sanitize_metric_name(n): i.value
+                for n, i in trace.metrics().items()
+                if isinstance(i, trace.Counter)}
+    parsed = {f["name"]: f["samples"][0][2] for f in fams
+              if f["type"] == "counter"}
+    _p(f"slo: stats_payload engines {sorted(payload.get('engines', {}))}, "
+       f"decode block spec_proposed {dec.get('spec_proposed')}, "
+       f"spec_accepted {dec.get('spec_accepted')}; prometheus_text "
+       f"{len(text.splitlines())} lines parse back to {len(fams)} families "
+       f"for {n_inst} instruments")
+    if "chip_slo" not in payload.get("engines", {}) \
+            or payload["engines"]["chip_slo"]["batches"] != st["batches"] \
+            or not {"spec_proposed", "spec_accepted"} <= set(dec) \
+            or len(fams) != n_inst \
+            or any(parsed.get(n) != v for n, v in counters.items()):
+        raise SystemExit("chip_smoke: the metrics export does not hold the "
+                         "engines or does not parse back")
+    _recorder_cost(program, scope, logits, card)
+    return counts
+
+
+def phase_speculative(decode_served, decode_ref, served, card):
+    """Phase 4q: speculative paged decode at DECODE width and the serving
+    engine's SLO surface.  (a) A self-draft (the target drafts for
+    itself) over phase 4f's traffic: every token and logit equal to 4f's
+    paged output, every proposal accepted, DECODE_SPEC_K paged-kernel
+    launches a verify round and DECODE_SPEC_K rewrites in each verify
+    program; one verify round profiled.  (b) A half-width draft from
+    seed SEED + 1: the tokens equal 4f's, the accept rate printed.
+    Card against host: 2 requests through a host speculative engine, and
+    a twin that reads each verify block's logits one position late, which
+    must miss by 10 times the tolerance or more.  (c) The SLO surface on
+    phase 4's BERT-base program.  Returns the launches of each leg."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.serving import decode
+
+    model, eng4f = decode_served
+    ref, arrays, built = decode_ref["out"], decode_ref["arrays"], \
+        decode_ref["built"]
+    prompts, budgets, shared = _decode_traffic()
+    k = DECODE_SPEC_K
+    launches = {}
+
+    # (a) the self-draft, and plain paged decode, both at one decode
+    # bucket: a float32 product's rounding of a row, and the paged
+    # kernel's split of a slot's positions, depend on the batch size, so
+    # logits agree bit for bit only between steps of one size
+    one = (DECODE_MAX_BATCH,)
+    plain = decode.DecodeEngine(model, max_batch=DECODE_MAX_BATCH,
+                                collect_logits=True, name="chip_paged_one",
+                                paged=True, prefix_cache=True,
+                                batch_edges=one, auto_start=False)
+    plain.warmup()
+    bitref, _, _ = _spec_serve(plain, prompts, budgets)
+    eng = decode.DecodeEngine(model, max_batch=DECODE_MAX_BATCH,
+                              collect_logits=True, name="chip_spec",
+                              paged=True, prefix_cache=True,
+                              draft_model=model, spec_k=k,
+                              batch_edges=one, auto_start=False)
+    warm = eng.warmup()
+    _p(f"speculative: self-draft engine, spec_k {k}; verify programs "
+       f"built (pool rows, k, fuse_paged_attention rewrites, paged_"
+       f"attention ops, softmax ops): {built['verify']}; warmup "
+       f"{warm['seconds']:.2f} s")
+    if not built["verify"] or any(v[1:] != (k, k, k, 0)
+                                  for v in built["verify"]):
+        raise SystemExit("chip_smoke: fuse_paged_attention did not rewrite "
+                         "every block of the verify program")
+    torch.cuda.synchronize()
+    _zero_counts()
+    out, wall, st = _spec_serve(eng, prompts, budgets)
+    launches["self_draft"] = counts = _read_counts()
+    toks_ok = _spec_report("speculative (a) self-draft", out, ref, wall, st,
+                           counts, card)
+    bits, n_bits, _, _ = _logit_agreement(out, bitref)
+    toks_one = all(np.array_equal(a["tokens"], b["tokens"])
+                   for a, b in zip(out, bitref))
+    _, n_4f, err, scale = _logit_agreement(out, ref)
+    _p(f"speculative (a): against plain paged decode at the same one "
+       f"bucket, tokens {'identical' if toks_one else 'DIFFER'}, logits of "
+       f"{n_bits} of {len(out)} requests bit for bit; against phase 4f's "
+       f"output (buckets {list(eng4f.batch_edges)}) {n_4f} of {len(out)} bit for bit, max |logit err| {err:.3e} "
+       f"against 1e-4 x max |logit| = {1e-4 * scale:.3e}")
+    sp = st["paged"]
+    others = sum(v for n, v in counts.items() if n != "paged_attention")
+    if not (toks_ok and toks_one):
+        raise SystemExit("chip_smoke: speculative decode's tokens differ "
+                         "from plain paged decode's")
+    if not bits or err > 1e-4 * scale:
+        raise SystemExit("chip_smoke: speculative decode's logits are not "
+                         "plain paged decode's bit for bit at one bucket")
+    if not sp["spec_accepted"] == sp["spec_proposed"] > 0:
+        raise SystemExit("chip_smoke: a self-draft did not accept every "
+                         "proposal")
+    if counts["paged_attention"] != k * st["steps"] or others:
+        raise SystemExit("chip_smoke: the verify rounds did not launch the "
+                         "paged-attention kernel spec_k times each")
+    _verify_round_profile(model, eng, card)
+
+    # (b) a half-width draft
+    t0 = time.perf_counter()
+    draft = decode.build_demo_decode_model(
+        seed=SEED + 1, executor=model.executor, scope=fluid.Scope(),
+        **DECODE_DRAFT)
+    n_b = DECODE_DRAFT_REQUESTS
+    eng_b = decode.DecodeEngine(model, max_batch=DECODE_MAX_BATCH,
+                                collect_logits=True, name="chip_spec_draft",
+                                paged=True, prefix_cache=True,
+                                draft_model=draft, spec_k=k,
+                                auto_start=False)
+    eng_b.warmup()
+    _p(f"speculative: half-width draft (d_model {DECODE_DRAFT['d_model']}, "
+       f"seed {SEED + 1}) built on the card in "
+       f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    _zero_counts()
+    out_b, wall_b, st_b = _spec_serve(eng_b, prompts[:n_b], budgets[:n_b])
+    launches["half_width_draft"] = counts_b = _read_counts()
+    toks_b = _spec_report("speculative (b) half-width draft", out_b,
+                          ref[:n_b], wall_b, st_b, counts_b, card)
+    if not toks_b:
+        raise SystemExit("chip_smoke: speculative decode with a half-width "
+                         "draft changed the tokens")
+    if counts_b["paged_attention"] != k * st_b["steps"]:
+        raise SystemExit("chip_smoke: the half-width draft's verify rounds "
+                         "did not launch the paged kernel spec_k times each")
+
+    # card against host, and the twin that reads one position too far
+    picks = [shared[-1], [i for i in range(DECODE_REQUESTS)
+                          if i not in shared][-1]]
+    host = _host_spec_decode(arrays, [prompts[i] for i in picks])
+    twin = _host_spec_decode(arrays, [prompts[i] for i in picks], twin=True)
+    ok, missed = True, True
+    for i, h, t in zip(picks, host, twin):
+        ok &= _same_decode(f"speculative request {i} card vs host "
+                           f"({DECODE_HOST_NEW} tokens)", out[i], h, 1e-4,
+                           DECODE_HOST_NEW)[0]
+        n = DECODE_HOST_NEW
+        t_err = float(np.abs(out[i]["logits"][:n]
+                             - t["logits"][:n]).max())
+        tol = 1e-4 * float(np.abs(t["logits"][:n]).max())
+        _p(f"  request {i} card vs the one-position-late twin: tokens "
+           f"{'identical' if np.array_equal(out[i]['tokens'][:n], t['tokens'][:n]) else 'differ'}"
+           f", max |logit err| {t_err:.3e} = {t_err / tol:.1f} x the "
+           f"tolerance")
+        missed &= t_err >= 10 * tol
+    if not ok:
+        raise SystemExit("chip_smoke: speculative decode on the card "
+                         "disagrees with the host")
+    if not missed:
+        raise SystemExit("chip_smoke: the speculative card-vs-host check "
+                         "cannot tell each block's logits from the next's")
+
+    # (c) the SLO surface
+    launches["slo"] = _phase_slo(served, card)
+    return launches
 
 
 def phase_profile_decode(served, card, iters=20):
@@ -8944,8 +9474,13 @@ def main():
     del arrays
     paged_rows = _timed("3f paged attention", phase_kernels_paged, card)
     # 4f builds static programs, so it runs before 4e turns dygraph on
-    decode_launches, decode_served = _timed("4f serve decode",
-                                            phase_serve_decode, card)
+    decode_launches, decode_served, decode_ref = _timed(
+        "4f serve decode", phase_serve_decode, card)
+    # 4q builds static programs too, and reads 4f's outputs
+    spec_launches = _timed("4q speculative decode and the SLO surface",
+                           phase_speculative, decode_served, decode_ref,
+                           served, card)
+    del decode_ref
     book_launches, book_kernels, book_profiled = _timed(
         "4g static e2e / LeNet", phase_static_book, card)
     # 4n and 4k build static programs too: before 4e turns dygraph on
@@ -9151,6 +9686,10 @@ def main():
     for row in kernels:
         row["deploy_launches"] = {run: c[row["name"]]
                                   for run, c in deploy_launches.items()}
+    # the speculative path and the SLO engine (phase 4q): each leg's
+    for row in kernels:
+        row["speculative_launches"] = {leg: c[row["name"]]
+                                       for leg, c in spec_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

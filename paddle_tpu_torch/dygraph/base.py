@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..fluid import core
+from ..fluid import trace as _trace
 from ..fluid.framework import (convert_dtype, torch_dtype, unique_name,
                                _set_dygraph_tracer, _dygraph_tracer,
                                _current_expected_place)
@@ -316,7 +317,14 @@ class Tracer:
         if opdef.stateful_rng and "op_seed" not in attrs:
             attrs["op_seed"] = int(np.random.randint(0, 2 ** 31 - 1))
         ctx = self._ctx()
-        outs_t = opdef.fn(ins_t, attrs, ctx)
+        # an eager op's host span (its kernels may still run on the card
+        # when it closes); one boolean while the plane is off
+        if _trace.enabled():
+            _t0 = _trace.now()
+            outs_t = opdef.fn(ins_t, attrs, ctx)
+            _trace.complete(op_type, _t0, cat="dygraph_op")
+        else:
+            outs_t = opdef.fn(ins_t, attrs, ctx)
         requires = (not self._no_grad and opdef.differentiable and any(
             not v.stop_gradient for vs in ins_vb.values() for v in vs))
         outs_vb = {slot: [VarBase(t, stop_gradient=not requires)

@@ -36,8 +36,18 @@ from .io import (save_vars, load_vars, save_persistables, load_persistables,
 from .data_feeder import DataFeeder
 from . import passes
 from . import trace
+from . import goodput
+from . import flight_recorder
 from . import dataset
 from .dataset import DatasetFactory, InMemoryDataset, QueueDataset
+
+# the metrics export plane (fluid/metrics_export.py), started from the
+# environment as the trace is: `FLAGS_metrics_port=9090 python serve.py`
+# serves /metrics, and a snapshot path starts the JSONL writer.  The
+# module is imported only when a flag asks for it
+if core.get_flag("metrics_port") or core.get_flag("metrics_snapshot_path"):
+    from . import metrics_export as _metrics_export
+    _metrics_export.apply_flags()
 
 
 def name_scope(prefix=None):

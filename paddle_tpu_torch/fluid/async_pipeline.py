@@ -35,10 +35,14 @@ fetched handle of a parameter keeps the value of its own step
 (``tests/test_torch_async_pipeline.py`` holds every state-writing
 lowering to that).
 
-Single-threaded contract: one runner is driven from one thread.
+One runner is driven from one thread, with one exception: a consumer
+that waits on results out of band (the serving engine's collector) may
+call :meth:`AsyncStepRunner.reap` from its own thread.  Both pop the
+window's front under one lock that never spans a device wait.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
@@ -265,6 +269,7 @@ class AsyncStepRunner:
                                                       steps_per_dispatch)
         self._pending: List[tuple] = []    # (feed, future)
         self._inflight: "deque[List[FetchHandle]]" = deque()
+        self._pop_lock = threading.Lock()
         self._error_futures: List[StepFuture] = []
 
     # -- public -------------------------------------------------------------
@@ -309,6 +314,24 @@ class AsyncStepRunner:
             except Exception:       # noqa: BLE001 — cleanup never raises
                 pass
         self._error_futures = []
+
+    def reap(self) -> None:
+        """Pop the window's fully materialised front entries: for a
+        consumer that reads results out of band instead of through
+        drain() or backpressure.  Without it the last dispatched batch
+        stays in the window once traffic stops, and an idle engine reads
+        ``executor.inflight_steps`` > 0."""
+        with self._pop_lock:
+            popped = False
+            while self._inflight and all(h.is_materialized()
+                                         for h in self._inflight[0]):
+                self._inflight.popleft()
+                popped = True
+            if popped:
+                # set inside the lock: a stale 0 from here must not
+                # overwrite the count of a batch dispatched meanwhile
+                trace.metrics().gauge("executor.inflight_steps").set(
+                    len(self._inflight))
 
     @property
     def inflight(self) -> int:
@@ -363,20 +386,28 @@ class AsyncStepRunner:
         for (_, fut), handles in zip(group, per_step):
             fut._set_handles(handles)
             flat.extend(handles)
-        self._inflight.append(flat)
-        depth = len(self._inflight)
-        m.gauge("executor.inflight_steps").set(depth)
+        with self._pop_lock:
+            self._inflight.append(flat)
+            depth = len(self._inflight)
+            m.gauge("executor.inflight_steps").set(depth)
         peak = m.gauge("executor.inflight_peak")
         if depth > peak.value:
             peak.set(depth)
 
     def _wait_oldest(self):
-        if not self._inflight:
-            return
-        handles = self._inflight.popleft()
+        with self._pop_lock:
+            if not self._inflight:
+                return
+            handles = self._inflight.popleft()
+        _sp = trace.now() if trace.enabled() else 0
         t0 = time.perf_counter()
         for h in handles:
             h.block_until_ready()
+        if _sp:
+            # host blocked on device results: goodput charges it to the
+            # device_compute bucket
+            trace.complete("executor::host_wait", _sp, cat="step",
+                           args={"n_handles": len(handles)})
         m = trace.metrics()
         m.histogram("executor.host_wait_seconds").observe(
             time.perf_counter() - t0)

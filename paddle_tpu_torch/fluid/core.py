@@ -14,6 +14,11 @@ from typing import Dict, Optional
 
 import torch
 
+# standard library only; the single source of truth for the trace
+# environment parsing and the default timeline path (trace touches core
+# only inside functions, so the import order cannot cycle)
+from . import trace as _trace
+
 
 class Place:
     device_kind = "cpu"
@@ -63,6 +68,11 @@ class CUDAPlace(Place):
 # global flags: the subset of paddle_tpu's table this slice reads
 # ---------------------------------------------------------------------------
 _FLAGS: Dict[str, object] = {
+    # the event stream (fluid/trace.py): FLAGS_enable_trace=1 leaves a
+    # chrome://tracing timeline at FLAGS_trace_path; trace.enable(),
+    # disable() and set_path() keep these two in step
+    "enable_trace": _trace.enabled(),
+    "trace_path": _trace.get_path(),
     # pad ragged leading batch dims up to a bucket edge (compile_cache.py);
     # bucket_edges=None means powers of two
     "shape_bucketing": _os.environ.get(
@@ -77,6 +87,10 @@ _FLAGS: Dict[str, object] = {
         "FLAGS_serving_max_wait_us", "2000")),
     "serving_queue_depth": int(_os.environ.get(
         "FLAGS_serving_queue_depth", "256")),
+    # a request's default deadline (0 = none): past it a queued request is
+    # rejected with DeadlineExceededError instead of dispatched
+    "serving_default_deadline_ms": float(_os.environ.get(
+        "FLAGS_serving_default_deadline_ms", "0") or 0),
     # async step window (fluid/async_pipeline.py): dispatched steps that
     # may be outstanding before submit() waits on the oldest; steps per
     # dispatch above 1 need a captured multi-step executable, not ported
@@ -88,6 +102,27 @@ _FLAGS: Dict[str, object] = {
     # on BuildStrategy.auto_tune; the tuner itself is not ported
     "auto_tune": _os.environ.get(
         "FLAGS_auto_tune", "").strip().lower() in ("1", "true", "yes", "on"),
+    # the metrics export plane (fluid/metrics_export.py): metrics_port
+    # serves /metrics, /stats, /goodput and /healthz on a daemon thread
+    # (0 = off), on 127.0.0.1 unless metrics_host says otherwise; the
+    # snapshot path and interval append JSONL snapshots
+    "metrics_port": int(_os.environ.get("FLAGS_metrics_port", "0") or 0),
+    "metrics_host": _os.environ.get("FLAGS_metrics_host", "127.0.0.1"),
+    "metrics_snapshot_path": _os.environ.get(
+        "FLAGS_metrics_snapshot_path") or None,
+    "metrics_snapshot_interval_s": float(_os.environ.get(
+        "FLAGS_metrics_snapshot_interval_s", "60") or 60),
+    # goodput's rolling attribution window in seconds (0 = the whole run)
+    "goodput_window_s": float(_os.environ.get(
+        "FLAGS_goodput_window_s", "600") or 600),
+    # the flight recorder (fluid/flight_recorder.py): a bounded ring of
+    # one wide record per executor step and per served request, on by
+    # default, tracing on or off
+    "flight_recorder": _os.environ.get(
+        "FLAGS_flight_recorder", "1").strip().lower()
+        in _trace._TRUE_STRINGS,
+    "flight_recorder_events": int(_os.environ.get(
+        "FLAGS_flight_recorder_events", "4096") or 4096),
 }
 
 
@@ -100,6 +135,22 @@ def set_flags(flags: Dict[str, object]):
             from . import compile_cache
             v = compile_cache.normalize_edges(v)
         _FLAGS[k] = v
+        if k == "enable_trace":
+            (_trace.enable if v else _trace.disable)()
+        elif k == "trace_path":
+            _trace.set_path(str(v))
+        elif k in ("metrics_port", "metrics_host", "metrics_snapshot_path",
+                   "metrics_snapshot_interval_s"):
+            # reconcile the export surfaces with the new values: start,
+            # restart on a changed port or path, stop on unset
+            from . import metrics_export
+            metrics_export.apply_flags()
+        elif k in ("flight_recorder", "flight_recorder_events"):
+            from . import flight_recorder
+            flight_recorder.configure(
+                capacity=int(_FLAGS.get("flight_recorder_events", 4096)
+                             or 4096),
+                enabled=bool(_FLAGS.get("flight_recorder", True)))
 
 
 def get_flags(names):

@@ -23,18 +23,30 @@ returns lazy :class:`~.async_pipeline.FetchHandle` s; ``run_async`` keeps
 a bounded window of them (``AsyncStepRunner``); ``train_from_dataset``
 and ``train_passes`` drive a dataset through it (distributed/trainer.py).
 The ``executor.ops_per_step`` gauge holds the op count of the last run's
-plan.
+plan; ``executor.compile_cache_miss`` / ``_hit`` count run-plan builds
+and reuses (the port's counterpart of the reference's compiles) and
+``executor.steps_completed`` the finished runs.
+
+Observability (fluid/trace.py, fluid/flight_recorder.py): with tracing on
+each op emits an ``op`` span and each run an ``executor::step`` span,
+carrying the ambient trace context (a serving batch's id).  These are
+host times: the executor queues each op's kernels and moves on, so on the
+card a span closes when its work was queued, not when it finished.  The
+flight recorder keeps one wide record per run, tracing on or off.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence
 
+import hashlib
+
 import numpy as np
 import torch
 
 from . import compile_cache
 from . import core
+from . import flight_recorder as _flight
 from . import trace
 from .core import Scope, global_scope
 from .framework import Block, Program, Variable, default_main_program, \
@@ -79,11 +91,16 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
     rule on the tensors in ``env``; outputs are written back into it."""
     from .control_flow_impl import CONTROL_FLOW_OPS, run_control_flow_op
     op_list = block.ops if ops is None else ops
+    # one boolean read for the whole loop: off, each op pays one `if`
+    tr_on = trace.enabled()
     for op in op_list:
         if op.type in ("feed", "fetch"):
             continue
+        _t0 = trace.now() if tr_on else 0
         if op.type in CONTROL_FLOW_OPS:
             run_control_flow_op(op, block, env, ctx)
+            if tr_on:
+                trace.complete(op.type, _t0, cat="op")
             continue
         opdef = get_op(op.type)
         ins = {}
@@ -117,6 +134,8 @@ def run_block_ops(block: Block, env: Dict[str, Any], ctx: LoweringContext,
                 attrs, ctx))
         else:
             outs = opdef.fn(ins, attrs, ctx)
+        if tr_on:
+            trace.complete(op.type, _t0, cat="op")
         for slot, names in op.outputs.items():
             for name, val in zip(names, outs.get(slot, [])):
                 if val is not None:
@@ -144,6 +163,12 @@ class _RunPlan:
         self.scope_reads = scope_reads
         self.written_names = written_names
         self.n_ops = sum(op.type not in ("feed", "fetch") for op in run_ops)
+        # the plan's fingerprint in the flight recorder's step records
+        self.fp = hashlib.sha1(repr(
+            [(op.type, sorted(op.input_arg_names),
+              sorted(op.output_arg_names)) for op in run_ops]).encode()
+        ).hexdigest()[:12]
+        self.fresh = True               # built by the run that takes it
 
 
 class Executor:
@@ -213,7 +238,11 @@ class Executor:
 
         plan = self._plan(program, sorted(feed), fetch_names, scope,
                           use_program_cache)
-        trace.metrics().gauge("executor.ops_per_step").set(plan.n_ops)
+        built, plan.fresh = plan.fresh, False
+        m = trace.metrics()
+        m.counter("executor.compile_cache_miss" if built
+                  else "executor.compile_cache_hit").inc()
+        m.gauge("executor.ops_per_step").set(plan.n_ops)
         block = program.global_block()
         env: Dict[str, Any] = {}
         for n in plan.scope_reads:
@@ -230,12 +259,23 @@ class Executor:
         ctx = LoweringContext(device=self.device,
                               base_seed=seed * 1_000_003 + self._step,
                               is_test=bool(program._hints.get("is_test")))
+        step = self._step
         self._step += 1
         if bucket is not None:
             ctx.batch_valid, ctx.batch_padded = n_valid, bucket
+        _t0 = trace.now()       # always: the flight recorder times steps
         with torch.no_grad():
             run_block_ops(program.global_block(), env, ctx,
                           ops=plan.run_ops)
+        if trace.enabled():
+            trace.complete("executor::step", _t0, cat="step",
+                           args={"step": step, "n_fetch": len(fetch_names)})
+        m.counter("executor.steps_completed").inc()
+        if _flight.enabled():
+            _flight.record_step(
+                step=step, dur_us=(trace.now() - _t0) / 1e3, bucket=bucket,
+                batch_valid=n_valid if bucket is not None else None,
+                compile_miss=built, fp=plan.fp, n_fetch=len(fetch_names))
         for n in plan.written_names:
             if n in env:
                 scope.set_var(n, env[n])

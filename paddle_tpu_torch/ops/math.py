@@ -100,7 +100,12 @@ def _square(ins, attrs, ctx):
 
 @register_op("clip")
 def _clip(ins, attrs, ctx):
-    return {"Out": [torch.clamp(_x(ins), attrs.get("min"), attrs.get("max"))]}
+    """``jnp.clip`` semantics: either bound may be absent, and with
+    neither X comes back as it is (``torch.clamp`` refuses that)."""
+    lo, hi = attrs.get("min"), attrs.get("max")
+    if lo is None and hi is None:
+        return {"Out": [_x(ins)]}
+    return {"Out": [torch.clamp(_x(ins), lo, hi)]}
 
 
 @register_op("clip_by_norm")

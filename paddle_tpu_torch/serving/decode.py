@@ -1,5 +1,6 @@
 """Autoregressive decode serving: KV-cached continuous batching with
-mid-flight join/leave, block-paged KV pools and prefix reuse.
+mid-flight join/leave, block-paged KV pools, prefix reuse and speculative
+decoding.
 
 Counterpart of ``paddle_tpu/serving/decode.py``.  A decode request is a
 *sequence* of device steps with per-request state (the KV cache) that
@@ -21,7 +22,8 @@ iteration-level scheduling).
   probabilities exactly 0.0) keep every live row's logits those of
   decoding the request alone.
 
-``DecodeEngine(paged=True, prefix_cache=...)`` adds two tiers:
+``DecodeEngine(paged=True, prefix_cache=..., draft_model=...)`` adds
+three tiers:
 
 * **Block-paged KV** — K/V rows live in flat device pools ``[R, d]``
   carved into fixed-size pages; a slot owns ``ceil((prompt + new - 1) /
@@ -37,7 +39,21 @@ iteration-level scheduling).
   (exact token tuples, chained per page); a request whose prefix matches
   shares those pages from a refcounted warm pool and *replays* only the
   uncovered prompt tail through decode steps.  Eviction is LRU and never
-  frees a page with live readers.
+  frees a page with live readers; ``release_prefix`` drops a prompt's
+  pages at once (a session that moved to another replica).
+* **Speculative decoding** — a cheap draft :class:`DecodeModel` (its own
+  dense KV rows, in its own child scope) proposes up to ``spec_k - 1``
+  tokens a round, and ONE target launch, the verify program of
+  ``spec_k`` chained paged steps, scores them all; the proposals that
+  match the target's argmax are accepted together.  Greedy speculative
+  output is token-identical to plain paged decode: each verify block is
+  the plain paged step at its position, op for op and shape for shape,
+  and a proposal is consumed only after it matched.  With the
+  ``fuse_paged_attention`` pass each block's attention is one
+  ``paged_attention`` op, so a verify round launches the paged kernel
+  ``spec_k`` times.  Each block rewrites the whole pool (the one-hot
+  write), so a round moves about ``spec_k`` times a plain step's pool
+  traffic.
 
 The numerics contract the demo model keeps: per-row computation only, in
 batch-size-stable spellings (the elementwise-mul + ``reduce_sum``
@@ -45,12 +61,14 @@ attention).  The paged data path keeps it: page writes are one-hot matmul
 scatters, page reads are ``gather`` (exact copies), and masked positions
 contribute exactly 0.0.  A float32 ``fc`` product need not round a row
 alike at every batch size (cuBLAS and the host's BLAS pick kernels by the
-row count), so batched and paged decode are held to ``decode_sequential``
+row count, and the paged kernel splits a slot's positions by the batch
+size), so batched and paged decode are held to ``decode_sequential``
 with identical tokens and logits within a stated tolerance.
 
-Not ported yet: speculative decoding (the verify program and the draft
-model), the fleet's migration drops and ``release_prefix``, trace ids and
-spans, and the flight recorder.
+Every request has a ``trace_id`` (its future's); with tracing on the
+engine emits ``decode::admit`` / ``prefill`` / ``step`` / ``spec_round``
+/ ``finish`` events (host times), and the flight recorder keeps one wide
+record per finished request.
 """
 from __future__ import annotations
 
@@ -63,7 +81,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..fluid import compile_cache
+from ..fluid import compile_cache, trace
+from ..fluid import flight_recorder as _flight
 from ..fluid.core import Scope
 from ..fluid.executor import Executor
 from .engine import (BaseFuture, EngineClosedError, FamilyInstruments,
@@ -87,11 +106,16 @@ class DecodeRejectedError(ServingError):
 class DecodeFuture(BaseFuture):
     """One decode request's pending result.  ``result(timeout)`` returns
     ``{"tokens", "prompt_len", "finish_reason", "logits"?}`` — tokens is
-    the generated id sequence (EOS included when hit)."""
+    the generated id sequence (EOS included when hit).  ``trace_id`` is
+    the request's causal identity."""
 
-    __slots__ = ()
+    __slots__ = ("trace_id",)
 
     _pending_msg = "decode request still pending"
+
+    def __init__(self, trace_id: Optional[str] = None):
+        super().__init__()
+        self.trace_id = trace_id
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +251,27 @@ class PrefixCache:
                 freed += 1
         return freed
 
+    def drop(self, prompt) -> int:
+        """Release every chain entry covering a prefix of ``prompt``: a
+        session that moved to another replica leaves pages here with no
+        future reader.  A page a live slot still holds loses only the
+        cache's reference (the slot's retirement returns it).  Returns
+        how many pages went back to the pool now."""
+        ps = self.pool.page_size
+        toks = [int(t) for t in prompt]
+        freed = 0
+        j = 0
+        while (j + 1) * ps <= len(toks):
+            key = tuple(toks[:(j + 1) * ps])
+            pid = self._entries.pop(key, None)
+            if pid is None:
+                break
+            if self.pool.refcount(pid) == 1:
+                freed += 1
+            self.pool.release(pid)
+            j += 1
+        return freed
+
 
 # ---------------------------------------------------------------------------
 # the model contract
@@ -263,6 +308,12 @@ class DecodeModel:
       carried ``k_pool``/``v_pool`` ``[pool_rows, d]`` and the seeded page
       table ``pt [B, max_len] int32``.  Returns ``(program,
       logits_name)``.
+    * ``verify_program(pool_rows, k)`` — ``k`` chained paged steps in one
+      program, for speculative verification (built by
+      ``verify_builder``): feeds ``toks [B, k]`` / ``widx [B, k] int64``,
+      ``pos [B, 1]`` (the first block's position) and ``arange``; block
+      j writes row ``widx[:, j]`` and attends over positions ``<= pos +
+      j``.  Returns ``(program, [logits_name per block])``.
 
     All programs share their weights through one scope; the engine runs
     them in a CHILD scope so several engines (batched and the sequential
@@ -280,7 +331,8 @@ class DecodeModel:
                  paged_builder: Optional[Callable[[int], tuple]] = None,
                  page_size: Optional[int] = None,
                  k_pool_name: str = "k_pool", v_pool_name: str = "v_pool",
-                 pt_name: str = "pt"):
+                 pt_name: str = "pt",
+                 verify_builder: Optional[Callable[[int, int], tuple]] = None):
         self.executor = executor
         self.scope = scope
         self.decode_program = decode_program
@@ -296,8 +348,10 @@ class DecodeModel:
         self.pt_name = pt_name
         self._prefill_builder = prefill_builder
         self._paged_builder = paged_builder
+        self._verify_builder = verify_builder
         self._prefill: Dict[int, tuple] = {}
         self._paged: Dict[int, tuple] = {}
+        self._verify: Dict[tuple, tuple] = {}
         self._lock = _BUILD_LOCK
 
     def prefill_program(self, s_p: int):
@@ -324,6 +378,20 @@ class DecodeModel:
                 entry = self._paged[key] = self._paged_builder(key)
             return entry
 
+    def verify_program(self, pool_rows: int, k: int):
+        """(program, [logits_name per block]) of ``k`` chained paged
+        steps over a ``[pool_rows, d]`` pool — lazy, one program per
+        (pool size, k)."""
+        if self._verify_builder is None:
+            raise ValueError("this DecodeModel has no verify_builder; "
+                             "speculative decode is unavailable")
+        key = (int(pool_rows), int(k))
+        with self._lock:
+            entry = self._verify.get(key)
+            if entry is None:
+                entry = self._verify[key] = self._verify_builder(*key)
+            return entry
+
 
 def build_demo_decode_model(vocab: int = 32, d_model: int = 16,
                             max_len: int = 24, seed: int = 0,
@@ -333,8 +401,8 @@ def build_demo_decode_model(vocab: int = 32, d_model: int = 16,
     model.  One embedding, shared Q/K/V projections and an output head;
     the attention uses the batch-size-stable mul+reduce_sum spelling.
     Besides the dense decode/prefill pair it supplies the paged one-step
-    builder over the same weights.  ``executor`` defaults to
-    ``Executor()``, the card."""
+    and speculative verify builders over the same weights.  ``executor``
+    defaults to ``Executor()``, the card."""
     from .. import fluid
     from ..fluid import layers as L
     from ..fluid.param_attr import ParamAttr
@@ -486,9 +554,50 @@ def build_demo_decode_model(vocab: int = 32, d_model: int = 16,
         pg._hints["kv_page_size"] = page_size
         return pg, logits.name
 
+    # -- the speculative verify program: k chained paged steps ---------------
+    def build_verify(pool_rows: int, k_steps: int):
+        vp_, vp_startup = fluid.Program(), fluid.Program()
+        vp_.random_seed = seed
+        with fluid.program_guard(vp_, vp_startup):
+            toks = fluid.data("toks", [-1, k_steps], dtype="int64")
+            widx = fluid.data("widx", [-1, k_steps], dtype="int64")
+            pos = fluid.data("pos", [-1, 1], dtype="float32")
+            ar = fluid.data("arange", [1, max_len], dtype="float32")
+            pt = fluid.data("pt", [-1, max_len], dtype="int32")
+            k_pool = fluid.data("k_pool", [pool_rows, d_model])
+            v_pool = fluid.data("v_pool", [pool_rows, d_model])
+            pti = L.reshape(pt, [-1])
+            kcur, vcur = k_pool, v_pool
+            names = []
+            for j in range(k_steps):
+                tj = L.slice(toks, axes=[1], starts=[j], ends=[j + 1])
+                wj = L.slice(widx, axes=[1], starts=[j], ends=[j + 1])
+                x = embed_tok(tj)
+                q, kn, vn = proj(x, "q"), proj(x, "k"), proj(x, "v")
+                kcur, vcur = pool_write(kcur, vcur, wj, kn, vn, pool_rows)
+                kg = L.reshape(L.gather(kcur, pti), [-1, max_len, d_model])
+                vg = L.reshape(L.gather(vcur, pti), [-1, max_len, d_model])
+                # block j's window is positions <= pos + j: the float adds
+                # are exact small integers, so this is the one-step mask
+                # at position pos + j bit for bit
+                valid = L.cast(
+                    L.less_than(ar, L.scale(pos, bias=float(j + 1))),
+                    "float32")
+                lg = head(attend(q, kg, vg, valid) + x)
+                names.append(lg.name)
+            L.assign(kcur, output=k_pool)
+            L.assign(vcur, output=v_pool)
+        vp_._hints["is_test"] = True
+        vp_._hints["shape_bucketing"] = False
+        vp_._hints["carry_vars"] = ("k_pool", "v_pool")
+        vp_._hints["feed_names"] = ["toks", "widx", "pos", "arange"]
+        vp_._hints["fetch_names"] = list(names)
+        vp_._hints["kv_page_size"] = page_size
+        return vp_, names
+
     return DecodeModel(executor, scope, dec, logits.name, vocab, d_model,
                        max_len, build_prefill, paged_builder=build_paged,
-                       page_size=page_size)
+                       verify_builder=build_verify, page_size=page_size)
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +606,8 @@ def build_demo_decode_model(vocab: int = 32, d_model: int = 16,
 
 class _DecodeInstruments(FamilyInstruments):
     COUNTERS = ("requests", "rejected", "joins", "leaves", "tokens",
-                "steps", "prefills", "prefix_hits", "prefix_evictions")
+                "steps", "prefills", "prefix_hits", "prefix_evictions",
+                "prefix_drops", "spec_proposed", "spec_accepted")
     HISTOGRAMS = ("ttft_seconds", "step_seconds", "request_seconds",
                   "batch_occupancy")
 
@@ -519,7 +629,8 @@ class _DecodeInstruments(FamilyInstruments):
 
 class _Slot:
     __slots__ = ("req", "pos", "last_token", "k_row", "v_row", "tokens",
-                 "logits", "t_submit", "t_first", "plen", "pages")
+                 "logits", "t_submit", "t_first", "plen", "pages",
+                 "d_k_row", "d_v_row")
 
     def __init__(self, req):
         self.req = req
@@ -529,6 +640,8 @@ class _Slot:
         self.v_row = None
         self.plen = int(req.prompt.size)
         self.pages: List[int] = []   # owned pool pages (paged mode)
+        self.d_k_row = None     # the draft model's dense KV rows
+        self.d_v_row = None
         self.tokens: List[int] = []
         self.logits: List[np.ndarray] = []
         self.t_submit = req.t_submit
@@ -536,13 +649,15 @@ class _Slot:
 
 
 class _DecodeRequest:
-    __slots__ = ("prompt", "max_new", "eos_id", "future", "t_submit")
+    __slots__ = ("prompt", "max_new", "eos_id", "future", "trace_id",
+                 "t_submit")
 
-    def __init__(self, prompt, max_new, eos_id, future):
+    def __init__(self, prompt, max_new, eos_id, future, trace_id):
         self.prompt = prompt
         self.max_new = max_new
         self.eos_id = eos_id
         self.future = future
+        self.trace_id = trace_id
         self.t_submit = time.monotonic()
 
 
@@ -569,8 +684,9 @@ class DecodeEngine:
     retried every iteration; a request that can NEVER fit raises
     :class:`PagePoolExhaustedError` at submit), membership changes re-seed
     only the int32 page table, and retirement returns pages in O(1).
-    ``prefix_cache=True`` adds the page-granular prompt prefix cache.
-    Speculative decoding (``draft_model=``) is not ported yet.
+    ``prefix_cache=True`` adds the page-granular prompt prefix cache;
+    ``draft_model=`` adds speculative decoding with ``spec_k`` positions
+    verified per target launch (token-identical to plain paged decode).
 
     ``close()`` is a planned drain: queued and live requests finish, then
     the loop exits — no accepted request is lost.
@@ -583,10 +699,8 @@ class DecodeEngine:
                  paged: bool = False, page_size: Optional[int] = None,
                  pool_pages: Optional[int] = None,
                  prefix_cache: bool = False,
-                 draft_model: Optional[DecodeModel] = None):
-        if draft_model is not None:
-            raise ValueError("speculative decoding (draft_model=) is not "
-                             "ported to paddle_tpu_torch yet")
+                 draft_model: Optional[DecodeModel] = None,
+                 spec_k: int = 4):
         self.model = model
         self.max_batch = int(max_batch)
         self.batch_edges = compile_cache.normalize_edges(
@@ -621,14 +735,19 @@ class DecodeEngine:
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._auto_start = bool(auto_start)
+        # prefix drops asked for by other threads, applied by the loop
+        # (the pool's one mutator) between steps
+        self._drops: "deque" = deque()
 
-        # -- paged / prefix tiers --------------------------------------------
+        # -- paged / prefix / speculative tiers ------------------------------
         self.paged = bool(paged)
-        if prefix_cache and not self.paged:
-            raise ValueError("prefix_cache requires paged=True")
+        if (prefix_cache or draft_model is not None) and not self.paged:
+            raise ValueError("prefix_cache / draft_model require paged=True")
         self._pool: Optional[KVPagePool] = None
         self._prefix: Optional[PrefixCache] = None
+        self._draft = draft_model
         self.page_size = 0
+        self.spec_k = 0
         if self.paged:
             ps = int(page_size or model.page_size or 4)
             if ps < 1 or model.max_len % ps:
@@ -650,6 +769,16 @@ class DecodeEngine:
                 self._scope.set_var(nm, torch.zeros(
                     (self._pool_rows, model.d_model), dtype=torch.float32,
                     device=self._device))
+        if draft_model is not None:
+            if (draft_model.max_len != model.max_len
+                    or draft_model.vocab != model.vocab):
+                raise ValueError(
+                    "draft model must share max_len and vocab with the "
+                    f"target (draft {draft_model.max_len}/"
+                    f"{draft_model.vocab} vs {model.max_len}/{model.vocab})")
+            self.spec_k = max(2, int(spec_k))
+            # the draft's dense KV rows live in its own child scope
+            self._draft_scope = Scope(parent=draft_model.scope)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "DecodeEngine":
@@ -691,7 +820,8 @@ class DecodeEngine:
 
     # -- admission -----------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
-               eos_id: Optional[int] = None) -> DecodeFuture:
+               eos_id: Optional[int] = None,
+               trace_id: Optional[str] = None) -> DecodeFuture:
         if self._closed:
             raise EngineClosedError("DecodeEngine is closed")
         if not self._started and self._auto_start:
@@ -727,8 +857,11 @@ class DecodeEngine:
                     f"request needs {need} KV pages but the pool only "
                     f"has {self._pool.usable_pages} "
                     f"(page_size={self.page_size})")
-        fut = DecodeFuture()
-        req = _DecodeRequest(prompt, max_new, eos_id, fut)
+        # an explicit or ambient id wins; a fresh "dec-" id otherwise
+        trace_id = (trace_id or trace.current_trace_id()
+                    or trace.new_trace_id("dec"))
+        fut = DecodeFuture(trace_id=trace_id)
+        req = _DecodeRequest(prompt, max_new, eos_id, fut, trace_id)
         with self._lock:
             if self._closed:
                 raise EngineClosedError("DecodeEngine is closed")
@@ -742,6 +875,11 @@ class DecodeEngine:
                 raise exc
         self._ins.count("requests")
         self._ins.set_queue_depth(self._q.qsize() + len(self._pending))
+        if trace.enabled():
+            trace.instant("decode::admit", cat="serving",
+                          args={"trace_id": trace_id,
+                                "prompt_len": int(prompt.size),
+                                "max_new": max_new})
         return fut
 
     def generate(self, prompt, max_new_tokens: int = 16,
@@ -749,6 +887,42 @@ class DecodeEngine:
                  timeout: Optional[float] = None) -> Dict[str, Any]:
         """Blocking convenience: submit + result."""
         return self.submit(prompt, max_new_tokens, eos_id).result(timeout)
+
+    def release_prefix(self, prompt, timeout: float = 5.0) -> int:
+        """Drop the prefix-cache pages that ``prompt`` seeded: a session
+        moved to another replica leaves them with no future reader, so
+        they go back now instead of under LRU pressure.  The loop applies
+        the drop between steps; returns the pages returned to the pool
+        (0 without a prefix cache)."""
+        if self._prefix is None:
+            return 0
+        prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
+        done = threading.Event()
+        box = {"freed": 0}
+        with self._lock:
+            if self._closed:
+                return 0
+            started = self._started
+            self._drops.append((prompt, box, done))
+        if not started:
+            # no loop yet: this thread is the pool's only mutator
+            self._process_drops()
+            return box["freed"]
+        done.wait(timeout)
+        return box["freed"]
+
+    def _process_drops(self) -> None:
+        while True:
+            with self._lock:
+                if not self._drops:
+                    return
+                prompt, box, done = self._drops.popleft()
+            freed = self._prefix.drop(prompt)
+            if freed:
+                self._ins.count("prefix_drops", freed)
+                self._update_page_gauges()
+            box["freed"] = freed
+            done.set()
 
     # -- the loop ------------------------------------------------------------
     def _loop(self) -> None:
@@ -786,6 +960,8 @@ class DecodeEngine:
     def _loop_inner(self) -> None:
         stop_seen = False
         while True:
+            if self._drops:
+                self._process_drops()
             joins = self._gather_joins()
             if joins and joins[-1] is _STOP:
                 stop_seen = True
@@ -922,6 +1098,7 @@ class DecodeEngine:
         model = self.model
         prog, logits_n, k_n, v_n = model.prefill_program(s_p)
         feed = self._prefill_feed(s_p, reqs)
+        _t0 = trace.now() if trace.enabled() else 0
         t0 = time.perf_counter()
         logits, k_init, v_init = model.executor.run(
             prog, feed=feed, fetch_list=[logits_n, k_n, v_n],
@@ -929,6 +1106,10 @@ class DecodeEngine:
         logits, k_init, v_init = logits.numpy(), k_init.raw, v_init.raw
         self._ins.count("prefills")
         self._ins.observe("step_seconds", time.perf_counter() - t0)
+        if _t0:
+            trace.complete("decode::prefill", _t0, cat="serving",
+                           args={"bucket": s_p, "paged": self.paged,
+                                 "n_requests": len(reqs)})
         return logits, k_init, v_init
 
     def _prefill(self, s_p: int, reqs: List[_DecodeRequest]) -> None:
@@ -953,6 +1134,9 @@ class DecodeEngine:
 
     # -- join, paged: seed pages (prefill for misses, warm pages for hits) ---
     def _admit_paged(self, ready) -> None:
+        # the draft's dense rows must be synced before membership changes;
+        # the pools themselves do not depend on membership
+        self._sync_rows()
         misses = [p for p in ready if not p[1]["shared"]]
         hits = [p for p in ready if p[1]["shared"]]
         seated = []        # (slot, first_logits_or_None)
@@ -971,6 +1155,8 @@ class DecodeEngine:
             slot.pages = plan["shared"] + plan["fresh"]
             slot.pos = len(plan["shared"]) * self.page_size
             seated.append((slot, None))
+        if self._draft is not None and seated:
+            self._draft_prefill([s for s, _ in seated])
         for slot, first_logits in seated:
             self._ins.count("joins")
             if first_logits is not None and self._emit(slot, first_logits):
@@ -1012,6 +1198,25 @@ class DecodeEngine:
             0, rows, torch.cat(v_vals))
         return out
 
+    def _draft_prefill(self, slots: List[_Slot]) -> None:
+        """Seed the draft model's dense KV rows for every new slot.  The
+        draft only steers which tokens are proposed; verification alone
+        decides the output, so its numerics need no exactness care."""
+        draft = self._draft
+        groups: Dict[int, List[_Slot]] = {}
+        for s in slots:
+            s_p = compile_cache.bucket_for(s.plen, self.prefill_edges)
+            groups.setdefault(s_p, []).append(s)
+        for s_p, group in sorted(groups.items()):
+            prog, logits_n, k_n, v_n = draft.prefill_program(s_p)
+            feed = self._prefill_feed(s_p, [s.req for s in group])
+            _, k_init, v_init = draft.executor.run(
+                prog, feed=feed, fetch_list=[logits_n, k_n, v_n],
+                scope=self._draft_scope, return_numpy=False)
+            for i, s in enumerate(group):
+                s.d_k_row = k_init.raw[i]
+                s.d_v_row = v_init.raw[i]
+
     # -- token emission / retirement ----------------------------------------
     def _emit(self, slot: _Slot, logits_row: np.ndarray) -> bool:
         """Record the next token for ``slot``; True when it finishes."""
@@ -1049,9 +1254,18 @@ class DecodeEngine:
                "finish_reason": reason}
         if self.collect_logits:
             out["logits"] = np.stack(slot.logits)
+        dur = time.monotonic() - slot.t_submit
         self._ins.count("leaves")
-        self._ins.observe("request_seconds", time.monotonic() - slot.t_submit)
+        self._ins.observe("request_seconds", dur)
         self._ins.set_active(len(self._slots))
+        if _flight.enabled():
+            _flight.record_request(r.trace_id, rows=1, outcome="ok",
+                                   latency_us=dur * 1e6)
+        if trace.enabled():
+            trace.instant("decode::finish", cat="serving",
+                          args={"trace_id": r.trace_id,
+                                "n_tokens": len(slot.tokens),
+                                "reason": reason})
         r.future._resolve(out)
 
     def _update_page_gauges(self) -> None:
@@ -1065,8 +1279,18 @@ class DecodeEngine:
         buffers (views, no copy) before any membership mutation.  While
         ``_dirty`` the buffer has not absorbed the latest membership and
         the per-slot rows are already authoritative.  Paged state lives
-        in the membership-independent pools: nothing to sync."""
-        if self.paged or self._dirty or not self._slots or self._cap == 0:
+        in the membership-independent pools: only the draft model's dense
+        rows (speculative) need syncing."""
+        if self._dirty or not self._slots or self._cap == 0:
+            return
+        if self.paged:
+            if self._draft is None:
+                return
+            kb = self._draft_scope.find_var(self._draft.k_name)
+            vb = self._draft_scope.find_var(self._draft.v_name)
+            for i, s in enumerate(self._slots):
+                s.d_k_row = kb[i]
+                s.d_v_row = vb[i]
             return
         kb = self._scope.find_var(self.model.k_name)
         vb = self._scope.find_var(self.model.v_name)
@@ -1077,7 +1301,8 @@ class DecodeEngine:
     def _rebuild_buffers(self) -> None:
         """Re-pack per-slot state into buffers sized to the decode bucket.
         Dense: stack the live KV rows on the device.  Paged: re-seed only
-        the int32 page table (the pools never move)."""
+        the int32 page table (the pools never move); speculative adds the
+        draft model's dense row stack."""
         model = self.model
         n = len(self._slots)
         cap = compile_cache.bucket_for(max(n, 1), self.batch_edges)
@@ -1090,6 +1315,16 @@ class DecodeEngine:
                     pt[i, pi * ps:(pi + 1) * ps] = pg * ps + lane
             self._scope.set_var(model.pt_name,
                                 torch.from_numpy(pt).to(self._device))
+            if self._draft is not None:
+                zero = torch.zeros((model.max_len, self._draft.d_model),
+                                   dtype=torch.float32,
+                                   device=self._draft.executor.device)
+                for nm, att in ((self._draft.k_name, "d_k_row"),
+                                (self._draft.v_name, "d_v_row")):
+                    rows = [getattr(s, att) for s in self._slots]
+                    rows = [zero if r is None else r for r in rows]
+                    self._draft_scope.set_var(
+                        nm, torch.stack(rows + [zero] * (cap - n)))
         else:
             zero = torch.zeros((model.max_len, model.d_model),
                                dtype=torch.float32, device=self._device)
@@ -1102,7 +1337,9 @@ class DecodeEngine:
 
     # -- one decode step -----------------------------------------------------
     def _step(self) -> None:
-        if self.paged:
+        if self._draft is not None:
+            self._spec_round()
+        elif self.paged:
             self._paged_step()
         else:
             self._decode_step()
@@ -1121,6 +1358,7 @@ class DecodeEngine:
             pos[i, 0] = float(s.pos)
         feed = {"tok": tok, "posi": posi, "pos": pos,
                 "arange": self._arange}
+        _t0 = trace.now() if trace.enabled() else 0
         t0 = time.perf_counter()
         logits, = model.executor.run(model.decode_program, feed=feed,
                                      fetch_list=[model.logits_name],
@@ -1128,6 +1366,9 @@ class DecodeEngine:
         self._ins.count("steps")
         self._ins.observe("step_seconds", time.perf_counter() - t0)
         self._ins.observe("batch_occupancy", float(len(self._slots)) / cap)
+        if _t0:
+            trace.complete("decode::step", _t0, cat="serving",
+                           args={"cap": cap, "live": len(self._slots)})
         finished = []
         for i, s in enumerate(self._slots):
             s.pos += 1
@@ -1172,19 +1413,16 @@ class DecodeEngine:
             pos[i, 0] = float(s.pos)
         feed = {"tok": tok, "widx": widx, "pos": pos,
                 "arange": self._arange}
+        _t0 = trace.now() if trace.enabled() else 0
         t0 = time.perf_counter()
         logits, = model.executor.run(prog, feed=feed,
                                      fetch_list=[logits_n],
                                      scope=self._scope, return_numpy=True)
-        self._ins.count("steps")
-        self._ins.observe("step_seconds", time.perf_counter() - t0)
-        # under paging the occupancy signal is page-pool fullness, not
-        # slots/cap: a replica whose pool is exhausted is full even when
-        # its slot count looks low
-        self._ins.observe(
-            "batch_occupancy",
-            self._pool.pages_in_use / max(1, self._pool.usable_pages))
-        self._update_page_gauges()
+        self._observe_paged_step(time.perf_counter() - t0)
+        if _t0:
+            trace.complete("decode::step", _t0, cat="serving",
+                           args={"cap": cap, "live": len(self._slots),
+                                 "paged": True})
         finished = []
         for i, s in enumerate(self._slots):
             p = s.pos
@@ -1195,15 +1433,124 @@ class DecodeEngine:
         for s in finished:
             self._retire(s, synced=True)
 
+    def _observe_paged_step(self, dur: float) -> None:
+        self._ins.count("steps")
+        self._ins.observe("step_seconds", dur)
+        # under paging the occupancy signal is page-pool fullness, not
+        # slots/cap: a replica whose pool is exhausted is full even when
+        # its slot count looks low
+        self._ins.observe(
+            "batch_occupancy",
+            self._pool.pages_in_use / max(1, self._pool.usable_pages))
+        self._update_page_gauges()
+
+    # -- one speculative round: the draft proposes, one verify scores ------
+    def _spec_round(self) -> None:
+        """Draft ``spec_k - 1`` proposals with the cheap model, then run
+        ONE target verify program (``spec_k`` chained paged steps) and
+        accept the longest prefix of proposals that match the target's
+        argmax.  Exactness: each verify block is the plain paged step at
+        its position, a proposal is consumed only after it matched, and
+        acceptance is capped at ``spec_k - 1`` so the draft's own KV below
+        the advanced position always holds true tokens.  Rejected verify
+        writes land above the new position and stay masked until a later
+        round overwrites them."""
+        if self._dirty:
+            self._rebuild_buffers()
+        model, draft = self.model, self._draft
+        cap, K = self._cap, self.spec_k
+        live = list(self._slots)
+        last_pos = [s.plen + s.req.max_new - 2 for s in live]
+        k_eff = [max(1, min(K, lp - s.pos + 1))
+                 for s, lp in zip(live, last_pos)]
+        kcaps = [min(ke, K - 1) for ke in k_eff]
+        u = np.zeros((cap, K), dtype=np.int64)
+        proposal = [[False] * K for _ in range(cap)]
+        for i, s in enumerate(live):
+            t = self._token_at(s, s.pos)
+            u[i, 0] = s.last_token if t is None else t
+        _t0 = trace.now() if trace.enabled() else 0
+        t0 = time.perf_counter()
+        # the draft: K - 1 cheap dense steps propose the unknown positions
+        for j in range(1, K):
+            tok = np.zeros((cap, 1), dtype=np.int64)
+            posi = np.zeros((cap, 1), dtype=np.int64)
+            posf = np.zeros((cap, 1), dtype=np.float32)
+            for i, s in enumerate(live):
+                # positions past the budget clamp onto max_len - 1, a row
+                # the mask never reaches (plen + max_new <= max_len)
+                p = min(s.pos + j - 1, model.max_len - 1)
+                tok[i, 0] = u[i, j - 1]
+                posi[i, 0] = p
+                posf[i, 0] = float(p)
+            dlogits, = draft.executor.run(
+                draft.decode_program,
+                feed={"tok": tok, "posi": posi, "pos": posf,
+                      "arange": self._arange},
+                fetch_list=[draft.logits_name],
+                scope=self._draft_scope, return_numpy=True)
+            for i, s in enumerate(live):
+                if j >= k_eff[i]:
+                    continue
+                t = self._token_at(s, s.pos + j)
+                if t is None:
+                    u[i, j] = int(np.argmax(dlogits[i]))
+                    if j < kcaps[i]:
+                        proposal[i][j] = True
+                        self._ins.count("spec_proposed")
+                else:
+                    u[i, j] = t     # prompt replay: the token is forced
+        # verify: ONE target program over all K positions
+        vprog, logit_names = model.verify_program(self._pool_rows, K)
+        widx = np.zeros((cap, K), dtype=np.int64)   # padding -> scratch
+        pos = np.zeros((cap, 1), dtype=np.float32)
+        for i, s in enumerate(live):
+            pos[i, 0] = float(s.pos)
+            for j in range(k_eff[i]):
+                widx[i, j] = self._write_row(s, s.pos + j)
+        louts = model.executor.run(
+            vprog, feed={"toks": u, "widx": widx, "pos": pos,
+                         "arange": self._arange},
+            fetch_list=logit_names, scope=self._scope, return_numpy=True)
+        self._observe_paged_step(time.perf_counter() - t0)
+        if _t0:
+            trace.complete("decode::spec_round", _t0, cat="serving",
+                           args={"cap": cap, "live": len(live), "k": K})
+        finished = []
+        for i, s in enumerate(live):
+            a = 0
+            fin = False
+            for j in range(kcaps[i]):
+                if proposal[i][j]:
+                    # louts[j - 1] is the target's next-token distribution
+                    # after consuming u[j - 1]: the proposal survives only
+                    # if it IS the greedy target token
+                    if int(u[i, j]) != int(np.argmax(louts[j - 1][i])):
+                        break
+                    self._ins.count("spec_accepted")
+                a += 1
+                if s.pos + j >= s.plen - 1:
+                    if self._emit(s, louts[j][i]):
+                        fin = True
+                        break
+            s.pos += a
+            if fin:
+                finished.append(s)
+        if finished:
+            self._sync_rows()
+            for s in finished:
+                self._retire(s, synced=True)
+
     # -- warmup / introspection ---------------------------------------------
     def warmup(self, full: bool = False) -> Dict[str, Any]:
         """Run the decode step once per batch bucket and the prefill
         programs once per prompt bucket (``full=True`` crosses every
         prefill bucket with every batch bucket), so their programs are
         built and their kernels loaded before serving.  Paged engines
-        warm the paged program instead of the dense step; warmup writes
-        land on the scratch page only, and the carried state is restored
-        after."""
+        warm the paged program instead of the dense step (and, with a
+        draft model, the verify program and the draft's dense step);
+        warmup writes land on the scratch page only, and the carried state
+        is restored after."""
         if self._started:
             raise RuntimeError("warmup() must run before the loop starts")
         t0 = time.perf_counter()
@@ -1222,6 +1569,8 @@ class DecodeEngine:
                         "arange": self._arange}
                 model.executor.run(prog, feed=feed, fetch_list=[logits_n],
                                    scope=self._scope, return_numpy=True)
+                if self._draft is not None:
+                    self._warm_speculative(cap)
         else:
             names = (model.k_name, model.v_name)
             saved = [self._scope.find_var(n) for n in names]
@@ -1256,6 +1605,30 @@ class DecodeEngine:
                 "prefill_buckets": list(self.prefill_edges),
                 "seconds": round(time.perf_counter() - t0, 4)}
 
+    def _warm_speculative(self, cap: int) -> None:
+        """One verify program and one draft step at batch bucket ``cap``
+        (the page table already zeroed: every write lands on scratch)."""
+        model, draft, k = self.model, self._draft, self.spec_k
+        vprog, lnames = model.verify_program(self._pool_rows, k)
+        model.executor.run(
+            vprog, feed={"toks": np.zeros((cap, k), np.int64),
+                         "widx": np.zeros((cap, k), np.int64),
+                         "pos": np.ones((cap, 1), np.float32),
+                         "arange": self._arange},
+            fetch_list=lnames, scope=self._scope, return_numpy=True)
+        for nm in (draft.k_name, draft.v_name):
+            self._draft_scope.set_var(nm, torch.zeros(
+                (cap, model.max_len, draft.d_model), dtype=torch.float32,
+                device=draft.executor.device))
+        draft.executor.run(
+            draft.decode_program,
+            feed={"tok": np.zeros((cap, 1), np.int64),
+                  "posi": np.zeros((cap, 1), np.int64),
+                  "pos": np.ones((cap, 1), np.float32),
+                  "arange": self._arange},
+            fetch_list=[draft.logits_name], scope=self._draft_scope,
+            return_numpy=True)
+
     def stats(self) -> Dict[str, Any]:
         out = {
             "name": self.name,
@@ -1278,7 +1651,7 @@ class DecodeEngine:
             out[h] = {k: st[k] for k in
                       ("count", "avg", "p50", "p95", "p99") if k in st}
         if self.paged:
-            out["paged"] = {
+            paged = {
                 "page_size": self.page_size,
                 "pool_pages": self._pool.usable_pages,
                 "kv_pages_in_use": self._pool.pages_in_use,
@@ -1287,7 +1660,17 @@ class DecodeEngine:
                 "prefix_hits": self._ins.counter_value("prefix_hits"),
                 "prefix_evictions":
                     self._ins.counter_value("prefix_evictions"),
+                "prefix_drops": self._ins.counter_value("prefix_drops"),
             }
+            if self._draft is not None:
+                prop = self._ins.counter_value("spec_proposed")
+                acc = self._ins.counter_value("spec_accepted")
+                paged["spec_k"] = self.spec_k
+                paged["spec_proposed"] = prop
+                paged["spec_accepted"] = acc
+                paged["spec_accept_rate"] = (round(acc / prop, 4)
+                                             if prop else None)
+            out["paged"] = paged
         return out
 
 

@@ -752,8 +752,16 @@ def test_close_drains_queued_and_live_requests(fused_model):
 
 
 def test_speculative_decoding_is_refused(model):
+    """Speculative decoding is served (tests/test_torch_speculative.py);
+    what stays refused, as in the reference: a draft without the paged
+    pool, and a draft whose window or vocabulary differs."""
     with pytest.raises(ValueError, match="draft_model"):
-        tdecode.DecodeEngine(model, paged=True, draft_model=model)
+        tdecode.DecodeEngine(model, draft_model=model)
+    other = tdecode.build_demo_decode_model(
+        executor=tfluid.Executor(HOST), scope=tfluid.Scope(),
+        **dict(SMALL, vocab=23))
+    with pytest.raises(ValueError, match="share max_len and vocab"):
+        tdecode.DecodeEngine(model, paged=True, draft_model=other)
 
 
 def test_warmup_restores_the_carried_pools(fused_model):

@@ -418,3 +418,33 @@ def test_mixed_dtype_products_promote_as_the_reference(op):
                            None)["Out"][0]
     assert got.dtype == torch.float32 and str(want.dtype) == "float32"
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+# -- 7. clip with an absent bound ----------------------------------------------
+@pytest.mark.parametrize("attrs", [{}, {"min": -0.5}, {"max": 0.25},
+                                   {"min": -0.5, "max": 0.25}],
+                         ids=("no_bounds", "min_only", "max_only", "both"))
+def test_clip_takes_absent_bounds_as_the_reference(attrs):
+    """The reference lowers ``clip`` to ``jnp.clip(x, min, max)``, which
+    returns X when neither bound is set; the port's ``torch.clamp``
+    raised on that case.  Forward and ``generic_grad`` against the
+    reference's lowering, with each bound present or absent."""
+    from paddle_tpu.ops.registry import get_op as j_get_op
+    from paddle_tpu_torch.ops.registry import get_op as t_get_op
+    from paddle_tpu_torch.ops.registry import LoweringContext
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 6).astype("float32")
+    got = t_get_op("clip").fn({"X": [torch.from_numpy(x)]}, dict(attrs),
+                              LoweringContext())["Out"][0]
+    want = j_get_op("clip").fn({"X": [jnp.asarray(x)]}, dict(attrs),
+                               None)["Out"][0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the gradient passes where the value was not clipped
+    xt = torch.from_numpy(x).requires_grad_(True)
+    g = rng.randn(4, 6).astype("float32")
+    t_get_op("clip").fn({"X": [xt]}, dict(attrs),
+                        LoweringContext())["Out"][0].backward(
+        torch.from_numpy(g))
+    kept = ((x >= attrs.get("min", -np.inf))
+            & (x <= attrs.get("max", np.inf)))
+    np.testing.assert_array_equal(xt.grad.numpy(), g * kept)

@@ -81,7 +81,8 @@ def test_import_leaves_jax_and_reference_out():
               "fluid.proto", "fluid.proto.framework_pb2",
               "fluid.proto_serde", "fluid.op_version_registry",
               "utils.op_version", "inference", "inference.predictor",
-              "inference.aot"):
+              "inference.aot", "fluid.trace", "fluid.flight_recorder",
+              "fluid.goodput", "fluid.metrics_export"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -1636,3 +1636,68 @@ def test_fused_master_reads_unaligned_and_float32_grads(cuda, opt):
             ins["Grad"] = [g.float() for g in ins["Grad"]]
         fused = get_op(f"fused_{opt}").fn(ins, attrs, LoweringContext(cuda))
         _assert_per_param(cuda, opt, ins, attrs, fused)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_verify_program_launches_the_paged_kernel_spec_k_times(cuda, b):
+    """Speculative decode's verify program of spec_k = 4 chained paged
+    steps, after ``fuse_paged_attention``, on the card: one paged-kernel
+    launch a block, and each block's logits ``torch.equal`` to the plain
+    fused paged step at the same position, over the pool the plain steps
+    wrote, at the same batch (so the same products and the same split of
+    the kernel)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.passes import (PassPipeline,
+                                               passes_for_build_strategy)
+    from paddle_tpu_torch.serving import decode
+
+    k, ps, s, d, rows = 4, 16, 128, 128, 16 * 80
+    model = decode.build_demo_decode_model(
+        vocab=97, d_model=d, max_len=s, seed=3, page_size=ps,
+        executor=fluid.Executor(fluid.CUDAPlace(0)), scope=fluid.Scope())
+    bs = fluid.BuildStrategy()
+    bs.fuse_paged_attention = True
+    vprog, vnames = model.verify_program(rows, k)
+    pprog, pname = model.paged_program(rows)
+    for prog, targets in ((vprog, vnames), (pprog, [pname])):
+        PassPipeline(passes_for_build_strategy(bs)).apply(prog,
+                                                          targets=targets)
+    assert [op.type for op in vprog.global_block().ops].count(
+        "paged_attention") == k
+    rng = np.random.RandomState(b)
+    pools = [torch.from_numpy(rng.randn(rows, d).astype("float32")).to(cuda)
+             for _ in range(2)]
+    per = s // ps
+    pages = rng.permutation(rows // ps - 1)[:b * per] + 1
+    pt = torch.from_numpy((pages.reshape(b, per, 1) * ps + np.arange(ps))
+                          .reshape(b, s).astype("int32")).to(cuda)
+    pos = rng.randint(1, s - k, (b, 1)).astype("float32")
+    toks = rng.randint(0, 97, (b, k)).astype("int64")
+    ptc = pt.cpu().numpy()
+    widx = np.stack([ptc[i, int(pos[i, 0]):int(pos[i, 0]) + k]
+                     for i in range(b)]).astype("int64")
+    ar = np.arange(s, dtype="float32")[None, :]
+
+    def scope():
+        sc = fluid.Scope(parent=model.scope)
+        sc.set_var("k_pool", pools[0].clone())
+        sc.set_var("v_pool", pools[1].clone())
+        sc.set_var("pt", pt)
+        return sc
+
+    vs = scope()
+    torch.cuda.synchronize()
+    before = cuda_kernels.paged_attention.launches
+    got = model.executor.run(vprog, feed={"toks": toks, "widx": widx,
+                                          "pos": pos, "arange": ar},
+                             fetch_list=vnames, scope=vs)
+    assert cuda_kernels.paged_attention.launches - before == k
+    ps_ = scope()
+    for j in range(k):
+        want, = model.executor.run(
+            pprog, feed={"tok": toks[:, j:j + 1], "widx": widx[:, j:j + 1],
+                         "pos": pos + j, "arange": ar},
+            fetch_list=[pname], scope=ps_)
+        assert np.array_equal(got[j], want), j
+    for n in ("k_pool", "v_pool"):
+        assert torch.equal(vs.find_var(n), ps_.find_var(n))
