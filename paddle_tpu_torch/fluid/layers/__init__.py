@@ -1,6 +1,7 @@
 """fluid.layers namespace: the op builders the ported slices and the 2.0
-surface (paddle.tensor, nn.functional) use, the control flow and the
-in-graph learning-rate schedules."""
+surface (paddle.tensor, nn.functional) use, the control flow, the
+in-graph learning-rate schedules, and the recurrent layers with the
+decode framework."""
 from . import tensor
 from . import nn
 from . import loss
@@ -49,7 +50,14 @@ from .control_flow import (cond, while_loop, array_write, array_read,
 from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      strided_slice, shape, rank, unique, scatter_nd_add,
                      scatter_nd, multiplex, shard_index, reverse, dice_loss,
-                     create_parameter, autoincreased_step_counter)
+                     create_parameter, autoincreased_step_counter,
+                     row_conv, beam_search, beam_search_decode,
+                     gather_tree)
+from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
+                  dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
+                  GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,
+                  GreedyEmbeddingHelper, SampleEmbeddingHelper, BasicDecoder,
+                  dynamic_decode, BeamSearchDecoder)
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import (
     exponential_decay, natural_exp_decay, inverse_time_decay,

@@ -133,3 +133,46 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
         "increment", inputs={"X": [counter]}, outputs={"Out": [counter]},
         attrs={"step": float(step)})
     return counter
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """The lookahead convolution over [B, T, D]: a [future_context_size +
+    1, D] filter."""
+    helper = LayerHelper("row_conv")
+    w = helper.create_parameter(param_attr,
+                                [future_context_size + 1, input.shape[-1]],
+                                "float32")
+    out = _one("row_conv", {"X": [input], "Filter": [w]})
+    return getattr(_nn, act)(out) if act else out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """One beam step: (selected ids, selected scores[, parent rows])."""
+    outs = _many("beam_search",
+                 {"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+                  "ids": [ids], "scores": [scores]},
+                 ("selected_ids", "selected_scores", "parent_idx"),
+                 beam_size=beam_size, end_id=end_id, level=level,
+                 is_accumulated=is_accumulated)
+    if return_parent_idx:
+        return (outs["selected_ids"][0], outs["selected_scores"][0],
+                outs["parent_idx"][0])
+    return outs["selected_ids"][0], outs["selected_scores"][0]
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None,
+                       parent_idx=None):
+    """The backtraced sentences [T, B, beam] and their scores."""
+    ins = {"Ids": [ids], "Scores": [scores]}
+    if parent_idx is not None:
+        ins["ParentIdx"] = [parent_idx]
+    outs = _many("beam_search_decode", ins,
+                 ("SentenceIds", "SentenceScores"),
+                 beam_size=beam_size, end_id=end_id)
+    return outs["SentenceIds"][0], outs["SentenceScores"][0]
+
+
+def gather_tree(ids, parents):
+    return _one("gather_tree", {"Ids": [ids], "Parents": [parents]})

@@ -102,22 +102,26 @@ def mean(x, name=None):
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
     """Fully-connected: input [d0..dk, in] -> [d0..dk, size] through a
-    ``mul`` op (mul_op.cc flatten semantics) and a bias add."""
+    ``mul`` op (mul_op.cc flatten semantics) and a bias add; several
+    inputs get a weight each and their products one ``sum``."""
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
-    if len(inputs) != 1:
-        raise NotImplementedError("fc over several inputs needs the `sum` "
-                                  "op, which is not ported yet")
-    inp = inputs[0]
-    in_dim = int(np.prod(inp.shape[num_flatten_dims:]))
-    w = helper.create_parameter(param_attr, [in_dim, size], inp.dtype)
-    pre_bias = helper.create_variable_for_type_inference(dtype=inp.dtype)
-    op = helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
-                          outputs={"Out": [pre_bias]},
-                          attrs={"x_num_col_dims": num_flatten_dims,
-                                 "y_num_col_dims": 1})
-    # under a tracer the bias adds to the traced product
-    pre_bias = _out(op, "Out", pre_bias)
+    outs = []
+    for inp in inputs:
+        in_dim = int(np.prod(inp.shape[num_flatten_dims:]))
+        w = helper.create_parameter(param_attr, [in_dim, size], inp.dtype)
+        tmp = helper.create_variable_for_type_inference(dtype=inp.dtype)
+        op = helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
+                              outputs={"Out": [tmp]},
+                              attrs={"x_num_col_dims": num_flatten_dims,
+                                     "y_num_col_dims": 1})
+        # under a tracer the bias adds to the traced product
+        outs.append(_out(op, "Out", tmp))
+    if len(outs) > 1:
+        from .tensor import sums
+        pre_bias = sums(outs)
+    else:
+        pre_bias = outs[0]
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [size], pre_bias.dtype,
                                     is_bias=True)

@@ -17,7 +17,7 @@ from .layer import (ReLU, GELU, Sigmoid, Tanh, Softmax, LeakyReLU, SiLU,
                     TransformerEncoderLayer, TransformerEncoder,
                     TransformerDecoderLayer, TransformerDecoder, Transformer,
                     LSTM, GRU, SimpleRNN, RNN, BiRNN, SimpleRNNCell,
-                    LSTMCell, GRUCell, Flatten)
+                    LSTMCell, GRUCell, Flatten, RowConv)
 
 Conv2d = Conv2D  # historical alias
 
@@ -25,4 +25,5 @@ from . import initializer   # noqa: E402,F401
 from . import clip          # noqa: E402,F401
 from .clip import (ClipGradByValue, ClipGradByNorm,  # noqa: E402,F401
                    ClipGradByGlobalNorm)
+from . import decode        # noqa: E402,F401
 from . import utils         # noqa: E402,F401

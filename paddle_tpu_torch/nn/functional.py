@@ -426,7 +426,9 @@ def maxout(x, groups, axis=1):
 
 
 def row_conv(x, weight, act=None):
-    _waits("row_conv", "row_conv", 7)
+    out = emit_op("row_conv", "row_conv",
+                  {"X": [x], "Filter": [weight]}, ("Out",), {})["Out"][0]
+    return getattr(L.nn, act)(out) if act else out
 
 
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,

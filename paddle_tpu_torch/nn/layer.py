@@ -685,3 +685,18 @@ class BiRNN(Layer):
         out_b, st_b = self.rnn_bw(inputs, bw_states)
         # both runners give batch-first outputs: features are axis 2
         return L.concat([out_f, out_b], axis=2), (st_f, st_b)
+
+
+class RowConv(Layer):
+    """The lookahead convolution (``row_conv``) over [B, T, num_channels]
+    with a [future_context_size + 1, num_channels] weight."""
+
+    def __init__(self, num_channels, future_context_size, param_attr=None):
+        super().__init__()
+        helper = LayerHelper("row_conv")
+        self.weight = helper.create_parameter(
+            param_attr, [future_context_size + 1, num_channels], None)
+
+    def forward(self, x):
+        from . import functional as F
+        return F.row_conv(x, self.weight)

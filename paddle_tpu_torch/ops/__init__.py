@@ -17,5 +17,7 @@ from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
 from . import ctr_ops         # noqa: F401  fused_embedding_pool
+from . import rnn_ops         # noqa: F401  lstm/gru/cudnn_lstm family
+from . import nlp_ops         # noqa: F401  beam search
 from . import attention       # noqa: F401  fused attention
 from . import cuda_kernels    # noqa: F401  hand-written CUDA kernels

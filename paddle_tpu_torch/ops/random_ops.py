@@ -94,3 +94,16 @@ def _multinomial(ins, attrs, ctx):
     return {"Out": [torch.multinomial(
         x.float(), attrs.get("num_samples", 1),
         replacement=attrs.get("replacement", False), generator=gen)]}
+
+
+@register_op("sampling_id", stateful_rng=True, differentiable=False)
+def _sampling_id(ins, attrs, ctx):
+    """One class id a row drawn from the probabilities along ``X``'s last
+    axis (sampling_id_op.h); the reference draws a categorical over
+    ``log(max(x, 1e-30))``, so a class of probability 0 is never drawn
+    there either."""
+    x = ins["X"][0]
+    gen = ctx.key_for(attrs.get("op_seed", attrs.get("seed", 0) or 0))
+    flat = x.reshape(-1, x.shape[-1]).float()
+    out = torch.multinomial(flat, 1, generator=gen)
+    return {"Out": [out.reshape(x.shape[:-1])]}

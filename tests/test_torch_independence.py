@@ -82,7 +82,8 @@ def test_import_leaves_jax_and_reference_out():
               "fluid.proto_serde", "fluid.op_version_registry",
               "utils.op_version", "inference", "inference.predictor",
               "inference.aot", "fluid.trace", "fluid.flight_recorder",
-              "fluid.goodput", "fluid.metrics_export"):
+              "fluid.goodput", "fluid.metrics_export", "ops.rnn_ops",
+              "ops.nlp_ops", "nn.decode"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

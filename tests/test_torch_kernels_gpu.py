@@ -1701,3 +1701,84 @@ def test_verify_program_launches_the_paged_kernel_spec_k_times(cuda, b):
         assert np.array_equal(got[j], want), j
     for n in ("k_pool", "v_pool"):
         assert torch.equal(vs.find_var(n), ps_.find_var(n))
+
+
+# --- the static RNN tier (phase 4r's paths at a small width) ----------------
+def test_cudnn_lstm_on_the_card_against_the_host(cuda):
+    """The ``cudnn_lstm`` op at two layers on cuDNN against its host loop
+    (``rnn_scan``'s LSTM): outputs and the ``torch.func.vjp`` gradients
+    into the input and the flat W within 1e-4 of each one's largest
+    |value| (the file's float32 tolerance: cuDNN's products sum in
+    another order); on the card the tape's gradients equal
+    ``torch.func``'s bit for bit."""
+    t, b, d, h, n = 6, 3, 5, 8, 2
+    size = sum(4 * h * (d if i == 0 else h) + 4 * h * h + 8 * h
+               for i in range(n))
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn(t, b, d, generator=g), torch.randn(size, generator=g)
+    h0, c0 = torch.randn(n, b, h, generator=g), torch.randn(n, b, h,
+                                                            generator=g)
+    cots = (torch.randn(t, b, h, generator=g),
+            torch.randn(n, b, h, generator=g),
+            torch.randn(n, b, h, generator=g))
+    lowering = get_op("cudnn_lstm").fn
+
+    def run(device):
+        hd, cd = h0.to(device), c0.to(device)
+
+        def f(x, w):
+            o = lowering({"Input": [x], "W": [w], "InitH": [hd],
+                          "InitC": [cd]}, {"num_layers": n, "hidden_size": h},
+                         LoweringContext(device=device))
+            return o["Out"][0], o["LastH"][0], o["LastC"][0]
+        outs, vjp = torch.func.vjp(f, x.to(device), w.to(device))
+        return f, outs, vjp(tuple(c.to(device) for c in cots))
+
+    f, card_outs, card_grads = run(cuda)
+    _, host_outs, host_grads = run("cpu")
+    for got, want in zip(card_outs + card_grads, host_outs + host_grads):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * scale)
+    xl = x.to(cuda).requires_grad_()
+    wl = w.to(cuda).requires_grad_()
+    tape = torch.autograd.grad(f(xl, wl), (xl, wl),
+                               tuple(c.to(cuda) for c in cots))
+    assert all(torch.equal(a, b) for a, b in zip(tape, card_grads))
+
+
+def test_static_ptb_step_launches_each_dropout_kernel_twice(cuda):
+    """A small static PTB program (embedding, dropout, ``layers.lstm``,
+    dropout, fc) trained on the card: each training step launches 4
+    dropouts (two forwards, two backwards from the same seeds) and 2
+    masks, and the loss is finite."""
+    import paddle_tpu_torch.fluid as fluid
+
+    v, hid, n, bsz, t = 100, 32, 2, 4, 35
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        ids = fluid.data("ids", [bsz, t], "int64")
+        lbl = fluid.data("lbl", [bsz, t], "int64")
+        h0 = fluid.data("h0", [n, bsz, hid])
+        emb = L.dropout(L.embedding(ids, [v, hid]), 0.65,
+                        dropout_implementation="upscale_in_train")
+        out, _, _ = L.lstm(L.transpose(emb, [1, 0, 2]), h0, h0, t, hid, n)
+        out = L.dropout(L.transpose(out, [1, 0, 2]), 0.65,
+                        dropout_implementation="upscale_in_train")
+        logits = L.fc(out, v, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(
+            L.reshape(logits, [-1, v]), L.reshape(lbl, [-1, 1])))
+        fluid.optimizer.SGD(learning_rate=1.0).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(0, v, (bsz, t)).astype("int64"),
+            "lbl": rng.randint(0, v, (bsz, t)).astype("int64"),
+            "h0": np.zeros((n, bsz, hid), "float32")}
+    counted = (cuda_kernels.fused_dropout, cuda_kernels.dropout_mask)
+    before = [f.launches for f in counted]
+    got, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == [4, 2]
+    assert np.isfinite(got).all()

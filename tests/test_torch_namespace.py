@@ -64,7 +64,6 @@ MISSING = {
             "PairwiseDistance", "PixelShuffle", "RNNCellBase",
             "SpectralNorm", "SyncBatchNorm", "ThresholdedReLU", "Upsample",
             "UpsamplingBilinear2D", "UpsamplingNearest2D")},
-        "RowConv": 7, "decode": 7,
     },
     "nn.functional": {},
     "tensor": {},
@@ -98,13 +97,6 @@ MISSING = {
             "resize_trilinear", "sampled_softmax_with_cross_entropy",
             "sigmoid_focal_loss", "smooth_l1", "soft_relu", "spectral_norm",
             "teacher_student_sigmoid_loss", "unfold", "warpctc",)},
-        **{n: 7 for n in ("BasicDecoder", "BeamSearchDecoder", "DecodeHelper",
-            "Decoder", "GRUCell", "GreedyEmbeddingHelper", "LSTMCell",
-            "RNNCell", "SampleEmbeddingHelper", "TrainingHelper",
-            "beam_search", "beam_search_decode", "birnn", "dynamic_decode",
-            "dynamic_gru", "dynamic_lstm", "dynamic_lstm_unit",
-            "dynamic_lstmp", "gather_tree", "gru_unit", "lstm", "lstm_unit",
-            "rnn", "row_conv",)},
         **{n: 8 for n in ("add_position_encoding", "affine_channel",
             "anchor_generator", "auc", "bipartite_match", "box_clip",
             "box_coder", "box_decoder_and_assign", "collect_fpn_proposals",

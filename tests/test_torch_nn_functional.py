@@ -67,6 +67,8 @@ A = {
     "dice_in": np.random.RandomState(26).dirichlet(np.ones(3), 4)
     .astype("float32"),
     "dice_lbl": np.array([[0], [2], [1], [2]], "int64"),
+    "rc_x": _rnd(2, 5, 3, seed=28),
+    "rc_w": _rnd(3, 3, seed=29),
 }
 
 # name -> (fn(F, L, *vars), input keys, static too?, input gradient?)
@@ -120,6 +122,8 @@ CASES = {
     "local_response_norm": (lambda F, L, x: F.local_response_norm(x, 3),
                             ["img"], True, True),
     "maxout": (lambda F, L, x: F.maxout(x, 2), ["img"], True, True),
+    "row_conv": (lambda F, L, x, w: F.row_conv(x, w), ["rc_x", "rc_w"], True,
+                 True),
     "assign": (lambda F, L, x: F.assign(x), ["x"], True, True),
     # losses
     "cross_entropy": (lambda F, L, x, l: F.cross_entropy(x, l),
@@ -340,7 +344,6 @@ WAITING = {
     "interpolate": (5, lambda: TF.interpolate(None, scale_factor=2)),
     "upsample": (5, lambda: TF.upsample(None, scale_factor=2)),
     "instance_norm": (5, lambda: TF.instance_norm(None)),
-    "row_conv": (7, lambda: TF.row_conv(None, None)),
     "pixel_shuffle": (8, lambda: TF.pixel_shuffle(None, 2)),
     "grid_sample": (8, lambda: TF.grid_sample(None, None)),
     "affine_grid": (8, lambda: TF.affine_grid(None, [1, 1, 2, 2])),
