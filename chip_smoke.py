@@ -10295,6 +10295,722 @@ def phase_static_rnn(card):
             {"ptb": ptb, "book": book, "beam": beam, "ops": ops})
 
 
+# ---------------------------------------------------------------------------
+# phase 4s: the image layers -- CycleGAN (Zhu et al., ICCV 2017,
+# arXiv:1703.10593, appendix 7.2) trained at the paper's 256x256 width
+# through the dygraph 2.0 loop, its generator as a static program, and
+# every op type of the image layers on the card against the host
+# ---------------------------------------------------------------------------
+# the paper's ResNet generator (c7s1-64, d128, d256, R256 x 9, u128, u64,
+# c7s1-3) and 70x70 PatchGAN (C64-C128-C256-C512) at batch 1 of 256^2
+CYCLEGAN = dict(ngf=64, ndf=64, blocks=9, size=256, batch=1)
+CYCLEGAN_HOST = dict(ngf=8, ndf=8, blocks=2, size=64, batch=1)
+CYCLEGAN_PARAMS = 28_310_408
+CYCLEGAN_LAMBDA = 10.0          # the cycle loss's weight; identity 0.5 of it
+CYCLEGAN_LR, CYCLEGAN_BETA1 = 2e-4, 0.5
+CYCLEGAN_WARMUP, CYCLEGAN_STEPS = 3, 10
+CYCLEGAN_HOST_STEPS = 2
+CYCLEGAN_LOSSES = ("gan", "cycle", "identity", "discriminator")
+IMAGE_CARD_TOL = 1e-4           # (c): of each output's largest |value|
+
+
+def cyclegan_nets(pd, cfg, conv_t=None):
+    """The four CycleGAN networks of ``cfg`` in package ``pd`` (the port,
+    or another package of the same API): generators A->B and B->A
+    (reflection padding, ``InstanceNorm2D``, ReLU, tanh; each u-k layer a
+    3x3 transposed convolution of stride 2 through
+    ``F.conv2d_transpose(..., output_padding=1)`` over parameters the
+    layer makes, ``conv_t`` in its place when given) and the two 70x70
+    PatchGAN discriminators (4x4 kernels, ``InstanceNorm2D`` from C128,
+    LeakyReLU 0.2).  Returns (G_A, G_B, D_A, D_B)."""
+    nn = pd.nn
+    conv_t = conv_t or pd.nn.functional.conv2d_transpose
+
+    class Up(nn.Layer):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.weight = self.create_parameter([cin, cout, 3, 3])
+            self.bias = self.create_parameter([cout], is_bias=True)
+
+        def forward(self, x):
+            return conv_t(x, self.weight, self.bias, stride=2, padding=1,
+                          output_padding=1)
+
+    class Residual(nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.body = nn.Sequential(
+                nn.Pad2D(1, mode="reflect"), nn.Conv2D(c, c, 3),
+                nn.InstanceNorm2D(c), nn.ReLU(),
+                nn.Pad2D(1, mode="reflect"), nn.Conv2D(c, c, 3),
+                nn.InstanceNorm2D(c))
+
+        def forward(self, x):
+            return x + self.body(x)
+
+    def generator():
+        f = cfg["ngf"]
+        layers = [nn.Pad2D(3, mode="reflect"), nn.Conv2D(3, f, 7),
+                  nn.InstanceNorm2D(f), nn.ReLU()]
+        for c in (f, 2 * f):
+            layers += [nn.Conv2D(c, 2 * c, 3, stride=2, padding=1),
+                       nn.InstanceNorm2D(2 * c), nn.ReLU()]
+        layers += [Residual(4 * f) for _ in range(cfg["blocks"])]
+        for c in (4 * f, 2 * f):
+            layers += [Up(c, c // 2), nn.InstanceNorm2D(c // 2), nn.ReLU()]
+        layers += [nn.Pad2D(3, mode="reflect"), nn.Conv2D(f, 3, 7),
+                   nn.Tanh()]
+        return nn.Sequential(*layers)
+
+    def discriminator():
+        f = cfg["ndf"]
+        layers = [nn.Conv2D(3, f, 4, stride=2, padding=1), nn.LeakyReLU(0.2)]
+        for c, stride in ((f, 2), (2 * f, 2), (4 * f, 1)):
+            layers += [nn.Conv2D(c, 2 * c, 4, stride=stride, padding=1),
+                       nn.InstanceNorm2D(2 * c), nn.LeakyReLU(0.2)]
+        layers.append(nn.Conv2D(8 * f, 1, 4, stride=1, padding=1))
+        return nn.Sequential(*layers)
+
+    return generator(), generator(), discriminator(), discriminator()
+
+
+def cyclegan_step(pd, nets, opts, real_a, real_b, grads=None):
+    """One CycleGAN training step under ``pd``'s tracer: the generators'
+    LSGAN, cycle (CYCLEGAN_LAMBDA) and identity (half that) losses
+    through six generator and two discriminator forwards, backward, their
+    Adam step; then the discriminators' loss (real against the detached
+    fakes, halved), backward, their Adam step.  ``grads``, a list, gets
+    the generators' and then the discriminators' gradients as host
+    arrays.  Returns the four losses as tensors."""
+    g_a, g_b, d_a, d_b = nets
+    opt_g, opt_d = opts
+    L = pd.fluid.layers
+    mse, l1 = pd.nn.MSELoss(), pd.nn.L1Loss()
+
+    def lsgan(pred, target):
+        fill = L.ones_like if target else L.zeros_like
+        return mse(pred, fill(pred))
+
+    fake_b, fake_a = g_a(real_a), g_b(real_b)
+    rec_a, rec_b = g_b(fake_b), g_a(fake_a)
+    idt_a, idt_b = g_a(real_b), g_b(real_a)
+    gan = lsgan(d_a(fake_b), True) + lsgan(d_b(fake_a), True)
+    cycle = (l1(rec_a, real_a) + l1(rec_b, real_b)) * CYCLEGAN_LAMBDA
+    idt = (l1(idt_a, real_b) + l1(idt_b, real_a)) * (0.5 * CYCLEGAN_LAMBDA)
+    (gan + cycle + idt).backward()
+    if grads is not None:
+        grads += [np.asarray(p.gradient()) for p in
+                  g_a.parameters() + g_b.parameters()]
+    opt_g.step()
+    opt_g.clear_grad()
+    opt_d.clear_grad()
+    disc = (lsgan(d_a(real_b), True) + lsgan(d_a(fake_b.detach()), False)
+            + lsgan(d_b(real_a), True)
+            + lsgan(d_b(fake_a.detach()), False)) * 0.5
+    disc.backward()
+    if grads is not None:
+        grads += [np.asarray(p.gradient()) for p in
+                  d_a.parameters() + d_b.parameters()]
+    opt_d.step()
+    opt_d.clear_grad()
+    return gan, cycle, idt, disc
+
+
+def cyclegan_optimizers(pd, nets):
+    g_a, g_b, d_a, d_b = nets
+    return tuple(pd.optimizer.Adam(
+        learning_rate=CYCLEGAN_LR, beta1=CYCLEGAN_BETA1, parameters=ps)
+        for ps in (g_a.parameters() + g_b.parameters(),
+                   d_a.parameters() + d_b.parameters()))
+
+
+def cyclegan_images(cfg, seed):
+    """Two images of domains A and B, uniform in [-1, 1] (tanh's range),
+    [batch, 3, size, size] from ``seed``."""
+    rng = np.random.RandomState(seed)
+    shape = (cfg["batch"], 3, cfg["size"], cfg["size"])
+    return (rng.uniform(-1, 1, shape).astype("float32"),
+            rng.uniform(-1, 1, shape).astype("float32"))
+
+
+def cyclegan_generator_program(fluid, cfg, conv_t=None, train=True):
+    """The generator as a static program: ``fluid.layers.pad2d``
+    (reflect), ``conv2d``, ``instance_norm``, ``relu`` and, for each u-k
+    layer, ``conv2d_transpose(output_size=...)`` (``conv_t`` in its place
+    when given), tanh; the loss the mean |G(A) - B|, with ``train`` Adam
+    by ``append_backward``.  Its parameters come in the order of
+    ``cyclegan_nets``'s generator's.  Returns (fake, loss,
+    params_grads)."""
+    L = fluid.layers
+    conv_t = conv_t or L.conv2d_transpose
+    f, size = cfg["ngf"], cfg["size"]
+    real_a = fluid.data("real_a", [cfg["batch"], 3, size, size])
+    real_b = fluid.data("real_b", [cfg["batch"], 3, size, size])
+
+    def conv(x, n, k, stride=1, padding=0, reflect=0):
+        if reflect:
+            x = L.pad2d(x, [reflect] * 4, mode="reflect")
+        return L.conv2d(x, n, k, stride=stride, padding=padding)
+
+    x = L.relu(L.instance_norm(conv(real_a, f, 7, reflect=3)))
+    for c in (2 * f, 4 * f):
+        x = L.relu(L.instance_norm(conv(x, c, 3, 2, 1)))
+    for _ in range(cfg["blocks"]):
+        y = L.relu(L.instance_norm(conv(x, 4 * f, 3, reflect=1)))
+        x = x + L.instance_norm(conv(y, 4 * f, 3, reflect=1))
+    for c, side in ((2 * f, size // 2), (f, size)):
+        x = L.relu(L.instance_norm(conv_t(
+            x, c, output_size=[side, side], filter_size=3, stride=2,
+            padding=1)))
+    fake = L.tanh(conv(x, 3, 7, reflect=3))
+    loss = L.reduce_mean(L.abs(fake - real_b))
+    pg = []
+    if train:
+        _, pg = fluid.optimizer.AdamOptimizer(
+            CYCLEGAN_LR, beta1=CYCLEGAN_BETA1).minimize(loss)
+    return fake, loss, pg
+
+
+def _cyclegan_flops(cfg):
+    """Multiply-adds times 2 of one generator's and one discriminator's
+    convolutions at ``cfg`` (99.1 and 6.3 GFLOP at the paper's width)."""
+    f, s = cfg["ngf"], cfg["size"]
+    macs = [s * s * f * 3 * 49, (s // 2) ** 2 * 2 * f * f * 9,
+            (s // 4) ** 2 * 4 * f * 2 * f * 9]
+    macs += [(s // 4) ** 2 * (4 * f) ** 2 * 9] * (2 * cfg["blocks"])
+    macs += [(s // 4) ** 2 * 4 * f * 2 * f * 9, (s // 2) ** 2 * 2 * f * f * 9,
+             s * s * 3 * f * 49]
+    d, side, dmacs = cfg["ndf"], s // 2, [(s // 2) ** 2 * cfg["ndf"] * 48]
+    for c, stride in ((d, 2), (2 * d, 2), (4 * d, 1)):
+        side = side // stride if stride == 2 else side - 1
+        dmacs.append(side * side * 2 * c * c * 16)
+    dmacs.append((side - 1) ** 2 * 8 * d * 16)
+    return 2 * sum(macs), 2 * sum(dmacs)
+
+
+def _scalar(v):
+    return float(np.asarray(v.numpy()).ravel()[0])
+
+
+def _cyclegan_state(cfg, seed):
+    """The four networks' parameters from ``seed``, made on the host, as
+    numpy state dicts."""
+    import paddle_tpu_torch as pd
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    np.random.seed(seed)
+    with dybase.guard(fluid.CPUPlace()):
+        return [{k: np.asarray(v) for k, v in n.state_dict().items()}
+                for n in cyclegan_nets(pd, cfg)]
+
+
+def _cyclegan_run(place, cfg, state, steps, seed, twin=None, grads=False):
+    """``steps`` CycleGAN steps on ``place`` from ``state`` over the
+    images of ``seed``: each step's four losses, with ``grads`` the first
+    step's gradients, and the networks' parameters after."""
+    import torch
+    import paddle_tpu_torch as pd
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    images = cyclegan_images(cfg, seed)
+    with dybase.guard(place), (twin or contextlib.nullcontext)():
+        device = dybase._dygraph_tracer().device
+        nets = cyclegan_nets(pd, cfg)
+        for net, s in zip(nets, state):
+            interop.layer_from_numpy(net, s)
+        opts = cyclegan_optimizers(pd, nets)
+        real_a, real_b = [dybase.to_variable(torch.from_numpy(x).to(device))
+                          for x in images]
+        losses, first = [], []
+        for i in range(steps):
+            out = cyclegan_step(pd, nets, opts, real_a, real_b,
+                                first if grads and i == 0 else None)
+            losses += [_scalar(v) for v in out]
+        after = [{k: np.asarray(v) for k, v in n.state_dict().items()}
+                 for n in nets]
+    return {"losses": losses, "grads": first, "state": after}
+
+
+@contextlib.contextmanager
+def _reflect_as_edge():
+    """A broken twin: reflection padding repeats the edge instead."""
+    from paddle_tpu_torch.ops import manipulation
+
+    orig = manipulation._pad_axis
+    manipulation._pad_axis = lambda x, dim, lo, hi, mode: orig(
+        x, dim, lo, hi, "edge" if mode == "reflect" else mode)
+    try:
+        yield
+    finally:
+        manipulation._pad_axis = orig
+
+
+@contextlib.contextmanager
+def _extra_row_low():
+    """A broken twin: a transposed convolution's extra output row (its
+    ``output_padding`` or ``output_size`` rows) on the low edge."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    orig = nn_ops._conv_transpose
+    nn_ops._conv_transpose = lambda x, w, s, d, crops, g: orig(
+        x, w, s, d, [(hi, lo) for lo, hi in crops], g)
+    try:
+        yield
+    finally:
+        nn_ops._conv_transpose = orig
+
+
+CYCLEGAN_TWINS = (("reflection-as-edge", _reflect_as_edge),
+                  ("extra-row-low", _extra_row_low))
+
+
+def _twins_report(label, run_twin, host_r, card_r, card):
+    """card_r against host_r, each twin's run against host_r: every
+    criterion's error over its tolerance; fails unless the card passes
+    and each twin misses by 10 times or more."""
+    ok = _image_margins(card_r, host_r)
+    misses = {twin_label: _image_margins(run_twin(twin), host_r)
+              for twin_label, twin in CYCLEGAN_TWINS}
+    fmt = ", ".join
+    _p(f"{label}: card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()) + f"  [{card}]")
+    for twin_label, miss in misses.items():
+        _p(f"{label}: the {twin_label} twin, error / tolerance (must miss "
+           f"by 10 or more): " + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit(f"chip_smoke: {label} on the card disagrees with "
+                         f"the host")
+    if min(max(m.values()) for m in misses.values()) < 10:
+        raise SystemExit(f"chip_smoke: a twin of the {label} card-vs-host "
+                         f"check misses by less than 10 times")
+    return ok, misses
+
+
+def _image_margins(got, want):
+    """``_margins`` (every loss, the first-step gradient's cosine and
+    norm) and, where given, the output to 1e-4 of its largest value."""
+    out = _margins(got, want)
+    if want.get("fake") is not None:
+        out["output"] = float(np.abs(got["fake"] - want["fake"]).max()) / (
+            1e-4 * float(np.abs(want["fake"]).max()))
+    return out
+
+
+def _cyclegan_leg(card):
+    """(a) at CYCLEGAN's width: CYCLEGAN_WARMUP steps, CYCLEGAN_STEPS timed
+    with every counted kernel at 0, profiled; card against host at
+    CYCLEGAN_HOST with its two twins; two 2-step runs at full width from
+    one state bit for bit (a twin with other images must differ).
+    Returns (the launches, the numbers, G_A's state and its output on
+    the first image of A)."""
+    import torch
+    import paddle_tpu_torch as pd
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dybase
+
+    t0 = time.perf_counter()
+    # reproducible training: cuDNN's deterministic algorithms, as the
+    # Executor sets them (the tracer leaves torch's defaults), the fastest
+    # of them by cuDNN's own search: its heuristic alone picked FFT
+    # convolutions here (21,778 kernels and 1,322 ms a step, 98 of its
+    # 269 busy ms in complex gemv, on an H100 80GB HBM3 at 700 W)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = True
+    init = _cyclegan_state(CYCLEGAN, SEED + 70)
+    n_params = sum(v.size for s in init for v in s.values())
+    if n_params != CYCLEGAN_PARAMS:
+        raise SystemExit(f"chip_smoke: CycleGAN has {n_params} parameters, "
+                         f"not {CYCLEGAN_PARAMS}")
+    gf, df = _cyclegan_flops(CYCLEGAN)
+    step_flops = 3 * (6 * gf + 6 * df)
+    with dybase.guard(fluid.CUDAPlace(0)):
+        tracer = dybase._dygraph_tracer()
+        nets = cyclegan_nets(pd, CYCLEGAN)
+        for net, s in zip(nets, init):
+            interop.layer_from_numpy(net, s)
+        opts = cyclegan_optimizers(pd, nets)
+        images = cyclegan_images(CYCLEGAN, SEED + 71)
+        real_a, real_b = [dybase.to_variable(
+            torch.from_numpy(x).to(tracer.device)) for x in images]
+
+        def step():
+            return cyclegan_step(pd, nets, opts, real_a, real_b)
+        _p(f"cyclegan: 2 ResNet generators ({CYCLEGAN['blocks']} blocks, ngf "
+           f"{CYCLEGAN['ngf']}) and 2 PatchGANs (ndf {CYCLEGAN['ndf']}), "
+           f"{n_params} parameters, made on the card in "
+           f"{time.perf_counter() - t0:.1f} s; batch {CYCLEGAN['batch']} of "
+           f"{CYCLEGAN['size']}^2, float32, TF32 "
+           f"{torch.backends.cudnn.allow_tf32}, cuDNN deterministic "
+           f"{torch.backends.cudnn.deterministic}, benchmark "
+           f"{torch.backends.cudnn.benchmark}; Adam lr {CYCLEGAN_LR}, "
+           f"beta1 {CYCLEGAN_BETA1}; {gf / 1e9:.1f} GFLOP a generator "
+           f"forward, {df / 1e9:.2f} a discriminator's, about "
+           f"{step_flops / 1e12:.2f} TFLOP a step")
+        t = time.perf_counter()
+        first = [_scalar(v) for v in step()]
+        for _ in range(CYCLEGAN_WARMUP - 1):
+            step()
+        torch.cuda.synchronize()
+        _p(f"cyclegan: {CYCLEGAN_WARMUP} warm-up steps in "
+           f"{time.perf_counter() - t:.2f} s; first losses "
+           f"{dict(zip(CYCLEGAN_LOSSES, first))}")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out, launches = _counted_run(
+            "the CycleGAN step", lambda: [step() for _ in
+                                          range(CYCLEGAN_STEPS)], {})
+        losses = [[_scalar(v) for v in o] for o in out]
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = wall / CYCLEGAN_STEPS * 1e3
+        images_s = 2 * CYCLEGAN["batch"] / ms * 1e3
+        res = {"ms": ms, "images_s": images_s, "peak_gib": peak,
+               "first": first, "losses": losses, "params": n_params,
+               "step_tflop": step_flops / 1e12}
+        _p(f"cyclegan: {CYCLEGAN_STEPS} steps in {wall:.3f} s: {ms:.2f} "
+           f"ms/step, {images_s:.2f} images/s (one of each domain a "
+           f"step), peak memory {peak:.2f} GiB; last losses "
+           f"{dict(zip(CYCLEGAN_LOSSES, losses[-1]))}; counted launches "
+           f"{launches} (none expected)  [{card}]")
+        if not np.isfinite(losses).all() or not losses[-1][1] < first[1]:
+            raise SystemExit("chip_smoke: the CycleGAN losses are not "
+                             "finite, or the cycle loss did not fall")
+        # one profiled step: thousands of kernels, whose events the
+        # profiler takes seconds to gather
+        iters = 1
+        prof = _profile(lambda: step()[3].numpy(), iters)
+        res["profile"] = prof[:4]
+        _p(f"profile: CycleGAN step: host {prof[0]:.3f} ms/step, device "
+           f"busy {prof[1]:.3f} ms/step ({step_flops / 1e9 / prof[1]:.1f} "
+           f"TFLOP/s of busy time), idle share {prof[2]:.4f}, "
+           f"{prof[3]:g} kernels/step, kernel launches with no device "
+           f"record {PROFILE_LOST['launches']}  [{card}]")
+        _print_classes(prof[4], "step")
+        _print_top_kernels("step", iters)
+        g_a = nets[0]
+        with dybase.no_grad():
+            fake = _host(g_a(real_a).value())
+        g_state = {k: np.asarray(v) for k, v in g_a.state_dict().items()}
+    del nets, opts
+    torch.cuda.empty_cache()
+
+    # card against host at CYCLEGAN_HOST, two steps, two twins
+    t = time.perf_counter()
+    host_init = _cyclegan_state(CYCLEGAN_HOST, SEED + 72)
+    args = (CYCLEGAN_HOST, host_init, CYCLEGAN_HOST_STEPS, SEED + 73)
+    card_r = _cyclegan_run(fluid.CUDAPlace(0), *args, grads=True)
+    host_r = _cyclegan_run(fluid.CPUPlace(), *args, grads=True)
+    res["card_vs_host"] = _twins_report(
+        "cyclegan", lambda twin: _cyclegan_run(fluid.CPUPlace(), *args,
+                                               twin=twin, grads=True),
+        host_r, card_r, card)
+    _p(f"cyclegan: card vs host at ngf {CYCLEGAN_HOST['ngf']}, "
+       f"{CYCLEGAN_HOST['blocks']} blocks, {CYCLEGAN_HOST['size']}^2, "
+       f"{CYCLEGAN_HOST_STEPS} steps in {time.perf_counter() - t:.1f} s: "
+       f"losses card {card_r['losses']}, host {host_r['losses']}")
+
+    # determinism at full width
+    t = time.perf_counter()
+    runs = [_cyclegan_run(fluid.CUDAPlace(0), CYCLEGAN, init, 2, SEED + 74)
+            for _ in range(2)]
+    twin = _cyclegan_run(fluid.CUDAPlace(0), CYCLEGAN, init, 2, SEED + 75)
+
+    def differ(a, b):
+        return sum(not np.array_equal(x[k], y[k])
+                   for x, y in zip(a["state"], b["state"]) for k in x) + \
+            sum(x != y for x, y in zip(a["losses"], b["losses"]))
+    det = {"differ": differ(*runs), "twin_differ": differ(twin, runs[0]),
+           "values": sum(len(s) for s in runs[0]["state"])
+           + len(runs[0]["losses"])}
+    res["determinism"] = det
+    _p(f"cyclegan determinism: two runs of 2 steps at full width from one "
+       f"state, {det['differ']} of {det['values']} parameters and losses "
+       f"differ in any bit; the twin with other images differs in "
+       f"{det['twin_differ']} ({time.perf_counter() - t:.1f} s)  [{card}]")
+    if det["differ"] or not det["twin_differ"]:
+        raise SystemExit("chip_smoke: two CycleGAN runs from one state "
+                         "differ, or the check cannot see its twin")
+    torch.cuda.empty_cache()
+    return launches, res, g_state, (images, fake)
+
+
+def _generator_program(cfg, train):
+    main, startup, (fake, loss, pg), _ = _book_program(
+        cyclegan_generator_program, False, cfg=cfg, train=train)
+    return main, startup, fake, loss, pg
+
+
+def _static_generator_leg(g_state, g_out, card):
+    """(b): the generator program at CYCLEGAN's width with (a)'s G_A's
+    weights (its parameters in creation order), its output against (a)'s
+    generator on the same image within 1e-4 of the largest value, then
+    one Adam step through ``append_backward`` on the Executor (every
+    counted kernel at 0); card against host at CYCLEGAN_HOST over two
+    steps with the two twins.  Returns (the launches, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid, interop
+
+    t0 = time.perf_counter()
+    images, want = g_out
+    place = fluid.CUDAPlace(0)
+    out = {}
+    for train in (False, True):
+        main, startup, fake, loss, pg = _generator_program(CYCLEGAN, train)
+        params = main.global_block().all_parameters()
+        values = list(g_state.values())
+        if [tuple(p.shape) for p in params] != [v.shape for v in values]:
+            raise SystemExit("chip_smoke: the generator program's parameters "
+                             "are not the dygraph generator's")
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        interop.scope_from_numpy({p.name: v for p, v in zip(params, values)},
+                                 scope, place)
+        feed = {"real_a": images[0], "real_b": images[1]}
+        if not train:
+            got = np.asarray(exe.run(main, feed=feed, fetch_list=[fake],
+                                     scope=scope)[0])
+            out["error"] = float(np.abs(got - want).max()) / (
+                1e-4 * float(np.abs(want).max()))
+            continue
+        ops = [op.type for op in main.global_block().ops]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vals, launches = _counted_run(
+            "the static generator step",
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+            {})
+        out["step_ms"] = (time.perf_counter() - t) * 1e3
+        out["loss"] = float(np.asarray(vals[0]))
+        out["generic_grad"] = ops.count("generic_grad")
+        out["ops"] = len(ops)
+    _p(f"static generator: {out['ops']} ops ({out['generic_grad']} "
+       f"generic_grad, pad2d, conv2d, instance_norm, conv2d_transpose with "
+       f"output_size), output against (a)'s generator, error / 1e-4 of the "
+       f"largest |value| (under 1 passes) {out['error']:.3e}; one Adam step "
+       f"{out['step_ms']:.1f} ms (the first, on the card), loss "
+       f"{out['loss']:.5f}; launches {launches} (none expected); "
+       f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    if out["error"] > 1 or not np.isfinite(out["loss"]) \
+            or not out["generic_grad"]:
+        raise SystemExit("chip_smoke: the static generator disagrees with "
+                         "the dygraph one, or its step failed")
+
+    t = time.perf_counter()
+    main, startup, fake, loss, pg = _generator_program(CYCLEGAN_HOST, True)
+    init = _startup_state(main, startup, fluid.CPUPlace())
+    feeds = [dict(zip(("real_a", "real_b"),
+                      cyclegan_images(CYCLEGAN_HOST, SEED + 76)))] * 2
+    fetch = [fake, loss] + [g for _, g in pg]
+
+    def run(p, twin=None):
+        with (twin or contextlib.nullcontext)():
+            outs, _ = _steps(main, main, fetch, init, p, feeds)
+        return {"losses": [float(np.asarray(o[1])) for o in outs],
+                "grads": [np.asarray(g) for g in outs[0][2:]],
+                "fake": np.asarray(outs[0][0])}
+    card_r, host_r = run(fluid.CUDAPlace(0)), run(fluid.CPUPlace())
+    out["card_vs_host"] = _twins_report(
+        "static generator", lambda twin: run(fluid.CPUPlace(), twin), host_r,
+        card_r, card)
+    _p(f"static generator: card vs host at ngf {CYCLEGAN_HOST['ngf']}, "
+       f"{CYCLEGAN_HOST['size']}^2 in {time.perf_counter() - t:.1f} s: "
+       f"losses card {card_r['losses']}, host {host_r['losses']}")
+    return launches, out
+
+
+def _image_op_cases():
+    """(c): every op type of the image layers at a small shape from a
+    seed, the convolutions, pools, pads and interpolations also at a 3-d
+    one: {label: (op, inputs, attrs)}."""
+    rng = np.random.RandomState(SEED + 77)
+
+    def r(*shape):
+        return rng.uniform(-1, 1, shape).astype("float32")
+    x4, x5 = r(2, 4, 7, 6), r(1, 4, 5, 6, 4)
+    ids = np.array([[1], [3], [0]], "int64")
+    cases = {
+        "conv2d_transpose": ({"Input": x4, "Filter": r(4, 3, 3, 3)},
+                             {"strides": [2, 2], "paddings": [1, 1],
+                              "output_padding": [1, 1]}),
+        "conv2d_transpose grouped": (
+            {"Input": x4, "Filter": r(4, 3, 3, 3)},
+            {"strides": [2, 1], "paddings": [1, 0, 2, 1], "groups": 2}),
+        "conv3d": ({"Input": x5, "Filter": r(3, 4, 3, 3, 3)},
+                   {"paddings": [1, 1, 1], "strides": [2, 1, 1]}),
+        "conv3d_transpose": ({"Input": x5, "Filter": r(4, 2, 3, 3, 3)},
+                             {"strides": [2, 2, 2], "paddings": [1, 1, 1],
+                              "output_padding": [1, 1, 1]}),
+        "sync_batch_norm": ({"X": x4, "Scale": r(4), "Bias": r(4),
+                             "Mean": r(4), "Variance": r(4) + 2}, {}),
+        "instance_norm": ({"X": x4, "Scale": r(4), "Bias": r(4)}, {}),
+        "group_norm": ({"X": x5, "Scale": r(4), "Bias": r(4)},
+                       {"groups": 2}),
+        "norm": ({"X": x4}, {"axis": 1}),
+        "nearest_interp": ({"X": x4}, {"out_h": 9, "out_w": 4}),
+        "bilinear_interp": ({"X": x4}, {"out_h": 9, "out_w": 4,
+                                        "align_mode": 0}),
+        "bicubic_interp": ({"X": x4}, {"out_h": 9, "out_w": 4,
+                                       "align_corners": True}),
+        "trilinear_interp": ({"X": x5}, {"out_d": 7, "out_h": 3,
+                                         "out_w": 6}),
+        "grid_sampler": ({"X": x4, "Grid": r(2, 3, 5, 2) * 1.2}, {}),
+        "affine_channel": ({"X": x4, "Scale": r(4), "Bias": r(4)}, {}),
+        "temporal_shift": ({"X": r(6, 4, 3, 3)}, {"seg_num": 3}),
+        "pad2d": ({"X": x4}, {"paddings": [3, 1, 2, 5], "mode": "reflect"}),
+        "pad3d": ({"X": x5}, {"paddings": [1, 2, 0, 3, 2, 1],
+                              "mode": "reflect"}),
+        "pixel_shuffle": ({"X": r(2, 8, 3, 3)}, {"upscale_factor": 2}),
+        "unfold": ({"X": x4}, {"kernel_sizes": [3, 2], "strides": [2, 1],
+                               "paddings": [1, 1, 0, 2]}),
+        "bilinear_tensor_product": ({"X": r(3, 4), "Y": r(3, 5),
+                                     "Weight": r(2, 4, 5), "Bias": r(1, 2)},
+                                    {}),
+        "pool3d": ({"X": x5}, {"pooling_type": "max", "ksize": [2, 3, 2],
+                               "strides": [1, 2, 2], "paddings": [1, 1, 0]}),
+        "pool3d avg": ({"X": x5}, {"pooling_type": "avg", "ksize": [3, 3, 3],
+                                   "strides": [2, 1, 1],
+                                   "paddings": [1, 1, 1]}),
+        "spectral_norm": ({"Weight": r(3, 5, 2), "U": r(3), "V": r(10)},
+                          {"power_iters": 2}),
+        "teacher_student_sigmoid_loss": (
+            {"X": r(4, 1), "Label": np.array([[-0.5], [1.0], [0.0], [-2.0]],
+                                             "float32")}, {}),
+        "max_pool2d_with_index": ({"X": x4}, {"ksize": [2, 3],
+                                              "strides": [2, 2],
+                                              "paddings": [1, 1]}),
+        "cross_entropy": ({"X": np.abs(r(3, 5)) + 0.1, "Label": ids}, {}),
+        "smooth_l1_loss": ({"X": r(3, 4), "Y": r(3, 4)}, {"sigma": 2.0}),
+        "hinge_loss": ({"Logits": r(4, 1), "Labels": (r(4, 1) > 0)
+                        .astype("float32")}, {}),
+        "rank_loss": ({"Label": (r(4, 1) > 0).astype("float32"),
+                       "Left": r(4, 1), "Right": r(4, 1)}, {}),
+        "margin_rank_loss": ({"Label": np.sign(r(4, 1)), "X1": r(4, 1),
+                              "X2": r(4, 1)}, {"margin": 0.2}),
+        "bpr_loss": ({"X": r(3, 5), "Label": ids}, {}),
+        "affine_grid": ({"Theta": r(2, 2, 3)}, {"output_shape": [2, 3, 4, 5]}),
+        "sigmoid_focal_loss": ({"X": r(3, 4), "Label": ids,
+                                "FgNum": np.array([2], "int32")}, {}),
+        "brelu": ({"X": r(3, 4) * 30}, {"t_min": 1.0, "t_max": 20.0}),
+    }
+    return cases
+
+
+def _image_ops_on_the_card(card):
+    """(c) each op type of the image layers on the card against the host:
+    every output within IMAGE_CARD_TOL of its largest |value| (ints
+    equal), and for the differentiable ones every input gradient through
+    ``generic_grad`` from one cotangent; a host twin with the transposed
+    convolution's extra row low must miss; ``dropout_nd`` by its
+    contract, the card's mask equal to the host's (one Philox stream)."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    def run(op, ins, attrs, dev, grad_of=None):
+        ctx = LoweringContext(device=torch.device(dev))
+        t = {k: [torch.from_numpy(np.array(v)).to(dev)]
+             for k, v in ins.items()}
+        if grad_of is None:
+            return get_op(op).fn(t, dict(attrs), ctx)
+        slots, cots = grad_of
+        gins = {"I_" + k: v for k, v in t.items()}
+        gins.update({"G_" + k: [torch.from_numpy(c).to(dev)]
+                     for k, c in cots.items()})
+        return get_op("generic_grad").fn(
+            gins, {"fwd_type": op, "fwd_attrs": dict(attrs),
+                   "grad_slots": slots, "in_slots": list(ins)}, ctx)
+
+    def err(got, want):
+        e = 0.0
+        for slot, vals in want.items():
+            w, g = _host(vals[0]), _host(got[slot][0])
+            if w.dtype.kind == "f":
+                e = max(e, float(np.abs(g - w).max()) / (
+                    IMAGE_CARD_TOL * max(float(np.abs(w).max()), 1e-30)))
+            elif not np.array_equal(g, w):
+                e = float("inf")
+        return e
+
+    worst, rng = {}, np.random.RandomState(SEED + 78)
+    covered = set()
+    for label, (ins, attrs) in _image_op_cases().items():
+        op = label.split()[0]
+        covered.add(op)
+        host = run(op, ins, attrs, "cpu")
+        e = err(run(op, ins, attrs, DEVICE), host)
+        opdef = get_op(op)
+        if opdef.differentiable:
+            slots = [k for k, v in ins.items() if k not in
+                     opdef.nondiff_inputs and np.asarray(v).dtype.kind == "f"]
+            cots = {k: rng.randn(*_host(v[0]).shape).astype("float32")
+                    for k, v in host.items() if k not in opdef.nondiff_outputs
+                    and _host(v[0]).dtype.kind == "f"}
+            e = max(e, err(run(op, ins, attrs, DEVICE, (slots, cots)),
+                           run(op, ins, attrs, "cpu", (slots, cots))))
+        worst[label] = e
+    ins, attrs = _image_op_cases()["conv2d_transpose"]
+    card_out = run("conv2d_transpose", ins, attrs, DEVICE)
+    with _extra_row_low():
+        twin = err(run("conv2d_transpose", ins, attrs, "cpu"), card_out)
+    # dropout_nd: whole channels, the kept share, Out = X Mask / (1 - p)
+    x = np.random.RandomState(SEED + 79).rand(64, 64, 2, 2) \
+        .astype("float32") + 1.0
+    attrs = {"dropout_prob": 0.3, "axis": [0, 1], "op_seed": 5}
+    ctx = LoweringContext(device=torch.device(DEVICE), base_seed=SEED)
+    d = get_op("dropout_nd").fn({"X": [torch.from_numpy(x).to(DEVICE)]},
+                                attrs, ctx)
+    hd = get_op("dropout_nd").fn(
+        {"X": [torch.from_numpy(x)]}, attrs,
+        LoweringContext(device=torch.device("cpu"), base_seed=SEED))
+    o, m = _host(d["Out"][0]), _host(d["Mask"][0])
+    per = m.reshape(64, 64, -1)
+    kept = float(per[..., 0].mean())
+    contract = bool((per == per[..., :1]).all()
+                    and abs(kept - 0.7) < 6 * np.sqrt(0.21 / per[..., 0].size)
+                    and np.allclose(o, x * m / np.float32(0.7), rtol=1e-6)
+                    and np.array_equal(m, _host(hd["Mask"][0])))
+    covered.add("dropout_nd")
+    _p(f"image-layer op types on the card against the host "
+       f"({len(covered)} types), forward and generic_grad, error / "
+       f"{IMAGE_CARD_TOL} of the largest |value| (under 1 passes): "
+       + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; the extra-row-low twin (must miss) {twin:.3e}; dropout_nd's "
+       f"contract {contract} (kept {kept:.4f} of whole channels, the "
+       f"card's mask the host's)  [{card}]")
+    if max(worst.values()) > 1 or twin <= 10 or not contract:
+        raise SystemExit("chip_smoke: an image-layer op type disagrees with "
+                         "the host on the card")
+    return {"worst": worst, "twin": twin, "dropout_nd_contract": contract,
+            "types": len(covered)}
+
+
+def phase_image_layers(card):
+    """Phase 4s, the image layers: (a) CycleGAN at the paper's width
+    through the dygraph 2.0 loop, timed, profiled, card against host,
+    determinism; (b) its generator as a static program, against (a)'s
+    generator, one Adam step, card against host; (c) every new op type
+    on the card against the host.  Returns the counted launches of (a)'s
+    timed steps and (b)'s step, and the numbers."""
+    import torch
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    t = time.perf_counter()
+    try:
+        launches, cyc, g_state, g_out = _cyclegan_leg(card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    _p(f"phase 4s (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    static_launches, static = _static_generator_leg(g_state, g_out, card)
+    _p(f"phase 4s (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ops = _image_ops_on_the_card(card)
+    _p(f"phase 4s (c): {time.perf_counter() - t:.1f} s")
+    return ({"cyclegan": launches, "static_generator": static_launches},
+            {"cyclegan": cyc, "static_generator": static, "ops": ops})
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -10356,6 +11072,8 @@ def main():
         "4k train CTR through BoxPS", phase_train_boxps, card)
     # 4r builds static programs too: before 4e turns dygraph on
     rnn_launches, _ = _timed("4r static RNN tier", phase_static_rnn, card)
+    image_launches, _ = _timed("4s image layers: CycleGAN", phase_image_layers,
+                               card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -10559,6 +11277,11 @@ def main():
     for row in kernels:
         row["static_rnn_launches"] = {leg: c[row["name"]]
                                       for leg, c in rnn_launches.items()}
+    # the image layers (phase 4s): launches over (a)'s timed CycleGAN steps
+    # and (b)'s static generator step (none expected)
+    for row in kernels:
+        row["image_launches"] = {leg: c[row["name"]]
+                                 for leg, c in image_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -8,7 +8,9 @@ from .base import (VarBase, ParamBase, Tracer, guard, enable_dygraph,
 from .layers import Layer, Sequential, LayerList, ParameterList
 from . import nn
 from .nn import (Linear, Embedding, LayerNorm, Dropout, Conv2D, Pool2D,
-                 BatchNorm)
+                 BatchNorm, PRelu, Conv2DTranspose, Conv3D, Conv3DTranspose,
+                 InstanceNorm, GroupNorm, SpectralNorm,
+                 BilinearTensorProduct, Flatten)
 from .functional import functionalize, functional_loss
 from .checkpoint import save_dygraph, load_dygraph
 from .jit import TracedLayer, declarative

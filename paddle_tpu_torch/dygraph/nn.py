@@ -1,9 +1,9 @@
 """Dygraph layer classes (counterpart of ``paddle_tpu/dygraph/nn.py``:
-the four BERT builds from, Linear, Embedding, LayerNorm and Dropout, and
-the three ResNet builds from, Conv2D, Pool2D and BatchNorm).  Each wraps
-the shared ``fluid.layers`` op builders or ``emit_op``, which run eagerly
-through the tracer in dygraph mode.  ``BatchNorm`` is its dygraph branch
-only: the static one waits for its slice (ROADMAP.md)."""
+the four BERT builds from, Linear, Embedding, LayerNorm and Dropout, the
+three ResNet builds from, Conv2D, Pool2D and BatchNorm, and the image
+layers).  Each wraps the shared ``fluid.layers`` op builders or
+``emit_op``, which run eagerly through the tracer in dygraph mode and
+append ops to the current program otherwise."""
 from __future__ import annotations
 
 import math
@@ -101,7 +101,9 @@ class Pool2D(Layer):
 class BatchNorm(Layer):
     """Batch norm over the channel axis; the moving mean and variance are
     buffers (``_mean``, ``_variance``), written back after each call in
-    training (``is_test = not self.training``)."""
+    training (``is_test = not self.training``).  Called while a program
+    is built, it appends the op over parameters seeded from the buffers
+    (``_static_forward``)."""
 
     def __init__(self, num_channels, act=None, is_test=False, momentum=0.9,
                  epsilon=1e-5, param_attr=None, bias_attr=None,
@@ -125,14 +127,43 @@ class BatchNorm(Layer):
         self._use_global_stats = use_global_stats
         self._act = act
 
+    def _static_forward(self, x, attrs):
+        """In a program: the moving statistics become persistable
+        parameters (not trained) seeded from the buffers, made once, and
+        the op writes them back under their own names."""
+        if getattr(self, "_static_stats", None) is None:
+            from ..fluid.initializer import NumpyArrayInitializer
+            from ..fluid.param_attr import ParamAttr
+            helper = LayerHelper("batch_norm")
+            stats = []
+            for buf in (self._mean, self._variance):
+                value = buf._value.detach().cpu().numpy()
+                var = helper.create_parameter(
+                    ParamAttr(initializer=NumpyArrayInitializer(value),
+                              trainable=False), [int(value.shape[0])],
+                    self._dtype)
+                var.stop_gradient = True
+                stats.append(var)
+            self._static_stats = tuple(stats)
+        mean, var = self._static_stats
+        helper = LayerHelper("batch_norm")
+        y = helper.create_variable_for_type_inference()
+        helper.append_op(
+            "batch_norm",
+            inputs={"X": [x], "Scale": [self.weight], "Bias": [self.bias],
+                    "Mean": [mean], "Variance": [var]},
+            outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [var]},
+            attrs=attrs)
+        return y
+
     def forward(self, x):
-        if not in_dygraph_mode():
-            raise NotImplementedError(
-                "dygraph BatchNorm in a static program is not ported yet")
         attrs = {"momentum": self._momentum, "epsilon": self._epsilon,
                  "is_test": not self.training,
                  "data_layout": self._data_layout,
                  "use_global_stats": self._use_global_stats}
+        if not in_dygraph_mode():
+            out = self._static_forward(x, attrs)
+            return getattr(L, self._act)(out) if self._act else out
         outs = _dygraph_tracer().trace_op(
             "batch_norm",
             {"X": [x], "Scale": [self.weight], "Bias": [self.bias],
@@ -216,3 +247,215 @@ class Dropout(Layer):
     def forward(self, x):
         return L.dropout(x, self._p, is_test=not self.training,
                          dropout_implementation=self._impl)
+
+
+# -- the image layers ---------------------------------------------------------
+def _listed(v, n):
+    return [v] * n if isinstance(v, int) else list(v)
+
+
+class _ConvLayer(Layer):
+    """The shared tail of the transposed and 3-d convolution classes: the
+    op with its attrs, the bias on axis 1, the activation."""
+
+    OP = None
+
+    def _make(self, n, num_channels, num_filters, filter_size, stride,
+              padding, dilation, groups, param_attr, bias_attr, act, dtype,
+              transposed):
+        helper = LayerHelper(self.OP)
+        self._attrs = {"strides": _listed(stride, n),
+                       "paddings": _listed(padding, n),
+                       "dilations": _listed(dilation, n), "groups": groups}
+        self._act = act
+        shape = ([num_channels, num_filters // groups] if transposed
+                 else [num_filters, num_channels // groups])
+        self.weight = helper.create_parameter(
+            param_attr, shape + _listed(filter_size, n), dtype)
+        self.bias = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                            is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x):
+        out = emit_op(self.OP, self.OP,
+                      {"Input": [x], "Filter": [self.weight]}, ("Output",),
+                      self._attrs)["Output"][0]
+        if self.bias is not None:
+            out = L.elementwise_add(out, self.bias, axis=1)
+        return getattr(L, self._act)(out) if self._act else out
+
+
+class Conv2DTranspose(_ConvLayer):
+    """Filter ``[num_channels, num_filters/groups, kh, kw]``; ``output_size``
+    sets the output's height and width (rows added on the high edge)."""
+
+    OP = "conv2d_transpose"
+
+    def __init__(self, num_channels, num_filters, filter_size,
+                 output_size=None, padding=0, stride=1, dilation=1,
+                 groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+                 act=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        self._make(2, num_channels, num_filters, filter_size, stride,
+                   padding, dilation, groups, param_attr, bias_attr, act,
+                   dtype, True)
+        if output_size is not None:
+            self._attrs["output_size"] = _listed(output_size, 2)
+
+
+class Conv3D(_ConvLayer):
+    OP = "conv3d"
+
+    def __init__(self, num_channels, num_filters, filter_size, stride=1,
+                 padding=0, dilation=1, groups=1, param_attr=None,
+                 bias_attr=None, use_cudnn=True, act=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        self._make(3, num_channels, num_filters, filter_size, stride,
+                   padding, dilation, groups, param_attr, bias_attr, act,
+                   dtype, False)
+
+
+class Conv3DTranspose(_ConvLayer):
+    OP = "conv3d_transpose"
+
+    def __init__(self, num_channels, num_filters, filter_size,
+                 padding=0, stride=1, dilation=1, groups=1,
+                 param_attr=None, bias_attr=None, use_cudnn=True, act=None,
+                 dtype="float32"):
+        super().__init__(dtype=dtype)
+        self._make(3, num_channels, num_filters, filter_size, stride,
+                   padding, dilation, groups, param_attr, bias_attr, act,
+                   dtype, True)
+
+
+class PRelu(Layer):
+    """One alpha (``all``) or one a channel (``channel``), 0.25 to start."""
+
+    def __init__(self, mode="all", channel=None, input_shape=None,
+                 param_attr=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("prelu")
+        self.weight = helper.create_parameter(
+            param_attr, [1] if mode == "all" else [channel], dtype,
+            default_initializer=ConstantInitializer(0.25))
+        self._mode = mode
+
+    def forward(self, x):
+        return emit_op("prelu", "prelu", {"X": [x], "Alpha": [self.weight]},
+                       ("Out",), {"mode": self._mode})["Out"][0]
+
+
+class InstanceNorm(Layer):
+    def __init__(self, num_channels, epsilon=1e-5, param_attr=None,
+                 bias_attr=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("instance_norm")
+        self.scale = helper.create_parameter(
+            param_attr, [num_channels], dtype,
+            default_initializer=ConstantInitializer(1.0))
+        self.bias = helper.create_parameter(bias_attr, [num_channels],
+                                            dtype, is_bias=True)
+        self._eps = epsilon
+
+    def forward(self, x):
+        return emit_op("instance_norm", "instance_norm",
+                       {"X": [x], "Scale": [self.scale], "Bias": [self.bias]},
+                       ("Y",), {"epsilon": self._eps})["Y"][0]
+
+
+class GroupNorm(Layer):
+    def __init__(self, channels, groups, epsilon=1e-5, param_attr=None,
+                 bias_attr=None, act=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("group_norm")
+        self.weight = helper.create_parameter(
+            param_attr, [channels], dtype,
+            default_initializer=ConstantInitializer(1.0))
+        self.bias = helper.create_parameter(bias_attr, [channels], dtype,
+                                            is_bias=True)
+        self._groups, self._eps, self._act = groups, epsilon, act
+
+    def forward(self, x):
+        out = emit_op("group_norm", "group_norm",
+                      {"X": [x], "Scale": [self.weight],
+                       "Bias": [self.bias]}, ("Y",),
+                      {"groups": self._groups, "epsilon": self._eps})["Y"][0]
+        return getattr(L, self._act)(out) if self._act else out
+
+
+def _power_iteration(wm, u, v, iters, eps):
+    for _ in range(iters):
+        v = wm.t() @ u
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+        u = wm @ v
+        u = u / torch.clamp(torch.linalg.vector_norm(u), min=eps)
+    return u, v
+
+
+class SpectralNorm(Layer):
+    """``weight / σ`` by the ``spectral_norm`` op from the layer's own U
+    and V (N(0, 1), not trained); under a tracer the iterated vectors are
+    written back, so the estimate compounds from call to call as the
+    reference kernel's in-place U and V do."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("spectral_norm")
+        h = int(weight_shape[dim])
+        w = int(np.prod(weight_shape)) // h
+        self.weight_u = helper.create_parameter(
+            None, [h], dtype, default_initializer=NormalInitializer(0., 1.))
+        self.weight_v = helper.create_parameter(
+            None, [w], dtype, default_initializer=NormalInitializer(0., 1.))
+        self.weight_u.stop_gradient = True
+        self.weight_v.stop_gradient = True
+        self._cfg = (dim, power_iters, eps)
+
+    def forward(self, weight):
+        dim, iters, eps = self._cfg
+        out = emit_op("spectral_norm", "spectral_norm",
+                      {"Weight": [weight], "U": [self.weight_u],
+                       "V": [self.weight_v]}, ("Out",),
+                      {"dim": dim, "power_iters": iters, "eps": eps})["Out"][0]
+        if in_dygraph_mode() and iters > 0:
+            with torch.no_grad():
+                wv = getattr(weight, "_value", weight)
+                wm = torch.movedim(wv, dim, 0).reshape(wv.shape[dim], -1)
+                u, v = _power_iteration(wm, self.weight_u._value,
+                                        self.weight_v._value, iters, eps)
+            self.weight_u.set_value(u)
+            self.weight_v.set_value(v)
+        return out
+
+
+class BilinearTensorProduct(Layer):
+    def __init__(self, input1_dim, input2_dim, output_dim, name=None,
+                 act=None, param_attr=None, bias_attr=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("bilinear_tensor_product")
+        self.weight = helper.create_parameter(
+            param_attr, [output_dim, input1_dim, input2_dim], dtype)
+        self.bias = helper.create_parameter(bias_attr, [1, output_dim],
+                                            dtype, is_bias=True)
+        self._act = act
+
+    def forward(self, x, y):
+        out = emit_op("bilinear_tensor_product", "bilinear_tensor_product",
+                      {"X": [x], "Y": [y], "Weight": [self.weight],
+                       "Bias": [self.bias]}, ("Out",), {})["Out"][0]
+        return getattr(L, self._act)(out) if self._act else out
+
+
+class Flatten(Layer):
+    """Axes ``start_axis`` to ``stop_axis`` into one, by a reshape."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self._start, self._stop = start_axis, stop_axis
+
+    def forward(self, x):
+        nd = len(x.shape)
+        start, stop = self._start % nd, self._stop % nd
+        return L.reshape(x, list(x.shape[:start]) + [-1]
+                         + list(x.shape[stop + 1:]))

@@ -19,8 +19,9 @@ from .executor import Executor
 from . import async_pipeline
 from .async_pipeline import AsyncStepRunner, FetchHandle, StepFuture
 from . import initializer
-from .initializer import Constant, Uniform, Normal, Xavier
-from .param_attr import ParamAttr
+from .initializer import (Constant, Uniform, Normal, Xavier, MSRA,
+                          set_global_initializer)
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import layers
 from .layers.tensor import data
 from . import unique_name

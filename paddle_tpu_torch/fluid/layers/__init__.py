@@ -1,7 +1,7 @@
 """fluid.layers namespace: the op builders the ported slices and the 2.0
-surface (paddle.tensor, nn.functional) use, the control flow, the
-in-graph learning-rate schedules, and the recurrent layers with the
-decode framework."""
+surface (paddle.tensor, nn.functional) use, the image layers, the control
+flow, the in-graph learning-rate schedules, and the recurrent layers with
+the decode framework."""
 from . import tensor
 from . import nn
 from . import loss
@@ -10,6 +10,7 @@ from . import sequence_lod
 from . import control_flow
 from . import rnn
 from . import extras
+from . import detection
 
 from .tensor import (data, _to_variable, fill_constant, create_global_var,
                      concat, assign, fill_constant_batch_size_like, sums,
@@ -33,10 +34,13 @@ from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  tan, asin, acos, atan, logsumexp, erf, silu, leaky_relu,
                  elu, selu, softplus, softsign, softshrink, hard_shrink,
                  tanh_shrink, thresholded_relu, hard_swish, hard_sigmoid,
-                 mish, swish, logsigmoid, stanh)
+                 mish, swish, logsigmoid, stanh, brelu, conv2d_transpose,
+                 group_norm, instance_norm, pad2d, relu_, unfold)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost,
-                   log_loss, huber_loss, kldiv_loss, mse_loss)
+                   log_loss, huber_loss, kldiv_loss, mse_loss,
+                   cross_entropy, smooth_l1)
+from .detection import sigmoid_focal_loss
 from .metric_op import accuracy
 from .sequence_lod import sequence_pool
 from .control_flow import (cond, while_loop, array_write, array_read,
@@ -52,7 +56,13 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      scatter_nd, multiplex, shard_index, reverse, dice_loss,
                      create_parameter, autoincreased_step_counter,
                      row_conv, beam_search, beam_search_decode,
-                     gather_tree)
+                     gather_tree, conv3d, pool3d, affine_grid,
+                     grid_sampler, pixel_shuffle, image_resize,
+                     resize_bilinear, resize_nearest, resize_trilinear,
+                     image_resize_short, resize_linear, prelu, soft_relu,
+                     bilinear_tensor_product, spectral_norm, inplace_abn,
+                     bpr_loss, rank_loss, margin_rank_loss,
+                     teacher_student_sigmoid_loss, conv3d_transpose)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

@@ -1,8 +1,14 @@
 """fluid.layers tail (counterpart of ``paddle_tpu/fluid/layers/extras.py``,
-the builders paddle.tensor and nn.functional reach): op-builder sugar
-over the registered lowerings, mode-agnostic through ``emit_op``."""
+the builders paddle.tensor, nn.functional and the image layers reach):
+op-builder sugar over the registered lowerings, mode-agnostic through
+``emit_op``; and the ``conv3d_transpose`` op, which the reference
+registers here."""
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ...ops.registry import register_op
 from ..framework import Variable
 from ..layer_helper import LayerHelper, emit_op
 from . import nn as _nn
@@ -176,3 +182,219 @@ def beam_search_decode(ids, scores, beam_size, end_id, name=None,
 
 def gather_tree(ids, parents):
     return _one("gather_tree", {"Ids": [ids], "Parents": [parents]})
+
+
+# -- the image layers ---------------------------------------------------------
+def _triple(v):
+    return [v] * 3 if isinstance(v, int) else list(v)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           act=None, name=None, data_format="NCDHW"):
+    helper = LayerHelper("conv3d", name=name)
+    w = helper.create_parameter(
+        param_attr, [num_filters, input.shape[1] // groups]
+        + _triple(filter_size), "float32")
+    out = _one("conv3d", {"Input": [input], "Filter": [w]}, "Output",
+               strides=_triple(stride), paddings=_triple(padding),
+               dilations=_triple(dilation), groups=groups)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], "float32",
+                                    is_bias=True)
+        out = _nn.elementwise_add(out, b, axis=1)
+    return getattr(_nn, act)(out) if act else out
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    ks = _triple(pool_size)
+    if global_pooling:
+        ks = list(input.shape[2:])
+        pool_stride, pool_padding = ks, 0
+    return _one("pool3d", {"X": [input]}, pooling_type=pool_type, ksize=ks,
+                strides=_triple(pool_stride),
+                paddings=_triple(pool_padding))
+
+
+def affine_grid(theta, out_shape, name=None):
+    """The shape from a list, or from a Variable (the ``OutputShape``
+    input)."""
+    ins, attrs = {"Theta": [theta]}, {}
+    if isinstance(out_shape, Variable):
+        ins["OutputShape"] = [out_shape]
+    else:
+        attrs["output_shape"] = list(out_shape)
+    return emit_op("affine_grid", "affine_grid", ins, ("Output",),
+                   attrs)["Output"][0]
+
+
+def grid_sampler(x, grid, name=None):
+    return _one("grid_sampler", {"X": [x], "Grid": [grid]}, "Output")
+
+
+def pixel_shuffle(x, upscale_factor):
+    return _one("pixel_shuffle", {"X": [x]}, upscale_factor=upscale_factor)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", align_corners=True,
+                 data_format="NCHW"):
+    """The ``*_interp`` op of ``resample``; ``out_shape`` sets the height
+    and width only (a trilinear resize needs ``scale``), as the
+    reference."""
+    op = {"BILINEAR": "bilinear_interp", "NEAREST": "nearest_interp",
+          "BICUBIC": "bicubic_interp",
+          "TRILINEAR": "trilinear_interp"}[resample.upper()]
+    attrs = {"align_corners": align_corners, "data_layout": data_format}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), \
+            int(out_shape[1])
+    else:
+        attrs["scale"] = scale
+    return _one(op, {"X": [input]}, layer="image_resize", **attrs)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        align_corners)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        align_corners)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     align_corners=True):
+    return image_resize(input, out_shape, scale, name, "TRILINEAR",
+                        align_corners)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """The short side to ``out_short_len``, the long one in proportion
+    (rounded)."""
+    h, w = input.shape[2], input.shape[3]
+    scale = out_short_len / float(min(h, w))
+    return image_resize(input, (int(round(h * scale)),
+                                int(round(w * scale))), resample=resample)
+
+
+def resize_linear(input, out_shape=None, scale=None, name=None,
+                  align_corners=True):
+    """``[N, C, L]`` through the bilinear op at a height of 1."""
+    length = (int(out_shape[0]) if out_shape is not None
+              else int(input.shape[-1] * scale))
+    out = image_resize(_nn.unsqueeze(input, [2]), (1, length),
+                       resample="BILINEAR", align_corners=align_corners)
+    return _nn.squeeze(out, [2])
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """One alpha (``all``) or one a channel of axis 1."""
+    helper = LayerHelper("prelu", name=name)
+    alpha = helper.create_parameter(
+        param_attr, [1 if mode == "all" else x.shape[1]], "float32")
+    return _one("prelu", {"X": [x], "Alpha": [alpha]}, mode=mode)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    """``log(1 + exp(clip(x, -threshold, threshold)))``."""
+    return _nn.log(1.0 + _nn.exp(_nn.clip(x, -threshold, threshold)))
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    w = helper.create_parameter(param_attr,
+                                [size, x.shape[-1], y.shape[-1]], "float32")
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        ins["Bias"] = [helper.create_parameter(bias_attr, [1, size],
+                                               "float32", is_bias=True)]
+    out = _one("bilinear_tensor_product", ins)
+    return getattr(_nn, act)(out) if act else out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight / σ`` with the power iteration's U and V as parameters of
+    their own (Xavier, as the reference creates them)."""
+    helper = LayerHelper("spectral_norm", name=name)
+    h = weight.shape[dim]
+    u = helper.create_parameter(None, [h], "float32")
+    v = helper.create_parameter(None, [int(np.prod(weight.shape)) // h],
+                                "float32")
+    return _one("spectral_norm", {"Weight": [weight], "U": [u], "V": [v]},
+                dim=dim, power_iters=power_iters, eps=eps)
+
+
+def inplace_abn(input, act="identity", **kw):
+    """Batch norm and its activation (in place in the reference's CUDA
+    op only)."""
+    return _nn.batch_norm(input, act=None if act == "identity" else act,
+                          **kw)
+
+
+def bpr_loss(input, label, name=None):
+    return _one("bpr_loss", {"X": [input], "Label": [label]}, "Y")
+
+
+def rank_loss(label, left, right, name=None):
+    return _one("rank_loss",
+                {"Label": [label], "Left": [left], "Right": [right]})
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    return _one("margin_rank_loss",
+                {"Label": [label], "X1": [left], "X2": [right]},
+                margin=margin)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    """The bounds reach the op under their names here; the op reads
+    ``soft_max_{up,low}_threshold`` (2 and -2), as the reference's."""
+    return _one("teacher_student_sigmoid_loss",
+                {"X": [input], "Label": [label]}, "Y",
+                soft_max_up_bound=soft_max_up_bound,
+                soft_max_lower_bound=soft_max_lower_bound)
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ins, attrs, ctx):
+    """The reference's ``lax.conv_transpose`` without ``transpose_kernel``:
+    the stride-dilated input correlated with the filter as it lies (not
+    flipped, unlike ``conv2d_transpose``), padded ``(k_eff - 1 - p,
+    k_eff - 1 - p + output_padding)`` a dim: ``F.conv_transpose3d`` over
+    the spatially flipped filter."""
+    from ...ops.nn_ops import _conv_transpose
+    x, w = ins["Input"][0], ins["Filter"][0]
+    strides = list(attrs.get("strides", [1, 1, 1]))
+    pads = list(attrs.get("paddings", [0, 0, 0]))
+    dil = list(attrs.get("dilations", [1, 1, 1]))
+    opad = attrs.get("output_padding") or [0, 0, 0]
+    crops = [(p, p - o) for p, o in zip(pads, opad)]
+    return {"Output": [_conv_transpose(x, torch.flip(w, (2, 3, 4)), strides,
+                                       dil, crops, attrs.get("groups", 1))]}
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, stride=1, padding=0, dilation=1,
+                     groups=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    """Filter ``[C, num_filters/groups, kd, kh, kw]``, bias on axis 1;
+    the reference reads neither ``output_size`` nor ``dilation`` here."""
+    helper = LayerHelper("conv3d_transpose", name=name)
+    w = helper.create_parameter(
+        param_attr, [input.shape[1], num_filters // groups]
+        + _triple(filter_size), "float32")
+    out = _one("conv3d_transpose", {"Input": [input], "Filter": [w]},
+               "Output", strides=_triple(stride), paddings=_triple(padding),
+               groups=groups)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], "float32",
+                                    is_bias=True)
+        out = _nn.elementwise_add(out, b, axis=1)
+    return getattr(_nn, act)(out) if act else out

@@ -82,3 +82,31 @@ def kldiv_loss(x, target, reduction="mean", name=None):
 def mse_loss(input, label):
     from . import nn
     return nn.reduce_mean(square_error_cost(input, label))
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """Cross entropy of probabilities (a softmax's output)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op("cross_entropy",
+                          inputs={"X": [input], "Label": [label]},
+                          outputs={"Y": [out]},
+                          attrs={"soft_label": soft_label,
+                                 "ignore_index": ignore_index})
+    return op["Y"][0] if in_dygraph_mode() else out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    op = helper.append_op("smooth_l1_loss", inputs=inputs,
+                          outputs={"Out": [out], "Diff": [diff]},
+                          attrs={"sigma": sigma or 1.0})
+    return op["Out"][0] if in_dygraph_mode() else out

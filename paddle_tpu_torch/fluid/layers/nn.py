@@ -587,8 +587,8 @@ _UNARY = [
     "log1p", "rsqrt", "abs", "ceil", "floor", "round", "reciprocal", "sign",
     "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh", "softplus",
     "softsign", "softshrink", "hard_shrink", "hard_sigmoid", "hard_swish",
-    "swish", "mish", "selu", "elu", "leaky_relu", "thresholded_relu",
-    "stanh", "silu", "logsumexp",
+    "swish", "mish", "selu", "elu", "leaky_relu", "brelu",
+    "thresholded_relu", "stanh", "silu", "logsumexp",
 ]
 for _name in _UNARY:
     def _mk(op_type):
@@ -711,3 +711,102 @@ def where(condition, x, y):
                                            "X": [x], "Y": [y]},
                           outputs={"Out": [out]})
     return _out(op, "Out", out)
+
+
+# -- the image layers ---------------------------------------------------------
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """A transposed convolution with a filter ``[C, num_filters/groups,
+    kh, kw]`` and a bias on axis 1.  ``output_size`` reaches the op, which
+    adds the rows it asks for on the high edge (the reference's builder
+    drops it and gives ``(in - 1)·s - 2p + k``)."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    if filter_size is None:
+        raise ValueError("conv2d_transpose needs filter_size")
+    w = helper.create_parameter(
+        param_attr, [input.shape[1], num_filters // groups]
+        + _pair(filter_size), input.dtype)
+    attrs = {"strides": _pair(stride), "paddings": _pair(padding),
+             "dilations": _pair(dilation), "groups": groups}
+    if output_size is not None:
+        attrs["output_size"] = _pair(output_size)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op(
+        "conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]}, attrs=attrs)
+    out = _out(op, "Output", out)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out = helper.append_bias_op(out, b, axis=1)
+    return helper.append_activation(out, act)
+
+
+def _norm_affine(helper, input, param_attr, bias_attr):
+    """The per-channel scale (1) and bias (0) of a norm layer, each left
+    out when its attr is False."""
+    from ..initializer import ConstantInitializer
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, [c], input.dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, [c], input.dtype,
+                                                  is_bias=True)]
+    return inputs
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name)
+    inputs = _norm_affine(helper, input, param_attr, bias_attr)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    m = helper.create_variable_for_type_inference(dtype="float32",
+                                                  stop_gradient=True)
+    v = helper.create_variable_for_type_inference(dtype="float32",
+                                                  stop_gradient=True)
+    op = helper.append_op("group_norm", inputs=inputs,
+                          outputs={"Y": [out], "Mean": [m], "Variance": [v]},
+                          attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(_out(op, "Y", out), act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    inputs = _norm_affine(helper, input, param_attr, bias_attr)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    sm = helper.create_variable_for_type_inference(dtype="float32",
+                                                   stop_gradient=True)
+    sv = helper.create_variable_for_type_inference(dtype="float32",
+                                                   stop_gradient=True)
+    op = helper.append_op("instance_norm", inputs=inputs,
+                          outputs={"Y": [out], "SavedMean": [sm],
+                                   "SavedVariance": [sv]},
+                          attrs={"epsilon": epsilon})
+    return _out(op, "Y", out)
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _single_out("pad2d", input,
+                       {"paddings": list(paddings), "mode": mode,
+                        "pad_value": float(pad_value),
+                        "data_format": data_format})
+
+
+def relu_(x):
+    """relu (in place in the reference's name only)."""
+    return relu(x)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    p = [paddings] * 4 if isinstance(paddings, int) else list(paddings)
+    return _single_out("unfold", x,
+                       {"kernel_sizes": _pair(kernel_sizes),
+                        "strides": _pair(strides), "paddings": p,
+                        "dilations": _pair(dilations)}, out_slot="Y")

@@ -29,3 +29,12 @@ class ParamAttr:
         if attr is False:
             return False
         raise TypeError(f"cannot convert {attr!r} to ParamAttr")
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that carries the weight-norm axis ``dim``; nothing
+    reparameterises the weight from it, in the reference either."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

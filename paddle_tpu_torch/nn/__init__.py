@@ -5,7 +5,7 @@ are listed, each with its ROADMAP queue A item, in
 ``tests/test_torch_namespace.py``."""
 from ..dygraph.layers import Layer, Sequential, LayerList, ParameterList
 from ..dygraph.nn import (Linear, Conv2D, Pool2D, BatchNorm, Embedding,
-                          LayerNorm, Dropout)
+                          LayerNorm, Dropout, PRelu)
 from . import functional
 from .layer import (ReLU, GELU, Sigmoid, Tanh, Softmax, LeakyReLU, SiLU,
                     ELU, SELU, Softplus, Softsign, Softshrink, Hardshrink,
@@ -17,7 +17,19 @@ from .layer import (ReLU, GELU, Sigmoid, Tanh, Softmax, LeakyReLU, SiLU,
                     TransformerEncoderLayer, TransformerEncoder,
                     TransformerDecoderLayer, TransformerDecoder, Transformer,
                     LSTM, GRU, SimpleRNN, RNN, BiRNN, SimpleRNNCell,
-                    LSTMCell, GRUCell, Flatten, RowConv)
+                    LSTMCell, GRUCell, Flatten, RowConv, RNNCellBase,
+                    Conv1D, Conv3D, Conv1DTranspose, Conv2DTranspose,
+                    Conv3DTranspose, MaxPool1D, AvgPool1D, MaxPool3D,
+                    AvgPool3D, AdaptiveAvgPool1D, AdaptiveMaxPool1D,
+                    AdaptiveMaxPool2D, AdaptiveAvgPool3D, AdaptiveMaxPool3D,
+                    BatchNorm1D, BatchNorm3D, GroupNorm, InstanceNorm1D,
+                    InstanceNorm2D, InstanceNorm3D, LocalResponseNorm,
+                    SpectralNorm, SyncBatchNorm, Pad1D, Pad2D, Pad3D,
+                    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D,
+                    PixelShuffle, Dropout2D, Dropout3D, AlphaDropout,
+                    LogSoftmax, ThresholdedReLU, Maxout, Bilinear,
+                    BilinearTensorProduct, BCEWithLogitsLoss,
+                    MarginRankingLoss, CosineSimilarity, PairwiseDistance)
 
 Conv2d = Conv2D  # historical alias
 

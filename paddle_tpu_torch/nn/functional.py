@@ -261,14 +261,33 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1,
     return out
 
 
+def _bias_c(out, bias):
+    return out if bias is None else L.elementwise_add(out, bias, axis=1)
+
+
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1,
            groups=1, data_format="NCDHW"):
-    _waits("conv3d", "conv3d", 5)
+    out = emit_op("conv3d", "conv3d", {"Input": [x], "Filter": [weight]},
+                  ("Output",),
+                  {"strides": _tolist(stride, 3),
+                   "paddings": _tolist(padding, 3),
+                   "dilations": _tolist(dilation, 3),
+                   "groups": groups})["Output"][0]
+    return _bias_c(out, bias)
 
 
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1):
-    _waits("conv2d_transpose", "conv2d_transpose", 5)
+    """``output_padding`` rows go on the high edge (the reference's
+    function drops the argument)."""
+    out = emit_op("conv2d_transpose", "conv2d_transpose",
+                  {"Input": [x], "Filter": [weight]}, ("Output",),
+                  {"strides": _tolist(stride, 2),
+                   "paddings": _tolist(padding, 2),
+                   "dilations": _tolist(dilation, 2), "groups": groups,
+                   "output_padding": _tolist(output_padding, 2)}
+                  )["Output"][0]
+    return _bias_c(out, bias)
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0):
@@ -285,12 +304,20 @@ def avg_pool1d(x, kernel_size, stride=None, padding=0):
     return L.squeeze(out, [2])
 
 
+def _pool3d(x, kind, kernel_size, stride, padding):
+    return emit_op("pool3d", "pool3d", {"X": [x]}, ("Out",),
+                   {"pooling_type": kind,
+                    "ksize": _tolist(kernel_size, 3),
+                    "strides": _tolist(stride or kernel_size, 3),
+                    "paddings": _tolist(padding, 3)})["Out"][0]
+
+
 def max_pool3d(x, kernel_size, stride=None, padding=0):
-    _waits("max_pool3d", "pool3d", 5)
+    return _pool3d(x, "max", kernel_size, stride, padding)
 
 
 def avg_pool3d(x, kernel_size, stride=None, padding=0):
-    _waits("avg_pool3d", "pool3d", 5)
+    return _pool3d(x, "avg", kernel_size, stride, padding)
 
 
 def adaptive_max_pool2d(x, output_size):
@@ -299,25 +326,50 @@ def adaptive_max_pool2d(x, output_size):
 
 # -- vision / sampling -------------------------------------------------------
 def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
-    _waits("pixel_shuffle", "pixel_shuffle", 8)
+    return emit_op("pixel_shuffle", "pixel_shuffle", {"X": [x]}, ("Out",),
+                   {"upscale_factor": upscale_factor,
+                    "data_format": data_format})["Out"][0]
 
 
 def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True):
-    _waits("grid_sample", "grid_sampler", 8)
+    """Bilinear, corners aligned, border values outside (the op reads
+    neither ``mode`` nor ``padding_mode`` nor ``align_corners``)."""
+    return emit_op("grid_sampler", "grid_sampler",
+                   {"X": [x], "Grid": [grid]}, ("Output",),
+                   {"mode": mode, "padding_mode": padding_mode,
+                    "align_corners": align_corners})["Output"][0]
 
 
 def affine_grid(theta, out_shape, align_corners=True):
-    _waits("affine_grid", "affine_grid", 8)
+    return emit_op("affine_grid", "affine_grid", {"Theta": [theta]},
+                   ("Output",),
+                   {"output_shape": list(out_shape),
+                    "align_corners": align_corners})["Output"][0]
 
 
 def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
-    _waits("unfold", "unfold", 8)
+    return emit_op("unfold", "unfold", {"X": [x]}, ("Y",),
+                   {"kernel_sizes": _tolist(kernel_sizes, 2),
+                    "strides": _tolist(strides, 2),
+                    "paddings": _tolist(paddings, 2),
+                    "dilations": _tolist(dilations, 2)})["Y"][0]
 
 
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, data_format="NCHW"):
-    _waits("interpolate", f"{mode}_interp", 5)
+    """The ``{nearest,bilinear,bicubic}_interp`` op at ``align_mode`` 1
+    (the source index ``ratio · k``, not torch's half-pixel one)."""
+    op = {"nearest": "nearest_interp", "bilinear": "bilinear_interp",
+          "bicubic": "bicubic_interp"}[mode]
+    attrs = {"data_layout": data_format, "align_corners": align_corners}
+    if size is not None:
+        attrs["out_h"], attrs["out_w"] = int(size[0]), int(size[1])
+    else:
+        s = (scale_factor if isinstance(scale_factor, (list, tuple))
+             else [scale_factor, scale_factor])
+        attrs["scale"] = [float(v) for v in s]
+    return emit_op("interpolate", op, {"X": [x]}, ("Out",), attrs)["Out"][0]
 
 
 upsample = interpolate
@@ -379,17 +431,38 @@ def assign(x, output=None):
 
 
 def bilinear(x1, x2, weight, bias=None):
-    _waits("bilinear", "bilinear_tensor_product", 8)
+    ins = {"X": [x1], "Y": [x2], "Weight": [weight]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    return emit_op("bilinear", "bilinear_tensor_product", ins,
+                   ("Out",), {})["Out"][0]
 
 
 def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1):
-    _waits("conv1d_transpose", "conv2d_transpose", 5)
+    """``[N, C, L]`` as a transposed conv2d over a height of 1."""
+    out = emit_op("conv2d_transpose", "conv2d_transpose",
+                  {"Input": [L.unsqueeze(x, [2])],
+                   "Filter": [L.unsqueeze(weight, [2])]}, ("Output",),
+                  {"strides": [1] + _tolist(stride, 1),
+                   "paddings": [0] + _tolist(padding, 1),
+                   "dilations": [1] + _tolist(dilation, 1),
+                   "groups": groups,
+                   "output_padding": [0] + _tolist(output_padding, 1)}
+                  )["Output"][0]
+    return _bias_c(L.squeeze(out, [2]), bias)
 
 
 def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1):
-    _waits("conv3d_transpose", "conv3d_transpose", 5)
+    out = emit_op("conv3d_transpose", "conv3d_transpose",
+                  {"Input": [x], "Filter": [weight]}, ("Output",),
+                  {"strides": _tolist(stride, 3),
+                   "paddings": _tolist(padding, 3),
+                   "dilations": _tolist(dilation, 3),
+                   "output_padding": _tolist(output_padding, 3),
+                   "groups": groups})["Output"][0]
+    return _bias_c(out, bias)
 
 
 def diag_embed(input, offset=0, dim1=-2, dim2=-1):
@@ -399,7 +472,15 @@ def diag_embed(input, offset=0, dim1=-2, dim2=-1):
 def instance_norm(x, running_mean=None, running_var=None, weight=None,
                   bias=None, eps=1e-5, momentum=0.9, use_input_stats=True,
                   data_format="NCHW"):
-    _waits("instance_norm", "instance_norm", 5)
+    """Each sample's own statistics; the running ones are not read, as
+    the reference's."""
+    ins = {"X": [x]}
+    if weight is not None:
+        ins["Scale"] = [weight]
+    if bias is not None:
+        ins["Bias"] = [bias]
+    return emit_op("instance_norm", "instance_norm", ins, ("Y",),
+                   {"epsilon": eps})["Y"][0]
 
 
 def local_response_norm(x, size=5, alpha=1e-4, beta=0.75, k=1.0,

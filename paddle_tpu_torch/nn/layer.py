@@ -1,10 +1,13 @@
 """paddle.nn 2.0 layers (counterpart of ``paddle_tpu/nn/layer.py``: the
 activations, the losses ``Model.prepare`` takes, the flatten, pooling
 and batch-norm layers the vision models run, the transformer encoder
-stack BERT runs, the encoder-decoder ``Transformer`` NMT runs, and the
+stack BERT runs, the encoder-decoder ``Transformer`` NMT runs, the
 recurrent layers: ``LSTM``, ``GRU`` and ``SimpleRNN`` over the
 ``rnn_scan`` op, the three cells, and ``RNN`` and ``BiRNN``, which take
-a cell over time step by step).
+a cell over time step by step; and the image layers: the 1-d, 3-d and
+transposed convolutions and pools, the instance, group, spectral,
+local-response and sync norms, padding, upsampling, pixel shuffle and
+the plain losses).
 
 The encoder and decoder layers always emit the fused epilogues:
 ``fused_dropout_add`` for each residual and ``fused_act_dropout`` for the
@@ -21,10 +24,10 @@ import math
 import torch
 
 from ..dygraph.layers import Layer, LayerList
-from ..dygraph.nn import Linear, LayerNorm, BatchNorm
+from ..dygraph.nn import Linear, LayerNorm, BatchNorm, _listed
 from ..fluid import layers as L
 from ..fluid.framework import _dygraph_tracer
-from ..fluid.initializer import ConstantInitializer
+from ..fluid.initializer import ConstantInitializer, NormalInitializer
 from ..fluid.layer_helper import LayerHelper, emit_op
 
 
@@ -165,6 +168,10 @@ class BatchNorm2D(BatchNorm):
         super().__init__(num_features, momentum=momentum, epsilon=epsilon,
                          param_attr=weight_attr, bias_attr=bias_attr,
                          data_layout=data_format)
+
+
+BatchNorm1D = BatchNorm2D
+BatchNorm3D = BatchNorm2D
 
 
 # --- losses ------------------------------------------------------------------
@@ -700,3 +707,495 @@ class RowConv(Layer):
     def forward(self, x):
         from . import functional as F
         return F.row_conv(x, self.weight)
+
+
+RNNCellBase = _CellBase
+
+
+# --- the image layers --------------------------------------------------------
+class _ConvNd(Layer):
+    """``Conv1D`` and ``Conv3D``: filters ``[out, in/groups, k...]`` from
+    He's normal N(0, 2 / fan_in), through ``F.conv1d`` / ``F.conv3d``."""
+
+    ND = 1
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, weight_attr=None,
+                 bias_attr=None):
+        super().__init__()
+        helper = LayerHelper(f"conv{self.ND}d")
+        ks = _listed(kernel_size, self.ND)
+        self._stride, self._padding = stride, padding
+        self._dilation, self._groups = dilation, groups
+        fan_in = (in_channels // groups) * math.prod(ks)
+        self.weight = helper.create_parameter(
+            weight_attr, [out_channels, in_channels // groups] + ks, None,
+            default_initializer=NormalInitializer(
+                0., math.sqrt(2. / fan_in)))
+        self.bias = helper.create_parameter(
+            bias_attr, [out_channels], None, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x):
+        from . import functional as F
+        fn = {1: F.conv1d, 3: F.conv3d}[self.ND]
+        return fn(x, self.weight, self.bias, stride=self._stride,
+                  padding=self._padding, dilation=self._dilation,
+                  groups=self._groups)
+
+
+class Conv1D(_ConvNd):
+    ND = 1
+
+
+class Conv3D(_ConvNd):
+    ND = 3
+
+
+class _ConvTransposeNd(Layer):
+    """Filters ``[in, out/groups, k...]`` (Xavier); no ``output_padding``
+    reaches the op, as in the reference's classes (``F.conv*_transpose``
+    takes one)."""
+
+    ND = 2
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, groups=1, dilation=1, weight_attr=None,
+                 bias_attr=None):
+        super().__init__()
+        helper = LayerHelper(f"conv{self.ND}d_transpose")
+        self._cfg = dict(stride=stride, padding=padding, dilation=dilation,
+                         groups=groups)
+        self.weight = helper.create_parameter(
+            weight_attr, [in_channels, out_channels // groups]
+            + _listed(kernel_size, self.ND), None)
+        self.bias = helper.create_parameter(
+            bias_attr, [out_channels], None, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x):
+        from . import functional as F
+        fn = {1: F.conv1d_transpose, 2: F.conv2d_transpose,
+              3: F.conv3d_transpose}[self.ND]
+        return fn(x, self.weight, self.bias, **self._cfg)
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, groups=1, dilation=1, weight_attr=None,
+                 bias_attr=None, data_format="NCHW"):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, groups, dilation, weight_attr, bias_attr)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    ND = 1
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, groups, dilation, weight_attr, bias_attr)
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    """The reference's class passes no ``dilation`` either."""
+
+    ND = 3
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, groups, 1, weight_attr, bias_attr)
+
+
+class MaxPool1D(Layer):
+    FN = "max_pool1d"
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self._k, self._s, self._p = kernel_size, stride, padding
+
+    def forward(self, x):
+        from . import functional as F
+        return getattr(F, self.FN)(x, self._k, self._s, self._p)
+
+
+class AvgPool1D(MaxPool1D):
+    FN = "avg_pool1d"
+
+
+class MaxPool3D(MaxPool1D):
+    FN = "max_pool3d"
+
+
+class AvgPool3D(MaxPool1D):
+    FN = "avg_pool3d"
+
+
+class _AdaptivePoolNd(Layer):
+    """Uniform bins (the size must divide the input's); ``return_mask``
+    for ``AdaptiveMaxPool2D`` only, the ``max_pool2d_with_index`` op's
+    mask (all zeros, as the reference's)."""
+
+    MODE, ND = "avg", 2
+
+    def __init__(self, output_size, data_format=None, return_mask=False):
+        super().__init__()
+        self._size = output_size
+        self._return_mask = return_mask
+        if return_mask and not (self.MODE == "max" and self.ND == 2):
+            raise NotImplementedError(
+                "return_mask is supported for AdaptiveMaxPool2D only")
+
+    def forward(self, x):
+        from . import functional as F
+        out = getattr(F, f"adaptive_{self.MODE}_pool{self.ND}d")(
+            x, self._size)
+        if not self._return_mask:
+            return out
+        oh, ow = _listed(self._size, 2)
+        k = [x.shape[2] // oh, x.shape[3] // ow]
+        mask = emit_op("max_pool2d_with_index", "max_pool2d_with_index",
+                       {"X": [x]}, ("Out", "Mask"),
+                       {"ksize": k, "strides": k, "paddings": [0, 0],
+                        "adaptive": True})["Mask"][0]
+        return out, mask
+
+
+class AdaptiveAvgPool1D(_AdaptivePoolNd):
+    MODE, ND = "avg", 1
+
+
+class AdaptiveMaxPool1D(_AdaptivePoolNd):
+    MODE, ND = "max", 1
+
+
+class AdaptiveMaxPool2D(_AdaptivePoolNd):
+    MODE, ND = "max", 2
+
+
+class AdaptiveAvgPool3D(_AdaptivePoolNd):
+    MODE, ND = "avg", 3
+
+
+class AdaptiveMaxPool3D(_AdaptivePoolNd):
+    MODE, ND = "max", 3
+
+
+class _AffineNorm(Layer):
+    """A norm layer's per-channel weight (1) and bias (0)."""
+
+    def _affine(self, op, channels, weight_attr, bias_attr):
+        helper = LayerHelper(op)
+        self.weight = helper.create_parameter(
+            weight_attr, [channels], None,
+            default_initializer=ConstantInitializer(1.0))
+        self.bias = helper.create_parameter(bias_attr, [channels], None,
+                                            is_bias=True)
+
+
+class GroupNorm(_AffineNorm):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None):
+        super().__init__()
+        self._affine("group_norm", num_channels, weight_attr, bias_attr)
+        self._groups, self._eps = num_groups, epsilon
+
+    def forward(self, x):
+        return emit_op("group_norm", "group_norm",
+                       {"X": [x], "Scale": [self.weight],
+                        "Bias": [self.bias]}, ("Y",),
+                       {"groups": self._groups, "epsilon": self._eps})["Y"][0]
+
+
+class InstanceNorm2D(_AffineNorm):
+    def __init__(self, num_features, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None):
+        super().__init__()
+        self._affine("instance_norm", num_features, weight_attr, bias_attr)
+        self._eps = epsilon
+
+    def forward(self, x):
+        return emit_op("instance_norm", "instance_norm",
+                       {"X": [x], "Scale": [self.weight],
+                        "Bias": [self.bias]}, ("Y",),
+                       {"epsilon": self._eps})["Y"][0]
+
+
+class InstanceNorm1D(InstanceNorm2D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(num_features, epsilon, weight_attr, bias_attr)
+
+
+class InstanceNorm3D(InstanceNorm1D):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW"):
+        super().__init__()
+        self._cfg = (size, alpha, beta, k)
+
+    def forward(self, x):
+        from . import functional as F
+        return F.local_response_norm(x, *self._cfg)
+
+
+class SpectralNorm(Layer):
+    """``weight / σ`` by the ``spectral_norm`` op from U and V, parameters
+    of the layer (Xavier, as the reference's); they are not written
+    back."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12):
+        super().__init__()
+        helper = LayerHelper("spectral_norm")
+        h = weight_shape[dim]
+        self._cfg = {"dim": dim, "power_iters": power_iters, "eps": eps}
+        self.weight_u = helper.create_parameter(None, [h], None)
+        self.weight_v = helper.create_parameter(
+            None, [math.prod(weight_shape) // h], None)
+
+    def forward(self, weight):
+        return emit_op("spectral_norm", "spectral_norm",
+                       {"Weight": [weight], "U": [self.weight_u],
+                        "V": [self.weight_v]}, ("Out",), self._cfg)["Out"][0]
+
+
+class SyncBatchNorm(BatchNorm2D):
+    """Batch norm whose statistics would be averaged across replicas; in
+    one process it is ``BatchNorm2D`` (the multi-process path is ROADMAP
+    item 10's)."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Each BatchNorm under ``layer`` made a SyncBatchNorm, its
+        parameters, moving statistics, epsilon and momentum carried."""
+        if isinstance(layer, BatchNorm) and not isinstance(layer, cls):
+            new = cls(layer.weight.shape[0],
+                      momentum=getattr(layer, "_momentum", 0.9),
+                      epsilon=getattr(layer, "_epsilon", 1e-5))
+            new.weight, new.bias = layer.weight, layer.bias
+            new._mean, new._variance = layer._mean, layer._variance
+            return new
+        for name, sub in getattr(layer, "_sub_layers", {}).items():
+            layer._sub_layers[name] = cls.convert_sync_batchnorm(sub)
+        return layer
+
+
+class Pad1D(Layer):
+    """``[N, C, L]`` padded ``[left, right]`` through ``pad2d``."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL"):
+        super().__init__()
+        self._pad, self._mode, self._value = _listed(padding, 2), mode, value
+
+    def forward(self, x):
+        out = L.pad2d(L.unsqueeze(x, [2]), paddings=[0, 0] + self._pad,
+                      mode=self._mode, pad_value=self._value)
+        return L.squeeze(out, [2])
+
+
+class Pad2D(Layer):
+    """``padding`` ``[top, bottom, left, right]`` (or one int)."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW"):
+        super().__init__()
+        self._padding = _listed(padding, 4)
+        self._mode, self._value, self._fmt = mode, value, data_format
+
+    def forward(self, x):
+        return L.pad2d(x, self._padding, self._mode, self._value, self._fmt)
+
+
+class Pad3D(Layer):
+    """``padding`` ``[left, right, top, bottom, front, back]``."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW"):
+        super().__init__()
+        self._attrs = {"paddings": _listed(padding, 6), "mode": mode,
+                       "value": value}
+
+    def forward(self, x):
+        return emit_op("pad3d", "pad3d", {"X": [x]}, ("Out",),
+                       self._attrs)["Out"][0]
+
+
+class Upsample(Layer):
+    """The ``*_interp`` op of ``mode`` at ``size`` or one ``scale_factor``
+    (the reference reads neither ``align_corners`` nor ``data_format``
+    here)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, data_format="NCHW"):
+        super().__init__()
+        self._attrs = ({"out_h": size[0], "out_w": size[1]}
+                       if size is not None
+                       else {"scale": float(scale_factor)})
+        self._op = {"nearest": "nearest_interp",
+                    "bilinear": "bilinear_interp",
+                    "bicubic": "bicubic_interp"}[mode]
+
+    def forward(self, x):
+        return emit_op("upsample", self._op, {"X": [x]}, ("Out",),
+                       self._attrs)["Out"][0]
+
+
+class UpsamplingBilinear2D(Layer):
+    MODE = "bilinear"
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__()
+        self._size, self._scale = size, scale_factor
+
+    def forward(self, x):
+        from . import functional as F
+        return F.interpolate(x, size=self._size, scale_factor=self._scale,
+                             mode=self.MODE,
+                             align_corners=self.MODE == "bilinear")
+
+
+class UpsamplingNearest2D(UpsamplingBilinear2D):
+    MODE = "nearest"
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW"):
+        super().__init__()
+        self._factor = upscale_factor
+
+    def forward(self, x):
+        from . import functional as F
+        return F.pixel_shuffle(x, self._factor)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW"):
+        super().__init__()
+        self._p, self._fmt = p, data_format
+
+    def forward(self, x):
+        from . import functional as F
+        return F.dropout2d(x, self._p, training=self.training,
+                           data_format=self._fmt)
+
+
+class Dropout3D(Dropout2D):
+    def __init__(self, p=0.5, data_format="NCDHW"):
+        super().__init__(p, data_format)
+
+    def forward(self, x):
+        from . import functional as F
+        return F.dropout3d(x, self._p, training=self.training,
+                           data_format=self._fmt)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5):
+        super().__init__()
+        self._p = p
+
+    def forward(self, x):
+        from . import functional as F
+        return F.alpha_dropout(x, self._p, training=self.training)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return L.log_softmax(x, axis=self._axis)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0):
+        super().__init__()
+        self._t = threshold
+
+    def forward(self, x):
+        return L.nn.thresholded_relu(x, threshold=self._t)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        from . import functional as F
+        return F.maxout(x, self._groups, self._axis)
+
+
+class Bilinear(Layer):
+    """``out[b, k] = x1[b] · W[k] · x2[b] + bias[k]``."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None):
+        super().__init__()
+        helper = LayerHelper("bilinear")
+        self.weight = helper.create_parameter(
+            weight_attr, [out_features, in1_features, in2_features], None)
+        self.bias = helper.create_parameter(
+            bias_attr, [1, out_features], None, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x1, x2):
+        from . import functional as F
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class BilinearTensorProduct(Bilinear):
+    def __init__(self, input1_dim, input2_dim, output_dim, name=None,
+                 param_attr=None, bias_attr=None):
+        super().__init__(input1_dim, input2_dim, output_dim,
+                         weight_attr=param_attr, bias_attr=bias_attr)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, logit, label):
+        from . import functional as F
+        return F.binary_cross_entropy_with_logits(logit, label,
+                                                  self._reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean"):
+        super().__init__()
+        self._margin, self._reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        from . import functional as F
+        return F.margin_ranking_loss(input, other, label, self._margin,
+                                     self._reduction)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self._axis, self._eps = axis, eps
+
+    def forward(self, x1, x2):
+        from . import functional as F
+        return F.cosine_similarity(x1, x2, self._axis, self._eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False):
+        super().__init__()
+        self._p, self._eps, self._keep = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        from . import functional as F
+        return F.pairwise_distance(x, y, self._p, self._eps, self._keep)

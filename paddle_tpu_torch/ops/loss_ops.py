@@ -235,3 +235,76 @@ def _label_smooth(ins, attrs, ctx):
     if ins.get("PriorDist"):
         return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0]]}
     return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
+
+
+# -- the plain losses of the image layers' slice ------------------------------
+@register_op("cross_entropy", nondiff_inputs=("Label",))
+def _cross_entropy(ins, attrs, ctx):
+    """``-log p[label]`` of probabilities X (clipped at 1e-12), 0 where
+    the label is ``ignore_index``; with ``soft_label`` the label
+    distribution's ``-Σ label · log p``."""
+    x, label = ins["X"][0], ins["Label"][0]
+    if attrs.get("soft_label", False):
+        return {"Y": [-torch.sum(label * torch.log(torch.clamp(x, min=1e-12)),
+                                 dim=-1, keepdim=True)]}
+    lbl = label.to(torch.int64)
+    if lbl.ndim == x.ndim:
+        lbl = lbl.squeeze(-1)
+    lbl = lbl.unsqueeze(-1)
+    ignored = lbl == attrs.get("ignore_index", -100)
+    picked = torch.gather(x, -1, torch.where(ignored, 0, lbl))
+    out = -torch.log(torch.clamp(picked, min=1e-12))
+    return {"Y": [torch.where(ignored, torch.zeros_like(out), out)]}
+
+
+@register_op("smooth_l1_loss",
+             nondiff_inputs=("Y", "InsideWeight", "OutsideWeight"))
+def _smooth_l1(ins, attrs, ctx):
+    """Per-row sums ``[N, 1]`` of ``½σ²d²`` where ``|d| < 1/σ²``, else
+    ``|d| - ½/σ²``, d = (X - Y)·InsideWeight, each term times
+    OutsideWeight."""
+    x, y = ins["X"][0], ins["Y"][0]
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    if ins.get("InsideWeight"):
+        diff = diff * ins["InsideWeight"][0]
+    ad = torch.abs(diff)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ins.get("OutsideWeight"):
+        loss = loss * ins["OutsideWeight"][0]
+    return {"Out": [torch.sum(loss, dim=tuple(range(1, loss.ndim)))
+                    .reshape(-1, 1)], "Diff": [diff]}
+
+
+@register_op("hinge_loss", nondiff_inputs=("Labels",))
+def _hinge(ins, attrs, ctx):
+    logits, labels = ins["Logits"][0], ins["Labels"][0]
+    return {"Loss": [torch.clamp(1.0 - (2.0 * labels - 1.0) * logits,
+                                 min=0.0)]}
+
+
+@register_op("rank_loss", nondiff_inputs=("Label",))
+def _rank_loss(ins, attrs, ctx):
+    d = ins["Left"][0] - ins["Right"][0]
+    return {"Out": [torch.log1p(torch.exp(d)) - ins["Label"][0] * d]}
+
+
+@register_op("margin_rank_loss", nondiff_inputs=("Label",))
+def _margin_rank(ins, attrs, ctx):
+    label, x1, x2 = ins["Label"][0], ins["X1"][0], ins["X2"][0]
+    out = torch.clamp(-label * (x1 - x2) + attrs.get("margin", 0.0), min=0.0)
+    return {"Out": [out], "Activated": [(out > 0).to(x1.dtype)]}
+
+
+@register_op("bpr_loss", nondiff_inputs=("Label",))
+def _bpr(ins, attrs, ctx):
+    """``-Σ_{j ≠ label} log σ(x_label - x_j) / (C - 1)``: the label's own
+    column left out, the mean over the C - 1 negatives."""
+    x, label = ins["X"][0], ins["Label"][0].to(torch.int64)
+    c = x.shape[1]
+    pos = torch.gather(x, 1, label)
+    term = torch.log(torch.sigmoid(pos - x) + 1e-8)
+    is_label = (torch.arange(c, device=x.device)[None, :] == label) \
+        .to(x.dtype)
+    return {"Y": [-(term * (1.0 - is_label)).sum(dim=1, keepdim=True)
+                  / max(c - 1, 1)]}

@@ -496,3 +496,123 @@ register_op("transpose", lambda ins, a, c:
 register_op("rank", lambda ins, a, c: {"Out": [torch.tensor(
     ins["Input"][0].ndim, dtype=torch.int32, device=c.device)]},
     differentiable=False)
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """The source index of each position of one axis padded by (lo, hi):
+    numpy's ``reflect`` (a triangle wave of period ``2(n - 1)``, so pads
+    at or past the side reflect again), ``edge`` (clamped) or ``wrap``
+    (periodic), as ``jnp.pad`` gives them."""
+    j = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or (mode == "reflect" and n == 1):
+        return torch.clamp(j, 0, n - 1)
+    if mode == "wrap":
+        return torch.remainder(j, n)
+    j = torch.remainder(j, 2 * (n - 1))
+    return torch.where(j >= n, 2 * (n - 1) - j, j)
+
+
+def _pad_axis(x, dim, lo, hi, mode):
+    """One axis padded by slices of itself: reflected (``flip``), its edge
+    repeated (``expand``) or wrapped, then concatenated.  Their backward
+    is slicing and sums, deterministic on the card, where torch's own
+    reflect and replicate pads add their gradients by atomics; a pad past
+    what the slices can give gathers by ``_pad_index``."""
+    n = x.shape[dim]
+    if (mode == "reflect" and max(lo, hi) >= n) or \
+            (mode == "wrap" and max(lo, hi) > n):
+        return torch.index_select(x, dim,
+                                  _pad_index(n, lo, hi, mode, x.device))
+    parts = []
+    if lo:
+        if mode == "reflect":
+            parts.append(x.narrow(dim, 1, lo).flip(dim))
+        elif mode == "edge":
+            parts.append(x.narrow(dim, 0, 1).expand(
+                *[lo if d == dim else -1 for d in range(x.ndim)]))
+        else:
+            parts.append(x.narrow(dim, n - lo, lo))
+    parts.append(x)
+    if hi:
+        if mode == "reflect":
+            parts.append(x.narrow(dim, n - 1 - hi, hi).flip(dim))
+        elif mode == "edge":
+            parts.append(x.narrow(dim, n - 1, 1).expand(
+                *[hi if d == dim else -1 for d in range(x.ndim)]))
+        else:
+            parts.append(x.narrow(dim, 0, hi))
+    return torch.cat(parts, dim) if len(parts) > 1 else x
+
+
+def _pad_spatial(x, pads, mode, value):
+    """Pad the trailing ``len(pads)`` axes of x by ``[(lo, hi), ...]``:
+    constant by ``F.pad``, ``reflect``, ``edge`` and ``wrap`` axis by axis
+    (``_pad_axis``)."""
+    if mode == "constant":
+        return torch.nn.functional.pad(
+            x, [v for lo, hi in reversed(pads) for v in (lo, hi)],
+            value=value)
+    first = x.ndim - len(pads)
+    for k, (lo, hi) in enumerate(pads):
+        x = _pad_axis(x, first + k, lo, hi, mode)
+    return x
+
+
+@register_op("pad2d")
+def _pad2d(ins, attrs, ctx):
+    """``paddings`` ``[top, bottom, left, right]`` of NCHW or NHWC,
+    ``constant`` (``pad_value``), ``reflect`` or ``edge``.  A reflect pad
+    at or past the side reflects again, as ``jnp.pad`` does (torch's
+    ``F.pad`` refuses it)."""
+    x = _x(ins)
+    p = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    nhwc = attrs.get("data_format", "NCHW") != "NCHW"
+    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    out = _pad_spatial(xc, [(p[0], p[1]), (p[2], p[3])], mode,
+                       attrs.get("pad_value", 0.0))
+    return {"Out": [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+@register_op("pad3d")
+def _pad3d(ins, attrs, ctx):
+    """``paddings`` ``[left, right, top, bottom, front, back]`` of NCDHW
+    or NDHWC, ``constant`` (``value``), ``reflect``, ``replicate`` or
+    ``circular``."""
+    x = _x(ins)
+    p = attrs["paddings"]
+    ndhwc = attrs.get("data_format", "NCDHW") != "NCDHW"
+    xc = x.permute(0, 4, 1, 2, 3) if ndhwc else x
+    mode = {"constant": "constant", "reflect": "reflect",
+            "replicate": "edge", "circular": "wrap"}[
+        attrs.get("mode", "constant")]
+    out = _pad_spatial(xc, [(p[4], p[5]), (p[2], p[3]), (p[0], p[1])],
+                       mode, attrs.get("value", 0.0))
+    return {"Out": [out.permute(0, 2, 3, 4, 1) if ndhwc else out]}
+
+
+@register_op("pixel_shuffle")
+def _pixel_shuffle(ins, attrs, ctx):
+    """``[N, C·r², H, W]`` to ``[N, C, H·r, W·r]`` (NCHW whatever
+    ``data_format`` says, as the reference)."""
+    x = _x(ins)
+    r = attrs["upscale_factor"]
+    n, c, h, w = x.shape
+    x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return {"Out": [x.reshape(n, c // (r * r), h * r, w * r)]}
+
+
+@register_op("unfold")
+def _unfold(ins, attrs, ctx):
+    """im2col: ``[N, C·kh·kw, L]`` (channel-major columns), ``paddings``
+    ``[top, left, bottom, right]`` or 2 symmetric."""
+    x = _x(ins)
+    pd = list(attrs.get("paddings", [0, 0, 0, 0]))
+    top, left = pd[0], pd[1]
+    bottom = pd[2] if len(pd) > 2 else pd[0]
+    right = pd[3] if len(pd) > 3 else pd[1]
+    x = torch.nn.functional.pad(x, [left, right, top, bottom])
+    return {"Y": [torch.nn.functional.unfold(
+        x, list(attrs["kernel_sizes"]),
+        dilation=list(attrs.get("dilations", [1, 1])),
+        stride=list(attrs.get("strides", [1, 1])))]}

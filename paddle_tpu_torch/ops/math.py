@@ -260,6 +260,8 @@ _unary("leaky_relu", lambda x, a: torch.where(x > 0, x,
                                               a.get("alpha", 0.02) * x))
 _unary("thresholded_relu", lambda x, a: torch.where(
     x > a.get("threshold", 1.0), x, torch.zeros_like(x)))
+_unary("brelu", lambda x, a: torch.clamp(x, a.get("t_min", 0.0),
+                                         a.get("t_max", 24.0)))
 _unary("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
     a.get("scale_a", 0.67) * x))
 _unary("silu", lambda x, a: torch.nn.functional.silu(x))

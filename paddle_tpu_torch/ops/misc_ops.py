@@ -1,7 +1,9 @@
 """Fused compositions and optimizer variants (counterpart of
 ``paddle_tpu/ops/misc_ops.py`` and ``paddle_tpu/ops/fused_extra_ops.py``):
 the two ops the pairwise fusion passes make, each the plain composition
-of its parts, and the ``adamax`` update."""
+of its parts, the ``adamax`` update, and the image layers' stragglers
+(``bilinear_tensor_product``, ``pool3d``, ``spectral_norm``,
+``teacher_student_sigmoid_loss``, ``dropout_nd``)."""
 from __future__ import annotations
 
 import torch
@@ -123,3 +125,100 @@ def _crop_tensor(ins, attrs, ctx):
     shape = [x.shape[i] if s == -1 else s for i, s in enumerate(shape)]
     return {"Out": [x[tuple(slice(o, o + s)
                             for o, s in zip(offsets, shape))]]}
+
+
+# -- the image layers' stragglers ---------------------------------------------
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ins, attrs, ctx):
+    """``out[b, k] = x[b] · W[k] · y[b] (+ bias[k])``, accumulated in at
+    least float32."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out = torch.einsum("bi,kij,bj->bk", x.to(acc), w.to(acc),
+                       y.to(acc)).to(x.dtype)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1)
+    return {"Out": [out]}
+
+
+@register_op("pool3d")
+def _pool3d(ins, attrs, ctx):
+    """Max or average over NCDHW windows with symmetric ``paddings``
+    (-inf for max, 0 for average); the average divides by the whole
+    window, padding included, as the reference's ``reduce_window`` sum
+    does."""
+    x = ins["X"][0]
+    ksize = list(attrs.get("ksize", [2, 2, 2]))
+    strides = list(attrs.get("strides", ksize))
+    pads = list(attrs.get("paddings", [0, 0, 0]))
+    if attrs.get("global_pooling", False):
+        ksize = strides = list(x.shape[2:])
+        pads = [0, 0, 0]
+    flat = [v for p in reversed(pads) for v in (p, p)]
+    if attrs.get("pooling_type", "max") == "max":
+        xp = torch.nn.functional.pad(x, flat, value=float("-inf"))
+        return {"Out": [torch.nn.functional.max_pool3d(xp, ksize, strides)]}
+    summed = torch.nn.functional.avg_pool3d(
+        torch.nn.functional.pad(x, flat), ksize, strides,
+        divisor_override=1)
+    return {"Out": [summed / float(ksize[0] * ksize[1] * ksize[2])]}
+
+
+@register_op("spectral_norm", nondiff_inputs=("U", "V"))
+def _spectral_norm(ins, attrs, ctx):
+    """``Weight / σ``, σ from ``power_iters`` power iterations on
+    ``(U, V)`` over the weight as a matrix of its ``dim`` rows; every
+    norm floored at 1e-12 (the reference reads no ``eps``), and the
+    gradient flows through the iteration as the reference's vjp's does."""
+    w = ins["Weight"][0]
+    u = ins["U"][0].reshape(-1)
+    v = ins["V"][0].reshape(-1)
+    dim = attrs.get("dim", 0)
+    wm = torch.movedim(w, dim, 0).reshape(w.shape[dim], -1)
+    for _ in range(max(attrs.get("power_iters", 1), 0)):
+        v = wm.t() @ u
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+        u = wm @ v
+        u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-12)
+    sigma = u @ wm @ v
+    return {"Out": [w / torch.clamp(sigma, min=1e-12)]}
+
+
+@register_op("teacher_student_sigmoid_loss", nondiff_inputs=("Label",))
+def _ts_sigmoid_loss(ins, attrs, ctx):
+    """CTR distillation: a label below 0 is a teacher's score ``-label``
+    (clipped to the ``soft_max_*_threshold`` range), else the click
+    bit; ``[N, 1]``."""
+    x = ins["X"][0].reshape(-1)
+    label = ins["Label"][0].reshape(-1)
+    lo = attrs.get("soft_max_low_threshold", -2.0)
+    hi = attrs.get("soft_max_up_threshold", 2.0)
+    log1e = torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)
+    hard = log1e - x * (label > 0).to(x.dtype)
+    soft = log1e - x * torch.sigmoid(torch.clamp(-label, lo, hi))
+    return {"Y": [torch.where(label < 0, soft, hard).reshape(-1, 1)]}
+
+
+@register_op("dropout_nd", stateful_rng=True, nondiff_outputs=("Mask",))
+def _dropout_nd(ins, attrs, ctx):
+    """Dropout whose mask is shared along every axis outside ``axis``
+    (whole channels for ``axis=[0, 1]``): the mask of the reduced shape is
+    Philox4x32-10 from the op's seed and its flat index (ROADMAP ground
+    rule 5, the plain version of the dropout kernels' draw; the reference
+    draws ``jax.random.bernoulli``), kept values ``x / (1 - p)``."""
+    from .nn_ops import _op_key, _reference_keep, _threshold_for
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("is_test", False) or ctx.is_test:
+        return {"Out": [x], "Mask": [torch.ones_like(x, dtype=torch.uint8)]}
+    shape = list(x.shape)
+    axis = attrs.get("axis", None)
+    if axis is not None:
+        keep_axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        shape = [s if i in keep_axes else 1 for i, s in enumerate(shape)]
+    k0, k1 = _op_key(attrs, ctx)
+    keep = _reference_keep(shape, k0, k1, _threshold_for(p), x.device)
+    out = torch.where(keep, x / (1 - p), torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+    return {"Out": [out.to(x.dtype)],
+            "Mask": [torch.broadcast_to(keep, x.shape).to(torch.uint8)]}

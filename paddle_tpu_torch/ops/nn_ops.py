@@ -668,3 +668,376 @@ def _maxout(ins, attrs, ctx):
     g = attrs["groups"]
     n, c, h, w = x.shape
     return {"Out": [x.reshape(n, c // g, g, h, w).amax(dim=2)]}
+
+
+# ---------------------------------------------------------------------------
+# the image layers: transposed and 3-d convolutions, the instance, group
+# and sync batch norms, interpolation, sampling grids (library calls and
+# torch index arithmetic; the reference computes them in XLA outside any
+# Pallas kernel)
+# ---------------------------------------------------------------------------
+def _conv_transpose(x, w, strides, dilations, crops, groups):
+    """The reference's transposed convolution: the stride-dilated input
+    correlated with the spatially flipped kernel (``F.conv_transposeNd``
+    is that), then ``(lo, hi)`` of ``crops`` taken off each spatial side
+    of the full output ``(in - 1)·s + k_eff`` (a negative crop pads
+    zeros: those rows see only padding).  One library call when torch's
+    ``padding``/``output_padding`` can say it (a crop ``lo`` at least the
+    high one, by less than the stride), else the full output cropped."""
+    conv = {3: F.conv_transpose1d, 4: F.conv_transpose2d,
+            5: F.conv_transpose3d}[x.dim()]
+    if all(lo >= 0 and 0 <= lo - hi < max(s, d)
+           for (lo, hi), s, d in zip(crops, strides, dilations)):
+        return conv(x, w, stride=strides, padding=[lo for lo, _ in crops],
+                    output_padding=[lo - hi for lo, hi in crops],
+                    groups=groups, dilation=dilations)
+    out = conv(x, w, stride=strides, groups=groups, dilation=dilations)
+    pads = [v for lo, hi in reversed(crops) for v in (-lo, -hi)]
+    return F.pad(out, pads)
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ins, attrs, ctx):
+    """fluid's filter ``[C_in, C_out/groups, kh, kw]`` (torch's layout);
+    ``paddings`` 2 (symmetric) or 4 (``[top, bottom, left, right]``),
+    ``SAME`` (the output ``in · s``, an odd crop's extra row off the high
+    side) or ``VALID``; ``output_size`` (absolute) or ``output_padding``
+    adds rows on the high edge.  NCHW whatever ``data_format`` says, as
+    the reference."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    s = list(attrs.get("strides", [1, 1]))
+    d = list(attrs.get("dilations", [1, 1]))
+    kh = (w.shape[2] - 1) * d[0] + 1
+    kw = (w.shape[3] - 1) * d[1] + 1
+    p = list(attrs.get("paddings", [0, 0]))
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    if algo == "VALID":
+        p = [0, 0, 0, 0]
+    elif algo == "SAME":
+        p = [(kh - s[0]) // 2, (kh - s[0]) - (kh - s[0]) // 2,
+             (kw - s[1]) // 2, (kw - s[1]) - (kw - s[1]) // 2]
+    if len(p) == 2:
+        p = [p[0], p[0], p[1], p[1]]
+    extra = [0, 0]
+    osize, opad = attrs.get("output_size"), attrs.get("output_padding")
+    if osize:
+        dh = (x.shape[2] - 1) * s[0] - p[0] - p[1] + kh
+        dw = (x.shape[3] - 1) * s[1] - p[2] - p[3] + kw
+        extra = [int(osize[0]) - dh, int(osize[1]) - dw]
+    elif opad:
+        extra = [int(opad[0]), int(opad[1])]
+    out = _conv_transpose(x, w, s, d, [(p[0], p[1] - extra[0]),
+                                       (p[2], p[3] - extra[1])],
+                          attrs.get("groups", 1))
+    return {"Output": [out.to(x.dtype)]}
+
+
+def _conv3d_pads(attrs, sizes, ksize, strides, dilations):
+    """The reference's ``_conv_pad`` over three spatial dims."""
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    if algo == "SAME":
+        return _same_pads(sizes, ksize, strides, dilations)
+    if algo == "VALID":
+        return [(0, 0)] * 3
+    p = list(attrs.get("paddings", [0, 0, 0]))
+    if len(p) == 3:
+        return [(v, v) for v in p]
+    if len(p) == 6:
+        return [(p[2 * i], p[2 * i + 1]) for i in range(3)]
+    return [(p[0], p[0])] * 3
+
+
+@register_op("conv3d")
+def _conv3d(ins, attrs, ctx):
+    """``F.conv3d`` over NCDHW (the reference reads no ``data_format``);
+    asymmetric and ``SAME`` padding as an ``F.pad`` first."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    strides = list(attrs.get("strides", [1, 1, 1]))
+    dilations = list(attrs.get("dilations", [1, 1, 1]))
+    pads = _conv3d_pads(attrs, x.shape[2:], w.shape[2:], strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        x = F.pad(x, [v for lo, hi in reversed(pads) for v in (lo, hi)])
+        padding = [0, 0, 0]
+    out = F.conv3d(x, w, stride=strides, padding=padding,
+                   dilation=dilations, groups=attrs.get("groups", 1))
+    return {"Output": [out.to(ins["Input"][0].dtype)]}
+
+
+@register_op("sync_batch_norm",
+             nondiff_inputs=("Mean", "Variance"),
+             nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                              "SavedVariance"))
+def _sync_batch_norm(ins, attrs, ctx):
+    """Batch norm over axis 1 whose statistics would be averaged across
+    the data-parallel replicas; one process holds every row, so they are
+    the local batch's (the multi-process path is ROADMAP item 10's).  It
+    reads neither ``data_layout`` nor ``use_global_stats``, as the
+    reference."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    shape = [1] * x.ndim
+    shape[1] = x.shape[1]
+    if attrs.get("is_test", False) or ctx.is_test:
+        m, v = mean, var
+        mean_out, var_out = mean, var
+    else:
+        m, v = _batch_stats(x.to(torch.float32), ctx,
+                            tuple(i for i in range(x.ndim) if i != 1))
+        mean_out = momentum * mean + (1 - momentum) * m
+        var_out = momentum * var + (1 - momentum) * v
+    inv = torch.rsqrt(v + eps)
+    out = ((x.to(torch.float32) - m.reshape(shape)) * inv.reshape(shape)
+           * scale.reshape(shape) + bias.reshape(shape)).to(x.dtype)
+    return {"Y": [out], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [m], "SavedVariance": [inv]}
+
+
+def _affine(out, ins, c, ndim):
+    shape = (1, c) + (1,) * (ndim - 2)
+    if ins.get("Scale"):
+        out = out * ins["Scale"][0].reshape(shape)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(shape)
+    return out
+
+
+@register_op("instance_norm", nondiff_outputs=("SavedMean", "SavedVariance"))
+def _instance_norm(ins, attrs, ctx):
+    """Each (sample, channel)'s spatial statistics in float32 under any
+    input dtype.  ``SavedMean`` is the mean with every unit axis squeezed
+    (at N = 1 the batch axis goes too) and ``SavedVariance`` the inverse
+    standard deviation, as the reference gives them."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    xf = x.to(_acc(x.dtype))
+    if axes:
+        m = torch.mean(xf, dim=axes, keepdim=True)
+        v = torch.var(xf, dim=axes, keepdim=True, correction=0)
+    else:       # no spatial axis: each value its own mean (torch's
+        m, v = xf, torch.zeros_like(xf)     # dim=() would reduce all)
+    inv = torch.rsqrt(v + eps)
+    out = _affine((xf - m) * inv, ins, x.shape[1], x.ndim)
+    return {"Y": [out.to(x.dtype)], "SavedMean": [torch.squeeze(m)],
+            "SavedVariance": [torch.squeeze(inv)]}
+
+
+@register_op("group_norm", nondiff_outputs=("Mean", "Variance"))
+def _group_norm(ins, attrs, ctx):
+    """Statistics over each group of ``C / groups`` channels and the
+    spatial dims, in float32; ``Variance`` is the variance itself."""
+    x = ins["X"][0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[:2]
+    xg = x.to(_acc(x.dtype)).reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    m = torch.mean(xg, dim=axes, keepdim=True)
+    v = torch.var(xg, dim=axes, keepdim=True, correction=0)
+    out = _affine(((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape), ins,
+                  c, x.ndim)
+    return {"Y": [out.to(x.dtype)], "Mean": [m.reshape(n, g)],
+            "Variance": [v.reshape(n, g)]}
+
+
+register_op("norm", lambda ins, a, c: _l2_normalize(ins, a, c))
+
+
+# -- interpolation: the reference's index arithmetic, in float32 -------------
+def _interp_ratio(i, o, align_corners):
+    if o <= 1:
+        return 0.0
+    return (i - 1) / (o - 1) if align_corners else i / o
+
+
+def _arange(o, device):
+    return torch.arange(o, dtype=torch.float32, device=device)
+
+
+def _interp_axis_idx(r, o, i, align_flag, device):
+    """(lo, hi, frac) source indices of one axis for linear
+    interpolation: ``src = r·(k + ½) - ½`` (align_mode 0) or ``r·k``."""
+    k = _arange(o, device)
+    src = r * (k + 0.5) - 0.5 if align_flag else r * k
+    lo = torch.clamp(torch.floor(src).to(torch.int64), min=0)
+    hi = torch.clamp(lo + 1, max=i - 1)
+    frac = (torch.clamp(src, min=0.0) - lo) if align_flag else r * k - lo
+    return lo, hi, frac
+
+
+def _cubic_weights(r, o, align_corners, device):
+    """Keys' cubic convolution with A = -0.75: the four taps' weights
+    ``[4, o]`` and each output's base source index."""
+    k = _arange(o, device)
+    src = r * k if align_corners else r * (k + 0.5) - 0.5
+    base = torch.floor(src).to(torch.int64)
+    t = src - base
+    a = -0.75
+
+    def cc1(v):
+        return ((a + 2) * v - (a + 3)) * v * v + 1
+
+    def cc2(v):
+        return ((a * v - 5 * a) * v + 8 * a) * v - 4 * a
+    return base, torch.stack([cc2(t + 1.0), cc1(t), cc1(1.0 - t),
+                              cc2(2.0 - t)])
+
+
+def _take(x, dim, idx):
+    return torch.index_select(x, dim, idx)
+
+
+def _out_size(ins, attrs, keys, sizes):
+    """The output's spatial sizes: ``OutSize``, else the ``out_*`` attrs,
+    else the input's times ``scale`` (truncated)."""
+    if ins.get("OutSize"):
+        return [int(v) for v in ins["OutSize"][0].reshape(-1).tolist()]
+    outs = [attrs.get(k, -1) for k in keys]
+    if outs[0] > 0:
+        return outs
+    scale = attrs.get("scale", 1.0)
+    scale = (list(scale) if isinstance(scale, (list, tuple))
+             else [scale] * len(keys))
+    return [int(n * s) for n, s in zip(sizes, scale)]
+
+
+def _interp(ins, attrs, ctx, method):
+    """nearest (``trunc(r·k)``, or ``trunc(r·k + ½)`` with corners),
+    bilinear in the three alignment modes and bicubic, over NCHW or
+    NHWC, gathered along each axis by ``index_select``."""
+    x = ins["X"][0]
+    nhwc = attrs.get("data_layout", "NCHW") == "NHWC"
+    xc = _to_nchw(x, nhwc)
+    h, w = xc.shape[2], xc.shape[3]
+    oh, ow = _out_size(ins, attrs, ("out_h", "out_w"), (h, w))
+    align_corners = attrs.get("align_corners", False)
+    rh = _interp_ratio(h, oh, align_corners)
+    rw = _interp_ratio(w, ow, align_corners)
+    dev = x.device
+    if method == "nearest":
+        off = 0.5 if align_corners else 0.0
+        iy = torch.clamp((rh * _arange(oh, dev) + off).to(torch.int64),
+                         0, h - 1)
+        ix = torch.clamp((rw * _arange(ow, dev) + off).to(torch.int64),
+                         0, w - 1)
+        out = _take(_take(xc, 2, iy), 3, ix)
+    elif method == "bilinear":
+        flag = attrs.get("align_mode", 1) == 0 and not align_corners
+        y0, y1, fy = _interp_axis_idx(rh, oh, h, flag, dev)
+        x0, x1, fx = _interp_axis_idx(rw, ow, w, flag, dev)
+        fy = fy.reshape(1, 1, oh, 1)
+        fx = fx.reshape(1, 1, 1, ow)
+        r0, r1 = _take(xc, 2, y0), _take(xc, 2, y1)
+        out = ((1 - fy) * (1 - fx) * _take(r0, 3, x0)
+               + (1 - fy) * fx * _take(r0, 3, x1)
+               + fy * (1 - fx) * _take(r1, 3, x0)
+               + fy * fx * _take(r1, 3, x1))
+    elif method == "bicubic":
+        by, wy = _cubic_weights(rh, oh, align_corners, dev)
+        bx, wx = _cubic_weights(rw, ow, align_corners, dev)
+        out = 0.0
+        for i in range(4):
+            rows = _take(xc, 2, torch.clamp(by + (i - 1), 0, h - 1))
+            row = 0.0
+            for j in range(4):
+                xx = torch.clamp(bx + (j - 1), 0, w - 1)
+                row = row + wx[j].reshape(1, 1, 1, ow) * _take(rows, 3, xx)
+            out = out + wy[i].reshape(1, 1, oh, 1) * row
+    else:
+        raise ValueError(f"unsupported interpolation method {method!r}")
+    return {"Out": [_from_nchw(out.to(x.dtype), nhwc)]}
+
+
+def _trilinear_interp(ins, attrs, ctx):
+    """Trilinear over NCDHW or NDHWC in bilinear's three alignment
+    modes."""
+    x = ins["X"][0]
+    ndhwc = attrs.get("data_layout", "NCDHW") == "NDHWC"
+    xc = x.permute(0, 4, 1, 2, 3) if ndhwc else x
+    d, h, w = xc.shape[2:]
+    od, oh, ow = _out_size(ins, attrs, ("out_d", "out_h", "out_w"),
+                           (d, h, w))
+    align_corners = attrs.get("align_corners", False)
+    flag = attrs.get("align_mode", 1) == 0 and not align_corners
+    dev = x.device
+    axes = [_interp_axis_idx(_interp_ratio(i, o, align_corners), o, i, flag,
+                             dev) for i, o in ((d, od), (h, oh), (w, ow))]
+    shapes = ((1, 1, od, 1, 1), (1, 1, 1, oh, 1), (1, 1, 1, 1, ow))
+    (d0, d1, fd), (y0, y1, fy), (x0, x1, fx) = [
+        (lo, hi, f.reshape(s)) for (lo, hi, f), s in zip(axes, shapes)]
+    out = 0.0
+    for wd, dd in ((1 - fd, d0), (fd, d1)):
+        plane = _take(xc, 2, dd)
+        for wh, yy in ((1 - fy, y0), (fy, y1)):
+            rows = _take(plane, 3, yy)
+            for ww, xx in ((1 - fx, x0), (fx, x1)):
+                out = out + wd * wh * ww * _take(rows, 4, xx)
+    out = out.to(x.dtype)
+    return {"Out": [out.permute(0, 2, 3, 4, 1) if ndhwc else out]}
+
+
+register_op("nearest_interp", lambda ins, a, c: _interp(ins, a, c, "nearest"),
+            nondiff_inputs=("OutSize",))
+register_op("bilinear_interp",
+            lambda ins, a, c: _interp(ins, a, c, "bilinear"),
+            nondiff_inputs=("OutSize",))
+register_op("bicubic_interp", lambda ins, a, c: _interp(ins, a, c, "bicubic"),
+            nondiff_inputs=("OutSize",))
+register_op("trilinear_interp", _trilinear_interp,
+            nondiff_inputs=("OutSize",))
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ins, attrs, ctx):
+    """Bilinear sampling of NCHW x at ``Grid``'s [-1, 1] points, corners
+    aligned, every tap clamped into the image (so a point outside takes
+    the border's values); the reference reads neither ``mode`` nor
+    ``padding_mode`` nor ``align_corners``."""
+    x, grid = ins["X"][0], ins["Grid"][0]
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0 = torch.floor(gx).to(torch.int64)
+    y0 = torch.floor(gy).to(torch.int64)
+    wx = (gx - x0).unsqueeze(1)
+    wy = (gy - y0).unsqueeze(1)
+    flat = x.reshape(n, c, h * w)
+    gh, gw = grid.shape[1], grid.shape[2]
+
+    def sample(yy, xx):
+        idx = (torch.clamp(yy, 0, h - 1) * w + torch.clamp(xx, 0, w - 1))
+        idx = idx.reshape(n, 1, gh * gw).expand(n, c, gh * gw)
+        return torch.gather(flat, 2, idx).reshape(n, c, gh, gw)
+    out = (sample(y0, x0) * (1 - wx) * (1 - wy)
+           + sample(y0, x0 + 1) * wx * (1 - wy)
+           + sample(y0 + 1, x0) * (1 - wx) * wy
+           + sample(y0 + 1, x0 + 1) * wx * wy)
+    return {"Output": [out]}
+
+
+@register_op("affine_channel")
+def _affine_channel(ins, attrs, ctx):
+    x, s, b = ins["X"][0], ins["Scale"][0], ins["Bias"][0]
+    shape = [1, x.shape[1]] + [1] * (x.ndim - 2)
+    return {"Out": [x * s.reshape(shape) + b.reshape(shape)]}
+
+
+@register_op("temporal_shift")
+def _temporal_shift(ins, attrs, ctx):
+    """TSM's shift of ``[N·T, C, H, W]``: the first ``C·ratio`` channels
+    one segment back, the next as many one segment forward, zeros where
+    nothing shifts in."""
+    x = ins["X"][0]
+    t = attrs["seg_num"]
+    nt, c, h, w = x.shape
+    x = x.reshape(nt // t, t, c, h, w)
+    c1 = int(c * attrs.get("shift_ratio", 0.25))
+    fwd = F.pad(x[:, 1:, :c1], (0, 0, 0, 0, 0, 0, 0, 1))
+    bwd = F.pad(x[:, :-1, c1:2 * c1], (0, 0, 0, 0, 0, 0, 1, 0))
+    out = torch.cat([fwd, bwd, x[:, :, 2 * c1:]], dim=2)
+    return {"Out": [out.reshape(nt, c, h, w)]}

@@ -175,3 +175,17 @@ def _argsort(ins, attrs, ctx):
     idx = torch.sort(key, dim=axis, stable=True)[1]
     return {"Out": [torch.take_along_dim(x, idx, dim=axis)],
             "Indices": [idx]}
+
+
+@register_op("max_pool2d_with_index", nondiff_outputs=("Mask",))
+def _max_pool2d_with_index(ins, attrs, ctx):
+    """The pooled maxima of NCHW x (symmetric ``paddings`` at -inf); the
+    reference's ``Mask`` is all zeros (int32), and so is the port's."""
+    x = ins["X"][0]
+    ks = list(attrs["ksize"])
+    st = list(attrs.get("strides", ks))
+    pd = list(attrs.get("paddings", [0, 0]))
+    xp = torch.nn.functional.pad(x, [pd[1], pd[1], pd[0], pd[0]],
+                                 value=float("-inf"))
+    out = torch.nn.functional.max_pool2d(xp, ks, st)
+    return {"Out": [out], "Mask": [torch.zeros_like(out, dtype=torch.int32)]}

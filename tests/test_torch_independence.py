@@ -83,7 +83,8 @@ def test_import_leaves_jax_and_reference_out():
               "utils.op_version", "inference", "inference.predictor",
               "inference.aot", "fluid.trace", "fluid.flight_recorder",
               "fluid.goodput", "fluid.metrics_export", "ops.rnn_ops",
-              "ops.nlp_ops", "nn.decode"):
+              "ops.nlp_ops", "nn.decode", "ops.detection_ops",
+              "fluid.layers.detection"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

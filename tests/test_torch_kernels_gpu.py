@@ -1782,3 +1782,80 @@ def test_static_ptb_step_launches_each_dropout_kernel_twice(cuda):
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counted, before)] == [4, 2]
     assert np.isfinite(got).all()
+
+
+# --- the image layers (phase 4s's ops at small shapes) -------------------
+def _r(*shape, seed=0):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+
+IMAGE_CASES = {
+    "conv2d_transpose output_padding": (
+        "conv2d_transpose", {"Input": _r(2, 4, 7, 6), "Filter": _r(4, 3, 3, 3,
+                                                                   seed=1)},
+        {"strides": [2, 2], "paddings": [1, 1], "output_padding": [1, 1]}),
+    "conv2d_transpose output_size grouped": (
+        "conv2d_transpose", {"Input": _r(2, 4, 7, 6), "Filter": _r(4, 3, 3, 3,
+                                                                   seed=2)},
+        {"strides": [2, 2], "paddings": [1, 0, 1, 1], "groups": 2,
+         "output_size": [15, 12]}),
+    "nearest_interp": ("nearest_interp", {"X": _r(2, 3, 5, 7)},
+                       {"out_h": 9, "out_w": 4}),
+    "bilinear_interp align_mode 0": ("bilinear_interp", {"X": _r(2, 3, 5, 7)},
+                                     {"out_h": 9, "out_w": 4,
+                                      "align_mode": 0}),
+    "bilinear_interp corners NHWC": ("bilinear_interp", {"X": _r(2, 5, 7, 3)},
+                                     {"out_h": 3, "out_w": 11,
+                                      "align_corners": True,
+                                      "data_layout": "NHWC"}),
+    "bicubic_interp": ("bicubic_interp", {"X": _r(2, 3, 5, 7)},
+                       {"out_h": 11, "out_w": 5}),
+    "trilinear_interp": ("trilinear_interp", {"X": _r(1, 2, 4, 5, 3)},
+                         {"out_d": 7, "out_h": 3, "out_w": 6}),
+    "instance_norm": ("instance_norm", {"X": _r(2, 4, 6, 5), "Scale": _r(4),
+                                        "Bias": _r(4, seed=3)}, {}),
+    "group_norm": ("group_norm", {"X": _r(2, 4, 6, 5), "Scale": _r(4),
+                                  "Bias": _r(4, seed=3)}, {"groups": 2}),
+    "pad2d reflect": ("pad2d", {"X": _r(2, 3, 5, 7)},
+                      {"paddings": [3, 1, 2, 6], "mode": "reflect"}),
+    "pad2d reflect past the side": ("pad2d", {"X": _r(2, 3, 5, 7)},
+                                    {"paddings": [6, 2, 0, 9],
+                                     "mode": "reflect"}),
+    "pool3d max": ("pool3d", {"X": _r(1, 3, 5, 6, 4)},
+                   {"pooling_type": "max", "ksize": [2, 3, 2],
+                    "strides": [1, 2, 2], "paddings": [1, 1, 0]}),
+    "pool3d avg": ("pool3d", {"X": _r(1, 3, 5, 6, 4)},
+                   {"pooling_type": "avg", "ksize": [3, 3, 3],
+                    "strides": [2, 1, 1], "paddings": [1, 1, 1]}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+def test_image_lowering_on_the_card_against_the_host(cuda, case):
+    """Each image-layer lowering and its ``torch.func.vjp`` (the route
+    ``generic_grad`` takes) on the card against the host, within 1e-4 of
+    each output's largest |value| (cuDNN's and torch's reductions sum in
+    other orders); a reflection pad's backward, slices and sums with no
+    atomics, gives the same bits twice."""
+    op, ins, attrs = IMAGE_CASES[case]
+    lowering = get_op(op).fn
+    names = list(ins)
+
+    def run(device):
+        def f(*xs):
+            out = lowering({k: [x] for k, x in zip(names, xs)}, dict(attrs),
+                           LoweringContext(device=torch.device(device)))
+            return next(iter(out.values()))[0]
+        xs = [ins[k].to(device) for k in names]
+        out, vjp = torch.func.vjp(f, *xs)
+        cot = torch.randn(out.shape, generator=torch.Generator()
+                          .manual_seed(7)).to(device)
+        return [out] + list(vjp(cot)), lambda: vjp(cot)
+
+    card, again = run(cuda)
+    host, _ = run("cpu")
+    for got, want in zip(card, host):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    if op == "pad2d":
+        assert all(torch.equal(a, b) for a, b in zip(again(), card[1:]))

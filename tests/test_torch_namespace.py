@@ -50,20 +50,7 @@ MISSING = {
         "text": 12,
     },
     "nn": {
-        **{n: 5 for n in (
-            "AdaptiveAvgPool1D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
-            "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AlphaDropout",
-            "AvgPool1D", "AvgPool3D", "BCEWithLogitsLoss", "BatchNorm1D",
-            "BatchNorm3D", "Bilinear", "BilinearTensorProduct", "CTCLoss",
-            "Conv1D", "Conv1DTranspose", "Conv2DTranspose", "Conv3D",
-            "Conv3DTranspose", "CosineSimilarity", "Dropout2D",
-            "Dropout3D", "GroupNorm", "HSigmoidLoss", "InstanceNorm1D",
-            "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
-            "LogSoftmax", "MarginRankingLoss", "MaxPool1D", "MaxPool3D",
-            "Maxout", "PRelu", "Pad1D", "Pad2D", "Pad3D",
-            "PairwiseDistance", "PixelShuffle", "RNNCellBase",
-            "SpectralNorm", "SyncBatchNorm", "ThresholdedReLU", "Upsample",
-            "UpsamplingBilinear2D", "UpsamplingNearest2D")},
+        **{n: 5 for n in ("CTCLoss", "HSigmoidLoss")},
     },
     "nn.functional": {},
     "tensor": {},
@@ -71,8 +58,6 @@ MISSING = {
     "fluid": {
         **{n: 0 for n in ("TPUPinnedPlace", "TPUPlace",
             "is_compiled_with_tpu",)},
-        **{n: 5 for n in ("MSRA", "WeightNormParamAttr",
-            "set_global_initializer",)},
         **{n: 9 for n in ("CheckpointManager",)},
         **{n: 10 for n in ("ParallelExecutor",)},
         **{n: 11 for n in ("Communicator", "CountFilterEntry", "DataFeedDesc",
@@ -85,18 +70,10 @@ MISSING = {
             "is_compiled_with_cuda", "load_op_library", "require_version",)},
     },
     "fluid.layers": {
-        **{n: 5 for n in ("affine_grid", "bilinear_tensor_product",
-            "bpr_loss", "brelu", "center_loss", "chunk_eval",
-            "conv2d_transpose", "conv3d", "conv3d_transpose", "crf_decoding",
-            "cross_entropy", "ctc_greedy_decoder", "edit_distance",
-            "grid_sampler", "group_norm", "hsigmoid", "image_resize",
-            "image_resize_short", "inplace_abn", "instance_norm",
-            "linear_chain_crf", "margin_rank_loss", "nce", "pad2d",
-            "pixel_shuffle", "pool3d", "prelu", "rank_loss", "relu_",
-            "resize_bilinear", "resize_linear", "resize_nearest",
-            "resize_trilinear", "sampled_softmax_with_cross_entropy",
-            "sigmoid_focal_loss", "smooth_l1", "soft_relu", "spectral_norm",
-            "teacher_student_sigmoid_loss", "unfold", "warpctc",)},
+        **{n: 5 for n in ("center_loss", "chunk_eval", "crf_decoding",
+            "ctc_greedy_decoder", "edit_distance", "hsigmoid",
+            "linear_chain_crf", "nce", "sampled_softmax_with_cross_entropy",
+            "warpctc",)},
         **{n: 8 for n in ("add_position_encoding", "affine_channel",
             "anchor_generator", "auc", "bipartite_match", "box_clip",
             "box_coder", "box_decoder_and_assign", "collect_fpn_proposals",
@@ -361,3 +338,53 @@ def test_the_dygraph_to_static_surface():
     assert {"run_program", "check_finite_and_unscale",
             "update_loss_scaling"} <= ported
     assert ported <= set(jops.builtin_ops())
+
+
+def test_the_image_layers_surface():
+    """The names the image layers bring (ROADMAP item 5's image half):
+    the ``nn`` classes, the ``fluid.layers`` builders, the three ``fluid``
+    names and the ``dygraph`` classes; their op types are registered."""
+    from paddle_tpu_torch import dygraph, fluid
+    from paddle_tpu_torch.ops import all_ops
+    for name in ("AdaptiveAvgPool1D", "AdaptiveAvgPool3D",
+                 "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+                 "AdaptiveMaxPool3D", "AlphaDropout", "AvgPool1D",
+                 "AvgPool3D", "BCEWithLogitsLoss", "BatchNorm1D",
+                 "BatchNorm3D", "Bilinear", "BilinearTensorProduct",
+                 "Conv1D", "Conv1DTranspose", "Conv2DTranspose", "Conv3D",
+                 "Conv3DTranspose", "CosineSimilarity", "Dropout2D",
+                 "Dropout3D", "GroupNorm", "InstanceNorm1D",
+                 "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+                 "LogSoftmax", "MarginRankingLoss", "MaxPool1D",
+                 "MaxPool3D", "Maxout", "PRelu", "Pad1D", "Pad2D", "Pad3D",
+                 "PairwiseDistance", "PixelShuffle", "RNNCellBase",
+                 "SpectralNorm", "SyncBatchNorm", "ThresholdedReLU",
+                 "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D"):
+        assert hasattr(tpaddle.nn, name), name
+    for name in ("affine_grid", "bilinear_tensor_product", "bpr_loss",
+                 "brelu", "conv2d_transpose", "conv3d", "conv3d_transpose",
+                 "cross_entropy", "grid_sampler", "group_norm",
+                 "image_resize", "image_resize_short", "inplace_abn",
+                 "instance_norm", "margin_rank_loss", "pad2d",
+                 "pixel_shuffle", "pool3d", "prelu", "rank_loss", "relu_",
+                 "resize_bilinear", "resize_linear", "resize_nearest",
+                 "resize_trilinear", "sigmoid_focal_loss", "smooth_l1",
+                 "soft_relu", "spectral_norm",
+                 "teacher_student_sigmoid_loss", "unfold"):
+        assert hasattr(fluid.layers, name), name
+    for name in ("MSRA", "WeightNormParamAttr", "set_global_initializer"):
+        assert hasattr(fluid, name), name
+    for name in ("PRelu", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
+                 "InstanceNorm", "GroupNorm", "SpectralNorm",
+                 "BilinearTensorProduct", "Flatten"):
+        assert hasattr(dygraph, name), name
+    assert {"conv2d_transpose", "conv3d", "conv3d_transpose",
+            "sync_batch_norm", "instance_norm", "group_norm", "norm",
+            "nearest_interp", "bilinear_interp", "bicubic_interp",
+            "trilinear_interp", "grid_sampler", "affine_channel",
+            "temporal_shift", "pad2d", "pad3d", "pixel_shuffle", "unfold",
+            "bilinear_tensor_product", "pool3d", "spectral_norm",
+            "teacher_student_sigmoid_loss", "dropout_nd",
+            "max_pool2d_with_index", "cross_entropy", "smooth_l1_loss",
+            "hinge_loss", "rank_loss", "margin_rank_loss", "bpr_loss",
+            "affine_grid", "sigmoid_focal_loss", "brelu"} <= set(all_ops())

@@ -69,6 +69,16 @@ A = {
     "dice_lbl": np.array([[0], [2], [1], [2]], "int64"),
     "rc_x": _rnd(2, 5, 3, seed=28),
     "rc_w": _rnd(3, 3, seed=29),
+    "w_conv3d": _rnd(3, 2, 3, 3, 3, seed=30),
+    "b3d": _rnd(3, seed=31),
+    "w_convt": _rnd(4, 3, 3, 3, seed=32),
+    "w_convt1d": _rnd(3, 2, 3, seed=33),
+    "w_convt3d": _rnd(2, 3, 2, 2, 2, seed=34),
+    "theta": _rnd(2, 2, 3, seed=35),
+    "grid": np.random.RandomState(36).uniform(-1.1, 1.1, (2, 5, 5, 2))
+    .astype("float32"),
+    "w_bil": _rnd(3, 6, 6, seed=37),
+    "b_bil": _rnd(1, 3, seed=38),
 }
 
 # name -> (fn(F, L, *vars), input keys, static too?, input gradient?)
@@ -200,6 +210,42 @@ CASES = {
                             ["vol"], True, True),
     "adaptive_max_pool3d": (lambda F, L, x: F.adaptive_max_pool3d(x, 2),
                             ["vol"], True, True),
+    # the image layers
+    "conv3d": (lambda F, L, x, w, b: F.conv3d(x, w, b, padding=1),
+               ["vol", "w_conv3d", "b3d"], True, True),
+    "conv2d_transpose": (lambda F, L, x, w, b: F.conv2d_transpose(
+        x, w, b, stride=2, padding=1), ["img", "w_convt", "b3"], True, True),
+    "conv1d_transpose": (lambda F, L, x, w: F.conv1d_transpose(
+        x, w, stride=2, padding=1, output_padding=1), ["seq", "w_convt1d"],
+        True, True),
+    "conv3d_transpose": (lambda F, L, x, w: F.conv3d_transpose(
+        x, w, stride=2, padding=1, output_padding=1), ["vol", "w_convt3d"],
+        True, True),
+    "max_pool3d": (lambda F, L, x: F.max_pool3d(x, 2), ["vol"], True, True),
+    "avg_pool3d": (lambda F, L, x: F.avg_pool3d(x, 3, 1, 1), ["vol"], True,
+                   True),
+    "interpolate": (lambda F, L, x: F.interpolate(x, scale_factor=2),
+                    ["img"], True, True),
+    "interpolate_bilinear": (lambda F, L, x: F.interpolate(
+        x, size=[9, 4], mode="bilinear"), ["img"], True, True),
+    "interpolate_bicubic_corners": (lambda F, L, x: F.interpolate(
+        x, size=[4, 9], mode="bicubic", align_corners=True), ["img"], True,
+        True),
+    "upsample": (lambda F, L, x: F.upsample(x, scale_factor=1.5,
+                                            mode="bilinear"), ["img"], True,
+                 True),
+    "instance_norm": (lambda F, L, x, w, b: F.instance_norm(
+        x, weight=w, bias=b), ["img", "alpha4", "b4"], True, True),
+    "pixel_shuffle": (lambda F, L, x: F.pixel_shuffle(x, 2), ["img"], True,
+                      True),
+    "grid_sample": (lambda F, L, x, g: F.grid_sample(x, g), ["img", "grid"],
+                    True, True),
+    "affine_grid": (lambda F, L, t: F.affine_grid(t, [2, 4, 5, 6]),
+                    ["theta"], True, True),
+    "unfold": (lambda F, L, x: F.unfold(x, 3, strides=2, paddings=1),
+               ["img"], True, True),
+    "bilinear": (lambda F, L, a, b, w, c: F.bilinear(a, b, w, c),
+                 ["x", "y", "w_bil", "b_bil"], True, True),
     "embedding_fluid": (lambda F, L, i: L.reduce_sum(F.embedding_fluid(
         i, [7, 4], param_attr=_ParamAttr(L, A["emb_w"]))), ["ids"], False,
         False),
@@ -335,20 +381,6 @@ def test_dropout_family_contract(package):
 
 # --- the functions that wait for an op ---------------------------------------
 WAITING = {
-    "conv3d": (5, lambda: TF.conv3d(None, None)),
-    "conv2d_transpose": (5, lambda: TF.conv2d_transpose(None, None)),
-    "conv1d_transpose": (5, lambda: TF.conv1d_transpose(None, None)),
-    "conv3d_transpose": (5, lambda: TF.conv3d_transpose(None, None)),
-    "max_pool3d": (5, lambda: TF.max_pool3d(None, 2)),
-    "avg_pool3d": (5, lambda: TF.avg_pool3d(None, 2)),
-    "interpolate": (5, lambda: TF.interpolate(None, scale_factor=2)),
-    "upsample": (5, lambda: TF.upsample(None, scale_factor=2)),
-    "instance_norm": (5, lambda: TF.instance_norm(None)),
-    "pixel_shuffle": (8, lambda: TF.pixel_shuffle(None, 2)),
-    "grid_sample": (8, lambda: TF.grid_sample(None, None)),
-    "affine_grid": (8, lambda: TF.affine_grid(None, [1, 1, 2, 2])),
-    "unfold": (8, lambda: TF.unfold(None, 2)),
-    "bilinear": (8, lambda: TF.bilinear(None, None, None)),
     "diag_embed": (8, lambda: TF.diag_embed(None)),
     "hsigmoid_loss": (8, lambda: TF.hsigmoid_loss(None, None, 2, None)),
     "ctc_loss": (8, lambda: TF.ctc_loss(None, None, None, None)),

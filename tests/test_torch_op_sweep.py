@@ -13,7 +13,8 @@ beam-search op types, which those lack, take the first case of each in
 - Forward: every output slot of the reference's, floats within rtol 1e-4
   (and 1e-4 of the slot's largest value), ids and bools equal.
 - The dropout family (``dropout``, ``fused_dropout_add``,
-  ``fused_act_dropout``) is held to ROADMAP ground rule 5's contract
+  ``fused_act_dropout``, ``dropout_nd``) is held to ROADMAP ground rule
+  5's contract
   instead: at rate 0 and under ``is_test`` the port gives the
   reference's output.
 - Each op type the sweep does not run is in ``SKIPS`` with its reason,
@@ -44,7 +45,8 @@ FWD_RTOL = 1e-4
 COMMON = sorted(set(treg.all_ops()) & set(jreg.all_ops()))
 
 # held to ground rule 5's contract, not to the reference's draws
-CONTRACT = ("dropout", "fused_dropout_add", "fused_act_dropout")
+CONTRACT = ("dropout", "fused_dropout_add", "fused_act_dropout",
+            "dropout_nd")
 
 _OPTIMIZER = ("an optimizer's update over a parameter, its gradient, its "
               "accumulators and a learning rate, which the probe does not "

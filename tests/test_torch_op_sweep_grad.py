@@ -26,9 +26,11 @@ DIFFERENTIABLE = [op for op in SWEPT
                   and jreg.get_op(op).differentiable]
 
 
-@pytest.mark.parametrize("op", DIFFERENTIABLE)
-def test_generic_grad_matches_reference(op):
-    ins, attrs, slots = spec_for(op)
+def check_generic_grad(op, ins, attrs, slots=None, rtol=GRAD_RTOL):
+    """``op``'s ``generic_grad`` in both packages from ``ins`` and the same
+    random cotangent of each float output: every input gradient of
+    ``slots`` (by default each float input the op differentiates) within
+    ``rtol``."""
     jdef = jreg.get_op(op)
     if slots is None:
         slots = [s for s, v in ins.items() if s not in jdef.nondiff_inputs
@@ -57,4 +59,10 @@ def test_generic_grad_matches_reference(op):
     got = treg.get_op("generic_grad").fn(grad_ins(torch.from_numpy),
                                         dict(gattrs), _tctx())
     assert sorted(want) == sorted(got) == sorted("GI_" + s for s in slots)
-    assert_outputs_match(want, got, GRAD_RTOL, f"{op} generic_grad")
+    assert_outputs_match(want, got, rtol, f"{op} generic_grad")
+
+
+@pytest.mark.parametrize("op", DIFFERENTIABLE)
+def test_generic_grad_matches_reference(op):
+    ins, attrs, slots = spec_for(op)
+    check_generic_grad(op, ins, attrs, slots)

@@ -172,7 +172,7 @@ def test_the_eleven_op_types_are_registered():
            "sampling_id"}
     assert new <= set(treg.all_ops())
     assert new <= set(jreg.all_ops())
-    assert len(treg.all_ops()) == 245
+    assert len(treg.all_ops()) == 278     # 245 and the image layers' 33
 
 
 def test_cudnn_lstm_w_is_nn_lstm_layout():
