@@ -5757,14 +5757,17 @@ def _window_kernels(prof, start_ns):
     return kern, lost
 
 
-def _profile(fn, iters):
+def _profile(fn, iters, warmup=3, host_ops=True):
     """(host ms per call with no profiler attached, device busy ms per
     call, profiled idle share, kernels per call, device ms per call by
-    kernel class) over ``iters`` calls after 3 warm-up calls; the
-    window's kernels by name are left in PROFILE_BY_NAME."""
+    kernel class) over ``iters`` calls after ``warmup`` warm-up calls;
+    the window's kernels by name are left in PROFILE_BY_NAME.  Without
+    ``host_ops`` the profiler records the card's activity and the launch
+    calls but not the host's ops: gathering a step of 40,000 kernels
+    then takes seconds instead of about half a minute."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5772,8 +5775,8 @@ def _profile(fn, iters):
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / iters * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if host_ops else [])
     # now and then a profiled window comes back with no device events at
     # all (seen on the card in phase 3e's timings, once twice in a row);
     # such a window is measured again, up to four times, and a fifth
@@ -10566,13 +10569,16 @@ CYCLEGAN_TWINS = (("reflection-as-edge", _reflect_as_edge),
                   ("extra-row-low", _extra_row_low))
 
 
-def _twins_report(label, run_twin, host_r, card_r, card):
+def _twins_report(label, run_twin, host_r, card_r, card,
+                  twins=CYCLEGAN_TWINS, margins=None):
     """card_r against host_r, each twin's run against host_r: every
-    criterion's error over its tolerance; fails unless the card passes
-    and each twin misses by 10 times or more."""
-    ok = _image_margins(card_r, host_r)
-    misses = {twin_label: _image_margins(run_twin(twin), host_r)
-              for twin_label, twin in CYCLEGAN_TWINS}
+    criterion's error over its tolerance (``margins``, by default
+    ``_image_margins``); fails unless the card passes and each twin
+    misses by 10 times or more on at least one criterion."""
+    margins = margins or _image_margins
+    ok = margins(card_r, host_r)
+    misses = {twin_label: margins(run_twin(twin), host_r)
+              for twin_label, twin in twins}
     fmt = ", ".join
     _p(f"{label}: card vs host, error / tolerance (under 1 passes): "
        + fmt(f"{k} {v:.3e}" for k, v in ok.items()) + f"  [{card}]")
@@ -10897,6 +10903,65 @@ def _image_op_cases():
     return cases
 
 
+def _op_run(op, ins, attrs, dev, grad_of=None):
+    """One op's lowering on ``dev`` from numpy inputs (a list for a
+    variadic slot); with ``grad_of`` = (slots, cotangents) its
+    ``generic_grad`` instead."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    ctx = LoweringContext(device=torch.device(dev))
+    t = {k: [torch.from_numpy(np.array(a)).to(dev)
+             for a in (v if isinstance(v, list) else [v])]
+         for k, v in ins.items()}
+    if grad_of is None:
+        return get_op(op).fn(t, dict(attrs), ctx)
+    slots, cots = grad_of
+    gins = {"I_" + k: v for k, v in t.items()}
+    gins.update({"G_" + k: [torch.from_numpy(c).to(dev)]
+                 for k, c in cots.items()})
+    return get_op("generic_grad").fn(
+        gins, {"fwd_type": op, "fwd_attrs": dict(attrs),
+               "grad_slots": slots, "in_slots": list(ins)}, ctx)
+
+
+def _op_err(got, want, tol):
+    """The largest float error over ``tol`` of each output's largest
+    |value|; an integer output that differs is infinitely wrong."""
+    e = 0.0
+    for slot, vals in want.items():
+        w, g = _host(vals[0]), _host(got[slot][0])
+        if w.dtype.kind == "f":
+            if w.size:
+                e = max(e, float(np.abs(g - w).max()) / (
+                    tol * max(float(np.abs(w).max()), 1e-30)))
+        elif not np.array_equal(g, w):
+            e = float("inf")
+    return e
+
+
+def _op_card_err(op, ins, attrs, tol, rng):
+    """``op`` on the card against the host, forward and, where it is
+    differentiable, ``generic_grad`` from one random cotangent of each
+    float output: the larger error over ``tol``."""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    host = _op_run(op, ins, attrs, "cpu")
+    e = _op_err(_op_run(op, ins, attrs, DEVICE), host, tol)
+    opdef = get_op(op)
+    if opdef.differentiable:
+        slots = [k for k, v in ins.items() if k not in opdef.nondiff_inputs
+                 and np.asarray(v[0] if isinstance(v, list) else v)
+                 .dtype.kind == "f"]
+        cots = {k: rng.randn(*_host(v[0]).shape).astype("float32")
+                for k, v in host.items() if k not in opdef.nondiff_outputs
+                and _host(v[0]).dtype.kind == "f"}
+        e = max(e, _op_err(_op_run(op, ins, attrs, DEVICE, (slots, cots)),
+                           _op_run(op, ins, attrs, "cpu", (slots, cots)),
+                           tol))
+    return e
+
+
 def _image_ops_on_the_card(card):
     """(c) each op type of the image layers on the card against the host:
     every output within IMAGE_CARD_TOL of its largest |value| (ints
@@ -10907,52 +10972,17 @@ def _image_ops_on_the_card(card):
     import torch
     from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 
-    def run(op, ins, attrs, dev, grad_of=None):
-        ctx = LoweringContext(device=torch.device(dev))
-        t = {k: [torch.from_numpy(np.array(v)).to(dev)]
-             for k, v in ins.items()}
-        if grad_of is None:
-            return get_op(op).fn(t, dict(attrs), ctx)
-        slots, cots = grad_of
-        gins = {"I_" + k: v for k, v in t.items()}
-        gins.update({"G_" + k: [torch.from_numpy(c).to(dev)]
-                     for k, c in cots.items()})
-        return get_op("generic_grad").fn(
-            gins, {"fwd_type": op, "fwd_attrs": dict(attrs),
-                   "grad_slots": slots, "in_slots": list(ins)}, ctx)
-
-    def err(got, want):
-        e = 0.0
-        for slot, vals in want.items():
-            w, g = _host(vals[0]), _host(got[slot][0])
-            if w.dtype.kind == "f":
-                e = max(e, float(np.abs(g - w).max()) / (
-                    IMAGE_CARD_TOL * max(float(np.abs(w).max()), 1e-30)))
-            elif not np.array_equal(g, w):
-                e = float("inf")
-        return e
-
     worst, rng = {}, np.random.RandomState(SEED + 78)
     covered = set()
     for label, (ins, attrs) in _image_op_cases().items():
         op = label.split()[0]
         covered.add(op)
-        host = run(op, ins, attrs, "cpu")
-        e = err(run(op, ins, attrs, DEVICE), host)
-        opdef = get_op(op)
-        if opdef.differentiable:
-            slots = [k for k, v in ins.items() if k not in
-                     opdef.nondiff_inputs and np.asarray(v).dtype.kind == "f"]
-            cots = {k: rng.randn(*_host(v[0]).shape).astype("float32")
-                    for k, v in host.items() if k not in opdef.nondiff_outputs
-                    and _host(v[0]).dtype.kind == "f"}
-            e = max(e, err(run(op, ins, attrs, DEVICE, (slots, cots)),
-                           run(op, ins, attrs, "cpu", (slots, cots))))
-        worst[label] = e
+        worst[label] = _op_card_err(op, ins, attrs, IMAGE_CARD_TOL, rng)
     ins, attrs = _image_op_cases()["conv2d_transpose"]
-    card_out = run("conv2d_transpose", ins, attrs, DEVICE)
+    card_out = _op_run("conv2d_transpose", ins, attrs, DEVICE)
     with _extra_row_low():
-        twin = err(run("conv2d_transpose", ins, attrs, "cpu"), card_out)
+        twin = _op_err(_op_run("conv2d_transpose", ins, attrs, "cpu"),
+                       card_out, IMAGE_CARD_TOL)
     # dropout_nd: whole channels, the kept share, Out = X Mask / (1 - p)
     x = np.random.RandomState(SEED + 79).rand(64, 64, 2, 2) \
         .astype("float32") + 1.0
@@ -11009,6 +11039,782 @@ def phase_image_layers(card):
     _p(f"phase 4s (c): {time.perf_counter() - t:.1f} s")
     return ({"cyclegan": launches, "static_generator": static_launches},
             {"cyclegan": cyc, "static_generator": static, "ops": ops})
+
+
+# --- phase 4t: the sequence tier --------------------------------------------
+# the PaddlePaddle book's label_semantic_roles (chapter 7, db_lstm) at
+# CoNLL-05's dictionaries; ids, lengths and labels are drawn from the seed
+SRL = dict(words=44068, preds=3162, labels=59, marks=2, word_dim=32,
+           mark_dim=5, hidden=512, depth=8, lr=0.01, decay_steps=100000,
+           decay_rate=0.5, crf_lr=1e-3)
+SRL_BATCH, SRL_STEPS, SRL_MIN_LEN = 10, 64, 16
+SRL_HOST = dict(SRL, words=2000, preds=300, hidden=128, depth=4)
+SRL_HOST_BATCH, SRL_HOST_STEPS = 4, 32
+SRL_WORDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+# PaddleCV ocr_recognition's crnn_ctc_model at its input width: 95 classes
+# and the blank, labels of 4 to 24 from the seed
+CRNN = dict(classes=95, channels=(16, 32, 64, 128), hidden=200, height=48,
+            width=512, lr=1e-3, momentum=0.9, l2=4e-4, min_label=4,
+            max_label=24)
+CRNN_BATCH = 32
+CRNN_HOST = dict(CRNN, channels=(8, 8, 16, 16), hidden=32, width=128,
+                 max_label=8)
+CRNN_HOST_BATCH = 4
+SEQ_TIMED, SEQ_HOST_STEPS = 3, 2
+SEQ_CARD_TOL = 1e-4           # (c): of each output's largest |value|
+VITERBI_MARGIN = 1e-3         # paths closer than this may swap on the card
+ARGMAX_MARGIN = 1e-4          # (b)'s logits: about 100x their card-host gap
+
+
+def srl_program(fluid, cfg, batch, steps, train=True):
+    """The book's ``db_lstm`` over padded rows: the six word inputs share
+    the untrainable ``emb``, the predicate and the mark have their own;
+    each of the eight embeddings through an fc with tanh, summed;
+    ``depth`` ``dynamic_lstm`` layers of alternating direction (relu
+    candidates, sigmoid gates and cells), each fed by the sum of two fcs
+    over the last (mix, lstm) pair; two fcs to the labels summed as the
+    emission; ``linear_chain_crf`` (``crfw`` at learning rate
+    ``crf_lr``), SGD over ``exponential_decay``; ``crf_decoding`` on
+    ``crfw`` and ``chunk_eval`` in IOB.  Returns (loss, emission, path,
+    chunk outputs, params_grads)."""
+    L = fluid.layers
+    ids = {n: fluid.data(n, [batch, steps], "int64")
+           for n in SRL_WORDS + ("verb", "mark", "target")}
+    length = fluid.data("length", [batch], "int64")
+    embs = [L.embedding(ids[n], [cfg["words"], cfg["word_dim"]],
+                        param_attr=fluid.ParamAttr(name="emb",
+                                                   trainable=False))
+            for n in SRL_WORDS]
+    embs.append(L.embedding(ids["verb"], [cfg["preds"], cfg["word_dim"]],
+                            is_sparse=True, param_attr="vemb"))
+    embs.append(L.embedding(ids["mark"], [cfg["marks"], cfg["mark_dim"]],
+                            is_sparse=True))
+    hid = cfg["hidden"]
+
+    def fc(x, size):
+        return L.fc(x, size, num_flatten_dims=2, act="tanh")
+
+    def lstm(x, reverse):
+        return L.dynamic_lstm(x, hid, candidate_activation="relu",
+                              gate_activation="sigmoid",
+                              cell_activation="sigmoid",
+                              is_reverse=reverse)[0]
+    mix = L.sums([fc(e, hid) for e in embs])
+    pair = [mix, lstm(mix, False)]
+    for i in range(1, cfg["depth"]):
+        mix = L.sums([fc(pair[0], hid), fc(pair[1], hid)])
+        pair = [mix, lstm(mix, i % 2 == 1)]
+    emission = L.sums([fc(pair[0], cfg["labels"]),
+                       fc(pair[1], cfg["labels"])])
+    loss = L.mean(L.linear_chain_crf(
+        emission, ids["target"], length=length,
+        param_attr=fluid.ParamAttr(name="crfw",
+                                   learning_rate=cfg["crf_lr"])))
+    pg = []
+    if train:
+        lr = L.exponential_decay(cfg["lr"], cfg["decay_steps"],
+                                 cfg["decay_rate"], staircase=True)
+        _, pg = fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    path = L.crf_decoding(emission, param_attr=fluid.ParamAttr(name="crfw"),
+                          length=length)
+    chunks = L.chunk_eval(path, ids["target"], "IOB",
+                          num_chunk_types=math.ceil((cfg["labels"] - 1) / 2),
+                          seq_length=length)
+    return loss, emission, path, chunks, pg
+
+
+def srl_feed(cfg, batch, steps, seed):
+    """One batch as numpy: ids of each input, labels and lengths in
+    [SRL_MIN_LEN, steps] (at most ``steps``), 0 past a row's length."""
+    rng = np.random.RandomState(seed)
+    length = rng.randint(min(SRL_MIN_LEN, steps), steps + 1, batch)
+    valid = np.arange(steps)[None] < length[:, None]
+    highs = dict({n: cfg["words"] for n in SRL_WORDS}, verb=cfg["preds"],
+                 mark=cfg["marks"], target=cfg["labels"])
+    feed = {n: np.where(valid, rng.randint(0, h, (batch, steps)), 0)
+            .astype("int64") for n, h in highs.items()}
+    feed["length"] = length.astype("int64")
+    return feed
+
+
+def crnn_program(fluid, cfg, batch, train=True):
+    """``crnn_ctc_model.py``'s ``ctc_train_net``: ``ocr_convs`` (four
+    groups of two 3x3 conv2d, each with batch_norm and relu, a 2x2 max
+    pool of stride 2 after each of the first three; the model pools with
+    ``ceil_mode=True``, which the port refuses by design, and at these
+    sizes every pooled side is even, so floor and ceil agree and the
+    program passes none), ``im2sequence`` with a filter the features'
+    height by 1, the patch rows back to [B, W/8, C · H/8], two fcs of
+    3 · hidden, ``dynamic_gru`` forward and reversed (relu candidates),
+    an fc over both to classes + 1, ``warpctc`` (the blank last,
+    ``norm_by_times``) summed, Momentum with L2 decay on every
+    parameter; ``ctc_greedy_decoder``, and ``ctc_align`` again through a
+    ``LayerHelper`` for its lengths, which ``edit_distance`` reads.
+    Returns (loss, decoded, decoded lengths, distances, the builder's
+    decoded rows, params_grads)."""
+    L = fluid.layers
+    layer_helper = importlib.import_module(fluid.__name__ + ".layer_helper")
+    h, w, hid = cfg["height"], cfg["width"], cfg["hidden"]
+    images = fluid.data("pixel", [batch, 1, h, w])
+    label = fluid.data("label", [batch, cfg["max_label"]], "int64")
+    label_len = fluid.data("label_length", [batch], "int64")
+    l2 = fluid.regularizer.L2Decay(cfg["l2"])
+
+    def attr(std, lr=1.0):
+        return fluid.ParamAttr(
+            regularizer=l2, learning_rate=lr,
+            initializer=fluid.initializer.Normal(0.0, std))
+    x = images
+    for g, ch in enumerate(cfg["channels"]):
+        for i in range(2):
+            x = L.conv2d(x, ch, 3, padding=1,
+                         param_attr=attr(0.0005 if g == i == 0 else 0.01),
+                         bias_attr=attr(0.0))
+            x = L.batch_norm(x, act="relu", param_attr=attr(0.01),
+                             bias_attr=attr(0.0))
+        if g < 3:
+            x = L.pool2d(x, 2, "max", pool_stride=2)
+    feat_h, steps = h // 8, w // 8
+    seq = L.im2sequence(x, filter_size=[feat_h, 1], stride=[1, 1])
+    seq = L.reshape(seq, [batch, steps, cfg["channels"][-1] * feat_h])
+    fc_1 = L.fc(seq, 3 * hid, num_flatten_dims=2, param_attr=attr(0.02),
+                bias_attr=attr(0.02))
+    fc_2 = L.fc(seq, 3 * hid, num_flatten_dims=2, param_attr=attr(0.02),
+                bias_attr=attr(0.02))
+    gru_f = L.dynamic_gru(fc_1, hid, param_attr=attr(0.02),
+                          bias_attr=attr(0.02, 2.0),
+                          candidate_activation="relu")
+    gru_b = L.dynamic_gru(fc_2, hid, is_reverse=True, param_attr=attr(0.02),
+                          bias_attr=attr(0.02, 2.0),
+                          candidate_activation="relu")
+    logits = L.fc([gru_f, gru_b], cfg["classes"] + 1, num_flatten_dims=2,
+                  param_attr=attr(0.02), bias_attr=attr(0.0))
+    loss = L.reduce_sum(L.warpctc(logits, label, blank=cfg["classes"],
+                                  norm_by_times=True,
+                                  label_length=label_len))
+    pg = []
+    if train:
+        _, pg = fluid.optimizer.Momentum(
+            learning_rate=cfg["lr"], momentum=cfg["momentum"]).minimize(loss)
+    greedy = L.ctc_greedy_decoder(logits, blank=cfg["classes"])
+    helper = layer_helper.LayerHelper("ctc_greedy_decoder")
+    decoded = helper.create_variable_for_type_inference("int64")
+    decoded_len = helper.create_variable_for_type_inference("int64")
+    helper.append_op("ctc_align", inputs={"Input": [L.argmax(logits, -1)]},
+                     outputs={"Output": [decoded],
+                              "OutputLength": [decoded_len]},
+                     attrs={"blank": cfg["classes"], "merge_repeated": True})
+    dist, _ = L.edit_distance(decoded, label, input_length=decoded_len,
+                              label_length=label_len)
+    return loss, decoded, decoded_len, dist, greedy, pg
+
+
+def crnn_feed(cfg, batch, seed):
+    rng = np.random.RandomState(seed)
+    n = rng.randint(cfg["min_label"], cfg["max_label"] + 1, batch)
+    label = rng.randint(0, cfg["classes"], (batch, cfg["max_label"]))
+    label = np.where(np.arange(cfg["max_label"])[None] < n[:, None], label, 0)
+    pixel = rng.rand(batch, 1, cfg["height"], cfg["width"]) \
+        .astype("float32")
+    return {"pixel": pixel, "label": label.astype("int64"),
+            "label_length": n.astype("int64")}
+
+
+@contextlib.contextmanager
+def _swapped_op(op_type, fn):
+    """A broken twin: ``op_type``'s lowering replaced by ``fn(orig)``."""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    opdef = get_op(op_type)
+    orig = opdef.fn
+    opdef.fn = fn(orig)
+    try:
+        yield
+    finally:
+        opdef.fn = orig
+
+
+def _crf_start_stop_swapped():
+    """The twin of (a): the CRF and its decode read the transition's
+    start and stop rows the other way round."""
+    def wrap(orig):
+        def fn(ins, attrs, ctx):
+            t = ins["Transition"][0]
+            return orig(dict(ins, Transition=[t[[1, 0] + list(
+                range(2, t.shape[0]))]]), attrs, ctx)
+        return fn
+
+    @contextlib.contextmanager
+    def both():
+        with _swapped_op("linear_chain_crf", wrap), \
+                _swapped_op("crf_decoding", wrap):
+            yield
+    return both()
+
+
+def _patches_kh_major():
+    """The twin of (b): ``im2sequence``'s patch features in (kh, C) order
+    instead of (C, kh)."""
+    def wrap(orig):
+        def fn(ins, attrs, ctx):
+            out = orig(ins, attrs, ctx)["Out"][0]
+            c, (kh, kw) = ins["X"][0].shape[1], attrs["kernels"]
+            out = out.reshape(-1, c, kh * kw).transpose(1, 2)
+            return {"Out": [out.reshape(-1, c * kh * kw)]}
+        return fn
+    return _swapped_op("im2sequence", wrap)
+
+
+def _viterbi_margin(em, trans, length):
+    """Each row's best CRF score less the best score of a path that
+    differs from it somewhere (max-marginals, float64)."""
+    start, stop, tr = (np.asarray(a, "float64") for a in
+                       (trans[0], trans[1], trans[2:]))
+    out = []
+    for e, n in zip(np.asarray(em, "float64"), length):
+        alpha = [start + e[0]]
+        for t in range(1, n):
+            alpha.append((alpha[-1][:, None] + tr).max(0) + e[t])
+        beta = [stop]
+        for t in range(n - 1, 0, -1):
+            beta.insert(0, (tr + (e[t] + beta[0])[None]).max(1))
+        marg = np.stack([a + b for a, b in zip(alpha, beta)])
+        top = marg.argmax(1)
+        other = np.where(np.arange(marg.shape[1])[None] == top[:, None],
+                         -np.inf, marg).max()
+        out.append(marg.max() - other)
+    return np.array(out)
+
+
+def _path_scores(em, trans, paths, length):
+    """Each row's CRF score of ``paths`` over its first ``length`` steps
+    (float64)."""
+    start, stop, tr = (np.asarray(a, "float64") for a in
+                       (trans[0], trans[1], trans[2:]))
+    out = []
+    for e, p, n in zip(np.asarray(em, "float64"), paths, length):
+        s = start[p[0]] + e[0, p[0]] + stop[p[n - 1]]
+        out.append(s + sum(tr[p[t - 1], p[t]] + e[t, p[t]]
+                           for t in range(1, n)))
+    return np.array(out)
+
+
+def _seq_margins(exact):
+    """``_margins`` (each loss to rtol 1e-4, the first step's gradient
+    cosine to 1e-4 of 1 and norm to 1e-3) and ``exact(got, want)``'s
+    criteria."""
+    def margins(got, want):
+        out = _margins(got, want)
+        out.update(exact(got, want))
+        return out
+    return margins
+
+
+def _srl_clear_rows(run):
+    """The rows whose Viterbi path beats every other by VITERBI_MARGIN
+    under ``run``'s emission and transition."""
+    return _viterbi_margin(run["emission"], run["crfw"], run["length"]) \
+        > VITERBI_MARGIN
+
+
+def _srl_exact(got, want):
+    """The paths equal on the host's clear rows (each differing step
+    counts 1, none passes); every path's score under the host's emission
+    and transition within 1e-5 of the host path's; chunk_eval's three
+    counts equal."""
+    clear = _srl_clear_rows(want)
+    args = want["emission"], want["crfw"]
+    g = _path_scores(*args, got["path"], want["length"])
+    w = _path_scores(*args, want["path"], want["length"])
+    return {"viterbi paths": float((got["path"][clear]
+                                    != want["path"][clear]).sum()),
+            "viterbi scores": float(np.abs(g - w).max()
+                                    / (1e-5 * np.abs(w).max())),
+            "chunk counts": float((got["chunks"] != want["chunks"]).sum())}
+
+
+def _crnn_clear_rows(run):
+    """The rows whose every step's best class beats the runner-up by
+    ARGMAX_MARGIN (an argmax closer than that may flip on the card)."""
+    top2 = np.sort(run["logits"], axis=-1)[..., -2:]
+    return ((top2[..., 1] - top2[..., 0]) > ARGMAX_MARGIN).all(1)
+
+
+def _crnn_exact(got, want):
+    """The first step's logits within 1e-4 of their largest |value|; on
+    the host's clear rows the decoded rows, their lengths and the edit
+    distances equal (each differing entry counts 1)."""
+    clear = _crnn_clear_rows(want)
+    return {"logits": float(np.abs(got["logits"] - want["logits"]).max()
+                            / (1e-4 * np.abs(want["logits"]).max())),
+            "decoded rows": float(sum(
+                (got[k][clear] != want[k][clear]).sum()
+                for k in ("decoded", "decoded_len", "dist")))}
+
+
+def _seq_run(main, fetch, init, place, feeds, unpack, twin=None):
+    """``feeds`` as steps from ``init`` on ``place``; ``unpack(first
+    step's fetches)`` gives the outputs compared, and the losses of
+    every step are added."""
+    with (twin or contextlib.nullcontext)():
+        outs, _ = _steps(main, main, fetch, init, place, feeds)
+    run = unpack([np.asarray(v) for v in outs[0]])
+    run["losses"] = [float(np.asarray(o[0])) for o in outs]
+    return run
+
+
+def _seq_timed(label, step, units, unit_name, card):
+    """One profiled step (``_profile``: a warm-up step, one timed, one
+    profiled without the host's ops), then SEQ_TIMED timed with every
+    counted kernel at 0.  Returns (the launches, the numbers)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prof = _profile(step, 1, warmup=1, host_ops=False)
+    t = time.perf_counter()
+    losses, launches = _counted_run(
+        label, lambda: [step() for _ in range(SEQ_TIMED)], {})
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"ms": wall / SEQ_TIMED * 1e3, "rate": units * SEQ_TIMED / wall,
+           "losses": losses, "peak_gib": peak, "host_ms": prof[0],
+           "busy_ms": prof[1], "idle": prof[2], "kernels": prof[3],
+           "launches": launches}
+    _p(f"{label} ({time.perf_counter() - t0:.1f} s): {SEQ_TIMED} steps in "
+       f"{wall:.3f} s: {out['ms']:.2f} ms/step, {out['rate']:.1f} "
+       f"{unit_name}/s; host {prof[0]:.3f} ms/step, device busy "
+       f"{prof[1]:.3f} ms/step, idle share {prof[2]:.4f}, {prof[3]:.0f} "
+       f"kernels/step; peak {peak:.2f} GiB; losses {losses}; launches "
+       f"{launches} (none expected)  [{card}]")
+    _print_classes(prof[4], "step")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: {label}'s losses are not finite")
+    return launches, out
+
+
+def _seq_determinism(label, main, startup, fetch, feed, card):
+    """Two runs of one full-width step from one state on the card: the
+    loss and every persistable after, bit for bit.  Returns the names of
+    the values that differ."""
+    from paddle_tpu_torch import fluid
+
+    init = _startup_state(main, startup, fluid.CUDAPlace(0))
+    runs = [_steps(main, main, fetch, init, fluid.CUDAPlace(0), [feed])
+            for _ in range(2)]
+    differ = [k for k in runs[0][1]
+              if not np.array_equal(runs[0][1][k], runs[1][1][k])]
+    if not np.array_equal(np.asarray(runs[0][0][0][0]),
+                          np.asarray(runs[1][0][0][0])):
+        differ.append("the loss")
+    _p(f"{label} determinism: two runs of one full-width step from one "
+       f"state, {len(differ)} of {len(runs[0][1]) + 1} persistables and "
+       f"the loss differ in any bit {differ}  [{card}]")
+    return differ
+
+
+def _worst_grads(pg, got, want, n=4):
+    """The ``n`` parameters whose first-step gradients differ most, by
+    relative L2 error."""
+    rel = sorted(((float(np.linalg.norm(a - b)
+                         / max(np.linalg.norm(b), 1e-30)), p.name)
+                  for (p, _), a, b in zip(pg, got["grads"], want["grads"])),
+                 reverse=True)
+    return [(name, f"{e:.2e}") for e, name in rel[:n]]
+
+
+def _srl_leg(card):
+    """(a) at the book's width: SRL_BATCH sentences padded to SRL_STEPS,
+    timed and profiled; card against host at SRL_HOST (the host's
+    startup values on both) with the start/stop-swapped twin; two
+    full-width runs bit for bit.  Returns (the launches, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, (loss, emission, path, chunks, pg), _ = _book_program(
+        srl_program, False, cfg=SRL, batch=SRL_BATCH, steps=SRL_STEPS)
+    n_params = sum(math.prod(p.shape)
+                   for p in main.global_block().all_parameters())
+    place = fluid.CUDAPlace(0)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = srl_feed(SRL, SRL_BATCH, SRL_STEPS, SEED + 80)
+    tokens = int(feed["length"].sum())
+    dev_feed = {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()}
+    last = {}
+
+    def step():
+        last["loss"], last["f1"] = exe.run(
+            main, feed=dev_feed, fetch_list=[loss, chunks[2]], scope=scope)
+        return float(last["loss"])
+    launches, out = _seq_timed("SRL db_lstm step", step, tokens, "tokens",
+                               card)
+    f1 = float(np.asarray(last["f1"]).reshape(-1)[0])
+    out.update(params=n_params, tokens=tokens, f1=f1)
+    _p(f"SRL db_lstm: {n_params} parameters, {SRL_BATCH} sentences of "
+       f"{tokens} tokens padded to {SRL_STEPS}, chunk_eval F1 {f1:.4f} "
+       f"(the reference's simplified IOB: the O tag opens a chunk at "
+       f"every token)  [{card}]")
+
+    # card against host at SRL_HOST
+    t = time.perf_counter()
+    hmain, hstart, (hloss, hem, hpath, hchunks, hpg), _ = _book_program(
+        srl_program, False, cfg=SRL_HOST, batch=SRL_HOST_BATCH,
+        steps=SRL_HOST_STEPS)
+    init = _startup_state(hmain, hstart, fluid.CPUPlace())
+    feeds = [srl_feed(SRL_HOST, SRL_HOST_BATCH, SRL_HOST_STEPS, SEED + 81 + i)
+             for i in range(SEQ_HOST_STEPS)]
+    crfw = hmain.global_block().var("crfw")
+    hfetch = [hloss, hem, hpath, crfw] + list(hchunks[3:]) \
+        + [g for _, g in hpg]
+
+    def unpack(v):
+        return {"emission": v[1], "path": v[2], "crfw": v[3],
+                "chunks": np.concatenate([np.ravel(c) for c in v[4:7]]),
+                "grads": v[7:], "length": feeds[0]["length"]}
+
+    def run(p, twin=None):
+        return _seq_run(hmain, hfetch, init, p, feeds, unpack, twin)
+    card_r, host_r = run(fluid.CUDAPlace(0)), run(fluid.CPUPlace())
+    ok, misses = _twins_report(
+        "SRL db_lstm", lambda twin: run(fluid.CPUPlace(), twin), host_r,
+        card_r, card, twins=(("start/stop-swapped", _crf_start_stop_swapped),),
+        margins=_seq_margins(_srl_exact))
+    clear = int(_srl_clear_rows(host_r).sum())
+    _p(f"SRL db_lstm: card vs host at hidden {SRL_HOST['hidden']}, depth "
+       f"{SRL_HOST['depth']}, {SRL_HOST_BATCH} rows of {SRL_HOST_STEPS}, "
+       f"{SEQ_HOST_STEPS} SGD steps in {time.perf_counter() - t:.1f} s: "
+       f"losses card {card_r['losses']}, host {host_r['losses']}; Viterbi "
+       f"paths held exactly on {clear} of {SRL_HOST_BATCH} rows (the rest "
+       f"by their scores); chunk counts card {card_r['chunks'].tolist()}, "
+       f"host {host_r['chunks'].tolist()}; the first step's gradients, "
+       f"largest relative L2 errors {_worst_grads(hpg, card_r, host_r)}")
+    out["card_vs_host"] = {"ok": ok, "misses": misses, "exact_rows": clear}
+    out["differ"] = _seq_determinism(
+        "SRL db_lstm", main, startup, [loss],
+        srl_feed(SRL, SRL_BATCH, SRL_STEPS, SEED + 83), card)
+    _p(f"phase 4t (a): {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
+def _ctc_yardstick(card):
+    """At (b)'s step shape: the ``warpctc`` op's forward and its
+    ``generic_grad``, beside ``F.ctc_loss`` (time-major log-probabilities,
+    the same lengths) forward and forward with backward, by CUDA events;
+    the two losses must agree to rtol 1e-4 (norm_by_times off)."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    rng = np.random.RandomState(SEED + 86)
+    steps, c = CRNN["width"] // 8, CRNN["classes"] + 1
+    feed = crnn_feed(CRNN, CRNN_BATCH, SEED + 87)
+    logits = torch.from_numpy(rng.randn(CRNN_BATCH, steps, c)
+                              .astype("float32")).to(DEVICE)
+    label = torch.from_numpy(feed["label"]).to(DEVICE)
+    n = torch.from_numpy(feed["label_length"]).to(DEVICE)
+    t_len = torch.full((CRNN_BATCH,), steps, dtype=torch.long, device=DEVICE)
+    ins = {"Logits": [logits], "Label": [label], "LabelLength": [n]}
+    attrs = {"blank": CRNN["classes"]}
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    op, grad = get_op("warpctc").fn, get_op("generic_grad").fn
+    g = torch.ones((CRNN_BATCH, 1), device=DEVICE)
+    gins = {"I_Logits": [logits], "I_Label": [label], "I_LabelLength": [n],
+            "G_Loss": [g]}
+    gattrs = {"fwd_type": "warpctc", "fwd_attrs": attrs,
+              "grad_slots": ["Logits"],
+              "in_slots": ["Logits", "Label", "LabelLength"]}
+    lib_x = logits.detach().clone().requires_grad_()
+
+    def lib():
+        return torch.nn.functional.ctc_loss(
+            torch.log_softmax(lib_x, -1).transpose(0, 1), label, t_len, n,
+            blank=CRNN["classes"], reduction="none")
+
+    def lib_both():
+        return torch.autograd.grad(lib().sum(), lib_x)
+    ours = _host(op(ins, attrs, ctx)["Loss"][0]).reshape(-1)
+    want = _host(lib()).reshape(-1)
+    err = float(np.abs(ours - want).max() / (1e-4 * np.abs(want).max()))
+    ours_g = _host(grad(gins, gattrs, ctx)["GI_Logits"][0])
+    want_g = _host(lib_both()[0])
+    err_g = float(np.abs(ours_g - want_g).max()
+                  / (1e-4 * np.abs(want_g).max()))
+    out = {"warpctc_ms": _ms(lambda: op(ins, attrs, ctx), 10),
+           "warpctc_grad_ms": _ms(lambda: grad(gins, gattrs, ctx), 10),
+           "ctc_loss_ms": _ms(lib, 10),
+           "ctc_loss_fwd_bwd_ms": _ms(lib_both, 10),
+           "loss_err": err, "grad_err": err_g}
+    _p(f"warpctc at [{CRNN_BATCH}, {steps}, {c}], labels of "
+       f"{CRNN['min_label']} to {CRNN['max_label']}: the op's forward "
+       f"{out['warpctc_ms']:.3f} ms, its generic_grad "
+       f"{out['warpctc_grad_ms']:.3f} ms; F.ctc_loss forward "
+       f"{out['ctc_loss_ms']:.3f} ms, forward and backward "
+       f"{out['ctc_loss_fwd_bwd_ms']:.3f} ms; loss / 1e-4 of the largest "
+       f"{err:.3e}, gradient {err_g:.3e} (under 1 passes)  [{card}]")
+    if err > 1 or err_g > 1:
+        raise SystemExit("chip_smoke: warpctc disagrees with F.ctc_loss")
+    return out
+
+
+def _crnn_leg(card):
+    """(b) at ocr_recognition's width: CRNN_BATCH images of
+    [1, 48, 512], timed and profiled; card against host at CRNN_HOST with
+    the (kh, C) twin; two full-width runs bit for bit; then the CTC
+    yardstick.  Returns (the launches, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, (loss, dec, dec_len, dist, greedy, pg), _ = _book_program(
+        crnn_program, False, cfg=CRNN, batch=CRNN_BATCH)
+    n_params = sum(math.prod(p.shape)
+                   for p in main.global_block().all_parameters())
+    place = fluid.CUDAPlace(0)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = crnn_feed(CRNN, CRNN_BATCH, SEED + 84)
+    dev_feed = {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()}
+
+    def step():
+        return float(exe.run(main, feed=dev_feed, fetch_list=[loss],
+                             scope=scope)[0])
+    launches, out = _seq_timed("CRNN-CTC step", step, CRNN_BATCH, "images",
+                               card)
+    d, g = exe.run(main, feed=dev_feed, fetch_list=[dec, greedy],
+                   scope=scope)
+    out["params"] = n_params
+    _p(f"CRNN-CTC: {n_params} parameters, batch {CRNN_BATCH} of "
+       f"[1, {CRNN['height']}, {CRNN['width']}], {CRNN['width'] // 8} steps "
+       f"of {CRNN['channels'][-1] * CRNN['height'] // 8} features; the "
+       f"builder's decoded rows equal the helper's: "
+       f"{np.array_equal(np.asarray(d), np.asarray(g))}  [{card}]")
+    if not np.array_equal(np.asarray(d), np.asarray(g)):
+        raise SystemExit("chip_smoke: ctc_greedy_decoder's rows are not "
+                         "ctc_align's")
+
+    t = time.perf_counter()
+    hmain, hstart, (hloss, hdec, hlen, hdist, _, hpg), _ = _book_program(
+        crnn_program, False, cfg=CRNN_HOST, batch=CRNN_HOST_BATCH)
+    init = _startup_state(hmain, hstart, fluid.CPUPlace())
+    # the model's batch_norm scales, N(0, 0.01), shrink the features about
+    # 100 times a layer (the convolutions' outputs lie far below the
+    # norm's epsilon) to 1e-10 at the eighth: the logits would not see the
+    # images; and its N(0, 0.01) filters make each norm divide by a tiny
+    # deviation, so the gradient of a convolution's bias (0 in exact
+    # arithmetic: the norm takes out the mean) is float32 noise as large
+    # as the rest.  The check carries scales of 1 (batch_norm's default)
+    # and He's N(0, 2 / fan-in) filters
+    rng = np.random.RandomState(SEED + 92)
+    for op in hmain.global_block().ops:
+        if op.type == "batch_norm":
+            name = op.inputs["Scale"][0]
+            init[name] = np.ones_like(init[name])
+        elif op.type == "conv2d":
+            name = op.inputs["Filter"][0]
+            shape = init[name].shape
+            init[name] = (rng.randn(*shape) * np.sqrt(
+                2 / math.prod(shape[1:]))).astype("float32")
+    feeds = [crnn_feed(CRNN_HOST, CRNN_HOST_BATCH, SEED + 85 + i)
+             for i in range(SEQ_HOST_STEPS)]
+    logits = [op for op in hmain.global_block().ops
+              if op.type == "warpctc"][0].inputs["Logits"][0]
+    hfetch = [hloss, hdec, hlen, hdist, logits] + [g for _, g in hpg]
+
+    def unpack(v):
+        return {"decoded": v[1], "decoded_len": v[2].reshape(-1),
+                "dist": v[3].reshape(-1), "logits": v[4], "grads": v[5:]}
+
+    def run(p, twin=None):
+        return _seq_run(hmain, hfetch, init, p, feeds, unpack, twin)
+    card_r, host_r = run(fluid.CUDAPlace(0)), run(fluid.CPUPlace())
+    ok, misses = _twins_report(
+        "CRNN-CTC", lambda twin: run(fluid.CPUPlace(), twin), host_r, card_r,
+        card, twins=(("(kh, C) patch order", _patches_kh_major),),
+        margins=_seq_margins(_crnn_exact))
+    clear = int(_crnn_clear_rows(host_r).sum())
+    _p(f"CRNN-CTC: card vs host at channels {CRNN_HOST['channels']}, "
+       f"hidden {CRNN_HOST['hidden']}, {CRNN_HOST_BATCH} images of "
+       f"[1, {CRNN_HOST['height']}, {CRNN_HOST['width']}], {SEQ_HOST_STEPS} "
+       f"Momentum steps in {time.perf_counter() - t:.1f} s: losses card "
+       f"{card_r['losses']}, host {host_r['losses']}; decoded rows, lengths "
+       f"and edit distances held exactly on {clear} of {CRNN_HOST_BATCH} "
+       f"rows; distances card {card_r['dist'].tolist()}, host "
+       f"{host_r['dist'].tolist()}; the first step's gradients, largest "
+       f"relative L2 errors {_worst_grads(hpg, card_r, host_r)}")
+    out["card_vs_host"] = {"ok": ok, "misses": misses, "exact_rows": clear}
+    out["differ"] = _seq_determinism(
+        "CRNN-CTC", main, startup, [loss],
+        crnn_feed(CRNN, CRNN_BATCH, SEED + 88), card)
+    out["ctc"] = _ctc_yardstick(card)
+    _p(f"phase 4t (b): {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
+def _seq_op_cases():
+    """(c): the 27 deterministic op types of the sequence tier at small
+    shapes from a seed: {label: (op, inputs, attrs)}."""
+    rng = np.random.RandomState(SEED + 89)
+
+    def r(*shape):
+        return rng.uniform(-1, 1, shape).astype("float32")
+
+    def ids(hi, *shape):
+        return rng.randint(0, hi, shape).astype("int64")
+    n5 = np.array([5, 3, 1], "int64")
+    return {
+        "sequence_conv": ({"X": r(3, 5, 4), "Filter": r(12, 6),
+                           "Length": n5},
+                          {"contextLength": 3, "contextStart": -1}),
+        "sequence_expand_as": ({"X": r(3, 4), "Y": r(3, 5, 2)}, {}),
+        "sequence_pad": ({"X": r(3, 5, 4), "PadValue": r(1),
+                          "Length": n5}, {"padded_length": 7}),
+        "sequence_unpad": ({"X": r(3, 5, 4), "Length": n5}, {}),
+        "sequence_slice": ({"X": r(3, 5, 4),
+                            "Offset": np.array([1, 0, 3], "int64"),
+                            "Length": np.array([3, 2, 2], "int64")}, {}),
+        "sequence_erase": ({"X": ids(6, 3, 7)}, {"tokens": [2, 4]}),
+        "sequence_enumerate": ({"X": ids(8, 3, 5)}, {"win_size": 3}),
+        "sequence_scatter": ({"X": r(3, 4),
+                              "Ids": np.array([0, 2, 2, 1], "int64"),
+                              "Updates": r(4, 4)}, {}),
+        "sequence_mask": ({"X": n5}, {"maxlen": 6}),
+        "sequence_softmax": ({"X": r(3, 5), "Length": n5}, {}),
+        "sequence_expand": ({"X": r(3, 4), "Y": r(3, 5)}, {}),
+        "sequence_reverse": ({"X": r(3, 5, 4), "Length": n5}, {}),
+        "sequence_concat": ({"X": [r(3, 2, 4), r(3, 3, 4)]}, {}),
+        "sequence_reshape": ({"X": r(3, 4, 6)}, {"new_dim": 8}),
+        "sequence_topk_avg_pooling": ({"X": r(2, 3, 6)}, {"topks": [1, 3]}),
+        "linear_chain_crf": ({"Emission": r(3, 5, 4), "Transition": r(6, 4),
+                              "Label": ids(4, 3, 5), "Length": n5}, {}),
+        "crf_decoding": ({"Emission": r(3, 5, 4) * 4,
+                          "Transition": r(6, 4) * 4, "Length": n5}, {}),
+        "chunk_eval": ({"Inference": ids(6, 3, 6), "Label": ids(6, 3, 6),
+                        "SeqLength": np.array([6, 4, 2], "int64")}, {}),
+        "warpctc": ({"Logits": r(3, 6, 5),
+                     "Label": np.array([[1, 2, 0], [3, 3, 1], [0, 0, 0]],
+                                       "int64"),
+                     "LogitsLength": np.array([6, 5, 4], "int64"),
+                     "LabelLength": np.array([2, 3, 0], "int64")},
+                    {"blank": 0, "norm_by_times": True}),
+        "ctc_align": ({"Input": ids(4, 3, 8)}, {"blank": 0}),
+        "edit_distance": ({"Hyps": ids(4, 3, 5), "Refs": ids(4, 3, 4),
+                           "HypsLength": np.array([5, 2, 0], "int64"),
+                           "RefsLength": np.array([4, 4, 1], "int64")}, {}),
+        "hierarchical_sigmoid": ({"X": r(4, 5), "W": r(6, 5),
+                                  "Bias": r(1, 6),
+                                  "Label": np.array([[0], [6], [3], [5]],
+                                                    "int64")},
+                                 {"num_classes": 7}),
+        "im2sequence": ({"X": r(2, 3, 5, 6)},
+                        {"kernels": [3, 2], "strides": [2, 1],
+                         "paddings": [1, 0, 0, 1]}),
+        "match_matrix_tensor": ({"X": r(2, 3, 4), "Y": r(2, 5, 4),
+                                 "W": r(4, 2, 4)}, {}),
+        "var_conv_2d": ({"X": r(2, 2, 5, 6), "W": r(3, 12)},
+                        {"output_channel": 3, "input_channel": 2,
+                         "kernel_h": 3, "kernel_w": 2, "stride_h": 2,
+                         "stride_w": 3}),
+        "tree_conv": ({"NodesVector": r(2, 5, 3),
+                       "EdgeSet": np.array([[[0, 1], [0, 2], [1, 3], [1, 4]],
+                                            [[0, 1], [1, 2], [0, 0],
+                                             [0, 0]]], "int64"),
+                       "Filter": r(3, 2, 2, 4)}, {}),
+        "center_loss": ({"X": r(5, 4),
+                         "Label": np.array([[0], [2], [2], [1], [0]],
+                                           "int64"),
+                         "Centers": r(3, 4),
+                         "CenterUpdateRate": np.array([0.3], "float32")},
+                        {"need_update": True}),
+    }
+
+
+def _sampled_contracts(card):
+    """``nce`` and ``sample_logits`` on the card by ground rule 5's
+    contract: the costs and sampled logits are the numpy formula of the
+    card's own samples, the negatives lie in [0, V) and are uniform
+    within 6 sigma, the true classes come first, and another seed draws
+    other samples."""
+    rng = np.random.RandomState(SEED + 90)
+    x, w = rng.randn(4000, 6).astype("float32"),         rng.randn(20, 6).astype("float32")
+    b, lbl = rng.randn(20).astype("float32"), rng.randint(0, 20, (4000, 1))
+    attrs = {"num_total_classes": 20, "num_neg_samples": 10, "op_seed": 3}
+    out = {k: _host(v[0]) for k, v in _op_run(
+        "nce", {"Input": x, "Weight": w, "Bias": b, "Label": lbl}, attrs,
+        DEVICE).items()}
+    s = out["SampleLabels"]
+    neg = s[:, 1:]
+    hist = np.bincount(neg.reshape(-1), minlength=20)
+    logits = np.einsum("bd,bsd->bs", x, w[s]) + b[s]
+    shifted = logits - np.log(10 / 20)
+    cost = -np.where(np.arange(11)[None] < 1, -np.logaddexp(0, -shifted),
+                     -np.logaddexp(0, shifted)).sum(1, keepdims=True)
+    nce_ok = bool(np.array_equal(s[:, :1], lbl) and neg.min() >= 0
+                  and neg.max() < 20
+                  and np.abs(hist - neg.size / 20).max()
+                  < 6 * np.sqrt(neg.size / 20 * 0.95)
+                  and np.allclose(out["SampleLogits"], logits, rtol=1e-4,
+                                  atol=1e-4)
+                  and np.allclose(out["Cost"], cost, rtol=1e-4, atol=1e-4))
+    other = _host(_op_run("nce", {"Input": x, "Weight": w, "Bias": b,
+                                  "Label": lbl}, dict(attrs, op_seed=4),
+                          DEVICE)["SampleLabels"][0])
+    nce_ok = nce_ok and not np.array_equal(other, s)
+    logit_in = rng.randn(2000, 30).astype("float32")
+    labels = rng.randint(0, 30, (2000, 2))
+    sl = {k: _host(v[0]) for k, v in _op_run(
+        "sample_logits", {"Logits": logit_in, "Labels": labels},
+        {"num_samples": 8, "op_seed": 5}, DEVICE).items()}
+    s2 = sl["Samples"]
+    hist2 = np.bincount(s2[:, 2:].reshape(-1), minlength=30)
+    want = np.take_along_axis(logit_in, s2, 1) \
+        - np.log(np.float32(1 / 30) * 8 + 1e-20)
+    sl_ok = bool(np.array_equal(s2[:, :2], labels) and s2.min() >= 0
+                 and s2.max() < 30
+                 and np.abs(hist2 - s2[:, 2:].size / 30).max()
+                 < 6 * np.sqrt(s2[:, 2:].size / 30 * (29 / 30))
+                 and np.allclose(sl["SampledLogits"], want, rtol=1e-5,
+                                 atol=1e-5))
+    _p(f"nce on the card by its contract: {nce_ok}; sample_logits: "
+       f"{sl_ok} (4,000 x 10 and 2,000 x 8 Philox draws)  [{card}]")
+    return nce_ok and sl_ok
+
+
+def _seq_ops_on_the_card(card):
+    """(c) the 27 deterministic op types on the card against the host,
+    forward and ``generic_grad``, within SEQ_CARD_TOL of each output's
+    largest |value| (ints equal; ``crf_decoding``'s emissions scaled so
+    no row is near a tie); ``nce`` and ``sample_logits`` by their
+    contract."""
+    worst, rng = {}, np.random.RandomState(SEED + 91)
+    for op, (ins, attrs) in _seq_op_cases().items():
+        worst[op] = _op_card_err(op, ins, attrs, SEQ_CARD_TOL, rng)
+    contract = _sampled_contracts(card)
+    _p(f"sequence-tier op types on the card against the host "
+       f"({len(worst) + 2} types), forward and generic_grad, error / "
+       f"{SEQ_CARD_TOL} of the largest |value| (under 1 passes): "
+       + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; nce and sample_logits by contract {contract}  [{card}]")
+    if max(worst.values()) > 1 or not contract:
+        raise SystemExit("chip_smoke: a sequence-tier op type disagrees "
+                         "with the host on the card")
+    return {"worst": worst, "contract": contract, "types": len(worst) + 2}
+
+
+def phase_sequence_tier(card):
+    """Phase 4t, the sequence tier: (a) the book's SRL (db_lstm through
+    linear_chain_crf, crf_decoding and chunk_eval) at CoNLL-05's width as
+    a static program; (b) CRNN-CTC at ocr_recognition's width; (c) the 29
+    op types on the card against the host.  Returns the counted launches
+    of (a)'s and (b)'s timed steps, and the numbers."""
+    srl_launches, srl = _srl_leg(card)
+    crnn_launches, crnn = _crnn_leg(card)
+    t = time.perf_counter()
+    ops = _seq_ops_on_the_card(card)
+    _p(f"phase 4t (c): {time.perf_counter() - t:.1f} s")
+    return ({"srl": srl_launches, "crnn": crnn_launches},
+            {"srl": srl, "crnn": crnn, "ops": ops})
 
 
 def _kernel_row(name, source, replaces, launches, row, **extra):
@@ -11074,6 +11880,9 @@ def main():
     rnn_launches, _ = _timed("4r static RNN tier", phase_static_rnn, card)
     image_launches, _ = _timed("4s image layers: CycleGAN", phase_image_layers,
                                card)
+    # 4t builds static programs too: before 4e turns dygraph on
+    seq_launches, _ = _timed("4t sequence tier: SRL and CRNN-CTC",
+                             phase_sequence_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -11282,6 +12091,11 @@ def main():
     for row in kernels:
         row["image_launches"] = {leg: c[row["name"]]
                                  for leg, c in image_launches.items()}
+    # the sequence tier (phase 4t): launches over (a)'s timed SRL steps and
+    # (b)'s timed CRNN-CTC steps (none expected)
+    for row in kernels:
+        row["sequence_launches"] = {leg: c[row["name"]]
+                                    for leg, c in seq_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -459,3 +459,127 @@ class Flatten(Layer):
         start, stop = self._start % nd, self._stop % nd
         return L.reshape(x, list(x.shape[:start]) + [-1]
                          + list(x.shape[stop + 1:]))
+
+
+# --- the sequence tier -------------------------------------------------------
+class GRUUnit(Layer):
+    """One GRU step over an already projected ``input`` [B, 3D] and
+    ``hidden`` [B, D]: (new hidden, new hidden, candidate).  As the
+    reference's, the reset gate is computed and never applied."""
+
+    def __init__(self, size, param_attr=None, bias_attr=None,
+                 activation="tanh", gate_activation="sigmoid",
+                 origin_mode=False, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("gru_unit")
+        d = size // 3
+        self.weight = helper.create_parameter(param_attr, [d, d * 3], dtype)
+        self.bias = helper.create_parameter(bias_attr, [1, d * 3], dtype,
+                                            is_bias=True)
+        self._d = d
+        self._activation = activation
+        self._gate_activation = gate_activation
+
+    def forward(self, input, hidden):
+        g = input + L.matmul(hidden, self.weight) + self.bias
+        u, _, c = L.split(g, [self._d] * 3, dim=-1)
+        u = getattr(L, self._gate_activation)(u)
+        c = getattr(L, self._activation)(c)
+        new_h = u * hidden + (1 - u) * c
+        return new_h, new_h, c
+
+
+class SequenceConv(Layer):
+    """``sequence_conv`` over padded [B, T, D] input; the filter
+    [filter_size · D, num_filters] and the bias are made at the first
+    call, when D is known."""
+
+    def __init__(self, name_scope, num_filters, filter_size=3,
+                 filter_stride=1, padding=None, bias_attr=None,
+                 param_attr=None, act=None):
+        super().__init__()
+        self._num_filters = num_filters
+        self._filter_size = filter_size
+        self._param_attr = param_attr
+        self._bias_attr = bias_attr
+        self._act = act
+        self._built = False
+
+    def forward(self, x):
+        if not self._built:
+            helper = LayerHelper("sequence_conv")
+            self.weight = helper.create_parameter(
+                self._param_attr,
+                [self._filter_size * int(x.shape[-1]), self._num_filters],
+                "float32")
+            self.bias = helper.create_parameter(
+                self._bias_attr, [self._num_filters], "float32",
+                is_bias=True) if self._bias_attr is not False else None
+            self._built = True
+        out = emit_op("sequence_conv", "sequence_conv",
+                      {"X": [x], "Filter": [self.weight]}, ("Out",),
+                      {"contextLength": self._filter_size,
+                       "contextStart": -(self._filter_size // 2),
+                       "contextStride": 1})["Out"][0]
+        if self.bias is not None:
+            out = out + self.bias
+        return getattr(L, self._act)(out) if self._act else out
+
+
+class NCE(Layer):
+    """The ``nce`` cost with uniform negatives; ``sampler`` is checked and
+    not read, as in the reference."""
+
+    def __init__(self, num_total_classes, dim, sample_weight=None,
+                 param_attr=None, bias_attr=None, num_neg_samples=None,
+                 sampler="uniform", custom_dist=None, seed=0,
+                 is_sparse=False, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("nce")
+        self.weight = helper.create_parameter(
+            param_attr, [num_total_classes, dim], dtype)
+        self.bias = helper.create_parameter(
+            bias_attr, [num_total_classes, 1], dtype, is_bias=True)
+        samplers = {"uniform": 0, "log_uniform": 1, "custom_dist": 2}
+        if sampler not in samplers:
+            raise ValueError(f"NCE sampler must be one of "
+                             f"{sorted(samplers)}, got {sampler!r}")
+        self._attrs = {"num_total_classes": num_total_classes,
+                       "num_neg_samples": num_neg_samples or 10,
+                       "seed": seed, "sampler": samplers[sampler]}
+
+    def forward(self, input, label, sample_weight=None):
+        return emit_op("nce", "nce",
+                       {"Input": [input], "Label": [label],
+                        "Weight": [self.weight], "Bias": [self.bias]},
+                       ("Cost", "SampleLogits", "SampleLabels"),
+                       self._attrs)["Cost"][0]
+
+
+class TreeConv(Layer):
+    """``tree_conv`` with a [feature_size, 3, output_size, num_filters]
+    filter (which the op reads as [D, H, depth, out]), the bias, then
+    ``act``."""
+
+    def __init__(self, feature_size, output_size, num_filters=1,
+                 max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+                 name=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        helper = LayerHelper("tree_conv")
+        self.weight = helper.create_parameter(
+            param_attr, [feature_size, 3, output_size, num_filters], dtype)
+        self.bias = helper.create_parameter(
+            bias_attr, [num_filters], dtype, is_bias=True) \
+            if bias_attr is not False else None
+        self._attrs = {"max_depth": max_depth, "output_size": output_size,
+                       "num_filters": num_filters}
+        self._act = act
+
+    def forward(self, nodes_vector, edge_set):
+        out = emit_op("tree_conv", "tree_conv",
+                      {"NodesVector": [nodes_vector], "EdgeSet": [edge_set],
+                       "Filter": [self.weight]}, ("Out",),
+                      self._attrs)["Out"][0]
+        if self.bias is not None:
+            out = out + self.bias
+        return getattr(L, self._act)(out) if self._act else out

@@ -24,6 +24,7 @@ from .initializer import (Constant, Uniform, Normal, Xavier, MSRA,
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import layers
 from .layers.tensor import data
+from . import nets
 from . import unique_name
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 from . import backward

@@ -1,7 +1,8 @@
 """fluid.layers namespace: the op builders the ported slices and the 2.0
 surface (paddle.tensor, nn.functional) use, the image layers, the control
-flow, the in-graph learning-rate schedules, and the recurrent layers with
-the decode framework."""
+flow, the in-graph learning-rate schedules, the recurrent layers with
+the decode framework, and the sequence tier (the padded ``sequence_*``
+layers, the CRF, CTC and sampled heads)."""
 from . import tensor
 from . import nn
 from . import loss
@@ -42,7 +43,14 @@ from .loss import (softmax_with_cross_entropy,
                    cross_entropy, smooth_l1)
 from .detection import sigmoid_focal_loss
 from .metric_op import accuracy
-from .sequence_lod import sequence_pool
+from .sequence_lod import (sequence_pool, sequence_conv, sequence_expand,
+                           sequence_mask, sequence_pad, sequence_unpad,
+                           sequence_erase, sequence_concat,
+                           sequence_first_step, sequence_last_step,
+                           sequence_slice, sequence_expand_as,
+                           sequence_reshape, sequence_scatter,
+                           sequence_enumerate, sequence_softmax,
+                           sequence_reverse)
 from .control_flow import (cond, while_loop, array_write, array_read,
                            array_length, create_array, less_than,
                            greater_than, equal,
@@ -62,7 +70,11 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      image_resize_short, resize_linear, prelu, soft_relu,
                      bilinear_tensor_product, spectral_norm, inplace_abn,
                      bpr_loss, rank_loss, margin_rank_loss,
-                     teacher_student_sigmoid_loss, conv3d_transpose)
+                     teacher_student_sigmoid_loss, conv3d_transpose,
+                     im2sequence, center_loss, warpctc, edit_distance, nce,
+                     hsigmoid, sampled_softmax_with_cross_entropy,
+                     linear_chain_crf, crf_decoding, chunk_eval,
+                     ctc_greedy_decoder)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

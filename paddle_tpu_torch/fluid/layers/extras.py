@@ -1,5 +1,6 @@
 """fluid.layers tail (counterpart of ``paddle_tpu/fluid/layers/extras.py``,
-the builders paddle.tensor, nn.functional and the image layers reach):
+the builders paddle.tensor, nn.functional, the image layers and the
+sequence tier (the CRF, CTC and sampled-head builders) reach):
 op-builder sugar over the registered lowerings, mode-agnostic through
 ``emit_op``; and the ``conv3d_transpose`` op, which the reference
 registers here."""
@@ -12,6 +13,7 @@ from ...ops.registry import register_op
 from ..framework import Variable
 from ..layer_helper import LayerHelper, emit_op
 from . import nn as _nn
+from . import tensor as _tensor
 
 
 def _one(op, ins, out_slot="Out", layer=None, **attrs):
@@ -398,3 +400,148 @@ def conv3d_transpose(input, num_filters, output_size=None,
                                     is_bias=True)
         out = _nn.elementwise_add(out, b, axis=1)
     return getattr(_nn, act)(out) if act else out
+
+
+# --- the sequence tier: CRF, CTC, the sampled heads --------------------------
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Patch rows [B · out_h · out_w, C · kh · kw] of an image batch."""
+    fs = [filter_size] * 2 if isinstance(filter_size, int) \
+        else list(filter_size)
+    return _one("im2sequence", {"X": [input]}, kernels=fs,
+                strides=[stride] * 2 if isinstance(stride, int)
+                else list(stride),
+                paddings=[padding] * 4 if isinstance(padding, int)
+                else list(padding))
+
+
+def center_loss(input, label, num_classes, alpha, param_attr=None,
+                update_center=True):
+    helper = LayerHelper("center_loss")
+    centers = helper.create_parameter(param_attr,
+                                      [num_classes, input.shape[-1]],
+                                      "float32")
+    rate = _tensor.fill_constant([1], "float32", alpha)
+    return _one("center_loss",
+                {"X": [input], "Label": [label], "Centers": [centers],
+                 "CenterUpdateRate": [rate]}, "Loss",
+                need_update=update_center)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss [B, 1] of padded logits [B, T, C] against padded labels."""
+    ins = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length]
+    return _one("warpctc", ins, "Loss", blank=blank,
+                norm_by_times=norm_by_times)
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """(distances [B, 1], the sequence count); ``ignored_tokens`` is not
+    read, as in the reference."""
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    outs = _many("edit_distance", ins, ("Out", "SequenceNum"),
+                 normalized=normalized)
+    return outs["Out"][0], outs["SequenceNum"][0]
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=5, name=None,
+        seed=0, **kw):
+    """The NCE cost [B, 1] with uniform negatives (``sample_weight`` and
+    the sampler arguments are not read, as in the reference)."""
+    helper = LayerHelper("nce", name=name)
+    w = helper.create_parameter(param_attr,
+                                [num_total_classes, input.shape[-1]],
+                                "float32")
+    b = helper.create_parameter(bias_attr, [num_total_classes], "float32",
+                                is_bias=True)
+    return _one("nce", {"Input": [input], "Label": [label],
+                        "Weight": [w], "Bias": [b]}, "Cost",
+                num_total_classes=num_total_classes,
+                num_neg_samples=num_neg_samples, op_seed=seed)
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, **kw):
+    helper = LayerHelper("hsigmoid", name=name)
+    w = helper.create_parameter(param_attr,
+                                [num_classes - 1, input.shape[-1]],
+                                "float32")
+    b = helper.create_parameter(bias_attr, [1, num_classes - 1],
+                                "float32", is_bias=True)
+    return _one("hierarchical_sigmoid",
+                {"X": [input], "W": [w], "Bias": [b], "Label": [label]},
+                "Out", layer="hsigmoid", num_classes=num_classes)
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1, seed=0, **kw):
+    """The full ``softmax_with_cross_entropy``, as the reference computes
+    it; the sampling arguments are accepted and not read."""
+    from .loss import softmax_with_cross_entropy
+    return softmax_with_cross_entropy(logits, label)
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The CRF's negative log-likelihood [B, 1]; its transition parameter
+    is [D + 2, D] (start, stop, then the transitions)."""
+    helper = LayerHelper("linear_chain_crf")
+    n_tags = input.shape[-1]
+    w = helper.create_parameter(param_attr, [n_tags + 2, n_tags],
+                                "float32")
+    ins = {"Emission": [input], "Transition": [w], "Label": [label]}
+    if length is not None:
+        ins["Length"] = [length]
+    return _one("linear_chain_crf", ins, "LogLikelihood")
+
+
+def crf_decoding(input, param_attr=None, label=None, length=None):
+    """The Viterbi path [B, T]; the transition is the CRF's, shared by the
+    ``ParamAttr`` name."""
+    helper = LayerHelper("crf_decoding")
+    n_tags = input.shape[-1]
+    w = helper.create_parameter(param_attr, [n_tags + 2, n_tags],
+                                "float32")
+    ins = {"Emission": [input], "Transition": [w]}
+    if label is not None:
+        ins["Label"] = [label]
+    if length is not None:
+        ins["Length"] = [length]
+    return _one("crf_decoding", ins, "ViterbiPath")
+
+
+CHUNK_OUTS = ("Precision", "Recall", "F1-Score", "NumInferChunks",
+              "NumLabelChunks", "NumCorrectChunks")
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """(precision, recall, F1, inferred, labelled and correct chunks)."""
+    ins = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        ins["SeqLength"] = [seq_length]
+    outs = _many("chunk_eval", ins, CHUNK_OUTS, chunk_scheme=chunk_scheme,
+                 num_chunk_types=num_chunk_types,
+                 excluded_chunk_types=list(excluded_chunk_types or []))
+    return tuple(outs[k][0] for k in CHUNK_OUTS)
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """The best class a step, then repeats merged and blanks removed
+    (``ctc_align``): the rows alone, padded with 0, as the reference's
+    builder returns them."""
+    ids = _tensor.argmax(input, axis=-1)
+    ins = {"Input": [ids]}
+    if input_length is not None:
+        ins["InputLength"] = [input_length]
+    return _one("ctc_align", ins, "Output", layer="ctc_greedy_decoder",
+                blank=blank, merge_repeated=True)

@@ -29,7 +29,8 @@ from .layer import (ReLU, GELU, Sigmoid, Tanh, Softmax, LeakyReLU, SiLU,
                     PixelShuffle, Dropout2D, Dropout3D, AlphaDropout,
                     LogSoftmax, ThresholdedReLU, Maxout, Bilinear,
                     BilinearTensorProduct, BCEWithLogitsLoss,
-                    MarginRankingLoss, CosineSimilarity, PairwiseDistance)
+                    MarginRankingLoss, CosineSimilarity, PairwiseDistance,
+                    CTCLoss, HSigmoidLoss)
 
 Conv2d = Conv2D  # historical alias
 

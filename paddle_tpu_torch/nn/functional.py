@@ -159,7 +159,17 @@ def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
 
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean"):
-    _waits("ctc_loss", "warpctc", 8)
+    """The ``warpctc`` op over ``log_probs`` [B, T, C] (axis 0 the batch,
+    as the reference reads it, where Paddle 2.0's is time-major); under
+    ``mean`` each row's loss is divided by its label's length first."""
+    loss = emit_op("warpctc", "warpctc",
+                   {"Logits": [log_probs], "Label": [labels],
+                    "LogitsLength": [input_lengths],
+                    "LabelLength": [label_lengths]}, ("Loss",),
+                   {"blank": blank, "norm_by_times": False})["Loss"][0]
+    if reduction == "mean":
+        loss = loss / L.cast(label_lengths, "float32")
+    return _reduce(loss, reduction)
 
 
 def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
@@ -489,7 +499,12 @@ def local_response_norm(x, size=5, alpha=1e-4, beta=0.75, k=1.0,
 
 
 def hsigmoid_loss(input, label, num_classes, weight, bias=None, **kw):
-    _waits("hsigmoid_loss", "hierarchical_sigmoid", 8)
+    """The ``hierarchical_sigmoid`` op over the default binary tree."""
+    ins = {"X": [input], "W": [weight], "Label": [label]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    return emit_op("hsigmoid_loss", "hierarchical_sigmoid", ins,
+                   ("Out",), {"num_classes": num_classes})["Out"][0]
 
 
 def dice_loss(input, label, epsilon=1e-5):

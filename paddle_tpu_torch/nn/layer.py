@@ -1170,6 +1170,40 @@ class BCEWithLogitsLoss(Layer):
                                                   self._reduction)
 
 
+class CTCLoss(Layer):
+    """``F.ctc_loss`` (batch-major ``log_probs``, as the reference)."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self._blank, self._reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths):
+        from . import functional as F
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self._blank, self._reduction)
+
+
+class HSigmoidLoss(Layer):
+    """``F.hsigmoid_loss`` with a [num_classes - 1, feature_size] weight
+    and a [1, num_classes - 1] bias."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, **kw):
+        super().__init__()
+        helper = LayerHelper("hsigmoid_loss")
+        self._num_classes = num_classes
+        self.weight = helper.create_parameter(
+            weight_attr, [num_classes - 1, feature_size], None)
+        self.bias = helper.create_parameter(
+            bias_attr, [1, num_classes - 1], None, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, input, label):
+        from . import functional as F
+        return F.hsigmoid_loss(input, label, self._num_classes,
+                               self.weight, self.bias)
+
+
 class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean"):
         super().__init__()

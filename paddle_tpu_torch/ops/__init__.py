@@ -18,7 +18,8 @@ from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
 from . import ctr_ops         # noqa: F401  fused_embedding_pool
 from . import rnn_ops         # noqa: F401  lstm/gru/cudnn_lstm family
-from . import nlp_ops         # noqa: F401  beam search
+from . import nlp_ops         # noqa: F401  CRF, CTC, beam search, sampled heads
+from . import sequence_extra  # noqa: F401  padded sequence ops
 from . import detection_ops   # noqa: F401  affine_grid, focal loss
 from . import attention       # noqa: F401  fused attention
 from . import cuda_kernels    # noqa: F401  hand-written CUDA kernels

@@ -1,6 +1,7 @@
 """Catalog-tail lowerings (counterpart of
-``paddle_tpu/ops/catalog_tail_ops.py``: the op paddle.tensor reaches and
-``recurrent``, StaticRNN's step loop)."""
+``paddle_tpu/ops/catalog_tail_ops.py``: the op paddle.tensor reaches,
+``recurrent``, StaticRNN's step loop, and the sequence tail's
+``sequence_reshape`` and ``sequence_topk_avg_pooling``)."""
 from __future__ import annotations
 
 import torch
@@ -45,3 +46,21 @@ def _recurrent(ins, attrs, ctx):
         for n in out_names:
             collected[n].append(env[n])
     return {"Out": [torch.stack(collected[n], dim=1) for n in out_names]}
+
+
+@register_op("sequence_reshape")
+def _sequence_reshape(ins, attrs, ctx):
+    """Rows regrouped to width ``new_dim`` ([B, T, D] keeps its batch)."""
+    x, new_dim = ins["X"][0], attrs["new_dim"]
+    return {"Out": [x.reshape(x.shape[0], -1, new_dim) if x.ndim == 3
+                    else x.reshape(-1, new_dim)]}
+
+
+@register_op("sequence_topk_avg_pooling", nondiff_inputs=("ROW", "COLUMN"))
+def _sequence_topk_avg_pooling(ins, attrs, ctx):
+    """For each k of ``topks``, the mean of the k largest along the last
+    axis of X [B, C, L]; the means concatenated on the last axis."""
+    x = ins["X"][0]
+    outs = [torch.topk(x, min(k, x.shape[-1]), dim=-1).values.mean(-1)
+            for k in attrs.get("topks", [1])]
+    return {"Out": [torch.cat(outs, dim=-1)]}

@@ -229,10 +229,13 @@ def _fill_constant(ins, attrs, ctx):
 @register_op("lookup_table_v2", nondiff_inputs=("Ids",))
 def _lookup_table_v2(ins, attrs, ctx):
     """Embedding (operators/lookup_table_v2_op): rows of W gathered by
-    int64 ids; rows at ``padding_idx`` read as zero."""
+    int64 ids; rows at ``padding_idx`` read as zero.  ``F.embedding``,
+    whose gradient on the card adds a row's repeats in a fixed order
+    (``index_select``'s adds them by atomics, and two runs of a table
+    with few rows, SRL's marks, differ in their last bits)."""
     w, ids = _x(ins, "W"), _x(ins, "Ids").long()
-    out = w.index_select(0, ids.reshape(-1)).reshape(
-        tuple(ids.shape) + tuple(w.shape[1:]))
+    out = torch.nn.functional.embedding(ids, w.reshape(w.shape[0], -1)) \
+        .reshape(tuple(ids.shape) + tuple(w.shape[1:]))
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)

@@ -3,7 +3,7 @@
 the two ops the pairwise fusion passes make, each the plain composition
 of its parts, the ``adamax`` update, and the image layers' stragglers
 (``bilinear_tensor_product``, ``pool3d``, ``spectral_norm``,
-``teacher_student_sigmoid_loss``, ``dropout_nd``)."""
+``teacher_student_sigmoid_loss``, ``dropout_nd``) and ``center_loss``."""
 from __future__ import annotations
 
 import torch
@@ -222,3 +222,24 @@ def _dropout_nd(ins, attrs, ctx):
                                                      device=x.device))
     return {"Out": [out.to(x.dtype)],
             "Mask": [torch.broadcast_to(keep, x.shape).to(torch.uint8)]}
+
+
+@register_op("center_loss", nondiff_inputs=("Label", "Centers",
+                                            "CenterUpdateRate"))
+def _center_loss(ins, attrs, ctx):
+    """center_loss_op.cc: 0.5 · ||x - center[label]||² a row; under
+    ``need_update`` the centers move by ``alpha`` times their rows' mean
+    difference (a count of n divides by n + 1)."""
+    x, centers = ins["X"][0], ins["Centers"][0]
+    label = ins["Label"][0].reshape(-1).long()
+    alpha = ins["CenterUpdateRate"][0].reshape(()) \
+        if ins.get("CenterUpdateRate") else 0.5
+    diff = x - centers[label]
+    loss = 0.5 * torch.sum(diff * diff, dim=1, keepdim=True)
+    if attrs.get("need_update", True):
+        cnt = torch.zeros(centers.shape[0], dtype=x.dtype, device=x.device) \
+            .index_add(0, label, torch.ones_like(label, dtype=x.dtype))
+        delta = torch.zeros_like(centers).index_add(0, label, diff)
+        centers = centers + alpha * delta / (cnt[:, None] + 1.0)
+    return {"Loss": [loss], "SampleCenterDiff": [diff],
+            "CentersOut": [centers]}

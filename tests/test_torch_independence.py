@@ -84,7 +84,8 @@ def test_import_leaves_jax_and_reference_out():
               "inference.aot", "fluid.trace", "fluid.flight_recorder",
               "fluid.goodput", "fluid.metrics_export", "ops.rnn_ops",
               "ops.nlp_ops", "nn.decode", "ops.detection_ops",
-              "fluid.layers.detection"):
+              "fluid.layers.detection", "ops.sequence_extra",
+              "fluid.layers.sequence_lod", "fluid.nets"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -1859,3 +1859,61 @@ def test_image_lowering_on_the_card_against_the_host(cuda, case):
                                    atol=1e-4 * float(want.abs().max()))
     if op == "pad2d":
         assert all(torch.equal(a, b) for a, b in zip(again(), card[1:]))
+
+
+def _ids(hi, *shape, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, hi, shape).astype("int64"))
+
+
+# gathers whose gradients add into repeated rows: SRL's two-row mark table
+# (640 ids), a CoNLL-05-sized predicate table, the CRF's labels, CTC's
+# extended label (the blank repeated in every other place)
+REPEAT_CASES = {
+    "lookup_table_v2 two rows": ("lookup_table_v2",
+                                 {"W": _r(2, 5), "Ids": _ids(2, 10, 64)},
+                                 {}),
+    "lookup_table_v2 3162 rows": ("lookup_table_v2",
+                                  {"W": _r(3162, 32), "Ids": _ids(40, 10, 64)},
+                                  {}),
+    "linear_chain_crf": ("linear_chain_crf",
+                         {"Emission": _r(10, 64, 59),
+                          "Transition": _r(61, 59, seed=3),
+                          "Label": _ids(59, 10, 64, seed=4),
+                          "Length": _ids(48, 10, seed=5) + 16}, {}),
+    "warpctc": ("warpctc", {"Logits": _r(32, 64, 96),
+                            "Label": _ids(95, 32, 24, seed=6),
+                            "LabelLength": _ids(20, 32, seed=7) + 4},
+                {"blank": 95, "norm_by_times": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPEAT_CASES))
+def test_repeated_gather_gradient_is_the_same_bits_twice(cuda, case):
+    """A gather's gradient over repeated indices (the embedding's rows,
+    the CRF's label one-hots, CTC's extended label) sums in a fixed order
+    on the card: two vjps give the same bits, and the host's values
+    within 1e-4 of the largest."""
+    op, ins, attrs = REPEAT_CASES[case]
+    lowering = get_op(op).fn
+    diff = [k for k in ins if ins[k].dtype == torch.float32]
+
+    def run(device):
+        fixed = {k: [v.to(device)] for k, v in ins.items()}
+
+        def f(*xs):
+            out = lowering(dict(fixed, **{k: [x] for k, x in zip(diff, xs)}),
+                           dict(attrs),
+                           LoweringContext(device=torch.device(device)))
+            return next(iter(out.values()))[0]
+        out, vjp = torch.func.vjp(f, *[ins[k].to(device) for k in diff])
+        cot = torch.randn(out.shape, generator=torch.Generator()
+                          .manual_seed(9)).to(device)
+        return [out] + list(vjp(cot)), lambda: vjp(cot)
+
+    card, again = run(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(again(), card[1:]))
+    host, _ = run("cpu")
+    for got, want in zip(card, host):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

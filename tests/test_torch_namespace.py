@@ -49,9 +49,7 @@ MISSING = {
         "profiler": 12, "reader": 12, "static": 12, "sysconfig": 12,
         "text": 12,
     },
-    "nn": {
-        **{n: 5 for n in ("CTCLoss", "HSigmoidLoss")},
-    },
+    "nn": {},
     "nn.functional": {},
     "tensor": {},
     "metric": {"auc": 8},
@@ -70,10 +68,6 @@ MISSING = {
             "is_compiled_with_cuda", "load_op_library", "require_version",)},
     },
     "fluid.layers": {
-        **{n: 5 for n in ("center_loss", "chunk_eval", "crf_decoding",
-            "ctc_greedy_decoder", "edit_distance", "hsigmoid",
-            "linear_chain_crf", "nce", "sampled_softmax_with_cross_entropy",
-            "warpctc",)},
         **{n: 8 for n in ("add_position_encoding", "affine_channel",
             "anchor_generator", "auc", "bipartite_match", "box_clip",
             "box_coder", "box_decoder_and_assign", "collect_fpn_proposals",
@@ -84,20 +78,14 @@ MISSING = {
             "gaussian_random_batch_size_like", "generate_mask_labels",
             "generate_proposal_labels", "generate_proposals",
             "get_tensor_from_selected_rows", "has_inf", "has_nan", "hash",
-            "im2sequence", "iou_similarity", "isfinite", "locality_aware_nms",
+            "iou_similarity", "isfinite", "locality_aware_nms",
             "lod_append", "lod_reset", "logical_xor", "matmul_v2",
             "matrix_nms", "mean_iou", "merge_selected_rows", "multi_box_head",
             "multiclass_nms", "pad_constant_like", "polygon_box_transform",
             "pow", "prior_box", "prroi_pool", "psroi_pool", "random_crop",
             "retinanet_detection_output", "retinanet_target_assign",
             "roi_align", "roi_perspective_transform", "roi_pool",
-            "rpn_target_assign", "sampling_id", "sequence_concat",
-            "sequence_conv", "sequence_enumerate", "sequence_erase",
-            "sequence_expand", "sequence_expand_as", "sequence_first_step",
-            "sequence_last_step", "sequence_mask", "sequence_pad",
-            "sequence_reshape", "sequence_reverse", "sequence_scatter",
-            "sequence_slice", "sequence_softmax", "sequence_unpad",
-            "shuffle_channel", "similarity_focus", "size", "space_to_depth",
+            "rpn_target_assign", "sampling_id", "shuffle_channel", "similarity_focus", "size", "space_to_depth",
             "ssd_loss", "target_assign", "temporal_shift",
             "tensor_array_to_tensor", "triu", "unbind", "uniform_random",
             "uniform_random_batch_size_like", "unique_with_counts",

@@ -79,6 +79,12 @@ A = {
     .astype("float32"),
     "w_bil": _rnd(3, 6, 6, seed=37),
     "b_bil": _rnd(1, 3, seed=38),
+    "ctc_x": _rnd(3, 6, 5, seed=39),
+    "ctc_lbl": np.array([[1, 2, 4], [3, 3, 1], [2, 0, 0]], "int64"),
+    "ctc_in_len": np.array([6, 5, 4], "int64"),
+    "ctc_lbl_len": np.array([3, 3, 1], "int64"),
+    "hs_w": _rnd(6, 6, seed=40),
+    "hs_b": _rnd(1, 6, seed=41),
 }
 
 # name -> (fn(F, L, *vars), input keys, static too?, input gradient?)
@@ -134,6 +140,14 @@ CASES = {
     "maxout": (lambda F, L, x: F.maxout(x, 2), ["img"], True, True),
     "row_conv": (lambda F, L, x, w: F.row_conv(x, w), ["rc_x", "rc_w"], True,
                  True),
+    "ctc_loss": (lambda F, L, x, l, n, m: F.ctc_loss(
+        F.log_softmax(x), l, n, m, blank=0),
+        ["ctc_x", "ctc_lbl", "ctc_in_len", "ctc_lbl_len"], True, True),
+    "ctc_loss sum": (lambda F, L, x, l, n, m: F.ctc_loss(
+        x, l, n, m, blank=0, reduction="sum"),
+        ["ctc_x", "ctc_lbl", "ctc_in_len", "ctc_lbl_len"], False, True),
+    "hsigmoid_loss": (lambda F, L, x, l, w, b: F.hsigmoid_loss(x, l, 7, w, b),
+                      ["x", "lbl_col", "hs_w", "hs_b"], True, True),
     "assign": (lambda F, L, x: F.assign(x), ["x"], True, True),
     # losses
     "cross_entropy": (lambda F, L, x, l: F.cross_entropy(x, l),
@@ -382,8 +396,6 @@ def test_dropout_family_contract(package):
 # --- the functions that wait for an op ---------------------------------------
 WAITING = {
     "diag_embed": (8, lambda: TF.diag_embed(None)),
-    "hsigmoid_loss": (8, lambda: TF.hsigmoid_loss(None, None, 2, None)),
-    "ctc_loss": (8, lambda: TF.ctc_loss(None, None, None, None)),
 }
 
 

@@ -6,9 +6,11 @@ The inputs are the reference's own, imported from
 ``tests/test_op_grads_auto.py``: its ``build_specs()``, else its generic
 probe (``_probe``, which wants a float output), else the first of its
 probe candidates (``_cands()``) that the reference's lowering runs at
-all (comparisons, reductions to bool, index ops).  The recurrent and
-beam-search op types, which those lack, take the first case of each in
-``test_torch_rnn_ops.OP_CASES`` and ``test_torch_rnn_decode.NLP_CASES``.
+all (comparisons, reductions to bool, index ops).  The recurrent,
+beam-search and sequence-tier op types, which those lack, take the first
+case of each in ``test_torch_rnn_ops.OP_CASES``,
+``test_torch_rnn_decode.NLP_CASES`` and
+``test_torch_sequence_ops.OP_CASES``.
 
 - Forward: every output slot of the reference's, floats within rtol 1e-4
   (and 1e-4 of the slot's largest value), ids and bools equal.
@@ -37,6 +39,7 @@ from paddle_tpu_torch.ops import registry as treg
 from test_op_grads_auto import _cands, _probe, _specs
 from test_torch_rnn_decode import NLP_CASES
 from test_torch_rnn_ops import OP_CASES
+from test_torch_sequence_ops import OP_CASES as SEQUENCE_CASES
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -53,7 +56,8 @@ _OPTIMIZER = ("an optimizer's update over a parameter, its gradient, its "
               "make: tests/test_torch_static_optim.py and "
               "test_torch_eager_optim.py hold the optimizers")
 _RANDOM = ("draws random numbers: ground rule 5 holds it to a contract "
-           "(tests/test_torch_tensor.py, test_torch_rnn_decode.py)")
+           "(tests/test_torch_tensor.py, test_torch_rnn_decode.py, "
+           "test_torch_sequence_ops.py)")
 _ATTRS_ONLY = ("makes its output from attributes (shape, value, range) "
                "alone; the probe feeds tensors: "
                "tests/test_torch_tensor.py")
@@ -69,9 +73,9 @@ SKIPS = {
     "update_loss_scaling": "AMP's loss-scale state machine: "
                            "tests/test_torch_static_amp.py",
     **{op: _RANDOM for op in (
-        "bernoulli", "gaussian_random", "multinomial", "randint",
-        "randperm", "sampling_id", "truncated_gaussian_random",
-        "uniform_random")},
+        "bernoulli", "gaussian_random", "multinomial", "nce", "randint",
+        "randperm", "sample_logits", "sampling_id",
+        "truncated_gaussian_random", "uniform_random")},
     **{op: _ATTRS_ONLY for op in (
         "assign_value", "eye", "fill_constant_batch_size_like", "linspace",
         "range")},
@@ -106,7 +110,8 @@ SKIPS = {
 SWEPT = [op for op in COMMON if op not in SKIPS and op not in CONTRACT]
 
 _NEW_OPS = {}
-for _op, _ins, _attrs in list(OP_CASES.values()) + list(NLP_CASES.values()):
+for _op, _ins, _attrs in (list(OP_CASES.values()) + list(NLP_CASES.values())
+                          + list(SEQUENCE_CASES.values())):
     _NEW_OPS.setdefault(_op, dict(inputs=_ins, attrs=_attrs))
 
 

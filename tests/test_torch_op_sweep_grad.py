@@ -26,16 +26,19 @@ DIFFERENTIABLE = [op for op in SWEPT
                   and jreg.get_op(op).differentiable]
 
 
-def check_generic_grad(op, ins, attrs, slots=None, rtol=GRAD_RTOL):
+def check_generic_grad(op, ins, attrs, slots=None, rtol=GRAD_RTOL,
+                       ref=None):
     """``op``'s ``generic_grad`` in both packages from ``ins`` and the same
     random cotangent of each float output: every input gradient of
     ``slots`` (by default each float input the op differentiates) within
-    ``rtol``."""
+    ``rtol``.  ``ref``: the reference's forward outputs, when the caller
+    has them (they give the cotangents' shapes)."""
     jdef = jreg.get_op(op)
     if slots is None:
         slots = [s for s, v in ins.items() if s not in jdef.nondiff_inputs
                  and np.asarray(_listed(v)[0]).dtype.kind == "f"]
-    ref, _ = run_both(op, ins, attrs)
+    if ref is None:
+        ref, _ = run_both(op, ins, attrs)
     rng = np.random.RandomState(5)
     cots = {}
     for s, vals in ref.items():

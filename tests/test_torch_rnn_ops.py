@@ -172,7 +172,8 @@ def test_the_eleven_op_types_are_registered():
            "sampling_id"}
     assert new <= set(treg.all_ops())
     assert new <= set(jreg.all_ops())
-    assert len(treg.all_ops()) == 278     # 245 and the image layers' 33
+    # 245, the image layers' 33 and the sequence tier's 29
+    assert len(treg.all_ops()) == 307
 
 
 def test_cudnn_lstm_w_is_nn_lstm_layout():
@@ -230,11 +231,13 @@ def _persistables(main, scope):
             if v.persistable and scope.find_var(n) is not None}
 
 
-def _programs(build):
+def _programs(build, prepare=None):
     """``build(fluid)`` in fresh programs of both packages (each
     appending an SGD of rate 0, whose gradients it returns after the
     fetches); the reference's startup values carried into the port's
-    scope.  Returns one ``run(feed) -> (ref, port)`` of both mains."""
+    scope (first through ``prepare(main, values)``, which may change them
+    in both scopes).  Returns one ``run(feed) -> (ref, port)`` of both
+    mains."""
     out = {}
     for pkg, fluid in (("ref", jfluid), ("port", tfluid)):
         (jframework if pkg == "ref" else tframework).reset_unique_name()
@@ -248,6 +251,10 @@ def _programs(build):
     with jguard(jscope):
         jexe.run(jstart)
     init = _persistables(jmain, jscope)
+    if prepare is not None:
+        init = prepare(jmain, init)
+        for n, v in init.items():
+            jscope.set_var(n, jnp.asarray(v))
     place = tfluid.CPUPlace()
     tscope, texe = tfluid.Scope(), tfluid.Executor(place)
     texe.run(tstart, scope=tscope)
