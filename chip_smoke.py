@@ -422,6 +422,24 @@ over):
    ``row_conv``, ``conv_shift``, ``beam_search``, ``gather_tree`` and
    ``beam_search_decode`` once each on the card against the host, and
    ``sampling_id``'s contract.
+4u. the detection tier -- static programs before 4e's tracer.  (a)
+   MobileNet-SSD (PaddleCV ``ssd``: MobileNet v1 to conv13, the four
+   extra blocks, 3x3 heads over six maps, 1,917 priors) at 64 of 3 x
+   300², 21 classes: ``ssd_loss`` once an image, summed, RMSProp over a
+   piecewise decay with L2Decay; 8 images served through
+   ``detection_output`` from the startup state, profiled; SEQ_TIMED
+   steps timed and profiled with every counted kernel at 0; card against
+   host at SSD_HOST (loss, gradients, detections past a score margin)
+   with a twin whose priors put the max size first; two full-width steps
+   bit for bit.  (b) YOLOv3 DarkNet-53 (PaddleDetection
+   ``yolov3_darknet``) at 8 of 608², 80 classes, one ``yolov3_loss`` a
+   scale, Momentum: the same, YOLO_SERVE images served through
+   ``yolo_box`` on each scale and ``matrix_nms``, the twin reading its
+   anchor masks reversed.  (c)
+   the tier's 34 op types on the card, each timed, against the host
+   forward and through ``generic_grad`` at Faster R-CNN R50-FPN's,
+   R-FCN's, (a)'s and (b)'s shapes; the gathering ops' gradients twice
+   bit for bit; ``multiclass_nms`` and ``multiclass_nms2`` raise.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -11817,6 +11835,781 @@ def phase_sequence_tier(card):
             {"srl": srl, "crnn": crnn, "ops": ops})
 
 
+# --- phase 4u: the detection tier -------------------------------------------
+# PaddlePaddle/models PaddleCV/ssd (mobilenet_ssd.py, train.py) on PASCAL
+# VOC: MobileNet v1 to conv13 and its four extra blocks, heads over the
+# 19², 10², 5², 3², 2² and 1² maps (the first map without a max size),
+# RMSProp over a piecewise decay with L2Decay(5e-5)
+SSD = dict(classes=21, size=300, scale=1.0, gts=8, lr=0.001, l2=5e-5,
+           boundaries=[40000, 60000], lr_scales=[1.0, 0.5, 0.25],
+           min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+           max_sizes=[150.0, 195.0, 240.0, 285.0, 300.0],
+           nms_threshold=0.45, nms_top_k=400, keep_top_k=200, score=0.01)
+SSD_BATCH, SSD_SERVE, SSD_PRIORS = 64, 8, 1917
+# the card-vs-host check: a quarter of the width at 96² with the prior
+# sizes scaled to it, 4 images (batch norm over the 1x1 maps of 2 images
+# moves the loss 1e-3 between two float32 runs), one step (RMSProp's
+# first step moves every weight by about lr·√10 whatever the size of its
+# gradient, so a second loss inherits the sign of gradients that are
+# float32 noise), the gradients' cosine to 1e-3 (batch norm over maps of
+# 1 to 9 values; MobileNetV2's check holds 1e-2)
+SSD_HOST = dict(SSD, scale=0.25, size=96,
+                min_sizes=[s * 96 / 300 for s in SSD["min_sizes"]],
+                max_sizes=[s * 96 / 300 for s in SSD["max_sizes"]],
+                host_batch=4, host_steps=1, cos_tol=1e-3)
+# PaddleDetection configs/yolov3_darknet.yml on COCO: DarkNet-53, the
+# three-scale head, Momentum 0.9 with L2Decay(5e-4)
+YOLO = dict(classes=80, size=608, width=32, stages=(1, 2, 8, 8, 4), gts=8,
+            anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116,
+                     90, 156, 198, 373, 326],
+            masks=[[6, 7, 8], [3, 4, 5], [0, 1, 2]], downsample=[32, 16, 8],
+            ignore_thresh=0.7, lr=0.001, momentum=0.9, l2=5e-4,
+            conf_thresh=0.005, score=0.01, keep_top_k=100)
+YOLO_BATCH = 8
+# images served a batch: matrix NMS over 22,743 boxes x 80 classes takes
+# about 0.41 s an image on the card (3.29 s for 8, H100 80GB HBM3 at 700 W)
+YOLO_SERVE = 2
+# the card-vs-host check: an eighth of the width at 128², 2 images, one
+# step, the gradients' cosine to 1e-3: batch norm over the 4x4 maps of 2
+# images leaves some pre-activations within float32 noise of 0, and leaky
+# ReLU's slope there is 1 on one side and 0.1 on the other (one element's
+# flip moved the whole gradient's cosine 1.6e-4 on the card, and the
+# second step's loss 1.1e-3)
+YOLO_HOST = dict(YOLO, size=128, width=8, stages=(1, 1, 1, 1, 1),
+                 host_batch=2, host_steps=1, cos_tol=1e-3)
+DET_CARD_TOL = 1e-4           # of each output's largest |value|
+DET_SCORE_MARGIN = 1e-3       # detections this close to the threshold may
+#                               fall either side of it on the card
+DET_OP_CHECK_ROIS = 32        # (c): the RoIs the host recomputes
+
+
+def _conv_bn(L, x, size, filters, stride, groups=1, act="relu"):
+    y = L.conv2d(x, filters, size, stride=stride, padding=(size - 1) // 2,
+                 groups=groups, bias_attr=False)
+    return L.batch_norm(y, act=act)
+
+
+def mobilenet_ssd_body(L, img, scale):
+    """mobilenet_ssd.py's body: MobileNet v1 to conv13 (the 19² map is
+    conv11's) and the four extra blocks; the six maps."""
+    def dws(x, f1, f2, stride):
+        x = _conv_bn(L, x, 3, int(f1 * scale), stride, groups=int(f1 * scale))
+        return _conv_bn(L, x, 1, int(f2 * scale), 1)
+
+    def extra(x, f1, f2):
+        x = _conv_bn(L, x, 1, int(f1 * scale), 1)
+        return _conv_bn(L, x, 3, int(f2 * scale), 2)
+    x = _conv_bn(L, img, 3, int(32 * scale), 2)
+    for f1, f2, stride in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                           (128, 256, 2), (256, 256, 1), (256, 512, 2),
+                           (512, 512, 1), (512, 512, 1), (512, 512, 1),
+                           (512, 512, 1), (512, 512, 1)):
+        x = dws(x, f1, f2, stride)
+    maps = [x]
+    x = dws(x, 512, 1024, 2)
+    maps.append(dws(x, 1024, 1024, 1))
+    for f1, f2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+        maps.append(extra(maps[-1], f1, f2))
+    return maps
+
+
+def ssd_program(fluid, cfg, batch, train=True):
+    """MobileNet-SSD: the body, priors and 3x3 loc/conf heads over the
+    six maps (the first map's composed as ``multi_box_head`` composes
+    them, since the reference's head takes a max size for every map;
+    ratio 1.0 passed, since its ``prior_box`` starts from none), and
+    ``detection_output`` over the softmaxed confidences as [B, C, P].
+    With ``train``: ``ssd_loss`` once an image over its slices (the
+    reference's takes one image), summed; RMSProp over the piecewise
+    decay with L2Decay.  Batch norm reads the batch's statistics, served
+    too (``_det_leg``).  Returns (nmsed, priors) or (loss, nmsed, priors,
+    params_grads)."""
+    L = fluid.layers
+    c, size = cfg["classes"], cfg["size"]
+    img = fluid.data("image", [batch, 3, size, size])
+    maps = mobilenet_ssd_body(L, img, cfg["scale"])
+    box0, var0 = L.prior_box(maps[0], img, [cfg["min_sizes"][0]],
+                             aspect_ratios=[1.0, 2.0], flip=True, clip=True)
+    n0 = box0.shape[2]
+
+    def rows(t, k):
+        return L.reshape(L.transpose(t, [0, 2, 3, 1]), [batch, -1, k])
+    loc0 = rows(L.conv2d(maps[0], n0 * 4, 3, padding=1), 4)
+    conf0 = rows(L.conv2d(maps[0], n0 * c, 3, padding=1), c)
+    locs, confs, box, var = L.multi_box_head(
+        maps[1:], img, size, c, [[1.0, 2.0, 3.0]] * 5,
+        min_sizes=cfg["min_sizes"][1:], max_sizes=cfg["max_sizes"],
+        flip=True, clip=True)
+    locs = L.concat([loc0, locs], 1)
+    confs = L.concat([conf0, confs], 1)
+    box = L.concat([L.reshape(box0, [-1, 4]), box], 0)
+    var = L.concat([L.reshape(var0, [-1, 4]), var], 0)
+    nmsed = L.detection_output(
+        locs, L.transpose(L.softmax(confs), [0, 2, 1]), box, var,
+        nms_threshold=cfg["nms_threshold"], nms_top_k=cfg["nms_top_k"],
+        keep_top_k=cfg["keep_top_k"], score_threshold=cfg["score"])
+    if not train:
+        return nmsed, box
+    g = cfg["gts"]
+    gt_box = fluid.data("gt_box", [batch, g, 4])
+    gt_label = fluid.data("gt_label", [batch, g, 1], "int64")
+
+    def image(t, i, shape=None):
+        t = L.slice(t, axes=[0], starts=[i], ends=[i + 1])
+        return t if shape is None else L.reshape(t, shape)
+    loss = L.sums([L.reduce_sum(L.ssd_loss(
+        image(locs, i), image(confs, i), image(gt_box, i, [g, 4]),
+        image(gt_label, i, [g, 1]), box, var)) for i in range(batch)])
+    lr = L.piecewise_decay(cfg["boundaries"],
+                           [cfg["lr"] * s for s in cfg["lr_scales"]])
+    _, pg = fluid.optimizer.RMSProp(
+        learning_rate=lr,
+        regularization=fluid.regularizer.L2Decay(cfg["l2"])).minimize(loss)
+    return loss, nmsed, box, pg
+
+
+def ssd_feed(cfg, batch, seed, train=True):
+    """Images from the seed; 1 to ``gts`` ground-truth boxes an image in
+    [0, 1]² with labels in [1, classes), the rest zero rows."""
+    rng = np.random.RandomState(seed)
+    size, g = cfg["size"], cfg["gts"]
+    feed = {"image": rng.randn(batch, 3, size, size).astype("float32")}
+    if not train:
+        return feed
+    box = np.zeros((batch, g, 4), "float32")
+    label = np.zeros((batch, g, 1), "int64")
+    for i in range(batch):
+        n = rng.randint(1, g + 1)
+        xy = rng.uniform(0.0, 0.7, (n, 2))
+        wh = rng.uniform(0.1, 0.5, (n, 2))
+        box[i, :n] = np.clip(np.concatenate([xy, xy + wh], 1), 0.0, 1.0)
+        label[i, :n, 0] = rng.randint(1, cfg["classes"], n)
+    feed.update(gt_box=box, gt_label=label)
+    return feed
+
+
+def _darknet_conv(L, x, filters, size, stride):
+    y = L.conv2d(x, filters, size, stride=stride, padding=(size - 1) // 2,
+                 bias_attr=False)
+    return L.leaky_relu(L.batch_norm(y), alpha=0.1)
+
+
+def darknet53(L, img, width, stages):
+    """DarkNet-53: a 3x3 stem, then a stride-2 conv and residual blocks
+    (1x1 halving, 3x3 back) a stage; the last three stages' outputs
+    (strides 8, 16, 32)."""
+    x = _darknet_conv(L, img, width, 3, 1)
+    outs = []
+    for i, n in enumerate(stages):
+        ch = width * 2 ** (i + 1)
+        x = _darknet_conv(L, x, ch, 3, 2)
+        for _ in range(n):
+            y = _darknet_conv(L, x, ch // 2, 1, 1)
+            x = L.elementwise_add(x, _darknet_conv(L, y, ch, 3, 1))
+        outs.append(x)
+    return outs[-3:]
+
+
+def _yolo_anchors(cfg, mask):
+    return [cfg["anchors"][2 * k + j] for k in mask for j in (0, 1)]
+
+
+def yolov3_program(fluid, cfg, batch, train=True):
+    """YOLOv3: DarkNet-53 and PaddleDetection's head (at each scale from
+    stride 32 down, a detection block of 1x1/3x3 pairs, the output conv
+    to A (5 + C) channels, the route to the next scale upsampled 2x and
+    concatenated); ``yolo_box`` on each scale and ``matrix_nms`` over
+    the class-major scores.  With ``train``: one ``yolov3_loss`` a
+    scale, each averaged over the batch, summed; Momentum with L2Decay.
+    Batch norm reads the batch's statistics, served too.  Returns
+    (nmsed,) or (loss, nmsed, params_grads)."""
+    L = fluid.layers
+    c, size = cfg["classes"], cfg["size"]
+    img = fluid.data("image", [batch, 3, size, size])
+    blocks = darknet53(L, img, cfg["width"], cfg["stages"])[::-1]
+    na = len(cfg["masks"][0])
+    outputs, route = [], None
+    for i, x in enumerate(blocks):
+        if i > 0:
+            x = L.concat([route, x], axis=1)
+        ch = cfg["width"] * 16 // 2 ** i
+        for _ in range(2):
+            x = _darknet_conv(L, x, ch, 1, 1)
+            x = _darknet_conv(L, x, ch * 2, 3, 1)
+        route = _darknet_conv(L, x, ch, 1, 1)
+        tip = _darknet_conv(L, route, ch * 2, 3, 1)
+        outputs.append(L.conv2d(tip, na * (5 + c), 1))
+        if i < len(blocks) - 1:
+            route = L.resize_nearest(
+                _darknet_conv(L, route, ch // 2, 1, 1), scale=2.0)
+    im_size = fluid.data("im_size", [batch, 2], "int32")
+    boxes, scores = [], []
+    for out, mask, down in zip(outputs, cfg["masks"], cfg["downsample"]):
+        b, s = L.yolo_box(out, im_size, _yolo_anchors(cfg, mask), c,
+                          cfg["conf_thresh"], down)
+        boxes.append(b)
+        scores.append(L.transpose(s, [0, 2, 1]))
+    nmsed = L.matrix_nms(L.concat(boxes, 1), L.concat(scores, 2),
+                         cfg["score"], cfg["score"], -1, cfg["keep_top_k"],
+                         background_label=-1, return_rois_num=False)
+    if not train:
+        return (nmsed,)
+    gt_box = fluid.data("gt_box", [batch, cfg["gts"], 4])
+    gt_label = fluid.data("gt_label", [batch, cfg["gts"]], "int64")
+    loss = L.sums([L.reduce_mean(L.yolov3_loss(
+        out, gt_box, gt_label, cfg["anchors"], mask, c,
+        cfg["ignore_thresh"], down))
+        for out, mask, down in zip(outputs, cfg["masks"],
+                                   cfg["downsample"])])
+    _, pg = fluid.optimizer.Momentum(
+        learning_rate=cfg["lr"], momentum=cfg["momentum"],
+        regularization=fluid.regularizer.L2Decay(cfg["l2"])).minimize(loss)
+    return loss, nmsed, pg
+
+
+def yolov3_feed(cfg, batch, seed, train=True):
+    """Images from the seed, ``im_size`` the input's; 1 to ``gts``
+    ground truths an image as (cx, cy, w, h) in [0, 1] with labels in
+    [0, classes), the rest zero rows."""
+    rng = np.random.RandomState(seed)
+    size, g = cfg["size"], cfg["gts"]
+    feed = {"image": rng.randn(batch, 3, size, size).astype("float32"),
+            "im_size": np.full((batch, 2), size, "int32")}
+    if not train:
+        return feed
+    box = np.zeros((batch, g, 4), "float32")
+    label = np.zeros((batch, g), "int64")
+    for i in range(batch):
+        n = rng.randint(1, g + 1)
+        box[i, :n] = np.concatenate([rng.uniform(0.1, 0.9, (n, 2)),
+                                     rng.uniform(0.05, 0.5, (n, 2))], 1)
+        label[i, :n] = rng.randint(0, cfg["classes"], n)
+    feed.update(gt_box=box, gt_label=label)
+    return feed
+
+
+def kept_detections(out, thr):
+    """{image x 1,000,003 + class: rows [score, x1, y1, x2, y2]} of the
+    NMS rows [B, N, 6] scoring past ``thr``."""
+    out = np.asarray(out)
+    b, n = np.nonzero(out[..., 1] > thr)
+    rows = out[b, n]
+    keys = b.astype(np.int64) * 1_000_003 + rows[:, 0].astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    keys, rows = keys[order], rows[order, 1:]
+    uniq, start = np.unique(keys, return_index=True)
+    return dict(zip(uniq.tolist(), np.split(rows, start[1:])))
+
+
+def detection_error(got, want, thr, margin, tol, window=16):
+    """Each detection scoring past ``thr + margin`` in one run matched in
+    the other's past ``thr`` by its box (same image and class; sought
+    among the ``window`` rows nearest in x1).  Returns the largest box
+    error over ``tol`` of the largest |coordinate| (1e6 where a group has
+    no counterpart: rows this close to the threshold may fall either side
+    of it), and the share of matched rows whose score moved more than
+    ``tol``, over 1e-3: matrix NMS decays a score by its IoU with the
+    better-scored boxes, and where two overlapping boxes' scores tie
+    within float32 noise the two runs order them differently (2 rows of
+    160,165 in YOLOv3's host check on the CPU)."""
+    scale = tol * max(1.0, float(np.abs(np.asarray(want)[..., 2:]).max()))
+    box_err, moved, rows_seen = 0.0, 0, 0
+    for a, b in ((got, want), (want, got)):
+        strict, loose = kept_detections(a, thr + margin), \
+            kept_detections(b, thr)
+        for key, rows in strict.items():
+            other = loose.get(key)
+            if other is None:
+                return 1e6, 1e6
+            other = other[np.argsort(other[:, 1], kind="stable")]
+            pos = np.searchsorted(other[:, 1], rows[:, 1])
+            cand = np.clip(pos[:, None] + np.arange(-window // 2, window // 2),
+                           0, len(other) - 1)
+            d = np.abs(rows[:, None, 1:] - other[cand][..., 1:]).max(-1)
+            best = d.argmin(1)
+            box_err = max(box_err, float(d.min(1).max()) / scale)
+            score = other[cand[np.arange(len(rows)), best], 0]
+            moved += int((np.abs(rows[:, 0] - score) > tol).sum())
+            rows_seen += len(rows)
+    return min(box_err, 1e6), moved / max(rows_seen, 1) / 1e-3
+
+
+@contextlib.contextmanager
+def _priors_max_first():
+    """The twin of (a): the max size's square first in each cell (the
+    order of Paddle's own priors), so the heads pair with other
+    priors."""
+    import torch
+
+    def wrap(orig):
+        def fn(ins, attrs, ctx):
+            out = orig(ins, attrs, ctx)
+            if not attrs.get("max_sizes"):
+                return out
+            return {k: [torch.cat([v[0][:, :, -1:], v[0][:, :, :-1]], 2)]
+                    for k, v in out.items()}
+        return fn
+    with _swapped_op("prior_box", wrap):
+        yield
+
+
+@contextlib.contextmanager
+def _yolo_masks_reversed():
+    """The twin of (b): ``yolov3_loss`` reads its mask's anchors in
+    reverse order, so each ground truth trains another anchor's
+    channels."""
+    def wrap(orig):
+        return lambda ins, attrs, ctx: orig(
+            ins, dict(attrs, anchor_mask=list(attrs["anchor_mask"])[::-1]),
+            ctx)
+    with _swapped_op("yolov3_loss", wrap):
+        yield
+
+
+def _det_margins(cfg):
+    """``_margins`` at ``cfg``'s cosine tolerance, and the first step's
+    detections' boxes and scores (``detection_error``)."""
+    def margins(got, want):
+        out = _margins(got, want, cfg["cos_tol"])
+        out["detection boxes"], out["detection scores"] = detection_error(
+            got["nmsed"], want["nmsed"], cfg["score"], DET_SCORE_MARGIN,
+            DET_CARD_TOL)
+        return out
+    return margins
+
+
+def _det_leg(label, build, cfg, batch, feed_fn, host_cfg, twin, seed,
+             serve, card):
+    """One detector: ``serve`` images through its NMS head from the
+    startup state, profiled, batch norm on the batch's statistics (the
+    weights are random, and with the startup's moving statistics, 0 and
+    1, DarkNet-53's 75 layers overflow float32; a few steps on one batch
+    do not settle them); the training step at full width (SEQ_TIMED steps
+    timed and profiled by ``_seq_timed``, every counted kernel at 0);
+    card against host at ``host_cfg`` (its ``host_batch`` images,
+    ``host_steps`` steps from the host's startup values: losses, the
+    first step's gradients, the first step's detections) with ``twin``;
+    two full-width steps from one state bit for bit.  Returns (the
+    launches, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, fetches, _ = _book_program(build, False, cfg=cfg,
+                                              batch=batch)
+    n_params = sum(math.prod(p.shape)
+                   for p in main.global_block().all_parameters())
+    place = fluid.CUDAPlace(0)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+
+    smain, _, sfetch, _ = _book_program(build, False, cfg=cfg, batch=serve,
+                                        train=False)
+    sfeed = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             feed_fn(cfg, serve, seed + 1, train=False).items()}
+    served = {}
+
+    def serve_call():
+        served["out"] = exe.run(smain, feed=sfeed, fetch_list=[sfetch[0]],
+                                scope=scope)[0]
+    (host_ms, busy, idle, kern, by_class), serve_launches = _counted_run(
+        f"{label} serving", lambda: _profile(serve_call, 1, warmup=1,
+                                             host_ops=False), {})
+    kept = np.asarray(served["out"])
+    n_kept = int((kept[..., 1] > cfg["score"]).sum())
+    serving = {"host_ms": host_ms, "busy_ms": busy, "idle": idle,
+               "kernels": kern, "rate": serve / host_ms * 1e3,
+               "rows": list(kept.shape), "kept": n_kept}
+    _p(f"{label} serving: {serve} images through the NMS head from the "
+       f"startup state, host {host_ms:.3f} ms a batch, device busy "
+       f"{busy:.3f} ms, idle share {idle:.4f}, {kern:.0f} kernels, "
+       f"{serve / host_ms * 1e3:.1f} images/s; rows {list(kept.shape)}, "
+       f"{n_kept} past the score threshold {cfg['score']}  [{card}]")
+    _print_classes(by_class, "batch")
+    if not np.isfinite(kept).all():
+        raise SystemExit(f"chip_smoke: {label}'s detections are not finite")
+
+    loss = fetches[0]
+    feed = feed_fn(cfg, batch, seed)
+    dev_feed = {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()}
+
+    def step():
+        return float(exe.run(main, feed=dev_feed, fetch_list=[loss],
+                             scope=scope)[0])
+    launches, out = _seq_timed(f"{label} step", step, batch, "images", card)
+    out.update(params=n_params, serve=serving)
+    extra = ""
+    if build is ssd_program:
+        out["priors"] = int(fetches[2].shape[0])
+        extra = (f", {out['priors']} priors (the published head: "
+                 f"{SSD_PRIORS})")
+    _p(f"{label}: {n_params} parameters, batch {batch} of 3 x "
+       f"{cfg['size']}^2, {cfg['classes']} classes{extra}  [{card}]")
+
+    t = time.perf_counter()
+    hb = host_cfg["host_batch"]
+    hmain, hstart, hfetch, _ = _book_program(build, False, cfg=host_cfg,
+                                             batch=hb)
+    hpg = hfetch[-1]
+    init = _startup_state(hmain, hstart, fluid.CPUPlace())
+    feeds = [feed_fn(host_cfg, hb, seed + 2 + i)
+             for i in range(host_cfg["host_steps"])]
+    fetch = [hfetch[0], hfetch[1]] + [g for _, g in hpg]
+
+    def unpack(v):
+        return {"nmsed": v[1], "grads": v[2:]}
+
+    def run(p, twin_cm=None):
+        return _seq_run(hmain, fetch, init, p, feeds, unpack, twin_cm)
+    card_r, host_r = run(fluid.CUDAPlace(0)), run(fluid.CPUPlace())
+    ok, misses = _twins_report(
+        label, lambda tw: run(fluid.CPUPlace(), tw), host_r, card_r, card,
+        twins=(twin,), margins=_det_margins(host_cfg))
+    n_host = sum(len(v) for v in kept_detections(
+        host_r["nmsed"], host_cfg["score"] + DET_SCORE_MARGIN).values())
+    _p(f"{label}: card vs host at {host_cfg['size']}^2, {hb} images, "
+       f"{len(feeds)} steps in {time.perf_counter() - t:.1f} s: losses card "
+       f"{card_r['losses']}, host {host_r['losses']}; {n_host} host "
+       f"detections past the margin; the first step's gradients, largest "
+       f"relative L2 errors {_worst_grads(hpg, card_r, host_r)}")
+    out["card_vs_host"] = {"ok": ok, "misses": misses, "detections": n_host}
+    out["differ"] = _seq_determinism(label, main, startup, [loss],
+                                     feed_fn(cfg, batch, seed + 4), card)
+    if out["differ"]:
+        raise SystemExit(f"chip_smoke: two {label} steps from one state "
+                         f"differ in {out['differ']}")
+    _p(f"phase 4u {label}: {time.perf_counter() - t0:.1f} s")
+    return {"train": launches, "serve": serve_launches}, out
+
+
+def _fpn_anchors(level):
+    """Faster R-CNN R50-FPN at 800 x 1333 (padded to 800 x 1344): level
+    ``level``'s map and its anchors (size 2^(level+3), ratios 0.5, 1,
+    2, stride 2^level) as [H, W, 3, 4]."""
+    stride = 2 ** level
+    h, w = -(-800 // stride), -(-1344 // stride)
+    ys, xs = np.meshgrid((np.arange(h) + 0.5) * stride,
+                         (np.arange(w) + 0.5) * stride, indexing="ij")
+    size = 2.0 ** (level + 3)
+    base = np.array([[-size * r ** 0.5 / 2, -size / r ** 0.5 / 2,
+                      size * r ** 0.5 / 2, size / r ** 0.5 / 2]
+                     for r in (0.5, 1.0, 2.0)])
+    ctr = np.stack([xs, ys, xs, ys], -1)[:, :, None]
+    return h, w, (ctr + base).astype("float32")
+
+
+def _det_boxes(rng, n, extent, size=(16.0, 400.0)):
+    xy = rng.uniform(0, extent - size[0], (n, 2))
+    wh = rng.uniform(*size, (n, 2))
+    return np.concatenate([xy, np.minimum(xy + wh, extent)], 1) \
+        .astype("float32")
+
+
+def _det_op_cases():
+    """(c): the 34 op types at the shapes of the slice's paths: the RPN,
+    RoI and FPN ops at Faster R-CNN R50-FPN's (800 x 1333, 512 RoIs an
+    image, 256 channels, 7 x 7; R-FCN's 81 x 49 position-sensitive maps
+    at stride 16), the rest at (a)'s and (b)'s.  {label: (op, inputs,
+    attrs, the inputs the host recomputes or None)}."""
+    rng = np.random.RandomState(SEED + 95)
+
+    def r(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype("float32")
+
+    def u(*shape):
+        return rng.uniform(0, 1, shape).astype("float32")
+    # the P2 to P6 maps' 89,523 positions as one map of 3 anchors each
+    all_anchors = np.concatenate([_fpn_anchors(level)[2].reshape(-1, 4)
+                                  for level in range(2, 7)])
+    n = len(all_anchors) // 3
+    rpn = {"Scores": r(1, 3, n, 1), "BboxDeltas": r(1, 12, n, 1, scale=0.1),
+           "ImInfo": np.array([[800, 1344, 1]], "float32"),
+           "Anchors": all_anchors.reshape(n, 1, 3, 4),
+           "Variances": np.ones((n, 1, 3, 4), "float32")}
+    rpn_attrs = {"pre_nms_topN": 2000, "post_nms_topN": 1000,
+                 "nms_thresh": 0.7}
+    cases = {"generate_proposals": ("generate_proposals", rpn, rpn_attrs,
+                                    None)}
+    gts = _det_boxes(rng, 8, 800.0)
+    rois = _det_boxes(rng, 512, 800.0)
+    quads = rois[:, [0, 1, 2, 1, 2, 3, 0, 3]] + r(512, 8, scale=4.0)
+
+    def sub(ins, k=DET_OP_CHECK_ROIS):
+        return {s: (v[:k] if s in ("ROIs", "Trans") else v)
+                for s, v in ins.items()}
+    p2 = r(1, 256, 200, 336)
+    c4 = r(1, 256, 50, 84)
+    ps = r(1, 81 * 49, 50, 84)
+    pool = {"pooled_height": 7, "pooled_width": 7}
+    cases.update({
+        "rpn_target_assign": ("rpn_target_assign",
+                              {"Anchor": all_anchors, "GtBoxes": gts},
+                              {"rpn_positive_overlap": 0.7,
+                               "rpn_negative_overlap": 0.3}, None),
+        "roi_align": ("roi_align", {"X": p2, "ROIs": rois},
+                      dict(pool, spatial_scale=0.25, sampling_ratio=2), "sub"),
+        "roi_pool": ("roi_pool", {"X": c4, "ROIs": rois},
+                     dict(pool, spatial_scale=1 / 16), "sub"),
+        "prroi_pool": ("prroi_pool", {"X": c4, "ROIs": rois},
+                       dict(pool, spatial_scale=1 / 16), "sub"),
+        "psroi_pool": ("psroi_pool", {"X": ps, "ROIs": rois},
+                       dict(pool, spatial_scale=1 / 16, output_channels=81),
+                       "sub"),
+        "deformable_psroi_pooling": (
+            "deformable_psroi_pooling",
+            {"X": ps, "ROIs": rois, "Trans": r(512, 2, 7, 7, scale=0.1)},
+            dict(pool, spatial_scale=1 / 16, output_dim=81, trans_std=0.1),
+            "sub"),
+        "roi_perspective_transform": (
+            "roi_perspective_transform", {"X": c4, "ROIs": quads},
+            {"transformed_height": 7, "transformed_width": 7,
+             "spatial_scale": 1 / 16}, "sub"),
+        "distribute_fpn_proposals": (
+            "distribute_fpn_proposals",
+            {"FpnRois": _det_boxes(rng, 2000, 1333.0, (8.0, 800.0))},
+            {"min_level": 2, "max_level": 5, "refer_level": 4,
+             "refer_scale": 224}, None),
+        "collect_fpn_proposals": (
+            "collect_fpn_proposals",
+            {"MultiLevelRois": [_det_boxes(rng, 1000, 800.0)
+                                for _ in range(5)],
+             "MultiLevelScores": [u(1000, 1) for _ in range(5)]},
+            {"post_nms_topN": 2000}, None),
+        "generate_proposal_labels": (
+            "generate_proposal_labels",
+            {"RpnRois": _det_boxes(rng, 2000, 800.0), "GtClasses":
+             rng.randint(1, 81, (8, 1)).astype("int64"),
+             "IsCrowd": np.zeros((8, 1), "int64"), "GtBoxes": gts,
+             "ImInfo": np.array([[800, 1344, 1]], "float32")},
+            {"batch_size_per_im": 512, "fg_fraction": 0.25}, None),
+        "generate_mask_labels": (
+            "generate_mask_labels",
+            {"Rois": rois, "GtSegms": (u(8, 800, 1344) > 0.5)
+             .astype("int64"), "LabelsInt32": rng.randint(
+                 0, 81, (512, 1)).astype("int64"),
+             "MatchIndices": rng.randint(0, 8, 512).astype("int64")},
+            {"resolution": 28}, None),
+        "box_decoder_and_assign": (
+            "box_decoder_and_assign",
+            {"PriorBox": rois, "PriorBoxVar": np.tile(
+                [[0.1, 0.1, 0.2, 0.2]], (512, 1)).astype("float32"),
+             "TargetBox": r(512, 81 * 4, scale=0.5),
+             "BoxScore": u(512, 81)}, {"box_clip": 4.135}, None),
+        "box_clip": ("box_clip", {"Input": _det_boxes(rng, 1000, 1500.0),
+                                  "ImInfo": np.array([[800, 1333, 1]],
+                                                     "float32")}, {}, None),
+        "anchor_generator": ("anchor_generator", {"Input": p2},
+                             {"anchor_sizes": [32.0],
+                              "aspect_ratios": [0.5, 1.0, 2.0],
+                              "stride": [4.0, 4.0]}, None),
+        "generate_proposals_v2": ("generate_proposals_v2", rpn, rpn_attrs,
+                                  None),
+    })
+    # RetinaNet at 800 x 1333: P3 to P7, 9 anchors a cell, 80 classes
+    hw = [(-(-800 // 2 ** l), -(-1344 // 2 ** l)) for l in range(3, 8)]
+    cases["retinanet_detection_output"] = (
+        "retinanet_detection_output",
+        {"BBoxes": [_det_boxes(rng, 9 * h * w, 800.0)[None] for h, w in hw],
+         "Scores": [u(1, 9 * h * w, 80) * 0.2 for h, w in hw],
+         "Anchors": [_det_boxes(rng, 9 * h * w, 800.0) for h, w in hw],
+         "ImInfo": np.array([[800, 1344, 1]], "float32")},
+        {"score_threshold": 0.05, "keep_top_k": 100}, None)
+    # (a)'s shapes: 1,917 priors, 8 ground truths, 21 classes
+    priors = np.clip(_det_boxes(rng, SSD_PRIORS, 1.0, (0.05, 0.9)), 0, 1)
+    pvar = np.tile([[0.1, 0.1, 0.2, 0.2]], (SSD_PRIORS, 1)) \
+        .astype("float32")
+    gt = np.clip(_det_boxes(rng, 8, 1.0, (0.1, 0.5)), 0, 1)
+    iou = _np_iou(gt, priors)
+    match = np.where(iou.max(0) > 0.5, iou.argmax(0), -1)[None]
+    cases.update({
+        "prior_box": ("prior_box", {"Input": r(1, 512, 19, 19),
+                                    "Image": r(1, 3, 300, 300)},
+                      {"min_sizes": [60.0], "aspect_ratios": [1.0, 2.0],
+                       "flip": True}, None),
+        "density_prior_box": ("density_prior_box",
+                              {"Input": r(1, 512, 19, 19),
+                               "Image": r(1, 3, 300, 300)},
+                              {"fixed_sizes": [30.0, 60.0],
+                               "densities": [2, 1],
+                               "fixed_ratios": [1.0, 2.0]}, None),
+        "iou_similarity": ("iou_similarity", {"X": gt, "Y": priors}, {},
+                           None),
+        "bipartite_match": ("bipartite_match",
+                            {"DistMat": iou.astype("float32")},
+                            {"match_type": "per_prediction",
+                             "dist_threshold": 0.5}, None),
+        "target_assign": ("target_assign",
+                          {"X": gt[None], "MatchIndices":
+                           match.astype("int64")}, {"mismatch_value": 0.0},
+                          None),
+        "box_coder": ("box_coder", {"PriorBox": priors, "PriorBoxVar": pvar,
+                                    "TargetBox": r(SSD_BATCH, SSD_PRIORS, 4,
+                                                   scale=0.3)},
+                      {"code_type": "decode_center_size"}, None),
+        "mine_hard_examples": ("mine_hard_examples",
+                               {"ClsLoss": u(SSD_BATCH, SSD_PRIORS),
+                                "MatchIndices": np.repeat(
+                                    match, SSD_BATCH, 0).astype("int64")},
+                               {"neg_pos_ratio": 3.0}, None),
+        "matrix_nms": ("matrix_nms",
+                       {"BBoxes": np.repeat(priors[None], SSD_SERVE, 0),
+                        "Scores": u(SSD_SERVE, 21, SSD_PRIORS)},
+                       {"score_threshold": 0.01}, None),
+        "locality_aware_nms": ("locality_aware_nms",
+                               {"BBoxes": priors[None],
+                                "Scores": u(1, 21, SSD_PRIORS)},
+                               {"nms_threshold": 0.45,
+                                "score_threshold": 0.01}, None),
+        "detection_map": ("detection_map",
+                          {"DetectRes": np.concatenate(
+                              [rng.randint(0, 21, (200, 1)), u(200, 1),
+                               _det_boxes(rng, 200, 1.0, (0.05, 0.5))],
+                              1).astype("float32"),
+                           "Label": np.concatenate(
+                               [rng.randint(0, 21, (40, 1)),
+                                _det_boxes(rng, 40, 1.0, (0.05, 0.5))],
+                               1).astype("float32")},
+                          {"overlap_threshold": 0.5}, None),
+    })
+    # (b)'s shapes: the stride-8 head of 8 images at 608², 80 classes
+    c = 3 * (5 + 80)
+    cases.update({
+        "yolo_box": ("yolo_box", {"X": r(YOLO_BATCH, c, 76, 76),
+                                  "ImgSize": np.full((YOLO_BATCH, 2), 608,
+                                                     "int32")},
+                     {"anchors": YOLO["anchors"][:6], "class_num": 80,
+                      "conf_thresh": 0.005, "downsample_ratio": 8}, None),
+        "yolov3_loss": ("yolov3_loss",
+                        {"X": r(YOLO_BATCH, c, 76, 76),
+                         "GTBox": yolov3_feed(dict(YOLO, size=8), YOLO_BATCH,
+                                              SEED + 96)["gt_box"],
+                         "GTLabel": rng.randint(0, 80, (YOLO_BATCH, 8))
+                         .astype("int64")},
+                        {"anchors": YOLO["anchors"], "anchor_mask": [0, 1, 2],
+                         "class_num": 80, "ignore_thresh": 0.7,
+                         "downsample_ratio": 8}, None),
+        "polygon_box_transform": ("polygon_box_transform",
+                                  {"Input": r(YOLO_BATCH, 8, 152, 152)}, {},
+                                  None),
+        "deformable_conv": ("deformable_conv",
+                            {"Input": r(2, 256, 38, 38),
+                             "Offset": r(2, 18, 38, 38, scale=0.7),
+                             "Mask": u(2, 9, 38, 38),
+                             "Filter": r(256, 256, 3, 3, scale=0.02)},
+                            {"strides": [1, 1], "paddings": [1, 1]}, None),
+        "deformable_conv_v1": ("deformable_conv_v1",
+                               {"Input": r(2, 256, 38, 38),
+                                "Offset": r(2, 18, 38, 38, scale=0.7),
+                                "Filter": r(256, 256, 3, 3, scale=0.02)},
+                               {"strides": [1, 1], "paddings": [1, 1]},
+                               None),
+    })
+    return {k: (op, ins, attrs, sub(ins) if check == "sub" else None)
+            for k, (op, ins, attrs, check) in cases.items()}
+
+
+def _np_iou(a, b):
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)
+    area = lambda x: np.prod(np.clip(x[:, 2:] - x[:, :2], 0, None), -1)
+    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter,
+                              1e-10)
+
+
+# the pooled and sampled ops whose gradients gather: two card runs of
+# each generic_grad bit for bit
+DET_GATHER_GRADS = ("roi_align", "roi_pool", "prroi_pool", "psroi_pool",
+                    "deformable_psroi_pooling", "roi_perspective_transform",
+                    "deformable_conv", "deformable_conv_v1", "yolov3_loss")
+
+
+def _det_ops_on_the_card(card):
+    """(c) the 34 op types on the card: each one's forward ms at the
+    case's shapes (CUDA events); against the host, forward and
+    ``generic_grad``, within DET_CARD_TOL of each output's largest
+    |value| (the RoI ops on their first DET_OP_CHECK_ROIS RoIs, which the
+    host recomputes); the gathering ops' gradients twice on the card, bit
+    for bit; ``multiclass_nms`` and ``multiclass_nms2`` raise."""
+    from paddle_tpu_torch.ops.registry import get_op
+
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext
+
+    worst, ms, same = {}, {}, {}
+    rng = np.random.RandomState(SEED + 97)
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    for label, (op, ins, attrs, check) in _det_op_cases().items():
+        dev_ins = {k: [torch.from_numpy(np.array(a)).to(DEVICE)
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+        ms[label] = _ms(lambda: get_op(op).fn(dev_ins, dict(attrs), ctx), 3,
+                        warmup=1)
+        del dev_ins
+        worst[label] = _op_card_err(op, check or ins, attrs, DET_CARD_TOL,
+                                    rng)
+        if op in DET_GATHER_GRADS:
+            opdef = get_op(op)
+            slots = [k for k, v in ins.items()
+                     if k not in opdef.nondiff_inputs
+                     and np.asarray(v).dtype.kind == "f"]
+            outs = _op_run(op, ins, attrs, DEVICE)
+            cots = {k: rng.randn(*v[0].shape).astype("float32")
+                    for k, v in outs.items()
+                    if k not in opdef.nondiff_outputs
+                    and v[0].is_floating_point()}
+            g = [{k: _host(v[0]) for k, v in _op_run(
+                op, ins, attrs, DEVICE, (slots, cots)).items()}
+                for _ in range(2)]
+            same[label] = all(np.array_equal(g[0][k], g[1][k]) for k in g[0])
+    raised = []
+    for op in ("multiclass_nms", "multiclass_nms2"):
+        try:
+            _op_run(op, {"BBoxes": np.zeros((1, 4, 4), "float32"),
+                         "Scores": np.zeros((1, 2, 4), "float32")}, {},
+                    DEVICE)
+        except NotImplementedError:
+            raised.append(op)
+    types = {c[0] for c in _det_op_cases().values()} | set(raised)
+    _p(f"detection op types on the card ({len(types)} types), forward ms "
+       + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"  [{card}]")
+    _p("detection op types on the card against the host, forward and "
+       f"generic_grad, error / {DET_CARD_TOL} of the largest |value| (under "
+       "1 passes): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; gradients bit for bit in two card runs: {same}; raising "
+       f"{raised}  [{card}]")
+    if max(worst.values()) > 1 or not all(same.values()) \
+            or len(raised) != 2 or len(types) != 34:
+        raise SystemExit("chip_smoke: a detection op type disagrees with "
+                         "the host, is not deterministic on the card or "
+                         "does not raise")
+    return {"worst": worst, "ms": ms, "same": same, "types": len(types)}
+
+
+def phase_detection_tier(card):
+    """Phase 4u, the detection tier: (a) MobileNet-SSD at 300², trained
+    and served through ``detection_output``; (b) YOLOv3 DarkNet-53 at
+    608², trained and served through ``yolo_box`` and ``matrix_nms``;
+    (c) the 34 op types on the card against the host.  Returns the
+    counted launches of (a)'s and (b)'s timed steps and serving, and the
+    numbers."""
+    ssd_launches, ssd = _det_leg(
+        "MobileNet-SSD", ssd_program, SSD, SSD_BATCH, ssd_feed, SSD_HOST,
+        ("max-size-first priors", _priors_max_first), SEED + 100, SSD_SERVE,
+        card)
+    yolo_launches, yolo = _det_leg(
+        "YOLOv3", yolov3_program, YOLO, YOLO_BATCH, yolov3_feed, YOLO_HOST,
+        ("reversed anchor masks", _yolo_masks_reversed), SEED + 110,
+        YOLO_SERVE, card)
+    t = time.perf_counter()
+    ops = _det_ops_on_the_card(card)
+    _p(f"phase 4u (c): {time.perf_counter() - t:.1f} s")
+    return ({"ssd": ssd_launches["train"], "yolov3": yolo_launches["train"],
+             "ssd_serve": ssd_launches["serve"],
+             "yolov3_serve": yolo_launches["serve"]},
+            {"ssd": ssd, "yolov3": yolo, "ops": ops})
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -11883,6 +12676,9 @@ def main():
     # 4t builds static programs too: before 4e turns dygraph on
     seq_launches, _ = _timed("4t sequence tier: SRL and CRNN-CTC",
                              phase_sequence_tier, card)
+    # 4u builds static programs too: before 4e turns dygraph on
+    det_launches, _ = _timed("4u detection tier: MobileNet-SSD and YOLOv3",
+                             phase_detection_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -12096,6 +12892,11 @@ def main():
     for row in kernels:
         row["sequence_launches"] = {leg: c[row["name"]]
                                     for leg, c in seq_launches.items()}
+    # the detection tier (phase 4u): launches over (a)'s and (b)'s timed
+    # steps and over their serving (none expected)
+    for row in kernels:
+        row["detection_launches"] = {leg: c[row["name"]]
+                                     for leg, c in det_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -1,8 +1,8 @@
 """fluid.layers namespace: the op builders the ported slices and the 2.0
 surface (paddle.tensor, nn.functional) use, the image layers, the control
 flow, the in-graph learning-rate schedules, the recurrent layers with
-the decode framework, and the sequence tier (the padded ``sequence_*``
-layers, the CRF, CTC and sampled heads)."""
+the decode framework, the sequence tier (the padded ``sequence_*``
+layers, the CRF, CTC and sampled heads) and the detection layers."""
 from . import tensor
 from . import nn
 from . import loss
@@ -41,7 +41,7 @@ from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost,
                    log_loss, huber_loss, kldiv_loss, mse_loss,
                    cross_entropy, smooth_l1)
-from .detection import sigmoid_focal_loss
+from .detection import *  # noqa: F401,F403
 from .metric_op import accuracy
 from .sequence_lod import (sequence_pool, sequence_conv, sequence_expand,
                            sequence_mask, sequence_pad, sequence_unpad,
@@ -74,7 +74,8 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      im2sequence, center_loss, warpctc, edit_distance, nce,
                      hsigmoid, sampled_softmax_with_cross_entropy,
                      linear_chain_crf, crf_decoding, chunk_eval,
-                     ctc_greedy_decoder)
+                     ctc_greedy_decoder, psroi_pool, prroi_pool,
+                     deformable_conv)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

@@ -1,6 +1,7 @@
 """fluid.layers tail (counterpart of ``paddle_tpu/fluid/layers/extras.py``,
 the builders paddle.tensor, nn.functional, the image layers and the
-sequence tier (the CRF, CTC and sampled-head builders) reach):
+sequence tier (the CRF, CTC and sampled-head builders) and the detection
+tier (the position-sensitive pools, the deformable convolution) reach):
 op-builder sugar over the registered lowerings, mode-agnostic through
 ``emit_op``; and the ``conv3d_transpose`` op, which the reference
 registers here."""
@@ -282,6 +283,56 @@ def image_resize_short(input, out_short_len, resample="BILINEAR"):
     scale = out_short_len / float(min(h, w))
     return image_resize(input, (int(round(h * scale)),
                                 int(round(w * scale))), resample=resample)
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, rois_num=None, name=None):
+    ins = {"X": [input], "ROIs": [rois]}
+    if rois_num is not None:
+        ins["RoisNum"] = [rois_num]
+    return _one("psroi_pool", ins, output_channels=output_channels,
+                spatial_scale=spatial_scale, pooled_height=pooled_height,
+                pooled_width=pooled_width)
+
+
+def prroi_pool(input, rois, spatial_scale=1.0, pooled_height=1,
+               pooled_width=1, rois_num=None, name=None):
+    ins = {"X": [input], "ROIs": [rois]}
+    if rois_num is not None:
+        ins["RoisNum"] = [rois_num]
+    return _one("prroi_pool", ins, spatial_scale=spatial_scale,
+                pooled_height=pooled_height, pooled_width=pooled_width)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=1,
+                    deformable_groups=1, im2col_step=1, param_attr=None,
+                    bias_attr=None, modulated=True, name=None):
+    """The deformable convolution layer: ``deformable_conv`` (with the
+    modulation mask) or ``deformable_conv_v1``, its filter a parameter,
+    a bias on the channel axis unless ``bias_attr`` is False."""
+    helper = LayerHelper("deformable_conv", name=name)
+    fs = [filter_size] * 2 if isinstance(filter_size, int) \
+        else list(filter_size)
+    w = helper.create_parameter(param_attr,
+                                [num_filters, input.shape[1] // groups] + fs,
+                                "float32")
+    ins = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    op_type = "deformable_conv" if modulated else "deformable_conv_v1"
+    if modulated:
+        ins["Mask"] = [mask]
+
+    def pair(v):
+        return [v] * 2 if isinstance(v, int) else list(v)
+    out = _one(op_type, ins, "Output", strides=pair(stride),
+               paddings=pair(padding), dilations=pair(dilation),
+               groups=groups, deformable_groups=deformable_groups,
+               im2col_step=im2col_step)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], "float32",
+                                    is_bias=True)
+        out = _nn.elementwise_add(out, b, axis=1)
+    return out
 
 
 def resize_linear(input, out_shape=None, scale=None, name=None,

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_kernels
+from .detection_ops import gather_rows
 from .registry import register_op
 
 # Random123's philox4x32 round multipliers and Weyl key increments
@@ -889,7 +890,12 @@ def _cubic_weights(r, o, align_corners, device):
 
 
 def _take(x, dim, idx):
-    return torch.index_select(x, dim, idx)
+    """``index_select`` along ``dim`` by ``gather_rows`` (``F.embedding``),
+    whose gradient sums an index's repeats in a fixed order on the card
+    (an upsampling reads a row two or three times; ``index_select``'s
+    gradient adds them by atomics, so two runs could differ in the last
+    bit)."""
+    return torch.movedim(gather_rows(torch.movedim(x, dim, 0), idx), 0, dim)
 
 
 def _out_size(ins, attrs, keys, sizes):
@@ -909,7 +915,7 @@ def _out_size(ins, attrs, keys, sizes):
 def _interp(ins, attrs, ctx, method):
     """nearest (``trunc(r·k)``, or ``trunc(r·k + ½)`` with corners),
     bilinear in the three alignment modes and bicubic, over NCHW or
-    NHWC, gathered along each axis by ``index_select``."""
+    NHWC, gathered along each axis (``_take``)."""
     x = ins["X"][0]
     nhwc = attrs.get("data_layout", "NCHW") == "NHWC"
     xc = _to_nchw(x, nhwc)

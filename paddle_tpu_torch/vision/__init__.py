@@ -1,4 +1,5 @@
 """paddle.vision (counterpart of ``paddle_tpu/vision``: the model zoo's
-LeNet, ResNets, VGG and MobileNets; datasets, transforms and the vision
-ops come with their slices, ROADMAP.md)."""
+LeNet, ResNets, VGG and MobileNets, and the detection ops; datasets and
+transforms come with their slices, ROADMAP.md)."""
 from . import models
+from . import ops  # noqa: F401

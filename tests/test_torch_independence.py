@@ -85,7 +85,7 @@ def test_import_leaves_jax_and_reference_out():
               "fluid.goodput", "fluid.metrics_export", "ops.rnn_ops",
               "ops.nlp_ops", "nn.decode", "ops.detection_ops",
               "fluid.layers.detection", "ops.sequence_extra",
-              "fluid.layers.sequence_lod", "fluid.nets"):
+              "fluid.layers.sequence_lod", "fluid.nets", "vision.ops"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -1917,3 +1917,97 @@ def test_repeated_gather_gradient_is_the_same_bits_twice(cuda, case):
     for got, want in zip(card, host):
         torch.testing.assert_close(got.cpu(), want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def _boxes(n, extent, seed=0, size=(16.0, 400.0)):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(n, 2, generator=g) * (extent - size[0])
+    wh = size[0] + torch.rand(n, 2, generator=g) * (size[1] - size[0])
+    return torch.cat([xy, torch.clamp(xy + wh, max=extent)], 1)
+
+
+def _yolo_gt_one_cell(b, g):
+    """[b, g, 4] ground truths sharing one cell and one anchor's shape,
+    so their gradients add into the same head rows."""
+    gt = torch.tensor([0.52, 0.47, 0.1, 0.12]).repeat(b, g, 1)
+    return gt + torch.rand(b, g, 4, generator=torch.Generator()
+                           .manual_seed(8)) * 0.01
+
+
+# the detection tier's gathering ops at Faster R-CNN's and YOLOv3's shapes:
+# 512 overlapping RoIs read the same pixels (bilinear taps, bins, position-
+# sensitive groups), deformable taps land on the same pixels, ground truths
+# share a head cell, YOLOv3's corner-aligned 2x upsampling reads a row two
+# or three times
+DETECTION_REPEAT_CASES = {
+    "roi_align": ("roi_align", {"X": _r(1, 64, 50, 84),
+                                "ROIs": _boxes(512, 800.0, seed=1)},
+                  {"pooled_height": 7, "pooled_width": 7,
+                   "spatial_scale": 1 / 16, "sampling_ratio": 2}),
+    "roi_pool": ("roi_pool", {"X": _r(1, 64, 50, 84, seed=2),
+                              "ROIs": _boxes(512, 800.0, seed=3)},
+                 {"pooled_height": 7, "pooled_width": 7,
+                  "spatial_scale": 1 / 16}),
+    "psroi_pool": ("psroi_pool", {"X": _r(1, 8 * 49, 50, 84, seed=4),
+                                  "ROIs": _boxes(512, 800.0, seed=5)},
+                   {"pooled_height": 7, "pooled_width": 7,
+                    "spatial_scale": 1 / 16, "output_channels": 8}),
+    "deformable_conv": ("deformable_conv",
+                        {"Input": _r(2, 32, 19, 19, seed=6),
+                         "Offset": _r(2, 18, 19, 19, seed=7) * 2,
+                         "Mask": torch.rand(2, 9, 19, 19,
+                                           generator=torch.Generator()
+                                           .manual_seed(8)),
+                         "Filter": _r(32, 32, 3, 3, seed=9) * 0.1},
+                        {"strides": [1, 1], "paddings": [1, 1]}),
+    "deformable_conv_v1": ("deformable_conv_v1",
+                           {"Input": _r(2, 32, 19, 19, seed=10),
+                            "Offset": _r(2, 18, 19, 19, seed=11) * 2,
+                            "Filter": _r(32, 32, 3, 3, seed=12) * 0.1},
+                           {"strides": [1, 1], "paddings": [1, 1]}),
+    "nearest_interp 19 to 38": ("nearest_interp",
+                                {"X": _r(2, 64, 19, 19, seed=15)},
+                                {"out_h": 38, "out_w": 38,
+                                 "align_corners": True}),
+    "yolov3_loss": ("yolov3_loss", {"X": _r(2, 3 * 85, 19, 19, seed=13),
+                                    "GTBox": _yolo_gt_one_cell(2, 8),
+                                    "GTLabel": _ids(80, 2, 8, seed=14)},
+                    {"anchors": [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59,
+                                 119, 116, 90, 156, 198, 373, 326],
+                     "anchor_mask": [6, 7, 8], "class_num": 80,
+                     "downsample_ratio": 32}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DETECTION_REPEAT_CASES))
+def test_detection_gather_gradient_is_the_same_bits_twice(cuda, case):
+    """The detection tier's gathers (``roi_align``'s bilinear taps and the
+    RoI pools as one-hot products, the deformable taps, the YOLOv3 head's
+    rows and the interpolations' rows as ``F.embedding``) sum their
+    gradients in a fixed order
+    on the card: two vjps from one cotangent give the same bits, and the
+    host's values within 1e-4 of the largest."""
+    op, ins, attrs = DETECTION_REPEAT_CASES[case]
+    opdef = get_op(op)
+    diff = [k for k, v in ins.items() if v.dtype == torch.float32
+            and k not in opdef.nondiff_inputs]
+
+    def run(device):
+        fixed = {k: [v.to(device)] for k, v in ins.items()}
+
+        def f(*xs):
+            out = opdef.fn(dict(fixed, **{k: [x] for k, x in zip(diff, xs)}),
+                           dict(attrs),
+                           LoweringContext(device=torch.device(device)))
+            return next(iter(out.values()))[0]
+        out, vjp = torch.func.vjp(f, *[ins[k].to(device) for k in diff])
+        cot = torch.randn(out.shape, generator=torch.Generator()
+                          .manual_seed(9)).to(device)
+        return [out] + list(vjp(cot)), lambda: vjp(cot)
+
+    card, again = run(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(again(), card[1:]))
+    host, _ = run("cpu")
+    for got, want in zip(card, host):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -68,28 +68,18 @@ MISSING = {
             "is_compiled_with_cuda", "load_op_library", "require_version",)},
     },
     "fluid.layers": {
-        **{n: 8 for n in ("add_position_encoding", "affine_channel",
-            "anchor_generator", "auc", "bipartite_match", "box_clip",
-            "box_coder", "box_decoder_and_assign", "collect_fpn_proposals",
-            "cond_value", "continuous_value_model", "cos_sim", "data_norm",
-            "deformable_conv", "deformable_roi_pooling", "density_prior_box",
-            "detection_output", "diag", "distribute_fpn_proposals",
+        **{n: 8 for n in ("add_position_encoding", "affine_channel", "auc",
+            "cond_value", "continuous_value_model", "cos_sim", "data_norm", "diag",
             "filter_by_instag", "fsp_matrix", "gaussian_random",
-            "gaussian_random_batch_size_like", "generate_mask_labels",
-            "generate_proposal_labels", "generate_proposals",
+            "gaussian_random_batch_size_like",
             "get_tensor_from_selected_rows", "has_inf", "has_nan", "hash",
-            "iou_similarity", "isfinite", "locality_aware_nms",
-            "lod_append", "lod_reset", "logical_xor", "matmul_v2",
-            "matrix_nms", "mean_iou", "merge_selected_rows", "multi_box_head",
-            "multiclass_nms", "pad_constant_like", "polygon_box_transform",
-            "pow", "prior_box", "prroi_pool", "psroi_pool", "random_crop",
-            "retinanet_detection_output", "retinanet_target_assign",
-            "roi_align", "roi_perspective_transform", "roi_pool",
-            "rpn_target_assign", "sampling_id", "shuffle_channel", "similarity_focus", "size", "space_to_depth",
-            "ssd_loss", "target_assign", "temporal_shift",
-            "tensor_array_to_tensor", "triu", "unbind", "uniform_random",
-            "uniform_random_batch_size_like", "unique_with_counts",
-            "yolo_box", "yolov3_loss",)},
+            "isfinite", "lod_append", "lod_reset", "logical_xor",
+            "matmul_v2", "mean_iou", "merge_selected_rows",
+            "pad_constant_like", "pow", "random_crop", "sampling_id",
+            "shuffle_channel", "similarity_focus", "size", "space_to_depth",
+            "temporal_shift", "tensor_array_to_tensor", "triu", "unbind",
+            "uniform_random", "uniform_random_batch_size_like",
+            "unique_with_counts",)},
         **{n: 12 for n in ("ConstantInitializer", "LayerHelper", "Variable",
             "XavierInitializer", "create_py_reader_by_data", "create_tensor",
             "double_buffer", "in_dygraph_mode", "load", "py_func",

@@ -10,7 +10,8 @@ all (comparisons, reductions to bool, index ops).  The recurrent,
 beam-search and sequence-tier op types, which those lack, take the first
 case of each in ``test_torch_rnn_ops.OP_CASES``,
 ``test_torch_rnn_decode.NLP_CASES`` and
-``test_torch_sequence_ops.OP_CASES``.
+``test_torch_sequence_ops.OP_CASES``; the detection op types those lack
+are held on their own cases by ``test_torch_detection_ops.py`` (``SKIPS``).
 
 - Forward: every output slot of the reference's, floats within rtol 1e-4
   (and 1e-4 of the slot's largest value), ids and bools equal.
@@ -58,6 +59,9 @@ _OPTIMIZER = ("an optimizer's update over a parameter, its gradient, its "
 _RANDOM = ("draws random numbers: ground rule 5 holds it to a contract "
            "(tests/test_torch_tensor.py, test_torch_rnn_decode.py, "
            "test_torch_sequence_ops.py)")
+_DETECTION = ("boxes, RoIs and matches the probe does not make: "
+              "tests/test_torch_detection_ops.py holds it forward and "
+              "through generic_grad against the reference")
 _ATTRS_ONLY = ("makes its output from attributes (shape, value, range) "
                "alone; the probe feeds tensors: "
                "tests/test_torch_tensor.py")
@@ -105,6 +109,19 @@ SKIPS = {
     "one_hot": "int ids: tests/test_torch_nn_functional.py",
     "one_hot_v2": "int ids: tests/test_torch_decode.py",
     "shard_index": "int ids: tests/test_torch_tensor.py",
+    "multiclass_nms": "raises NotImplementedError in both packages (its "
+                      "outputs' shapes depend on the data): "
+                      "tests/test_torch_detection_ops.py",
+    "multiclass_nms2": "see multiclass_nms",
+    **{op: _DETECTION for op in (
+        "bipartite_match", "box_decoder_and_assign", "collect_fpn_proposals",
+        "deformable_psroi_pooling", "density_prior_box", "detection_map",
+        "distribute_fpn_proposals", "generate_mask_labels",
+        "generate_proposal_labels", "generate_proposals",
+        "generate_proposals_v2", "locality_aware_nms", "matrix_nms",
+        "mine_hard_examples", "polygon_box_transform", "prior_box",
+        "retinanet_detection_output", "roi_perspective_transform",
+        "rpn_target_assign", "target_assign", "yolo_box", "yolov3_loss")},
 }
 
 SWEPT = [op for op in COMMON if op not in SKIPS and op not in CONTRACT]
