@@ -12,7 +12,8 @@ flow), the dygraph-to-static tier (``paddle.jit.to_static``,
 ``jit.save`` / ``jit.load``, static AMP's loss scaling), the deployment
 path, and the rest of the serving surface (speculative paged decode, the
 serving engine's deadlines, pause, instruments, spans, flight recorder
-and metrics export).
+and metrics export), and the PaddleBox CTR tier's join tower through
+BoxPS.
 
     python3 chip_smoke.py
 
@@ -440,6 +441,39 @@ over):
    forward and through ``generic_grad`` at Faster R-CNN R50-FPN's,
    R-FCN's, (a)'s and (b)'s shapes; the gathering ops' gradients twice
    bit for bit; ``multiclass_nms`` and ``multiclass_nms2`` raise.
+4v. the PaddleBox CTR tier -- a static program before 4e's tracer.  (a)
+   A join tower at BASELINE.md config 5's width (26 slots of 5 ids, dim
+   16, 13 dense features, batch 4096; ids Zipf(1.1) over 1e6 values a
+   slot, placed at slot * 2^32 + id) through ``pull_box_sparse``,
+   ``contrib.layers.fused_seqpool_cvm``, ``data_norm``,
+   ``cross_norm_layer_hadamard``, ``batch_fc``, ``rank_attention``,
+   ``scaled_fc``, fc 256 and 128, the sigmoid cross-entropy weighed by
+   ``filter_by_instag``, ``auc`` and ``ctr_metric_bundle``, Adam through
+   ``BuildStrategy(fuse_optimizer=True)``: one ``begin_pass`` over the
+   JOIN["warmup"] + JOIN["steps"] training and JOIN["eval_batches"]
+   held-out batches (the pass must fit phase 4k's 2^22-row cache), the
+   timed steps with one ``fused_adam`` launch a step and no other, the
+   loss falling and finite, a profiled step, peak memory; two full-width
+   steps from one state bit for bit; ``end_pass``'s host rows equal to
+   the trained cache; ``fused_adam`` on the step's bucket (the cache
+   among its 17 parameters) ``torch.equal`` to its plain version.  (b)
+   ``main.clone(for_test=True)`` over the held-out batches: data_norm's
+   statistics unchanged, the AUC histograms grown by their rows, the AUC
+   and the bundle printed.  (c) The tier's other op types on the card
+   against the host within 1e-4 of each output's largest |value|,
+   forward and ``generic_grad``, each timed: ``hash`` over 2^40 ids,
+   ``pyramid_hash``, ``rank_attention``, ``tdm_child`` over a tree of 2^17
+   leaves, ``merge_ids``, ``ps_lookup_rows``, the fused pools,
+   ``partial_concat``/``partial_sum``, ``cvm``, ``scaled_int8fc`` at
+   [4096, 1293] x [1293, 512], ``pull_box_extended_sparse`` with ``W``
+   fed; the three gathering ops' gradients bit for bit in two card runs;
+   ``tdm_sampler`` and ``shuffle_batch`` held to their contracts.  (d)
+   JOIN_HOST (4 slots, dim 8, batch 256, 3 steps, ids from 2048 values)
+   on the card and on the host from one box state and one scope: losses,
+   the first step's gradient cosine and norm, data_norm's statistics and
+   the AUC within JOIN_HOST_RTOL; a twin reading rank_offset's pairs
+   swapped must miss by 10 times or more on some criterion, and those it
+   misses by that much are printed.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -457,7 +491,8 @@ over):
    of 4n's timed recipe steps, ``to_static_launches`` those of 4o (a)'s
    timed steps, of one 4o (d) call and of 4o (e)'s timed steps,
    ``deploy_launches`` those of phase 4p's counted runs,
-   ``speculative_launches`` those of each of phase 4q's legs, and the
+   ``speculative_launches`` those of each of phase 4q's legs,
+   ``ctr_tier_launches`` those of 4v (a)'s timed steps, and the
    rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
    4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -6146,8 +6181,6 @@ def _box_tier_kernel_checks(main, scope, feed, card):
     from paddle_tpu_torch.ops.ctr_ops import (
         _emb_pool_prep, _reference_embedding_pool,
         _reference_embedding_pool_grad)
-    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
-    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
@@ -6177,43 +6210,19 @@ def _box_tier_kernel_checks(main, scope, feed, card):
             w.shape[0])
         grad_equal &= torch.equal(dw.cpu(), host)
         grad_err = max(grad_err, (dw.cpu() - host).abs().max().item())
-    op, = adams
-    ins = {slot: [scope.find_var(n) for n in op.input(slot)]
-           for slot in ("Param", "Moment1", "Moment2", "Beta1Pow",
-                        "Beta2Pow", "LearningRate")}
-    ins["Grad"] = [1e-2 * torch.randn(p.shape, generator=gen, device=dev)
-                   for p in ins["Param"]]
-    b1, b2, eps = (op.attr("beta1"), op.attr("beta2"), op.attr("epsilon"))
-    before = cuda_kernels.fused_adam.launches
-    fused = get_op("fused_adam").fn(ins, op.attrs, LoweringContext(dev))
-    launched = cuda_kernels.fused_adam.launches - before
-    plain = _plain_fused_adam(
-        ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"],
-        ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
-        eps)
-    adam_equal, adam_err = True, 0.0
-    for slot, outs in plain.items():
-        for got, want in zip(fused[slot], outs):
-            adam_equal &= torch.equal(got, want)
-            adam_err = max(adam_err, (got - want).abs().max().item())
-    n = sum(p.numel() for p in ins["Param"])
     _p(f"BoxPS CTR kernel-tier leg's kernels on its own inputs: "
        f"embedding_pool_fwd over {len(pools)} slots' [{BOX_TIER_BATCH}, 5] "
        f"ids into their trained tables, max |err| vs plain {fwd_err:.3e} "
        f"(rtol=atol=1e-6); embedding_pool_grad torch.equal to the host's "
-       f"index_add_ = {grad_equal} (max |err| {grad_err:.3e}); fused_adam "
-       f"over the program's {len(ins['Param'])} parameters ({n} values), "
-       f"{launched} launch, torch.equal to its plain version = "
-       f"{adam_equal} (max |err| {adam_err:.3e})  [{card}]")
+       f"index_add_ = {grad_equal} (max |err| {grad_err:.3e})  [{card}]")
     if not fwd_ok:
         raise SystemExit("chip_smoke: embedding_pool_fwd disagrees with its "
                          "plain version on the kernel-tier CTR leg's inputs")
     if not grad_equal:
         raise SystemExit("chip_smoke: embedding_pool_grad disagrees with "
                          "the host on the kernel-tier CTR leg's inputs")
-    if launched != 1 or not adam_equal:
-        raise SystemExit("chip_smoke: fused_adam disagrees with its plain "
-                         "version on the kernel-tier CTR leg's bucket")
+    adam_err = _adam_bucket_check(main, scope, gen,
+                                  "the kernel-tier CTR leg", card)
     return dict(pool_fwd_max_abs_err=fwd_err, pool_grad_max_abs_err=grad_err,
                 adam_max_abs_err=adam_err)
 
@@ -12610,6 +12619,692 @@ def phase_detection_tier(card):
             {"ssd": ssd, "yolov3": yolo, "ops": ops})
 
 
+# --- phase 4v: the PaddleBox CTR tier ----------------------------------------
+# BASELINE.md config 5's width: 26 slots of 5 ids, dim 16, 13 dense
+# features, batch 4096; ids Zipf(1.1) over 1e6 values a slot, placed in
+# the 2^40 feasign space as slot * 2^32 + id
+JOIN = dict(slots=26, dim=16, seq=5, dense=13, batch=4096, warmup=3,
+            steps=20, eval_batches=4, ids=1_000_000, max_rank=3, rank_fc=64,
+            rank_out=32, batch_fc=8, hidden=(512, 256, 128), lr=1e-3,
+            table="ctr_join")
+JOIN_TAGS, JOIN_FILTER_TAGS = 8, (1, 4, 6)   # two tags a row of 8 values
+JOIN_RANK0 = 0.1               # the share of instances of rank 0
+JOIN_HOST = dict(JOIN, slots=4, dim=8, batch=256, steps=3, ids=2048,
+                 table="ctr_join_host")
+JOIN_CACHE_ROWS = 1 << 22      # phase 4k's cache: the pass must fit it
+JOIN_HOST_RTOL = dict(loss=1e-4, cosine=1e-4, norm=1e-4, stats=1e-5,
+                      auc=1e-4)
+CTR_CARD_TOL = 1e-4            # (c): of each output's largest |value|
+CTR_GATHER_GRADS = ("rank_attention", "pyramid_hash",
+                    "fused_embedding_seq_pool")
+
+
+def ctr_join_program(fluid, cfg, train=True):
+    """A PaddleBox join tower over BoxPS (``fluid.layers`` and
+    ``fluid.contrib.layers`` only): ``pull_box_sparse`` of the slots,
+    ``fused_seqpool_cvm``, ``data_norm`` (slot_dim = dim, scale and
+    shift), ``cross_norm_layer_hadamard`` over the pooled slots,
+    ``batch_fc`` over them stacked, ``rank_attention`` over an fc of the
+    normalised features, ``scaled_fc`` over the five joined, fc 256 and
+    128 ReLU, a logit; the sigmoid cross-entropy weighed by
+    ``filter_by_instag``'s LossWeight, its mean; ``auc`` and ``ctr_metric_bundle``; Adam.  Returns (loss,
+    auc, the bundle's four sums, the auc state, [(param, grad)])."""
+    L, CL = fluid.layers, fluid.contrib.layers
+    s, d, seq, mr = cfg["slots"], cfg["dim"], cfg["seq"], cfg["max_rank"]
+    ids = [fluid.data(f"slot{i}", [-1, seq], dtype="int64")
+           for i in range(s)]
+    show_click = fluid.data("show_click", [-1, 2])
+    dense = fluid.data("dense", [-1, cfg["dense"]])
+    ins_tag = fluid.data("ins_tag", [-1, 2], dtype="int64")
+    filter_tag = fluid.data("filter_tag", [len(JOIN_FILTER_TAGS)],
+                            dtype="int64")
+    rank_offset = fluid.data("rank_offset", [-1, 1 + 2 * mr], dtype="int32")
+    label = fluid.data("label", [-1, 1])
+    embs = L.pull_box_sparse(ids, d, table_name=cfg["table"])
+    pooled = CL.fused_seqpool_cvm(embs, "sum", show_click)
+    x = L.concat(pooled, axis=1)
+    normed = L.data_norm(x, name="join_dn", slot_dim=d,
+                         enable_scale_and_shift=True)
+    cross = CL.cross_norm_layer_hadamard(x, fields_num=s // 2, embed_dim=d)
+    per_slot = CL.batch_fc(L.stack(pooled, axis=0), [s, d, cfg["batch_fc"]],
+                           None, [s, cfg["batch_fc"]], None, act="relu")
+    per_slot = L.reshape(L.transpose(per_slot, [1, 0, 2]),
+                         [-1, s * cfg["batch_fc"]])
+    ranked = CL.rank_attention(
+        L.fc(normed, cfg["rank_fc"]), rank_offset,
+        [mr * mr, cfg["rank_fc"] * cfg["rank_out"]], None, max_rank=mr)
+    h = L.concat([normed, cross, per_slot, ranked, dense], axis=1)
+    h = CL.scaled_fc(h, cfg["hidden"][0], 0.5, 0.5, 1.0)
+    for width in cfg["hidden"][1:]:
+        h = L.fc(h, width, act="relu")
+    logit = L.fc(h, 1)
+    xent = L.sigmoid_cross_entropy_with_logits(logit, label)
+    # filter_by_instag is no differentiable op in either package (its Out
+    # carries no gradient): its LossWeight weighs the rows, as the
+    # reference's lowering means it to
+    _, weight, _ = L.filter_by_instag(xent, ins_tag, filter_tag, False)
+    loss = L.mean(xent * weight)
+    p = L.sigmoid(logit)
+    auc, _, auc_state = L.auc(L.concat([L.scale(p, -1.0, 1.0), p], axis=1),
+                              label)
+    bundle = CL.ctr_metric_bundle(p, label)
+    pg = []
+    if train:
+        _, pg = fluid.optimizer.AdamOptimizer(cfg["lr"]).minimize(loss)
+    return (loss, auc) + tuple(bundle) + (auc_state, pg)
+
+
+def _bounded_zipf(rng, shape, vocab, perm):
+    """Zipf(ZIPF_A) over ``vocab`` values (P(k) ~ k^-a for k <= vocab)
+    by its inverse CDF, through a seeded permutation of the values."""
+    cdf = np.cumsum(np.arange(1, vocab + 1, dtype=np.float64) ** -ZIPF_A)
+    k = np.searchsorted(cdf / cdf[-1], rng.random_sample(shape))
+    return perm[np.minimum(k, vocab - 1)].astype(np.int64)
+
+
+def ctr_join_raw_ids(cfg, batches, seed):
+    """[batches, B, slots, seq] raw feasigns, slot * 2^32 + id: Zipf ids
+    over ``cfg['ids']`` values a slot (uniform for a small host space)."""
+    rng = np.random.RandomState(seed)
+    shape = (batches, cfg["batch"], cfg["slots"], cfg["seq"])
+    if cfg["ids"] > 100_000:
+        ids = _bounded_zipf(rng, shape, cfg["ids"],
+                            rng.permutation(cfg["ids"]))
+    else:
+        ids = rng.randint(0, cfg["ids"], shape, dtype=np.int64)
+    return ids + (np.arange(cfg["slots"], dtype=np.int64) << 32)[
+        None, None, :, None]
+
+
+def ctr_join_feed(cfg, slots, seed):
+    """One batch's feed from the cache slots of its raw ids ([B, slots,
+    seq]): ``show_click``, two instance tags a row of JOIN_TAGS values and
+    the filter tags, ``rank_offset`` (rank 0 for about JOIN_RANK0 of the
+    instances, else 1 to max_rank, each other rank's pair present with
+    probability 0.8, pointing at block (rank - 1) * max_rank + other - 1),
+    the dense features and a label drawn from a logistic model of them, so
+    there is something to learn."""
+    rng = np.random.RandomState(seed)
+    b, mr = cfg["batch"], cfg["max_rank"]
+    feed = {f"slot{i}": np.ascontiguousarray(slots[:, i])
+            for i in range(cfg["slots"])}
+    shows = rng.randint(1, 20, (b, 1)).astype("float32")
+    feed["show_click"] = np.concatenate(
+        [shows, rng.binomial(shows.astype(int), 0.2).astype("float32")], 1)
+    feed["ins_tag"] = rng.randint(0, JOIN_TAGS, (b, 2)).astype("int64")
+    feed["filter_tag"] = np.array(JOIN_FILTER_TAGS, "int64")
+    rank = rng.randint(1, mr + 1, b)
+    rank[rng.random_sample(b) < JOIN_RANK0] = 0
+    ro = np.full((b, 1 + 2 * mr), -1, "int32")
+    ro[:, 0] = rank
+    for j in range(mr):
+        live = (rank > 0) & (rng.random_sample(b) < 0.8)
+        ro[live, 1 + 2 * j] = j + 1
+        ro[live, 2 + 2 * j] = (rank[live] - 1) * mr + j
+    feed["rank_offset"] = ro
+    dense = rng.randn(b, cfg["dense"]).astype("float32")
+    feed["dense"] = dense
+    z = dense[:, 0] + 0.5 * dense[:, 1] - 0.5
+    feed["label"] = (rng.random_sample(b) < 1 / (1 + np.exp(-2 * z))) \
+        .astype("float32")[:, None]
+    return feed
+
+
+def _adam_bucket_check(main, scope, gen, what, card):
+    """``fused_adam`` over ``main``'s one bucket as its run left it (the
+    parameters, moments, beta powers and lr from ``scope``, a seeded
+    gradient), its op ``torch.equal`` to ``_plain_fused_adam``; made
+    after the path's launch counts were read, so it counts in no path.
+    Returns the largest |error|."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.optimizer_ops import _plain_fused_adam
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    dev = torch.device(DEVICE)
+    op, = [op for op in main.global_block().ops if op.type == "fused_adam"]
+    ins = {slot: [scope.find_var(n) for n in op.input(slot)]
+           for slot in ("Param", "Moment1", "Moment2", "Beta1Pow",
+                        "Beta2Pow", "LearningRate")}
+    ins["Grad"] = [1e-2 * torch.randn(p.shape, generator=gen, device=dev)
+                   for p in ins["Param"]]
+    b1, b2, eps = (op.attr("beta1"), op.attr("beta2"), op.attr("epsilon"))
+    before = cuda_kernels.fused_adam.launches
+    fused = get_op("fused_adam").fn(ins, op.attrs, LoweringContext(dev))
+    launched = cuda_kernels.fused_adam.launches - before
+    plain = _plain_fused_adam(
+        ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"],
+        ins["LearningRate"][0], ins["Beta1Pow"], ins["Beta2Pow"], b1, b2,
+        eps)
+    equal, err = True, 0.0
+    for slot, outs in plain.items():
+        for got, want in zip(fused[slot], outs):
+            equal &= torch.equal(got, want)
+            err = max(err, (got - want).abs().max().item())
+    n = sum(p.numel() for p in ins["Param"])
+    _p(f"{what}: fused_adam over the program's {len(ins['Param'])} "
+       f"parameters ({n} values), {launched} launch, torch.equal to its "
+       f"plain version = {equal} (max |err| {err:.3e})  [{card}]")
+    if launched != 1 or not equal:
+        raise SystemExit(f"chip_smoke: fused_adam disagrees with its plain "
+                         f"version on {what}'s bucket")
+    return err
+
+
+def _join_built(cfg, place, train=True):
+    """(main, startup, fetches, the CompiledProgram through
+    ``fuse_optimizer``) of the join tower at ``cfg``'s width."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, fetches, _ = _book_program(ctr_join_program, False,
+                                              cfg=cfg, train=train)
+    bs = fluid.BuildStrategy()
+    bs.fuse_optimizer = True
+    return main, startup, fetches, fluid.CompiledProgram(main, bs)
+
+
+def _join_pass(cfg, batches, seed):
+    """A box wrapper for ``cfg``'s table, begin_pass over ``batches``
+    batches of raw ids, their feeds.  Returns (box, cache, feeds, the
+    begin_pass seconds)."""
+    from paddle_tpu_torch.distributed.ps.box import get_box_wrapper
+
+    box = get_box_wrapper(cfg["table"], dim=cfg["dim"],
+                          init_kind="gaussian", init_scale=0.01)
+    raw = ctr_join_raw_ids(cfg, batches, seed)
+    t0 = time.perf_counter()
+    cache = box.begin_pass(raw)
+    begin_s = time.perf_counter() - t0
+    feeds = [ctr_join_feed(cfg, box.slots_of(r.reshape(-1)).reshape(
+        r.shape), seed + 100 + i) for i, r in enumerate(raw)]
+    return box, cache, feeds, begin_s
+
+
+def _join_snapshot(main, scope):
+    """Every persistable of ``main`` in ``scope`` (the cache's Adam
+    moments too), cloned where it lies."""
+    import torch
+    return {n: scope.find_var(n).clone()
+            for n, v in main.global_block().vars.items()
+            if v.persistable and isinstance(scope.find_var(n), torch.Tensor)}
+
+
+def _join_train(card):
+    """4v (a) and (b): the tower at JOIN's width through BoxPS (one
+    begin_pass over the warm-up, timed and held-out batches), the timed
+    steps with exactly one fused_adam a step, a profiled step, the eval
+    pass through ``main.clone(for_test=True)``, two full-width steps
+    from one state bit for bit, end_pass, and fused_adam on the bucket
+    against its plain version.  Returns (the launches, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed.ps.box import reset_box_wrappers
+
+    cfg = JOIN
+    reset_box_wrappers()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = {}
+    with _fresh_fluid_globals():
+        place = fluid.CUDAPlace(0)
+        main, startup, fetches, prog = _join_built(cfg, place)
+        loss, auc, bundle, auc_state = (fetches[0], fetches[1],
+                                        fetches[2:6], fetches[6])
+        n_params = sum(math.prod(p.shape)
+                       for p in main.global_block().all_parameters()
+                       if min(p.shape) > 0)
+        n_train = cfg["warmup"] + cfg["steps"]
+        box, cache, feeds, begin_s = _join_pass(
+            cfg, n_train + cfg["eval_batches"], SEED + 120)
+        n_ids = (n_train + cfg["eval_batches"]) * cfg["batch"] \
+            * cfg["slots"] * cfg["seq"]
+        _p(f"CTR join tower: begin_pass over {n_ids} ids of "
+           f"{cfg['slots']} slots in {begin_s:.3f} s (host): "
+           f"{box.pass_size} unique ids, {box.cache_rows} cache rows x "
+           f"{cfg['dim']} (phase 4k's cache: {JOIN_CACHE_ROWS} rows); "
+           f"{n_params} dense parameters")
+        if box.cache_rows > JOIN_CACHE_ROWS:
+            raise SystemExit("chip_smoke: the join tower's pass does not fit "
+                             "phase 4k's cache")
+        dev_feeds = [{k: torch.from_numpy(v).to(DEVICE)
+                      for k, v in f.items()} for f in feeds]
+        exe, scope = fluid.Executor(place), fluid.global_scope()
+        exe.run(startup)
+        cname = cfg["table"] + "@HBMCACHE"
+        scope.set_var(cname, cache)
+        del cache
+
+        def step(f, fetch=(loss, auc)):
+            return exe.run(prog, feed=f, fetch_list=list(fetch),
+                           return_numpy=False)
+
+        warm = [step(f) for f in dev_feeds[:cfg["warmup"]]]
+        float(warm[-1][0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        timed, launches = _counted_run(
+            "the CTR join tower's timed steps",
+            lambda: [step(f) for f in dev_feeds[cfg["warmup"]:n_train]],
+            {"fused_adam": cfg["steps"]})
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        losses = [float(o[0]) for o in warm + timed]
+        aucs = [float(o[1]) for o in warm + timed]
+        ms = wall / cfg["steps"] * 1e3
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        _p(f"CTR join tower: {cfg['steps']} timed steps of {cfg['batch']} "
+           f"in {wall:.3f} s: {ms:.3f} host ms/step, "
+           f"{cfg['steps'] * cfg['batch'] / wall:.1f} examples/s; peak "
+           f"{peak:.3f} GiB above the {base / 2 ** 30:.3f} GiB earlier "
+           f"phases hold; launches {launches} (fused_adam 1 a step, every "
+           f"other 0); losses {[round(x, 5) for x in losses]} (the first "
+           f"five's mean {head:.5f}, the last five's {tail:.5f}); "
+           f"streaming AUC {aucs[-1]:.5f}  [{card}]")
+        if not np.isfinite(losses).all() or not tail < head:
+            raise SystemExit("chip_smoke: the join tower's loss did not fall "
+                             "or is not finite")
+        prof = _profile(lambda: float(step(dev_feeds[0])[0]), 1, warmup=1,
+                        host_ops=False)
+        _p(f"profile CTR join tower: host {prof[0]:.3f} ms/step, device "
+           f"busy {prof[1]:.3f} ms/step, idle share {prof[2]:.4f}, "
+           f"{prof[3]:.0f} kernels/step  [{card}]")
+        _print_classes(prof[4], "step")
+        out.update(ms=ms, examples_s=cfg["steps"] * cfg["batch"] / wall,
+                   peak_gib=peak, losses=losses, host_ms=prof[0],
+                   busy_ms=prof[1], idle=prof[2], kernels=prof[3],
+                   by_class=prof[4], begin_s=begin_s,
+                   unique_ids=box.pass_size, cache_rows=box.cache_rows,
+                   params=n_params)
+
+        # (b) the eval pass: the statistics frozen, the AUC state grows
+        stats = [n for n in main.global_block().vars
+                 if n.startswith("join_dn.batch_")]
+        before = {n: scope.find_var(n).clone() for n in stats}
+        counted0 = sum(float(scope.find_var(v.name).sum()) for v in auc_state)
+        test_prog = main.clone(for_test=True)
+        evals = [exe.run(test_prog, feed=f, fetch_list=[auc] + list(bundle))
+                 for f in dev_feeds[n_train:]]
+        frozen = all(torch.equal(before[n], scope.find_var(n))
+                     for n in stats)
+        counted = sum(float(scope.find_var(v.name).sum())
+                      for v in auc_state) - counted0
+        rows = cfg["eval_batches"] * cfg["batch"]
+        sq, ab, pr, q = (sum(float(e[i]) for e in evals) for i in (1, 2, 3, 4))
+        _p(f"CTR join tower eval pass ({cfg['eval_batches']} held-out "
+           f"batches through main.clone(for_test=True)): data_norm's "
+           f"statistics unchanged: {frozen}; the AUC histograms grew by "
+           f"{counted:.0f} rows (want {rows}); AUC {float(evals[-1][0]):.5f}; "
+           f"bundle: MSE {sq / rows:.5f}, MAE {ab / rows:.5f}, predicted "
+           f"CTR {pr / rows:.5f}, q {q:.3f}  [{card}]")
+        if not frozen or counted != rows:
+            raise SystemExit("chip_smoke: the join tower's eval pass moved "
+                             "data_norm's statistics or missed the AUC")
+        out["eval"] = dict(auc=float(evals[-1][0]), mse=sq / rows,
+                           mae=ab / rows, ctr=pr / rows)
+
+        # two full-width steps from one state, bit for bit
+        snap = _join_snapshot(main, scope)
+        runs = []
+        for _ in range(2):
+            s = fluid.Scope()
+            for n, v in snap.items():
+                s.set_var(n, v.clone())
+            l = exe.run(prog, feed=dev_feeds[0], fetch_list=[loss], scope=s,
+                        return_numpy=False)[0]
+            runs.append((float(l), _join_snapshot(main, s)))
+            del s
+        differ = [n for n in snap if not torch.equal(runs[0][1][n],
+                                                      runs[1][1][n])]
+        if runs[0][0] != runs[1][0]:
+            differ.append("the loss")
+        _p(f"CTR join tower determinism: two full-width steps from one "
+           f"state, {len(differ)} of {len(snap) + 1} persistables and the "
+           f"loss differ in any bit {differ}  [{card}]")
+        out["differ"] = differ
+        del snap, runs
+        if differ:
+            raise SystemExit("chip_smoke: two join tower steps from one "
+                             "state differ")
+
+        # end_pass: the host store holds exactly the trained cache
+        cache_t = scope.find_var(cname)
+        uniq = box.pass_ids.copy()
+        trained = cache_t[: len(uniq)].cpu().numpy()
+        t0 = time.perf_counter()
+        box.end_pass(cache_t)
+        end_s = time.perf_counter() - t0
+        same = np.array_equal(box.host.pull(uniq), trained)
+        _p(f"CTR join tower: end_pass in {end_s:.3f} s (host); host rows "
+           f"equal to the trained cache: {same}  [{card}]")
+        if not same:
+            raise SystemExit("chip_smoke: end_pass did not write the join "
+                             "tower's trained rows back")
+        out["end_s"] = end_s
+        del trained
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 121)
+        out["adam_max_abs_err"] = _adam_bucket_check(
+            main, scope, gen, "the CTR join tower", card)
+    reset_box_wrappers()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _join_margins(got, want):
+    """4v (d)'s criteria, each error over its tolerance (under 1
+    passes): every loss to rtol 1e-4, the first step's gradient cosine
+    and norm to 1e-4, data_norm's statistics to 1e-5 of their largest
+    value, every step's AUC to 1e-4."""
+    t = JOIN_HOST_RTOL
+    cos, norm = _cosine(got["grads"], want["grads"])
+    out = {"losses": max(abs(g - w) / abs(w) for g, w in
+                         zip(got["losses"], want["losses"])) / t["loss"],
+           "gradient cosine": (1 - cos) / t["cosine"],
+           "gradient norm": abs(norm - 1) / t["norm"],
+           "statistics": max(_worst_rel(got["stats"][n], want["stats"][n])
+                             for n in want["stats"]) / t["stats"],
+           "auc": max(abs(g - w) for g, w in zip(got["aucs"],
+                                                   want["aucs"])) / t["auc"]}
+    return out
+
+
+def _join_card_vs_host(card):
+    """4v (d): JOIN_HOST (4 slots, dim 8, batch 256, 3 steps, ids from a
+    2048-value space, so they repeat) on the card and on the host from
+    one box state and one scope; a twin reading rank_offset's pairs
+    swapped (the block index as the other rank) must miss."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.distributed.ps.box import reset_box_wrappers
+
+    t0 = time.perf_counter()
+    cfg = JOIN_HOST
+    reset_box_wrappers()
+    main, startup, fetches, prog = _join_built(cfg, fluid.CPUPlace())
+    box, cache, feeds, _ = _join_pass(cfg, cfg["steps"], SEED + 140)
+    box.abandon_pass()
+    reset_box_wrappers()
+    init = _startup_state(main, startup, fluid.CPUPlace())
+    init[cfg["table"] + "@HBMCACHE"] = np.asarray(cache)
+    pg = fetches[-1]
+    fetch = [fetches[0], fetches[1]] + [g for _, g in pg]
+    stats = [n for n in main.global_block().vars
+             if n.startswith("join_dn.batch_")]
+
+    def run(place, feeds):
+        scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        outs = [exe.run(prog, feed=f, fetch_list=fetch, scope=scope)
+                for f in feeds]
+        return {"losses": [float(o[0]) for o in outs],
+                "aucs": [float(o[1]) for o in outs],
+                "grads": [np.asarray(g) for g in outs[0][2:]],
+                "stats": interop.scope_to_numpy(scope, stats)}
+
+    host = run(fluid.CPUPlace(), feeds)
+    got = run(fluid.CUDAPlace(0), feeds)
+    swapped = []
+    for f in feeds:
+        ro = f["rank_offset"].copy()
+        ro[:, 1::2], ro[:, 2::2] = f["rank_offset"][:, 2::2], \
+            f["rank_offset"][:, 1::2]
+        swapped.append(dict(f, rank_offset=ro))
+    twin = run(fluid.CUDAPlace(0), swapped)
+    ok, miss = _join_margins(got, host), _join_margins(twin, host)
+    fmt = ", ".join
+    _p(f"CTR join tower card vs host at {cfg['slots']} slots, dim "
+       f"{cfg['dim']}, batch {cfg['batch']}, {cfg['steps']} steps, ids from "
+       f"{cfg['ids']} values a slot, in {time.perf_counter() - t0:.1f} s: "
+       f"losses card {got['losses']}, host {host['losses']}; AUC card "
+       f"{got['aucs']}, host {host['aucs']}  [{card}]")
+    _p("CTR join tower card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()))
+    _p("CTR join tower, the swapped-rank-offset twin, error / tolerance "
+       "(10 or more misses): " + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: the join tower on the card disagrees "
+                         "with the host")
+    if max(miss.values()) < 10:
+        raise SystemExit("chip_smoke: the join tower's card-vs-host check "
+                         "cannot see the swapped rank offsets")
+    carry = sorted(k for k, v in miss.items() if v >= 10)
+    _p(f"CTR join tower: the criteria the twin misses by 10 or more: "
+       f"{carry}; by less: {sorted(set(miss) - set(carry))}")
+    return {"ok": ok, "miss": miss, "carry": carry}
+
+
+def _tdm_tree(depth):
+    """A complete binary tree of 2^depth leaves in heap order (root 1,
+    node k's children 2k and 2k + 1, 0 the null node): TreeInfo rows
+    [item, layer, parent, child0, child1], each leaf's travel path below
+    the root, and each layer's nodes padded with 0."""
+    n = 1 << (depth + 1)
+    k = np.arange(n, dtype=np.int64)
+    layer_of = np.zeros(n, np.int64)
+    layer_of[1:] = np.floor(np.log2(k[1:])).astype(np.int64)
+    leaf = k >= (1 << depth)
+    tree = np.stack([np.where(leaf, k - (1 << depth) + 1, 0), layer_of,
+                     k // 2, np.where(leaf, 0, 2 * k),
+                     np.where(leaf, 0, 2 * k + 1)], 1)
+    tree[0] = 0
+    leaves = np.arange(1 << depth, 1 << (depth + 1), dtype=np.int64)
+    travel = np.stack([leaves >> (depth - d) for d in range(1, depth + 1)],
+                      1)
+    layer = np.zeros((depth, 1 << depth), np.int64)
+    for d in range(1, depth + 1):
+        layer[d - 1, : 1 << d] = np.arange(1 << d, 1 << (d + 1))
+    return tree, travel, layer
+
+
+def _ctr_op_cases():
+    """(c): the tier's other op types at the tower's shapes (26 slots of
+    [4096, 5] ids, dim 16).  {label: (op, inputs, attrs)}."""
+    rng = np.random.RandomState(SEED + 150)
+    b, s, seq, d = JOIN["batch"], JOIN["slots"], JOIN["seq"], JOIN["dim"]
+
+    def r(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype("float32")
+
+    slots = [r(b, seq, d) for _ in range(s)]
+    pooled = [r(b, d) for _ in range(s)]
+    ids = _bounded_zipf(rng, (b, seq), JOIN["ids"],
+                        rng.permutation(JOIN["ids"]))
+    table = r(JOIN["ids"], d, scale=0.01)
+    tree, travel, layer = _tdm_tree(17)
+    merge = rng.randint(0, 1 << 40, b * s, dtype=np.int64)
+    ro = ctr_join_feed(dict(JOIN), np.zeros((b, s, seq), np.int64),
+                       SEED + 151)["rank_offset"]
+    rows = r(b * seq, d)
+    return {
+        "hash": ("hash", {"X": rng.randint(0, 1 << 40, (b, s),
+                                           dtype=np.int64)},
+                 {"num_hash": 2, "mod_by": 1_000_000}),
+        "pyramid_hash": ("pyramid_hash",
+                         {"X": rng.randint(0, 100_000, (256, 32),
+                                           dtype=np.int64),
+                          "W": r(1_000_000, d, scale=0.01)},
+                         {"num_emb": d, "space_len": 1_000_000,
+                          "pyramid_layer": 2}),
+        "rank_attention": ("rank_attention",
+                           {"X": r(b, JOIN["rank_fc"]), "RankOffset": ro,
+                            "RankParam": r(JOIN["max_rank"] ** 2,
+                                           JOIN["rank_fc"]
+                                           * JOIN["rank_out"], scale=0.1)},
+                           {"MaxRank": JOIN["max_rank"]}),
+        "tdm_child": ("tdm_child", {"X": rng.randint(1, len(tree), (b, 1)),
+                                    "TreeInfo": tree}, {"child_nums": 2}),
+        "merge_ids": ("merge_ids", {"Ids": merge, "X": [
+            r(int((merge % 4 == k).sum()), d) for k in range(4)]}, {}),
+        "ps_lookup_rows": ("ps_lookup_rows", {"Ids": ids, "Rows": rows},
+                           {"padding_idx": int(ids[0, 0])}),
+        "fused_embedding_seq_pool (sum)": (
+            "fused_embedding_seq_pool", {"W": table, "Ids": ids},
+            {"combiner": "sum"}),
+        "fused_embedding_seq_pool (mean)": (
+            "fused_embedding_seq_pool", {"W": table, "Ids": ids},
+            {"combiner": "mean"}),
+        "fusion_seqpool_concat": ("fusion_seqpool_concat", {"X": slots},
+                                  {"pooltype": "SUM"}),
+        "fusion_seqpool_cvm_concat": ("fusion_seqpool_cvm_concat",
+                                      {"X": slots}, {"use_cvm": False}),
+        "fused_seqpool_cvm_with_pcoc": ("fused_seqpool_cvm_with_pcoc",
+                                        {"X": slots}, {"use_cvm": False}),
+        "partial_concat": ("partial_concat", {"X": pooled},
+                           {"start_index": 2, "length": 8}),
+        "partial_sum": ("partial_sum", {"X": pooled},
+                        {"start_index": 2, "length": 8}),
+        "cvm": ("cvm", {"X": np.abs(pooled[0]), "CVM": r(b, 2)},
+                {"use_cvm": True}),
+        "scaled_int8fc": ("scaled_int8fc",
+                          {"Input": r(b, 1293), "W": r(1293, 512,
+                                                       scale=0.05),
+                           "Bias": r(512)},
+                          {"input_scale": 0.05, "weight_scale": 0.001}),
+        "pull_box_extended_sparse": (
+            "pull_box_extended_sparse",
+            {"W": r(1 << 16, d),
+             "Ids": [rng.randint(0, 1 << 16, (b, seq)) for _ in range(s)]},
+            {"emb_extended_size": 8}),
+        "tdm_sampler": ("tdm_sampler",
+                        {"X": rng.randint(0, len(travel), (b, 1)),
+                         "Travel": travel, "Layer": layer},
+                        {"neg_samples_num_list": [1] * 17, "op_seed": 7}),
+        "shuffle_batch": ("shuffle_batch", {"X": r(b, s * d)},
+                          {"op_seed": 8}),
+    }
+
+
+def _listed_err(got, want, tol):
+    """``_op_err`` over every tensor of every output slot."""
+    return max(_op_err({k: [g]}, {k: [w]}, tol)
+               for k, ws in want.items() for w, g in zip(ws, got[k]))
+
+
+def _ctr_op_grads(op, ins, attrs, dev, cots):
+    """``generic_grad`` of ``op`` on ``dev`` from ``cots`` ({slot: [one
+    array an output]}), over each float input it differentiates."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    opdef = get_op(op)
+    t = {k: [torch.from_numpy(np.array(a)).to(dev)
+             for a in (v if isinstance(v, list) else [v])]
+         for k, v in ins.items()}
+    slots = [k for k, v in t.items() if k not in opdef.nondiff_inputs
+             and v[0].is_floating_point()]
+    gins = {"I_" + k: v for k, v in t.items()}
+    gins.update({"G_" + k: [torch.from_numpy(c).to(dev) for c in cs]
+                 for k, cs in cots.items()})
+    return get_op("generic_grad").fn(
+        gins, {"fwd_type": op, "fwd_attrs": dict(attrs),
+               "grad_slots": slots, "in_slots": list(ins)},
+        LoweringContext(device=torch.device(dev)))
+
+
+def _ctr_contracts(outs, ins, label):
+    """tdm_sampler's and shuffle_batch's contracts on the card's
+    outputs; returns what failed."""
+    if label == "tdm_sampler":
+        out, lab, mask = (_host(outs[k][0])[..., 0]
+                          for k in ("Out", "Labels", "Mask"))
+        x, travel, layer = (ins["X"][:, 0], ins["Travel"], ins["Layer"])
+        bad = []
+        if not np.array_equal(out[:, 0::2], travel[x]):
+            bad.append("the travel path")
+        if any(not np.isin(out[:, 2 * li + 1], layer[li]).all()
+               for li in range(layer.shape[0])):
+            bad.append("a negative outside its layer")
+        if not np.array_equal(lab, np.tile([1, 0], (len(x), layer.shape[0]))):
+            bad.append("the labels")
+        if not np.array_equal(mask, (out != 0).astype(mask.dtype)):
+            bad.append("the mask")
+        return bad
+    idx = _host(outs["ShuffleIdx"][0])
+    x = ins["X"]
+    bad = []
+    if sorted(idx.tolist()) != list(range(len(x))):
+        bad.append("not a permutation")
+    if not np.array_equal(_host(outs["Out"][0]), x[idx]):
+        bad.append("Out != X[ShuffleIdx]")
+    g = np.random.RandomState(SEED + 152).randn(*x.shape).astype("float32")
+    grads = _ctr_op_grads("shuffle_batch", ins, {"op_seed": 8}, DEVICE,
+                          {"Out": [g]})
+    want = np.zeros_like(g)
+    want[idx] = g
+    if not np.array_equal(_host(grads["GI_X"][0]), want):
+        bad.append("the gradient does not scatter back")
+    return bad
+
+
+def _ctr_ops_on_the_card(card):
+    """4v (c): each op type's forward ms on the card (CUDA events);
+    against the host, forward and ``generic_grad`` where it is
+    differentiable, within CTR_CARD_TOL of each output's largest |value|;
+    the three gathering ops' gradients twice on the card bit for bit;
+    ``tdm_sampler`` and ``shuffle_batch`` held to their contracts."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    worst, ms, same, broken = {}, {}, {}, {}
+    rng = np.random.RandomState(SEED + 153)
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    for label, (op, ins, attrs) in _ctr_op_cases().items():
+        dev_ins = {k: [torch.from_numpy(np.array(a)).to(DEVICE)
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+        ms[label] = _ms(lambda: get_op(op).fn(dev_ins, dict(attrs), ctx), 3,
+                        warmup=1)
+        del dev_ins
+        card_out = _op_run(op, ins, attrs, DEVICE)
+        if op in ("tdm_sampler", "shuffle_batch"):
+            broken[label] = _ctr_contracts(card_out, ins, label)
+            continue
+        host = _op_run(op, ins, attrs, "cpu")
+        worst[label] = _listed_err(card_out, host, CTR_CARD_TOL)
+        opdef = get_op(op)
+        if not opdef.differentiable:
+            continue
+        cots = {k: [rng.randn(*_host(v).shape).astype("float32")
+                    for v in vs] for k, vs in host.items()
+                if k not in opdef.nondiff_outputs
+                and _host(vs[0]).dtype.kind == "f"}
+        g_card = _ctr_op_grads(op, ins, attrs, DEVICE, cots)
+        worst[label] = max(worst[label], _listed_err(
+            g_card, _ctr_op_grads(op, ins, attrs, "cpu", cots),
+            CTR_CARD_TOL))
+        if op in CTR_GATHER_GRADS:
+            again = _ctr_op_grads(op, ins, attrs, DEVICE, cots)
+            same[label] = all(np.array_equal(_host(a), _host(b))
+                              for k in g_card
+                              for a, b in zip(g_card[k], again[k]))
+    _p("CTR op types on the card, forward ms: "
+       + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"  [{card}]")
+    _p(f"CTR op types on the card against the host, forward and "
+       f"generic_grad, error / {CTR_CARD_TOL} of the largest |value| (under "
+       "1 passes): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; gathering gradients bit for bit in two card runs: {same}; "
+       f"contracts broken: {broken}  [{card}]")
+    if max(worst.values()) > 1 or len(same) != 4 \
+            or not all(same.values()) or any(broken.values()):
+        raise SystemExit("chip_smoke: a CTR op type disagrees with the "
+                         "host, is not deterministic on the card or breaks "
+                         "its contract")
+    return {"worst": worst, "ms": ms, "same": same}
+
+
+def phase_ctr_tier(card):
+    """Phase 4v, the PaddleBox CTR tier: (a) the join tower at config 5's
+    width through BoxPS, (b) its eval pass, (c) the tier's other op types
+    on the card against the host, (d) card against host with a twin.
+    Returns the counted launches of (a)'s timed steps, and the
+    numbers."""
+    launches, train = _join_train(card)
+    t = time.perf_counter()
+    ops = _ctr_ops_on_the_card(card)
+    _p(f"phase 4v (c): {time.perf_counter() - t:.1f} s")
+    host = _join_card_vs_host(card)
+    return launches, {"train": train, "ops": ops, "host": host}
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -12679,6 +13374,9 @@ def main():
     # 4u builds static programs too: before 4e turns dygraph on
     det_launches, _ = _timed("4u detection tier: MobileNet-SSD and YOLOv3",
                              phase_detection_tier, card)
+    # 4v builds static programs too: before 4e turns dygraph on
+    ctr_tier_launches, _ = _timed("4v PaddleBox CTR tier: the join tower",
+                                  phase_ctr_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -12897,6 +13595,10 @@ def main():
     for row in kernels:
         row["detection_launches"] = {leg: c[row["name"]]
                                      for leg, c in det_launches.items()}
+    # the PaddleBox CTR tier (phase 4v): launches over (a)'s timed join
+    # tower steps (fused_adam once a step, every other kernel none)
+    for row in kernels:
+        row["ctr_tier_launches"] = ctr_tier_launches[row["name"]]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

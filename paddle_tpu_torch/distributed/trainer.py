@@ -67,6 +67,15 @@ def _slot_transform(plan, box):
     return transform
 
 
+def _stage_cache(program, scope, plan, cache):
+    """A pass's cache into the scope; the accumulators sized by the
+    previous pass's cache (its Adam moments) go with it, and the
+    executor fills them again at the new cache's shape."""
+    scope.set_var(plan["cache"], cache)
+    for n in getattr(program, "_hints", {}).get("runtime_shaped_state", {}):
+        scope.erase(n)
+
+
 def _box_pass(program, dataset, train):
     """The BoxPS pass lifecycle around one dataset sweep
     (box_wrapper.h:339-366 BeginPass/EndPass): enumerate the pass's
@@ -86,7 +95,7 @@ def _box_pass(program, dataset, train):
         return (lambda feed: feed), (lambda: None)
     cache = box.begin_pass(ids)
     scope = global_scope()
-    scope.set_var(plan["cache"], cache)
+    _stage_cache(program, scope, plan, cache)
 
     def finish():
         if train:
@@ -123,7 +132,7 @@ def train_passes(executor, program, datasets, fetch_list=None,
     for i, ds in enumerate(datasets):
         cache = box.begin_pass_commit(fut)
         if cache is not None:
-            scope.set_var(plan["cache"], cache)
+            _stage_cache(program, scope, plan, cache)
         if i + 1 < len(datasets):
             # the next pass's sweep and pull start now, beside this pass
             fut = box.begin_pass_async(

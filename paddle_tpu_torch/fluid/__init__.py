@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu.fluid``, the static-graph slices: Program /
 layers (control flow and the learning-rate schedules among them) /
 backward / optimizer (the 20 optimizers, the BoxPS facade) /
 regularizer / clip / Executor and its async window / CompiledProgram /
-passes (AMP among them) / Scope / io / DataFeeder / the dataset tier.
+passes (AMP among them) / Scope / io / DataFeeder / the dataset tier /
+``fluid.contrib`` (its layers).
 """
 from .. import ops as _ops  # registers all lowering rules
 
@@ -42,6 +43,7 @@ from . import goodput
 from . import flight_recorder
 from . import dataset
 from .dataset import DatasetFactory, InMemoryDataset, QueueDataset
+from .. import contrib                            # fluid.contrib alias
 
 # the metrics export plane (fluid/metrics_export.py), started from the
 # environment as the trace is: `FLAGS_metrics_port=9090 python serve.py`

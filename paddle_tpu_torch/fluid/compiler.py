@@ -4,20 +4,35 @@
 A BuildStrategy's rewrite knobs select Program-IR passes that
 CompiledProgram applies once, at the first run, before the executor
 builds its run plan (``passes.passes_for_build_strategy``, the
-build_strategy.cc AppendPass analog).  Data parallelism and the
-knobs whose passes are not ported (``fuse_all_reduce_ops``, ``sharding``,
-``auto_tune``) raise ``NotImplementedError`` at pass application when set.
+build_strategy.cc AppendPass analog).  ``debug_graphviz_path`` makes the
+pipeline write one Graphviz ``.dot`` a stage.  Data parallelism, the
+knobs that need several cards (``sync_batch_norm``, ``sharding_mesh``,
+``num_trainers`` above 1, ``trainers_endpoints``, ``nccl_comm_num`` above
+1, ``collective_mode``) and those whose passes are not ported
+(``fuse_all_reduce_ops``, ``sharding``, ``auto_tune``) raise
+``NotImplementedError`` at pass application when set.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 
+class ReduceStrategy:
+    AllReduce = 0
+    Reduce = 1
+
+
 class BuildStrategy:
-    """The rewrite knobs (details/build_strategy.h), with the reference's
-    names and defaults.  Each selects a registered pass."""
+    """The knobs (details/build_strategy.h), with the reference's names
+    and defaults.  A rewrite knob selects a registered pass."""
 
     def __init__(self):
+        # read by nothing on one card, in the reference either
+        self.reduce_strategy = ReduceStrategy.AllReduce
+        self.gradient_scale_strategy = 0
+        # directory: the pipeline dumps one Graphviz .dot a pass stage
+        self.debug_graphviz_path = ""
+        self.enable_inplace = True
         # True -> constant_fold + prune_identity + dce (the 1.x
         # memory_optimize contract: shrink the op stream)
         self.memory_optimize = None
@@ -42,6 +57,7 @@ class BuildStrategy:
         self.fuse_sparse_embedding = False
         self.fuse_optimizer = False
         self.fuse_all_optimizer_ops = False
+        self.fuse_grad_size_in_num = 32        # allreduce bucket (ops)
         self.enable_dce = False                # -> dce (fetch-seeded)
         # bf16 mixed precision as passes (passes/amp.py): amp -> amp_bf16
         # then prune_redundant_casts unless that is turned off
@@ -50,10 +66,19 @@ class BuildStrategy:
         self.amp_custom_white_list = None
         self.amp_custom_black_list = None
         self.prune_redundant_casts = True
-        # not ported: set true, pass application raises
+        # not ported: set off the default, pass application raises
         self.fuse_all_reduce_ops = False
         self.sharding = None
+        self.sharding_mesh = None
         self.auto_tune = False
+        self.enable_sequential_execution = False
+        self.remove_unnecessary_lock = True
+        self.sync_batch_norm = False
+        self.num_trainers = 1
+        self.trainer_id = 0
+        self.trainers_endpoints = []
+        self.collective_mode = None
+        self.nccl_comm_num = 1
 
 
 class ExecutionStrategy:
@@ -85,12 +110,17 @@ class CompiledProgram:
         if self._ir_passes_applied:
             return None
         from . import passes
+        hint_fg = self._program._hints.get("fuse_grad_size_in_num")
+        if hint_fg is not None:
+            # a tuned bucket size travels with the program
+            self._build_strategy.fuse_grad_size_in_num = int(hint_fg)
         plist = passes.passes_for_build_strategy(self._build_strategy)
         self._ir_passes_applied = True
-        if not plist:
+        gv = self._build_strategy.debug_graphviz_path or None
+        if not plist and not gv:
             return None
-        return passes.PassPipeline(plist).apply(self._program,
-                                                targets=fetch_names)
+        return passes.PassPipeline(plist, graphviz_path=gv).apply(
+            self._program, targets=fetch_names)
 
     @property
     def program(self):

@@ -255,6 +255,15 @@ class Executor:
             var = block._find_var_recursive(k)
             env[k] = self._to_device(v, var.dtype if var is not None
                                      else None)
+        for n, (param, fill) in program._hints.get(
+                "runtime_shaped_state", {}).items():
+            # an accumulator of a parameter sized at run time starts at
+            # its fill, at the parameter's shape (a new pass's cache
+            # drops it: distributed/trainer.py)
+            p = env.get(param)
+            if n in plan.scope_reads and p is not None and (
+                    n not in env or env[n].shape != p.shape):
+                env[n] = torch.full_like(p, fill)
         seed = program.random_seed if program.random_seed is not None else 0
         ctx = LoweringContext(device=self.device,
                               base_seed=seed * 1_000_003 + self._step,

@@ -36,13 +36,14 @@ from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  elu, selu, softplus, softsign, softshrink, hard_shrink,
                  tanh_shrink, thresholded_relu, hard_swish, hard_sigmoid,
                  mish, swish, logsigmoid, stanh, brelu, conv2d_transpose,
-                 group_norm, instance_norm, pad2d, relu_, unfold)
+                 group_norm, instance_norm, pad2d, relu_, unfold,
+                 data_norm)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost,
                    log_loss, huber_loss, kldiv_loss, mse_loss,
                    cross_entropy, smooth_l1)
 from .detection import *  # noqa: F401,F403
-from .metric_op import accuracy
+from .metric_op import accuracy, auc
 from .sequence_lod import (sequence_pool, sequence_conv, sequence_expand,
                            sequence_mask, sequence_pad, sequence_unpad,
                            sequence_erase, sequence_concat,
@@ -61,7 +62,8 @@ from .control_flow import (cond, while_loop, array_write, array_read,
                            logical_or, logical_not)
 from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      strided_slice, shape, rank, unique, scatter_nd_add,
-                     scatter_nd, multiplex, shard_index, reverse, dice_loss,
+                     scatter_nd, multiplex, hash, shard_index, reverse,
+                     dice_loss, continuous_value_model, filter_by_instag,
                      create_parameter, autoincreased_step_counter,
                      row_conv, beam_search, beam_search_decode,
                      gather_tree, conv3d, pool3d, affine_grid,

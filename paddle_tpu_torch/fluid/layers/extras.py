@@ -94,6 +94,11 @@ def multiplex(inputs, index):
     return _one("multiplex", {"X": list(inputs), "Ids": [index]})
 
 
+def hash(input, hash_size, num_hash=1, name=None):
+    return _one("hash", {"X": [input]}, mod_by=hash_size,
+                num_hash=num_hash)
+
+
 def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
     return _one("shard_index", {"X": [input]}, index_num=index_num,
                 nshards=nshards, shard_id=shard_id,
@@ -596,3 +601,17 @@ def ctc_greedy_decoder(input, blank, input_length=None, name=None):
         ins["InputLength"] = [input_length]
     return _one("ctc_align", ins, "Output", layer="ctc_greedy_decoder",
                 blank=blank, merge_repeated=True)
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _one("cvm", {"X": [input], "CVM": [cvm]}, layer="cvm",
+                use_cvm=use_cvm, out_slot="Y")
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod, out_val_if_empty=0):
+    outs = _many("filter_by_instag",
+                 {"Ins": [ins], "Ins_tag": [ins_tag],
+                  "Filter_tag": [filter_tag]},
+                 ("Out", "LossWeight", "IndexMap"),
+                 is_lod=is_lod, out_val_if_empty=out_val_if_empty)
+    return outs["Out"][0], outs["LossWeight"][0], outs["IndexMap"][0]

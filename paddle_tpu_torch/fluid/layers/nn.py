@@ -8,7 +8,7 @@ import sys
 
 import numpy as np
 
-from ..framework import in_dygraph_mode
+from ..framework import in_dygraph_mode, unique_name
 from ..layer_helper import LayerHelper
 from .tensor import _to_variable
 
@@ -145,6 +145,69 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                           attrs={"padding_idx": padding_idx,
                                  "is_sparse": is_sparse})
     return _out(op, "Out", out)
+
+
+def data_norm(input, act=None, epsilon=1e-4, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=True, slot_dim=-1,
+              sync_stats=False, summary_decay_rate=0.9999999,
+              enable_scale_and_shift=False):
+    """CTR feature normalisation over persistable summary statistics
+    (data_norm_op.cc): ``batch_size`` (1e4), ``batch_sum`` (0) and
+    ``batch_square_sum`` (1e4) a column, not trainable; the op writes
+    their decayed update itself.  The op reads ``assign`` snapshots of
+    them, so the backward reads the step's values while the update
+    writes the parameters."""
+    from ..initializer import ConstantInitializer
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("data_norm", name=name)
+    c = int(input.shape[-1])
+    cfg = param_attr if isinstance(param_attr, dict) else {}
+    base = name or unique_name("data_norm")
+    stats = {}
+    for suffix, default in (("batch_size", cfg.get("batch_size", 1e4)),
+                            ("batch_sum", cfg.get("batch_sum", 0.0)),
+                            ("batch_square_sum",
+                             cfg.get("batch_square", 1e4))):
+        p = helper.create_parameter(
+            ParamAttr(name=f"{base}.{suffix}",
+                      initializer=ConstantInitializer(float(default))),
+            [c], input.dtype)
+        p.stop_gradient = True
+        p.trainable = False
+        snap = helper.create_variable_for_type_inference(dtype=input.dtype)
+        helper.append_op("assign", inputs={"X": [p]},
+                         outputs={"Out": [snap]})
+        stats[suffix] = (p, snap)
+    inputs = {"X": [input], "BatchSize": [stats["batch_size"][1]],
+              "BatchSum": [stats["batch_sum"][1]],
+              "BatchSquareSum": [stats["batch_square_sum"][1]]}
+    if enable_scale_and_shift:
+        sw = helper.create_parameter(
+            ParamAttr(name=f"{base}.scale_w",
+                      initializer=ConstantInitializer(
+                          float(cfg.get("scale_w", 1.0)))), [c], input.dtype)
+        b = helper.create_parameter(
+            ParamAttr(name=f"{base}.bias",
+                      initializer=ConstantInitializer(
+                          float(cfg.get("bias", 0.0)))), [c], input.dtype)
+        inputs["ScaleW"], inputs["Bias"] = [sw], [b]
+    y = helper.create_variable_for_type_inference(dtype=input.dtype)
+    means = helper.create_variable_for_type_inference(dtype=input.dtype)
+    scales = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = helper.append_op(
+        "data_norm", inputs=inputs,
+        outputs={"Y": [y], "Means": [means], "Scales": [scales],
+                 "BatchSizeOut": [stats["batch_size"][0]],
+                 "BatchSumOut": [stats["batch_sum"][0]],
+                 "BatchSquareSumOut": [stats["batch_square_sum"][0]]},
+        attrs={"epsilon": epsilon, "slot_dim": slot_dim,
+               "summary_decay_rate": summary_decay_rate,
+               "enable_scale_and_shift": enable_scale_and_shift})
+    out = op["Y"][0] if in_dygraph_mode() else y
+    return helper.append_activation(out, act)
 
 
 def pull_box_sparse(input, size, table_name="default_box", dtype="float32"):

@@ -113,9 +113,21 @@ class Optimizer:
                     device=param._value.device), stop_gradient=True)
             return accs[param.name]
         key = f"{self._name}_{name}_{param.name}"
-        acc = layers.create_global_var(
-            shape or list(param.shape), fill_value, dtype or param.dtype,
-            persistable=True, name=key)
+        if shape is None and any(int(d) < 0 for d in param.shape):
+            # a parameter sized at run time (the BoxPS pass cache, shape
+            # [-1, dim]): no startup fill; the executor fills the
+            # accumulator at its parameter's runtime shape
+            prog = framework.default_main_program()
+            acc = prog.global_block().create_var(
+                name=key, shape=tuple(param.shape),
+                dtype=dtype or param.dtype, persistable=True)
+            acc.stop_gradient = True
+            prog._hints.setdefault("runtime_shaped_state", {})[key] = (
+                param.name, float(fill_value))
+        else:
+            acc = layers.create_global_var(
+                shape or list(param.shape), fill_value,
+                dtype or param.dtype, persistable=True, name=key)
         self._accumulators.setdefault(name, {})[param.name] = acc
         return acc
 

@@ -449,14 +449,26 @@ class PruneIdentityPass(Pass):
 # BuildStrategy -> pipeline wiring (build_strategy.cc AppendPass analog)
 # ---------------------------------------------------------------------------
 
-# knobs whose passes are not ported: set true, they raise at pass
-# application instead of running a different program
+# knobs whose meaning is not ported: (knob, set off its default?, what
+# it needs); such a knob raises at pass application instead of running a
+# different program
+def _above_one(v):
+    return v is not None and int(v) > 1
+
+
+_ITEM_10 = "the parallelism slice (ROADMAP queue A item 10)"
 _UNPORTED_KNOBS = (
-    ("fuse_all_reduce_ops", "coalesce_allreduce, the parallelism slice "
-                            "(ROADMAP queue A item 10)"),
-    ("sharding", "shard_collectives, the parallelism slice (ROADMAP "
-                 "queue A item 10)"),
-    ("auto_tune", "the profile-guided tuner (ROADMAP queue A item 9)"),
+    ("fuse_all_reduce_ops", bool, "coalesce_allreduce, " + _ITEM_10),
+    ("sharding", bool, "shard_collectives, " + _ITEM_10),
+    ("auto_tune", bool, "the profile-guided tuner (ROADMAP queue A "
+                        "item 9)"),
+    ("sync_batch_norm", bool, "batch statistics across cards, "
+                              + _ITEM_10),
+    ("sharding_mesh", bool, "a device mesh, " + _ITEM_10),
+    ("num_trainers", _above_one, "several trainers, " + _ITEM_10),
+    ("trainers_endpoints", bool, "several trainers, " + _ITEM_10),
+    ("nccl_comm_num", _above_one, "several communicators, " + _ITEM_10),
+    ("collective_mode", bool, "a collective mode, " + _ITEM_10),
 )
 
 
@@ -471,8 +483,8 @@ def passes_for_build_strategy(build_strategy) -> List[Pass]:
     from . import amp as _amp  # noqa: F401 — registers the AMP passes
     from . import kernel_tier as _kt  # noqa: F401 — registers the tier
     bs = build_strategy
-    for knob, what in _UNPORTED_KNOBS:
-        if getattr(bs, knob, None):
+    for knob, is_set, what in _UNPORTED_KNOBS:
+        if is_set(getattr(bs, knob, None)):
             raise NotImplementedError(
                 f"BuildStrategy.{knob} needs {what}, which is not ported "
                 f"yet")

@@ -8,7 +8,8 @@ integer stats to ``pass.<name>.<stat>`` counters.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Type
+import os
+from typing import Dict, List, Optional, Sequence, Type
 
 from .. import trace
 
@@ -118,20 +119,33 @@ def _n_ops(program) -> int:
 
 
 class PassPipeline:
-    """Ordered pass application with version enforcement."""
+    """Ordered pass application with version enforcement and optional
+    per-stage Graphviz dumps (``BuildStrategy.debug_graphviz_path``):
+    ``NN_<label>.dot``, ``00_input`` then one a pass."""
 
-    def __init__(self, passes: Sequence[Pass] = ()):
+    def __init__(self, passes: Sequence[Pass] = (),
+                 graphviz_path: Optional[str] = None):
         self.passes: List[Pass] = list(passes)
+        self.graphviz_path = graphviz_path or None
 
     def append(self, p: Pass) -> "PassPipeline":
         self.passes.append(p)
         return self
 
+    def _dump(self, program, stage: int, label: str) -> None:
+        if not self.graphviz_path:
+            return
+        from .graphviz import dump_program
+        os.makedirs(self.graphviz_path, exist_ok=True)
+        dump_program(program, os.path.join(
+            self.graphviz_path, f"{stage:02d}_{label}.dot"))
+
     def apply(self, program, targets: Sequence[str] = ()
               ) -> Dict[str, Dict[str, int]]:
         """Run every pass over ``program``; returns {pass: stats}."""
         ctx = PassContext(program, targets=targets)
-        for p in self.passes:
+        self._dump(program, 0, "input")
+        for i, p in enumerate(self.passes):
             v0, n0 = program._version, _n_ops(program)
             stats = dict(p.apply(program, ctx) or {})
             n1 = _n_ops(program)
@@ -151,4 +165,5 @@ class PassPipeline:
             for k, v in stats.items():
                 if v:
                     m.counter(f"pass.{p.name}.{k}").inc(int(v))
+            self._dump(program, i + 1, p.name)
         return ctx.stats

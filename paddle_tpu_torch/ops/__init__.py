@@ -16,7 +16,8 @@ from . import plumbing_ops    # noqa: F401  is_empty
 from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
-from . import ctr_ops         # noqa: F401  fused_embedding_pool
+from . import ctr_ops         # noqa: F401  fused_embedding_pool, CTR tier
+from . import fused_extra_ops  # noqa: F401  the fused CTR rows
 from . import rnn_ops         # noqa: F401  lstm/gru/cudnn_lstm family
 from . import nlp_ops         # noqa: F401  CRF, CTC, beam search, sampled heads
 from . import sequence_extra  # noqa: F401  padded sequence ops

@@ -1,8 +1,8 @@
 """Catalog-tail lowerings (counterpart of
 ``paddle_tpu/ops/catalog_tail_ops.py``: the op paddle.tensor reaches,
 ``recurrent``, StaticRNN's step loop, the sequence tail's
-``sequence_reshape`` and ``sequence_topk_avg_pooling``, and the twelve
-of the detection tail)."""
+``sequence_reshape`` and ``sequence_topk_avg_pooling``, the twelve
+of the detection tail and the CTR tail's ``pull_box_extended_sparse``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -67,6 +67,24 @@ def _sequence_topk_avg_pooling(ins, attrs, ctx):
     outs = [torch.topk(x, min(k, x.shape[-1]), dim=-1).values.mean(-1)
             for k in attrs.get("topks", [1])]
     return {"Out": [torch.cat(outs, dim=-1)]}
+
+
+# ---------------------------------------------------------------------------
+# CTR / sparse-table tail
+# ---------------------------------------------------------------------------
+
+@register_op("pull_box_extended_sparse", differentiable=False)
+def _pull_box_extended_sparse(ins, attrs, ctx):
+    """pull_box_extended_sparse_op.cc: ``pull_box_sparse``'s rows of W,
+    and an ``emb_extended_size``-wide zero vector an id beside them.  It
+    reads ``W``, which the reference's builder never appends, so a
+    program built by ``_pull_box_extended_sparse`` raises here as it
+    does there."""
+    base = get_op("pull_box_sparse").fn(ins, attrs, ctx)["Out"]
+    edim = attrs.get("emb_extended_size", 8)
+    return {"Out": base,
+            "OutExtend": [o.new_zeros(tuple(o.shape[:-1]) + (edim,))
+                          for o in base]}
 
 
 # ---------------------------------------------------------------------------

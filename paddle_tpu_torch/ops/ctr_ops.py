@@ -1,7 +1,18 @@
-"""CTR ops (counterpart of ``paddle_tpu/ops/ctr_ops.py``, the fused
-sparse embedding and the parameter-server pulls and pushes the BoxPS
-tier runs, ``pull_box_sparse`` among them; the rest of that module comes
-with the op-catalog slice).
+"""CTR ops (counterpart of ``paddle_tpu/ops/ctr_ops.py``): the fused
+sparse embedding, the parameter-server pulls and pushes the BoxPS tier
+runs (``pull_box_sparse`` among them), and the PaddleBox CTR tier:
+``cvm``, ``fused_seqpool_cvm``, ``batch_fc``, ``scaled_fc``,
+``rank_attention``, ``cross_norm_hadamard``, ``filter_by_instag``,
+``hash``, ``pyramid_hash``, the TDM pair, ``store_q_value``,
+``merge_ids``, ``ps_lookup_rows`` and ``data_norm``.  Each keeps the
+reference's reading of its inputs and attributes, what it ignores
+included (``fused_seqpool_cvm`` pools by SUM whatever ``pooltype`` says,
+``batch_fc`` is always ReLU, ``scaled_fc`` never reads
+``grad_scale_factor``, ``filter_by_instag`` zeroes rows and never
+compacts).  A gather with a gradient sums its repeats in a fixed order
+on the card: ``rank_attention`` picks its blocks by a one-hot product,
+``pyramid_hash`` gathers through ``_GatherRows`` (a stable sort and one
+segment sum per row, as ``pull_box_sparse``'s gradient).
 
 ``fused_embedding_pool`` is what the ``fuse_sparse_embedding`` pass
 (fluid/passes/kernel_tier.py) makes of a ``lookup_table[_v2]`` →
@@ -37,6 +48,7 @@ artifact of inference/aot.py) holds the op and so the kernel.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_kernels
 from .registry import register_op
@@ -243,3 +255,333 @@ def _push_dense(ins, attrs, ctx):
     """push_dense_op: the device half is the identity; the trainer ships
     the gradients to the parameter server after the step."""
     return {"Out": list(ins["Ids"]) if ins.get("Ids") else [ins["X"][0]]}
+
+
+# --- the PaddleBox CTR tier ---------------------------------------------------
+def _x(ins, slot="X"):
+    return ins[slot][0]
+
+
+def _cvm_fwd(x, use_cvm):
+    """cvm_op.h: column 0 becomes log(show + 1), column 1 log(click + 1)
+    less column 0; without use_cvm the two leading columns go."""
+    if use_cvm:
+        c0 = torch.log(x[:, 0:1] + 1.0)
+        c1 = torch.log(x[:, 1:2] + 1.0) - c0
+        return torch.cat([c0, c1, x[:, 2:]], dim=1)
+    return x[:, 2:]
+
+
+@register_op("cvm", nondiff_inputs=("CVM",))
+def _cvm(ins, attrs, ctx):
+    return {"Y": [_cvm_fwd(_x(ins), attrs.get("use_cvm", True))]}
+
+
+@register_op("continuous_value_model", nondiff_inputs=("CVM",))
+def _continuous_value_model(ins, attrs, ctx):
+    return {"Y": [_cvm_fwd(_x(ins), attrs.get("use_cvm", True))]}
+
+
+@register_op("fused_seqpool_cvm", nondiff_inputs=("CVM", "Length"))
+def _fused_seqpool_cvm(ins, attrs, ctx):
+    """SUM-pool each padded [B, T, D] slot, then CVM: one ``Length`` [B]
+    for every slot (an empty row pools to ``pad_value``); ``pooltype``,
+    ``cvm_offset`` and the ``CVM`` input are not read, as in the
+    reference."""
+    use_cvm = attrs.get("use_cvm", True)
+    pad_value = attrs.get("pad_value", 0.0)
+    length = ins["Length"][0] if ins.get("Length") else None
+    outs = []
+    for x in ins["X"]:
+        if length is not None:
+            pos = torch.arange(x.shape[1], device=x.device)
+            m = (pos[None, :] < length.reshape(-1, 1)).to(x.dtype)[..., None]
+            pooled = torch.sum(x * m, dim=1)
+            empty = length.reshape(-1, 1) == 0
+            pooled = torch.where(empty, torch.full_like(pooled, pad_value),
+                                 pooled)
+        else:
+            pooled = torch.sum(x, dim=1)
+        outs.append(_cvm_fwd(pooled, use_cvm))
+    return {"Out": outs}
+
+
+@register_op("batch_fc")
+def _batch_fc(ins, attrs, ctx):
+    """batch_fc_op.cc: Input [S, N, in], W [S, in, out], Bias [S, out] ->
+    relu(Input @ W + Bias), whatever ``activation`` says."""
+    x, w, b = _x(ins, "Input"), _x(ins, "W"), _x(ins, "Bias")
+    out = torch.bmm(x, w.to(x.dtype)) + b[:, None, :]
+    return {"Out": [torch.relu(out)]}
+
+
+@register_op("scaled_fc")
+def _scaled_fc(ins, attrs, ctx):
+    """scaled_fc_op.cc: relu((x · input_scale) @ W + b · bias_scale);
+    ``grad_scale_factor`` is not read."""
+    x, w, b = _x(ins, "Input"), _x(ins, "W"), _x(ins, "Bias")
+    isf = attrs.get("input_scale_factor", 1.0)
+    bsf = attrs.get("bias_scale_factor", 1.0)
+    return {"Out": [torch.relu((x * isf) @ w + b * bsf)]}
+
+
+@register_op("rank_attention", nondiff_inputs=("RankOffset",))
+def _rank_attention(ins, attrs, ctx):
+    """rank_attention_op.cc: X [N, x_dim]; RankOffset [N, 1 + 2·max_rank]
+    (column 0 the instance's rank, 0 for none, then (other rank, block
+    row) pairs); RankParam [rows, x_dim · para_col].  Out [N, para_col]
+    is the mean over the present pairs of X[i] @ block.  Computed as
+    X @ every block (one product) and a one-hot product that picks each
+    instance's present blocks, so RankParam's gradient is one product
+    over the instances, the same bits on every run (a gather's gradient
+    over blocks most instances share adds them in an order the card does
+    not fix)."""
+    x = _x(ins)
+    rank_offset = ins["RankOffset"][0].long()
+    param = _x(ins, "RankParam")
+    n, x_dim = x.shape
+    rows = param.shape[0]
+    para_col = param.shape[1] // x_dim
+    idx = rank_offset[:, 2::2]                      # [N, max_rank]
+    present = (rank_offset[:, 1::2] >= 0) & (rank_offset[:, 0:1] > 0)
+    pick = F.one_hot(torch.clamp(idx, min=0), rows).to(x.dtype) \
+        * present.to(x.dtype)[..., None]            # [N, max_rank, rows]
+    every = (x @ param.reshape(rows, x_dim, para_col).permute(1, 0, 2)
+             .reshape(x_dim, rows * para_col)).reshape(n, rows, para_col)
+    out = torch.bmm(pick.sum(1)[:, None, :], every)[:, 0] / torch.clamp(
+        present.to(x.dtype).sum(1, keepdim=True), min=1.0)
+    return {"Out": [out.to(x.dtype)], "InputHelp": [x],
+            "ParamHelp": [param],
+            "InsRank": [rank_offset[:, 0:1].to(x.dtype)]}
+
+
+@register_op("cross_norm_hadamard")
+def _cross_norm_hadamard(ins, attrs, ctx):
+    """cross_norm_hadamard_op.cc: paired fields [a, b] of ``embed_dim``
+    become (a, b, a · b) each, normalised by ``SummaryInput``'s row 0 as
+    the mean and row 1 (at least 1e-6) as the scale; SummaryInput is a
+    parameter the optimizer moves, and ``summary_decay_rate`` is not
+    read."""
+    x = _x(ins, "Input")
+    summary = _x(ins, "SummaryInput")
+    fields = attrs.get("fields_num", 1)
+    embed = attrs.get("embed_dim", x.shape[1] // (2 * fields))
+    pairs = x.reshape(x.shape[0], fields, 2, embed)
+    a, b = pairs[:, :, 0], pairs[:, :, 1]
+    out = torch.cat([a, b, a * b], dim=-1).reshape(x.shape[0], -1)
+    mean, scale = summary[0], torch.clamp(summary[1], min=1e-6)
+    return {"Out": [(out - mean) / scale],
+            "CudaMeans": [mean], "CudaScales": [scale]}
+
+
+@register_op("filter_by_instag",
+             nondiff_inputs=("Ins_tag", "Filter_tag"), differentiable=False)
+def _filter_by_instag(ins, attrs, ctx):
+    """filter_by_instag_op.cc at a static shape: a row none of whose tags
+    is a filter tag is zeroed and weighs 0 in ``LossWeight``; rows are
+    never compacted, and ``is_lod`` and ``out_val_if_empty`` are not
+    read."""
+    rows = ins["Ins"][0]
+    tags = ins["Ins_tag"][0]          # [N, T] tag ids, -1 pads
+    filt = ins["Filter_tag"][0]       # [F]
+    if tags.ndim == 1:
+        tags = tags[:, None]
+    hit = (tags[:, :, None] == filt.reshape(-1)[None, None, :]).any(
+        dim=2).any(dim=1)
+    w = hit.to(rows.dtype)
+    shaped = w.reshape((-1,) + (1,) * (rows.ndim - 1))
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    return {"Out": [rows * shaped], "LossWeight": [w.reshape(-1, 1)],
+            "IndexMap": [torch.stack([pos, pos], 1)]}
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _xxhash_like(x, mod, seed):
+    """The reference's multiplicative mix on uint32 words, in int64 with
+    every product and shift masked to 32 bits (a wrapped int64 product's
+    low word is exact): the high word is mixed into the low first, as the
+    reference does under x64 (for ids below 2^32 the high word is 0 and
+    its x64-off branch gives the same)."""
+    x = x.long()
+    lo = x & _M32
+    hi = (x >> 32) & _M32
+    lo = lo ^ ((hi * 2246822519) & _M32)
+    h = (lo * 2654435761 + seed) & _M32
+    h = h ^ (h >> 16)
+    h = (h * 2246822519) & _M32
+    h = h ^ (h >> 13)
+    return h % mod
+
+
+@register_op("hash", differentiable=False)
+def _hash(ins, attrs, ctx):
+    """hash_op.cc: ``num_hash`` hashes of each id into [0, mod_by)."""
+    x = _x(ins)
+    mod = attrs.get("mod_by", 1)
+    return {"Out": [torch.stack(
+        [_xxhash_like(x, mod, seed)
+         for seed in range(attrs.get("num_hash", 1))], dim=-1)]}
+
+
+@register_op("pyramid_hash", nondiff_inputs=("X",))
+def _pyramid_hash(ins, attrs, ctx):
+    """pyramid_hash_op.cc: each n-gram window (n from 2 to 1 +
+    pyramid_layer) of the padded [B, T] ids hashes to a row of W; the
+    rows' first ``num_emb`` columns are summed a sequence.  W's rows are
+    gathered by ``_GatherRows``, whose gradient sums repeats in a fixed
+    order."""
+    x = _x(ins).long()
+    w = _x(ins, "W")
+    num_emb = attrs.get("num_emb", w.shape[1])
+    space_len = attrs.get("space_len", w.shape[0])
+    b, t = x.shape[:2]
+    acc = torch.zeros((b, num_emb), dtype=w.dtype, device=w.device)
+    for n in range(2, 2 + attrs.get("pyramid_layer", 2)):
+        if t < n:
+            break
+        coef = torch.arange(1, n + 1, device=x.device)
+        for s in range(t - n + 1):
+            h = torch.sum(x[:, s:s + n] * coef[None, :], dim=1)
+            acc = acc + _GatherRows.apply(w, h % space_len)[:, :num_emb]
+    return {"Out": [acc]}
+
+
+@register_op("tdm_child", nondiff_inputs=("X", "TreeInfo"),
+             differentiable=False)
+def _tdm_child(ins, attrs, ctx):
+    """tdm_child_op.cc: each node's children from TreeInfo's rows
+    [item_id, layer_id, parent_id, child_0 .. child_{n-1}]; LeafMask is 1
+    where a child is not 0."""
+    x = _x(ins).long()
+    tree = ins["TreeInfo"][0].long()
+    child_nums = attrs.get("child_nums", tree.shape[1] - 3)
+    children = tree[:, 3:3 + child_nums]
+    out = children[x.reshape(-1)].reshape(tuple(x.shape) + (child_nums,))
+    return {"Child": [out], "LeafMask": [(out != 0).long()]}
+
+
+@register_op("tdm_sampler", nondiff_inputs=("X", "Travel", "Layer"),
+             differentiable=False, stateful_rng=True)
+def _tdm_sampler(ins, attrs, ctx):
+    """tdm_sampler_op.cc: per tree layer, each item's node on its travel
+    path (label 1) then ``neg_samples_num_list[i]`` nodes drawn uniformly
+    from that layer's row of ``Layer`` (label 0); Mask is 1 where a node
+    is not 0.  ``output_positive`` and ``output_list`` are not read."""
+    x = _x(ins).long().reshape(-1)
+    travel = ins["Travel"][0].long()        # [n_items, n_layers]
+    layer = ins["Layer"][0].long()          # [n_layers, width] padded
+    negs = attrs.get("neg_samples_num_list", [1] * travel.shape[1])
+    n = x.shape[0]
+    gen = ctx.key_for(attrs.get("op_seed", attrs.get("seed", 0) or 0))
+    dev = x.device
+    path = travel[x]
+    outs, labels = [], []
+    for li in range(travel.shape[1]):
+        neg_idx = torch.randint(0, layer.shape[1], (n, negs[li]),
+                                generator=gen, device=dev)
+        outs.append(torch.cat([path[:, li:li + 1], layer[li][neg_idx]], 1))
+        labels.append(torch.cat(
+            [torch.ones((n, 1), dtype=torch.long, device=dev),
+             torch.zeros((n, negs[li]), dtype=torch.long, device=dev)], 1))
+    out = torch.cat(outs, 1)
+    return {"Out": [out.reshape(n, -1, 1)],
+            "Labels": [torch.cat(labels, 1).reshape(n, -1, 1)],
+            "Mask": [(out != 0).long().reshape(n, -1, 1)]}
+
+
+@register_op("store_q_value", differentiable=False)
+def _store_q_value(ins, attrs, ctx):
+    """store_q_value_op: the identity on the device; the Q values are
+    kept on the host."""
+    return {"Out": [ins["Input"][0]]}
+
+
+@register_op("merge_ids", nondiff_inputs=("Ids", "Rows"),
+             differentiable=False)
+def _merge_ids(ins, attrs, ctx):
+    """merge_ids_op: rows pulled from ``len(X)`` shards (id % shards, in
+    arrival order within a shard) put back in the ids' order."""
+    ids = ins["Ids"][0].long().reshape(-1)
+    parts = ins["X"]
+    n_shard = len(parts)
+    stacked = torch.cat(list(parts), dim=0)
+    shard = ids % n_shard
+    offsets = torch.zeros_like(ids)
+    for s in range(n_shard):
+        in_s = (shard == s).long()
+        offsets = offsets + in_s * (torch.cumsum(in_s, 0) - 1)
+    sizes = torch.tensor([0] + [p.shape[0] for p in parts[:-1]],
+                         dtype=torch.long, device=ids.device)
+    base = torch.cumsum(sizes, 0)
+    return {"Out": [stacked[base[shard] + offsets].reshape(
+        tuple(ids.shape) + (parts[0].shape[-1],))]}
+
+
+@register_op("ps_lookup_rows", nondiff_inputs=("Ids",))
+def _ps_lookup_rows(ins, attrs, ctx):
+    """The device half of a PS-served lookup: ``Rows``, the host's rows
+    for each id position, shaped as the ids; padding positions zeroed."""
+    rows = ins["Rows"][0]
+    ids = ins["Ids"][0]
+    if attrs.get("v1") and ids.shape and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    out = rows.reshape(tuple(ids.shape) + (rows.shape[-1],))
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        out = torch.where((ids == pad)[..., None], torch.zeros_like(out),
+                          out)
+    return {"Out": [out]}
+
+
+@register_op("data_norm",
+             nondiff_inputs=("BatchSize", "BatchSum", "BatchSquareSum"),
+             nondiff_outputs=("Means", "Scales", "BatchSizeOut",
+                              "BatchSumOut", "BatchSquareSumOut"))
+def _data_norm(ins, attrs, ctx):
+    """data_norm_op.cc: y = (x - sum/size) · sqrt(size/square_sum) (then
+    · ScaleW + Bias), the statistics held constant in the backward, so
+    dX = dY · scales.  Unless ``is_test``, the op writes the decayed
+    running statistics as outputs (``summary_decay_rate``); with
+    ``slot_dim`` a slot whose first column (its show) is 0 is left out.
+    As in the reference, padded rows of a bucketed batch enter the
+    statistics (``ctx.batch_mask`` is not read), and ``sync_stats`` is not
+    read."""
+    x = ins["X"][0]
+    bsize, bsum, bsq = (ins["BatchSize"][0], ins["BatchSum"][0],
+                        ins["BatchSquareSum"][0])
+    means = bsum / bsize
+    scales = torch.sqrt(bsize / bsq)
+    y = (x - means) * scales
+    if ins.get("ScaleW"):
+        y = y * ins["ScaleW"][0] + ins["Bias"][0]
+    outs = {"Y": [y], "Means": [means], "Scales": [scales]}
+    if ctx.is_test:
+        return outs
+    eps = attrs.get("epsilon", 1e-4)
+    decay = attrs.get("summary_decay_rate", 0.9999999)
+    slot_dim = int(attrs.get("slot_dim", -1))
+    n, c = x.shape[0], x.shape[-1]
+    if slot_dim > 0 and c % slot_dim == 0:
+        xm = x.reshape(n, c // slot_dim, slot_dim)
+        live = (torch.abs(xm[:, :, 0]) > 1e-7)[..., None]
+        cnt_s = live.sum(0).to(x.dtype)
+        cnt = cnt_s.expand(c // slot_dim, slot_dim).reshape(c)
+        ssum = (xm * live).sum(0).reshape(c)
+        ssq = (((xm - means.reshape(c // slot_dim, slot_dim)) ** 2)
+               * live).sum(0).reshape(c)
+        safe = torch.clamp(cnt, min=1.0)
+        hit = cnt >= 1
+        zero = torch.zeros_like(cnt)
+        d_size = torch.where(hit, torch.ones_like(cnt), zero)
+        d_sum = torch.where(hit, ssum / safe, zero)
+        d_sq = torch.where(hit, ssq / safe + cnt * eps, zero)
+    else:
+        d_size = torch.full((c,), float(n), dtype=x.dtype, device=x.device)
+        d_sum = x.reshape(-1, c).sum(0)
+        d_sq = ((x - means) ** 2).reshape(-1, c).sum(0) + n * eps
+    outs["BatchSizeOut"] = [decay * bsize + d_size]
+    outs["BatchSumOut"] = [decay * bsum + d_sum]
+    outs["BatchSquareSumOut"] = [decay * bsq + d_sq]
+    return outs

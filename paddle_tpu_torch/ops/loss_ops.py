@@ -308,3 +308,37 @@ def _bpr(ins, attrs, ctx):
         .to(x.dtype)
     return {"Y": [-(term * (1.0 - is_label)).sum(dim=1, keepdim=True)
                   / max(c - 1, 1)]}
+
+
+@register_op("auc", differentiable=False)
+def _auc(ins, attrs, ctx):
+    """Streaming AUC (metrics/auc_op.cc): the batch's positives and
+    negatives added into the persistable ``num_thresholds + 1`` bucket
+    histograms by ``Predict[:, -1]``, then the ROC area by trapezoids
+    over the thresholds, high to low.  Under shape bucketing the padded
+    rows add nothing.  ``curve`` and ``slide_steps`` are not read, as in
+    the reference.  The counts are integers in float32, exact below 2^24
+    a bucket, so ``index_add_``'s order does not change them."""
+    preds, labels = ins["Predict"][0], ins["Label"][0]
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    nt = attrs.get("num_thresholds", 4095)
+    p1 = preds[:, -1] if preds.ndim > 1 else preds
+    idx = torch.clamp((p1 * nt).to(torch.int64), 0, nt)
+    lbl = labels.reshape(-1).to(torch.float32)
+    bm = ctx.batch_mask(p1.shape[0])
+    row_w = bm.to(torch.float32) if bm is not None else torch.ones_like(lbl)
+    pos_new = stat_pos.reshape(-1).clone().index_add_(0, idx, lbl * row_w)
+    neg_new = stat_neg.reshape(-1).clone().index_add_(
+        0, idx, (1.0 - lbl) * row_w)
+    tp = torch.cumsum(torch.flip(pos_new, [0]), 0)
+    fp = torch.cumsum(torch.flip(neg_new, [0]), 0)
+    tot_pos, tot_neg = tp[-1], fp[-1]
+    zero = tp.new_zeros(1)
+    tp_prev = torch.cat([zero, tp[:-1]])
+    fp_prev = torch.cat([zero, fp[:-1]])
+    area = torch.sum((fp - fp_prev) * (tp + tp_prev) / 2.0)
+    auc = torch.where(tot_pos * tot_neg > 0,
+                      area / (tot_pos * tot_neg + 1e-12),
+                      torch.zeros_like(area))
+    return {"AUC": [auc], "StatPosOut": [pos_new.reshape(stat_pos.shape)],
+            "StatNegOut": [neg_new.reshape(stat_neg.shape)]}

@@ -243,3 +243,26 @@ def _center_loss(ins, attrs, ctx):
         centers = centers + alpha * delta / (cnt[:, None] + 1.0)
     return {"Loss": [loss], "SampleCenterDiff": [diff],
             "CentersOut": [centers]}
+
+
+@register_op("partial_concat")
+def _partial_concat(ins, attrs, ctx):
+    """partial_concat_op.cc: the columns [start_index, start_index +
+    length) of every input (to the end for length -1), concatenated."""
+    start = attrs.get("start_index", 0)
+    length = attrs.get("length", -1)
+    return {"Out": [torch.cat(
+        [x[:, start:(x.shape[1] if length < 0 else start + length)]
+         for x in ins["X"]], dim=1)]}
+
+
+@register_op("partial_sum")
+def _partial_sum(ins, attrs, ctx):
+    """partial_sum_op.cc: the same column slice of every input, summed."""
+    start = attrs.get("start_index", 0)
+    length = attrs.get("length", -1)
+    acc = None
+    for x in ins["X"]:
+        piece = x[:, start:(x.shape[1] if length < 0 else start + length)]
+        acc = piece if acc is None else acc + piece
+    return {"Out": [acc]}

@@ -107,3 +107,18 @@ def _sampling_id(ins, attrs, ctx):
     flat = x.reshape(-1, x.shape[-1]).float()
     out = torch.multinomial(flat, 1, generator=gen)
     return {"Out": [out.reshape(x.shape[:-1])]}
+
+
+@register_op("shuffle_batch", stateful_rng=True,
+             nondiff_outputs=("ShuffleIdx",))
+def _shuffle_batch(ins, attrs, ctx):
+    """shuffle_batch_op.cc: the rows of X in a random permutation; Out ==
+    X[ShuffleIdx], and the gradient scatters back (``F.embedding``'s,
+    through ``gather_rows``)."""
+    from .detection_ops import gather_rows
+    x = ins["X"][0]
+    gen = ctx.key_for(attrs.get("op_seed", attrs.get("startup_seed", 0) or 0))
+    idx = torch.randperm(x.shape[0], generator=gen, device=x.device)
+    return {"Out": [gather_rows(x, idx)], "ShuffleIdx": [idx],
+            "SeedOut": [torch.zeros((1,), dtype=torch.int64,
+                                    device=x.device)]}

@@ -11,7 +11,9 @@ beam-search and sequence-tier op types, which those lack, take the first
 case of each in ``test_torch_rnn_ops.OP_CASES``,
 ``test_torch_rnn_decode.NLP_CASES`` and
 ``test_torch_sequence_ops.OP_CASES``; the detection op types those lack
-are held on their own cases by ``test_torch_detection_ops.py`` (``SKIPS``).
+are held on their own cases by ``test_torch_detection_ops.py``, and the
+CTR op types the probe cannot feed by ``test_torch_ctr_tier.py``
+(``SKIPS``).
 
 - Forward: every output slot of the reference's, floats within rtol 1e-4
   (and 1e-4 of the slot's largest value), ids and bools equal.
@@ -62,6 +64,11 @@ _RANDOM = ("draws random numbers: ground rule 5 holds it to a contract "
 _DETECTION = ("boxes, RoIs and matches the probe does not make: "
               "tests/test_torch_detection_ops.py holds it forward and "
               "through generic_grad against the reference")
+_CTR = ("the CTR tier's ids, tags, trees, shards or histograms, which the "
+        "probe does not make: tests/test_torch_ctr_tier.py holds it against "
+        "the reference")
+_CTR_RANDOM = ("draws random numbers: tests/test_torch_ctr_tier.py holds "
+               "it to its contract (ground rule 5)")
 _ATTRS_ONLY = ("makes its output from attributes (shape, value, range) "
                "alone; the probe feeds tensors: "
                "tests/test_torch_tensor.py")
@@ -113,6 +120,10 @@ SKIPS = {
                       "outputs' shapes depend on the data): "
                       "tests/test_torch_detection_ops.py",
     "multiclass_nms2": "see multiclass_nms",
+    **{op: _CTR for op in (
+        "auc", "filter_by_instag", "merge_ids", "pull_box_extended_sparse",
+        "scaled_int8fc", "tdm_child")},
+    **{op: _CTR_RANDOM for op in ("shuffle_batch", "tdm_sampler")},
     **{op: _DETECTION for op in (
         "bipartite_match", "box_decoder_and_assign", "collect_fpn_proposals",
         "deformable_psroi_pooling", "density_prior_box", "detection_map",
