@@ -12,8 +12,9 @@ flow), the dygraph-to-static tier (``paddle.jit.to_static``,
 ``jit.save`` / ``jit.load``, static AMP's loss scaling), the deployment
 path, and the rest of the serving surface (speculative paged decode, the
 serving engine's deadlines, pause, instruments, spans, flight recorder
-and metrics export), and the PaddleBox CTR tier's join tower through
-BoxPS.
+and metrics export), the PaddleBox CTR tier's join tower through
+BoxPS, and the quantization tier (QAT of static BERT-base, frozen and
+served; PTQ; the dygraph QAT).
 
     python3 chip_smoke.py
 
@@ -474,6 +475,30 @@ over):
    the AUC within JOIN_HOST_RTOL; a twin reading rank_offset's pairs
    swapped must miss by 10 times or more on some criterion, and those it
    misses by that much are printed.
+4w. the quantization tier -- static programs before 4e's tracer (the
+   dygraph leg under its own guard).  (a) static BERT-base at QAT's width
+   (phase 4b's, dropout 0.1) built forward only by ``qat_bert_program``,
+   then ``contrib.slim.quantization.quant_aware``, then Adam, through
+   ``BuildStrategy(kernel_tier=True)``: the op types (a fake
+   quant-dequant before every activation and weight, no fused attention,
+   one ``fused_adam``), QAT_WARMUP and TRAIN_STEPS timed steps of
+   TRAIN_ROWS with exactly 2 ``pt_dropout`` and 1 mask a layer and one
+   ``fused_adam`` a step, a profiled step, two full-width steps from one
+   state bit for bit, ``fused_adam`` on the bucket against its plain
+   version.  (b) ``convert`` of ``main.clone(for_test=True)``, frozen
+   and fused for serving, ``save_inference_model``, ``AnalysisPredictor``
+   at 1, 8 and 32 rows: 12 flash launches a run, the logits equal to the
+   frozen program's bit for bit; the QAT test program at 24 bits within
+   1e-4 of them, at 8 bits farther.  (c) PTQ of the float program under
+   abs_max and the histogram, card against host.  (d)
+   ``ImperativeQuantAware().quantize(LeNet())`` trained 5 steps: only the
+   last layer's bias moves (the reference's quirk); a forward's host
+   ms in train mode (a host read an observer) and in eval mode;
+   ``save_quantized_model`` and ``jit.load`` bit for bit.  (e) the
+   slice's 35 op types at BERT-base's shapes against the host, forward
+   and ``generic_grad``, each timed.  (f) QAT_HOST, 3 steps card against
+   host (losses, gradient cosine and norm, scales), a 7-bit activation
+   twin must miss by 10 times or more.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -492,7 +517,9 @@ over):
    timed steps, of one 4o (d) call and of 4o (e)'s timed steps,
    ``deploy_launches`` those of phase 4p's counted runs,
    ``speculative_launches`` those of each of phase 4q's legs,
-   ``ctr_tier_launches`` those of 4v (a)'s timed steps, and the
+   ``ctr_tier_launches`` those of 4v (a)'s timed steps,
+   ``qat_launches`` those of 4w (a)'s timed steps and
+   ``qat_serve_launches`` those of each of 4w (b)'s predictor runs, and the
    rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
    4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -670,7 +697,7 @@ HAPI_LENET_RTOL = 1e-3
 # (c) NMT at NMT's full width (config 4, nothing cut, dropout 0.1, bf16
 # amp_level O1, paddle.optimizer.Adam 1e-4) through Model.fit's dygraph
 # adapter on the tape: HAPI_NMT_WARMUP steps, then HAPI_NMT_STEPS timed
-HAPI_NMT_WARMUP, HAPI_NMT_STEPS, HAPI_NMT_LR = 3, 20, 1e-4
+HAPI_NMT_WARMUP, HAPI_NMT_STEPS, HAPI_NMT_LR = 3, 10, 1e-4
 # launches per Model.fit step, from the code: on the tape each op's
 # backward is generic_grad, a vjp that reruns the op's forward unless the
 # op has a custom_grad.  fused_multihead_attention has none: its flash
@@ -2926,7 +2953,7 @@ def _dy_product_flops():
     return 3 * 2.0 * (tokens * per_token + DY_BATCH * (h * h + 2 * h))
 
 
-def phase_profile_dygraph(step, card, iters=5):
+def phase_profile_dygraph(step, card, iters=2):
     """Where the dygraph step's time goes, as ``phase_profile`` measures
     it: host ms unprofiled, device busy ms, the idle share and device ms
     by kernel class of one step (grad program and fused Adam)."""
@@ -3270,7 +3297,7 @@ def _resnet_flops_per_image():
     return 2 * 4.1e9 * (RESNET_SIZE / 224) ** 2
 
 
-def phase_profile_resnet(trained, card, iters=3):
+def phase_profile_resnet(trained, card, iters=1):
     """Where the ResNet-50 step's time goes, as ``phase_profile``
     measures it: (a), (b) and the eval forward at RESNET_BATCH rows, with
     each one's peak memory; the "copies and casts" class is where a
@@ -3759,7 +3786,7 @@ def phase_train_nmt(card):
     return launches, step
 
 
-def phase_profile_nmt(step, card, iters=5):
+def phase_profile_nmt(step, card, iters=2):
     """Where the NMT step's time goes, as ``phase_profile`` measures it
     (host ms unprofiled, device busy ms, the idle share, device ms by
     kernel class), and the host ms each forward's causal mask takes to
@@ -4016,7 +4043,7 @@ def phase_train_mobilenet(card):
     return model, fstep, (images, labels)
 
 
-def phase_profile_mobilenet(trained, card, iters=3):
+def phase_profile_mobilenet(trained, card, iters=1):
     """Where the MobileNetV2 step's time goes, as ``phase_profile``
     measures it, with its peak memory."""
     import torch
@@ -4963,7 +4990,7 @@ def phase_speculative(decode_served, decode_ref, served, card):
     return launches
 
 
-def phase_profile_decode(served, card, iters=20):
+def phase_profile_decode(served, card, iters=10):
     """Where one paged decode step's time goes, as ``phase_profile``
     measures it: ``Executor.run`` of the fused paged program with the
     logits fetched to the host, at 1, 8 and 32 live slots, each slot
@@ -5672,7 +5699,7 @@ def _lenet_profile_setups():
     return setups
 
 
-def phase_profile_lenet(setups, card, iters=20):
+def phase_profile_lenet(setups, card, iters=10):
     """Where a kernel-tier LeNet training step's time goes, as
     ``phase_profile`` measures it, at each of LENET_PROFILE_ROWS rows:
     ``Executor.run`` with the loss fetched to the host."""
@@ -5904,7 +5931,7 @@ def _print_top_kernels(unit, iters, n=10):
            f"{name[:150]}")
 
 
-def phase_profile(served, trained, card, iters=20, train_iters=5):
+def phase_profile(served, trained, card, iters=10, train_iters=2):
     """Where the time goes: one dispatched batch (``Executor.run`` of the
     served program on the card plus the host copy of the logits) at 1, 8
     and 32 rows, and one training step (``Executor.run`` of the rewritten
@@ -6565,7 +6592,7 @@ def phase_train_boxps(card):
     return tier_launches, boxps_launches, out
 
 
-def phase_profile_ctr(served, trained, card, iters=20, train_iters=5):
+def phase_profile_ctr(served, trained, card, iters=10, train_iters=2):
     """Where the CTR path's time goes, as ``phase_profile`` measures it:
     one dispatched batch of the served program at 1, 64 and 512 rows and
     one training step at CTR_TRAIN_ROWS rows."""
@@ -10338,7 +10365,7 @@ CYCLEGAN_HOST = dict(ngf=8, ndf=8, blocks=2, size=64, batch=1)
 CYCLEGAN_PARAMS = 28_310_408
 CYCLEGAN_LAMBDA = 10.0          # the cycle loss's weight; identity 0.5 of it
 CYCLEGAN_LR, CYCLEGAN_BETA1 = 2e-4, 0.5
-CYCLEGAN_WARMUP, CYCLEGAN_STEPS = 3, 10
+CYCLEGAN_WARMUP, CYCLEGAN_STEPS = 3, 5
 CYCLEGAN_HOST_STEPS = 2
 CYCLEGAN_LOSSES = ("gan", "cycle", "identity", "discriminator")
 IMAGE_CARD_TOL = 1e-4           # (c): of each output's largest |value|
@@ -13305,6 +13332,750 @@ def phase_ctr_tier(card):
     return launches, {"train": train, "ops": ops, "host": host}
 
 
+# ---------------------------------------------------------------------------
+# the quantization tier: QAT of static BERT-base, frozen and served; PTQ;
+# the dygraph QAT (phase 4w)
+# ---------------------------------------------------------------------------
+QAT = dict(BERT_BASE, dropout=0.1, lr=1e-3)
+QAT_HOST = dict(vocab=64, hidden=32, heads=4, seq=16, layers=2, dropout=0.1,
+                lr=1e-3)
+
+
+def qat_bert_attention(L, x, hidden, heads, mask, dropout):
+    """One attention block as ``models/static_graphs.py``'s
+    ``_naive_attention`` spells it: fc, reshape2, transpose2 per Q, K and
+    V, then matmul, scale, the bias, softmax, dropout, matmul."""
+    dh = hidden // heads
+
+    def split(t):
+        return L.transpose(L.reshape(t, [0, 0, heads, dh]), [0, 2, 1, 3])
+
+    q, k, v = (split(L.fc(x, hidden, num_flatten_dims=2)) for _ in range(3))
+    s = L.scale(L.matmul(q, k, transpose_y=True), scale=dh ** -0.5) + mask
+    p = L.softmax(s)
+    if dropout:
+        p = L.dropout(p, dropout, dropout_implementation="upscale_in_train")
+    ctx = L.transpose(L.matmul(p, v), [0, 2, 1, 3])
+    return L.reshape(ctx, [0, 0, hidden])
+
+
+def qat_bert_program(fluid, cfg, train=True, quant=True, bits=(8, 8)):
+    """The static BERT classifier of ``build_bert_train_program`` (the
+    padding bias, ``cfg['layers']`` blocks of ``qat_bert_attention`` and a
+    ReLU fc, the mean over tokens, a 2-way fc and its cross-entropy), built
+    forward only; then ``contrib.slim.quantization.quant_aware`` at
+    (weight, activation) ``bits`` and, to train, Adam: QAT comes before
+    ``minimize``, so the backward runs through the straight-through
+    ops.  Returns (loss, logits, [(param, grad)])."""
+    L = fluid.layers
+    seq, hidden = cfg["seq"], cfg["hidden"]
+    ids = fluid.data("ids", [-1, seq], dtype="int64")
+    labels = fluid.data("labels", [-1, 1], dtype="int64")
+    am = L.reshape(fluid.data("attn_mask", [-1, seq]), [0, 1, 1, seq])
+    mask = L.scale(am, scale=10000.0, bias=-10000.0, bias_after_scale=False)
+    h = L.embedding(ids, size=[cfg["vocab"], hidden])
+    for _ in range(cfg["layers"]):
+        h = qat_bert_attention(L, h, hidden, cfg["heads"], mask,
+                               cfg["dropout"])
+        h = L.fc(h, hidden, num_flatten_dims=2, act="relu")
+    logits = L.fc(L.reduce_mean(h, dim=[1]), 2)
+    loss = L.mean(L.softmax_with_cross_entropy(logits, labels))
+    if quant:
+        fluid.contrib.slim.quantization.quant_aware(
+            fluid.default_main_program(), weight_bits=bits[0],
+            activation_bits=bits[1])
+    pg = []
+    if train:
+        _, pg = fluid.optimizer.AdamOptimizer(cfg["lr"]).minimize(loss)
+    return loss, logits, pg
+
+
+QAT_WARMUP = 2
+QAT_SERVE_ROWS = (1, 8, 32)    # (b): the predictor's batches
+QAT_FINE_BITS = 24             # (b): a step below float32's rounding of
+QAT_FINE_TOL = 1e-4            # the scaled values: relative L2 to the frozen
+QAT_PTQ = dict(rows=4, batches=4, hist_batches=1)
+QAT_PTQ_RTOL = 1e-4            # (c): abs_max scales, card against host
+QAT_PTQ_BINS = 2               # (c): histogram cuts, in bins of the range
+QAT_LENET = dict(batch=64, steps=5, lr=1e-3)
+QAT_FWD_CALLS = 20             # (d): forwards timed in each mode
+QAT_CARD_TOL = 1e-4            # (e): of each output's largest |value|
+QAT_ONE_STEP_SHARE = 1e-3      # (e): codes one quant step apart, at most
+QAT_HOST_RTOL = dict(loss=1e-4, cosine=1e-4, norm=1e-4, scales=1e-4)
+QAT_HOST_STEPS = 3
+
+
+def _qat_types_check(main, layers, where):
+    """The op types that QAT and the kernel tier leave, against what
+    ``layers`` blocks make: a fake quant-dequant before every activation
+    (the block's input, both matmuls' X, the ReLU fc's; the classifier's)
+    and a channel-wise one before every weight (4 muls' and both
+    matmuls' Y a block; the classifier's), no fused attention (the fake
+    ops break the chain ``fuse_attention`` matches, as in the
+    reference), one ``fused_adam``."""
+    types = [op.type for op in main.global_block().ops]
+    want = {"fake_quantize_dequantize_abs_max": 4 * layers + 1,
+            "fake_channel_wise_quantize_dequantize_abs_max": 6 * layers + 1,
+            "fused_multihead_attention": 0, "fused_adam": 1, "adam": 0,
+            "softmax": layers, "dropout": layers}
+    got = {k: types.count(k) for k in want}
+    _p(f"{where}: {len(types)} ops after quant_aware, minimize and the "
+       f"kernel tier: {got}")
+    if got != want:
+        raise SystemExit(f"chip_smoke: {where} holds {got}, expected "
+                         f"{want}")
+    return got
+
+
+def _qat_built(cfg, bits=(8, 8), train=True, quant=True, tier=True):
+    """(main, startup, loss, logits, [(param, grad)], the program to run:
+    through ``BuildStrategy(kernel_tier=True)`` with ``tier``)."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, (loss, logits, pg), _ = _book_program(
+        qat_bert_program, False, cfg=cfg, train=train, quant=quant,
+        bits=bits)
+    program = main
+    if tier:
+        bs = fluid.BuildStrategy()
+        bs.kernel_tier = True
+        program = fluid.CompiledProgram(main, bs)
+        program._apply_ir_passes([loss.name])
+    return main, startup, loss, logits, pg, program
+
+
+def _qat_feed(cfg, rows, seed):
+    """ids, labels and a padding mask attending to random prefixes."""
+    rng = np.random.RandomState(seed)
+    seq = cfg["seq"]
+    lengths = rng.randint(1, seq + 1, rows)
+    return {"ids": rng.randint(0, cfg["vocab"], (rows, seq)).astype("int64"),
+            "labels": rng.randint(0, 2, (rows, 1)).astype("int64"),
+            "attn_mask": (np.arange(seq)[None, :] < lengths[:, None])
+            .astype("float32")}
+
+
+def _qat_train(card):
+    """4w (a) and (b): QAT of static BERT-base at TRAIN_ROWS rows (QAT's
+    width, dropout 0.1), the timed steps' launches, a profiled step, two
+    full-width steps from one state bit for bit, the frozen program
+    served, and ``fused_adam`` on the step's bucket against its plain
+    version.  Returns ((a)'s launches, (b)'s, the numbers)."""
+    import torch
+    from paddle_tpu_torch import fluid
+
+    cfg, layers = QAT, QAT["layers"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = {}
+    with _fresh_fluid_globals():
+        t0 = time.perf_counter()
+        main, startup, loss, logits, pg, prog = _qat_built(cfg)
+        build_s = time.perf_counter() - t0
+        out["types"] = _qat_types_check(main, layers,
+                                        "QAT BERT-base (card)")
+        place = fluid.CUDAPlace(0)
+        exe, scope = fluid.Executor(place), fluid.global_scope()
+        exe.run(startup)
+        n_params = sum(math.prod(p.shape) for p, _ in pg)
+        feed = _qat_feed(cfg, TRAIN_ROWS, SEED + 160)
+
+        def step():
+            return exe.run(prog, feed=feed, fetch_list=[loss],
+                           return_numpy=False)[0]
+
+        warm = [float(step()) for _ in range(QAT_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = {"fused_dropout": 2 * layers * TRAIN_STEPS,
+                "dropout_mask": layers * TRAIN_STEPS,
+                "fused_adam": TRAIN_STEPS}
+        t0 = time.perf_counter()
+        timed, launches = _counted_run(
+            "the QAT BERT-base timed steps",
+            lambda: [step() for _ in range(TRAIN_STEPS)], want)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        losses = warm + [float(x) for x in timed]
+        tokens = TRAIN_ROWS * cfg["seq"] * TRAIN_STEPS
+        _p(f"QAT BERT-base: built (quant_aware, then Adam) and passed in "
+           f"{build_s:.1f} s, {len(pg)} parameters ({n_params} values); "
+           f"{TRAIN_STEPS} timed steps of {TRAIN_ROWS} rows in {wall:.3f} "
+           f"s: {wall / TRAIN_STEPS * 1e3:.3f} host ms/step, "
+           f"{tokens / wall:.0f} tokens/s; peak {peak:.3f} GiB above the "
+           f"{base / 2 ** 30:.3f} GiB earlier phases hold; launches "
+           f"{launches} (a step: {2 * layers} pt_dropout, the attention "
+           f"dropouts' forward and their custom grad, {layers} masks, 1 "
+           f"fused Adam); losses {[round(x, 5) for x in losses]}  [{card}]")
+        if not np.isfinite(losses).all():
+            raise SystemExit("chip_smoke: a QAT BERT-base loss is not "
+                             "finite")
+        prof = _profile(lambda: float(step()), 1, warmup=1, host_ops=False)
+        _p(f"profile QAT BERT-base step: host {prof[0]:.3f} ms/step, "
+           f"device busy {prof[1]:.3f} ms/step, idle share {prof[2]:.4f}, "
+           f"{prof[3]:.0f} kernels/step  [{card}]")
+        _print_classes(prof[4], "step")
+        out.update(ms=wall / TRAIN_STEPS * 1e3, tokens_s=tokens / wall,
+                   peak_gib=peak, losses=losses, host_ms=prof[0],
+                   busy_ms=prof[1], idle=prof[2], kernels=prof[3],
+                   by_class=prof[4], params=n_params)
+
+        # two full-width steps from one state, bit for bit (each by an
+        # executor of its own: the dropout masks are keyed by its step)
+        snap = _join_snapshot(main, scope)
+        runs = []
+        for _ in range(2):
+            s = fluid.Scope()
+            for n, v in snap.items():
+                s.set_var(n, v.clone())
+            lv = fluid.Executor(place).run(prog, feed=feed, fetch_list=[loss],
+                                           scope=s, return_numpy=False)[0]
+            runs.append((float(lv), _join_snapshot(main, s)))
+            del s
+        differ = [n for n in snap if not torch.equal(runs[0][1][n],
+                                                      runs[1][1][n])]
+        if runs[0][0] != runs[1][0]:
+            differ.append("the loss")
+        _p(f"QAT BERT-base determinism: two full-width steps from one "
+           f"state, {len(differ)} of {len(snap) + 1} persistables and the "
+           f"loss differ in any bit {differ}  [{card}]")
+        del snap, runs
+        if differ:
+            raise SystemExit("chip_smoke: two QAT BERT-base steps from one "
+                             "state differ")
+        out["differ"] = differ
+
+        serve_launches, out["serve"] = _qat_freeze_serve(
+            main, logits, exe, scope, card)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 162)
+        out["adam_max_abs_err"] = _adam_bucket_check(
+            main, scope, gen, "the QAT BERT-base step", card)
+    torch.cuda.empty_cache()
+    return launches, serve_launches, out
+
+
+def _qat_freeze_serve(main, logits, exe, scope, card):
+    """4w (b): ``convert`` of ``main.clone(for_test=True)``, frozen for
+    serving (``serving.freeze_program``) with ``fuse_attention``, as
+    phase 4 serves (no fake op is left in its way), and
+    ``save_inference_model``; then ``AnalysisPredictor`` at
+    QAT_SERVE_ROWS: its logits equal to the executor's run of the frozen
+    program bit for bit.  The un-frozen QAT test program differs from
+    them by its quantization noise alone: with every fake op at
+    QAT_FINE_BITS bits (a step under float32's rounding) within
+    QAT_FINE_TOL (relative L2), so ``convert`` dropped nothing else; at
+    8 bits more than that (printed: attention probabilities under half a
+    step of 1/127 round to 0)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.slim.quantization import convert
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.serving import freeze_program
+
+    layers = QAT["layers"]
+    feeds = ["ids", "attn_mask"]
+    qat_test = main.clone(for_test=True)
+    qat_fine = main.clone(for_test=True)
+    for op in qat_fine.global_block().ops:
+        if op.type.startswith("fake_"):
+            op.attrs["bit_length"] = QAT_FINE_BITS
+    frozen = convert(main.clone(for_test=True))
+    served = freeze_program(frozen, feeds, [logits], scope=scope)
+    bs = fluid.BuildStrategy()
+    bs.fuse_attention = True
+    fluid.CompiledProgram(served, bs)._apply_ir_passes([logits.name])
+    types = [op.type for op in served.global_block().ops]
+    _p(f"QAT BERT-base frozen: {len(frozen._quant_scales)} scales "
+       f"recorded, {sum(t.startswith('fake_') for t in types)} fake ops "
+       f"left, {types.count('fused_multihead_attention')} fused attention "
+       f"ops after the serving passes and fuse_attention")
+    if types.count("fused_multihead_attention") != layers \
+            or any(t.startswith("fake_") for t in types):
+        raise SystemExit("chip_smoke: the frozen QAT BERT-base program "
+                         "kept a fake op or missed its fused attention")
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "qat_bert")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(model_dir, feeds, [logits], exe,
+                                          main_program=served,
+                                          params_filename="params")
+        out["save_s"] = time.perf_counter() - t0
+        pscope = fluid.Scope()
+        with fluid.scope_guard(pscope):
+            pred = create_predictor(AnalysisConfig(
+                model_dir, params_file=os.path.join(model_dir, "params")))
+            for rows in QAT_SERVE_ROWS:
+                f = _qat_feed(QAT, rows, SEED + 161 + rows)
+                got, c = _counted_run(
+                    f"the frozen QAT BERT-base predictor at {rows} rows",
+                    lambda: _serve_predictor(pred, f),
+                    {"flash_attention_fwd": layers})
+                launches[rows] = c
+                want = exe.run(served, feed={k: f[k] for k in feeds},
+                               fetch_list=[logits], scope=scope)[0]
+                noise = {}
+                for bits, prog in ((8, qat_test), (QAT_FINE_BITS, qat_fine)):
+                    q = exe.run(prog, feed=f, fetch_list=[logits],
+                                scope=scope)[0]
+                    noise[bits] = float(np.linalg.norm(q - got)
+                                        / np.linalg.norm(got))
+                exact = got.shape == (rows, 2) and np.array_equal(got, want)
+                _p(f"QAT BERT-base predictor at {rows} rows: "
+                   f"{c['flash_attention_fwd']} flash launches, logits equal "
+                   f"to the frozen program's bit for bit: {exact}; the QAT "
+                   f"test program's relative L2 from them at 8 bits "
+                   f"{noise[8]:.4e}, at {QAT_FINE_BITS} bits "
+                   f"{noise[QAT_FINE_BITS]:.4e} (at most {QAT_FINE_TOL})  "
+                   f"[{card}]")
+                out[rows] = dict(exact=exact, noise=noise)
+                if not exact or noise[QAT_FINE_BITS] > QAT_FINE_TOL \
+                        or not noise[8] > noise[QAT_FINE_BITS]:
+                    raise SystemExit("chip_smoke: the frozen QAT BERT-base "
+                                     "serves otherwise than its program, or "
+                                     "differs from QAT by more than its "
+                                     "quantization")
+    _p(f"QAT BERT-base: save_inference_model {out['save_s']:.2f} s")
+    return launches, out
+
+
+def _ptq_scales(main, logits, init, place, batches, algo):
+    """``PostTrainingQuantization`` of ``main`` from ``init`` on ``place``
+    over ``batches``; the ``quant_scales.json`` it saves."""
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.contrib.slim.quantization import \
+        PostTrainingQuantization
+
+    scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope), tempfile.TemporaryDirectory() as tmp:
+        ptq = PostTrainingQuantization(
+            exe, main, ["ids", "attn_mask"], [logits],
+            data_loader=lambda: iter(batches), batch_nums=len(batches),
+            algo=algo)
+        ptq.quantize()
+        ptq.save_quantized_model(tmp)
+        with open(os.path.join(tmp, "quant_scales.json")) as f:
+            return json.load(f)
+
+
+def _qat_ptq(card):
+    """4w (c): PTQ of the float BERT-base program (no QAT, the test
+    clone) from seed 0's startup, QAT_PTQ["batches"] calibration batches
+    under abs_max and QAT_PTQ["hist_batches"] under the histogram, on the
+    card and on the host: the same keys, abs_max scales within
+    QAT_PTQ_RTOL, the histogram's cuts within QAT_PTQ_BINS bins of their
+    range, the weight scales equal."""
+    from paddle_tpu_torch import fluid
+
+    with _fresh_fluid_globals():
+        main, startup, _, logits, _, _ = _qat_built(QAT, train=False,
+                                                   quant=False, tier=False)
+    init = _startup_state(main, startup, fluid.CUDAPlace(0))
+    test = main.clone(for_test=True)
+    batches = [{k: v for k, v in _qat_feed(QAT, QAT_PTQ["rows"],
+                                          SEED + 170 + i).items()
+                if k != "labels"} for i in range(QAT_PTQ["batches"])]
+    runs = {}
+    for algo, n in (("abs_max", QAT_PTQ["batches"]),
+                    ("hist", QAT_PTQ["hist_batches"])):
+        for where, place in (("card", fluid.CUDAPlace(0)),
+                             ("host", fluid.CPUPlace())):
+            t0 = time.perf_counter()
+            runs[(algo, where)] = _ptq_scales(test, logits, init, place,
+                                              batches[:n], algo)
+            _p(f"PTQ {algo} on the {where}: {n} batches of "
+               f"{QAT_PTQ['rows']} rows in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for algo in ("abs_max", "hist"):
+        got, want = runs[(algo, "card")], runs[(algo, "host")]
+        keys = sorted(got) == sorted(want) and all(
+            sorted(got[k]) == sorted(want[k])
+            for k in ("activations", "weights"))
+        act = {n: abs(got["activations"][n] - v) for n, v in
+               want["activations"].items()}
+        if algo == "abs_max":
+            err = max(act[n] / (QAT_PTQ_RTOL * abs(v))
+                      for n, v in want["activations"].items())
+        else:
+            err = max(act[n] / (QAT_PTQ_BINS * abs(v) / 2048)
+                      for n, v in want["activations"].items())
+        weights = all(np.array_equal(got["weights"][n], v)
+                      for n, v in want["weights"].items())
+        _p(f"PTQ {algo}: card against host, {len(want['activations'])} "
+           f"activation and {len(want['weights'])} weight scales, keys "
+           f"equal {keys}, activations' error / tolerance {err:.3e} (under "
+           f"1 passes), weights equal {weights}  [{card}]")
+        if not keys or err > 1 or not weights:
+            raise SystemExit(f"chip_smoke: PTQ {algo}'s scales on the card "
+                             f"disagree with the host's")
+        out[algo] = dict(err=err, activations=len(want["activations"]))
+    return out
+
+
+def _qat_imperative(card):
+    """4w (d): ``ImperativeQuantAware().quantize(LeNet())`` on the card,
+    QAT_LENET["steps"] Adam steps at MNIST's 1 x 28 x 28: the reference's
+    quirk, every quantized weight and every bias but the last layer's
+    bit for bit where it started; ``save_quantized_model`` and
+    ``jit.load``: the eval logits bit for bit."""
+    import torch
+    from paddle_tpu_torch import fluid, jit
+    from paddle_tpu_torch.contrib.slim.quantization import \
+        ImperativeQuantAware
+    from paddle_tpu_torch.dygraph import base as dy
+    from paddle_tpu_torch.vision.models import LeNet
+
+    cfg = QAT_LENET
+    rng = np.random.RandomState(SEED + 180)
+    x = rng.randn(cfg["batch"], 1, 28, 28).astype("float32")
+    y = rng.randint(0, 10, (cfg["batch"], 1)).astype("int64")
+    L = fluid.layers
+    with dy.guard(fluid.CUDAPlace(0)), tempfile.TemporaryDirectory() as tmp:
+        net = ImperativeQuantAware().quantize(LeNet())
+        swapped = sorted({type(l).__name__ for l in net.sublayers()
+                          if type(l).__name__.startswith("Quantized")})
+        before = {n: p.numpy().copy() for n, p in net.named_parameters()}
+        opt = fluid.optimizer.AdamOptimizer(
+            cfg["lr"], parameter_list=net.parameters())
+        xv, yv = dy.to_variable(x), dy.to_variable(y)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            loss = L.mean(L.softmax_with_cross_entropy(net(xv), yv))
+            loss.backward()
+            opt.minimize(loss)
+            net.clear_gradients()
+            losses.append(float(loss.numpy()))
+        step_ms = (time.perf_counter() - t0) / cfg["steps"] * 1e3
+        moved = sorted(n for n, p in net.named_parameters()
+                       if not np.array_equal(p.numpy(), before[n]))
+        # the observers' host reads: a training forward reads each
+        # quantized layer's activation abs max back to the host, an eval
+        # forward reads none
+        reads = sum(type(l).__name__ == "FakeQuantMovingAverage"
+                    for l in net.sublayers())
+        fwd_ms = {}
+        for mode in ("train", "eval"):
+            getattr(net, mode)()
+            net(xv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(QAT_FWD_CALLS):
+                net(xv)
+            torch.cuda.synchronize()
+            fwd_ms[mode] = (time.perf_counter() - t0) / QAT_FWD_CALLS * 1e3
+        net.train()
+        ImperativeQuantAware().save_quantized_model(net, tmp, [xv])
+        net.eval()
+        want = net(xv).numpy()
+        net.train()
+        loaded = jit.load(tmp)
+        got = loaded(x).numpy()
+    exact = np.array_equal(got, want)
+    _p(f"dygraph QAT LeNet forward, {QAT_FWD_CALLS} calls each: train "
+       f"{fwd_ms['train']:.3f} host ms ({reads} host reads of the "
+       f"observers' scales), eval {fwd_ms['eval']:.3f} (none): "
+       f"{(fwd_ms['train'] - fwd_ms['eval']) / reads:.3f} ms a read (with "
+       f"its abs max)  "
+       f"[{card}]")
+    _p(f"dygraph QAT LeNet: {swapped}, {cfg['steps']} Adam steps of "
+       f"{cfg['batch']} in {step_ms:.1f} ms each, losses "
+       f"{[round(v, 5) for v in losses]}; parameters that moved {moved} "
+       f"(the reference's quirk: only the last layer's bias); "
+       f"save_quantized_model -> jit.load, the eval logits equal bit for "
+       f"bit: {exact} (max |err| {float(np.abs(got - want).max()):.3e})  "
+       f"[{card}]")
+    if moved != ["fc.3._inner.bias"] or not exact \
+            or not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: the dygraph QAT LeNet moved other "
+                         "parameters, or its saved model answers otherwise")
+    return dict(losses=losses, moved=moved, step_ms=step_ms, fwd_ms=fwd_ms,
+                reads=reads)
+
+
+def _qat_op_cases():
+    """4w (e): the slice's 35 op types at the QAT path's shapes (BERT-base's
+    [4096, 768] activations, its [768, 768] weights, [32, 12, 128, 64]
+    heads), {label: (op, inputs, attrs, the step of one code in ``Out``
+    or None)}."""
+    rng = np.random.RandomState(SEED + 190)
+    rows, d, h = TRAIN_ROWS * QAT["seq"], QAT["hidden"], QAT["heads"]
+
+    def r(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype("float32")
+
+    x, w = r(rows, d), r(d, d, scale=0.03)
+    amax = float(np.abs(x).max())
+    cw = np.abs(w).max(axis=0)
+    codes = rng.randint(-127, 128, (rows, d))
+    state = {"InScale": np.array([0.8 * amax], "float32"),
+             "InAccum": np.array([2.5], "float32"),
+             "InState": np.array([1.9], "float32")}
+    heads = (TRAIN_ROWS * h, QAT["seq"], d // h)
+    return {
+        "fake_quantize_abs_max": ("fake_quantize_abs_max", {"X": x}, {}, 1.0),
+        "fake_quantize_dequantize_abs_max": (
+            "fake_quantize_dequantize_abs_max", {"X": x}, {}, amax / 127),
+        "fake_channel_wise_quantize_abs_max": (
+            "fake_channel_wise_quantize_abs_max", {"X": w},
+            {"quant_axis": 1}, 1.0),
+        "fake_channel_wise_quantize_dequantize_abs_max": (
+            "fake_channel_wise_quantize_dequantize_abs_max", {"X": w},
+            {"quant_axis": 1}, cw / 127),
+        "fake_quantize_range_abs_max": (
+            "fake_quantize_range_abs_max",
+            {"X": x, "InScale": state["InScale"],
+             "Iter": np.array([3], "int64")}, {}, 1.0),
+        "fake_quantize_moving_average_abs_max": (
+            "fake_quantize_moving_average_abs_max", dict(state, X=x), {},
+            1.0),
+        "fake_quantize_dequantize_moving_average_abs_max": (
+            "fake_quantize_dequantize_moving_average_abs_max",
+            dict(state, X=x), {}, None),
+        "moving_average_abs_max_scale": (
+            "moving_average_abs_max_scale",
+            {"X": x, "InAccum": state["InAccum"],
+             "InState": state["InState"]}, {}, None),
+        "fake_dequantize_max_abs": (
+            "fake_dequantize_max_abs",
+            {"X": codes.astype("float32"),
+             "Scale": np.array([amax], "float32")}, {"max_range": 127.0},
+            None),
+        "fake_channel_wise_dequantize_max_abs": (
+            "fake_channel_wise_dequantize_max_abs",
+            {"X": codes[:d].astype("float32"), "Scales": [cw]},
+            {"quant_bits": [8], "quant_axis": 1}, None),
+        "dequantize_abs_max": (
+            "dequantize_abs_max", {"X": codes.astype("int8"),
+                                   "Scale": np.array([amax], "float32")},
+            {"max_range": 127.0}, None),
+        "dequantize_log": (
+            "dequantize_log",
+            {"X": rng.randint(-128, 128, (rows, d)).astype("int8"),
+             "Dict": np.exp2(np.linspace(-7, 0, 128)).astype("float32")},
+            {}, None),
+        "quantize": ("quantize", {"Input": x},
+                     {"Scale": 100.0 / amax, "Shift": 3.0}, None),
+        "dequantize": ("dequantize", {"Input": codes.astype("int8")},
+                       {"Scale": 41.5, "Shift": 2.0}, None),
+        "requantize": ("requantize", {"Input": codes.astype("int8")},
+                       {"Scale_in": 40.0, "Scale_out": 25.0}, None),
+        "bmm": ("bmm", {"X": r(*heads), "Y": r(heads[0], heads[2],
+                                                heads[1])}, {}, None),
+        "cos_sim": ("cos_sim", {"X": x, "Y": r(rows, d)}, {}, None),
+        "isfinite": ("isfinite", {"X": [x, w]}, {}, None),
+        "l1_norm": ("l1_norm", {"X": x}, {}, None),
+        "pow": ("pow", {"X": np.abs(x) + 0.1}, {"factor": 2.5}, None),
+        "squared_l2_distance": ("squared_l2_distance",
+                                {"X": x, "Y": r(1, d)}, {}, None),
+        "squared_l2_norm": ("squared_l2_norm", {"X": w}, {}, None),
+        "diag_embed": ("diag_embed", {"Input": r(TRAIN_ROWS, QAT["seq"])},
+                       {}, None),
+        "size": ("size", {"Input": x}, {}, None),
+        "space_to_depth": ("space_to_depth", {"X": r(TRAIN_ROWS, 64, 56,
+                                                     56)},
+                           {"blocksize": 2}, None),
+        "squeeze": ("squeeze", {"X": r(TRAIN_ROWS, 1, d)}, {"axes": [1]},
+                    None),
+        "unsqueeze": ("unsqueeze", {"X": r(TRAIN_ROWS, d)}, {"axes": [1]},
+                      None),
+        "unique_with_counts": ("unique_with_counts", {
+            "X": rng.randint(0, QAT["vocab"], rows).astype("int64")}, {},
+            None),
+        "top_k_v2": ("top_k_v2", {"X": np.round(r(256, QAT["vocab"]), 1)},
+                     {"k": 5}, None),
+        "kthvalue": ("kthvalue", {"X": np.round(r(rows, 64), 1)}, {"k": 7},
+                     None),
+        "precision_recall": ("precision_recall", {
+            "MaxProbs": rng.rand(rows, 1).astype("float32"),
+            "Indices": rng.randint(0, 10, (rows, 1)),
+            "Labels": rng.randint(0, 10, (rows, 1))},
+            {"class_number": 10}, None),
+        "mean_iou": ("mean_iou", {
+            "Predictions": rng.randint(0, 21, (8, 256, 256)),
+            "Labels": rng.randint(0, 21, (8, 256, 256))},
+            {"num_classes": 21}, None),
+        "seed": ("seed", {}, {"seed": 7}, None),
+        "lookup_table_dequant": ("lookup_table_dequant", {
+            "W": np.concatenate([r(100_000, 2), rng.randint(
+                0, 256, (100_000, 16)).astype("float32")], 1),
+            "Ids": rng.randint(0, 100_000, (rows, 1))}, {}, None),
+        "random_crop": ("random_crop", {"X": r(TRAIN_ROWS, 3, 64, 64)},
+                        {"shape": [3, 56, 56], "op_seed": 9}, None),
+    }
+
+
+def _code_err(got, want, step):
+    """``Out``'s error over QAT_CARD_TOL of its largest |value|, elements
+    exactly one quant ``step`` apart set aside; and their share."""
+    got, want = _host(got).astype(np.float64), _host(want).astype(np.float64)
+    d = np.abs(got - want)
+    tol = QAT_CARD_TOL * max(float(np.abs(want).max()), 1e-30)
+    one = np.abs(d - np.broadcast_to(step, d.shape)) <= 1e-5 * \
+        np.broadcast_to(step, d.shape)
+    rest = np.where(one & (d > tol), 0.0, d)
+    return float(rest.max()) / tol, float((one & (d > tol)).mean())
+
+
+def _qat_ops_on_the_card(card):
+    """4w (e): each op type's forward ms on the card (CUDA events) and,
+    against the host, its forward and ``generic_grad`` where it is
+    differentiable, within QAT_CARD_TOL of each output's largest |value|
+    (quantized outputs: elements one quant step apart set aside, at most
+    QAT_ONE_STEP_SHARE of them); ``lookup_table_dequant``'s gradient over
+    repeated ids twice bit for bit; ``random_crop`` held to its
+    contract."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    worst, ms, share, broken = {}, {}, {}, []
+    rng = np.random.RandomState(SEED + 191)
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    cases = _qat_op_cases()
+    for label, (op, ins, attrs, step) in cases.items():
+        dev_ins = {k: [torch.from_numpy(np.array(a)).to(DEVICE)
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+        ms[label] = _ms(lambda: get_op(op).fn(dev_ins, dict(attrs), ctx), 3,
+                        warmup=1)
+        del dev_ins
+        card_out = _op_run(op, ins, attrs, DEVICE)
+        if op == "random_crop":
+            out = _host(card_out["Out"][0])
+            again = _host(_op_run(op, ins, attrs, DEVICE)["Out"][0])
+            xs = ins["X"]
+            hits = [(i, j) for i in range(xs.shape[2] - 55)
+                    for j in range(xs.shape[3] - 55)
+                    if np.array_equal(out, xs[:, :, i:i + 56, j:j + 56])]
+            if len(hits) != 1 or not np.array_equal(out, again):
+                broken.append(label)
+            continue
+        host = _op_run(op, ins, attrs, "cpu")
+        if step is not None:
+            worst[label], share[label] = _code_err(card_out["Out"][0],
+                                                  host["Out"][0], step)
+            rest = {k: v for k, v in host.items() if k != "Out"}
+            if rest:
+                worst[label] = max(worst[label],
+                                   _listed_err(card_out, rest, QAT_CARD_TOL))
+        else:
+            worst[label] = _listed_err(card_out, host, QAT_CARD_TOL)
+        opdef = get_op(op)
+        if not opdef.differentiable:
+            continue
+        cots = {k: [np.asarray(rng.randn(*_host(v).shape), "float32")
+                    for v in vs] for k, vs in host.items()
+                if k not in opdef.nondiff_outputs
+                and _host(vs[0]).dtype.kind == "f"}
+        g_card = _ctr_op_grads(op, ins, attrs, DEVICE, cots)
+        worst[label] = max(worst[label], _listed_err(
+            g_card, _ctr_op_grads(op, ins, attrs, "cpu", cots),
+            QAT_CARD_TOL))
+        if op == "lookup_table_dequant":
+            again = _ctr_op_grads(op, ins, attrs, DEVICE, cots)
+            if not all(np.array_equal(_host(a), _host(b)) for k in g_card
+                       for a, b in zip(g_card[k], again[k])):
+                broken.append(label + " (gradient not bit for bit)")
+    _p("quant tier op types on the card, forward ms: "
+       + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"  [{card}]")
+    _p(f"quant tier op types on the card against the host, forward and "
+       f"generic_grad, error / {QAT_CARD_TOL} of the largest |value| (under "
+       "1 passes): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; codes one quant step apart, share {share} (at most "
+       f"{QAT_ONE_STEP_SHARE}); broken {broken}  [{card}]")
+    if max(worst.values()) > 1 or broken or len(cases) != 35 \
+            or max(share.values()) > QAT_ONE_STEP_SHARE:
+        raise SystemExit("chip_smoke: a quant tier op type disagrees with "
+                         "the host or breaks its contract")
+    return {"worst": worst, "ms": ms, "share": share}
+
+
+def _qat_margins(got, want):
+    """4w (f)'s criteria, each error over its tolerance (under 1 passes):
+    every loss to rtol, the first step's gradient cosine and norm, every
+    ``@QUANT_SCALE`` of the first step to rtol."""
+    t = QAT_HOST_RTOL
+    cos, norm = _cosine(got["grads"], want["grads"])
+    return {"losses": max(abs(g - w) / abs(w) for g, w in
+                          zip(got["losses"], want["losses"])) / t["loss"],
+            "gradient cosine": (1 - cos) / t["cosine"],
+            "gradient norm": abs(norm - 1) / t["norm"],
+            "scales": max(_worst_rel(got["scales"][n], w) for n, w in
+                          want["scales"].items()) / t["scales"]}
+
+
+def _qat_card_vs_host(card):
+    """4w (f): QAT_HOST (2 layers, hidden 32, dropout 0.1: the dropout
+    masks are Philox's on either device) QAT_HOST_STEPS steps on the card
+    and on the host from one startup state; a twin whose activations are
+    quantized at bit_length 7 must miss by 10 times or more."""
+    from paddle_tpu_torch import fluid, interop
+
+    t0 = time.perf_counter()
+    cfg = QAT_HOST
+    feeds = [_qat_feed(cfg, 8, SEED + 200 + i) for i in range(QAT_HOST_STEPS)]
+
+    def run(place, bits=(8, 8), init=None):
+        with _fresh_fluid_globals():
+            main, startup, loss, _, pg, prog = _qat_built(cfg, bits=bits)
+            if init is None:
+                _qat_types_check(main, cfg["layers"],
+                                 "QAT at the host width (host)")
+                init = _startup_state(main, startup, fluid.CPUPlace())
+            scales = sorted(n for n in main.global_block().vars
+                            if n.endswith("@QUANT_SCALE"))
+            scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+            exe = fluid.Executor(place)
+            outs = [exe.run(prog, feed=f, fetch_list=[loss] +
+                            [g for _, g in pg] + scales, scope=scope)
+                    for f in feeds]
+        n = len(pg)
+        return init, {"losses": [float(np.ravel(o[0])[0]) for o in outs],
+                      "grads": [np.asarray(g) for g in outs[0][1:1 + n]],
+                      "scales": dict(zip(scales, outs[0][1 + n:]))}
+
+    init, host = run(fluid.CPUPlace())
+    _, got = run(fluid.CUDAPlace(0), init=init)
+    _, twin = run(fluid.CUDAPlace(0), bits=(8, 7), init=init)
+    ok, miss = _qat_margins(got, host), _qat_margins(twin, host)
+    fmt = ", ".join
+    _p(f"QAT card vs host at {cfg['layers']} layers, hidden "
+       f"{cfg['hidden']}, 8 rows, {QAT_HOST_STEPS} steps, in "
+       f"{time.perf_counter() - t0:.1f} s: losses card {got['losses']}, "
+       f"host {host['losses']}  [{card}]")
+    _p("QAT card vs host, error / tolerance (under 1 passes): "
+       + fmt(f"{k} {v:.3e}" for k, v in ok.items()))
+    _p("QAT, the 7-bit activation twin, error / tolerance (10 or more "
+       "misses): " + fmt(f"{k} {v:.3e}" for k, v in miss.items()))
+    if max(ok.values()) > 1:
+        raise SystemExit("chip_smoke: QAT on the card disagrees with the "
+                         "host")
+    if max(miss.values()) < 10:
+        raise SystemExit("chip_smoke: the QAT card-vs-host check cannot see "
+                         "7-bit activations")
+    carry = sorted(k for k, v in miss.items() if v >= 10)
+    _p(f"QAT: the criteria the twin misses by 10 or more: {carry}; by "
+       f"less: {sorted(set(miss) - set(carry))}")
+    return {"ok": ok, "miss": miss, "carry": carry}
+
+
+def phase_quant_tier(card):
+    """Phase 4w, the quantization tier: (a) QAT of static BERT-base and (b)
+    its frozen program served, (c) PTQ card against host, (d) the dygraph
+    QAT, (e) the slice's op types on the card, (f) card against host with
+    a twin.  Returns (a)'s launches, (b)'s and the numbers."""
+    launches, serve_launches, train = _qat_train(card)
+    out = {"train": train}
+    for name, fn in (("(c)", _qat_ptq), ("(d)", _qat_imperative),
+                     ("(e)", _qat_ops_on_the_card),
+                     ("(f)", _qat_card_vs_host)):
+        t = time.perf_counter()
+        out[name] = fn(card)
+        _p(f"phase 4w {name}: {time.perf_counter() - t:.1f} s")
+    return launches, serve_launches, out
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -13377,6 +14148,11 @@ def main():
     # 4v builds static programs too: before 4e turns dygraph on
     ctr_tier_launches, _ = _timed("4v PaddleBox CTR tier: the join tower",
                                   phase_ctr_tier, card)
+    # 4w builds static programs too (its dygraph leg under its own
+    # guard): before 4e turns dygraph on
+    qat_launches, qat_serve_launches, _ = _timed(
+        "4w quantization tier: QAT BERT-base, PTQ, dygraph QAT",
+        phase_quant_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -13599,6 +14375,14 @@ def main():
     # tower steps (fused_adam once a step, every other kernel none)
     for row in kernels:
         row["ctr_tier_launches"] = ctr_tier_launches[row["name"]]
+    # the quantization tier (phase 4w): launches over (a)'s timed QAT
+    # BERT-base steps (pt_dropout and its mask on the attention dropouts,
+    # fused_adam once a step, no flash), and over each of (b)'s predictor
+    # runs of the frozen program (flash once a layer)
+    for row in kernels:
+        row["qat_launches"] = qat_launches[row["name"]]
+        row["qat_serve_launches"] = {rows: c[row["name"]] for rows, c in
+                                     qat_serve_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

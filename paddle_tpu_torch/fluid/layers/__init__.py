@@ -37,7 +37,7 @@ from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  tanh_shrink, thresholded_relu, hard_swish, hard_sigmoid,
                  mish, swish, logsigmoid, stanh, brelu, conv2d_transpose,
                  group_norm, instance_norm, pad2d, relu_, unfold,
-                 data_norm)
+                 data_norm, cos_sim)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost,
                    log_loss, huber_loss, kldiv_loss, mse_loss,
@@ -77,7 +77,9 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      hsigmoid, sampled_softmax_with_cross_entropy,
                      linear_chain_crf, crf_decoding, chunk_eval,
                      ctc_greedy_decoder, psroi_pool, prroi_pool,
-                     deformable_conv)
+                     deformable_conv, pow, size, space_to_depth,
+                     random_crop, unique_with_counts, isfinite, has_inf,
+                     has_nan, sampling_id, mean_iou)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

@@ -75,6 +75,56 @@ def rank(input):
     return _one("rank", {"Input": [input]}, layer="rank")
 
 
+def pow(x, factor=1.0, name=None):
+    if isinstance(factor, Variable):
+        return _one("elementwise_pow", {"X": [x], "Y": [factor]},
+                    layer="pow")
+    return _one("pow", {"X": [x]}, factor=float(factor))
+
+
+def size(input):
+    return _one("size", {"Input": [input]}, layer="size")
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _one("space_to_depth", {"X": [x]}, blocksize=blocksize)
+
+
+def random_crop(x, shape, seed=None):
+    return _one("random_crop", {"X": [x]}, shape=list(shape),
+                op_seed=seed or 0)
+
+
+def unique_with_counts(x, dtype="int32"):
+    outs = _many("unique_with_counts", {"X": [x]},
+                 ("Out", "Index", "Count"))
+    return outs["Out"][0], outs["Index"][0], outs["Count"][0]
+
+
+def isfinite(x):
+    return _one("isfinite", {"X": [x]})
+
+
+def has_inf(x):
+    return _nn.reduce_any(_one("isinf_v2", {"X": [x]}, layer="has_inf"))
+
+
+def has_nan(x):
+    return _nn.reduce_any(_one("isnan_v2", {"X": [x]}, layer="has_nan"))
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    return _one("sampling_id", {"X": [x]}, op_seed=seed)
+
+
+def mean_iou(input, label, num_classes):
+    outs = _many("mean_iou", {"Predictions": [input], "Labels": [label]},
+                 ("OutMeanIou", "OutWrong", "OutCorrect"),
+                 num_classes=num_classes)
+    return (outs["OutMeanIou"][0], outs["OutWrong"][0],
+            outs["OutCorrect"][0])
+
+
 def unique(x, dtype="int32"):
     outs = _many("unique", {"X": [x]}, ("Out", "Index"))
     return outs["Out"][0], outs["Index"][0]

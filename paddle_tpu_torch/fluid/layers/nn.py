@@ -262,6 +262,18 @@ def pull_box_sparse(input, size, table_name="default_box", dtype="float32"):
     return outs[0]
 
 
+def cos_sim(X, Y, name=None):
+    """Cosine similarity along the last axis (cos_sim_op.cc)."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xn = helper.create_variable_for_type_inference(dtype=X.dtype)
+    yn = helper.create_variable_for_type_inference(dtype=X.dtype)
+    op = helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                          outputs={"Out": [out], "XNorm": [xn],
+                                   "YNorm": [yn]})
+    return _out(op, "Out", out)
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)

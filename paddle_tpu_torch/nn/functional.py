@@ -1,11 +1,7 @@
 """paddle.nn.functional (counterpart of ``paddle_tpu/nn/functional.py``):
 functions over the fluid op builders, in a program and under a tracer
 alike; thin wrappers fit 2.0's conventions (training flags, reductions,
-int-or-tuple sizes) onto the fluid builders.
-
-A function whose op is not ported yet raises ``NotImplementedError``
-naming the ROADMAP queue A item that brings it; none computes something
-else in its place."""
+int-or-tuple sizes) onto the fluid builders."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,12 +9,6 @@ import numpy as np
 from ..fluid import layers as L
 from ..fluid.layer_helper import emit_op
 from ..fluid.layers import nn as _nn
-
-
-def _waits(name, op, item):
-    raise NotImplementedError(
-        f"nn.functional.{name} needs the `{op}` op, which is not ported "
-        f"yet (ROADMAP queue A item {item})")
 
 
 # -- activations -------------------------------------------------------------
@@ -476,7 +466,9 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
 
 
 def diag_embed(input, offset=0, dim1=-2, dim2=-1):
-    _waits("diag_embed", "diag_embed", 8)
+    return emit_op("diag_embed", "diag_embed", {"Input": [input]},
+                   ("Out",), {"offset": offset, "dim1": dim1,
+                              "dim2": dim2})["Out"][0]
 
 
 def instance_norm(x, running_mean=None, running_var=None, weight=None,

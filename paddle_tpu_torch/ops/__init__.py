@@ -23,4 +23,5 @@ from . import nlp_ops         # noqa: F401  CRF, CTC, beam search, sampled heads
 from . import sequence_extra  # noqa: F401  padded sequence ops
 from . import detection_ops   # noqa: F401  affine_grid, focal loss
 from . import attention       # noqa: F401  fused attention
+from . import quant_ops       # noqa: F401  fake quantize / dequantize family
 from . import cuda_kernels    # noqa: F401  hand-written CUDA kernels

@@ -342,3 +342,73 @@ def _auc(ins, attrs, ctx):
                       torch.zeros_like(area))
     return {"AUC": [auc], "StatPosOut": [pos_new.reshape(stat_pos.shape)],
             "StatNegOut": [neg_new.reshape(stat_neg.shape)]}
+
+
+@register_op("precision_recall", differentiable=False)
+def _precision_recall(ins, attrs, ctx):
+    """precision_recall_op.cc: each class's TP/FP/TN/FN from (Indices,
+    Labels[, Weights]) -> [macro P, R, F1, micro P, R, F1] for the batch
+    and for the states accumulated over ``StatesInfo``.  A class with an
+    empty denominator counts P or R as 1.0; macro F1 is the F1 of the
+    macro P and R (precision_recall_op.h)."""
+    idx = ins["Indices"][0].to(torch.int64).reshape(-1)
+    label = ins["Labels"][0].to(torch.int64).reshape(-1)
+    n_cls = int(attrs["class_number"])
+    w = (ins["Weights"][0].to(torch.float32).reshape(-1)
+         if ins.get("Weights") else torch.ones(idx.shape, device=idx.device))
+    bm = ctx.batch_mask(idx.shape[0])
+    if bm is not None:      # shape bucketing: padded rows carry no weight
+        w = w * bm.to(torch.float32)
+    pred_1h = torch.nn.functional.one_hot(idx, n_cls).to(torch.float32)
+    true_1h = torch.nn.functional.one_hot(label, n_cls).to(torch.float32)
+    hit = (idx == label).to(torch.float32) * w
+    tp = torch.einsum("n,nc->c", hit, true_1h)
+    fp = torch.einsum("n,nc->c", w, pred_1h) - tp
+    fn = torch.einsum("n,nc->c", w, true_1h) - tp
+    tn = torch.sum(w) - tp - fp - fn
+    batch_states = torch.stack([tp, fp, tn, fn], dim=1)       # [C, 4]
+    accum_states = batch_states
+    if ins.get("StatesInfo"):
+        accum_states = accum_states + ins["StatesInfo"][0].to(torch.float32)
+
+    def ratio(num, den):
+        return torch.where(den > 0, num / (den + 1e-12),
+                           torch.ones_like(num))
+
+    def f1_of(p, r):
+        return torch.where(p + r > 0, 2 * p * r / (p + r + 1e-12),
+                           torch.zeros_like(p))
+
+    def metrics(states):
+        tp_, fp_, fn_ = states[:, 0], states[:, 1], states[:, 3]
+        macro_p = ratio(tp_, tp_ + fp_).mean()
+        macro_r = ratio(tp_, tp_ + fn_).mean()
+        tps, fps, fns = tp_.sum(), fp_.sum(), fn_.sum()
+        mp, mr = ratio(tps, tps + fps), ratio(tps, tps + fns)
+        return torch.stack([macro_p, macro_r, f1_of(macro_p, macro_r),
+                            mp, mr, f1_of(mp, mr)])
+
+    return {"BatchMetrics": [metrics(batch_states)],
+            "AccumMetrics": [metrics(accum_states)],
+            "AccumStatesInfo": [accum_states]}
+
+
+@register_op("mean_iou", differentiable=False)
+def _mean_iou(ins, attrs, ctx):
+    """The mean over classes present in either input of each class's
+    intersection over union, from the confusion matrix (counted by
+    ``bincount``: exact and in a fixed order on either device)."""
+    pred = ins["Predictions"][0].to(torch.int64).reshape(-1)
+    label = ins["Labels"][0].to(torch.int64).reshape(-1)
+    n = attrs["num_classes"]
+    cm = torch.bincount(label * n + pred, minlength=n * n).reshape(n, n) \
+        .to(torch.float32)
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / torch.clamp(union, min=1e-12),
+                      torch.zeros_like(inter))
+    mean_iou = torch.sum(iou) / torch.clamp(valid.sum(), min=1)
+    return {"OutMeanIou": [mean_iou],
+            "OutWrong": [(cm.sum(1) - inter).to(torch.int32)],
+            "OutCorrect": [inter.to(torch.int32)]}

@@ -619,3 +619,67 @@ def _unfold(ins, attrs, ctx):
         x, list(attrs["kernel_sizes"]),
         dilation=list(attrs.get("dilations", [1, 1])),
         stride=list(attrs.get("strides", [1, 1])))]}
+
+
+# --- the remainder (reference manipulation.py :81, :94, :384, :448-512) ------
+@register_op("squeeze")
+def _squeeze(ins, attrs, ctx):
+    """The v1 op: drop the listed axes, which must have size 1 (every
+    size-1 axis when none is listed)."""
+    x = _x(ins)
+    axes = [a % x.ndim for a in attrs.get("axes") or []]
+    if any(x.shape[a] != 1 for a in axes):
+        raise ValueError(f"squeeze: axes {axes} of shape {tuple(x.shape)} "
+                         f"are not all of size 1")
+    axes = axes or [i for i, d in enumerate(x.shape) if d == 1]
+    return {"Out": [x.reshape([d for i, d in enumerate(x.shape)
+                               if i not in axes])]}
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ins, attrs, ctx):
+    """The v1 op: each listed axis is an axis of the output."""
+    x = _x(ins)
+    nd = x.ndim + len(attrs["axes"])
+    out = x
+    for ax in sorted(a % nd for a in attrs["axes"]):
+        out = out.unsqueeze(ax)
+    return {"Out": [out]}
+
+
+@register_op("size", differentiable=False)
+def _size(ins, attrs, ctx):
+    x = ins["Input"][0]
+    return {"Out": [torch.tensor(x.numel(), dtype=torch.int64,
+                                 device=x.device)]}
+
+
+@register_op("diag_embed")
+def _diag_embed(ins, attrs, ctx):
+    """Each last-axis vector on a matrix's diagonal; a 1-d input takes
+    ``offset`` (a batched one reads none, nor ``dim1``/``dim2``, as in
+    the reference)."""
+    x = _x(ins, "Input")
+    if x.ndim > 1:
+        return {"Out": [torch.diag_embed(x)]}
+    return {"Out": [torch.diag(x, attrs.get("offset", 0))]}
+
+
+@register_op("space_to_depth")
+def _space_to_depth(ins, attrs, ctx):
+    """[N, C, H, W] -> [N, C·b·b, H/b, W/b], the channel index
+    (row offset · b + column offset) · C + c, as the reference orders it."""
+    x = _x(ins)
+    b = attrs["blocksize"]
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": [x.reshape(n, c * b * b, h // b, w // b)]}
+
+
+@register_op("unique_with_counts", differentiable=False)
+def _unique_with_counts(ins, attrs, ctx):
+    """The sorted unique values of the input, each element's index among
+    them (in the input's shape) and each unique value's count."""
+    u, idx, counts = torch.unique(_x(ins), sorted=True,
+                                  return_inverse=True, return_counts=True)
+    return {"Out": [u], "Index": [idx], "Count": [counts]}

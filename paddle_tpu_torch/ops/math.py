@@ -427,3 +427,55 @@ def _allclose(ins, attrs, ctx):
                           atol=float(attrs.get("atol", 1e-8)),
                           equal_nan=attrs.get("equal_nan", False))
     return {"Out": [torch.all(close)]}
+
+
+# --- the remainder (reference math.py :163, :243, :328-397) -----------------
+@register_op("pow")
+def _pow(ins, attrs, ctx):
+    f = ins.get("FactorTensor")
+    return {"Out": [torch.pow(_x(ins), f[0] if f
+                              else attrs.get("factor", 1.0))]}
+
+
+@register_op("bmm")
+def _bmm(ins, attrs, ctx):
+    return {"Out": [_mm(_x(ins), _x(ins, "Y"))]}
+
+
+@register_op("l1_norm")
+def _l1_norm(ins, attrs, ctx):
+    return {"Out": [torch.sum(torch.abs(_x(ins)))]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ins, attrs, ctx):
+    x = _x(ins)
+    return {"Out": [torch.sum(x * x).reshape(1)]}
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ins, attrs, ctx):
+    sub = _x(ins) - _x(ins, "Y")
+    sq = sub * sub
+    if sub.ndim > 1:
+        sq = torch.sum(sq, dim=tuple(range(1, sub.ndim)))
+    return {"sub_result": [sub], "Out": [sq.reshape(-1, 1)]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ins, attrs, ctx):
+    """Cosine along the last axis; a one-row Y broadcasts over X's rows."""
+    x, y = _x(ins), _x(ins, "Y")
+    xn = torch.sqrt(torch.sum(x * x, -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, -1, keepdim=True))
+    return {"Out": [torch.sum(x * y, -1, keepdim=True) / (xn * yn)],
+            "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("isfinite", differentiable=False)
+def _isfinite(ins, attrs, ctx):
+    """One flag: every value of every input is finite."""
+    out = torch.all(torch.isfinite(ins["X"][0]))
+    for x in ins["X"][1:]:
+        out = out & torch.all(torch.isfinite(x))
+    return {"Out": [out]}

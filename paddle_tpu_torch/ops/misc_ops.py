@@ -266,3 +266,15 @@ def _partial_sum(ins, attrs, ctx):
         piece = x[:, start:(x.shape[1] if length < 0 else start + length)]
         acc = piece if acc is None else acc + piece
     return {"Out": [acc]}
+
+
+@register_op("lookup_table_dequant", nondiff_inputs=("Ids",))
+def _lookup_table_dequant(ins, attrs, ctx):
+    """lookup_table_dequant_op.cc, the int8 table read: a row holds [min,
+    max, codes...] and reads as ``min + (max - min) · codes / 255``.  The
+    rows are gathered by ``F.embedding`` (``gather_rows``), so the
+    gradient adds a repeated id's rows in a fixed order on the card."""
+    from .detection_ops import gather_rows, true_div
+    rows = gather_rows(ins["W"][0], ins["Ids"][0].reshape(-1))
+    mn, mx = rows[:, 0:1], rows[:, 1:2]
+    return {"Out": [mn + true_div((mx - mn) * rows[:, 2:], 255.0)]}

@@ -122,3 +122,32 @@ def _shuffle_batch(ins, attrs, ctx):
     return {"Out": [gather_rows(x, idx)], "ShuffleIdx": [idx],
             "SeedOut": [torch.zeros((1,), dtype=torch.int64,
                                     device=x.device)]}
+
+
+@register_op("random_crop", stateful_rng=True, differentiable=False)
+def _random_crop(ins, attrs, ctx):
+    """A window of ``shape`` over X's last ``len(shape)`` axes at random
+    offsets: the i-th offset is word 0 of Philox4x32-10 at counter i under
+    the op's key (``LoweringContext.seed_for``, as the dropout masks are
+    keyed), modulo the offset's range, drawn on the host so no launch
+    waits for it.  The reference draws ``jax.random.randint``; the
+    contract, not the offsets, is shared."""
+    from .nn_ops import _key_words, philox4x32
+    x = ins["X"][0]
+    shape = [int(s) for s in attrs["shape"]]
+    lead = x.ndim - len(shape)
+    k0, k1 = _key_words(ctx.seed_for(attrs.get("op_seed", 0)))
+    i = torch.arange(len(shape), dtype=torch.int64)
+    zero = torch.zeros((), dtype=torch.int64)
+    words = philox4x32(i, zero, zero, zero, k0, k1)[0].tolist()
+    out = x
+    for d, (w, s) in enumerate(zip(words, shape)):
+        ax = lead + d
+        out = out.narrow(ax, w % (x.shape[ax] - s + 1), s)
+    return {"Out": [out]}
+
+
+@register_op("seed", differentiable=False)
+def _seed(ins, attrs, ctx):
+    return {"Out": [torch.tensor([attrs.get("seed", 0)], dtype=torch.int32,
+                                 device=ctx.device)]}

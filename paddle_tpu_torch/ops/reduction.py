@@ -189,3 +189,30 @@ def _max_pool2d_with_index(ins, attrs, ctx):
                                  value=float("-inf"))
     out = torch.nn.functional.max_pool2d(xp, ks, st)
     return {"Out": [out], "Mask": [torch.zeros_like(out, dtype=torch.int32)]}
+
+
+@register_op("top_k_v2", nondiff_outputs=("Indices",))
+def _top_k_v2(ins, attrs, ctx):
+    """The k largest (or smallest) along ``axis``, in that order; among
+    equal values the lower index comes first, as ``lax.top_k`` gives it
+    (a stable sort: ``torch.topk`` promises no order among ties)."""
+    x = ins["X"][0]
+    k = attrs.get("k", 1)
+    axis = attrs.get("axis", -1) % x.ndim
+    vals, idx = torch.sort(x.movedim(axis, -1), dim=-1, stable=True,
+                           descending=attrs.get("largest", True))
+    return {"Out": [vals[..., :k].movedim(-1, axis)],
+            "Indices": [idx[..., :k].movedim(-1, axis)]}
+
+
+@register_op("kthvalue", nondiff_outputs=("Indices",))
+def _kthvalue(ins, attrs, ctx):
+    """The k-th smallest along ``axis`` and its index (a stable sort: the
+    lower index among ties)."""
+    x = ins["X"][0]
+    k, axis = attrs["k"], attrs.get("axis", -1)
+    vals, idx = torch.sort(x, dim=axis, stable=True)
+    out, idx = vals.select(axis, k - 1), idx.select(axis, k - 1)
+    if attrs.get("keepdim", False):
+        out, idx = out.unsqueeze(axis), idx.unsqueeze(axis)
+    return {"Out": [out], "Indices": [idx]}

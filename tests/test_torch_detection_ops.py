@@ -321,7 +321,7 @@ def test_the_tier_is_34_op_types():
                                                      "multiclass_nms2"}
     assert len(ops) == 34
     assert ops <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 367       # with the CTR tier's 26
+    assert len(treg.all_ops()) == 402       # with the CTR and quant tiers
 
 
 _FORWARD = {}

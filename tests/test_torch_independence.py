@@ -85,7 +85,14 @@ def test_import_leaves_jax_and_reference_out():
               "fluid.goodput", "fluid.metrics_export", "ops.rnn_ops",
               "ops.nlp_ops", "nn.decode", "ops.detection_ops",
               "fluid.layers.detection", "ops.sequence_extra",
-              "fluid.layers.sequence_lod", "fluid.nets", "vision.ops"):
+              "fluid.layers.sequence_lod", "fluid.nets", "vision.ops",
+              "ops.quant_ops", "contrib.slim", "contrib.slim.quantization",
+              "contrib.slim.quantization.quantization_pass",
+              "contrib.slim.quantization.post_training_quantization",
+              "contrib.slim.quantization.imperative",
+              "contrib.slim.quantization.imperative.quant_nn",
+              "contrib.slim.quantization.imperative.qat",
+              "contrib.quantize"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

@@ -69,16 +69,13 @@ MISSING = {
     },
     "fluid.layers": {
         **{n: 8 for n in ("add_position_encoding", "affine_channel",
-            "cond_value", "cos_sim", "diag", "fsp_matrix", "gaussian_random",
+            "cond_value", "diag", "fsp_matrix", "gaussian_random",
             "gaussian_random_batch_size_like",
-            "get_tensor_from_selected_rows", "has_inf", "has_nan",
-            "isfinite", "lod_append", "lod_reset", "logical_xor",
-            "matmul_v2", "mean_iou", "merge_selected_rows",
-            "pad_constant_like", "pow", "random_crop", "sampling_id",
-            "shuffle_channel", "similarity_focus", "size", "space_to_depth",
+            "get_tensor_from_selected_rows", "lod_append", "lod_reset",
+            "logical_xor", "matmul_v2", "merge_selected_rows",
+            "pad_constant_like", "shuffle_channel", "similarity_focus",
             "temporal_shift", "tensor_array_to_tensor", "triu", "unbind",
-            "uniform_random", "uniform_random_batch_size_like",
-            "unique_with_counts",)},
+            "uniform_random", "uniform_random_batch_size_like",)},
         **{n: 12 for n in ("ConstantInitializer", "LayerHelper", "Variable",
             "XavierInitializer", "create_py_reader_by_data", "create_tensor",
             "double_buffer", "in_dygraph_mode", "load", "py_func",
@@ -89,13 +86,13 @@ MISSING = {
     "regularizer": {},
     "jit": {},
     "inference": {},
-    # the rest of contrib (decoder, mixed precision, quantize, reader,
-    # slim, utils, the model statistics and the extended optimizers) and
-    # contrib.layers' rnn_impl
+    # the rest of contrib (decoder, mixed precision, reader, utils, the
+    # model statistics and the extended optimizers) and contrib.layers'
+    # rnn_impl
     "contrib": {n: 12 for n in (
         "AutoMixedPrecisionLists", "BasicGRUUnit", "BasicLSTMUnit",
         "BeamSearchDecoder", "CustomOpLists", "HDFSClient", "InitState",
-        "QuantizeTranspiler", "StateCell", "TrainingDecoder", "basic_gru",
+        "StateCell", "TrainingDecoder", "basic_gru",
         "basic_lstm", "cast_model_to_fp16", "cast_parameters_to_fp16",
         "check_finite_and_unscale", "compiled_memory_stats",
         "convert_dist_to_sparse_program", "decoder", "decorate",
@@ -105,7 +102,7 @@ MISSING = {
         "load_persistables_for_inference", "memory_usage",
         "memory_usage_calc", "mixed_precision", "model_stat",
         "multi_download", "multi_upload", "op_freq_statistic",
-        "op_frequence", "optimizer", "quantize", "reader", "slim", "summary",
+        "op_frequence", "optimizer", "reader", "summary",
         "update_loss_scaling", "utils")},
     "contrib.layers": {n: 12 for n in (
         "BasicGRUUnit", "BasicLSTMUnit", "basic_gru", "basic_lstm",

@@ -258,6 +258,7 @@ CASES = {
                     ["theta"], True, True),
     "unfold": (lambda F, L, x: F.unfold(x, 3, strides=2, paddings=1),
                ["img"], True, True),
+    "diag_embed": (lambda F, L, x: F.diag_embed(x), ["x"], True, True),
     "bilinear": (lambda F, L, a, b, w, c: F.bilinear(a, b, w, c),
                  ["x", "y", "w_bil", "b_bil"], True, True),
     "embedding_fluid": (lambda F, L, i: L.reduce_sum(F.embedding_fluid(
@@ -393,27 +394,13 @@ def test_dropout_family_contract(package):
             TF, tdy, lambda: tdy.enable_dygraph(tfluid.CPUPlace())))
 
 
-# --- the functions that wait for an op ---------------------------------------
-WAITING = {
-    "diag_embed": (8, lambda: TF.diag_embed(None)),
-}
-
-
-@pytest.mark.parametrize("name", sorted(WAITING))
-def test_waiting_function_raises_naming_its_item(name):
-    item, call = WAITING[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"queue A item {item}"):
-        call()
-
-
 def test_every_functional_name_has_a_case():
     import types
     names = {n for n in dir(TF) if not n.startswith("_")
              and callable(getattr(TF, n))
              and not isinstance(getattr(TF, n), types.ModuleType)}
     dropout = {"dropout", "dropout2d", "dropout3d", "alpha_dropout"}
-    missing = sorted(names - set(CASES) - set(WAITING) - dropout
+    missing = sorted(names - set(CASES) - dropout
                      - {"emit_op"})
     assert not missing, missing
 

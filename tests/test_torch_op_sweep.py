@@ -69,6 +69,10 @@ _CTR = ("the CTR tier's ids, tags, trees, shards or histograms, which the "
         "the reference")
 _CTR_RANDOM = ("draws random numbers: tests/test_torch_ctr_tier.py holds "
                "it to its contract (ground rule 5)")
+_QUANT = ("a scale, a moving-average state, a log dictionary, a confusion "
+          "matrix's classes or a class count's states, which the probe "
+          "does not make: tests/test_torch_quant_tier.py holds it against "
+          "the reference")
 _ATTRS_ONLY = ("makes its output from attributes (shape, value, range) "
                "alone; the probe feeds tensors: "
                "tests/test_torch_tensor.py")
@@ -124,6 +128,14 @@ SKIPS = {
         "auc", "filter_by_instag", "merge_ids", "pull_box_extended_sparse",
         "scaled_int8fc", "tdm_child")},
     **{op: _CTR_RANDOM for op in ("shuffle_batch", "tdm_sampler")},
+    **{op: _QUANT for op in (
+        "dequantize_abs_max", "dequantize_log",
+        "fake_channel_wise_dequantize_max_abs", "fake_dequantize_max_abs",
+        "fake_quantize_dequantize_moving_average_abs_max",
+        "fake_quantize_moving_average_abs_max", "fake_quantize_range_abs_max",
+        "mean_iou", "precision_recall")},
+    "random_crop": "draws its offsets: tests/test_torch_quant_tier.py holds "
+                   "it to its contract (ground rule 5)",
     **{op: _DETECTION for op in (
         "bipartite_match", "box_decoder_and_assign", "collect_fpn_proposals",
         "deformable_psroi_pooling", "density_prior_box", "detection_map",

@@ -30,11 +30,12 @@ def check_generic_grad(op, ins, attrs, slots=None, rtol=GRAD_RTOL,
                        ref=None):
     """``op``'s ``generic_grad`` in both packages from ``ins`` and the same
     random cotangent of each float output: every input gradient of
-    ``slots`` (by default each float input the op differentiates) within
+    ``slots`` (by default, or when the spec lists none, each float input
+    the op differentiates) within
     ``rtol``.  ``ref``: the reference's forward outputs, when the caller
     has them (they give the cotangents' shapes)."""
     jdef = jreg.get_op(op)
-    if slots is None:
+    if not slots:
         slots = [s for s, v in ins.items() if s not in jdef.nondiff_inputs
                  and np.asarray(_listed(v)[0]).dtype.kind == "f"]
     if ref is None:

@@ -174,7 +174,7 @@ def test_the_eleven_op_types_are_registered():
     assert new <= set(jreg.all_ops())
     # 245, the image layers' 33, the sequence tier's 29, the detection
     # tier's 34 and the CTR tier's 26
-    assert len(treg.all_ops()) == 367
+    assert len(treg.all_ops()) == 402
 
 
 def test_cudnn_lstm_w_is_nn_lstm_layout():
