@@ -13,8 +13,9 @@ flow), the dygraph-to-static tier (``paddle.jit.to_static``,
 path, and the rest of the serving surface (speculative paged decode, the
 serving engine's deadlines, pause, instruments, spans, flight recorder
 and metrics export), the PaddleBox CTR tier's join tower through
-BoxPS, and the quantization tier (QAT of static BERT-base, frozen and
-served; PTQ; the dygraph QAT).
+BoxPS, the quantization tier (QAT of static BERT-base, frozen and
+served; PTQ; the dygraph QAT), and the fused inference tier (BERT-base in
+Paddle Inference's fused ERNIE form, served).
 
     python3 chip_smoke.py
 
@@ -499,6 +500,28 @@ over):
    and ``generic_grad``, each timed.  (f) QAT_HOST, 3 steps card against
    host (losses, gradient cosine and norm, scales), a 7-bit activation
    twin must miss by 10 times or more.
+4x. the fused inference tier -- static programs before 4e's tracer (the
+   eager model under its own guard).  (a) BertModel-base (4o (d)'s model:
+   vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, seq 128) made
+   on the card from the seed, its ``state_dict`` packed into
+   ``ernie_fused_program``, Paddle Inference's fused ERNIE form
+   (``fused_embedding_eltwise_layernorm``, then a layer: ``fc`` to the
+   packed QKV, ``multihead_matmul`` through the flash kernel, ``fc``,
+   ``skip_layernorm``, ``fc`` and ``gelu``,
+   ``fused_fc_elementwise_layernorm``; the pooler's ``fc`` with
+   ``tanh``), ``save_inference_model``, ``load_inference_model`` into a
+   fresh scope and ``AnalysisPredictor`` with ir_optim on at 1, 8 and 32
+   rows: exactly 12 ``flash_attention_fwd`` launches a run and no other
+   counted kernel, sequence and pooled outputs within 1e-4 of the largest
+   |value| of the eager forward's (``input_mask`` in {9999, 10000}, a
+   bias of -1e4 and 0); the twin with Q and K swapped in every packed
+   weight must miss by 10 times or more; each batch's run profiled.  (b)
+   the slice's 35 op types at their users' shapes (ResNet-50's [128, 256,
+   56, 56], the PTB width, MobileNet-SSD's loc heads, BERT-base's 32 x
+   128) against the host, forward and ``generic_grad``, each timed;
+   ``multihead_matmul`` launches the flash kernel once on the packed
+   QKV's strided views with no copy, ``py_func`` copies its input to the
+   host and its output back.
 5. profile -- host and device time of one dispatched batch at 1, 8 and
    32 rows and of one training step at 32 rows, the device's idle share,
    and device time by kernel class; the same for the CTR program at 1,
@@ -519,8 +542,9 @@ over):
    ``speculative_launches`` those of each of phase 4q's legs,
    ``ctr_tier_launches`` those of 4v (a)'s timed steps,
    ``qat_launches`` those of 4w (a)'s timed steps and
-   ``qat_serve_launches`` those of each of 4w (b)'s predictor runs, and the
-   rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
+   ``qat_serve_launches`` those of each of 4w (b)'s predictor runs,
+   ``fused_serve_launches`` those of each of 4x (a)'s predictor runs, and
+   the rows ``fused_adam_master`` and ``fused_momentum_master``, launched by
    4n (c)), then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -10994,10 +11018,15 @@ def _op_err(got, want, tol):
     return e
 
 
-def _op_card_err(op, ins, attrs, tol, rng):
+def _op_card_err(op, ins, attrs, tol, rng, kink=0.0, grad_f64=False):
     """``op`` on the card against the host, forward and, where it is
     differentiable, ``generic_grad`` from one random cotangent of each
-    float output: the larger error over ``tol``."""
+    float output: the larger error over ``tol``.  With ``kink`` > 0 the
+    cotangent is 0 where the host's output is within ``kink`` of an
+    activation's kink at 0 (ReLU's), where the two devices may take
+    different branches.  With ``grad_f64`` the gradients run in float64
+    on both devices, for ops whose inner ReLUs no output cotangent
+    reaches: float32 rounding flips a few of them."""
     from paddle_tpu_torch.ops.registry import get_op
 
     host = _op_run(op, ins, attrs, "cpu")
@@ -11007,9 +11036,24 @@ def _op_card_err(op, ins, attrs, tol, rng):
         slots = [k for k, v in ins.items() if k not in opdef.nondiff_inputs
                  and np.asarray(v[0] if isinstance(v, list) else v)
                  .dtype.kind == "f"]
-        cots = {k: rng.randn(*_host(v[0]).shape).astype("float32")
+        if isinstance(rng, np.random.Generator):   # float32 draws, faster
+            def draw(shape):
+                return rng.standard_normal(shape, dtype=np.float32)
+        else:
+            def draw(shape):
+                return np.asarray(rng.randn(*shape), "float32")
+        cots = {k: draw(_host(v[0]).shape)
                 for k, v in host.items() if k not in opdef.nondiff_outputs
                 and _host(v[0]).dtype.kind == "f"}
+        if kink:
+            cots = {k: c * (np.abs(_host(host[k][0])) >= kink)
+                    for k, c in cots.items()}
+        if grad_f64:
+            ins = {k: [np.asarray(a, "float64")
+                       if np.asarray(a).dtype.kind == "f" else a
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+            cots = {k: c.astype("float64") for k, c in cots.items()}
         e = max(e, _op_err(_op_run(op, ins, attrs, DEVICE, (slots, cots)),
                            _op_run(op, ins, attrs, "cpu", (slots, cots)),
                            tol))
@@ -14076,6 +14120,614 @@ def phase_quant_tier(card):
     return launches, serve_launches, out
 
 
+# --- phase 4x: the fused inference tier -------------------------------------
+# BertModel-base (phase 4o (d)'s model: vocab 30522, hidden 768, 12
+# layers, 12 heads, FFN 3072, seq 128) in Paddle Inference's fused ERNIE
+# form, served through AnalysisPredictor
+ERNIE = dict(vocab=DY["vocab_size"], hidden=DY["hidden_size"],
+             heads=DY["num_heads"], layers=DY["num_layers"],
+             ffn=DY["intermediate_size"], positions=DY["max_position"],
+             types=2, seq=DY_SEQ)
+ERNIE_FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask")
+ERNIE_ROWS = (1, 8, 32)        # (a): the predictor's batches
+ERNIE_TOL = 1e-4               # (a): of each output's largest |value|
+ERNIE_EPS = 1e-5               # the eager model's LayerNorm epsilon
+ERNIE_PROFILED = 10            # (a): profiled runs at each batch
+FUSED_CARD_TOL = 1e-4          # (b): of each output's largest |value|
+# (b): the cotangent of a ReLU-activated output is 0 within this of the
+# kink: over ResNet-50's 102.8 M activations some land within float32
+# rounding of 0 and take the other branch on the card
+FUSED_KINK = {"fused_bn_add_activation": 1e-3, "inplace_abn": 1e-3,
+              "conv_fusion": 1e-3, "fusion_conv_inception": 1e-3,
+              "fusion_seqconv_eltadd_relu": 1e-3}
+# (b): ReLUs between the layers, which no output cotangent reaches: the
+# gradients compared in float64 (over 3.1 M inner activations a float32
+# run flips one now and then, 84 times the tolerance in one row)
+FUSED_GRAD_F64 = {"fusion_repeated_fc_relu"}
+# the eager model's dropouts off: its embedding Dropout is fluid's
+# downgrade_in_infer, which scales the eval output by 1 - p (0.9 at
+# BertModel's default), where ERNIE's dropouts upscale in training and its
+# inference graph has none
+ERNIE_EAGER_DROPOUT = dict(dropout=0.0, attn_dropout=0.0)
+
+
+def ernie_fused_program(fluid, cfg):
+    """BERT-base as Paddle Inference's ERNIE passes leave it, its fused
+    ops appended by ``block.append_op``: ``fused_embedding_eltwise_
+    layernorm`` over the feeds ``src_ids``, ``pos_ids`` and ``sent_ids``;
+    a layer: ``fc`` to the packed QKV (``in_num_col_dims`` 2),
+    ``multihead_matmul`` with BiasQK ``[B, 1, 1, T]`` made from
+    ``input_mask`` by the model's own ``scale`` ((m - 10000)·10000),
+    ``fc``, ``skip_layernorm``, ``fc`` to the FFN width and a ``gelu`` op
+    (the erf form), ``reshape2`` to [B·T, FFN] (the reference's
+    ``fused_fc_elementwise_layernorm`` flattens X by its first axis) and
+    ``fused_fc_elementwise_layernorm`` with the residual as [B·T,
+    hidden], ``reshape2`` back; the pooler a ``slice`` of the first token
+    and ``fc`` with ``tanh``.  Returns (sequence output, pooled
+    output)."""
+    L = fluid.layers
+    seq, hidden = cfg["seq"], cfg["hidden"]
+    block = fluid.default_main_program().global_block()
+
+    def param(name, *shape):
+        return L.create_parameter(list(shape), "float32", name=name)
+
+    def op(op_type, ins, **attrs):
+        out = block.create_var(
+            name=fluid.unique_name.generate(op_type + ".tmp"),
+            dtype="float32")
+        block.append_op(op_type, inputs=ins, outputs={"Out": [out]},
+                        attrs=attrs)
+        return out
+
+    def fc(x, name, n_in, n_out, ncol=2, **attrs):
+        return op("fc", {"Input": [x],
+                         "W": [param(name + ".w_0", n_in, n_out)],
+                         "Bias": [param(name + ".b_0", n_out)]},
+                  in_num_col_dims=ncol, **attrs)
+
+    def norm(name):
+        return ([param(name + "_scale", hidden)],
+                [param(name + "_bias", hidden)])
+
+    ids = [fluid.data(n, [-1, seq], dtype="int64") for n in ERNIE_FEEDS[:3]]
+    mask = fluid.data(ERNIE_FEEDS[3], [-1, seq], dtype="float32")
+    bias_qk = L.scale(L.reshape(mask, [-1, 1, 1, seq]), scale=10000.0,
+                      bias=-10000.0, bias_after_scale=False)
+    scale, bias = norm("pre_encoder_layer_norm")
+    h = op("fused_embedding_eltwise_layernorm",
+           {"Ids": ids,
+            "Embs": [param("word_embedding", cfg["vocab"], hidden),
+                     param("pos_embedding", cfg["positions"], hidden),
+                     param("sent_embedding", cfg["types"], hidden)],
+            "Scale": scale, "Bias": bias}, epsilon=ERNIE_EPS)
+    for i in range(cfg["layers"]):
+        p = f"encoder_layer_{i}_"
+        qkv = fc(h, p + "multi_head_att_qkv", hidden, 3 * hidden)
+        ctx = op("multihead_matmul", {"Input": [qkv], "BiasQK": [bias_qk]},
+                 head_number=cfg["heads"],
+                 alpha=(hidden // cfg["heads"]) ** -0.5)
+        att = fc(ctx, p + "multi_head_att_output_fc", hidden, hidden)
+        scale, bias = norm(p + "post_att_layer_norm")
+        h1 = op("skip_layernorm", {"X": [att], "Y": [h], "Scale": scale,
+                                   "Bias": bias}, epsilon=ERNIE_EPS)
+        ffn = L.reshape(L.gelu(fc(h1, p + "ffn_fc_0", hidden, cfg["ffn"])),
+                        [-1, cfg["ffn"]])
+        scale, bias = norm(p + "post_ffn_layer_norm")
+        out = op("fused_fc_elementwise_layernorm",
+                 {"X": [ffn],
+                  "W": [param(p + "ffn_fc_1.w_0", cfg["ffn"], hidden)],
+                  "Bias0": [param(p + "ffn_fc_1.b_0", hidden)],
+                  "Y": [L.reshape(h1, [-1, hidden])], "Scale": scale,
+                  "Bias1": bias}, epsilon=ERNIE_EPS)
+        h = L.reshape(out, [-1, seq, hidden])
+    first = L.slice(h, axes=[1], starts=[0], ends=[1])
+    pooled = fc(first, "pooled_fc", hidden, hidden, ncol=1,
+                activation_type="tanh")
+    # shape inference loses the batch axis through the reshape2 to
+    # [B·T, FFN] (the placeholder batch times T reads as a static dim), in
+    # both packages: the outputs are declared batch-major, so a batch the
+    # executor pads to a bucket is sliced back
+    h.shape, pooled.shape = (-1, seq, hidden), (-1, hidden)
+    return h, pooled
+
+
+def ernie_fused_params(state):
+    """``ernie_fused_program``'s parameters from a ``BertModel``
+    ``state_dict`` of numpy arrays: the packed QKV weight is concat(Wq,
+    Wk, Wv) on axis 1, its bias concat(bq, bk, bv)."""
+    out = {}
+
+    def put(name, key):
+        out[name] = np.asarray(state[key], "float32")
+
+    e = "embeddings."
+    put("word_embedding", e + "word_embeddings.weight")
+    put("pos_embedding", e + "position_embeddings.weight")
+    put("sent_embedding", e + "token_type_embeddings.weight")
+    put("pre_encoder_layer_norm_scale", e + "layer_norm.weight")
+    put("pre_encoder_layer_norm_bias", e + "layer_norm.bias")
+    layers = sorted({int(k.split(".")[2]) for k in state
+                     if k.startswith("encoder.layers.")})
+    for i in layers:
+        s, p = f"encoder.layers.{i}.", f"encoder_layer_{i}_"
+        for kind, suffix in (("weight", "w_0"), ("bias", "b_0")):
+            out[p + "multi_head_att_qkv." + suffix] = np.concatenate(
+                [np.asarray(state[f"{s}self_attn.{n}_proj.{kind}"],
+                            "float32") for n in "qkv"], axis=-1)
+            put(p + "multi_head_att_output_fc." + suffix,
+                f"{s}self_attn.out_proj.{kind}")
+            put(p + "ffn_fc_0." + suffix, f"{s}linear1.{kind}")
+            put(p + "ffn_fc_1." + suffix, f"{s}linear2.{kind}")
+        for n, norm in (("post_att_layer_norm", "norm1"),
+                        ("post_ffn_layer_norm", "norm2")):
+            put(p + n + "_scale", f"{s}{norm}.weight")
+            put(p + n + "_bias", f"{s}{norm}.bias")
+    put("pooled_fc.w_0", "pooler.dense.weight")
+    put("pooled_fc.b_0", "pooler.dense.bias")
+    return out
+
+
+def ernie_feed(cfg, rows, seed):
+    """ERNIE inference's four feeds: random ids, positions 0..T-1, the
+    second sentence from a random step on, and ``input_mask`` m in
+    {9999, 10000}: the model's (m - 10000)·10000 then gives a bias of
+    -1e4 past a random length and 0 before it (with m in {0, 1} the bias
+    is about -1e8, where float32 keeps scores only in steps of 8)."""
+    rng = np.random.RandomState(seed)
+    seq = cfg["seq"]
+    steps = np.arange(seq)[None, :]
+    lengths = rng.randint(1, seq + 1, (rows, 1))
+    return {"src_ids": rng.randint(0, cfg["vocab"], (rows, seq))
+            .astype("int64"),
+            "pos_ids": np.repeat(steps, rows, axis=0).astype("int64"),
+            "sent_ids": (steps >= rng.randint(1, seq + 1, (rows, 1)))
+            .astype("int64"),
+            "input_mask": np.where(steps < lengths, 10000.0, 9999.0)
+            .astype("float32")}
+
+
+def ernie_eager(model, to_variable, feed):
+    """The eager ``BertModel``'s (sequence, pooled) outputs for an ERNIE
+    feed, as host arrays."""
+    seq, pooled = model(to_variable(feed["src_ids"]),
+                        to_variable(feed["sent_ids"]),
+                        to_variable(feed["input_mask"]),
+                        to_variable(feed["pos_ids"]))
+    return seq.numpy(), pooled.numpy()
+
+
+def ernie_fused_types(layers):
+    """The op types ``ernie_fused_program`` appends for ``layers``."""
+    return {"fused_embedding_eltwise_layernorm": 1, "fc": 3 * layers + 1,
+            "multihead_matmul": layers, "skip_layernorm": layers,
+            "gelu": layers, "fused_fc_elementwise_layernorm": layers,
+            "reshape2": 3 * layers + 1, "scale": 1, "slice": 1}
+
+
+def ernie_qk_swapped(params, hidden):
+    """The twin's weights: Q's and K's columns of every packed QKV weight
+    and bias swapped."""
+    out = dict(params)
+    for n, v in params.items():
+        if "multi_head_att_qkv" in n:
+            out[n] = np.concatenate([v[..., hidden:2 * hidden],
+                                     v[..., :hidden], v[..., 2 * hidden:]],
+                                    axis=-1)
+    return out
+
+
+def ernie_err(got, want):
+    """The worst |got - want| over the largest |want|, over both
+    outputs."""
+    return max(float(np.abs(np.asarray(g) - w).max())
+               / float(np.abs(w).max()) for g, w in zip(got, want))
+
+
+def _ernie_serve(pred, feed):
+    for n in pred.get_input_names():
+        pred.get_input_handle(n).copy_from_cpu(feed[n])
+    pred.run()
+    return [pred.get_output_handle(n).copy_to_cpu()
+            for n in pred.get_output_names()]
+
+
+def _ernie_leg(card):
+    """4x (a): the eager ``BertModel`` (4o (d)'s, its dropouts off:
+    ERNIE_EAGER_DROPOUT) at ERNIE's width made on the card from the seed,
+    its ``state_dict`` packed by
+    ``ernie_fused_params`` into ``ernie_fused_program``,
+    ``save_inference_model``, ``load_inference_model`` into a fresh scope
+    (its run against the eager forward) and ``AnalysisPredictor`` with
+    ir_optim on at ERNIE_ROWS: exactly one ``flash_attention_fwd`` launch
+    a layer a run and no other counted kernel, no input copied for
+    alignment, sequence and pooled outputs within ERNIE_TOL of the
+    largest |value| of the eager forward's; the twin with Q and K
+    swapped in every packed weight must miss by 10 times or more; each
+    batch's run profiled.  Returns the launches of each predictor run and
+    the numbers."""
+    import torch
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.dygraph import base as dy
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.models.bert import BertModel
+
+    cfg, layers = ERNIE, ERNIE["layers"]
+    rows_max = max(ERNIE_ROWS)
+    t0 = time.perf_counter()
+    feeds = {rows: ernie_feed(cfg, rows, SEED + 220 + rows)
+             for rows in ERNIE_ROWS}
+    place = fluid.CUDAPlace(0)
+    with dy.guard(place):
+        np.random.seed(SEED)
+        model = BertModel(**DY, **ERNIE_EAGER_DROPOUT)
+        model.eval()
+        state = model.state_dict()
+        want = {rows: ernie_eager(model, dy.to_variable, f)
+                for rows, f in feeds.items()}
+    del model
+    params = ernie_fused_params(state)
+    twin_qkv = {n: v for n, v in ernie_qk_swapped(params, cfg["hidden"])
+                .items() if "multi_head_att_qkv" in n}
+    del state
+    out, launches = {"eager_s": time.perf_counter() - t0}, {}
+    with _fresh_fluid_globals(), tempfile.TemporaryDirectory() as tmp:
+        main, _, (seq, pooled), _ = _book_program(ernie_fused_program,
+                                                  False, cfg=cfg)
+        types = [op.type for op in main.global_block().ops]
+        got_types = {k: types.count(k) for k in ernie_fused_types(layers)}
+        if got_types != ernie_fused_types(layers) \
+                or len(types) != sum(got_types.values()):
+            raise SystemExit(f"chip_smoke: the fused ERNIE program holds "
+                             f"{types}")
+        exe = fluid.Executor(place)
+        model_dir = os.path.join(tmp, "ernie_fused")
+        t1 = time.perf_counter()
+        scope = interop.scope_from_numpy(params, fluid.Scope(), place)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(
+                model_dir, list(ERNIE_FEEDS), [seq, pooled], exe,
+                main_program=main, params_filename="params")
+        del scope, params
+        out["save_s"] = time.perf_counter() - t1
+        out["bytes"] = _dir_bytes(model_dir)
+        # load_inference_model into a fresh scope, one executor run
+        with fluid.scope_guard(fluid.Scope()):
+            prog, feed_names, fetches = fluid.io.load_inference_model(
+                model_dir, exe, params_filename="params")
+            f = feeds[rows_max]
+            out["loaded_err"] = ernie_err(
+                exe.run(prog, feed={n: f[n] for n in feed_names},
+                        fetch_list=fetches), want[rows_max])
+        pscope = fluid.Scope()
+        with fluid.scope_guard(pscope):
+            config = AnalysisConfig(model_dir, params_file=os.path.join(
+                model_dir, "params"))
+            config.switch_ir_optim(True)
+            pred = create_predictor(config)
+            served_types = [op.type for op in
+                            pred._program.global_block().ops]
+            _flash_copies_zero()
+            for rows, f in feeds.items():
+                got, c = _counted_run(
+                    f"the fused ERNIE predictor at {rows} rows",
+                    lambda: _ernie_serve(pred, f),
+                    {"flash_attention_fwd": layers})
+                launches[rows] = c
+                out[rows] = {"err": ernie_err(got, want[rows]),
+                             "shapes": [list(g.shape) for g in got]}
+            _flash_copies_check("4x fused ERNIE predictor")
+            for rows, f in feeds.items():
+                prof = _profile(lambda: _ernie_serve(pred, f),
+                                ERNIE_PROFILED, warmup=2)
+                out[rows].update(host_ms=prof[0], busy_ms=prof[1],
+                                 idle=prof[2], kernels=prof[3],
+                                 by_class=prof[4],
+                                 rows_s=rows / prof[0] * 1e3)
+            # the twin: Q and K swapped in every packed weight, in place
+            for n, v in twin_qkv.items():
+                pscope.find_var(n).copy_(torch.from_numpy(v))
+            out["twin"] = ernie_err(_ernie_serve(pred, feeds[rows_max]),
+                                    want[rows_max])
+        del pred, pscope
+    torch.cuda.empty_cache()
+    out["total_s"] = time.perf_counter() - t0
+    served = {t: served_types.count(t) for t in sorted(set(served_types))}
+    _p(f"4x (a): fused ERNIE-form BERT-base, {len(types)} ops {got_types}; "
+       f"after the predictor's passes {served}; the eager BertModel's "
+       f"forwards {out['eager_s']:.1f} s; save_inference_model "
+       f"{out['save_s']:.1f} s ({out['bytes'] / 1e6:.0f} MB); "
+       f"load_inference_model's run at {rows_max} rows against the eager "
+       f"forward {out['loaded_err']:.2e} of the largest |value| (tolerance "
+       f"{ERNIE_TOL})  [{card}]")
+    for rows in ERNIE_ROWS:
+        _p(f"4x (a): AnalysisPredictor at {rows} rows: outputs "
+           f"{out[rows]['shapes']}, launches "
+           f"{ {k: v for k, v in launches[rows].items() if v} }, worst "
+           f"|served - eager| / largest {out[rows]['err']:.2e} (tolerance "
+           f"{ERNIE_TOL})  [{card}]")
+    _p(f"4x (a): the Q/K-swapped twin misses by "
+       f"{out['twin'] / ERNIE_TOL:.0f} times the tolerance (10 or more "
+       f"misses)")
+    for rows in ERNIE_ROWS:
+        r = out[rows]
+        _p(f"profile fused ERNIE predictor, {rows} rows: host "
+           f"{r['host_ms']:.3f} ms/run ({r['rows_s']:.1f} rows/s), device "
+           f"busy {r['busy_ms']:.3f} ms/run, idle share {r['idle']:.4f}, "
+           f"{r['kernels']:.0f} kernels/run  [{card}]")
+        _print_classes(r["by_class"], "run")
+    bad = [r for r in ERNIE_ROWS if out[r]["err"] > ERNIE_TOL
+           or out[r]["shapes"] != [[r, cfg["seq"], cfg["hidden"]],
+                                   [r, cfg["hidden"]]]]
+    if bad or out["loaded_err"] > ERNIE_TOL \
+            or served.get("multihead_matmul") != layers:
+        raise SystemExit("chip_smoke: the fused ERNIE program disagrees "
+                         "with the eager BertModel")
+    if out["twin"] < 10 * ERNIE_TOL:
+        raise SystemExit("chip_smoke: the fused ERNIE check cannot tell Q "
+                         "from K")
+    return launches, out
+
+
+def _fused_op_cases():
+    """4x (b): the slice's 35 op types at the shapes their users give
+    them, {label: (op, inputs, attrs)}: the ERNIE ops at BERT-base's
+    MAX_BATCH x 128 (``multihead_matmul`` launches the flash kernel on the packed
+    QKV's strided views), ``conv_fusion``, ``fused_bn_add_activation``
+    and ``inplace_abn`` at ResNet-50's [128, 256, 56, 56], the recurrent
+    fusions and ``rnn`` at the PTB width (batch 20, 35 steps, hidden
+    1500), ``fusion_transpose_flatten_concat`` over MobileNet-SSD's six
+    loc heads, ``correlation`` at FlowNetC's [1, 256, 48, 64] (21 x 21
+    displacements), ``bilateral_slice`` at HDRnet's 16 x 16 x 8 grid over
+    256² guides, ``fsp`` and the interpolations on [MAX_BATCH / 4, 256,
+    28, 28] maps, the rest at their models' widths."""
+    from paddle_tpu_torch.ops.catalog_tail_ops import register_py_func
+
+    rng = np.random.default_rng(SEED + 230)
+
+    def r(*shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return x * np.float32(scale) if scale != 1.0 else x
+
+    b, t, hd, ffn = MAX_BATCH, ERNIE["seq"], ERNIE["hidden"], ERNIE["ffn"]
+    # FlowNetC's correlation on one image pair, HDRnet on 4 guides, the
+    # distillation maps and the decoder's upsampling at a quarter batch
+    flow_b, hdr_b, map_b = 1, max(1, b // 8), max(1, b // 4)
+    mask = np.where(np.arange(t)[None, :] < rng.integers(1, t + 1, (b, 1)),
+                    0.0, -1e4).astype("float32").reshape(b, 1, 1, t)
+    pos = np.repeat(np.arange(t)[None, :], b, 0).astype("int64")
+    ids = [rng.integers(0, ERNIE["vocab"], (b, t)).astype("int64"), pos,
+           (pos >= t // 2).astype("int64")]
+    bn = {"Scale": r(256), "Bias": r(256), "Mean": r(256, scale=0.1),
+          "Variance": np.abs(r(256)) + 0.5}
+    # one ResNet-50 conv2_x map feeds the three ops that take one
+    img, img_z = r(RESNET_BATCH, 256, 56, 56), r(RESNET_BATCH, 256, 56, 56)
+    pb, pt, ph = PTB_BATCH, PTB_T, PTB["hidden_size"]
+    w = 0.02
+    # max-unpooling indices: each pooled cell's argmax inside its 2x2
+    # window of the [8, 64, 224, 224] map
+    ii, jj = np.meshgrid(np.arange(112), np.arange(112), indexing="ij")
+    di, dj = rng.integers(0, 2, (2, 8, 64, 112, 112))
+    unpool_idx = ((2 * ii + di) * 224 + 2 * jj + dj).astype("int32")
+    # MobileNet-SSD's loc heads: 4 x priors channels over its six maps
+    heads = [(12, 19), (24, 10), (24, 5), (24, 3), (24, 2), (24, 1)]
+    fid = register_py_func(np.tanh)
+    return {
+        "multihead_matmul": (
+            "multihead_matmul", {"Input": r(b, t, 3 * hd), "BiasQK": mask},
+            {"head_number": ERNIE["heads"],
+             "alpha": (hd // ERNIE["heads"]) ** -0.5}),
+        "fused_embedding_eltwise_layernorm": (
+            "fused_embedding_eltwise_layernorm",
+            {"Ids": ids, "Embs": [r(ERNIE["vocab"], hd, scale=w),
+                                  r(t, hd, scale=w), r(2, hd, scale=w)],
+             "Scale": r(hd), "Bias": r(hd)}, {"epsilon": ERNIE_EPS}),
+        "fc": ("fc", {"Input": r(b, t, hd), "W": r(hd, 3 * hd, scale=w),
+                      "Bias": r(3 * hd)}, {"in_num_col_dims": 2}),
+        "fc tanh (pooler)": (
+            "fc", {"Input": r(b, 1, hd), "W": r(hd, hd, scale=w),
+                   "Bias": r(hd)},
+            {"in_num_col_dims": 1, "activation_type": "tanh"}),
+        "skip_layernorm": (
+            "skip_layernorm", {"X": r(b, t, hd), "Y": r(b, t, hd),
+                               "Scale": r(hd), "Bias": r(hd)},
+            {"epsilon": ERNIE_EPS}),
+        "fused_fc_elementwise_layernorm": (
+            "fused_fc_elementwise_layernorm",
+            {"X": r(b * t, ffn), "W": r(ffn, hd, scale=w), "Bias0": r(hd),
+             "Y": r(b * t, hd), "Scale": r(hd), "Bias1": r(hd)},
+            {"epsilon": ERNIE_EPS}),
+        "add_position_encoding": ("add_position_encoding",
+                                  {"X": r(b, t, hd)},
+                                  {"alpha": 1.0, "beta": 1.0}),
+        "fusion_seqexpand_concat_fc": (
+            "fusion_seqexpand_concat_fc",
+            {"X": [r(b, t, hd), r(b, hd)],
+             "FCWeight": r(2 * hd, hd, scale=w), "FCBias": r(hd)},
+            {"fc_activation": "tanh"}),
+        "fusion_seqconv_eltadd_relu": (
+            "fusion_seqconv_eltadd_relu",
+            {"X": r(b, t, hd), "Filter": r(3 * hd, hd, scale=w),
+             "Bias": r(hd)}, {"contextLength": 3, "contextStart": -1}),
+        "segment_pool": ("segment_pool",
+                         {"X": r(b * t, hd),
+                          "SegmentIds": np.repeat(np.arange(b), t)},
+                         {"pooltype": "MEAN"}),
+        "conv_fusion": ("conv_fusion",
+                        {"Input": img, "Filter": r(64, 256, 1, 1,
+                                                     scale=w),
+                         "Bias": r(64)}, {"activation": "relu"}),
+        "fused_bn_add_activation": ("fused_bn_add_activation",
+                                    dict(bn, X=img, Z=img_z),
+                                    {"act_type": "relu"}),
+        "inplace_abn": ("inplace_abn", dict(bn, X=img),
+                        {"activation": "leaky_relu"}),
+        "fsp": ("fsp", {"X": r(map_b, 256, 28, 28),
+                        "Y": r(map_b, 256, 28, 28)}, {}),
+        "interpolate": ("interpolate", {"X": r(map_b, 256, 28, 28)},
+                        {"interp_method": "bilinear", "out_h": 56,
+                         "out_w": 56}),
+        "interpolate_v2": ("interpolate_v2", {"X": r(map_b, 256, 28, 28)},
+                           {"interp_method": "nearest", "out_h": 56,
+                            "out_w": 56}),
+        "frobenius_norm": ("frobenius_norm", {"X": r(hd, ffn)}, {}),
+        "fusion_conv_inception": (
+            "fusion_conv_inception",
+            {"Input": r(b, 192, 28, 28),
+             "Filter": [r(64, 192, 1, 1, scale=w),
+                        r(128, 192, 3, 3, scale=w),
+                        r(32, 192, 5, 5, scale=w)],
+             "Bias": [r(64), r(128), r(32)]}, {}),
+        "unpool": ("unpool", {"X": r(8, 64, 112, 112),
+                              "Indices": unpool_idx},
+                   {"unpooled_height": 224, "unpooled_width": 224}),
+        "crop": ("crop", {"X": r(b, 3, 256, 256), "Y": r(b, 3, 224, 224),
+                          "Offsets": np.array([0, 0, 16, 16], "int32")},
+                 {}),
+        "expand_as": ("expand_as", {"X": r(b, 1, hd),
+                                    "target_tensor": r(b, t, hd)}, {}),
+        "similarity_focus": ("similarity_focus", {"X": r(b, 3, 56, 56)},
+                             {"axis": 1, "indexes": [0, 2]}),
+        "correlation": ("correlation", {"Input1": r(flow_b, 256, 48, 64),
+                                        "Input2": r(flow_b, 256, 48, 64)},
+                        {"pad_size": 20, "kernel_size": 1,
+                         "max_displacement": 20, "stride1": 1,
+                         "stride2": 2}),
+        "bilateral_slice": ("bilateral_slice",
+                            {"X": r(hdr_b, 3, 256, 256),
+                             "Grid": r(hdr_b, 12, 8, 16, 16),
+                             "Guide": rng.random((hdr_b, 256, 256),
+                                                 dtype=np.float32)},
+                            {"has_offset": False}),
+        "fusion_transpose_flatten_concat": (
+            "fusion_transpose_flatten_concat",
+            {"X": [r(SSD_BATCH, c, s, s) for c, s in heads]},
+            {"trans_axis": [0, 2, 3, 1], "flatten_axis": 1,
+             "concat_axis": 1}),
+        "fusion_repeated_fc_relu": (
+            "fusion_repeated_fc_relu",
+            {"X": r(4096, 416), "W": [r(416, 512, scale=w),
+                                      r(512, 256, scale=w),
+                                      r(256, 128, scale=w)],
+             "Bias": [r(512), r(256), r(128)]}, {}),
+        "fusion_squared_mat_sub": (
+            "fusion_squared_mat_sub",
+            {"X": r(4096, 416), "Y": r(416, 16, scale=w)}, {"scalar": 0.5}),
+        "lstm_unit": ("lstm_unit", {"X": r(pb, 4 * ph),
+                                    "C_prev": r(pb, ph)},
+                      {"forget_bias": 0.0}),
+        "fusion_lstm": ("fusion_lstm",
+                        {"X": r(pb, pt, ph),
+                         "WeightX": r(ph, 4 * ph, scale=w),
+                         "WeightH": r(ph, 4 * ph, scale=w),
+                         "Bias": r(1, 4 * ph, scale=w)}, {}),
+        "fusion_gru": ("fusion_gru",
+                       {"X": r(pb, pt, ph),
+                        "WeightX": r(ph, 3 * ph, scale=w),
+                        "WeightH": r(ph, 3 * ph, scale=w),
+                        "Bias": r(1, 3 * ph, scale=w)}, {}),
+        "rnn": ("rnn", {"Input": r(pb, pt, ph),
+                        "WeightList": [r(ph, 4 * ph, scale=w),
+                                       r(4 * ph, ph, scale=w),
+                                       r(4 * ph, scale=w),
+                                       r(4 * ph, scale=w)] * 2},
+                {"mode": "LSTM", "num_layers": 2, "hidden_size": ph}),
+        "multi_gru": ("multi_gru",
+                      {"X": r(pb, pt, ph),
+                       "WeightX": [r(ph, 3 * ph, scale=w)] * 2,
+                       "WeightH": [r(ph, 3 * ph, scale=w)] * 2,
+                       "Bias": [r(1, 3 * ph, scale=w)] * 2}, {}),
+        "fused_embedding_fc_lstm": (
+            "fused_embedding_fc_lstm",
+            {"Ids": rng.integers(0, PTB["vocab_size"], (pb, pt))
+             .astype("int64"),
+             "Embeddings": r(PTB["vocab_size"], 4 * ph, scale=w),
+             "WeightH": r(ph, 4 * ph, scale=w),
+             "Bias": r(1, 4 * ph, scale=w)}, {}),
+        "attention_lstm": ("attention_lstm",
+                           {"X": r(b, 50, 256),
+                            "AttentionWeight": r(512, 1, scale=w),
+                            "LSTMWeight": r(512, 1024, scale=w),
+                            "LSTMBias": r(1, 1024, scale=w)}, {}),
+        "fusion_group": ("fusion_group",
+                         {"Inputs": [r(b, t, hd), r(b, hd)]}, {}),
+        "py_func": ("py_func", {"X": r(b, t, hd)},
+                    {"forward_callable_id": fid,
+                     "out_shapes": [[b, t, hd]],
+                     "out_dtypes": ["float32"]}),
+    }
+
+
+def _fused_ops_on_the_card(card):
+    """4x (b): each op type's forward ms on the card (CUDA events) and,
+    against the host, its forward and ``generic_grad`` where it is
+    differentiable (``_op_card_err``; FUSED_KINK's cotangents 0 near
+    ReLU's kink, FUSED_GRAD_F64's gradients in float64), within FUSED_CARD_TOL of each output's largest |value|;
+    ``multihead_matmul``'s card run launches
+    the flash kernel once, with no copy of its strided Q, K and V;
+    ``py_func``'s card run copies its input to the host and its output
+    back (2 copies)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels
+    from paddle_tpu_torch.ops.catalog_tail_ops import _py_func
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    worst, ms, secs, broken = {}, {}, {}, []
+    rng = np.random.default_rng(SEED + 231)
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    cases = _fused_op_cases()
+    flash = cuda_kernels.flash_attention_fwd
+    for label, (op, ins, attrs) in cases.items():
+        dev_ins = {k: [torch.from_numpy(np.array(a)).to(DEVICE)
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+        fwd = get_op(op).fn
+        ms[label] = _ms(lambda: fwd(dev_ins, dict(attrs), ctx), 3, warmup=1)
+        del dev_ins
+        if op in ("multihead_matmul", "py_func"):
+            flash.launches = flash.copies = _py_func.copies = 0
+            _op_run(op, ins, attrs, DEVICE)
+            counts = (flash.launches, flash.copies, _py_func.copies)
+            if counts != ((1, 0, 0) if op == "multihead_matmul"
+                          else (0, 0, 2)):
+                broken.append(f"{label}: (flash launches, flash copies, "
+                              f"py_func copies) {counts}")
+        t0 = time.perf_counter()
+        worst[label] = _op_card_err(op, ins, attrs, FUSED_CARD_TOL, rng,
+                                    kink=FUSED_KINK.get(op, 0.0),
+                                    grad_f64=op in FUSED_GRAD_F64)
+        secs[label] = time.perf_counter() - t0
+    types = {op for op, _, _ in cases.values()}
+    _p("fused tier op types on the card, forward ms: "
+       + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"  [{card}]")
+    _p("fused tier op types, s of each card-against-host check: "
+       + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    _p(f"fused tier op types on the card against the host ({len(types)} "
+       f"types), forward and generic_grad, error / {FUSED_CARD_TOL} of the "
+       "largest |value| (under 1 passes): "
+       + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; broken {broken}  [{card}]")
+    if max(worst.values()) > 1 or broken or len(types) != 35:
+        raise SystemExit("chip_smoke: a fused tier op type disagrees with "
+                         "the host on the card")
+    return {"worst": worst, "ms": ms}
+
+
+def phase_fused_tier(card):
+    """Phase 4x, the fused inference tier: (a) BERT-base in Paddle
+    Inference's fused ERNIE form served by ``AnalysisPredictor`` against
+    the eager ``BertModel``, with a twin and a profile; (b) the slice's op
+    types on the card against the host.  Returns (a)'s launches of each
+    predictor run and the numbers."""
+    t = time.perf_counter()
+    launches, ernie = _ernie_leg(card)
+    _p(f"phase 4x (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ops = _fused_ops_on_the_card(card)
+    _p(f"phase 4x (b): {time.perf_counter() - t:.1f} s")
+    return launches, {"ernie": ernie, "ops": ops}
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -14153,6 +14805,11 @@ def main():
     qat_launches, qat_serve_launches, _ = _timed(
         "4w quantization tier: QAT BERT-base, PTQ, dygraph QAT",
         phase_quant_tier, card)
+    # 4x builds static programs too (its eager model under its own
+    # guard): before 4e turns dygraph on
+    fused_launches, _ = _timed(
+        "4x fused inference tier: ERNIE-form BERT-base served",
+        phase_fused_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -14383,6 +15040,12 @@ def main():
         row["qat_launches"] = qat_launches[row["name"]]
         row["qat_serve_launches"] = {rows: c[row["name"]] for rows, c in
                                      qat_serve_launches.items()}
+    # the fused inference tier (phase 4x): launches over each of (a)'s
+    # predictor runs of the fused ERNIE-form BERT-base (flash once a
+    # layer, every other kernel none)
+    for row in kernels:
+        row["fused_serve_launches"] = {rows: c[row["name"]] for rows, c in
+                                       fused_launches.items()}
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -2,8 +2,7 @@
 ``paddle_tpu/contrib/layers/nn.py``): the qingshui/search-ads layer tier.
 Every builder is sugar over a lowering of the op catalog
 (ops/{ctr,misc,nlp,random,fused_extra,catalog_tail}_ops.py), on padded
-layouts in place of LoD.  ``correlation`` and ``bilateral_slice`` raise:
-their ops wait in ROADMAP queue A item 8's table.
+layouts in place of LoD.
 ``_pull_box_extended_sparse`` appends no ``W``, as the reference's does,
 so its op raises when it runs."""
 from __future__ import annotations
@@ -22,12 +21,6 @@ __all__ = [
     "fused_bn_add_act", "fused_seqpool_cvm", "cross_norm_layer_hadamard",
     "fused_seqpool_cvm_with_pcoc", "scaled_fc", "scaled_int8fc",
 ]
-
-
-def _waits(name, op, item):
-    raise NotImplementedError(
-        f"contrib.layers.{name} needs the `{op}` op, which is not ported "
-        f"yet (ROADMAP queue A item {item})")
 
 
 def _emit(op_type, ins, out_slots, attrs=None, dtype=None):
@@ -267,12 +260,19 @@ def _pull_box_extended_sparse(input, size, extend_size=64, dtype="float32"):
 
 
 def bilateral_slice(x, guide, grid, has_offset=False, name=None):
-    _waits("bilateral_slice", "bilateral_slice", 8)
+    return _emit("bilateral_slice",
+                 {"X": [x], "Guide": [guide], "Grid": [grid]}, ("Out",),
+                 {"has_offset": has_offset})
 
 
 def correlation(x, y, pad_size, kernel_size, max_displacement, stride1,
                 stride2, corr_type_multiply=1):
-    _waits("correlation", "correlation", 8)
+    return _emit("correlation", {"Input1": [x], "Input2": [y]},
+                 ("Output",),
+                 {"pad_size": pad_size, "kernel_size": kernel_size,
+                  "max_displacement": max_displacement, "stride1": stride1,
+                  "stride2": stride2,
+                  "corr_type_multiply": corr_type_multiply})
 
 
 def fused_bn_add_act(x, y, momentum=0.9, epsilon=1e-5, param_attr=None,

@@ -79,7 +79,8 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      ctc_greedy_decoder, psroi_pool, prroi_pool,
                      deformable_conv, pow, size, space_to_depth,
                      random_crop, unique_with_counts, isfinite, has_inf,
-                     has_nan, sampling_id, mean_iou)
+                     has_nan, sampling_id, mean_iou, add_position_encoding,
+                     fsp_matrix, similarity_focus, py_func)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

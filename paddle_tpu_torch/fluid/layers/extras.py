@@ -1,7 +1,9 @@
 """fluid.layers tail (counterpart of ``paddle_tpu/fluid/layers/extras.py``,
 the builders paddle.tensor, nn.functional, the image layers and the
 sequence tier (the CRF, CTC and sampled-head builders) and the detection
-tier (the position-sensitive pools, the deformable convolution) reach):
+tier (the position-sensitive pools, the deformable convolution) and the
+fused inference tier (``add_position_encoding``, ``fsp_matrix``,
+``similarity_focus``, ``py_func``) reach):
 op-builder sugar over the registered lowerings, mode-agnostic through
 ``emit_op``; and the ``conv3d_transpose`` op, which the reference
 registers here."""
@@ -11,7 +13,7 @@ import numpy as np
 import torch
 
 from ...ops.registry import register_op
-from ..framework import Variable
+from ..framework import Variable, in_dygraph_mode
 from ..layer_helper import LayerHelper, emit_op
 from . import nn as _nn
 from . import tensor as _tensor
@@ -436,6 +438,39 @@ def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
                                 "float32")
     return _one("spectral_norm", {"Weight": [weight], "U": [u], "V": [v]},
                 dim=dim, power_iters=power_iters, eps=eps)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _one("add_position_encoding", {"X": [input]}, alpha=alpha,
+                beta=beta)
+
+
+def fsp_matrix(x, y):
+    return _one("fsp", {"X": [x], "Y": [y]}, layer="fsp_matrix")
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _one("similarity_focus", {"X": [input]}, axis=axis,
+                indexes=list(indexes))
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """The host-Python op: ``func`` registered for ``py_func`` and called
+    on numpy copies of ``x``; ``out`` declares the output variables, whose
+    shapes and dtypes the callback's results take.  ``backward_func`` is
+    not read, as in the reference."""
+    from ...ops.catalog_tail_ops import register_py_func
+    helper = LayerHelper("py_func")
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    op = helper.append_op(
+        "py_func", inputs={"X": xs}, outputs={"Out": outs},
+        attrs={"forward_callable_id": register_py_func(func),
+               "out_shapes": [list(o.shape) for o in outs],
+               "out_dtypes": [str(o.dtype or "float32") for o in outs]})
+    result = list(op["Out"]) if in_dygraph_mode() else outs
+    return result if len(result) > 1 else result[0]
 
 
 def inplace_abn(input, act="identity", **kw):

@@ -11,13 +11,13 @@ from . import manipulation    # noqa: F401  reshape/transpose/creation
 from . import reduction       # noqa: F401  reductions
 from . import nn_ops          # noqa: F401  softmax/dropout family/layer_norm
 from . import misc_ops        # noqa: F401  fused compositions
-from . import catalog_tail_ops  # noqa: F401  equal_all
+from . import catalog_tail_ops  # noqa: F401  fc, rnn, py_func, detection tail
 from . import plumbing_ops    # noqa: F401  is_empty
 from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
 from . import ctr_ops         # noqa: F401  fused_embedding_pool, CTR tier
-from . import fused_extra_ops  # noqa: F401  the fused CTR rows
+from . import fused_extra_ops  # noqa: F401  the nn tail, the fused family
 from . import rnn_ops         # noqa: F401  lstm/gru/cudnn_lstm family
 from . import nlp_ops         # noqa: F401  CRF, CTC, beam search, sampled heads
 from . import sequence_extra  # noqa: F401  padded sequence ops

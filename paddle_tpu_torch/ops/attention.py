@@ -4,6 +4,8 @@
 over ``[B, H, T, D]`` tensors; the ``fuse_attention`` pass
 (fluid/passes/kernel_tier.py) produces it from the naive
 matmul → scale → +mask → softmax → dropout → matmul chain.
+``multihead_matmul``, Paddle Inference's ERNIE form, reads Q, K and V
+from one packed ``[B, T, 3·H·D]`` tensor and takes the same dispatch.
 
 Dispatch (``flash_attention``):
 
@@ -231,6 +233,24 @@ def _fused_mha(ins, attrs, ctx):
                           dropout_rate=rate, dropout_key=dropout_key,
                           dropout_upscale=upscale, prob_scale=prob_scale)
     return {"Out": [out]}
+
+
+@register_op("multihead_matmul", nondiff_inputs=("BiasQK",))
+def _multihead_matmul(ins, attrs, ctx):
+    """Paddle Inference's fused attention over a packed QKV: ``Input``
+    [B, T, 3·H·D] laid out (3, H, D) on its last axis, ``BiasQK`` added
+    to the scores, ``alpha`` the scale (1/sqrt(D) when absent).  Q, K and
+    V are strided views of the packed tensor, which the kernel reads in
+    place; ``Out`` [B, T, H·D]."""
+    x = ins["Input"][0]
+    bias_qk = ins["BiasQK"][0] if ins.get("BiasQK") else None
+    h = attrs["head_number"]
+    b, t, c3 = x.shape
+    d = c3 // 3 // h
+    qkv = x.reshape(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
+    out = flash_attention(qkv[0], qkv[1], qkv[2], bias_qk,
+                          scale=attrs.get("alpha", None))
+    return {"Out": [out.permute(0, 2, 1, 3).reshape(b, t, h * d)]}
 
 
 def _paged_reference(q, kp, vp, idx, valid, scale, neg):

@@ -1,15 +1,99 @@
 """Catalog-tail lowerings (counterpart of
 ``paddle_tpu/ops/catalog_tail_ops.py``: the op paddle.tensor reaches,
-``recurrent``, StaticRNN's step loop, the sequence tail's
-``sequence_reshape`` and ``sequence_topk_avg_pooling``, the twelve
-of the detection tail and the CTR tail's ``pull_box_extended_sparse``)."""
+the framework tail (``fc``, ``py_func``, the 2.0 ``rnn``, ``recurrent``
+(StaticRNN's step loop), ``attention_lstm``), the sequence tail's
+``sequence_reshape`` and ``sequence_topk_avg_pooling``, the twelve of
+the detection tail with ``bilateral_slice`` and
+``fusion_conv_inception``, and the CTR tail's
+``pull_box_extended_sparse``).
+
+As in the reference: ``fc``'s ``gelu`` is the tanh form (the ``gelu`` op
+is the erf form); ``rnn`` runs one direction, chains its layers and reads
+no ``PreState``, ``SequenceLength`` or ``is_bidirec``; ``bilateral_slice``
+reads no ``X`` and no ``has_offset``."""
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .detection_ops import gather_rows, true_div
 from .registry import get_op, register_op
+
+
+def _p(ins, slot):
+    return ins[slot][0]
+
+
+_FC_ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+            "tanh": torch.tanh,
+            "gelu": lambda v: F.gelu(v, approximate="tanh")}
+
+
+def _act(name, x):
+    if not name or name == "identity":
+        return x
+    return _FC_ACTS[name](x)
+
+
+# ---------------------------------------------------------------------------
+# framework tail
+# ---------------------------------------------------------------------------
+
+@register_op("fc")
+def _fc(ins, attrs, ctx):
+    """Input flattened to [prod(shape[:in_num_col_dims]), -1], times W,
+    plus Bias, then ``activation_type``; the leading axes restored."""
+    x, w = _p(ins, "Input"), _p(ins, "W")
+    ncol = attrs.get("in_num_col_dims", 1)
+    lead = tuple(x.shape[:ncol])
+    out = x.reshape(math.prod(lead), -1) @ w
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(1, -1)
+    out = _act(attrs.get("activation_type", ""), out)
+    return {"Out": [out.reshape(lead + (w.shape[1],))]}
+
+
+_PY_FUNCS = []
+
+
+def register_py_func(fn) -> int:
+    """Register a host callable for ``py_func``; its id is the op's
+    ``forward_callable_id``."""
+    _PY_FUNCS.append(fn)
+    return len(_PY_FUNCS) - 1
+
+
+@register_op("py_func", differentiable=False)
+def _py_func(ins, attrs, ctx):
+    """The registered callable on numpy copies of X, on the host; each
+    output as ``out_dtypes``, reshaped to ``out_shapes``, on X's device
+    (the context's when there is no X).  Every tensor copied between the
+    card and the host, either way, adds one to ``_py_func.copies``."""
+    fn = _PY_FUNCS[int(attrs["forward_callable_id"])]
+    xs = list(ins.get("X", []))
+    shapes = attrs.get("out_shapes", [])
+    dtypes = attrs.get("out_dtypes", ["float32"] * len(shapes))
+    dev = xs[0].device if xs else ctx.device
+    arrays = []
+    for x in xs:
+        if x.device.type != "cpu":
+            _py_func.copies += 1
+        arrays.append(x.detach().cpu().numpy())
+    out = fn(*arrays)
+    out = out if isinstance(out, (list, tuple)) else [out]
+    outs = []
+    for o, shape, dtype in zip(out, shapes, dtypes):
+        t = torch.from_numpy(np.array(o, np.dtype(dtype)).reshape(shape))
+        if dev.type != "cpu":
+            _py_func.copies += 1
+        outs.append(t.to(dev))
+    return {"Out": outs}
+
+
+_py_func.copies = 0
 
 
 @register_op("equal_all", differentiable=False)
@@ -49,6 +133,69 @@ def _recurrent(ins, attrs, ctx):
         for n in out_names:
             collected[n].append(env[n])
     return {"Out": [torch.stack(collected[n], dim=1) for n in out_names]}
+
+
+@register_op("rnn", nondiff_inputs=("SequenceLength", "PreState"))
+def _rnn(ins, attrs, ctx):
+    """The 2.0 generic RNN over Input [B, T, I]: ``mode`` LSTM or GRU
+    through those lowerings (LSTM without peepholes), RNN_TANH or
+    RNN_RELU through a step loop.  WeightList holds a layer's [Wx (I x
+    G), Wh (G x H), then its biases, summed]; the recurrent weight is
+    used as Whᵀ.  Layers chain; ``Out`` is the last layer's."""
+    h = _p(ins, "Input")
+    wl = list(ins["WeightList"])
+    mode = attrs.get("mode", "LSTM").upper()
+    num_layers = attrs.get("num_layers", 1)
+    hidden = attrs.get("hidden_size", wl[1].shape[0])
+    per = len(wl) // num_layers
+    for layer in range(num_layers):
+        wx, wh = wl[layer * per], wl[layer * per + 1]
+        proj = h @ wx
+        if per >= 3:
+            proj = proj + sum(b.reshape(-1) for b in
+                              wl[layer * per + 2:(layer + 1) * per])
+        if mode == "LSTM":
+            h = get_op("lstm").fn({"Input": [proj], "Weight": [wh.t()]},
+                                  {"use_peepholes": False}, ctx)["Hidden"][0]
+        elif mode == "GRU":
+            h = get_op("gru").fn({"Input": [proj], "Weight": [wh.t()]},
+                                 {}, ctx)["Hidden"][0]
+        else:
+            act = torch.tanh if mode == "RNN_TANH" else torch.relu
+            carry = proj.new_zeros((h.shape[0], hidden))
+            steps = []
+            for xt in proj.unbind(1):
+                carry = act(xt + carry @ wh.t())
+                steps.append(carry)
+            h = torch.stack(steps, dim=1)
+    return {"Out": [h]}
+
+
+@register_op("attention_lstm")
+def _attention_lstm(ins, attrs, ctx):
+    """Each step attends over the whole input X [B, T, I] by
+    ``softmax([X, h]·AttentionWeight)`` and feeds the attended context
+    and h through one LSTM cell of LSTMWeight [I + H, 4H] and LSTMBias,
+    gates (i, f, c, o).  ``Hidden`` [B, T, H]; ``Cell`` the last c."""
+    x = _p(ins, "X")
+    aw, lw = _p(ins, "AttentionWeight"), _p(ins, "LSTMWeight")
+    lb = _p(ins, "LSTMBias").reshape(-1)
+    b, t, _ = x.shape
+    hdim = lw.shape[1] // 4
+    h = ins["H0"][0] if ins.get("H0") else x.new_zeros((b, hdim))
+    c = ins["C0"][0] if ins.get("C0") else x.new_zeros((b, hdim))
+    hs = []
+    for _ in range(t):
+        hx = torch.cat([x, torch.broadcast_to(h[:, None], (b, t, hdim))],
+                       dim=-1)
+        alpha = torch.softmax(torch.squeeze(hx @ aw, -1), dim=-1)
+        ctx_vec = torch.einsum("bt,btd->bd", alpha, x)
+        gates = torch.cat([ctx_vec, h], dim=-1) @ lw + lb
+        i, f, cc, o = torch.chunk(gates, 4, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(cc)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return {"Hidden": [torch.stack(hs, dim=1)], "Cell": [c]}
 
 
 @register_op("sequence_reshape")
@@ -93,10 +240,6 @@ def _pull_box_extended_sparse(ins, attrs, ctx):
 
 # elements of one block of classes' [k, M, M] comparison in matrix_nms
 _NMS_BLOCK_ELEMENTS = 1 << 28
-
-
-def _p(ins, slot):
-    return ins[slot][0]
 
 
 def _pair_iou(a, b):
@@ -504,3 +647,56 @@ def _generate_mask_labels(ins, attrs, ctx):
                                  device=rois.device))
     return {"MaskRois": [rois], "RoiHasMaskInt32": [fg.long()],
             "MaskInt32": [out.reshape(n, -1)]}
+
+
+@register_op("bilateral_slice")
+def _bilateral_slice(ins, attrs, ctx):
+    """HDRnet's slice of a bilateral Grid [B, C, D, GH, GW] at every
+    pixel of Guide [B, H, W] (values in [0, 1]): trilinear in the grid's
+    (y, x) spread over (H, W) and in its depth at guide·(D - 1)."""
+    grid, guide = _p(ins, "Grid"), _p(ins, "Guide")
+    b, c, d, gh, gw = grid.shape
+    h, w = guide.shape[1:]
+    dev, dt = grid.device, grid.dtype
+    ys = torch.linspace(0, gh - 1, h, dtype=dt, device=dev)
+    xs = torch.linspace(0, gw - 1, w, dtype=dt, device=dev)
+    gz = torch.clamp(guide * (d - 1), 0, d - 1)
+    y0, x0, z0 = (torch.floor(v).long() for v in (ys, xs, gz))
+    fy = (ys - y0)[None, :, None]
+    fx = (xs - x0)[None, None, :]
+    fz = (gz - z0)[:, None]
+    y1 = torch.clamp(y0 + 1, 0, gh - 1)
+    x1 = torch.clamp(x0 + 1, 0, gw - 1)
+    z1 = torch.clamp(z0 + 1, 0, d - 1)
+
+    def corner(zi, yi, xi):
+        gp = grid[:, :, :, yi[:, None], xi[None, :]]       # [B, C, D, H, W]
+        zb = torch.broadcast_to(zi[:, None], (b, c, h, w))
+        return torch.gather(gp, 2, zb[:, :, None])[:, :, 0]
+
+    def plane(zi):
+        return ((1 - fy) * ((1 - fx) * corner(zi, y0, x0)
+                            + fx * corner(zi, y0, x1))
+                + fy * ((1 - fx) * corner(zi, y1, x0)
+                        + fx * corner(zi, y1, x1)))
+
+    return {"Out": [(1 - fz) * plane(z0) + fz * plane(z1)]}
+
+
+@register_op("fusion_conv_inception")
+def _fusion_conv_inception(ins, attrs, ctx):
+    """Parallel branches over Input, one a Filter: ``conv2d`` at stride 1
+    with half the kernel's size as padding, plus its Bias, ReLU; the
+    branches concatenated on channels."""
+    x = _p(ins, "Input")
+    bs = ins.get("Bias", [])
+    outs = []
+    for i, w in enumerate(ins["Filter"]):
+        y = get_op("conv2d").fn(
+            {"Input": [x], "Filter": [w]},
+            {"strides": [1, 1],
+             "paddings": [w.shape[2] // 2, w.shape[3] // 2]}, ctx)["Output"][0]
+        if i < len(bs):
+            y = y + bs[i].reshape(1, -1, 1, 1)
+        outs.append(torch.relu(y))
+    return {"Output": [torch.cat(outs, dim=1)]}

@@ -3,7 +3,9 @@
 the two ops the pairwise fusion passes make, each the plain composition
 of its parts, the ``adamax`` update, and the image layers' stragglers
 (``bilinear_tensor_product``, ``pool3d``, ``spectral_norm``,
-``teacher_student_sigmoid_loss``, ``dropout_nd``) and ``center_loss``."""
+``teacher_student_sigmoid_loss``, ``dropout_nd``), ``center_loss``,
+and the fused inference tier's ``fused_embedding_eltwise_layernorm`` and
+``fusion_group``."""
 from __future__ import annotations
 
 import torch
@@ -278,3 +280,29 @@ def _lookup_table_dequant(ins, attrs, ctx):
     rows = gather_rows(ins["W"][0], ins["Ids"][0].reshape(-1))
     mn, mx = rows[:, 0:1], rows[:, 1:2]
     return {"Out": [mn + true_div((mx - mn) * rows[:, 2:], 255.0)]}
+
+
+@register_op("fused_embedding_eltwise_layernorm", nondiff_inputs=("Ids",))
+def _fused_embedding_eltwise_layernorm(ins, attrs, ctx):
+    """The BERT embedding block as one op (Paddle Inference's ERNIE
+    form): the rows of each ``Embs`` table at its ``Ids`` [B, T], summed
+    in slot order, then LayerNorm with Scale and Bias, divided by
+    ``sqrt(var + eps)``.  The gathers are ``F.embedding``
+    (``gather_rows``), whose gradient keeps one order on the card."""
+    from .detection_ops import gather_rows
+    acc = None
+    for ids, emb in zip(ins["Ids"], ins["Embs"]):
+        v = gather_rows(emb, ids.reshape(tuple(ids.shape[:2])))
+        acc = v if acc is None else acc + v
+    mu = acc.mean(-1, keepdim=True)
+    var = torch.var(acc, dim=-1, keepdim=True, correction=0)
+    return {"Out": [(acc - mu) / torch.sqrt(var + attrs.get("epsilon", 1e-5))
+                    * ins["Scale"][0] + ins["Bias"][0]]}
+
+
+@register_op("fusion_group")
+def _fusion_group(ins, attrs, ctx):
+    """fusion_group_pass's generated-kernel op, the identity over its
+    inputs, as in the reference: the subgraph it stands for is not
+    carried, so ``Outs`` are ``Inputs``."""
+    return {"Outs": list(ins["Inputs"])}

@@ -68,17 +68,17 @@ MISSING = {
             "is_compiled_with_cuda", "load_op_library", "require_version",)},
     },
     "fluid.layers": {
-        **{n: 8 for n in ("add_position_encoding", "affine_channel",
-            "cond_value", "diag", "fsp_matrix", "gaussian_random",
+        **{n: 8 for n in ("affine_channel",
+            "cond_value", "diag", "gaussian_random",
             "gaussian_random_batch_size_like",
             "get_tensor_from_selected_rows", "lod_append", "lod_reset",
             "logical_xor", "matmul_v2", "merge_selected_rows",
-            "pad_constant_like", "shuffle_channel", "similarity_focus",
+            "pad_constant_like", "shuffle_channel",
             "temporal_shift", "tensor_array_to_tensor", "triu", "unbind",
             "uniform_random", "uniform_random_batch_size_like",)},
         **{n: 12 for n in ("ConstantInitializer", "LayerHelper", "Variable",
             "XavierInitializer", "create_py_reader_by_data", "create_tensor",
-            "double_buffer", "in_dygraph_mode", "load", "py_func",
+            "double_buffer", "in_dygraph_mode", "load",
             "py_reader", "read_file", "unique_name",)},
     },
     "fluid.optimizer": {},
@@ -108,15 +108,6 @@ MISSING = {
         "BasicGRUUnit", "BasicLSTMUnit", "basic_gru", "basic_lstm",
         "rnn_impl")},
 }
-
-# contrib.layers builders the port has that raise, naming the item that
-# brings their op
-WAITING = {
-    "bilateral_slice": (8, lambda cl: cl.bilateral_slice(None, None, None)),
-    "correlation": (8, lambda cl: cl.correlation(None, None, 1, 1, 1, 1,
-                                                 1)),
-}
-
 
 _PROBE = """
 import json, sys, types
@@ -182,15 +173,6 @@ def test_each_missing_name_names_an_item():
     for space, names in MISSING.items():
         for name, item in names.items():
             assert item in (0, 5, 6, 7, 8, 9, 10, 11, 12), (space, name)
-
-
-@pytest.mark.parametrize("name", sorted(WAITING))
-def test_waiting_builder_raises_naming_its_item(name):
-    import paddle_tpu_torch.contrib.layers as tcl
-    item, call = WAITING[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"queue A item {item}"):
-        call(tcl)
 
 
 def test_the_surface_the_slice_brings():

@@ -9,8 +9,8 @@ probe candidates (``_cands()``) that the reference's lowering runs at
 all (comparisons, reductions to bool, index ops).  The recurrent,
 beam-search and sequence-tier op types, which those lack, take the first
 case of each in ``test_torch_rnn_ops.OP_CASES``,
-``test_torch_rnn_decode.NLP_CASES`` and
-``test_torch_sequence_ops.OP_CASES``; the detection op types those lack
+``test_torch_rnn_decode.NLP_CASES``, ``test_torch_sequence_ops.OP_CASES``
+and ``test_torch_fused_tier.OP_CASES``; the detection op types those lack
 are held on their own cases by ``test_torch_detection_ops.py``, and the
 CTR op types the probe cannot feed by ``test_torch_ctr_tier.py``
 (``SKIPS``).
@@ -40,6 +40,7 @@ import paddle_tpu_torch.fluid  # noqa: F401  registers every lowering
 from paddle_tpu_torch.ops import registry as treg
 
 from test_op_grads_auto import _cands, _probe, _specs
+from test_torch_fused_tier import OP_CASES as FUSED_CASES
 from test_torch_rnn_decode import NLP_CASES
 from test_torch_rnn_ops import OP_CASES
 from test_torch_sequence_ops import OP_CASES as SEQUENCE_CASES
@@ -136,6 +137,8 @@ SKIPS = {
         "mean_iou", "precision_recall")},
     "random_crop": "draws its offsets: tests/test_torch_quant_tier.py holds "
                    "it to its contract (ground rule 5)",
+    "py_func": "a host callable registered in each package under its own "
+               "id: tests/test_torch_fused_tier.py",
     **{op: _DETECTION for op in (
         "bipartite_match", "box_decoder_and_assign", "collect_fpn_proposals",
         "deformable_psroi_pooling", "density_prior_box", "detection_map",
@@ -151,7 +154,8 @@ SWEPT = [op for op in COMMON if op not in SKIPS and op not in CONTRACT]
 
 _NEW_OPS = {}
 for _op, _ins, _attrs in (list(OP_CASES.values()) + list(NLP_CASES.values())
-                          + list(SEQUENCE_CASES.values())):
+                          + list(SEQUENCE_CASES.values())
+                          + list(FUSED_CASES.values())):
     _NEW_OPS.setdefault(_op, dict(inputs=_ins, attrs=_attrs))
 
 
