@@ -14728,6 +14728,589 @@ def phase_fused_tier(card):
     return launches, {"ernie": ernie, "ops": ops}
 
 
+# ---------------------------------------------------------------------------
+# phase 4y: the plumbing tail.  (a) Static BERT-base training checkpointed
+# and resumed through Paddle 1.8's save_vars / load_vars programs; (b) the
+# slice's other op types at their users' widths, card against host
+# ---------------------------------------------------------------------------
+CKPT_STEPS = 4                 # (a): the uninterrupted run's steps
+CKPT_AT = 2                    # (a): steps before the checkpoint
+CKPT_HOST_RTOL = 1e-4          # (a): the host step, 4b's card-vs-host rtol
+CKPT_TWIN_MISS = 10 * CKPT_HOST_RTOL   # (a): the twin's least miss
+PLUMB_CARD_TOL = 1e-4          # (b): of each output's largest |value|
+# (b): the sparse-table ops at phase 4v's CTR width: 26 slots of [4096, 5]
+# Zipf ids over 1e6 values a slot, rows of 16
+PLUMB_TABLE = dict(slots=JOIN["slots"], batch=JOIN["batch"], seq=JOIN["seq"],
+                   dim=JOIN["dim"], ids=JOIN["ids"], lr=1e-3)
+
+
+def checkpoint_vars(main, scope):
+    """The persistable vars of ``main`` that ``scope`` holds, sorted by
+    name: what Paddle 1.8's ``save_persistables`` hands ``save_vars``
+    (the parameters, Adam's moments, the beta powers, the learning
+    rate)."""
+    return sorted(n for n, v in main.global_block().vars.items()
+                  if v.persistable and scope.find_var(n) is not None)
+
+
+def checkpoint_program(fluid, main, names, dirname, save, combine=True):
+    """The program Paddle 1.8's ``fluid.io.save_vars`` (``save``) or
+    ``load_vars`` builds over ``names`` (vars of ``main``), in that
+    order: one ``save_combine`` (``load_combine``) over them all to
+    ``dirname/__params__``, or (``combine`` False) one ``save``
+    (``load``) op a var to ``dirname/<name>``.  Either package's
+    ``fluid``."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    src = main.global_block()
+    vs = [block.create_var(name=n, shape=src.vars[n].shape,
+                           dtype=src.vars[n].dtype, persistable=True)
+          for n in names]
+    groups = [(os.path.join(dirname, "__params__"), vs)] if combine else \
+        [(os.path.join(dirname, v.name), [v]) for v in vs]
+    for path, group in groups:
+        if save:
+            block.append_op(type="save_combine" if combine else "save",
+                            inputs={"X": group}, outputs={},
+                            attrs={"file_path": path})
+        else:
+            block.append_op(type="load_combine" if combine else "load",
+                            inputs={}, outputs={"Out": group},
+                            attrs={"file_path": path})
+    return prog
+
+
+def bert_train_steps(exe, program, loss, scope, feed, n):
+    """``n`` steps; their losses as Python floats."""
+    return [float(np.asarray(exe.run(program, feed=feed, fetch_list=[loss],
+                                      scope=scope)[0]).ravel()[0])
+            for _ in range(n)]
+
+
+def bert_resumed(fluid, place, built, init, feed, dirname, combine=True,
+                 skip=()):
+    """The port's checkpointed run: CKPT_AT steps from ``init`` (numpy
+    persistables), the save program over ``checkpoint_vars``, then a fresh
+    ``Scope`` with the startup program run in it, the load program over
+    the same vars, and the steps to CKPT_STEPS; the vars named in ``skip``
+    are neither saved nor loaded.  ``built``:
+    (main, startup, program, loss).  Returns the resumed steps' losses,
+    the saved vars as the scope held them (numpy, by name), and the
+    save's and load's seconds."""
+    from paddle_tpu_torch import interop
+    main, startup, program, loss = built
+    exe = fluid.Executor(place)
+    scope = interop.scope_from_numpy(init, fluid.Scope(), place)
+    bert_train_steps(exe, program, loss, scope, feed, CKPT_AT)
+    names = [n for n in checkpoint_vars(main, scope) if n not in skip]
+    saved = interop.scope_to_numpy(scope, names)
+    t0 = time.perf_counter()
+    exe.run(checkpoint_program(fluid, main, names, dirname, True, combine),
+            scope=scope)
+    t_save = time.perf_counter() - t0
+    fresh = fluid.Scope()
+    exe.run(startup, scope=fresh)
+    t0 = time.perf_counter()
+    exe.run(checkpoint_program(fluid, main, names, dirname, False, combine),
+            scope=fresh)
+    t_load = time.perf_counter() - t0
+    losses = bert_train_steps(exe, program, loss, fresh, feed,
+                              CKPT_STEPS - CKPT_AT)
+    return losses, saved, (t_save, t_load)
+
+
+def _same_bytes(got, want):
+    """Names whose arrays differ from ``want``'s in dtype, shape or any
+    byte."""
+    return sorted(n for n, w in want.items()
+                  if got[n].dtype != w.dtype or got[n].shape != w.shape
+                  or got[n].tobytes() != w.tobytes())
+
+
+def _checkpoint_leg(card):
+    """4y (a): phase 4b's program and strategy, CKPT_STEPS steps from one
+    state uninterrupted, then checkpointed after CKPT_AT steps and resumed
+    through save_combine/load_combine and through save/load a var; the
+    resumed losses equal the uninterrupted ones bit for bit, the files
+    load on the host byte for byte, a host step from them at HOST_ROWS
+    agrees with the card's, and a load that leaves Adam's moments out
+    misses.  Returns the launches of the uninterrupted run."""
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import fluid, interop
+    from paddle_tpu_torch.models.static_graphs import \
+        build_bert_train_program
+    from paddle_tpu_torch.ops import plumbing_ops
+
+    layers = TRAIN["layers"]
+    t0 = time.perf_counter()
+    main, startup, loss = build_bert_train_program(**TRAIN)
+    startup.random_seed = SEED
+    card_place = fluid.CUDAPlace(0)
+    scope = fluid.Scope()
+    exe = fluid.Executor(card_place)
+    exe.run(startup, scope=scope)
+    weights, _ = _served_weights(main.all_parameters(), layers, SEED)
+    interop.scope_from_numpy(weights, scope, card_place)
+    bs = fluid.BuildStrategy()
+    bs.fuse_attention = bs.fuse_optimizer = True
+    program = fluid.CompiledProgram(main, bs)
+    program._apply_ir_passes([loss.name])
+    init = interop.scope_to_numpy(scope, checkpoint_vars(main, scope))
+    built = (main, startup, program, loss)
+    feed = _train_feed(np.random.RandomState(SEED + 29), TRAIN_ROWS)
+    _p(f"checkpoint: BERT-base training program built, {len(init)} "
+       f"persistables ({sum(a.nbytes for a in init.values())} bytes) in "
+       f"{time.perf_counter() - t0:.1f} s")
+    per_step = {"flash_attention_fwd": 2 * layers,
+                "flash_attention_bwd": layers, "fused_adam": 1}
+    _flash_copies_zero()
+    t0 = time.perf_counter()
+    want, launches = _counted_run(
+        "the uninterrupted run",
+        lambda: bert_train_steps(
+            exe, program, loss, interop.scope_from_numpy(
+                init, fluid.Scope(), card_place), feed, CKPT_STEPS),
+        {k: v * CKPT_STEPS for k, v in per_step.items()})
+    wall = time.perf_counter() - t0
+    _flash_copies_check("checkpoint")
+    _p(f"checkpoint: uninterrupted {CKPT_STEPS} steps at {TRAIN_ROWS} rows "
+       f"in {wall:.3f} s, losses {want}; launches {launches}  [{card}]")
+    results = {}
+    with tempfile.TemporaryDirectory() as d:
+        for combine in (True, False):
+            label = "save_combine/load_combine" if combine else "save/load"
+            path = os.path.join(d, "combine" if combine else "each")
+            plumbing_ops.HOST_COPIES.update(to_host=0, to_card=0)
+            (got, saved, (t_save, t_load)), resumed = _counted_run(
+                f"the run resumed through {label}",
+                lambda: bert_resumed(fluid, card_place, built, init, feed,
+                                     path, combine),
+                {k: v * CKPT_STEPS for k, v in per_step.items()})
+            copies = dict(plumbing_ops.HOST_COPIES)
+            nbytes = _dir_bytes(path)
+            _p(f"checkpoint: resumed through {label}: losses of steps "
+               f"{CKPT_AT + 1}-{CKPT_STEPS} {got} against {want[CKPT_AT:]} "
+               f"(bit for bit); save {t_save:.3f} s, load {t_load:.3f} s, "
+               f"{nbytes} bytes in {len(os.listdir(path))} files; host "
+               f"copies {copies} for {len(saved)} vars; launches {resumed} "
+               f"(the save and load programs none)  [{card}]")
+            if got != want[CKPT_AT:]:
+                raise SystemExit(f"chip_smoke: the run resumed through "
+                                 f"{label} lost the uninterrupted losses")
+            crossed = len(saved) if torch.device(DEVICE).type == "cuda" \
+                else 0      # a host tensor crosses nothing
+            if copies != {"to_host": crossed, "to_card": crossed}:
+                raise SystemExit(f"chip_smoke: the {label} programs did "
+                                 f"not copy each var once each way")
+            results[label] = dict(losses=got, save_s=t_save, load_s=t_load,
+                                  bytes=nbytes, vars=len(saved))
+            if not combine:
+                continue
+            # the files on the host: byte for byte, then one host step
+            # from them against one card step, both at HOST_ROWS
+            host_place = fluid.CPUPlace()
+            host_feed = _train_feed(np.random.RandomState(SEED + 30),
+                                    HOST_ROWS)
+            names = sorted(saved)
+            rows = {}
+            for place in (host_place, card_place):
+                s = fluid.Scope()
+                fluid.Executor(place).run(checkpoint_program(
+                    fluid, main, names, path, False), scope=s)
+                if place is host_place:
+                    diff = _same_bytes(interop.scope_to_numpy(s, names),
+                                       saved)
+                rows[place is host_place] = bert_train_steps(
+                    fluid.Executor(place), program, loss, s, host_feed, 1)[0]
+            _p(f"checkpoint: the card's file loaded on the host, vars "
+               f"differing in any byte {diff}; one step at {HOST_ROWS} rows "
+               f"from it, card {rows[False]}, host {rows[True]} "
+               f"(rtol {CKPT_HOST_RTOL})  [{card}]")
+            if diff or not np.isclose(rows[False], rows[True],
+                                      rtol=CKPT_HOST_RTOL, atol=0.0):
+                raise SystemExit("chip_smoke: the card's checkpoint does "
+                                 "not give the host the card's state")
+        # the twin: what saving only the parameters gives, Adam's moment
+        # accumulators left at the startup program's zeros.  Step 3's loss
+        # is computed before step 3's update, the first the moments move,
+        # so the twin is held at step 4
+        moments = [n for n in init if "_moment" in n]
+        twin, _, _ = bert_resumed(fluid, card_place, built, init, feed,
+                                  os.path.join(d, "twin"), skip=moments)
+    miss = abs(twin[-1] - want[-1]) / abs(want[-1])
+    _p(f"checkpoint: the twin without the {len(moments)} moment "
+       f"accumulators: losses {twin} against {want[CKPT_AT:]}; step "
+       f"{CKPT_STEPS} misses by {miss:.3e} relative, at least "
+       f"{CKPT_TWIN_MISS:.0e} needed  [{card}]")
+    if miss < CKPT_TWIN_MISS:
+        raise SystemExit("chip_smoke: the checkpoint check cannot tell a "
+                         "load without Adam's moments")
+    # one step of the run profiled (4b's step, here from the checkpoint
+    # leg's state)
+    prof_scope = interop.scope_from_numpy(init, fluid.Scope(), card_place)
+    host_ms, busy_ms, idle, n_kern, by_class = _profile(
+        lambda: exe.run(program, feed=feed, fetch_list=[loss],
+                        scope=prof_scope, return_numpy=False), 2)
+    top = sorted(by_class.items(), key=lambda kv: -kv[1])[:6]
+    _p(f"checkpoint: a step profiled, {TRAIN_ROWS} rows: host "
+       f"{host_ms:.3f} ms, busy {busy_ms:.3f} ms, idle {idle:.4f}, "
+       f"{n_kern:.0f} kernels; "
+       + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  [{card}]")
+    torch.cuda.synchronize()
+    return launches, dict(results, uninterrupted=want, twin=twin,
+                          twin_miss=miss, step_s=wall / CKPT_STEPS,
+                          host_ms=host_ms, busy_ms=busy_ms, idle=idle)
+
+
+def _plumb_op_cases():
+    """4y (b): {label: (op, inputs, attrs)} at their users' widths: the
+    gradient bucket of BERT-base, SPP-net's conv5 map, ShuffleNetV2's
+    stage-2 map, a ranking batch of 4096 rows, a 1e6 x 16 table, the SRL
+    tier's [10, 64, 512] activations, phase 4v's CTR ids."""
+    rng = np.random.default_rng(SEED + 290)
+
+    def f(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    t = PLUMB_TABLE
+    n_ids = t["slots"] * t["batch"] * t["seq"]
+    ids = rng.integers(0, t["ids"], n_ids).astype(np.int64)
+    srl = (SRL_BATCH, SRL_STEPS, SRL["hidden"])
+    mask = (rng.random((SRL_BATCH, 1)) < 0.5).astype(np.int64)
+    ranked = 4096
+    heav = f(4096, 768)
+    heav[rng.random(heav.shape) < 0.1] = 0.0
+    return {
+        "coalesce_tensor, BERT-base's gradients": (
+            "coalesce_tensor",
+            {"Input": [f(*s) for s in _bert_param_shapes()]}, {}),
+        "spp, SPP-net conv5 [64, 256, 13, 13], 3 levels, max": (
+            "spp", {"X": f(64, 256, 13, 13)},
+            {"pyramid_height": 3, "pooling_type": "max"}),
+        "spp, avg": ("spp", {"X": f(64, 256, 13, 13)},
+                     {"pyramid_height": 3, "pooling_type": "avg"}),
+        "shuffle_channel, ShuffleNetV2 [128, 116, 28, 28], 2 groups": (
+            "shuffle_channel", {"X": f(128, 116, 28, 28)}, {"group": 2}),
+        "positive_negative_pair, 4096 rows of 128 queries": (
+            "positive_negative_pair",
+            {"Score": np.round(f(ranked, 1), 2),
+             "Label": rng.integers(0, 4, (ranked, 1)).astype(np.float32),
+             "QueryID": np.repeat(np.arange(128), ranked // 128)
+             .reshape(ranked, 1).astype(np.int64)}, {}),
+        "proximal_gd, [1e6, 16]": (
+            "proximal_gd", {"Param": f(t["ids"], t["dim"]),
+                            "Grad": f(t["ids"], t["dim"]),
+                            "LearningRate": np.array([0.01], np.float32)},
+            {"l1": 1e-3, "l2": 1e-3}),
+        "proximal_adagrad, [1e6, 16]": (
+            "proximal_adagrad",
+            {"Param": f(t["ids"], t["dim"]), "Grad": f(t["ids"], t["dim"]),
+             "Moment": np.abs(f(t["ids"], t["dim"])),
+             "LearningRate": np.array([0.01], np.float32)},
+            {"l1": 1e-3, "l2": 1e-3}),
+        "minus, [4096, 768]": ("minus", {"X": f(4096, 768),
+                                         "Y": f(4096, 768)}, {}),
+        "elementwise_heaviside, [4096, 768]": (
+            "elementwise_heaviside", {"X": heav, "Y": f(4096, 768)}, {}),
+        "modified_huber_loss, CTR logits [4096, 1]": (
+            "modified_huber_loss",
+            {"X": 2 * f(4096, 1),
+             "Y": rng.integers(0, 2, (4096, 1)).astype(np.float32)}, {}),
+        "fill_diagonal, [768, 768]": ("fill_diagonal", {"X": f(768, 768)},
+                                      {"value": 1.0}),
+        "pad_constant_like, [32, 100, 768] to [32, 128, 768]": (
+            "pad_constant_like", {"X": f(32, 128, 768), "Y": f(32, 100, 768)},
+            {"pad_value": 0.5}),
+        "diag, 768": ("diag", {"Diagonal": f(768)}, {}),
+        "lod_reset, SRL [10, 64, 512]": (
+            "lod_reset", {"X": f(*srl), "Y": np.full((SRL_BATCH,), SRL_STEPS,
+                                                    np.int64)}, {}),
+        "split_lod_tensor, SRL": ("split_lod_tensor",
+                                  {"X": f(*srl), "Mask": mask}, {}),
+        "merge_lod_tensor, SRL": ("merge_lod_tensor",
+                                  {"InTrue": f(*srl), "InFalse": f(*srl),
+                                   "Mask": mask}, {}),
+        "rnn_memory_helper, SRL [10, 512]": (
+            "rnn_memory_helper", {"X": f(SRL_BATCH, SRL["hidden"])}, {}),
+        **{f"{op}, SRL": (op, {"X": f(*srl)}, {})
+           for op in ("memcpy", "memcpy_h2d", "memcpy_d2h")},
+        **{f"{op}, a CTR gradient [{n_ids}, 16]": (
+            op, {"X": f(n_ids, t["dim"])}, {})
+           for op in ("merge_selected_rows", "get_tensor_from_selected_rows")},
+        "split_selected_rows, the BERT-base embedding in 4": (
+            "split_selected_rows", {"X": f(BERT_BASE["vocab"],
+                                          BERT_BASE["hidden"])},
+            {"height_sections": [7631, 7631, 7630, 7630]}),
+        "slice_multi_tensor, SRL": ("slice_multi_tensor",
+                                    {"X": [f(*srl), f(*srl)]},
+                                    {"begin": 2, "end": 8}),
+        "split_ids, CTR ids in 4 shards": ("split_ids", {"Ids": ids},
+                                           {"num": 4}),
+        "lookup_sparse_table_grad_split, CTR in 4 shards": (
+            "lookup_sparse_table_grad_split",
+            {"Ids": ids, "Grad": f(n_ids, t["dim"])}, {"num": 4}),
+        "pull_sparse_v2, CTR [1e6, 16]": (
+            "pull_sparse_v2",
+            {"W": f(t["ids"], t["dim"]),
+             "Ids": [a.reshape(t["batch"], t["seq"])
+                     for a in ids.reshape(t["slots"], -1)]}, {}),
+        "empty, [4096, 768]": ("empty", {}, {"shape": [4096, 768],
+                                             "dtype": "float32"}),
+        "fill, 768 values": ("fill", {}, {"value": [float(v) for v in
+                                                    f(768)],
+                                          "shape": [768],
+                                          "dtype": "float32"}),
+        "fake_init, [1e6, 16]": ("fake_init", {}, {"shape": [t["ids"],
+                                                             t["dim"]]}),
+        "delete_var": ("delete_var", {}, {}),
+    }
+
+
+def _lod_array_ops(dev, x):
+    """The tensor-array and rank-table ops over SRL activations ``x``
+    [B, T, H] on ``dev``: X as an array of its B rows, back to a tensor,
+    stacked on axis 1, the rank table's max length, the memory shrunk at
+    three steps.  Returns {label: numpy output}."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    ctx = LoweringContext(device=torch.device(dev))
+
+    def run(op, ins, attrs=None):
+        return get_op(op).fn(ins, dict(attrs or {}), ctx)
+
+    t = torch.from_numpy(x).to(dev)
+    arr = run("lod_tensor_to_array", {"X": [t]})["Out"][0]
+    table = run("lod_rank_table", {"X": [t]})["Out"][0]
+    out = {"array_to_lod_tensor": run("array_to_lod_tensor",
+                                      {"X": [arr]})["Out"][0],
+           "max_sequence_len": run("max_sequence_len",
+                                   {"RankTable": [table]})["Out"][0]}
+    stacked = run("tensor_array_to_tensor", {"X": [arr]},
+                  {"axis": 1, "use_stack": True})
+    out["tensor_array_to_tensor"] = stacked["Out"][0]
+    out["tensor_array_to_tensor OutIndex"] = stacked["OutIndex"][0]
+    for step in (0, x.shape[1] // 2, x.shape[1]):
+        out[f"shrink_rnn_memory at step {step}"] = run(
+            "shrink_rnn_memory",
+            {"X": [t[:, 0]], "I": [torch.tensor([step], device=dev)],
+             "RankTable": [table]})["Out"][0]
+    return {k: _host(v) for k, v in out.items()}
+
+
+def _sparse_table_chain(dev, name, ids, grads, values):
+    """The sparse-table ops in a pass's order on ``dev`` over table
+    ``name``: made (adam, PLUMB_TABLE's lr), pulled by
+    ``distributed_lookup_table`` ([slots, B, seq] ids), read flat, the
+    grads merged by id and pushed by ``lookup_sparse_table_fuse_adam``
+    (the unique rows only), the first rows set by
+    ``lookup_sparse_table_write``, read again.  Returns ({op: numpy
+    output}, {op: ms}) and leaves the table in the registry."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    ctx = LoweringContext(device=torch.device(dev))
+    t = PLUMB_TABLE
+    attrs = {"table_name": name, "dim": t["dim"]}
+    dids = torch.from_numpy(ids).to(dev)
+    flat = dids.reshape(-1)
+    outs, ms = {}, {}
+
+    def run(op, ins, extra=None):
+        t0 = time.perf_counter()
+        o = get_op(op).fn(ins, dict(attrs, **(extra or {})), ctx)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        ms[op] = (time.perf_counter() - t0) * 1e3
+        return o
+
+    run("lookup_sparse_table_init", {}, {"optimizer": "adam",
+                                         "lr": t["lr"]})
+    outs["distributed_lookup_table"] = run(
+        "distributed_lookup_table", {"Ids": [dids]})["Out"][0]
+    outs["lookup_sparse_table_read"] = run(
+        "lookup_sparse_table_read", {"Ids": [flat]})["Out"][0]
+    merged = run("lookup_sparse_table_merge",
+                 {"Ids": [flat], "Grad": [torch.from_numpy(grads).to(dev)]})
+    outs["lookup_sparse_table_merge Ids"] = merged["Ids"][0]
+    outs["lookup_sparse_table_merge Out"] = merged["Out"][0]
+    n = int((merged["Ids"][0] >= 0).sum().item())
+    run("lookup_sparse_table_fuse_adam",
+        {"Ids": [merged["Ids"][0][:n]], "Grad": [merged["Out"][0][:n]]},
+        {"lr": t["lr"]})
+    run("lookup_sparse_table_write",
+        {"Ids": [flat[:len(values)]],
+         "Value": [torch.from_numpy(values).to(dev)]})
+    outs["read after the push and the write"] = get_op(
+        "lookup_sparse_table_read").fn({"Ids": [flat]}, dict(attrs),
+                                       ctx)["Out"][0]
+    return {k: _host(v) for k, v in outs.items()}, ms
+
+
+def _random_like_contract(card):
+    """The two ``*_batch_size_like`` random ops on the card at [4096,
+    768] from a [4096, 5] input (ground rule 5): shape, range, moments
+    within 4 standard errors, the same numbers from the same seed and
+    step, others from another seed.  Returns the broken checks."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    x = torch.zeros((4096, 5), device=DEVICE)
+    broken = []
+    for op, attrs, mean, std in (
+            ("uniform_random_batch_size_like",
+             {"shape": [-1, 768], "min": -2.0, "max": 3.0}, 0.5,
+             5.0 / math.sqrt(12.0)),
+            ("gaussian_random_batch_size_like",
+             {"shape": [-1, 768], "mean": 1.0, "std": 2.0}, 1.0, 2.0)):
+        def draw(seed, op_seed=7):
+            ctx = LoweringContext(device=torch.device(DEVICE),
+                                  base_seed=seed)
+            return _host(get_op(op).fn({"Input": [x]},
+                                       dict(attrs, op_seed=op_seed),
+                                       ctx)["Out"][0])
+        a, b, c = draw(1), draw(1), draw(2)
+        se = std / math.sqrt(a.size)
+        if a.shape != (4096, 768) or a.dtype != np.float32:
+            broken.append(f"{op}: shape {a.shape}, dtype {a.dtype}")
+        if op.startswith("uniform") and (a.min() < -2.0 or a.max() >= 3.0):
+            broken.append(f"{op}: range [{a.min()}, {a.max()}]")
+        if abs(a.mean() - mean) > 4 * se or abs(a.std() - std) > 0.01 * std:
+            broken.append(f"{op}: mean {a.mean()}, std {a.std()}")
+        if not np.array_equal(a, b) or np.array_equal(a, c):
+            broken.append(f"{op}: not repeatable for a seed")
+    _p(f"plumbing: the *_batch_size_like random ops on the card at [4096, "
+       f"768]: broken {broken}  [{card}]")
+    return broken
+
+
+def _queue_contract(card):
+    """``queue_generator``, ``enqueue`` and ``dequeue`` on the card over
+    BERT-base activations [32, 128, 768]: 8 tensors queued, each then
+    overwritten in place, come back as queued, cast to ``dtype``; a
+    ``shape`` other than the tensor's raises.  Returns the broken
+    checks."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    shape = [32, BERT_BASE["seq"], BERT_BASE["hidden"]]
+    get_op("queue_generator").fn({}, {"names": ["plumb_q"],
+                                      "capacity": 8}, ctx)
+    xs = [torch.randn(shape, device=DEVICE) for _ in range(8)]
+    want = [_host(x).astype(np.float16) for x in xs]
+    for x in xs:
+        get_op("enqueue").fn({"X": [x]}, {"queue_name": "plumb_q"}, ctx)
+        x.add_(1.0)
+    got = [get_op("dequeue").fn({}, {"queue_name": "plumb_q",
+                                     "shape": shape, "dtype": "float16"},
+                                ctx)["Out"][0] for _ in xs]
+    broken = [i for i, (g, w) in enumerate(zip(got, want))
+              if g.device.type != torch.device(DEVICE).type
+              or not np.array_equal(_host(g), w)]
+    get_op("enqueue").fn({"X": [xs[0]]}, {"queue_name": "plumb_q"}, ctx)
+    try:
+        get_op("dequeue").fn({}, {"queue_name": "plumb_q",
+                                  "shape": [32, 128], "dtype": "float32"},
+                             ctx)
+        broken.append("a dequeue of the wrong shape did not raise")
+    except ValueError:
+        pass
+    _p(f"plumbing: 8 queued [32, 128, 768] tensors through the queue ops "
+       f"on the card, each updated in place after its enqueue: broken "
+       f"{broken}  [{card}]")
+    return broken
+
+
+def _plumb_ops_on_the_card(card):
+    """4y (b): each tensor op type of ``_plumb_op_cases`` on the card
+    against the host, forward and ``generic_grad`` where it is
+    differentiable, within PLUMB_CARD_TOL of each output's largest
+    |value|, with its forward ms on the card; the tensor-array and
+    rank-table ops at the SRL shapes, the sparse-table chain at the CTR
+    width (its outputs and the table's rows, moments and steps equal to
+    the host's exactly), the queues and the random contract."""
+    import torch
+    from paddle_tpu_torch.ops import plumbing_ops
+    from paddle_tpu_torch.ops.registry import LoweringContext, get_op
+
+    worst, ms, broken = {}, {}, []
+    rng = np.random.default_rng(SEED + 291)
+    ctx = LoweringContext(device=torch.device(DEVICE))
+    cases = _plumb_op_cases()
+    for label, (op, ins, attrs) in cases.items():
+        dev_ins = {k: [torch.from_numpy(np.array(a)).to(DEVICE)
+                       for a in (v if isinstance(v, list) else [v])]
+                   for k, v in ins.items()}
+        fwd = get_op(op).fn
+        ms[label] = _ms(lambda: fwd(dev_ins, dict(attrs), ctx), 3, warmup=1)
+        del dev_ins
+        worst[label] = _op_card_err(op, ins, attrs, PLUMB_CARD_TOL, rng)
+    types = {op for op, _, _ in cases.values()}
+    x = rng.standard_normal((SRL_BATCH, SRL_STEPS, SRL["hidden"]),
+                            dtype=np.float32)
+    arrays = _lod_array_ops("cpu", x)
+    for k, v in _lod_array_ops(DEVICE, x).items():
+        worst[k] = _op_err({"Out": [v]}, {"Out": [arrays[k]]},
+                           PLUMB_CARD_TOL)
+    t = PLUMB_TABLE
+    shape = (t["slots"], t["batch"], t["seq"])
+    ids = ctr_join_raw_ids(dict(JOIN, batch=t["batch"]), 1, SEED + 292)[0] \
+        .transpose(1, 0, 2).copy()
+    grads = rng.standard_normal((ids.size, t["dim"]), dtype=np.float32)
+    values = rng.standard_normal((t["batch"], t["dim"]), dtype=np.float32)
+    plumbing_ops._SPARSE_TABLES.clear()
+    card_outs, table_ms = _sparse_table_chain(DEVICE, "plumb_card", ids,
+                                              grads, values)
+    host_outs, _ = _sparse_table_chain("cpu", "plumb_host", ids, grads,
+                                       values)
+    tables = [plumbing_ops._SPARSE_TABLES[n] for n in ("plumb_card",
+                                                       "plumb_host")]
+    state = [tb.row_state(tb.all_ids()) for tb in tables]
+    table_diff = sorted(k for k in state[1]
+                        if not np.array_equal(state[0][k], state[1][k]))
+    out_diff = sorted(k for k in host_outs
+                      if not np.array_equal(card_outs[k], host_outs[k]))
+    _p(f"plumbing: the sparse-table ops at {shape} ids ({ids.size} a pass, "
+       f"{len(state[1]['ids'])} rows), dim {t['dim']}, adam: ms on the card "
+       + ", ".join(f"{k} {v:.1f}" for k, v in table_ms.items())
+       + f"; outputs differing from the host's {out_diff}, table state "
+       f"differing {table_diff}  [{card}]")
+    if out_diff or table_diff or tables[0].optimizer != "adam":
+        broken.append("the sparse-table chain differs from the host's")
+    plumbing_ops._SPARSE_TABLES.clear()
+    broken += _random_like_contract(card) + _queue_contract(card)
+    _p("plumbing op types on the card, forward ms: "
+       + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"  [{card}]")
+    _p(f"plumbing op types on the card against the host ({len(types)} "
+       f"tensor types and the array and rank-table ops), forward and "
+       f"generic_grad, error / {PLUMB_CARD_TOL} of the largest |value| "
+       "(under 1 passes): "
+       + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+       + f"; broken {broken}  [{card}]")
+    if max(worst.values()) > 1 or broken:
+        raise SystemExit("chip_smoke: a plumbing op type disagrees with "
+                         "the host on the card")
+    return {"worst": worst, "ms": ms, "table_ms": table_ms}
+
+
+def phase_plumbing_tier(card):
+    """Phase 4y, the plumbing tail: (a) static BERT-base training
+    checkpointed and resumed through save_combine/load_combine and
+    save/load programs, with a twin; (b) the slice's other op types on the
+    card against the host.  Returns (a)'s launches of its uninterrupted
+    run and the numbers."""
+    t = time.perf_counter()
+    launches, ckpt = _checkpoint_leg(card)
+    _p(f"phase 4y (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ops = _plumb_ops_on_the_card(card)
+    _p(f"phase 4y (b): {time.perf_counter() - t:.1f} s")
+    return launches, {"checkpoint": ckpt, "ops": ops}
+
+
 def _kernel_row(name, source, replaces, launches, row, **extra):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -14810,6 +15393,10 @@ def main():
     fused_launches, _ = _timed(
         "4x fused inference tier: ERNIE-form BERT-base served",
         phase_fused_tier, card)
+    # 4y builds static programs too: before 4e turns dygraph on
+    plumb_launches, _ = _timed(
+        "4y plumbing tail: BERT-base checkpointed and resumed",
+        phase_plumbing_tier, card)
     dy_launches, dy_step = _timed("4e train dygraph BERT",
                                   phase_train_dygraph, card)
     resnet = _timed("4h train dygraph ResNet-50", phase_train_resnet, card)
@@ -15046,6 +15633,11 @@ def main():
     for row in kernels:
         row["fused_serve_launches"] = {rows: c[row["name"]] for rows, c in
                                        fused_launches.items()}
+    # the plumbing tail (phase 4y): launches over (a)'s uninterrupted
+    # CKPT_STEPS steps of static BERT-base (24 flash forward, 12 flash
+    # backward and one fused_adam a step, every other kernel none)
+    for row in kernels:
+        row["plumbing_launches"] = plumb_launches[row["name"]]
     _p(json.dumps({"kernels": kernels}))
     _p(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                           "count": count}}))

@@ -489,10 +489,15 @@ _OPTIMIZER_OP_TYPES = frozenset({
 })
 
 # ops kept during pruning regardless of reachability: cross-device and
-# control-flow effects the dataflow scan can't see
+# control-flow effects the dataflow scan can't see, and the host effects
+# of ops with no output (files, queues, sparse tables), which the
+# reference's list lacks, so its executor prunes a save program to nothing
 _SIDE_EFFECT_OP_TYPES = frozenset({
     "send_v2", "partial_send", "barrier", "c_sync_calc_stream",
     "c_sync_comm_stream", "while", "conditional_block", "py_func", "print",
+    "save", "save_combine", "queue_generator", "enqueue",
+    "lookup_sparse_table_init", "lookup_sparse_table_write",
+    "lookup_sparse_table_fuse_sgd", "lookup_sparse_table_fuse_adam",
 })
 
 _SUB_BLOCK_ATTRS = ("sub_block", "cond_block", "true_block", "false_block")

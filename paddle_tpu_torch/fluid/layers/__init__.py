@@ -2,7 +2,8 @@
 surface (paddle.tensor, nn.functional) use, the image layers, the control
 flow, the in-graph learning-rate schedules, the recurrent layers with
 the decode framework, the sequence tier (the padded ``sequence_*``
-layers, the CRF, CTC and sampled heads) and the detection layers."""
+layers, the CRF, CTC and sampled heads), the detection layers and the
+plumbing tail."""
 from . import tensor
 from . import nn
 from . import loss
@@ -16,7 +17,7 @@ from . import detection
 from .tensor import (data, _to_variable, fill_constant, create_global_var,
                      concat, assign, fill_constant_batch_size_like, sums,
                      ones_like, zeros_like, zeros, ones, argmax, argmin,
-                     argsort, linspace, increment, eye, range)
+                     argsort, linspace, increment, eye, range, diag)
 from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  matmul, relu, relu6, gelu, tanh, sigmoid, reduce_mean,
                  reduce_sum, split, stack,
@@ -37,7 +38,8 @@ from .nn import (fc, embedding, dropout, softmax, reshape, transpose, scale,
                  tanh_shrink, thresholded_relu, hard_swish, hard_sigmoid,
                  mish, swish, logsigmoid, stanh, brelu, conv2d_transpose,
                  group_norm, instance_norm, pad2d, relu_, unfold,
-                 data_norm, cos_sim)
+                 data_norm, cos_sim, cond_value, uniform_random,
+                 gaussian_random, matmul_v2)
 from .loss import (softmax_with_cross_entropy,
                    sigmoid_cross_entropy_with_logits, square_error_cost,
                    log_loss, huber_loss, kldiv_loss, mse_loss,
@@ -80,7 +82,13 @@ from .extras import (adaptive_pool3d, maxout, lrn, crop_tensor, crop, sum,
                      deformable_conv, pow, size, space_to_depth,
                      random_crop, unique_with_counts, isfinite, has_inf,
                      has_nan, sampling_id, mean_iou, add_position_encoding,
-                     fsp_matrix, similarity_focus, py_func)
+                     fsp_matrix, similarity_focus, py_func, affine_channel,
+                     shuffle_channel, temporal_shift, unbind, logical_xor,
+                     triu, uniform_random_batch_size_like,
+                     gaussian_random_batch_size_like, pad_constant_like,
+                     lod_reset, lod_append, merge_selected_rows,
+                     get_tensor_from_selected_rows, tensor_array_to_tensor,
+                     load)
 from .rnn import (lstm_unit, gru_unit, dynamic_lstm_unit, dynamic_lstm,
                   dynamic_lstmp, dynamic_gru, lstm, RNNCell, LSTMCell,
                   GRUCell, rnn, birnn, Decoder, DecodeHelper, TrainingHelper,

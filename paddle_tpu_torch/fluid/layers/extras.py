@@ -3,7 +3,9 @@ the builders paddle.tensor, nn.functional, the image layers and the
 sequence tier (the CRF, CTC and sampled-head builders) and the detection
 tier (the position-sensitive pools, the deformable convolution) and the
 fused inference tier (``add_position_encoding``, ``fsp_matrix``,
-``similarity_focus``, ``py_func``) reach):
+``similarity_focus``, ``py_func``) and the plumbing tail (the selected-rows
+and LoD pass-throughs, ``tensor_array_to_tensor``, the
+``*_batch_size_like`` random layers, ``load``) reach):
 op-builder sugar over the registered lowerings, mode-agnostic through
 ``emit_op``; and the ``conv3d_transpose`` op, which the reference
 registers here."""
@@ -700,3 +702,107 @@ def filter_by_instag(ins, ins_tag, filter_tag, is_lod, out_val_if_empty=0):
                  ("Out", "LossWeight", "IndexMap"),
                  is_lod=is_lod, out_val_if_empty=out_val_if_empty)
     return outs["Out"][0], outs["LossWeight"][0], outs["IndexMap"][0]
+
+
+# --- the plumbing tail -------------------------------------------------------
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW",
+                   name=None, act=None):
+    """x·scale + bias on the channel axis; a missing scale is ones and a
+    missing bias zeros, as in the reference."""
+    c = x.shape[1] if data_layout == "NCHW" else x.shape[-1]
+    if scale is None:
+        scale = _tensor.fill_constant([c], "float32", 1.0)
+    if bias is None:
+        bias = _tensor.fill_constant([c], "float32", 0.0)
+    out = _one("affine_channel", {"X": [x], "Scale": [scale],
+                                  "Bias": [bias]},
+               data_layout=data_layout)
+    return getattr(_nn, act)(out) if act else out
+
+
+def shuffle_channel(x, group, name=None):
+    return _one("shuffle_channel", {"X": [x]}, group=group)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _one("temporal_shift", {"X": [x]}, seg_num=seg_num,
+                shift_ratio=shift_ratio)
+
+
+def unbind(input, axis=0):
+    helper = LayerHelper("unbind")
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(input.shape[axis])]
+    op = helper.append_op("unbind", inputs={"X": [input]},
+                          outputs={"Out": outs}, attrs={"axis": axis})
+    return list(op["Out"]) if in_dygraph_mode() else outs
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _one("logical_xor", {"X": [x], "Y": [y]})
+
+
+def triu(input, diagonal=0, name=None):
+    from ...tensor import triu as _triu
+    return _triu(input, diagonal)
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, seed=0, input_dim_idx=0,
+                                   output_dim_idx=0):
+    return _one("uniform_random_batch_size_like", {"Input": [input]},
+                shape=list(shape), min=min, max=max, op_seed=seed,
+                input_dim_idx=input_dim_idx, output_dim_idx=output_dim_idx)
+
+
+def gaussian_random_batch_size_like(input, shape, dtype="float32",
+                                    mean=0.0, std=1.0, seed=0,
+                                    input_dim_idx=0, output_dim_idx=0):
+    return _one("gaussian_random_batch_size_like", {"Input": [input]},
+                shape=list(shape), mean=mean, std=std, op_seed=seed,
+                input_dim_idx=input_dim_idx, output_dim_idx=output_dim_idx)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _one("pad_constant_like", {"X": [x], "Y": [y]},
+                pad_value=float(pad_value))
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """x itself: lengths travel as explicit tensors, so there is no LoD
+    to reset (the reference's builder appends no op either)."""
+    return x
+
+
+def lod_append(x, level):
+    return x
+
+
+def merge_selected_rows(x, name=None):
+    """x itself: gradients are dense, so there are no SelectedRows to
+    merge (the reference's builder appends no op either)."""
+    return x
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    return x
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """The tensor array's entries concatenated (or stacked) on ``axis``,
+    and each entry's extent on it, through the ``tensor_array_to_tensor``
+    op on the array the program built at run time (the reference's
+    builder concatenates the entries its ``array_write`` calls recorded
+    at build time, with the same values for arrays written in index
+    order)."""
+    outs = _many("tensor_array_to_tensor", {"X": [input]},
+                 ("Out", "OutIndex"), axis=axis, use_stack=use_stack)
+    return outs["Out"][0], outs["OutIndex"][0]
+
+
+def load(out, file_path, load_as_fp16=False):
+    """Append a ``load`` op that reads ``file_path``'s first array into
+    ``out`` each time the program runs."""
+    LayerHelper("load").append_op("load", inputs={}, outputs={"Out": [out]},
+                                  attrs={"file_path": file_path})
+    return out

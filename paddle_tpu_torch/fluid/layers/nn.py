@@ -788,6 +788,41 @@ def where(condition, x, y):
     return _out(op, "Out", out)
 
 
+def cond_value(cond, tv, fv):
+    return where(cond, tv, fv)
+
+
+def _random(op_type, shape, dtype, seed, **attrs):
+    """A random op's output of ``shape``; in a program an unseeded op
+    takes the program's next op seed."""
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    attrs = dict(attrs, shape=list(shape), dtype=dtype)
+    if not in_dygraph_mode():
+        attrs["op_seed"] = seed or helper.main_program.next_op_seed()
+    op = helper.append_op(op_type, outputs={"Out": [out]}, attrs=attrs)
+    return _out(op, "Out", out)
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    return _random("uniform_random", shape, dtype, seed, min=min, max=max)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    return _random("gaussian_random", shape, dtype, seed, mean=mean,
+                   std=std)
+
+
+def matmul_v2(x, y, trans_x=False, trans_y=False):
+    helper = LayerHelper("matmul_v2")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    op = helper.append_op("matmul_v2", inputs={"X": [x], "Y": [y]},
+                          outputs={"Out": [out]},
+                          attrs={"trans_x": trans_x, "trans_y": trans_y})
+    return _out(op, "Out", out)
+
+
 # -- the image layers ---------------------------------------------------------
 def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
                      stride=1, padding=0, dilation=1, groups=1,

@@ -220,6 +220,16 @@ def increment(x, value=1.0, in_place=True):
     return op["Out"][0] if in_dygraph_mode() else out
 
 
+def diag(diagonal):
+    """A square matrix with ``diagonal`` on its diagonal (the reference's
+    builder appends ``diag_v2``)."""
+    helper = LayerHelper("diag_v2")
+    out = helper.create_variable_for_type_inference(dtype=diagonal.dtype)
+    op = helper.append_op("diag_v2", inputs={"X": [diagonal]},
+                          outputs={"Out": [out]})
+    return op["Out"][0] if in_dygraph_mode() else out
+
+
 def eye(num_rows, num_columns=None, dtype="float32"):
     helper = LayerHelper("eye")
     out = helper.create_variable_for_type_inference(dtype=dtype)

@@ -12,7 +12,7 @@ from . import reduction       # noqa: F401  reductions
 from . import nn_ops          # noqa: F401  softmax/dropout family/layer_norm
 from . import misc_ops        # noqa: F401  fused compositions
 from . import catalog_tail_ops  # noqa: F401  fc, rnn, py_func, detection tail
-from . import plumbing_ops    # noqa: F401  is_empty
+from . import plumbing_ops    # noqa: F401  arrays, LoD, save/load, queues
 from . import random_ops      # noqa: F401  initializer RNG ops
 from . import loss_ops        # noqa: F401  cross-entropy losses
 from . import optimizer_ops   # noqa: F401  adam/momentum and fused forms
@@ -25,3 +25,7 @@ from . import detection_ops   # noqa: F401  affine_grid, focal loss
 from . import attention       # noqa: F401  fused attention
 from . import quant_ops       # noqa: F401  fake quantize / dequantize family
 from . import cuda_kernels    # noqa: F401  hand-written CUDA kernels
+
+# stamp each non-differentiable op's category (ops/nondiff_reasons.py)
+from .nondiff_reasons import apply_reasons as _apply_nondiff_reasons
+_apply_nondiff_reasons()

@@ -5,7 +5,8 @@ the framework tail (``fc``, ``py_func``, the 2.0 ``rnn``, ``recurrent``
 ``sequence_reshape`` and ``sequence_topk_avg_pooling``, the twelve of
 the detection tail with ``bilateral_slice`` and
 ``fusion_conv_inception``, and the CTR tail's
-``pull_box_extended_sparse``).
+``pull_box_extended_sparse``, ``pull_sparse_v2`` and the sparse-table
+five: the two fused pushes, the merge and the grad split).
 
 As in the reference: ``fc``'s ``gelu`` is the tanh form (the ``gelu`` op
 is the erf form); ``rnn`` runs one direction, chains its layers and reads
@@ -232,6 +233,88 @@ def _pull_box_extended_sparse(ins, attrs, ctx):
     return {"Out": base,
             "OutExtend": [o.new_zeros(tuple(o.shape[:-1]) + (edim,))
                           for o in base]}
+
+
+@register_op("pull_sparse_v2", differentiable=False)
+def _pull_sparse_v2(ins, attrs, ctx):
+    return get_op("pull_sparse").fn(ins, attrs, ctx)
+
+
+def _push_to_table(ins, attrs, optimizer, lr):
+    """(table, ids, grad rows) on the host for a push of Grad's rows for
+    Ids into the table ``table_name``, which is made with ``optimizer``
+    and ``lr`` on first use only; None on the meta device."""
+    from .plumbing_ops import _get_table, _meta, _to_host
+    ids, grads = ins["Ids"][0], ins["Grad"][0]
+    if _meta(ids, grads):
+        return None
+    i = _to_host(ids).reshape(-1)
+    g = _to_host(grads)
+    t = _get_table(attrs["table_name"], int(g.shape[-1]), optimizer, lr)
+    return t, i, g.reshape(len(i), -1)
+
+
+@register_op("lookup_sparse_table_fuse_sgd", differentiable=False)
+def _lookup_sparse_table_fuse_sgd(ins, attrs, ctx):
+    """An sgd push at ``lr``, which also resets the table's rate."""
+    lr = attrs.get("lr", 0.01)
+    pushed = _push_to_table(ins, attrs, "sgd", lr)
+    if pushed is not None:
+        t, i, g = pushed
+        t.lr = lr
+        t.push(i, g)
+    return {}
+
+
+@register_op("lookup_sparse_table_fuse_adam", differentiable=False)
+def _lookup_sparse_table_fuse_adam(ins, attrs, ctx):
+    """A push through the table's own accessor: adam for a table this op
+    made, but whatever an earlier op made it with otherwise (a table
+    ``lookup_sparse_table_init`` made with sgd runs sgd), as in the
+    reference."""
+    pushed = _push_to_table(ins, attrs, "adam", attrs.get("lr", 0.001))
+    if pushed is not None:
+        t, i, g = pushed
+        t.push(i, g)
+    return {}
+
+
+@register_op("lookup_sparse_table_merge", differentiable=False)
+def _lookup_sparse_table_merge(ins, attrs, ctx):
+    """Merge the grads of repeated ids (SelectedRows MergeAdd, dense
+    layout): Ids the sorted unique ids padded with -1, Out their summed
+    rows padded with zeros, both of Ids' length.  Summed on the host, in
+    id order as ``np.add.at`` gives it, so the card's rows and the host's
+    are the same bits; the push that follows runs on the host too."""
+    from .plumbing_ops import _meta, _to_card, _to_host
+    ids, grads = ins["Ids"][0], ins["Grad"][0]
+    if _meta(ids, grads):
+        return {}
+    i = _to_host(ids).reshape(-1)
+    g = _to_host(grads).reshape(len(i), -1)
+    uniq, inv = np.unique(i, return_inverse=True)
+    out_ids = np.full(len(i), -1, i.dtype)
+    out_ids[:len(uniq)] = uniq
+    merged = np.zeros_like(g)
+    np.add.at(merged, inv.reshape(-1), g)
+    return {"Ids": [_to_card(out_ids, ctx.device)],
+            "Out": [_to_card(merged.reshape(grads.shape), ctx.device)]}
+
+
+@register_op("lookup_sparse_table_grad_split", differentiable=False)
+def _lookup_sparse_table_grad_split(ins, attrs, ctx):
+    """Each shard's (id mod ``num``) ids and grad rows in place, the
+    others' -1 and zero."""
+    ids = ins["Ids"][0].reshape(-1)
+    grads = ins["Grad"][0].reshape(ids.shape[0], -1)
+    n = attrs.get("num", 1)
+    outs_i, outs_g = [], []
+    for s in range(n):
+        mask = (ids % n) == s
+        outs_i.append(torch.where(mask, ids, torch.full_like(ids, -1)))
+        outs_g.append(torch.where(mask[:, None], grads,
+                                  torch.zeros_like(grads)))
+    return {"OutIds": outs_i, "OutGrads": outs_g}
 
 
 # ---------------------------------------------------------------------------

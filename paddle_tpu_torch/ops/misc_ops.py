@@ -4,8 +4,12 @@ the two ops the pairwise fusion passes make, each the plain composition
 of its parts, the ``adamax`` update, and the image layers' stragglers
 (``bilinear_tensor_product``, ``pool3d``, ``spectral_norm``,
 ``teacher_student_sigmoid_loss``, ``dropout_nd``), ``center_loss``,
-and the fused inference tier's ``fused_embedding_eltwise_layernorm`` and
-``fusion_group``."""
+the fused inference tier's ``fused_embedding_eltwise_layernorm`` and
+``fusion_group``, and the catalog's last thirteen: the proximal
+optimizers, ``minus``, ``elementwise_heaviside``,
+``modified_huber_loss``, ``fill_diagonal``, ``pad_constant_like``,
+``spp``, ``shuffle_channel``, ``positive_negative_pair``,
+``gaussian_random_batch_size_like``, ``diag`` and ``lod_reset``."""
 from __future__ import annotations
 
 import torch
@@ -306,3 +310,171 @@ def _fusion_group(ins, attrs, ctx):
     inputs, as in the reference: the subgraph it stands for is not
     carried, so ``Outs`` are ``Inputs``."""
     return {"Outs": list(ins["Inputs"])}
+
+
+# --- the catalog's last thirteen ---------------------------------------------
+def _soft_threshold(prox, shrink, l2_rate):
+    """sign(prox)·max(|prox| - shrink, 0) / (1 + l2_rate)."""
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - shrink, min=0.0)
+            / (1.0 + l2_rate))
+
+
+@register_op("proximal_gd", differentiable=False)
+def _proximal_gd(ins, attrs, ctx):
+    """A gradient step, then the l1 soft threshold and the l2 shrink
+    (proximal_gd_op.h)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    l1, l2 = attrs.get("l1", 0.0), attrs.get("l2", 0.0)
+    return {"ParamOut": [_soft_threshold(p - lr * g, lr * l1, lr * l2)]}
+
+
+@register_op("proximal_adagrad", differentiable=False)
+def _proximal_adagrad(ins, attrs, ctx):
+    """proximal_gd at the Adagrad rate lr / sqrt(Moment + g² + 1e-12)."""
+    p, g, m = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    l1, l2 = attrs.get("l1", 0.0), attrs.get("l2", 0.0)
+    m2 = m + g * g
+    alr = lr / torch.sqrt(m2 + 1e-12)
+    return {"ParamOut": [_soft_threshold(p - alr * g, alr * l1, alr * l2)],
+            "MomentOut": [m2]}
+
+
+@register_op("minus")
+def _minus(ins, attrs, ctx):
+    return {"Out": [ins["X"][0] - ins["Y"][0]]}
+
+
+@register_op("elementwise_heaviside")
+def _elementwise_heaviside(ins, attrs, ctx):
+    """1 where X > 0, Y where X == 0, 0 elsewhere, in X's dtype."""
+    x, y = ins["X"][0], ins["Y"][0]
+    one, zero = x.new_ones(()), x.new_zeros(())
+    return {"Out": [torch.where(x > 0, one,
+                                torch.where(x == 0, y.to(x.dtype), zero))]}
+
+
+@register_op("modified_huber_loss", nondiff_inputs=("Y",))
+def _modified_huber_loss(ins, attrs, ctx):
+    """Labels {0, 1} as {-1, +1}, z = X·label: -4z below -1, (1 - z)²
+    below 1, 0 above; IntermediateVal is z."""
+    x, y = ins["X"][0], ins["Y"][0]
+    z = x * (2.0 * y - 1.0)
+    zero = z.new_zeros(())
+    loss = torch.where(z < -1.0, -4.0 * z,
+                       torch.where(z < 1.0, (1.0 - z) ** 2, zero))
+    return {"Out": [loss], "IntermediateVal": [z]}
+
+
+@register_op("fill_diagonal")
+def _fill_diagonal(ins, attrs, ctx):
+    """X with ``value`` on the diagonal of its last two axes."""
+    x = ins["X"][0]
+    r, c = x.shape[-2], x.shape[-1]
+    diag = (torch.arange(r, device=x.device)[:, None]
+            == torch.arange(c, device=x.device)[None, :])
+    return {"Out": [torch.where(diag, x.new_full((), attrs.get("value", 0.0)),
+                                x)]}
+
+
+@register_op("pad_constant_like", nondiff_inputs=("X",))
+def _pad_constant_like(ins, attrs, ctx):
+    """Y padded at the end of each axis up to X's shape with
+    ``pad_value``; the gradient flows to Y only."""
+    x, y = ins["X"][0], ins["Y"][0]
+    pads = []
+    for xs, ys in reversed(list(zip(x.shape, y.shape))):
+        pads += [0, xs - ys]
+    return {"Out": [torch.nn.functional.pad(
+        y, pads, value=float(attrs.get("pad_value", 0.0)))]}
+
+
+@register_op("spp")
+def _spp(ins, attrs, ctx):
+    """Spatial pyramid pooling (spp_op.cc): level l pools X [N, C, H, W]
+    into 2^l x 2^l bins of ceil(H / 2^l) x ceil(W / 2^l), the map padded
+    at the bottom and right (with -inf for max, 0 for avg, which divides
+    by the whole bin), each level flattened, the levels concatenated."""
+    x = ins["X"][0]
+    levels = attrs.get("pyramid_height", 1)
+    is_max = attrs.get("pooling_type", "max") == "max"
+    b, c, h, w = x.shape
+    outs = []
+    for level in range(levels):
+        bins = 2 ** level
+        kh, kw = -(-h // bins), -(-w // bins)
+        xp = torch.nn.functional.pad(
+            x, (0, kw * bins - w, 0, kh * bins - h),
+            value=float("-inf") if is_max else 0.0)
+        r = xp.reshape(b, c, bins, kh, bins, kw)
+        v = torch.amax(r, dim=(3, 5)) if is_max \
+            else r.sum(dim=(3, 5)) / (kh * kw)
+        outs.append(v.reshape(b, -1))
+    return {"Out": [torch.cat(outs, dim=1)]}
+
+
+@register_op("shuffle_channel")
+def _shuffle_channel(ins, attrs, ctx):
+    """ShuffleNet's channel shuffle: [N, g, C/g, H, W] transposed to
+    [N, C/g, g, H, W]."""
+    x = ins["X"][0]
+    g = attrs.get("group", 1)
+    b, c, h, w = x.shape
+    return {"Out": [x.reshape(b, g, c // g, h, w).transpose(1, 2)
+                    .reshape(b, c, h, w)]}
+
+
+@register_op("positive_negative_pair", nondiff_inputs=("Label", "QueryID"),
+             differentiable=False)
+def _positive_negative_pair(ins, attrs, ctx):
+    """The ranking metric (positive_negative_pair_op.cc): over the pairs
+    i < j of one query with different labels, those the scores order as
+    the labels (positive), tie (neutral) or order against them
+    (negative); each count a float32 [1, 1]."""
+    score = ins["Score"][0].reshape(-1)
+    label = ins["Label"][0].reshape(-1)
+    qid = ins["QueryID"][0].reshape(-1)
+    n = score.shape[0]
+    upper = torch.triu(torch.ones((n, n), dtype=torch.bool,
+                                  device=score.device), diagonal=1)
+    considered = (upper & (qid[:, None] == qid[None, :])
+                  & (label[:, None] != label[None, :]))
+    lbl_gt = label[:, None] > label[None, :]
+    sc_gt = score[:, None] > score[None, :]
+    sc_eq = score[:, None] == score[None, :]
+    pos = torch.sum(considered & (lbl_gt == sc_gt) & ~sc_eq)
+    neu = torch.sum(considered & sc_eq)
+    neg = torch.sum(considered) - pos - neu
+
+    def f(v):
+        return v.reshape(1, 1).to(torch.float32)
+    return {"PositivePair": [f(pos)], "NegativePair": [f(neg)],
+            "NeutralPair": [f(neu)]}
+
+
+@register_op("gaussian_random_batch_size_like", nondiff_inputs=("Input",),
+             differentiable=False, stateful_rng=True)
+def _gaussian_random_batch_size_like(ins, attrs, ctx):
+    """N(mean, std²) float32 of ``shape``, its dim ``output_dim_idx``
+    taken from Input's dim ``input_dim_idx``."""
+    ref = ins["Input"][0]
+    shape = list(attrs.get("shape"))
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    gen = ctx.key_for(attrs.get("op_seed", attrs.get("seed", 0) or 0))
+    n = torch.randn(tuple(shape), generator=gen, device=ctx.device,
+                    dtype=torch.float32)
+    return {"Out": [attrs.get("mean", 0.0) + attrs.get("std", 1.0) * n]}
+
+
+@register_op("diag", differentiable=False)
+def _diag(ins, attrs, ctx):
+    return {"Out": [torch.diag(ins["Diagonal"][0].reshape(-1))]}
+
+
+@register_op("lod_reset", nondiff_inputs=("Y",))
+def _lod_reset(ins, attrs, ctx):
+    """The data unchanged: lengths travel as explicit tensors here, so
+    there is no LoD to reset (lod_reset_op.cc)."""
+    return {"Out": [ins["X"][0]]}

@@ -28,6 +28,9 @@ class OpDef:
     # outputs that carry no cotangent (int outputs, saved state)
     nondiff_outputs: Sequence[str] = ()
     differentiable: bool = True          # False: a leaf of the grad sweep
+    # why a differentiable=False op has no gradient: "<category>: <text>"
+    # (stamped from ops/nondiff_reasons.py when ops/__init__ is imported)
+    nondiff_reason: Optional[str] = None
     stateful_rng: bool = False           # draws random numbers (dropout, *_random)
     # (ins, outs, out_grads, attrs, ctx) -> in_grads, in place of the vjp;
     # ``generic_grad`` passes outs=None (the forward is not rerun)

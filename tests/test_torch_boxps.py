@@ -245,8 +245,9 @@ def test_table_matches_the_reference_and_files_cross(tmp_path):
     k.load(tmp_path / "port")
     np.testing.assert_array_equal(u.pull(u.all_ids()), j.pull(j.all_ids()))
     np.testing.assert_array_equal(k.pull(k.all_ids()), t.pull(t.all_ids()))
-    with pytest.raises(ValueError):
-        CommonSparseTable(4, "adam")
+    for tbl in (CommonSparseTable(4, "ftrl"), JT(4, "ftrl")):
+        with pytest.raises(ValueError, match="unknown accessor"):
+            tbl.push(ids, g)
 
 
 # -- 3. programs trained from a dataset ------------------------------------------

@@ -72,7 +72,7 @@ def _r(*shape, seed=0, scale=1.0):
 def test_the_26_op_types_are_registered():
     assert len(set(CTR_OPS)) == 26
     assert set(CTR_OPS) <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 437
+    assert len(treg.all_ops()) == 488
 
 
 # --- the op types the sweep cannot feed ---------------------------------------

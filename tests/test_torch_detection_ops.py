@@ -321,7 +321,7 @@ def test_the_tier_is_34_op_types():
                                                      "multiclass_nms2"}
     assert len(ops) == 34
     assert ops <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 437       # with the CTR, quant and fused tiers
+    assert len(treg.all_ops()) == 488       # with the CTR, quant, fused, plumbing tiers
 
 
 _FORWARD = {}

@@ -371,7 +371,7 @@ def assert_outputs_match(ref, port, rtol, what):
 def test_the_35_op_types_are_registered():
     assert len(set(FUSED_OPS)) == 35
     assert set(FUSED_OPS) <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 437
+    assert len(treg.all_ops()) == 488
     assert not set(treg.all_ops()) - set(jreg.all_ops())
     assert set(FUSED_OPS) - {"py_func"} == {op for op, _, _ in
                                             OP_CASES.values()}

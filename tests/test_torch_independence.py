@@ -92,7 +92,8 @@ def test_import_leaves_jax_and_reference_out():
               "contrib.slim.quantization.imperative",
               "contrib.slim.quantization.imperative.quant_nn",
               "contrib.slim.quantization.imperative.qat",
-              "contrib.quantize"):
+              "contrib.quantize", "ops.nondiff_reasons",
+              "ops.misc_ops"):
         assert "paddle_tpu_torch." + m in report["modules"]
 
 

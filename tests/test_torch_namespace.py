@@ -68,17 +68,9 @@ MISSING = {
             "is_compiled_with_cuda", "load_op_library", "require_version",)},
     },
     "fluid.layers": {
-        **{n: 8 for n in ("affine_channel",
-            "cond_value", "diag", "gaussian_random",
-            "gaussian_random_batch_size_like",
-            "get_tensor_from_selected_rows", "lod_append", "lod_reset",
-            "logical_xor", "matmul_v2", "merge_selected_rows",
-            "pad_constant_like", "shuffle_channel",
-            "temporal_shift", "tensor_array_to_tensor", "triu", "unbind",
-            "uniform_random", "uniform_random_batch_size_like",)},
         **{n: 12 for n in ("ConstantInitializer", "LayerHelper", "Variable",
             "XavierInitializer", "create_py_reader_by_data", "create_tensor",
-            "double_buffer", "in_dygraph_mode", "load",
+            "double_buffer", "in_dygraph_mode",
             "py_reader", "read_file", "unique_name",)},
     },
     "fluid.optimizer": {},

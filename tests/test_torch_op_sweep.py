@@ -9,8 +9,9 @@ probe candidates (``_cands()``) that the reference's lowering runs at
 all (comparisons, reductions to bool, index ops).  The recurrent,
 beam-search and sequence-tier op types, which those lack, take the first
 case of each in ``test_torch_rnn_ops.OP_CASES``,
-``test_torch_rnn_decode.NLP_CASES``, ``test_torch_sequence_ops.OP_CASES``
-and ``test_torch_fused_tier.OP_CASES``; the detection op types those lack
+``test_torch_rnn_decode.NLP_CASES``, ``test_torch_sequence_ops.OP_CASES``,
+``test_torch_fused_tier.OP_CASES`` and
+``test_torch_plumbing_tier.OP_CASES``; the detection op types those lack
 are held on their own cases by ``test_torch_detection_ops.py``, and the
 CTR op types the probe cannot feed by ``test_torch_ctr_tier.py``
 (``SKIPS``).
@@ -41,6 +42,7 @@ from paddle_tpu_torch.ops import registry as treg
 
 from test_op_grads_auto import _cands, _probe, _specs
 from test_torch_fused_tier import OP_CASES as FUSED_CASES
+from test_torch_plumbing_tier import OP_CASES as PLUMBING_CASES
 from test_torch_rnn_decode import NLP_CASES
 from test_torch_rnn_ops import OP_CASES
 from test_torch_sequence_ops import OP_CASES as SEQUENCE_CASES
@@ -74,6 +76,10 @@ _QUANT = ("a scale, a moving-average state, a log dictionary, a confusion "
           "matrix's classes or a class count's states, which the probe "
           "does not make: tests/test_torch_quant_tier.py holds it against "
           "the reference")
+_PLUMBING = ("a tensor array, a rank table, a file, a queue or a "
+             "registry of sparse tables, which the probe does not make: "
+             "tests/test_torch_plumbing_tier.py holds it against the "
+             "reference")
 _ATTRS_ONLY = ("makes its output from attributes (shape, value, range) "
                "alone; the probe feeds tensors: "
                "tests/test_torch_tensor.py")
@@ -129,6 +135,18 @@ SKIPS = {
         "auc", "filter_by_instag", "merge_ids", "pull_box_extended_sparse",
         "scaled_int8fc", "tdm_child")},
     **{op: _CTR_RANDOM for op in ("shuffle_batch", "tdm_sampler")},
+    **{op: _PLUMBING for op in (
+        "array_to_lod_tensor", "dequeue", "distributed_lookup_table",
+        "enqueue", "load", "load_combine", "lod_tensor_to_array",
+        "lookup_sparse_table_fuse_adam", "lookup_sparse_table_fuse_sgd",
+        "lookup_sparse_table_init", "lookup_sparse_table_read",
+        "lookup_sparse_table_write", "max_sequence_len", "queue_generator",
+        "save", "save_combine", "shrink_rnn_memory",
+        "tensor_array_to_tensor")},
+    **{op: ("draws random numbers: tests/test_torch_plumbing_tier.py holds "
+            "it to its contract (ground rule 5)")
+       for op in ("gaussian_random_batch_size_like",
+                  "uniform_random_batch_size_like")},
     **{op: _QUANT for op in (
         "dequantize_abs_max", "dequantize_log",
         "fake_channel_wise_dequantize_max_abs", "fake_dequantize_max_abs",
@@ -155,7 +173,8 @@ SWEPT = [op for op in COMMON if op not in SKIPS and op not in CONTRACT]
 _NEW_OPS = {}
 for _op, _ins, _attrs in (list(OP_CASES.values()) + list(NLP_CASES.values())
                           + list(SEQUENCE_CASES.values())
-                          + list(FUSED_CASES.values())):
+                          + list(FUSED_CASES.values())
+                          + list(PLUMBING_CASES.values())):
     _NEW_OPS.setdefault(_op, dict(inputs=_ins, attrs=_attrs))
 
 

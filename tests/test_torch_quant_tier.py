@@ -99,7 +99,7 @@ def test_the_35_op_types_are_registered():
     new = set(QUANT_OPS) | set(REMAINDER_OPS)
     assert len(new) == 35
     assert new <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 437
+    assert len(treg.all_ops()) == 488
     assert not set(treg.all_ops()) - set(jreg.all_ops())
 
 

@@ -173,9 +173,9 @@ def test_the_eleven_op_types_are_registered():
     assert new <= set(treg.all_ops())
     assert new <= set(jreg.all_ops())
     # 245, the image layers' 33, the sequence tier's 29, the detection
-    # tier's 34, the CTR tier's 26, the quant tier's 35 and the fused
-    # tier's 35
-    assert len(treg.all_ops()) == 437
+    # tier's 34, the CTR tier's 26, the quant tier's 35, the fused
+    # tier's 35 and the plumbing tier's 51
+    assert len(treg.all_ops()) == 488
 
 
 def test_cudnn_lstm_w_is_nn_lstm_layout():

@@ -212,7 +212,7 @@ def test_the_29_op_types_are_registered():
     from paddle_tpu.ops import registry as jreg
     assert len(NEW_OP_TYPES) == 29
     assert NEW_OP_TYPES <= set(treg.all_ops()) & set(jreg.all_ops())
-    assert len(treg.all_ops()) == 437     # with detection, CTR, quant, fused
+    assert len(treg.all_ops()) == 488     # with detection, CTR, quant, fused, plumbing
 
 
 @pytest.mark.parametrize("case", sorted(OP_CASES))
